@@ -1,0 +1,288 @@
+"""Smoke run of the PyTorch/CUDA port on one GPU (run from the repo root):
+
+    python3 chip_smoke.py [--seed 0] [--steps 300]
+
+Phases (any failure exits non-zero before the last line is printed):
+
+1. require CUDA; print the card's name and power limit (nvidia-smi);
+2. build the CUDA kernels from ``schnetpack_tpu_torch/csrc`` (nvcc, sm_90a);
+3. hold each kernel K1-K4 against its plain PyTorch twin on the card at the
+   shapes of the MD run below (10,976-atom argon box in the layout the
+   port's neighbor list builds, F=128, B=20, f32, random features from
+   --seed), tolerance rtol 1e-4 / atol 1e-5 elementwise, and time both;
+4. hold the port's energy and forces on the card to the JAX reference
+   ``tests/data/port_ref_painn_argon.npz`` (force rms <= 1e-4 eV/Ang,
+   energy within 1e-5 relative);
+5. run NVE velocity Verlet at 0.5 fs of the 10,976-atom periodic FCC argon
+   box with the trained PaiNN-128x3 (``scripts/assets/
+   bench_painn_argon.msgpack``), Maxwell-Boltzmann momenta at 30 K, the
+   column neighbor list (5 A cutoff, 0.6 A skin): a warm-up, a retighten of
+   the capacities, then --steps timed steps; check finite positions,
+   0 < T < 300 K, total-energy drift <= 1e-4 eV/atom, and that every
+   kernel ran exactly 3 times per step;
+6. print the kernel table and the card as JSON, then the result line.
+"""
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+ASSET = os.path.join(ROOT, "scripts", "assets", "bench_painn_argon.msgpack")
+REFERENCE = os.path.join(ROOT, "tests", "data", "port_ref_painn_argon.npz")
+CUTOFF, SKIN = 5.0, 0.6          # Angstrom
+RTOL, ATOL = 1e-4, 1e-5          # kernel vs twin, elementwise
+FORCE_RMS_TOL = 1e-4             # eV/Ang vs the JAX reference
+ENERGY_RTOL = 1e-5
+DRIFT_TOL = 1e-4                 # eV/atom, max |E_tot(t) - E_tot(0)|
+
+
+def fcc_box(n_target: int, a: float = 5.26):
+    """FCC argon supercell with ~n_target atoms (``bench.py::fcc_box``)."""
+    n = int(round((n_target / 4) ** (1 / 3)))
+    base = np.array([[0, 0, 0], [0.5, 0.5, 0], [0.5, 0, 0.5], [0, 0.5, 0.5]])
+    grid = np.stack(np.meshgrid(*[np.arange(n)] * 3, indexing="ij"),
+                    -1).reshape(-1, 1, 3)
+    return ((base[None] + grid) * a).reshape(-1, 3), np.eye(3) * a * n
+
+
+def cuda_ms(fn, reps=10):
+    """Mean CUDA-event time of ``fn`` after one warm-up call."""
+    fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def compare(name, got, want):
+    err = 0.0
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=RTOL, atol=ATOL,
+                                   msg=lambda m: f"{name}: {m}")
+        err = max(err, float((g - w).abs().max()))
+    return err
+
+
+def molecule(R, cell):
+    from schnetpack_tpu_torch import properties as P
+
+    return {P.Z: np.full(len(R), 18, np.int64), P.R: R, P.cell: cell,
+            P.pbc: np.ones(3, bool)}
+
+
+def potential():
+    from schnetpack_tpu_torch.atomistic import Atomwise, Forces
+    from schnetpack_tpu_torch.convert import load_jax_params, params_from_jax
+    from schnetpack_tpu_torch.model import NeuralNetworkPotential
+    from schnetpack_tpu_torch.representation import PaiNN
+
+    pot = NeuralNetworkPotential(
+        PaiNN(n_atom_basis=128, n_interactions=3, n_rbf=20, cutoff=CUTOFF),
+        [Atomwise(n_in=128), Forces()])
+    return pot, params_from_jax(load_jax_params(ASSET))
+
+
+def calculator(pot, params, jitter=0.25, headroom=1.0 / 12.0):
+    from schnetpack_tpu_torch.md import CellBlockNeighborListMD
+    from schnetpack_tpu_torch.md.calculators import SchNetPackCalculator
+    from schnetpack_tpu_torch.units import _parse_unit, md_units
+
+    conv = _parse_unit("Ang") * md_units().length
+    nbl = CellBlockNeighborListMD(CUTOFF * conv, skin=SKIN * conv,
+                                  layout="column", jitter_fraction=jitter,
+                                  bucket_headroom=headroom)
+    return SchNetPackCalculator(pot, params, cutoff=CUTOFF, cutoff_shell=SKIN,
+                                neighbor_list=nbl)
+
+
+def kernel_phase(calc, system, seed, dev):
+    """K1-K4 against their twins at the MD run's shapes; returns rows."""
+    from schnetpack_tpu_torch import properties as P
+    from schnetpack_tpu_torch.ops import colblock_message as msg
+    from schnetpack_tpu_torch.ops import painn_mixing as mix
+    from schnetpack_tpu_torch.ops.colblock import ColRefs
+
+    st = calc.init_state(system)
+    inputs = calc.model_inputs(system, st)
+    rep = calc.model.representation
+    R = inputs[P.R].contiguous()
+    qcol = inputs[P.cell_qcol]
+    refs = ColRefs(qcol, inputs[P.cell_dcol],
+                   R.shape[0] // (qcol.shape[0] * qcol.shape[1]),
+                   tuple(inputs[P.cell_ksz]))
+    coff = inputs[P.cell_coff_fm].contiguous()
+    F, Ap = rep.n_atom_basis, R.shape[0]
+    g = torch.Generator().manual_seed(seed)
+
+    def rnd(*shape, scale=0.3):
+        return (torch.randn(shape, generator=g) * scale).to(dev)
+
+    x, mu = rnd(Ap, 3 * F), rnd(Ap, 3 * F)
+    g_dq, g_dmu = rnd(Ap, F, scale=1.0), rnd(Ap, 3 * F, scale=1.0)
+    margs = (x, mu, R, rep.FW_aug[0].contiguous(), coff, rep.cw, refs,
+             rep.cutoff)
+    m0 = rep.mixing[0]
+    w = (m0.kmix, m0.k0, m0.b0, m0.k1, m0.b1)
+    xargs = (rnd(Ap, F, scale=1.0), mu, g_dq * 0.3, g_dmu * 0.3, *w,
+             m0.epsilon, m0.activation)
+    print(f"layout: dims={calc.nbl._layout.dims[:3]} Ktot={qcol.shape[2]} "
+          f"A'={Ap}", flush=True)
+
+    cases = [
+        ("msg_fwd", "colblock_message.cu", "colblock_pallas.py:1889",
+         lambda: msg.msg_fwd_kernel(*margs), lambda: msg.msg_fwd_plain(*margs)),
+        ("msg_bwd", "colblock_message.cu", "colblock_pallas.py:1239",
+         lambda: msg.msg_bwd_kernel(*margs, g_dq, g_dmu),
+         lambda: msg.msg_bwd_plain(*margs, g_dq, g_dmu)),
+        ("mix_fwd", "painn_mixing.cu", "painn_mixing.py:73",
+         lambda: mix.mix_fwd_kernel(*xargs),
+         lambda: mix.painn_mixing_plain(*xargs)),
+        ("mix_bwd", "painn_mixing.cu", "painn_mixing.py:83",
+         lambda: mix.mix_bwd_kernel(*xargs, g_dq, g_dmu),
+         lambda: mix.painn_mixing_bwd_plain(*xargs, g_dq, g_dmu)),
+    ]
+    rows = []
+    for name, src, replaces, kern, plain in cases:
+        err = compare(name, kern(), plain())
+        ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
+        print(f"kernel {name}: max_abs_err={err:.3e} {ms:.4f} ms "
+              f"(plain twin {plain_ms:.4f} ms)", flush=True)
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"schnetpack_tpu_torch/csrc/{src}",
+                     "replaces": f"schnetpack_tpu/ops/{replaces}",
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+    return rows
+
+
+def reference_phase(dev):
+    from schnetpack_tpu_torch.md import load_molecules
+
+    ref = np.load(REFERENCE)
+    pot, params = potential()
+    calc = calculator(pot, params)
+    system = load_molecules([molecule(ref["R"].astype(np.float64),
+                                      ref["cell"])], device=dev)
+    system = calc.calculate(system, calc.init_state(system))
+    F = (system.forces[0] / calc.force_conversion).cpu().numpy()
+    E = float(system.energy[0, 0]) / calc.energy_conversion
+    rms = float(np.sqrt(np.mean((F - ref["forces"]) ** 2)))
+    dE = abs(E - float(ref["energy"])) / abs(float(ref["energy"]))
+    print(f"reference: force rms err {rms:.3e} eV/Ang (max "
+          f"{np.abs(F - ref['forces']).max():.3e}), energy {E:.6f} vs "
+          f"{float(ref['energy']):.6f} eV (rel {dE:.2e})", flush=True)
+    assert np.isfinite(F).all() and F.shape == ref["forces"].shape
+    assert rms <= FORCE_RMS_TOL, f"force rms {rms} > {FORCE_RMS_TOL}"
+    assert dE <= ENERGY_RTOL, f"energy rel err {dE} > {ENERGY_RTOL}"
+
+
+def md_phase(calc, system, steps, seed, launches):
+    from schnetpack_tpu_torch.md import (
+        MaxwellBoltzmannInit, Simulator, VelocityVerlet,
+    )
+
+    system = MaxwellBoltzmannInit(30.0).initialize_system(
+        system, torch.Generator().manual_seed(seed + 1))
+    sim = Simulator(system, VelocityVerlet(0.5), calc)
+    sim.simulate(100, chunk_size=100)            # warm-up (equilibration)
+    calc.nbl.retighten(sim.system, jitter_fraction=0.05,
+                       bucket_headroom=1.0 / 24.0)
+    sim.calc_state = calc.nbl.state()
+    print(f"after retighten: dims={calc.nbl._layout.dims[:3]} "
+          f"Ktot={sum(calc.nbl._K)}", flush=True)
+    builds0 = calc.nbl.n_builds
+    for counts in launches:
+        for k in counts:
+            counts[k] = 0
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    sim.simulate(steps, chunk_size=100)
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ms_step = start.elapsed_time(end) / steps
+    counts = {k: v for c in launches for k, v in c.items()}
+
+    s = sim.system
+    A = s.total_atoms
+    R = s.positions.cpu().numpy()
+    T = float(s.temperature.mean())
+    logs = sim.logs[-(steps // 100):]
+    E_pot = np.concatenate([lg["energy"][:, 0, 0] for lg in logs])
+    T_log = np.concatenate([lg["temperature"][:, 0, 0] for lg in logs])
+    from schnetpack_tpu_torch.units import md_units
+
+    E_kin = 1.5 * A * md_units().kB * T_log            # MD energy units
+    E_tot = (E_pot + E_kin) / calc.energy_conversion   # eV
+    drift = float(np.abs(E_tot - E_tot[0]).max()) / A
+    print(f"md: {steps} steps, {A} atoms, ms/step (CUDA events) "
+          f"{ms_step:.3f}, wall {1e3 * wall / steps:.3f} ms/step, "
+          f"{A / (ms_step * 1e-3):.4g} atom-steps/s, T_end={T:.2f} K, "
+          f"max |E_tot - E_tot(0)| = {drift:.3e} eV/atom, host rebuilds "
+          f"{calc.nbl.n_builds - builds0}", flush=True)
+    assert np.isfinite(R).all(), "non-finite positions"
+    assert 0.0 < T < 300.0, f"temperature {T} K"
+    assert drift <= DRIFT_TOL, f"energy drift {drift} eV/atom"
+    for k, v in counts.items():
+        assert v == 3 * steps, f"{k} launched {v} times, want {3 * steps}"
+    return counts, ms_step
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--steps", type=int, default=300)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        sys.exit(2)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(f"card: {smi}", flush=True)
+    import schnetpack_tpu_torch  # noqa: F401 (sets f32 matmul precision)
+    from schnetpack_tpu_torch.md import load_molecules
+    from schnetpack_tpu_torch.ops import _build
+    from schnetpack_tpu_torch.ops import colblock_message as msg
+    from schnetpack_tpu_torch.ops import painn_mixing as mix
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    _build.lib()
+    print(f"build: {time.perf_counter() - t0:.1f} s (nvcc "
+          f"{_build.build_seconds:.1f} s)", flush=True)
+
+    pos, cell = fcc_box(10_000)
+    pot, params = potential()
+    calc = calculator(pot, params)
+    system = load_molecules([molecule(pos, cell)], device=dev)
+    rows = kernel_phase(calc, system, args.seed, dev)
+    reference_phase(dev)
+    counts, ms_step = md_phase(calc, system, args.steps, args.seed,
+                               (msg.LAUNCHES, mix.LAUNCHES))
+    for row in rows:
+        row["launches"] = counts[row["name"]]
+    print(f"md ms/step {ms_step:.3f} on {smi}")
+    print(json.dumps({"kernels": rows}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,124 @@
+"""Build and load the port's CUDA kernels.
+
+The sources in ``schnetpack_tpu_torch/csrc/*.cu`` expose a plain C
+interface.  On first use they are compiled with ``nvcc`` for Hopper
+(``sm_90a``) into one shared library under ``schnetpack_tpu_torch/_build/``
+(named by a hash of the sources, so an edited source rebuilds), which is
+loaded with ``ctypes``.  Pointers are passed as ``data_ptr()``; every entry
+point launches on the given stream and returns ``cudaGetLastError()``.
+Nothing here runs at import time: the CPU tests import every module.
+"""
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+import torch
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+#: argument types of each C entry point (pointers, ints, floats, stream)
+SIGNATURES = {
+    "spk_msg_fwd": [_P] * 8 + [_P, _P] + [_I] * 4 + [_P] + [_I, _I, _F, _P],
+    "spk_msg_bwd": [_P] * 12 + [_P] * 4 + [_I] * 4 + [_P] + [_I] * 3
+                   + [_F, _P],
+    "spk_mix_fwd": [_P] * 9 + [_P, _P] + [_I, _I, _F, _I, _P],
+    "spk_mix_bwd": [_P] * 14 + [_P, _P] + [_I, _I, _F, _I, _P],
+}
+
+_LIB = None
+#: seconds the last build took (0.0 when the library was already built)
+build_seconds = 0.0
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit (PATH or /usr/local/cuda/bin)")
+    return path
+
+
+def build() -> str:
+    """Compile the kernels if the library for the current sources is
+    missing; returns the library path."""
+    global build_seconds
+    sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+    headers = sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for p in sources + headers:
+        with open(p, "rb") as f:
+            h.update(f.read())
+    so = os.path.join(BUILD_DIR, f"libspk_kernels_{h.hexdigest()[:12]}.so")
+    if os.path.exists(so):
+        build_seconds = 0.0
+        return so
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{so}.{os.getpid()}.tmp"
+    t0 = time.perf_counter()
+    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources],
+                         capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    os.replace(tmp, so)
+    build_seconds = time.perf_counter() - t0
+    return so
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _LIB
+    if _LIB is None:
+        handle = ctypes.CDLL(build())
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(handle, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _LIB = handle
+    return _LIB
+
+
+def launch(name: str, *args) -> None:
+    """Call entry point ``name`` on the current stream; raise on a launch
+    error (a refused launch never runs and a later synchronize would not
+    report it)."""
+    stream = torch.cuda.current_stream().cuda_stream
+    err = getattr(lib(), name)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def ptr(t: torch.Tensor) -> int:
+    return t.data_ptr()
+
+
+def int_array(values) -> ctypes.Array:
+    """Host int[] (bucket offsets, chunk ranges) for an entry point."""
+    values = [int(v) for v in values]
+    return (ctypes.c_int * len(values))(*values)
+
+
+def check(t: torch.Tensor, name: str, shape, dtype=torch.float32) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of the given shape
+    and type (what the kernels take)."""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")

@@ -1,0 +1,169 @@
+"""Fully fused PaiNN column message: CUDA kernels K1/K2 and their twin.
+
+Counterpart of the FUSE="full" path of ``schnetpack_tpu/ops/
+colblock_pallas.py`` (``painn_message_columns_full_fused_pallas``): the
+per-edge geometry is recomputed from the positions inside both the
+forward kernel (K1, ``csrc/colblock_message.cu::msg_fwd_kernel``) and the
+backward kernel (K2, ``msg_bwd_kernel``), and the position cotangent comes
+straight out of K2.  No per-edge tensor exists in device memory, and the
+geometry has no second autograd path, so forces are counted once.
+
+On CUDA tensors the op launches the kernels (or raises); on CPU tensors it
+runs the plain twin, the gather / per-edge math / fold composition of
+``ops/colblock.py``, under ordinary autograd.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from .colblock import ColRefs, column_geometry, decode_j, painn_message
+
+#: kernel launches since the last reset (the main path adds one per call)
+LAUNCHES = {"msg_fwd": 0, "msg_bwd": 0}
+_MAX_GROUPS = 8   # row ranges per source column in K2
+
+
+def _shapes(x, cw, refs: ColRefs):
+    nx, ny, Ktot = refs.qcol.shape
+    return nx, ny, Ktot, nx * ny * refs.P, x.shape[1] // 3, cw.shape[0]
+
+
+def _check(x, mu, R, FW_aug, coff_fm, cw, refs: ColRefs):
+    nx, ny, Ktot, Ap, F, B = _shapes(x, cw, refs)
+    if F % 32 or F > 128:
+        raise ValueError(
+            f"the message kernels take F % 32 == 0 and F <= 128, got F={F}")
+    if any(k % 8 for k in refs.ksizes):
+        raise ValueError(f"bucket sizes must be multiples of 8: {refs.ksizes}")
+    _build.check(x, "x", (Ap, 3 * F))
+    _build.check(mu, "mu", (Ap, 3 * F))
+    _build.check(R, "R", (Ap, 3))
+    _build.check(FW_aug, "FW_aug", (B + 1, 3 * F))
+    _build.check(coff_fm, "coff_fm", (nx, ny, 3, Ktot))
+    _build.check(cw, "cw", (B, 2))
+    _build.check(refs.qcol, "qcol", (nx, ny, Ktot), torch.int32)
+    _build.check(refs.dcol, "dcol", (nx, ny, Ktot), torch.int32)
+
+
+def msg_fwd_kernel(x, mu, R, FW_aug, coff_fm, cw, refs: ColRefs, rc: float):
+    """K1: dq [A', F], dmu [A', 3F] summed per destination atom."""
+    _check(x, mu, R, FW_aug, coff_fm, cw, refs)
+    nx, ny, Ktot, Ap, F, B = _shapes(x, cw, refs)
+    dq = x.new_empty((Ap, F))
+    dmu = x.new_empty((Ap, 3 * F))
+    p = _build.ptr
+    _build.launch("spk_msg_fwd", p(x), p(mu), p(R), p(FW_aug), p(coff_fm),
+                  p(cw), p(refs.qcol), p(refs.dcol), p(dq), p(dmu), nx, ny,
+                  refs.P, Ktot, _build.int_array(refs.koffs), F, B, float(rc))
+    LAUNCHES["msg_fwd"] += 1
+    return dq, dmu
+
+
+def _bwd_schedule(refs: ColRefs, n_cols: int):
+    """K2's schedule, computed once per ``refs`` (cached on it): every
+    edge slot (dest column * Ktot + slot) sorted by source atom, padded
+    slots last, and per source column G+1 bounds (source row, edge index)
+    that cut its rows into G ranges of about equal edge count (G gives
+    about two blocks per SM, at most 8).  Fixed shapes throughout, so no
+    host synchronisation."""
+    if "bwd" in refs.cache:
+        return refs.cache["bwd"]
+    P = refs.P
+    j, valid = decode_j(refs)
+    key = torch.where(valid, j, n_cols * P).reshape(-1)
+    esorted = torch.argsort(key, stable=True).to(torch.int32)
+    cnt = torch.zeros(n_cols * P + 1, dtype=torch.int64, device=key.device)
+    cnt = cnt.index_add_(0, key, torch.ones_like(key))[:-1]
+    cum = cnt.reshape(n_cols, P).cumsum(1)
+    sms = torch.cuda.get_device_properties(key.device).multi_processor_count
+    G = int(min(_MAX_GROUPS, P, max(1, -(-2 * sms // n_cols))))
+    steps = torch.arange(1, G, device=key.device)
+    inner = torch.searchsorted(cum, (cum[:, -1:] * steps) // G) + 1
+    rows = torch.cat([torch.zeros_like(cum[:, :1]), inner.clamp(max=P),
+                      torch.full_like(cum[:, :1], P)], dim=1)
+    cumx = torch.cat([torch.zeros_like(cum[:, :1]), cum], dim=1)
+    col_start = (cum[:, -1].cumsum(0) - cum[:, -1])[:, None]
+    edges = col_start + cumx.gather(1, rows)
+    grp = torch.stack([rows, edges], dim=-1).to(torch.int32).contiguous()
+    refs.cache["bwd"] = (esorted, grp, G)
+    return refs.cache["bwd"]
+
+
+def msg_bwd_kernel(x, mu, R, FW_aug, coff_fm, cw, refs: ColRefs, rc: float,
+                   g_dq, g_dmu):
+    """K2: cotangents (dx, dmu, dR) of K1's outputs for (g_dq, g_dmu).
+
+    Blocks own source-row ranges (``_bwd_schedule``), so dx, dmu and the
+    own-column position cotangent have one writer per row; the
+    destination-side position cotangents come as partials
+    [G, 9, nx*ny, 3, P] (one per row range and bucket) that are summed
+    here, as ``colblock_pallas.py:1494-1497`` sums them outside the TPU
+    kernel."""
+    _check(x, mu, R, FW_aug, coff_fm, cw, refs)
+    nx, ny, Ktot, Ap, F, B = _shapes(x, cw, refs)
+    _build.check(g_dq, "g_dq", (Ap, F))
+    _build.check(g_dmu, "g_dmu", (Ap, 3 * F))
+    esorted, grp, G = _bwd_schedule(refs, nx * ny)
+    dx = torch.empty_like(x)
+    dmu = torch.empty_like(mu)
+    gRo = x.new_empty((nx * ny, 3, refs.P))
+    gRd = x.new_empty((G, 9, nx * ny, 3, refs.P))
+    p = _build.ptr
+    _build.launch("spk_msg_bwd", p(x), p(mu), p(R), p(FW_aug), p(coff_fm),
+                  p(cw), p(refs.qcol), p(refs.dcol), p(esorted), p(grp),
+                  p(g_dq), p(g_dmu), p(dx), p(dmu), p(gRo), p(gRd), nx, ny,
+                  refs.P, Ktot, _build.int_array(refs.koffs), G, F, B,
+                  float(rc))
+    LAUNCHES["msg_bwd"] += 1
+    dR = (gRo + gRd.sum((0, 1))).transpose(1, 2).reshape(Ap, 3)
+    return dx, dmu, dR
+
+
+def msg_fwd_plain(x, mu, R, FW_aug, coff_fm, cw, refs: ColRefs, rc: float):
+    """Plain twin of K1 (autograd-able)."""
+    rbf_aug, dirs = column_geometry(R, coff_fm, refs, cw, rc)
+    return painn_message(x, mu, rbf_aug, dirs, FW_aug, refs)
+
+
+def msg_bwd_plain(x, mu, R, FW_aug, coff_fm, cw, refs: ColRefs, rc: float,
+                  g_dq, g_dmu):
+    """Plain twin of K2: the VJP of ``msg_fwd_plain`` w.r.t. (x, mu, R)."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(True) for t in (x, mu, R)]
+        out = msg_fwd_plain(*ins, FW_aug.detach(), coff_fm, cw, refs, rc)
+        return torch.autograd.grad(out, ins, (g_dq, g_dmu))
+
+
+class PaiNNMessageFullFused(torch.autograd.Function):
+    """K1 forward, K2 backward (no filter-weight cotangent)."""
+
+    @staticmethod
+    def forward(ctx, x, mu, R, FW_aug, coff_fm, cw, refs, rc):
+        ctx.save_for_backward(x, mu, R, FW_aug, coff_fm, cw)
+        ctx.refs, ctx.rc = refs, rc
+        return msg_fwd_kernel(x, mu, R, FW_aug, coff_fm, cw, refs, rc)
+
+    @staticmethod
+    def backward(ctx, g_dq, g_dmu):
+        x, mu, R, FW_aug, coff_fm, cw = ctx.saved_tensors
+        dx, dmu, dR = msg_bwd_kernel(x, mu, R, FW_aug, coff_fm, cw, ctx.refs,
+                                     ctx.rc, g_dq.contiguous(),
+                                     g_dmu.contiguous())
+        return dx, dmu, dR, None, None, None, None, None
+
+
+def painn_message_columns_full_fused(x, mu, R, FW_aug, coff_fm, cw,
+                                     refs: ColRefs, rc: float):
+    """PaiNN message over the column layout with the geometry recomputed
+    from ``R`` [A', 3] (signature of ``schnetpack_tpu.ops.colblock.
+    painn_message_columns_full_fused``).  Returns dq [A', F], dmu [A', 3F].
+    """
+    if not x.is_cuda:
+        return msg_fwd_plain(x, mu, R, FW_aug, coff_fm, cw, refs, rc)
+    if FW_aug.requires_grad:
+        raise NotImplementedError(
+            "the CUDA message backward has no filter-weight cotangent yet; "
+            "freeze the parameters (requires_grad_(False)) for MD")
+    return PaiNNMessageFullFused.apply(x, mu, R, FW_aug, coff_fm, cw, refs,
+                                       float(rc))

@@ -1,0 +1,134 @@
+"""Fused PaiNN mixing: CUDA kernels K3/K4 and their plain twin.
+
+Counterpart of ``schnetpack_tpu/ops/painn_mixing.py``: the interaction
+residual add and the whole intra-atomic mixing block run as one kernel
+(K3, ``csrc/painn_mixing.cu::mix_fwd_kernel``); the backward (K4,
+``mix_bwd_kernel``) recomputes the forward and returns the input
+cotangents.  By the residual identity the cotangents of q and dq (mu and
+dmu) are equal.  Unlike the JAX wrapper there is no fallback for row
+counts without a dividing block: the kernels mask the ragged tail.
+
+On CUDA tensors the op launches the kernels (or raises); on CPU tensors it
+runs the plain twin (the math of ``_fwd_core``) under ordinary autograd.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from .activations import ACTIVATIONS
+
+#: kernel launches since the last reset (the main path adds one per call)
+LAUNCHES = {"mix_fwd": 0, "mix_bwd": 0}
+_ACT_CODE = {"ssp": 0, "silu": 1}
+
+
+def painn_mixing_plain(q, mu, dq, dmu, kmix, k0, b0, k1, b1, eps: float,
+                       act: str):
+    """Plain twin of K3 (``painn_mixing.py:48-70``): (q_out, mu_out)."""
+    F = q.shape[1]
+    qp = q + dq
+    mup = mu + dmu
+    mu_c = mup.split(F, dim=1)
+    V_c = [m @ kmix[:, :F] for m in mu_c]
+    W_c = [m @ kmix[:, F:] for m in mu_c]
+    Vn = torch.sqrt(V_c[0] ** 2 + V_c[1] ** 2 + V_c[2] ** 2 + eps)
+    h = ACTIVATIONS[act](qp @ k0[:F] + Vn @ k0[F:] + b0)
+    dq_i, dmu_i, dqmu_i = (h @ k1 + b1).split(F, dim=1)
+    vw = V_c[0] * W_c[0] + V_c[1] * W_c[1] + V_c[2] * W_c[2]
+    q_out = qp + dq_i + dqmu_i * vw
+    mu_out = torch.cat([m + dmu_i * w for m, w in zip(mu_c, W_c)], dim=1)
+    return q_out, mu_out
+
+
+def painn_mixing_bwd_plain(q, mu, dq, dmu, kmix, k0, b0, k1, b1, eps, act,
+                           gq, gmu):
+    """Plain twin of K4: cotangents of (q + dq, mu + dmu)."""
+    with torch.enable_grad():
+        qp = (q + dq).detach().requires_grad_(True)
+        mup = (mu + dmu).detach().requires_grad_(True)
+        z = torch.zeros_like
+        out = painn_mixing_plain(qp, mup, z(q), z(mu), kmix.detach(),
+                                 k0.detach(), b0.detach(), k1.detach(),
+                                 b1.detach(), eps, act)
+        return torch.autograd.grad(out, (qp, mup), (gq, gmu))
+
+
+def _check(q, mu, dq, dmu, kmix, k0, b0, k1, b1, act):
+    A, F = q.shape
+    if act not in _ACT_CODE:
+        raise ValueError(f"unknown activation {act!r}")
+    for t, n, s in ((q, "q", (A, F)), (mu, "mu", (A, 3 * F)),
+                    (dq, "dq", (A, F)), (dmu, "dmu", (A, 3 * F)),
+                    (kmix, "kmix", (F, 2 * F)), (k0, "k0", (2 * F, F)),
+                    (b0, "b0", (F,)), (k1, "k1", (F, 3 * F)),
+                    (b1, "b1", (3 * F,))):
+        _build.check(t, n, s)
+    if A == 0:
+        raise ValueError("painn mixing kernels need at least one row")
+
+
+def mix_fwd_kernel(q, mu, dq, dmu, kmix, k0, b0, k1, b1, eps: float,
+                   act: str):
+    """K3: (q_out [A, F], mu_out [A, 3F])."""
+    _check(q, mu, dq, dmu, kmix, k0, b0, k1, b1, act)
+    A, F = q.shape
+    qo = torch.empty_like(q)
+    muo = torch.empty_like(mu)
+    p = _build.ptr
+    _build.launch("spk_mix_fwd", p(q), p(mu), p(dq), p(dmu), p(kmix), p(k0),
+                  p(b0), p(k1), p(b1), p(qo), p(muo), A, F, float(eps),
+                  _ACT_CODE[act])
+    LAUNCHES["mix_fwd"] += 1
+    return qo, muo
+
+
+def mix_bwd_kernel(q, mu, dq, dmu, kmix, k0, b0, k1, b1, eps: float,
+                   act: str, gq, gmu):
+    """K4: cotangents (g_qp [A, F], g_mup [A, 3F]) of K3's inputs."""
+    _check(q, mu, dq, dmu, kmix, k0, b0, k1, b1, act)
+    A, F = q.shape
+    _build.check(gq, "gq", (A, F))
+    _build.check(gmu, "gmu", (A, 3 * F))
+    # transposed weight copies keep the kernel's transposed products
+    # coalesced (three small copies per call)
+    kmixT, k0T, k1T = (w.t().contiguous() for w in (kmix, k0, k1))
+    gqi = torch.empty_like(q)
+    gmui = torch.empty_like(mu)
+    p = _build.ptr
+    _build.launch("spk_mix_bwd", p(q), p(mu), p(dq), p(dmu), p(gq), p(gmu),
+                  p(kmix), p(k0), p(b0), p(k1), p(b1), p(kmixT), p(k0T),
+                  p(k1T), p(gqi), p(gmui), A, F, float(eps), _ACT_CODE[act])
+    LAUNCHES["mix_bwd"] += 1
+    return gqi, gmui
+
+
+class PaiNNMixingFused(torch.autograd.Function):
+    """K3 forward, K4 backward (no weight cotangents)."""
+
+    @staticmethod
+    def forward(ctx, q, mu, dq, dmu, kmix, k0, b0, k1, b1, eps, act):
+        ctx.save_for_backward(q, mu, dq, dmu, kmix, k0, b0, k1, b1)
+        ctx.eps, ctx.act = eps, act
+        return mix_fwd_kernel(q, mu, dq, dmu, kmix, k0, b0, k1, b1, eps, act)
+
+    @staticmethod
+    def backward(ctx, gq, gmu):
+        gqi, gmui = mix_bwd_kernel(*ctx.saved_tensors, ctx.eps, ctx.act,
+                                   gq.contiguous(), gmu.contiguous())
+        return (gqi, gmui, gqi, gmui) + (None,) * 7
+
+
+def painn_mixing_fused(q, mu, dq, dmu, kmix, k0, b0, k1, b1, eps: float,
+                       act: str):
+    """Residual add + PaiNN mixing block (signature of
+    ``schnetpack_tpu.ops.painn_mixing.painn_mixing_fused``)."""
+    if not q.is_cuda:
+        return painn_mixing_plain(q, mu, dq, dmu, kmix, k0, b0, k1, b1, eps,
+                                  act)
+    if any(w.requires_grad for w in (kmix, k0, b0, k1, b1)):
+        raise NotImplementedError(
+            "the CUDA mixing backward has no weight cotangents yet; freeze "
+            "the parameters (requires_grad_(False)) for MD")
+    return PaiNNMixingFused.apply(q, mu, dq, dmu, kmix, k0, b0, k1, b1,
+                                  float(eps), act)

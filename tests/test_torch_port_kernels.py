@@ -1,0 +1,48 @@
+"""PyTorch port: the CUDA kernels K1-K4 against their plain PyTorch twins,
+on a card only (skipped without CUDA).  No jax import: on a machine
+without jax run ``python -m pytest --noconftest -m gpu
+tests/test_torch_port_kernels.py``."""
+import pytest
+import torch
+
+from schnetpack_tpu_torch.ops import colblock_message as msg
+from schnetpack_tpu_torch.ops import painn_mixing as mix
+from torch_port_cases import (
+    MIX_ATOL, MIX_INPUTS, MIX_RTOL, MSG_ATOL, MSG_RTOL, message_case,
+    mixing_case, torch_message_args,
+)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+def test_message_kernels_match_twin(cuda_device):
+    c = message_case(seed=2)
+    t, refs, cw = torch_message_args(c, cuda_device)
+    args = (t["x"], t["mu"], t["Rs"], t["FW"], t["coff_fm"], cw, refs,
+            c["cutoff"])
+    for got, want in zip(msg.msg_fwd_kernel(*args), msg.msg_fwd_plain(*args)):
+        torch.testing.assert_close(got, want, rtol=MSG_RTOL, atol=MSG_ATOL)
+    for got, want in zip(msg.msg_bwd_kernel(*args, t["g_dq"], t["g_dmu"]),
+                         msg.msg_bwd_plain(*args, t["g_dq"], t["g_dmu"])):
+        torch.testing.assert_close(got, want, rtol=MSG_RTOL, atol=MSG_ATOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("A,act", [(37, "ssp"), (21, "silu")])
+def test_mixing_kernels_match_twin(cuda_device, A, act):
+    c = mixing_case(A=A)
+    ins = [torch.tensor(c[k], device=cuda_device) for k in MIX_INPUTS]
+    gq = torch.tensor(c["gq"], device=cuda_device)
+    gmu = torch.tensor(c["gmu"], device=cuda_device)
+    for got, want in zip(mix.mix_fwd_kernel(*ins, 1e-8, act),
+                         mix.painn_mixing_plain(*ins, 1e-8, act)):
+        torch.testing.assert_close(got, want, rtol=MIX_RTOL, atol=MIX_ATOL)
+    for got, want in zip(mix.mix_bwd_kernel(*ins, 1e-8, act, gq, gmu),
+                         mix.painn_mixing_bwd_plain(*ins, 1e-8, act, gq, gmu)):
+        torch.testing.assert_close(got, want, rtol=MIX_RTOL, atol=MIX_ATOL)

@@ -1,0 +1,61 @@
+"""Shared inputs of the PyTorch-port tests (numpy seeds; no jax import,
+so the card-only tests run where jax is not installed)."""
+import numpy as np
+import torch
+
+from schnetpack_tpu_torch.ops.cellblock import build_column_layout
+from schnetpack_tpu_torch.ops.colblock import ColRefs
+from schnetpack_tpu_torch.ops.radial import gaussian_rbf_table
+
+# message op: f32 sums in another order than XLA's or the kernels'
+MSG_RTOL, MSG_ATOL = 1e-4, 1e-5
+MIX_RTOL, MIX_ATOL = 1e-4, 1e-5
+
+
+def random_box(n=120, L=12.0, seed=0):
+    """The inputs of ``tests/test_colblock.py::_random_box``."""
+    rng = np.random.RandomState(seed)
+    return rng.uniform(0, L, size=(n, 3)), np.eye(3) * L
+
+
+def message_case(F=32, B=12, cutoff=3.0, seed=0):
+    rng = np.random.RandomState(seed)
+    R, cell = random_box(110, 11.0, seed)
+    lay = build_column_layout(R, cutoff + 0.4, cell, np.ones(3, bool),
+                              min_grid=3)
+    Ap = len(lay.order)
+    Rs = (R[lay.order] * lay.slot_mask[:, None]).astype(np.float32)
+    coff_fm = np.ascontiguousarray(
+        np.moveaxis(lay.offcol, -1, 2)).astype(np.float32)
+    return dict(
+        lay=lay, Rs=Rs, coff_fm=coff_fm, cutoff=cutoff, B=B,
+        x=(rng.randn(Ap, 3 * F) * 0.3).astype(np.float32),
+        mu=(rng.randn(Ap, 3 * F) * 0.3).astype(np.float32),
+        FW=(rng.randn(B + 1, 3 * F) * 0.3).astype(np.float32),
+        g_dq=rng.randn(Ap, F).astype(np.float32),
+        g_dmu=rng.randn(Ap, 3 * F).astype(np.float32),
+    )
+
+
+def torch_message_args(c, device="cpu"):
+    t = {k: torch.tensor(c[k], device=device)
+         for k in ("x", "mu", "Rs", "FW", "coff_fm", "g_dq", "g_dmu")}
+    refs = ColRefs.from_layout(c["lay"], device=device)
+    cw = gaussian_rbf_table(c["B"], c["cutoff"], device=device)
+    return t, refs, cw
+
+
+def mixing_case(A=37, F=32, seed=0):
+    rng = np.random.RandomState(seed)
+
+    def r(*s, scale=1.0):
+        return (rng.randn(*s) * scale).astype(np.float32)
+
+    return dict(q=r(A, F), mu=r(A, 3 * F), dq=r(A, F, scale=0.5),
+                dmu=r(A, 3 * F, scale=0.5), kmix=r(F, 2 * F, scale=0.2),
+                k0=r(2 * F, F, scale=0.2), b0=r(F, scale=0.1),
+                k1=r(F, 3 * F, scale=0.2), b1=r(3 * F, scale=0.1),
+                gq=r(A, F), gmu=r(A, 3 * F))
+
+
+MIX_INPUTS = ("q", "mu", "dq", "dmu", "kmix", "k0", "b0", "k1", "b1")
