@@ -5,22 +5,32 @@
 Phases (any failure exits non-zero before the last line is printed):
 
 1. require CUDA; print the card's name and power limit (nvidia-smi);
-2. build the CUDA kernels from ``schnetpack_tpu_torch/csrc`` (nvcc, sm_90a);
-3. hold each kernel K1-K4 against its plain PyTorch twin on the card at the
+2. build the CUDA kernels from ``schnetpack_tpu_torch/csrc`` (one nvcc per
+   source, started together; sm_90a);
+3. hold each kernel K1-K7 against its plain PyTorch twin on the card at the
    shapes of the MD run below (10,976-atom argon box in the layout the
    port's neighbor list builds, F=128, B=20, f32, random features from
-   --seed), tolerance rtol 1e-4 / atol 1e-5 elementwise, and time both;
+   --seed; K6/K7 on the geo that K5 computes there), tolerance rtol 1e-4 /
+   atol 1e-5 elementwise, and time both;
 4. hold the port's energy and forces on the card to the JAX reference
    ``tests/data/port_ref_painn_argon.npz`` (force rms <= 1e-4 eV/Ang,
-   energy within 1e-5 relative);
-5. run NVE velocity Verlet at 0.5 fs of the 10,976-atom periodic FCC argon
+   energy within 1e-5 relative) for both PaiNN message forms (``fuse`` =
+   hybrid and full), and print the force rms between the two;
+5. the neighbor list's device rebuild at full size: jitter the lattice by
+   a seeded uniform +-0.25 A (the 0.3 A skin check fires, the capacities
+   hold), rebuild once on the device and once on the host, and require
+   equal edge sets (original atom ids, periodic shifts) and forces within
+   rms 1e-5 eV/Ang; time both;
+6. run NVE velocity Verlet at 0.5 fs of the 10,976-atom periodic FCC argon
    box with the trained PaiNN-128x3 (``scripts/assets/
    bench_painn_argon.msgpack``), Maxwell-Boltzmann momenta at 30 K, the
    column neighbor list (5 A cutoff, 0.6 A skin): a warm-up, a retighten of
-   the capacities, then --steps timed steps; check finite positions,
-   0 < T < 300 K, total-energy drift <= 1e-4 eV/atom, and that every
-   kernel ran exactly 3 times per step;
-6. print the kernel table and the card as JSON, then the result line.
+   the capacities, then --steps timed steps, on the hybrid path and then
+   on the full path; check finite positions, 0 < T < 300 K, total-energy
+   drift <= 1e-4 eV/atom, the launches per step of every kernel (hybrid:
+   K5 1, K6/K7/K3/K4 3; full: K1/K2/K3/K4 3), and that every rebuild after
+   the retighten went through the device unless it overflowed;
+7. print the kernel table and the card as JSON, then the result line.
 """
 import argparse
 import json
@@ -40,6 +50,14 @@ RTOL, ATOL = 1e-4, 1e-5          # kernel vs twin, elementwise
 FORCE_RMS_TOL = 1e-4             # eV/Ang vs the JAX reference
 ENERGY_RTOL = 1e-5
 DRIFT_TOL = 1e-4                 # eV/atom, max |E_tot(t) - E_tot(0)|
+REBUILD_FORCE_RMS_TOL = 1e-5     # eV/Ang, device vs host neighbor state
+REBUILD_JITTER = 0.25            # Angstrom, per component
+#: kernel launches per MD step on each path
+PER_STEP = {
+    "hybrid": {"geo_fwd": 1, "msg_fwd_geo": 3, "msg_bwd_geores": 3,
+               "mix_fwd": 3, "mix_bwd": 3},
+    "full": {"msg_fwd": 3, "msg_bwd": 3, "mix_fwd": 3, "mix_bwd": 3},
+}
 
 
 def fcc_box(n_target: int, a: float = 5.26):
@@ -80,16 +98,27 @@ def molecule(R, cell):
             P.pbc: np.ones(3, bool)}
 
 
-def potential():
+def potential(fuse="full"):
+    """The trained PaiNN-128x3 (``fuse``: the message form; PaiNN's own
+    default unless given) and its parameters."""
     from schnetpack_tpu_torch.atomistic import Atomwise, Forces
     from schnetpack_tpu_torch.convert import load_jax_params, params_from_jax
     from schnetpack_tpu_torch.model import NeuralNetworkPotential
     from schnetpack_tpu_torch.representation import PaiNN
 
     pot = NeuralNetworkPotential(
-        PaiNN(n_atom_basis=128, n_interactions=3, n_rbf=20, cutoff=CUTOFF),
+        PaiNN(n_atom_basis=128, n_interactions=3, n_rbf=20, cutoff=CUTOFF,
+              fuse=fuse),
         [Atomwise(n_in=128), Forces()])
     return pot, params_from_jax(load_jax_params(ASSET))
+
+
+def layout_str(state):
+    from schnetpack_tpu_torch import properties as P
+
+    nx, ny, Ktot = state[P.cell_qcol].shape
+    return (f"dims=({nx}, {ny}, {state['cell_order'].shape[0] // (nx * ny)})"
+            f" Ktot={Ktot}")
 
 
 def calculator(pot, params, jitter=0.25, headroom=1.0 / 12.0):
@@ -106,8 +135,9 @@ def calculator(pot, params, jitter=0.25, headroom=1.0 / 12.0):
 
 
 def kernel_phase(calc, system, seed, dev):
-    """K1-K4 against their twins at the MD run's shapes; returns rows."""
+    """K1-K7 against their twins at the MD run's shapes; returns rows."""
     from schnetpack_tpu_torch import properties as P
+    from schnetpack_tpu_torch.ops import colblock_geo as geo_op
     from schnetpack_tpu_torch.ops import colblock_message as msg
     from schnetpack_tpu_torch.ops import painn_mixing as mix
     from schnetpack_tpu_torch.ops.colblock import ColRefs
@@ -129,14 +159,17 @@ def kernel_phase(calc, system, seed, dev):
 
     x, mu = rnd(Ap, 3 * F), rnd(Ap, 3 * F)
     g_dq, g_dmu = rnd(Ap, F, scale=1.0), rnd(Ap, 3 * F, scale=1.0)
-    margs = (x, mu, R, rep.FW_aug[0].contiguous(), coff, rep.cw, refs,
-             rep.cutoff)
+    FW = rep.FW_aug[0].contiguous()
+    margs = (x, mu, R, FW, coff, rep.cw, refs, rep.cutoff)
+    gargs = (R, coff, refs, rep.cw, rep.cutoff)
+    geo = geo_op.geo_fwd_kernel(*gargs)
+    hargs = (x, mu, geo, FW, refs)
+    bargs = (x, mu, geo, FW, rep.cw, refs, rep.cutoff, g_dq, g_dmu)
     m0 = rep.mixing[0]
     w = (m0.kmix, m0.k0, m0.b0, m0.k1, m0.b1)
     xargs = (rnd(Ap, F, scale=1.0), mu, g_dq * 0.3, g_dmu * 0.3, *w,
              m0.epsilon, m0.activation)
-    print(f"layout: dims={calc.nbl._layout.dims[:3]} Ktot={qcol.shape[2]} "
-          f"A'={Ap}", flush=True)
+    print(f"layout: {layout_str(st)} A'={Ap}", flush=True)
 
     cases = [
         ("msg_fwd", "colblock_message.cu", "colblock_pallas.py:1889",
@@ -150,6 +183,15 @@ def kernel_phase(calc, system, seed, dev):
         ("mix_bwd", "painn_mixing.cu", "painn_mixing.py:83",
          lambda: mix.mix_bwd_kernel(*xargs, g_dq, g_dmu),
          lambda: mix.painn_mixing_bwd_plain(*xargs, g_dq, g_dmu)),
+        ("geo_fwd", "colblock_geo.cu", "colblock_geo.py:202",
+         lambda: (geo_op.geo_fwd_kernel(*gargs),),
+         lambda: (geo_op.geo_fwd_plain(*gargs),)),
+        ("msg_fwd_geo", "colblock_message.cu", "colblock_pallas.py:687",
+         lambda: msg.msg_fwd_geo_kernel(*hargs),
+         lambda: msg.msg_fwd_geo_plain(*hargs)),
+        ("msg_bwd_geores", "colblock_message.cu", "colblock_pallas.py:1570",
+         lambda: msg.msg_bwd_geores_kernel(*bargs),
+         lambda: msg.msg_bwd_geores_plain(*bargs)[:3]),
     ]
     rows = []
     for name, src, replaces, kern, plain in cases:
@@ -165,41 +207,124 @@ def kernel_phase(calc, system, seed, dev):
 
 
 def reference_phase(dev):
+    """Both message forms against the JAX reference; forces per form."""
     from schnetpack_tpu_torch.md import load_molecules
 
     ref = np.load(REFERENCE)
-    pot, params = potential()
-    calc = calculator(pot, params)
-    system = load_molecules([molecule(ref["R"].astype(np.float64),
-                                      ref["cell"])], device=dev)
-    system = calc.calculate(system, calc.init_state(system))
-    F = (system.forces[0] / calc.force_conversion).cpu().numpy()
-    E = float(system.energy[0, 0]) / calc.energy_conversion
-    rms = float(np.sqrt(np.mean((F - ref["forces"]) ** 2)))
-    dE = abs(E - float(ref["energy"])) / abs(float(ref["energy"]))
-    print(f"reference: force rms err {rms:.3e} eV/Ang (max "
-          f"{np.abs(F - ref['forces']).max():.3e}), energy {E:.6f} vs "
-          f"{float(ref['energy']):.6f} eV (rel {dE:.2e})", flush=True)
-    assert np.isfinite(F).all() and F.shape == ref["forces"].shape
-    assert rms <= FORCE_RMS_TOL, f"force rms {rms} > {FORCE_RMS_TOL}"
-    assert dE <= ENERGY_RTOL, f"energy rel err {dE} > {ENERGY_RTOL}"
+    out = {}
+    for fuse in ("hybrid", "full"):
+        pot, params = potential(fuse)
+        calc = calculator(pot, params)
+        system = load_molecules([molecule(ref["R"].astype(np.float64),
+                                          ref["cell"])], device=dev)
+        system = calc.calculate(system, calc.init_state(system))
+        F = (system.forces[0] / calc.force_conversion).cpu().numpy()
+        E = float(system.energy[0, 0]) / calc.energy_conversion
+        rms = float(np.sqrt(np.mean((F - ref["forces"]) ** 2)))
+        dE = abs(E - float(ref["energy"])) / abs(float(ref["energy"]))
+        print(f"reference ({fuse}): force rms err {rms:.3e} eV/Ang (max "
+              f"{np.abs(F - ref['forces']).max():.3e}), energy {E:.6f} vs "
+              f"{float(ref['energy']):.6f} eV (rel {dE:.2e})", flush=True)
+        assert np.isfinite(F).all() and F.shape == ref["forces"].shape
+        assert rms <= FORCE_RMS_TOL, f"{fuse}: force rms {rms}"
+        assert dE <= ENERGY_RTOL, f"{fuse}: energy rel err {dE}"
+        out[fuse] = F
+    d = out["hybrid"] - out["full"]
+    print(f"hybrid vs full forces: rms {np.sqrt(np.mean(d ** 2)):.3e}, max "
+          f"{np.abs(d).max():.3e} eV/Ang", flush=True)
 
 
-def md_phase(calc, system, steps, seed, launches):
+def edge_keys(state, A, inv_cell):
+    """Sorted int64 keys (original i, original j, periodic shift) of every
+    edge of a column neighbor state."""
+    from schnetpack_tpu_torch import properties as P
+    from schnetpack_tpu_torch.ops.colblock import ColRefs, decode_i, decode_j
+
+    qcol = state[P.cell_qcol]
+    nx, ny, _ = qcol.shape
+    refs = ColRefs(qcol, state[P.cell_dcol],
+                   state["cell_order"].shape[0] // (nx * ny),
+                   tuple(state[P.cell_ksz]))
+    j, valid = decode_j(refs)
+    i, _ = decode_i(refs)
+    order = state["cell_order"]
+    shift = torch.round(state[P.cell_coff_fm].movedim(2, 3) @ inv_cell)
+    code = ((shift.long() + 1)
+            * torch.tensor([9, 3, 1], device=shift.device)).sum(-1)
+    keys = (order[i] * A + order[j]) * 27 + code
+    return torch.sort(keys[valid]).values
+
+
+def rebuild_phase(seed, dev):
+    """Device rebuild against a host build on a jittered lattice."""
+    from schnetpack_tpu_torch.md import load_molecules
+    from schnetpack_tpu_torch.ops.colblock_rebuild import rebin_and_rebuild
+
+    pos, cell = fcc_box(10_000)
+    pot, params = potential("hybrid")
+    calc = calculator(pot, params, jitter=0.5, headroom=1.0 / 6.0)
+    nbl = calc.nbl
+    system = load_molecules([molecule(pos, cell)], device=dev)
+    calc.init_state(system)
+    jit = np.random.RandomState(seed + 2).uniform(
+        -REBUILD_JITTER, REBUILD_JITTER, pos.shape) * calc.position_conversion
+    moved = system.replace(positions=system.positions + torch.as_tensor(
+        jit[None], dtype=system.positions.dtype, device=dev))
+    assert nbl._dev_rebuild is not None, "the bench box should be eligible"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    assert nbl.maybe_rebuild(moved), "the skin check did not fire"
+    torch.cuda.synchronize()
+    first_ms = 1e3 * (time.perf_counter() - t0)
+    assert (nbl.n_builds, nbl.n_device_builds) == (1, 1), (
+        f"host {nbl.n_builds}, device {nbl.n_device_builds}, overflows "
+        f"{nbl.n_device_overflows}")
+    st_dev = nbl.state()
+    info = nbl._dev_rebuild
+    dev_ms = cuda_ms(lambda: rebin_and_rebuild(
+        moved.positions, st_dev["cell_order"], st_dev["cell_atom_mask"],
+        st_dev["cell_Z"], st_dev["cell_idx_m"], info["cell"], info["nx"],
+        info["ny"], info["P"], info["ks"], info["rc"]))
+    F_dev = calc.calculate(moved, st_dev).forces[0]
+    t0 = time.perf_counter()
+    nbl.build(moved)
+    host_s = time.perf_counter() - t0
+    st_host = nbl.state()
+    F_host = calc.calculate(moved, st_host).forces[0]
+
+    inv_cell = torch.linalg.inv(info["cell"])
+    keys = [edge_keys(st, pos.shape[0], inv_cell) for st in (st_dev, st_host)]
+    rms = float(((F_dev - F_host) / calc.force_conversion).pow(2).mean()
+                .sqrt())
+    print(f"device rebuild: {keys[0].numel()} edges (host {keys[1].numel()}),"
+          f" {layout_str(st_dev)}; first call {first_ms:.3f} ms wall, steady "
+          f"{dev_ms:.3f} ms (CUDA events); host build {host_s:.3f} s; force "
+          f"rms device vs host {rms:.3e} eV/Ang", flush=True)
+    assert torch.equal(keys[0], keys[1]), "device and host edge sets differ"
+    assert rms <= REBUILD_FORCE_RMS_TOL, f"force rms {rms}"
+
+
+def md_phase(fuse, pos, cell, steps, seed, dev, launches):
+    """NVE run on one message path; returns (launch counts, ms/step)."""
     from schnetpack_tpu_torch.md import (
-        MaxwellBoltzmannInit, Simulator, VelocityVerlet,
+        MaxwellBoltzmannInit, Simulator, VelocityVerlet, load_molecules,
     )
+    from schnetpack_tpu_torch.units import md_units
 
+    pot, params = potential(fuse)
+    calc = calculator(pot, params)
+    nbl = calc.nbl
+    system = load_molecules([molecule(pos, cell)], device=dev)
     system = MaxwellBoltzmannInit(30.0).initialize_system(
         system, torch.Generator().manual_seed(seed + 1))
     sim = Simulator(system, VelocityVerlet(0.5), calc)
     sim.simulate(100, chunk_size=100)            # warm-up (equilibration)
-    calc.nbl.retighten(sim.system, jitter_fraction=0.05,
-                       bucket_headroom=1.0 / 24.0)
-    sim.calc_state = calc.nbl.state()
-    print(f"after retighten: dims={calc.nbl._layout.dims[:3]} "
-          f"Ktot={sum(calc.nbl._K)}", flush=True)
-    builds0 = calc.nbl.n_builds
+    nbl.retighten(sim.system, jitter_fraction=0.05,
+                  bucket_headroom=1.0 / 24.0)
+    sim.calc_state = nbl.state()
+    print(f"md ({fuse}) after retighten: {layout_str(sim.calc_state)}",
+          flush=True)
+    builds0 = (nbl.n_builds, nbl.n_device_builds, nbl.n_device_overflows)
     for counts in launches:
         for k in counts:
             counts[k] = 0
@@ -213,6 +338,9 @@ def md_phase(calc, system, steps, seed, launches):
     wall = time.perf_counter() - t0
     ms_step = start.elapsed_time(end) / steps
     counts = {k: v for c in launches for k, v in c.items()}
+    host, device, overflows = (
+        a - b for a, b in zip((nbl.n_builds, nbl.n_device_builds,
+                               nbl.n_device_overflows), builds0))
 
     s = sim.system
     A = s.total_atoms
@@ -221,21 +349,23 @@ def md_phase(calc, system, steps, seed, launches):
     logs = sim.logs[-(steps // 100):]
     E_pot = np.concatenate([lg["energy"][:, 0, 0] for lg in logs])
     T_log = np.concatenate([lg["temperature"][:, 0, 0] for lg in logs])
-    from schnetpack_tpu_torch.units import md_units
-
     E_kin = 1.5 * A * md_units().kB * T_log            # MD energy units
     E_tot = (E_pot + E_kin) / calc.energy_conversion   # eV
     drift = float(np.abs(E_tot - E_tot[0]).max()) / A
-    print(f"md: {steps} steps, {A} atoms, ms/step (CUDA events) "
+    print(f"md ({fuse}): {steps} steps, {A} atoms, ms/step (CUDA events) "
           f"{ms_step:.3f}, wall {1e3 * wall / steps:.3f} ms/step, "
           f"{A / (ms_step * 1e-3):.4g} atom-steps/s, T_end={T:.2f} K, "
-          f"max |E_tot - E_tot(0)| = {drift:.3e} eV/atom, host rebuilds "
-          f"{calc.nbl.n_builds - builds0}", flush=True)
+          f"max |E_tot - E_tot(0)| = {drift:.3e} eV/atom, rebuilds: "
+          f"{device} on the device, {host} on the host, {overflows} "
+          f"overflows", flush=True)
     assert np.isfinite(R).all(), "non-finite positions"
     assert 0.0 < T < 300.0, f"temperature {T} K"
     assert drift <= DRIFT_TOL, f"energy drift {drift} eV/atom"
     for k, v in counts.items():
-        assert v == 3 * steps, f"{k} launched {v} times, want {3 * steps}"
+        want = PER_STEP[fuse].get(k, 0) * steps
+        assert v == want, f"{fuse}: {k} launched {v} times, want {want}"
+    assert host == overflows, (
+        f"{host} host rebuilds after the retighten, {overflows} overflows")
     return counts, ms_step
 
 
@@ -255,6 +385,7 @@ def main():
     import schnetpack_tpu_torch  # noqa: F401 (sets f32 matmul precision)
     from schnetpack_tpu_torch.md import load_molecules
     from schnetpack_tpu_torch.ops import _build
+    from schnetpack_tpu_torch.ops import colblock_geo as geo_op
     from schnetpack_tpu_torch.ops import colblock_message as msg
     from schnetpack_tpu_torch.ops import painn_mixing as mix
 
@@ -267,16 +398,25 @@ def main():
           f"{_build.build_seconds:.1f} s)", flush=True)
 
     pos, cell = fcc_box(10_000)
-    pot, params = potential()
+    pot, params = potential("hybrid")
     calc = calculator(pot, params)
     system = load_molecules([molecule(pos, cell)], device=dev)
     rows = kernel_phase(calc, system, args.seed, dev)
     reference_phase(dev)
-    counts, ms_step = md_phase(calc, system, args.steps, args.seed,
-                               (msg.LAUNCHES, mix.LAUNCHES))
+    rebuild_phase(args.seed, dev)
+    launches = (msg.LAUNCHES, mix.LAUNCHES, geo_op.LAUNCHES)
+    total = {}
+    ms_step = {}
+    for fuse in ("hybrid", "full"):
+        counts, ms_step[fuse] = md_phase(fuse, pos, cell, args.steps,
+                                         args.seed, dev, launches)
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
     for row in rows:
-        row["launches"] = counts[row["name"]]
-    print(f"md ms/step {ms_step:.3f} on {smi}")
+        row["launches"] = total[row["name"]]
+        assert row["launches"] > 0, f"{row['name']} never ran in the MD"
+    print(f"md ms/step hybrid {ms_step['hybrid']:.3f}, full "
+          f"{ms_step['full']:.3f} on {smi}")
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

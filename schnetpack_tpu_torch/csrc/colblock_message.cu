@@ -1,19 +1,40 @@
 // PaiNN column-layout message kernels for Hopper (sm_90a), f32.
 //
-// K1 msg_fwd_kernel replaces the TPU kernel
+// K1 msg_fwd_kernel<false> replaces the TPU kernel
 //   schnetpack_tpu/ops/colblock_pallas.py:1889 _msg_fm_fwd_fused_kernel
-// K2 msg_bwd_kernel replaces
+// K2 msg_bwd_kernel<false> replaces
 //   schnetpack_tpu/ops/colblock_pallas.py:1239 _msg_fm_bwd_fused_kernel
 //   (the wgrad=False variant: no filter-weight cotangent).
+// K6 msg_fwd_kernel<true> replaces the three geo-tensor forwards
+//   colblock_pallas.py:568 _msg_fm_fwd_kernel, :599 _msg_fm_fwd_res_kernel
+//   and :687 _msg_fm_fwd_res_preoh_kernel (they differ only in how the TPU
+//   stages tables in VMEM and builds one-hots; all compute K1's message on
+//   a precomputed geo tensor).
+// K7 msg_bwd_kernel<true> replaces
+//   colblock_pallas.py:1570 _msg_fm_bwd_geores_kernel (wgrad=False).
 //
 // Layout (schnetpack_tpu_torch/ops/cellblock.py): atoms sorted into nx*ny
 // xy-columns of P rows; edge slot k of column (i, j) lies in bucket c9 =
 // (dx+1)*3 + (dy+1), slots [koffs[c9], koffs[c9+1]); its source is row
 // qcol of column ((i+dx) mod nx, (j+dy) mod ny), its destination row dcol
-// of column (i, j); qcol < 0 marks a padded slot.  Both kernels recompute
+// of column (i, j); qcol < 0 marks a padded slot.  K1 and K2 recompute
 // the per-edge geometry (rij, d, dir, cosine cutoff, Gaussian basis) from
 // the positions in f32, as the TPU kernels do; no per-edge tensor exists
-// in device memory.
+// in device memory.  K6 and K7 instead read it from the packed geo tensor
+// [nx, ny, nch, Ktot] that K5 (colblock_geo.cu) writes once per step,
+// channels [phi*fcut (B), fcut, dir (3), d]: K6 reads the first B+4, K7
+// all B+5 and takes no positions.  K7 derives the geometry chain from the
+// stored channels with the same formulas as its twin
+// (ops/colblock_message.py::msg_bwd_geores_plain):
+//   phi    = stored * (1 / max(fcut, 1e-30))
+//   dfcut  = fcut > 0 ? -0.5 (pi/rc) sin(pi d/rc) : 0   (sin from the
+//            stored d: no cancellation near d -> 0 or d -> rc, unlike the
+//            TPU's sqrt(1 - (2 fcut - 1)^2))
+//   gd     = sum_b grbf_b 2 coeff_b (d - c_b) phi_b * fcut
+//            + (sum_b grbf_b phi_b + grbf_B) * dfcut
+//   grij   = (gdir - dir (gdir . dir)) / max(d, 1e-6) + gd dir
+// Padded and out-of-cutoff slots have fcut = 0, so phi, dfcut and every
+// filter value are exactly 0 there and grij is 0 (no NaN from d = 1).
 //
 // What bounds them on the H100: per edge slot the TPU kernels ran one-hot
 // selection matmuls (a device of the TPU's matrix unit); here rows are
@@ -21,7 +42,12 @@
 // a few feature loads, and both kernels are bound by the latency of those
 // scattered row loads and of their dependent FMA chains, not by HBM
 // bandwidth (the feature tables, ~13 MB each at the 10k-atom bench, stay
-// in the 50 MB L2).  Each thread therefore keeps kU edges in flight
+// in the 50 MB L2).  K6/K7 trade the in-kernel geometry (B exp + a cos
+// per edge) for B+4 or B+5 loads of the ~25 MB geo tensor: K6 stages each
+// chunk's [B+4, chunk] slice in shared memory with loads that are
+// coalesced along Ktot, kLd in flight per thread, once for all warps of
+// the block; K7's loads follow the source-sorted edge order and are
+// scattered, so the whole block issues them, a few per thread.  Each thread therefore keeps kU edges in flight
 // (independent loads and filter chains) and applies their updates in edge
 // order.  Every sum is deterministic and free of atomics: K1 owns its
 // destination column's rows and sums them in shared memory; K2 owns its
@@ -40,6 +66,7 @@ constexpr int kEdgesFwd = 128;   // edges per K1 chunk (one per thread)
 constexpr int kEdgesBwd = 32;    // edges per K2 chunk
 constexpr int kMaxThreadsBwd = 384;  // K2 runs 3F threads (F <= 128)
 constexpr int kU = 4;            // edges in flight per thread (K1, K2)
+constexpr int kLd = 8;           // geo loads in flight per thread (K6)
 constexpr float kPi = 3.14159265358979323846f;
 
 struct KOffs {
@@ -47,14 +74,16 @@ struct KOffs {
 };
 
 
+template <bool kGeo>
 __global__ void __launch_bounds__(kThreads)
 msg_fwd_kernel(const float* __restrict__ x, const float* __restrict__ mu,
-               const float* __restrict__ R, const float* __restrict__ FW,
+               const float* __restrict__ R, const float* __restrict__ geo,
+               const float* __restrict__ FW,
                const float* __restrict__ coff, const float* __restrict__ cw,
                const int* __restrict__ qcol, const int* __restrict__ dcol,
                float* __restrict__ dq, float* __restrict__ dmu,
                int nx, int ny, int P, int Ktot, KOffs ko, int F, int B,
-               float rc) {
+               int nch, float rc) {
   // One block per (destination column, 32-feature tile).  Warp o of the
   // block owns output o (0: dq, 1..3: dmu component o-1) for the tile's 32
   // features, so each shared accumulator entry has exactly one writer.
@@ -80,9 +109,6 @@ msg_fwd_kernel(const float* __restrict__ x, const float* __restrict__ mu,
 
   const int* qc = qcol + (size_t)col * Ktot;
   const int* dc = dcol + (size_t)col * Ktot;
-  const float* oc = coff + (size_t)col * 3 * Ktot;
-  const float* Rown = R + (size_t)col * P * 3;
-  const float pi_rc = kPi / rc;
 
   for (int c9 = 0; c9 < 9; ++c9) {
     const int si = (ci + c9 / 3 - 1 + nx) % nx;
@@ -97,21 +123,47 @@ msg_fwd_kernel(const float* __restrict__ x, const float* __restrict__ mu,
       if (e < k_end && qc[e] >= 0) {
         const int dv = dc[e];
         src = srow0 + qc[e];
-        const float rx = R[src * 3 + 0] + oc[e] - Rown[dv * 3 + 0];
-        const float ry = R[src * 3 + 1] + oc[Ktot + e] - Rown[dv * 3 + 1];
-        const float rz = R[src * 3 + 2] + oc[2 * Ktot + e] - Rown[dv * 3 + 2];
-        const float d = sqrtf(rx * rx + ry * ry + rz * rz);
-        const float inv = 1.f / d;
-        const float fcut = d < rc ? 0.5f * (cosf(d * pi_rc) + 1.f) : 0.f;
         float* rb = s_rbf + tid * B1;
-        for (int b = 0; b < B; ++b) {
-          const float df = d - cw[2 * b];
-          rb[b] = expf(cw[2 * b + 1] * df * df) * fcut;
+        if constexpr (kGeo) {
+          // K6: the stored [phi*fcut, fcut, dir] channels of slot e
+          // (neighbouring threads read neighbouring slots), kLd loads in
+          // flight per thread
+          const float* g = geo + (size_t)col * nch * Ktot + e;
+          const int nc = B1 + 3;
+          for (int c0 = 0; c0 < nc; c0 += kLd) {
+            float v[kLd];
+#pragma unroll
+            for (int u = 0; u < kLd; ++u)
+              v[u] = c0 + u < nc ? g[(size_t)(c0 + u) * Ktot] : 0.f;
+#pragma unroll
+            for (int u = 0; u < kLd; ++u) {
+              const int c = c0 + u;
+              if (c < B1)
+                rb[c] = v[u];
+              else if (c < nc)
+                s_dir[tid * 3 + c - B1] = v[u];
+            }
+          }
+        } else {
+          const float* oc = coff + (size_t)col * 3 * Ktot;
+          const float* Rown = R + (size_t)col * P * 3;
+          const float pi_rc = kPi / rc;
+          const float rx = R[src * 3 + 0] + oc[e] - Rown[dv * 3 + 0];
+          const float ry = R[src * 3 + 1] + oc[Ktot + e] - Rown[dv * 3 + 1];
+          const float rz =
+              R[src * 3 + 2] + oc[2 * Ktot + e] - Rown[dv * 3 + 2];
+          const float d = sqrtf(rx * rx + ry * ry + rz * rz);
+          const float inv = 1.f / d;
+          const float fcut = d < rc ? 0.5f * (cosf(d * pi_rc) + 1.f) : 0.f;
+          for (int b = 0; b < B; ++b) {
+            const float df = d - cw[2 * b];
+            rb[b] = expf(cw[2 * b + 1] * df * df) * fcut;
+          }
+          rb[B] = fcut;
+          s_dir[tid * 3 + 0] = rx * inv;
+          s_dir[tid * 3 + 1] = ry * inv;
+          s_dir[tid * 3 + 2] = rz * inv;
         }
-        rb[B] = fcut;
-        s_dir[tid * 3 + 0] = rx * inv;
-        s_dir[tid * 3 + 1] = ry * inv;
-        s_dir[tid * 3 + 2] = rz * inv;
         s_dst[tid] = dv;
       }
       s_src[tid] = src;
@@ -165,9 +217,11 @@ msg_fwd_kernel(const float* __restrict__ x, const float* __restrict__ mu,
   }
 }
 
+template <bool kGeo>
 __global__ void __launch_bounds__(kMaxThreadsBwd)
 msg_bwd_kernel(const float* __restrict__ x, const float* __restrict__ mu,
-               const float* __restrict__ R, const float* __restrict__ FW,
+               const float* __restrict__ R, const float* __restrict__ geo,
+               const float* __restrict__ FW,
                const float* __restrict__ coff, const float* __restrict__ cw,
                const int* __restrict__ qcol, const int* __restrict__ dcol,
                const int* __restrict__ esorted, const int* __restrict__ grp,
@@ -175,7 +229,7 @@ msg_bwd_kernel(const float* __restrict__ x, const float* __restrict__ mu,
                float* __restrict__ dx, float* __restrict__ dmu_out,
                float* __restrict__ gRo, float* __restrict__ gRd,
                int nx, int ny, int P, int Ktot, KOffs ko, int G, int F,
-               int B, float rc) {
+               int B, int nch, float rc) {
   // Source-centric.  ``esorted`` lists every real edge slot (dest column
   // * Ktot + slot) sorted by source atom, i.e. by (source column, source
   // row).  Block (col, g) owns the source rows [r0, r1) of column col and
@@ -204,7 +258,7 @@ msg_bwd_kernel(const float* __restrict__ x, const float* __restrict__ mu,
   float* s_gw = s_fw + B1 * LD;        // [E][LD] filter cotangent per edge
   float* s_rbf = s_gw + E * LD;        // [E][B1]
   float* s_grbf = s_rbf + E * B1;      // [E][B1]
-  float* s_rij = s_grbf + E * B1;      // [E][3]
+  float* s_rij = s_grbf + E * B1;      // [E][3] rij (K2) or dir (K7)
   float* s_d = s_rij + E * 3;          // [E]
   float* s_gdir = s_d + E;             // [E][NW][3] per-warp partials
   float* s_grij = s_gdir + E * NW * 3; // [E][3]
@@ -214,6 +268,7 @@ msg_bwd_kernel(const float* __restrict__ x, const float* __restrict__ mu,
   int* s_dst = s_src + E;              // [E] global destination row
   int* s_c9 = s_dst + E;               // [E]
   int* s_dcol = s_c9 + E;              // [9] destination column of c9
+  int* s_slot = s_dcol + 9;            // [E] edge slot (K7's geo loads)
 
   const size_t own0 = (size_t)col * P;
   for (int r = r0; r < r1; ++r) {      // rows without edges stay zero
@@ -248,22 +303,27 @@ msg_bwd_kernel(const float* __restrict__ x, const float* __restrict__ mu,
         qv = qcol[slot];
         const int dv = dcol[slot];
         const size_t di = (size_t)dcolumn * P + dv;
-        const float* oc = coff + (size_t)dcolumn * 3 * Ktot + k;
-        const float rx = R[(own0 + qv) * 3 + 0] + oc[0] - R[di * 3 + 0];
-        const float ry = R[(own0 + qv) * 3 + 1] + oc[Ktot] - R[di * 3 + 1];
-        const float rz = R[(own0 + qv) * 3 + 2] + oc[2 * Ktot] - R[di * 3 + 2];
-        const float d = sqrtf(rx * rx + ry * ry + rz * rz);
-        const float fcut = d < rc ? 0.5f * (cosf(d * pi_rc) + 1.f) : 0.f;
-        float* rb = s_rbf + tid * B1;
-        for (int b = 0; b < B; ++b) {
-          const float df = d - cw[2 * b];
-          rb[b] = expf(cw[2 * b + 1] * df * df) * fcut;
+        if constexpr (kGeo) {
+          s_slot[tid] = slot;          // channels loaded below, block-wide
+        } else {
+          float* rb = s_rbf + tid * B1;
+          const float* oc = coff + (size_t)dcolumn * 3 * Ktot + k;
+          const float rx = R[(own0 + qv) * 3 + 0] + oc[0] - R[di * 3 + 0];
+          const float ry = R[(own0 + qv) * 3 + 1] + oc[Ktot] - R[di * 3 + 1];
+          const float rz =
+              R[(own0 + qv) * 3 + 2] + oc[2 * Ktot] - R[di * 3 + 2];
+          const float d = sqrtf(rx * rx + ry * ry + rz * rz);
+          const float fcut = d < rc ? 0.5f * (cosf(d * pi_rc) + 1.f) : 0.f;
+          for (int b = 0; b < B; ++b) {
+            const float df = d - cw[2 * b];
+            rb[b] = expf(cw[2 * b + 1] * df * df) * fcut;
+          }
+          rb[B] = fcut;
+          s_rij[tid * 3 + 0] = rx;
+          s_rij[tid * 3 + 1] = ry;
+          s_rij[tid * 3 + 2] = rz;
+          s_d[tid] = d;
         }
-        rb[B] = fcut;
-        s_rij[tid * 3 + 0] = rx;
-        s_rij[tid * 3 + 1] = ry;
-        s_rij[tid * 3 + 2] = rz;
-        s_d[tid] = d;
         s_dst[tid] = (int)di;
         s_c9[tid] = c9;
       }
@@ -271,6 +331,26 @@ msg_bwd_kernel(const float* __restrict__ x, const float* __restrict__ mu,
     }
     __syncthreads();
     const int n = min(E, e1 - base);
+    if constexpr (kGeo) {
+      // K7: the chunk's stored [phi*fcut, fcut, dir, d] channels, loaded
+      // by the whole block (a few independent loads per thread instead of
+      // B+5 dependent ones on warp 0)
+      const int nc = B1 + 4;
+      for (int idx = tid; idx < E * nc; idx += nth) {
+        const int t = idx % E, c = idx / E;
+        if (s_src[t] < 0) continue;
+        const int slot = s_slot[t];
+        const float v = geo[((size_t)(slot / Ktot) * nch + c) * Ktot +
+                            slot % Ktot];
+        if (c < B1)
+          s_rbf[t * B1 + c] = v;
+        else if (c < B1 + 3)
+          s_rij[t * 3 + c - B1] = v;
+        else
+          s_d[t] = v;
+      }
+      __syncthreads();
+    }
     // phase 2: message backward, kU edges in flight per thread: all
     // loads and products first, then the run sums in edge order
     for (int t0 = 0; t0 < n; t0 += kU) {
@@ -309,8 +389,9 @@ msg_bwd_kernel(const float* __restrict__ x, const float* __restrict__ mu,
           float gpart;
           if (part == 1) {
             const float* r = s_rij + min(t0 + u, E - 1) * 3;
-            gpart = (gm0[u] * r[0] + gm1[u] * r[1] + gm2[u] * r[2]) /
-                    s_d[min(t0 + u, E - 1)];  // sum_c g_c dir_c
+            gpart = gm0[u] * r[0] + gm1[u] * r[1] + gm2[u] * r[2];
+            if constexpr (!kGeo)
+              gpart /= s_d[min(t0 + u, E - 1)];  // sum_c g_c dir_c
           } else {
             const float* ms = mu + so[u];
             gpart = gm0[u] * ms[f] + gm1[u] * ms[F + f] + gm2[u] * ms[2 * F + f];
@@ -383,26 +464,52 @@ msg_bwd_kernel(const float* __restrict__ x, const float* __restrict__ mu,
           gd1 += s_gdir[(t * NW + w) * 3 + 1];
           gd2 += s_gdir[(t * NW + w) * 3 + 2];
         }
-        const float d = s_d[t], inv = 1.f / d;
-        const float rx = s_rij[t * 3 + 0], ry = s_rij[t * 3 + 1],
-                    rz = s_rij[t * 3 + 2];
-        const bool in = d < rc;
-        const float fcut = in ? 0.5f * (cosf(d * pi_rc) + 1.f) : 0.f;
-        const float dfcut = in ? -0.5f * pi_rc * sinf(d * pi_rc) : 0.f;
+        const float d = s_d[t];
         const float* gb2 = s_grbf + t * B1;
-        float sd = 0.f, sp = 0.f;
-        for (int b = 0; b < B; ++b) {
-          const float df = d - cw[2 * b], coeff = cw[2 * b + 1];
-          const float phi = expf(coeff * df * df);
-          sd = fmaf(gb2[b], 2.f * coeff * df * phi, sd);
-          sp = fmaf(gb2[b], phi, sp);
+        if constexpr (kGeo) {
+          // K7: the chain from the stored channels (formulas in the
+          // header note)
+          const float* rb = s_rbf + t * B1;
+          const float ux = s_rij[t * 3 + 0], uy = s_rij[t * 3 + 1],
+                      uz = s_rij[t * 3 + 2];
+          const float fcut = rb[B];
+          const float dfcut =
+              fcut > 0.f ? -0.5f * pi_rc * sinf(d * pi_rc) : 0.f;
+          const float inv_fc = 1.f / fmaxf(fcut, 1e-30f);
+          float sd = 0.f, sp = 0.f;
+          for (int b = 0; b < B; ++b) {
+            const float df = d - cw[2 * b], coeff = cw[2 * b + 1];
+            const float phi = rb[b] * inv_fc;
+            sd = fmaf(gb2[b], 2.f * coeff * df * phi, sd);
+            sp = fmaf(gb2[b], phi, sp);
+          }
+          const float gd = sd * fcut + (sp + gb2[B]) * dfcut;
+          const float sdot = gd0 * ux + gd1 * uy + gd2 * uz;
+          const float inv = 1.f / fmaxf(d, 1e-6f);
+          gr0 = (gd0 - ux * sdot) * inv + gd * ux;
+          gr1 = (gd1 - uy * sdot) * inv + gd * uy;
+          gr2 = (gd2 - uz * sdot) * inv + gd * uz;
+        } else {
+          const float inv = 1.f / d;
+          const float rx = s_rij[t * 3 + 0], ry = s_rij[t * 3 + 1],
+                      rz = s_rij[t * 3 + 2];
+          const bool in = d < rc;
+          const float fcut = in ? 0.5f * (cosf(d * pi_rc) + 1.f) : 0.f;
+          const float dfcut = in ? -0.5f * pi_rc * sinf(d * pi_rc) : 0.f;
+          float sd = 0.f, sp = 0.f;
+          for (int b = 0; b < B; ++b) {
+            const float df = d - cw[2 * b], coeff = cw[2 * b + 1];
+            const float phi = expf(coeff * df * df);
+            sd = fmaf(gb2[b], 2.f * coeff * df * phi, sd);
+            sp = fmaf(gb2[b], phi, sp);
+          }
+          const float gd = sd * fcut + (sp + gb2[B]) * dfcut;
+          const float gdr = gd0 * rx + gd1 * ry + gd2 * rz;
+          const float inv3 = inv * inv * inv;
+          gr0 = gd0 * inv - rx * (gdr * inv3) + gd * rx * inv;
+          gr1 = gd1 * inv - ry * (gdr * inv3) + gd * ry * inv;
+          gr2 = gd2 * inv - rz * (gdr * inv3) + gd * rz * inv;
         }
-        const float gd = sd * fcut + (sp + gb2[B]) * dfcut;
-        const float gdr = gd0 * rx + gd1 * ry + gd2 * rz;
-        const float inv3 = inv * inv * inv;
-        gr0 = gd0 * inv - rx * (gdr * inv3) + gd * rx * inv;
-        gr1 = gd1 * inv - ry * (gdr * inv3) + gd * ry * inv;
-        gr2 = gd2 * inv - rz * (gdr * inv3) + gd * rz * inv;
       }
       s_grij[t * 3 + 0] = gr0;
       s_grij[t * 3 + 1] = gr1;
@@ -450,6 +557,51 @@ KOffs make_koffs(const int* koffs) {
   return ko;
 }
 
+template <bool kGeo>
+int launch_fwd(const float* x, const float* mu, const float* R,
+               const float* geo, const float* FW, const float* coff,
+               const float* cw, const int* qcol, const int* dcol, float* dq,
+               float* dmu, int nx, int ny, int P, int Ktot, const int* koffs,
+               int F, int B, int nch, float rc, cudaStream_t stream) {
+  const size_t smem =
+      sizeof(float) * ((size_t)P * 128 + (B + 1) * 96 + kEdgesFwd * (B + 1) +
+                       kEdgesFwd * 3) +
+      sizeof(int) * 2 * kEdgesFwd;
+  cudaError_t err = cudaFuncSetAttribute(
+      msg_fwd_kernel<kGeo>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(nx * ny, F / kTile);
+  msg_fwd_kernel<kGeo><<<grid, kThreads, smem, stream>>>(
+      x, mu, R, geo, FW, coff, cw, qcol, dcol, dq, dmu, nx, ny, P, Ktot,
+      make_koffs(koffs), F, B, nch, rc);
+  return (int)cudaGetLastError();
+}
+
+template <bool kGeo>
+int launch_bwd(const float* x, const float* mu, const float* R,
+               const float* geo, const float* FW, const float* coff,
+               const float* cw, const int* qcol, const int* dcol,
+               const int* esorted, const int* grp, const float* g_dq,
+               const float* g_dmu, float* dx, float* dmu_out, float* gRo,
+               float* gRd, int nx, int ny, int P, int Ktot, const int* koffs,
+               int G, int F, int B, int nch, float rc, cudaStream_t stream) {
+  const int E = kEdgesBwd, B1 = B + 1, LD = 3 * F + 1;
+  const size_t smem =
+      sizeof(float) * ((size_t)B1 * LD + (size_t)E * LD + 2 * E * B1 +
+                       E * 3 + E + E * (F / 32) * 3 + E * 3 + 30 * (size_t)P) +
+      sizeof(int) * (4 * E + 9);
+  cudaError_t err = cudaFuncSetAttribute(
+      msg_bwd_kernel<kGeo>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  msg_bwd_kernel<kGeo><<<dim3(nx * ny, G), 3 * F, smem, stream>>>(
+      x, mu, R, geo, FW, coff, cw, qcol, dcol, esorted, grp, g_dq, g_dmu, dx,
+      dmu_out, gRo, gRd, nx, ny, P, Ktot, make_koffs(koffs), G, F, B, nch,
+      rc);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int spk_msg_fwd(const float* x, const float* mu, const float* R,
@@ -458,18 +610,19 @@ extern "C" int spk_msg_fwd(const float* x, const float* mu, const float* R,
                            float* dmu, int nx, int ny, int P, int Ktot,
                            const int* koffs, int F, int B, float rc,
                            cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * ((size_t)P * 128 + (B + 1) * 96 + kEdgesFwd * (B + 1) +
-                       kEdgesFwd * 3) +
-      sizeof(int) * 2 * kEdgesFwd;
-  cudaError_t err = cudaFuncSetAttribute(
-      msg_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(nx * ny, F / kTile);
-  msg_fwd_kernel<<<grid, kThreads, smem, stream>>>(
-      x, mu, R, FW, coff, cw, qcol, dcol, dq, dmu, nx, ny, P, Ktot,
-      make_koffs(koffs), F, B, rc);
-  return (int)cudaGetLastError();
+  return launch_fwd<false>(x, mu, R, nullptr, FW, coff, cw, qcol, dcol, dq,
+                           dmu, nx, ny, P, Ktot, koffs, F, B, 0, rc, stream);
+}
+
+extern "C" int spk_msg_fwd_geo(const float* x, const float* mu,
+                               const float* geo, const float* FW,
+                               const int* qcol, const int* dcol, float* dq,
+                               float* dmu, int nx, int ny, int P, int Ktot,
+                               const int* koffs, int F, int B, int nch,
+                               cudaStream_t stream) {
+  return launch_fwd<true>(x, mu, nullptr, geo, FW, nullptr, nullptr, qcol,
+                          dcol, dq, dmu, nx, ny, P, Ktot, koffs, F, B, nch,
+                          0.f, stream);
 }
 
 extern "C" int spk_msg_bwd(const float* x, const float* mu, const float* R,
@@ -480,16 +633,22 @@ extern "C" int spk_msg_bwd(const float* x, const float* mu, const float* R,
                            float* dmu_out, float* gRo, float* gRd, int nx,
                            int ny, int P, int Ktot, const int* koffs, int G,
                            int F, int B, float rc, cudaStream_t stream) {
-  const int E = kEdgesBwd, B1 = B + 1, LD = 3 * F + 1;
-  const size_t smem =
-      sizeof(float) * ((size_t)B1 * LD + (size_t)E * LD + 2 * E * B1 +
-                       E * 3 + E + E * (F / 32) * 3 + E * 3 + 30 * (size_t)P) +
-      sizeof(int) * (3 * E + 9);
-  cudaError_t err = cudaFuncSetAttribute(
-      msg_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  msg_bwd_kernel<<<dim3(nx * ny, G), 3 * F, smem, stream>>>(
-      x, mu, R, FW, coff, cw, qcol, dcol, esorted, grp, g_dq, g_dmu, dx,
-      dmu_out, gRo, gRd, nx, ny, P, Ktot, make_koffs(koffs), G, F, B, rc);
-  return (int)cudaGetLastError();
+  return launch_bwd<false>(x, mu, R, nullptr, FW, coff, cw, qcol, dcol,
+                           esorted, grp, g_dq, g_dmu, dx, dmu_out, gRo, gRd,
+                           nx, ny, P, Ktot, koffs, G, F, B, 0, rc, stream);
+}
+
+extern "C" int spk_msg_bwd_geores(const float* x, const float* mu,
+                                  const float* geo, const float* FW,
+                                  const float* cw, const int* qcol,
+                                  const int* dcol, const int* esorted,
+                                  const int* grp, const float* g_dq,
+                                  const float* g_dmu, float* dx,
+                                  float* dmu_out, float* gRo, float* gRd,
+                                  int nx, int ny, int P, int Ktot,
+                                  const int* koffs, int G, int F, int B,
+                                  int nch, float rc, cudaStream_t stream) {
+  return launch_bwd<true>(x, mu, nullptr, geo, FW, nullptr, cw, qcol, dcol,
+                          esorted, grp, g_dq, g_dmu, dx, dmu_out, gRo, gRd,
+                          nx, ny, P, Ktot, koffs, G, F, B, nch, rc, stream);
 }

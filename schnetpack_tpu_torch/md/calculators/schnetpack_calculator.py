@@ -4,7 +4,10 @@ path).
 
 The model runs in the neighbor list's sorted space: positions are taken
 in ``cell_order`` (converted to model units), and forces come back to the
-original atom order through ``cell_rank``.  The potential's parameters are
+original atom order through ``cell_rank``.  A rebuild on the device
+re-bins the atoms, so after one the whole sorted-space state (order,
+rank, Z, idx_m, atom mask, qcol/dcol, offsets) is the neighbor list's new
+state, exactly as after a host build.  The potential's parameters are
 frozen: MD differentiates with respect to positions only, and the CUDA
 kernels have no weight cotangents.
 """

@@ -1,23 +1,28 @@
 """Column-layout neighbor list with a Verlet skin for MD.
 
 Port of ``CellBlockNeighborListMD`` (``schnetpack_tpu/md/neighborlist_md.py:
-173-667``), layout="column", host builds only.  The state carried to the
-model lives in sorted space: ``cell_order`` (original atom per slot),
-``cell_rank`` (slot per atom), ``cell_Z``/``cell_idx_m``/``cell_atom_mask``
-(0 on empty slots) and the layout's index and offset tensors.
+173-667``), layout="column".  The state carried to the model lives in
+sorted space: ``cell_order`` (original atom per slot), ``cell_rank`` (slot
+per atom), ``cell_Z``/``cell_idx_m``/``cell_atom_mask`` (0 on empty slots)
+and the layout's index and offset tensors.
 
 Capacities are sticky so that the kernels see stable shapes: the first
 build probes them on a jittered copy of the positions (``jitter_fraction``
 of the skin) and pads every bucket by ``bucket_headroom``; later builds
 reuse them and grow them monotonically on ``CapacityError``; ``retighten``
-re-probes from the current (equilibrated) positions.  The skin criterion
-(some atom moved more than skin/2 since the last build) is checked every
-MD step as one device scalar; a host rebuild follows when it fires.  The
-on-device re-bin of the JAX package (``ops/colblock_rebuild.py``) is not
-ported yet.
+re-probes from the current (equilibrated) positions.  These host builds
+run in numpy.  The skin criterion (some atom moved more than skin/2 since
+the last build) is checked every MD step as one device scalar.  When it
+fires, a fully periodic one-molecule box whose grid is at least 3 x 3
+columns and whose box heights all exceed twice the build cutoff is
+re-binned and rebuilt on the device (``ops/colblock_rebuild.py``, as
+``neighborlist_md.py:483-507,610-664``): one more scalar read, the
+overflow flag, and on overflow a host build, which grows the capacities.
+Any other box rebuilds on the host.
 """
 from __future__ import annotations
 
+import warnings
 from typing import Dict, Optional
 
 import numpy as np
@@ -25,6 +30,7 @@ import torch
 
 from .. import properties as structure
 from ..ops.cellblock import CapacityError, build_column_layout
+from ..ops.colblock_rebuild import rebin_and_rebuild
 from ..transform.neighborlist import cell_list_neighbor_list
 from .system import System
 
@@ -57,11 +63,17 @@ class CellBlockNeighborListMD:
         self._dims = None      # (nx, ny, 1)
         self._C = None         # column capacity P
         self._K = None         # 9 bucket sizes
-        self._layout = None
+        self._layout = None    # the last host build's layout
         self._state: Optional[Dict[str, torch.Tensor]] = None
         self._build_positions: Optional[torch.Tensor] = None
+        self._dev_rebuild: Optional[dict] = None
         #: host builds so far
         self.n_builds = 0
+        #: rebuilds on the device so far
+        self.n_device_builds = 0
+        #: device rebuilds that overflowed the capacities (each followed by
+        #: a host build)
+        self.n_device_overflows = 0
 
     def _grow(self, ks_fresh):
         return tuple(
@@ -87,11 +99,10 @@ class CellBlockNeighborListMD:
                 capacity_headroom=self.capacity_headroom, **kw)
 
         # fully periodic boxes wider than 2*rc admit an alias-free stencil
-        min_grid = 1
-        if use_cell is not None and pbc.all():
-            inv = np.linalg.inv(cell)
-            if np.all(1.0 / np.linalg.norm(inv, axis=1) > 2 * rc):
-                min_grid = 3
+        # and the on-device rebuild
+        wide = bool(use_cell is not None and pbc.all() and np.all(
+            1.0 / np.linalg.norm(np.linalg.inv(cell), axis=1) > 2 * rc))
+        min_grid = 3 if wide else 1
 
         def first_build():
             # probe capacities on a copy jittered by +-skin*jitter_fraction:
@@ -155,6 +166,15 @@ class CellBlockNeighborListMD:
         self._build_positions = system.positions.detach().clone()
         self.n_builds += 1
 
+        # on-device rebuild eligibility (``neighborlist_md.py:483-507``;
+        # one molecule is checked above)
+        self._dev_rebuild = None
+        if wide and nx >= 3 and ny >= 3:
+            self._dev_rebuild = {
+                "cell": torch.as_tensor(cell, dtype=dtype, device=dev),
+                "nx": nx, "ny": ny, "P": P, "ks": tuple(ksizes), "rc": rc,
+            }
+
     def retighten(self, system: System,
                   jitter_fraction: Optional[float] = None,
                   bucket_headroom: Optional[float] = None) -> None:
@@ -177,13 +197,51 @@ class CellBlockNeighborListMD:
         return (d * d).sum(-1).max()
 
     def maybe_rebuild(self, system: System) -> bool:
-        """Skin check (one device scalar read); host rebuild if it fires."""
+        """Skin check (one device scalar read); when it fires, a device
+        rebuild where the box admits one, else (or on overflow) a host
+        build."""
         if self._state is None:
             self.build(system)
             return True
         if float(self.displacement2(system)) <= (self.skin / 2.0) ** 2:
             return False
+        if self._dev_rebuild is not None and self._rebuild_on_device(system):
+            return True
         self.build(system)
+        return True
+
+    def _rebuild_on_device(self, system: System) -> bool:
+        """Re-bin and rebuild the whole sorted-space state on the device;
+        the only host read is the overflow flag.  False on overflow (the
+        caller then builds on the host, which grows the capacities)."""
+        info = self._dev_rebuild
+        st = self._state
+        new, ovf = rebin_and_rebuild(
+            system.positions.detach(), st["cell_order"],
+            st["cell_atom_mask"], st["cell_Z"], st["cell_idx_m"],
+            info["cell"], info["nx"], info["ny"], info["P"], info["ks"],
+            info["rc"])
+        if bool(ovf):
+            self.n_device_overflows += 1
+            warnings.warn(
+                f"device neighbor rebuild overflowed the capacities (P="
+                f"{info['P']}, buckets {info['ks']}); rebuilding on the host",
+                RuntimeWarning, stacklevel=3)
+            return False
+        dtype = system.positions.dtype
+        self._state = {
+            **st,
+            structure.cell_qcol: new["qcol"],
+            structure.cell_dcol: new["dcol"],
+            structure.cell_coff_fm: new["coff_fm"].to(dtype),
+            "cell_order": new["order"],
+            "cell_rank": new["rank"],
+            "cell_Z": new["Z"],
+            "cell_idx_m": new["idx_m"],
+            "cell_atom_mask": new["atom_mask"].to(dtype),
+        }
+        self._build_positions = system.positions.detach().clone()
+        self.n_device_builds += 1
         return True
 
     def state(self) -> Dict[str, torch.Tensor]:

@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
 The sources in ``schnetpack_tpu_torch/csrc/*.cu`` expose a plain C
-interface.  On first use they are compiled with ``nvcc`` for Hopper
-(``sm_90a``) into one shared library under ``schnetpack_tpu_torch/_build/``
-(named by a hash of the sources, so an edited source rebuilds), which is
-loaded with ``ctypes``.  Pointers are passed as ``data_ptr()``; every entry
+interface.  On first use each is compiled with its own ``nvcc`` process for
+Hopper (``sm_90a``), all started together, and the objects are linked into
+one shared library under ``schnetpack_tpu_torch/_build/`` (named by a hash
+of the sources, so an edited source rebuilds), which is loaded with
+``ctypes``.  Pointers are passed as ``data_ptr()``; every entry
 point launches on the given stream and returns ``cudaGetLastError()``.
 Nothing here runs at import time: the CPU tests import every module.
 """
@@ -24,7 +25,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -34,6 +35,10 @@ SIGNATURES = {
     "spk_msg_fwd": [_P] * 8 + [_P, _P] + [_I] * 4 + [_P] + [_I, _I, _F, _P],
     "spk_msg_bwd": [_P] * 12 + [_P] * 4 + [_I] * 4 + [_P] + [_I] * 3
                    + [_F, _P],
+    "spk_geo_fwd": [_P] * 6 + [_I] * 4 + [_P] + [_I, _I, _F, _P],
+    "spk_msg_fwd_geo": [_P] * 8 + [_I] * 4 + [_P] + [_I] * 3 + [_P],
+    "spk_msg_bwd_geores": [_P] * 15 + [_I] * 4 + [_P] + [_I] * 4
+                          + [_F, _P],
     "spk_mix_fwd": [_P] * 9 + [_P, _P] + [_I, _I, _F, _I, _P],
     "spk_mix_bwd": [_P] * 14 + [_P, _P] + [_I, _I, _F, _I, _P],
 }
@@ -67,11 +72,29 @@ def build() -> str:
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources],
-                         capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    objs = [f"{tmp}.{os.path.basename(src)}.o" for src in sources]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True)
+             for src, obj in zip(sources, objs)]
+    errors = []
+    for src, proc in zip(sources, procs):
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"{os.path.basename(src)} ({proc.returncode}):\n"
+                          f"{err}")
+    if not errors:
+        res = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            errors.append(f"link ({res.returncode}):\n{res.stderr}")
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if errors:
+        raise RuntimeError("nvcc failed: " + "\n".join(errors))
     os.replace(tmp, so)
     build_seconds = time.perf_counter() - t0
     return so

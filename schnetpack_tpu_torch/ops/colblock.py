@@ -90,12 +90,13 @@ def column_fold(edge_vals: torch.Tensor, refs: ColRefs) -> torch.Tensor:
 
 
 def column_geometry(R: torch.Tensor, coff_fm: torch.Tensor, refs: ColRefs,
-                    cw: torch.Tensor, rc: float):
+                    cw: torch.Tensor, rc: float, with_d: bool = False):
     """Per-edge geometry from sorted positions R [A', 3].
 
     Returns ``rbf_aug`` [nx, ny, Ktot, B+1] = [phi*fcut, fcut] and the unit
     directions ``dirs`` [nx, ny, Ktot, 3], with padded slots exactly zero:
-    d = sqrt(|rij|^2 + 1 - mask) keeps them finite.
+    d = sqrt(|rij|^2 + 1 - mask) keeps them finite.  ``with_d`` also
+    returns the distances d [nx, ny, Ktot, 1] (1 at padded slots).
     """
     j, valid = decode_j(refs)
     i, _ = decode_i(refs)
@@ -105,7 +106,8 @@ def column_geometry(R: torch.Tensor, coff_fm: torch.Tensor, refs: ColRefs,
     dirs = rij / d
     fcut = cosine_cutoff(d, rc) * m
     phi = torch.exp(cw[:, 1] * (d - cw[:, 0]) ** 2)
-    return torch.cat([phi * fcut, fcut], dim=-1), dirs
+    rbf_aug = torch.cat([phi * fcut, fcut], dim=-1)
+    return (rbf_aug, dirs, d) if with_d else (rbf_aug, dirs)
 
 
 def painn_message(x: torch.Tensor, mu: torch.Tensor, rbf_aug: torch.Tensor,

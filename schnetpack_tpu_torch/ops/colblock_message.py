@@ -1,26 +1,41 @@
-"""Fully fused PaiNN column message: CUDA kernels K1/K2 and their twin.
+"""PaiNN column message: CUDA kernels K1/K2 and K6/K7 and their twins.
 
-Counterpart of the FUSE="full" path of ``schnetpack_tpu/ops/
-colblock_pallas.py`` (``painn_message_columns_full_fused_pallas``): the
-per-edge geometry is recomputed from the positions inside both the
-forward kernel (K1, ``csrc/colblock_message.cu::msg_fwd_kernel``) and the
-backward kernel (K2, ``msg_bwd_kernel``), and the position cotangent comes
-straight out of K2.  No per-edge tensor exists in device memory, and the
-geometry has no second autograd path, so forces are counted once.
+Two forms of the message, as in ``schnetpack_tpu/ops/colblock_pallas.py``:
 
-On CUDA tensors the op launches the kernels (or raises); on CPU tensors it
+* FUSE="full" (``painn_message_columns_full_fused_pallas``): the per-edge
+  geometry is recomputed from the positions inside both the forward
+  kernel (K1, ``csrc/colblock_message.cu::msg_fwd_kernel<false>``) and the
+  backward kernel (K2, ``msg_bwd_kernel<false>``), and the position
+  cotangent comes straight out of K2.  No per-edge tensor exists in
+  device memory.
+* FUSE="hybrid" (``painn_message_columns_fm_geores_pallas``): the forward
+  (K6, ``msg_fwd_kernel<true>``) reads the packed geo tensor that K5
+  (``colblock_geo.py``) computes once per step, and the geo-resident
+  backward (K7, ``msg_bwd_kernel<true>``) derives the geometry chain from
+  the stored channels and emits dR without reading the positions.
+
+In both the geometry has no second autograd path, so forces are counted
+once.  The full op launches the kernels on CUDA tensors (or raises) and
 runs the plain twin, the gather / per-edge math / fold composition of
-``ops/colblock.py``, under ordinary autograd.
+``ops/colblock.py``, under ordinary autograd on CPU tensors.  The hybrid
+op is one ``torch.autograd.Function`` on both devices: kernels on CUDA,
+twins on the CPU, so the CPU tests run its wiring (geo detached, dR only
+from the backward).
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
 from . import _build
-from .colblock import ColRefs, column_geometry, decode_j, painn_message
+from .colblock import (
+    ColRefs, column_geometry, decode_i, decode_j, painn_message,
+)
 
 #: kernel launches since the last reset (the main path adds one per call)
-LAUNCHES = {"msg_fwd": 0, "msg_bwd": 0}
+LAUNCHES = {"msg_fwd": 0, "msg_bwd": 0, "msg_fwd_geo": 0,
+            "msg_bwd_geores": 0}
 _MAX_GROUPS = 8   # row ranges per source column in K2
 
 
@@ -29,8 +44,9 @@ def _shapes(x, cw, refs: ColRefs):
     return nx, ny, Ktot, nx * ny * refs.P, x.shape[1] // 3, cw.shape[0]
 
 
-def _check(x, mu, R, FW_aug, coff_fm, cw, refs: ColRefs):
-    nx, ny, Ktot, Ap, F, B = _shapes(x, cw, refs)
+def _check_common(x, mu, FW_aug, refs: ColRefs, B: int):
+    nx, ny, Ktot = refs.qcol.shape
+    Ap, F = nx * ny * refs.P, x.shape[1] // 3
     if F % 32 or F > 128:
         raise ValueError(
             f"the message kernels take F % 32 == 0 and F <= 128, got F={F}")
@@ -38,12 +54,17 @@ def _check(x, mu, R, FW_aug, coff_fm, cw, refs: ColRefs):
         raise ValueError(f"bucket sizes must be multiples of 8: {refs.ksizes}")
     _build.check(x, "x", (Ap, 3 * F))
     _build.check(mu, "mu", (Ap, 3 * F))
-    _build.check(R, "R", (Ap, 3))
     _build.check(FW_aug, "FW_aug", (B + 1, 3 * F))
-    _build.check(coff_fm, "coff_fm", (nx, ny, 3, Ktot))
-    _build.check(cw, "cw", (B, 2))
     _build.check(refs.qcol, "qcol", (nx, ny, Ktot), torch.int32)
     _build.check(refs.dcol, "dcol", (nx, ny, Ktot), torch.int32)
+
+
+def _check(x, mu, R, FW_aug, coff_fm, cw, refs: ColRefs):
+    nx, ny, Ktot, Ap, F, B = _shapes(x, cw, refs)
+    _check_common(x, mu, FW_aug, refs, B)
+    _build.check(R, "R", (Ap, 3))
+    _build.check(coff_fm, "coff_fm", (nx, ny, 3, Ktot))
+    _build.check(cw, "cw", (B, 2))
 
 
 def msg_fwd_kernel(x, mu, R, FW_aug, coff_fm, cw, refs: ColRefs, rc: float):
@@ -167,3 +188,149 @@ def painn_message_columns_full_fused(x, mu, R, FW_aug, coff_fm, cw,
             "freeze the parameters (requires_grad_(False)) for MD")
     return PaiNNMessageFullFused.apply(x, mu, R, FW_aug, coff_fm, cw, refs,
                                        float(rc))
+
+
+# ------------------------------------------------------------- hybrid path
+def msg_fwd_geo_kernel(x, mu, geo, FW_aug, refs: ColRefs):
+    """K6: dq [A', F], dmu [A', 3F] from the stored geo [nx, ny, nch,
+    Ktot] (nch = B+4 or B+5; the d channel is not read)."""
+    nx, ny, Ktot = refs.qcol.shape
+    B = FW_aug.shape[0] - 1
+    nch = geo.shape[2]
+    if nch not in (B + 4, B + 5):
+        raise ValueError(f"geo has {nch} channels, want {B + 4} or {B + 5}")
+    _check_common(x, mu, FW_aug, refs, B)
+    _build.check(geo, "geo", (nx, ny, nch, Ktot))
+    Ap, F = x.shape[0], x.shape[1] // 3
+    dq = x.new_empty((Ap, F))
+    dmu = x.new_empty((Ap, 3 * F))
+    p = _build.ptr
+    _build.launch("spk_msg_fwd_geo", p(x), p(mu), p(geo), p(FW_aug),
+                  p(refs.qcol), p(refs.dcol), p(dq), p(dmu), nx, ny, refs.P,
+                  Ktot, _build.int_array(refs.koffs), F, B, nch)
+    LAUNCHES["msg_fwd_geo"] += 1
+    return dq, dmu
+
+
+def msg_bwd_geores_kernel(x, mu, geo, FW_aug, cw, refs: ColRefs, rc: float,
+                          g_dq, g_dmu):
+    """K7: cotangents (dx, dmu, dR) of K6's outputs for (g_dq, g_dmu),
+    the geometry chain taken from the stored geo [nx, ny, B+5, Ktot]; no
+    positions.  Same schedule and partial sums as K2."""
+    nx, ny, Ktot = refs.qcol.shape
+    B = cw.shape[0]
+    _check_common(x, mu, FW_aug, refs, B)
+    _build.check(geo, "geo", (nx, ny, B + 5, Ktot))
+    _build.check(cw, "cw", (B, 2))
+    Ap, F = x.shape[0], x.shape[1] // 3
+    _build.check(g_dq, "g_dq", (Ap, F))
+    _build.check(g_dmu, "g_dmu", (Ap, 3 * F))
+    esorted, grp, G = _bwd_schedule(refs, nx * ny)
+    dx = torch.empty_like(x)
+    dmu = torch.empty_like(mu)
+    gRo = x.new_empty((nx * ny, 3, refs.P))
+    gRd = x.new_empty((G, 9, nx * ny, 3, refs.P))
+    p = _build.ptr
+    _build.launch("spk_msg_bwd_geores", p(x), p(mu), p(geo), p(FW_aug),
+                  p(cw), p(refs.qcol), p(refs.dcol), p(esorted), p(grp),
+                  p(g_dq), p(g_dmu), p(dx), p(dmu), p(gRo), p(gRd), nx, ny,
+                  refs.P, Ktot, _build.int_array(refs.koffs), G, F, B, B + 5,
+                  float(rc))
+    LAUNCHES["msg_bwd_geores"] += 1
+    dR = (gRo + gRd.sum((0, 1))).transpose(1, 2).reshape(Ap, 3)
+    return dx, dmu, dR
+
+
+def _geo_edge_major(geo, B: int):
+    """(rbf_aug [.., B+1], dirs [.., 3]) per edge slot from the packed geo."""
+    g = geo.movedim(2, -1)
+    return g[..., :B + 1], g[..., B + 1:B + 4]
+
+
+def msg_fwd_geo_plain(x, mu, geo, FW_aug, refs: ColRefs):
+    """Plain twin of K6 (autograd-able in x, mu and FW_aug)."""
+    rbf_aug, dirs = _geo_edge_major(geo, FW_aug.shape[0] - 1)
+    return painn_message(x, mu, rbf_aug, dirs, FW_aug, refs)
+
+
+def msg_bwd_geores_plain(x, mu, geo, FW_aug, cw, refs: ColRefs, rc: float,
+                         g_dq, g_dmu):
+    """Plain twin of K7: (dx, dmu, dR, gFW).  The message VJP by autograd
+    with the stored channels as constants, then the geometry chain from
+    the stored channels with K7's formulas (``csrc/colblock_message.cu``
+    header note), folded to both ends of every edge."""
+    B = cw.shape[0]
+    rbf_aug, dirs = _geo_edge_major(geo, B)
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True)
+                  for t in (x, mu, rbf_aug, dirs, FW_aug)]
+        out = painn_message(*leaves[:4], leaves[4], refs)
+        dx, dmu, grbf, gdir, gFW = torch.autograd.grad(out, leaves,
+                                                       (g_dq, g_dmu))
+    g = geo.movedim(2, -1)
+    fcut, d = g[..., B:B + 1], g[..., B + 4:B + 5]
+    pi_rc = math.pi / rc
+    phi = g[..., :B] * (1.0 / fcut.clamp(min=1e-30))
+    dfcut = torch.where(fcut > 0, -0.5 * pi_rc * torch.sin(d * pi_rc),
+                        torch.zeros_like(d))
+    dphi = 2.0 * cw[:, 1] * (d - cw[:, 0]) * phi
+    gd = ((grbf[..., :B] * dphi).sum(-1, keepdim=True) * fcut
+          + ((grbf[..., :B] * phi).sum(-1, keepdim=True) + grbf[..., B:])
+          * dfcut)
+    s = (gdir * dirs).sum(-1, keepdim=True)
+    grij = (gdir - dirs * s) * (1.0 / d.clamp(min=1e-6)) + gd * dirs
+    j, valid = decode_j(refs)
+    i, _ = decode_i(refs)
+    grij = (grij * valid[..., None].to(grij.dtype)).reshape(-1, 3)
+    dR = x.new_zeros((x.shape[0], 3))
+    dR = dR.index_add(0, j.reshape(-1), grij).index_add(0, i.reshape(-1),
+                                                         -grij)
+    return dx, dmu, dR, gFW
+
+
+class PaiNNMessageGeoRes(torch.autograd.Function):
+    """K6 forward, K7 backward on CUDA; their twins on the CPU (which also
+    return the filter-weight cotangent)."""
+
+    @staticmethod
+    def forward(ctx, x, mu, R, geo, FW_aug, cw, refs, rc):
+        ctx.save_for_backward(x, mu, geo, FW_aug, cw)
+        ctx.refs, ctx.rc = refs, rc
+        if x.is_cuda:
+            return msg_fwd_geo_kernel(x, mu, geo, FW_aug, refs)
+        return msg_fwd_geo_plain(x, mu, geo, FW_aug, refs)
+
+    @staticmethod
+    def backward(ctx, g_dq, g_dmu):
+        x, mu, geo, FW_aug, cw = ctx.saved_tensors
+        g_dq, g_dmu = g_dq.contiguous(), g_dmu.contiguous()
+        if x.is_cuda:
+            dx, dmu, dR = msg_bwd_geores_kernel(x, mu, geo, FW_aug, cw,
+                                                ctx.refs, ctx.rc, g_dq, g_dmu)
+            gFW = None
+        else:
+            dx, dmu, dR, gFW = msg_bwd_geores_plain(
+                x, mu, geo, FW_aug, cw, ctx.refs, ctx.rc, g_dq, g_dmu)
+        return dx, dmu, dR, None, gFW, None, None, None
+
+
+def painn_message_columns_fm_geores(x, mu, R, geo, FW_aug, coff_fm, cw,
+                                    refs: ColRefs, rc: float):
+    """PaiNN message over the column layout on the packed geo [nx, ny,
+    B+5, Ktot] of ``R`` (``colblock_geo.column_geometry_packed(...,
+    with_d=True)`` under ``torch.no_grad()``), with the geo-resident
+    backward (signature of ``schnetpack_tpu.ops.colblock.
+    painn_message_columns_fm_geores``; ``coff_fm`` is not read).  The
+    position cotangent comes out of the backward only.  Returns dq [A', F],
+    dmu [A', 3F]."""
+    if geo.requires_grad:
+        raise ValueError(
+            "geo must be computed under torch.no_grad(): the message "
+            "backward returns dR itself, a graph through geo would count "
+            "the forces twice")
+    if x.is_cuda and FW_aug.requires_grad:
+        raise NotImplementedError(
+            "the CUDA message backward has no filter-weight cotangent yet; "
+            "freeze the parameters (requires_grad_(False)) for MD")
+    return PaiNNMessageGeoRes.apply(x, mu, R, geo, FW_aug, cw, refs,
+                                    float(rc))

@@ -1,10 +1,22 @@
 """PaiNN on the column-bucketed layout (the MD path).
 
-Port of ``schnetpack_tpu/representation/painn.py`` in its FUSE="full"
-form: embedding -> n_interactions x (context MLP ctx_0/ctx_1 -> fused
-message with in-kernel geometry -> fused residual + mixing) -> scalar
-features q [A', F] and vector features mu [A', 3, F].  ``mu`` stays flat
-[A', 3F] between blocks, the kernels' layout.
+Port of ``schnetpack_tpu/representation/painn.py`` on its column path:
+embedding -> n_interactions x (context MLP ctx_0/ctx_1 -> fused message ->
+fused residual + mixing) -> scalar features q [A', F] and vector features
+mu [A', 3, F].  ``mu`` stays flat [A', 3F] between blocks, the kernels'
+layout.  ``fuse`` picks the message form, the JAX package's ``FUSE``
+(``ops/cellblock.py:80-92``) as an argument:
+
+* ``"hybrid"``: the packed geometry is computed once per forward under
+  ``torch.no_grad()`` (the JAX ``stop_gradient``, ``painn.py:340-358``)
+  and every interaction's message reads it, forward and backward; dR comes
+  out of the message backward only;
+* ``"full"``: the geometry is recomputed inside both message kernels.
+
+The default is ``"full"``, unlike the JAX package's ``"hybrid"``: on the
+H100 at the 10,976-atom bench shapes the full step measured 0.8-3% faster
+(PERF.md, PR 2); the TPU's reason for hybrid, a geometry recompute that
+cost more than the geo reads, does not hold there.
 
 Parameters are held the way the kernels read them: ``FW_aug`` [T, B+1, 3F]
 (the filter network's weights per interaction with its bias as the last
@@ -24,7 +36,10 @@ from .. import properties
 from ..nn.base import Dense
 from ..ops.activations import ACTIVATIONS
 from ..ops.colblock import ColRefs
-from ..ops.colblock_message import painn_message_columns_full_fused
+from ..ops.colblock_geo import column_geometry_packed
+from ..ops.colblock_message import (
+    painn_message_columns_fm_geores, painn_message_columns_full_fused,
+)
 from ..ops.painn_mixing import painn_mixing_fused
 from ..ops.radial import gaussian_rbf_table
 
@@ -40,11 +55,16 @@ class PaiNNInteraction(nn.Module):
                            generator=generator)
         self.ctx_1 = Dense(F, 3 * F, generator=generator)
 
-    def forward(self, q, mu, R, FW_aug, coff_fm, cw, refs: ColRefs,
+    def forward(self, q, mu, R, geo, FW_aug, coff_fm, cw, refs: ColRefs,
                 rc: float):
+        """Message of this block; ``geo`` is the packed geometry (hybrid)
+        or None (full: geometry recomputed in the kernels)."""
         x = self.ctx_1(self.ctx_0(q))
-        return painn_message_columns_full_fused(x, mu, R, FW_aug, coff_fm,
-                                                cw, refs, rc)
+        if geo is None:
+            return painn_message_columns_full_fused(x, mu, R, FW_aug,
+                                                    coff_fm, cw, refs, rc)
+        return painn_message_columns_fm_geores(x, mu, R, geo, FW_aug,
+                                               coff_fm, cw, refs, rc)
 
 
 class PaiNNMixing(nn.Module):
@@ -82,9 +102,13 @@ class PaiNN(nn.Module):
     def __init__(self, n_atom_basis: int = 128, n_interactions: int = 3,
                  n_rbf: int = 20, cutoff: float = 5.0, max_z: int = 100,
                  activation: str = "ssp", epsilon: float = 1e-8,
+                 fuse: str = "full",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        if fuse not in ("hybrid", "full"):
+            raise ValueError(f"fuse must be 'hybrid' or 'full', got {fuse!r}")
         F = n_atom_basis
+        self.fuse = fuse
         self.n_atom_basis = F
         self.n_rbf = n_rbf
         self.cutoff = float(cutoff)
@@ -117,12 +141,17 @@ class PaiNN(nn.Module):
         refs = ColRefs(qcol, inputs[properties.cell_dcol], P,
                        tuple(inputs[properties.cell_ksz]))
         coff_fm = inputs[properties.cell_coff_fm]
+        geo = None
+        if self.fuse == "hybrid":
+            with torch.no_grad():
+                geo = column_geometry_packed(R, coff_fm, refs, self.cw,
+                                             self.cutoff, with_d=True)
         F = self.n_atom_basis
         q = self.embedding(inputs[properties.Z])
         mu = q.new_zeros((q.shape[0], 3 * F))
         for t, (inter, mix) in enumerate(zip(self.interactions,
                                              self.mixing)):
-            dq, dmu = inter(q, mu, R, self.FW_aug[t], coff_fm, self.cw,
+            dq, dmu = inter(q, mu, R, geo, self.FW_aug[t], coff_fm, self.cw,
                             refs, self.cutoff)
             q, mu = mix(q, mu, dq, dmu)
         inputs[properties.scalar_representation] = q

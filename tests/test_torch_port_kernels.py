@@ -1,10 +1,11 @@
-"""PyTorch port: the CUDA kernels K1-K4 against their plain PyTorch twins,
+"""PyTorch port: the CUDA kernels K1-K7 against their plain PyTorch twins,
 on a card only (skipped without CUDA).  No jax import: on a machine
 without jax run ``python -m pytest --noconftest -m gpu
 tests/test_torch_port_kernels.py``."""
 import pytest
 import torch
 
+from schnetpack_tpu_torch.ops import colblock_geo as geo_op
 from schnetpack_tpu_torch.ops import colblock_message as msg
 from schnetpack_tpu_torch.ops import painn_mixing as mix
 from torch_port_cases import (
@@ -46,3 +47,23 @@ def test_mixing_kernels_match_twin(cuda_device, A, act):
     for got, want in zip(mix.mix_bwd_kernel(*ins, 1e-8, act, gq, gmu),
                          mix.painn_mixing_bwd_plain(*ins, 1e-8, act, gq, gmu)):
         torch.testing.assert_close(got, want, rtol=MIX_RTOL, atol=MIX_ATOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", [0, 3])
+def test_hybrid_kernels_match_twin(cuda_device, seed):
+    c = message_case(seed=seed)
+    t, refs, cw = torch_message_args(c, cuda_device)
+    gargs = (t["Rs"], t["coff_fm"], refs, cw, c["cutoff"])
+    geo = geo_op.geo_fwd_kernel(*gargs)
+    torch.testing.assert_close(geo, geo_op.geo_fwd_plain(*gargs),
+                               rtol=MSG_RTOL, atol=MSG_ATOL)
+    fargs = (t["x"], t["mu"], geo, t["FW"], refs)
+    for got, want in zip(msg.msg_fwd_geo_kernel(*fargs),
+                         msg.msg_fwd_geo_plain(*fargs)):
+        torch.testing.assert_close(got, want, rtol=MSG_RTOL, atol=MSG_ATOL)
+    bargs = (t["x"], t["mu"], geo, t["FW"], cw, refs, c["cutoff"],
+             t["g_dq"], t["g_dmu"])
+    for got, want in zip(msg.msg_bwd_geores_kernel(*bargs),
+                         msg.msg_bwd_geores_plain(*bargs)):
+        torch.testing.assert_close(got, want, rtol=MSG_RTOL, atol=MSG_ATOL)

@@ -3,7 +3,9 @@ with the trained bench asset against the JAX ``Simulator``, plus the
 package's isolation from jax.
 
 Both packages start from the same numpy positions and momenta; a small
-skin makes the port's neighbor list rebuild on the host mid-run.
+skin makes both neighbor lists rebuild mid-run, on the device (the JAX
+package inside its scan, the port in ``maybe_rebuild``).  The port runs
+in both ``fuse`` modes against one JAX run.
 """
 import os
 import subprocess
@@ -81,21 +83,28 @@ def _jax_run(mol, p0, params):
         s.energy)
 
 
-def test_nve_trajectory_matches_jax():
+@pytest.fixture(scope="module")
+def jax_trajectory():
     mol, p0 = _start()
-    tree = load_jax_params(ASSET)
-    R_j, p_j, E_j = _jax_run(mol, p0, tree)
+    return _jax_run(mol, p0, load_jax_params(ASSET))
+
+
+@pytest.mark.parametrize("fuse", ["full", "hybrid"])
+def test_nve_trajectory_matches_jax(jax_trajectory, fuse):
+    mol, p0 = _start()
+    R_j, p_j, E_j = jax_trajectory
 
     conv = _parse_unit("Ang") * md_units().length
     system = load_molecules([mol]).replace(momenta=torch.tensor(p0))
     nbl = CellBlockNeighborListMD(CUTOFF * conv, skin=SKIN * conv)
-    calc = SchNetPackCalculator(port_potential(), params_from_jax(tree),
-                                cutoff=CUTOFF, cutoff_shell=SKIN,
-                                neighbor_list=nbl)
+    calc = SchNetPackCalculator(
+        port_potential(fuse=fuse), params_from_jax(load_jax_params(ASSET)),
+        cutoff=CUTOFF, cutoff_shell=SKIN, neighbor_list=nbl)
     sim = Simulator(system, VelocityVerlet(0.5), calc)
     sim.simulate(N_STEPS, chunk_size=10)
 
-    assert nbl.n_builds >= 2, "the skin criterion never fired"
+    assert nbl.n_device_builds >= 1, "no rebuild went through the device"
+    assert nbl.n_builds == 1 and nbl.n_device_overflows == 0
     assert len(sim.logs) == 2 and sim.logs[0]["energy"].shape == (10, 1, 1)
     np.testing.assert_allclose(sim.system.positions.numpy(), R_j, rtol=0,
                                atol=POS_ATOL)

@@ -3,7 +3,7 @@ energy and forces against the JAX ``NeuralNetworkPotential``.
 
 The JAX side runs its flat pair-list layout (a layout independent of the
 port's column path); the port runs the column path on the CPU (plain
-twins of the kernels).
+twins of the kernels), in both ``fuse`` modes.
 """
 import os
 
@@ -49,9 +49,10 @@ def fcc_box(n_cells: int, a: float = 5.26):
     return ((base[None] + grid) * a).reshape(-1, 3), np.eye(3) * a * n_cells
 
 
-def port_potential(params=None):
+def port_potential(params=None, fuse="full"):
     pot = NeuralNetworkPotential(
-        PaiNN(n_atom_basis=128, n_interactions=3, n_rbf=20, cutoff=CUTOFF),
+        PaiNN(n_atom_basis=128, n_interactions=3, n_rbf=20, cutoff=CUTOFF,
+              fuse=fuse),
         [Atomwise(n_in=128), Forces()])
     if params is not None:
         pot.load_state_dict(params)
@@ -101,7 +102,8 @@ def test_params_from_jax_covers_every_port_parameter():
     assert params["representation.FW_aug"].shape == (3, 21, 384)
 
 
-def test_energy_forces_match_jax_with_bench_asset():
+@pytest.mark.parametrize("fuse", ["full", "hybrid"])
+def test_energy_forces_match_jax_with_bench_asset(fuse):
     rng = np.random.RandomState(0)
     R, cell = fcc_box(4)
     R = R + rng.uniform(-0.15, 0.15, R.shape)
@@ -110,7 +112,7 @@ def test_energy_forces_match_jax_with_bench_asset():
 
     lay, inputs = port_inputs(R, cell, CUTOFF + 0.6)
     assert lay.dims[0] >= 3 and lay.dims[1] >= 3
-    out = port_potential(params_from_jax(tree))(inputs)
+    out = port_potential(params_from_jax(tree), fuse)(inputs)
     E = float(out[TP.energy][0])
     F = out[TP.forces].numpy()[lay.rank]
     np.testing.assert_allclose(E, E_ref, rtol=E_RTOL)
