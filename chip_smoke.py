@@ -7,15 +7,18 @@ Phases (any failure exits non-zero before the last line is printed):
 1. require CUDA; print the card's name and power limit (nvidia-smi);
 2. build the CUDA kernels from ``schnetpack_tpu_torch/csrc`` (one nvcc per
    source, started together; sm_90a);
-3. hold each kernel K1-K7 against its plain PyTorch twin on the card at the
-   shapes of the MD run below (10,976-atom argon box in the layout the
-   port's neighbor list builds, F=128, B=20, f32, random features from
-   --seed; K6/K7 on the geo that K5 computes there), tolerance rtol 1e-4 /
-   atol 1e-5 elementwise, and time both;
-4. hold the port's energy and forces on the card to the JAX reference
-   ``tests/data/port_ref_painn_argon.npz`` (force rms <= 1e-4 eV/Ang,
-   energy within 1e-5 relative) for both PaiNN message forms (``fuse`` =
-   hybrid and full), and print the force rms between the two;
+3. hold each kernel K1-K10 against its plain PyTorch twin on the card at
+   the shapes of the MD runs below (10,976-atom argon box in the layout the
+   port's neighbor list builds, F=128, B=20, f32, random features and
+   cotangents from --seed; K6/K7 on the geo that K5 computes there, K9/K10
+   on the raw-phi geo of K5's raw form, with the trained SchNet's first
+   filter network), tolerance rtol 1e-4 / atol 1e-5 elementwise, and time
+   both;
+4. hold the port's energy and forces on the card to the JAX references
+   (force rms <= 1e-4 eV/Ang, energy within 1e-5 relative): PaiNN in both
+   message forms (``fuse`` = hybrid and full) to
+   ``tests/data/port_ref_painn_argon.npz``, printing the force rms between
+   the two, and SchNet to ``tests/data/port_ref_schnet_argon.npz``;
 5. the neighbor list's device rebuild at full size: jitter the lattice by
    a seeded uniform +-0.25 A (the 0.3 A skin check fires, the capacities
    hold), rebuild once on the device and once on the host, and require
@@ -23,13 +26,16 @@ Phases (any failure exits non-zero before the last line is printed):
    rms 1e-5 eV/Ang; time both;
 6. run NVE velocity Verlet at 0.5 fs of the 10,976-atom periodic FCC argon
    box with the trained PaiNN-128x3 (``scripts/assets/
-   bench_painn_argon.msgpack``), Maxwell-Boltzmann momenta at 30 K, the
-   column neighbor list (5 A cutoff, 0.6 A skin): a warm-up, a retighten of
-   the capacities, then --steps timed steps, on the hybrid path and then
-   on the full path; check finite positions, 0 < T < 300 K, total-energy
-   drift <= 1e-4 eV/atom, the launches per step of every kernel (hybrid:
-   K5 1, K6/K7/K3/K4 3; full: K1/K2/K3/K4 3), and that every rebuild after
-   the retighten went through the device unless it overflowed;
+   bench_painn_argon.msgpack``) and then the trained SchNet-128x3
+   (``scripts/assets/bench_schnet_argon.msgpack``), Maxwell-Boltzmann
+   momenta at 30 K, the column neighbor list (5 A cutoff, 0.6 A skin): a
+   warm-up, a retighten of the capacities, then --steps timed steps, on
+   PaiNN's hybrid path, PaiNN's full path and SchNet's path; check finite
+   positions, 0 < T < 300 K, total-energy drift <= 1e-4 eV/atom, the
+   launches per step of every kernel (hybrid: K5 1, K6/K7/K3/K4 3; full:
+   K1/K2/K3/K4 3; SchNet: K5 raw 1, K9/K10 3, K8 1; every other kernel 0),
+   and that every rebuild after the retighten went through the device
+   unless it overflowed;
 7. print the kernel table and the card as JSON, then the result line.
 """
 import argparse
@@ -43,8 +49,17 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-ASSET = os.path.join(ROOT, "scripts", "assets", "bench_painn_argon.msgpack")
-REFERENCE = os.path.join(ROOT, "tests", "data", "port_ref_painn_argon.npz")
+ASSET = {
+    "painn": os.path.join(ROOT, "scripts", "assets",
+                          "bench_painn_argon.msgpack"),
+    "schnet": os.path.join(ROOT, "scripts", "assets",
+                           "bench_schnet_argon.msgpack"),
+}
+REFERENCE = {
+    "painn": os.path.join(ROOT, "tests", "data", "port_ref_painn_argon.npz"),
+    "schnet": os.path.join(ROOT, "tests", "data",
+                           "port_ref_schnet_argon.npz"),
+}
 CUTOFF, SKIN = 5.0, 0.6          # Angstrom
 RTOL, ATOL = 1e-4, 1e-5          # kernel vs twin, elementwise
 FORCE_RMS_TOL = 1e-4             # eV/Ang vs the JAX reference
@@ -52,11 +67,13 @@ ENERGY_RTOL = 1e-5
 DRIFT_TOL = 1e-4                 # eV/atom, max |E_tot(t) - E_tot(0)|
 REBUILD_FORCE_RMS_TOL = 1e-5     # eV/Ang, device vs host neighbor state
 REBUILD_JITTER = 0.25            # Angstrom, per component
-#: kernel launches per MD step on each path
+#: kernel launches per MD step on each path (PaiNN's two message forms,
+#: SchNet)
 PER_STEP = {
     "hybrid": {"geo_fwd": 1, "msg_fwd_geo": 3, "msg_bwd_geores": 3,
                "mix_fwd": 3, "mix_bwd": 3},
     "full": {"msg_fwd": 3, "msg_bwd": 3, "mix_fwd": 3, "mix_bwd": 3},
+    "schnet": {"geo_fwd_raw": 1, "cf_fwd": 3, "cf_bwd": 3, "geo_bwd": 1},
 }
 
 
@@ -98,19 +115,24 @@ def molecule(R, cell):
             P.pbc: np.ones(3, bool)}
 
 
-def potential(fuse="full"):
-    """The trained PaiNN-128x3 (``fuse``: the message form; PaiNN's own
-    default unless given) and its parameters."""
+def potential(path="full"):
+    """The trained model of a path and its parameters: PaiNN-128x3 with the
+    message form ``path`` ("hybrid" or "full", PaiNN's own default), or
+    SchNet-128x3 (``path`` "schnet")."""
     from schnetpack_tpu_torch.atomistic import Atomwise, Forces
     from schnetpack_tpu_torch.convert import load_jax_params, params_from_jax
     from schnetpack_tpu_torch.model import NeuralNetworkPotential
-    from schnetpack_tpu_torch.representation import PaiNN
+    from schnetpack_tpu_torch.representation import PaiNN, SchNet
 
-    pot = NeuralNetworkPotential(
-        PaiNN(n_atom_basis=128, n_interactions=3, n_rbf=20, cutoff=CUTOFF,
-              fuse=fuse),
-        [Atomwise(n_in=128), Forces()])
-    return pot, params_from_jax(load_jax_params(ASSET))
+    if path == "schnet":
+        rep = SchNet(n_atom_basis=128, n_interactions=3, n_rbf=20,
+                     cutoff=CUTOFF)
+    else:
+        rep = PaiNN(n_atom_basis=128, n_interactions=3, n_rbf=20,
+                    cutoff=CUTOFF, fuse=path)
+    pot = NeuralNetworkPotential(rep, [Atomwise(n_in=128), Forces()])
+    model = "schnet" if path == "schnet" else "painn"
+    return pot, params_from_jax(load_jax_params(ASSET[model]))
 
 
 def layout_str(state):
@@ -134,23 +156,46 @@ def calculator(pot, params, jitter=0.25, headroom=1.0 / 12.0):
                                 neighbor_list=nbl)
 
 
-def kernel_phase(calc, system, seed, dev):
-    """K1-K7 against their twins at the MD run's shapes; returns rows."""
+def run_inputs(calc, system):
+    """(R, coff_fm, refs) of the model's inputs for ``system``."""
     from schnetpack_tpu_torch import properties as P
-    from schnetpack_tpu_torch.ops import colblock_geo as geo_op
-    from schnetpack_tpu_torch.ops import colblock_message as msg
-    from schnetpack_tpu_torch.ops import painn_mixing as mix
     from schnetpack_tpu_torch.ops.colblock import ColRefs
 
     st = calc.init_state(system)
     inputs = calc.model_inputs(system, st)
-    rep = calc.model.representation
     R = inputs[P.R].contiguous()
     qcol = inputs[P.cell_qcol]
     refs = ColRefs(qcol, inputs[P.cell_dcol],
                    R.shape[0] // (qcol.shape[0] * qcol.shape[1]),
                    tuple(inputs[P.cell_ksz]))
-    coff = inputs[P.cell_coff_fm].contiguous()
+    print(f"layout: {layout_str(st)} A'={R.shape[0]}", flush=True)
+    return R, inputs[P.cell_coff_fm].contiguous(), refs
+
+
+def check_kernels(cases):
+    """Each kernel against its twin (rtol/atol elementwise), both timed;
+    returns the rows of the kernel table."""
+    rows = []
+    for name, src, replaces, kern, plain in cases:
+        err = compare(name, kern(), plain())
+        ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
+        print(f"kernel {name}: max_abs_err={err:.3e} {ms:.4f} ms "
+              f"(plain twin {plain_ms:.4f} ms)", flush=True)
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"schnetpack_tpu_torch/csrc/{src}",
+                     "replaces": f"schnetpack_tpu/ops/{replaces}",
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+    return rows
+
+
+def kernel_phase(calc, system, seed, dev):
+    """K1-K7 against their twins at the MD run's shapes; returns rows."""
+    from schnetpack_tpu_torch.ops import colblock_geo as geo_op
+    from schnetpack_tpu_torch.ops import colblock_message as msg
+    from schnetpack_tpu_torch.ops import painn_mixing as mix
+
+    R, coff, refs = run_inputs(calc, system)
+    rep = calc.model.representation
     F, Ap = rep.n_atom_basis, R.shape[0]
     g = torch.Generator().manual_seed(seed)
 
@@ -169,7 +214,6 @@ def kernel_phase(calc, system, seed, dev):
     w = (m0.kmix, m0.k0, m0.b0, m0.k1, m0.b1)
     xargs = (rnd(Ap, F, scale=1.0), mu, g_dq * 0.3, g_dmu * 0.3, *w,
              m0.epsilon, m0.activation)
-    print(f"layout: {layout_str(st)} A'={Ap}", flush=True)
 
     cases = [
         ("msg_fwd", "colblock_message.cu", "colblock_pallas.py:1889",
@@ -193,27 +237,59 @@ def kernel_phase(calc, system, seed, dev):
          lambda: msg.msg_bwd_geores_kernel(*bargs),
          lambda: msg.msg_bwd_geores_plain(*bargs)[:3]),
     ]
-    rows = []
-    for name, src, replaces, kern, plain in cases:
-        err = compare(name, kern(), plain())
-        ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
-        print(f"kernel {name}: max_abs_err={err:.3e} {ms:.4f} ms "
-              f"(plain twin {plain_ms:.4f} ms)", flush=True)
-        rows.append({"name": name, "route": "cuda",
-                     "source": f"schnetpack_tpu_torch/csrc/{src}",
-                     "replaces": f"schnetpack_tpu/ops/{replaces}",
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
-    return rows
+    return check_kernels(cases)
+
+
+def schnet_kernel_phase(calc, system, seed, dev):
+    """K5 raw, K8, K9 and K10 against their twins at the SchNet run's
+    shapes, with the trained SchNet's first filter network; returns rows."""
+    from schnetpack_tpu_torch.ops import colblock_geo as geo_op
+    from schnetpack_tpu_torch.ops import schnet_columns as cf
+
+    R, coff, refs = run_inputs(calc, system)
+    rep = calc.model.representation
+    F, Ap, B = rep.n_atom_basis, R.shape[0], rep.n_rbf
+    g = torch.Generator().manual_seed(seed + 10)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g) * scale).to(dev)
+
+    gargs = (R, coff, refs, rep.cw, rep.cutoff)
+    geo = geo_op.geo_fwd_kernel(*gargs, with_d=False, raw_phi=True)
+    ggeo = rnd(*geo.shape)
+    i0 = rep.interactions[0]
+    cargs = (rnd(Ap, F, scale=0.3), geo,
+             i0.filter_0.weight.t().contiguous(), i0.filter_0.bias,
+             i0.filter_1.weight.t().contiguous(), i0.filter_1.bias, refs)
+    g_out = rnd(Ap, F)
+    assert geo.shape[2] == B + 4
+    cases = [
+        ("geo_fwd_raw", "colblock_geo.cu", "colblock_geo.py:202",
+         lambda: (geo_op.geo_fwd_kernel(*gargs, with_d=False,
+                                        raw_phi=True),),
+         lambda: (geo_op.geo_fwd_plain(*gargs, with_d=False, raw_phi=True),)),
+        ("geo_bwd", "colblock_geo.cu", "colblock_geo.py:230",
+         lambda: (geo_op.geo_bwd_kernel(ggeo, *gargs),),
+         lambda: (geo_op.geo_bwd_plain(ggeo, *gargs),)),
+        ("cf_fwd", "schnet_columns.cu", "schnet_columns.py:79",
+         lambda: (cf.cf_fwd_kernel(*cargs),),
+         lambda: (cf.cf_fwd_plain(*cargs),)),
+        ("cf_bwd", "schnet_columns.cu", "schnet_columns.py:145",
+         lambda: cf.cf_bwd_kernel(*cargs, g_out),
+         lambda: cf.cf_bwd_plain(*cargs, g_out)[:2]),
+    ]
+    return check_kernels(cases)
 
 
 def reference_phase(dev):
-    """Both message forms against the JAX reference; forces per form."""
+    """Both PaiNN message forms and SchNet against their JAX references;
+    forces per path."""
     from schnetpack_tpu_torch.md import load_molecules
 
-    ref = np.load(REFERENCE)
     out = {}
-    for fuse in ("hybrid", "full"):
-        pot, params = potential(fuse)
+    for path in ("hybrid", "full", "schnet"):
+        ref = np.load(REFERENCE["schnet" if path == "schnet" else "painn"])
+        pot, params = potential(path)
         calc = calculator(pot, params)
         system = load_molecules([molecule(ref["R"].astype(np.float64),
                                           ref["cell"])], device=dev)
@@ -222,13 +298,13 @@ def reference_phase(dev):
         E = float(system.energy[0, 0]) / calc.energy_conversion
         rms = float(np.sqrt(np.mean((F - ref["forces"]) ** 2)))
         dE = abs(E - float(ref["energy"])) / abs(float(ref["energy"]))
-        print(f"reference ({fuse}): force rms err {rms:.3e} eV/Ang (max "
+        print(f"reference ({path}): force rms err {rms:.3e} eV/Ang (max "
               f"{np.abs(F - ref['forces']).max():.3e}), energy {E:.6f} vs "
               f"{float(ref['energy']):.6f} eV (rel {dE:.2e})", flush=True)
         assert np.isfinite(F).all() and F.shape == ref["forces"].shape
-        assert rms <= FORCE_RMS_TOL, f"{fuse}: force rms {rms}"
-        assert dE <= ENERGY_RTOL, f"{fuse}: energy rel err {dE}"
-        out[fuse] = F
+        assert rms <= FORCE_RMS_TOL, f"{path}: force rms {rms}"
+        assert dE <= ENERGY_RTOL, f"{path}: energy rel err {dE}"
+        out[path] = F
     d = out["hybrid"] - out["full"]
     print(f"hybrid vs full forces: rms {np.sqrt(np.mean(d ** 2)):.3e}, max "
           f"{np.abs(d).max():.3e} eV/Ang", flush=True)
@@ -304,14 +380,15 @@ def rebuild_phase(seed, dev):
     assert rms <= REBUILD_FORCE_RMS_TOL, f"force rms {rms}"
 
 
-def md_phase(fuse, pos, cell, steps, seed, dev, launches):
-    """NVE run on one message path; returns (launch counts, ms/step)."""
+def md_phase(path, pos, cell, steps, seed, dev, launches):
+    """NVE run on one path (PaiNN hybrid or full, SchNet); returns (launch
+    counts, ms/step)."""
     from schnetpack_tpu_torch.md import (
         MaxwellBoltzmannInit, Simulator, VelocityVerlet, load_molecules,
     )
     from schnetpack_tpu_torch.units import md_units
 
-    pot, params = potential(fuse)
+    pot, params = potential(path)
     calc = calculator(pot, params)
     nbl = calc.nbl
     system = load_molecules([molecule(pos, cell)], device=dev)
@@ -322,7 +399,7 @@ def md_phase(fuse, pos, cell, steps, seed, dev, launches):
     nbl.retighten(sim.system, jitter_fraction=0.05,
                   bucket_headroom=1.0 / 24.0)
     sim.calc_state = nbl.state()
-    print(f"md ({fuse}) after retighten: {layout_str(sim.calc_state)}",
+    print(f"md ({path}) after retighten: {layout_str(sim.calc_state)}",
           flush=True)
     builds0 = (nbl.n_builds, nbl.n_device_builds, nbl.n_device_overflows)
     for counts in launches:
@@ -352,7 +429,7 @@ def md_phase(fuse, pos, cell, steps, seed, dev, launches):
     E_kin = 1.5 * A * md_units().kB * T_log            # MD energy units
     E_tot = (E_pot + E_kin) / calc.energy_conversion   # eV
     drift = float(np.abs(E_tot - E_tot[0]).max()) / A
-    print(f"md ({fuse}): {steps} steps, {A} atoms, ms/step (CUDA events) "
+    print(f"md ({path}): {steps} steps, {A} atoms, ms/step (CUDA events) "
           f"{ms_step:.3f}, wall {1e3 * wall / steps:.3f} ms/step, "
           f"{A / (ms_step * 1e-3):.4g} atom-steps/s, T_end={T:.2f} K, "
           f"max |E_tot - E_tot(0)| = {drift:.3e} eV/atom, rebuilds: "
@@ -362,8 +439,8 @@ def md_phase(fuse, pos, cell, steps, seed, dev, launches):
     assert 0.0 < T < 300.0, f"temperature {T} K"
     assert drift <= DRIFT_TOL, f"energy drift {drift} eV/atom"
     for k, v in counts.items():
-        want = PER_STEP[fuse].get(k, 0) * steps
-        assert v == want, f"{fuse}: {k} launched {v} times, want {want}"
+        want = PER_STEP[path].get(k, 0) * steps
+        assert v == want, f"{path}: {k} launched {v} times, want {want}"
     assert host == overflows, (
         f"{host} host rebuilds after the retighten, {overflows} overflows")
     return counts, ms_step
@@ -388,6 +465,7 @@ def main():
     from schnetpack_tpu_torch.ops import colblock_geo as geo_op
     from schnetpack_tpu_torch.ops import colblock_message as msg
     from schnetpack_tpu_torch.ops import painn_mixing as mix
+    from schnetpack_tpu_torch.ops import schnet_columns as cf
 
     assert not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cudnn.allow_tf32
@@ -398,25 +476,26 @@ def main():
           f"{_build.build_seconds:.1f} s)", flush=True)
 
     pos, cell = fcc_box(10_000)
-    pot, params = potential("hybrid")
-    calc = calculator(pot, params)
     system = load_molecules([molecule(pos, cell)], device=dev)
-    rows = kernel_phase(calc, system, args.seed, dev)
+    rows = kernel_phase(calculator(*potential("hybrid")), system, args.seed,
+                        dev)
+    rows += schnet_kernel_phase(calculator(*potential("schnet")), system,
+                                args.seed, dev)
     reference_phase(dev)
     rebuild_phase(args.seed, dev)
-    launches = (msg.LAUNCHES, mix.LAUNCHES, geo_op.LAUNCHES)
+    launches = (msg.LAUNCHES, mix.LAUNCHES, geo_op.LAUNCHES, cf.LAUNCHES)
     total = {}
     ms_step = {}
-    for fuse in ("hybrid", "full"):
-        counts, ms_step[fuse] = md_phase(fuse, pos, cell, args.steps,
+    for path in ("hybrid", "full", "schnet"):
+        counts, ms_step[path] = md_phase(path, pos, cell, args.steps,
                                          args.seed, dev, launches)
         for k, v in counts.items():
             total[k] = total.get(k, 0) + v
     for row in rows:
         row["launches"] = total[row["name"]]
         assert row["launches"] > 0, f"{row['name']} never ran in the MD"
-    print(f"md ms/step hybrid {ms_step['hybrid']:.3f}, full "
-          f"{ms_step['full']:.3f} on {smi}")
+    print(f"md ms/step PaiNN hybrid {ms_step['hybrid']:.3f}, PaiNN full "
+          f"{ms_step['full']:.3f}, SchNet {ms_step['schnet']:.3f} on {smi}")
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -12,6 +12,12 @@ alone.  ``params_from_jax`` maps that flax tree to a ``state_dict`` of
   FWm = filter_net(I) - bias;
 * ``mixing_t/{channel_mix, intra_0, intra_1}`` map to kmix [F, 2F],
   k0 [2F, F], b0, k1 [F, 3F], b1 unchanged (the kernels' layout).
+
+A SchNet tree (``representation/interaction_t/filter_0``) maps to
+``NeuralNetworkPotential(SchNet, [Atomwise, Forces])``: every Dense layer
+of an interaction (``filter_0``, ``filter_1``, ``in2f``, ``f2out_0``,
+``f2out_1``) becomes the ``nn.Linear`` of the same name, transposed; the
+cfconv op transposes the filter weights back to the kernels' [in, out].
 """
 from __future__ import annotations
 
@@ -34,13 +40,16 @@ def _linear(prefix: str, dense: dict, out: Dict[str, np.ndarray]) -> None:
         out[f"{prefix}.bias"] = dense["linear"]["bias"]
 
 
-def params_from_jax(tree: dict) -> Dict[str, torch.Tensor]:
-    """State dict of the port's PaiNN potential from a flax param tree."""
-    p = tree["params"] if "params" in tree else tree
-    rep = p["representation"]
-    out: Dict[str, np.ndarray] = {}
-    out["representation.embedding.weight"] = rep["embedding"]["embedding"]
+def _schnet(rep: dict, out: Dict[str, np.ndarray]) -> None:
+    T = sum(1 for k in rep if k.startswith("interaction_"))
+    for t in range(T):
+        inter = rep[f"interaction_{t}"]
+        for name in ("filter_0", "filter_1", "in2f", "f2out_0", "f2out_1"):
+            _linear(f"representation.interactions.{t}.{name}", inter[name],
+                    out)
 
+
+def _painn(rep: dict, out: Dict[str, np.ndarray]) -> None:
     kern = np.asarray(rep["filter_net"]["linear"]["kernel"], np.float32)
     bias = np.asarray(rep["filter_net"]["linear"]["bias"], np.float32)
     B = kern.shape[0]
@@ -63,6 +72,19 @@ def params_from_jax(tree: dict) -> Dict[str, torch.Tensor]:
         out[f"{pre}.b0"] = mix["intra_0"]["linear"]["bias"]
         out[f"{pre}.k1"] = mix["intra_1"]["linear"]["kernel"]
         out[f"{pre}.b1"] = mix["intra_1"]["linear"]["bias"]
+
+
+def params_from_jax(tree: dict) -> Dict[str, torch.Tensor]:
+    """State dict of the port's PaiNN or SchNet potential from a flax param
+    tree."""
+    p = tree["params"] if "params" in tree else tree
+    rep = p["representation"]
+    out: Dict[str, np.ndarray] = {}
+    out["representation.embedding.weight"] = rep["embedding"]["embedding"]
+    if "filter_0" in rep.get("interaction_0", {}):
+        _schnet(rep, out)
+    else:
+        _painn(rep, out)
 
     heads = sorted(k for k in p if k.startswith("output_modules_"))
     for h in heads:

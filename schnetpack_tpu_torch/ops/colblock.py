@@ -90,13 +90,15 @@ def column_fold(edge_vals: torch.Tensor, refs: ColRefs) -> torch.Tensor:
 
 
 def column_geometry(R: torch.Tensor, coff_fm: torch.Tensor, refs: ColRefs,
-                    cw: torch.Tensor, rc: float, with_d: bool = False):
+                    cw: torch.Tensor, rc: float, with_d: bool = False,
+                    raw_phi: bool = False):
     """Per-edge geometry from sorted positions R [A', 3].
 
-    Returns ``rbf_aug`` [nx, ny, Ktot, B+1] = [phi*fcut, fcut] and the unit
-    directions ``dirs`` [nx, ny, Ktot, 3], with padded slots exactly zero:
-    d = sqrt(|rij|^2 + 1 - mask) keeps them finite.  ``with_d`` also
-    returns the distances d [nx, ny, Ktot, 1] (1 at padded slots).
+    Returns ``rbf_aug`` [nx, ny, Ktot, B+1] = [phi*fcut, fcut] (``raw_phi``:
+    [phi*mask, fcut], SchNet's form) and the unit directions ``dirs``
+    [nx, ny, Ktot, 3], with padded slots exactly zero: d = sqrt(|rij|^2 +
+    1 - mask) keeps them finite.  ``with_d`` also returns the distances d
+    [nx, ny, Ktot, 1] (1 at padded slots).
     """
     j, valid = decode_j(refs)
     i, _ = decode_i(refs)
@@ -106,7 +108,7 @@ def column_geometry(R: torch.Tensor, coff_fm: torch.Tensor, refs: ColRefs,
     dirs = rij / d
     fcut = cosine_cutoff(d, rc) * m
     phi = torch.exp(cw[:, 1] * (d - cw[:, 0]) ** 2)
-    rbf_aug = torch.cat([phi * fcut, fcut], dim=-1)
+    rbf_aug = torch.cat([phi * (m if raw_phi else fcut), fcut], dim=-1)
     return (rbf_aug, dirs, d) if with_d else (rbf_aug, dirs)
 
 

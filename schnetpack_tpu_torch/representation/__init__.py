@@ -1,3 +1,4 @@
 from .painn import PaiNN
+from .schnet import SchNet
 
-__all__ = ["PaiNN"]
+__all__ = ["PaiNN", "SchNet"]

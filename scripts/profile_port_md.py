@@ -1,13 +1,15 @@
 """Where the time of the port's MD step goes, on one GPU.
 
-Sets up the run of ``chip_smoke.py`` (10,976-atom FCC argon box, trained
-PaiNN-128x3, column neighbor list with a 0.6 A skin, 30 K), warms up and
-retightens the capacities, then traces STEPS steps with ``torch.profiler``
-and prints, per step: CUDA-event time, device-busy time (sum of kernel
-times), idle share, and device time by kernel name.  The full table goes to
-``chiprun_out/profile_port_md.txt``.  Run from the repository root:
+Sets up one MD run of ``chip_smoke.py`` (10,976-atom FCC argon box, the
+trained model of the path: PaiNN-128x3 with the ``full`` or ``hybrid``
+message form, or SchNet-128x3; column neighbor list with a 0.6 A skin,
+30 K), warms up and retightens the capacities, then traces STEPS steps with
+``torch.profiler`` and prints, per step: CUDA-event time, device-busy time
+(sum of kernel times), idle share, and device time by kernel name.  The
+full table goes to ``chiprun_out/profile_port_md_<path>.txt``.  Run from
+the repository root:
 
-    python3 scripts/profile_port_md.py [--steps 20]
+    python3 scripts/profile_port_md.py [--steps 20] [--path full]
 """
 import argparse
 import os
@@ -23,6 +25,8 @@ sys.path.insert(0, ROOT)
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--path", choices=("full", "hybrid", "schnet"),
+                    default="full")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_port_md: no CUDA device")
@@ -37,7 +41,7 @@ def main():
                          text=True).stdout.strip()
     dev = torch.device("cuda")
     pos, cell = cs.fcc_box(10_000)
-    pot, params = cs.potential()
+    pot, params = cs.potential(args.path)
     calc = cs.calculator(pot, params)
     system = load_molecules([cs.molecule(pos, cell)], device=dev)
     system = MaxwellBoltzmannInit(30.0).initialize_system(
@@ -67,10 +71,11 @@ def main():
                                       row_limit=40)
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "profile_port_md.txt"), "w") as f:
+    with open(os.path.join(out_dir, f"profile_port_md_{args.path}.txt"),
+              "w") as f:
         f.write(f"{smi}\nsteps {n}, Ktot {sum(calc.nbl._K)}, "
                 f"dims {calc.nbl._layout.dims[:3]}\n{table}\n")
-    print(f"card: {smi}")
+    print(f"card: {smi}; path {args.path}")
     print(f"step {step_ms:.3f} ms (CUDA events), device busy "
           f"{busy_ms:.3f} ms, idle share {1 - busy_ms / step_ms:.3f}, "
           f"Ktot {sum(calc.nbl._K)}")

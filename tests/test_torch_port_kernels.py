@@ -1,4 +1,4 @@
-"""PyTorch port: the CUDA kernels K1-K7 against their plain PyTorch twins,
+"""PyTorch port: the CUDA kernels K1-K10 against their plain PyTorch twins,
 on a card only (skipped without CUDA).  No jax import: on a machine
 without jax run ``python -m pytest --noconftest -m gpu
 tests/test_torch_port_kernels.py``."""
@@ -8,9 +8,11 @@ import torch
 from schnetpack_tpu_torch.ops import colblock_geo as geo_op
 from schnetpack_tpu_torch.ops import colblock_message as msg
 from schnetpack_tpu_torch.ops import painn_mixing as mix
+from schnetpack_tpu_torch.ops import schnet_columns as schnet
+from schnetpack_tpu_torch.ops.colblock import ColRefs
 from torch_port_cases import (
-    MIX_ATOL, MIX_INPUTS, MIX_RTOL, MSG_ATOL, MSG_RTOL, message_case,
-    mixing_case, torch_message_args,
+    MIX_ATOL, MIX_INPUTS, MIX_RTOL, MSG_ATOL, MSG_RTOL, cfconv_case,
+    message_case, mixing_case, torch_message_args,
 )
 
 
@@ -67,3 +69,44 @@ def test_hybrid_kernels_match_twin(cuda_device, seed):
     for got, want in zip(msg.msg_bwd_geores_kernel(*bargs),
                          msg.msg_bwd_geores_plain(*bargs)):
         torch.testing.assert_close(got, want, rtol=MSG_RTOL, atol=MSG_ATOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", [0, 3])
+def test_raw_geometry_kernels_match_twin(cuda_device, seed):
+    """K5 in its raw-phi form and K8, SchNet's geometry and its VJP."""
+    c = message_case(seed=seed)
+    t, refs, cw = torch_message_args(c, cuda_device)
+    gargs = (t["Rs"], t["coff_fm"], refs, cw, c["cutoff"])
+    torch.testing.assert_close(
+        geo_op.geo_fwd_kernel(*gargs, with_d=False, raw_phi=True),
+        geo_op.geo_fwd_plain(*gargs, with_d=False, raw_phi=True),
+        rtol=MSG_RTOL, atol=MSG_ATOL)
+    nx, ny, Ktot = refs.qcol.shape
+    g = torch.randn((nx, ny, c["B"] + 4, Ktot),
+                    generator=torch.Generator().manual_seed(seed))
+    g = g.to(cuda_device)
+    torch.testing.assert_close(geo_op.geo_bwd_kernel(g, *gargs),
+                               geo_op.geo_bwd_plain(g, *gargs),
+                               rtol=MSG_RTOL, atol=MSG_ATOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", [3, 21])
+def test_cfconv_kernels_match_twin(cuda_device, seed):
+    """K9 and K10 (the kernels' width, F = 128) on synthetic raw-phi
+    geometry."""
+    c = cfconv_case(F=schnet.N_FILTERS, B=20, seed=seed)
+    refs = ColRefs.from_layout(c["lay"], device=cuda_device)
+    args = [torch.tensor(c[k], device=cuda_device)
+            for k in ("h", "geo", "W1", "b1", "W2", "b2")]
+    g = torch.tensor(c["g"], device=cuda_device)
+    torch.testing.assert_close(schnet.cf_fwd_kernel(*args, refs),
+                               schnet.cf_fwd_plain(*args, refs),
+                               rtol=MSG_RTOL, atol=MSG_ATOL)
+    for got, want in zip(schnet.cf_bwd_kernel(*args, refs, g),
+                         schnet.cf_bwd_plain(*args, refs, g)[:2]):
+        torch.testing.assert_close(got, want, rtol=MSG_RTOL, atol=MSG_ATOL)
+    with pytest.raises(NotImplementedError, match="filter-weight"):
+        schnet.schnet_cfconv_columns(*args[:2], args[2].requires_grad_(True),
+                                     *args[3:], refs)

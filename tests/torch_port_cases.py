@@ -45,6 +45,28 @@ def torch_message_args(c, device="cpu"):
     return t, refs, cw
 
 
+def cfconv_case(F=32, B=8, seed=21):
+    """Inputs of ``tests/test_schnet_columns.py::test_kernel_matches_xla_
+    and_grads``: a random box, synthetic raw-phi geometry zeroed at padded
+    slots, and random filter weights; plus a cotangent g of the output."""
+    rng = np.random.RandomState(seed)
+    R, cell = random_box(100, 10.0, seed)
+    lay = build_column_layout(R, 3.4, cell, np.ones(3, bool), min_grid=3)
+    Ap = len(lay.order)
+    geo = rng.randn(*lay.emask.shape, B + 4).astype(np.float32)
+    geo *= lay.emask[..., None]
+    return dict(
+        lay=lay, B=B,
+        h=rng.randn(Ap, F).astype(np.float32),
+        geo=np.ascontiguousarray(np.moveaxis(geo, 3, 2)),
+        W1=(rng.randn(B, F) * 0.3).astype(np.float32),
+        b1=(rng.randn(F) * 0.1).astype(np.float32),
+        W2=(rng.randn(F, F) * 0.2).astype(np.float32),
+        b2=(rng.randn(F) * 0.1).astype(np.float32),
+        g=rng.randn(Ap, F).astype(np.float32),
+    )
+
+
 def mixing_case(A=37, F=32, seed=0):
     rng = np.random.RandomState(seed)
 
