@@ -7,18 +7,23 @@ Phases (any failure exits non-zero before the last line is printed):
 1. require CUDA; print the card's name and power limit (nvidia-smi);
 2. build the CUDA kernels from ``schnetpack_tpu_torch/csrc`` (one nvcc per
    source, started together; sm_90a);
-3. hold each kernel K1-K10 against its plain PyTorch twin on the card at
+3. hold each kernel K1-K14 against its plain PyTorch twin on the card at
    the shapes of the MD runs below (10,976-atom argon box in the layout the
    port's neighbor list builds, F=128, B=20, f32, random features and
    cotangents from --seed; K6/K7 on the geo that K5 computes there, K9/K10
    on the raw-phi geo of K5's raw form, with the trained SchNet's first
-   filter network), tolerance rtol 1e-4 / atol 1e-5 elementwise, and time
-   both;
+   filter network; K11-K14 at the positions' width D = 3 and SO3net's
+   D = 9 x 64), tolerance rtol 1e-4 / atol 1e-5 elementwise; time both,
+   the one PyTorch call that computes the same function where there is
+   one (K11-K14: ``index_select`` and the mask, ``index_add_``), and work
+   out each kernel's bound from the bytes of its inputs and outputs at
+   3.35 TB/s and its FP32 operations at 67 TFLOP/s (H100 SXM data sheet);
 4. hold the port's energy and forces on the card to the JAX references
    (force rms <= 1e-4 eV/Ang, energy within 1e-5 relative): PaiNN in both
    message forms (``fuse`` = hybrid and full) to
    ``tests/data/port_ref_painn_argon.npz``, printing the force rms between
-   the two, and SchNet to ``tests/data/port_ref_schnet_argon.npz``;
+   the two, SchNet to ``tests/data/port_ref_schnet_argon.npz`` and SO3net
+   to ``tests/data/port_ref_so3net_argon.npz``;
 5. the neighbor list's device rebuild at full size: jitter the lattice by
    a seeded uniform +-0.25 A (the 0.3 A skin check fires, the capacities
    hold), rebuild once on the device and once on the host, and require
@@ -26,14 +31,17 @@ Phases (any failure exits non-zero before the last line is printed):
    rms 1e-5 eV/Ang; time both;
 6. run NVE velocity Verlet at 0.5 fs of the 10,976-atom periodic FCC argon
    box with the trained PaiNN-128x3 (``scripts/assets/
-   bench_painn_argon.msgpack``) and then the trained SchNet-128x3
-   (``scripts/assets/bench_schnet_argon.msgpack``), Maxwell-Boltzmann
-   momenta at 30 K, the column neighbor list (5 A cutoff, 0.6 A skin): a
-   warm-up, a retighten of the capacities, then --steps timed steps, on
-   PaiNN's hybrid path, PaiNN's full path and SchNet's path; check finite
-   positions, 0 < T < 300 K, total-energy drift <= 1e-4 eV/atom, the
-   launches per step of every kernel (hybrid: K5 1, K6/K7/K3/K4 3; full:
-   K1/K2/K3/K4 3; SchNet: K5 raw 1, K9/K10 3, K8 1; every other kernel 0),
+   bench_painn_argon.msgpack``), the trained SchNet-128x3
+   (``scripts/assets/bench_schnet_argon.msgpack``) and the trained
+   SO3net-64x3 (lmax 2, ``scripts/assets/bench_so3net_argon.msgpack``),
+   Maxwell-Boltzmann momenta at 30 K, the column neighbor list (5 A
+   cutoff, 0.6 A skin): a warm-up, a retighten of the capacities, then
+   --steps timed steps, on PaiNN's hybrid path, PaiNN's full path,
+   SchNet's path and SO3net's path; check finite positions, 0 < T < 300 K,
+   total-energy drift <= 1e-4 eV/atom, the launches per step of every
+   kernel (hybrid: K5 1, K6/K7/K3/K4 3; full: K1/K2/K3/K4 3; SchNet: K5 raw
+   1, K9/K10 3, K8 1; SO3net: K11 4, K12 3, K13 4, K14 4; every other
+   kernel 0),
    and that every rebuild after the retighten went through the device
    unless it overflowed;
 7. print the kernel table and the card as JSON, then the result line.
@@ -54,11 +62,15 @@ ASSET = {
                           "bench_painn_argon.msgpack"),
     "schnet": os.path.join(ROOT, "scripts", "assets",
                            "bench_schnet_argon.msgpack"),
+    "so3net": os.path.join(ROOT, "scripts", "assets",
+                           "bench_so3net_argon.msgpack"),
 }
 REFERENCE = {
     "painn": os.path.join(ROOT, "tests", "data", "port_ref_painn_argon.npz"),
     "schnet": os.path.join(ROOT, "tests", "data",
                            "port_ref_schnet_argon.npz"),
+    "so3net": os.path.join(ROOT, "tests", "data",
+                           "port_ref_so3net_argon.npz"),
 }
 CUTOFF, SKIN = 5.0, 0.6          # Angstrom
 RTOL, ATOL = 1e-4, 1e-5          # kernel vs twin, elementwise
@@ -67,14 +79,21 @@ ENERGY_RTOL = 1e-5
 DRIFT_TOL = 1e-4                 # eV/atom, max |E_tot(t) - E_tot(0)|
 REBUILD_FORCE_RMS_TOL = 1e-5     # eV/Ang, device vs host neighbor state
 REBUILD_JITTER = 0.25            # Angstrom, per component
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM (NVIDIA data sheet)
+FP32_FLOP_PER_S = 67e12          # FP32 outside the tensor cores, same
 #: kernel launches per MD step on each path (PaiNN's two message forms,
-#: SchNet)
+#: SchNet, SO3net: the positions' gather and expand, then per block the
+#: feature gather and the message fold and, by autograd, their VJPs, with
+#: no gather VJP for block 0, whose input carries no gradient)
 PER_STEP = {
     "hybrid": {"geo_fwd": 1, "msg_fwd_geo": 3, "msg_bwd_geores": 3,
                "mix_fwd": 3, "mix_bwd": 3},
     "full": {"msg_fwd": 3, "msg_bwd": 3, "mix_fwd": 3, "mix_bwd": 3},
     "schnet": {"geo_fwd_raw": 1, "cf_fwd": 3, "cf_bwd": 3, "geo_bwd": 1},
+    "so3net": {"gather_fwd": 4, "gather_bwd": 3, "expand_fwd": 4,
+               "fold_fwd": 4},
 }
+PATHS = ("hybrid", "full", "schnet", "so3net")
 
 
 def fcc_box(n_target: int, a: float = 5.26):
@@ -115,24 +134,36 @@ def molecule(R, cell):
             P.pbc: np.ones(3, bool)}
 
 
+def model_of(path):
+    return path if path in ("schnet", "so3net") else "painn"
+
+
 def potential(path="full"):
     """The trained model of a path and its parameters: PaiNN-128x3 with the
-    message form ``path`` ("hybrid" or "full", PaiNN's own default), or
-    SchNet-128x3 (``path`` "schnet")."""
-    from schnetpack_tpu_torch.atomistic import Atomwise, Forces
+    message form ``path`` ("hybrid" or "full", PaiNN's own default),
+    SchNet-128x3 (``path`` "schnet") or SO3net-64x3, lmax 2, with its
+    ``PairwiseDistances`` input module (``path`` "so3net")."""
+    from schnetpack_tpu_torch.atomistic import (
+        Atomwise, Forces, PairwiseDistances,
+    )
     from schnetpack_tpu_torch.convert import load_jax_params, params_from_jax
     from schnetpack_tpu_torch.model import NeuralNetworkPotential
-    from schnetpack_tpu_torch.representation import PaiNN, SchNet
+    from schnetpack_tpu_torch.representation import PaiNN, SchNet, SO3net
 
-    if path == "schnet":
-        rep = SchNet(n_atom_basis=128, n_interactions=3, n_rbf=20,
+    if path == "so3net":
+        rep = SO3net(n_atom_basis=64, n_interactions=3, lmax=2, n_rbf=20,
                      cutoff=CUTOFF)
+        pot = NeuralNetworkPotential(rep, [Atomwise(n_in=64), Forces()],
+                                     input_modules=[PairwiseDistances()])
     else:
-        rep = PaiNN(n_atom_basis=128, n_interactions=3, n_rbf=20,
-                    cutoff=CUTOFF, fuse=path)
-    pot = NeuralNetworkPotential(rep, [Atomwise(n_in=128), Forces()])
-    model = "schnet" if path == "schnet" else "painn"
-    return pot, params_from_jax(load_jax_params(ASSET[model]))
+        if path == "schnet":
+            rep = SchNet(n_atom_basis=128, n_interactions=3, n_rbf=20,
+                         cutoff=CUTOFF)
+        else:
+            rep = PaiNN(n_atom_basis=128, n_interactions=3, n_rbf=20,
+                        cutoff=CUTOFF, fuse=path)
+        pot = NeuralNetworkPotential(rep, [Atomwise(n_in=128), Forces()])
+    return pot, params_from_jax(load_jax_params(ASSET[model_of(path)]))
 
 
 def layout_str(state):
@@ -172,24 +203,80 @@ def run_inputs(calc, system):
     return R, inputs[P.cell_coff_fm].contiguous(), refs
 
 
+def nbytes(*tensors):
+    """Bytes of the tensors (nested tuples allowed), each counted once; an
+    int stands for that many bytes."""
+    total = 0
+    for t in tensors:
+        if isinstance(t, (tuple, list)):
+            total += nbytes(*t)
+        elif isinstance(t, torch.Tensor):
+            total += t.numel() * t.element_size()
+        elif isinstance(t, int):
+            total += t
+    return total
+
+
+def bound(n_bytes, flops):
+    """(ms, "bytes" or "operations"): the least time the card could take,
+    the larger of the bytes at the HBM rate and the FP32 operations at the
+    FP32 peak."""
+    t_bytes = 1e3 * n_bytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * flops / FP32_FLOP_PER_S
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def geo_flops(B):
+    """FP32 operations of one edge's geometry: displacement, distance,
+    direction, cosine cutoff and B Gaussians (a transcendental counts 1)."""
+    return 4 * B + 30
+
+
 def check_kernels(cases):
-    """Each kernel against its twin (rtol/atol elementwise), both timed;
-    returns the rows of the kernel table."""
+    """Each kernel against its twin (rtol/atol elementwise), both timed,
+    with its bound (from the bytes of ``inputs`` and of the kernel's
+    outputs, and ``flops``) and the time of ``library``, one PyTorch call
+    that computes the same function, where there is one; returns the rows
+    of the kernel table."""
     rows = []
-    for name, src, replaces, kern, plain in cases:
-        err = compare(name, kern(), plain())
+    for c in cases:
+        name, kern, plain = c["name"], c["kern"], c["plain"]
+        got = kern()
+        err = compare(name, got, plain())
         ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
-        print(f"kernel {name}: max_abs_err={err:.3e} {ms:.4f} ms "
-              f"(plain twin {plain_ms:.4f} ms)", flush=True)
+        lib_ms = cuda_ms(c["library"]) if c.get("library") else None
+        bound_ms, bound_by = bound(nbytes(c["inputs"], got), c["flops"])
+        lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
+        print(f"kernel {name}{c.get('tag', '')}: max_abs_err={err:.3e} "
+              f"{ms:.4f} ms (plain twin {plain_ms:.4f} ms, library {lib}, "
+              f"bound {bound_ms:.4f} ms by {bound_by})", flush=True)
         rows.append({"name": name, "route": "cuda",
-                     "source": f"schnetpack_tpu_torch/csrc/{src}",
-                     "replaces": f"schnetpack_tpu/ops/{replaces}",
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+                     "source": f"schnetpack_tpu_torch/csrc/{c['src']}",
+                     "replaces": f"schnetpack_tpu/ops/{c['replaces']}",
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": lib_ms})
     return rows
 
 
+def case(name, src, replaces, kern, plain, inputs, flops, library=None):
+    return {"name": name, "src": src, "replaces": replaces, "kern": kern,
+            "plain": plain, "inputs": inputs, "flops": flops,
+            "library": library}
+
+
+def real_edges(refs):
+    return int((refs.qcol >= 0).sum())
+
+
 def kernel_phase(calc, system, seed, dev):
-    """K1-K7 against their twins at the MD run's shapes; returns rows."""
+    """K1-K7 against their twins at the MD run's shapes; returns rows.
+
+    Operations per real edge e (an FMA counts 2): the filter (B+1) x 3F
+    FMAs, 16F for the products and sums of the message, twice both for a
+    backward, and the geometry where a kernel computes it; per atom row
+    the mixing's 22 F^2 (44 F^2 backward: input cotangents and the
+    recomputed forward)."""
     from schnetpack_tpu_torch.ops import colblock_geo as geo_op
     from schnetpack_tpu_torch.ops import colblock_message as msg
     from schnetpack_tpu_torch.ops import painn_mixing as mix
@@ -197,6 +284,9 @@ def kernel_phase(calc, system, seed, dev):
     R, coff, refs = run_inputs(calc, system)
     rep = calc.model.representation
     F, Ap = rep.n_atom_basis, R.shape[0]
+    B = rep.cw.shape[0]
+    ne = real_edges(refs)
+    idx = (refs.qcol, refs.dcol)
     g = torch.Generator().manual_seed(seed)
 
     def rnd(*shape, scale=0.3):
@@ -214,41 +304,58 @@ def kernel_phase(calc, system, seed, dev):
     w = (m0.kmix, m0.k0, m0.b0, m0.k1, m0.b1)
     xargs = (rnd(Ap, F, scale=1.0), mu, g_dq * 0.3, g_dmu * 0.3, *w,
              m0.epsilon, m0.activation)
+    msg_fwd = ne * (6 * F * (B + 1) + 16 * F)
+    msg_bwd = 2 * msg_fwd
 
     cases = [
-        ("msg_fwd", "colblock_message.cu", "colblock_pallas.py:1889",
-         lambda: msg.msg_fwd_kernel(*margs), lambda: msg.msg_fwd_plain(*margs)),
-        ("msg_bwd", "colblock_message.cu", "colblock_pallas.py:1239",
-         lambda: msg.msg_bwd_kernel(*margs, g_dq, g_dmu),
-         lambda: msg.msg_bwd_plain(*margs, g_dq, g_dmu)),
-        ("mix_fwd", "painn_mixing.cu", "painn_mixing.py:73",
-         lambda: mix.mix_fwd_kernel(*xargs),
-         lambda: mix.painn_mixing_plain(*xargs)),
-        ("mix_bwd", "painn_mixing.cu", "painn_mixing.py:83",
-         lambda: mix.mix_bwd_kernel(*xargs, g_dq, g_dmu),
-         lambda: mix.painn_mixing_bwd_plain(*xargs, g_dq, g_dmu)),
-        ("geo_fwd", "colblock_geo.cu", "colblock_geo.py:202",
-         lambda: (geo_op.geo_fwd_kernel(*gargs),),
-         lambda: (geo_op.geo_fwd_plain(*gargs),)),
-        ("msg_fwd_geo", "colblock_message.cu", "colblock_pallas.py:687",
-         lambda: msg.msg_fwd_geo_kernel(*hargs),
-         lambda: msg.msg_fwd_geo_plain(*hargs)),
-        ("msg_bwd_geores", "colblock_message.cu", "colblock_pallas.py:1570",
-         lambda: msg.msg_bwd_geores_kernel(*bargs),
-         lambda: msg.msg_bwd_geores_plain(*bargs)[:3]),
+        case("msg_fwd", "colblock_message.cu", "colblock_pallas.py:1889",
+             lambda: msg.msg_fwd_kernel(*margs),
+             lambda: msg.msg_fwd_plain(*margs),
+             (x, mu, R, FW, coff, rep.cw, idx), msg_fwd + ne * geo_flops(B)),
+        case("msg_bwd", "colblock_message.cu", "colblock_pallas.py:1239",
+             lambda: msg.msg_bwd_kernel(*margs, g_dq, g_dmu),
+             lambda: msg.msg_bwd_plain(*margs, g_dq, g_dmu),
+             (x, mu, R, FW, coff, rep.cw, idx, g_dq, g_dmu),
+             msg_bwd + 2 * ne * geo_flops(B)),
+        case("mix_fwd", "painn_mixing.cu", "painn_mixing.py:73",
+             lambda: mix.mix_fwd_kernel(*xargs),
+             lambda: mix.painn_mixing_plain(*xargs), xargs[:9],
+             22 * F * F * Ap),
+        case("mix_bwd", "painn_mixing.cu", "painn_mixing.py:83",
+             lambda: mix.mix_bwd_kernel(*xargs, g_dq, g_dmu),
+             lambda: mix.painn_mixing_bwd_plain(*xargs, g_dq, g_dmu),
+             (xargs[:9], g_dq, g_dmu), 44 * F * F * Ap),
+        case("geo_fwd", "colblock_geo.cu", "colblock_geo.py:202",
+             lambda: (geo_op.geo_fwd_kernel(*gargs),),
+             lambda: (geo_op.geo_fwd_plain(*gargs),),
+             (R, coff, idx, rep.cw), ne * geo_flops(B)),
+        case("msg_fwd_geo", "colblock_message.cu", "colblock_pallas.py:687",
+             lambda: msg.msg_fwd_geo_kernel(*hargs),
+             lambda: msg.msg_fwd_geo_plain(*hargs),
+             (x, mu, geo, FW, idx), msg_fwd),
+        case("msg_bwd_geores", "colblock_message.cu",
+             "colblock_pallas.py:1570",
+             lambda: msg.msg_bwd_geores_kernel(*bargs),
+             lambda: msg.msg_bwd_geores_plain(*bargs)[:3],
+             (x, mu, geo, FW, rep.cw, idx, g_dq, g_dmu),
+             msg_bwd + ne * geo_flops(B)),
     ]
     return check_kernels(cases)
 
 
 def schnet_kernel_phase(calc, system, seed, dev):
     """K5 raw, K8, K9 and K10 against their twins at the SchNet run's
-    shapes, with the trained SchNet's first filter network; returns rows."""
+    shapes, with the trained SchNet's first filter network; returns rows.
+    The filter network is B x F + F x F FMAs per real edge, twice that in
+    the backward."""
     from schnetpack_tpu_torch.ops import colblock_geo as geo_op
     from schnetpack_tpu_torch.ops import schnet_columns as cf
 
     R, coff, refs = run_inputs(calc, system)
     rep = calc.model.representation
     F, Ap, B = rep.n_atom_basis, R.shape[0], rep.n_rbf
+    ne = real_edges(refs)
+    idx = (refs.qcol, refs.dcol)
     g = torch.Generator().manual_seed(seed + 10)
 
     def rnd(*shape, scale=1.0):
@@ -263,32 +370,103 @@ def schnet_kernel_phase(calc, system, seed, dev):
              i0.filter_1.weight.t().contiguous(), i0.filter_1.bias, refs)
     g_out = rnd(Ap, F)
     assert geo.shape[2] == B + 4
+    filt = 2 * ne * (B * F + F * F)
     cases = [
-        ("geo_fwd_raw", "colblock_geo.cu", "colblock_geo.py:202",
-         lambda: (geo_op.geo_fwd_kernel(*gargs, with_d=False,
-                                        raw_phi=True),),
-         lambda: (geo_op.geo_fwd_plain(*gargs, with_d=False, raw_phi=True),)),
-        ("geo_bwd", "colblock_geo.cu", "colblock_geo.py:230",
-         lambda: (geo_op.geo_bwd_kernel(ggeo, *gargs),),
-         lambda: (geo_op.geo_bwd_plain(ggeo, *gargs),)),
-        ("cf_fwd", "schnet_columns.cu", "schnet_columns.py:79",
-         lambda: (cf.cf_fwd_kernel(*cargs),),
-         lambda: (cf.cf_fwd_plain(*cargs),)),
-        ("cf_bwd", "schnet_columns.cu", "schnet_columns.py:145",
-         lambda: cf.cf_bwd_kernel(*cargs, g_out),
-         lambda: cf.cf_bwd_plain(*cargs, g_out)[:2]),
+        case("geo_fwd_raw", "colblock_geo.cu", "colblock_geo.py:202",
+             lambda: (geo_op.geo_fwd_kernel(*gargs, with_d=False,
+                                            raw_phi=True),),
+             lambda: (geo_op.geo_fwd_plain(*gargs, with_d=False,
+                                           raw_phi=True),),
+             (R, coff, idx, rep.cw), ne * geo_flops(B)),
+        case("geo_bwd", "colblock_geo.cu", "colblock_geo.py:230",
+             lambda: (geo_op.geo_bwd_kernel(ggeo, *gargs),),
+             lambda: (geo_op.geo_bwd_plain(ggeo, *gargs),),
+             (ggeo, R, coff, idx, rep.cw), 2 * ne * geo_flops(B)),
+        case("cf_fwd", "schnet_columns.cu", "schnet_columns.py:79",
+             lambda: (cf.cf_fwd_kernel(*cargs),),
+             lambda: (cf.cf_fwd_plain(*cargs),), (cargs[:6], idx),
+             filt + ne * 6 * F),
+        case("cf_bwd", "schnet_columns.cu", "schnet_columns.py:145",
+             lambda: cf.cf_bwd_kernel(*cargs, g_out),
+             lambda: cf.cf_bwd_plain(*cargs, g_out)[:2],
+             (cargs[:6], idx, g_out), 2 * filt + ne * 12 * F),
     ]
     return check_kernels(cases)
 
 
+def select_kernel_phase(calc, system, seed, dev):
+    """K11-K14 against their twins at the SO3net run's shapes, at the
+    positions' width (D = 3) and the convolutions' (D = 9 F), each beside
+    its library call; returns one row per kernel at D = 9 F, with the
+    D = 3 numbers under "d3".  The sums are one add per real edge and
+    feature and need only the real slots' rows of their input; the copies
+    do no arithmetic."""
+    from schnetpack_tpu_torch.ops import colblock_select as sel
+    from schnetpack_tpu_torch.ops.colblock import decode_i, decode_j
+
+    R, _, refs = run_inputs(calc, system)
+    rep = calc.model.representation
+    Ap = R.shape[0]
+    ne = real_edges(refs)
+    nx, ny, Ktot = refs.qcol.shape
+    g = torch.Generator().manual_seed(seed + 20)
+    j, jvalid = decode_j(refs)
+    i, ivalid = decode_i(refs)
+    jf, jm = j.reshape(-1), jvalid.reshape(-1, 1).float()
+    if_, im = i.reshape(-1), ivalid.reshape(-1, 1).float()
+    jpad = torch.where(jvalid, j, Ap).reshape(-1)
+    ipad = torch.where(ivalid, i, Ap).reshape(-1)
+
+    def cases(D, table, edges):
+        flat = edges.reshape(-1, D)
+        return [
+            case("gather_fwd", "colblock_select.cu", "colblock_pallas.py:121",
+                 lambda: (sel.gather_fwd_kernel(table, refs),),
+                 lambda: (sel.gather_fwd_plain(table, refs),),
+                 (table, refs.qcol), 0,
+                 lambda: table.index_select(0, jf).mul_(jm)),
+            case("gather_bwd", "colblock_select.cu", "colblock_pallas.py:148",
+                 lambda: (sel.gather_bwd_kernel(edges, refs),),
+                 lambda: (sel.gather_bwd_plain(edges, refs),),
+                 (4 * ne * D, refs.qcol), ne * D,
+                 lambda: table.new_zeros((Ap + 1, D)).index_add_(
+                     0, jpad, flat)),
+            case("expand_fwd", "colblock_select.cu", "colblock_pallas.py:211",
+                 lambda: (sel.expand_fwd_kernel(table, refs),),
+                 lambda: (sel.expand_fwd_plain(table, refs),),
+                 (table, refs.dcol), 0,
+                 lambda: table.index_select(0, if_).mul_(im)),
+            case("fold_fwd", "colblock_select.cu", "colblock_pallas.py:244",
+                 lambda: (sel.fold_fwd_kernel(edges, refs),),
+                 lambda: (sel.fold_fwd_plain(edges, refs),),
+                 (4 * ne * D, refs.dcol), ne * D,
+                 lambda: table.new_zeros((Ap + 1, D)).index_add_(
+                     0, ipad, flat)),
+        ]
+
+    D = rep.convs[0].cg_deg.shape[0] * rep.n_atom_basis
+    wide = cases(D, torch.randn((Ap, D), generator=g).to(dev),
+                 torch.randn((nx, ny, Ktot, D), generator=g).to(dev))
+    rows = check_kernels(wide)
+    del wide
+    narrow = cases(3, R, torch.randn((nx, ny, Ktot, 3), generator=g).to(dev))
+    for c in narrow:
+        c["tag"] = " (D = 3)"
+    for row, r3 in zip(rows, check_kernels(narrow)):
+        row["d3"] = {k: r3[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                        "bound_ms", "bound_by",
+                                        "library_ms")}
+    return rows
+
+
 def reference_phase(dev):
-    """Both PaiNN message forms and SchNet against their JAX references;
-    forces per path."""
+    """Both PaiNN message forms, SchNet and SO3net against their JAX
+    references; forces per path."""
     from schnetpack_tpu_torch.md import load_molecules
 
     out = {}
-    for path in ("hybrid", "full", "schnet"):
-        ref = np.load(REFERENCE["schnet" if path == "schnet" else "painn"])
+    for path in PATHS:
+        ref = np.load(REFERENCE[model_of(path)])
         pot, params = potential(path)
         calc = calculator(pot, params)
         system = load_molecules([molecule(ref["R"].astype(np.float64),
@@ -381,8 +559,8 @@ def rebuild_phase(seed, dev):
 
 
 def md_phase(path, pos, cell, steps, seed, dev, launches):
-    """NVE run on one path (PaiNN hybrid or full, SchNet); returns (launch
-    counts, ms/step)."""
+    """NVE run on one path (PaiNN hybrid or full, SchNet, SO3net); returns
+    (launch counts, ms/step)."""
     from schnetpack_tpu_torch.md import (
         MaxwellBoltzmannInit, Simulator, VelocityVerlet, load_molecules,
     )
@@ -464,6 +642,7 @@ def main():
     from schnetpack_tpu_torch.ops import _build
     from schnetpack_tpu_torch.ops import colblock_geo as geo_op
     from schnetpack_tpu_torch.ops import colblock_message as msg
+    from schnetpack_tpu_torch.ops import colblock_select as sel
     from schnetpack_tpu_torch.ops import painn_mixing as mix
     from schnetpack_tpu_torch.ops import schnet_columns as cf
 
@@ -481,12 +660,15 @@ def main():
                         dev)
     rows += schnet_kernel_phase(calculator(*potential("schnet")), system,
                                 args.seed, dev)
+    rows += select_kernel_phase(calculator(*potential("so3net")), system,
+                                args.seed, dev)
     reference_phase(dev)
     rebuild_phase(args.seed, dev)
-    launches = (msg.LAUNCHES, mix.LAUNCHES, geo_op.LAUNCHES, cf.LAUNCHES)
+    launches = (msg.LAUNCHES, mix.LAUNCHES, geo_op.LAUNCHES, cf.LAUNCHES,
+                sel.LAUNCHES)
     total = {}
     ms_step = {}
-    for path in ("hybrid", "full", "schnet"):
+    for path in PATHS:
         counts, ms_step[path] = md_phase(path, pos, cell, args.steps,
                                          args.seed, dev, launches)
         for k, v in counts.items():
@@ -495,7 +677,8 @@ def main():
         row["launches"] = total[row["name"]]
         assert row["launches"] > 0, f"{row['name']} never ran in the MD"
     print(f"md ms/step PaiNN hybrid {ms_step['hybrid']:.3f}, PaiNN full "
-          f"{ms_step['full']:.3f}, SchNet {ms_step['schnet']:.3f} on {smi}")
+          f"{ms_step['full']:.3f}, SchNet {ms_step['schnet']:.3f}, SO3net "
+          f"{ms_step['so3net']:.3f} on {smi}")
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -18,6 +18,12 @@ A SchNet tree (``representation/interaction_t/filter_0``) maps to
 of an interaction (``filter_0``, ``filter_1``, ``in2f``, ``f2out_0``,
 ``f2out_1``) becomes the ``nn.Linear`` of the same name, transposed; the
 cfconv op transposes the filter weights back to the kernels' [in, out].
+
+An SO3net tree (``representation/so3conv_t/filternet``) maps to
+``NeuralNetworkPotential(SO3net, [Atomwise, Forces], [PairwiseDistances])``:
+``so3conv_t/filternet``, ``mix{1,2,3}_t`` (no bias) and ``gate_t/scaling``
+become ``convs.t.filternet``, ``mix{1,2,3}.t`` and ``gates.t.scaling``,
+each transposed.
 """
 from __future__ import annotations
 
@@ -49,6 +55,17 @@ def _schnet(rep: dict, out: Dict[str, np.ndarray]) -> None:
                     out)
 
 
+def _so3net(rep: dict, out: Dict[str, np.ndarray]) -> None:
+    T = sum(1 for k in rep if k.startswith("so3conv_"))
+    pre = "representation"
+    for t in range(T):
+        _linear(f"{pre}.convs.{t}.filternet", rep[f"so3conv_{t}"]["filternet"],
+                out)
+        for m in ("mix1", "mix2", "mix3"):
+            _linear(f"{pre}.{m}.{t}", rep[f"{m}_{t}"], out)
+        _linear(f"{pre}.gates.{t}.scaling", rep[f"gate_{t}"]["scaling"], out)
+
+
 def _painn(rep: dict, out: Dict[str, np.ndarray]) -> None:
     kern = np.asarray(rep["filter_net"]["linear"]["kernel"], np.float32)
     bias = np.asarray(rep["filter_net"]["linear"]["bias"], np.float32)
@@ -75,13 +92,15 @@ def _painn(rep: dict, out: Dict[str, np.ndarray]) -> None:
 
 
 def params_from_jax(tree: dict) -> Dict[str, torch.Tensor]:
-    """State dict of the port's PaiNN or SchNet potential from a flax param
-    tree."""
+    """State dict of the port's PaiNN, SchNet or SO3net potential from a
+    flax param tree."""
     p = tree["params"] if "params" in tree else tree
     rep = p["representation"]
     out: Dict[str, np.ndarray] = {}
     out["representation.embedding.weight"] = rep["embedding"]["embedding"]
-    if "filter_0" in rep.get("interaction_0", {}):
+    if "so3conv_0" in rep:
+        _so3net(rep, out)
+    elif "filter_0" in rep.get("interaction_0", {}):
         _schnet(rep, out)
     else:
         _painn(rep, out)

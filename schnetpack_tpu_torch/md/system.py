@@ -91,9 +91,16 @@ def load_molecules(molecules: Sequence[Dict[str, np.ndarray]],
                    n_replicas: int = 1, position_unit_input: str = "Ang",
                    mass_unit_input: str = "Dalton",
                    dtype: torch.dtype = torch.float32,
-                   device=None) -> System:
+                   device="cuda") -> System:
     """Build a System from sample dicts (positions in ``position_unit_input``),
-    converted into the MD unit frame."""
+    converted into the MD unit frame, on ``device``: the card unless the
+    caller asks for the CPU (``device="cpu"``).  Everything downstream (the
+    neighbor list, the calculator and its model, the integrator) follows the
+    device of the system's tensors."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "load_molecules: no CUDA device; pass device='cpu' to run on "
+            "the CPU")
     md = md_units()
     pos_conv = _parse_unit(position_unit_input) * md.length
     mass_conv = _parse_unit(mass_unit_input) * md.mass

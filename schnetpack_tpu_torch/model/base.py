@@ -1,9 +1,11 @@
 """Model composition (parity: ``schnetpack_tpu/model/base.py``).
 
-``NeuralNetworkPotential`` runs representation -> output heads over the
-flat batch dict and, when a ``Forces`` spec is among the outputs, returns
-forces = -dE/dR from one ``torch.autograd.grad`` call (no second-order
-graph is kept: MD needs forces only).
+``NeuralNetworkPotential`` runs input modules -> representation -> output
+heads over the flat batch dict (the input modules after the positions
+require grad, so that e.g. ``PairwiseDistances`` is differentiated) and,
+when a ``Forces`` spec is among the outputs, returns forces = -dE/dR from
+one ``torch.autograd.grad`` call (no second-order graph is kept: MD needs
+forces only).
 """
 from __future__ import annotations
 
@@ -17,8 +19,10 @@ from ..atomistic.response import Forces
 
 
 class NeuralNetworkPotential(nn.Module):
-    def __init__(self, representation: nn.Module, output_modules: Sequence):
+    def __init__(self, representation: nn.Module, output_modules: Sequence,
+                 input_modules: Sequence[nn.Module] = ()):
         super().__init__()
+        self.input_modules = nn.ModuleList(input_modules)
         self.representation = representation
         self.response_specs = [m for m in output_modules
                                if isinstance(m, Forces)]
@@ -32,6 +36,8 @@ class NeuralNetworkPotential(nn.Module):
             if self.response_specs:
                 R = R.detach().requires_grad_(True)
                 inputs[properties.R] = R
+            for m in self.input_modules:
+                inputs = m(inputs)
             out = self.representation(inputs)
             for m in self.output_modules:
                 out = m(out)

@@ -44,6 +44,10 @@ SIGNATURES = {
                           + [_F, _P],
     "spk_mix_fwd": [_P] * 9 + [_P, _P] + [_I, _I, _F, _I, _P],
     "spk_mix_bwd": [_P] * 14 + [_P, _P] + [_I, _I, _F, _I, _P],
+    "spk_gather_fwd": [_P] * 3 + [_I] * 4 + [_P] + [_I, _P],
+    "spk_expand_fwd": [_P] * 3 + [_I] * 4 + [_P] + [_I, _P],
+    "spk_gather_bwd": [_P] * 4 + [_I, _I, _P],
+    "spk_fold_fwd": [_P] * 3 + [_I] * 5 + [_P],
 }
 
 _LIB = None

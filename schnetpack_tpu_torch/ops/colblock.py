@@ -43,17 +43,17 @@ class ColRefs:
                                                      np.cumsum(self.ksizes)]))
 
 
-def _c9_of_slot(ksizes) -> np.ndarray:
-    return np.repeat(np.arange(9), np.asarray(ksizes))
-
-
 def decode_j(refs: ColRefs):
-    """Global sorted index of each edge's source atom, and the edge mask."""
+    """Global sorted index of each edge's source atom, and the edge mask.
+    The bucket of each slot is counted on the device from the bucket
+    offsets (a host-to-device copy here would synchronise the host with
+    the card on every step)."""
     qcol = refs.qcol.long()
-    nx, ny, _ = qcol.shape
+    nx, ny, Ktot = qcol.shape
     dev = qcol.device
     valid = qcol >= 0
-    c9 = torch.as_tensor(_c9_of_slot(refs.ksizes), device=dev)
+    slot = torch.arange(Ktot, device=dev)
+    c9 = sum((slot >= o).long() for o in refs.koffs[1:9])
     x = torch.arange(nx, device=dev)[:, None, None]
     y = torch.arange(ny, device=dev)[None, :, None]
     xs = torch.remainder(x + c9 // 3 - 1, nx)
@@ -79,6 +79,13 @@ def column_gather(table: torch.Tensor, refs: ColRefs) -> torch.Tensor:
     return table[j] * valid[..., None].to(table.dtype)
 
 
+def column_expand(table: torch.Tensor, refs: ColRefs) -> torch.Tensor:
+    """Per-edge destination rows [nx, ny, Ktot, D] (zeros at padded
+    slots)."""
+    i, valid = decode_i(refs)
+    return table[i] * valid[..., None].to(table.dtype)
+
+
 def column_fold(edge_vals: torch.Tensor, refs: ColRefs) -> torch.Tensor:
     """Sum per destination atom: [nx, ny, Ktot, D] -> [A', D]."""
     i, valid = decode_i(refs)
@@ -87,6 +94,26 @@ def column_fold(edge_vals: torch.Tensor, refs: ColRefs) -> torch.Tensor:
     v = (edge_vals * valid[..., None].to(edge_vals.dtype)).reshape(-1, D)
     out = edge_vals.new_zeros((nx * ny * refs.P, D))
     return out.index_add(0, i.reshape(-1), v)
+
+
+def source_order(refs: ColRefs):
+    """Every edge slot (destination column * Ktot + slot) sorted by source
+    atom, padded slots last (``esorted`` int32), the slots per source atom
+    (``cnt`` [A'] int64) and the start of each atom's run (``rowptr``
+    [A'+1] int32).  Computed once per ``refs`` (cached on it) on the
+    device, without a host synchronisation."""
+    if "src" in refs.cache:
+        return refs.cache["src"]
+    nx, ny, _ = refs.qcol.shape
+    n = nx * ny * refs.P
+    j, valid = decode_j(refs)
+    key = torch.where(valid, j, n).reshape(-1)
+    esorted = torch.argsort(key, stable=True).to(torch.int32)
+    cnt = torch.zeros(n + 1, dtype=torch.int64, device=key.device)
+    cnt = cnt.index_add_(0, key, torch.ones_like(key))[:-1]
+    rowptr = torch.cat([cnt.new_zeros(1), cnt.cumsum(0)]).to(torch.int32)
+    refs.cache["src"] = (esorted, cnt, rowptr)
+    return refs.cache["src"]
 
 
 def column_geometry(R: torch.Tensor, coff_fm: torch.Tensor, refs: ColRefs,

@@ -30,7 +30,7 @@ import torch
 
 from . import _build
 from .colblock import (
-    ColRefs, column_geometry, decode_i, decode_j, painn_message,
+    ColRefs, column_geometry, decode_i, decode_j, painn_message, source_order,
 )
 
 #: kernel launches since the last reset (the main path adds one per call)
@@ -82,24 +82,19 @@ def msg_fwd_kernel(x, mu, R, FW_aug, coff_fm, cw, refs: ColRefs, rc: float):
 
 
 def _bwd_schedule(refs: ColRefs, n_cols: int):
-    """K2's schedule, computed once per ``refs`` (cached on it): every
-    edge slot (dest column * Ktot + slot) sorted by source atom, padded
-    slots last, and per source column G+1 bounds (source row, edge index)
-    that cut its rows into G ranges of about equal edge count (G gives
-    about two blocks per SM, at most 8).  Fixed shapes throughout, so no
-    host synchronisation."""
+    """K2's schedule, computed once per ``refs`` (cached on it): the
+    source-sorted slots of ``source_order``, and per source column G+1
+    bounds (source row, edge index) that cut its rows into G ranges of
+    about equal edge count (G gives about two blocks per SM, at most 8).
+    Fixed shapes throughout, so no host synchronisation."""
     if "bwd" in refs.cache:
         return refs.cache["bwd"]
     P = refs.P
-    j, valid = decode_j(refs)
-    key = torch.where(valid, j, n_cols * P).reshape(-1)
-    esorted = torch.argsort(key, stable=True).to(torch.int32)
-    cnt = torch.zeros(n_cols * P + 1, dtype=torch.int64, device=key.device)
-    cnt = cnt.index_add_(0, key, torch.ones_like(key))[:-1]
+    esorted, cnt, _ = source_order(refs)
     cum = cnt.reshape(n_cols, P).cumsum(1)
-    sms = torch.cuda.get_device_properties(key.device).multi_processor_count
+    sms = torch.cuda.get_device_properties(cnt.device).multi_processor_count
     G = int(min(_MAX_GROUPS, P, max(1, -(-2 * sms // n_cols))))
-    steps = torch.arange(1, G, device=key.device)
+    steps = torch.arange(1, G, device=cnt.device)
     inner = torch.searchsorted(cum, (cum[:, -1:] * steps) // G) + 1
     rows = torch.cat([torch.zeros_like(cum[:, :1]), inner.clamp(max=P),
                       torch.full_like(cum[:, :1], P)], dim=1)

@@ -1,0 +1,184 @@
+"""Generic column gather, its VJP, expand and fold: CUDA kernels K11-K14
+and their twins.
+
+Port of the row-11 TPU kernels of ``schnetpack_tpu/ops/colblock_pallas.py``
+(``column_gather_pallas``, ``column_expand_pallas``,
+``column_fold_pallas``), which SO3net's positions and convolutions run
+through on the column layout:
+
+* gather: per-edge source rows [nx, ny, Ktot, D] of a table [A', D];
+  forward K11, backward K12 (the per-source-row sum);
+* expand: per-edge destination rows; forward K13, backward K14;
+* fold: sum per destination row [A', D]; forward K14, backward K13;
+
+paired as the JAX package's ``custom_vjp``s pair them
+(``colblock_pallas.py:188-318``).  The kernels (``csrc/colblock_select.cu``)
+take any width D: the positions (D = 3) and SO3net's flattened features
+(D = 9 x F).  On CPU tensors the ops run the twins: the plain gather,
+expand and fold of ``ops/colblock.py`` and the gather's transpose.  On
+CUDA tensors they launch the kernels or raise.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from .colblock import (
+    ColRefs, column_expand, column_fold, column_gather, decode_j,
+    source_order,
+)
+
+#: kernel launches since the last reset (SO3net MD: K11 4, K12 3, K13 4,
+#: K14 4 per step)
+LAUNCHES = {"gather_fwd": 0, "gather_bwd": 0, "expand_fwd": 0, "fold_fwd": 0}
+#: K14's shared memory (bytes) a block may take: P x min(D, 128) floats
+_MAX_FOLD_SMEM = 227 * 1024
+_FOLD_LANES = 128
+
+
+def _check_refs(refs: ColRefs):
+    nx, ny, Ktot = refs.qcol.shape
+    _build.check(refs.qcol, "qcol", (nx, ny, Ktot), torch.int32)
+    _build.check(refs.dcol, "dcol", (nx, ny, Ktot), torch.int32)
+    return nx, ny, Ktot, nx * ny * refs.P
+
+
+def _select(name, entry, idx, table, refs: ColRefs):
+    nx, ny, Ktot, Ap = _check_refs(refs)
+    D = table.shape[-1]
+    _build.check(table, "table", (Ap, D))
+    out = table.new_empty((nx, ny, Ktot, D))
+    p = _build.ptr
+    _build.launch(entry, p(table), p(idx), p(out), nx, ny, refs.P, Ktot,
+                  _build.int_array(refs.koffs), D)
+    LAUNCHES[name] += 1
+    return out
+
+
+def gather_fwd_kernel(table, refs: ColRefs):
+    """K11: out[x, y, k] = table[j(x, y, k)], 0 at padded slots."""
+    return _select("gather_fwd", "spk_gather_fwd", refs.qcol, table, refs)
+
+
+def expand_fwd_kernel(table, refs: ColRefs):
+    """K13: out[x, y, k] = table[i(x, y, k)], 0 at padded slots."""
+    return _select("expand_fwd", "spk_expand_fwd", refs.dcol, table, refs)
+
+
+def gather_bwd_kernel(g, refs: ColRefs):
+    """K12: the gather's VJP, dT [A', D] = per-source-row sums of g."""
+    nx, ny, Ktot, Ap = _check_refs(refs)
+    D = g.shape[-1]
+    _build.check(g, "g", (nx, ny, Ktot, D))
+    esorted, _, rowptr = source_order(refs)
+    dT = g.new_empty((Ap, D))
+    p = _build.ptr
+    _build.launch("spk_gather_bwd", p(g), p(esorted), p(rowptr), p(dT), Ap,
+                  D)
+    LAUNCHES["gather_bwd"] += 1
+    return dT
+
+
+def fold_fwd_kernel(edge_vals, refs: ColRefs):
+    """K14: out [A', D] = per-destination-row sums of edge_vals."""
+    nx, ny, Ktot, Ap = _check_refs(refs)
+    D = edge_vals.shape[-1]
+    _build.check(edge_vals, "edge_vals", (nx, ny, Ktot, D))
+    if refs.P * min(D, _FOLD_LANES) * 4 > _MAX_FOLD_SMEM:
+        raise ValueError(
+            f"the fold kernel keeps a column's [P, min(D, {_FOLD_LANES})] "
+            f"sums in shared memory: P = {refs.P} does not fit")
+    out = edge_vals.new_empty((Ap, D))
+    p = _build.ptr
+    _build.launch("spk_fold_fwd", p(edge_vals), p(refs.dcol), p(out), nx, ny,
+                  refs.P, Ktot, D)
+    LAUNCHES["fold_fwd"] += 1
+    return out
+
+
+#: plain twins of K11, K13 and K14: ``_column_gather_xla``,
+#: ``_column_expand_xla`` and ``_column_fold_xla``
+gather_fwd_plain = column_gather
+expand_fwd_plain = column_expand
+fold_fwd_plain = column_fold
+
+
+def gather_bwd_plain(g, refs: ColRefs):
+    """Plain twin of K12: the transpose of the gather."""
+    j, valid = decode_j(refs)
+    nx, ny, _ = j.shape
+    D = g.shape[-1]
+    v = (g * valid[..., None].to(g.dtype)).reshape(-1, D)
+    return g.new_zeros((nx * ny * refs.P, D)).index_add(0, j.reshape(-1), v)
+
+
+class ColumnGather(torch.autograd.Function):
+    """Forward K11, backward K12 on CUDA; their twins on the CPU."""
+
+    @staticmethod
+    def forward(ctx, table, refs):
+        ctx.refs = refs
+        if table.is_cuda:
+            return gather_fwd_kernel(table, refs)
+        return gather_fwd_plain(table, refs)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous()
+        if g.is_cuda:
+            return gather_bwd_kernel(g, ctx.refs), None
+        return gather_bwd_plain(g, ctx.refs), None
+
+
+class ColumnExpand(torch.autograd.Function):
+    """Forward K13, backward K14 on CUDA; their twins on the CPU."""
+
+    @staticmethod
+    def forward(ctx, table, refs):
+        ctx.refs = refs
+        if table.is_cuda:
+            return expand_fwd_kernel(table, refs)
+        return expand_fwd_plain(table, refs)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous()
+        if g.is_cuda:
+            return fold_fwd_kernel(g, ctx.refs), None
+        return fold_fwd_plain(g, ctx.refs), None
+
+
+class ColumnFold(torch.autograd.Function):
+    """Forward K14, backward K13 on CUDA; their twins on the CPU."""
+
+    @staticmethod
+    def forward(ctx, edge_vals, refs):
+        ctx.refs = refs
+        if edge_vals.is_cuda:
+            return fold_fwd_kernel(edge_vals, refs)
+        return fold_fwd_plain(edge_vals, refs)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous()
+        if g.is_cuda:
+            return expand_fwd_kernel(g, ctx.refs), None
+        return expand_fwd_plain(g, ctx.refs), None
+
+
+def column_gather_op(table, refs: ColRefs):
+    """Per-edge source rows [nx, ny, Ktot, D] of ``table`` [A', D]
+    (``schnetpack_tpu.ops.colblock.column_gather``)."""
+    return ColumnGather.apply(table.contiguous(), refs)
+
+
+def column_expand_op(table, refs: ColRefs):
+    """Per-edge destination rows [nx, ny, Ktot, D] of ``table`` [A', D]
+    (``schnetpack_tpu.ops.colblock.column_expand``)."""
+    return ColumnExpand.apply(table.contiguous(), refs)
+
+
+def column_fold_op(edge_vals, refs: ColRefs):
+    """Sum per destination row: [nx, ny, Ktot, D] -> [A', D]
+    (``schnetpack_tpu.ops.colblock.column_fold``)."""
+    return ColumnFold.apply(edge_vals.contiguous(), refs)

@@ -97,6 +97,9 @@ cell_oh: Final[str] = "_cell_oh"
 cell_shard: Final[str] = "_cell_shard"
 #: column-layout per-edge displacement vectors [nx, ny, 9, Kcol, 3]
 col_rij: Final[str] = "_col_Rij"
+#: the forward's column-layout refs (``ops.colblock.ColRefs``), built once
+#: so that its modules share the index schedules cached on them
+col_refs: Final[str] = "_col_refs"
 
 # --- TPU padded-batch layout ------------------------------------------------
 #: 1.0 for real atoms, 0.0 for padding [n_atoms]

@@ -28,7 +28,10 @@ from make_port_reference import CUTOFF, JITTER, SEED  # noqa: E402
 OUT = os.path.join(ROOT, "tests", "data", "port_ref_schnet_argon.npz")
 
 
-def main():
+def write_reference(representation, asset: str, out_path: str) -> None:
+    """Run ``NeuralNetworkPotential(representation)`` with the params in
+    ``asset`` on the jittered bench box; save the reference to
+    ``out_path``."""
     import jax
 
     jax.config.update("jax_platforms", "cpu")
@@ -38,7 +41,6 @@ def main():
     from schnetpack_tpu.data.loader import collate, padding_for
     from schnetpack_tpu.model import NeuralNetworkPotential
     from schnetpack_tpu.ops import cellblock
-    from schnetpack_tpu.representation import SchNet
     from schnetpack_tpu.train.callbacks import load_pytree
     from schnetpack_tpu.transform.neighborlist import NeighborListTransform
 
@@ -51,22 +53,30 @@ def main():
         P.cell: cell, P.pbc: np.ones(3, bool)})
     batch = collate([sample], padding_for([sample]))
     pot = NeuralNetworkPotential(
-        representation=SchNet(n_atom_basis=128, n_interactions=3, n_rbf=20,
-                              cutoff=CUTOFF),
+        representation=representation,
         input_modules=[PairwiseDistances()],
         output_modules=[Atomwise(output_key=P.energy), Forces()])
-    params = load_pytree(os.path.join(ROOT, "scripts", "assets",
-                                      "bench_schnet_argon.msgpack"))
+    params = load_pytree(asset)
     out = jax.jit(pot.apply)(params, batch)
     energy = np.float64(np.asarray(out[P.energy])[0])
     forces = np.asarray(out[P.forces], np.float32)[:len(R)]
     n_pairs = len(sample[P.idx_i])
-    os.makedirs(os.path.dirname(OUT), exist_ok=True)
-    np.savez_compressed(OUT, R=R, cell=cell, energy=energy, forces=forces,
-                        jitter=np.float64(JITTER), seed=np.int64(SEED),
-                        cutoff=np.float64(CUTOFF), n_pairs=np.int64(n_pairs))
-    print(f"wrote {OUT}: {len(R)} atoms, E={energy:.6f} eV, "
+    os.makedirs(os.path.dirname(out_path), exist_ok=True)
+    np.savez_compressed(out_path, R=R, cell=cell, energy=energy,
+                        forces=forces, jitter=np.float64(JITTER),
+                        seed=np.int64(SEED), cutoff=np.float64(CUTOFF),
+                        n_pairs=np.int64(n_pairs))
+    print(f"wrote {out_path}: {len(R)} atoms, E={energy:.6f} eV, "
           f"|F|max={np.abs(forces).max():.4f} eV/Ang, {n_pairs} pairs")
+
+
+def main():
+    from schnetpack_tpu.representation import SchNet
+
+    write_reference(
+        SchNet(n_atom_basis=128, n_interactions=3, n_rbf=20, cutoff=CUTOFF),
+        os.path.join(ROOT, "scripts", "assets", "bench_schnet_argon.msgpack"),
+        OUT)
 
 
 if __name__ == "__main__":

@@ -2,10 +2,11 @@
 
 Sets up one MD run of ``chip_smoke.py`` (10,976-atom FCC argon box, the
 trained model of the path: PaiNN-128x3 with the ``full`` or ``hybrid``
-message form, or SchNet-128x3; column neighbor list with a 0.6 A skin,
-30 K), warms up and retightens the capacities, then traces STEPS steps with
-``torch.profiler`` and prints, per step: CUDA-event time, device-busy time
-(sum of kernel times), idle share, and device time by kernel name.  The
+message form, SchNet-128x3 or SO3net-64x3; column neighbor list with a
+0.6 A skin, 30 K), warms up and retightens the capacities, then traces
+STEPS steps with ``torch.profiler`` and prints, per step: CUDA-event time,
+device-busy time (sum of kernel times), idle share, and device time by
+kernel name.  The
 full table goes to ``chiprun_out/profile_port_md_<path>.txt``.  Run from
 the repository root:
 
@@ -25,8 +26,8 @@ sys.path.insert(0, ROOT)
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=20)
-    ap.add_argument("--path", choices=("full", "hybrid", "schnet"),
-                    default="full")
+    ap.add_argument("--path", default="full",
+                    choices=("full", "hybrid", "schnet", "so3net"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_port_md: no CUDA device")

@@ -32,7 +32,9 @@ ASSET = os.path.join(os.path.dirname(__file__), "assets",
 
 
 def main(n_train: int = 512, n_val: int = 64, steps: int = 4000,
-         batch: int = 32):
+         batch: int = 32, representation=None, asset: str = ASSET):
+    """Train ``representation`` (default: SchNet-128x3) with an
+    ``Atomwise`` energy head and ``Forces``; save the params to ``asset``."""
     import jax
     import jax.numpy as jnp
 
@@ -57,9 +59,11 @@ def main(n_train: int = 512, n_val: int = 64, steps: int = 4000,
     print(f"dataset in {time.time() - t_all:.0f}s; padding {spec}",
           flush=True)
 
+    if representation is None:
+        representation = SchNet(n_atom_basis=128, n_interactions=3, n_rbf=20,
+                                cutoff=CUTOFF)
     pot = NeuralNetworkPotential(
-        representation=SchNet(n_atom_basis=128, n_interactions=3, n_rbf=20,
-                              cutoff=CUTOFF),
+        representation=representation,
         input_modules=[PairwiseDistances()],
         output_modules=[Atomwise(output_key=P.energy), Forces()],
     )
@@ -84,7 +88,7 @@ def main(n_train: int = 512, n_val: int = 64, steps: int = 4000,
     t0 = time.time()
     for it in range(steps):
         state, metrics = step_fn(state, pool[it % len(pool)])
-        if (it + 1) % 250 == 0:
+        if (it + 1) % 100 == 0:
             loss = float(jax.device_get(metrics["train_loss"][0]))
             print(f"step {it + 1}/{steps} loss {loss:.6f} "
                   f"({(time.time() - t0) / (it + 1) * 1e3:.0f} ms/step)",
@@ -111,9 +115,9 @@ def main(n_train: int = 512, n_val: int = 64, steps: int = 4000,
     print(f"val force MAE {np.mean(maes) * 1e3:.2f} meV/A; "
           f"energy MAE {np.mean(emaes) * 1e3:.3f} meV/atom", flush=True)
 
-    os.makedirs(os.path.dirname(ASSET), exist_ok=True)
-    save_pytree(ASSET, params)
-    print(f"saved {ASSET}", flush=True)
+    os.makedirs(os.path.dirname(asset), exist_ok=True)
+    save_pytree(asset, params)
+    print(f"saved {asset}", flush=True)
 
 
 if __name__ == "__main__":

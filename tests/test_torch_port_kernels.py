@@ -1,11 +1,16 @@
-"""PyTorch port: the CUDA kernels K1-K10 against their plain PyTorch twins,
-on a card only (skipped without CUDA).  No jax import: on a machine
+"""PyTorch port: the CUDA kernels K1-K14 against their plain PyTorch twins,
+on a card only (skipped without CUDA), and the entry points' default
+device.  No jax import: on a machine
 without jax run ``python -m pytest --noconftest -m gpu
 tests/test_torch_port_kernels.py``."""
+import numpy as np
 import pytest
 import torch
 
+from schnetpack_tpu_torch import properties as TP
+from schnetpack_tpu_torch.md import load_molecules
 from schnetpack_tpu_torch.ops import colblock_geo as geo_op
+from schnetpack_tpu_torch.ops import colblock_select as sel
 from schnetpack_tpu_torch.ops import colblock_message as msg
 from schnetpack_tpu_torch.ops import painn_mixing as mix
 from schnetpack_tpu_torch.ops import schnet_columns as schnet
@@ -110,3 +115,38 @@ def test_cfconv_kernels_match_twin(cuda_device, seed):
     with pytest.raises(NotImplementedError, match="filter-weight"):
         schnet.schnet_cfconv_columns(*args[:2], args[2].requires_grad_(True),
                                      *args[3:], refs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [3, 36, 576, 13])
+def test_select_kernels_match_twin(cuda_device, D):
+    """K11-K14 at the positions' width, SO3net's 9 x F widths, and an odd
+    width (the scalar path)."""
+    c = message_case(seed=D % 7)
+    refs = ColRefs.from_layout(c["lay"], device=cuda_device)
+    nx, ny, Ktot = refs.qcol.shape
+    g = torch.Generator().manual_seed(D)
+    table = torch.randn((nx * ny * refs.P, D), generator=g).to(cuda_device)
+    edges = torch.randn((nx, ny, Ktot, D), generator=g).to(cuda_device)
+    for kern, plain, arg in [
+            (sel.gather_fwd_kernel, sel.gather_fwd_plain, table),
+            (sel.expand_fwd_kernel, sel.expand_fwd_plain, table),
+            (sel.gather_bwd_kernel, sel.gather_bwd_plain, edges),
+            (sel.fold_fwd_kernel, sel.fold_fwd_plain, edges)]:
+        torch.testing.assert_close(kern(arg, refs), plain(arg, refs),
+                                   rtol=MSG_RTOL, atol=MSG_ATOL)
+    # the autograd Functions pair them as the JAX custom_vjps do
+    before = dict(sel.LAUNCHES)
+    t = table.clone().requires_grad_(True)
+    out = sel.column_fold_op(sel.column_gather_op(t, refs)
+                             - sel.column_expand_op(t, refs), refs)
+    out.backward(table)
+    assert {k: sel.LAUNCHES[k] - before[k] for k in before} == {
+        "gather_fwd": 1, "gather_bwd": 1, "expand_fwd": 2, "fold_fwd": 2}
+
+
+@pytest.mark.gpu
+def test_load_molecules_defaults_to_the_card(cuda_device):
+    mol = {TP.Z: np.full(2, 18, np.int64), TP.R: np.eye(2, 3)}
+    system = load_molecules([mol])
+    assert system.positions.is_cuda and system.masses.is_cuda

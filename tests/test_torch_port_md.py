@@ -95,7 +95,8 @@ def test_nve_trajectory_matches_jax(jax_trajectory, fuse):
     R_j, p_j, E_j = jax_trajectory
 
     conv = _parse_unit("Ang") * md_units().length
-    system = load_molecules([mol]).replace(momenta=torch.tensor(p0))
+    system = load_molecules([mol], device="cpu").replace(
+        momenta=torch.tensor(p0))
     nbl = CellBlockNeighborListMD(CUTOFF * conv, skin=SKIN * conv)
     calc = SchNetPackCalculator(
         port_potential(fuse=fuse), params_from_jax(load_jax_params(ASSET)),
@@ -115,7 +116,11 @@ def test_nve_trajectory_matches_jax(jax_trajectory, fuse):
 
 def test_import_leaves_jax_out():
     code = ("import sys, schnetpack_tpu_torch.md.calculators, "
-            "schnetpack_tpu_torch.convert; "
+            "schnetpack_tpu_torch.convert, "
+            "schnetpack_tpu_torch.representation, "
+            "schnetpack_tpu_torch.atomistic, schnetpack_tpu_torch.nn.so3, "
+            "schnetpack_tpu_torch.ops.so3, "
+            "schnetpack_tpu_torch.ops.colblock_select; "
             "bad = [m for m in sys.modules if m == 'jax' or m == 'flax' "
             "or m.startswith(('jax.', 'flax.', 'schnetpack_tpu.')) "
             "or m == 'schnetpack_tpu']; print(bad); sys.exit(bool(bad))")

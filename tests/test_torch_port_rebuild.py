@@ -161,7 +161,7 @@ def _nbl_system(seed=4):
            TP.cell: np.eye(3) * L, TP.pbc: np.ones(3, bool)}
     conv = _parse_unit("Ang") * md_units().length
     nbl = CellBlockNeighborListMD(3.0 * conv, skin=0.4 * conv)
-    return load_molecules([mol]), nbl, conv, rng
+    return load_molecules([mol], device="cpu"), nbl, conv, rng
 
 
 def _state_edges(nbl):

@@ -244,7 +244,8 @@ def test_schnet_md_20_steps():
     mol = {TP.Z: np.full(len(R), 18, np.int64), TP.R: R, TP.cell: cell,
            TP.pbc: np.ones(3, bool)}
     system = MaxwellBoltzmannInit(30.0).initialize_system(
-        load_molecules([mol]), torch.Generator().manual_seed(0))
+        load_molecules([mol], device="cpu"),
+        torch.Generator().manual_seed(0))
     nbl = CellBlockNeighborListMD(CUTOFF * conv, skin=0.6 * conv)
     calc = SchNetPackCalculator(port_schnet(),
                                 params_from_jax(load_jax_params(ASSET)),
