@@ -7,13 +7,17 @@ Phases (any failure exits non-zero before the last line is printed):
 1. require CUDA; print the card's name and power limit (nvidia-smi);
 2. build the CUDA kernels from ``schnetpack_tpu_torch/csrc`` (one nvcc per
    source, started together; sm_90a);
-3. hold each kernel K1-K14 against its plain PyTorch twin on the card at
+3. hold each kernel K1-K15 against its plain PyTorch twin on the card at
    the shapes of the MD runs below (10,976-atom argon box in the layout the
    port's neighbor list builds, F=128, B=20, f32, random features and
-   cotangents from --seed; K6/K7 on the geo that K5 computes there, K9/K10
-   on the raw-phi geo of K5's raw form, with the trained SchNet's first
-   filter network; K11-K14 at the positions' width D = 3 and SO3net's
-   D = 9 x 64), tolerance rtol 1e-4 / atol 1e-5 elementwise; time both,
+   cotangents from --seed; K6/K7 on the geo that K5 computes there, K15 on
+   K5's geo without the d channel, K9/K10 on the raw-phi geo of K5's raw
+   form, with the trained SchNet's first filter network; K11-K14 at the
+   positions' width D = 3 and SO3net's D = 9 x 64; K2, K7 and K15 also in
+   their wgrad instances, which return the filter-weight cotangent gFW, a
+   sum over all ~200k edges: those are held to the twin evaluated in
+   float64, since the f32 twin's own sum is off by ~1e-5 there),
+   tolerance rtol 1e-4 / atol 1e-5 elementwise; time both,
    the one PyTorch call that computes the same function where there is
    one (K11-K14: ``index_select`` and the mask, ``index_add_``), and work
    out each kernel's bound from the bytes of its inputs and outputs at
@@ -22,8 +26,11 @@ Phases (any failure exits non-zero before the last line is printed):
    (force rms <= 1e-4 eV/Ang, energy within 1e-5 relative): PaiNN in both
    message forms (``fuse`` = hybrid and full) to
    ``tests/data/port_ref_painn_argon.npz``, printing the force rms between
-   the two, SchNet to ``tests/data/port_ref_schnet_argon.npz`` and SO3net
-   to ``tests/data/port_ref_so3net_argon.npz``;
+   the two, SchNet to ``tests/data/port_ref_schnet_argon.npz``, SO3net
+   to ``tests/data/port_ref_so3net_argon.npz``, and PaiNN on the row-9
+   path with a trainable Gaussian basis (the fixture's centers and widths)
+   and with a Bessel basis to ``tests/data/port_ref_painn_{trbf,bessel}_
+   argon.npz``;
 5. the neighbor list's device rebuild at full size: jitter the lattice by
    a seeded uniform +-0.25 A (the 0.3 A skin check fires, the capacities
    hold), rebuild once on the device and once on the host, and require
@@ -32,16 +39,18 @@ Phases (any failure exits non-zero before the last line is printed):
 6. run NVE velocity Verlet at 0.5 fs of the 10,976-atom periodic FCC argon
    box with the trained PaiNN-128x3 (``scripts/assets/
    bench_painn_argon.msgpack``), the trained SchNet-128x3
-   (``scripts/assets/bench_schnet_argon.msgpack``) and the trained
-   SO3net-64x3 (lmax 2, ``scripts/assets/bench_so3net_argon.msgpack``),
+   (``scripts/assets/bench_schnet_argon.msgpack``), the trained
+   SO3net-64x3 (lmax 2, ``scripts/assets/bench_so3net_argon.msgpack``) and
+   the trained PaiNN with the trbf fixture's trainable Gaussian basis,
    Maxwell-Boltzmann momenta at 30 K, the column neighbor list (5 A
    cutoff, 0.6 A skin): a warm-up, a retighten of the capacities, then
    --steps timed steps, on PaiNN's hybrid path, PaiNN's full path,
-   SchNet's path and SO3net's path; check finite positions, 0 < T < 300 K,
-   total-energy drift <= 1e-4 eV/atom, the launches per step of every
-   kernel (hybrid: K5 1, K6/K7/K3/K4 3; full: K1/K2/K3/K4 3; SchNet: K5 raw
-   1, K9/K10 3, K8 1; SO3net: K11 4, K12 3, K13 4, K14 4; every other
-   kernel 0),
+   SchNet's path, SO3net's path and PaiNN's row-9 path (``painn_trbf``);
+   check finite positions, 0 < T < 300 K, total-energy drift <= 1e-4
+   eV/atom, the launches per step of every kernel (hybrid: K5 1,
+   K6/K7/K3/K4 3; full: K1/K2/K3/K4 3; SchNet: K5 raw 1, K9/K10 3, K8 1;
+   SO3net: K11 4, K12 3, K13 4, K14 4; painn_trbf: K11-K14 1 each,
+   K6/K15/K3/K4 3; every other kernel 0),
    and that every rebuild after the retighten went through the device
    unless it overflowed;
 7. print the kernel table and the card as JSON, then the result line.
@@ -65,12 +74,13 @@ ASSET = {
     "so3net": os.path.join(ROOT, "scripts", "assets",
                            "bench_so3net_argon.msgpack"),
 }
+#: the JAX reference of each path (``scripts/make_port_reference*.py``)
 REFERENCE = {
-    "painn": os.path.join(ROOT, "tests", "data", "port_ref_painn_argon.npz"),
-    "schnet": os.path.join(ROOT, "tests", "data",
-                           "port_ref_schnet_argon.npz"),
-    "so3net": os.path.join(ROOT, "tests", "data",
-                           "port_ref_so3net_argon.npz"),
+    path: os.path.join(ROOT, "tests", "data", f"port_ref_{name}_argon.npz")
+    for path, name in [("hybrid", "painn"), ("full", "painn"),
+                       ("schnet", "schnet"), ("so3net", "so3net"),
+                       ("painn_trbf", "painn_trbf"),
+                       ("painn_bessel", "painn_bessel")]
 }
 CUTOFF, SKIN = 5.0, 0.6          # Angstrom
 RTOL, ATOL = 1e-4, 1e-5          # kernel vs twin, elementwise
@@ -92,8 +102,12 @@ PER_STEP = {
     "schnet": {"geo_fwd_raw": 1, "cf_fwd": 3, "cf_bwd": 3, "geo_bwd": 1},
     "so3net": {"gather_fwd": 4, "gather_bwd": 3, "expand_fwd": 4,
                "fold_fwd": 4},
+    "painn_trbf": {"gather_fwd": 1, "gather_bwd": 1, "expand_fwd": 1,
+                   "fold_fwd": 1, "msg_fwd_geo": 3, "msg_bwd_src": 3,
+                   "mix_fwd": 3, "mix_bwd": 3},
 }
-PATHS = ("hybrid", "full", "schnet", "so3net")
+#: the MD paths of phase 6
+PATHS = ("hybrid", "full", "schnet", "so3net", "painn_trbf")
 
 
 def fcc_box(n_target: int, a: float = 5.26):
@@ -116,6 +130,14 @@ def cuda_ms(fn, reps=10):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def in_f64(fn, *args):
+    """``fn`` on float64 copies of its float32 tensor arguments, its outputs
+    rounded to float32."""
+    out = fn(*[a.double() if torch.is_tensor(a) and a.dtype == torch.float32
+               else a for a in args])
+    return tuple(o.float() for o in out)
 
 
 def compare(name, got, want):
@@ -141,29 +163,43 @@ def model_of(path):
 def potential(path="full"):
     """The trained model of a path and its parameters: PaiNN-128x3 with the
     message form ``path`` ("hybrid" or "full", PaiNN's own default),
-    SchNet-128x3 (``path`` "schnet") or SO3net-64x3, lmax 2, with its
-    ``PairwiseDistances`` input module (``path`` "so3net")."""
+    SchNet-128x3 (``path`` "schnet"), SO3net-64x3, lmax 2, with its
+    ``PairwiseDistances`` input module (``path`` "so3net"), or PaiNN-128x3
+    on the row-9 path with ``PairwiseDistances``: with the trbf fixture's
+    trainable Gaussian basis ("painn_trbf") or a Bessel basis
+    ("painn_bessel")."""
     from schnetpack_tpu_torch.atomistic import (
         Atomwise, Forces, PairwiseDistances,
     )
     from schnetpack_tpu_torch.convert import load_jax_params, params_from_jax
     from schnetpack_tpu_torch.model import NeuralNetworkPotential
+    from schnetpack_tpu_torch.nn import BesselRBF, GaussianRBF
     from schnetpack_tpu_torch.representation import PaiNN, SchNet, SO3net
 
+    inputs = []
+    radial_from = None
     if path == "so3net":
         rep = SO3net(n_atom_basis=64, n_interactions=3, lmax=2, n_rbf=20,
                      cutoff=CUTOFF)
-        pot = NeuralNetworkPotential(rep, [Atomwise(n_in=64), Forces()],
-                                     input_modules=[PairwiseDistances()])
+        inputs = [PairwiseDistances()]
+    elif path == "schnet":
+        rep = SchNet(n_atom_basis=128, n_interactions=3, n_rbf=20,
+                     cutoff=CUTOFF)
+    elif path in ("painn_trbf", "painn_bessel"):
+        trbf = path == "painn_trbf"
+        radial = (GaussianRBF(20, CUTOFF, trainable=True) if trbf
+                  else BesselRBF(20, CUTOFF))
+        rep = PaiNN(n_atom_basis=128, n_interactions=3, n_rbf=20,
+                    cutoff=CUTOFF, radial_basis=radial)
+        inputs = [PairwiseDistances()]
+        radial_from = REFERENCE[path] if trbf else None
     else:
-        if path == "schnet":
-            rep = SchNet(n_atom_basis=128, n_interactions=3, n_rbf=20,
-                         cutoff=CUTOFF)
-        else:
-            rep = PaiNN(n_atom_basis=128, n_interactions=3, n_rbf=20,
-                        cutoff=CUTOFF, fuse=path)
-        pot = NeuralNetworkPotential(rep, [Atomwise(n_in=128), Forces()])
-    return pot, params_from_jax(load_jax_params(ASSET[model_of(path)]))
+        rep = PaiNN(n_atom_basis=128, n_interactions=3, n_rbf=20,
+                    cutoff=CUTOFF, fuse=path)
+    pot = NeuralNetworkPotential(rep, [Atomwise(n_in=rep.n_atom_basis),
+                                       Forces()], input_modules=inputs)
+    return pot, params_from_jax(load_jax_params(ASSET[model_of(path)],
+                                                radial_from=radial_from))
 
 
 def layout_str(state):
@@ -242,7 +278,7 @@ def check_kernels(cases):
     for c in cases:
         name, kern, plain = c["name"], c["kern"], c["plain"]
         got = kern()
-        err = compare(name, got, plain())
+        err = compare(name, got, (c.get("ref") or plain)())
         ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
         lib_ms = cuda_ms(c["library"]) if c.get("library") else None
         bound_ms, bound_by = bound(nbytes(c["inputs"], got), c["flops"])
@@ -250,19 +286,30 @@ def check_kernels(cases):
         print(f"kernel {name}{c.get('tag', '')}: max_abs_err={err:.3e} "
               f"{ms:.4f} ms (plain twin {plain_ms:.4f} ms, library {lib}, "
               f"bound {bound_ms:.4f} ms by {bound_by})", flush=True)
-        rows.append({"name": name, "route": "cuda",
-                     "source": f"schnetpack_tpu_torch/csrc/{c['src']}",
-                     "replaces": f"schnetpack_tpu/ops/{c['replaces']}",
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": bound_ms, "bound_by": bound_by,
-                     "library_ms": lib_ms})
+        row = {"name": name, "route": "cuda",
+               "source": f"schnetpack_tpu_torch/csrc/{c['src']}",
+               "replaces": f"schnetpack_tpu/ops/{c['replaces']}",
+               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": lib_ms}
+        if c.get("wgrad"):   # the kernel's wgrad instance, also gFW
+            (w,) = check_kernels([dict(c, **c["wgrad"], wgrad=None,
+                                       tag=" + gFW (wgrad)")])
+            row["wgrad"] = {k: w[k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")}
+        rows.append(row)
     return rows
 
 
-def case(name, src, replaces, kern, plain, inputs, flops, library=None):
+def case(name, src, replaces, kern, plain, inputs, flops, library=None,
+         wgrad=None):
+    """One kernel of the table; ``wgrad`` (``kern``, ``plain``, ``flops``
+    and ``ref``, what the kernel is held to, where that is not ``plain``)
+    adds its wgrad instance as a sub-row."""
     return {"name": name, "src": src, "replaces": replaces, "kern": kern,
             "plain": plain, "inputs": inputs, "flops": flops,
-            "library": library}
+            "library": library, "wgrad": wgrad}
 
 
 def real_edges(refs):
@@ -270,13 +317,15 @@ def real_edges(refs):
 
 
 def kernel_phase(calc, system, seed, dev):
-    """K1-K7 against their twins at the MD run's shapes; returns rows.
+    """K1-K7 and K15 against their twins at the MD run's shapes; returns
+    rows.
 
     Operations per real edge e (an FMA counts 2): the filter (B+1) x 3F
     FMAs, 16F for the products and sums of the message, twice both for a
-    backward, and the geometry where a kernel computes it; per atom row
-    the mixing's 22 F^2 (44 F^2 backward: input cotangents and the
-    recomputed forward)."""
+    backward, and the geometry where a kernel computes it; a wgrad
+    instance adds the (B+1) x 3F FMAs of gFW; per atom row the mixing's
+    22 F^2 (44 F^2 backward: input cotangents and the recomputed
+    forward)."""
     from schnetpack_tpu_torch.ops import colblock_geo as geo_op
     from schnetpack_tpu_torch.ops import colblock_message as msg
     from schnetpack_tpu_torch.ops import painn_mixing as mix
@@ -298,14 +347,17 @@ def kernel_phase(calc, system, seed, dev):
     margs = (x, mu, R, FW, coff, rep.cw, refs, rep.cutoff)
     gargs = (R, coff, refs, rep.cw, rep.cutoff)
     geo = geo_op.geo_fwd_kernel(*gargs)
+    geo4 = geo_op.geo_fwd_kernel(*gargs, with_d=False)
     hargs = (x, mu, geo, FW, refs)
     bargs = (x, mu, geo, FW, rep.cw, refs, rep.cutoff, g_dq, g_dmu)
+    sargs = (x, mu, geo4, FW, refs, g_dq, g_dmu)
     m0 = rep.mixing[0]
     w = (m0.kmix, m0.k0, m0.b0, m0.k1, m0.b1)
     xargs = (rnd(Ap, F, scale=1.0), mu, g_dq * 0.3, g_dmu * 0.3, *w,
              m0.epsilon, m0.activation)
     msg_fwd = ne * (6 * F * (B + 1) + 16 * F)
     msg_bwd = 2 * msg_fwd
+    gfw = ne * 6 * F * (B + 1)
 
     cases = [
         case("msg_fwd", "colblock_message.cu", "colblock_pallas.py:1889",
@@ -314,9 +366,15 @@ def kernel_phase(calc, system, seed, dev):
              (x, mu, R, FW, coff, rep.cw, idx), msg_fwd + ne * geo_flops(B)),
         case("msg_bwd", "colblock_message.cu", "colblock_pallas.py:1239",
              lambda: msg.msg_bwd_kernel(*margs, g_dq, g_dmu),
-             lambda: msg.msg_bwd_plain(*margs, g_dq, g_dmu),
+             lambda: msg.msg_bwd_plain(*margs, g_dq, g_dmu)[:3],
              (x, mu, R, FW, coff, rep.cw, idx, g_dq, g_dmu),
-             msg_bwd + 2 * ne * geo_flops(B)),
+             msg_bwd + 2 * ne * geo_flops(B),
+             wgrad={"kern": lambda: msg.msg_bwd_kernel(*margs, g_dq, g_dmu,
+                                                       wgrad=True),
+                    "plain": lambda: msg.msg_bwd_plain(*margs, g_dq, g_dmu),
+                    "ref": lambda: in_f64(msg.msg_bwd_plain, *margs, g_dq,
+                                          g_dmu),
+                    "flops": msg_bwd + 2 * ne * geo_flops(B) + gfw}),
         case("mix_fwd", "painn_mixing.cu", "painn_mixing.py:73",
              lambda: mix.mix_fwd_kernel(*xargs),
              lambda: mix.painn_mixing_plain(*xargs), xargs[:9],
@@ -338,7 +396,22 @@ def kernel_phase(calc, system, seed, dev):
              lambda: msg.msg_bwd_geores_kernel(*bargs),
              lambda: msg.msg_bwd_geores_plain(*bargs)[:3],
              (x, mu, geo, FW, rep.cw, idx, g_dq, g_dmu),
-             msg_bwd + ne * geo_flops(B)),
+             msg_bwd + ne * geo_flops(B),
+             wgrad={"kern": lambda: msg.msg_bwd_geores_kernel(*bargs,
+                                                              wgrad=True),
+                    "plain": lambda: msg.msg_bwd_geores_plain(*bargs),
+                    "ref": lambda: in_f64(msg.msg_bwd_geores_plain, *bargs),
+                    "flops": msg_bwd + ne * geo_flops(B) + gfw}),
+        case("msg_bwd_src", "colblock_message.cu",
+             "colblock_pallas.py:834",
+             lambda: msg.msg_bwd_src_kernel(*sargs),
+             lambda: msg.msg_bwd_src_plain(*sargs)[:3],
+             (x, mu, geo4, FW, idx, g_dq, g_dmu), msg_bwd,
+             wgrad={"kern": lambda: msg.msg_bwd_src_kernel(*sargs,
+                                                           wgrad=True),
+                    "plain": lambda: msg.msg_bwd_src_plain(*sargs),
+                    "ref": lambda: in_f64(msg.msg_bwd_src_plain, *sargs),
+                    "flops": msg_bwd + gfw}),
     ]
     return check_kernels(cases)
 
@@ -460,13 +533,14 @@ def select_kernel_phase(calc, system, seed, dev):
 
 
 def reference_phase(dev):
-    """Both PaiNN message forms, SchNet and SO3net against their JAX
-    references; forces per path."""
+    """Both PaiNN message forms, SchNet, SO3net and PaiNN's row-9 path with
+    a trainable Gaussian and a Bessel basis against their JAX references;
+    forces per path."""
     from schnetpack_tpu_torch.md import load_molecules
 
     out = {}
-    for path in PATHS:
-        ref = np.load(REFERENCE[model_of(path)])
+    for path in REFERENCE:
+        ref = np.load(REFERENCE[path])
         pot, params = potential(path)
         calc = calculator(pot, params)
         system = load_molecules([molecule(ref["R"].astype(np.float64),
@@ -559,8 +633,8 @@ def rebuild_phase(seed, dev):
 
 
 def md_phase(path, pos, cell, steps, seed, dev, launches):
-    """NVE run on one path (PaiNN hybrid or full, SchNet, SO3net); returns
-    (launch counts, ms/step)."""
+    """NVE run on one path of ``PATHS``; returns (launch counts,
+    ms/step)."""
     from schnetpack_tpu_torch.md import (
         MaxwellBoltzmannInit, Simulator, VelocityVerlet, load_molecules,
     )
@@ -678,7 +752,8 @@ def main():
         assert row["launches"] > 0, f"{row['name']} never ran in the MD"
     print(f"md ms/step PaiNN hybrid {ms_step['hybrid']:.3f}, PaiNN full "
           f"{ms_step['full']:.3f}, SchNet {ms_step['schnet']:.3f}, SO3net "
-          f"{ms_step['so3net']:.3f} on {smi}")
+          f"{ms_step['so3net']:.3f}, PaiNN trbf {ms_step['painn_trbf']:.3f} "
+          f"on {smi}")
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -11,7 +11,11 @@ alone.  ``params_from_jax`` maps that flax tree to a ``state_dict`` of
   ``painn.py:403-416`` builds it: the bias row is filter_net(0) and
   FWm = filter_net(I) - bias;
 * ``mixing_t/{channel_mix, intra_0, intra_1}`` map to kmix [F, 2F],
-  k0 [2F, F], b0, k1 [F, 3F], b1 unchanged (the kernels' layout).
+  k0 [2F, F], b0, k1 [F, 3F], b1 unchanged (the kernels' layout);
+* a trainable basis's ``radial_basis/{centers, widths}`` map to
+  ``radial_basis.{centers, widths}``.  ``load_jax_params(asset,
+  radial_from=npz)`` puts them into a tree that has none: the trained
+  PaiNN asset with the centers and widths of a fixture.
 
 A SchNet tree (``representation/interaction_t/filter_0``) maps to
 ``NeuralNetworkPotential(SchNet, [Atomwise, Forces])``: every Dense layer
@@ -28,16 +32,33 @@ each transposed.
 from __future__ import annotations
 
 import pickle
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 
-def load_jax_params(path: str) -> dict:
-    """Unpickle a saved JAX parameter tree (numpy arrays only)."""
+def load_jax_params(path: str, radial_from: Optional[str] = None) -> dict:
+    """Unpickle a saved JAX parameter tree (numpy arrays only); with
+    ``radial_from``, an ``.npz`` holding ``centers`` and ``widths``, add
+    those as a trainable Gaussian basis (``with_radial_params``)."""
     with open(path, "rb") as f:
-        return pickle.load(f)
+        tree = pickle.load(f)
+    if radial_from is not None:
+        ref = np.load(radial_from)
+        tree = with_radial_params(tree, ref["centers"], ref["widths"])
+    return tree
+
+
+def with_radial_params(tree: dict, centers, widths) -> dict:
+    """A copy of the PaiNN param tree ``tree`` with a trainable Gaussian
+    basis: ``representation/radial_basis/{centers, widths}`` set (the
+    flax module's param path)."""
+    p = dict(tree["params"] if "params" in tree else tree)
+    p["representation"] = dict(p["representation"], radial_basis={
+        "centers": np.asarray(centers, np.float32),
+        "widths": np.asarray(widths, np.float32)})
+    return {"params": p} if "params" in tree else p
 
 
 def _linear(prefix: str, dense: dict, out: Dict[str, np.ndarray]) -> None:
@@ -89,6 +110,8 @@ def _painn(rep: dict, out: Dict[str, np.ndarray]) -> None:
         out[f"{pre}.b0"] = mix["intra_0"]["linear"]["bias"]
         out[f"{pre}.k1"] = mix["intra_1"]["linear"]["kernel"]
         out[f"{pre}.b1"] = mix["intra_1"]["linear"]["bias"]
+    for name in rep.get("radial_basis", {}):
+        out[f"representation.radial_basis.{name}"] = rep["radial_basis"][name]
 
 
 def params_from_jax(tree: dict) -> Dict[str, torch.Tensor]:

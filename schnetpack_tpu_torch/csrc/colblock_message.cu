@@ -2,16 +2,33 @@
 //
 // K1 msg_fwd_kernel<false> replaces the TPU kernel
 //   schnetpack_tpu/ops/colblock_pallas.py:1889 _msg_fm_fwd_fused_kernel
-// K2 msg_bwd_kernel<false> replaces
+// K2 msg_bwd_kernel<kFused, W> replaces
 //   schnetpack_tpu/ops/colblock_pallas.py:1239 _msg_fm_bwd_fused_kernel
-//   (the wgrad=False variant: no filter-weight cotangent).
+//   (W = kWgrad: false without, true with the filter-weight cotangent).
 // K6 msg_fwd_kernel<true> replaces the three geo-tensor forwards
 //   colblock_pallas.py:568 _msg_fm_fwd_kernel, :599 _msg_fm_fwd_res_kernel
 //   and :687 _msg_fm_fwd_res_preoh_kernel (they differ only in how the TPU
 //   stages tables in VMEM and builds one-hots; all compute K1's message on
 //   a precomputed geo tensor).
-// K7 msg_bwd_kernel<true> replaces
-//   colblock_pallas.py:1570 _msg_fm_bwd_geores_kernel (wgrad=False).
+// K7 msg_bwd_kernel<kGeoRes, W> replaces
+//   colblock_pallas.py:1570 _msg_fm_bwd_geores_kernel (wgrad off / on).
+// K15 msg_bwd_kernel<kSrc, W> replaces the two row-9 kernels
+//   colblock_pallas.py:834 _msg_fm_bwd_src_kernel and :945
+//   _msg_fm_bwd_src_res_kernel (they differ only in how the TPU stages
+//   tables in VMEM): the message VJP on a geo of B+4 channels [rbf_aug,
+//   dir] that autograd differentiates (any radial basis and cutoff).  It
+//   runs K7's schedule and per-edge reductions but no geometry chain:
+//   each real slot's geometry cotangent ggeo = [grbf (B+1), gdir (3)] is
+//   written at the slot's own [c, Ktot] position (one writer per slot;
+//   the wrapper zero-fills, so padded slots stay 0).
+//
+// kWgrad adds the filter-weight cotangent gFW = sum_e rbf_aug_e^T gW_e
+// [B+1, 3F]: thread part*F+f owns column part*F+f, sums a chunk's 32
+// edges in f32 registers and adds them to the block's f64 sums in shared
+// memory; each block writes one f64 [B+1, 3F] partial that the wrapper
+// sums (deterministic, no atomics).  gFW sums ~200k edges at the bench
+// shapes, where f32 running sums would lose ~1e-5 absolute.  The
+// kWgrad=false instances compile to the same code as without the switch.
 //
 // Layout (schnetpack_tpu_torch/ops/cellblock.py): atoms sorted into nx*ny
 // xy-columns of P rows; edge slot k of column (i, j) lies in bucket c9 =
@@ -67,7 +84,13 @@ constexpr int kEdgesBwd = 32;    // edges per K2 chunk
 constexpr int kMaxThreadsBwd = 384;  // K2 runs 3F threads (F <= 128)
 constexpr int kU = 4;            // edges in flight per thread (K1, K2)
 constexpr int kLd = 8;           // geo loads in flight per thread (K6)
+constexpr int kMaxB1 = 32;       // B+1 bound of the kWgrad chunk sums
 constexpr float kPi = 3.14159265358979323846f;
+
+// the three forms of the message backward
+constexpr int kFused = 0;        // K2: geometry recomputed from R, emits dR
+constexpr int kGeoRes = 1;       // K7: geometry chain from the stored geo
+constexpr int kSrc = 2;          // K15: emits the geo cotangent instead
 
 struct KOffs {
   int o[10];
@@ -217,7 +240,7 @@ msg_fwd_kernel(const float* __restrict__ x, const float* __restrict__ mu,
   }
 }
 
-template <bool kGeo>
+template <int kMode, bool kWgrad>
 __global__ void __launch_bounds__(kMaxThreadsBwd)
 msg_bwd_kernel(const float* __restrict__ x, const float* __restrict__ mu,
                const float* __restrict__ R, const float* __restrict__ geo,
@@ -228,6 +251,7 @@ msg_bwd_kernel(const float* __restrict__ x, const float* __restrict__ mu,
                const float* __restrict__ g_dq, const float* __restrict__ g_dmu,
                float* __restrict__ dx, float* __restrict__ dmu_out,
                float* __restrict__ gRo, float* __restrict__ gRd,
+               float* __restrict__ ggeo, double* __restrict__ gFWp,
                int nx, int ny, int P, int Ktot, KOffs ko, int G, int F,
                int B, int nch, float rc) {
   // Source-centric.  ``esorted`` lists every real edge slot (dest column
@@ -242,7 +266,10 @@ msg_bwd_kernel(const float* __restrict__ x, const float* __restrict__ mu,
   // components of f) and keeps the current source row's sums in registers
   // while the run of that row's edges lasts, then stores them once.  The
   // per-edge reductions over all 3F features (filter cotangent, dir
-  // cotangent) go through shared memory, 32 edges at a time.
+  // cotangent) go through shared memory, 32 edges at a time.  K15 stops
+  // after those reductions and stores them per slot (ggeo); kWgrad adds
+  // the block's gFW partial gFWp[col * G + g].
+  constexpr bool kGeo = kMode != kFused;
   extern __shared__ float smem[];
   constexpr int E = kEdgesBwd;
   const int B1 = B + 1, D3 = 3 * F, LD = D3 + 1;  // LD: bank-conflict pad
@@ -254,21 +281,24 @@ msg_bwd_kernel(const float* __restrict__ x, const float* __restrict__ mu,
   const int* gb = grp + ((size_t)col * (G + 1) + g) * 2;
   const int r0 = gb[0], e0 = gb[1], r1 = gb[2], e1 = gb[3];
 
-  float* s_fw = smem;                  // [B1][LD]
+  double* s_gfw = reinterpret_cast<double*>(smem);  // [B1][D3] (kWgrad)
+  float* s_fw = smem + (kWgrad ? 2 * B1 * D3 : 0);  // [B1][LD]
   float* s_gw = s_fw + B1 * LD;        // [E][LD] filter cotangent per edge
   float* s_rbf = s_gw + E * LD;        // [E][B1]
   float* s_grbf = s_rbf + E * B1;      // [E][B1]
-  float* s_rij = s_grbf + E * B1;      // [E][3] rij (K2) or dir (K7)
+  float* s_rij = s_grbf + E * B1;      // [E][3] rij (K2) or dir (K7, K15)
   float* s_d = s_rij + E * 3;          // [E]
   float* s_gdir = s_d + E;             // [E][NW][3] per-warp partials
   float* s_grij = s_gdir + E * NW * 3; // [E][3]
+  // position cotangents [3][P] own, [9][3][P] destination side (not K15)
+  const int nR = kMode == kSrc ? 0 : 30 * P;
   float* s_gRo = s_grij + E * 3;       // [3][P]
   float* s_gRd = s_gRo + 3 * P;        // [9][3][P]
-  int* s_src = reinterpret_cast<int*>(s_gRd + 27 * P);  // [E] (-1 pad)
+  int* s_src = reinterpret_cast<int*>(s_gRo + nR);  // [E] (-1 pad)
   int* s_dst = s_src + E;              // [E] global destination row
   int* s_c9 = s_dst + E;               // [E]
   int* s_dcol = s_c9 + E;              // [9] destination column of c9
-  int* s_slot = s_dcol + 9;            // [E] edge slot (K7's geo loads)
+  int* s_slot = s_dcol + 9;            // [E] edge slot (K7's, K15's geo)
 
   const size_t own0 = (size_t)col * P;
   for (int r = r0; r < r1; ++r) {      // rows without edges stay zero
@@ -281,13 +311,19 @@ msg_bwd_kernel(const float* __restrict__ x, const float* __restrict__ mu,
   }
   for (int t = tid; t < B1 * D3; t += nth)
     s_fw[(t / D3) * LD + t % D3] = FW[t];
-  for (int t = tid; t < 30 * P; t += nth) s_gRo[t] = 0.f;  // gRo and gRd
+  for (int t = tid; t < nR; t += nth) s_gRo[t] = 0.f;  // gRo and gRd
   if (tid < 9)
     s_dcol[tid] = ((ci - (tid / 3 - 1) + nx) % nx) * ny +
                   (cj - (tid % 3 - 1) + ny) % ny;
 
   int run = -1;                        // source row of the open run
   float a_dx = 0.f, a_m0 = 0.f, a_m1 = 0.f, a_m2 = 0.f;
+  float a_fw[kWgrad ? kMaxB1 : 1];     // gFW column tid, this chunk
+  if constexpr (kWgrad) {
+#pragma unroll
+    for (int b = 0; b < kMaxB1; ++b) a_fw[b] = 0.f;
+    for (int b = 0; b < B1; ++b) s_gfw[(size_t)b * D3 + tid] = 0.0;
+  }
   const float pi_rc = kPi / rc;
   for (int base = e0; base < e1; base += E) {
     __syncthreads();  // previous chunk finished (and the set-up above)
@@ -332,10 +368,10 @@ msg_bwd_kernel(const float* __restrict__ x, const float* __restrict__ mu,
     __syncthreads();
     const int n = min(E, e1 - base);
     if constexpr (kGeo) {
-      // K7: the chunk's stored [phi*fcut, fcut, dir, d] channels, loaded
-      // by the whole block (a few independent loads per thread instead of
-      // B+5 dependent ones on warp 0)
-      const int nc = B1 + 4;
+      // K7: the chunk's stored [phi*fcut, fcut, dir, d] channels (K15:
+      // [rbf_aug, dir]), loaded by the whole block (a few independent
+      // loads per thread instead of B+5 dependent ones on warp 0)
+      const int nc = kMode == kSrc ? B1 + 3 : B1 + 4;
       for (int idx = tid; idx < E * nc; idx += nth) {
         const int t = idx % E, c = idx / E;
         if (s_src[t] < 0) continue;
@@ -420,6 +456,12 @@ msg_bwd_kernel(const float* __restrict__ x, const float* __restrict__ mu,
         a_m0 = fmaf(gm0[u], xw[u], a_m0);
         a_m1 = fmaf(gm1[u], xw[u], a_m1);
         a_m2 = fmaf(gm2[u], xw[u], a_m2);
+        if constexpr (kWgrad) {        // gFW[:, tid] += rbf_aug_e gW_e[tid]
+          const float* rb = s_rbf + (t0 + u) * B1;
+#pragma unroll
+          for (int b = 0; b < kMaxB1; ++b)
+            if (b < B1) a_fw[b] = fmaf(rb[b], gwv[u], a_fw[b]);
+        }
         s_gw[(t0 + u) * LD + tid] = gwv[u];
       }
       if (part == 1) {  // dir cotangent: sum_f g_c * dmuR over the part
@@ -440,6 +482,14 @@ msg_bwd_kernel(const float* __restrict__ x, const float* __restrict__ mu,
         }
       }
     }
+    if constexpr (kWgrad) {  // the chunk's f32 sums into the block's f64
+#pragma unroll
+      for (int b = 0; b < kMaxB1; ++b)
+        if (b < B1) {
+          s_gfw[(size_t)b * D3 + tid] += (double)a_fw[b];
+          a_fw[b] = 0.f;
+        }
+    }
     __syncthreads();
     // phase 3: basis cotangent grbf[t][b] = sum_f gw[t][f] * FW[b][f]
     for (int idx = tid; idx < n * B1; idx += nth) {
@@ -453,6 +503,23 @@ msg_bwd_kernel(const float* __restrict__ x, const float* __restrict__ mu,
       s_grbf[idx] = acc;
     }
     __syncthreads();
+    if constexpr (kMode == kSrc) {
+      // K15: each slot's geometry cotangent [grbf (B+1), gdir (3)] at its
+      // own [dest column, c, k] position; no geometry chain, no dR
+      const int nc = B1 + 3;
+      for (int idx = tid; idx < n * nc; idx += nth) {
+        const int t = idx % n, c = idx / n;
+        if (s_src[t] < 0) continue;
+        float v = 0.f;
+        if (c < B1)
+          v = s_grbf[t * B1 + c];
+        else
+          for (int w = 0; w < NW; ++w) v += s_gdir[(t * NW + w) * 3 + c - B1];
+        const int slot = s_slot[t];
+        ggeo[((size_t)(slot / Ktot) * nch + c) * Ktot + slot % Ktot] = v;
+      }
+      continue;  // the next chunk starts with a barrier
+    }
     // phase 4: geometry chain -> grij, one edge per thread of warp 0
     if (tid < n) {
       const int t = tid;
@@ -539,6 +606,12 @@ msg_bwd_kernel(const float* __restrict__ x, const float* __restrict__ mu,
       dmu_out[ro + 2 * F + f] = a_m2;
     }
   }
+  if constexpr (kWgrad) {              // this block's gFW partial
+    double* out = gFWp + ((size_t)col * G + g) * B1 * D3 + tid;
+    for (int b = 0; b < B1; ++b)
+      out[(size_t)b * D3] = s_gfw[(size_t)b * D3 + tid];
+  }
+  if constexpr (kMode == kSrc) return;
   __syncthreads();
   for (int t = tid; t < 3 * (r1 - r0); t += nth) {
     const int c = t / (r1 - r0), r = r0 + t % (r1 - r0);
@@ -578,28 +651,49 @@ int launch_fwd(const float* x, const float* mu, const float* R,
   return (int)cudaGetLastError();
 }
 
-template <bool kGeo>
+template <int kMode, bool kWgrad>
 int launch_bwd(const float* x, const float* mu, const float* R,
                const float* geo, const float* FW, const float* coff,
                const float* cw, const int* qcol, const int* dcol,
                const int* esorted, const int* grp, const float* g_dq,
                const float* g_dmu, float* dx, float* dmu_out, float* gRo,
-               float* gRd, int nx, int ny, int P, int Ktot, const int* koffs,
-               int G, int F, int B, int nch, float rc, cudaStream_t stream) {
+               float* gRd, float* ggeo, double* gFWp, int nx, int ny, int P,
+               int Ktot, const int* koffs, int G, int F, int B, int nch,
+               float rc, cudaStream_t stream) {
   const int E = kEdgesBwd, B1 = B + 1, LD = 3 * F + 1;
+  const size_t nR = kMode == kSrc ? 0 : 30 * (size_t)P;
   const size_t smem =
+      sizeof(double) * (kWgrad ? (size_t)B1 * 3 * F : 0) +
       sizeof(float) * ((size_t)B1 * LD + (size_t)E * LD + 2 * E * B1 +
-                       E * 3 + E + E * (F / 32) * 3 + E * 3 + 30 * (size_t)P) +
+                       E * 3 + E + E * (F / 32) * 3 + E * 3 + nR) +
       sizeof(int) * (4 * E + 9);
   cudaError_t err = cudaFuncSetAttribute(
-      msg_bwd_kernel<kGeo>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      msg_bwd_kernel<kMode, kWgrad>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  msg_bwd_kernel<kGeo><<<dim3(nx * ny, G), 3 * F, smem, stream>>>(
+  msg_bwd_kernel<kMode, kWgrad><<<dim3(nx * ny, G), 3 * F, smem, stream>>>(
       x, mu, R, geo, FW, coff, cw, qcol, dcol, esorted, grp, g_dq, g_dmu, dx,
-      dmu_out, gRo, gRd, nx, ny, P, Ktot, make_koffs(koffs), G, F, B, nch,
-      rc);
+      dmu_out, gRo, gRd, ggeo, gFWp, nx, ny, P, Ktot, make_koffs(koffs), G,
+      F, B, nch, rc);
   return (int)cudaGetLastError();
+}
+
+// the kWgrad instance when a gFW partial buffer is given, else the plain one
+template <int kMode>
+int launch_bwd_any(const float* x, const float* mu, const float* R,
+                   const float* geo, const float* FW, const float* coff,
+                   const float* cw, const int* qcol, const int* dcol,
+                   const int* esorted, const int* grp, const float* g_dq,
+                   const float* g_dmu, float* dx, float* dmu_out, float* gRo,
+                   float* gRd, float* ggeo, double* gFWp, int nx, int ny,
+                   int P, int Ktot, const int* koffs, int G, int F, int B,
+                   int nch, float rc, cudaStream_t stream) {
+  if (gFWp != nullptr && B + 1 > kMaxB1) return (int)cudaErrorInvalidValue;
+  auto* fn = gFWp != nullptr ? launch_bwd<kMode, true>
+                             : launch_bwd<kMode, false>;
+  return fn(x, mu, R, geo, FW, coff, cw, qcol, dcol, esorted, grp, g_dq,
+            g_dmu, dx, dmu_out, gRo, gRd, ggeo, gFWp, nx, ny, P, Ktot, koffs,
+            G, F, B, nch, rc, stream);
 }
 
 }  // namespace
@@ -630,12 +724,14 @@ extern "C" int spk_msg_bwd(const float* x, const float* mu, const float* R,
                            const int* qcol, const int* dcol,
                            const int* esorted, const int* grp,
                            const float* g_dq, const float* g_dmu, float* dx,
-                           float* dmu_out, float* gRo, float* gRd, int nx,
-                           int ny, int P, int Ktot, const int* koffs, int G,
-                           int F, int B, float rc, cudaStream_t stream) {
-  return launch_bwd<false>(x, mu, R, nullptr, FW, coff, cw, qcol, dcol,
-                           esorted, grp, g_dq, g_dmu, dx, dmu_out, gRo, gRd,
-                           nx, ny, P, Ktot, koffs, G, F, B, 0, rc, stream);
+                           float* dmu_out, float* gRo, float* gRd,
+                           double* gFWp, int nx, int ny, int P, int Ktot,
+                           const int* koffs, int G, int F, int B, float rc,
+                           cudaStream_t stream) {
+  return launch_bwd_any<kFused>(x, mu, R, nullptr, FW, coff, cw, qcol, dcol,
+                                esorted, grp, g_dq, g_dmu, dx, dmu_out, gRo,
+                                gRd, nullptr, gFWp, nx, ny, P, Ktot, koffs, G,
+                                F, B, 0, rc, stream);
 }
 
 extern "C" int spk_msg_bwd_geores(const float* x, const float* mu,
@@ -645,10 +741,27 @@ extern "C" int spk_msg_bwd_geores(const float* x, const float* mu,
                                   const int* grp, const float* g_dq,
                                   const float* g_dmu, float* dx,
                                   float* dmu_out, float* gRo, float* gRd,
-                                  int nx, int ny, int P, int Ktot,
-                                  const int* koffs, int G, int F, int B,
-                                  int nch, float rc, cudaStream_t stream) {
-  return launch_bwd<true>(x, mu, nullptr, geo, FW, nullptr, cw, qcol, dcol,
-                          esorted, grp, g_dq, g_dmu, dx, dmu_out, gRo, gRd,
-                          nx, ny, P, Ktot, koffs, G, F, B, nch, rc, stream);
+                                  double* gFWp, int nx, int ny, int P,
+                                  int Ktot, const int* koffs, int G, int F,
+                                  int B, int nch, float rc,
+                                  cudaStream_t stream) {
+  return launch_bwd_any<kGeoRes>(x, mu, nullptr, geo, FW, nullptr, cw, qcol,
+                                 dcol, esorted, grp, g_dq, g_dmu, dx, dmu_out,
+                                 gRo, gRd, nullptr, gFWp, nx, ny, P, Ktot,
+                                 koffs, G, F, B, nch, rc, stream);
+}
+
+extern "C" int spk_msg_bwd_src(const float* x, const float* mu,
+                               const float* geo, const float* FW,
+                               const int* qcol, const int* dcol,
+                               const int* esorted, const int* grp,
+                               const float* g_dq, const float* g_dmu,
+                               float* dx, float* dmu_out, float* ggeo,
+                               double* gFWp, int nx, int ny, int P, int Ktot,
+                               const int* koffs, int G, int F, int B, int nch,
+                               cudaStream_t stream) {
+  return launch_bwd_any<kSrc>(x, mu, nullptr, geo, FW, nullptr, nullptr,
+                              qcol, dcol, esorted, grp, g_dq, g_dmu, dx,
+                              dmu_out, nullptr, nullptr, ggeo, gFWp, nx, ny,
+                              P, Ktot, koffs, G, F, B, nch, 0.f, stream);
 }

@@ -8,8 +8,7 @@ original atom order through ``cell_rank``.  A rebuild on the device
 re-bins the atoms, so after one the whole sorted-space state (order,
 rank, Z, idx_m, atom mask, qcol/dcol, offsets) is the neighbor list's new
 state, exactly as after a host build.  The potential's parameters are
-frozen: MD differentiates with respect to positions only, and the CUDA
-kernels have no weight cotangents.
+frozen: MD differentiates with respect to positions only.
 """
 from __future__ import annotations
 

@@ -1,3 +1,6 @@
 from .base import MLP, Dense
+from .cutoff import CosineCutoff, MollifierCutoff, SwitchFunction
+from .radial import BesselRBF, GaussianRBF, GaussianRBFCentered
 
-__all__ = ["Dense", "MLP"]
+__all__ = ["BesselRBF", "CosineCutoff", "Dense", "GaussianRBF",
+           "GaussianRBFCentered", "MLP", "MollifierCutoff", "SwitchFunction"]

@@ -33,15 +33,16 @@ _F = ctypes.c_float
 #: argument types of each C entry point (pointers, ints, floats, stream)
 SIGNATURES = {
     "spk_msg_fwd": [_P] * 8 + [_P, _P] + [_I] * 4 + [_P] + [_I, _I, _F, _P],
-    "spk_msg_bwd": [_P] * 12 + [_P] * 4 + [_I] * 4 + [_P] + [_I] * 3
+    "spk_msg_bwd": [_P] * 12 + [_P] * 5 + [_I] * 4 + [_P] + [_I] * 3
                    + [_F, _P],
     "spk_geo_fwd": [_P] * 6 + [_I] * 4 + [_P] + [_I] * 3 + [_F, _P],
     "spk_geo_bwd": [_P] * 8 + [_I] * 4 + [_P] + [_I, _F, _P],
     "spk_cf_fwd": [_P] * 11 + [_I] * 4 + [_P] + [_I, _I, _P],
     "spk_cf_bwd": [_P] * 13 + [_I] * 4 + [_P] + [_I, _I, _P],
     "spk_msg_fwd_geo": [_P] * 8 + [_I] * 4 + [_P] + [_I] * 3 + [_P],
-    "spk_msg_bwd_geores": [_P] * 15 + [_I] * 4 + [_P] + [_I] * 4
+    "spk_msg_bwd_geores": [_P] * 16 + [_I] * 4 + [_P] + [_I] * 4
                           + [_F, _P],
+    "spk_msg_bwd_src": [_P] * 14 + [_I] * 4 + [_P] + [_I] * 4 + [_P],
     "spk_mix_fwd": [_P] * 9 + [_P, _P] + [_I, _I, _F, _I, _P],
     "spk_mix_bwd": [_P] * 14 + [_P, _P] + [_I, _I, _F, _I, _P],
     "spk_gather_fwd": [_P] * 3 + [_I] * 4 + [_P] + [_I, _P],

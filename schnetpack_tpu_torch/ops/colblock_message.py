@@ -1,26 +1,34 @@
-"""PaiNN column message: CUDA kernels K1/K2 and K6/K7 and their twins.
+"""PaiNN column message: CUDA kernels K1/K2, K6/K7 and K15 and their twins.
 
-Two forms of the message, as in ``schnetpack_tpu/ops/colblock_pallas.py``:
+Three forms of the message, as in ``schnetpack_tpu/ops/colblock_pallas.py``:
 
 * FUSE="full" (``painn_message_columns_full_fused_pallas``): the per-edge
   geometry is recomputed from the positions inside both the forward
   kernel (K1, ``csrc/colblock_message.cu::msg_fwd_kernel<false>``) and the
-  backward kernel (K2, ``msg_bwd_kernel<false>``), and the position
+  backward kernel (K2, ``msg_bwd_kernel<kFused>``), and the position
   cotangent comes straight out of K2.  No per-edge tensor exists in
   device memory.
 * FUSE="hybrid" (``painn_message_columns_fm_geores_pallas``): the forward
   (K6, ``msg_fwd_kernel<true>``) reads the packed geo tensor that K5
   (``colblock_geo.py``) computes once per step, and the geo-resident
-  backward (K7, ``msg_bwd_kernel<true>``) derives the geometry chain from
+  backward (K7, ``msg_bwd_kernel<kGeoRes>``) derives the geometry chain from
   the stored channels and emits dR without reading the positions.
+* any other radial basis or cutoff (``painn_message_columns_fm_pallas``,
+  row 9): the forward (K6) reads a geo [nx, ny, B+4, Ktot] that autograd
+  differentiates, and the backward (K15, ``msg_bwd_kernel<kSrc>``) returns
+  the per-slot geometry cotangent ggeo instead of dR; autograd carries it
+  through the basis and the cutoff to the positions (and to trainable
+  basis parameters).
 
-In both the geometry has no second autograd path, so forces are counted
-once.  The full op launches the kernels on CUDA tensors (or raises) and
-runs the plain twin, the gather / per-edge math / fold composition of
-``ops/colblock.py``, under ordinary autograd on CPU tensors.  The hybrid
-op is one ``torch.autograd.Function`` on both devices: kernels on CUDA,
-twins on the CPU, so the CPU tests run its wiring (geo detached, dR only
-from the backward).
+In the first two the geometry has no second autograd path, so forces are
+counted once.  The full op launches the kernels on CUDA tensors (or
+raises) and runs the plain twin, the gather / per-edge math / fold
+composition of ``ops/colblock.py``, under ordinary autograd on CPU
+tensors.  The hybrid and row-9 ops are each one ``torch.autograd.Function``
+on both devices: kernels on CUDA, twins on the CPU, so the CPU tests run
+their wiring.  Every backward kernel has a ``wgrad`` instance that also
+returns the filter-weight cotangent gFW [B+1, 3F]; the ops launch it when
+``FW_aug`` requires grad.
 """
 from __future__ import annotations
 
@@ -35,8 +43,9 @@ from .colblock import (
 
 #: kernel launches since the last reset (the main path adds one per call)
 LAUNCHES = {"msg_fwd": 0, "msg_bwd": 0, "msg_fwd_geo": 0,
-            "msg_bwd_geores": 0}
+            "msg_bwd_geores": 0, "msg_bwd_src": 0}
 _MAX_GROUPS = 8   # row ranges per source column in K2
+_MAX_WGRAD_B1 = 32  # B+1 bound of the wgrad instances' chunk sums
 
 
 def _shapes(x, cw, refs: ColRefs):
@@ -106,16 +115,34 @@ def _bwd_schedule(refs: ColRefs, n_cols: int):
     return refs.cache["bwd"]
 
 
+def _gfw_partials(x, FW_aug, n_blocks: int, wgrad: bool):
+    """The wgrad instances' per-block f64 gFW partials [blocks, B+1, 3F]
+    (None without wgrad)."""
+    if not wgrad:
+        return None
+    if FW_aug.shape[0] > _MAX_WGRAD_B1:
+        raise ValueError(f"the wgrad kernels take B+1 <= {_MAX_WGRAD_B1}, "
+                         f"got {FW_aug.shape[0]}")
+    return x.new_empty((n_blocks, *FW_aug.shape), dtype=torch.float64)
+
+
+def _with_gfw(out: tuple, gFWp):
+    """``out`` and, for a wgrad launch, gFW: the f64 partials summed
+    (deterministic) and rounded to f32."""
+    return out if gFWp is None else (*out, gFWp.sum(0).to(torch.float32))
+
+
 def msg_bwd_kernel(x, mu, R, FW_aug, coff_fm, cw, refs: ColRefs, rc: float,
-                   g_dq, g_dmu):
-    """K2: cotangents (dx, dmu, dR) of K1's outputs for (g_dq, g_dmu).
+                   g_dq, g_dmu, wgrad: bool = False):
+    """K2: cotangents (dx, dmu, dR) of K1's outputs for (g_dq, g_dmu), and
+    with ``wgrad`` also gFW [B+1, 3F].
 
     Blocks own source-row ranges (``_bwd_schedule``), so dx, dmu and the
     own-column position cotangent have one writer per row; the
     destination-side position cotangents come as partials
     [G, 9, nx*ny, 3, P] (one per row range and bucket) that are summed
     here, as ``colblock_pallas.py:1494-1497`` sums them outside the TPU
-    kernel."""
+    kernel, and so are the blocks' gFW partials."""
     _check(x, mu, R, FW_aug, coff_fm, cw, refs)
     nx, ny, Ktot, Ap, F, B = _shapes(x, cw, refs)
     _build.check(g_dq, "g_dq", (Ap, F))
@@ -125,15 +152,16 @@ def msg_bwd_kernel(x, mu, R, FW_aug, coff_fm, cw, refs: ColRefs, rc: float,
     dmu = torch.empty_like(mu)
     gRo = x.new_empty((nx * ny, 3, refs.P))
     gRd = x.new_empty((G, 9, nx * ny, 3, refs.P))
+    gFWp = _gfw_partials(x, FW_aug, nx * ny * G, wgrad)
     p = _build.ptr
     _build.launch("spk_msg_bwd", p(x), p(mu), p(R), p(FW_aug), p(coff_fm),
                   p(cw), p(refs.qcol), p(refs.dcol), p(esorted), p(grp),
-                  p(g_dq), p(g_dmu), p(dx), p(dmu), p(gRo), p(gRd), nx, ny,
-                  refs.P, Ktot, _build.int_array(refs.koffs), G, F, B,
-                  float(rc))
+                  p(g_dq), p(g_dmu), p(dx), p(dmu), p(gRo), p(gRd),
+                  gFWp.data_ptr() if wgrad else None, nx, ny, refs.P, Ktot,
+                  _build.int_array(refs.koffs), G, F, B, float(rc))
     LAUNCHES["msg_bwd"] += 1
     dR = (gRo + gRd.sum((0, 1))).transpose(1, 2).reshape(Ap, 3)
-    return dx, dmu, dR
+    return _with_gfw((dx, dmu, dR), gFWp)
 
 
 def msg_fwd_plain(x, mu, R, FW_aug, coff_fm, cw, refs: ColRefs, rc: float):
@@ -144,15 +172,17 @@ def msg_fwd_plain(x, mu, R, FW_aug, coff_fm, cw, refs: ColRefs, rc: float):
 
 def msg_bwd_plain(x, mu, R, FW_aug, coff_fm, cw, refs: ColRefs, rc: float,
                   g_dq, g_dmu):
-    """Plain twin of K2: the VJP of ``msg_fwd_plain`` w.r.t. (x, mu, R)."""
+    """Plain twin of K2: the VJP of ``msg_fwd_plain`` w.r.t. (x, mu, R,
+    FW_aug), i.e. (dx, dmu, dR, gFW)."""
     with torch.enable_grad():
-        ins = [t.detach().requires_grad_(True) for t in (x, mu, R)]
-        out = msg_fwd_plain(*ins, FW_aug.detach(), coff_fm, cw, refs, rc)
+        ins = [t.detach().requires_grad_(True) for t in (x, mu, R, FW_aug)]
+        out = msg_fwd_plain(*ins, coff_fm, cw, refs, rc)
         return torch.autograd.grad(out, ins, (g_dq, g_dmu))
 
 
 class PaiNNMessageFullFused(torch.autograd.Function):
-    """K1 forward, K2 backward (no filter-weight cotangent)."""
+    """K1 forward, K2 backward (its wgrad instance when FW_aug needs a
+    gradient)."""
 
     @staticmethod
     def forward(ctx, x, mu, R, FW_aug, coff_fm, cw, refs, rc):
@@ -163,10 +193,12 @@ class PaiNNMessageFullFused(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_dq, g_dmu):
         x, mu, R, FW_aug, coff_fm, cw = ctx.saved_tensors
-        dx, dmu, dR = msg_bwd_kernel(x, mu, R, FW_aug, coff_fm, cw, ctx.refs,
-                                     ctx.rc, g_dq.contiguous(),
-                                     g_dmu.contiguous())
-        return dx, dmu, dR, None, None, None, None, None
+        wgrad = ctx.needs_input_grad[3]
+        dx, dmu, dR, *gFW = msg_bwd_kernel(
+            x, mu, R, FW_aug, coff_fm, cw, ctx.refs, ctx.rc,
+            g_dq.contiguous(), g_dmu.contiguous(), wgrad)
+        return (dx, dmu, dR, gFW[0] if wgrad else None, None, None, None,
+                None)
 
 
 def painn_message_columns_full_fused(x, mu, R, FW_aug, coff_fm, cw,
@@ -177,10 +209,6 @@ def painn_message_columns_full_fused(x, mu, R, FW_aug, coff_fm, cw,
     """
     if not x.is_cuda:
         return msg_fwd_plain(x, mu, R, FW_aug, coff_fm, cw, refs, rc)
-    if FW_aug.requires_grad:
-        raise NotImplementedError(
-            "the CUDA message backward has no filter-weight cotangent yet; "
-            "freeze the parameters (requires_grad_(False)) for MD")
     return PaiNNMessageFullFused.apply(x, mu, R, FW_aug, coff_fm, cw, refs,
                                        float(rc))
 
@@ -208,10 +236,11 @@ def msg_fwd_geo_kernel(x, mu, geo, FW_aug, refs: ColRefs):
 
 
 def msg_bwd_geores_kernel(x, mu, geo, FW_aug, cw, refs: ColRefs, rc: float,
-                          g_dq, g_dmu):
+                          g_dq, g_dmu, wgrad: bool = False):
     """K7: cotangents (dx, dmu, dR) of K6's outputs for (g_dq, g_dmu),
     the geometry chain taken from the stored geo [nx, ny, B+5, Ktot]; no
-    positions.  Same schedule and partial sums as K2."""
+    positions.  Same schedule and partial sums as K2, and with ``wgrad``
+    also gFW [B+1, 3F]."""
     nx, ny, Ktot = refs.qcol.shape
     B = cw.shape[0]
     _check_common(x, mu, FW_aug, refs, B)
@@ -225,15 +254,16 @@ def msg_bwd_geores_kernel(x, mu, geo, FW_aug, cw, refs: ColRefs, rc: float,
     dmu = torch.empty_like(mu)
     gRo = x.new_empty((nx * ny, 3, refs.P))
     gRd = x.new_empty((G, 9, nx * ny, 3, refs.P))
+    gFWp = _gfw_partials(x, FW_aug, nx * ny * G, wgrad)
     p = _build.ptr
     _build.launch("spk_msg_bwd_geores", p(x), p(mu), p(geo), p(FW_aug),
                   p(cw), p(refs.qcol), p(refs.dcol), p(esorted), p(grp),
-                  p(g_dq), p(g_dmu), p(dx), p(dmu), p(gRo), p(gRd), nx, ny,
-                  refs.P, Ktot, _build.int_array(refs.koffs), G, F, B, B + 5,
-                  float(rc))
+                  p(g_dq), p(g_dmu), p(dx), p(dmu), p(gRo), p(gRd),
+                  gFWp.data_ptr() if wgrad else None, nx, ny, refs.P, Ktot,
+                  _build.int_array(refs.koffs), G, F, B, B + 5, float(rc))
     LAUNCHES["msg_bwd_geores"] += 1
     dR = (gRo + gRd.sum((0, 1))).transpose(1, 2).reshape(Ap, 3)
-    return dx, dmu, dR
+    return _with_gfw((dx, dmu, dR), gFWp)
 
 
 def _geo_edge_major(geo, B: int):
@@ -284,8 +314,8 @@ def msg_bwd_geores_plain(x, mu, geo, FW_aug, cw, refs: ColRefs, rc: float,
 
 
 class PaiNNMessageGeoRes(torch.autograd.Function):
-    """K6 forward, K7 backward on CUDA; their twins on the CPU (which also
-    return the filter-weight cotangent)."""
+    """K6 forward, K7 backward (its wgrad instance when FW_aug needs a
+    gradient) on CUDA; their twins on the CPU."""
 
     @staticmethod
     def forward(ctx, x, mu, R, geo, FW_aug, cw, refs, rc):
@@ -299,14 +329,15 @@ class PaiNNMessageGeoRes(torch.autograd.Function):
     def backward(ctx, g_dq, g_dmu):
         x, mu, geo, FW_aug, cw = ctx.saved_tensors
         g_dq, g_dmu = g_dq.contiguous(), g_dmu.contiguous()
+        wgrad = ctx.needs_input_grad[4]
         if x.is_cuda:
-            dx, dmu, dR = msg_bwd_geores_kernel(x, mu, geo, FW_aug, cw,
-                                                ctx.refs, ctx.rc, g_dq, g_dmu)
-            gFW = None
+            dx, dmu, dR, *gFW = msg_bwd_geores_kernel(
+                x, mu, geo, FW_aug, cw, ctx.refs, ctx.rc, g_dq, g_dmu, wgrad)
         else:
-            dx, dmu, dR, gFW = msg_bwd_geores_plain(
+            dx, dmu, dR, *gFW = msg_bwd_geores_plain(
                 x, mu, geo, FW_aug, cw, ctx.refs, ctx.rc, g_dq, g_dmu)
-        return dx, dmu, dR, None, gFW, None, None, None
+        return (dx, dmu, dR, None, gFW[0] if wgrad else None, None, None,
+                None)
 
 
 def painn_message_columns_fm_geores(x, mu, R, geo, FW_aug, coff_fm, cw,
@@ -323,9 +354,79 @@ def painn_message_columns_fm_geores(x, mu, R, geo, FW_aug, coff_fm, cw,
             "geo must be computed under torch.no_grad(): the message "
             "backward returns dR itself, a graph through geo would count "
             "the forces twice")
-    if x.is_cuda and FW_aug.requires_grad:
-        raise NotImplementedError(
-            "the CUDA message backward has no filter-weight cotangent yet; "
-            "freeze the parameters (requires_grad_(False)) for MD")
     return PaiNNMessageGeoRes.apply(x, mu, R, geo, FW_aug, cw, refs,
                                     float(rc))
+
+
+# ---------------------------------------------------- row 9: geo cotangent
+def msg_bwd_src_kernel(x, mu, geo, FW_aug, refs: ColRefs, g_dq, g_dmu,
+                       wgrad: bool = False):
+    """K15: cotangents (dx, dmu, ggeo) of K6's outputs on a geo [nx, ny,
+    B+4, Ktot] = [rbf_aug, dir] for (g_dq, g_dmu), and with ``wgrad`` also
+    gFW [B+1, 3F].  ggeo has the geo's layout and is 0 at padded slots.
+    K2's schedule and per-edge reductions, no geometry chain."""
+    nx, ny, Ktot = refs.qcol.shape
+    B = FW_aug.shape[0] - 1
+    _check_common(x, mu, FW_aug, refs, B)
+    _build.check(geo, "geo", (nx, ny, B + 4, Ktot))
+    Ap, F = x.shape[0], x.shape[1] // 3
+    _build.check(g_dq, "g_dq", (Ap, F))
+    _build.check(g_dmu, "g_dmu", (Ap, 3 * F))
+    esorted, grp, G = _bwd_schedule(refs, nx * ny)
+    dx = torch.empty_like(x)
+    dmu = torch.empty_like(mu)
+    ggeo = torch.zeros_like(geo)
+    gFWp = _gfw_partials(x, FW_aug, nx * ny * G, wgrad)
+    p = _build.ptr
+    _build.launch("spk_msg_bwd_src", p(x), p(mu), p(geo), p(FW_aug),
+                  p(refs.qcol), p(refs.dcol), p(esorted), p(grp), p(g_dq),
+                  p(g_dmu), p(dx), p(dmu), p(ggeo),
+                  gFWp.data_ptr() if wgrad else None, nx, ny, refs.P, Ktot,
+                  _build.int_array(refs.koffs), G, F, B, B + 4)
+    LAUNCHES["msg_bwd_src"] += 1
+    return _with_gfw((dx, dmu, ggeo), gFWp)
+
+
+def msg_bwd_src_plain(x, mu, geo, FW_aug, refs: ColRefs, g_dq, g_dmu):
+    """Plain twin of K15: the VJP of ``msg_fwd_geo_plain`` w.r.t. (x, mu,
+    geo, FW_aug), i.e. (dx, dmu, ggeo, gFW)."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(True) for t in (x, mu, geo, FW_aug)]
+        out = msg_fwd_geo_plain(*ins, refs)
+        return torch.autograd.grad(out, ins, (g_dq, g_dmu))
+
+
+class PaiNNMessageFM(torch.autograd.Function):
+    """K6 forward, K15 backward (its wgrad instance when FW_aug needs a
+    gradient) on CUDA; their twins on the CPU."""
+
+    @staticmethod
+    def forward(ctx, x, mu, geo, FW_aug, refs):
+        ctx.save_for_backward(x, mu, geo, FW_aug)
+        ctx.refs = refs
+        if x.is_cuda:
+            return msg_fwd_geo_kernel(x, mu, geo, FW_aug, refs)
+        return msg_fwd_geo_plain(x, mu, geo, FW_aug, refs)
+
+    @staticmethod
+    def backward(ctx, g_dq, g_dmu):
+        x, mu, geo, FW_aug = ctx.saved_tensors
+        g_dq, g_dmu = g_dq.contiguous(), g_dmu.contiguous()
+        wgrad = ctx.needs_input_grad[3]
+        if x.is_cuda:
+            dx, dmu, ggeo, *gFW = msg_bwd_src_kernel(
+                x, mu, geo, FW_aug, ctx.refs, g_dq, g_dmu, wgrad)
+        else:
+            dx, dmu, ggeo, *gFW = msg_bwd_src_plain(
+                x, mu, geo, FW_aug, ctx.refs, g_dq, g_dmu)
+        return dx, dmu, ggeo, gFW[0] if wgrad else None, None
+
+
+def painn_message_columns_fm(x, mu, geo, FW_aug, refs: ColRefs):
+    """PaiNN message over the column layout on a packed geo [nx, ny, B+4,
+    Ktot] = [phi*fcut, fcut, dir] that may carry a gradient (the JAX
+    package's ``painn_message_columns_fm`` on ``concat_geo`` of its 9-part
+    geo).  The backward returns the geo cotangent, so the forces (and any
+    trainable basis parameter's gradient) flow through the geometry's own
+    autograd graph.  Returns dq [A', F], dmu [A', 3F]."""
+    return PaiNNMessageFM.apply(x, mu, geo.contiguous(), FW_aug, refs)

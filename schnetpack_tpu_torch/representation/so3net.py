@@ -30,13 +30,8 @@ from ..nn.so3 import (
 )
 from ..ops import so3 as so3_ops
 from ..ops.cutoff import cosine_cutoff
+from ..ops.math import safe_norm
 from ..ops.radial import gaussian_rbf_table
-
-
-def safe_norm(x: torch.Tensor, eps: float = 1e-15) -> torch.Tensor:
-    """L2 norm over the last axis with a zero gradient at 0
-    (``schnetpack_tpu/ops/math.py:8-11``)."""
-    return torch.sqrt(torch.clamp((x * x).sum(-1), min=eps))
 
 
 class SO3net(nn.Module):

@@ -28,10 +28,10 @@ from make_port_reference import CUTOFF, JITTER, SEED  # noqa: E402
 OUT = os.path.join(ROOT, "tests", "data", "port_ref_schnet_argon.npz")
 
 
-def write_reference(representation, asset: str, out_path: str) -> None:
-    """Run ``NeuralNetworkPotential(representation)`` with the params in
-    ``asset`` on the jittered bench box; save the reference to
-    ``out_path``."""
+def write_reference(representation, params, out_path: str, **extra) -> None:
+    """Run ``NeuralNetworkPotential(representation)`` with ``params`` (a
+    param tree, or the path of a saved one) on the jittered bench box; save
+    the reference, and the arrays ``extra``, to ``out_path``."""
     import jax
 
     jax.config.update("jax_platforms", "cpu")
@@ -56,7 +56,8 @@ def write_reference(representation, asset: str, out_path: str) -> None:
         representation=representation,
         input_modules=[PairwiseDistances()],
         output_modules=[Atomwise(output_key=P.energy), Forces()])
-    params = load_pytree(asset)
+    if isinstance(params, str):
+        params = load_pytree(params)
     out = jax.jit(pot.apply)(params, batch)
     energy = np.float64(np.asarray(out[P.energy])[0])
     forces = np.asarray(out[P.forces], np.float32)[:len(R)]
@@ -65,7 +66,7 @@ def write_reference(representation, asset: str, out_path: str) -> None:
     np.savez_compressed(out_path, R=R, cell=cell, energy=energy,
                         forces=forces, jitter=np.float64(JITTER),
                         seed=np.int64(SEED), cutoff=np.float64(CUTOFF),
-                        n_pairs=np.int64(n_pairs))
+                        n_pairs=np.int64(n_pairs), **extra)
     print(f"wrote {out_path}: {len(R)} atoms, E={energy:.6f} eV, "
           f"|F|max={np.abs(forces).max():.4f} eV/Ang, {n_pairs} pairs")
 

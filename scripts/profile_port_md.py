@@ -2,7 +2,8 @@
 
 Sets up one MD run of ``chip_smoke.py`` (10,976-atom FCC argon box, the
 trained model of the path: PaiNN-128x3 with the ``full`` or ``hybrid``
-message form, SchNet-128x3 or SO3net-64x3; column neighbor list with a
+message form, SchNet-128x3, SO3net-64x3, or PaiNN-128x3 with a trainable
+Gaussian basis on the row-9 path (``painn_trbf``); column neighbor list with a
 0.6 A skin, 30 K), warms up and retightens the capacities, then traces
 STEPS steps with ``torch.profiler`` and prints, per step: CUDA-event time,
 device-busy time (sum of kernel times), idle share, and device time by
@@ -27,7 +28,8 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--path", default="full",
-                    choices=("full", "hybrid", "schnet", "so3net"))
+                    choices=("full", "hybrid", "schnet", "so3net",
+                             "painn_trbf"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_port_md: no CUDA device")

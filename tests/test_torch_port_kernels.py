@@ -1,4 +1,4 @@
-"""PyTorch port: the CUDA kernels K1-K14 against their plain PyTorch twins,
+"""PyTorch port: the CUDA kernels K1-K15 against their plain PyTorch twins,
 on a card only (skipped without CUDA), and the entry points' default
 device.  No jax import: on a machine
 without jax run ``python -m pytest --noconftest -m gpu
@@ -74,6 +74,73 @@ def test_hybrid_kernels_match_twin(cuda_device, seed):
     for got, want in zip(msg.msg_bwd_geores_kernel(*bargs),
                          msg.msg_bwd_geores_plain(*bargs)):
         torch.testing.assert_close(got, want, rtol=MSG_RTOL, atol=MSG_ATOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", [0, 3])
+def test_row9_kernel_matches_twin(cuda_device, seed):
+    """K15 with and without the filter-weight cotangent, and the row-9 op
+    with FW_aug requiring grad: it launches K6 and K15's wgrad instance,
+    never the twins."""
+    c = message_case(seed=seed)
+    t, refs, cw = torch_message_args(c, cuda_device)
+    geo = geo_op.geo_fwd_kernel(t["Rs"], t["coff_fm"], refs, cw, c["cutoff"],
+                                with_d=False)
+    args = (t["x"], t["mu"], geo, t["FW"], refs, t["g_dq"], t["g_dmu"])
+    want = msg.msg_bwd_src_plain(*args)
+    got = msg.msg_bwd_src_kernel(*args)
+    assert len(got) == 3
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=MSG_RTOL, atol=MSG_ATOL)
+    for g, w in zip(msg.msg_bwd_src_kernel(*args, wgrad=True), want):
+        torch.testing.assert_close(g, w, rtol=MSG_RTOL, atol=MSG_ATOL)
+    before = dict(msg.LAUNCHES)
+    ins = [a.clone().requires_grad_(True)
+           for a in (t["x"], t["mu"], geo, t["FW"])]
+    dq, dmu = msg.painn_message_columns_fm(*ins, refs)
+    grads = torch.autograd.grad((dq, dmu), ins, (t["g_dq"], t["g_dmu"]))
+    for g, w in zip(grads, want):
+        torch.testing.assert_close(g, w, rtol=MSG_RTOL, atol=MSG_ATOL)
+    assert {k: msg.LAUNCHES[k] - before[k] for k in before} == {
+        "msg_fwd": 0, "msg_bwd": 0, "msg_fwd_geo": 1, "msg_bwd_geores": 0,
+        "msg_bwd_src": 1}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", [0, 3])
+def test_wgrad_instances_of_fused_backwards_match_twin(cuda_device, seed):
+    """K2's and K7's wgrad instances (dx, dmu, dR, gFW), and the message ops
+    with FW_aug requiring grad, which launch them."""
+    c = message_case(seed=seed)
+    t, refs, cw = torch_message_args(c, cuda_device)
+    full = (t["x"], t["mu"], t["Rs"], t["FW"], t["coff_fm"], cw, refs,
+            c["cutoff"])
+    geo = geo_op.geo_fwd_kernel(t["Rs"], t["coff_fm"], refs, cw, c["cutoff"])
+    hyb = (t["x"], t["mu"], geo, t["FW"], cw, refs, c["cutoff"])
+    cots = (t["g_dq"], t["g_dmu"])
+    for kern, plain, args in [
+            (msg.msg_bwd_kernel, msg.msg_bwd_plain, full),
+            (msg.msg_bwd_geores_kernel, msg.msg_bwd_geores_plain, hyb)]:
+        got = kern(*args, *cots, wgrad=True)
+        want = plain(*args, *cots)
+        assert len(got) == len(want) == 4
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=MSG_RTOL, atol=MSG_ATOL)
+    before = dict(msg.LAUNCHES)
+    FW = t["FW"].clone().requires_grad_(True)
+    for dq, dmu in [
+            msg.painn_message_columns_full_fused(
+                t["x"], t["mu"], t["Rs"], FW, t["coff_fm"], cw, refs,
+                c["cutoff"]),
+            msg.painn_message_columns_fm_geores(
+                t["x"], t["mu"], t["Rs"], geo, FW, t["coff_fm"], cw, refs,
+                c["cutoff"])]:
+        (gFW,) = torch.autograd.grad((dq, dmu), FW, cots)
+        torch.testing.assert_close(gFW, want[3], rtol=MSG_RTOL,
+                                   atol=MSG_ATOL)
+    assert {k: msg.LAUNCHES[k] - before[k] for k in before} == {
+        "msg_fwd": 1, "msg_bwd": 1, "msg_fwd_geo": 1, "msg_bwd_geores": 1,
+        "msg_bwd_src": 0}
 
 
 @pytest.mark.gpu
