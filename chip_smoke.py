@@ -7,7 +7,7 @@ Phases (any failure exits non-zero before the last line is printed):
 1. require CUDA; print the card's name and power limit (nvidia-smi);
 2. build the CUDA kernels from ``schnetpack_tpu_torch/csrc`` (one nvcc per
    source, started together; sm_90a);
-3. hold each kernel K1-K15 against its plain PyTorch twin on the card at
+3. hold each kernel K1-K19 against its plain PyTorch twin on the card at
    the shapes of the MD runs below (10,976-atom argon box in the layout the
    port's neighbor list builds, F=128, B=20, f32, random features and
    cotangents from --seed; K6/K7 on the geo that K5 computes there, K15 on
@@ -16,10 +16,14 @@ Phases (any failure exits non-zero before the last line is printed):
    positions' width D = 3 and SO3net's D = 9 x 64; K2, K7 and K15 also in
    their wgrad instances, which return the filter-weight cotangent gFW, a
    sum over all ~200k edges: those are held to the twin evaluated in
-   float64, since the f32 twin's own sum is off by ~1e-5 there),
+   float64, since the f32 twin's own sum is off by ~1e-5 there; K16-K19
+   on the 27-cell atom layout of the painn_cell run, K16/K17 at D = 3,
+   K18/K19 on the basis and directions of the box's own geometry, K19 also
+   in its wgrad instance, and K3/K4 again at that layout's 16,000 rows),
    tolerance rtol 1e-4 / atol 1e-5 elementwise; time both,
    the one PyTorch call that computes the same function where there is
-   one (K11-K14: ``index_select`` and the mask, ``index_add_``), and work
+   one (K11-K14, K16, K17: ``index_select`` and the mask, ``index_add_``),
+   and work
    out each kernel's bound from the bytes of its inputs and outputs at
    3.35 TB/s and its FP32 operations at 67 TFLOP/s (H100 SXM data sheet);
 4. hold the port's energy and forces on the card to the JAX references
@@ -30,7 +34,8 @@ Phases (any failure exits non-zero before the last line is printed):
    to ``tests/data/port_ref_so3net_argon.npz``, and PaiNN on the row-9
    path with a trainable Gaussian basis (the fixture's centers and widths)
    and with a Bessel basis to ``tests/data/port_ref_painn_{trbf,bessel}_
-   argon.npz``;
+   argon.npz``, and PaiNN on the 27-cell atom layout (``painn_cell``) to
+   ``port_ref_painn_argon.npz``, printing its force rms against ``full``;
 5. the neighbor list's device rebuild at full size: jitter the lattice by
    a seeded uniform +-0.25 A (the 0.3 A skin check fires, the capacities
    hold), rebuild once on the device and once on the host, and require
@@ -45,14 +50,18 @@ Phases (any failure exits non-zero before the last line is printed):
    Maxwell-Boltzmann momenta at 30 K, the column neighbor list (5 A
    cutoff, 0.6 A skin): a warm-up, a retighten of the capacities, then
    --steps timed steps, on PaiNN's hybrid path, PaiNN's full path,
-   SchNet's path, SO3net's path and PaiNN's row-9 path (``painn_trbf``);
+   SchNet's path, SO3net's path and PaiNN's row-9 path (``painn_trbf``),
+   and PaiNN on the 27-cell atom layout (``painn_cell``, the same cutoff
+   and skin);
    check finite positions, 0 < T < 300 K, total-energy drift <= 1e-4
    eV/atom, the launches per step of every kernel (hybrid: K5 1,
    K6/K7/K3/K4 3; full: K1/K2/K3/K4 3; SchNet: K5 raw 1, K9/K10 3, K8 1;
    SO3net: K11 4, K12 3, K13 4, K14 4; painn_trbf: K11-K14 1 each,
-   K6/K15/K3/K4 3; every other kernel 0),
-   and that every rebuild after the retighten went through the device
-   unless it overflowed;
+   K6/K15/K3/K4 3; painn_cell: K16/K17 1, K18/K19/K3/K4 3; every other
+   kernel 0), that on the column paths every rebuild after the retighten
+   went through the device unless it overflowed, and that painn_cell, whose
+   layout has no device rebuild, rebuilt on the host only (printing the
+   count and wall time of those builds and the ms/step without them);
 7. print the kernel table and the card as JSON, then the result line.
 """
 import argparse
@@ -80,7 +89,8 @@ REFERENCE = {
     for path, name in [("hybrid", "painn"), ("full", "painn"),
                        ("schnet", "schnet"), ("so3net", "so3net"),
                        ("painn_trbf", "painn_trbf"),
-                       ("painn_bessel", "painn_bessel")]
+                       ("painn_bessel", "painn_bessel"),
+                       ("painn_cell", "painn")]
 }
 CUTOFF, SKIN = 5.0, 0.6          # Angstrom
 RTOL, ATOL = 1e-4, 1e-5          # kernel vs twin, elementwise
@@ -105,9 +115,12 @@ PER_STEP = {
     "painn_trbf": {"gather_fwd": 1, "gather_bwd": 1, "expand_fwd": 1,
                    "fold_fwd": 1, "msg_fwd_geo": 3, "msg_bwd_src": 3,
                    "mix_fwd": 3, "mix_bwd": 3},
+    "painn_cell": {"cell_gather_fwd": 1, "cell_gather_bwd": 1,
+                   "cell_msg_fwd": 3, "cell_msg_bwd": 3, "mix_fwd": 3,
+                   "mix_bwd": 3},
 }
 #: the MD paths of phase 6
-PATHS = ("hybrid", "full", "schnet", "so3net", "painn_trbf")
+PATHS = ("hybrid", "full", "schnet", "so3net", "painn_trbf", "painn_cell")
 
 
 def fcc_box(n_target: int, a: float = 5.26):
@@ -167,7 +180,8 @@ def potential(path="full"):
     ``PairwiseDistances`` input module (``path`` "so3net"), or PaiNN-128x3
     on the row-9 path with ``PairwiseDistances``: with the trbf fixture's
     trainable Gaussian basis ("painn_trbf") or a Bessel basis
-    ("painn_bessel")."""
+    ("painn_bessel"), or PaiNN-128x3 with ``PairwiseDistances`` for the
+    27-cell atom layout ("painn_cell")."""
     from schnetpack_tpu_torch.atomistic import (
         Atomwise, Forces, PairwiseDistances,
     )
@@ -193,6 +207,10 @@ def potential(path="full"):
                     cutoff=CUTOFF, radial_basis=radial)
         inputs = [PairwiseDistances()]
         radial_from = REFERENCE[path] if trbf else None
+    elif path == "painn_cell":
+        rep = PaiNN(n_atom_basis=128, n_interactions=3, n_rbf=20,
+                    cutoff=CUTOFF)
+        inputs = [PairwiseDistances()]
     else:
         rep = PaiNN(n_atom_basis=128, n_interactions=3, n_rbf=20,
                     cutoff=CUTOFF, fuse=path)
@@ -205,19 +223,22 @@ def potential(path="full"):
 def layout_str(state):
     from schnetpack_tpu_torch import properties as P
 
+    if P.cell_qidx in state:
+        return f"dims={tuple(state[P.cell_qidx].shape)}"
     nx, ny, Ktot = state[P.cell_qcol].shape
     return (f"dims=({nx}, {ny}, {state['cell_order'].shape[0] // (nx * ny)})"
             f" Ktot={Ktot}")
 
 
-def calculator(pot, params, jitter=0.25, headroom=1.0 / 12.0):
+def calculator(pot, params, jitter=0.25, headroom=1.0 / 12.0,
+               layout="column"):
     from schnetpack_tpu_torch.md import CellBlockNeighborListMD
     from schnetpack_tpu_torch.md.calculators import SchNetPackCalculator
     from schnetpack_tpu_torch.units import _parse_unit, md_units
 
     conv = _parse_unit("Ang") * md_units().length
     nbl = CellBlockNeighborListMD(CUTOFF * conv, skin=SKIN * conv,
-                                  layout="column", jitter_fraction=jitter,
+                                  layout=layout, jitter_fraction=jitter,
                                   bucket_headroom=headroom)
     return SchNetPackCalculator(pot, params, cutoff=CUTOFF, cutoff_shell=SKIN,
                                 neighbor_list=nbl)
@@ -532,17 +553,111 @@ def select_kernel_phase(calc, system, seed, dev):
     return rows
 
 
+def cell_kernel_phase(calc, system, seed, dev):
+    """K16-K19 against their twins at the painn_cell run's shapes (the
+    27-cell layout of the bench box): K16/K17 at D = 3 on the positions and
+    a random cotangent, K18/K19 on the rbf_aug and directions of the box's
+    own geometry (the cell path's plain torch, zero at padded slots) with
+    random features and cotangents from ``seed`` and the trained PaiNN's
+    first filter weights; and K3/K4 at this layout's row count (16,000
+    slots against the column layout's 12,800), built as in
+    ``kernel_phase`` with the first mixing block's weights; returns rows.
+    Operations per real edge or row as in ``kernel_phase``; K17 is one add
+    per real edge and coordinate.  The library calls of K16/K17 take the
+    source rows decoded once on the refs, while the kernels decode
+    ``qidx`` themselves."""
+    from schnetpack_tpu_torch import properties as P
+    from schnetpack_tpu_torch.atomistic.distances import cell_refs
+    from schnetpack_tpu_torch.ops import cellblock_gather as cg
+    from schnetpack_tpu_torch.ops import painn_fused as pf
+    from schnetpack_tpu_torch.ops import painn_mixing as mix
+
+    st = calc.init_state(system)
+    inputs = calc.model_inputs(system, st)
+    R = inputs[P.R].contiguous()
+    refs = cell_refs(inputs)
+    rep = calc.model.representation
+    with torch.no_grad():
+        rbf, dirs = rep._cell_geometry(calc.model.input_modules[0](inputs))
+    rbf, dirs = rbf.contiguous(), dirs.contiguous()
+    print(f"layout: {layout_str(st)} A'={R.shape[0]}", flush=True)
+    F, Ap, K = rep.n_atom_basis, R.shape[0], refs.dims[4]
+    B = rbf.shape[-1] - 1
+    ne = int((refs.qidx >= 0).sum())
+    g = torch.Generator().manual_seed(seed + 30)
+
+    def rnd(*shape, scale=0.3):
+        return (torch.randn(shape, generator=g) * scale).to(dev)
+
+    xmu, g3 = rnd(Ap, 6 * F), rnd(Ap, K, 3, scale=1.0)
+    g_dq, g_dmu = rnd(Ap, F, scale=1.0), rnd(Ap, 3 * F, scale=1.0)
+    margs = (xmu, rbf, dirs, rep.FW_aug[0].contiguous(), refs)
+    j, valid = cg.decode_cell_j(refs)
+    jf, jm = j.reshape(-1), valid.reshape(-1, 1).float()
+    jpad = torch.where(valid, j, Ap).reshape(-1)
+    msg_fwd = ne * (6 * F * (B + 1) + 16 * F)
+    gfw = ne * 6 * F * (B + 1)
+    m0 = rep.mixing[0]
+    xargs = (rnd(Ap, F, scale=1.0), rnd(Ap, 3 * F), g_dq * 0.3, g_dmu * 0.3,
+             m0.kmix, m0.k0, m0.b0, m0.k1, m0.b1, m0.epsilon, m0.activation)
+    cases = [
+        case("mix_fwd", "painn_mixing.cu", "painn_mixing.py:73",
+             lambda: mix.mix_fwd_kernel(*xargs),
+             lambda: mix.painn_mixing_plain(*xargs), xargs[:9],
+             22 * F * F * Ap),
+        case("mix_bwd", "painn_mixing.cu", "painn_mixing.py:83",
+             lambda: mix.mix_bwd_kernel(*xargs, g_dq, g_dmu),
+             lambda: mix.painn_mixing_bwd_plain(*xargs, g_dq, g_dmu),
+             (xargs[:9], g_dq, g_dmu), 44 * F * F * Ap),
+        case("cell_gather_fwd", "cellblock_gather.cu",
+             "cellblock_pallas.py:88",
+             lambda: (cg.cell_gather_fwd_kernel(R, refs),),
+             lambda: (cg.cell_gather_plain(R, refs),), (R, refs.qidx), 0,
+             lambda: R.index_select(0, jf).mul_(jm)),
+        case("cell_gather_bwd", "cellblock_gather.cu",
+             "cellblock_pallas.py:143",
+             lambda: (cg.cell_gather_bwd_kernel(g3, refs),),
+             lambda: (cg.cell_gather_bwd_plain(g3, refs),),
+             (4 * ne * 3, refs.qidx), ne * 3,
+             lambda: R.new_zeros((Ap + 1, 3)).index_add_(
+                 0, jpad, g3.reshape(-1, 3))),
+        case("cell_msg_fwd", "painn_fused.cu", "painn_fused.py:116",
+             lambda: pf.cell_msg_fwd_kernel(*margs),
+             lambda: pf.cell_msg_fwd_plain(*margs),
+             (margs[:4], refs.qidx), msg_fwd),
+        case("cell_msg_bwd", "painn_fused.cu", "painn_fused.py:185",
+             lambda: pf.cell_msg_bwd_kernel(*margs, g_dq, g_dmu),
+             lambda: pf.cell_msg_bwd_plain(*margs, g_dq, g_dmu)[:3],
+             (margs[:4], refs.qidx, g_dq, g_dmu), 2 * msg_fwd,
+             wgrad={"kern": lambda: pf.cell_msg_bwd_kernel(
+                        *margs, g_dq, g_dmu, wgrad=True),
+                    "plain": lambda: pf.cell_msg_bwd_plain(*margs, g_dq,
+                                                           g_dmu),
+                    "ref": lambda: in_f64(pf.cell_msg_bwd_plain, *margs,
+                                          g_dq, g_dmu),
+                    "flops": 2 * msg_fwd + gfw}),
+    ]
+    for c in cases[:2]:
+        c["tag"] = f" (27-cell, A' = {Ap})"
+    return check_kernels(cases)
+
+
+def layout_of(path):
+    """The neighbor-list layout of an MD path."""
+    return "atom" if path == "painn_cell" else "column"
+
+
 def reference_phase(dev):
-    """Both PaiNN message forms, SchNet, SO3net and PaiNN's row-9 path with
-    a trainable Gaussian and a Bessel basis against their JAX references;
-    forces per path."""
+    """Both PaiNN message forms, SchNet, SO3net, PaiNN's row-9 path with a
+    trainable Gaussian and a Bessel basis and PaiNN on the 27-cell layout
+    against their JAX references; forces per path."""
     from schnetpack_tpu_torch.md import load_molecules
 
     out = {}
     for path in REFERENCE:
         ref = np.load(REFERENCE[path])
         pot, params = potential(path)
-        calc = calculator(pot, params)
+        calc = calculator(pot, params, layout=layout_of(path))
         system = load_molecules([molecule(ref["R"].astype(np.float64),
                                           ref["cell"])], device=dev)
         system = calc.calculate(system, calc.init_state(system))
@@ -557,9 +672,10 @@ def reference_phase(dev):
         assert rms <= FORCE_RMS_TOL, f"{path}: force rms {rms}"
         assert dE <= ENERGY_RTOL, f"{path}: energy rel err {dE}"
         out[path] = F
-    d = out["hybrid"] - out["full"]
-    print(f"hybrid vs full forces: rms {np.sqrt(np.mean(d ** 2)):.3e}, max "
-          f"{np.abs(d).max():.3e} eV/Ang", flush=True)
+    for other in ("hybrid", "painn_cell"):
+        d = out[other] - out["full"]
+        print(f"{other} vs full forces: rms {np.sqrt(np.mean(d ** 2)):.3e}, "
+              f"max {np.abs(d).max():.3e} eV/Ang", flush=True)
 
 
 def edge_keys(state, A, inv_cell):
@@ -634,14 +750,16 @@ def rebuild_phase(seed, dev):
 
 def md_phase(path, pos, cell, steps, seed, dev, launches):
     """NVE run on one path of ``PATHS``; returns (launch counts,
-    ms/step)."""
+    ms/step).  The ms/step is the CUDA-event time of the run over the
+    steps, host rebuilds included; for painn_cell, whose rebuilds all run
+    on the host, it is also printed with their wall time subtracted."""
     from schnetpack_tpu_torch.md import (
         MaxwellBoltzmannInit, Simulator, VelocityVerlet, load_molecules,
     )
     from schnetpack_tpu_torch.units import md_units
 
     pot, params = potential(path)
-    calc = calculator(pot, params)
+    calc = calculator(pot, params, layout=layout_of(path))
     nbl = calc.nbl
     system = load_molecules([molecule(pos, cell)], device=dev)
     system = MaxwellBoltzmannInit(30.0).initialize_system(
@@ -654,6 +772,7 @@ def md_phase(path, pos, cell, steps, seed, dev, launches):
     print(f"md ({path}) after retighten: {layout_str(sim.calc_state)}",
           flush=True)
     builds0 = (nbl.n_builds, nbl.n_device_builds, nbl.n_device_overflows)
+    build_s0 = nbl.build_seconds
     for counts in launches:
         for k in counts:
             counts[k] = 0
@@ -670,6 +789,7 @@ def md_phase(path, pos, cell, steps, seed, dev, launches):
     host, device, overflows = (
         a - b for a, b in zip((nbl.n_builds, nbl.n_device_builds,
                                nbl.n_device_overflows), builds0))
+    host_s = nbl.build_seconds - build_s0
 
     s = sim.system
     A = s.total_atoms
@@ -685,16 +805,21 @@ def md_phase(path, pos, cell, steps, seed, dev, launches):
           f"{ms_step:.3f}, wall {1e3 * wall / steps:.3f} ms/step, "
           f"{A / (ms_step * 1e-3):.4g} atom-steps/s, T_end={T:.2f} K, "
           f"max |E_tot - E_tot(0)| = {drift:.3e} eV/atom, rebuilds: "
-          f"{device} on the device, {host} on the host, {overflows} "
-          f"overflows", flush=True)
+          f"{device} on the device, {host} on the host ({host_s:.3f} s "
+          f"wall), {overflows} overflows; ms/step without the host builds "
+          f"{ms_step - 1e3 * host_s / steps:.3f}", flush=True)
     assert np.isfinite(R).all(), "non-finite positions"
     assert 0.0 < T < 300.0, f"temperature {T} K"
     assert drift <= DRIFT_TOL, f"energy drift {drift} eV/atom"
     for k, v in counts.items():
         want = PER_STEP[path].get(k, 0) * steps
         assert v == want, f"{path}: {k} launched {v} times, want {want}"
-    assert host == overflows, (
-        f"{host} host rebuilds after the retighten, {overflows} overflows")
+    if layout_of(path) == "atom":
+        assert device == 0, f"{device} device rebuilds on the atom layout"
+    else:
+        assert host == overflows, (
+            f"{host} host rebuilds after the retighten, {overflows} "
+            "overflows")
     return counts, ms_step
 
 
@@ -714,9 +839,11 @@ def main():
     import schnetpack_tpu_torch  # noqa: F401 (sets f32 matmul precision)
     from schnetpack_tpu_torch.md import load_molecules
     from schnetpack_tpu_torch.ops import _build
+    from schnetpack_tpu_torch.ops import cellblock_gather as cg
     from schnetpack_tpu_torch.ops import colblock_geo as geo_op
     from schnetpack_tpu_torch.ops import colblock_message as msg
     from schnetpack_tpu_torch.ops import colblock_select as sel
+    from schnetpack_tpu_torch.ops import painn_fused as pf
     from schnetpack_tpu_torch.ops import painn_mixing as mix
     from schnetpack_tpu_torch.ops import schnet_columns as cf
 
@@ -736,10 +863,20 @@ def main():
                                 args.seed, dev)
     rows += select_kernel_phase(calculator(*potential("so3net")), system,
                                 args.seed, dev)
+    by_name = {row["name"]: row for row in rows}
+    for row in cell_kernel_phase(calculator(*potential("painn_cell"),
+                                            layout="atom"), system,
+                                 args.seed, dev):
+        if row["name"] in by_name:   # K3/K4 at the 27-cell layout's rows
+            by_name[row["name"]]["cell"] = {k: row[k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")}
+        else:
+            rows.append(row)
     reference_phase(dev)
     rebuild_phase(args.seed, dev)
     launches = (msg.LAUNCHES, mix.LAUNCHES, geo_op.LAUNCHES, cf.LAUNCHES,
-                sel.LAUNCHES)
+                sel.LAUNCHES, cg.LAUNCHES, pf.LAUNCHES)
     total = {}
     ms_step = {}
     for path in PATHS:
@@ -752,8 +889,8 @@ def main():
         assert row["launches"] > 0, f"{row['name']} never ran in the MD"
     print(f"md ms/step PaiNN hybrid {ms_step['hybrid']:.3f}, PaiNN full "
           f"{ms_step['full']:.3f}, SchNet {ms_step['schnet']:.3f}, SO3net "
-          f"{ms_step['so3net']:.3f}, PaiNN trbf {ms_step['painn_trbf']:.3f} "
-          f"on {smi}")
+          f"{ms_step['so3net']:.3f}, PaiNN trbf {ms_step['painn_trbf']:.3f}, "
+          f"PaiNN cell {ms_step['painn_cell']:.3f} on {smi}")
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,18 +1,24 @@
 """Machine-learning potential calculator for MD (parity:
-``schnetpack_tpu/md/calculators/schnetpack_calculator.py``, column-layout
-path).
+``schnetpack_tpu/md/calculators/schnetpack_calculator.py``, blocked-layout
+paths).
 
 The model runs in the neighbor list's sorted space: positions are taken
 in ``cell_order`` (converted to model units), and forces come back to the
 original atom order through ``cell_rank``.  A rebuild on the device
 re-bins the atoms, so after one the whole sorted-space state (order,
 rank, Z, idx_m, atom mask, qcol/dcol, offsets) is the neighbor list's new
-state, exactly as after a host build.  The potential's parameters are
+state, exactly as after a host build.  ``neighbor_list`` is a
+``CellBlockNeighborListMD`` or one of the reference's strings
+``"cellblock"`` (the column layout, also the default) and
+``"cellblock_atom"`` (the 27-cell atom layout, whose state passes
+``cell_qidx``, ``nbh_idx``, ``nbh_mask`` and ``nbh_offsets``,
+``schnetpack_calculator.py:192-199``, and the neighbor state's
+``CellRefs``, so that its cached schedules outlive the step).  The potential's parameters are
 frozen: MD differentiates with respect to positions only.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Union
 
 import torch
 
@@ -33,7 +39,7 @@ class SchNetPackCalculator(MDCalculator):
         position_unit: str = "Ang",
         energy_key: str = structure.energy,
         cutoff_shell: float = 0.0,
-        neighbor_list: Optional[CellBlockNeighborListMD] = None,
+        neighbor_list: Union[CellBlockNeighborListMD, str, None] = None,
     ):
         super().__init__(force_key=force_key, energy_unit=energy_unit,
                          position_unit=position_unit, energy_key=energy_key)
@@ -42,9 +48,19 @@ class SchNetPackCalculator(MDCalculator):
             self.model.load_state_dict(params)
         self.model.requires_grad_(False)
         self.cutoff_model_units = float(cutoff)
-        self.nbl = neighbor_list or CellBlockNeighborListMD(
-            cutoff * self.position_conversion,
-            skin=max(cutoff_shell, 0.3) * self.position_conversion)
+        if neighbor_list is None or isinstance(neighbor_list, str):
+            layouts = {None: "column", "cellblock": "column",
+                       "cellblock_atom": "atom"}
+            if neighbor_list not in layouts:
+                raise NotImplementedError(
+                    "the port's calculator takes neighbor_list='cellblock', "
+                    "'cellblock_atom' or a CellBlockNeighborListMD, not "
+                    f"{neighbor_list!r}")
+            neighbor_list = CellBlockNeighborListMD(
+                cutoff * self.position_conversion,
+                skin=max(cutoff_shell, 0.3) * self.position_conversion,
+                layout=layouts[neighbor_list])
+        self.nbl = neighbor_list
 
     def init_state(self, system: System):
         self.model.to(system.positions.device)
@@ -59,18 +75,31 @@ class SchNetPackCalculator(MDCalculator):
         inv = 1.0 / self.position_conversion
         order = calc_state["cell_order"]
         M = system.n_molecules
-        return {
+        inputs = {
             structure.R: system.positions[0, order] * inv,
             structure.Z: calc_state["cell_Z"],
             structure.idx_m: calc_state["cell_idx_m"],
             structure.atom_mask: calc_state["cell_atom_mask"],
             structure.n_atoms: system.n_atoms_per_mol,
             structure.mol_mask: system.positions.new_ones(M),
-            structure.cell_qcol: calc_state[structure.cell_qcol],
-            structure.cell_dcol: calc_state[structure.cell_dcol],
-            structure.cell_coff_fm: calc_state[structure.cell_coff_fm] * inv,
-            structure.cell_ksz: calc_state[structure.cell_ksz],
         }
+        if structure.cell_qidx in calc_state:
+            inputs.update({
+                structure.cell_qidx: calc_state[structure.cell_qidx],
+                structure.cell_refs: calc_state[structure.cell_refs],
+                structure.nbh_idx: calc_state[structure.nbh_idx],
+                structure.nbh_mask: calc_state[structure.nbh_mask],
+                structure.nbh_offsets: calc_state[structure.nbh_offsets] * inv,
+            })
+        else:
+            inputs.update({
+                structure.cell_qcol: calc_state[structure.cell_qcol],
+                structure.cell_dcol: calc_state[structure.cell_dcol],
+                structure.cell_coff_fm:
+                    calc_state[structure.cell_coff_fm] * inv,
+                structure.cell_ksz: calc_state[structure.cell_ksz],
+            })
+        return inputs
 
     def calculate(self, system: System, calc_state) -> System:
         out = self.model(self.model_inputs(system, calc_state))

@@ -1,10 +1,15 @@
-"""Column-layout neighbor list with a Verlet skin for MD.
+"""Blocked neighbor lists with a Verlet skin for MD.
 
 Port of ``CellBlockNeighborListMD`` (``schnetpack_tpu/md/neighborlist_md.py:
-173-667``), layout="column".  The state carried to the model lives in
-sorted space: ``cell_order`` (original atom per slot), ``cell_rank`` (slot
-per atom), ``cell_Z``/``cell_idx_m``/``cell_atom_mask`` (0 on empty slots)
-and the layout's index and offset tensors.
+173-667``), with its two layouts: ``layout="column"`` (the default) and
+``layout="atom"``, the 27-cell atom layout.  The state carried to the
+model lives in sorted space: ``cell_order`` (original atom per slot),
+``cell_rank`` (slot per atom), ``cell_Z``/``cell_idx_m``/``cell_atom_mask``
+(0 on empty slots) and the layout's index and offset tensors (column:
+``cell_qcol``/``cell_dcol``/``cell_coff_fm``/``cell_ksz``; atom:
+``cell_qidx``/``nbh_idx``/``nbh_mask``/``nbh_offsets`` and the
+``CellRefs`` of ``cell_qidx``, whose cached schedules serve every step
+until the next build).
 
 Capacities are sticky so that the kernels see stable shapes: the first
 build probes them on a jittered copy of the positions (``jitter_fraction``
@@ -19,9 +24,19 @@ re-binned and rebuilt on the device (``ops/colblock_rebuild.py``, as
 ``neighborlist_md.py:483-507,610-664``): one more scalar read, the
 overflow flag, and on overflow a host build, which grows the capacities.
 Any other box rebuilds on the host.
+
+The atom layout (``neighborlist_md.py:401-428, 466-479``) takes one
+replica of one molecule or box, with the reference's errors otherwise.
+Its grid dims, cell capacity C and slots per atom K are sticky; when the
+occupancy outgrows C (``CapacityError``) the layout is built afresh, while
+a degree above the pinned K raises ``build_cell_layout``'s plain
+``ValueError``, as in the reference.  It has no device rebuild
+(``neighborlist_md.py:483-486``): every rebuild is a host build, counted
+in ``n_builds``.
 """
 from __future__ import annotations
 
+import time
 import warnings
 from typing import Dict, Optional
 
@@ -29,7 +44,10 @@ import numpy as np
 import torch
 
 from .. import properties as structure
-from ..ops.cellblock import CapacityError, build_column_layout
+from ..ops.cellblock import (
+    CapacityError, build_cell_layout, build_column_layout,
+)
+from ..ops.cellblock_gather import CellRefs
 from ..ops.colblock_rebuild import rebin_and_rebuild
 from ..transform.neighborlist import cell_list_neighbor_list
 from .system import System
@@ -53,22 +71,25 @@ class CellBlockNeighborListMD:
                  capacity_headroom: int = 1, layout: str = "column",
                  jitter_fraction: float = 0.5,
                  bucket_headroom: float = 1.0 / 6.0):
-        if layout != "column":
-            raise NotImplementedError("the port has the column layout only")
+        if layout not in ("column", "atom"):
+            raise NotImplementedError(
+                f"the port has the 'column' and 'atom' layouts, not {layout!r}")
+        self.layout_kind = layout
         self.cutoff = float(cutoff)
         self.skin = float(skin)
         self.capacity_headroom = capacity_headroom
         self.jitter_fraction = float(jitter_fraction)
         self.bucket_headroom = float(bucket_headroom)
-        self._dims = None      # (nx, ny, 1)
-        self._C = None         # column capacity P
-        self._K = None         # 9 bucket sizes
+        self._dims = None      # (nx, ny, 1) or, atom layout, (nx, ny, nz)
+        self._C = None         # column capacity P or cell capacity C
+        self._K = None         # 9 bucket sizes or slots per atom K
         self._layout = None    # the last host build's layout
         self._state: Optional[Dict[str, torch.Tensor]] = None
         self._build_positions: Optional[torch.Tensor] = None
         self._dev_rebuild: Optional[dict] = None
-        #: host builds so far
+        #: host builds so far, and their wall time (seconds)
         self.n_builds = 0
+        self.build_seconds = 0.0
         #: rebuilds on the device so far
         self.n_device_builds = 0
         #: device rebuilds that overflowed the capacities (each followed by
@@ -80,16 +101,87 @@ class CellBlockNeighborListMD:
             _pad8(b + max(16, int(b * self.bucket_headroom)))
             for b in ks_fresh)
 
-    def build(self, system: System) -> None:
-        if system.n_replicas != 1 or system.n_molecules != 1:
-            raise NotImplementedError(
-                "the port's column neighbor list takes one replica of one "
-                "molecule or periodic box")
+    def _geometry(self, system: System):
+        """Host copies (R, cell, pbc, use_cell, use_pbc) of the one box."""
         R = system.positions[0].detach().double().cpu().numpy()
         cell = system.cells[0, 0].detach().double().cpu().numpy()
         pbc = system.pbc[0].cpu().numpy()
         use_pbc = pbc if pbc.any() else None
         use_cell = cell if np.abs(cell).sum() > 0 else None
+        return R, cell, pbc, use_cell, use_pbc
+
+    def _sorted_state(self, lay, system: System) -> Dict[str, torch.Tensor]:
+        """The sorted-space system arrays of a layout."""
+        dev = system.positions.device
+        real = torch.as_tensor(lay.slot_mask > 0, device=dev)
+        order = torch.as_tensor(lay.order.astype(np.int64), device=dev)
+        return {
+            "cell_order": order,
+            "cell_rank": torch.as_tensor(lay.rank.astype(np.int64),
+                                         device=dev),
+            "cell_Z": system.atomic_numbers[order] * real,
+            "cell_idx_m": system.idx_m[order] * real,
+            "cell_atom_mask": torch.as_tensor(
+                lay.slot_mask, dtype=system.positions.dtype, device=dev),
+        }
+
+    def _build_atom(self, system: System) -> None:
+        """Host build of the 27-cell atom layout (``neighborlist_md.py:
+        401-419, 466-479``)."""
+        if system.n_replicas != 1:
+            raise NotImplementedError(
+                "the 27-cell layout supports n_replicas == 1; "
+                "use layout='column' for ring-polymer MD")
+        if system.n_molecules != 1:
+            raise NotImplementedError(
+                "the 27-cell layout supports a single molecule; use "
+                "layout='column' for batched molecules")
+        R, _, _, use_cell, use_pbc = self._geometry(system)
+        rc = self.cutoff + self.skin
+        try:
+            lay = build_cell_layout(R, rc, use_cell, use_pbc,
+                                    capacity=self._C, n_neighbors=self._K,
+                                    dims=self._dims,
+                                    capacity_headroom=self.capacity_headroom)
+        except CapacityError:
+            lay = build_cell_layout(R, rc, use_cell, use_pbc,
+                                    capacity_headroom=self.capacity_headroom)
+        nx, ny, nz, C, K = lay.dims
+        self._dims, self._C, self._K = (nx, ny, nz), C, K
+        self._layout = lay
+        dev = system.positions.device
+        qidx = torch.as_tensor(lay.qidx, device=dev)
+        self._state = {
+            structure.cell_qidx: qidx,
+            # one refs per build: the decode and source order cached on it
+            # serve every step until the next build
+            structure.cell_refs: CellRefs(qidx),
+            structure.nbh_idx: torch.as_tensor(lay.nbh_idx, device=dev),
+            structure.nbh_mask: torch.as_tensor(
+                lay.nbh_mask, dtype=system.positions.dtype, device=dev),
+            structure.nbh_offsets: torch.as_tensor(
+                lay.nbh_offsets, dtype=system.positions.dtype, device=dev),
+            **self._sorted_state(lay, system),
+        }
+        self._build_positions = system.positions.detach().clone()
+        self._dev_rebuild = None
+
+    def build(self, system: System) -> None:
+        """Host build of the layout (timed into ``build_seconds``)."""
+        t0 = time.perf_counter()
+        if self.layout_kind == "atom":
+            self._build_atom(system)
+        else:
+            self._build_column(system)
+        self.n_builds += 1
+        self.build_seconds += time.perf_counter() - t0
+
+    def _build_column(self, system: System) -> None:
+        if system.n_replicas != 1 or system.n_molecules != 1:
+            raise NotImplementedError(
+                "the port's column neighbor list takes one replica of one "
+                "molecule or periodic box")
+        R, cell, pbc, use_cell, use_pbc = self._geometry(system)
         rc = self.cutoff + self.skin
         edges = cell_list_neighbor_list(R, rc, use_cell, use_pbc)
 
@@ -146,8 +238,6 @@ class CellBlockNeighborListMD:
 
         dev = system.positions.device
         dtype = system.positions.dtype
-        real = torch.as_tensor(lay.slot_mask > 0, device=dev)
-        order = torch.as_tensor(lay.order.astype(np.int64), device=dev)
         self._state = {
             structure.cell_qcol: torch.as_tensor(lay.qcol, device=dev),
             structure.cell_dcol: torch.as_tensor(lay.dcol, device=dev),
@@ -155,16 +245,9 @@ class CellBlockNeighborListMD:
                 np.ascontiguousarray(np.moveaxis(lay.offcol, -1, 2)),
                 dtype=dtype, device=dev),
             structure.cell_ksz: tuple(int(k) for k in ksizes),
-            "cell_order": order,
-            "cell_rank": torch.as_tensor(lay.rank.astype(np.int64),
-                                         device=dev),
-            "cell_Z": system.atomic_numbers[order] * real,
-            "cell_idx_m": system.idx_m[order] * real,
-            "cell_atom_mask": torch.as_tensor(lay.slot_mask, dtype=dtype,
-                                              device=dev),
+            **self._sorted_state(lay, system),
         }
         self._build_positions = system.positions.detach().clone()
-        self.n_builds += 1
 
         # on-device rebuild eligibility (``neighborlist_md.py:483-507``;
         # one molecule is checked above)
@@ -179,7 +262,9 @@ class CellBlockNeighborListMD:
                   jitter_fraction: Optional[float] = None,
                   bucket_headroom: Optional[float] = None) -> None:
         """Re-probe the capacities from the current positions, letting the
-        sticky shapes shrink (call once after equilibration)."""
+        sticky shapes shrink (call once after equilibration).  The jitter
+        and headroom of the column layout's probe do not apply to the atom
+        layout, which simply builds afresh."""
         old = (self.jitter_fraction, self.bucket_headroom)
         self._dims = self._C = self._K = None
         if jitter_fraction is not None:

@@ -1,22 +1,32 @@
-"""Column-bucketed neighbor layout, built on the host (numpy).
+"""Blocked neighbor layouts, built on the host (numpy).
 
-Port of ``ColumnLayout`` / ``build_column_layout`` from
-``schnetpack_tpu/ops/cellblock.py:454-763`` with the same rules, so the
-dims, the column capacity P and the bucket sizes come out identical:
+Port of ``schnetpack_tpu/ops/cellblock.py`` with the same rules, so every
+array comes out identical to the JAX package's on the same inputs:
 
-* atoms are binned into an xy grid of columns no narrower than the build
+* ``build_column_layout`` / ``ColumnLayout`` (``cellblock.py:454-763``):
+  atoms are binned into an xy grid of columns no narrower than the build
   cutoff, sorted by (column, z) and padded to a per-column capacity P
-  (multiple of 8);
-* every edge goes to its destination column and the bucket
-  c9 = (dx+1)*3 + (dy+1) of its source-column offset; buckets are ragged
-  (capacity ``ksizes[c9]``, multiple of 8) and packed along one edge axis
-  of length Ktot, bucket c9 at rows [koffs[c9], koffs[c9] + ksizes[c9]);
-* within a bucket edges keep the order the neighbor list emits them in
-  (stable sort), and every edge carries its Cartesian periodic offset.
+  (multiple of 8); every edge goes to its destination column and the
+  bucket c9 = (dx+1)*3 + (dy+1) of its source-column offset; buckets are
+  ragged (capacity ``ksizes[c9]``, multiple of 8) and packed along one
+  edge axis of length Ktot, bucket c9 at rows [koffs[c9], koffs[c9] +
+  ksizes[c9]); within a bucket edges keep the order the neighbor list
+  emits them in (stable sort), and every edge carries its Cartesian
+  periodic offset.
+* ``build_cell_layout`` / ``CellLayout`` (``cellblock.py:202-451``), the
+  27-cell atom layout: atoms are binned into a 3-d grid of cells no
+  thinner than the build cutoff, sorted by cell id (stable) and padded to
+  a per-cell capacity C (multiple of 8); atom i's k-th neighbor is
+  encoded as the candidate index q = o*C + s_j of its source among the 27
+  neighbor cells (``OFFSETS``), -1 for padding, with K (the slots per
+  atom) rounded up to a multiple of ``K_MULTIPLE`` (the reference's
+  default ``k_multiple``).
 
-The xy-grid autotune still charges the column depth P in multiples of 128
-(the TPU's matrix-unit depth).  The Hopper kernels have no such quantum;
-re-deriving the cost model for them is queued in ROADMAP.md.
+The xy-grid autotune of the column layout still charges the column depth
+P in multiples of 128 (the TPU's matrix-unit depth), and the cell grid's
+autotune the TPU's selection cost n_cells * C^2.  The Hopper kernels have
+no such quantum; re-deriving the cost models for them is queued in
+ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -27,8 +37,18 @@ import numpy as np
 from ..transform.neighborlist import cell_list_neighbor_list
 
 
+#: the 27 neighbor-cell offsets, o = ((dx+1)*3 + (dy+1))*3 + (dz+1)
+#: (``schnetpack_tpu/ops/cellblock.py:52-55``)
+OFFSETS = np.array(
+    [(dx, dy, dz) for dx in (-1, 0, 1) for dy in (-1, 0, 1) for dz in (-1, 0, 1)],
+    dtype=np.int32,
+)
+#: the 27-cell layout's K (slots per atom) is a multiple of this
+K_MULTIPLE = 2
+
+
 class CapacityError(ValueError):
-    """Sticky layout capacities (column/bucket) no longer fit."""
+    """Sticky layout capacities (cell/column/bucket) no longer fit."""
 
 
 class ColumnLayout:
@@ -286,4 +306,163 @@ def build_column_layout(
         jcol=jcol.reshape(shp),
         offcol=offcol.reshape(shp + (3,)),
         emask=emask.reshape(shp),
+    )
+
+
+class CellLayout:
+    """27-cell atom layout (numpy arrays).
+
+    Attributes (A' = nx*ny*nz*C padded atom slots, A = real atoms):
+        dims: (nx, ny, nz, C, K)
+        order: [A'] original atom index per sorted slot (0 for pads)
+        rank: [A] sorted slot of each original atom (slot = cell*C + s)
+        slot_mask: [A'] 1.0 for real atoms
+        qidx: [nx, ny, nz, C, K] int32 candidate index o*C + s_j (-1 pad)
+        nbh_idx: [A', K] int32 sorted-space neighbor index (0 pad)
+        nbh_mask: [A', K] float32 1.0 for real edges
+        nbh_offsets: [A', K, 3] Cartesian periodic offsets
+    """
+
+    __slots__ = ("dims", "order", "rank", "slot_mask", "qidx", "nbh_idx",
+                 "nbh_mask", "nbh_offsets")
+
+    def __init__(self, **kw):
+        for k in self.__slots__:
+            setattr(self, k, kw[k])
+
+
+def _autotune_cell_grid(R, origin, basis, pbc_arr, n_max):
+    """Pick the cell grid minimising ``n_cells * C^2`` among the finest
+    admissible grid ``n_max`` and four coarser ones (each axis divided by
+    1.2 ... 1.9); a coarser grid must win by 5%."""
+    frac = (R - origin) @ np.linalg.inv(basis)
+    frac = np.where(pbc_arr, frac - np.floor(frac),
+                    np.clip(frac, 0.0, 1.0 - 1e-9))
+    best, best_cost = n_max, None
+    for g in (1.0, 1.2, 1.4, 1.6, 1.9):
+        n = np.maximum(1, (n_max / g).astype(np.int64))
+        bins = np.minimum((frac * n).astype(np.int64), n - 1)
+        cid = (bins[:, 0] * n[1] + bins[:, 1]) * n[2] + bins[:, 2]
+        C = _pad8(int(np.bincount(cid).max(initial=1)) + 1)
+        cost = float(np.prod(n)) * C * C
+        if best_cost is None or cost < best_cost * 0.95:
+            best, best_cost = n, cost
+    return best
+
+
+def build_cell_layout(
+    R: np.ndarray,
+    cutoff: float,
+    cell: Optional[np.ndarray] = None,
+    pbc: Optional[np.ndarray] = None,
+    capacity: Optional[int] = None,
+    n_neighbors: Optional[int] = None,
+    capacity_headroom: int = 1,
+    dims: Optional[Tuple[int, int, int]] = None,
+) -> CellLayout:
+    """Bin atoms into cells, sort them cell-major and encode the neighbor
+    list as candidate indices into the 27 surrounding cells.
+
+    ``cutoff`` is the build cutoff (model cutoff + skin).  ``capacity``
+    pins C (CapacityError when the occupancy exceeds it), ``n_neighbors``
+    pins K (a plain ValueError when the degree exceeds it, as in the
+    reference), ``dims`` pins the grid."""
+    R = np.asarray(R, np.float64)
+    A = len(R)
+    n, origin, basis, pbc_arr = _grid_dims(R, cutoff, cell, pbc)
+    if dims is not None:
+        n = np.asarray(dims, np.int64)
+    else:
+        n = _autotune_cell_grid(R, origin, basis, pbc_arr, n)
+    nx, ny, nz = (int(v) for v in n)
+
+    frac_raw = (R - origin) @ np.linalg.inv(basis)
+    wrap = np.where(pbc_arr, np.floor(frac_raw), 0.0)
+    frac = np.where(pbc_arr, frac_raw - wrap,
+                    np.clip(frac_raw, 0.0, 1.0 - 1e-9))
+    bins = np.minimum((frac * n).astype(np.int64), n - 1)
+    # unwrapped bins: the pair list's S is relative to the raw positions
+    bins_raw = bins + wrap.astype(np.int64) * n
+    cell_id = (bins[:, 0] * ny + bins[:, 1]) * nz + bins[:, 2]
+    n_cells = nx * ny * nz
+
+    counts = np.bincount(cell_id, minlength=n_cells)
+    C = _pad8(int(counts.max(initial=1)) + capacity_headroom)
+    if capacity is not None:
+        if capacity < counts.max(initial=1):
+            raise CapacityError(
+                f"cell capacity {capacity} < max occupancy {counts.max()}")
+        C = capacity
+
+    order_real = np.argsort(cell_id, kind="stable")
+    starts = np.zeros(n_cells + 1, np.int64)
+    np.cumsum(counts, out=starts[1:])
+    slot = np.arange(A) - starts[cell_id[order_real]]
+    rank = np.empty(A, np.int64)
+    rank[order_real] = cell_id[order_real] * C + slot
+    Ap = n_cells * C
+    order = np.zeros(Ap, np.int64)
+    slot_mask = np.zeros(Ap, np.float32)
+    order[rank] = np.arange(A)
+    slot_mask[rank] = 1.0
+
+    use_cell = cell if (pbc_arr.any() and cell is not None) else None
+    ii, jj, S = cell_list_neighbor_list(
+        R, cutoff, use_cell, pbc_arr if pbc_arr.any() else None)
+    S = np.asarray(S, np.int64)
+    if cell is not None and np.abs(np.asarray(cell)).sum() > 0:
+        off = S.astype(np.float64) @ np.asarray(cell, np.float64)
+    else:
+        off = np.zeros((len(ii), 3))
+
+    # offset in cells of j's image from i: in {-1, 0, 1} on axes of >= 3
+    # cells; on tiny periodic grids (n_k <= 2) offsets alias modulo n_k
+    # and any representative naming the same cell gathers the same rows
+    # (the Cartesian offset is carried per edge)
+    d_bins = bins_raw[jj] + S * n[None, :] - bins_raw[ii]
+    for k in range(3):
+        if n[k] >= 3:
+            if len(ii) and np.abs(d_bins[:, k]).max() > 1:
+                raise ValueError(
+                    "neighbor outside the 27-cell stencil: cell edge < build "
+                    f"cutoff (axis {k}, max bin delta "
+                    f"{np.abs(d_bins[:, k]).max()})")
+        else:
+            d_bins[:, k] = np.mod(d_bins[:, k], n[k])
+    o_index = ((d_bins[:, 0] + 1) * 3 + (d_bins[:, 1] + 1)) * 3 + (
+        d_bins[:, 2] + 1)
+    q = o_index * C + rank[jj] % C
+
+    i_sorted = rank[ii]
+    cnt_i = np.bincount(i_sorted, minlength=Ap)
+    max_k = int(cnt_i.max(initial=1))
+    K = int(-(-max_k // K_MULTIPLE) * K_MULTIPLE)
+    if n_neighbors is not None:
+        if n_neighbors < max_k:
+            raise ValueError(f"n_neighbors {n_neighbors} < max degree {max_k}")
+        K = n_neighbors
+
+    edge_order = np.argsort(i_sorted, kind="stable")
+    i_s = i_sorted[edge_order]
+    e_starts = np.zeros(Ap + 1, np.int64)
+    np.cumsum(cnt_i, out=e_starts[1:])
+    k_slot = np.arange(len(i_s)) - e_starts[i_s]
+
+    qidx = np.full((Ap, K), -1, np.int32)
+    nbh_idx = np.zeros((Ap, K), np.int32)
+    nbh_mask = np.zeros((Ap, K), np.float32)
+    nbh_offsets = np.zeros((Ap, K, 3), np.float64)
+    qidx[i_s, k_slot] = q[edge_order]
+    nbh_idx[i_s, k_slot] = rank[jj][edge_order]
+    nbh_mask[i_s, k_slot] = 1.0
+    nbh_offsets[i_s, k_slot] = off[edge_order]
+    return CellLayout(
+        dims=(nx, ny, nz, C, K),
+        order=order.astype(np.int32),
+        rank=rank.astype(np.int32),
+        slot_mask=slot_mask,
+        qidx=qidx.reshape(nx, ny, nz, C, K),
+        nbh_idx=nbh_idx,
+        nbh_mask=nbh_mask,
+        nbh_offsets=nbh_offsets,
     )

@@ -1,0 +1,172 @@
+"""Row gather of the 27-cell atom layout: CUDA kernels K16/K17 and their
+twins.
+
+Port of ``schnetpack_tpu.ops.cellblock.cell_gather`` and its Pallas
+kernels (``ops/cellblock_pallas.py:88`` forward, ``:143`` backward):
+``cell_gather(table [A', D], qidx [nx, ny, nz, C, K]) -> [A', K, D]``
+picks each edge slot's source row, zeros where ``qidx`` is -1; its VJP is
+the per-source-row sum, the transpose (``cellblock.py:165-185``).  The
+kernels (``csrc/cellblock_gather.cu``) take any width D; the MD path
+gathers the positions (D = 3).
+
+Slot (a, k) with code q = o*C + s names row s of the neighbor cell
+(x+dx, y+dy, z+dz) (periodic) of the destination's cell (x, y, z), with
+(dx, dy, dz) = ``OFFSETS[o]``.  ``CellRefs`` carries ``qidx`` and caches
+what is derived from it once per neighbor state: the decoded source rows
+and the source-sorted slot order that K17 and the message backward K19
+walk.  On CPU tensors the op runs the twins, on CUDA tensors the kernels,
+and it raises for any other device.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import torch
+
+from . import _build
+
+#: kernel launches since the last reset (painn_cell MD: K16 1, K17 1 per
+#: step)
+LAUNCHES = {"cell_gather_fwd": 0, "cell_gather_bwd": 0}
+
+
+@dataclass(frozen=True)
+class CellRefs:
+    """Per-rebuild index tensor of the 27-cell layout."""
+
+    qidx: torch.Tensor   # [nx, ny, nz, C, K] int32 o*C + s (-1 pad)
+    #: index tensors derived from it, computed once per refs
+    cache: dict = field(default_factory=dict, compare=False, repr=False)
+
+    @property
+    def dims(self):
+        return tuple(int(v) for v in self.qidx.shape)
+
+    @property
+    def n_rows(self) -> int:
+        nx, ny, nz, C, _ = self.dims
+        return nx * ny * nz * C
+
+
+def as_refs(qidx) -> CellRefs:
+    return qidx if isinstance(qidx, CellRefs) else CellRefs(qidx)
+
+
+def decode_cell_j(refs: CellRefs):
+    """Sorted-space source row j [A', K] (int64, 0 at padded slots) of
+    every edge slot, and the slot mask [A', K]."""
+    if "j" in refs.cache:
+        return refs.cache["j"]
+    q = refs.qidx.long()
+    nx, ny, nz, C, K = q.shape
+    dev = q.device
+    valid = q >= 0
+    qc = q.clamp(min=0)
+    o, s = qc // C, qc % C
+    ar = [torch.arange(n, device=dev) for n in (nx, ny, nz)]
+    sx = torch.remainder(ar[0][:, None, None, None, None] + o // 9 - 1, nx)
+    sy = torch.remainder(ar[1][None, :, None, None, None] + o // 3 % 3 - 1,
+                         ny)
+    sz = torch.remainder(ar[2][None, None, :, None, None] + o % 3 - 1, nz)
+    j = ((sx * ny + sy) * nz + sz) * C + s
+    refs.cache["j"] = (j.reshape(-1, K), valid.reshape(-1, K))
+    return refs.cache["j"]
+
+
+def source_order(refs: CellRefs):
+    """Every real edge slot a*K + k sorted by source row, padded slots
+    last (``esorted`` int32 [A'*K]), and the start of each row's run
+    (``rowptr`` int32 [A'+1]).  Computed on the device without a host
+    synchronisation, once per ``refs``."""
+    if "src" in refs.cache:
+        return refs.cache["src"]
+    n = refs.n_rows
+    j, valid = decode_cell_j(refs)
+    key = torch.where(valid, j, n).reshape(-1)
+    esorted = torch.argsort(key, stable=True).to(torch.int32)
+    cnt = torch.zeros(n + 1, dtype=torch.int64, device=key.device)
+    cnt = cnt.index_add_(0, key, torch.ones_like(key))[:-1]
+    rowptr = torch.cat([cnt.new_zeros(1), cnt.cumsum(0)]).to(torch.int32)
+    refs.cache["src"] = (esorted, rowptr)
+    return refs.cache["src"]
+
+
+def _check_refs(refs: CellRefs):
+    _build.check(refs.qidx, "qidx", refs.dims, torch.int32)
+    return refs.n_rows, refs.dims[4]
+
+
+def cell_gather_fwd_kernel(table, qidx):
+    """K16: out [A', K, D], out[a, k] = table[j(a, k)], 0 at padded slots."""
+    refs = as_refs(qidx)
+    Ap, K = _check_refs(refs)
+    D = table.shape[-1]
+    _build.check(table, "table", (Ap, D))
+    out = table.new_empty((Ap, K, D))
+    p = _build.ptr
+    _build.launch("spk_cell_gather_fwd", p(table), p(refs.qidx), p(out),
+                  *refs.dims, D)
+    LAUNCHES["cell_gather_fwd"] += 1
+    return out
+
+
+def cell_gather_bwd_kernel(g, qidx):
+    """K17: the gather's VJP, dT [A', D] = per-source-row sums of g."""
+    refs = as_refs(qidx)
+    Ap, K = _check_refs(refs)
+    D = g.shape[-1]
+    _build.check(g, "g", (Ap, K, D))
+    esorted, rowptr = source_order(refs)
+    dT = g.new_empty((Ap, D))
+    p = _build.ptr
+    _build.launch("spk_cell_gather_bwd", p(g), p(esorted), p(rowptr), p(dT),
+                  Ap, D)
+    LAUNCHES["cell_gather_bwd"] += 1
+    return dT
+
+
+def cell_gather_plain(table, qidx):
+    """Plain twin of K16 (``_cell_gather_fwd_impl``), by decoded index."""
+    j, valid = decode_cell_j(as_refs(qidx))
+    return table[j] * valid[..., None].to(table.dtype)
+
+
+def cell_gather_bwd_plain(g, qidx):
+    """Plain twin of K17 (``_cell_gather_bwd``): the transpose."""
+    refs = as_refs(qidx)
+    j, valid = decode_cell_j(refs)
+    D = g.shape[-1]
+    v = (g * valid[..., None].to(g.dtype)).reshape(-1, D)
+    return g.new_zeros((refs.n_rows, D)).index_add(0, j.reshape(-1), v)
+
+
+def _on(t: torch.Tensor, kernel, plain, *args):
+    """The kernel for a CUDA tensor, the twin for a CPU tensor."""
+    if t.is_cuda:
+        return kernel(*args)
+    if t.device.type == "cpu":
+        return plain(*args)
+    raise ValueError(f"no cell-layout kernel for device {t.device}")
+
+
+class CellGather(torch.autograd.Function):
+    """Forward K16, backward K17 on CUDA; their twins on the CPU."""
+
+    @staticmethod
+    def forward(ctx, table, refs):
+        ctx.refs = refs
+        return _on(table, cell_gather_fwd_kernel, cell_gather_plain, table,
+                   refs)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous()
+        return _on(g, cell_gather_bwd_kernel, cell_gather_bwd_plain, g,
+                   ctx.refs), None
+
+
+def cell_gather(table, qidx):
+    """Neighbor rows [A', K, D] of a cell-sorted table [A', D]
+    (``schnetpack_tpu.ops.cellblock.cell_gather``); ``qidx`` is the
+    [nx, ny, nz, C, K] code tensor or its ``CellRefs``."""
+    return CellGather.apply(table.contiguous(), as_refs(qidx))

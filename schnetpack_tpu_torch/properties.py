@@ -100,6 +100,10 @@ col_rij: Final[str] = "_col_Rij"
 #: the forward's column-layout refs (``ops.colblock.ColRefs``), built once
 #: so that its modules share the index schedules cached on them
 col_refs: Final[str] = "_col_refs"
+#: the 27-cell refs (``ops.cellblock_gather.CellRefs``), made once per
+#: neighbor-list build so that every step shares the index schedules
+#: cached on them
+cell_refs: Final[str] = "_cell_refs"
 
 # --- TPU padded-batch layout ------------------------------------------------
 #: 1.0 for real atoms, 0.0 for padding [n_atoms]

@@ -1,11 +1,19 @@
-"""PaiNN on the column-bucketed layout (the MD path).
+"""PaiNN on the column-bucketed and the 27-cell layouts (the MD paths).
 
-Port of ``schnetpack_tpu/representation/painn.py`` on its column path:
-embedding -> n_interactions x (context MLP ctx_0/ctx_1 -> fused message ->
-fused residual + mixing) -> scalar features q [A', F] and vector features
-mu [A', 3, F].  ``mu`` stays flat [A', 3F] between blocks, the kernels'
-layout.  The message form follows the JAX package's dispatch
-(``painn.py:312-318``):
+Port of ``schnetpack_tpu/representation/painn.py`` on its column and cell
+paths: embedding -> n_interactions x (context MLP ctx_0/ctx_1 -> fused
+message -> fused residual + mixing) -> scalar features q [A', F] and
+vector features mu [A', 3, F].  ``mu`` stays flat [A', 3F] between
+blocks, the kernels' layout.
+
+Inputs with ``cell_qidx`` (``CellBlockNeighborListMD(layout="atom")``)
+take the 27-cell path (``painn.py:375-382, 403-410, 450``) for any radial
+basis and cutoff: from the displacements ``nbh_rij`` [A', K, 3] of
+``atomistic.PairwiseDistances``, the safe distance, the direction, the
+cutoff times ``nbh_mask`` and the basis give rbf_aug = [phi*fcut, fcut]
+in plain torch with autograd, and every interaction runs the message
+kernels K18/K19 (``ops/painn_fused.py``) on xmu = [x, mu].  Column inputs
+follow the JAX package's dispatch (``painn.py:312-318``):
 
 * a fixed ``GaussianRBF`` (any ``start``) with a ``CosineCutoff`` takes
   the fused geometry, in the form ``fuse`` picks (the JAX package's
@@ -46,7 +54,7 @@ import torch
 from torch import nn
 
 from .. import properties
-from ..atomistic.distances import column_refs
+from ..atomistic.distances import cell_refs, column_refs
 from ..nn.base import Dense
 from ..nn.cutoff import CosineCutoff
 from ..nn.radial import GaussianRBF
@@ -58,6 +66,7 @@ from ..ops.colblock_message import (
     painn_message_columns_full_fused,
 )
 from ..ops.math import safe_norm
+from ..ops.painn_fused import painn_message_cellblock
 from ..ops.painn_mixing import painn_mixing_fused
 from ..ops.radial import gaussian_rbf_table
 
@@ -175,36 +184,66 @@ class PaiNN(nn.Module):
         phi = self.radial_basis(d)
         return torch.cat([phi * fcut, fcut, dirs], dim=-1).movedim(-1, 2)
 
-    def forward(self, inputs: Dict[str, torch.Tensor]):
-        if properties.cell_qcol not in inputs:
-            raise NotImplementedError(
-                "the port implements PaiNN on the column layout only "
-                "(inputs need the cell_qcol/cell_dcol/cell_coff_fm keys)")
+    def _cell_geometry(self, inputs):
+        """rbf_aug [A', K, B+1] = [phi*fcut, fcut] and dir [A', K, 3] from
+        ``nbh_rij``, with their autograd graph, for any basis and cutoff
+        (``painn.py:375-382, 393, 403-410``)."""
+        if properties.nbh_rij not in inputs:
+            raise ValueError(
+                "PaiNN on the 27-cell layout reads the per-edge displacements "
+                "nbh_rij: run atomistic.PairwiseDistances as an input module")
+        Rij = inputs[properties.nbh_rij]
+        d = safe_norm(Rij)
+        dirs = Rij / d[..., None]
+        fcut = (self.cutoff_fn(d) * inputs[properties.nbh_mask])[..., None]
+        phi = self.radial_basis(d)
+        return torch.cat([phi * fcut, fcut], dim=-1), dirs
+
+    def _cell_message(self, inputs):
+        """The message of the 27-cell path: K18/K19 on [x, mu]."""
+        refs = cell_refs(inputs)
+        rbf_aug, dirs = self._cell_geometry(inputs)
+
+        def message(x, mu, FW_aug):
+            return painn_message_cellblock(torch.cat([x, mu], dim=-1),
+                                           rbf_aug, dirs, FW_aug, refs)
+        return message
+
+    def _column_message(self, inputs):
+        """The message of the column path, in the form ``self.path``
+        picks."""
         R = inputs[properties.R]
         refs = column_refs(inputs)
         coff_fm = inputs[properties.cell_coff_fm]
-        geo = None
         if self.path == "column_fm":
             geo = self._column_geometry(inputs, refs).contiguous()
-        elif self.path == "hybrid":
+            return lambda x, mu, FW_aug: painn_message_columns_fm(
+                x, mu, geo, FW_aug, refs)
+        if self.path == "hybrid":
             with torch.no_grad():
                 geo = column_geometry_packed(R, coff_fm, refs, self.cw,
                                              self.cutoff, with_d=True)
+            return lambda x, mu, FW_aug: painn_message_columns_fm_geores(
+                x, mu, R, geo, FW_aug, coff_fm, self.cw, refs, self.cutoff)
+        return lambda x, mu, FW_aug: painn_message_columns_full_fused(
+            x, mu, R, FW_aug, coff_fm, self.cw, refs, self.cutoff)
+
+    def forward(self, inputs: Dict[str, torch.Tensor]):
+        if properties.cell_qcol in inputs:
+            message = self._column_message(inputs)
+        elif properties.cell_qidx in inputs:
+            message = self._cell_message(inputs)
+        else:
+            raise NotImplementedError(
+                "the port implements PaiNN on the column layout (inputs with "
+                "the cell_qcol/cell_dcol/cell_coff_fm keys) and the 27-cell "
+                "layout (cell_qidx, nbh_rij) only")
         F = self.n_atom_basis
         q = self.embedding(inputs[properties.Z])
         mu = q.new_zeros((q.shape[0], 3 * F))
         for t, (inter, mix) in enumerate(zip(self.interactions,
                                              self.mixing)):
-            x, FW_aug = inter(q), self.FW_aug[t]
-            if self.path == "column_fm":
-                dq, dmu = painn_message_columns_fm(x, mu, geo, FW_aug, refs)
-            elif self.path == "hybrid":
-                dq, dmu = painn_message_columns_fm_geores(
-                    x, mu, R, geo, FW_aug, coff_fm, self.cw, refs,
-                    self.cutoff)
-            else:
-                dq, dmu = painn_message_columns_full_fused(
-                    x, mu, R, FW_aug, coff_fm, self.cw, refs, self.cutoff)
+            dq, dmu = message(inter(q), mu, self.FW_aug[t])
             q, mu = mix(q, mu, dq, dmu)
         inputs[properties.scalar_representation] = q
         inputs[properties.vector_representation] = mu.reshape(-1, 3, F)

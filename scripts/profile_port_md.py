@@ -3,11 +3,13 @@
 Sets up one MD run of ``chip_smoke.py`` (10,976-atom FCC argon box, the
 trained model of the path: PaiNN-128x3 with the ``full`` or ``hybrid``
 message form, SchNet-128x3, SO3net-64x3, or PaiNN-128x3 with a trainable
-Gaussian basis on the row-9 path (``painn_trbf``); column neighbor list with a
-0.6 A skin, 30 K), warms up and retightens the capacities, then traces
-STEPS steps with ``torch.profiler`` and prints, per step: CUDA-event time,
-device-busy time (sum of kernel times), idle share, and device time by
-kernel name.  The
+Gaussian basis on the row-9 path (``painn_trbf``), or PaiNN-128x3 on the
+27-cell atom layout (``painn_cell``); column or, for painn_cell, atom
+neighbor list with a 0.6 A skin, 30 K), warms up and retightens the
+capacities, then traces STEPS steps with ``torch.profiler`` and prints,
+per step: CUDA-event time, device-busy time (sum of kernel times), idle
+share, the host rebuilds in the window, and device time by kernel name.
+The
 full table goes to ``chiprun_out/profile_port_md_<path>.txt``.  Run from
 the repository root:
 
@@ -29,7 +31,7 @@ def main():
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--path", default="full",
                     choices=("full", "hybrid", "schnet", "so3net",
-                             "painn_trbf"))
+                             "painn_trbf", "painn_cell"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_port_md: no CUDA device")
@@ -45,7 +47,7 @@ def main():
     dev = torch.device("cuda")
     pos, cell = cs.fcc_box(10_000)
     pot, params = cs.potential(args.path)
-    calc = cs.calculator(pot, params)
+    calc = cs.calculator(pot, params, layout=cs.layout_of(args.path))
     system = load_molecules([cs.molecule(pos, cell)], device=dev)
     system = MaxwellBoltzmannInit(30.0).initialize_system(
         system, torch.Generator().manual_seed(1))
@@ -57,6 +59,7 @@ def main():
     sim.simulate(10, chunk_size=10)
 
     n = args.steps
+    builds0 = (calc.nbl.n_builds, calc.nbl.build_seconds)
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -66,6 +69,9 @@ def main():
         end.record()
         torch.cuda.synchronize()
     step_ms = start.elapsed_time(end) / n
+    host_builds = calc.nbl.n_builds - builds0[0]
+    host_s = calc.nbl.build_seconds - builds0[1]
+    layout = cs.layout_str(calc.nbl.state())
     events = [e for e in prof.key_averages()
               if getattr(e, "device_time_total", 0) > 0
               and e.device_type == torch.autograd.DeviceType.CUDA]
@@ -76,12 +82,12 @@ def main():
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, f"profile_port_md_{args.path}.txt"),
               "w") as f:
-        f.write(f"{smi}\nsteps {n}, Ktot {sum(calc.nbl._K)}, "
-                f"dims {calc.nbl._layout.dims[:3]}\n{table}\n")
+        f.write(f"{smi}\nsteps {n}, {layout}, host builds {host_builds} "
+                f"({host_s:.3f} s)\n{table}\n")
     print(f"card: {smi}; path {args.path}")
     print(f"step {step_ms:.3f} ms (CUDA events), device busy "
           f"{busy_ms:.3f} ms, idle share {1 - busy_ms / step_ms:.3f}, "
-          f"Ktot {sum(calc.nbl._K)}")
+          f"{layout}, host builds {host_builds} ({host_s:.3f} s)")
     for e in sorted(events, key=lambda e: -e.device_time_total)[:15]:
         print(f"  {e.device_time_total / 1e3 / n:8.3f} ms/step "
               f"{e.count // n:4d}/step  {e.key[:90]}")

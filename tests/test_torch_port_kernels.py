@@ -1,4 +1,4 @@
-"""PyTorch port: the CUDA kernels K1-K15 against their plain PyTorch twins,
+"""PyTorch port: the CUDA kernels K1-K19 against their plain PyTorch twins,
 on a card only (skipped without CUDA), and the entry points' default
 device.  No jax import: on a machine
 without jax run ``python -m pytest --noconftest -m gpu
@@ -9,15 +9,17 @@ import torch
 
 from schnetpack_tpu_torch import properties as TP
 from schnetpack_tpu_torch.md import load_molecules
+from schnetpack_tpu_torch.ops import cellblock_gather as cg
 from schnetpack_tpu_torch.ops import colblock_geo as geo_op
 from schnetpack_tpu_torch.ops import colblock_select as sel
 from schnetpack_tpu_torch.ops import colblock_message as msg
+from schnetpack_tpu_torch.ops import painn_fused as pf
 from schnetpack_tpu_torch.ops import painn_mixing as mix
 from schnetpack_tpu_torch.ops import schnet_columns as schnet
 from schnetpack_tpu_torch.ops.colblock import ColRefs
 from torch_port_cases import (
-    MIX_ATOL, MIX_INPUTS, MIX_RTOL, MSG_ATOL, MSG_RTOL, cfconv_case,
-    message_case, mixing_case, torch_message_args,
+    MIX_ATOL, MIX_INPUTS, MIX_RTOL, MSG_ATOL, MSG_RTOL, cell_case,
+    cfconv_case, message_case, mixing_case, torch_message_args,
 )
 
 
@@ -210,6 +212,70 @@ def test_select_kernels_match_twin(cuda_device, D):
     out.backward(table)
     assert {k: sel.LAUNCHES[k] - before[k] for k in before} == {
         "gather_fwd": 1, "gather_bwd": 1, "expand_fwd": 2, "fold_fwd": 2}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [3, 13, 768])
+def test_cell_gather_kernels_match_twin(cuda_device, D):
+    """K16 and K17 at the positions' width, an odd width (the scalar path)
+    and PaiNN's xmu width 6 x 128, on an aliased 2-cell grid, and the op
+    pairing them."""
+    c = cell_case(seed=D % 5)
+    refs = cg.CellRefs(torch.tensor(c["qidx"], device=cuda_device))
+    Ap, K = c["lay"].nbh_idx.shape
+    g = torch.Generator().manual_seed(D)
+    table = torch.randn((Ap, D), generator=g).to(cuda_device)
+    edges = torch.randn((Ap, K, D), generator=g).to(cuda_device)
+    torch.testing.assert_close(cg.cell_gather_fwd_kernel(table, refs),
+                               cg.cell_gather_plain(table, refs),
+                               rtol=MSG_RTOL, atol=MSG_ATOL)
+    torch.testing.assert_close(cg.cell_gather_bwd_kernel(edges, refs),
+                               cg.cell_gather_bwd_plain(edges, refs),
+                               rtol=MSG_RTOL, atol=MSG_ATOL)
+    before = dict(cg.LAUNCHES)
+    t = table.clone().requires_grad_(True)
+    (dT,) = torch.autograd.grad(cg.cell_gather(t, refs), t, edges)
+    torch.testing.assert_close(dT, cg.cell_gather_bwd_plain(edges, refs),
+                               rtol=MSG_RTOL, atol=MSG_ATOL)
+    assert {k: cg.LAUNCHES[k] - before[k] for k in before} == {
+        "cell_gather_fwd": 1, "cell_gather_bwd": 1}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", [0, 3])
+def test_cell_message_kernels_match_twin(cuda_device, seed):
+    """K18, K19 and K19's wgrad instance, whose gFW (an f32 sum per block
+    of the edges' terms, blocks summed in f64) is held to the twin in
+    float64; the op launches the wgrad instance when FW_aug requires
+    grad."""
+    c = cell_case(F=128, B=20, seed=seed)
+    refs = cg.CellRefs(torch.tensor(c["qidx"], device=cuda_device))
+    t = [torch.tensor(c[k], device=cuda_device)
+         for k in ("xmu", "rbf", "dir", "FW")]
+    cots = [torch.tensor(c[k], device=cuda_device) for k in ("g_dq", "g_dmu")]
+    for got, want in zip(pf.cell_msg_fwd_kernel(*t, refs),
+                         pf.cell_msg_fwd_plain(*t, refs)):
+        torch.testing.assert_close(got, want, rtol=MSG_RTOL, atol=MSG_ATOL)
+    want = pf.cell_msg_bwd_plain(*t, refs, *cots)
+    got = pf.cell_msg_bwd_kernel(*t, refs, *cots)
+    assert len(got) == 3
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=MSG_RTOL, atol=MSG_ATOL)
+    want64 = pf.cell_msg_bwd_plain(*[a.double() for a in t], refs,
+                                   *[a.double() for a in cots])
+    got = pf.cell_msg_bwd_kernel(*t, refs, *cots, wgrad=True)
+    assert len(got) == 4
+    for g, w in zip(got, want64):
+        torch.testing.assert_close(g, w.float(), rtol=MSG_RTOL, atol=MSG_ATOL)
+    before = dict(pf.LAUNCHES)
+    ins = [a.clone().requires_grad_(True) for a in t]
+    grads = torch.autograd.grad(pf.painn_message_cellblock(*ins, refs), ins,
+                                cots)
+    for g, w in zip(grads, want64):
+        torch.testing.assert_close(g, w.float(), rtol=MSG_RTOL,
+                                   atol=MSG_ATOL)
+    assert {k: pf.LAUNCHES[k] - before[k] for k in before} == {
+        "cell_msg_fwd": 1, "cell_msg_bwd": 1}
 
 
 @pytest.mark.gpu

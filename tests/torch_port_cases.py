@@ -3,7 +3,9 @@ so the card-only tests run where jax is not installed)."""
 import numpy as np
 import torch
 
-from schnetpack_tpu_torch.ops.cellblock import build_column_layout
+from schnetpack_tpu_torch.ops.cellblock import (
+    build_cell_layout, build_column_layout,
+)
 from schnetpack_tpu_torch.ops.colblock import ColRefs
 from schnetpack_tpu_torch.ops.radial import gaussian_rbf_table
 
@@ -81,3 +83,24 @@ def mixing_case(A=37, F=32, seed=0):
 
 
 MIX_INPUTS = ("q", "mu", "dq", "dmu", "kmix", "k0", "b0", "k1", "b1")
+
+
+def cell_case(F=32, B=8, seed=9, n=90, L=10.0, cutoff=3.4):
+    """The box of ``tests/test_cellblock.py::TestFusedMessage``: a random
+    periodic box in the 27-cell layout (a 2-cell grid per axis at these
+    sizes: offsets alias), with features xmu [A', 6F], a basis zeroed at
+    padded slots, directions and filter weights scaled as in
+    ``message_case``, and cotangents of dq and dmu."""
+    rng = np.random.RandomState(seed)
+    R, cell = random_box(n, L, seed)
+    lay = build_cell_layout(R, cutoff, cell, np.ones(3, bool))
+    Ap, K = lay.nbh_idx.shape
+
+    def r(*s, scale=1.0):
+        return (rng.randn(*s) * scale).astype(np.float32)
+
+    return dict(
+        lay=lay, qidx=lay.qidx, xmu=r(Ap, 6 * F, scale=0.3),
+        rbf=r(Ap, K, B + 1, scale=0.3) * lay.nbh_mask[..., None],
+        dir=r(Ap, K, 3),
+        FW=r(B + 1, 3 * F, scale=0.3), g_dq=r(Ap, F), g_dmu=r(Ap, 3 * F))
