@@ -7,7 +7,7 @@ Phases (any failure exits non-zero before the last line is printed):
 1. require CUDA; print the card's name and power limit (nvidia-smi);
 2. build the CUDA kernels from ``schnetpack_tpu_torch/csrc`` (one nvcc per
    source, started together; sm_90a);
-3. hold each kernel K1-K19 against its plain PyTorch twin on the card at
+3. hold each kernel K1-K21 against its plain PyTorch twin on the card at
    the shapes of the MD runs below (10,976-atom argon box in the layout the
    port's neighbor list builds, F=128, B=20, f32, random features and
    cotangents from --seed; K6/K7 on the geo that K5 computes there, K15 on
@@ -16,7 +16,13 @@ Phases (any failure exits non-zero before the last line is printed):
    positions' width D = 3 and SO3net's D = 9 x 64; K2, K7 and K15 also in
    their wgrad instances, which return the filter-weight cotangent gFW, a
    sum over all ~200k edges: those are held to the twin evaluated in
-   float64, since the f32 twin's own sum is off by ~1e-5 there; K16-K19
+   float64, since the f32 twin's own sum is off by ~1e-5 there, as are
+   K4's wgrad instance (the mixing weights' cotangents, at 12,800 rows)
+   and K10's (the SchNet filter weights', on the SchNet run's layout);
+   K20/K21 (row 12) and K21's wgrad instance in the wrap, halo_x and
+   halo_xy source-index modes on the painn_slab layout (the bench box on
+   the slab path's own grid and capacities, F = 128, B = 20, on the box's
+   own basis and directions), and K11/K12 in the halo modes at D = 3; K16-K19
    on the 27-cell atom layout of the painn_cell run, K16/K17 at D = 3,
    K18/K19 on the basis and directions of the box's own geometry, K19 also
    in its wgrad instance, and K3/K4 again at that layout's 16,000 rows),
@@ -34,8 +40,18 @@ Phases (any failure exits non-zero before the last line is printed):
    to ``tests/data/port_ref_so3net_argon.npz``, and PaiNN on the row-9
    path with a trainable Gaussian basis (the fixture's centers and widths)
    and with a Bessel basis to ``tests/data/port_ref_painn_{trbf,bessel}_
-   argon.npz``, and PaiNN on the 27-cell atom layout (``painn_cell``) to
-   ``port_ref_painn_argon.npz``, printing its force rms against ``full``;
+   argon.npz``, and PaiNN on the 27-cell atom layout (``painn_cell``) and
+   on the slab path (``painn_slab``, through ``make_sharded_column_eval``
+   on one card) to ``port_ref_painn_argon.npz``, printing their force rms
+   against ``full``; then the gradient of the energy with respect to every
+   parameter of PaiNN-128x3 (``fuse`` full and hybrid, and on the slab
+   path) and SchNet-128x3 on that box, with the energy output only, against
+   ``tests/data/port_ref_{painn,schnet}_grad_argon.npz``: per leaf
+   ||g - g_jax|| <= 1e-4 ||g_jax||, a leaf under 1e-3 of the largest
+   leaf's norm against 1e-7 of that norm; the launches of one evaluation
+   (the mixing's, the cfconv's and row 12's wgrad instances, and K2/K7,
+   whose wgrad instances count under their own names), and its time beside
+   the frozen force evaluation;
 5. the neighbor list's device rebuild at full size: jitter the lattice by
    a seeded uniform +-0.25 A (the 0.3 A skin check fires, the capacities
    hold), rebuild once on the device and once on the host, and require
@@ -62,7 +78,19 @@ Phases (any failure exits non-zero before the last line is printed):
    went through the device unless it overflowed, and that painn_cell, whose
    layout has no device rebuild, rebuilt on the host only (printing the
    count and wall time of those builds and the ms/step without them);
+   then 300 NVE steps of ``painn_slab`` through the port's
+   ``SpatialColumnSimulator`` on one card (30 K Maxwell-Boltzmann momenta
+   from --seed, dt 0.5 fs, chunks of 50 steps with a host re-bin before
+   each): finite, 0 < T < 300 K, drift of the total energy at the chunk
+   boundaries <= 1e-4 eV/atom, per force evaluation (one per step and one
+   at each chunk's start) K11/K12 halo 1, K13/K14 1, K20/K21/K3/K4 3 and
+   every other kernel 0, the chunks' ms/step (CUDA events) apart from the
+   re-bin's host seconds;
 7. print the kernel table and the card as JSON, then the result line.
+
+The parameter gradients of phase 4 run before the device rebuild of phase
+5, and the launches of row 12's, the mixing's and the cfconv's wgrad
+instances in the table are those of phase 4's evaluations.
 """
 import argparse
 import json
@@ -94,8 +122,16 @@ REFERENCE = {
 }
 CUTOFF, SKIN = 5.0, 0.6          # Angstrom
 RTOL, ATOL = 1e-4, 1e-5          # kernel vs twin, elementwise
+#: the mixing's and cfconv's weight cotangents vs the f64 twin, normwise
+#: (||g - w|| <= NORM_RTOL ||w||): sums over 12,800 rows or ~200k edges of
+#: products of the kernels' f32 factors, whose rounding (~1e-6 relative
+#: after 128-long dot products) walks; f64 partials remove only the
+#: summation order's error
+NORM_RTOL = 1e-5
 FORCE_RMS_TOL = 1e-4             # eV/Ang vs the JAX reference
 ENERGY_RTOL = 1e-5
+GRAD_RTOL = 1e-4                 # per leaf, ||g - g_jax|| / ||g_jax||
+GRAD_FLOOR = 1e-3                # leaves under this share of the largest norm
 DRIFT_TOL = 1e-4                 # eV/atom, max |E_tot(t) - E_tot(0)|
 REBUILD_FORCE_RMS_TOL = 1e-5     # eV/Ang, device vs host neighbor state
 REBUILD_JITTER = 0.25            # Angstrom, per component
@@ -118,7 +154,34 @@ PER_STEP = {
     "painn_cell": {"cell_gather_fwd": 1, "cell_gather_bwd": 1,
                    "cell_msg_fwd": 3, "cell_msg_bwd": 3, "mix_fwd": 3,
                    "mix_bwd": 3},
+    "painn_slab": {"gather_fwd": 1, "gather_bwd": 1, "expand_fwd": 1,
+                   "fold_fwd": 1, "msg_fwd_edge": 3, "msg_bwd_edge": 3,
+                   "mix_fwd": 3, "mix_bwd": 3},
 }
+#: the energy parameter gradients of phase 4: their JAX fixture, and the
+#: launches of one evaluation (the positions carry no gradient, so no
+#: position VJP runs)
+GRAD_REFERENCE = {path: os.path.join(ROOT, "tests", "data",
+                                     f"port_ref_{name}_grad_argon.npz")
+                  for path, name in [("full", "painn"), ("hybrid", "painn"),
+                                     ("schnet", "schnet"),
+                                     ("painn_slab", "painn")]}
+GRAD_LAUNCHES = {
+    "full": {"msg_fwd": 3, "msg_bwd": 3, "mix_fwd": 3, "mix_bwd_wgrad": 3},
+    "hybrid": {"geo_fwd": 1, "msg_fwd_geo": 3, "msg_bwd_geores": 3,
+               "mix_fwd": 3, "mix_bwd_wgrad": 3},
+    "schnet": {"geo_fwd_raw": 1, "cf_fwd": 3, "cf_bwd_wgrad": 3},
+    "painn_slab": {"gather_fwd": 1, "expand_fwd": 1, "msg_fwd_edge": 3,
+                   "msg_bwd_edge_wgrad": 3, "mix_fwd": 3,
+                   "mix_bwd_wgrad": 3},
+}
+#: the slab path's NVE run: time step (0.5 fs in the Angstrom/eV/amu frame,
+#: whose time unit is 10.1805 fs), steps per chunk, start temperature
+SLAB_DT = 0.5 / 10.180505
+SLAB_CHUNK = 50
+SLAB_T0 = 30.0                   # K
+KB_EV = 8.617333262e-5           # eV / K
+
 #: the MD paths of phase 6
 PATHS = ("hybrid", "full", "schnet", "so3net", "painn_trbf", "painn_cell")
 
@@ -153,11 +216,18 @@ def in_f64(fn, *args):
     return tuple(o.float() for o in out)
 
 
-def compare(name, got, want):
+def compare(name, got, want, norm_from=None):
+    """Max abs difference; elementwise rtol/atol, from output ``norm_from``
+    on normwise."""
     err = 0.0
-    for g, w in zip(got, want):
-        torch.testing.assert_close(g, w, rtol=RTOL, atol=ATOL,
-                                   msg=lambda m: f"{name}: {m}")
+    for i, (g, w) in enumerate(zip(got, want)):
+        if norm_from is not None and i >= norm_from:
+            d = float((g.double() - w.double()).norm())
+            assert d <= NORM_RTOL * float(w.double().norm()), (
+                f"{name}: output {i} off by {d} (norm {w.norm()})")
+        else:
+            torch.testing.assert_close(g, w, rtol=RTOL, atol=ATOL,
+                                       msg=lambda m: f"{name}: {m}")
         err = max(err, float((g - w).abs().max()))
     return err
 
@@ -173,7 +243,7 @@ def model_of(path):
     return path if path in ("schnet", "so3net") else "painn"
 
 
-def potential(path="full"):
+def potential(path="full", forces=True):
     """The trained model of a path and its parameters: PaiNN-128x3 with the
     message form ``path`` ("hybrid" or "full", PaiNN's own default),
     SchNet-128x3 (``path`` "schnet"), SO3net-64x3, lmax 2, with its
@@ -181,7 +251,9 @@ def potential(path="full"):
     on the row-9 path with ``PairwiseDistances``: with the trbf fixture's
     trainable Gaussian basis ("painn_trbf") or a Bessel basis
     ("painn_bessel"), or PaiNN-128x3 with ``PairwiseDistances`` for the
-    27-cell atom layout ("painn_cell")."""
+    27-cell atom layout ("painn_cell") and the slab path ("painn_slab");
+    without ``forces`` the energy output only (the parameter gradients'
+    model)."""
     from schnetpack_tpu_torch.atomistic import (
         Atomwise, Forces, PairwiseDistances,
     )
@@ -207,15 +279,15 @@ def potential(path="full"):
                     cutoff=CUTOFF, radial_basis=radial)
         inputs = [PairwiseDistances()]
         radial_from = REFERENCE[path] if trbf else None
-    elif path == "painn_cell":
+    elif path in ("painn_cell", "painn_slab"):
         rep = PaiNN(n_atom_basis=128, n_interactions=3, n_rbf=20,
                     cutoff=CUTOFF)
         inputs = [PairwiseDistances()]
     else:
         rep = PaiNN(n_atom_basis=128, n_interactions=3, n_rbf=20,
                     cutoff=CUTOFF, fuse=path)
-    pot = NeuralNetworkPotential(rep, [Atomwise(n_in=rep.n_atom_basis),
-                                       Forces()], input_modules=inputs)
+    heads = [Atomwise(n_in=rep.n_atom_basis)] + ([Forces()] if forces else [])
+    pot = NeuralNetworkPotential(rep, heads, input_modules=inputs)
     return pot, params_from_jax(load_jax_params(ASSET[model_of(path)],
                                                 radial_from=radial_from))
 
@@ -231,7 +303,7 @@ def layout_str(state):
 
 
 def calculator(pot, params, jitter=0.25, headroom=1.0 / 12.0,
-               layout="column"):
+               layout="column", wgrad=False):
     from schnetpack_tpu_torch.md import CellBlockNeighborListMD
     from schnetpack_tpu_torch.md.calculators import SchNetPackCalculator
     from schnetpack_tpu_torch.units import _parse_unit, md_units
@@ -241,7 +313,7 @@ def calculator(pot, params, jitter=0.25, headroom=1.0 / 12.0,
                                   layout=layout, jitter_fraction=jitter,
                                   bucket_headroom=headroom)
     return SchNetPackCalculator(pot, params, cutoff=CUTOFF, cutoff_shell=SKIN,
-                                neighbor_list=nbl)
+                                neighbor_list=nbl, wgrad=wgrad)
 
 
 def run_inputs(calc, system):
@@ -299,7 +371,8 @@ def check_kernels(cases):
     for c in cases:
         name, kern, plain = c["name"], c["kern"], c["plain"]
         got = kern()
-        err = compare(name, got, (c.get("ref") or plain)())
+        err = compare(name, got, (c.get("ref") or plain)(),
+                      c.get("norm_from"))
         ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
         lib_ms = cuda_ms(c["library"]) if c.get("library") else None
         bound_ms, bound_by = bound(nbytes(c["inputs"], got), c["flops"])
@@ -315,7 +388,7 @@ def check_kernels(cases):
                "library_ms": lib_ms}
         if c.get("wgrad"):   # the kernel's wgrad instance, also gFW
             (w,) = check_kernels([dict(c, **c["wgrad"], wgrad=None,
-                                       tag=" + gFW (wgrad)")])
+                                       tag=c.get("tag", "") + " (wgrad)")])
             row["wgrad"] = {k: w[k] for k in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")}
@@ -346,7 +419,8 @@ def kernel_phase(calc, system, seed, dev):
     backward, and the geometry where a kernel computes it; a wgrad
     instance adds the (B+1) x 3F FMAs of gFW; per atom row the mixing's
     22 F^2 (44 F^2 backward: input cotangents and the recomputed
-    forward)."""
+    forward; the wgrad instance another 22 F^2 for the weights'
+    cotangents)."""
     from schnetpack_tpu_torch.ops import colblock_geo as geo_op
     from schnetpack_tpu_torch.ops import colblock_message as msg
     from schnetpack_tpu_torch.ops import painn_mixing as mix
@@ -403,7 +477,15 @@ def kernel_phase(calc, system, seed, dev):
         case("mix_bwd", "painn_mixing.cu", "painn_mixing.py:83",
              lambda: mix.mix_bwd_kernel(*xargs, g_dq, g_dmu),
              lambda: mix.painn_mixing_bwd_plain(*xargs, g_dq, g_dmu),
-             (xargs[:9], g_dq, g_dmu), 44 * F * F * Ap),
+             (xargs[:9], g_dq, g_dmu), 44 * F * F * Ap,
+             wgrad={"kern": lambda: mix.mix_bwd_kernel(*xargs, g_dq, g_dmu,
+                                                       wgrad=True),
+                    "plain": lambda: mix.painn_mixing_bwd_plain(
+                        *xargs, g_dq, g_dmu, wgrad=True),
+                    "ref": lambda: in_f64(
+                        lambda *a: mix.painn_mixing_bwd_plain(*a, wgrad=True),
+                        *xargs, g_dq, g_dmu),
+                    "flops": 66 * F * F * Ap, "norm_from": 2}),
         case("geo_fwd", "colblock_geo.cu", "colblock_geo.py:202",
              lambda: (geo_op.geo_fwd_kernel(*gargs),),
              lambda: (geo_op.geo_fwd_plain(*gargs),),
@@ -438,10 +520,11 @@ def kernel_phase(calc, system, seed, dev):
 
 
 def schnet_kernel_phase(calc, system, seed, dev):
-    """K5 raw, K8, K9 and K10 against their twins at the SchNet run's
-    shapes, with the trained SchNet's first filter network; returns rows.
-    The filter network is B x F + F x F FMAs per real edge, twice that in
-    the backward."""
+    """K5 raw, K8, K9 and K10 (and K10's wgrad instance) against their
+    twins at the SchNet run's shapes, with the trained SchNet's first
+    filter network; returns rows.  The filter network is B x F + F x F FMAs
+    per real edge, twice that in the backward, and the wgrad instance's
+    filter-weight cotangents another B x F + F x F."""
     from schnetpack_tpu_torch.ops import colblock_geo as geo_op
     from schnetpack_tpu_torch.ops import schnet_columns as cf
 
@@ -483,7 +566,12 @@ def schnet_kernel_phase(calc, system, seed, dev):
         case("cf_bwd", "schnet_columns.cu", "schnet_columns.py:145",
              lambda: cf.cf_bwd_kernel(*cargs, g_out),
              lambda: cf.cf_bwd_plain(*cargs, g_out)[:2],
-             (cargs[:6], idx, g_out), 2 * filt + ne * 12 * F),
+             (cargs[:6], idx, g_out), 2 * filt + ne * 12 * F,
+             wgrad={"kern": lambda: cf.cf_bwd_kernel(*cargs, g_out,
+                                                     wgrad=True),
+                    "plain": lambda: cf.cf_bwd_plain(*cargs, g_out),
+                    "ref": lambda: in_f64(cf.cf_bwd_plain, *cargs, g_out),
+                    "flops": 3 * filt + ne * 12 * F, "norm_from": 2}),
     ]
     return check_kernels(cases)
 
@@ -642,6 +730,304 @@ def cell_kernel_phase(calc, system, seed, dev):
     return check_kernels(cases)
 
 
+def slab_simulator(pos, cell, dev, pot=None, params=None):
+    """The port's ``SpatialColumnSimulator`` of the bench box on one card
+    (the trained PaiNN-128x3 unless ``pot`` is given)."""
+    from schnetpack_tpu_torch.parallel import (
+        SpatialColumnSimulator, make_column_mesh,
+    )
+    from schnetpack_tpu_torch.transform.atomistic import ATOMIC_MASSES
+
+    if pot is None:
+        pot, params = potential("painn_slab")
+    pot.load_state_dict(params)
+    n = len(pos)
+    return SpatialColumnSimulator(
+        pot, params, pos, np.full(n, 18), np.full(n, ATOMIC_MASSES[18]), cell,
+        make_column_mesh(1, device=dev), cutoff=CUTOFF, skin=SKIN,
+        dt=SLAB_DT)
+
+
+def slab_temperature(masses, p):
+    """The instantaneous temperature (K) of momenta p (amu Ang / 10.18 fs)."""
+    return float((p ** 2 / masses[:, None]).sum() / (3 * len(p) * KB_EV))
+
+
+def slab_momenta(sim, seed):
+    """Maxwell-Boltzmann momenta at SLAB_T0 from ``seed`` (numpy), no net
+    momentum, rescaled to SLAB_T0 exactly, into the simulator."""
+    rng = np.random.RandomState(seed + 1)
+    m = sim.masses[:, None]
+    p = rng.standard_normal(sim.R.shape) * np.sqrt(m * KB_EV * SLAB_T0)
+    p -= m * (p.sum(0) / m.sum())
+    sim.p = p * np.sqrt(SLAB_T0 / slab_temperature(sim.masses, p))
+
+
+def slab_inputs(sim, R, dev):
+    """(layout, model inputs) of the slab path at positions ``R`` with the
+    simulator's grid and sticky capacities."""
+    from schnetpack_tpu_torch.parallel import column_inputs
+
+    sim.R = np.asarray(R, np.float64)
+    lay = sim.layout()
+    return lay, column_inputs(lay, sim.R, sim.Z, device=dev)
+
+
+def edge_kernel_phase(pos, cell, seed, dev):
+    """K20, K21 (and K21's wgrad instance) in the three source-index modes
+    and K11/K12 in the two halo modes (D = 3) against their twins on the
+    painn_slab layout of the bench box: the basis and directions of the
+    box's own geometry (the slab path's plain torch), random xmu over each
+    mode's source table and random cotangents from ``seed``, the trained
+    PaiNN's first filter weights; returns K20's and K21's rows in the
+    path's mode (halo_x), the others under "modes", and K11's and K12's
+    results per halo mode (for their rows' "modes").  Operations per real
+    edge as in ``kernel_phase``; K12 is one add per real edge and
+    coordinate, the library calls of K11/K12 take the decoded halo
+    rows."""
+    import dataclasses
+
+    from schnetpack_tpu_torch import properties as P
+    from schnetpack_tpu_torch.atomistic.distances import column_refs
+    from schnetpack_tpu_torch.ops import colblock_edge as edge
+    from schnetpack_tpu_torch.ops import colblock_select as sel
+    from schnetpack_tpu_torch.ops.colblock import decode_src
+    from schnetpack_tpu_torch.ops.colblock_shard import COLS_AXIS, COLS_AXIS_Y
+
+    sim = slab_simulator(pos, cell, dev)
+    lay, inputs = slab_inputs(sim, pos, dev)
+    pot = sim.pot.to(dev)
+    with torch.no_grad():
+        rep = pot.representation
+        inputs = pot.input_modules[0](inputs)
+        rbf, dirs = rep._edge_geometry(inputs, P.col_rij,
+                                       inputs[P.cell_emask])
+    rbf, dirs = rbf.contiguous(), dirs.contiguous()
+    refs0 = column_refs(inputs)
+    nx, ny, Ktot = refs0.qcol.shape
+    print(f"layout (painn_slab): dims=({nx}, {ny}, {refs0.P}) Ktot={Ktot} "
+          f"A'={nx * ny * refs0.P}", flush=True)
+    F, B = rep.n_atom_basis, rbf.shape[-1] - 1
+    ne = real_edges(refs0)
+    FW = rep.FW_aug[0].detach().contiguous()
+    g = torch.Generator().manual_seed(seed + 40)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g) * scale).to(dev)
+
+    g_dq, g_dmu = rnd(nx * ny * refs0.P, F), rnd(nx * ny * refs0.P, 3 * F)
+    msg_fwd = ne * (6 * F * (B + 1) + 16 * F)
+    gfw = ne * 6 * F * (B + 1)
+    idx = (refs0.qcol, refs0.dcol)
+    rows, modes = {}, {}
+    for mode, axis in [("halo_x", COLS_AXIS), ("wrap", None),
+                       ("halo_xy", (COLS_AXIS, COLS_AXIS_Y))]:
+        refs = dataclasses.replace(refs0, shard_axis=axis, cache={})
+        n_src = refs.src_rows
+        xmu = rnd(n_src, 6 * F, scale=0.3)
+        margs = (xmu, rbf, dirs, FW, refs)
+        cases = [
+            case("msg_fwd_edge", "colblock_message.cu",
+                 "colblock_pallas.py:322",
+                 lambda: edge.msg_fwd_edge_kernel(*margs),
+                 lambda: edge.msg_fwd_edge_plain(*margs),
+                 (margs[:4], idx), msg_fwd),
+            case("msg_bwd_edge", "colblock_message.cu",
+                 "colblock_pallas.py:391",
+                 lambda: edge.msg_bwd_edge_kernel(*margs, g_dq, g_dmu),
+                 lambda: edge.msg_bwd_edge_plain(*margs, g_dq, g_dmu)[:3],
+                 (margs[:4], idx, g_dq, g_dmu), 2 * msg_fwd,
+                 wgrad={"kern": lambda: edge.msg_bwd_edge_kernel(
+                            *margs, g_dq, g_dmu, wgrad=True),
+                        "plain": lambda: edge.msg_bwd_edge_plain(
+                            *margs, g_dq, g_dmu),
+                        "ref": lambda: in_f64(edge.msg_bwd_edge_plain,
+                                              *margs, g_dq, g_dmu),
+                        "flops": 2 * msg_fwd + gfw}),
+        ]
+        if mode != "wrap":
+            table = rnd(n_src, 3)
+            g3 = rnd(nx, ny, Ktot, 3)
+            j, valid = decode_src(refs)
+            jf, jm = j.reshape(-1), valid.reshape(-1, 1).float()
+            jpad = torch.where(valid, j, n_src).reshape(-1)
+            cases += [
+                case("gather_fwd", "colblock_select.cu",
+                     "colblock_shard.py:131",
+                     lambda: (sel.gather_fwd_kernel(table, refs),),
+                     lambda: (sel.gather_fwd_plain(table, refs),),
+                     (table, refs.qcol), 0,
+                     lambda: table.index_select(0, jf).mul_(jm)),
+                case("gather_bwd", "colblock_select.cu",
+                     "colblock_shard.py:154",
+                     lambda: (sel.gather_bwd_kernel(g3, refs),),
+                     lambda: (sel.gather_bwd_plain(g3, refs),),
+                     (4 * ne * 3, refs.qcol), ne * 3,
+                     lambda: table.new_zeros((n_src + 1, 3)).index_add_(
+                         0, jpad, g3.reshape(-1, 3))),
+            ]
+        for c in cases:
+            c["tag"] = f" ({mode})"
+        for row in check_kernels(cases):
+            if mode == "halo_x" and row["name"].startswith("msg"):
+                rows[row["name"]] = row
+            else:
+                modes.setdefault(row["name"], {})[mode] = {
+                    k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                        "bound_ms", "bound_by", "library_ms",
+                                        "wgrad") if k in row}
+    for name, row in rows.items():
+        row["modes"] = modes.pop(name)
+    return list(rows.values()), modes
+
+
+def slab_reference_phase(dev):
+    """PaiNN on the slab path through ``make_sharded_column_eval`` on one
+    card against ``port_ref_painn_argon.npz``; returns its forces in the
+    original atom order."""
+    from schnetpack_tpu_torch.parallel import make_sharded_column_eval
+
+    ref = np.load(REFERENCE["full"])
+    sim = slab_simulator(ref["R"].astype(np.float64), ref["cell"], dev)
+    lay, inputs = slab_inputs(sim, ref["R"], dev)
+    E, Fs = make_sharded_column_eval(sim.pot, sim.params, inputs,
+                                     sim.mesh)(inputs)
+    F = Fs.detach().cpu().numpy()[lay.rank]
+    E = float(E[0])
+    rms = float(np.sqrt(np.mean((F - ref["forces"]) ** 2)))
+    dE = abs(E - float(ref["energy"])) / abs(float(ref["energy"]))
+    nx, ny, _ = lay.qcol.shape
+    print(f"reference (painn_slab, dims=({nx}, {ny}, {lay.dims[2]}) "
+          f"Ktot={lay.qcol.shape[2]}): force rms err {rms:.3e} eV/Ang (max "
+          f"{np.abs(F - ref['forces']).max():.3e}), energy {E:.6f} vs "
+          f"{float(ref['energy']):.6f} eV (rel {dE:.2e})", flush=True)
+    assert np.isfinite(F).all() and F.shape == ref["forces"].shape
+    assert rms <= FORCE_RMS_TOL, f"painn_slab: force rms {rms}"
+    assert dE <= ENERGY_RTOL, f"painn_slab: energy rel err {dE}"
+    return F
+
+
+def grad_phase(dev, launches):
+    """The energy's gradient with respect to every parameter on each path
+    of ``GRAD_REFERENCE`` against its JAX fixture, with the launches of one
+    evaluation (counts set to 0 just before it, read just after); returns
+    the launch counts summed over the paths."""
+    from schnetpack_tpu_torch import properties as P
+    from schnetpack_tpu_torch.md import load_molecules
+
+    total = {}
+    for path, fixture in GRAD_REFERENCE.items():
+        ref = np.load(fixture)
+        pot, params = potential(path, forces=False)
+        fpot, _ = potential(path)
+        if path == "painn_slab":
+            sim = slab_simulator(ref["R"].astype(np.float64), ref["cell"],
+                                 dev, pot, params)
+            _, inputs = slab_inputs(sim, ref["R"], dev)
+            pot.to(dev)
+        else:
+            calc = calculator(pot, params, wgrad=True)
+            system = load_molecules([molecule(ref["R"].astype(np.float64),
+                                              ref["cell"])], device=dev)
+            inputs = calc.model_inputs(system, calc.init_state(system))
+        fpot.load_state_dict(params)
+        fpot.to(dev).requires_grad_(False)
+        names, leaves = zip(*pot.named_parameters())
+
+        def evaluate():
+            E = pot(dict(inputs))[P.energy][0]
+            return E, torch.autograd.grad(E, leaves)
+
+        for counts in launches:
+            for k in counts:
+                counts[k] = 0
+        E, grads = evaluate()
+        torch.cuda.synchronize()
+        counts = {k: v for c in launches for k, v in c.items() if v}
+        assert counts == GRAD_LAUNCHES[path], (
+            f"{path} gradient: launches {counts}, want "
+            f"{GRAD_LAUNCHES[path]}")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        norms = {n: float(np.linalg.norm(ref[f"grad/{n}"])) for n in names}
+        floor = GRAD_FLOOR * max(norms.values())
+        errs = {n: float(np.linalg.norm(g.double().cpu().numpy()
+                                        - ref[f"grad/{n}"]))
+                / max(norms[n], floor) for n, g in zip(names, grads)}
+        worst = max(errs, key=errs.get)
+        dE = (abs(float(E.detach()) - float(ref["energy"]))
+              / abs(float(ref["energy"])))
+        grad_ms = cuda_ms(evaluate, reps=5)
+        force_ms = cuda_ms(lambda: fpot(dict(inputs)), reps=5)
+        print(f"gradient ({path}): {len(names)} leaves, worst {worst} "
+              f"||dg||/||g|| {errs[worst]:.3e} (|g| {norms[worst]:.3e}), "
+              f"energy rel err {dE:.2e}; energy + parameter gradient "
+              f"{grad_ms:.3f} ms, frozen energy + forces {force_ms:.3f} ms",
+              flush=True)
+        assert set(f"grad/{n}" for n in names) == {
+            k for k in ref.files if k.startswith("grad/")}
+        assert all(np.isfinite(g.cpu().numpy()).all() for g in grads)
+        assert errs[worst] <= GRAD_RTOL, f"{path}: {worst} {errs[worst]}"
+        assert dE <= ENERGY_RTOL, f"{path}: energy rel err {dE}"
+    return total
+
+
+def slab_md_phase(pos, cell, steps, seed, dev, launches):
+    """NVE on the slab path through ``SpatialColumnSimulator``; returns
+    (launch counts, ms/step).  The counts are set to 0 before each chunk
+    and read after it; the total energy is evaluated at the chunk
+    boundaries, outside them.  The ms/step is the chunks' CUDA-event time
+    over the steps, without the host re-bins (printed apart)."""
+    from schnetpack_tpu_torch import properties as P
+    from schnetpack_tpu_torch.parallel import make_sharded_column_eval
+
+    sim = slab_simulator(pos, cell, dev)
+    slab_momenta(sim, seed)
+    A = len(pos)
+
+    def temperature(p_):
+        return slab_temperature(sim.masses, p_)
+
+    def total_energy():
+        lay, inputs = slab_inputs(sim, sim.R, dev)
+        E, _ = make_sharded_column_eval(sim.pot, None, inputs,
+                                        sim.mesh)(inputs)
+        return float(E[0]) + 1.5 * A * KB_EV * temperature(sim.p)
+
+    E_tot = [total_energy()]
+    counts = {}
+    n_chunks = -(-steps // SLAB_CHUNK)
+    for _ in range(n_chunks):
+        for c in launches:
+            for k in c:
+                c[k] = 0
+        sim.simulate(SLAB_CHUNK, chunk_size=SLAB_CHUNK)
+        torch.cuda.synchronize()
+        for c in launches:
+            for k, v in c.items():
+                counts[k] = counts.get(k, 0) + v
+        E_tot.append(total_energy())
+    ms_step = sum(sim.chunk_ms) / (n_chunks * SLAB_CHUNK)
+    T = temperature(sim.p)
+    drift = float(np.abs(np.asarray(E_tot) - E_tot[0]).max()) / A
+    lay = sim.layout()
+    print(f"md (painn_slab): {n_chunks * SLAB_CHUNK} steps, {A} atoms, "
+          f"dims={lay.dims[:3]} Ktot={lay.qcol.shape[2]}, ms/step (CUDA "
+          f"events, chunks only) {ms_step:.3f}, {A / (ms_step * 1e-3):.4g} "
+          f"atom-steps/s, host re-bins {sim.rebuilds} in "
+          f"{sim.host_seconds:.3f} s wall, T_end={T:.2f} K, max |E_tot - "
+          f"E_tot(0)| at the chunk boundaries = {drift:.3e} eV/atom",
+          flush=True)
+    assert np.isfinite(sim.R).all(), "non-finite positions"
+    assert 0.0 < T < 300.0, f"temperature {T} K"
+    assert drift <= DRIFT_TOL, f"energy drift {drift} eV/atom"
+    evals = n_chunks * (SLAB_CHUNK + 1)
+    for k, v in counts.items():
+        want = PER_STEP["painn_slab"].get(k, 0) * evals
+        assert v == want, f"painn_slab: {k} launched {v} times, want {want}"
+    return counts, ms_step
+
+
 def layout_of(path):
     """The neighbor-list layout of an MD path."""
     return "atom" if path == "painn_cell" else "column"
@@ -649,8 +1035,8 @@ def layout_of(path):
 
 def reference_phase(dev):
     """Both PaiNN message forms, SchNet, SO3net, PaiNN's row-9 path with a
-    trainable Gaussian and a Bessel basis and PaiNN on the 27-cell layout
-    against their JAX references; forces per path."""
+    trainable Gaussian and a Bessel basis, PaiNN on the 27-cell layout and
+    on the slab path against their JAX references; forces per path."""
     from schnetpack_tpu_torch.md import load_molecules
 
     out = {}
@@ -672,7 +1058,8 @@ def reference_phase(dev):
         assert rms <= FORCE_RMS_TOL, f"{path}: force rms {rms}"
         assert dE <= ENERGY_RTOL, f"{path}: energy rel err {dE}"
         out[path] = F
-    for other in ("hybrid", "painn_cell"):
+    out["painn_slab"] = slab_reference_phase(dev)
+    for other in ("hybrid", "painn_cell", "painn_slab"):
         d = out[other] - out["full"]
         print(f"{other} vs full forces: rms {np.sqrt(np.mean(d ** 2)):.3e}, "
               f"max {np.abs(d).max():.3e} eV/Ang", flush=True)
@@ -840,6 +1227,7 @@ def main():
     from schnetpack_tpu_torch.md import load_molecules
     from schnetpack_tpu_torch.ops import _build
     from schnetpack_tpu_torch.ops import cellblock_gather as cg
+    from schnetpack_tpu_torch.ops import colblock_edge as edge
     from schnetpack_tpu_torch.ops import colblock_geo as geo_op
     from schnetpack_tpu_torch.ops import colblock_message as msg
     from schnetpack_tpu_torch.ops import colblock_select as sel
@@ -863,7 +1251,11 @@ def main():
                                 args.seed, dev)
     rows += select_kernel_phase(calculator(*potential("so3net")), system,
                                 args.seed, dev)
+    edge_rows, halo_modes = edge_kernel_phase(pos, cell, args.seed, dev)
+    rows += edge_rows
     by_name = {row["name"]: row for row in rows}
+    for name, modes in halo_modes.items():   # K11/K12 on the slab's halo
+        by_name[name]["modes"] = modes
     for row in cell_kernel_phase(calculator(*potential("painn_cell"),
                                             layout="atom"), system,
                                  args.seed, dev):
@@ -874,9 +1266,10 @@ def main():
         else:
             rows.append(row)
     reference_phase(dev)
-    rebuild_phase(args.seed, dev)
     launches = (msg.LAUNCHES, mix.LAUNCHES, geo_op.LAUNCHES, cf.LAUNCHES,
-                sel.LAUNCHES, cg.LAUNCHES, pf.LAUNCHES)
+                sel.LAUNCHES, cg.LAUNCHES, pf.LAUNCHES, edge.LAUNCHES)
+    wgrad_launches = grad_phase(dev, launches)
+    rebuild_phase(args.seed, dev)
     total = {}
     ms_step = {}
     for path in PATHS:
@@ -884,13 +1277,23 @@ def main():
                                          args.seed, dev, launches)
         for k, v in counts.items():
             total[k] = total.get(k, 0) + v
+    counts, ms_step["painn_slab"] = slab_md_phase(pos, cell, args.steps,
+                                                  args.seed, dev, launches)
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
     for row in rows:
         row["launches"] = total[row["name"]]
         assert row["launches"] > 0, f"{row['name']} never ran in the MD"
+        key = row["name"] + "_wgrad"
+        if key in wgrad_launches:   # an instance with its own counter
+            row["wgrad"]["launches"] = wgrad_launches[key]
+    for key in ("mix_bwd_wgrad", "cf_bwd_wgrad", "msg_bwd_edge_wgrad"):
+        assert wgrad_launches.get(key, 0) > 0, f"{key} never ran"
     print(f"md ms/step PaiNN hybrid {ms_step['hybrid']:.3f}, PaiNN full "
           f"{ms_step['full']:.3f}, SchNet {ms_step['schnet']:.3f}, SO3net "
           f"{ms_step['so3net']:.3f}, PaiNN trbf {ms_step['painn_trbf']:.3f}, "
-          f"PaiNN cell {ms_step['painn_cell']:.3f} on {smi}")
+          f"PaiNN cell {ms_step['painn_cell']:.3f}, PaiNN slab "
+          f"{ms_step['painn_slab']:.3f} on {smi}")
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,12 @@ forces flow back through it.  On the column layout the per-edge
 displacements are ``col_rij = gather(R) + coff - expand(R)``
 [nx, ny, Ktot, 3] from K11 and K13 (``ops/colblock_select.py``); their
 VJPs, K12 and K14, carry dR.  The periodic offsets are zero at padded
-slots, where both selections give zero rows.  On the 27-cell atom layout
+slots, where both selections give zero rows.  Inputs with ``cell_shard``
+(the slab path of ``parallel/columns.py``) take the JAX package's sharded
+branch (``distances.py:37-53``): the gather reads the halo'd slab (K11/K12
+in a halo mode, ``ops/colblock_shard.py``), the expand stays local, and
+the offsets are ``cell_coff`` [nx, ny, Ktot, 3] times ``cell_emask``.  On
+the 27-cell atom layout
 they are ``nbh_rij = cell_gather(R) + nbh_offsets - R * nbh_mask``
 [A', K, 3] from K16 (``ops/cellblock_gather.py``, VJP K17), exactly 0 at
 padded slots (``distances.py:54-62``).  The flat ``Rij`` of the JAX module
@@ -23,6 +28,7 @@ from .. import properties
 from ..ops.cellblock_gather import CellRefs, cell_gather
 from ..ops.colblock import ColRefs
 from ..ops.colblock_select import column_expand_op, column_gather_op
+from ..ops.colblock_shard import COLS_AXIS, COLS_AXIS_Y
 
 
 class PairwiseDistances(nn.Module):
@@ -33,10 +39,13 @@ class PairwiseDistances(nn.Module):
         R = inputs[properties.R]
         if properties.cell_qcol in inputs:
             refs = column_refs(inputs)
-            inputs[properties.col_rij] = (
-                column_gather_op(R, refs)
-                + inputs[properties.cell_coff_fm].movedim(2, 3)
-                - column_expand_op(R, refs))
+            if properties.cell_shard in inputs:
+                coff = (inputs[properties.cell_coff]
+                        * inputs[properties.cell_emask][..., None])
+            else:
+                coff = inputs[properties.cell_coff_fm].movedim(2, 3)
+            inputs[properties.col_rij] = (column_gather_op(R, refs) + coff
+                                          - column_expand_op(R, refs))
         elif properties.cell_qidx in inputs:
             inputs[properties.nbh_rij] = (
                 cell_gather(R, cell_refs(inputs))
@@ -53,13 +62,19 @@ class PairwiseDistances(nn.Module):
 def column_refs(inputs: Dict[str, torch.Tensor]) -> ColRefs:
     """The column-layout refs of a model's inputs, built once per forward
     and kept in the inputs, so that every op of the forward shares the
-    index schedules cached on them."""
+    index schedules cached on them.  A ``cell_shard`` marker of length 1
+    (2) makes them x-slab ((x, y)-block) refs (``painn.py:301-309``)."""
     refs = inputs.get(properties.col_refs)
     if refs is None:
         qcol = inputs[properties.cell_qcol]
         P = inputs[properties.R].shape[0] // (qcol.shape[0] * qcol.shape[1])
+        shard = None
+        if properties.cell_shard in inputs:
+            shard = ((COLS_AXIS, COLS_AXIS_Y)
+                     if inputs[properties.cell_shard].shape[0] >= 2
+                     else COLS_AXIS)
         refs = ColRefs(qcol, inputs[properties.cell_dcol], P,
-                       tuple(inputs[properties.cell_ksz]))
+                       tuple(inputs[properties.cell_ksz]), shard)
         inputs[properties.col_refs] = refs
     return refs
 

@@ -21,6 +21,28 @@
 //   each real slot's geometry cotangent ggeo = [grbf (B+1), gdir (3)] is
 //   written at the slot's own [c, Ktot] position (one writer per slot;
 //   the wrapper zero-fills, so padded slots stay 0).
+// K20 msg_fwd_kernel<true> on edge-major geometry replaces the row-12
+//   forward colblock_pallas.py:322 _msg_fwd_kernel (launchers :365 on one
+//   device and colblock_shard.py:269 _msg_hx_fwd_call on halo slabs): the
+//   message on xmu = [x, mu] [A'_src, 6F], rbf_aug [nx, ny, Ktot, B+1] and
+//   dir [nx, ny, Ktot, 3].
+// K21 msg_bwd_kernel<kSrc, W> on the same inputs replaces the row-12
+//   backward colblock_pallas.py:391 _msg_bwd_kernel (launchers :478 and
+//   colblock_shard.py:307 _msg_hx_bwd_call): dxmu over the whole source
+//   table, grbf, gdir and (W) gFW.
+//
+// K6/K20 and K15/K21 are the same kernel bodies: the geometry is read
+// through a GeoView (channel-major geo [nx, ny, nch, Ktot] or edge-major
+// [nx, ny, Ktot, c] tensors), x and mu are rows of stride ldx (3F for the
+// two tables, 6F for the halves of xmu), and the source column of bucket
+// c9 = (dx+1)*3 + (dy+1) of destination column (i, j) is, in the three
+// source-index modes (hx, hy):
+//   wrap    (0, 0): ((i+dx) mod nx, (j+dy) mod ny) of an [nx, ny] table
+//   halo_x  (1, 0): (i+dx+1, (j+dy) mod ny) of an [nx+2, ny] table
+//   halo_xy (1, 1): (i+dx+1, j+dy+1) of an [nx+2, ny+2] table
+// (the x- and xy-halo'd slabs of colblock_shard.py:111-128).  The backward
+// needs no mode: its blocks own source columns of whichever table, whose
+// slots the wrapper sorts by their row in it.
 //
 // kWgrad adds the filter-weight cotangent gFW = sum_e rbf_aug_e^T gW_e
 // [B+1, 3F]: thread part*F+f owns column part*F+f, sums a chunk's 32
@@ -96,17 +118,37 @@ struct KOffs {
   int o[10];
 };
 
+// Per-slot geometry: channel c < B+1 of slot k of destination column col
+// at rbf + col * col_r + k * slot_r + c * ch_r, direction component c at
+// dir + col * col_d + k * slot_d + c * ch_d (K7's d channel is direction
+// component 3 of the channel-major geo).
+template <typename T>
+struct GeoView {
+  T* rbf;
+  T* dir;
+  size_t col_r, slot_r, ch_r, col_d, slot_d, ch_d;
+  __device__ T* r(int col, int k, int c) const {
+    return rbf + col * col_r + k * slot_r + c * ch_r;
+  }
+  __device__ T* d(int col, int k, int c) const {
+    return dir + col * col_d + k * slot_d + c * ch_d;
+  }
+  __device__ T* at(int col, int k, int c, int B1) const {
+    return c < B1 ? r(col, k, c) : d(col, k, c - B1);
+  }
+};
+
 
 template <bool kGeo>
 __global__ void __launch_bounds__(kThreads)
 msg_fwd_kernel(const float* __restrict__ x, const float* __restrict__ mu,
-               const float* __restrict__ R, const float* __restrict__ geo,
+               const float* __restrict__ R, GeoView<const float> gv,
                const float* __restrict__ FW,
                const float* __restrict__ coff, const float* __restrict__ cw,
                const int* __restrict__ qcol, const int* __restrict__ dcol,
                float* __restrict__ dq, float* __restrict__ dmu,
                int nx, int ny, int P, int Ktot, KOffs ko, int F, int B,
-               int nch, float rc) {
+               int ldx, int hx, int hy, float rc) {
   // One block per (destination column, 32-feature tile).  Warp o of the
   // block owns output o (0: dq, 1..3: dmu component o-1) for the tile's 32
   // features, so each shared accumulator entry has exactly one writer.
@@ -134,9 +176,10 @@ msg_fwd_kernel(const float* __restrict__ x, const float* __restrict__ mu,
   const int* dc = dcol + (size_t)col * Ktot;
 
   for (int c9 = 0; c9 < 9; ++c9) {
-    const int si = (ci + c9 / 3 - 1 + nx) % nx;
-    const int sj = (cj + c9 % 3 - 1 + ny) % ny;
-    const int srow0 = (si * ny + sj) * P;
+    const int dxo = c9 / 3 - 1, dyo = c9 % 3 - 1;
+    const int si = hx ? ci + dxo + 1 : (ci + dxo + nx) % nx;
+    const int sj = hy ? cj + dyo + 1 : (cj + dyo + ny) % ny;
+    const int srow0 = (si * (ny + 2 * hy) + sj) * P;
     const int k_end = ko.o[c9 + 1];
     for (int base = ko.o[c9]; base < k_end; base += kEdgesFwd) {
       __syncthreads();  // the previous chunk's readers are done
@@ -148,16 +191,14 @@ msg_fwd_kernel(const float* __restrict__ x, const float* __restrict__ mu,
         src = srow0 + qc[e];
         float* rb = s_rbf + tid * B1;
         if constexpr (kGeo) {
-          // K6: the stored [phi*fcut, fcut, dir] channels of slot e
-          // (neighbouring threads read neighbouring slots), kLd loads in
-          // flight per thread
-          const float* g = geo + (size_t)col * nch * Ktot + e;
+          // K6/K20: the [phi*fcut, fcut, dir] channels of slot e, kLd
+          // loads in flight per thread
           const int nc = B1 + 3;
           for (int c0 = 0; c0 < nc; c0 += kLd) {
             float v[kLd];
 #pragma unroll
             for (int u = 0; u < kLd; ++u)
-              v[u] = c0 + u < nc ? g[(size_t)(c0 + u) * Ktot] : 0.f;
+              v[u] = c0 + u < nc ? *gv.at(col, e, c0 + u, B1) : 0.f;
 #pragma unroll
             for (int u = 0; u < kLd; ++u) {
               const int c = c0 + u;
@@ -216,7 +257,7 @@ msg_fwd_kernel(const float* __restrict__ x, const float* __restrict__ mu,
         float val[kU];
 #pragma unroll
         for (int u = 0; u < kU; ++u) {
-          const size_t row = (size_t)max(sr[u], 0) * D3;
+          const size_t row = (size_t)max(sr[u], 0) * ldx;
           if (o == 0)
             val[u] = x[row + f] * w0[u];
           else
@@ -243,7 +284,7 @@ msg_fwd_kernel(const float* __restrict__ x, const float* __restrict__ mu,
 template <int kMode, bool kWgrad>
 __global__ void __launch_bounds__(kMaxThreadsBwd)
 msg_bwd_kernel(const float* __restrict__ x, const float* __restrict__ mu,
-               const float* __restrict__ R, const float* __restrict__ geo,
+               const float* __restrict__ R, GeoView<const float> gv,
                const float* __restrict__ FW,
                const float* __restrict__ coff, const float* __restrict__ cw,
                const int* __restrict__ qcol, const int* __restrict__ dcol,
@@ -251,12 +292,12 @@ msg_bwd_kernel(const float* __restrict__ x, const float* __restrict__ mu,
                const float* __restrict__ g_dq, const float* __restrict__ g_dmu,
                float* __restrict__ dx, float* __restrict__ dmu_out,
                float* __restrict__ gRo, float* __restrict__ gRd,
-               float* __restrict__ ggeo, double* __restrict__ gFWp,
+               GeoView<float> gg, double* __restrict__ gFWp,
                int nx, int ny, int P, int Ktot, KOffs ko, int G, int F,
-               int B, int nch, float rc) {
+               int B, int ldx, float rc) {
   // Source-centric.  ``esorted`` lists every real edge slot (dest column
   // * Ktot + slot) sorted by source atom, i.e. by (source column, source
-  // row).  Block (col, g) owns the source rows [r0, r1) of column col and
+  // row) of the source table (K21: the halo'd one in the halo modes).  Block (col, g) owns the source rows [r0, r1) of column col and
   // their edges [e0, e1) (``grp[col][g]`` = (r0, e0), ``grp[col][g+1]``
   // = (r1, e1), ranges of about equal edge count).  It is the only writer
   // of those rows of dx, dmu and gRo, and writes its destination-side
@@ -302,11 +343,11 @@ msg_bwd_kernel(const float* __restrict__ x, const float* __restrict__ mu,
 
   const size_t own0 = (size_t)col * P;
   for (int r = r0; r < r1; ++r) {      // rows without edges stay zero
-    dx[(own0 + r) * D3 + tid] = 0.f;
+    dx[(own0 + r) * ldx + tid] = 0.f;
     if (part == 2) {
-      dmu_out[(own0 + r) * D3 + f] = 0.f;
-      dmu_out[(own0 + r) * D3 + F + f] = 0.f;
-      dmu_out[(own0 + r) * D3 + 2 * F + f] = 0.f;
+      dmu_out[(own0 + r) * ldx + f] = 0.f;
+      dmu_out[(own0 + r) * ldx + F + f] = 0.f;
+      dmu_out[(own0 + r) * ldx + 2 * F + f] = 0.f;
     }
   }
   for (int t = tid; t < B1 * D3; t += nth)
@@ -376,8 +417,7 @@ msg_bwd_kernel(const float* __restrict__ x, const float* __restrict__ mu,
         const int t = idx % E, c = idx / E;
         if (s_src[t] < 0) continue;
         const int slot = s_slot[t];
-        const float v = geo[((size_t)(slot / Ktot) * nch + c) * Ktot +
-                            slot % Ktot];
+        const float v = *gv.at(slot / Ktot, slot % Ktot, c, B1);
         if (c < B1)
           s_rbf[t * B1 + c] = v;
         else if (c < B1 + 3)
@@ -397,7 +437,7 @@ msg_bwd_kernel(const float* __restrict__ x, const float* __restrict__ mu,
       for (int u = 0; u < kU; ++u) {
         const bool ok = t0 + u < n;
         sv[u] = ok ? s_src[t0 + u] : -1;
-        so[u] = (own0 + max(sv[u], 0)) * D3;
+        so[u] = (own0 + max(sv[u], 0)) * ldx;
         sd[u] = ok ? s_dst[t0 + u] : 0;
         w[u] = 0.f;
       }
@@ -441,7 +481,7 @@ msg_bwd_kernel(const float* __restrict__ x, const float* __restrict__ mu,
         if (sv[u] < 0) continue;
         if (sv[u] != run) {            // the run of row `run` ended
           if (run >= 0) {
-            const size_t ro = (own0 + run) * D3;
+            const size_t ro = (own0 + run) * ldx;
             dx[ro + tid] = a_dx;
             if (part == 2) {
               dmu_out[ro + f] = a_m0;
@@ -516,7 +556,7 @@ msg_bwd_kernel(const float* __restrict__ x, const float* __restrict__ mu,
         else
           for (int w = 0; w < NW; ++w) v += s_gdir[(t * NW + w) * 3 + c - B1];
         const int slot = s_slot[t];
-        ggeo[((size_t)(slot / Ktot) * nch + c) * Ktot + slot % Ktot] = v;
+        *gg.at(slot / Ktot, slot % Ktot, c, B1) = v;
       }
       continue;  // the next chunk starts with a barrier
     }
@@ -598,7 +638,7 @@ msg_bwd_kernel(const float* __restrict__ x, const float* __restrict__ mu,
     }
   }
   if (run >= 0) {                      // close the last run
-    const size_t ro = (own0 + run) * D3;
+    const size_t ro = (own0 + run) * ldx;
     dx[ro + tid] = a_dx;
     if (part == 2) {
       dmu_out[ro + f] = a_m0;
@@ -630,12 +670,28 @@ KOffs make_koffs(const int* koffs) {
   return ko;
 }
 
+// the channel-major view of a packed geo [nx, ny, nch, Ktot]
+template <typename T>
+GeoView<T> packed_view(T* geo, int Ktot, int B1, int nch) {
+  const size_t col = (size_t)nch * Ktot;
+  return {geo, geo == nullptr ? nullptr : geo + (size_t)B1 * Ktot,
+          col, 1, (size_t)Ktot, col, 1, (size_t)Ktot};
+}
+
+// the edge-major view of rbf_aug [nx, ny, Ktot, B+1] and dir [.., 3]
+template <typename T>
+GeoView<T> edge_view(T* rbf, T* dir, int Ktot, int B1) {
+  return {rbf, dir, (size_t)Ktot * B1, (size_t)B1, 1,
+          (size_t)Ktot * 3, 3, 1};
+}
+
 template <bool kGeo>
 int launch_fwd(const float* x, const float* mu, const float* R,
-               const float* geo, const float* FW, const float* coff,
+               GeoView<const float> gv, const float* FW, const float* coff,
                const float* cw, const int* qcol, const int* dcol, float* dq,
                float* dmu, int nx, int ny, int P, int Ktot, const int* koffs,
-               int F, int B, int nch, float rc, cudaStream_t stream) {
+               int F, int B, int ldx, int hx, int hy, float rc,
+               cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * ((size_t)P * 128 + (B + 1) * 96 + kEdgesFwd * (B + 1) +
                        kEdgesFwd * 3) +
@@ -646,20 +702,21 @@ int launch_fwd(const float* x, const float* mu, const float* R,
   if (err != cudaSuccess) return (int)err;
   dim3 grid(nx * ny, F / kTile);
   msg_fwd_kernel<kGeo><<<grid, kThreads, smem, stream>>>(
-      x, mu, R, geo, FW, coff, cw, qcol, dcol, dq, dmu, nx, ny, P, Ktot,
-      make_koffs(koffs), F, B, nch, rc);
+      x, mu, R, gv, FW, coff, cw, qcol, dcol, dq, dmu, nx, ny, P, Ktot,
+      make_koffs(koffs), F, B, ldx, hx, hy, rc);
   return (int)cudaGetLastError();
 }
 
+// n_src: the source columns (one block row each)
 template <int kMode, bool kWgrad>
 int launch_bwd(const float* x, const float* mu, const float* R,
-               const float* geo, const float* FW, const float* coff,
+               GeoView<const float> gv, const float* FW, const float* coff,
                const float* cw, const int* qcol, const int* dcol,
                const int* esorted, const int* grp, const float* g_dq,
                const float* g_dmu, float* dx, float* dmu_out, float* gRo,
-               float* gRd, float* ggeo, double* gFWp, int nx, int ny, int P,
-               int Ktot, const int* koffs, int G, int F, int B, int nch,
-               float rc, cudaStream_t stream) {
+               float* gRd, GeoView<float> gg, double* gFWp, int nx, int ny,
+               int P, int Ktot, const int* koffs, int G, int F, int B,
+               int ldx, int n_src, float rc, cudaStream_t stream) {
   const int E = kEdgesBwd, B1 = B + 1, LD = 3 * F + 1;
   const size_t nR = kMode == kSrc ? 0 : 30 * (size_t)P;
   const size_t smem =
@@ -671,29 +728,30 @@ int launch_bwd(const float* x, const float* mu, const float* R,
       msg_bwd_kernel<kMode, kWgrad>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  msg_bwd_kernel<kMode, kWgrad><<<dim3(nx * ny, G), 3 * F, smem, stream>>>(
-      x, mu, R, geo, FW, coff, cw, qcol, dcol, esorted, grp, g_dq, g_dmu, dx,
-      dmu_out, gRo, gRd, ggeo, gFWp, nx, ny, P, Ktot, make_koffs(koffs), G,
-      F, B, nch, rc);
+  msg_bwd_kernel<kMode, kWgrad><<<dim3(n_src, G), 3 * F, smem, stream>>>(
+      x, mu, R, gv, FW, coff, cw, qcol, dcol, esorted, grp, g_dq, g_dmu, dx,
+      dmu_out, gRo, gRd, gg, gFWp, nx, ny, P, Ktot, make_koffs(koffs), G, F,
+      B, ldx, rc);
   return (int)cudaGetLastError();
 }
 
 // the kWgrad instance when a gFW partial buffer is given, else the plain one
 template <int kMode>
 int launch_bwd_any(const float* x, const float* mu, const float* R,
-                   const float* geo, const float* FW, const float* coff,
-                   const float* cw, const int* qcol, const int* dcol,
-                   const int* esorted, const int* grp, const float* g_dq,
-                   const float* g_dmu, float* dx, float* dmu_out, float* gRo,
-                   float* gRd, float* ggeo, double* gFWp, int nx, int ny,
-                   int P, int Ktot, const int* koffs, int G, int F, int B,
-                   int nch, float rc, cudaStream_t stream) {
+                   GeoView<const float> gv, const float* FW,
+                   const float* coff, const float* cw, const int* qcol,
+                   const int* dcol, const int* esorted, const int* grp,
+                   const float* g_dq, const float* g_dmu, float* dx,
+                   float* dmu_out, float* gRo, float* gRd, GeoView<float> gg,
+                   double* gFWp, int nx, int ny, int P, int Ktot,
+                   const int* koffs, int G, int F, int B, int ldx, int n_src,
+                   float rc, cudaStream_t stream) {
   if (gFWp != nullptr && B + 1 > kMaxB1) return (int)cudaErrorInvalidValue;
   auto* fn = gFWp != nullptr ? launch_bwd<kMode, true>
                              : launch_bwd<kMode, false>;
-  return fn(x, mu, R, geo, FW, coff, cw, qcol, dcol, esorted, grp, g_dq,
-            g_dmu, dx, dmu_out, gRo, gRd, ggeo, gFWp, nx, ny, P, Ktot, koffs,
-            G, F, B, nch, rc, stream);
+  return fn(x, mu, R, gv, FW, coff, cw, qcol, dcol, esorted, grp, g_dq,
+            g_dmu, dx, dmu_out, gRo, gRd, gg, gFWp, nx, ny, P, Ktot, koffs,
+            G, F, B, ldx, n_src, rc, stream);
 }
 
 }  // namespace
@@ -704,8 +762,9 @@ extern "C" int spk_msg_fwd(const float* x, const float* mu, const float* R,
                            float* dmu, int nx, int ny, int P, int Ktot,
                            const int* koffs, int F, int B, float rc,
                            cudaStream_t stream) {
-  return launch_fwd<false>(x, mu, R, nullptr, FW, coff, cw, qcol, dcol, dq,
-                           dmu, nx, ny, P, Ktot, koffs, F, B, 0, rc, stream);
+  return launch_fwd<false>(x, mu, R, GeoView<const float>{}, FW, coff, cw,
+                           qcol, dcol, dq, dmu, nx, ny, P, Ktot, koffs, F, B,
+                           3 * F, 0, 0, rc, stream);
 }
 
 extern "C" int spk_msg_fwd_geo(const float* x, const float* mu,
@@ -714,9 +773,21 @@ extern "C" int spk_msg_fwd_geo(const float* x, const float* mu,
                                float* dmu, int nx, int ny, int P, int Ktot,
                                const int* koffs, int F, int B, int nch,
                                cudaStream_t stream) {
-  return launch_fwd<true>(x, mu, nullptr, geo, FW, nullptr, nullptr, qcol,
-                          dcol, dq, dmu, nx, ny, P, Ktot, koffs, F, B, nch,
-                          0.f, stream);
+  return launch_fwd<true>(x, mu, nullptr, packed_view(geo, Ktot, B + 1, nch),
+                          FW, nullptr, nullptr, qcol, dcol, dq, dmu, nx, ny,
+                          P, Ktot, koffs, F, B, 3 * F, 0, 0, 0.f, stream);
+}
+
+extern "C" int spk_msg_fwd_edge(const float* xmu, const float* rbf,
+                                const float* dir, const float* FW,
+                                const int* qcol, const int* dcol, float* dq,
+                                float* dmu, int nx, int ny, int P, int Ktot,
+                                const int* koffs, int F, int B, int hx,
+                                int hy, cudaStream_t stream) {
+  return launch_fwd<true>(xmu, xmu + 3 * F, nullptr,
+                          edge_view(rbf, dir, Ktot, B + 1), FW, nullptr,
+                          nullptr, qcol, dcol, dq, dmu, nx, ny, P, Ktot,
+                          koffs, F, B, 6 * F, hx, hy, 0.f, stream);
 }
 
 extern "C" int spk_msg_bwd(const float* x, const float* mu, const float* R,
@@ -728,10 +799,11 @@ extern "C" int spk_msg_bwd(const float* x, const float* mu, const float* R,
                            double* gFWp, int nx, int ny, int P, int Ktot,
                            const int* koffs, int G, int F, int B, float rc,
                            cudaStream_t stream) {
-  return launch_bwd_any<kFused>(x, mu, R, nullptr, FW, coff, cw, qcol, dcol,
-                                esorted, grp, g_dq, g_dmu, dx, dmu_out, gRo,
-                                gRd, nullptr, gFWp, nx, ny, P, Ktot, koffs, G,
-                                F, B, 0, rc, stream);
+  return launch_bwd_any<kFused>(x, mu, R, GeoView<const float>{}, FW, coff,
+                                cw, qcol, dcol, esorted, grp, g_dq, g_dmu, dx,
+                                dmu_out, gRo, gRd, GeoView<float>{}, gFWp, nx,
+                                ny, P, Ktot, koffs, G, F, B, 3 * F, nx * ny,
+                                rc, stream);
 }
 
 extern "C" int spk_msg_bwd_geores(const float* x, const float* mu,
@@ -745,10 +817,11 @@ extern "C" int spk_msg_bwd_geores(const float* x, const float* mu,
                                   int Ktot, const int* koffs, int G, int F,
                                   int B, int nch, float rc,
                                   cudaStream_t stream) {
-  return launch_bwd_any<kGeoRes>(x, mu, nullptr, geo, FW, nullptr, cw, qcol,
-                                 dcol, esorted, grp, g_dq, g_dmu, dx, dmu_out,
-                                 gRo, gRd, nullptr, gFWp, nx, ny, P, Ktot,
-                                 koffs, G, F, B, nch, rc, stream);
+  return launch_bwd_any<kGeoRes>(
+      x, mu, nullptr, packed_view(geo, Ktot, B + 1, nch), FW, nullptr, cw,
+      qcol, dcol, esorted, grp, g_dq, g_dmu, dx, dmu_out, gRo, gRd,
+      GeoView<float>{}, gFWp, nx, ny, P, Ktot, koffs, G, F, B, 3 * F,
+      nx * ny, rc, stream);
 }
 
 extern "C" int spk_msg_bwd_src(const float* x, const float* mu,
@@ -760,8 +833,27 @@ extern "C" int spk_msg_bwd_src(const float* x, const float* mu,
                                double* gFWp, int nx, int ny, int P, int Ktot,
                                const int* koffs, int G, int F, int B, int nch,
                                cudaStream_t stream) {
-  return launch_bwd_any<kSrc>(x, mu, nullptr, geo, FW, nullptr, nullptr,
-                              qcol, dcol, esorted, grp, g_dq, g_dmu, dx,
-                              dmu_out, nullptr, nullptr, ggeo, gFWp, nx, ny,
-                              P, Ktot, koffs, G, F, B, nch, 0.f, stream);
+  return launch_bwd_any<kSrc>(
+      x, mu, nullptr, packed_view(geo, Ktot, B + 1, nch), FW, nullptr,
+      nullptr, qcol, dcol, esorted, grp, g_dq, g_dmu, dx, dmu_out, nullptr,
+      nullptr, packed_view(ggeo, Ktot, B + 1, nch), gFWp, nx, ny, P, Ktot,
+      koffs, G, F, B, 3 * F, nx * ny, 0.f, stream);
+}
+
+// n_src source columns: nx*ny (wrap), (nx+2)*ny (halo_x) or
+// (nx+2)*(ny+2) (halo_xy); dxmu [n_src * P, 6F]
+extern "C" int spk_msg_bwd_edge(const float* xmu, const float* rbf,
+                                const float* dir, const float* FW,
+                                const int* qcol, const int* dcol,
+                                const int* esorted, const int* grp,
+                                const float* g_dq, const float* g_dmu,
+                                float* dxmu, float* grbf, float* gdir,
+                                double* gFWp, int nx, int ny, int P,
+                                int Ktot, const int* koffs, int G, int F,
+                                int B, int n_src, cudaStream_t stream) {
+  return launch_bwd_any<kSrc>(
+      xmu, xmu + 3 * F, nullptr, edge_view(rbf, dir, Ktot, B + 1), FW,
+      nullptr, nullptr, qcol, dcol, esorted, grp, g_dq, g_dmu, dxmu,
+      dxmu + 3 * F, nullptr, nullptr, edge_view(grbf, gdir, Ktot, B + 1),
+      gFWp, nx, ny, P, Ktot, koffs, G, F, B, 6 * F, n_src, 0.f, stream);
 }

@@ -3,9 +3,11 @@
 // per-destination fold.
 //
 // K11 select_kernel<true>  replaces schnetpack_tpu/ops/colblock_pallas.py:121
-//   _gather_fwd_kernel (launcher :130 _gather_fwd_call);
-// K12 gather_bwd_kernel    replaces :148 _gather_bwd_kernel (launcher :163
-//   _gather_bwd_call, folded by :92 _fold_partials);
+//   _gather_fwd_kernel (launchers :130 _gather_fwd_call and, on halo slabs,
+//   colblock_shard.py:131 _gather_hx_call);
+// K12 gather_bwd_kernel    replaces :148 _gather_bwd_kernel (launchers :163
+//   _gather_bwd_call, folded by :92 _fold_partials, and colblock_shard.py:154
+//   _gather_hx_bwd_call, folded by :182 _fold_partials_hx);
 // K13 select_kernel<false> replaces :211 _expand_fwd_kernel (launcher :226
 //   _expand_call), which is also the fold's VJP;
 // K14 fold_kernel          replaces :244 _fold_fwd_kernel (launcher :259
@@ -18,7 +20,12 @@
 // A' = nx * ny * P, an edge tensor [nx, ny, Ktot, D], both row-major.
 //
 //   K11  out[x, y, k] = table[j(x, y, k)]  (0 at padded slots)
-//   K12  dT[j] = sum of g[x, y, k] over the slots whose source is j
+//        and on a halo'd table (colblock_message.cu's source-index modes)
+//        row qcol of column (x+dx+1, (y+dy) mod ny) of [nx+2, ny] columns
+//        (halo_x) or (x+dx+1, y+dy+1) of [nx+2, ny+2] (halo_xy)
+//   K12  dT[j] = sum of g[x, y, k] over the slots whose source is j (a
+//        row of the halo'd table in the halo modes: the slot order is the
+//        wrapper's, the kernel has no mode)
 //   K13  out[x, y, k] = table[i(x, y, k)]  (0 at padded slots)
 //   K14  out[i] = sum of v[x, y, k] over the slots whose destination is i
 //
@@ -88,7 +95,7 @@ __global__ void __launch_bounds__(kThreads)
     select_kernel(const float* __restrict__ table,
                   const int* __restrict__ idx, float* __restrict__ out,
                   int nx, int ny, int P, int Ktot, KOffs ko, int D,
-                  int slots) {
+                  int slots, int hx, int hy) {
   using T = typename Vec<V>::T;
   __shared__ int rows[kSelectElems];   // table row of each slot, -1: pad
   const int col = blockIdx.y;
@@ -102,9 +109,10 @@ __global__ void __launch_bounds__(kThreads)
     if (kGather && r >= 0) {
       int c9 = 0;
       while (k >= ko.o[c9 + 1]) ++c9;
-      const int xs = (x + c9 / 3 - 1 + nx) % nx;
-      const int ys = (y + c9 % 3 - 1 + ny) % ny;
-      src = xs * ny + ys;
+      const int dx = c9 / 3 - 1, dy = c9 % 3 - 1;
+      const int xs = hx ? x + dx + 1 : (x + dx + nx) % nx;
+      const int ys = hy ? y + dy + 1 : (y + dy + ny) % ny;
+      src = xs * (ny + 2 * hy) + ys;
     }
     rows[s] = r >= 0 ? src * P + r : -1;
   }
@@ -199,8 +207,8 @@ KOffs offsets(const int* koffs) {
 
 template <bool kGather>
 int launch_select(const float* table, const int* idx, float* out, int nx,
-                  int ny, int P, int Ktot, const int* koffs, int D,
-                  cudaStream_t stream) {
+                  int ny, int P, int Ktot, const int* koffs, int D, int hx,
+                  int hy, cudaStream_t stream) {
   const KOffs ko = offsets(koffs);
   const bool vec = D % 4 == 0 && aligned(table) && aligned(out);
   const int nvec = vec ? D / 4 : D;
@@ -210,27 +218,29 @@ int launch_select(const float* table, const int* idx, float* out, int nx,
   const dim3 grid((Ktot + slots - 1) / slots, nx * ny);
   if (vec)
     select_kernel<kGather, 4><<<grid, kThreads, 0, stream>>>(
-        table, idx, out, nx, ny, P, Ktot, ko, D, slots);
+        table, idx, out, nx, ny, P, Ktot, ko, D, slots, hx, hy);
   else
     select_kernel<kGather, 1><<<grid, kThreads, 0, stream>>>(
-        table, idx, out, nx, ny, P, Ktot, ko, D, slots);
+        table, idx, out, nx, ny, P, Ktot, ko, D, slots, hx, hy);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// hx, hy: the source-index mode (0, 0 wrap; 1, 0 halo_x; 1, 1 halo_xy)
 extern "C" int spk_gather_fwd(const float* table, const int* qcol, float* out,
                               int nx, int ny, int P, int Ktot,
-                              const int* koffs, int D, cudaStream_t stream) {
-  return launch_select<true>(table, qcol, out, nx, ny, P, Ktot, koffs, D,
-                             stream);
+                              const int* koffs, int D, int hx, int hy,
+                              cudaStream_t stream) {
+  return launch_select<true>(table, qcol, out, nx, ny, P, Ktot, koffs, D, hx,
+                             hy, stream);
 }
 
 extern "C" int spk_expand_fwd(const float* table, const int* dcol, float* out,
                               int nx, int ny, int P, int Ktot,
                               const int* koffs, int D, cudaStream_t stream) {
-  return launch_select<false>(table, dcol, out, nx, ny, P, Ktot, koffs, D,
-                              stream);
+  return launch_select<false>(table, dcol, out, nx, ny, P, Ktot, koffs, D, 0,
+                              0, stream);
 }
 
 extern "C" int spk_gather_bwd(const float* g, const int* esorted,

@@ -3,8 +3,10 @@
 // K3 mix_fwd_kernel replaces the TPU kernel
 //   schnetpack_tpu/ops/painn_mixing.py:73 _mix_fwd_kernel
 // K4 mix_bwd_kernel replaces
-//   schnetpack_tpu/ops/painn_mixing.py:83 _mix_bwd_kernel
-//   (input cotangents only: no weight cotangents).
+//   schnetpack_tpu/ops/painn_mixing.py:83 _mix_bwd_kernel: the input
+//   cotangents, and in its wgrad instance (a factor table S given) also the
+//   weight cotangents gkmix [F, 2F], gk0 [2F, F], gb0, gk1 [F, 3F], gb1
+//   (``painn_mixing.py:133-150``).
 //
 // Forward per row: q' = q + dq, mu' = mu + dmu (the interaction residual,
 // fused into the prologue); V_c = mu'_c Wv, W_c = mu'_c Ww;
@@ -22,6 +24,19 @@
 // coalesced from L2 (the backward takes transposed copies from the wrapper
 // so its transposed products stay coalesced).  Tensor cores (wgmma) and
 // TMA staging are later work.
+//
+// The weight cotangents are sums over all rows of outer products of a
+// row's forward factors (mu'_c, q', Vn, h) with its cotangent factors (gV_c,
+// gW_c, gpre, [g, gdmu_i, gdqmu_i]): 115k sums at F = 128, 0.46 MB in f32,
+// more than a block's shared memory, where the TPU keeps them resident in
+// VMEM over its sequential grid.  So the wgrad instance runs in two
+// kernels behind one entry point: mix_bwd_kernel also writes each row's 16F
+// factors to a table S [A, 16F], and mix_wgrad_kernel forms the products
+// from S as a split-K reduction: one block per (64 x 64 output tile, row
+// range), 4 x 4 outputs per thread summed in f32 over 32 rows at a time and
+// in f64 over the range; each row range writes one f64 partial set that
+// the wrapper sums (deterministic, no atomics).  A bias is the product with
+// a column of ones (an extra output row of the tile).
 
 #include <cuda_runtime.h>
 
@@ -199,8 +214,8 @@ mix_bwd_kernel(const float* __restrict__ q, const float* __restrict__ mu,
                const float* __restrict__ b0, const float* __restrict__ k1,
                const float* __restrict__ b1, const float* __restrict__ kmixT,
                const float* __restrict__ k0T, const float* __restrict__ k1T,
-               float* __restrict__ gqi, float* __restrict__ gmui, int A,
-               int F, float eps, int act) {
+               float* __restrict__ gqi, float* __restrict__ gmui,
+               float* __restrict__ S, int A, int F, float eps, int act) {
   extern __shared__ float smem[];
   const Tiles s = carve(smem, ROWS, F);
   const int D3 = 3 * F, F2 = 2 * F;
@@ -303,6 +318,115 @@ mix_bwd_kernel(const float* __restrict__ q, const float* __restrict__ mu,
       }
     }
   }
+  if (S == nullptr) return;
+  // wgrad: the rows' factors [mu' | q' | Vn | h | gV | gW | gpre | gcat]
+  // (the tiles are final since the barrier after the Vn chain)
+  const int D16 = 16 * F;
+  for (int t = tid; t < ROWS * D16; t += kThreads) {
+    const int r = t / D16, c = t - r * D16, row = row0 + r;
+    if (row >= A) continue;
+    float v;
+    if (c < D3) v = s.mup[r * D3 + c];
+    else if (c < 4 * F) v = s.qp[r * F + c - D3];
+    else if (c < 5 * F) v = s.Vn[r * F + c - 4 * F];
+    else if (c < 6 * F) v = s.h[r * F + c - 5 * F];
+    else if (c < 9 * F) v = s_gV[r * D3 + c - 6 * F];
+    else if (c < 12 * F) v = s_gW[r * D3 + c - 9 * F];
+    else if (c < 13 * F) v = s_gpre[r * F + c - 12 * F];
+    else v = s_gcat[r * D3 + c - 13 * F];
+    S[(size_t)row * D16 + c] = v;
+  }
+}
+
+// One weight cotangent out[i][j] = sum_rows sum_t X_t[row][i] Y_t[row][j]
+// with X_t, Y_t column ranges of S (term t shifts both by `step`), written
+// at out_off + i * out_ld + j; with bias_off >= 0 also the bias cotangent
+// sum_rows Y[row][j] at bias_off + j (output row i = M).
+struct WProb {
+  int x_off, y_off, M, N, terms, step, out_off, out_ld, bias_off;
+  int tiles_n, tile0;
+};
+constexpr int kWProbs = 4;
+struct WProbs {
+  WProb p[kWProbs];
+};
+constexpr int kWT = 64;   // output tile edge
+constexpr int kWR = 32;   // rows per f32 step
+
+__global__ void __launch_bounds__(256)
+mix_wgrad_kernel(const float* __restrict__ S, double* __restrict__ part,
+                 int A, int F, WProbs probs, int rows_per_split,
+                 int part_stride) {
+  __shared__ __align__(16) float sx[kWR][kWT];
+  __shared__ __align__(16) float sy[kWR][kWT];
+  int pi = 0;
+  while (pi + 1 < kWProbs && (int)blockIdx.x >= probs.p[pi + 1].tile0) ++pi;
+  const WProb& pb = probs.p[pi];
+  const int t = blockIdx.x - pb.tile0;
+  const int i0 = (t / pb.tiles_n) * kWT, j0 = (t % pb.tiles_n) * kWT;
+  const int r0 = blockIdx.y * rows_per_split;
+  const int r1 = min(A, r0 + rows_per_split);
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const size_t D16 = 16 * (size_t)F;
+  const bool bias = pb.bias_off >= 0;
+  double acc64[4][4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b) acc64[a][b] = 0.0;
+  for (int term = 0; term < pb.terms; ++term) {
+    const int xo = pb.x_off + term * pb.step, yo = pb.y_off + term * pb.step;
+    for (int rb = r0; rb < r1; rb += kWR) {
+      __syncthreads();  // the previous step's readers are done
+      for (int idx = tid; idx < kWR * kWT; idx += 256) {
+        const int r = idx / kWT, c = idx - r * kWT, row = rb + r;
+        const int i = i0 + c, j = j0 + c;
+        float xv = 0.f, yv = 0.f;
+        if (row < r1) {
+          if (i < pb.M) xv = S[row * D16 + xo + i];
+          else if (i == pb.M && bias) xv = 1.f;
+          if (j < pb.N) yv = S[row * D16 + yo + j];
+        }
+        sx[r][c] = xv;
+        sy[r][c] = yv;
+      }
+      __syncthreads();
+      float acc[4][4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
+#pragma unroll 4
+      for (int r = 0; r < kWR; ++r) {
+        const float4 xa = *reinterpret_cast<const float4*>(&sx[r][ty * 4]);
+        const float4 ya = *reinterpret_cast<const float4*>(&sy[r][tx * 4]);
+        const float xs[4] = {xa.x, xa.y, xa.z, xa.w};
+        const float ys[4] = {ya.x, ya.y, ya.z, ya.w};
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int b = 0; b < 4; ++b) acc[a][b] = fmaf(xs[a], ys[b], acc[a][b]);
+      }
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int b = 0; b < 4; ++b) acc64[a][b] += (double)acc[a][b];
+    }
+  }
+  double* out = part + (size_t)blockIdx.y * part_stride;
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int i = i0 + ty * 4 + a;
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const int j = j0 + tx * 4 + b;
+      if (j >= pb.N) continue;
+      if (i < pb.M)
+        out[pb.out_off + (size_t)i * pb.out_ld + j] = acc64[a][b];
+      else if (i == pb.M && bias)
+        out[pb.bias_off + j] = acc64[a][b];
+    }
+  }
 }
 
 }  // namespace
@@ -329,8 +453,9 @@ extern "C" int spk_mix_bwd(const float* q, const float* mu, const float* dq,
                            const float* kmix, const float* k0,
                            const float* b0, const float* k1, const float* b1,
                            const float* kmixT, const float* k0T,
-                           const float* k1T, float* gqi, float* gmui, int A,
-                           int F, float eps, int act, cudaStream_t stream) {
+                           const float* k1T, float* gqi, float* gmui,
+                           float* S, double* wpart, int nsplit, int A, int F,
+                           float eps, int act, cudaStream_t stream) {
   // 13 F (forward tiles) + 3F gcat + F gpre + 3F gV + 3F gW per row
   const size_t smem = sizeof(float) * (size_t)kRowsBwd * 23 * F;
   cudaError_t err =
@@ -341,6 +466,29 @@ extern "C" int spk_mix_bwd(const float* q, const float* mu, const float* dq,
   const int grid = (A + kRowsBwd - 1) / kRowsBwd;
   mix_bwd_kernel<kRowsBwd><<<grid, kThreads, smem, stream>>>(
       q, mu, dq, dmu, gq, gmu, kmix, k0, b0, k1, b1, kmixT, k0T, k1T, gqi,
-      gmui, A, F, eps, act);
+      gmui, S, A, F, eps, act);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || S == nullptr) return (int)err;
+  // wgrad: partial layout [gkmix F x 2F | gk0 2F x F | gb0 F | gk1 F x 3F |
+  // gb1 3F]; S columns [mu' 0 | q' 3F | Vn 4F | h 5F | gV 6F | gW 9F |
+  // gpre 12F | gcat 13F]
+  const int FF = F * F;
+  WProbs pr;
+  pr.p[0] = {0, 6 * F, F, F, 3, F, 0, 2 * F, -1, 0, 0};          // gWv
+  pr.p[1] = {0, 9 * F, F, F, 3, F, F, 2 * F, -1, 0, 0};          // gWw
+  pr.p[2] = {3 * F, 12 * F, 2 * F, F, 1, 0, 2 * FF, F, 4 * FF, 0, 0};
+  pr.p[3] = {5 * F, 13 * F, F, 3 * F, 1, 0, 4 * FF + F, 3 * F,
+             7 * FF + F, 0, 0};                                  // gk1, gb1
+  int tiles = 0;
+  for (int i = 0; i < kWProbs; ++i) {
+    WProb& p = pr.p[i];
+    const int m = p.M + (p.bias_off >= 0 ? 1 : 0);
+    p.tiles_n = (p.N + kWT - 1) / kWT;
+    p.tile0 = tiles;
+    tiles += ((m + kWT - 1) / kWT) * p.tiles_n;
+  }
+  const int rows_per_split = (A + nsplit - 1) / nsplit;
+  mix_wgrad_kernel<<<dim3(tiles, nsplit), 256, 0, stream>>>(
+      S, wpart, A, F, pr, rows_per_split, 7 * FF + 4 * F);
   return (int)cudaGetLastError();
 }

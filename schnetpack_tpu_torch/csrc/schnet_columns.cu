@@ -4,10 +4,11 @@
 // K9 cf_fwd_kernel replaces the TPU kernel
 //   schnetpack_tpu/ops/schnet_columns.py:79 _cf_fwd_kernel
 //   (launcher :118 _cf_fwd_call).
-// K10 cf_bwd_kernel replaces
+// K10 cf_bwd_kernel<W> replaces
 //   schnetpack_tpu/ops/schnet_columns.py:145 _cf_bwd_kernel (launcher :225
-//   _cf_bwd_call) in its MD form: dh and the geometry cotangent ggeo, with
-//   no filter-weight cotangents (gW1, gb1, gW2, gb2).
+//   _cf_bwd_call): dh and the geometry cotangent ggeo, and in its wgrad
+//   instance (W = true) also the filter-weight cotangents gW1 [B, F], gb1,
+//   gW2 [F, F] and gb2 (``schnet_columns.py:191-205``).
 //
 // Per edge slot (source row j, destination row i, raw-phi geometry
 // [phi (B), fcut, dir (3)] from colblock_geo.cu in its raw form):
@@ -51,6 +52,15 @@
 // f keeps the current bucket's source-row sums of feature f in shared
 // memory and writes them out when the slot order passes to the next
 // bucket.  The wrapper adds the 9 partials.
+//
+// The wgrad instance adds, per chunk, gW2 += h1^T gpre, gb2 += sum gpre,
+// gW1 += phi^T gz1 and gb1 += sum gz1 (gz1 = gh1 sigmoid(z1)) over the
+// chunk's edges: gpre^T is stored beside h1^T (in the M tile, free once the
+// fold has read it), then gz1^T over h1^T.  Thread (te, tf) owns gW2[k][f]
+// for k = te + 16i, f = tf + 16j (8 x 8, float4 reads along the edges) and
+// gW1[b][f] for b = te + 16i; it sums the chunk's 64 edges in f32 and adds
+// them to the block's f64 partial in device memory, which only it touches
+// (deterministic, no atomics); the wrapper sums the columns' partials.
 
 #include <cuda_runtime.h>
 
@@ -65,6 +75,8 @@ constexpr int kLdT = kE + 4;      // row stride of [F][E] tiles (float4 rows)
 constexpr int kLdW = kF + 1;      // row stride of W2 in shared memory
 constexpr int kLdM = kF + 1;      // row stride of [E][F] tiles
 constexpr int kMaxB = 32;
+// K10's M tile: [E][kLdM] ghj, or (wgrad) gpre^T [F][kLdT]
+constexpr int kMSize = kE * kLdM > kF * kLdT ? kE * kLdM : kF * kLdT;
 constexpr float kLn2 = 0.69314718055994531f;
 
 struct KOffs {
@@ -98,8 +110,7 @@ struct Smem {
 
 __host__ __device__ inline size_t smem_floats(int B, int P, bool bwd) {
   return (size_t)kF * kLdW + (size_t)B * kF + 2 * kF + (size_t)B * kLdT +
-         (size_t)kF * kLdT + (bwd ? (size_t)kE * kLdM : 0) +
-         (size_t)P * kF + kE;
+         (size_t)kF * kLdT + (bwd ? kMSize : 0) + (size_t)P * kF + kE;
 }
 
 __device__ inline Smem carve(float* s, int B, int P, bool bwd) {
@@ -111,7 +122,7 @@ __device__ inline Smem carve(float* s, int B, int P, bool bwd) {
   m.phiT = m.b2 + kF;
   m.T = m.phiT + B * kLdT;
   m.M = bwd ? m.T + kF * kLdT : m.T;
-  m.acc = m.M + (bwd ? kE * kLdM : kF * kLdT);
+  m.acc = m.M + (bwd ? kMSize : kF * kLdT);
   m.fc = m.acc + P * kF;
   m.src = reinterpret_cast<int*>(m.fc + kE);
   m.dst = m.src + kE;
@@ -282,6 +293,92 @@ cf_fwd_kernel(const float* __restrict__ h, const float* __restrict__ geo,
   for (int t = tid; t < P * kF; t += kThreads) o[t] = m.acc[t];
 }
 
+// wgrad: gW2 += h1^T gpre and gb2 += sum gpre over the chunk (T holds
+// h1^T, G gpre^T); thread (te, tf) owns k = te + 16i, f = tf + 16j
+__device__ inline void wgrad_layer2(const float* T, const float* G,
+                                    double* pw, int B, int te, int tf) {
+  float w[kNF][kNF], bs[kNF];
+#pragma unroll
+  for (int j = 0; j < kNF; ++j) {
+    bs[j] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kNF; ++i) w[i][j] = 0.f;
+  }
+  for (int e = 0; e < kE; e += 4) {
+    float4 gv[kNF];
+#pragma unroll
+    for (int j = 0; j < kNF; ++j)
+      gv[j] = *reinterpret_cast<const float4*>(G + (tf + 16 * j) * kLdT + e);
+#pragma unroll
+    for (int i = 0; i < kNF; ++i) {
+      const float4 hv =
+          *reinterpret_cast<const float4*>(T + (te + 16 * i) * kLdT + e);
+#pragma unroll
+      for (int j = 0; j < kNF; ++j)
+        w[i][j] = fmaf(hv.x, gv[j].x, fmaf(hv.y, gv[j].y,
+                  fmaf(hv.z, gv[j].z, fmaf(hv.w, gv[j].w, w[i][j]))));
+    }
+#pragma unroll
+    for (int j = 0; j < kNF; ++j)
+      bs[j] += (gv[j].x + gv[j].y) + (gv[j].z + gv[j].w);
+  }
+  double* gW2 = pw + (size_t)B * kF + kF;
+#pragma unroll
+  for (int i = 0; i < kNF; ++i)
+#pragma unroll
+    for (int j = 0; j < kNF; ++j)
+      gW2[(te + 16 * i) * kF + tf + 16 * j] += (double)w[i][j];
+  if (te == 0) {
+#pragma unroll
+    for (int j = 0; j < kNF; ++j) gW2[kF * kF + tf + 16 * j] += (double)bs[j];
+  }
+}
+
+// wgrad: gW1 += phi^T gz1 and gb1 += sum gz1 over the chunk (phiT [B][E],
+// T gz1^T); thread (te, tf) owns b = te + 16i (< B), f = tf + 16j
+__device__ inline void wgrad_layer1(const float* phiT, const float* T,
+                                    double* pw, int B, int te, int tf) {
+  constexpr int kNB = kMaxB / 16;
+  float w[kNB][kNF], bs[kNF];
+#pragma unroll
+  for (int j = 0; j < kNF; ++j) {
+    bs[j] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kNB; ++i) w[i][j] = 0.f;
+  }
+  for (int e = 0; e < kE; e += 4) {
+    float4 gv[kNF];
+#pragma unroll
+    for (int j = 0; j < kNF; ++j)
+      gv[j] = *reinterpret_cast<const float4*>(T + (tf + 16 * j) * kLdT + e);
+#pragma unroll
+    for (int i = 0; i < kNB; ++i) {
+      const int b = te + 16 * i;
+      if (b >= B) break;
+      const float4 pv = *reinterpret_cast<const float4*>(phiT + b * kLdT + e);
+#pragma unroll
+      for (int j = 0; j < kNF; ++j)
+        w[i][j] = fmaf(pv.x, gv[j].x, fmaf(pv.y, gv[j].y,
+                  fmaf(pv.z, gv[j].z, fmaf(pv.w, gv[j].w, w[i][j]))));
+    }
+#pragma unroll
+    for (int j = 0; j < kNF; ++j)
+      bs[j] += (gv[j].x + gv[j].y) + (gv[j].z + gv[j].w);
+  }
+#pragma unroll
+  for (int i = 0; i < kNB; ++i) {
+    const int b = te + 16 * i;
+    if (b >= B) break;
+#pragma unroll
+    for (int j = 0; j < kNF; ++j) pw[b * kF + tf + 16 * j] += (double)w[i][j];
+  }
+  if (te == 0) {
+#pragma unroll
+    for (int j = 0; j < kNF; ++j) pw[B * kF + tf + 16 * j] += (double)bs[j];
+  }
+}
+
+template <bool kWgrad>
 __global__ void __launch_bounds__(kThreads, 1)
 cf_bwd_kernel(const float* __restrict__ h, const float* __restrict__ geo,
               const float* __restrict__ W1, const float* __restrict__ b1,
@@ -289,8 +386,8 @@ cf_bwd_kernel(const float* __restrict__ h, const float* __restrict__ geo,
               const int* __restrict__ qcol, const int* __restrict__ dcol,
               const int* __restrict__ order, const int* __restrict__ nreal,
               const float* __restrict__ g, float* __restrict__ part,
-              float* __restrict__ ggeo, int nx, int ny, int P, int Ktot,
-              KOffs ko, int B, int nch) {
+              float* __restrict__ ggeo, double* __restrict__ wpart, int nx,
+              int ny, int P, int Ktot, KOffs ko, int B, int nch) {
   extern __shared__ float smem[];
   const Smem m = carve(smem, B, P, true);
   const int col = blockIdx.x, ci = col / ny, cj = col - ci * ny;
@@ -301,6 +398,12 @@ cf_bwd_kernel(const float* __restrict__ h, const float* __restrict__ geo,
   const int nr = nreal[col];
   const int* ord = order + (size_t)col * Ktot;
   const size_t gbase = (size_t)col * (B + 4) * Ktot;
+  // the block's f64 weight-cotangent partial [gW1 | gb1 | gW2 | gb2]
+  double* pw = kWgrad ? wpart + (size_t)col * ((B + 2) * kF + kF * kF)
+                      : nullptr;
+  // gpre^T: beside h1^T in the wgrad instance (h1 is still needed), else
+  // over it
+  float* G = kWgrad ? m.M : m.T;
   // padded slots: ggeo 0 in every channel; real slots: 0 in dir channels
   // (the other channels are written chunk by chunk below)
   for (int k = tid; k < Ktot; k += kThreads) {
@@ -361,9 +464,21 @@ cf_bwd_kernel(const float* __restrict__ h, const float* __restrict__ geo,
       if (tf == v && src >= 0)
         ggeo[gbase + (size_t)B * Ktot + m.slot[e]] = gfc;
     }
-    __syncthreads();  // every thread is done reading T (h1^T)
-    store_T(m.T, te, tf, a);
+    __syncthreads();  // M is written; every thread is done reading T
+    // fold ghj onto the source rows, in slot order, one bucket at a time
+    if (tid < kF) {
+      const int ne = min(kE, nr - n0);
+      for (int e = 0; e < ne; ++e) {
+        const int c9 = m.c9[e];
+        while (cur < c9) flush(cur++);
+        const int q = m.src[e] % P;
+        m.acc[q * kF + tid] += m.M[e * kLdM + tid];
+      }
+    }
+    __syncthreads();  // the fold is done with M
+    store_T(G, te, tf, a);
     __syncthreads();
+    if constexpr (kWgrad) wgrad_layer2(m.T, G, pw, B, te, tf);
     // gh1[e][k] = sum_f gpre[e][f] W2[k][f] for k = tf + 16u
     float gh[kNE][kNF];
 #pragma unroll
@@ -372,7 +487,7 @@ cf_bwd_kernel(const float* __restrict__ h, const float* __restrict__ geo,
       for (int v = 0; v < kNE; ++v) gh[v][u] = 0.f;
 #pragma unroll 4
     for (int f = 0; f < kF; ++f) {
-      const float4 gp = *reinterpret_cast<const float4*>(m.T + f * kLdT +
+      const float4 gp = *reinterpret_cast<const float4*>(G + f * kLdT +
                                                          te * 4);
 #pragma unroll
       for (int u = 0; u < kNF; ++u) {
@@ -412,15 +527,11 @@ cf_bwd_kernel(const float* __restrict__ h, const float* __restrict__ geo,
         }
       }
     }
-    // fold ghj onto the source rows, in slot order, one bucket at a time
-    if (tid < kF) {
-      const int ne = min(kE, nr - n0);
-      for (int e = 0; e < ne; ++e) {
-        const int c9 = m.c9[e];
-        while (cur < c9) flush(cur++);
-        const int q = m.src[e] % P;
-        m.acc[q * kF + tid] += m.M[e * kLdM + tid];
-      }
+    if constexpr (kWgrad) {
+      __syncthreads();  // every thread is done reading T (h1^T) and G
+      store_T(m.T, te, tf, gh);  // gz1^T
+      __syncthreads();
+      wgrad_layer1(m.phiT, m.T, pw, B, te, tf);
     }
   }
   __syncthreads();
@@ -465,18 +576,19 @@ extern "C" int spk_cf_bwd(const float* h, const float* geo, const float* W1,
                           const float* b1, const float* W2, const float* b2,
                           const int* qcol, const int* dcol, const int* order,
                           const int* nreal, const float* g, float* part,
-                          float* ggeo, int nx, int ny, int P, int Ktot,
-                          const int* koffs, int B, int nch,
+                          float* ggeo, double* wpart, int nx, int ny, int P,
+                          int Ktot, const int* koffs, int B, int nch,
                           cudaStream_t stream) {
   if (B > kMaxB) return (int)cudaErrorInvalidValue;
   KOffs ko;
   for (int i = 0; i < 10; ++i) ko.o[i] = koffs[i];
   const size_t smem =
       smem_floats(B, P, true) * sizeof(float) + 4 * kE * sizeof(int);
-  int err = set_smem(cf_bwd_kernel, smem);
+  auto* kernel = wpart != nullptr ? cf_bwd_kernel<true> : cf_bwd_kernel<false>;
+  int err = set_smem(kernel, smem);
   if (err) return err;
-  cf_bwd_kernel<<<nx * ny, kThreads, smem, stream>>>(
-      h, geo, W1, b1, W2, b2, qcol, dcol, order, nreal, g, part, ggeo, nx, ny,
-      P, Ktot, ko, B, nch);
+  kernel<<<nx * ny, kThreads, smem, stream>>>(
+      h, geo, W1, b1, W2, b2, qcol, dcol, order, nreal, g, part, ggeo, wpart,
+      nx, ny, P, Ktot, ko, B, nch);
   return (int)cudaGetLastError();
 }

@@ -13,8 +13,12 @@ state, exactly as after a host build.  ``neighbor_list`` is a
 ``"cellblock_atom"`` (the 27-cell atom layout, whose state passes
 ``cell_qidx``, ``nbh_idx``, ``nbh_mask`` and ``nbh_offsets``,
 ``schnetpack_calculator.py:192-199``, and the neighbor state's
-``CellRefs``, so that its cached schedules outlive the step).  The potential's parameters are
-frozen: MD differentiates with respect to positions only.
+``CellRefs``, so that its cached schedules outlive the step).  With the
+default ``wgrad=False`` the potential's parameters are frozen: MD
+differentiates with respect to positions only, and the kernels' plain
+backward instances run.  ``wgrad=True`` leaves ``requires_grad`` as it is
+(``schnetpack_calculator.py:43, 68-75``), so a parameter that requires
+grad gets its cotangent from the kernels' wgrad instances.
 """
 from __future__ import annotations
 
@@ -40,13 +44,15 @@ class SchNetPackCalculator(MDCalculator):
         energy_key: str = structure.energy,
         cutoff_shell: float = 0.0,
         neighbor_list: Union[CellBlockNeighborListMD, str, None] = None,
+        wgrad: bool = False,
     ):
         super().__init__(force_key=force_key, energy_unit=energy_unit,
                          position_unit=position_unit, energy_key=energy_key)
         self.model = model
         if params is not None:
             self.model.load_state_dict(params)
-        self.model.requires_grad_(False)
+        if not wgrad:
+            self.model.requires_grad_(False)
         self.cutoff_model_units = float(cutoff)
         if neighbor_list is None or isinstance(neighbor_list, str):
             layouts = {None: "column", "cellblock": "column",

@@ -38,14 +38,16 @@ SIGNATURES = {
     "spk_geo_fwd": [_P] * 6 + [_I] * 4 + [_P] + [_I] * 3 + [_F, _P],
     "spk_geo_bwd": [_P] * 8 + [_I] * 4 + [_P] + [_I, _F, _P],
     "spk_cf_fwd": [_P] * 11 + [_I] * 4 + [_P] + [_I, _I, _P],
-    "spk_cf_bwd": [_P] * 13 + [_I] * 4 + [_P] + [_I, _I, _P],
+    "spk_cf_bwd": [_P] * 14 + [_I] * 4 + [_P] + [_I, _I, _P],
     "spk_msg_fwd_geo": [_P] * 8 + [_I] * 4 + [_P] + [_I] * 3 + [_P],
     "spk_msg_bwd_geores": [_P] * 16 + [_I] * 4 + [_P] + [_I] * 4
                           + [_F, _P],
     "spk_msg_bwd_src": [_P] * 14 + [_I] * 4 + [_P] + [_I] * 4 + [_P],
+    "spk_msg_fwd_edge": [_P] * 8 + [_I] * 4 + [_P] + [_I] * 4 + [_P],
+    "spk_msg_bwd_edge": [_P] * 14 + [_I] * 4 + [_P] + [_I] * 4 + [_P],
     "spk_mix_fwd": [_P] * 9 + [_P, _P] + [_I, _I, _F, _I, _P],
-    "spk_mix_bwd": [_P] * 14 + [_P, _P] + [_I, _I, _F, _I, _P],
-    "spk_gather_fwd": [_P] * 3 + [_I] * 4 + [_P] + [_I, _P],
+    "spk_mix_bwd": [_P] * 14 + [_P] * 4 + [_I] * 3 + [_F, _I, _P],
+    "spk_gather_fwd": [_P] * 3 + [_I] * 4 + [_P] + [_I] * 3 + [_P],
     "spk_expand_fwd": [_P] * 3 + [_I] * 4 + [_P] + [_I, _P],
     "spk_gather_bwd": [_P] * 4 + [_I, _I, _P],
     "spk_fold_fwd": [_P] * 3 + [_I] * 5 + [_P],

@@ -7,6 +7,13 @@ c9 = (dx+1)*3 + (dy+1), its destination row ``dcol`` of column (x, y).
 The functions here are the straightforward gather / per-edge math / fold
 formulation that the CUDA message kernels (``colblock_message.py``) are
 held against; they run everything as ordinary autograd-able tensor ops.
+
+Refs with a ``shard_axis`` (the slab path of ``parallel/columns.py``)
+index their sources in the halo'd slab table of ``colblock_shard.py``
+instead: column (x+dx+1, (y+dy) mod ny) of [nx+2, ny] columns for x
+slabs, (x+dx+1, y+dy+1) of [nx+2, ny+2] for (x, y) blocks
+(``decode_src``); gathers and source sorts follow it, destinations stay
+local.
 """
 from __future__ import annotations
 
@@ -26,6 +33,9 @@ class ColRefs:
     dcol: torch.Tensor   # [nx, ny, Ktot] int32 in-column destination row
     P: int               # per-column atom capacity
     ksizes: Tuple[int, ...]  # 9 bucket capacities
+    #: the slab path's mesh axis ("cols") or axes ("cols", "cols_y"): the
+    #: sources are rows of the x- or xy-halo'd table; None: wrapped
+    shard_axis: object = None
     #: index tensors derived from these (e.g. the message backward's
     #: schedule), computed once per refs
     cache: dict = field(default_factory=dict, compare=False, repr=False)
@@ -41,6 +51,29 @@ class ColRefs:
     def koffs(self) -> Tuple[int, ...]:
         return tuple(int(v) for v in np.concatenate([[0],
                                                      np.cumsum(self.ksizes)]))
+
+    @property
+    def halo(self) -> Tuple[int, int]:
+        """The source-index mode (hx, hy): (0, 0) wrap, (1, 0) x-halo'd
+        slab, (1, 1) xy-halo'd block."""
+        if self.shard_axis is None:
+            return 0, 0
+        two_d = (isinstance(self.shard_axis, (tuple, list))
+                 and len(self.shard_axis) == 2)
+        return 1, int(two_d)
+
+    @property
+    def src_cols(self) -> Tuple[int, int]:
+        """The source table's column grid (nx [+2], ny [+2])."""
+        nx, ny, _ = self.qcol.shape
+        hx, hy = self.halo
+        return nx + 2 * hx, ny + 2 * hy
+
+    @property
+    def src_rows(self) -> int:
+        """The source table's rows."""
+        sx, sy = self.src_cols
+        return sx * sy * self.P
 
 
 def decode_j(refs: ColRefs):
@@ -62,6 +95,19 @@ def decode_j(refs: ColRefs):
     return j, valid
 
 
+def decode_src(refs: ColRefs):
+    """Row of each edge's source atom in the source table (the wrapped
+    [nx, ny] table, or the halo'd slab of a sharded ``refs``), and the
+    edge mask."""
+    hx, hy = refs.halo
+    if not hx:
+        return decode_j(refs)
+    from .colblock_shard import _decode_hx
+
+    return _decode_hx(refs.qcol, refs.koffs, refs.qcol.shape[1], refs.P,
+                      bool(hy))
+
+
 def decode_i(refs: ColRefs):
     """Global sorted index of each edge's destination atom, and the mask."""
     dcol = refs.dcol.long()
@@ -74,8 +120,9 @@ def decode_i(refs: ColRefs):
 
 
 def column_gather(table: torch.Tensor, refs: ColRefs) -> torch.Tensor:
-    """Per-edge source rows [nx, ny, Ktot, D] (zeros at padded slots)."""
-    j, valid = decode_j(refs)
+    """Per-edge source rows [nx, ny, Ktot, D] of the source table (zeros at
+    padded slots)."""
+    j, valid = decode_src(refs)
     return table[j] * valid[..., None].to(table.dtype)
 
 
@@ -97,16 +144,15 @@ def column_fold(edge_vals: torch.Tensor, refs: ColRefs) -> torch.Tensor:
 
 
 def source_order(refs: ColRefs):
-    """Every edge slot (destination column * Ktot + slot) sorted by source
-    atom, padded slots last (``esorted`` int32), the slots per source atom
-    (``cnt`` [A'] int64) and the start of each atom's run (``rowptr``
-    [A'+1] int32).  Computed once per ``refs`` (cached on it) on the
+    """Every edge slot (destination column * Ktot + slot) sorted by its row
+    in the source table, padded slots last (``esorted`` int32), the slots
+    per source row (``cnt`` int64) and the start of each row's run
+    (``rowptr`` int32).  Computed once per ``refs`` (cached on it) on the
     device, without a host synchronisation."""
     if "src" in refs.cache:
         return refs.cache["src"]
-    nx, ny, _ = refs.qcol.shape
-    n = nx * ny * refs.P
-    j, valid = decode_j(refs)
+    n = refs.src_rows
+    j, valid = decode_src(refs)
     key = torch.where(valid, j, n).reshape(-1)
     esorted = torch.argsort(key, stable=True).to(torch.int32)
     cnt = torch.zeros(n + 1, dtype=torch.int64, device=key.device)
@@ -143,9 +189,10 @@ def painn_message(x: torch.Tensor, mu: torch.Tensor, rbf_aug: torch.Tensor,
                   dirs: torch.Tensor, FW_aug: torch.Tensor, refs: ColRefs):
     """PaiNN inter-atomic message (``_painn_message_xla``).
 
-    x [A', 3F] context, mu [A', 3F] flat vector features, FW_aug [B+1, 3F]
-    filter weights with the bias as last row.  Returns the per-atom sums
-    dq [A', F] and dmu [A', 3F]."""
+    x [A', 3F] context, mu [A', 3F] flat vector features (rows of the
+    source table: halo'd for sharded ``refs``, ``_msg_hx_xla``), FW_aug
+    [B+1, 3F] filter weights with the bias as last row.  Returns the
+    per-atom sums dq [A', F] and dmu [A', 3F]."""
     F = x.shape[1] // 3
     xj = column_gather(x, refs)
     muj = column_gather(mu, refs)

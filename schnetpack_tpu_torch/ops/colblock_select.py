@@ -12,11 +12,14 @@ through on the column layout:
 * fold: sum per destination row [A', D]; forward K14, backward K13;
 
 paired as the JAX package's ``custom_vjp``s pair them
-(``colblock_pallas.py:188-318``).  The kernels (``csrc/colblock_select.cu``)
-take any width D: the positions (D = 3) and SO3net's flattened features
-(D = 9 x F).  On CPU tensors the ops run the twins: the plain gather,
-expand and fold of ``ops/colblock.py`` and the gather's transpose.  On
-CUDA tensors they launch the kernels or raise.
+(``colblock_pallas.py:188-318``).  The gather and its VJP also run on the
+slab path's halo'd tables (``_gather_hx_call``/``_gather_hx_bwd_call``,
+``colblock_shard.py:131-199``), in the source-index mode of the refs.
+The kernels (``csrc/colblock_select.cu``) take any width D: the
+positions (D = 3) and SO3net's flattened features (D = 9 x F).  On CPU
+tensors the ops run the twins: the plain gather, expand and fold of
+``ops/colblock.py`` and the gather's transpose.  On CUDA tensors they
+launch the kernels or raise.
 """
 from __future__ import annotations
 
@@ -24,12 +27,13 @@ import torch
 
 from . import _build
 from .colblock import (
-    ColRefs, column_expand, column_fold, column_gather, decode_j,
+    ColRefs, column_expand, column_fold, column_gather, decode_src,
     source_order,
 )
 
-#: kernel launches since the last reset (SO3net MD: K11 4, K12 3, K13 4,
-#: K14 4 per step)
+#: kernel launches since the last reset, in any source-index mode (SO3net
+#: MD: K11 4, K12 3, K13 4, K14 4 per step; painn_slab: 1 each, K11/K12 in
+#: the halo_x mode)
 LAUNCHES = {"gather_fwd": 0, "gather_bwd": 0, "expand_fwd": 0, "fold_fwd": 0}
 #: K14's shared memory (bytes) a block may take: P x min(D, 128) floats
 _MAX_FOLD_SMEM = 227 * 1024
@@ -43,38 +47,44 @@ def _check_refs(refs: ColRefs):
     return nx, ny, Ktot, nx * ny * refs.P
 
 
-def _select(name, entry, idx, table, refs: ColRefs):
+def gather_fwd_kernel(table, refs: ColRefs):
+    """K11: out[x, y, k] = table[j(x, y, k)], 0 at padded slots; ``table``
+    is the source table of the refs' mode (halo'd for sharded refs)."""
+    nx, ny, Ktot, _ = _check_refs(refs)
+    D = table.shape[-1]
+    _build.check(table, "table", (refs.src_rows, D))
+    out = table.new_empty((nx, ny, Ktot, D))
+    p = _build.ptr
+    _build.launch("spk_gather_fwd", p(table), p(refs.qcol), p(out), nx, ny,
+                  refs.P, Ktot, _build.int_array(refs.koffs), D, *refs.halo)
+    LAUNCHES["gather_fwd"] += 1
+    return out
+
+
+def expand_fwd_kernel(table, refs: ColRefs):
+    """K13: out[x, y, k] = table[i(x, y, k)], 0 at padded slots."""
     nx, ny, Ktot, Ap = _check_refs(refs)
     D = table.shape[-1]
     _build.check(table, "table", (Ap, D))
     out = table.new_empty((nx, ny, Ktot, D))
     p = _build.ptr
-    _build.launch(entry, p(table), p(idx), p(out), nx, ny, refs.P, Ktot,
-                  _build.int_array(refs.koffs), D)
-    LAUNCHES[name] += 1
+    _build.launch("spk_expand_fwd", p(table), p(refs.dcol), p(out), nx, ny,
+                  refs.P, Ktot, _build.int_array(refs.koffs), D)
+    LAUNCHES["expand_fwd"] += 1
     return out
 
 
-def gather_fwd_kernel(table, refs: ColRefs):
-    """K11: out[x, y, k] = table[j(x, y, k)], 0 at padded slots."""
-    return _select("gather_fwd", "spk_gather_fwd", refs.qcol, table, refs)
-
-
-def expand_fwd_kernel(table, refs: ColRefs):
-    """K13: out[x, y, k] = table[i(x, y, k)], 0 at padded slots."""
-    return _select("expand_fwd", "spk_expand_fwd", refs.dcol, table, refs)
-
-
 def gather_bwd_kernel(g, refs: ColRefs):
-    """K12: the gather's VJP, dT [A', D] = per-source-row sums of g."""
-    nx, ny, Ktot, Ap = _check_refs(refs)
+    """K12: the gather's VJP, dT [A'_src, D] = per-source-row sums of g
+    over the source table of the refs' mode."""
+    nx, ny, Ktot, _ = _check_refs(refs)
     D = g.shape[-1]
     _build.check(g, "g", (nx, ny, Ktot, D))
     esorted, _, rowptr = source_order(refs)
-    dT = g.new_empty((Ap, D))
+    n = refs.src_rows
+    dT = g.new_empty((n, D))
     p = _build.ptr
-    _build.launch("spk_gather_bwd", p(g), p(esorted), p(rowptr), p(dT), Ap,
-                  D)
+    _build.launch("spk_gather_bwd", p(g), p(esorted), p(rowptr), p(dT), n, D)
     LAUNCHES["gather_bwd"] += 1
     return dT
 
@@ -96,8 +106,9 @@ def fold_fwd_kernel(edge_vals, refs: ColRefs):
     return out
 
 
-#: plain twins of K11, K13 and K14: ``_column_gather_xla``,
-#: ``_column_expand_xla`` and ``_column_fold_xla``
+#: plain twins of K11, K13 and K14: ``_column_gather_xla`` (on a halo'd
+#: table ``_gather_hx_xla``), ``_column_expand_xla`` and
+#: ``_column_fold_xla``
 gather_fwd_plain = column_gather
 expand_fwd_plain = column_expand
 fold_fwd_plain = column_fold
@@ -105,11 +116,10 @@ fold_fwd_plain = column_fold
 
 def gather_bwd_plain(g, refs: ColRefs):
     """Plain twin of K12: the transpose of the gather."""
-    j, valid = decode_j(refs)
-    nx, ny, _ = j.shape
+    j, valid = decode_src(refs)
     D = g.shape[-1]
     v = (g * valid[..., None].to(g.dtype)).reshape(-1, D)
-    return g.new_zeros((nx * ny * refs.P, D)).index_add(0, j.reshape(-1), v)
+    return g.new_zeros((refs.src_rows, D)).index_add(0, j.reshape(-1), v)
 
 
 class ColumnGather(torch.autograd.Function):
@@ -168,7 +178,12 @@ class ColumnFold(torch.autograd.Function):
 
 def column_gather_op(table, refs: ColRefs):
     """Per-edge source rows [nx, ny, Ktot, D] of ``table`` [A', D]
-    (``schnetpack_tpu.ops.colblock.column_gather``)."""
+    (``schnetpack_tpu.ops.colblock.column_gather``: sharded refs take the
+    slab path of ``colblock_shard``)."""
+    if refs.shard_axis is not None:
+        from .colblock_shard import column_gather_sharded
+
+        return column_gather_sharded(table, refs)
     return ColumnGather.apply(table.contiguous(), refs)
 
 

@@ -4,7 +4,9 @@ Counterpart of ``schnetpack_tpu/ops/painn_mixing.py``: the interaction
 residual add and the whole intra-atomic mixing block run as one kernel
 (K3, ``csrc/painn_mixing.cu::mix_fwd_kernel``); the backward (K4,
 ``mix_bwd_kernel``) recomputes the forward and returns the input
-cotangents.  By the residual identity the cotangents of q and dq (mu and
+cotangents, and in its wgrad instance also the weight cotangents, which
+the op launches when a mixing weight requires grad (MD keeps the plain
+instance).  By the residual identity the cotangents of q and dq (mu and
 dmu) are equal.  Unlike the JAX wrapper there is no fallback for row
 counts without a dividing block: the kernels mask the ragged tail.
 
@@ -18,9 +20,12 @@ import torch
 from . import _build
 from .activations import ACTIVATIONS
 
-#: kernel launches since the last reset (the main path adds one per call)
-LAUNCHES = {"mix_fwd": 0, "mix_bwd": 0}
+#: kernel launches since the last reset (the main path adds one per call;
+#: ``mix_bwd_wgrad`` counts K4's wgrad instance)
+LAUNCHES = {"mix_fwd": 0, "mix_bwd": 0, "mix_bwd_wgrad": 0}
 _ACT_CODE = {"ssp": 0, "silu": 1}
+#: rows per f32 partial sum of the wgrad reduction, at least
+_WGRAD_ROWS = 256
 
 
 def painn_mixing_plain(q, mu, dq, dmu, kmix, k0, b0, k1, b1, eps: float,
@@ -42,16 +47,17 @@ def painn_mixing_plain(q, mu, dq, dmu, kmix, k0, b0, k1, b1, eps: float,
 
 
 def painn_mixing_bwd_plain(q, mu, dq, dmu, kmix, k0, b0, k1, b1, eps, act,
-                           gq, gmu):
-    """Plain twin of K4: cotangents of (q + dq, mu + dmu)."""
+                           gq, gmu, wgrad: bool = False):
+    """Plain twin of K4: cotangents of (q + dq, mu + dmu), and with
+    ``wgrad`` also of (kmix, k0, b0, k1, b1)."""
     with torch.enable_grad():
         qp = (q + dq).detach().requires_grad_(True)
         mup = (mu + dmu).detach().requires_grad_(True)
+        w = [t.detach().requires_grad_(wgrad) for t in (kmix, k0, b0, k1, b1)]
         z = torch.zeros_like
-        out = painn_mixing_plain(qp, mup, z(q), z(mu), kmix.detach(),
-                                 k0.detach(), b0.detach(), k1.detach(),
-                                 b1.detach(), eps, act)
-        return torch.autograd.grad(out, (qp, mup), (gq, gmu))
+        out = painn_mixing_plain(qp, mup, z(q), z(mu), *w, eps, act)
+        return torch.autograd.grad(out, (qp, mup, *w) if wgrad else (qp, mup),
+                                   (gq, gmu))
 
 
 def _check(q, mu, dq, dmu, kmix, k0, b0, k1, b1, act):
@@ -84,8 +90,10 @@ def mix_fwd_kernel(q, mu, dq, dmu, kmix, k0, b0, k1, b1, eps: float,
 
 
 def mix_bwd_kernel(q, mu, dq, dmu, kmix, k0, b0, k1, b1, eps: float,
-                   act: str, gq, gmu):
-    """K4: cotangents (g_qp [A, F], g_mup [A, 3F]) of K3's inputs."""
+                   act: str, gq, gmu, wgrad: bool = False):
+    """K4: cotangents (g_qp [A, F], g_mup [A, 3F]) of K3's inputs, and with
+    ``wgrad`` also (gkmix, gk0, gb0, gk1, gb1): the f64 partials of the
+    kernel's row ranges summed here and rounded to f32."""
     _check(q, mu, dq, dmu, kmix, k0, b0, k1, b1, act)
     A, F = q.shape
     _build.check(gq, "gq", (A, F))
@@ -95,16 +103,35 @@ def mix_bwd_kernel(q, mu, dq, dmu, kmix, k0, b0, k1, b1, eps: float,
     kmixT, k0T, k1T = (w.t().contiguous() for w in (kmix, k0, k1))
     gqi = torch.empty_like(q)
     gmui = torch.empty_like(mu)
+    S = part = None
+    nsplit = 0
+    if wgrad:
+        # row ranges: about two blocks per SM over the 36 output tiles of
+        # F = 128
+        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+        nsplit = max(1, min(-(-A // _WGRAD_ROWS), -(-2 * sms // 36)))
+        S = q.new_empty((A, 16 * F))
+        part = q.new_empty((nsplit, 7 * F * F + 4 * F), dtype=torch.float64)
     p = _build.ptr
     _build.launch("spk_mix_bwd", p(q), p(mu), p(dq), p(dmu), p(gq), p(gmu),
                   p(kmix), p(k0), p(b0), p(k1), p(b1), p(kmixT), p(k0T),
-                  p(k1T), p(gqi), p(gmui), A, F, float(eps), _ACT_CODE[act])
-    LAUNCHES["mix_bwd"] += 1
-    return gqi, gmui
+                  p(k1T), p(gqi), p(gmui), None if S is None else p(S),
+                  None if part is None else p(part), nsplit, A, F,
+                  float(eps), _ACT_CODE[act])
+    if not wgrad:
+        LAUNCHES["mix_bwd"] += 1
+        return gqi, gmui
+    LAUNCHES["mix_bwd_wgrad"] += 1
+    w = part.sum(0).to(torch.float32)
+    FF = F * F
+    return (gqi, gmui, w[:2 * FF].view(F, 2 * F),
+            w[2 * FF:4 * FF].view(2 * F, F), w[4 * FF:4 * FF + F],
+            w[4 * FF + F:7 * FF + F].view(F, 3 * F), w[7 * FF + F:])
 
 
 class PaiNNMixingFused(torch.autograd.Function):
-    """K3 forward, K4 backward (no weight cotangents)."""
+    """K3 forward, K4 backward (its wgrad instance when a weight needs a
+    gradient)."""
 
     @staticmethod
     def forward(ctx, q, mu, dq, dmu, kmix, k0, b0, k1, b1, eps, act):
@@ -114,9 +141,12 @@ class PaiNNMixingFused(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gq, gmu):
-        gqi, gmui = mix_bwd_kernel(*ctx.saved_tensors, ctx.eps, ctx.act,
-                                   gq.contiguous(), gmu.contiguous())
-        return (gqi, gmui, gqi, gmui) + (None,) * 7
+        need_w = ctx.needs_input_grad[4:9]
+        gqi, gmui, *gw = mix_bwd_kernel(
+            *ctx.saved_tensors, ctx.eps, ctx.act, gq.contiguous(),
+            gmu.contiguous(), wgrad=any(need_w))
+        gw = [g if n else None for g, n in zip(gw, need_w)] or [None] * 5
+        return (gqi, gmui, gqi, gmui, *gw, None, None)
 
 
 def painn_mixing_fused(q, mu, dq, dmu, kmix, k0, b0, k1, b1, eps: float,
@@ -126,9 +156,5 @@ def painn_mixing_fused(q, mu, dq, dmu, kmix, k0, b0, k1, b1, eps: float,
     if not q.is_cuda:
         return painn_mixing_plain(q, mu, dq, dmu, kmix, k0, b0, k1, b1, eps,
                                   act)
-    if any(w.requires_grad for w in (kmix, k0, b0, k1, b1)):
-        raise NotImplementedError(
-            "the CUDA mixing backward has no weight cotangents yet; freeze "
-            "the parameters (requires_grad_(False)) for MD")
     return PaiNNMixingFused.apply(q, mu, dq, dmu, kmix, k0, b0, k1, b1,
                                   float(eps), act)

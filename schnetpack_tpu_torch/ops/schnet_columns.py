@@ -11,11 +11,11 @@ ny, B+4, Ktot]`` (``colblock_geo.column_geometry_raw``):
 The forward is K9 and the backward K10 (``csrc/schnet_columns.cu``): the
 filter network runs per edge inside the kernels, and nothing of shape
 [edges, F] exists in device memory.  K10 returns dh and the geometry
-cotangent (zero in the dir channels) and no filter-weight cotangents: on
-CUDA the op raises when W1, b1, W2 or b2 require grad (training comes
-later).  On CPU tensors the op runs the twins, the gather / filter MLP /
-fold composition of ``_cfconv_xla`` (``schnet_columns.py:317-331``) and its
-autograd VJP, weight cotangents included.
+cotangent (zero in the dir channels), and in its wgrad instance, which
+the op launches when W1, b1, W2 or b2 require grad, also the
+filter-weight cotangents.  On CPU tensors the op runs the twins, the
+gather / filter MLP / fold composition of ``_cfconv_xla``
+(``schnet_columns.py:317-331``) and its autograd VJP.
 """
 from __future__ import annotations
 
@@ -25,8 +25,9 @@ from . import _build
 from .activations import shifted_softplus
 from .colblock import ColRefs, column_fold, column_gather
 
-#: kernel launches since the last reset (SchNet MD: 3 each per step)
-LAUNCHES = {"cf_fwd": 0, "cf_bwd": 0}
+#: kernel launches since the last reset (SchNet MD: 3 each per step;
+#: ``cf_bwd_wgrad`` counts K10's wgrad instance)
+LAUNCHES = {"cf_fwd": 0, "cf_bwd": 0, "cf_bwd_wgrad": 0}
 #: the kernels' filter width
 N_FILTERS = 128
 
@@ -75,21 +76,32 @@ def cf_fwd_kernel(h, geo, W1, b1, W2, b2, refs: ColRefs):
     return out
 
 
-def cf_bwd_kernel(h, geo, W1, b1, W2, b2, refs: ColRefs, g):
+def cf_bwd_kernel(h, geo, W1, b1, W2, b2, refs: ColRefs, g,
+                  wgrad: bool = False):
     """K10: (dh [A', F], ggeo [nx, ny, B+4, Ktot]) for the cotangent g of
-    K9's output; dh comes as 9 per-source-column partials, added here."""
+    K9's output; dh comes as 9 per-source-column partials, added here.
+    With ``wgrad`` also (gW1, gb1, gW2, gb2): the columns' f64 partials
+    summed here and rounded to f32."""
     nx, ny, Ktot, B, F = _check(h, geo, W1, b1, W2, b2, refs)
     _build.check(g, "g", tuple(h.shape))
     order, nreal = _schedule(refs)
     part = h.new_empty((9,) + tuple(h.shape))
     ggeo = torch.empty_like(geo)
+    wpart = (h.new_zeros((nx * ny, (B + 2) * F + F * F), dtype=torch.float64)
+             if wgrad else None)
     p = _build.ptr
     _build.launch("spk_cf_bwd", p(h), p(geo), p(W1), p(b1), p(W2), p(b2),
                   p(refs.qcol), p(refs.dcol), p(order), p(nreal), p(g),
-                  p(part), p(ggeo), nx, ny, refs.P, Ktot,
-                  _build.int_array(refs.koffs), B, B + 4)
-    LAUNCHES["cf_bwd"] += 1
-    return part.sum(0), ggeo
+                  p(part), p(ggeo), None if wpart is None else p(wpart), nx,
+                  ny, refs.P, Ktot, _build.int_array(refs.koffs), B, B + 4)
+    if not wgrad:
+        LAUNCHES["cf_bwd"] += 1
+        return part.sum(0), ggeo
+    LAUNCHES["cf_bwd_wgrad"] += 1
+    w = wpart.sum(0).to(torch.float32)
+    return (part.sum(0), ggeo, w[:B * F].view(B, F), w[B * F:(B + 1) * F],
+            w[(B + 1) * F:(B + 1) * F + F * F].view(F, F),
+            w[(B + 1) * F + F * F:])
 
 
 def cf_fwd_plain(h, geo, W1, b1, W2, b2, refs: ColRefs):
@@ -112,8 +124,8 @@ def cf_bwd_plain(h, geo, W1, b1, W2, b2, refs: ColRefs, g):
 
 
 class SchNetCFConv(torch.autograd.Function):
-    """K9 forward, K10 backward on CUDA; their twins on the CPU (which also
-    return the filter-weight cotangents)."""
+    """K9 forward, K10 backward (its wgrad instance when a filter weight
+    needs a gradient) on CUDA; their twins on the CPU."""
 
     @staticmethod
     def forward(ctx, h, geo, W1, b1, W2, b2, refs):
@@ -126,10 +138,13 @@ class SchNetCFConv(torch.autograd.Function):
     def backward(ctx, g):
         h, geo, W1, b1, W2, b2 = ctx.saved_tensors
         g = g.contiguous()
-        if h.is_cuda:
-            dh, ggeo = cf_bwd_kernel(h, geo, W1, b1, W2, b2, ctx.refs, g)
-            return dh, ggeo, None, None, None, None, None
-        return (*cf_bwd_plain(h, geo, W1, b1, W2, b2, ctx.refs, g), None)
+        if not h.is_cuda:
+            return (*cf_bwd_plain(h, geo, W1, b1, W2, b2, ctx.refs, g), None)
+        need_w = ctx.needs_input_grad[2:6]
+        dh, ggeo, *gw = cf_bwd_kernel(h, geo, W1, b1, W2, b2, ctx.refs, g,
+                                      wgrad=any(need_w))
+        gw = [t if n else None for t, n in zip(gw, need_w)] or [None] * 4
+        return (dh, ggeo, *gw, None)
 
 
 def schnet_cfconv_columns(h, geo, W1, b1, W2, b2, refs: ColRefs):
@@ -139,9 +154,5 @@ def schnet_cfconv_columns(h, geo, W1, b1, W2, b2, refs: ColRefs):
     h [A', F] in2f output, geo [nx, ny, B+4, Ktot] raw-phi geometry, W1
     [B, F], b1 [F], W2 [F, F], b2 [F] the filter network in flax's [in,
     out] layout.  Returns the per-atom sums [A', F]."""
-    if h.is_cuda and any(t.requires_grad for t in (W1, b1, W2, b2)):
-        raise NotImplementedError(
-            "the CUDA cfconv backward has no filter-weight cotangents yet; "
-            "freeze the parameters (requires_grad_(False)) for MD")
     args = [t.contiguous() for t in (h, geo, W1, b1, W2, b2)]
     return SchNetCFConv.apply(*args, refs)

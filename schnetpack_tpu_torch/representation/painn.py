@@ -39,6 +39,14 @@ follow the JAX package's dispatch (``painn.py:312-318``):
   cotangent, and autograd carries it to the positions and to trainable
   basis parameters.
 
+Column inputs with ``cell_shard`` (the slab path of ``parallel/columns.py``)
+take the JAX package's ``"column"`` context (``painn.py:302-311, 368-373,
+403-410, 438-448``) for any basis and cutoff: the plain per-edge geometry
+from ``col_rij`` (the cutoff times ``cell_emask``), edge-major rbf_aug
+[nx, ny, Ktot, B+1] and directions [nx, ny, Ktot, 3] with autograd, and
+every interaction's message on xmu = [x, mu] through row 12 (K20/K21,
+``ops/colblock_edge.py``) in the refs' halo mode.
+
 Parameters are held the way the kernels read them: ``FW_aug`` [T, B+1, 3F]
 (the filter network's weights per interaction with its bias as the last
 row, ``painn.py:403-416``) and, per mixing block, ``kmix`` [F, 2F],
@@ -60,6 +68,7 @@ from ..nn.cutoff import CosineCutoff
 from ..nn.radial import GaussianRBF
 from ..ops.activations import ACTIVATIONS
 from ..ops.colblock import ColRefs
+from ..ops.colblock_edge import painn_message_columns
 from ..ops.colblock_geo import column_geometry_packed
 from ..ops.colblock_message import (
     painn_message_columns_fm, painn_message_columns_fm_geores,
@@ -168,36 +177,36 @@ class PaiNN(nn.Module):
             "cw", gaussian_rbf_table(rb.n_rbf, rb.cutoff, rb.start)
             if fused else None, persistent=False)
 
+    def _edge_geometry(self, inputs, key: str, mask: torch.Tensor):
+        """rbf_aug [..., B+1] = [phi*fcut, fcut] and dir [..., 3] from the
+        per-edge displacements ``inputs[key]``, with their autograd graph,
+        for any basis and cutoff; ``mask`` zeroes the padded slots
+        (``painn.py:368-382, 393, 403-410``)."""
+        if key not in inputs:
+            raise ValueError(
+                f"PaiNN with {type(self.radial_basis).__name__} and "
+                f"{type(self.cutoff_fn).__name__} on this layout reads the "
+                f"per-edge displacements {key}: run "
+                "atomistic.PairwiseDistances as an input module")
+        Rij = inputs[key]
+        d = safe_norm(Rij)
+        dirs = Rij / d[..., None]
+        fcut = (self.cutoff_fn(d) * mask.to(Rij.dtype))[..., None]
+        phi = self.radial_basis(d)
+        return torch.cat([phi * fcut, fcut], dim=-1), dirs
+
     def _column_geometry(self, inputs, refs: ColRefs) -> torch.Tensor:
         """[phi*fcut, fcut, dir] [nx, ny, B+4, Ktot] from ``col_rij``, with
         its autograd graph (``painn.py:368-373, 438-446``)."""
-        if properties.col_rij not in inputs:
-            raise ValueError(
-                f"PaiNN with {type(self.radial_basis).__name__} and "
-                f"{type(self.cutoff_fn).__name__} reads the per-edge "
-                "displacements: run atomistic.PairwiseDistances as an input "
-                "module")
-        Rij = inputs[properties.col_rij]
-        d = safe_norm(Rij)
-        dirs = Rij / d[..., None]
-        fcut = (self.cutoff_fn(d) * (refs.qcol >= 0).to(Rij.dtype))[..., None]
-        phi = self.radial_basis(d)
-        return torch.cat([phi * fcut, fcut, dirs], dim=-1).movedim(-1, 2)
+        rbf_aug, dirs = self._edge_geometry(inputs, properties.col_rij,
+                                            refs.qcol >= 0)
+        return torch.cat([rbf_aug, dirs], dim=-1).movedim(-1, 2)
 
     def _cell_geometry(self, inputs):
-        """rbf_aug [A', K, B+1] = [phi*fcut, fcut] and dir [A', K, 3] from
-        ``nbh_rij``, with their autograd graph, for any basis and cutoff
-        (``painn.py:375-382, 393, 403-410``)."""
-        if properties.nbh_rij not in inputs:
-            raise ValueError(
-                "PaiNN on the 27-cell layout reads the per-edge displacements "
-                "nbh_rij: run atomistic.PairwiseDistances as an input module")
-        Rij = inputs[properties.nbh_rij]
-        d = safe_norm(Rij)
-        dirs = Rij / d[..., None]
-        fcut = (self.cutoff_fn(d) * inputs[properties.nbh_mask])[..., None]
-        phi = self.radial_basis(d)
-        return torch.cat([phi * fcut, fcut], dim=-1), dirs
+        """rbf_aug [A', K, B+1] and dir [A', K, 3] from ``nbh_rij``
+        (``painn.py:375-382``)."""
+        return self._edge_geometry(inputs, properties.nbh_rij,
+                                   inputs[properties.nbh_mask])
 
     def _cell_message(self, inputs):
         """The message of the 27-cell path: K18/K19 on [x, mu]."""
@@ -211,9 +220,14 @@ class PaiNN(nn.Module):
 
     def _column_message(self, inputs):
         """The message of the column path, in the form ``self.path``
-        picks."""
+        picks, or on a slab the row-12 message."""
         R = inputs[properties.R]
         refs = column_refs(inputs)
+        if refs.shard_axis is not None:
+            rbf_aug, dirs = self._edge_geometry(
+                inputs, properties.col_rij, inputs[properties.cell_emask])
+            return lambda x, mu, FW_aug: painn_message_columns(
+                torch.cat([x, mu], dim=-1), rbf_aug, dirs, FW_aug, refs)
         coff_fm = inputs[properties.cell_coff_fm]
         if self.path == "column_fm":
             geo = self._column_geometry(inputs, refs).contiguous()

@@ -9,8 +9,10 @@ neighbor list with a 0.6 A skin, 30 K), warms up and retightens the
 capacities, then traces STEPS steps with ``torch.profiler`` and prints,
 per step: CUDA-event time, device-busy time (sum of kernel times), idle
 share, the host rebuilds in the window, and device time by kernel name.
-The
-full table goes to ``chiprun_out/profile_port_md_<path>.txt``.  Run from
+``painn_slab`` (PaiNN-128x3 on the slab path) runs the port's
+``SpatialColumnSimulator`` instead: a 50-step warm-up chunk, then one
+traced chunk of STEPS steps, timed without its host re-bin.
+The full table goes to ``chiprun_out/profile_port_md_<path>.txt``.  Run from
 the repository root:
 
     python3 scripts/profile_port_md.py [--steps 20] [--path full]
@@ -31,7 +33,7 @@ def main():
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--path", default="full",
                     choices=("full", "hybrid", "schnet", "so3net",
-                             "painn_trbf", "painn_cell"))
+                             "painn_trbf", "painn_cell", "painn_slab"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_port_md: no CUDA device")
@@ -46,6 +48,8 @@ def main():
                          text=True).stdout.strip()
     dev = torch.device("cuda")
     pos, cell = cs.fcc_box(10_000)
+    if args.path == "painn_slab":
+        return profile_slab(cs, pos, cell, args.steps, smi, dev)
     pot, params = cs.potential(args.path)
     calc = cs.calculator(pot, params, layout=cs.layout_of(args.path))
     system = load_molecules([cs.molecule(pos, cell)], device=dev)
@@ -72,6 +76,12 @@ def main():
     host_builds = calc.nbl.n_builds - builds0[0]
     host_s = calc.nbl.build_seconds - builds0[1]
     layout = cs.layout_str(calc.nbl.state())
+    report(prof, n, step_ms, f"{layout}, host builds {host_builds} "
+           f"({host_s:.3f} s)", args.path, smi)
+
+
+def report(prof, n, step_ms, note, path, smi):
+    """Print the step's device time by kernel and write the table."""
     events = [e for e in prof.key_averages()
               if getattr(e, "device_time_total", 0) > 0
               and e.device_type == torch.autograd.DeviceType.CUDA]
@@ -80,17 +90,37 @@ def main():
                                       row_limit=40)
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, f"profile_port_md_{args.path}.txt"),
+    with open(os.path.join(out_dir, f"profile_port_md_{path}.txt"),
               "w") as f:
-        f.write(f"{smi}\nsteps {n}, {layout}, host builds {host_builds} "
-                f"({host_s:.3f} s)\n{table}\n")
-    print(f"card: {smi}; path {args.path}")
+        f.write(f"{smi}\nsteps {n}, {note}\n{table}\n")
+    print(f"card: {smi}; path {path}")
     print(f"step {step_ms:.3f} ms (CUDA events), device busy "
           f"{busy_ms:.3f} ms, idle share {1 - busy_ms / step_ms:.3f}, "
-          f"{layout}, host builds {host_builds} ({host_s:.3f} s)")
+          f"{note}")
     for e in sorted(events, key=lambda e: -e.device_time_total)[:15]:
         print(f"  {e.device_time_total / 1e3 / n:8.3f} ms/step "
               f"{e.count // n:4d}/step  {e.key[:90]}")
+
+
+def profile_slab(cs, pos, cell, n, smi, dev):
+    """One traced chunk of the slab path's simulator; the step time is the
+    chunk's CUDA-event time over its steps (``chunk_ms``), without the host
+    re-bin before it (its wall seconds printed apart, its few copies to
+    the card in the device time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sim = cs.slab_simulator(pos, cell, dev)
+    cs.slab_momenta(sim, 0)
+    sim.simulate(50, chunk_size=50)
+    host0 = sim.host_seconds
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sim.simulate(n, chunk_size=n)
+    lay = sim.layout()
+    report(prof, n, sim.chunk_ms[-1] / n,
+           f"dims={lay.dims[:3]} Ktot={lay.qcol.shape[2]}, host re-bin "
+           f"{sim.host_seconds - host0:.3f} s (not in the step)",
+           "painn_slab", smi)
 
 
 if __name__ == "__main__":

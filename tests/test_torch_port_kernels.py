@@ -1,8 +1,10 @@
-"""PyTorch port: the CUDA kernels K1-K19 against their plain PyTorch twins,
+"""PyTorch port: the CUDA kernels K1-K21 against their plain PyTorch twins,
 on a card only (skipped without CUDA), and the entry points' default
 device.  No jax import: on a machine
 without jax run ``python -m pytest --noconftest -m gpu
 tests/test_torch_port_kernels.py``."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -10,6 +12,7 @@ import torch
 from schnetpack_tpu_torch import properties as TP
 from schnetpack_tpu_torch.md import load_molecules
 from schnetpack_tpu_torch.ops import cellblock_gather as cg
+from schnetpack_tpu_torch.ops import colblock_edge as edge
 from schnetpack_tpu_torch.ops import colblock_geo as geo_op
 from schnetpack_tpu_torch.ops import colblock_select as sel
 from schnetpack_tpu_torch.ops import colblock_message as msg
@@ -17,10 +20,39 @@ from schnetpack_tpu_torch.ops import painn_fused as pf
 from schnetpack_tpu_torch.ops import painn_mixing as mix
 from schnetpack_tpu_torch.ops import schnet_columns as schnet
 from schnetpack_tpu_torch.ops.colblock import ColRefs
+from schnetpack_tpu_torch.ops.colblock_shard import (
+    COLS_AXIS, COLS_AXIS_Y, _halo_table,
+)
 from torch_port_cases import (
     MIX_ATOL, MIX_INPUTS, MIX_RTOL, MSG_ATOL, MSG_RTOL, cell_case,
-    cfconv_case, message_case, mixing_case, torch_message_args,
+    cfconv_case, message_case, mixing_case, slab_case, torch_message_args,
 )
+
+#: the source-index modes of K11, K20 and K21 (ColRefs.shard_axis)
+MODES = {"wrap": None, "halo_x": COLS_AXIS,
+         "halo_xy": (COLS_AXIS, COLS_AXIS_Y)}
+
+
+# weight cotangents of the wgrad instances: sums over every row or edge of
+# products of the kernel's f32 factors, whose rounding (~1e-6 relative
+# after the 128-long dot products that make them) walks over 12,800 rows
+# or ~10^4 edges; the f64 partial sums remove the order's error, not the
+# factors'.  Held normwise: ||g - w|| <= W_NORM_RTOL ||w||.
+W_NORM_RTOL = 1e-5
+
+
+def assert_normwise(got, want, name=""):
+    err = float((got.double() - want.double()).norm())
+    assert err <= W_NORM_RTOL * float(want.double().norm()), (name, err)
+
+
+def f64(fn, *args, **kw):
+    """``fn`` on float64 copies of its float32 tensor arguments, rounded
+    back: the reference of the wgrad instances, whose weight cotangents
+    sum every row or edge."""
+    out = fn(*[a.double() if torch.is_tensor(a) and a.dtype == torch.float32
+               else a for a in args], **kw)
+    return [o.float() for o in out]
 
 
 @pytest.fixture
@@ -56,6 +88,40 @@ def test_mixing_kernels_match_twin(cuda_device, A, act):
     for got, want in zip(mix.mix_bwd_kernel(*ins, 1e-8, act, gq, gmu),
                          mix.painn_mixing_bwd_plain(*ins, 1e-8, act, gq, gmu)):
         torch.testing.assert_close(got, want, rtol=MIX_RTOL, atol=MIX_ATOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("A,F,act", [(37, 32, "ssp"), (1000, 128, "silu"),
+                                     (12800, 128, "ssp")])
+def test_mixing_wgrad_instance_matches_twin(cuda_device, A, F, act):
+    """K4's wgrad instance: the input cotangents equal the plain
+    instance's (the same kernel, held to the twin in
+    ``test_mixing_kernels_match_twin``), and gkmix, gk0, gb0, gk1, gb1 (f64
+    sums of f32 row ranges) are held to the twin in float64; the op
+    launches it when a weight requires grad, the plain instance
+    otherwise."""
+    c = mixing_case(A=A, F=F)
+    ins = [torch.tensor(c[k], device=cuda_device) for k in MIX_INPUTS]
+    cots = [torch.tensor(c[k], device=cuda_device) for k in ("gq", "gmu")]
+    got = mix.mix_bwd_kernel(*ins, 1e-8, act, *cots, wgrad=True)
+    want = f64(mix.painn_mixing_bwd_plain, *ins, 1e-8, act, *cots,
+               wgrad=True)
+    assert len(got) == len(want) == 7
+    for g, w in zip(got[:2], mix.mix_bwd_kernel(*ins, 1e-8, act, *cots)):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    for name, g, w in zip(MIX_INPUTS[4:], got[2:], want[2:]):
+        assert_normwise(g, w, name)
+    before = dict(mix.LAUNCHES)
+    w = [a.clone().requires_grad_(True) for a in ins[4:]]
+    grads = torch.autograd.grad(
+        mix.painn_mixing_fused(*ins[:4], *w, 1e-8, act), w, cots)
+    for name, g, ref in zip(MIX_INPUTS[4:], grads, want[2:]):
+        assert_normwise(g, ref, name)
+    q = ins[0].clone().requires_grad_(True)
+    torch.autograd.grad(mix.painn_mixing_fused(q, *ins[1:], 1e-8, act), q,
+                        cots)
+    assert {k: mix.LAUNCHES[k] - before[k] for k in before} == {
+        "mix_fwd": 2, "mix_bwd": 1, "mix_bwd_wgrad": 1}
 
 
 @pytest.mark.gpu
@@ -181,9 +247,23 @@ def test_cfconv_kernels_match_twin(cuda_device, seed):
     for got, want in zip(schnet.cf_bwd_kernel(*args, refs, g),
                          schnet.cf_bwd_plain(*args, refs, g)[:2]):
         torch.testing.assert_close(got, want, rtol=MSG_RTOL, atol=MSG_ATOL)
-    with pytest.raises(NotImplementedError, match="filter-weight"):
-        schnet.schnet_cfconv_columns(*args[:2], args[2].requires_grad_(True),
-                                     *args[3:], refs)
+    # the wgrad instance: also gW1, gb1, gW2, gb2, held to the twin in f64;
+    # the op launches it when a filter weight requires grad
+    want = f64(schnet.cf_bwd_plain, *args, refs, g)
+    got = schnet.cf_bwd_kernel(*args, refs, g, wgrad=True)
+    assert len(got) == 6
+    for gk, w in zip(got[:2], want[:2]):
+        torch.testing.assert_close(gk, w, rtol=MSG_RTOL, atol=MSG_ATOL)
+    for gk, w in zip(got[2:], want[2:]):
+        assert_normwise(gk, w)
+    before = dict(schnet.LAUNCHES)
+    w = [a.clone().requires_grad_(True) for a in args[2:]]
+    grads = torch.autograd.grad(
+        schnet.schnet_cfconv_columns(*args[:2], *w, refs), w, g)
+    for gk, ref in zip(grads, want[2:]):
+        assert_normwise(gk, ref)
+    assert {k: schnet.LAUNCHES[k] - before[k] for k in before} == {
+        "cf_fwd": 1, "cf_bwd": 0, "cf_bwd_wgrad": 1}
 
 
 @pytest.mark.gpu
@@ -212,6 +292,84 @@ def test_select_kernels_match_twin(cuda_device, D):
     out.backward(table)
     assert {k: sel.LAUNCHES[k] - before[k] for k in before} == {
         "gather_fwd": 1, "gather_bwd": 1, "expand_fwd": 2, "fold_fwd": 2}
+
+
+def mode_case(grid, mode, dev, F=32, B=8, seed=0):
+    """``slab_case`` on ``dev`` with refs in the source-index ``mode`` and
+    xmu over that mode's source table (the one-shard halo of the slab's
+    xmu)."""
+    c = slab_case(grid, F, B, seed)
+    refs = dataclasses.replace(ColRefs.from_layout(c["lay"], device=dev),
+                               shard_axis=MODES[mode])
+    t = {k: torch.tensor(c[k], device=dev) for k in c if k != "lay"}
+    if mode != "wrap":
+        t["xmu"] = _halo_table(t["xmu"], refs).contiguous()
+    return refs, t
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,grid,F", [
+    ("wrap", (3, 3), 32), ("wrap", (2, 3), 128), ("halo_x", (3, 3), 128),
+    ("halo_x", (2, 3), 32), ("halo_xy", (3, 3), 32), ("halo_xy", (2, 2), 128)])
+def test_edge_kernels_match_twin(cuda_device, mode, grid, F):
+    """K20, K21 and K21's wgrad instance (gFW held to the twin in f64) in
+    each source-index mode, on aliased (2) and plain grids; the op
+    launches the wgrad instance when FW_aug requires grad."""
+    refs, t = mode_case(grid, mode, cuda_device, F=F, seed=sum(grid))
+    args = (t["xmu"], t["rbf"], t["dir"], t["FW"], refs)
+    cots = (t["g_dq"], t["g_dmu"])
+    for g, w in zip(edge.msg_fwd_edge_kernel(*args),
+                    edge.msg_fwd_edge_plain(*args)):
+        torch.testing.assert_close(g, w, rtol=MSG_RTOL, atol=MSG_ATOL)
+    want = f64(edge.msg_bwd_edge_plain, *args, *cots)
+    got = edge.msg_bwd_edge_kernel(*args, *cots)
+    assert len(got) == 3
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=MSG_RTOL, atol=MSG_ATOL)
+    got = edge.msg_bwd_edge_kernel(*args, *cots, wgrad=True)
+    assert len(got) == 4
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=MSG_RTOL, atol=MSG_ATOL)
+    before = dict(edge.LAUNCHES)
+    ins = [a.clone().requires_grad_(True) for a in args[:4]]
+    grads = torch.autograd.grad(edge.PaiNNMessageEdge.apply(*ins, refs),
+                                ins, cots)
+    for g, w in zip(grads, want):
+        torch.testing.assert_close(g, w, rtol=MSG_RTOL, atol=MSG_ATOL)
+    assert {k: edge.LAUNCHES[k] - before[k] for k in before} == {
+        "msg_fwd_edge": 1, "msg_bwd_edge": 0, "msg_bwd_edge_wgrad": 1}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,grid,D", [("halo_x", (3, 3), 3),
+                                         ("halo_x", (2, 3), 13),
+                                         ("halo_xy", (2, 2), 3),
+                                         ("halo_xy", (3, 3), 768)])
+def test_halo_gather_kernels_match_twin(cuda_device, mode, grid, D):
+    """K11 and K12 in the halo modes against the halo'd gather and its
+    transpose, and the sharded gather op (halo, K11; K12, folded back)."""
+    refs, _ = mode_case(grid, mode, cuda_device)
+    nx, ny, Ktot = refs.qcol.shape
+    g = torch.Generator().manual_seed(D)
+    table = torch.randn((refs.src_rows, D), generator=g).to(cuda_device)
+    edges = torch.randn((nx, ny, Ktot, D), generator=g).to(cuda_device)
+    torch.testing.assert_close(sel.gather_fwd_kernel(table, refs),
+                               sel.gather_fwd_plain(table, refs),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(sel.gather_bwd_kernel(edges, refs),
+                               sel.gather_bwd_plain(edges, refs),
+                               rtol=MSG_RTOL, atol=MSG_ATOL)
+    before = dict(sel.LAUNCHES)
+    t = table[:nx * ny * refs.P].clone().requires_grad_(True)
+    (dT,) = torch.autograd.grad(sel.column_gather_op(t, refs), t, edges)
+    tc = t.detach().cpu().requires_grad_(True)
+    refs_cpu = dataclasses.replace(refs, qcol=refs.qcol.cpu(),
+                                   dcol=refs.dcol.cpu(), cache={})
+    (want,) = torch.autograd.grad(sel.column_gather_op(tc, refs_cpu), tc,
+                                  edges.cpu())
+    torch.testing.assert_close(dT.cpu(), want, rtol=MSG_RTOL, atol=MSG_ATOL)
+    assert {k: sel.LAUNCHES[k] - before[k] for k in before} == {
+        "gather_fwd": 1, "gather_bwd": 1, "expand_fwd": 0, "fold_fwd": 0}
 
 
 @pytest.mark.gpu

@@ -70,15 +70,18 @@ def cfconv_case(F=32, B=8, seed=21):
 
 
 def mixing_case(A=37, F=32, seed=0):
+    """Random mixing inputs; the weights' scale 0.2 at F = 32 shrinks as
+    1/sqrt(F), so the activations keep their size at any width."""
     rng = np.random.RandomState(seed)
+    w = 0.2 * (32.0 / F) ** 0.5
 
     def r(*s, scale=1.0):
         return (rng.randn(*s) * scale).astype(np.float32)
 
     return dict(q=r(A, F), mu=r(A, 3 * F), dq=r(A, F, scale=0.5),
-                dmu=r(A, 3 * F, scale=0.5), kmix=r(F, 2 * F, scale=0.2),
-                k0=r(2 * F, F, scale=0.2), b0=r(F, scale=0.1),
-                k1=r(F, 3 * F, scale=0.2), b1=r(3 * F, scale=0.1),
+                dmu=r(A, 3 * F, scale=0.5), kmix=r(F, 2 * F, scale=w),
+                k0=r(2 * F, F, scale=w), b0=r(F, scale=0.1),
+                k1=r(F, 3 * F, scale=w), b1=r(3 * F, scale=0.1),
                 gq=r(A, F), gmu=r(A, 3 * F))
 
 
@@ -104,3 +107,43 @@ def cell_case(F=32, B=8, seed=9, n=90, L=10.0, cutoff=3.4):
         rbf=r(Ap, K, B + 1, scale=0.3) * lay.nbh_mask[..., None],
         dir=r(Ap, K, 3),
         FW=r(B + 1, 3 * F, scale=0.3), g_dq=r(Ap, F), g_dmu=r(Ap, 3 * F))
+
+
+def slab_case(grid, F=32, B=8, seed=0):
+    """A random periodic box in the column layout on ``grid`` (nx, ny) with
+    random xmu [A', 6F], a basis and directions zeroed at padded slots,
+    filter weights and cotangents of dq and dmu (the row-12 message's
+    inputs; a 2 on either axis aliases the offsets)."""
+    rng = np.random.RandomState(seed)
+    R, cell = random_box(110, 11.0, seed)
+    lay = build_column_layout(R, 3.4, cell, np.ones(3, bool),
+                              dims=(*grid, 1))
+    Ap = len(lay.order)
+    m = lay.emask[..., None]
+
+    def r(*s, scale=1.0):
+        return (rng.randn(*s) * scale).astype(np.float32)
+
+    return dict(lay=lay, xmu=r(Ap, 6 * F, scale=0.3),
+                rbf=r(*lay.emask.shape, B + 1, scale=0.3) * m,
+                dir=r(*lay.emask.shape, 3) * m,
+                FW=r(B + 1, 3 * F, scale=0.3), g_dq=r(Ap, F),
+                g_dmu=r(Ap, 3 * F))
+
+
+def grads_close(got: dict, want: dict, rtol: float):
+    """The worst leaf (name, error) of a parameter gradient ``got`` against
+    ``want`` (name -> tensor or array): per leaf ||g - w|| / ||w||, and
+    for a leaf whose ||w|| is under 1e-3 of the largest leaf's, ||g - w||
+    over 1e-3 of that largest norm; the gradient passes when the error is
+    at most ``rtol``."""
+    def arr(v):
+        return np.asarray(v.detach().cpu().double() if torch.is_tensor(v)
+                          else v, np.float64)
+
+    norms = {k: np.linalg.norm(arr(w)) for k, w in want.items()}
+    floor = 1e-3 * max(norms.values())
+    errs = {k: np.linalg.norm(arr(got[k]) - arr(want[k]))
+            / max(norms[k], floor) for k in want}
+    worst = max(errs, key=errs.get)
+    return worst, float(errs[worst])
