@@ -26,10 +26,14 @@ Phases (any failure exits non-zero before the last line is printed):
    on the 27-cell atom layout of the painn_cell run, K16/K17 at D = 3,
    K18/K19 on the basis and directions of the box's own geometry, K19 also
    in its wgrad instance, and K3/K4 again at that layout's 16,000 rows),
-   tolerance rtol 1e-4 / atol 1e-5 elementwise; time both,
-   the one PyTorch call that computes the same function where there is
-   one (K11-K14, K16, K17: ``index_select`` and the mask, ``index_add_``),
-   and work
+   tolerance rtol 1e-4 / atol 1e-5 elementwise, the copies K11 and K13
+   (every width and mode) bit for bit; time both per call (``ms``: CUDA
+   events around 10 back-to-back calls, so the host's time where it is
+   the longer), the kernel also on the device (``device_ms``: its kernels'
+   durations in ``torch.profiler``'s CUDA trace of 10 calls), and the one
+   PyTorch call that computes the same function where there is one
+   (K11-K14, K16, K17: ``index_select`` and the mask, ``index_add_``) both
+   ways (``library_ms``, ``library_device_ms``); and work
    out each kernel's bound from the bytes of its inputs and outputs at
    3.35 TB/s and its FP32 operations at 67 TFLOP/s (H100 SXM data sheet);
 4. hold the port's energy and forces on the card to the JAX references
@@ -86,7 +90,9 @@ Phases (any failure exits non-zero before the last line is printed):
    at each chunk's start) K11/K12 halo 1, K13/K14 1, K20/K21/K3/K4 3 and
    every other kernel 0, the chunks' ms/step (CUDA events) apart from the
    re-bin's host seconds;
-7. print the kernel table and the card as JSON, then the result line.
+7. print the kernel table (every row and sub-row with ``ms`` and
+   ``device_ms``, ``library_ms`` and ``library_device_ms``) and the card
+   as JSON, then the result line.
 
 The parameter gradients of phase 4 run before the device rebuild of phase
 5, and the launches of row 12's, the mixing's and the cfconv's wgrad
@@ -128,6 +134,9 @@ RTOL, ATOL = 1e-4, 1e-5          # kernel vs twin, elementwise
 #: after 128-long dot products) walks; f64 partials remove only the
 #: summation order's error
 NORM_RTOL = 1e-5
+#: the numbers of a kernel row that its sub-rows carry
+SUB_KEYS = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "library_device_ms", "wgrad")
 FORCE_RMS_TOL = 1e-4             # eV/Ang vs the JAX reference
 ENERGY_RTOL = 1e-5
 GRAD_RTOL = 1e-4                 # per leaf, ||g - g_jax|| / ||g_jax||
@@ -196,7 +205,9 @@ def fcc_box(n_target: int, a: float = 5.26):
 
 
 def cuda_ms(fn, reps=10):
-    """Mean CUDA-event time of ``fn`` after one warm-up call."""
+    """Mean per-call time of ``fn`` after one warm-up call: one CUDA-event
+    pair around ``reps`` back-to-back calls, so the host's work per call
+    where it is longer than the device's."""
     fn()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     torch.cuda.synchronize()
@@ -208,6 +219,48 @@ def cuda_ms(fn, reps=10):
     return start.elapsed_time(end) / reps
 
 
+#: traces that ``device_ms`` took, and those it took again (lost kernels)
+TRACES = {"taken": 0, "retaken": 0}
+
+
+def device_ms(fn, reps=10, tries=5):
+    """Mean device time of ``fn``: the durations of the kernels (and
+    copies) that ``reps`` back-to-back calls ran on the card, summed from
+    ``torch.profiler``'s CUDA trace, over ``reps``.  A first step of
+    ``reps`` calls warms the tracer up and is dropped, and the measured
+    calls start a few ms into their step (the trace can miss the first
+    kernels of a window); a trace in which some kernel did not run a
+    multiple of ``reps`` times lost kernels and is taken again.  The
+    step's own range on the device (``ProfilerStep``) is no kernel."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    cuda = torch.autograd.DeviceType.CUDA
+    for _ in range(tries):
+        TRACES["taken"] += 1
+        traced = []
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1),
+                     on_trace_ready=lambda p: traced.extend(
+                         e for e in p.key_averages()
+                         if e.device_type == cuda
+                         and not e.key.startswith("ProfilerStep"))) as prof:
+            for _ in range(2):
+                time.sleep(0.005)
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        us = sum(e.device_time_total for e in traced)
+        if us > 0 and all(e.count % reps == 0 for e in traced):
+            return us / 1e3 / reps
+        TRACES["retaken"] += 1
+    raise AssertionError(
+        f"the profiler's trace lost kernels in {tries} tries: "
+        f"{[(e.key, e.count) for e in traced]}")
+
+
 def in_f64(fn, *args):
     """``fn`` on float64 copies of its float32 tensor arguments, its outputs
     rounded to float32."""
@@ -216,9 +269,10 @@ def in_f64(fn, *args):
     return tuple(o.float() for o in out)
 
 
-def compare(name, got, want, norm_from=None):
-    """Max abs difference; elementwise rtol/atol, from output ``norm_from``
-    on normwise."""
+def compare(name, got, want, norm_from=None, exact=False):
+    """Max abs difference; elementwise rtol/atol (``exact``: equal), from
+    output ``norm_from`` on normwise."""
+    rtol, atol = (0.0, 0.0) if exact else (RTOL, ATOL)
     err = 0.0
     for i, (g, w) in enumerate(zip(got, want)):
         if norm_from is not None and i >= norm_from:
@@ -226,7 +280,7 @@ def compare(name, got, want, norm_from=None):
             assert d <= NORM_RTOL * float(w.double().norm()), (
                 f"{name}: output {i} off by {d} (norm {w.norm()})")
         else:
-            torch.testing.assert_close(g, w, rtol=RTOL, atol=ATOL,
+            torch.testing.assert_close(g, w, rtol=rtol, atol=atol,
                                        msg=lambda m: f"{name}: {m}")
         err = max(err, float((g - w).abs().max()))
     return err
@@ -362,48 +416,61 @@ def geo_flops(B):
 
 
 def check_kernels(cases):
-    """Each kernel against its twin (rtol/atol elementwise), both timed,
-    with its bound (from the bytes of ``inputs`` and of the kernel's
-    outputs, and ``flops``) and the time of ``library``, one PyTorch call
-    that computes the same function, where there is one; returns the rows
-    of the kernel table."""
+    """Each kernel against its twin (rtol/atol elementwise, ``exact``:
+    equal), both timed per call (``cuda_ms``), the kernel and ``library``
+    (one PyTorch call that computes the same function, where there is one)
+    also on the device (``device_ms``), with its bound (from the bytes of
+    ``inputs`` and of the kernel's outputs, and ``flops``); returns the
+    rows of the kernel table."""
     rows = []
     for c in cases:
         name, kern, plain = c["name"], c["kern"], c["plain"]
         got = kern()
         err = compare(name, got, (c.get("ref") or plain)(),
-                      c.get("norm_from"))
+                      c.get("norm_from"), c.get("exact", False))
         ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
-        lib_ms = cuda_ms(c["library"]) if c.get("library") else None
+        dev_ms = device_ms(kern)
+        lib_ms = lib_dev_ms = None
+        if c.get("library"):
+            lib_ms = cuda_ms(c["library"])
+            lib_dev_ms = device_ms(c["library"])
         bound_ms, bound_by = bound(nbytes(c["inputs"], got), c["flops"])
-        lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
+        lib = ("none" if lib_ms is None
+               else f"{lib_ms:.4f} ms (device {lib_dev_ms:.4f})")
         print(f"kernel {name}{c.get('tag', '')}: max_abs_err={err:.3e} "
-              f"{ms:.4f} ms (plain twin {plain_ms:.4f} ms, library {lib}, "
-              f"bound {bound_ms:.4f} ms by {bound_by})", flush=True)
+              f"{ms:.4f} ms (device {dev_ms:.4f}; plain twin {plain_ms:.4f} "
+              f"ms, library {lib}, bound {bound_ms:.4f} ms by {bound_by})",
+              flush=True)
         row = {"name": name, "route": "cuda",
                "source": f"schnetpack_tpu_torch/csrc/{c['src']}",
                "replaces": f"schnetpack_tpu/ops/{c['replaces']}",
-               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": bound_ms, "bound_by": bound_by,
-               "library_ms": lib_ms}
+               "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+               "plain_ms": plain_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "library_ms": lib_ms,
+               "library_device_ms": lib_dev_ms}
         if c.get("wgrad"):   # the kernel's wgrad instance, also gFW
             (w,) = check_kernels([dict(c, **c["wgrad"], wgrad=None,
                                        tag=c.get("tag", "") + " (wgrad)")])
-            row["wgrad"] = {k: w[k] for k in (
-                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms")}
+            row["wgrad"] = sub_row(w)
         rows.append(row)
     return rows
 
 
+def sub_row(row):
+    """The numbers of a row, for a sub-row of another (a wgrad instance, a
+    width, a source-index mode or a layout)."""
+    return {k: row[k] for k in SUB_KEYS if k in row}
+
+
 def case(name, src, replaces, kern, plain, inputs, flops, library=None,
-         wgrad=None):
+         wgrad=None, exact=False):
     """One kernel of the table; ``wgrad`` (``kern``, ``plain``, ``flops``
     and ``ref``, what the kernel is held to, where that is not ``plain``)
-    adds its wgrad instance as a sub-row."""
+    adds its wgrad instance as a sub-row; ``exact``: a copy, held to its
+    twin bit for bit."""
     return {"name": name, "src": src, "replaces": replaces, "kern": kern,
             "plain": plain, "inputs": inputs, "flops": flops,
-            "library": library, "wgrad": wgrad}
+            "library": library, "wgrad": wgrad, "exact": exact}
 
 
 def real_edges(refs):
@@ -606,7 +673,7 @@ def select_kernel_phase(calc, system, seed, dev):
                  lambda: (sel.gather_fwd_kernel(table, refs),),
                  lambda: (sel.gather_fwd_plain(table, refs),),
                  (table, refs.qcol), 0,
-                 lambda: table.index_select(0, jf).mul_(jm)),
+                 lambda: table.index_select(0, jf).mul_(jm), exact=True),
             case("gather_bwd", "colblock_select.cu", "colblock_pallas.py:148",
                  lambda: (sel.gather_bwd_kernel(edges, refs),),
                  lambda: (sel.gather_bwd_plain(edges, refs),),
@@ -617,7 +684,7 @@ def select_kernel_phase(calc, system, seed, dev):
                  lambda: (sel.expand_fwd_kernel(table, refs),),
                  lambda: (sel.expand_fwd_plain(table, refs),),
                  (table, refs.dcol), 0,
-                 lambda: table.index_select(0, if_).mul_(im)),
+                 lambda: table.index_select(0, if_).mul_(im), exact=True),
             case("fold_fwd", "colblock_select.cu", "colblock_pallas.py:244",
                  lambda: (sel.fold_fwd_kernel(edges, refs),),
                  lambda: (sel.fold_fwd_plain(edges, refs),),
@@ -635,9 +702,7 @@ def select_kernel_phase(calc, system, seed, dev):
     for c in narrow:
         c["tag"] = " (D = 3)"
     for row, r3 in zip(rows, check_kernels(narrow)):
-        row["d3"] = {k: r3[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                        "bound_ms", "bound_by",
-                                        "library_ms")}
+        row["d3"] = sub_row(r3)
     return rows
 
 
@@ -857,7 +922,8 @@ def edge_kernel_phase(pos, cell, seed, dev):
                      lambda: (sel.gather_fwd_kernel(table, refs),),
                      lambda: (sel.gather_fwd_plain(table, refs),),
                      (table, refs.qcol), 0,
-                     lambda: table.index_select(0, jf).mul_(jm)),
+                     lambda: table.index_select(0, jf).mul_(jm),
+                     exact=True),
                 case("gather_bwd", "colblock_select.cu",
                      "colblock_shard.py:154",
                      lambda: (sel.gather_bwd_kernel(g3, refs),),
@@ -872,10 +938,7 @@ def edge_kernel_phase(pos, cell, seed, dev):
             if mode == "halo_x" and row["name"].startswith("msg"):
                 rows[row["name"]] = row
             else:
-                modes.setdefault(row["name"], {})[mode] = {
-                    k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                        "bound_ms", "bound_by", "library_ms",
-                                        "wgrad") if k in row}
+                modes.setdefault(row["name"], {})[mode] = sub_row(row)
     for name, row in rows.items():
         row["modes"] = modes.pop(name)
     return list(rows.values()), modes
@@ -1260,11 +1323,11 @@ def main():
                                             layout="atom"), system,
                                  args.seed, dev):
         if row["name"] in by_name:   # K3/K4 at the 27-cell layout's rows
-            by_name[row["name"]]["cell"] = {k: row[k] for k in (
-                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms")}
+            by_name[row["name"]]["cell"] = sub_row(row)
         else:
             rows.append(row)
+    print(f"profiler: {TRACES['taken']} traces, {TRACES['retaken']} taken "
+          "again (lost kernels)", flush=True)
     reference_phase(dev)
     launches = (msg.LAUNCHES, mix.LAUNCHES, geo_op.LAUNCHES, cf.LAUNCHES,
                 sel.LAUNCHES, cg.LAUNCHES, pf.LAUNCHES, edge.LAUNCHES)

@@ -2,14 +2,16 @@
 // gather of source rows, its VJP, the expand of destination rows and the
 // per-destination fold.
 //
-// K11 select_kernel<true>  replaces schnetpack_tpu/ops/colblock_pallas.py:121
-//   _gather_fwd_kernel (launchers :130 _gather_fwd_call and, on halo slabs,
-//   colblock_shard.py:131 _gather_hx_call);
+// K11 select_kernel<true> (narrow rows: select_narrow_kernel<true>) replaces
+//   schnetpack_tpu/ops/colblock_pallas.py:121 _gather_fwd_kernel (launchers
+//   :130 _gather_fwd_call and, on halo slabs, colblock_shard.py:131
+//   _gather_hx_call);
 // K12 gather_bwd_kernel    replaces :148 _gather_bwd_kernel (launchers :163
 //   _gather_bwd_call, folded by :92 _fold_partials, and colblock_shard.py:154
 //   _gather_hx_bwd_call, folded by :182 _fold_partials_hx);
-// K13 select_kernel<false> replaces :211 _expand_fwd_kernel (launcher :226
-//   _expand_call), which is also the fold's VJP;
+// K13 select_kernel<false> (narrow rows: select_narrow_kernel<false>)
+//   replaces :211 _expand_fwd_kernel (launcher :226 _expand_call), which is
+//   also the fold's VJP;
 // K14 fold_kernel          replaces :244 _fold_fwd_kernel (launcher :259
 //   _fold_call), which is also the expand's VJP.
 //
@@ -35,10 +37,23 @@
 // (~0.57 GB at D = 576 and the bench's 246k slots) is read or written once
 // and the table once.  Designs:
 //
-// * K11 / K13 run one block per (destination column, tile of slots); a
-//   block decodes each slot's row from its own indices once, into shared
-//   memory, and threads copy 16-byte lanes (float4) when D % 4 == 0 and
-//   the pointers allow it, else single floats (D = 3, the positions).
+// * K11 / K13 for wide rows (D % 4 == 0, or D > 8) run one block per
+//   (destination column, tile of slots); a block decodes each slot's row
+//   from its own indices once, into shared memory, and threads copy
+//   16-byte lanes (float4) when D % 4 == 0 and the pointers allow it, else
+//   single floats.  The bucket of a slot comes from compares against the
+//   offsets (``source_column``): a loop indexing them would copy them to
+//   local memory in every thread, which cost K11 a quarter of its time at
+//   D = 576.
+// * K11 / K13 for narrow rows (D < 8, D % 4 != 0: the positions' D = 3)
+//   move ~12 bytes a slot, so their time is fixed cost: one thread per
+//   slot over a grid of (slot tile, y, x), which gives each thread its
+//   column without a division.  The thread loads its index (coalesced),
+//   finds its bucket from 8 compares against the offsets held in
+//   registers, reads its D floats through the read-only path and writes
+//   them: a warp stores 32 D contiguous floats.  No shared memory, no
+//   barrier; at the bench's 300k slots 1,200 blocks of 256, about one wave
+//   at 8 blocks an SM.
 // * K12 walks the slots sorted by source atom (the device argsort of
 //   ``ops/colblock.py::source_order``, cached on the refs and shared with
 //   the PaiNN message backward): each thread owns one (source row, lane),
@@ -46,19 +61,34 @@
 //   The TPU's 9 per-source-column partials would write and read back 9
 //   tables more.
 // * K14 runs one block per (destination column, tile of up to 128
-//   features) with the column's [P, tile] sums in shared memory (64 KB at
-//   P = 128, opt-in above 48 KB).  Each thread owns one feature lane of a
-//   slot group and walks the group's slots in order; for a narrow D the
-//   128 threads split the slots into groups (slot k to group k mod G),
-//   whose sums are added in group order before each output row is written
-//   once.  No atomics anywhere: every result is deterministic.
+//   features, tile of destination rows) with the tile's [rows, features]
+//   sums in shared memory (64 KB at P = 128, opt-in above 48 KB).  The
+//   rows take one tile while they fit the block's 227 KB (P <= 453 at
+//   D >= 128, every layout of the bench); above that each block scans its
+//   column's slots and keeps the rows of its own tile.  Each thread owns
+//   one feature lane of a slot group and walks the group's slots in order;
+//   for a narrow D the 128 threads split the slots into groups (slot k to
+//   group k mod G), whose sums are added in group order before each output
+//   row is written once.  No atomics anywhere: every result is deterministic.
 
 #include <cuda_runtime.h>
+
+// K11/K13's launch arguments that the layout fixes, made once per layout
+// by the wrapper (``colblock_select.py::SelectArgs``): the column grid,
+// the capacity, the slots per column, the bucket offsets and the source-
+// index mode (hx, hy: 0, 0 wrap; 1, 0 halo_x; 1, 1 halo_xy).
+struct SelectArgs {
+  int nx, ny, P, Ktot;
+  int koffs[10];
+  int hx, hy;
+};
 
 namespace {
 
 constexpr int kThreads = 128;
 constexpr int kSelectElems = 1024;   // vector elements per K11/K13 block
+constexpr int kNarrowThreads = 256;  // slots per narrow K11/K13 block
+constexpr int kNarrowMax = 8;        // widths below this may take it
 constexpr int kFoldLanes = 128;      // features per K14 block
 constexpr int kFoldSmemCap = 64 * 1024;  // K14 shared memory for narrow D
 constexpr int kUnroll = 32;          // K14 slots in flight per thread
@@ -87,9 +117,27 @@ struct Vec<4> {
   }
 };
 
-// K11 (kGather) / K13: one block per (slot tile, destination column).  The
-// block first decodes each of its slots' table row into shared memory,
-// then copies the rows lane by lane.
+// The source column of slot k of destination column (x, y) in the
+// source-index mode (hx, hy): the bucket c9 = 3 (dx + 1) + (dy + 1) from 8
+// compares against the offsets, dx from the boundaries 3 and 6; no loop,
+// so the offsets stay in registers, and the wrap by compare, not modulo.
+__device__ __forceinline__ int source_column(int x, int y, int nx, int ny,
+                                             int k, const KOffs& ko, int hx,
+                                             int hy) {
+  const int b1 = k >= ko.o[1], b2 = k >= ko.o[2], b3 = k >= ko.o[3];
+  const int b4 = k >= ko.o[4], b5 = k >= ko.o[5], b6 = k >= ko.o[6];
+  const int b7 = k >= ko.o[7], b8 = k >= ko.o[8];
+  const int dx = b3 + b6 - 1;
+  const int dy = b1 + b2 + b4 + b5 + b7 + b8 - 2 * (dx + 1) - 1;
+  int xs = x + dx + hx, ys = y + dy + hy;
+  if (!hx) xs += xs < 0 ? nx : (xs >= nx ? -nx : 0);
+  if (!hy) ys += ys < 0 ? ny : (ys >= ny ? -ny : 0);
+  return xs * (ny + 2 * hy) + ys;
+}
+
+// K11 (kGather) / K13 for wide rows: one block per (slot tile, destination
+// column).  The block first decodes each of its slots' table row into
+// shared memory, then copies the rows lane by lane.
 template <bool kGather, int V>
 __global__ void __launch_bounds__(kThreads)
     select_kernel(const float* __restrict__ table,
@@ -105,15 +153,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int s = threadIdx.x; s < ns; s += blockDim.x) {
     const int k = k0 + s;
     const int r = idx[(size_t)col * Ktot + k];
-    int src = col;
-    if (kGather && r >= 0) {
-      int c9 = 0;
-      while (k >= ko.o[c9 + 1]) ++c9;
-      const int dx = c9 / 3 - 1, dy = c9 % 3 - 1;
-      const int xs = hx ? x + dx + 1 : (x + dx + nx) % nx;
-      const int ys = hy ? y + dy + 1 : (y + dy + ny) % ny;
-      src = xs * (ny + 2 * hy) + ys;
-    }
+    const int src =
+        kGather && r >= 0 ? source_column(x, y, nx, ny, k, ko, hx, hy) : col;
     rows[s] = r >= 0 ? src * P + r : -1;
   }
   __syncthreads();
@@ -125,6 +166,40 @@ __global__ void __launch_bounds__(kThreads)
     const int row = rows[s];
     o[t] = row >= 0 ? tab[(size_t)row * nvec + v] : Vec<V>::zero();
   }
+}
+
+// K11 (kGather) / K13 for narrow rows: thread k of block (kt, y, x) copies
+// slot kt * 256 + k of column (x, y); kD the width (0: D, read at run
+// time).
+template <bool kGather, int kD>
+__global__ void __launch_bounds__(kNarrowThreads)
+    select_narrow_kernel(const float* __restrict__ table,
+                         const int* __restrict__ idx, float* __restrict__ out,
+                         int nx, int P, int Ktot, KOffs ko, int D, int hx,
+                         int hy) {
+  const int k = blockIdx.x * kNarrowThreads + threadIdx.x;
+  if (k >= Ktot) return;
+  const int y = blockIdx.y, x = blockIdx.z, ny = gridDim.y;
+  const size_t slot = ((size_t)x * ny + y) * Ktot + k;
+  const int w = kD ? kD : D;
+  const int r = __ldg(idx + slot);
+  float* o = out + slot * w;
+  if (r < 0) {
+#pragma unroll
+    for (int d = 0; d < (kD ? kD : kNarrowMax); ++d)
+      if (kD || d < w) o[d] = 0.f;
+    return;
+  }
+  const int src =
+      kGather ? source_column(x, y, nx, ny, k, ko, hx, hy) : x * ny + y;
+  const float* row = table + ((size_t)src * P + r) * w;
+  float v[kD ? kD : kNarrowMax];
+#pragma unroll
+  for (int d = 0; d < (kD ? kD : kNarrowMax); ++d)
+    if (kD || d < w) v[d] = __ldg(row + d);
+#pragma unroll
+  for (int d = 0; d < (kD ? kD : kNarrowMax); ++d)
+    if (kD || d < w) o[d] = v[d];
 }
 
 // K12: thread (row, lane) sums its row's run of source-sorted slots.
@@ -150,22 +225,25 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// K14: one block per (feature tile, destination column); shared memory
-// holds ``groups`` partial sums [P][lanes] of the column's rows.
+// K14: one block per (feature tile, row tile, destination column); shared
+// memory holds ``groups`` partial sums [rows][lanes] of the tile's rows
+// r0 .. r0 + rows - 1 (rows = P: one tile).
 __global__ void __launch_bounds__(kThreads)
     fold_kernel(const float* __restrict__ ev, const int* __restrict__ dcol,
                 float* __restrict__ out, int P, int Ktot, int D, int lanes,
-                int groups) {
+                int groups, int rows) {
   extern __shared__ float acc[];
-  const int col = blockIdx.y;
+  const int col = blockIdx.z;
   const int f0 = blockIdx.x * lanes;
   const int nl = min(lanes, D - f0);
-  for (int i = threadIdx.x; i < groups * P * lanes; i += blockDim.x)
+  const int r0 = blockIdx.y * rows;
+  const int nr = min(rows, P - r0);
+  for (int i = threadIdx.x; i < groups * rows * lanes; i += blockDim.x)
     acc[i] = 0.f;
   __syncthreads();
   const int lane = threadIdx.x % lanes, grp = threadIdx.x / lanes;
   if (grp < groups && lane < nl) {
-    float* a = acc + (size_t)grp * P * lanes + lane;
+    float* a = acc + (size_t)grp * rows * lanes + lane;
     const int* dc = dcol + (size_t)col * Ktot;
     const float* v = ev + (size_t)col * Ktot * D + f0 + lane;
     int k = grp;
@@ -174,24 +252,25 @@ __global__ void __launch_bounds__(kThreads)
       float val[kUnroll];
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
-        d[u] = dc[k + u * groups];
+        d[u] = dc[k + u * groups] - r0;
         val[u] = v[(size_t)(k + u * groups) * D];
       }
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u)
-        if (d[u] >= 0) a[d[u] * lanes] += val[u];
+      for (int u = 0; u < kUnroll; ++u)   // padded (-1) and other tiles' rows
+        if ((unsigned)d[u] < (unsigned)nr) a[d[u] * lanes] += val[u];
     }
     for (; k < Ktot; k += groups) {
-      const int dk = dc[k];
-      if (dk >= 0) a[dk * lanes] += v[(size_t)k * D];
+      const int dk = dc[k] - r0;
+      if ((unsigned)dk < (unsigned)nr) a[dk * lanes] += v[(size_t)k * D];
     }
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < P * nl; i += blockDim.x) {
+  for (int i = threadIdx.x; i < nr * nl; i += blockDim.x) {
     const int r = i / nl, l = i - (i / nl) * nl;
     float s = 0.f;
-    for (int q = 0; q < groups; ++q) s += acc[((size_t)q * P + r) * lanes + l];
-    out[((size_t)col * P + r) * D + f0 + l] = s;
+    for (int q = 0; q < groups; ++q)
+      s += acc[((size_t)q * rows + r) * lanes + l];
+    out[((size_t)col * P + r0 + r) * D + f0 + l] = s;
   }
 }
 
@@ -206,10 +285,28 @@ KOffs offsets(const int* koffs) {
 }
 
 template <bool kGather>
-int launch_select(const float* table, const int* idx, float* out, int nx,
-                  int ny, int P, int Ktot, const int* koffs, int D, int hx,
-                  int hy, cudaStream_t stream) {
-  const KOffs ko = offsets(koffs);
+int launch_select(const float* table, const int* idx, float* out,
+                  const SelectArgs& a, int D, int hx, int hy,
+                  cudaStream_t stream) {
+  const int nx = a.nx, ny = a.ny, P = a.P, Ktot = a.Ktot;
+  const KOffs ko = offsets(a.koffs);
+  if (D % 4 != 0 && D < kNarrowMax) {
+    const dim3 grid((Ktot + kNarrowThreads - 1) / kNarrowThreads, ny, nx);
+    if (grid.x == 0) return 0;
+    if (D == 3)
+      select_narrow_kernel<kGather, 3><<<grid, kNarrowThreads, 0, stream>>>(
+          table, idx, out, nx, P, Ktot, ko, D, hx, hy);
+    else if (D == 2)
+      select_narrow_kernel<kGather, 2><<<grid, kNarrowThreads, 0, stream>>>(
+          table, idx, out, nx, P, Ktot, ko, D, hx, hy);
+    else if (D == 1)
+      select_narrow_kernel<kGather, 1><<<grid, kNarrowThreads, 0, stream>>>(
+          table, idx, out, nx, P, Ktot, ko, D, hx, hy);
+    else
+      select_narrow_kernel<kGather, 0><<<grid, kNarrowThreads, 0, stream>>>(
+          table, idx, out, nx, P, Ktot, ko, D, hx, hy);
+    return (int)cudaGetLastError();
+  }
   const bool vec = D % 4 == 0 && aligned(table) && aligned(out);
   const int nvec = vec ? D / 4 : D;
   int slots = kSelectElems / nvec;
@@ -227,20 +324,17 @@ int launch_select(const float* table, const int* idx, float* out, int nx,
 
 }  // namespace
 
-// hx, hy: the source-index mode (0, 0 wrap; 1, 0 halo_x; 1, 1 halo_xy)
 extern "C" int spk_gather_fwd(const float* table, const int* qcol, float* out,
-                              int nx, int ny, int P, int Ktot,
-                              const int* koffs, int D, int hx, int hy,
+                              const SelectArgs* args, int D,
                               cudaStream_t stream) {
-  return launch_select<true>(table, qcol, out, nx, ny, P, Ktot, koffs, D, hx,
-                             hy, stream);
+  return launch_select<true>(table, qcol, out, *args, D, args->hx, args->hy,
+                             stream);
 }
 
 extern "C" int spk_expand_fwd(const float* table, const int* dcol, float* out,
-                              int nx, int ny, int P, int Ktot,
-                              const int* koffs, int D, cudaStream_t stream) {
-  return launch_select<false>(table, dcol, out, nx, ny, P, Ktot, koffs, D, 0,
-                              0, stream);
+                              const SelectArgs* args, int D,
+                              cudaStream_t stream) {
+  return launch_select<false>(table, dcol, out, *args, D, 0, 0, stream);
 }
 
 extern "C" int spk_gather_bwd(const float* g, const int* esorted,
@@ -267,17 +361,22 @@ extern "C" int spk_fold_fwd(const float* ev, const int* dcol, float* out,
   const size_t row_bytes = (size_t)P * lanes * sizeof(float);
   int groups = kThreads / lanes;
   while (groups > 1 && groups * row_bytes > (size_t)kFoldSmemCap) --groups;
-  const size_t smem = groups * row_bytes;
   int dev = 0, max_smem = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                          dev);
-  if (smem > (size_t)max_smem) return (int)cudaErrorInvalidConfiguration;
+  // destination rows per block: all P where they fit, else as many as do
+  const size_t rows_fit =
+      (size_t)max_smem / ((size_t)groups * lanes * sizeof(float));
+  if (rows_fit == 0) return (int)cudaErrorInvalidConfiguration;
+  const int rows = (size_t)P <= rows_fit ? P : (int)rows_fit;
+  if (rows == 0) return 0;
+  const size_t smem = (size_t)groups * rows * lanes * sizeof(float);
   int err = (int)cudaFuncSetAttribute(
       fold_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err) return err;
-  const dim3 grid((D + lanes - 1) / lanes, nx * ny);
+  const dim3 grid((D + lanes - 1) / lanes, (P + rows - 1) / rows, nx * ny);
   fold_kernel<<<grid, kThreads, smem, stream>>>(ev, dcol, out, P, Ktot, D,
-                                                lanes, groups);
+                                                lanes, groups, rows);
   return (int)cudaGetLastError();
 }

@@ -47,8 +47,8 @@ SIGNATURES = {
     "spk_msg_bwd_edge": [_P] * 14 + [_I] * 4 + [_P] + [_I] * 4 + [_P],
     "spk_mix_fwd": [_P] * 9 + [_P, _P] + [_I, _I, _F, _I, _P],
     "spk_mix_bwd": [_P] * 14 + [_P] * 4 + [_I] * 3 + [_F, _I, _P],
-    "spk_gather_fwd": [_P] * 3 + [_I] * 4 + [_P] + [_I] * 3 + [_P],
-    "spk_expand_fwd": [_P] * 3 + [_I] * 4 + [_P] + [_I, _P],
+    "spk_gather_fwd": [_P] * 4 + [_I, _P],
+    "spk_expand_fwd": [_P] * 4 + [_I, _P],
     "spk_gather_bwd": [_P] * 4 + [_I, _I, _P],
     "spk_fold_fwd": [_P] * 3 + [_I] * 5 + [_P],
     "spk_cell_gather_fwd": [_P] * 3 + [_I] * 6 + [_P],
@@ -58,6 +58,8 @@ SIGNATURES = {
 }
 
 _LIB = None
+#: the entry points of the loaded library, argument types set
+_ENTRIES = {}
 #: seconds the last build took (0.0 when the library was already built)
 build_seconds = 0.0
 
@@ -123,6 +125,7 @@ def lib() -> ctypes.CDLL:
             fn = getattr(handle, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+            _ENTRIES[name] = fn
         _LIB = handle
     return _LIB
 
@@ -131,20 +134,20 @@ def launch(name: str, *args) -> None:
     """Call entry point ``name`` on the current stream; raise on a launch
     error (a refused launch never runs and a later synchronize would not
     report it)."""
-    stream = torch.cuda.current_stream().cuda_stream
-    err = getattr(lib(), name)(*args, stream)
+    fn = _ENTRIES.get(name)
+    if fn is None:
+        lib()
+        fn = _ENTRIES[name]
+    # the current stream's raw handle, as Triton's launcher reads it:
+    # ``torch.cuda.current_stream()`` builds a Stream object on every call
+    err = fn(*args, torch._C._cuda_getCurrentRawStream(
+        torch._C._cuda_getDevice()))
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
 
 
 def ptr(t: torch.Tensor) -> int:
     return t.data_ptr()
-
-
-def int_array(values) -> ctypes.Array:
-    """Host int[] (bucket offsets, chunk ranges) for an entry point."""
-    values = [int(v) for v in values]
-    return (ctypes.c_int * len(values))(*values)
 
 
 def check(t: torch.Tensor, name: str, shape, dtype=torch.float32) -> None:
@@ -154,7 +157,7 @@ def check(t: torch.Tensor, name: str, shape, dtype=torch.float32) -> None:
         raise ValueError(f"{name}: expected a CUDA tensor")
     if t.dtype != dtype:
         raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
+    if t.shape != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, "
                          f"got {tuple(t.shape)}")
     if not t.is_contiguous():

@@ -17,13 +17,26 @@ local.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
+import itertools
 from dataclasses import dataclass, field
 from typing import Tuple
 
-import numpy as np
 import torch
 
 from .cutoff import cosine_cutoff
+
+
+@functools.lru_cache(maxsize=256)
+def _bucket_offsets(ksizes: Tuple[int, ...]):
+    """The bucket offsets of ``ksizes`` and their ``int[10]``, made once per
+    bucket sizes: keyed by the sizes, so refs made by
+    ``dataclasses.replace`` with other sizes get their own.  The kernels
+    only read the array."""
+    offs = tuple(itertools.accumulate((int(k) for k in ksizes), initial=0))
+    return offs, (ctypes.c_int * len(offs))(*offs)
+
 
 @dataclass(frozen=True)
 class ColRefs:
@@ -49,8 +62,13 @@ class ColRefs:
 
     @property
     def koffs(self) -> Tuple[int, ...]:
-        return tuple(int(v) for v in np.concatenate([[0],
-                                                     np.cumsum(self.ksizes)]))
+        """The 10 bucket offsets (0 and the cumulative bucket sizes)."""
+        return _bucket_offsets(self.ksizes)[0]
+
+    @property
+    def koffs_arg(self) -> ctypes.Array:
+        """``koffs`` as the kernels' ``int[10]`` argument."""
+        return _bucket_offsets(self.ksizes)[1]
 
     @property
     def halo(self) -> Tuple[int, int]:

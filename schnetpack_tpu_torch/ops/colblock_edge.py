@@ -64,7 +64,7 @@ def msg_fwd_edge_kernel(xmu, rbf_aug, dirs, FW_aug, refs: ColRefs):
     p = _build.ptr
     _build.launch("spk_msg_fwd_edge", p(xmu), p(rbf_aug), p(dirs), p(FW_aug),
                   p(refs.qcol), p(refs.dcol), p(dq), p(dmu), nx, ny, refs.P,
-                  Ktot, _build.int_array(refs.koffs), F, B, hx, hy)
+                  Ktot, refs.koffs_arg, F, B, hx, hy)
     LAUNCHES["msg_fwd_edge"] += 1
     return dq, dmu
 
@@ -88,7 +88,7 @@ def msg_bwd_edge_kernel(xmu, rbf_aug, dirs, FW_aug, refs: ColRefs, g_dq,
                   p(FW_aug), p(refs.qcol), p(refs.dcol), p(esorted), p(grp),
                   p(g_dq), p(g_dmu), p(dxmu), p(grbf), p(gdir),
                   gFWp.data_ptr() if wgrad else None, nx, ny, refs.P, Ktot,
-                  _build.int_array(refs.koffs), G, F, B, n_src)
+                  refs.koffs_arg, G, F, B, n_src)
     LAUNCHES["msg_bwd_edge_wgrad" if wgrad else "msg_bwd_edge"] += 1
     return _with_gfw((dxmu, grbf, gdir), gFWp)
 

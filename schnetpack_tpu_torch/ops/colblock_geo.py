@@ -54,8 +54,7 @@ def geo_fwd_kernel(R, coff_fm, refs: ColRefs, cw, rc: float,
     p = _build.ptr
     _build.launch("spk_geo_fwd", p(R), p(coff_fm), p(cw), p(refs.qcol),
                   p(refs.dcol), p(geo), nx, ny, refs.P, Ktot,
-                  _build.int_array(refs.koffs), B, nch, int(raw_phi),
-                  float(rc))
+                  refs.koffs_arg, B, nch, int(raw_phi), float(rc))
     LAUNCHES["geo_fwd_raw" if raw_phi else "geo_fwd"] += 1
     return geo
 
@@ -84,7 +83,7 @@ def geo_bwd_kernel(g, R, coff_fm, refs: ColRefs, cw, rc: float):
     p = _build.ptr
     _build.launch("spk_geo_bwd", p(R), p(coff_fm), p(cw), p(refs.qcol),
                   p(refs.dcol), p(g), p(dRo), p(part), nx, ny, refs.P, Ktot,
-                  _build.int_array(refs.koffs), B, float(rc))
+                  refs.koffs_arg, B, float(rc))
     LAUNCHES["geo_bwd"] += 1
     return dRo + part.sum(0)
 

@@ -85,7 +85,7 @@ def msg_fwd_kernel(x, mu, R, FW_aug, coff_fm, cw, refs: ColRefs, rc: float):
     p = _build.ptr
     _build.launch("spk_msg_fwd", p(x), p(mu), p(R), p(FW_aug), p(coff_fm),
                   p(cw), p(refs.qcol), p(refs.dcol), p(dq), p(dmu), nx, ny,
-                  refs.P, Ktot, _build.int_array(refs.koffs), F, B, float(rc))
+                  refs.P, Ktot, refs.koffs_arg, F, B, float(rc))
     LAUNCHES["msg_fwd"] += 1
     return dq, dmu
 
@@ -158,7 +158,7 @@ def msg_bwd_kernel(x, mu, R, FW_aug, coff_fm, cw, refs: ColRefs, rc: float,
                   p(cw), p(refs.qcol), p(refs.dcol), p(esorted), p(grp),
                   p(g_dq), p(g_dmu), p(dx), p(dmu), p(gRo), p(gRd),
                   gFWp.data_ptr() if wgrad else None, nx, ny, refs.P, Ktot,
-                  _build.int_array(refs.koffs), G, F, B, float(rc))
+                  refs.koffs_arg, G, F, B, float(rc))
     LAUNCHES["msg_bwd"] += 1
     dR = (gRo + gRd.sum((0, 1))).transpose(1, 2).reshape(Ap, 3)
     return _with_gfw((dx, dmu, dR), gFWp)
@@ -230,7 +230,7 @@ def msg_fwd_geo_kernel(x, mu, geo, FW_aug, refs: ColRefs):
     p = _build.ptr
     _build.launch("spk_msg_fwd_geo", p(x), p(mu), p(geo), p(FW_aug),
                   p(refs.qcol), p(refs.dcol), p(dq), p(dmu), nx, ny, refs.P,
-                  Ktot, _build.int_array(refs.koffs), F, B, nch)
+                  Ktot, refs.koffs_arg, F, B, nch)
     LAUNCHES["msg_fwd_geo"] += 1
     return dq, dmu
 
@@ -260,7 +260,7 @@ def msg_bwd_geores_kernel(x, mu, geo, FW_aug, cw, refs: ColRefs, rc: float,
                   p(cw), p(refs.qcol), p(refs.dcol), p(esorted), p(grp),
                   p(g_dq), p(g_dmu), p(dx), p(dmu), p(gRo), p(gRd),
                   gFWp.data_ptr() if wgrad else None, nx, ny, refs.P, Ktot,
-                  _build.int_array(refs.koffs), G, F, B, B + 5, float(rc))
+                  refs.koffs_arg, G, F, B, B + 5, float(rc))
     LAUNCHES["msg_bwd_geores"] += 1
     dR = (gRo + gRd.sum((0, 1))).transpose(1, 2).reshape(Ap, 3)
     return _with_gfw((dx, dmu, dR), gFWp)
@@ -382,7 +382,7 @@ def msg_bwd_src_kernel(x, mu, geo, FW_aug, refs: ColRefs, g_dq, g_dmu,
                   p(refs.qcol), p(refs.dcol), p(esorted), p(grp), p(g_dq),
                   p(g_dmu), p(dx), p(dmu), p(ggeo),
                   gFWp.data_ptr() if wgrad else None, nx, ny, refs.P, Ktot,
-                  _build.int_array(refs.koffs), G, F, B, B + 4)
+                  refs.koffs_arg, G, F, B, B + 4)
     LAUNCHES["msg_bwd_src"] += 1
     return _with_gfw((dx, dmu, ggeo), gFWp)
 

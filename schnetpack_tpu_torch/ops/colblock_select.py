@@ -15,13 +15,16 @@ paired as the JAX package's ``custom_vjp``s pair them
 (``colblock_pallas.py:188-318``).  The gather and its VJP also run on the
 slab path's halo'd tables (``_gather_hx_call``/``_gather_hx_bwd_call``,
 ``colblock_shard.py:131-199``), in the source-index mode of the refs.
-The kernels (``csrc/colblock_select.cu``) take any width D: the
-positions (D = 3) and SO3net's flattened features (D = 9 x F).  On CPU
+The kernels (``csrc/colblock_select.cu``) take any width D and any
+capacity P: the positions (D = 3, which K11 and K13 copy one slot a
+thread) and SO3net's flattened features (D = 9 x F).  On CPU
 tensors the ops run the twins: the plain gather, expand and fold of
 ``ops/colblock.py`` and the gather's transpose.  On CUDA tensors they
 launch the kernels or raise.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -35,41 +38,60 @@ from .colblock import (
 #: MD: K11 4, K12 3, K13 4, K14 4 per step; painn_slab: 1 each, K11/K12 in
 #: the halo_x mode)
 LAUNCHES = {"gather_fwd": 0, "gather_bwd": 0, "expand_fwd": 0, "fold_fwd": 0}
-#: K14's shared memory (bytes) a block may take: P x min(D, 128) floats
-_MAX_FOLD_SMEM = 227 * 1024
-_FOLD_LANES = 128
+
+
+class SelectArgs(ctypes.Structure):
+    """K11/K13's launch arguments that the layout fixes (``SelectArgs`` in
+    ``csrc/colblock_select.cu``), made once per layout and mode and passed
+    by address: one argument where there would be seven to convert on
+    every launch."""
+
+    _fields_ = [("nx", ctypes.c_int), ("ny", ctypes.c_int),
+                ("P", ctypes.c_int), ("Ktot", ctypes.c_int),
+                ("koffs", ctypes.c_int * 10), ("hx", ctypes.c_int),
+                ("hy", ctypes.c_int)]
 
 
 def _check_refs(refs: ColRefs):
-    nx, ny, Ktot = refs.qcol.shape
-    _build.check(refs.qcol, "qcol", (nx, ny, Ktot), torch.int32)
-    _build.check(refs.dcol, "dcol", (nx, ny, Ktot), torch.int32)
-    return nx, ny, Ktot, nx * ny * refs.P
+    """(nx, ny, Ktot, A', source rows, address of the ``SelectArgs``) of
+    the refs, made and their index tensors checked once per (qcol, dcol,
+    P, ksizes, mode): the cache outlives a ``dataclasses.replace``."""
+    hit = refs.cache.get("select_dims")
+    key = (refs.P, refs.ksizes, refs.shard_axis)
+    if (hit is None or hit[0] is not refs.qcol or hit[1] is not refs.dcol
+            or hit[2] != key):
+        nx, ny, Ktot = refs.qcol.shape
+        _build.check(refs.qcol, "qcol", (nx, ny, Ktot), torch.int32)
+        _build.check(refs.dcol, "dcol", (nx, ny, Ktot), torch.int32)
+        args = SelectArgs(nx, ny, refs.P, Ktot, refs.koffs_arg, *refs.halo)
+        hit = refs.cache["select_dims"] = (
+            refs.qcol, refs.dcol, key, args,
+            (nx, ny, Ktot, nx * ny * refs.P, refs.src_rows,
+             ctypes.addressof(args)))
+    return hit[4]
 
 
 def gather_fwd_kernel(table, refs: ColRefs):
     """K11: out[x, y, k] = table[j(x, y, k)], 0 at padded slots; ``table``
     is the source table of the refs' mode (halo'd for sharded refs)."""
-    nx, ny, Ktot, _ = _check_refs(refs)
+    nx, ny, Ktot, _, n_src, args = _check_refs(refs)
     D = table.shape[-1]
-    _build.check(table, "table", (refs.src_rows, D))
+    _build.check(table, "table", (n_src, D))
     out = table.new_empty((nx, ny, Ktot, D))
-    p = _build.ptr
-    _build.launch("spk_gather_fwd", p(table), p(refs.qcol), p(out), nx, ny,
-                  refs.P, Ktot, _build.int_array(refs.koffs), D, *refs.halo)
+    _build.launch("spk_gather_fwd", table.data_ptr(), refs.qcol.data_ptr(),
+                  out.data_ptr(), args, D)
     LAUNCHES["gather_fwd"] += 1
     return out
 
 
 def expand_fwd_kernel(table, refs: ColRefs):
     """K13: out[x, y, k] = table[i(x, y, k)], 0 at padded slots."""
-    nx, ny, Ktot, Ap = _check_refs(refs)
+    nx, ny, Ktot, Ap, _, args = _check_refs(refs)
     D = table.shape[-1]
     _build.check(table, "table", (Ap, D))
     out = table.new_empty((nx, ny, Ktot, D))
-    p = _build.ptr
-    _build.launch("spk_expand_fwd", p(table), p(refs.dcol), p(out), nx, ny,
-                  refs.P, Ktot, _build.int_array(refs.koffs), D)
+    _build.launch("spk_expand_fwd", table.data_ptr(), refs.dcol.data_ptr(),
+                  out.data_ptr(), args, D)
     LAUNCHES["expand_fwd"] += 1
     return out
 
@@ -77,7 +99,7 @@ def expand_fwd_kernel(table, refs: ColRefs):
 def gather_bwd_kernel(g, refs: ColRefs):
     """K12: the gather's VJP, dT [A'_src, D] = per-source-row sums of g
     over the source table of the refs' mode."""
-    nx, ny, Ktot, _ = _check_refs(refs)
+    nx, ny, Ktot, *_ = _check_refs(refs)
     D = g.shape[-1]
     _build.check(g, "g", (nx, ny, Ktot, D))
     esorted, _, rowptr = source_order(refs)
@@ -91,13 +113,9 @@ def gather_bwd_kernel(g, refs: ColRefs):
 
 def fold_fwd_kernel(edge_vals, refs: ColRefs):
     """K14: out [A', D] = per-destination-row sums of edge_vals."""
-    nx, ny, Ktot, Ap = _check_refs(refs)
+    nx, ny, Ktot, Ap, _, _ = _check_refs(refs)
     D = edge_vals.shape[-1]
     _build.check(edge_vals, "edge_vals", (nx, ny, Ktot, D))
-    if refs.P * min(D, _FOLD_LANES) * 4 > _MAX_FOLD_SMEM:
-        raise ValueError(
-            f"the fold kernel keeps a column's [P, min(D, {_FOLD_LANES})] "
-            f"sums in shared memory: P = {refs.P} does not fit")
     out = edge_vals.new_empty((Ap, D))
     p = _build.ptr
     _build.launch("spk_fold_fwd", p(edge_vals), p(refs.dcol), p(out), nx, ny,

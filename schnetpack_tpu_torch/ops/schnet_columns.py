@@ -71,7 +71,7 @@ def cf_fwd_kernel(h, geo, W1, b1, W2, b2, refs: ColRefs):
     p = _build.ptr
     _build.launch("spk_cf_fwd", p(h), p(geo), p(W1), p(b1), p(W2), p(b2),
                   p(refs.qcol), p(refs.dcol), p(order), p(nreal), p(out), nx,
-                  ny, refs.P, Ktot, _build.int_array(refs.koffs), B, B + 4)
+                  ny, refs.P, Ktot, refs.koffs_arg, B, B + 4)
     LAUNCHES["cf_fwd"] += 1
     return out
 
@@ -93,7 +93,7 @@ def cf_bwd_kernel(h, geo, W1, b1, W2, b2, refs: ColRefs, g,
     _build.launch("spk_cf_bwd", p(h), p(geo), p(W1), p(b1), p(W2), p(b2),
                   p(refs.qcol), p(refs.dcol), p(order), p(nreal), p(g),
                   p(part), p(ggeo), None if wpart is None else p(wpart), nx,
-                  ny, refs.P, Ktot, _build.int_array(refs.koffs), B, B + 4)
+                  ny, refs.P, Ktot, refs.koffs_arg, B, B + 4)
     if not wgrad:
         LAUNCHES["cf_bwd"] += 1
         return part.sum(0), ggeo

@@ -266,20 +266,30 @@ def test_cfconv_kernels_match_twin(cuda_device, seed):
         "cf_fwd": 1, "cf_bwd": 0, "cf_bwd_wgrad": 1}
 
 
+#: threads (slots) of a narrow K11/K13 block
+NARROW_BLOCK = 256
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("D", [3, 36, 576, 13])
+@pytest.mark.parametrize("D", [3, 36, 576, 13, 1, 2, 5, 7])
 def test_select_kernels_match_twin(cuda_device, D):
-    """K11-K14 at the positions' width, SO3net's 9 x F widths, and an odd
-    width (the scalar path)."""
+    """K11-K14 at the positions' width, SO3net's 9 x F widths, an odd
+    wide width (the scalar path) and the narrow widths 1-3, 5 and 7 (one
+    slot a thread), on a Ktot that is no multiple of the narrow block; the
+    copies K11/K13 equal their twins bit for bit."""
     c = message_case(seed=D % 7)
     refs = ColRefs.from_layout(c["lay"], device=cuda_device)
     nx, ny, Ktot = refs.qcol.shape
+    assert Ktot % NARROW_BLOCK != 0
     g = torch.Generator().manual_seed(D)
     table = torch.randn((nx * ny * refs.P, D), generator=g).to(cuda_device)
     edges = torch.randn((nx, ny, Ktot, D), generator=g).to(cuda_device)
     for kern, plain, arg in [
             (sel.gather_fwd_kernel, sel.gather_fwd_plain, table),
-            (sel.expand_fwd_kernel, sel.expand_fwd_plain, table),
+            (sel.expand_fwd_kernel, sel.expand_fwd_plain, table)]:
+        torch.testing.assert_close(kern(arg, refs), plain(arg, refs),
+                                   rtol=0, atol=0)
+    for kern, plain, arg in [
             (sel.gather_bwd_kernel, sel.gather_bwd_plain, edges),
             (sel.fold_fwd_kernel, sel.fold_fwd_plain, edges)]:
         torch.testing.assert_close(kern(arg, refs), plain(arg, refs),
@@ -292,6 +302,33 @@ def test_select_kernels_match_twin(cuda_device, D):
     out.backward(table)
     assert {k: sel.LAUNCHES[k] - before[k] for k in before} == {
         "gather_fwd": 1, "gather_bwd": 1, "expand_fwd": 2, "fold_fwd": 2}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("P", [500, 1000])
+def test_fold_kernel_tiles_rows_past_shared_memory(cuda_device, P):
+    """K14 at a capacity whose [P, 128] column sums do not fit a block's
+    shared memory (P > 453 at D = 576): the rows split into tiles (1000:
+    two full tiles and a ragged one), held to the twin; also as the
+    expand's VJP."""
+    nx, ny, Ktot, D = 2, 2, 700, 576
+    rng = np.random.RandomState(P)
+    dcol = rng.randint(0, P, size=(nx, ny, Ktot)).astype(np.int32)
+    dcol[rng.rand(nx, ny, Ktot) < 0.2] = -1
+    dcol[0, 0, :3] = (0, P - 1, P // 2)     # the first and last rows
+    ksizes = (80,) * 8 + (Ktot - 640,)
+    t = torch.as_tensor(dcol, device=cuda_device)
+    refs = ColRefs(t, t, P, ksizes)
+    edges = torch.as_tensor(rng.randn(nx, ny, Ktot, D).astype(np.float32),
+                            device=cuda_device)
+    want = sel.fold_fwd_plain(edges, refs)
+    torch.testing.assert_close(sel.fold_fwd_kernel(edges, refs), want,
+                               rtol=MSG_RTOL, atol=MSG_ATOL)
+    table = torch.zeros((nx * ny * P, D), device=cuda_device,
+                        requires_grad=True)
+    (dT,) = torch.autograd.grad(sel.column_expand_op(table, refs), table,
+                                edges)
+    torch.testing.assert_close(dT, want, rtol=MSG_RTOL, atol=MSG_ATOL)
 
 
 def mode_case(grid, mode, dev, F=32, B=8, seed=0):
@@ -341,15 +378,23 @@ def test_edge_kernels_match_twin(cuda_device, mode, grid, F):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("mode,grid,D", [("halo_x", (3, 3), 3),
-                                         ("halo_x", (2, 3), 13),
-                                         ("halo_xy", (2, 2), 3),
-                                         ("halo_xy", (3, 3), 768)])
+@pytest.mark.parametrize("mode,grid,D", [
+    ("halo_x", (3, 3), 3), ("halo_x", (2, 3), 13), ("halo_xy", (2, 2), 3),
+    ("halo_xy", (3, 3), 768),
+    ("halo_x", (3, 3), 1), ("halo_x", (2, 3), 2), ("halo_x", (2, 3), 3),
+    ("halo_x", (3, 3), 5), ("halo_x", (2, 2), 7),
+    ("halo_xy", (3, 3), 1), ("halo_xy", (2, 3), 2), ("halo_xy", (3, 3), 3),
+    ("halo_xy", (2, 2), 5), ("halo_xy", (2, 3), 7),
+    ("wrap", (2, 3), 3), ("wrap", (2, 2), 5), ("wrap", (2, 2), 1)])
 def test_halo_gather_kernels_match_twin(cuda_device, mode, grid, D):
-    """K11 and K12 in the halo modes against the halo'd gather and its
-    transpose, and the sharded gather op (halo, K11; K12, folded back)."""
+    """K11 and K12 in each source-index mode (the halo modes, and the wrap
+    on aliased grids) against the gather of that mode and its transpose,
+    and the gather op (for the halo modes the sharded one: halo, K11; K12,
+    folded back); the narrow widths (D < 8, D % 4 != 0) take the one slot
+    a thread K11, on Ktots that are no multiple of its block."""
     refs, _ = mode_case(grid, mode, cuda_device)
     nx, ny, Ktot = refs.qcol.shape
+    assert Ktot % NARROW_BLOCK != 0
     g = torch.Generator().manual_seed(D)
     table = torch.randn((refs.src_rows, D), generator=g).to(cuda_device)
     edges = torch.randn((nx, ny, Ktot, D), generator=g).to(cuda_device)
