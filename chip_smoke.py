@@ -6,14 +6,16 @@ Phases (any failure exits non-zero before the last line is printed):
 
 1. require CUDA; print the card's name and power limit (nvidia-smi);
 2. build the CUDA kernels from ``schnetpack_tpu_torch/csrc`` (one nvcc per
-   source, started together; sm_90a);
+   source, started together; sm_90a) and print ptxas's registers, stack
+   frame and spills of every instance of the message kernels;
 3. hold each kernel K1-K21 against its plain PyTorch twin on the card at
    the shapes of the MD runs below (10,976-atom argon box in the layout the
    port's neighbor list builds, F=128, B=20, f32, random features and
    cotangents from --seed; K6/K7 on the geo that K5 computes there, K15 on
    K5's geo without the d channel, K9/K10 on the raw-phi geo of K5's raw
    form, with the trained SchNet's first filter network; K11-K14 at the
-   positions' width D = 3 and SO3net's D = 9 x 64; K2, K7 and K15 also in
+   positions' width D = 3 and SO3net's D = 9 x 64; K1/K2 again at F = 256
+   on the same layout (a sub-row); K2, K7 and K15 also in
    their wgrad instances, which return the filter-weight cotangent gFW, a
    sum over all ~200k edges: those are held to the twin evaluated in
    float64, since the f32 twin's own sum is off by ~1e-5 there, as are
@@ -35,7 +37,9 @@ Phases (any failure exits non-zero before the last line is printed):
    (K11-K14, K16, K17: ``index_select`` and the mask, ``index_add_``) both
    ways (``library_ms``, ``library_device_ms``); and work
    out each kernel's bound from the bytes of its inputs and outputs at
-   3.35 TB/s and its FP32 operations at 67 TFLOP/s (H100 SXM data sheet);
+   3.35 TB/s and its FP32 operations at 67 TFLOP/s (H100 SXM data sheet),
+   the operations those this run's data needs (the filter and products
+   of K1/K2, K6/K7, K18 and K20 only on the slots inside the cutoff);
 4. hold the port's energy and forces on the card to the JAX references
    (force rms <= 1e-4 eV/Ang, energy within 1e-5 relative): PaiNN in both
    message forms (``fuse`` = hybrid and full) to
@@ -101,6 +105,7 @@ instances in the table are those of phase 4's evaluations.
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -134,6 +139,10 @@ RTOL, ATOL = 1e-4, 1e-5          # kernel vs twin, elementwise
 #: after 128-long dot products) walks; f64 partials remove only the
 #: summation order's error
 NORM_RTOL = 1e-5
+#: the message kernels' sources and their templates' parameters, for the
+#: ptxas report of the build
+MSG_SOURCES = {"colblock_message.cu": ("kGeo", "kB4"),
+               "colblock_message_bwd.cu": ("kMode", "kWgrad", "kB4")}
 #: the numbers of a kernel row that its sub-rows carry
 SUB_KEYS = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "library_device_ms", "wgrad")
@@ -193,6 +202,33 @@ KB_EV = 8.617333262e-5           # eV / K
 
 #: the MD paths of phase 6
 PATHS = ("hybrid", "full", "schnet", "so3net", "painn_trbf", "painn_cell")
+
+
+def ptxas_report(log: str, params):
+    """(instance, registers, stack frame, spill stores, spill loads) of
+    each kernel in ptxas's -v report ``log``; the instance is the kernel's
+    name with its template arguments, read from the mangled name."""
+    out, name, frame = [], None, (0, 0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            frame = tuple(int(v) for v in m.groups())
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            k = re.search(r"\d([a-z_]+_kernel)I(.*?)EEv", name)
+            args = re.findall(r"L[a-z](\d+)E", k.group(2)) if k else []
+            inst = (f"{k.group(1)}<" + ", ".join(
+                f"{p}={a}" for p, a in zip(params, args)) + ">"
+                    if k else name)
+            out.append((inst, int(m.group(1)), *frame))
+            name, frame = None, (0, 0, 0)
+    return out
 
 
 def fcc_box(n_target: int, a: float = 5.26):
@@ -477,14 +513,25 @@ def real_edges(refs):
     return int((refs.qcol >= 0).sum())
 
 
+def live_edges(refs, live):
+    """Real slots where ``live`` ([nx, ny, Ktot] or its flat form) holds:
+    the slots inside the cutoff, whose filter and message the kernels that
+    skip fcut = 0 compute."""
+    return int(((refs.qcol >= 0) & live.reshape(refs.qcol.shape)).sum())
+
+
 def kernel_phase(calc, system, seed, dev):
     """K1-K7 and K15 against their twins at the MD run's shapes; returns
     rows.
 
-    Operations per real edge e (an FMA counts 2): the filter (B+1) x 3F
-    FMAs, 16F for the products and sums of the message, twice both for a
-    backward, and the geometry where a kernel computes it; a wgrad
-    instance adds the (B+1) x 3F FMAs of gFW; per atom row the mixing's
+    Operations per edge (an FMA counts 2): the filter (B+1) x 3F FMAs, 16F
+    for the products and sums of the message, twice both for a backward,
+    and the geometry where a kernel computes it, on every real slot; a
+    wgrad instance adds the (B+1) x 3F FMAs of gFW.  The filter, message
+    and gFW count only the slots inside the cutoff (``live_edges``) for
+    K1/K2 and K6/K7, which skip the others (fcut = 0 adds exactly 0), and
+    every real slot for K15, which returns each slot's geometry
+    cotangent.  Per atom row the mixing's
     22 F^2 (44 F^2 backward: input cotangents and the recomputed
     forward; the wgrad instance another 22 F^2 for the weights'
     cotangents)."""
@@ -517,16 +564,19 @@ def kernel_phase(calc, system, seed, dev):
     w = (m0.kmix, m0.k0, m0.b0, m0.k1, m0.b1)
     xargs = (rnd(Ap, F, scale=1.0), mu, g_dq * 0.3, g_dmu * 0.3, *w,
              m0.epsilon, m0.activation)
-    msg_fwd = ne * (6 * F * (B + 1) + 16 * F)
+    ni = live_edges(refs, geo[:, :, B + 4] < rep.cutoff)
+    print(f"slots: {ne} real, {ni} inside the cutoff", flush=True)
+    per_edge, gfw_edge = 6 * F * (B + 1) + 16 * F, 6 * F * (B + 1)
+    msg_fwd, gfw = ni * per_edge, ni * gfw_edge
     msg_bwd = 2 * msg_fwd
-    gfw = ne * 6 * F * (B + 1)
+    src_bwd, src_gfw = 2 * ne * per_edge, ne * gfw_edge   # every slot
 
     cases = [
         case("msg_fwd", "colblock_message.cu", "colblock_pallas.py:1889",
              lambda: msg.msg_fwd_kernel(*margs),
              lambda: msg.msg_fwd_plain(*margs),
              (x, mu, R, FW, coff, rep.cw, idx), msg_fwd + ne * geo_flops(B)),
-        case("msg_bwd", "colblock_message.cu", "colblock_pallas.py:1239",
+        case("msg_bwd", "colblock_message_bwd.cu", "colblock_pallas.py:1239",
              lambda: msg.msg_bwd_kernel(*margs, g_dq, g_dmu),
              lambda: msg.msg_bwd_plain(*margs, g_dq, g_dmu)[:3],
              (x, mu, R, FW, coff, rep.cw, idx, g_dq, g_dmu),
@@ -561,7 +611,7 @@ def kernel_phase(calc, system, seed, dev):
              lambda: msg.msg_fwd_geo_kernel(*hargs),
              lambda: msg.msg_fwd_geo_plain(*hargs),
              (x, mu, geo, FW, idx), msg_fwd),
-        case("msg_bwd_geores", "colblock_message.cu",
+        case("msg_bwd_geores", "colblock_message_bwd.cu",
              "colblock_pallas.py:1570",
              lambda: msg.msg_bwd_geores_kernel(*bargs),
              lambda: msg.msg_bwd_geores_plain(*bargs)[:3],
@@ -572,18 +622,42 @@ def kernel_phase(calc, system, seed, dev):
                     "plain": lambda: msg.msg_bwd_geores_plain(*bargs),
                     "ref": lambda: in_f64(msg.msg_bwd_geores_plain, *bargs),
                     "flops": msg_bwd + ne * geo_flops(B) + gfw}),
-        case("msg_bwd_src", "colblock_message.cu",
+        case("msg_bwd_src", "colblock_message_bwd.cu",
              "colblock_pallas.py:834",
              lambda: msg.msg_bwd_src_kernel(*sargs),
              lambda: msg.msg_bwd_src_plain(*sargs)[:3],
-             (x, mu, geo4, FW, idx, g_dq, g_dmu), msg_bwd,
+             (x, mu, geo4, FW, idx, g_dq, g_dmu), src_bwd,
              wgrad={"kern": lambda: msg.msg_bwd_src_kernel(*sargs,
                                                            wgrad=True),
                     "plain": lambda: msg.msg_bwd_src_plain(*sargs),
                     "ref": lambda: in_f64(msg.msg_bwd_src_plain, *sargs),
-                    "flops": msg_bwd + gfw}),
+                    "flops": src_bwd + src_gfw}),
     ]
-    return check_kernels(cases)
+    rows = check_kernels(cases)
+    del cases
+    # K1/K2 at F = 256 on the same layout (random features and weights):
+    # sub-rows "f256" of their rows
+    F2 = 256
+    x2, mu2, FW2 = rnd(Ap, 3 * F2), rnd(Ap, 3 * F2), rnd(B + 1, 3 * F2)
+    c2 = (rnd(Ap, F2, scale=1.0), rnd(Ap, 3 * F2, scale=1.0))
+    a2 = (x2, mu2, R, FW2, coff, rep.cw, refs, rep.cutoff)
+    fwd2 = ni * (6 * F2 * (B + 1) + 16 * F2)
+    wide = [
+        case("msg_fwd", "colblock_message.cu", "colblock_pallas.py:1889",
+             lambda: msg.msg_fwd_kernel(*a2),
+             lambda: msg.msg_fwd_plain(*a2),
+             (x2, mu2, R, FW2, coff, rep.cw, idx), fwd2 + ne * geo_flops(B)),
+        case("msg_bwd", "colblock_message_bwd.cu", "colblock_pallas.py:1239",
+             lambda: msg.msg_bwd_kernel(*a2, *c2),
+             lambda: msg.msg_bwd_plain(*a2, *c2)[:3],
+             (x2, mu2, R, FW2, coff, rep.cw, idx, *c2),
+             2 * fwd2 + 2 * ne * geo_flops(B)),
+    ]
+    for c in wide:
+        c["tag"] = " (F = 256)"
+    for row, r2 in zip(rows, check_kernels(wide)):
+        row["f256"] = sub_row(r2)
+    return rows
 
 
 def schnet_kernel_phase(calc, system, seed, dev):
@@ -715,8 +789,11 @@ def cell_kernel_phase(calc, system, seed, dev):
     first filter weights; and K3/K4 at this layout's row count (16,000
     slots against the column layout's 12,800), built as in
     ``kernel_phase`` with the first mixing block's weights; returns rows.
-    Operations per real edge or row as in ``kernel_phase``; K17 is one add
-    per real edge and coordinate.  The library calls of K16/K17 take the
+    Operations per edge or row as in ``kernel_phase``: K18 counts the
+    filter and message on the slots inside the cutoff (a zero basis row
+    adds exactly 0), K19 on every real slot, since it returns each slot's
+    basis and direction cotangents; K17 is one add per real edge and
+    coordinate.  The library calls of K16/K17 take the
     source rows decoded once on the refs, while the kernels decode
     ``qidx`` themselves."""
     from schnetpack_tpu_torch import properties as P
@@ -737,6 +814,8 @@ def cell_kernel_phase(calc, system, seed, dev):
     F, Ap, K = rep.n_atom_basis, R.shape[0], refs.dims[4]
     B = rbf.shape[-1] - 1
     ne = int((refs.qidx >= 0).sum())
+    live = (refs.qidx >= 0).reshape(rbf.shape[:-1]) & (rbf != 0).any(-1)
+    ni = int(live.sum())
     g = torch.Generator().manual_seed(seed + 30)
 
     def rnd(*shape, scale=0.3):
@@ -748,7 +827,8 @@ def cell_kernel_phase(calc, system, seed, dev):
     j, valid = cg.decode_cell_j(refs)
     jf, jm = j.reshape(-1), valid.reshape(-1, 1).float()
     jpad = torch.where(valid, j, Ap).reshape(-1)
-    msg_fwd = ne * (6 * F * (B + 1) + 16 * F)
+    msg_fwd = ni * (6 * F * (B + 1) + 16 * F)   # K18: live slots
+    msg_bwd = 2 * ne * (6 * F * (B + 1) + 16 * F)   # K19: every slot
     gfw = ne * 6 * F * (B + 1)
     m0 = rep.mixing[0]
     xargs = (rnd(Ap, F, scale=1.0), rnd(Ap, 3 * F), g_dq * 0.3, g_dmu * 0.3,
@@ -781,14 +861,14 @@ def cell_kernel_phase(calc, system, seed, dev):
         case("cell_msg_bwd", "painn_fused.cu", "painn_fused.py:185",
              lambda: pf.cell_msg_bwd_kernel(*margs, g_dq, g_dmu),
              lambda: pf.cell_msg_bwd_plain(*margs, g_dq, g_dmu)[:3],
-             (margs[:4], refs.qidx, g_dq, g_dmu), 2 * msg_fwd,
+             (margs[:4], refs.qidx, g_dq, g_dmu), msg_bwd,
              wgrad={"kern": lambda: pf.cell_msg_bwd_kernel(
                         *margs, g_dq, g_dmu, wgrad=True),
                     "plain": lambda: pf.cell_msg_bwd_plain(*margs, g_dq,
                                                            g_dmu),
                     "ref": lambda: in_f64(pf.cell_msg_bwd_plain, *margs,
                                           g_dq, g_dmu),
-                    "flops": 2 * msg_fwd + gfw}),
+                    "flops": msg_bwd + gfw}),
     ]
     for c in cases[:2]:
         c["tag"] = f" (27-cell, A' = {Ap})"
@@ -846,8 +926,10 @@ def edge_kernel_phase(pos, cell, seed, dev):
     mode's source table and random cotangents from ``seed``, the trained
     PaiNN's first filter weights; returns K20's and K21's rows in the
     path's mode (halo_x), the others under "modes", and K11's and K12's
-    results per halo mode (for their rows' "modes").  Operations per real
-    edge as in ``kernel_phase``; K12 is one add per real edge and
+    results per halo mode (for their rows' "modes").  Operations per
+    edge as in ``kernel_phase``: K20 (and K6) counts the filter and
+    message on the slots inside the cutoff, K21 (as K15) on every real
+    slot; K12 is one add per real edge and
     coordinate, the library calls of K11/K12 take the decoded halo
     rows."""
     import dataclasses
@@ -874,6 +956,7 @@ def edge_kernel_phase(pos, cell, seed, dev):
           f"A'={nx * ny * refs0.P}", flush=True)
     F, B = rep.n_atom_basis, rbf.shape[-1] - 1
     ne = real_edges(refs0)
+    ni = live_edges(refs0, (rbf != 0).any(-1))
     FW = rep.FW_aug[0].detach().contiguous()
     g = torch.Generator().manual_seed(seed + 40)
 
@@ -881,7 +964,8 @@ def edge_kernel_phase(pos, cell, seed, dev):
         return (torch.randn(shape, generator=g) * scale).to(dev)
 
     g_dq, g_dmu = rnd(nx * ny * refs0.P, F), rnd(nx * ny * refs0.P, 3 * F)
-    msg_fwd = ne * (6 * F * (B + 1) + 16 * F)
+    msg_fwd = ni * (6 * F * (B + 1) + 16 * F)   # K20 skips fcut = 0
+    msg_bwd = 2 * ne * (6 * F * (B + 1) + 16 * F)   # K21: every slot
     gfw = ne * 6 * F * (B + 1)
     idx = (refs0.qcol, refs0.dcol)
     rows, modes = {}, {}
@@ -897,18 +981,18 @@ def edge_kernel_phase(pos, cell, seed, dev):
                  lambda: edge.msg_fwd_edge_kernel(*margs),
                  lambda: edge.msg_fwd_edge_plain(*margs),
                  (margs[:4], idx), msg_fwd),
-            case("msg_bwd_edge", "colblock_message.cu",
+            case("msg_bwd_edge", "colblock_message_bwd.cu",
                  "colblock_pallas.py:391",
                  lambda: edge.msg_bwd_edge_kernel(*margs, g_dq, g_dmu),
                  lambda: edge.msg_bwd_edge_plain(*margs, g_dq, g_dmu)[:3],
-                 (margs[:4], idx, g_dq, g_dmu), 2 * msg_fwd,
+                 (margs[:4], idx, g_dq, g_dmu), msg_bwd,
                  wgrad={"kern": lambda: edge.msg_bwd_edge_kernel(
                             *margs, g_dq, g_dmu, wgrad=True),
                         "plain": lambda: edge.msg_bwd_edge_plain(
                             *margs, g_dq, g_dmu),
                         "ref": lambda: in_f64(edge.msg_bwd_edge_plain,
                                               *margs, g_dq, g_dmu),
-                        "flops": 2 * msg_fwd + gfw}),
+                        "flops": msg_bwd + gfw}),
         ]
         if mode != "wrap":
             table = rnd(n_src, 3)
@@ -1305,6 +1389,12 @@ def main():
     _build.lib()
     print(f"build: {time.perf_counter() - t0:.1f} s (nvcc "
           f"{_build.build_seconds:.1f} s)", flush=True)
+    for src, params in MSG_SOURCES.items():
+        for inst, regs, frame, st, ld in ptxas_report(
+                _build.build_log.get(src, ""), params):
+            print(f"ptxas {src}: {inst}: {regs} registers, {frame} bytes "
+                  f"stack frame, {st} bytes spill stores, {ld} bytes spill "
+                  "loads", flush=True)
 
     pos, cell = fcc_box(10_000)
     system = load_molecules([molecule(pos, cell)], device=dev)

@@ -25,25 +25,25 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 #: argument types of each C entry point (pointers, ints, floats, stream)
 SIGNATURES = {
-    "spk_msg_fwd": [_P] * 8 + [_P, _P] + [_I] * 4 + [_P] + [_I, _I, _F, _P],
+    "spk_msg_fwd": [_P] * 12 + [_I] * 4 + [_P] + [_I] * 3 + [_F, _P],
     "spk_msg_bwd": [_P] * 12 + [_P] * 5 + [_I] * 4 + [_P] + [_I] * 3
                    + [_F, _P],
     "spk_geo_fwd": [_P] * 6 + [_I] * 4 + [_P] + [_I] * 3 + [_F, _P],
     "spk_geo_bwd": [_P] * 8 + [_I] * 4 + [_P] + [_I, _F, _P],
     "spk_cf_fwd": [_P] * 11 + [_I] * 4 + [_P] + [_I, _I, _P],
     "spk_cf_bwd": [_P] * 14 + [_I] * 4 + [_P] + [_I, _I, _P],
-    "spk_msg_fwd_geo": [_P] * 8 + [_I] * 4 + [_P] + [_I] * 3 + [_P],
+    "spk_msg_fwd_geo": [_P] * 10 + [_I] * 4 + [_P] + [_I] * 4 + [_P],
     "spk_msg_bwd_geores": [_P] * 16 + [_I] * 4 + [_P] + [_I] * 4
                           + [_F, _P],
     "spk_msg_bwd_src": [_P] * 14 + [_I] * 4 + [_P] + [_I] * 4 + [_P],
-    "spk_msg_fwd_edge": [_P] * 8 + [_I] * 4 + [_P] + [_I] * 4 + [_P],
+    "spk_msg_fwd_edge": [_P] * 10 + [_I] * 4 + [_P] + [_I] * 5 + [_P],
     "spk_msg_bwd_edge": [_P] * 14 + [_I] * 4 + [_P] + [_I] * 4 + [_P],
     "spk_mix_fwd": [_P] * 9 + [_P, _P] + [_I, _I, _F, _I, _P],
     "spk_mix_bwd": [_P] * 14 + [_P] * 4 + [_I] * 3 + [_F, _I, _P],
@@ -56,12 +56,20 @@ SIGNATURES = {
     "spk_cell_msg_fwd": [_P] * 7 + [_I] * 7 + [_P],
     "spk_cell_msg_bwd": [_P] * 13 + [_I] * 7 + [_P],
 }
+#: host queries: argument types (ints), no stream
+QUERIES = {
+    "spk_msg_fwd_blocks": [_I] * 4,
+    "spk_msg_bwd_blocks": [_I] * 4,
+}
 
 _LIB = None
 #: the entry points of the loaded library, argument types set
 _ENTRIES = {}
 #: seconds the last build took (0.0 when the library was already built)
 build_seconds = 0.0
+#: ptxas's report (-v: registers, stack frame, spills of every kernel) of
+#: the last build, per source file name (empty when nothing was built)
+build_log = {}
 
 
 def _nvcc() -> str:
@@ -96,8 +104,10 @@ def build() -> str:
                               text=True)
              for src, obj in zip(sources, objs)]
     errors = []
+    build_log.clear()
     for src, proc in zip(sources, procs):
         _, err = proc.communicate()
+        build_log[os.path.basename(src)] = err
         if proc.returncode != 0:
             errors.append(f"{os.path.basename(src)} ({proc.returncode}):\n"
                           f"{err}")
@@ -121,7 +131,7 @@ def lib() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
         handle = ctypes.CDLL(build())
-        for name, argtypes in SIGNATURES.items():
+        for name, argtypes in {**SIGNATURES, **QUERIES}.items():
             fn = getattr(handle, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
@@ -144,6 +154,12 @@ def launch(name: str, *args) -> None:
         torch._C._cuda_getDevice()))
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def query(name: str, *args) -> int:
+    """Call host query ``name`` (no launch, no stream) and return its int."""
+    lib()
+    return int(_ENTRIES[name](*args))
 
 
 def ptr(t: torch.Tensor) -> int:

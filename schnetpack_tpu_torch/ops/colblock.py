@@ -180,6 +180,61 @@ def source_order(refs: ColRefs):
     return refs.cache["src"]
 
 
+def row_groups(cnt: torch.Tensor, G: int) -> torch.Tensor:
+    """Cut the rows of each column into G ranges of about equal edge count:
+    ``cnt`` [n_cols, P] holds the slots of each row, in the order that a
+    sort by (column, row) lists them.  Returns [n_cols, G+1, 2] int32
+    bounds (row, index of the range's first slot in that sorted order);
+    range g of column c is rows [b[c, g, 0], b[c, g+1, 0]) and slots
+    [b[c, g, 1], b[c, g+1, 1]).  Each bound follows the row at which the
+    column's running count first reaches its share, so a range's count is
+    within one row's degree of the equal share.  Fixed shapes, no host
+    synchronisation."""
+    P = cnt.shape[1]
+    cum = cnt.cumsum(1)
+    steps = torch.arange(1, G, device=cnt.device)
+    inner = torch.searchsorted(cum, (cum[:, -1:] * steps) // G) + 1
+    rows = torch.cat([torch.zeros_like(cum[:, :1]), inner.clamp(max=P),
+                      torch.full_like(cum[:, :1], P)], dim=1)
+    cumx = torch.cat([torch.zeros_like(cum[:, :1]), cum], dim=1)
+    col_start = (cum[:, -1].cumsum(0) - cum[:, -1])[:, None]
+    edges = col_start + cumx.gather(1, rows)
+    return torch.stack([rows, edges], dim=-1).to(torch.int32).contiguous()
+
+
+def destination_order(refs: ColRefs):
+    """Every real edge slot (column * Ktot + slot) sorted by (destination
+    column, destination row), slot order within a row, padded slots last
+    (``dsorted`` int32), and the slots per destination row (``cnt`` int64
+    [nx*ny*P]).  Computed once per ``refs`` (cached on it) on the device,
+    without a host synchronisation."""
+    if "dst" in refs.cache:
+        return refs.cache["dst"]
+    nx, ny, _ = refs.qcol.shape
+    n = nx * ny * refs.P
+    col = torch.arange(nx * ny, device=refs.qcol.device).view(nx, ny, 1)
+    key = torch.where(refs.qcol >= 0, col * refs.P + refs.dcol.long(),
+                      n).reshape(-1)
+    dsorted = torch.argsort(key, stable=True).to(torch.int32)
+    cnt = torch.zeros(n + 1, dtype=torch.int64, device=key.device)
+    cnt = cnt.index_add_(0, key, torch.ones_like(key))[:-1]
+    refs.cache["dst"] = (dsorted, cnt)
+    return refs.cache["dst"]
+
+
+def destination_schedule(refs: ColRefs, G: int):
+    """The message forward's schedule (``csrc/colblock_message.cu``): the
+    destination-sorted slots of ``destination_order`` and each column's
+    rows cut into G ranges of about equal edge count (``row_groups``), one
+    block each.  Made once per (``refs``, G) and cached on the refs."""
+    key = ("dst", G)
+    if key not in refs.cache:
+        dsorted, cnt = destination_order(refs)
+        nx, ny, _ = refs.qcol.shape
+        refs.cache[key] = (dsorted, row_groups(cnt.view(nx * ny, refs.P), G))
+    return refs.cache[key]
+
+
 def column_geometry(R: torch.Tensor, coff_fm: torch.Tensor, refs: ColRefs,
                     cw: torch.Tensor, rc: float, with_d: bool = False,
                     raw_phi: bool = False):

@@ -9,14 +9,15 @@ table: the slab's own [nx, ny] table, wrapped, or its halo'd one),
 per-slot rbf_aug [nx, ny, Ktot, B+1] = [phi*fcut, fcut] and directions
 [nx, ny, Ktot, 3] that autograd differentiates, and FW_aug [B+1, 3F]:
 
-* K20 (``csrc/colblock_message.cu::msg_fwd_kernel<true>`` on an edge-major
-  view) sums dq [A', F] and dmu [A', 3F] per destination atom, K6's
-  destination-major schedule;
-* K21 (``msg_bwd_kernel<kSrc, W>`` on the same view) returns dxmu over the
-  whole source table (the ``dxmu_h`` of ``_msg_hx_bwd_call:354-357``), the
-  geometry cotangents grbf and gdir (0 at padded slots), and in its wgrad
-  instance, which the op launches when FW_aug requires grad, gFW: K15's
-  source-centric schedule over the slots sorted by source-table row.
+* K20 (``csrc/colblock_message.cu::msg_fwd_kernel<true, .>`` on an
+  edge-major view) sums dq [A', F] and dmu [A', 3F] per destination atom,
+  K6's destination-sorted schedule;
+* K21 (``csrc/colblock_message_bwd.cu::msg_bwd_kernel<kSrc, W, .>`` on the
+  same view) returns dxmu over the whole source table (the ``dxmu_h`` of
+  ``_msg_hx_bwd_call:354-357``), the geometry cotangents grbf and gdir (0
+  at padded slots), and in its wgrad instance, which the op launches when
+  FW_aug requires grad, gFW: K15's source-centric schedule over the slots
+  sorted by source-table row.
 
 The source-index mode comes from the refs (``ColRefs.halo``).  On CPU
 tensors the op runs the twins: ``painn_message`` on the two halves of
@@ -29,7 +30,10 @@ import torch
 
 from . import _build
 from .colblock import ColRefs, painn_message
-from .colblock_message import _bwd_schedule, _gfw_partials, _with_gfw
+from .colblock_message import (
+    BWD_SRC, _bwd_schedule, _check_width, _fwd_schedule, _gfw_partials,
+    _with_gfw,
+)
 
 #: kernel launches since the last reset (painn_slab MD: 3 each per step;
 #: ``msg_bwd_edge_wgrad`` counts K21's wgrad instance)
@@ -39,9 +43,7 @@ LAUNCHES = {"msg_fwd_edge": 0, "msg_bwd_edge": 0, "msg_bwd_edge_wgrad": 0}
 def _check(xmu, rbf_aug, dirs, FW_aug, refs: ColRefs):
     nx, ny, Ktot = refs.qcol.shape
     F, B = xmu.shape[1] // 6, FW_aug.shape[0] - 1
-    if F % 32 or F > 128:
-        raise ValueError(
-            f"the message kernels take F % 32 == 0 and F <= 128, got F={F}")
+    _check_width(F)
     if any(k % 8 for k in refs.ksizes):
         raise ValueError(f"bucket sizes must be multiples of 8: {refs.ksizes}")
     _build.check(xmu, "xmu", (refs.src_rows, 6 * F))
@@ -58,13 +60,15 @@ def msg_fwd_edge_kernel(xmu, rbf_aug, dirs, FW_aug, refs: ColRefs):
     """K20: dq [A', F], dmu [A', 3F] summed per destination atom."""
     nx, ny, Ktot, F, B, _ = _check(xmu, rbf_aug, dirs, FW_aug, refs)
     Ap = nx * ny * refs.P
+    dsorted, dgrp, G = _fwd_schedule(refs, 1, F, B)
     dq = xmu.new_empty((Ap, F))
     dmu = xmu.new_empty((Ap, 3 * F))
     hx, hy = refs.halo
     p = _build.ptr
     _build.launch("spk_msg_fwd_edge", p(xmu), p(rbf_aug), p(dirs), p(FW_aug),
-                  p(refs.qcol), p(refs.dcol), p(dq), p(dmu), nx, ny, refs.P,
-                  Ktot, refs.koffs_arg, F, B, hx, hy)
+                  p(refs.qcol), p(refs.dcol), p(dsorted), p(dgrp), p(dq),
+                  p(dmu), nx, ny, refs.P, Ktot, refs.koffs_arg, G, F, B, hx,
+                  hy)
     LAUNCHES["msg_fwd_edge"] += 1
     return dq, dmu
 
@@ -78,7 +82,7 @@ def msg_bwd_edge_kernel(xmu, rbf_aug, dirs, FW_aug, refs: ColRefs, g_dq,
     Ap = nx * ny * refs.P
     _build.check(g_dq, "g_dq", (Ap, F))
     _build.check(g_dmu, "g_dmu", (Ap, 3 * F))
-    esorted, grp, G = _bwd_schedule(refs, n_src)
+    esorted, grp, G = _bwd_schedule(refs, n_src, BWD_SRC, wgrad, F, B)
     dxmu = torch.empty_like(xmu)
     grbf = torch.zeros_like(rbf_aug)
     gdir = torch.zeros_like(dirs)

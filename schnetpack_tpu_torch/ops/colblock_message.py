@@ -1,24 +1,33 @@
 """PaiNN column message: CUDA kernels K1/K2, K6/K7 and K15 and their twins.
 
+The forward kernels (``csrc/colblock_message.cu``) run on the
+destination-sorted schedule of ``colblock.destination_schedule``, the
+backward kernels (``csrc/colblock_message_bwd.cu``) on the source-sorted
+one of ``_bwd_schedule``; both cut each column's rows into G ranges, with
+G chosen from the blocks of the kernel instance that fit an SM
+(``_groups``).
+
 Three forms of the message, as in ``schnetpack_tpu/ops/colblock_pallas.py``:
 
 * FUSE="full" (``painn_message_columns_full_fused_pallas``): the per-edge
   geometry is recomputed from the positions inside both the forward
-  kernel (K1, ``csrc/colblock_message.cu::msg_fwd_kernel<false>``) and the
-  backward kernel (K2, ``msg_bwd_kernel<kFused>``), and the position
+  kernel (K1, ``csrc/colblock_message.cu::msg_fwd_kernel<false, .>``) and
+  the backward kernel (K2, ``csrc/colblock_message_bwd.cu::
+  msg_bwd_kernel<kFused, W, .>``), and the position
   cotangent comes straight out of K2.  No per-edge tensor exists in
   device memory.
 * FUSE="hybrid" (``painn_message_columns_fm_geores_pallas``): the forward
-  (K6, ``msg_fwd_kernel<true>``) reads the packed geo tensor that K5
+  (K6, ``msg_fwd_kernel<true, .>``) reads the packed geo tensor that K5
   (``colblock_geo.py``) computes once per step, and the geo-resident
-  backward (K7, ``msg_bwd_kernel<kGeoRes>``) derives the geometry chain from
-  the stored channels and emits dR without reading the positions.
+  backward (K7, ``msg_bwd_kernel<kGeoRes, W, .>``) derives the geometry
+  chain from the stored channels and emits dR without reading the
+  positions.
 * any other radial basis or cutoff (``painn_message_columns_fm_pallas``,
   row 9): the forward (K6) reads a geo [nx, ny, B+4, Ktot] that autograd
-  differentiates, and the backward (K15, ``msg_bwd_kernel<kSrc>``) returns
-  the per-slot geometry cotangent ggeo instead of dR; autograd carries it
-  through the basis and the cutoff to the positions (and to trainable
-  basis parameters).
+  differentiates, and the backward (K15, ``msg_bwd_kernel<kSrc, W, .>``)
+  returns the per-slot geometry cotangent ggeo instead of dR; autograd
+  carries it through the basis and the cutoff to the positions (and to
+  trainable basis parameters).
 
 In the first two the geometry has no second autograd path, so forces are
 counted once.  The full op launches the kernels on CUDA tensors (or
@@ -32,20 +41,25 @@ returns the filter-weight cotangent gFW [B+1, 3F]; the ops launch it when
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 
 from . import _build
 from .colblock import (
-    ColRefs, column_geometry, decode_i, decode_j, painn_message, source_order,
+    ColRefs, column_geometry, decode_i, decode_j, destination_schedule,
+    painn_message, row_groups, source_order,
 )
 
 #: kernel launches since the last reset (the main path adds one per call)
 LAUNCHES = {"msg_fwd": 0, "msg_bwd": 0, "msg_fwd_geo": 0,
             "msg_bwd_geores": 0, "msg_bwd_src": 0}
-_MAX_GROUPS = 8   # row ranges per source column in K2
-_MAX_WGRAD_B1 = 32  # B+1 bound of the wgrad instances' chunk sums
+MAX_F = 256         # one thread a feature (csrc/colblock_message.cuh)
+_MAX_GROUPS = 16    # row ranges per column
+_MAX_WGRAD_B1 = 32  # B+1 bound of the wgrad instances' f64 partials
+#: the backward kernels' forms (``kMode`` of ``msg_bwd_kernel``)
+BWD_FUSED, BWD_GEORES, BWD_SRC = 0, 1, 2
 
 
 def _shapes(x, cw, refs: ColRefs):
@@ -53,12 +67,16 @@ def _shapes(x, cw, refs: ColRefs):
     return nx, ny, Ktot, nx * ny * refs.P, x.shape[1] // 3, cw.shape[0]
 
 
+def _check_width(F: int):
+    if F % 32 or F > MAX_F:
+        raise ValueError(f"the message kernels take F % 32 == 0 and "
+                         f"F <= {MAX_F}, got F={F}")
+
+
 def _check_common(x, mu, FW_aug, refs: ColRefs, B: int):
     nx, ny, Ktot = refs.qcol.shape
     Ap, F = nx * ny * refs.P, x.shape[1] // 3
-    if F % 32 or F > 128:
-        raise ValueError(
-            f"the message kernels take F % 32 == 0 and F <= 128, got F={F}")
+    _check_width(F)
     if any(k % 8 for k in refs.ksizes):
         raise ValueError(f"bucket sizes must be multiples of 8: {refs.ksizes}")
     _build.check(x, "x", (Ap, 3 * F))
@@ -80,39 +98,68 @@ def msg_fwd_kernel(x, mu, R, FW_aug, coff_fm, cw, refs: ColRefs, rc: float):
     """K1: dq [A', F], dmu [A', 3F] summed per destination atom."""
     _check(x, mu, R, FW_aug, coff_fm, cw, refs)
     nx, ny, Ktot, Ap, F, B = _shapes(x, cw, refs)
+    dsorted, dgrp, G = _fwd_schedule(refs, 0, F, B)
     dq = x.new_empty((Ap, F))
     dmu = x.new_empty((Ap, 3 * F))
     p = _build.ptr
     _build.launch("spk_msg_fwd", p(x), p(mu), p(R), p(FW_aug), p(coff_fm),
-                  p(cw), p(refs.qcol), p(refs.dcol), p(dq), p(dmu), nx, ny,
-                  refs.P, Ktot, refs.koffs_arg, F, B, float(rc))
+                  p(cw), p(refs.qcol), p(refs.dcol), p(dsorted), p(dgrp),
+                  p(dq), p(dmu), nx, ny, refs.P, Ktot, refs.koffs_arg, G, F,
+                  B, float(rc))
     LAUNCHES["msg_fwd"] += 1
     return dq, dmu
 
 
-def _bwd_schedule(refs: ColRefs, n_cols: int):
-    """K2's schedule, computed once per ``refs`` (cached on it): the
-    source-sorted slots of ``source_order``, and per source column G+1
-    bounds (source row, edge index) that cut its rows into G ranges of
-    about equal edge count (G gives about two blocks per SM, at most 8).
-    Fixed shapes throughout, so no host synchronisation."""
-    if "bwd" in refs.cache:
-        return refs.cache["bwd"]
-    P = refs.P
-    esorted, cnt, _ = source_order(refs)
-    cum = cnt.reshape(n_cols, P).cumsum(1)
-    sms = torch.cuda.get_device_properties(cnt.device).multi_processor_count
-    G = int(min(_MAX_GROUPS, P, max(1, -(-2 * sms // n_cols))))
-    steps = torch.arange(1, G, device=cnt.device)
-    inner = torch.searchsorted(cum, (cum[:, -1:] * steps) // G) + 1
-    rows = torch.cat([torch.zeros_like(cum[:, :1]), inner.clamp(max=P),
-                      torch.full_like(cum[:, :1], P)], dim=1)
-    cumx = torch.cat([torch.zeros_like(cum[:, :1]), cum], dim=1)
-    col_start = (cum[:, -1].cumsum(0) - cum[:, -1])[:, None]
-    edges = col_start + cumx.gather(1, rows)
-    grp = torch.stack([rows, edges], dim=-1).to(torch.int32).contiguous()
-    refs.cache["bwd"] = (esorted, grp, G)
-    return refs.cache["bwd"]
+def wave_groups(n_cols: int, slots: int, max_groups: int) -> int:
+    """The G in [1, max_groups] whose n_cols * G blocks of equal work
+    finish about first on ``slots`` resident block slots: the smallest G
+    whose ceil(n_cols * G / slots) / G (waves times the block's share of a
+    column) is within 5% of the least (fewer blocks, less fixed cost).  A G
+    that overfills the last wave by a few blocks would nearly double the
+    kernel's time."""
+    cost = {g: -(-n_cols * g // slots) / g
+            for g in range(1, max(1, max_groups) + 1)}
+    best = min(cost.values())
+    return min(g for g, c in cost.items() if c <= 1.05 * best)
+
+
+@functools.lru_cache(maxsize=64)
+def _blocks_per_sm(query: str, *args) -> int:
+    n = _build.query(query, *args)
+    if n <= 0:
+        raise RuntimeError(f"{query}{args}: no block fits an SM ({n})")
+    return n
+
+
+def _groups(refs: ColRefs, n_cols: int, query: str, *args) -> int:
+    """G for a kernel instance over ``n_cols`` columns: ``wave_groups`` of
+    its resident blocks per SM (``query`` with ``args``) times the SMs."""
+    sms = torch.cuda.get_device_properties(
+        refs.qcol.device).multi_processor_count
+    return wave_groups(n_cols, _blocks_per_sm(query, *args) * sms,
+                       min(_MAX_GROUPS, refs.P))
+
+
+def _fwd_schedule(refs: ColRefs, geo: int, F: int, B: int):
+    """The forward kernels' (dsorted, grp, G): ``destination_schedule``
+    with G from the instance's occupancy (``geo``: K6/K20, else K1)."""
+    nx, ny, _ = refs.qcol.shape
+    G = _groups(refs, nx * ny, "spk_msg_fwd_blocks", geo, F, B, refs.P)
+    return (*destination_schedule(refs, G), G)
+
+
+def _bwd_schedule(refs: ColRefs, n_cols: int, mode: int, wgrad: bool,
+                  F: int, B: int):
+    """The backward kernels' (esorted, grp, G): the source-sorted slots of
+    ``source_order`` and each of the ``n_cols`` source columns' rows cut
+    into G ranges (``row_groups``), G from the occupancy of the instance
+    (``mode``, ``wgrad``); made once per (refs, G), cached on the refs."""
+    G = _groups(refs, n_cols, "spk_msg_bwd_blocks", mode, int(wgrad), F, B)
+    key = ("src", G)
+    if key not in refs.cache:
+        esorted, cnt, _ = source_order(refs)
+        refs.cache[key] = (esorted, row_groups(cnt.view(n_cols, refs.P), G))
+    return (*refs.cache[key], G)
 
 
 def _gfw_partials(x, FW_aug, n_blocks: int, wgrad: bool):
@@ -147,7 +194,7 @@ def msg_bwd_kernel(x, mu, R, FW_aug, coff_fm, cw, refs: ColRefs, rc: float,
     nx, ny, Ktot, Ap, F, B = _shapes(x, cw, refs)
     _build.check(g_dq, "g_dq", (Ap, F))
     _build.check(g_dmu, "g_dmu", (Ap, 3 * F))
-    esorted, grp, G = _bwd_schedule(refs, nx * ny)
+    esorted, grp, G = _bwd_schedule(refs, nx * ny, BWD_FUSED, wgrad, F, B)
     dx = torch.empty_like(x)
     dmu = torch.empty_like(mu)
     gRo = x.new_empty((nx * ny, 3, refs.P))
@@ -225,12 +272,13 @@ def msg_fwd_geo_kernel(x, mu, geo, FW_aug, refs: ColRefs):
     _check_common(x, mu, FW_aug, refs, B)
     _build.check(geo, "geo", (nx, ny, nch, Ktot))
     Ap, F = x.shape[0], x.shape[1] // 3
+    dsorted, dgrp, G = _fwd_schedule(refs, 1, F, B)
     dq = x.new_empty((Ap, F))
     dmu = x.new_empty((Ap, 3 * F))
     p = _build.ptr
     _build.launch("spk_msg_fwd_geo", p(x), p(mu), p(geo), p(FW_aug),
-                  p(refs.qcol), p(refs.dcol), p(dq), p(dmu), nx, ny, refs.P,
-                  Ktot, refs.koffs_arg, F, B, nch)
+                  p(refs.qcol), p(refs.dcol), p(dsorted), p(dgrp), p(dq),
+                  p(dmu), nx, ny, refs.P, Ktot, refs.koffs_arg, G, F, B, nch)
     LAUNCHES["msg_fwd_geo"] += 1
     return dq, dmu
 
@@ -249,7 +297,7 @@ def msg_bwd_geores_kernel(x, mu, geo, FW_aug, cw, refs: ColRefs, rc: float,
     Ap, F = x.shape[0], x.shape[1] // 3
     _build.check(g_dq, "g_dq", (Ap, F))
     _build.check(g_dmu, "g_dmu", (Ap, 3 * F))
-    esorted, grp, G = _bwd_schedule(refs, nx * ny)
+    esorted, grp, G = _bwd_schedule(refs, nx * ny, BWD_GEORES, wgrad, F, B)
     dx = torch.empty_like(x)
     dmu = torch.empty_like(mu)
     gRo = x.new_empty((nx * ny, 3, refs.P))
@@ -282,7 +330,7 @@ def msg_bwd_geores_plain(x, mu, geo, FW_aug, cw, refs: ColRefs, rc: float,
                          g_dq, g_dmu):
     """Plain twin of K7: (dx, dmu, dR, gFW).  The message VJP by autograd
     with the stored channels as constants, then the geometry chain from
-    the stored channels with K7's formulas (``csrc/colblock_message.cu``
+    the stored channels with K7's formulas (``csrc/colblock_message_bwd.cu``
     header note), folded to both ends of every edge."""
     B = cw.shape[0]
     rbf_aug, dirs = _geo_edge_major(geo, B)
@@ -372,7 +420,7 @@ def msg_bwd_src_kernel(x, mu, geo, FW_aug, refs: ColRefs, g_dq, g_dmu,
     Ap, F = x.shape[0], x.shape[1] // 3
     _build.check(g_dq, "g_dq", (Ap, F))
     _build.check(g_dmu, "g_dmu", (Ap, 3 * F))
-    esorted, grp, G = _bwd_schedule(refs, nx * ny)
+    esorted, grp, G = _bwd_schedule(refs, nx * ny, BWD_SRC, wgrad, F, B)
     dx = torch.empty_like(x)
     dmu = torch.empty_like(mu)
     ggeo = torch.zeros_like(geo)

@@ -23,6 +23,7 @@ from schnetpack_tpu_torch.ops.colblock import ColRefs
 from schnetpack_tpu_torch.ops.colblock_shard import (
     COLS_AXIS, COLS_AXIS_Y, _halo_table,
 )
+from schnetpack_tpu_torch.ops.radial import gaussian_rbf_table
 from torch_port_cases import (
     MIX_ATOL, MIX_INPUTS, MIX_RTOL, MSG_ATOL, MSG_RTOL, cell_case,
     cfconv_case, message_case, mixing_case, slab_case, torch_message_args,
@@ -73,6 +74,75 @@ def test_message_kernels_match_twin(cuda_device):
     for got, want in zip(msg.msg_bwd_kernel(*args, t["g_dq"], t["g_dmu"]),
                          msg.msg_bwd_plain(*args, t["g_dq"], t["g_dmu"])):
         torch.testing.assert_close(got, want, rtol=MSG_RTOL, atol=MSG_ATOL)
+
+
+def _check_message_family(c, dev, wgrad, width_of=None):
+    """K1/K2, K6/K7 and K6/K15 against their twins on ``message_case`` c;
+    with ``wgrad`` also the wgrad instances of K2, K7 and K15, whose gFW
+    is held to the twin in float64 (normwise), their other outputs
+    elementwise.  ``width_of``: the Gaussians take the width of the
+    table of that many functions over the same cutoff."""
+    t, refs, cw = torch_message_args(c, dev)
+    if width_of is not None:
+        cw[:, 1] = gaussian_rbf_table(width_of, c["cutoff"], device=dev)[0, 1]
+    cots = (t["g_dq"], t["g_dmu"])
+    full = (t["x"], t["mu"], t["Rs"], t["FW"], t["coff_fm"], cw, refs,
+            c["cutoff"])
+    gargs = (t["Rs"], t["coff_fm"], refs, cw, c["cutoff"])
+    geo = geo_op.geo_fwd_kernel(*gargs)
+    geo4 = geo_op.geo_fwd_kernel(*gargs, with_d=False)
+    hyb = (t["x"], t["mu"], geo, t["FW"], cw, refs, c["cutoff"])
+    src = (t["x"], t["mu"], geo4, t["FW"], refs)
+    for kern, plain, args in [
+            (msg.msg_fwd_kernel, msg.msg_fwd_plain, full),
+            (msg.msg_fwd_geo_kernel, msg.msg_fwd_geo_plain,
+             (t["x"], t["mu"], geo, t["FW"], refs))]:
+        for g, w in zip(kern(*args), plain(*args)):
+            torch.testing.assert_close(g, w, rtol=MSG_RTOL, atol=MSG_ATOL)
+    for kern, plain, args in [
+            (msg.msg_bwd_kernel, msg.msg_bwd_plain, full),
+            (msg.msg_bwd_geores_kernel, msg.msg_bwd_geores_plain, hyb),
+            (msg.msg_bwd_src_kernel, msg.msg_bwd_src_plain, src)]:
+        want = f64(plain, *args, *cots)
+        got = kern(*args, *cots)
+        assert len(got) == 3
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=MSG_RTOL, atol=MSG_ATOL)
+        if wgrad:
+            got = kern(*args, *cots, wgrad=True)
+            assert len(got) == 4
+            for g, w in zip(got[:3], want):
+                torch.testing.assert_close(g, w, rtol=MSG_RTOL, atol=MSG_ATOL)
+            assert_normwise(got[3], want[3], kern.__name__)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("F,B", [(64, 20), (128, 20), (256, 20), (128, 27)])
+def test_message_kernels_at_widths_match_twin(cuda_device, F, B):
+    """The message kernels at F = 64, 128 and 256 with PaiNN's 20 basis
+    functions (the instance that keeps the filter weights in registers),
+    and at B = 27 (24 < B+1 <= 32: the instance that reads them through
+    L1, the widest basis the wgrad instances take), plain and wgrad.  The
+    Gaussians keep the 20-function table's width at every B: the
+    27-function table's narrower ones at the case's 3 A cutoff leave the
+    fused position cotangent (|dR| up to 47) outside atol 1e-5 in f32
+    arithmetic itself (the f32 twin misses the f64 twin there by 3.4e-5)."""
+    _check_message_family(message_case(F=F, B=B, seed=F), cuda_device,
+                          wgrad=True, width_of=20)
+
+
+@pytest.mark.gpu
+def test_message_kernels_take_a_wide_basis(cuda_device):
+    """B = 40 (B+1 > 32: the instance that reads the filter weights
+    through L1): the forwards and the plain backwards match their twins;
+    the wgrad instances still refuse B+1 > 32."""
+    c = message_case(F=64, B=40, seed=7)
+    _check_message_family(c, cuda_device, wgrad=False)
+    t, refs, cw = torch_message_args(c, cuda_device)
+    with pytest.raises(ValueError, match="B\\+1 <= 32"):
+        msg.msg_bwd_kernel(t["x"], t["mu"], t["Rs"], t["FW"], t["coff_fm"],
+                           cw, refs, c["cutoff"], t["g_dq"], t["g_dmu"],
+                           wgrad=True)
 
 
 @pytest.mark.gpu
@@ -345,14 +415,22 @@ def mode_case(grid, mode, dev, F=32, B=8, seed=0):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("mode,grid,F", [
-    ("wrap", (3, 3), 32), ("wrap", (2, 3), 128), ("halo_x", (3, 3), 128),
-    ("halo_x", (2, 3), 32), ("halo_xy", (3, 3), 32), ("halo_xy", (2, 2), 128)])
-def test_edge_kernels_match_twin(cuda_device, mode, grid, F):
+@pytest.mark.parametrize("mode,grid,F,B", [
+    ("wrap", (3, 3), 32, 8), ("wrap", (2, 3), 128, 8),
+    ("halo_x", (3, 3), 128, 8), ("halo_x", (2, 3), 32, 8),
+    ("halo_xy", (3, 3), 32, 8), ("halo_xy", (2, 2), 128, 8),
+    ("wrap", (3, 3), 64, 20), ("halo_x", (2, 3), 64, 20),
+    ("halo_xy", (3, 3), 64, 20), ("wrap", (2, 3), 256, 20),
+    ("halo_x", (3, 3), 256, 20), ("halo_xy", (2, 2), 256, 20),
+    ("halo_x", (3, 3), 128, 20), ("halo_xy", (3, 3), 64, 40),
+    ("halo_x", (3, 3), 128, 27)])
+def test_edge_kernels_match_twin(cuda_device, mode, grid, F, B):
     """K20, K21 and K21's wgrad instance (gFW held to the twin in f64) in
-    each source-index mode, on aliased (2) and plain grids; the op
-    launches the wgrad instance when FW_aug requires grad."""
-    refs, t = mode_case(grid, mode, cuda_device, F=F, seed=sum(grid))
+    each source-index mode, on aliased (2) and plain grids, at F = 32 to
+    256; the op launches the wgrad instance when FW_aug requires grad.  At
+    B = 27 the filter weights are read through L1 (B+1 > 24); at B = 40
+    (B+1 > 32) the wgrad instance refuses, the others run."""
+    refs, t = mode_case(grid, mode, cuda_device, F=F, B=B, seed=sum(grid))
     args = (t["xmu"], t["rbf"], t["dir"], t["FW"], refs)
     cots = (t["g_dq"], t["g_dmu"])
     for g, w in zip(edge.msg_fwd_edge_kernel(*args),
@@ -363,6 +441,10 @@ def test_edge_kernels_match_twin(cuda_device, mode, grid, F):
     assert len(got) == 3
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=MSG_RTOL, atol=MSG_ATOL)
+    if B + 1 > 32:
+        with pytest.raises(ValueError, match="B\\+1 <= 32"):
+            edge.msg_bwd_edge_kernel(*args, *cots, wgrad=True)
+        return
     got = edge.msg_bwd_edge_kernel(*args, *cots, wgrad=True)
     assert len(got) == 4
     for g, w in zip(got, want):
