@@ -7,7 +7,7 @@ Phases (any failure exits non-zero before the last line is printed):
 1. require CUDA; print the card's name and power limit (nvidia-smi);
 2. build the CUDA kernels from ``schnetpack_tpu_torch/csrc`` (one nvcc per
    source, started together; sm_90a) and print ptxas's registers, stack
-   frame and spills of every instance of the message kernels;
+   frame and spills of every instance of the message and mixing kernels;
 3. hold each kernel K1-K21 against its plain PyTorch twin on the card at
    the shapes of the MD runs below (10,976-atom argon box in the layout the
    port's neighbor list builds, F=128, B=20, f32, random features and
@@ -139,13 +139,16 @@ RTOL, ATOL = 1e-4, 1e-5          # kernel vs twin, elementwise
 #: after 128-long dot products) walks; f64 partials remove only the
 #: summation order's error
 NORM_RTOL = 1e-5
-#: the message kernels' sources and their templates' parameters, for the
-#: ptxas report of the build
-MSG_SOURCES = {"colblock_message.cu": ("kGeo", "kB4"),
-               "colblock_message_bwd.cu": ("kMode", "kWgrad", "kB4")}
+#: the sources of the ptxas report of the build (the message and mixing
+#: kernels) and their template kernels' parameters, per kernel name
+PTXAS_SOURCES = {
+    "colblock_message.cu": {"msg_fwd_kernel": ("kGeo", "kB4")},
+    "colblock_message_bwd.cu": {"msg_bwd_kernel": ("kMode", "kWgrad", "kB4")},
+    "painn_mixing.cu": {"mix_fwd_kernel": ("ROWS",)}}
 #: the numbers of a kernel row that its sub-rows carry
 SUB_KEYS = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms", "library_device_ms", "wgrad")
+            "bound_by", "tf32x3_floor_ms", "library_ms", "library_device_ms",
+            "wgrad")
 FORCE_RMS_TOL = 1e-4             # eV/Ang vs the JAX reference
 ENERGY_RTOL = 1e-5
 GRAD_RTOL = 1e-4                 # per leaf, ||g - g_jax|| / ||g_jax||
@@ -155,6 +158,7 @@ REBUILD_FORCE_RMS_TOL = 1e-5     # eV/Ang, device vs host neighbor state
 REBUILD_JITTER = 0.25            # Angstrom, per component
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM (NVIDIA data sheet)
 FP32_FLOP_PER_S = 67e12          # FP32 outside the tensor cores, same
+TF32_FLOP_PER_S = 495e12         # TF32 on the tensor cores, dense, same
 #: kernel launches per MD step on each path (PaiNN's two message forms,
 #: SchNet, SO3net: the positions' gather and expand, then per block the
 #: feature gather and the message fold and, by autograd, their VJPs, with
@@ -207,7 +211,8 @@ PATHS = ("hybrid", "full", "schnet", "so3net", "painn_trbf", "painn_cell")
 def ptxas_report(log: str, params):
     """(instance, registers, stack frame, spill stores, spill loads) of
     each kernel in ptxas's -v report ``log``; the instance is the kernel's
-    name with its template arguments, read from the mangled name."""
+    name with its template arguments, read from the mangled name and named
+    by ``params`` (a tuple of parameter names per template kernel)."""
     out, name, frame = [], None, (0, 0, 0)
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -221,11 +226,13 @@ def ptxas_report(log: str, params):
             continue
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
-            k = re.search(r"\d([a-z_]+_kernel)I(.*?)EEv", name)
-            args = re.findall(r"L[a-z](\d+)E", k.group(2)) if k else []
-            inst = (f"{k.group(1)}<" + ", ".join(
-                f"{p}={a}" for p, a in zip(params, args)) + ">"
-                    if k else name)
+            # a template kernel's arguments: I...EEv after its name
+            k = re.search(r"\d([a-z_]+_kernel)(?:I(.*?)EEv)?", name)
+            inst = k.group(1) if k else name
+            if k and k.group(2):
+                args = re.findall(r"L[a-z](\d+)E", k.group(2))
+                inst += "<" + ", ".join(f"{p}={a}" for p, a in zip(
+                    params.get(inst, ()), args)) + ">"
             out.append((inst, int(m.group(1)), *frame))
             name, frame = None, (0, 0, 0)
     return out
@@ -473,10 +480,14 @@ def check_kernels(cases):
         bound_ms, bound_by = bound(nbytes(c["inputs"], got), c["flops"])
         lib = ("none" if lib_ms is None
                else f"{lib_ms:.4f} ms (device {lib_dev_ms:.4f})")
+        floor = ""
+        if c.get("tc_flops"):   # the kernel's own 3xTF32 work
+            floor_ms = 1e3 * c["tc_flops"] / TF32_FLOP_PER_S
+            floor = f", 3xTF32 floor {floor_ms:.4f} ms"
         print(f"kernel {name}{c.get('tag', '')}: max_abs_err={err:.3e} "
               f"{ms:.4f} ms (device {dev_ms:.4f}; plain twin {plain_ms:.4f} "
-              f"ms, library {lib}, bound {bound_ms:.4f} ms by {bound_by})",
-              flush=True)
+              f"ms, library {lib}, bound {bound_ms:.4f} ms by {bound_by}"
+              f"{floor})", flush=True)
         row = {"name": name, "route": "cuda",
                "source": f"schnetpack_tpu_torch/csrc/{c['src']}",
                "replaces": f"schnetpack_tpu/ops/{c['replaces']}",
@@ -484,8 +495,11 @@ def check_kernels(cases):
                "plain_ms": plain_ms, "bound_ms": bound_ms,
                "bound_by": bound_by, "library_ms": lib_ms,
                "library_device_ms": lib_dev_ms}
+        if floor:
+            row["tf32x3_floor_ms"] = floor_ms
         if c.get("wgrad"):   # the kernel's wgrad instance, also gFW
-            (w,) = check_kernels([dict(c, **c["wgrad"], wgrad=None,
+            (w,) = check_kernels([dict(c, **{"tc_flops": None, **c["wgrad"]},
+                                       wgrad=None,
                                        tag=c.get("tag", "") + " (wgrad)")])
             row["wgrad"] = sub_row(w)
         rows.append(row)
@@ -499,14 +513,17 @@ def sub_row(row):
 
 
 def case(name, src, replaces, kern, plain, inputs, flops, library=None,
-         wgrad=None, exact=False):
+         wgrad=None, exact=False, tc_flops=None):
     """One kernel of the table; ``wgrad`` (``kern``, ``plain``, ``flops``
     and ``ref``, what the kernel is held to, where that is not ``plain``)
     adds its wgrad instance as a sub-row; ``exact``: a copy, held to its
-    twin bit for bit."""
+    twin bit for bit; ``tc_flops``: the operations of a kernel that runs
+    its products as three TF32 passes on the tensor cores, whose time at
+    the TF32 peak is printed beside the FP32 bound as its floor."""
     return {"name": name, "src": src, "replaces": replaces, "kern": kern,
             "plain": plain, "inputs": inputs, "flops": flops,
-            "library": library, "wgrad": wgrad, "exact": exact}
+            "library": library, "wgrad": wgrad, "exact": exact,
+            "tc_flops": tc_flops}
 
 
 def real_edges(refs):
@@ -532,9 +549,10 @@ def kernel_phase(calc, system, seed, dev):
     K1/K2 and K6/K7, which skip the others (fcut = 0 adds exactly 0), and
     every real slot for K15, which returns each slot's geometry
     cotangent.  Per atom row the mixing's
-    22 F^2 (44 F^2 backward: input cotangents and the recomputed
-    forward; the wgrad instance another 22 F^2 for the weights'
-    cotangents)."""
+    22 F^2 (42 F^2 backward: the input cotangents' 22 F^2 and the
+    recomputed forward's 20 F^2, which skips the 2 F^2 of the output
+    column whose cotangent is the incoming one; the wgrad instance
+    another 22 F^2 for the weights' cotangents)."""
     from schnetpack_tpu_torch.ops import colblock_geo as geo_op
     from schnetpack_tpu_torch.ops import colblock_message as msg
     from schnetpack_tpu_torch.ops import painn_mixing as mix
@@ -594,7 +612,8 @@ def kernel_phase(calc, system, seed, dev):
         case("mix_bwd", "painn_mixing.cu", "painn_mixing.py:83",
              lambda: mix.mix_bwd_kernel(*xargs, g_dq, g_dmu),
              lambda: mix.painn_mixing_bwd_plain(*xargs, g_dq, g_dmu),
-             (xargs[:9], g_dq, g_dmu), 44 * F * F * Ap,
+             (xargs[:9], g_dq, g_dmu), 42 * F * F * Ap,
+             tc_flops=3 * 42 * F * F * Ap,
              wgrad={"kern": lambda: mix.mix_bwd_kernel(*xargs, g_dq, g_dmu,
                                                        wgrad=True),
                     "plain": lambda: mix.painn_mixing_bwd_plain(
@@ -602,7 +621,7 @@ def kernel_phase(calc, system, seed, dev):
                     "ref": lambda: in_f64(
                         lambda *a: mix.painn_mixing_bwd_plain(*a, wgrad=True),
                         *xargs, g_dq, g_dmu),
-                    "flops": 66 * F * F * Ap, "norm_from": 2}),
+                    "flops": 64 * F * F * Ap, "norm_from": 2}),
         case("geo_fwd", "colblock_geo.cu", "colblock_geo.py:202",
              lambda: (geo_op.geo_fwd_kernel(*gargs),),
              lambda: (geo_op.geo_fwd_plain(*gargs),),
@@ -841,7 +860,8 @@ def cell_kernel_phase(calc, system, seed, dev):
         case("mix_bwd", "painn_mixing.cu", "painn_mixing.py:83",
              lambda: mix.mix_bwd_kernel(*xargs, g_dq, g_dmu),
              lambda: mix.painn_mixing_bwd_plain(*xargs, g_dq, g_dmu),
-             (xargs[:9], g_dq, g_dmu), 44 * F * F * Ap),
+             (xargs[:9], g_dq, g_dmu), 42 * F * F * Ap,
+             tc_flops=3 * 42 * F * F * Ap),
         case("cell_gather_fwd", "cellblock_gather.cu",
              "cellblock_pallas.py:88",
              lambda: (cg.cell_gather_fwd_kernel(R, refs),),
@@ -1389,7 +1409,7 @@ def main():
     _build.lib()
     print(f"build: {time.perf_counter() - t0:.1f} s (nvcc "
           f"{_build.build_seconds:.1f} s)", flush=True)
-    for src, params in MSG_SOURCES.items():
+    for src, params in PTXAS_SOURCES.items():
         for inst, regs, frame, st, ld in ptxas_report(
                 _build.build_log.get(src, ""), params):
             print(f"ptxas {src}: {inst}: {regs} registers, {frame} bytes "

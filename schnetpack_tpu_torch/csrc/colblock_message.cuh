@@ -7,6 +7,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tf32_mma.cuh"
+
 namespace {
 
 // one thread a feature: F % 32 == 0 and F <= kMaxThreads
@@ -234,30 +236,5 @@ struct Filter {
     }
   }
 };
-
-// 3xTF32 on the tensor cores: v = big + small, big = v rounded to TF32,
-// small = the remainder rounded to TF32; a product keeps big*big +
-// big*small + small*big (three mma_tf32 into three accumulators), which
-// is f32-accurate (~2^-22 relative against the ~2^-11 of one TF32
-// product).
-__device__ __forceinline__ void split_tf32(float v, uint32_t& big,
-                                           uint32_t& small) {
-  uint32_t b, s;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(b) : "f"(v));
-  const float rest = v - __uint_as_float(b);
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(s) : "f"(rest));
-  big = b;
-  small = s;
-}
-
-// c += a b for one m16n8k8 tile (a: A fragment, 4 TF32 registers; b: B
-// fragment, 2)
-__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 }  // namespace

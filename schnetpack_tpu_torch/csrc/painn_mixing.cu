@@ -15,15 +15,40 @@
 // mu_out_c = mu'_c + b * W_c.  The backward recomputes the forward and
 // chains the cotangents; q and dq (mu and dmu) share one cotangent.
 //
-// What bounds them on the H100: eleven [rows, F] x [F, F] products per
-// row block, ~11 F^2 FMAs per row forward and ~2x that backward — FP32
-// CUDA-core throughput with weights re-read from L2 by every block.  The
-// design keeps a row block's intermediates in shared memory (one pass over
-// device memory for the feature tables, as on the TPU), one thread per
-// output feature with ROWS accumulators in registers, weights read
-// coalesced from L2 (the backward takes transposed copies from the wrapper
-// so its transposed products stay coalesced).  Tensor cores (wgmma) and
-// TMA staging are later work.
+// What bounds them on the H100: arithmetic.  Per row K3 does the eleven
+// F x F-class products of the forward (11 F^2 FMAs) and K4 the forward's
+// ten it needs again (a's columns of k1 have the cotangent g itself) and
+// eleven transposed ones (21 F^2 FMAs), against 8F floats in and out (K4:
+// 16F with the cotangents): ~85 FLOP a byte at F = 128, above the FP32
+// ridge (20), and ~255 in 3xTF32's three tensor-core products, above the
+// TF32 ridge (148).
+//
+// K3 is still the FP32 SIMT design: one thread per output feature with 16
+// row accumulators, every FMA behind a broadcast shared-memory load, the
+// weights re-read from L2 by every block, 13F floats of shared memory a
+// row.
+//
+// K4 runs its products on the tensor cores in 3xTF32 (tf32_mma.cuh,
+// rows_mma): a block takes 16 rows (one m16 tile) with 8 warps, whose
+// n-tiles split each product's columns; each product is a
+// [rows, K] tile in shared memory (rows padded to a stride of 4 mod 32
+// floats, so the A fragments' loads meet no bank conflict) times a weight
+// read from L2 in B fragments, each loaded and split once for all of the
+// block's m16 tiles (the three components of V, W, gV and gW are three
+// m-tiles of one product).  The epilogues work on the accumulator
+// fragments in registers, at the (row, feature) each thread holds: the
+// bias and activation, the gated update's cotangents' inputs, gpre =
+// gh act'(pre), the gVn V / Vn correction, and the output rows.  The row
+// tiles alias as they die (13F floats a row: 106 KB at 16 rows and F =
+// 128, two blocks an SM); the transposed products read the wrapper's
+// transposed weight copies so that every B fragment load has one form.
+// What holds it back now (0.44 ms at 12,800 rows and F = 128, 3.2x its
+// FP32 bound; the tensor cores at ~12% of the TF32 rate): the work around
+// each mma.sync, with one m16 tile a block each B fragment is loaded from
+// L2 and split (two cvt and a subtract a value) for one A tile, the A
+// fragments are split again by every warp, and each k-step's fragment is
+// added to the f32 sum; two column passes instead of one (NT = 2) cost
+// 0.04 ms, and the f32 sums 0.04 ms.
 //
 // The weight cotangents are sums over all rows of outer products of a
 // row's forward factors (mu'_c, q', Vn, h) with its cotangent factors (gV_c,
@@ -31,25 +56,41 @@
 // more than a block's shared memory, where the TPU keeps them resident in
 // VMEM over its sequential grid.  So the wgrad instance runs in two
 // kernels behind one entry point: mix_bwd_kernel also writes each row's 16F
-// factors to a table S [A, 16F], and mix_wgrad_kernel forms the products
-// from S as a split-K reduction: one block per (64 x 64 output tile, row
-// range), 4 x 4 outputs per thread summed in f32 over 32 rows at a time and
-// in f64 over the range; each row range writes one f64 partial set that
-// the wrapper sums (deterministic, no atomics).  A bias is the product with
-// a column of ones (an extra output row of the tile).
+// factors to a table S [A, 16F], each as soon as it is final, and
+// mix_wgrad_kernel forms the products from S as a split-K reduction: one
+// block per (64 x 64 output tile, row range), 4 x 4 outputs per thread
+// summed in f32 over 32 rows at a time and in f64 over the range; each row
+// range writes one f64 partial set that the wrapper sums (deterministic, no
+// atomics).  A bias is the product with a column of ones (an extra output
+// row of the tile).  Both instances run the same arithmetic: S only adds
+// stores.
 
 #include <cuda_runtime.h>
+
+#include "tf32_mma.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
 constexpr int kRowsFwd = 16;
-constexpr int kRowsBwd = 8;
+// K4: 8 warps a block on one m16 tile of rows, two blocks an SM at F = 128
+// (two tiles, 32 rows and one block an SM, took 0.61 ms against 0.40 at
+// 12,800 rows: scripts/time_mixing_kernels.py on the H100)
+constexpr int kBwdWarps = 8;
+constexpr int kBwdThreads = 32 * kBwdWarps;
+constexpr int kBwdRows = 16;
+// the opt-in dynamic shared memory limit, bytes a block (ops/_build.py)
+constexpr size_t kMaxSmem = SPK_MAX_DYN_SMEM;
 
 __device__ __forceinline__ float act_f(float x, int act) {
   if (act == 1) return x / (1.f + expf(-x));  // silu
   // shifted softplus: softplus(x) - ln 2
   return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x))) - 0.69314718055994531f;
+}
+
+__device__ __forceinline__ float vnorm(float v0, float v1, float v2,
+                                       float eps) {
+  return sqrtf(v0 * v0 + v1 * v1 + v2 * v2 + eps);
 }
 
 __device__ __forceinline__ float dact_f(float x, int act) {
@@ -205,8 +246,14 @@ mix_fwd_kernel(const float* __restrict__ q, const float* __restrict__ mu,
   }
 }
 
-template <int ROWS>
-__global__ void __launch_bounds__(kThreads)
+// K4's row tiles, 13F floats a row: T0 [R][3F] mu' -> (b | c) -> gV,
+// T1 [R][3F] V, T2 [R][3F] W -> gW, T3 [R][F] q' -> g, T4 [R][F] Vn ->
+// gdmu_i, T5 [R][2F] (pre | h) -> (gpre | gdqmu_i); each row padded by 4
+__host__ __device__ inline size_t bwd_smem_bytes(int rows, int F) {
+  return sizeof(float) * (size_t)rows * (13 * F + 24);
+}
+
+__global__ void __launch_bounds__(kBwdThreads, 2)
 mix_bwd_kernel(const float* __restrict__ q, const float* __restrict__ mu,
                const float* __restrict__ dq, const float* __restrict__ dmu,
                const float* __restrict__ gq, const float* __restrict__ gmu,
@@ -216,127 +263,155 @@ mix_bwd_kernel(const float* __restrict__ q, const float* __restrict__ mu,
                const float* __restrict__ k0T, const float* __restrict__ k1T,
                float* __restrict__ gqi, float* __restrict__ gmui,
                float* __restrict__ S, int A, int F, float eps, int act) {
+  constexpr int R = kBwdRows, RT = R / 16, NW = kBwdWarps;
   extern __shared__ float smem[];
-  const Tiles s = carve(smem, ROWS, F);
-  const int D3 = 3 * F, F2 = 2 * F;
-  float* s_gcat = s.h + ROWS * F;     // [ROWS][3F]: g, g_dmu_i, g_dqmu_i
-  float* s_gpre = s_gcat + ROWS * D3; // [ROWS][F]
-  float* s_gV = s_gpre + ROWS * F;    // [ROWS][3F]
-  float* s_gW = s_gV + ROWS * D3;     // [ROWS][3F]
-  const int row0 = blockIdx.x * ROWS, tid = threadIdx.x;
-  mix_recompute<ROWS>(q, mu, dq, dmu, kmix, k0, b0, row0, A, F, eps, act, s);
+  const int F2 = 2 * F, D3 = 3 * F, D16 = 16 * F;
+  const size_t FF = (size_t)F * F;
+  const int L1 = F + 4, L2 = F2 + 4, L3 = D3 + 4;
+  float* T0 = smem;
+  float* T1 = T0 + R * L3;
+  float* T2 = T1 + R * L3;
+  float* T3 = T2 + R * L3;
+  float* T4 = T3 + R * L1;
+  float* T5 = T4 + R * L1;
+  const int row0 = blockIdx.x * R, tid = threadIdx.x;
+  // the wgrad instance's factor row of a block row (null past A)
+  auto srow = [&](int r) -> float* {
+    const int row = row0 + r;
+    return S != nullptr && row < A ? S + (size_t)row * D16 : nullptr;
+  };
 
-  // cotangents of the gated update, per feature f
-  for (int f = tid; f < F; f += kThreads) {
-    float a[ROWS], b[ROWS], c[ROWS];
-    mix_intra<ROWS>(k1, b1, s.h, F, f, a, b, c);
+  // mu' -> T0, q' -> T3 (rows past A zero-filled)
+  for (int t = tid; t < R * D3; t += kBwdThreads) {
+    const int r = t / D3, col = t - r * D3, row = row0 + r;
+    float v = 0.f;
+    if (row < A) v = mu[(size_t)row * D3 + col] + dmu[(size_t)row * D3 + col];
+    T0[r * L3 + col] = v;
+    if (float* s = srow(r)) s[col] = v;
+  }
+  for (int t = tid; t < R * F; t += kBwdThreads) {
+    const int r = t / F, f = t - r * F, row = row0 + r;
+    float v = 0.f;
+    if (row < A) v = q[(size_t)row * F + f] + dq[(size_t)row * F + f];
+    T3[r * L1 + f] = v;
+    if (float* s = srow(r)) s[D3 + f] = v;
+  }
+  __syncthreads();
+  {  // (V_c | W_c) = mu'_c kmix, the components as three m-tiles
+    const MmaSeg seg[1] = {{T0, L3, F, kmix, F2, F}};
+    rows_mma<RT, 3, 4, NW>(seg, F2, [&](int c, int r, int n, float v) {
+      if (n < F) T1[r * L3 + c * F + n] = v;
+      else T2[r * L3 + c * F + n - F] = v;
+    });
+  }
+  __syncthreads();
+  for (int t = tid; t < R * F; t += kBwdThreads) {
+    const int r = t / F, f = t - r * F;
+    const float* V = T1 + r * L3 + f;
+    const float vn = vnorm(V[0], V[F], V[F2], eps);
+    T4[r * L1 + f] = vn;
+    if (float* s = srow(r)) s[4 * F + f] = vn;
+  }
+  __syncthreads();
+  {  // pre = q' k0[:F] + Vn k0[F:] + b0, h = act(pre)
+    const MmaSeg seg[2] = {{T3, L1, 0, k0, F, F}, {T4, L1, 0, k0 + FF, F, F}};
+    rows_mma<RT, 1, 2, NW>(seg, F, [&](int, int r, int n, float v) {
+      const float p = v + b0[n], h = act_f(p, act);
+      T5[r * L2 + n] = p;
+      T5[r * L2 + F + n] = h;
+      if (float* s = srow(r)) s[5 * F + n] = h;
+    });
+  }
+  __syncthreads();
+  {  // (b | c) = h k1[:, F:] + b1[F:] (the q update a has cotangent g)
+    const MmaSeg seg[1] = {{T5 + F, L2, 0, k1 + F, D3, F}};
+    rows_mma<RT, 1, 4, NW>(seg, F2, [&](int, int r, int n, float v) {
+      T0[r * L3 + n] = v + b1[F + n];
+    });
+  }
+  __syncthreads();
+  // the gated update's cotangents: gcat = (g, gdmu_i, g vw), gW_c =
+  // gm_c b + g c V_c over W_c, gV_c = g c W_c over (b | c)
+  for (int t = tid; t < R * F; t += kBwdThreads) {
+    const int r = t / F, f = t - r * F, row = row0 + r;
+    const bool ok = row < A;
+    float* gV = T0 + r * L3 + f;
+    const float* V = T1 + r * L3 + f;
+    float* W = T2 + r * L3 + f;
+    const float b = gV[0], c = gV[F];
+    const float g = ok ? gq[(size_t)row * F + f] : 0.f;
+    const float gvw = g * c;
+    float* s = srow(r);
+    float vw = 0.f, gdmu_i = 0.f;
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
+    for (int cc = 0; cc < 3; ++cc) {
+      const float gm = ok ? gmu[(size_t)row * D3 + cc * F + f] : 0.f;
+      const float v = V[cc * F], w = W[cc * F];
+      vw = fmaf(v, w, vw);
+      gdmu_i = fmaf(gm, w, gdmu_i);
+      const float gw = gm * b + gvw * v;
+      W[cc * F] = gw;
+      gV[cc * F] = gvw * w;
+      if (s) s[9 * F + cc * F + f] = gw;
+    }
+    const float gqmu = g * vw;
+    T3[r * L1 + f] = g;
+    T4[r * L1 + f] = gdmu_i;
+    T5[r * L2 + F + f] = gqmu;
+    if (s) {
+      s[13 * F + f] = g;
+      s[14 * F + f] = gdmu_i;
+      s[15 * F + f] = gqmu;
+    }
+  }
+  __syncthreads();
+  {  // gpre = (gcat k1^T) act'(pre), over pre
+    const MmaSeg seg[3] = {{T3, L1, 0, k1T, F, F},
+                           {T4, L1, 0, k1T + FF, F, F},
+                           {T5 + F, L2, 0, k1T + 2 * FF, F, F}};
+    rows_mma<RT, 1, 2, NW>(seg, F, [&](int, int r, int n, float v) {
+      float* p = T5 + r * L2 + n;
+      const float gp = v * dact_f(*p, act);
+      *p = gp;
+      if (float* s = srow(r)) s[12 * F + n] = gp;
+    });
+  }
+  __syncthreads();
+  {  // (gq' - g | gVn) = gpre k0^T; gq' out, gV_c += gVn V_c / Vn
+    const MmaSeg seg[1] = {{T5, L2, 0, k0T, F2, F}};
+    rows_mma<RT, 1, 4, NW>(seg, F2, [&](int, int r, int n, float v) {
       const int row = row0 + r;
-      const bool ok = row < A;
-      const float g = ok ? gq[(size_t)row * F + f] : 0.f;
-      float gm[3], V[3], W[3];
-      float vw = 0.f, gdmu_i = 0.f;
-      for (int cc = 0; cc < 3; ++cc) {
-        gm[cc] = ok ? gmu[(size_t)row * D3 + cc * F + f] : 0.f;
-        V[cc] = s.V[r * D3 + cc * F + f];
-        W[cc] = s.W[r * D3 + cc * F + f];
-        vw = fmaf(V[cc], W[cc], vw);
-        gdmu_i = fmaf(gm[cc], W[cc], gdmu_i);
+      if (n < F) {
+        if (row < A) gqi[(size_t)row * F + n] = T3[r * L1 + n] + v;
+        return;
       }
-      const float gvw = g * c[r];
-      s_gcat[r * D3 + f] = g;
-      s_gcat[r * D3 + F + f] = gdmu_i;
-      s_gcat[r * D3 + 2 * F + f] = g * vw;
+      const int f = n - F;
+      const float* V = T1 + r * L3 + f;
+      float* gV = T0 + r * L3 + f;
+      const float scale = v / vnorm(V[0], V[F], V[F2], eps);
+      float* s = srow(r);
+#pragma unroll
       for (int cc = 0; cc < 3; ++cc) {
-        s_gW[r * D3 + cc * F + f] = gm[cc] * b[r] + gvw * V[cc];
-        s_gV[r * D3 + cc * F + f] = gvw * W[cc];
+        const float gv = gV[cc * F] + scale * V[cc * F];
+        gV[cc * F] = gv;
+        if (s) s[6 * F + cc * F + f] = gv;
       }
-    }
+    });
   }
   __syncthreads();
-  // gh = gcat k1^T ; gpre = gh * act'(pre)
-  for (int k = tid; k < F; k += kThreads) {
-    float acc[ROWS];
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) acc[r] = 0.f;
-    for (int n = 0; n < D3; ++n) {
-      const float w = k1T[(size_t)n * F + k];
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) acc[r] = fmaf(s_gcat[r * D3 + n], w, acc[r]);
-    }
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r)
-      s_gpre[r * F + k] = acc[r] * dact_f(s.pre[r * F + k], act);
-  }
-  __syncthreads();
-  // gq' = g + gpre k0[:F]^T ; gVn = gpre k0[F:]^T -> gV_c += gVn V_c / Vn
-  for (int k = tid; k < F; k += kThreads) {
-    float aq[ROWS], an[ROWS];
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) aq[r] = an[r] = 0.f;
-    for (int f = 0; f < F; ++f) {
-      const float w0 = k0T[(size_t)f * F2 + k];
-      const float w1 = k0T[(size_t)f * F2 + F + k];
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        const float gp = s_gpre[r * F + f];
-        aq[r] = fmaf(gp, w0, aq[r]);
-        an[r] = fmaf(gp, w1, an[r]);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
+  {  // gmu'_c = gmu_c + gV_c Wv^T + gW_c Ww^T
+    const MmaSeg seg[2] = {{T0, L3, F, kmixT, F, F},
+                           {T2, L3, F, kmixT + FF, F, F}};
+    rows_mma<RT, 3, 2, NW>(seg, F, [&](int c, int r, int n, float v) {
       const int row = row0 + r;
-      if (row < A) gqi[(size_t)row * F + k] = s_gcat[r * D3 + k] + aq[r];
-      const float scale = an[r] / s.Vn[r * F + k];
-      for (int cc = 0; cc < 3; ++cc)
-        s_gV[r * D3 + cc * F + k] += scale * s.V[r * D3 + cc * F + k];
-    }
-  }
-  __syncthreads();
-  // gmu'_c = gmu_c + gV_c Wv^T + gW_c Ww^T
-  for (int cc = 0; cc < 3; ++cc) {
-    for (int k = tid; k < F; k += kThreads) {
-      float acc[ROWS];
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) acc[r] = 0.f;
-      for (int f = 0; f < F; ++f) {
-        const float wv = kmixT[(size_t)f * F + k];
-        const float ww = kmixT[(size_t)(F + f) * F + k];
-#pragma unroll
-        for (int r = 0; r < ROWS; ++r)
-          acc[r] = fmaf(s_gV[r * D3 + cc * F + f], wv,
-                        fmaf(s_gW[r * D3 + cc * F + f], ww, acc[r]));
+      if (row < A) {
+        const size_t i = (size_t)row * D3 + c * F + n;
+        gmui[i] = gmu[i] + v;
       }
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        const int row = row0 + r;
-        if (row < A)
-          gmui[(size_t)row * D3 + cc * F + k] =
-              gmu[(size_t)row * D3 + cc * F + k] + acc[r];
-      }
-    }
-  }
-  if (S == nullptr) return;
-  // wgrad: the rows' factors [mu' | q' | Vn | h | gV | gW | gpre | gcat]
-  // (the tiles are final since the barrier after the Vn chain)
-  const int D16 = 16 * F;
-  for (int t = tid; t < ROWS * D16; t += kThreads) {
-    const int r = t / D16, c = t - r * D16, row = row0 + r;
-    if (row >= A) continue;
-    float v;
-    if (c < D3) v = s.mup[r * D3 + c];
-    else if (c < 4 * F) v = s.qp[r * F + c - D3];
-    else if (c < 5 * F) v = s.Vn[r * F + c - 4 * F];
-    else if (c < 6 * F) v = s.h[r * F + c - 5 * F];
-    else if (c < 9 * F) v = s_gV[r * D3 + c - 6 * F];
-    else if (c < 12 * F) v = s_gW[r * D3 + c - 9 * F];
-    else if (c < 13 * F) v = s_gpre[r * F + c - 12 * F];
-    else v = s_gcat[r * D3 + c - 13 * F];
-    S[(size_t)row * D16 + c] = v;
+    });
   }
 }
+
 
 // One weight cotangent out[i][j] = sum_rows sum_t X_t[row][i] Y_t[row][j]
 // with X_t, Y_t column ranges of S (term t shifts both by `step`), written
@@ -431,12 +506,18 @@ mix_wgrad_kernel(const float* __restrict__ S, double* __restrict__ part,
 
 }  // namespace
 
+// dynamic shared memory of K3 (bwd 0) or K4 at width F, bytes a block
+extern "C" int spk_mix_smem_bytes(int F, int bwd) {
+  return (int)(bwd ? bwd_smem_bytes(kBwdRows, F)
+                   : sizeof(float) * (size_t)kRowsFwd * 13 * F);
+}
+
 extern "C" int spk_mix_fwd(const float* q, const float* mu, const float* dq,
                            const float* dmu, const float* kmix,
                            const float* k0, const float* b0, const float* k1,
                            const float* b1, float* qo, float* muo, int A,
                            int F, float eps, int act, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (size_t)kRowsFwd * 13 * F;
+  const size_t smem = spk_mix_smem_bytes(F, 0);
   cudaError_t err =
       cudaFuncSetAttribute(mix_fwd_kernel<kRowsFwd>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -456,17 +537,16 @@ extern "C" int spk_mix_bwd(const float* q, const float* mu, const float* dq,
                            const float* k1T, float* gqi, float* gmui,
                            float* S, double* wpart, int nsplit, int A, int F,
                            float eps, int act, cudaStream_t stream) {
-  // 13 F (forward tiles) + 3F gcat + F gpre + 3F gV + 3F gW per row
-  const size_t smem = sizeof(float) * (size_t)kRowsBwd * 23 * F;
-  cudaError_t err =
-      cudaFuncSetAttribute(mix_bwd_kernel<kRowsBwd>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
+  // the wrapper passes F % 32 == 0, F <= 256 (ops/painn_mixing.py)
+  const size_t smem = spk_mix_smem_bytes(F, 1);
+  if (F % 32 != 0 || smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      mix_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int grid = (A + kRowsBwd - 1) / kRowsBwd;
-  mix_bwd_kernel<kRowsBwd><<<grid, kThreads, smem, stream>>>(
-      q, mu, dq, dmu, gq, gmu, kmix, k0, b0, k1, b1, kmixT, k0T, k1T, gqi,
-      gmui, S, A, F, eps, act);
+  mix_bwd_kernel<<<(A + kBwdRows - 1) / kBwdRows, kBwdThreads, smem,
+                   stream>>>(q, mu, dq, dmu, gq, gmu, kmix, k0, b0, k1, b1,
+                             kmixT, k0T, k1T, gqi, gmui, S, A, F, eps, act);
   err = cudaGetLastError();
   if (err != cudaSuccess || S == nullptr) return (int)err;
   // wgrad: partial layout [gkmix F x 2F | gk0 2F x F | gb0 F | gk1 F x 3F |

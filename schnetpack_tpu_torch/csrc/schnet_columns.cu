@@ -553,6 +553,13 @@ int set_smem(K kernel, size_t smem) {
 
 }  // namespace
 
+// dynamic shared memory of K9 (bwd 0) or K10 for B basis functions and
+// column capacity P, bytes a block
+extern "C" int spk_cf_smem_bytes(int B, int P, int bwd) {
+  return (int)(smem_floats(B, P, bwd != 0) * sizeof(float) +
+               4 * kE * sizeof(int));
+}
+
 extern "C" int spk_cf_fwd(const float* h, const float* geo, const float* W1,
                           const float* b1, const float* W2, const float* b2,
                           const int* qcol, const int* dcol, const int* order,
@@ -562,8 +569,7 @@ extern "C" int spk_cf_fwd(const float* h, const float* geo, const float* W1,
   if (B > kMaxB) return (int)cudaErrorInvalidValue;
   KOffs ko;
   for (int i = 0; i < 10; ++i) ko.o[i] = koffs[i];
-  const size_t smem =
-      smem_floats(B, P, false) * sizeof(float) + 4 * kE * sizeof(int);
+  const size_t smem = spk_cf_smem_bytes(B, P, 0);
   int err = set_smem(cf_fwd_kernel, smem);
   if (err) return err;
   cf_fwd_kernel<<<nx * ny, kThreads, smem, stream>>>(
@@ -582,8 +588,7 @@ extern "C" int spk_cf_bwd(const float* h, const float* geo, const float* W1,
   if (B > kMaxB) return (int)cudaErrorInvalidValue;
   KOffs ko;
   for (int i = 0; i < 10; ++i) ko.o[i] = koffs[i];
-  const size_t smem =
-      smem_floats(B, P, true) * sizeof(float) + 4 * kE * sizeof(int);
+  const size_t smem = spk_cf_smem_bytes(B, P, 1);
   auto* kernel = wpart != nullptr ? cf_bwd_kernel<true> : cf_bwd_kernel<false>;
   int err = set_smem(kernel, smem);
   if (err) return err;

@@ -24,8 +24,13 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
+#: dynamic shared memory a block may opt into on the H100, bytes (227 KB);
+#: the wrappers name a shape whose kernel would ask for more, and the
+#: sources read it as SPK_MAX_DYN_SMEM
+MAX_DYN_SMEM = 232_448
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              f"-DSPK_MAX_DYN_SMEM={MAX_DYN_SMEM}"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -60,6 +65,8 @@ SIGNATURES = {
 QUERIES = {
     "spk_msg_fwd_blocks": [_I] * 4,
     "spk_msg_bwd_blocks": [_I] * 4,
+    "spk_mix_smem_bytes": [_I] * 2,
+    "spk_cf_smem_bytes": [_I] * 3,
 }
 
 _LIB = None

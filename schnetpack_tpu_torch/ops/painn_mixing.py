@@ -3,12 +3,14 @@
 Counterpart of ``schnetpack_tpu/ops/painn_mixing.py``: the interaction
 residual add and the whole intra-atomic mixing block run as one kernel
 (K3, ``csrc/painn_mixing.cu::mix_fwd_kernel``); the backward (K4,
-``mix_bwd_kernel``) recomputes the forward and returns the input
-cotangents, and in its wgrad instance also the weight cotangents, which
+``mix_bwd_kernel``, its products on the tensor cores in 3xTF32)
+recomputes the forward and returns the input cotangents, and in its wgrad instance also the weight cotangents, which
 the op launches when a mixing weight requires grad (MD keeps the plain
 instance).  By the residual identity the cotangents of q and dq (mu and
 dmu) are equal.  Unlike the JAX wrapper there is no fallback for row
-counts without a dividing block: the kernels mask the ragged tail.
+counts without a dividing block: the kernels mask the ragged tail.  K4
+takes ``BWD_WIDTHS``, K3 any F up to its shared memory limit
+(``check_width``).
 
 On CUDA tensors the op launches the kernels (or raises); on CPU tensors it
 runs the plain twin (the math of ``_fwd_core``) under ordinary autograd.
@@ -26,6 +28,29 @@ LAUNCHES = {"mix_fwd": 0, "mix_bwd": 0, "mix_bwd_wgrad": 0}
 _ACT_CODE = {"ssp": 0, "silu": 1}
 #: rows per f32 partial sum of the wgrad reduction, at least
 _WGRAD_ROWS = 256
+#: the widths K4 takes: those of the column message kernels
+#: (``colblock_message.py``), so every PaiNN path's F
+BWD_WIDTHS = "F % 32 == 0 and F <= 256"
+
+
+def mix_fwd_smem_bytes(F: int) -> int:
+    """K3's dynamic shared memory: 16 rows of 13F floats (what
+    ``csrc/painn_mixing.cu::spk_mix_smem_bytes`` gives its launch, which
+    the card tests hold it to)."""
+    return 4 * 16 * 13 * F
+
+
+def check_width(F: int, bwd: bool) -> None:
+    """Raise ``ValueError`` for a width the kernel does not take: K3 up to
+    the opt-in shared memory limit (F <= 279), K4 ``BWD_WIDTHS``."""
+    if bwd and (F % 32 != 0 or F > 256):
+        raise ValueError(f"K4, the mixing backward, takes {BWD_WIDTHS}, "
+                         f"got F={F}")
+    if mix_fwd_smem_bytes(F) > _build.MAX_DYN_SMEM:
+        raise ValueError(
+            f"K3, the mixing forward, would need {mix_fwd_smem_bytes(F)} "
+            f"bytes of shared memory a block at F={F}, over the "
+            f"{_build.MAX_DYN_SMEM}-byte opt-in limit (F <= 279)")
 
 
 def painn_mixing_plain(q, mu, dq, dmu, kmix, k0, b0, k1, b1, eps: float,
@@ -60,10 +85,11 @@ def painn_mixing_bwd_plain(q, mu, dq, dmu, kmix, k0, b0, k1, b1, eps, act,
                                    (gq, gmu))
 
 
-def _check(q, mu, dq, dmu, kmix, k0, b0, k1, b1, act):
+def _check(q, mu, dq, dmu, kmix, k0, b0, k1, b1, act, bwd: bool):
     A, F = q.shape
     if act not in _ACT_CODE:
         raise ValueError(f"unknown activation {act!r}")
+    check_width(F, bwd)
     for t, n, s in ((q, "q", (A, F)), (mu, "mu", (A, 3 * F)),
                     (dq, "dq", (A, F)), (dmu, "dmu", (A, 3 * F)),
                     (kmix, "kmix", (F, 2 * F)), (k0, "k0", (2 * F, F)),
@@ -77,7 +103,7 @@ def _check(q, mu, dq, dmu, kmix, k0, b0, k1, b1, act):
 def mix_fwd_kernel(q, mu, dq, dmu, kmix, k0, b0, k1, b1, eps: float,
                    act: str):
     """K3: (q_out [A, F], mu_out [A, 3F])."""
-    _check(q, mu, dq, dmu, kmix, k0, b0, k1, b1, act)
+    _check(q, mu, dq, dmu, kmix, k0, b0, k1, b1, act, bwd=False)
     A, F = q.shape
     qo = torch.empty_like(q)
     muo = torch.empty_like(mu)
@@ -94,12 +120,12 @@ def mix_bwd_kernel(q, mu, dq, dmu, kmix, k0, b0, k1, b1, eps: float,
     """K4: cotangents (g_qp [A, F], g_mup [A, 3F]) of K3's inputs, and with
     ``wgrad`` also (gkmix, gk0, gb0, gk1, gb1): the f64 partials of the
     kernel's row ranges summed here and rounded to f32."""
-    _check(q, mu, dq, dmu, kmix, k0, b0, k1, b1, act)
+    _check(q, mu, dq, dmu, kmix, k0, b0, k1, b1, act, bwd=True)
     A, F = q.shape
     _build.check(gq, "gq", (A, F))
     _build.check(gmu, "gmu", (A, 3 * F))
-    # transposed weight copies keep the kernel's transposed products
-    # coalesced (three small copies per call)
+    # transposed weight copies give the kernel's transposed products the
+    # B fragment loads of the others (three small copies per call)
     kmixT, k0T, k1T = (w.t().contiguous() for w in (kmix, k0, k1))
     gqi = torch.empty_like(q)
     gmui = torch.empty_like(mu)

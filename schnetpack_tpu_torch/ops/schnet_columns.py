@@ -46,12 +46,40 @@ def _schedule(refs: ColRefs):
     return refs.cache["cf"]
 
 
-def _check(h, geo, W1, b1, W2, b2, refs: ColRefs):
+def cf_smem_bytes(B: int, P: int, bwd: bool) -> int:
+    """Dynamic shared memory of K9 (``bwd`` False) or K10 for B basis
+    functions and column capacity P: ``smem_floats`` at F = 128 and four
+    int arrays of the 64-edge chunk (what ``csrc/schnet_columns.cu::
+    spk_cf_smem_bytes`` gives the launch, which the card tests hold it
+    to)."""
+    F, E = N_FILTERS, 64
+    ld_w, ld_t = F + 1, E + 4
+    m_size = max(E * (F + 1), F * ld_t)
+    floats = (F * ld_w + B * F + 2 * F + B * ld_t + F * ld_t
+              + (m_size if bwd else 0) + P * F + E)
+    return 4 * floats + 4 * 4 * E
+
+
+def check_capacity(B: int, P: int, bwd: bool) -> None:
+    """Raise ``ValueError`` where the kernel's shared memory
+    (``cf_smem_bytes``) would pass the opt-in limit: at B = 20, P <= 221
+    for K9 and P <= 153 for K10."""
+    need = cf_smem_bytes(B, P, bwd)
+    if need > _build.MAX_DYN_SMEM:
+        name = "K10, the cfconv VJP," if bwd else "K9, the cfconv,"
+        raise ValueError(
+            f"{name} keeps a column's [P, F] sums in shared memory: P={P} "
+            f"at B={B} needs {need} bytes a block, over the "
+            f"{_build.MAX_DYN_SMEM}-byte opt-in limit")
+
+
+def _check(h, geo, W1, b1, W2, b2, refs: ColRefs, bwd: bool):
     nx, ny, Ktot = refs.qcol.shape
     B, F = W1.shape
     if F != N_FILTERS or B > 32:
         raise ValueError(f"the cfconv kernels take F = {N_FILTERS} filters "
                          f"and B <= 32 basis functions, got F={F}, B={B}")
+    check_capacity(B, refs.P, bwd)
     _build.check(h, "h", (nx * ny * refs.P, F))
     _build.check(geo, "geo", (nx, ny, B + 4, Ktot))
     _build.check(W1, "W1", (B, F))
@@ -65,7 +93,7 @@ def _check(h, geo, W1, b1, W2, b2, refs: ColRefs):
 
 def cf_fwd_kernel(h, geo, W1, b1, W2, b2, refs: ColRefs):
     """K9: the aggregated messages [A', F]."""
-    nx, ny, Ktot, B, F = _check(h, geo, W1, b1, W2, b2, refs)
+    nx, ny, Ktot, B, F = _check(h, geo, W1, b1, W2, b2, refs, bwd=False)
     order, nreal = _schedule(refs)
     out = torch.empty_like(h)
     p = _build.ptr
@@ -82,7 +110,7 @@ def cf_bwd_kernel(h, geo, W1, b1, W2, b2, refs: ColRefs, g,
     K9's output; dh comes as 9 per-source-column partials, added here.
     With ``wgrad`` also (gW1, gb1, gW2, gb2): the columns' f64 partials
     summed here and rounded to f32."""
-    nx, ny, Ktot, B, F = _check(h, geo, W1, b1, W2, b2, refs)
+    nx, ny, Ktot, B, F = _check(h, geo, W1, b1, W2, b2, refs, bwd=True)
     _build.check(g, "g", tuple(h.shape))
     order, nreal = _schedule(refs)
     part = h.new_empty((9,) + tuple(h.shape))

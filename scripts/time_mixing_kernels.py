@@ -5,12 +5,16 @@ another checkout, e.g. an archive of a parent commit, for an A/B inside one
 call), and times K3, K4 and, where the tree has it, K4's wgrad instance at
 the column layout's 12,800 rows, F = 128, on random inputs from ``--seed``
 with the trained PaiNN's first mixing block (CUDA events, mean of
-``--reps`` after a warm-up).  Prints one line per kernel and the card.
-Run from the repository root on a GPU:
+``--reps`` after a warm-up; with ``--device-ms`` also the device time, the
+kernels' durations in ``torch.profiler``'s CUDA trace of ``--reps`` calls,
+as ``chip_smoke.py`` phase 3 reads it).  Prints one line per kernel and the
+card.  Run from the repository root on a GPU:
 
-    python3 scripts/time_mixing_kernels.py [--root DIR] [--rows 12800]
+    python3 scripts/time_mixing_kernels.py [--root DIR] [--rows 12800] \
+        [--device-ms]
 """
 import argparse
+import importlib.util
 import inspect
 import os
 import subprocess
@@ -25,6 +29,8 @@ def main():
     ap.add_argument("--rows", type=int, default=12_800)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--device-ms", action="store_true",
+                    help="also the device time from torch.profiler")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
     import torch
@@ -56,6 +62,13 @@ def main():
     if "wgrad" in inspect.signature(mix.mix_bwd_kernel).parameters:
         calls["mix_bwd_wgrad"] = lambda: mix.mix_bwd_kernel(*xargs, *cots,
                                                             wgrad=True)
+    device_ms = None
+    if args.device_ms:   # this repository's reader, whatever --root is
+        spec = importlib.util.spec_from_file_location(
+            "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+        smoke = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(smoke)
+        device_ms = smoke.device_ms
     for name, fn in calls.items():
         fn()
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -65,8 +78,11 @@ def main():
             fn()
         end.record()
         torch.cuda.synchronize()
-        print(f"{name}: {start.elapsed_time(end) / args.reps:.4f} ms "
-              f"({A} rows, F = {F}, tree {args.root}) on {smi}", flush=True)
+        dev = ("" if device_ms is None else
+               f", device {device_ms(fn, reps=args.reps):.4f} ms")
+        print(f"{name}: {start.elapsed_time(end) / args.reps:.4f} ms per "
+              f"call{dev} ({A} rows, F = {F}, tree {args.root}) on {smi}",
+              flush=True)
 
 
 if __name__ == "__main__":

@@ -11,6 +11,7 @@ import torch
 
 from schnetpack_tpu_torch import properties as TP
 from schnetpack_tpu_torch.md import load_molecules
+from schnetpack_tpu_torch.ops import _build
 from schnetpack_tpu_torch.ops import cellblock_gather as cg
 from schnetpack_tpu_torch.ops import colblock_edge as edge
 from schnetpack_tpu_torch.ops import colblock_geo as geo_op
@@ -132,6 +133,52 @@ def test_message_kernels_at_widths_match_twin(cuda_device, F, B):
 
 
 @pytest.mark.gpu
+def test_message_kernels_at_b28_native_width(cuda_device):
+    """B = 27 (B+1 = 28) with the 27-function table's own width: there
+    f32 arithmetic itself misses the float64 twin by more than MSG_ATOL
+    (the fused position cotangent, |dR| up to 47), so each output of K1,
+    K6, K2, K7 and K15 (plain and wgrad) is held to within twice the f32
+    twin's own max miss against the f64 twin on the same data: two f32
+    summation orders, each with comparable roundoff.  The wgrad
+    instances' filter-weight cotangent gFW is held normwise to the f64
+    twin within W_NORM_RTOL, as at the other widths (the f32 twin's own
+    normwise miss here is 4.1e-7)."""
+    c = message_case(F=128, B=27, seed=128)
+    t, refs, cw = torch_message_args(c, cuda_device)
+    cots = (t["g_dq"], t["g_dmu"])
+    full = (t["x"], t["mu"], t["Rs"], t["FW"], t["coff_fm"], cw, refs,
+            c["cutoff"])
+    gargs = (t["Rs"], t["coff_fm"], refs, cw, c["cutoff"])
+    geo = geo_op.geo_fwd_kernel(*gargs)
+    geo4 = geo_op.geo_fwd_kernel(*gargs, with_d=False)
+    hyb = (t["x"], t["mu"], geo, t["FW"], cw, refs, c["cutoff"])
+    src = (t["x"], t["mu"], geo4, t["FW"], refs)
+
+    def held(name, got, want32, want64):
+        for i, (g, w32, w64) in enumerate(zip(got, want32, want64)):
+            miss = float((g.double() - w64.double()).abs().max())
+            own = float((w32.double() - w64.double()).abs().max())
+            assert miss <= 2 * own, (name, i, miss, own)
+
+    for kern, plain, args in [
+            (msg.msg_fwd_kernel, msg.msg_fwd_plain, full),
+            (msg.msg_fwd_geo_kernel, msg.msg_fwd_geo_plain,
+             (t["x"], t["mu"], geo, t["FW"], refs))]:
+        held(kern.__name__, kern(*args), plain(*args), f64(plain, *args))
+    for kern, plain, args in [
+            (msg.msg_bwd_kernel, msg.msg_bwd_plain, full),
+            (msg.msg_bwd_geores_kernel, msg.msg_bwd_geores_plain, hyb),
+            (msg.msg_bwd_src_kernel, msg.msg_bwd_src_plain, src)]:
+        want64 = f64(plain, *args, *cots)
+        want32 = plain(*args, *cots)
+        held(kern.__name__, kern(*args, *cots), want32, want64)
+        got = kern(*args, *cots, wgrad=True)
+        assert len(got) == 4
+        held(kern.__name__ + " wgrad", got[:3], want32, want64)
+        assert_normwise(got[3], want64[3], kern.__name__ + " gFW")
+
+
+@pytest.mark.gpu
 def test_message_kernels_take_a_wide_basis(cuda_device):
     """B = 40 (B+1 > 32: the instance that reads the filter weights
     through L1): the forwards and the plain backwards match their twins;
@@ -161,8 +208,76 @@ def test_mixing_kernels_match_twin(cuda_device, A, act):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("A,F,act", [(37, 32, "ssp"), (1000, 128, "silu"),
-                                     (12800, 128, "ssp")])
+@pytest.mark.parametrize("act", ["ssp", "silu"])
+@pytest.mark.parametrize("A", [37, 1000, 12800])
+@pytest.mark.parametrize("F", [32, 64, 128, 256])
+def test_mixing_backward_at_widths_matches_twin(cuda_device, F, A, act):
+    """K4 (3xTF32 row tiles on the tensor cores) at every width it takes
+    up to the widest, F = 256, on a ragged 37 rows, 1,000 rows and the
+    column layout's 12,800, held to its twin in float64 at the mixing
+    tolerances."""
+    c = mixing_case(A=A, F=F, seed=F + A)
+    ins = [torch.tensor(c[k], device=cuda_device) for k in MIX_INPUTS]
+    cots = [torch.tensor(c[k], device=cuda_device) for k in ("gq", "gmu")]
+    got = mix.mix_bwd_kernel(*ins, 1e-8, act, *cots)
+    want = f64(mix.painn_mixing_bwd_plain, *ins, 1e-8, act, *cots)
+    assert len(got) == 2
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=MIX_RTOL, atol=MIX_ATOL)
+
+
+@pytest.mark.gpu
+def test_mixing_kernels_name_their_widths(cuda_device):
+    """K4 raises a ``ValueError`` naming its widths for F = 48 and F =
+    288; K3 runs at F = 279, its widest under the opt-in shared memory
+    limit, and names the limit at F = 280."""
+    for F in (48, 288):
+        c = mixing_case(A=37, F=F)
+        ins = [torch.tensor(c[k], device=cuda_device) for k in MIX_INPUTS]
+        cots = [torch.tensor(c[k], device=cuda_device) for k in ("gq", "gmu")]
+        with pytest.raises(ValueError, match=r"F % 32 == 0 and F <= 256"):
+            mix.mix_bwd_kernel(*ins, 1e-8, "ssp", *cots)
+    for F, ok in ((279, True), (280, False)):
+        c = mixing_case(A=37, F=F)
+        ins = [torch.tensor(c[k], device=cuda_device) for k in MIX_INPUTS]
+        if not ok:
+            with pytest.raises(ValueError, match="opt-in limit"):
+                mix.mix_fwd_kernel(*ins, 1e-8, "ssp")
+            continue
+        want = f64(mix.painn_mixing_plain, *ins, 1e-8, "ssp")
+        for g, w in zip(mix.mix_fwd_kernel(*ins, 1e-8, "ssp"), want):
+            torch.testing.assert_close(g, w, rtol=MIX_RTOL, atol=MIX_ATOL)
+
+
+@pytest.mark.gpu
+def test_mixing_smem_mirror_matches_the_kernel(cuda_device):
+    """``mix_fwd_smem_bytes``, which names a K3 width past the opt-in
+    limit before the launch, equals what the launcher asks for
+    (``spk_mix_smem_bytes``), and K4's row tiles fit the limit at every
+    width it takes."""
+    for F in (32, 128, 256, 279, 280):
+        assert mix.mix_fwd_smem_bytes(F) == _build.query(
+            "spk_mix_smem_bytes", F, 0)
+    for F in range(32, 257, 32):
+        assert _build.query("spk_mix_smem_bytes", F, 1) <= _build.MAX_DYN_SMEM
+
+
+@pytest.mark.gpu
+def test_cfconv_smem_mirror_matches_the_kernel(cuda_device):
+    """``cf_smem_bytes``, which names a K9/K10 column capacity past the
+    opt-in limit before the launch, equals what the launchers ask for
+    (``spk_cf_smem_bytes``) on both sides of each limit."""
+    for B in (8, 20, 32):
+        for P in (1, 100, 153, 154, 221, 222):
+            for bwd in (False, True):
+                assert schnet.cf_smem_bytes(B, P, bwd) == _build.query(
+                    "spk_cf_smem_bytes", B, P, int(bwd)), (B, P, bwd)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("A,F,act", [(37, 32, "ssp"), (1000, 64, "silu"),
+                                     (1000, 128, "silu"), (12800, 128, "ssp"),
+                                     (37, 256, "ssp"), (12800, 256, "silu")])
 def test_mixing_wgrad_instance_matches_twin(cuda_device, A, F, act):
     """K4's wgrad instance: the input cotangents equal the plain
     instance's (the same kernel, held to the twin in
@@ -334,6 +449,41 @@ def test_cfconv_kernels_match_twin(cuda_device, seed):
         assert_normwise(gk, ref)
     assert {k: schnet.LAUNCHES[k] - before[k] for k in before} == {
         "cf_fwd": 1, "cf_bwd": 0, "cf_bwd_wgrad": 1}
+
+
+@pytest.mark.gpu
+def test_cfconv_kernels_name_their_capacity(cuda_device):
+    """K9 and K10 at B = 20 on a column capacity P at their shared memory
+    limit (221 and 153) match their twins; one past it, each wrapper
+    raises a ``ValueError`` that names the limit before it launches."""
+    c = cfconv_case(F=schnet.N_FILTERS, B=20, seed=3)
+    base = ColRefs.from_layout(c["lay"], device=cuda_device)
+    nx, ny = base.qcol.shape[:2]
+    rng = np.random.RandomState(5)
+    w = [torch.tensor(c[k], device=cuda_device)
+         for k in ("geo", "W1", "b1", "W2", "b2")]
+    for P, bwd in ((221, False), (153, True)):
+        for P_, ok in ((P, True), (P + 1, False)):
+            refs = dataclasses.replace(base, P=P_, cache={})
+            h, g = (torch.tensor(rng.randn(nx * ny * P_, schnet.N_FILTERS)
+                                 .astype(np.float32), device=cuda_device)
+                    for _ in range(2))
+            if not ok:
+                with pytest.raises(ValueError, match="opt-in limit"):
+                    if bwd:
+                        schnet.cf_bwd_kernel(h, *w, refs, g)
+                    else:
+                        schnet.cf_fwd_kernel(h, *w, refs)
+                continue
+            if bwd:
+                got = schnet.cf_bwd_kernel(h, *w, refs, g)
+                want = schnet.cf_bwd_plain(h, *w, refs, g)[:2]
+            else:
+                got = [schnet.cf_fwd_kernel(h, *w, refs)]
+                want = [schnet.cf_fwd_plain(h, *w, refs)]
+            for gk, wk in zip(got, want):
+                torch.testing.assert_close(gk, wk, rtol=MSG_RTOL,
+                                           atol=MSG_ATOL)
 
 
 #: threads (slots) of a narrow K11/K13 block

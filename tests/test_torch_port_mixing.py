@@ -1,0 +1,261 @@
+"""PyTorch port: a CPU model of K4's arithmetic, the PaiNN mixing VJP with
+every product in 3xTF32 one m16n8k8 step at a time as ``rows_mma``
+(``csrc/tf32_mma.cuh``) forms it, against ``jax.vjp`` of
+``painn_mixing_xla`` at the bench model's width with its first mixing
+block; the same model with the tensor cores' accumulator carried over K
+and with one TF32 pass, which it must tell apart; the plain twin's VJP at
+that width; and the widths the mixing kernels take
+(``ops/painn_mixing.py::check_width``)."""
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from schnetpack_tpu.ops.painn_mixing import painn_mixing_xla
+from schnetpack_tpu_torch.convert import load_jax_params, params_from_jax
+from schnetpack_tpu_torch.ops import _build
+from schnetpack_tpu_torch.ops import painn_mixing as mix
+from schnetpack_tpu_torch.ops.activations import ACTIVATIONS
+from torch_port_cases import MIX_ATOL, MIX_INPUTS, MIX_RTOL
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ASSET = os.path.join(ROOT, "scripts", "assets", "bench_painn_argon.msgpack")
+EPS = 1e-8
+#: rows of the model's inputs
+ROWS = 256
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    torch.set_num_threads(1)
+
+
+def tf32(x):
+    """``x`` rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: to 10
+    mantissa bits, ties away from zero (on the bit pattern: add half an
+    ulp of TF32, clear the 13 bits below)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def rz32(x):
+    """float64 ``x`` rounded to float32 toward zero."""
+    y = x.float()
+    return torch.where(y.double().abs() > x.abs(),
+                       torch.nextafter(y, torch.zeros_like(y)), y)
+
+
+def mma(c, a, b):
+    """One ``mma.sync`` m16n8k8 step, ``c + a @ b`` over 8 TF32 columns,
+    as modelled here: the products and their sum exact (float64), the
+    result rounded to f32 toward zero (the tensor cores' accumulation is
+    not rounded to nearest; NVIDIA does not document it)."""
+    return rz32(c.double() + a.double() @ b.double())
+
+
+def _split(a, b):
+    """Both factors as a TF32 big part and a TF32 remainder."""
+    ab, bb = tf32(a), tf32(b)
+    return ab, bb, tf32(a - ab), tf32(b - bb)
+
+
+def mm_3xtf32(a, b):
+    """``a @ b`` as ``rows_mma`` forms it: per k-step of 8, the small
+    cross terms and then the big product go into a fresh fragment
+    (``mma`` three times), which is added to the f32 sum."""
+    ab, bb, a_s, b_s = _split(a, b)
+    acc = torch.zeros(a.shape[0], b.shape[1])
+    for k in range(0, a.shape[1], 8):
+        s = slice(k, k + 8)
+        t = mma(torch.zeros_like(acc), a_s[:, s], bb[s])
+        t = mma(t, ab[:, s], b_s[s])
+        acc = acc + mma(t, ab[:, s], bb[s])
+    return acc
+
+
+def mm_3xtf32_carried(a, b):
+    """``a @ b`` in 3xTF32 with the tensor cores' accumulator carried over
+    all of K (``mma`` into one fragment): the accumulation that
+    ``rows_mma`` avoids."""
+    ab, bb, a_s, b_s = _split(a, b)
+    acc = torch.zeros(a.shape[0], b.shape[1])
+    for k in range(0, a.shape[1], 8):
+        s = slice(k, k + 8)
+        acc = mma(acc, a_s[:, s], bb[s])
+        acc = mma(acc, ab[:, s], b_s[s])
+        acc = mma(acc, ab[:, s], bb[s])
+    return acc
+
+
+def mm_tf32(a, b):
+    """``a @ b`` in one TF32 pass: what 3xTF32 adds precision to."""
+    return tf32(a) @ tf32(b)
+
+
+class _Product(torch.autograd.Function):
+    """``mm(a, b)`` whose VJP is made of the same product, as K4's
+    transposed products are."""
+
+    @staticmethod
+    def forward(ctx, a, b, mm):
+        ctx.save_for_backward(a, b)
+        ctx.mm = mm
+        return mm(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        need_a, need_b, _ = ctx.needs_input_grad
+        return (ctx.mm(g, b.t()) if need_a else None,
+                ctx.mm(a.t(), g) if need_b else None, None)
+
+
+def mixing_model(qp, mup, kmix, k0, b0, k1, b1, act, mm):
+    """The mixing block (``painn_mixing.py:48-70``) on q' = q + dq and
+    mu' = mu + dmu with every product ``mm``."""
+    F = qp.shape[1]
+
+    def dot(a, b):
+        return _Product.apply(a, b.contiguous(), mm)
+
+    VW = [dot(m, kmix) for m in mup.split(F, dim=1)]
+    V_c = [x[:, :F] for x in VW]
+    W_c = [x[:, F:] for x in VW]
+    Vn = torch.sqrt(V_c[0] ** 2 + V_c[1] ** 2 + V_c[2] ** 2 + EPS)
+    h = ACTIVATIONS[act](dot(qp, k0[:F]) + dot(Vn, k0[F:]) + b0)
+    dq_i, dmu_i, dqmu_i = (dot(h, k1) + b1).split(F, dim=1)
+    vw = V_c[0] * W_c[0] + V_c[1] * W_c[1] + V_c[2] * W_c[2]
+    q_out = qp + dq_i + dqmu_i * vw
+    mu_out = torch.cat([m + dmu_i * w
+                        for m, w in zip(mup.split(F, dim=1), W_c)], dim=1)
+    return q_out, mu_out
+
+
+def model_vjp(ins, cots, act, mm):
+    """The model's cotangents of (q', mu'): K4's plain instance."""
+    qp = (ins[0] + ins[2]).requires_grad_(True)
+    mup = (ins[1] + ins[3]).requires_grad_(True)
+    out = mixing_model(qp, mup, *ins[4:], act, mm)
+    return torch.autograd.grad(out, (qp, mup), cots)
+
+
+@pytest.fixture(scope="module")
+def bench_case():
+    """256 rows of random features and cotangents (numpy, seed 0, the
+    scales of ``scripts/time_mixing_kernels.py``) with the trained
+    PaiNN-128x3's first mixing block."""
+    params = params_from_jax(load_jax_params(ASSET))
+    w = [params[f"representation.mixing.0.{k}"].numpy()
+         for k in ("kmix", "k0", "b0", "k1", "b1")]
+    F = w[0].shape[0]
+    rng = np.random.RandomState(0)
+
+    def r(*s, scale=1.0):
+        return (rng.randn(*s) * scale).astype(np.float32)
+
+    ins = [r(ROWS, F), r(ROWS, 3 * F, scale=0.3), r(ROWS, F, scale=0.3),
+           r(ROWS, 3 * F, scale=0.3), *w]
+    return ins, [r(ROWS, F), r(ROWS, 3 * F)]
+
+
+def jax_vjp(ins, cots, act):
+    _, vjp = jax.vjp(lambda *a: painn_mixing_xla(*a, EPS, act),
+                     *[jnp.asarray(a) for a in ins])
+    return [np.asarray(g, np.float64)
+            for g in vjp(tuple(jnp.asarray(c) for c in cots))[:2]]
+
+
+def max_miss(got, want):
+    return max(float(np.abs(g.double().numpy() - w).max())
+               for g, w in zip(got, want))
+
+
+def test_tf32_rounds_to_nearest_away():
+    """The model's rounding: 10 mantissa bits kept, ties away from zero,
+    in both signs."""
+    one = 1.0
+    ulp = 2.0 ** -10                       # TF32's ulp at 1
+    x = torch.tensor([one + ulp / 2, -(one + ulp / 2), one + ulp / 4,
+                      one + 3 * ulp / 4, 3.0], dtype=torch.float32)
+    want = [one + ulp, -(one + ulp), one, one + ulp, 3.0]
+    assert tf32(x).tolist() == want
+    big = tf32(x)
+    assert torch.equal(big + tf32(x - big), x)
+
+
+@pytest.mark.parametrize("act", ["ssp", "silu"])
+def test_3xtf32_model_vjp_matches_jax(bench_case, act):
+    """The mixing VJP through 3xTF32 products, at F = 128 on the bench
+    weights, against ``jax.vjp`` of ``painn_mixing_xla`` within the
+    mixing tolerances (f32 sums over K up to 3F = 384)."""
+    ins, cots = bench_case
+    want = jax_vjp(ins, cots, act)
+    got = model_vjp([torch.tensor(a) for a in ins],
+                    [torch.tensor(c) for c in cots], act, mm_3xtf32)
+    assert got[0].shape == (ROWS, 128)
+    for name, g, w in zip(("q", "mu"), got, want):
+        np.testing.assert_allclose(g.double().numpy(), w, MIX_RTOL, MIX_ATOL,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("act", ["ssp", "silu"])
+def test_one_tf32_pass_misses_by_10x_more(bench_case, act):
+    """One TF32 pass on the same inputs misses JAX by at least 10x the
+    3xTF32 model's max miss, so the model test tells them apart."""
+    ins, cots = bench_case
+    want = jax_vjp(ins, cots, act)
+    t = [torch.tensor(a) for a in ins]
+    c = [torch.tensor(x) for x in cots]
+    three = max_miss(model_vjp(t, c, act, mm_3xtf32), want)
+    one = max_miss(model_vjp(t, c, act, mm_tf32), want)
+    assert one >= 10 * three, (one, three)
+
+
+@pytest.mark.parametrize("act", ["ssp", "silu"])
+def test_carried_accumulator_misses_by_5x_more(bench_case, act):
+    """3xTF32 with the tensor cores' accumulator carried over K misses JAX
+    by at least 5x the model's max miss on the same inputs (about 11x
+    here), so the model tells ``rows_mma``'s fresh fragment per k-step
+    from the accumulation that failed on the card."""
+    ins, cots = bench_case
+    want = jax_vjp(ins, cots, act)
+    t = [torch.tensor(a) for a in ins]
+    c = [torch.tensor(x) for x in cots]
+    fresh = max_miss(model_vjp(t, c, act, mm_3xtf32), want)
+    carried = max_miss(model_vjp(t, c, act, mm_3xtf32_carried), want)
+    assert carried >= 5 * fresh, (carried, fresh)
+
+
+@pytest.mark.parametrize("act", ["ssp", "silu"])
+def test_plain_twin_vjp_at_bench_width_matches_jax(bench_case, act):
+    """K4's twin at F = 128 with the bench weights (the other CPU parity
+    tests run it at F = 32) against ``jax.vjp``."""
+    ins, cots = bench_case
+    want = jax_vjp(ins, cots, act)
+    got = mix.painn_mixing_bwd_plain(*[torch.tensor(a) for a in ins], EPS,
+                                     act, *[torch.tensor(c) for c in cots])
+    for name, g, w in zip(MIX_INPUTS[:2], got, want):
+        np.testing.assert_allclose(g.double().numpy(), w, MIX_RTOL, MIX_ATOL,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("F,bwd,ok", [
+    (32, True, True), (256, True, True), (48, True, False),
+    (288, True, False), (279, False, True), (280, False, False),
+    (48, False, True)])
+def test_mixing_kernel_widths(F, bwd, ok):
+    """K4 takes F % 32 == 0 and F <= 256; K3 any F whose 832F bytes of
+    shared memory fit the opt-in limit (F <= 279), and one past each
+    raises a ``ValueError`` that names the limit."""
+    assert mix.mix_fwd_smem_bytes(F) == 832 * F
+    if ok:
+        mix.check_width(F, bwd)
+        return
+    with pytest.raises(ValueError,
+                       match="F % 32 == 0" if bwd else "opt-in limit"):
+        mix.check_width(F, bwd)
+    assert bwd or mix.mix_fwd_smem_bytes(F) > _build.MAX_DYN_SMEM
+

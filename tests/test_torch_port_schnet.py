@@ -276,3 +276,20 @@ def test_schnet_reference_fixture_is_the_bench_box():
     assert np.isfinite(ref["energy"]) and np.isfinite(ref["forces"]).all()
     assert np.abs(ref["forces"].sum(0)).max() < 1e-2
     assert int(ref["n_pairs"]) > 0
+
+
+@pytest.mark.parametrize("P,bwd,ok", [(153, True, True), (154, True, False),
+                                      (221, False, True),
+                                      (222, False, False)])
+def test_cfconv_kernel_capacity_limit(P, bwd, ok):
+    """K9/K10 keep a column's [P, F] sums in shared memory: at B = 20, K10
+    takes P <= 153 and K9 P <= 221 under the 232,448-byte opt-in limit;
+    one past raises a ``ValueError`` that names it."""
+    need = cf.cf_smem_bytes(20, P, bwd)
+    assert (need <= 232_448) == ok
+    if ok:
+        cf.check_capacity(20, P, bwd)
+        return
+    with pytest.raises(ValueError, match="opt-in limit"):
+        cf.check_capacity(20, P, bwd)
+
