@@ -144,7 +144,7 @@ NORM_RTOL = 1e-5
 PTXAS_SOURCES = {
     "colblock_message.cu": {"msg_fwd_kernel": ("kGeo", "kB4")},
     "colblock_message_bwd.cu": {"msg_bwd_kernel": ("kMode", "kWgrad", "kB4")},
-    "painn_mixing.cu": {"mix_fwd_kernel": ("ROWS",)}}
+    "painn_mixing.cu": {"mix_fwd_kernel": ("ROWS", "NW")}}
 #: the numbers of a kernel row that its sub-rows carry
 SUB_KEYS = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
             "bound_by", "tf32x3_floor_ms", "library_ms", "library_device_ms",
@@ -608,7 +608,7 @@ def kernel_phase(calc, system, seed, dev):
         case("mix_fwd", "painn_mixing.cu", "painn_mixing.py:73",
              lambda: mix.mix_fwd_kernel(*xargs),
              lambda: mix.painn_mixing_plain(*xargs), xargs[:9],
-             22 * F * F * Ap),
+             22 * F * F * Ap, tc_flops=3 * 22 * F * F * Ap),
         case("mix_bwd", "painn_mixing.cu", "painn_mixing.py:83",
              lambda: mix.mix_bwd_kernel(*xargs, g_dq, g_dmu),
              lambda: mix.painn_mixing_bwd_plain(*xargs, g_dq, g_dmu),
@@ -856,7 +856,7 @@ def cell_kernel_phase(calc, system, seed, dev):
         case("mix_fwd", "painn_mixing.cu", "painn_mixing.py:73",
              lambda: mix.mix_fwd_kernel(*xargs),
              lambda: mix.painn_mixing_plain(*xargs), xargs[:9],
-             22 * F * F * Ap),
+             22 * F * F * Ap, tc_flops=3 * 22 * F * F * Ap),
         case("mix_bwd", "painn_mixing.cu", "painn_mixing.py:83",
              lambda: mix.mix_bwd_kernel(*xargs, g_dq, g_dmu),
              lambda: mix.painn_mixing_bwd_plain(*xargs, g_dq, g_dmu),

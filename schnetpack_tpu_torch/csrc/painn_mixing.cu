@@ -23,10 +23,21 @@
 // ridge (20), and ~255 in 3xTF32's three tensor-core products, above the
 // TF32 ridge (148).
 //
-// K3 is still the FP32 SIMT design: one thread per output feature with 16
-// row accumulators, every FMA behind a broadcast shared-memory load, the
-// weights re-read from L2 by every block, 13F floats of shared memory a
-// row.
+// K3 runs its three products on the tensor cores in 3xTF32 (tf32_mma.cuh,
+// rows_mma): 16 rows a block (one m16 tile) of 8 warps; (V | W) = mu'
+// kmix with the three components as m-tiles, pre = [q' | Vn] k0 with the
+// bias and activation in its epilogue, (a | b | c) = h k1 whose epilogue
+// stages q' + a, b and c vw in dead tiles, so that one coalesced pass
+// writes both outputs.  Each fragment goes into its f32 sum with Kahan's
+// compensation (rows_mma's COMP), without which q_out, where it cancels
+// to near 0, missed the float64 twin at F = 256.  The row tiles alias as
+// they die (10 FP floats a row, FP = F rounded up to 32, zero-padded: 83
+// KB at 16 rows and F = 128, two blocks an SM); at F % 32 != 0, which no
+// PaiNN path takes, the wrapper passes a zero-padded copy of the weights.
+// What holds it back (0.29 ms at 12,800 rows and F = 128, 4.2x its FP32
+// bound): the compensated sums (0.24 ms without), and as K4, the B
+// fragments loaded from L2 and split for one m16 tile and the A fragments
+// split again by every warp.
 //
 // K4 runs its products on the tensor cores in 3xTF32 (tf32_mma.cuh,
 // rows_mma): a block takes 16 rows (one m16 tile) with 8 warps, whose
@@ -71,8 +82,21 @@
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kRowsFwd = 16;
+// K3: 8 warps a block on one m16 tile of rows, two blocks an SM at F =
+// 128; the n8-tiles a warp takes at a time in the F-, 2F- and 3F-wide
+// products (scripts/time_mixing_kernels.py on the H100, PERF.md: 32 rows
+// lost, and 4 tiles in the 2F-wide product spill with compensated sums)
+constexpr int kFwdWarps = 8;
+constexpr int kFwdRows = 16;
+constexpr int kFwdNT1 = 2, kFwdNT2 = 2, kFwdNT3 = 6;
+constexpr int kFwdBlocks = 2;
+// K3 pads F to FP, a multiple of kFwdPad, so that each product's N (FP,
+// 2FP, 3FP) is a whole number of its NT n8-tiles (rows_mma's column step)
+constexpr int kFwdPad = 32;
+static_assert(kFwdPad % (8 * kFwdNT1) == 0 &&
+                  2 * kFwdPad % (8 * kFwdNT2) == 0 &&
+                  3 * kFwdPad % (8 * kFwdNT3) == 0,
+              "K3's pad");
 // K4: 8 warps a block on one m16 tile of rows, two blocks an SM at F = 128
 // (two tiles, 32 rows and one block an SM, took 0.61 ms against 0.40 at
 // 12,800 rows: scripts/time_mixing_kernels.py on the H100)
@@ -98,151 +122,107 @@ __device__ __forceinline__ float dact_f(float x, int act) {
   return act == 1 ? s * (1.f + x * (1.f - s)) : s;
 }
 
-// Shared intermediates of one row block: qp [ROWS][F], mup/V/W [ROWS][3F],
-// Vn/pre/h [ROWS][F] — 13 F floats per row.
-struct Tiles {
-  float *qp, *mup, *V, *W, *Vn, *pre, *h;
-};
-
-__device__ Tiles carve(float* smem, int rows, int F) {
-  Tiles s;
-  s.qp = smem;
-  s.mup = s.qp + rows * F;
-  s.V = s.mup + rows * 3 * F;
-  s.W = s.V + rows * 3 * F;
-  s.Vn = s.W + rows * 3 * F;
-  s.pre = s.Vn + rows * F;
-  s.h = s.pre + rows * F;
-  return s;
+// K3's row tiles, 10 FP floats a row (FP: F rounded up to kFwdPad; the
+// columns past F are zeros): T0 [R][3FP] mu', T1 [R][3FP] V -> (Vn | vw |
+// h) -> (b | c vw | h), T2 [R][3FP] W, T3 [R][FP] q' -> q' + a; each row
+// padded by 4
+__host__ __device__ inline int fwd_width(int F) {
+  return (F + kFwdPad - 1) / kFwdPad * kFwdPad;
 }
 
-template <int ROWS>
-__device__ void mix_recompute(const float* __restrict__ q,
-                              const float* __restrict__ mu,
-                              const float* __restrict__ dq,
-                              const float* __restrict__ dmu,
-                              const float* __restrict__ kmix,
-                              const float* __restrict__ k0,
-                              const float* __restrict__ b0, int row0, int A,
-                              int F, float eps, int act, const Tiles& s) {
-  const int tid = threadIdx.x, D3 = 3 * F, F2 = 2 * F;
-  for (int t = tid; t < ROWS * D3; t += kThreads) {
-    const int r = t / D3, row = row0 + r;
-    const size_t g = (size_t)row * D3 + (t - r * D3);
-    s.mup[t] = row < A ? mu[g] + dmu[g] : 0.f;
-  }
-  for (int t = tid; t < ROWS * F; t += kThreads) {
-    const int r = t / F, row = row0 + r;
-    const size_t g = (size_t)row * F + (t - r * F);
-    s.qp[t] = row < A ? q[g] + dq[g] : 0.f;
-  }
-  __syncthreads();
-  for (int c = 0; c < 3; ++c) {
-    for (int f = tid; f < F; f += kThreads) {
-      float av[ROWS], aw[ROWS];
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) av[r] = aw[r] = 0.f;
-      for (int k = 0; k < F; ++k) {
-        const float wv = kmix[(size_t)k * F2 + f];
-        const float ww = kmix[(size_t)k * F2 + F + f];
-#pragma unroll
-        for (int r = 0; r < ROWS; ++r) {
-          const float m = s.mup[r * D3 + c * F + k];
-          av[r] = fmaf(m, wv, av[r]);
-          aw[r] = fmaf(m, ww, aw[r]);
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        s.V[r * D3 + c * F + f] = av[r];
-        s.W[r * D3 + c * F + f] = aw[r];
-      }
-    }
-  }
-  __syncthreads();
-  for (int t = tid; t < ROWS * F; t += kThreads) {
-    const int r = t / F, f = t - r * F;
-    const float v0 = s.V[r * D3 + f], v1 = s.V[r * D3 + F + f],
-                v2 = s.V[r * D3 + 2 * F + f];
-    s.Vn[t] = sqrtf(v0 * v0 + v1 * v1 + v2 * v2 + eps);
-  }
-  __syncthreads();
-  for (int f = tid; f < F; f += kThreads) {
-    float a[ROWS];
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) a[r] = b0[f];
-    for (int k = 0; k < F; ++k) {
-      const float w = k0[(size_t)k * F + f];
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) a[r] = fmaf(s.qp[r * F + k], w, a[r]);
-    }
-    for (int k = 0; k < F; ++k) {
-      const float w = k0[(size_t)(F + k) * F + f];
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) a[r] = fmaf(s.Vn[r * F + k], w, a[r]);
-    }
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      s.pre[r * F + f] = a[r];
-      s.h[r * F + f] = act_f(a[r], act);
-    }
-  }
-  __syncthreads();
+__host__ __device__ inline size_t fwd_smem_bytes(int rows, int F) {
+  return sizeof(float) * (size_t)rows * (10 * fwd_width(F) + 16);
 }
 
-// (a, b, c)[r] = h[r] k1[:, {f, F+f, 2F+f}] + b1 for one feature f
-template <int ROWS>
-__device__ void mix_intra(const float* __restrict__ k1,
-                          const float* __restrict__ b1, const float* s_h,
-                          int F, int f, float* a, float* b, float* c) {
-  const int F3 = 3 * F;
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    a[r] = b1[f];
-    b[r] = b1[F + f];
-    c[r] = b1[2 * F + f];
-  }
-  for (int k = 0; k < F; ++k) {
-    const float w0 = k1[(size_t)k * F3 + f];
-    const float w1 = k1[(size_t)k * F3 + F + f];
-    const float w2 = k1[(size_t)k * F3 + 2 * F + f];
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      const float hv = s_h[r * F + k];
-      a[r] = fmaf(hv, w0, a[r]);
-      b[r] = fmaf(hv, w1, b[r]);
-      c[r] = fmaf(hv, w2, c[r]);
-    }
-  }
-}
-
-template <int ROWS>
-__global__ void __launch_bounds__(kThreads)
+// The weights arrive padded to FP (kmix [FP, 2FP], k0 [2FP, FP], b0 [FP],
+// k1 [FP, 3FP], b1 [3FP], every block of F rows or columns zero-padded on
+// its own): the originals when F = FP, else the wrapper's copy.
+template <int ROWS, int NW>
+__global__ void __launch_bounds__(32 * NW, kFwdBlocks)
 mix_fwd_kernel(const float* __restrict__ q, const float* __restrict__ mu,
                const float* __restrict__ dq, const float* __restrict__ dmu,
                const float* __restrict__ kmix, const float* __restrict__ k0,
                const float* __restrict__ b0, const float* __restrict__ k1,
                const float* __restrict__ b1, float* __restrict__ qo,
                float* __restrict__ muo, int A, int F, float eps, int act) {
+  constexpr int RT = ROWS / 16, NTH = 32 * NW;
   extern __shared__ float smem[];
-  const Tiles s = carve(smem, ROWS, F);
-  const int row0 = blockIdx.x * ROWS, D3 = 3 * F;
-  mix_recompute<ROWS>(q, mu, dq, dmu, kmix, k0, b0, row0, A, F, eps, act, s);
-  for (int f = threadIdx.x; f < F; f += kThreads) {
-    float a[ROWS], b[ROWS], c[ROWS];
-    mix_intra<ROWS>(k1, b1, s.h, F, f, a, b, c);
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      const int row = row0 + r;
-      if (row >= A) break;
-      float vw = 0.f;
-      for (int cc = 0; cc < 3; ++cc)
-        vw = fmaf(s.V[r * D3 + cc * F + f], s.W[r * D3 + cc * F + f], vw);
-      qo[(size_t)row * F + f] = s.qp[r * F + f] + a[r] + c[r] * vw;
-      for (int cc = 0; cc < 3; ++cc)
-        muo[(size_t)row * D3 + cc * F + f] =
-            s.mup[r * D3 + cc * F + f] + b[r] * s.W[r * D3 + cc * F + f];
+  const int FP = fwd_width(F), E2 = 2 * FP, E3 = 3 * FP, D3 = 3 * F;
+  const int L1 = FP + 4, L3 = E3 + 4;
+  float* T0 = smem;
+  float* T1 = T0 + ROWS * L3;
+  float* T2 = T1 + ROWS * L3;
+  float* T3 = T2 + ROWS * L3;
+  const int row0 = blockIdx.x * ROWS, tid = threadIdx.x;
+
+  // mu' -> T0, q' -> T3 (padding columns and rows past A zero-filled)
+  for (int t = tid; t < ROWS * E3; t += NTH) {
+    const int r = t / E3, col = t - r * E3, row = row0 + r;
+    const int c = col / FP, f = col - c * FP;
+    float v = 0.f;
+    if (row < A && f < F) {
+      const size_t g = (size_t)row * D3 + c * F + f;
+      v = mu[g] + dmu[g];
     }
+    T0[r * L3 + col] = v;
+  }
+  for (int t = tid; t < ROWS * FP; t += NTH) {
+    const int r = t / FP, f = t - r * FP, row = row0 + r;
+    float v = 0.f;
+    if (row < A && f < F) v = q[(size_t)row * F + f] + dq[(size_t)row * F + f];
+    T3[r * L1 + f] = v;
+  }
+  __syncthreads();
+  {  // (V_c | W_c) = mu'_c kmix, the components as three m-tiles
+    const MmaSeg seg[1] = {{T0, L3, FP, kmix, E2, FP}};
+    rows_mma<RT, 3, kFwdNT2, NW, true>(
+        seg, E2, [&](int c, int r, int n, float v) {
+          if (n < FP) T1[r * L3 + c * FP + n] = v;
+          else T2[r * L3 + c * FP + n - FP] = v;
+        });
+  }
+  __syncthreads();
+  // Vn over V_0, vw = sum_c V_c W_c over V_1 (V dies); a padding column
+  // has Vn = sqrt(eps), which meets a zero row of k0
+  for (int t = tid; t < ROWS * FP; t += NTH) {
+    const int r = t / FP, f = t - r * FP;
+    float* V = T1 + r * L3 + f;
+    const float* W = T2 + r * L3 + f;
+    const float v0 = V[0], v1 = V[FP], v2 = V[E2];
+    V[0] = vnorm(v0, v1, v2, eps);
+    V[FP] = fmaf(v2, W[E2], fmaf(v1, W[FP], v0 * W[0]));
+  }
+  __syncthreads();
+  {  // h = act(q' k0[:F] + Vn k0[F:] + b0) over V_2
+    const MmaSeg seg[2] = {{T3, L1, 0, k0, FP, FP},
+                           {T1, L3, 0, k0 + (size_t)FP * FP, FP, FP}};
+    rows_mma<RT, 1, kFwdNT1, NW, true>(
+        seg, FP, [&](int, int r, int n, float v) {
+          T1[r * L3 + E2 + n] = act_f(v + b0[n], act);
+        });
+  }
+  __syncthreads();
+  {  // (a | b | c) = h k1 + b1: q' + a over q', b over Vn, c vw over vw
+    const MmaSeg seg[1] = {{T1 + E2, L3, 0, k1, E3, FP}};
+    rows_mma<RT, 1, kFwdNT3, NW, true>(
+        seg, E3, [&](int, int r, int n, float v) {
+          v += b1[n];
+          if (n < FP) T3[r * L1 + n] += v;
+          else if (n < E2) T1[r * L3 + n - FP] = v;
+          else T1[r * L3 + n - FP] *= v;
+        });
+  }
+  __syncthreads();
+  // q_out = q' + a + c vw, mu_out_c = mu'_c + b W_c
+  for (int t = tid; t < ROWS * F; t += NTH) {
+    const int r = t / F, f = t - r * F, row = row0 + r;
+    if (row < A)
+      qo[(size_t)row * F + f] = T3[r * L1 + f] + T1[r * L3 + FP + f];
+  }
+  for (int t = tid; t < ROWS * D3; t += NTH) {
+    const int r = t / D3, col = t - r * D3, row = row0 + r;
+    const int c = col / F, f = col - c * F, i = r * L3 + c * FP + f;
+    if (row < A) muo[(size_t)row * D3 + col] = T0[i] + T1[r * L3 + f] * T2[i];
   }
 }
 
@@ -509,7 +489,7 @@ mix_wgrad_kernel(const float* __restrict__ S, double* __restrict__ part,
 // dynamic shared memory of K3 (bwd 0) or K4 at width F, bytes a block
 extern "C" int spk_mix_smem_bytes(int F, int bwd) {
   return (int)(bwd ? bwd_smem_bytes(kBwdRows, F)
-                   : sizeof(float) * (size_t)kRowsFwd * 13 * F);
+                   : fwd_smem_bytes(kFwdRows, F));
 }
 
 extern "C" int spk_mix_fwd(const float* q, const float* mu, const float* dq,
@@ -517,15 +497,18 @@ extern "C" int spk_mix_fwd(const float* q, const float* mu, const float* dq,
                            const float* k0, const float* b0, const float* k1,
                            const float* b1, float* qo, float* muo, int A,
                            int F, float eps, int act, cudaStream_t stream) {
+  // the wrapper passes the weights padded to FP and checks the limit
   const size_t smem = spk_mix_smem_bytes(F, 0);
-  cudaError_t err =
-      cudaFuncSetAttribute(mix_fwd_kernel<kRowsFwd>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      mix_fwd_kernel<kFwdRows, kFwdWarps>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int grid = (A + kRowsFwd - 1) / kRowsFwd;
-  mix_fwd_kernel<kRowsFwd><<<grid, kThreads, smem, stream>>>(
-      q, mu, dq, dmu, kmix, k0, b0, k1, b1, qo, muo, A, F, eps, act);
+  const int grid = (A + kFwdRows - 1) / kFwdRows;
+  mix_fwd_kernel<kFwdRows, kFwdWarps>
+      <<<grid, 32 * kFwdWarps, smem, stream>>>(q, mu, dq, dmu, kmix, k0, b0,
+                                               k1, b1, qo, muo, A, F, eps,
+                                               act);
   return (int)cudaGetLastError();
 }
 

@@ -1,7 +1,8 @@
 // 3xTF32 products on Hopper's tensor cores (mma.sync m16n8k8), shared by
 // the PaiNN column message backward (colblock_message_bwd.cu: K2, K7, K15,
-// K21) and the PaiNN mixing backward (painn_mixing.cu: K4).  Everything
-// here has internal linkage; each source includes it once.
+// K21) and the PaiNN mixing forward and backward (painn_mixing.cu: K3,
+// K4).  Everything here has internal linkage; each source includes it
+// once.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -55,9 +56,15 @@ struct MmaSeg {
 // the tile's sum: the tensor cores' own f32 accumulation is not rounded
 // to nearest, and carried over K = 768 it missed the float64 twin of the
 // mixing VJP by 5.6e-5 where f32 arithmetic misses by ~2e-5 (H100).
+// With COMP the fragments are added to the sum with Kahan's compensation
+// (four adds for one): K3's q_out = q' + a + c vw cancels to near 0 where
+// c vw is large, and with plain f32 sums it missed the float64 twin there
+// by up to 1.15x the mixing tolerance at F = 256 and 12,800 rows (0.65x
+// compensated; H100, scripts/time_mixing_kernels.py --tol).
 // epi(c, r, n, v) receives every output element once, in registers; it
 // may write any shared memory the segments do not read.
-template <int RT, int C, int NT, int NW, int NSEG, class Epi>
+template <int RT, int C, int NT, int NW, bool COMP = false, int NSEG,
+          class Epi>
 __device__ __forceinline__ void rows_mma(const MmaSeg (&seg)[NSEG], int N,
                                          Epi&& epi) {
   constexpr int MT = RT * C;
@@ -65,6 +72,7 @@ __device__ __forceinline__ void rows_mma(const MmaSeg (&seg)[NSEG], int N,
   const int gid = lane >> 2, tig = lane & 3;
   for (int n0 = warp * NT * 8; n0 < N; n0 += NW * NT * 8) {
     float acc[MT][NT][4] = {};
+    float cmp[COMP ? MT : 1][COMP ? NT : 1][4] = {};
 #pragma unroll
     for (int s = 0; s < NSEG; ++s) {
       const MmaSeg sg = seg[s];
@@ -107,7 +115,16 @@ __device__ __forceinline__ void rows_mma(const MmaSeg (&seg)[NSEG], int N,
             mma_tf32(t, ab, bs[j]);
             mma_tf32(t, ab, bb[j]);
 #pragma unroll
-            for (int e = 0; e < 4; ++e) acc[i][j][e] += t[e];
+            for (int e = 0; e < 4; ++e) {
+              if constexpr (COMP) {
+                const float y = t[e] - cmp[i][j][e];
+                const float sum = acc[i][j][e] + y;
+                cmp[i][j][e] = (sum - acc[i][j][e]) - y;
+                acc[i][j][e] = sum;
+              } else {
+                acc[i][j][e] += t[e];
+              }
+            }
           }
         }
       }

@@ -2,11 +2,11 @@
 
 Counterpart of ``schnetpack_tpu/ops/painn_mixing.py``: the interaction
 residual add and the whole intra-atomic mixing block run as one kernel
-(K3, ``csrc/painn_mixing.cu::mix_fwd_kernel``); the backward (K4,
-``mix_bwd_kernel``, its products on the tensor cores in 3xTF32)
-recomputes the forward and returns the input cotangents, and in its wgrad instance also the weight cotangents, which
-the op launches when a mixing weight requires grad (MD keeps the plain
-instance).  By the residual identity the cotangents of q and dq (mu and
+(K3, ``csrc/painn_mixing.cu::mix_fwd_kernel``, its products on the
+tensor cores in 3xTF32); the backward (K4, ``mix_bwd_kernel``, likewise)
+recomputes the forward and returns the input cotangents, and in its wgrad
+instance also the weight cotangents, which the op launches when a mixing
+weight requires grad (MD keeps the plain instance).  By the residual identity the cotangents of q and dq (mu and
 dmu) are equal.  Unlike the JAX wrapper there is no fallback for row
 counts without a dividing block: the kernels mask the ragged tail.  K4
 takes ``BWD_WIDTHS``, K3 any F up to its shared memory limit
@@ -31,18 +31,31 @@ _WGRAD_ROWS = 256
 #: the widths K4 takes: those of the column message kernels
 #: (``colblock_message.py``), so every PaiNN path's F
 BWD_WIDTHS = "F % 32 == 0 and F <= 256"
+#: K3 pads F to a multiple of this (``csrc/painn_mixing.cu::kFwdPad``)
+FWD_PAD = 32
+#: K3's rows a block (``kFwdRows``)
+_FWD_ROWS = 16
+#: the widest F whose K3 tiles fit the opt-in shared memory limit (352)
+FWD_MAX_F = ((_build.MAX_DYN_SMEM // (4 * _FWD_ROWS) - 16) // 10
+             // FWD_PAD * FWD_PAD)
+
+
+def fwd_width(F: int) -> int:
+    """FP: F rounded up to ``FWD_PAD``, K3's padded width."""
+    return -(-F // FWD_PAD) * FWD_PAD
 
 
 def mix_fwd_smem_bytes(F: int) -> int:
-    """K3's dynamic shared memory: 16 rows of 13F floats (what
+    """K3's dynamic shared memory: 16 rows of 10 FP + 16 floats (what
     ``csrc/painn_mixing.cu::spk_mix_smem_bytes`` gives its launch, which
     the card tests hold it to)."""
-    return 4 * 16 * 13 * F
+    return 4 * _FWD_ROWS * (10 * fwd_width(F) + 16)
 
 
 def check_width(F: int, bwd: bool) -> None:
     """Raise ``ValueError`` for a width the kernel does not take: K3 up to
-    the opt-in shared memory limit (F <= 279), K4 ``BWD_WIDTHS``."""
+    the opt-in shared memory limit (F <= ``FWD_MAX_F``), K4
+    ``BWD_WIDTHS``."""
     if bwd and (F % 32 != 0 or F > 256):
         raise ValueError(f"K4, the mixing backward, takes {BWD_WIDTHS}, "
                          f"got F={F}")
@@ -50,7 +63,29 @@ def check_width(F: int, bwd: bool) -> None:
         raise ValueError(
             f"K3, the mixing forward, would need {mix_fwd_smem_bytes(F)} "
             f"bytes of shared memory a block at F={F}, over the "
-            f"{_build.MAX_DYN_SMEM}-byte opt-in limit (F <= 279)")
+            f"{_build.MAX_DYN_SMEM}-byte opt-in limit (F <= {FWD_MAX_F})")
+
+
+def pad_weights(kmix, k0, b0, k1, b1):
+    """The mixing weights at K3's width FP, each block of F rows or columns
+    zero-padded to FP: kmix [FP, 2FP], k0 [2FP, FP], b0 [FP], k1 [FP,
+    3FP], b1 [3FP].  K3's wrapper pads a copy per call at F % 32 != 0,
+    which no PaiNN path takes (the message kernels take F % 32 == 0)."""
+    F = kmix.shape[0]
+    FP = fwd_width(F)
+
+    def cols(t, blocks):
+        """[..., blocks F] -> [..., blocks FP]"""
+        out = t.new_zeros((*t.shape[:-1], blocks, FP))
+        out[..., :F] = t.reshape(*t.shape[:-1], blocks, F)
+        return out.flatten(-2)
+
+    def rows(t, blocks):
+        return cols(t.t(), blocks).t().contiguous()
+
+    with torch.no_grad():
+        return (rows(cols(kmix, 2), 1), rows(cols(k0, 1), 2), cols(b0, 1),
+                rows(cols(k1, 3), 1), cols(b1, 3))
 
 
 def painn_mixing_plain(q, mu, dq, dmu, kmix, k0, b0, k1, b1, eps: float,
@@ -105,6 +140,8 @@ def mix_fwd_kernel(q, mu, dq, dmu, kmix, k0, b0, k1, b1, eps: float,
     """K3: (q_out [A, F], mu_out [A, 3F])."""
     _check(q, mu, dq, dmu, kmix, k0, b0, k1, b1, act, bwd=False)
     A, F = q.shape
+    if F % FWD_PAD:
+        kmix, k0, b0, k1, b1 = pad_weights(kmix, k0, b0, k1, b1)
     qo = torch.empty_like(q)
     muo = torch.empty_like(mu)
     p = _build.ptr

@@ -8,7 +8,8 @@ Gaussian basis on the row-9 path (``painn_trbf``), or PaiNN-128x3 on the
 neighbor list with a 0.6 A skin, 30 K), warms up and retightens the
 capacities, then traces STEPS steps with ``torch.profiler`` and prints,
 per step: CUDA-event time, device-busy time (sum of kernel times), idle
-share, the host rebuilds in the window, and device time by kernel name.
+share, the host rebuilds in the window, and device time by kernel name
+(also at the head of the table it writes).
 ``painn_slab`` (PaiNN-128x3 on the slab path) runs the port's
 ``SpatialColumnSimulator`` instead: a 50-step warm-up chunk, then one
 traced chunk of STEPS steps, timed without its host re-bin.
@@ -88,18 +89,19 @@ def report(prof, n, step_ms, note, path, smi):
     busy_ms = sum(e.device_time_total for e in events) / 1e3 / n
     table = prof.key_averages().table(sort_by="device_time_total",
                                       row_limit=40)
+    lines = [f"card: {smi}; path {path}",
+             f"step {step_ms:.3f} ms (CUDA events), device busy "
+             f"{busy_ms:.3f} ms, idle share {1 - busy_ms / step_ms:.3f}, "
+             f"{note}"]
+    lines += [f"  {e.device_time_total / 1e3 / n:8.3f} ms/step "
+              f"{e.count // n:4d}/step  {e.key[:90]}"
+              for e in sorted(events, key=lambda e: -e.device_time_total)[:15]]
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, f"profile_port_md_{path}.txt"),
               "w") as f:
-        f.write(f"{smi}\nsteps {n}, {note}\n{table}\n")
-    print(f"card: {smi}; path {path}")
-    print(f"step {step_ms:.3f} ms (CUDA events), device busy "
-          f"{busy_ms:.3f} ms, idle share {1 - busy_ms / step_ms:.3f}, "
-          f"{note}")
-    for e in sorted(events, key=lambda e: -e.device_time_total)[:15]:
-        print(f"  {e.device_time_total / 1e3 / n:8.3f} ms/step "
-              f"{e.count // n:4d}/step  {e.key[:90]}")
+        f.write("\n".join(lines) + f"\nsteps {n}\n{table}\n")
+    print("\n".join(lines))
 
 
 def profile_slab(cs, pos, cell, n, smi, dev):

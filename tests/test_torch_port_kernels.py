@@ -227,17 +227,34 @@ def test_mixing_backward_at_widths_matches_twin(cuda_device, F, A, act):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("act", ["ssp", "silu"])
+@pytest.mark.parametrize("A", [37, 1000, 12800])
+@pytest.mark.parametrize("F", [32, 64, 128, 256])
+def test_mixing_forward_at_widths_matches_twin(cuda_device, F, A, act):
+    """K3 (3xTF32 row tiles on the tensor cores) at F = 32-256 on a ragged
+    37 rows, 1,000 rows and the column layout's 12,800, held to its twin
+    in float64 at the mixing tolerances."""
+    c = mixing_case(A=A, F=F, seed=F + A + 1)
+    ins = [torch.tensor(c[k], device=cuda_device) for k in MIX_INPUTS]
+    got = mix.mix_fwd_kernel(*ins, 1e-8, act)
+    want = f64(mix.painn_mixing_plain, *ins, 1e-8, act)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=MIX_RTOL, atol=MIX_ATOL)
+
+
+@pytest.mark.gpu
 def test_mixing_kernels_name_their_widths(cuda_device):
     """K4 raises a ``ValueError`` naming its widths for F = 48 and F =
-    288; K3 runs at F = 279, its widest under the opt-in shared memory
-    limit, and names the limit at F = 280."""
+    288; K3 runs at F = 48 and 279, widths it pads to a multiple of 32,
+    and at F = 352, its widest under the opt-in shared memory limit, and
+    names the limit at F = 353."""
     for F in (48, 288):
         c = mixing_case(A=37, F=F)
         ins = [torch.tensor(c[k], device=cuda_device) for k in MIX_INPUTS]
         cots = [torch.tensor(c[k], device=cuda_device) for k in ("gq", "gmu")]
         with pytest.raises(ValueError, match=r"F % 32 == 0 and F <= 256"):
             mix.mix_bwd_kernel(*ins, 1e-8, "ssp", *cots)
-    for F, ok in ((279, True), (280, False)):
+    for F, ok in ((48, True), (279, True), (352, True), (353, False)):
         c = mixing_case(A=37, F=F)
         ins = [torch.tensor(c[k], device=cuda_device) for k in MIX_INPUTS]
         if not ok:
@@ -253,9 +270,10 @@ def test_mixing_kernels_name_their_widths(cuda_device):
 def test_mixing_smem_mirror_matches_the_kernel(cuda_device):
     """``mix_fwd_smem_bytes``, which names a K3 width past the opt-in
     limit before the launch, equals what the launcher asks for
-    (``spk_mix_smem_bytes``), and K4's row tiles fit the limit at every
-    width it takes."""
-    for F in (32, 128, 256, 279, 280):
+    (``spk_mix_smem_bytes``) at padded and unpadded widths up to one past
+    the limit, and K4's row tiles fit the limit at every width it
+    takes."""
+    for F in (32, 36, 48, 128, 256, 279, 280, 352, 353):
         assert mix.mix_fwd_smem_bytes(F) == _build.query(
             "spk_mix_smem_bytes", F, 0)
     for F in range(32, 257, 32):

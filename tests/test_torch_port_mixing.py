@@ -1,10 +1,12 @@
-"""PyTorch port: a CPU model of K4's arithmetic, the PaiNN mixing VJP with
-every product in 3xTF32 one m16n8k8 step at a time as ``rows_mma``
-(``csrc/tf32_mma.cuh``) forms it, against ``jax.vjp`` of
-``painn_mixing_xla`` at the bench model's width with its first mixing
-block; the same model with the tensor cores' accumulator carried over K
-and with one TF32 pass, which it must tell apart; the plain twin's VJP at
-that width; and the widths the mixing kernels take
+"""PyTorch port: a CPU model of K3's and K4's arithmetic, the PaiNN mixing
+block and its VJP with every product in 3xTF32 one m16n8k8 step at a time
+as ``rows_mma`` (``csrc/tf32_mma.cuh``) forms it (K3 with compensated
+sums), against
+``painn_mixing_xla`` and its ``jax.vjp`` at the bench model's width with
+its first mixing block, and the forward also at a width K3 pads; the
+same model with the tensor cores' accumulator carried over K and with one
+TF32 pass, which it must tell apart; the plain twin's VJP at that width;
+K3's padded weights; and the widths the mixing kernels take
 (``ops/painn_mixing.py::check_width``)."""
 import os
 
@@ -19,7 +21,7 @@ from schnetpack_tpu_torch.convert import load_jax_params, params_from_jax
 from schnetpack_tpu_torch.ops import _build
 from schnetpack_tpu_torch.ops import painn_mixing as mix
 from schnetpack_tpu_torch.ops.activations import ACTIVATIONS
-from torch_port_cases import MIX_ATOL, MIX_INPUTS, MIX_RTOL
+from torch_port_cases import MIX_ATOL, MIX_INPUTS, MIX_RTOL, mixing_case
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ASSET = os.path.join(ROOT, "scripts", "assets", "bench_painn_argon.msgpack")
@@ -73,6 +75,24 @@ def mm_3xtf32(a, b):
         t = mma(torch.zeros_like(acc), a_s[:, s], bb[s])
         t = mma(t, ab[:, s], b_s[s])
         acc = acc + mma(t, ab[:, s], bb[s])
+    return acc
+
+
+def mm_3xtf32_comp(a, b):
+    """``a @ b`` as ``rows_mma`` forms it with ``COMP`` (K3): each
+    k-step's fresh fragment added to the f32 sum with Kahan's
+    compensation."""
+    ab, bb, a_s, b_s = _split(a, b)
+    acc = torch.zeros(a.shape[0], b.shape[1])
+    comp = torch.zeros_like(acc)
+    for k in range(0, a.shape[1], 8):
+        s = slice(k, k + 8)
+        t = mma(torch.zeros_like(acc), a_s[:, s], bb[s])
+        t = mma(t, ab[:, s], b_s[s])
+        y = mma(t, ab[:, s], bb[s]) - comp
+        total = acc + y
+        comp = (total - acc) - y
+        acc = total
     return acc
 
 
@@ -168,6 +188,19 @@ def jax_vjp(ins, cots, act):
             for g in vjp(tuple(jnp.asarray(c) for c in cots))[:2]]
 
 
+def jax_fwd(ins, act):
+    return [np.asarray(o, np.float64)
+            for o in painn_mixing_xla(*[jnp.asarray(a) for a in ins], EPS,
+                                      act)]
+
+
+def model_fwd(ins, act, mm):
+    """The model's (q_out, mu_out): K3."""
+    with torch.no_grad():
+        return mixing_model(ins[0] + ins[2], ins[1] + ins[3], *ins[4:], act,
+                            mm)
+
+
 def max_miss(got, want):
     return max(float(np.abs(g.double().numpy() - w).max())
                for g, w in zip(got, want))
@@ -242,15 +275,83 @@ def test_plain_twin_vjp_at_bench_width_matches_jax(bench_case, act):
                                    err_msg=name)
 
 
+@pytest.mark.parametrize("act", ["ssp", "silu"])
+def test_3xtf32_model_forward_matches_jax(bench_case, act):
+    """The mixing block through compensated 3xTF32 products (K3's
+    arithmetic), at F = 128 on the bench weights, against
+    ``painn_mixing_xla`` within the mixing tolerances."""
+    ins, _ = bench_case
+    want = jax_fwd(ins, act)
+    got = model_fwd([torch.tensor(a) for a in ins], act, mm_3xtf32_comp)
+    assert got[1].shape == (ROWS, 3 * 128)
+    for name, g, w in zip(("q_out", "mu_out"), got, want):
+        np.testing.assert_allclose(g.double().numpy(), w, MIX_RTOL, MIX_ATOL,
+                                   err_msg=name)
+
+
+def pad_blocks(x, blocks, FP):
+    """[rows, blocks F] -> [rows, blocks FP], zero columns after each
+    block's F: K3's row tiles as the kernel loads them."""
+    F = x.shape[1] // blocks
+    out = x.new_zeros((x.shape[0], blocks, FP))
+    out[..., :F] = x.reshape(x.shape[0], blocks, F)
+    return out.reshape(x.shape[0], -1)
+
+
+@pytest.mark.parametrize("act", ["ssp", "silu"])
+def test_3xtf32_model_forward_padded_matches_jax(act):
+    """At F = 36 K3 pads to FP = 64: the model at FP, on the row tiles
+    zero-padded as the kernel loads them and the wrapper's padded weights
+    (``pad_weights``; Vn's padding columns, sqrt(eps), meet zero rows of
+    k0), gives at the first F columns of each block what
+    ``painn_mixing_xla`` gives at F = 36, within the mixing tolerances."""
+    F = 36
+    FP = mix.fwd_width(F)
+    assert FP == 64
+    c = mixing_case(A=64, F=F, seed=3)
+    ins = [c[k] for k in MIX_INPUTS]
+    want = jax_fwd(ins, act)
+    t = [torch.tensor(a) for a in ins]
+    w = mix.pad_weights(*t[4:])
+    assert [tuple(x.shape) for x in w] == [(FP, 2 * FP), (2 * FP, FP), (FP,),
+                                           (FP, 3 * FP), (3 * FP,)]
+    with torch.no_grad():
+        qo, muo = mixing_model(pad_blocks(t[0] + t[2], 1, FP),
+                               pad_blocks(t[1] + t[3], 3, FP), *w, act,
+                               mm_3xtf32_comp)
+    got = (qo[:, :F], muo.reshape(-1, 3, FP)[..., :F].reshape(-1, 3 * F))
+    for name, g, w in zip(("q_out", "mu_out"), got, want):
+        np.testing.assert_allclose(g.double().numpy(), w, MIX_RTOL, MIX_ATOL,
+                                   err_msg=name)
+
+
+def test_pad_weights_pads_each_block():
+    """K3's padded weights at F = 36: each block of F rows or columns holds
+    the weights, followed by zeros up to FP = 64."""
+    c = mixing_case(F=36)
+    w = [torch.tensor(c[k]) for k in MIX_INPUTS[4:]]
+    kmix, k0, b0, k1, b1 = mix.pad_weights(*w)
+    for got, want, rb, cb in ((kmix, w[0], 1, 2), (k0, w[1], 2, 1),
+                              (k1, w[3], 1, 3)):
+        got = got.reshape(rb, 64, cb, 64)
+        assert torch.equal(got[:, :36, :, :36], want.reshape(rb, 36, cb, 36))
+        assert not got[:, 36:].any() and not got[..., 36:].any()
+    for got, want, cb in ((b0, w[2], 1), (b1, w[4], 3)):
+        got = got.reshape(cb, 64)
+        assert torch.equal(got[:, :36], want.reshape(cb, 36))
+        assert not got[:, 36:].any()
+
+
 @pytest.mark.parametrize("F,bwd,ok", [
     (32, True, True), (256, True, True), (48, True, False),
-    (288, True, False), (279, False, True), (280, False, False),
-    (48, False, True)])
+    (288, True, False), (279, False, True), (352, False, True),
+    (353, False, False), (48, False, True)])
 def test_mixing_kernel_widths(F, bwd, ok):
-    """K4 takes F % 32 == 0 and F <= 256; K3 any F whose 832F bytes of
-    shared memory fit the opt-in limit (F <= 279), and one past each
-    raises a ``ValueError`` that names the limit."""
-    assert mix.mix_fwd_smem_bytes(F) == 832 * F
+    """K4 takes F % 32 == 0 and F <= 256; K3 any F whose 16 rows of 10 FP
+    + 16 floats (FP: F rounded up to 32) fit the opt-in shared memory
+    limit (F <= 352), and one past each raises a ``ValueError`` that names
+    the limit."""
+    assert mix.mix_fwd_smem_bytes(F) == 64 * (10 * (-(-F // 32) * 32) + 16)
     if ok:
         mix.check_width(F, bwd)
         return
@@ -258,4 +359,3 @@ def test_mixing_kernel_widths(F, bwd, ok):
                        match="F % 32 == 0" if bwd else "opt-in limit"):
         mix.check_width(F, bwd)
     assert bwd or mix.mix_fwd_smem_bytes(F) > _build.MAX_DYN_SMEM
-
