@@ -7,7 +7,8 @@ Phases (any failure exits non-zero before the last line is printed):
 1. require CUDA; print the card's name and power limit (nvidia-smi);
 2. build the CUDA kernels from ``schnetpack_tpu_torch/csrc`` (one nvcc per
    source, started together; sm_90a) and print ptxas's registers, stack
-   frame and spills of every instance of the message and mixing kernels;
+   frame and spills of every instance of the message, mixing and cfconv
+   kernels;
 3. hold each kernel K1-K21 against its plain PyTorch twin on the card at
    the shapes of the MD runs below (10,976-atom argon box in the layout the
    port's neighbor list builds, F=128, B=20, f32, random features and
@@ -139,12 +140,13 @@ RTOL, ATOL = 1e-4, 1e-5          # kernel vs twin, elementwise
 #: after 128-long dot products) walks; f64 partials remove only the
 #: summation order's error
 NORM_RTOL = 1e-5
-#: the sources of the ptxas report of the build (the message and mixing
-#: kernels) and their template kernels' parameters, per kernel name
+#: the sources of the ptxas report of the build (the message, mixing and
+#: cfconv kernels) and their template kernels' parameters, per kernel name
 PTXAS_SOURCES = {
     "colblock_message.cu": {"msg_fwd_kernel": ("kGeo", "kB4")},
     "colblock_message_bwd.cu": {"msg_bwd_kernel": ("kMode", "kWgrad", "kB4")},
-    "painn_mixing.cu": {"mix_fwd_kernel": ("ROWS", "NW")}}
+    "painn_mixing.cu": {"mix_fwd_kernel": ("ROWS", "NW")},
+    "schnet_columns.cu": {"cf_bwd_kernel": ("kWgrad",)}}
 #: the numbers of a kernel row that its sub-rows carry
 SUB_KEYS = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
             "bound_by", "tf32x3_floor_ms", "library_ms", "library_device_ms",
@@ -684,7 +686,9 @@ def schnet_kernel_phase(calc, system, seed, dev):
     twins at the SchNet run's shapes, with the trained SchNet's first
     filter network; returns rows.  The filter network is B x F + F x F FMAs
     per real edge, twice that in the backward, and the wgrad instance's
-    filter-weight cotangents another B x F + F x F."""
+    filter-weight cotangents another B x F + F x F.  K10 runs these
+    products in 3xTF32 on the tensor cores: its row and its wgrad sub-row
+    also carry that floor, three times their products at the TF32 peak."""
     from schnetpack_tpu_torch.ops import colblock_geo as geo_op
     from schnetpack_tpu_torch.ops import schnet_columns as cf
 
@@ -727,11 +731,13 @@ def schnet_kernel_phase(calc, system, seed, dev):
              lambda: cf.cf_bwd_kernel(*cargs, g_out),
              lambda: cf.cf_bwd_plain(*cargs, g_out)[:2],
              (cargs[:6], idx, g_out), 2 * filt + ne * 12 * F,
+             tc_flops=3 * 2 * filt,
              wgrad={"kern": lambda: cf.cf_bwd_kernel(*cargs, g_out,
                                                      wgrad=True),
                     "plain": lambda: cf.cf_bwd_plain(*cargs, g_out),
                     "ref": lambda: in_f64(cf.cf_bwd_plain, *cargs, g_out),
-                    "flops": 3 * filt + ne * 12 * F, "norm_from": 2}),
+                    "flops": 3 * filt + ne * 12 * F, "norm_from": 2,
+                    "tc_flops": 3 * 3 * filt}),
     ]
     return check_kernels(cases)
 

@@ -7,6 +7,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
@@ -77,23 +78,6 @@ __device__ __forceinline__ int bucket_of(int k, const KOffs& ko) {
   return (k >= ko.o[1]) + (k >= ko.o[2]) + (k >= ko.o[3]) +
          (k >= ko.o[4]) + (k >= ko.o[5]) + (k >= ko.o[6]) +
          (k >= ko.o[7]) + (k >= ko.o[8]);
-}
-
-// 4-byte asynchronous copies global -> shared, in commit groups
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // the cosine cutoff's cos(pi d / rc) and sin(pi d / rc): cospif and

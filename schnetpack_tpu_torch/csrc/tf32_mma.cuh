@@ -1,8 +1,8 @@
 // 3xTF32 products on Hopper's tensor cores (mma.sync m16n8k8), shared by
 // the PaiNN column message backward (colblock_message_bwd.cu: K2, K7, K15,
-// K21) and the PaiNN mixing forward and backward (painn_mixing.cu: K3,
-// K4).  Everything here has internal linkage; each source includes it
-// once.
+// K21), the PaiNN mixing forward and backward (painn_mixing.cu: K3, K4)
+// and the SchNet cfconv VJP (schnet_columns.cu: K10).  Everything here
+// has internal linkage; each source includes it once.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -37,14 +37,17 @@ __device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
 
 // One K-segment of a row-tile product: X [16 RT, K] per component c at
 // x + c * cs in shared memory (row stride ld; ld = 4 mod 32 keeps the A
-// fragments' 8 rows x 4 columns on 32 banks), times W [K, N] row-major in
-// global memory (row stride ldw, read through L1 from L2).
+// fragments' 8 rows x 4 columns on 32 banks), times W [K, N] (row stride
+// ldw): row-major in global memory, read through L1 from L2 (kWGlobal),
+// or in shared memory, row-major (kWShared) or as its transpose, W[k][n]
+// at w[n * ldw + k] (kWSharedT).
 struct MmaSeg {
   const float* x;
   int ld, cs;
   const float* w;
   int ldw, K;
 };
+constexpr int kWGlobal = 0, kWShared = 1, kWSharedT = 2;
 
 // out[c][r][n] = sum over the segments of X_c[r][:] W[:, n] for a block's
 // 16 RT rows and C components, in 3xTF32 with f32 sums.  The NW warps take
@@ -62,13 +65,17 @@ struct MmaSeg {
 // by up to 1.15x the mixing tolerance at F = 256 and 12,800 rows (0.65x
 // compensated; H100, scripts/time_mixing_kernels.py --tol).
 // epi(c, r, n, v) receives every output element once, in registers; it
-// may write any shared memory the segments do not read.
-template <int RT, int C, int NT, int NW, bool COMP = false, int NSEG,
-          class Epi>
+// may write any shared memory the segments do not read.  The NW warps
+// are those of the calling thread's group of 32 NW threads.
+// WM says where W lies (kWGlobal, kWShared or kWSharedT, above).
+template <int RT, int C, int NT, int NW, bool COMP = false,
+          int WM = kWGlobal, int NSEG, class Epi>
 __device__ __forceinline__ void rows_mma(const MmaSeg (&seg)[NSEG], int N,
                                          Epi&& epi) {
   constexpr int MT = RT * C;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  static_assert((NW & (NW - 1)) == 0, "NW: a power of two");
+  // the warp within its group of NW (a block may run several groups)
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & (NW - 1);
   const int gid = lane >> 2, tig = lane & 3;
   for (int n0 = warp * NT * 8; n0 < N; n0 += NW * NT * 8) {
     float acc[MT][NT][4] = {};
@@ -76,13 +83,23 @@ __device__ __forceinline__ void rows_mma(const MmaSeg (&seg)[NSEG], int N,
 #pragma unroll
     for (int s = 0; s < NSEG; ++s) {
       const MmaSeg sg = seg[s];
-      const float* wp = sg.w + (size_t)tig * sg.ldw + n0 + gid;
-      const size_t w4 = (size_t)4 * sg.ldw, w8 = (size_t)8 * sg.ldw;
+      // W[k][n] of the lane at wp, W[k + 4][n] at wp + w4, the next
+      // k-step at wp + w8, the next n-tile at wp + wj
+      constexpr bool tr = WM == kWSharedT;
+      const float* wp = tr ? sg.w + (size_t)(n0 + gid) * sg.ldw + tig
+                           : sg.w + (size_t)tig * sg.ldw + n0 + gid;
+      const size_t w4 = tr ? 4 : (size_t)4 * sg.ldw;
+      const size_t w8 = tr ? 8 : (size_t)8 * sg.ldw;
+      const size_t wj = tr ? (size_t)8 * sg.ldw : 8;
+      auto wload = [](const float* p) {
+        if constexpr (WM == kWGlobal) return __ldg(p);
+        else return *p;
+      };
       float wr[NT][2];
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
-        wr[j][0] = __ldg(wp + 8 * j);
-        wr[j][1] = __ldg(wp + w4 + 8 * j);
+        wr[j][0] = wload(wp + wj * j);
+        wr[j][1] = wload(wp + w4 + wj * j);
       }
       const float* xp = sg.x + gid * sg.ld + tig;
       for (int k = 0; k < sg.K; k += 8) {
@@ -96,8 +113,8 @@ __device__ __forceinline__ void rows_mma(const MmaSeg (&seg)[NSEG], int N,
           wp += w8;
 #pragma unroll
           for (int j = 0; j < NT; ++j) {
-            wr[j][0] = __ldg(wp + 8 * j);
-            wr[j][1] = __ldg(wp + w4 + 8 * j);
+            wr[j][0] = wload(wp + wj * j);
+            wr[j][1] = wload(wp + w4 + wj * j);
           }
         }
 #pragma unroll

@@ -202,6 +202,20 @@ def row_groups(cnt: torch.Tensor, G: int) -> torch.Tensor:
     return torch.stack([rows, edges], dim=-1).to(torch.int32).contiguous()
 
 
+def source_schedule(refs: ColRefs, G: int):
+    """The backward kernels' schedule (``csrc/colblock_message_bwd.cu``,
+    K10 in ``csrc/schnet_columns.cu``): the source-sorted slots of
+    ``source_order`` and the rows of each column of the source table cut
+    into G ranges of about equal edge count (``row_groups``), one block
+    each.  Made once per (``refs``, G) and cached on the refs."""
+    key = ("src", G)
+    if key not in refs.cache:
+        esorted, cnt, _ = source_order(refs)
+        n_cols = refs.src_rows // refs.P
+        refs.cache[key] = (esorted, row_groups(cnt.view(n_cols, refs.P), G))
+    return refs.cache[key]
+
+
 def destination_order(refs: ColRefs):
     """Every real edge slot (column * Ktot + slot) sorted by (destination
     column, destination row), slot order within a row, padded slots last

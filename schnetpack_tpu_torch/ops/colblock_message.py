@@ -49,7 +49,7 @@ import torch
 from . import _build
 from .colblock import (
     ColRefs, column_geometry, decode_i, decode_j, destination_schedule,
-    painn_message, row_groups, source_order,
+    painn_message, source_schedule,
 )
 
 #: kernel launches since the last reset (the main path adds one per call)
@@ -150,16 +150,11 @@ def _fwd_schedule(refs: ColRefs, geo: int, F: int, B: int):
 
 def _bwd_schedule(refs: ColRefs, n_cols: int, mode: int, wgrad: bool,
                   F: int, B: int):
-    """The backward kernels' (esorted, grp, G): the source-sorted slots of
-    ``source_order`` and each of the ``n_cols`` source columns' rows cut
-    into G ranges (``row_groups``), G from the occupancy of the instance
-    (``mode``, ``wgrad``); made once per (refs, G), cached on the refs."""
+    """The backward kernels' (esorted, grp, G): ``source_schedule`` of the
+    ``n_cols`` source columns, G from the occupancy of the instance
+    (``mode``, ``wgrad``)."""
     G = _groups(refs, n_cols, "spk_msg_bwd_blocks", mode, int(wgrad), F, B)
-    key = ("src", G)
-    if key not in refs.cache:
-        esorted, cnt, _ = source_order(refs)
-        refs.cache[key] = (esorted, row_groups(cnt.view(n_cols, refs.P), G))
-    return (*refs.cache[key], G)
+    return (*source_schedule(refs, G), G)
 
 
 def _gfw_partials(x, FW_aug, n_blocks: int, wgrad: bool):

@@ -10,9 +10,12 @@ ny, B+4, Ktot]`` (``colblock_geo.column_geometry_raw``):
 
 The forward is K9 and the backward K10 (``csrc/schnet_columns.cu``): the
 filter network runs per edge inside the kernels, and nothing of shape
-[edges, F] exists in device memory.  K10 returns dh and the geometry
-cotangent (zero in the dir channels), and in its wgrad instance, which
-the op launches when W1, b1, W2 or b2 require grad, also the
+[edges, F] exists in device memory.  K9 runs one block per destination
+column; K10 runs on the message backward's source schedule
+(``colblock.source_schedule``), blocks owning source-row ranges, its
+filter products in 3xTF32 on the tensor cores.  K10 returns dh and the
+geometry cotangent (zero in the dir channels), and in its wgrad instance,
+which the op launches when W1, b1, W2 or b2 require grad, also the
 filter-weight cotangents.  On CPU tensors the op runs the twins, the
 gather / filter MLP / fold composition of ``_cfconv_xla``
 (``schnet_columns.py:317-331``) and its autograd VJP.
@@ -23,17 +26,27 @@ import torch
 
 from . import _build
 from .activations import shifted_softplus
-from .colblock import ColRefs, column_fold, column_gather
+from .colblock import ColRefs, column_fold, column_gather, source_schedule
 
 #: kernel launches since the last reset (SchNet MD: 3 each per step;
 #: ``cf_bwd_wgrad`` counts K10's wgrad instance)
 LAUNCHES = {"cf_fwd": 0, "cf_bwd": 0, "cf_bwd_wgrad": 0}
 #: the kernels' filter width
 N_FILTERS = 128
+#: K10's slots a chunk and row ranges a block of its plain instance
+#: (``kBwdE``, ``kBwdGroups`` of ``csrc/schnet_columns.cu``)
+BWD_SLOTS, BWD_GROUPS = 16, 3
+#: K10's row ranges a column, at most, plain and wgrad instance
+#: (``scripts/time_cfconv_kernels.py --groups`` at the SchNet run's 100
+#: columns on the H100: plain 11 ranges 0.758 ms, 16 0.727, 24 0.788, 32
+#: 0.838; wgrad, whose ranges each write an f64 partial of the weight
+#: cotangents, 5 1.44 ms, 16 1.46-1.54)
+BWD_RANGES, WGRAD_RANGES = 16, 5
 
 
 def _schedule(refs: ColRefs):
-    """Each column's real slots first, in slot order, and their count:
+    """K9's schedule: each column's real slots first, in slot order, and
+    their count:
     ``order`` [nx*ny, Ktot] int32 and ``nreal`` [nx*ny] int32, computed
     once per ``refs`` (cached on it) without a host sync."""
     if "cf" in refs.cache:
@@ -46,31 +59,56 @@ def _schedule(refs: ColRefs):
     return refs.cache["cf"]
 
 
-def cf_smem_bytes(B: int, P: int, bwd: bool) -> int:
-    """Dynamic shared memory of K9 (``bwd`` False) or K10 for B basis
-    functions and column capacity P: ``smem_floats`` at F = 128 and four
-    int arrays of the 64-edge chunk (what ``csrc/schnet_columns.cu::
+def _bp(B: int) -> int:
+    """K10's padded basis width: B + 1 (a column of ones for gb1) rounded
+    up to 8."""
+    return -(-(B + 1) // 8) * 8
+
+
+def cf_smem_bytes(B: int, P: int, bwd: bool, wgrad: bool = False) -> int:
+    """Dynamic shared memory of K9 (``bwd`` False) for B basis functions
+    and column capacity P, or of K10 (its wgrad instance with ``wgrad``),
+    which does not depend on P: what ``csrc/schnet_columns.cu::
     spk_cf_smem_bytes`` gives the launch, which the card tests hold it
-    to)."""
-    F, E = N_FILTERS, 64
+    to.  K9: W2, W1 and the biases, the 64-edge chunk's tiles, four int
+    arrays and the column's [P, F] sums.  K10: W2 and the padded W1
+    [F + Bp, F + 4], and per row range that the block runs (plain:
+    ``BWD_GROUPS``, wgrad: one) two buffers of the staged chunk (phi [E,
+    MP + 4], fcut, an 8-byte and three int arrays [E]), three tiles [E, F
+    + 4] (wgrad four) and the gfcut partials [E, F / 32]; wgrad also the
+    f32 sums [F + MP, F + 8] (MP: Bp rounded up to 16)."""
+    F = N_FILTERS
+    if bwd:
+        E, bp = BWD_SLOTS, _bp(B)
+        mp = -(-bp // 16) * 16
+        group = (2 * (E * (mp + 4) + 6 * E) + (4 if wgrad else 3) * E * (F + 4)
+                 + E * (F // 32))
+        rest = group + (F + mp) * (F + 8) if wgrad else BWD_GROUPS * group
+        return 4 * ((F + bp) * (F + 4) + rest)
+    E = 64
     ld_w, ld_t = F + 1, E + 4
-    m_size = max(E * (F + 1), F * ld_t)
-    floats = (F * ld_w + B * F + 2 * F + B * ld_t + F * ld_t
-              + (m_size if bwd else 0) + P * F + E)
+    floats = F * ld_w + B * F + 2 * F + B * ld_t + F * ld_t + P * F + E
     return 4 * floats + 4 * 4 * E
 
 
 def check_capacity(B: int, P: int, bwd: bool) -> None:
-    """Raise ``ValueError`` where the kernel's shared memory
-    (``cf_smem_bytes``) would pass the opt-in limit: at B = 20, P <= 221
-    for K9 and P <= 153 for K10."""
-    need = cf_smem_bytes(B, P, bwd)
+    """Raise ``ValueError`` where K9's shared memory (``cf_smem_bytes``),
+    which keeps a column's [P, F] sums, would pass the opt-in limit: at B
+    = 20, P <= 221.  K10's (both instances) does not grow with P and fits
+    at every B <= 32, so it takes every P."""
+    need = max(cf_smem_bytes(B, P, bwd, w) for w in (False, bwd))
     if need > _build.MAX_DYN_SMEM:
         name = "K10, the cfconv VJP," if bwd else "K9, the cfconv,"
         raise ValueError(
-            f"{name} keeps a column's [P, F] sums in shared memory: P={P} "
-            f"at B={B} needs {need} bytes a block, over the "
-            f"{_build.MAX_DYN_SMEM}-byte opt-in limit")
+            f"{name} needs {need} bytes of shared memory a block at P={P}, "
+            f"B={B}, over the {_build.MAX_DYN_SMEM}-byte opt-in limit")
+
+
+def _bwd_schedule(refs: ColRefs, wgrad: bool):
+    """K10's (esorted, grp, G): ``source_schedule`` with ``BWD_RANGES``
+    (wgrad: ``WGRAD_RANGES``) row ranges a column, at most one a row."""
+    G = min(WGRAD_RANGES if wgrad else BWD_RANGES, refs.P)
+    return (*source_schedule(refs, G), G)
 
 
 def _check(h, geo, W1, b1, W2, b2, refs: ColRefs, bwd: bool):
@@ -107,27 +145,31 @@ def cf_fwd_kernel(h, geo, W1, b1, W2, b2, refs: ColRefs):
 def cf_bwd_kernel(h, geo, W1, b1, W2, b2, refs: ColRefs, g,
                   wgrad: bool = False):
     """K10: (dh [A', F], ggeo [nx, ny, B+4, Ktot]) for the cotangent g of
-    K9's output; dh comes as 9 per-source-column partials, added here.
-    With ``wgrad`` also (gW1, gb1, gW2, gb2): the columns' f64 partials
-    summed here and rounded to f32."""
+    K9's output, each element written once by the kernel.  With ``wgrad``
+    also (gW1, gb1, gW2, gb2): the blocks' f64 partials summed here and
+    rounded to f32.  The kernel reads W1 padded with zero rows to
+    ``_bp(B)`` (a small copy)."""
     nx, ny, Ktot, B, F = _check(h, geo, W1, b1, W2, b2, refs, bwd=True)
     _build.check(g, "g", tuple(h.shape))
-    order, nreal = _schedule(refs)
-    part = h.new_empty((9,) + tuple(h.shape))
+    esorted, grp, G = _bwd_schedule(refs, wgrad)
+    W1p = W1.new_zeros((_bp(B), F))
+    W1p[:B] = W1
+    dh = torch.empty_like(h)
     ggeo = torch.empty_like(geo)
-    wpart = (h.new_zeros((nx * ny, (B + 2) * F + F * F), dtype=torch.float64)
-             if wgrad else None)
+    wpart = (h.new_empty((nx * ny * G, (B + 2) * F + F * F),
+                         dtype=torch.float64) if wgrad else None)
     p = _build.ptr
-    _build.launch("spk_cf_bwd", p(h), p(geo), p(W1), p(b1), p(W2), p(b2),
-                  p(refs.qcol), p(refs.dcol), p(order), p(nreal), p(g),
-                  p(part), p(ggeo), None if wpart is None else p(wpart), nx,
-                  ny, refs.P, Ktot, refs.koffs_arg, B, B + 4)
+    _build.launch("spk_cf_bwd", p(h), p(geo), p(W1p), p(b1), p(W2), p(b2),
+                  p(refs.qcol), p(refs.dcol), p(esorted), p(grp), p(g),
+                  p(dh), p(ggeo),
+                  None if wpart is None else p(wpart), nx, ny, refs.P, Ktot,
+                  G, B)
     if not wgrad:
         LAUNCHES["cf_bwd"] += 1
-        return part.sum(0), ggeo
+        return dh, ggeo
     LAUNCHES["cf_bwd_wgrad"] += 1
     w = wpart.sum(0).to(torch.float32)
-    return (part.sum(0), ggeo, w[:B * F].view(B, F), w[B * F:(B + 1) * F],
+    return (dh, ggeo, w[:B * F].view(B, F), w[B * F:(B + 1) * F],
             w[(B + 1) * F:(B + 1) * F + F * F].view(F, F),
             w[(B + 1) * F + F * F:])
 

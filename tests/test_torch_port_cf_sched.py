@@ -1,0 +1,225 @@
+"""PyTorch port: K10's schedule and arithmetic on the CPU.
+
+K10, the cfconv VJP (``csrc/schnet_columns.cu::cf_bwd_kernel``), runs on
+the message backward's source schedule (``colblock.source_schedule``):
+block (column, g) owns a range of the column's source rows and walks
+their slots in chunks of ``BWD_SLOTS``; its four filter products run in
+3xTF32 on the tensor cores, and the fold sums each source row's ghj in
+slot order.  The kernel runs only on the card; here a plain walk over
+the schedule in the kernel's order, with the products in the 3xTF32
+model of ``test_torch_port_mixing.py`` (``mm_3xtf32``: one ``mma.sync``
+step at a time, a fresh fragment per k-step), is held to the twin
+(``cf_bwd_plain``) and to the VJP of the JAX package's ``_cfconv_xla``
+on the same numpy inputs, both in float64, at the message tolerance (f32
+sums in another order), with every source row of dh and every real slot
+of ggeo written exactly once.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from schnetpack_tpu.ops import colblock as jcb
+from schnetpack_tpu.ops import colblock_geo as jgeo
+from schnetpack_tpu.ops.schnet_columns import _cfconv_xla
+from schnetpack_tpu_torch.ops import schnet_columns as cf
+from schnetpack_tpu_torch.ops.colblock import (
+    ColRefs, decode_j, source_schedule,
+)
+from test_torch_port_mixing import mm_3xtf32
+from torch_port_cases import MSG_ATOL, MSG_RTOL, cfconv_case
+
+NAMES = ("h", "geo", "W1", "b1", "W2", "b2")
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    torch.set_num_threads(1)
+
+
+def _case(F, B, seed, empty_col=0):
+    """``cfconv_case`` on its 3 x 3 grid with every slot whose source or
+    destination lies in column ``empty_col`` made a padded slot (its
+    geometry zeroed), so that one column has no real slot on either
+    side."""
+    c = cfconv_case(F=F, B=B, seed=seed, n=110, L=11.0)
+    lay = c["lay"]
+    refs = ColRefs.from_layout(lay)
+    nx, ny, Ktot = refs.qcol.shape
+    j, _ = decode_j(refs)
+    dest = torch.arange(nx * ny).view(nx, ny, 1).expand(nx, ny, Ktot)
+    drop = ((j // refs.P == empty_col) | (dest == empty_col)).numpy()
+    c["qcol"] = np.where(drop, -1, lay.qcol).astype(np.int32)
+    c["dcol"] = np.where(drop, -1, lay.dcol).astype(np.int32)
+    c["geo"] = c["geo"] * (c["qcol"] >= 0)[:, :, None, :]
+    return c
+
+
+def _refs(c):
+    P, ksizes = c["lay"].dims[2], tuple(int(k) for k in c["lay"].dims[3])
+    return ColRefs(torch.tensor(c["qcol"]), torch.tensor(c["dcol"]), int(P),
+                   ksizes)
+
+
+def _walk(c, G, E=cf.BWD_SLOTS):
+    """K10's outputs in its order: the slots in the source order of
+    ``source_schedule(refs, G)``, block by block and chunk by chunk of E;
+    per slot z1 = [phi | 1] W1p (W1 padded with zero rows to Bp), pre =
+    ssp(z1 + b1) W2 + b2, gh1 = gpre W2^T and gphi = gz1 W1p^T in 3xTF32;
+    ghj folded per source row in slot order in f32; wgrad: per chunk
+    h1^T gpre and [phi | 1]^T gz1 in 3xTF32 (k-steps over the chunk's
+    slots, zero-padded to E) added to the block's f32 sums, gb2 per
+    feature over the two row phases, the blocks' sums added in float64.
+    Returns (dh, ggeo, gW1, gb1, gW2, gb2, counts): how many times each
+    dh row and each ggeo element was written, and the runs that cross a
+    chunk bound."""
+    refs = _refs(c)
+    h, geo, W1, b1, W2, b2 = (torch.tensor(c[k]) for k in NAMES)
+    g = torch.tensor(c["g"])
+    B, F = W1.shape
+    nx, ny, Ktot = refs.qcol.shape
+    P, nch = refs.P, B + 4
+    Bp = cf._bp(B)
+    W1p = torch.zeros(Bp, F)
+    W1p[:B] = W1
+    esorted, grp = source_schedule(refs, G)
+    qcol, dcol = refs.qcol.reshape(-1).long(), refs.dcol.reshape(-1).long()
+    n_real = int((qcol >= 0).sum())
+    s = esorted[:n_real].long()
+    dc, k = s // Ktot, s % Ktot
+    geo_c = geo.reshape(nx * ny, nch, Ktot)
+    phi = torch.zeros(n_real, Bp)
+    phi[:, :B] = geo_c[dc, :B, k]
+    phi[:, B] = 1.0
+    fc = geo_c[dc, B, k]
+    # the products of every slot (a row's result does not depend on the
+    # other rows of its chunk)
+    z1 = mm_3xtf32(phi, W1p) + b1
+    h1, sg = cf.shifted_softplus(z1), torch.sigmoid(z1)
+    pre = mm_3xtf32(h1, W2) + b2
+    gm = g[dc * P + dcol[s]]
+    src_col = torch.div(decode_j(refs)[0].reshape(-1)[s], P,
+                        rounding_mode="floor")
+    hj = h[src_col * P + qcol[s]]
+    ghj = gm * pre * fc[:, None]
+    gw = gm * hj
+    gp = gw * fc[:, None]
+    # gfcut: each warp's 32 features, then the kQ partials in order
+    gfc = (gw * pre).view(n_real, F // 32, 32).sum(-1)
+    gfc = sum(gfc[:, q] for q in range(F // 32))
+    gz1 = mm_3xtf32(gp, W2.t().contiguous()) * sg
+    gphi = mm_3xtf32(gz1, W1p.t().contiguous())[:, :B]
+
+    dh = torch.zeros(nx * ny * P, F)
+    ggeo = torch.zeros(nx * ny, nch, Ktot)
+    n_dh = torch.zeros(nx * ny * P, dtype=torch.int64)
+    n_gg = torch.zeros(nx * ny, nch, Ktot, dtype=torch.int64)
+    # the padded slots of each destination column (block (col, 0))
+    pad = (qcol < 0).view(nx * ny, Ktot)
+    n_gg += pad[:, None, :]
+    # every real slot: gphi, gfcut and 0 in the dir channels
+    ggeo[dc, :B, k] = gphi
+    ggeo[dc, B, k] = gfc
+    n_gg[dc, :, k] += 1
+    w64 = torch.zeros((B + 2) * F + F * F, dtype=torch.float64)
+    crossing = 0
+    for col in range(nx * ny):
+        for gr in range(G):
+            (r0, e0), (r1, e1) = grp[col, gr:gr + 2].tolist()
+            run, nxt = -1, r0
+            acc = torch.zeros(F)
+            gw2 = torch.zeros(F, F)
+            gw1 = torch.zeros(Bp, F)
+            gb2 = torch.zeros(2, F)
+            for base in range(e0, e1, E):
+                rows = list(range(base, min(base + E, e1)))
+                if base > e0 and qcol[s[rows[0]]] == qcol[s[rows[0] - 1]]:
+                    crossing += 1
+                for e in rows:
+                    q = int(qcol[s[e]])
+                    assert src_col[e] == col and r0 <= q < r1
+                    if q != run:
+                        if run >= 0:
+                            dh[col * P + run] = acc
+                            n_dh[col * P + run] += 1
+                            nxt = run + 1
+                        n_dh[col * P + nxt:col * P + q] += 1
+                        nxt, run = q, q
+                        acc = torch.zeros(F)
+                    acc = acc + ghj[e]
+                m = len(rows)
+                pad_rows = (0, 0, 0, E - m)
+                hc = torch.nn.functional.pad(h1[rows], pad_rows)
+                gpc = torch.nn.functional.pad(gp[rows], pad_rows)
+                phc = torch.nn.functional.pad(phi[rows], pad_rows)
+                gzc = torch.nn.functional.pad(gz1[rows], pad_rows)
+                gw2 = gw2 + mm_3xtf32(hc.t().contiguous(), gpc)
+                gw1 = gw1 + mm_3xtf32(phc.t().contiguous(), gzc)
+                for ph in range(2):
+                    for e in range(ph, m, 2):
+                        gb2[ph] = gb2[ph] + gp[rows[e]]
+            if run >= 0:
+                dh[col * P + run] = acc
+                n_dh[col * P + run] += 1
+                nxt = run + 1
+            n_dh[col * P + nxt:col * P + r1] += 1
+            w64 += torch.cat([gw1[:B + 1].reshape(-1), gw2.reshape(-1),
+                              gb2[0] + gb2[1]]).double()
+    w = w64.float()
+    gW1, gb1 = w[:B * F].view(B, F), w[B * F:(B + 1) * F]
+    gW2 = w[(B + 1) * F:(B + 1) * F + F * F].view(F, F)
+    gb2 = w[(B + 1) * F + F * F:]
+    return (dh, ggeo.view(nx, ny, nch, Ktot), gW1, gb1, gW2, gb2,
+            (n_dh, n_gg, crossing))
+
+
+def _jax_vjp64(c):
+    """The VJP of the JAX package's ``_cfconv_xla`` on float64 copies of
+    the case's inputs (x64 enabled for this call only), rounded to f32."""
+    P, ksizes = c["lay"].dims[2], tuple(int(k) for k in c["lay"].dims[3])
+    with jax.enable_x64(True):
+        refs = jcb.ColRefs(jnp.asarray(c["qcol"]), jnp.asarray(c["dcol"]), P,
+                           ksizes)
+        f64 = [jnp.asarray(c[k], jnp.float64) for k in NAMES + ("g",)]
+        geo = jgeo.split_geo(f64[1], refs.ksizes)
+        grads = jax.jit(lambda g, *a: jax.vjp(
+            lambda *x: _cfconv_xla(*x, refs), *a)[1](g))(
+                f64[6], f64[0], geo, *f64[2:6])
+        assert grads[0].dtype == jnp.float64
+        out = [grads[0], jgeo.concat_geo(grads[1])] + list(grads[2:])
+        return [np.asarray(x).astype(np.float32) for x in out]
+
+
+@pytest.mark.parametrize("F,B,seed,G", [(32, 8, 21, 3), (128, 20, 3, 4)])
+def test_source_walk_matches_twin_and_jax(F, B, seed, G):
+    """The walk's dh, ggeo and filter-weight cotangents match the twin and
+    the JAX VJP, both evaluated in float64: at F = 128 the f32 twin itself
+    misses its float64 result by 1.2x the tolerance on this case (gfcut, a
+    128-long sum that cancels), the walk by at most 0.65x.  Each source
+    row of dh and each element of ggeo is written once; a run crosses a
+    chunk bound, block bounds fall inside columns, and column 0 has no
+    real slot."""
+    c = _case(F, B, seed)
+    refs = _refs(c)
+    *got, (n_dh, n_gg, crossing) = _walk(c, G)
+    assert bool((n_dh == 1).all()) and bool((n_gg == 1).all())
+    assert crossing > 0
+    esorted, grp = source_schedule(refs, G)
+    inner = grp[:, 1:-1, 0]
+    assert bool(((inner > 0) & (inner < refs.P)).any())
+    assert bool((refs.qcol.view(-1, refs.qcol.shape[-1])[0] < 0).all())
+    assert int(grp[0, -1, 1] - grp[0, 0, 1]) == 0
+    t = [torch.tensor(c[k]).double() for k in NAMES]
+    twin = cf.cf_bwd_plain(*t, refs, torch.tensor(c["g"]).double())
+    for name, a, w, j in zip(("dh", "ggeo", "gW1", "gb1", "gW2", "gb2"),
+                             got, twin, _jax_vjp64(c)):
+        np.testing.assert_allclose(a.numpy(), w.float().numpy(), MSG_RTOL,
+                                   MSG_ATOL, err_msg=f"{name} vs twin")
+        np.testing.assert_allclose(a.numpy(), j, MSG_RTOL, MSG_ATOL,
+                                   err_msg=f"{name} vs jax")
+    # zeros in the dir channels and at the padded slots
+    gg = got[1].numpy()
+    np.testing.assert_array_equal(gg[:, :, B + 1:], 0.0)
+    np.testing.assert_array_equal(
+        np.moveaxis(gg, 2, 3)[(refs.qcol < 0).numpy()], 0.0)

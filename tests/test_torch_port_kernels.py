@@ -282,14 +282,20 @@ def test_mixing_smem_mirror_matches_the_kernel(cuda_device):
 
 @pytest.mark.gpu
 def test_cfconv_smem_mirror_matches_the_kernel(cuda_device):
-    """``cf_smem_bytes``, which names a K9/K10 column capacity past the
-    opt-in limit before the launch, equals what the launchers ask for
-    (``spk_cf_smem_bytes``) on both sides of each limit."""
+    """``cf_smem_bytes``, which names K9's column capacity past the opt-in
+    limit before the launch, equals what the launchers ask for
+    (``spk_cf_smem_bytes``: K9, K10 and K10's wgrad instance) on both
+    sides of K9's limit; K10's does not depend on P and fits the limit at
+    every B."""
     for B in (8, 20, 32):
-        for P in (1, 100, 153, 154, 221, 222):
-            for bwd in (False, True):
-                assert schnet.cf_smem_bytes(B, P, bwd) == _build.query(
-                    "spk_cf_smem_bytes", B, P, int(bwd)), (B, P, bwd)
+        for P in (1, 100, 153, 154, 221, 222, 1000):
+            assert schnet.cf_smem_bytes(B, P, False) == _build.query(
+                "spk_cf_smem_bytes", B, P, 0), (B, P)
+            for mode, wgrad in ((1, False), (2, True)):
+                got = _build.query("spk_cf_smem_bytes", B, P, mode)
+                assert schnet.cf_smem_bytes(B, P, True, wgrad) == got
+                assert got == _build.query("spk_cf_smem_bytes", B, 1, mode)
+                assert got <= _build.MAX_DYN_SMEM
 
 
 @pytest.mark.gpu
@@ -438,7 +444,10 @@ def test_raw_geometry_kernels_match_twin(cuda_device, seed):
 @pytest.mark.parametrize("seed", [3, 21])
 def test_cfconv_kernels_match_twin(cuda_device, seed):
     """K9 and K10 (the kernels' width, F = 128) on synthetic raw-phi
-    geometry."""
+    geometry; K10 held to the twin in float64: its gfcut channel, a
+    128-long sum that can cancel, is within the tolerance of the float64
+    result where the f32 twin's own sum is not always (1.22x it on the
+    CPU walk's F = 128 case, ``test_torch_port_cf_sched.py``)."""
     c = cfconv_case(F=schnet.N_FILTERS, B=20, seed=seed)
     refs = ColRefs.from_layout(c["lay"], device=cuda_device)
     args = [torch.tensor(c[k], device=cuda_device)
@@ -447,12 +456,11 @@ def test_cfconv_kernels_match_twin(cuda_device, seed):
     torch.testing.assert_close(schnet.cf_fwd_kernel(*args, refs),
                                schnet.cf_fwd_plain(*args, refs),
                                rtol=MSG_RTOL, atol=MSG_ATOL)
-    for got, want in zip(schnet.cf_bwd_kernel(*args, refs, g),
-                         schnet.cf_bwd_plain(*args, refs, g)[:2]):
-        torch.testing.assert_close(got, want, rtol=MSG_RTOL, atol=MSG_ATOL)
+    want = f64(schnet.cf_bwd_plain, *args, refs, g)
+    for got, w in zip(schnet.cf_bwd_kernel(*args, refs, g), want[:2]):
+        torch.testing.assert_close(got, w, rtol=MSG_RTOL, atol=MSG_ATOL)
     # the wgrad instance: also gW1, gb1, gW2, gb2, held to the twin in f64;
     # the op launches it when a filter weight requires grad
-    want = f64(schnet.cf_bwd_plain, *args, refs, g)
     got = schnet.cf_bwd_kernel(*args, refs, g, wgrad=True)
     assert len(got) == 6
     for gk, w in zip(got[:2], want[:2]):
@@ -469,39 +477,64 @@ def test_cfconv_kernels_match_twin(cuda_device, seed):
         "cf_fwd": 1, "cf_bwd": 0, "cf_bwd_wgrad": 1}
 
 
+def _cfconv_bwd_checks(args, refs, g):
+    """K10 and its wgrad instance against the twin in float64: dh and ggeo
+    at the message tolerance, the weight cotangents normwise."""
+    want = f64(schnet.cf_bwd_plain, *args, refs, g)
+    for got, w in zip(schnet.cf_bwd_kernel(*args, refs, g), want[:2]):
+        torch.testing.assert_close(got, w, rtol=MSG_RTOL, atol=MSG_ATOL)
+    got = schnet.cf_bwd_kernel(*args, refs, g, wgrad=True)
+    assert len(got) == 6
+    for gk, w in zip(got[:2], want[:2]):
+        torch.testing.assert_close(gk, w, rtol=MSG_RTOL, atol=MSG_ATOL)
+    for name, gk, w in zip(("gW1", "gb1", "gW2", "gb2"), got[2:], want[2:]):
+        assert_normwise(gk, w, name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [8, 20, 32])
+def test_cfconv_bwd_at_basis_widths(cuda_device, B):
+    """K10 and its wgrad instance at B = 8, 20 and 32 (the padded basis
+    width Bp = 16, 24 and 40) on a 3 x 3 grid against the twin in
+    float64."""
+    c = cfconv_case(F=schnet.N_FILTERS, B=B, seed=B + 1, n=110, L=11.0)
+    refs = ColRefs.from_layout(c["lay"], device=cuda_device)
+    args = [torch.tensor(c[k], device=cuda_device)
+            for k in ("h", "geo", "W1", "b1", "W2", "b2")]
+    _cfconv_bwd_checks(args, refs, torch.tensor(c["g"], device=cuda_device))
+
+
 @pytest.mark.gpu
 def test_cfconv_kernels_name_their_capacity(cuda_device):
-    """K9 and K10 at B = 20 on a column capacity P at their shared memory
-    limit (221 and 153) match their twins; one past it, each wrapper
-    raises a ``ValueError`` that names the limit before it launches."""
+    """K9 at B = 20 on a column capacity P at its shared memory limit
+    (221) matches its twin, and one past it the wrapper raises a
+    ``ValueError`` that names the limit before it launches.  K10 and its
+    wgrad instance have no such limit: at P = 154 (past their old limit of
+    153) and P = 400 they match the twin in float64."""
     c = cfconv_case(F=schnet.N_FILTERS, B=20, seed=3)
     base = ColRefs.from_layout(c["lay"], device=cuda_device)
     nx, ny = base.qcol.shape[:2]
     rng = np.random.RandomState(5)
     w = [torch.tensor(c[k], device=cuda_device)
          for k in ("geo", "W1", "b1", "W2", "b2")]
-    for P, bwd in ((221, False), (153, True)):
-        for P_, ok in ((P, True), (P + 1, False)):
-            refs = dataclasses.replace(base, P=P_, cache={})
-            h, g = (torch.tensor(rng.randn(nx * ny * P_, schnet.N_FILTERS)
-                                 .astype(np.float32), device=cuda_device)
-                    for _ in range(2))
-            if not ok:
-                with pytest.raises(ValueError, match="opt-in limit"):
-                    if bwd:
-                        schnet.cf_bwd_kernel(h, *w, refs, g)
-                    else:
-                        schnet.cf_fwd_kernel(h, *w, refs)
-                continue
-            if bwd:
-                got = schnet.cf_bwd_kernel(h, *w, refs, g)
-                want = schnet.cf_bwd_plain(h, *w, refs, g)[:2]
-            else:
-                got = [schnet.cf_fwd_kernel(h, *w, refs)]
-                want = [schnet.cf_fwd_plain(h, *w, refs)]
-            for gk, wk in zip(got, want):
-                torch.testing.assert_close(gk, wk, rtol=MSG_RTOL,
-                                           atol=MSG_ATOL)
+
+    def inputs(P):
+        refs = dataclasses.replace(base, P=P, cache={})
+        h, g = (torch.tensor(rng.randn(nx * ny * P, schnet.N_FILTERS)
+                             .astype(np.float32), device=cuda_device)
+                for _ in range(2))
+        return refs, h, g
+
+    refs, h, _ = inputs(221)
+    torch.testing.assert_close(schnet.cf_fwd_kernel(h, *w, refs),
+                               schnet.cf_fwd_plain(h, *w, refs),
+                               rtol=MSG_RTOL, atol=MSG_ATOL)
+    refs, h, _ = inputs(222)
+    with pytest.raises(ValueError, match="opt-in limit"):
+        schnet.cf_fwd_kernel(h, *w, refs)
+    for P in (154, 400):
+        refs, h, g = inputs(P)
+        _cfconv_bwd_checks([h, *w], refs, g)
 
 
 #: threads (slots) of a narrow K11/K13 block

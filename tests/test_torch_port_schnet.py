@@ -278,15 +278,19 @@ def test_schnet_reference_fixture_is_the_bench_box():
     assert int(ref["n_pairs"]) > 0
 
 
-@pytest.mark.parametrize("P,bwd,ok", [(153, True, True), (154, True, False),
+@pytest.mark.parametrize("P,bwd,ok", [(154, True, True), (1000, True, True),
                                       (221, False, True),
                                       (222, False, False)])
 def test_cfconv_kernel_capacity_limit(P, bwd, ok):
-    """K9/K10 keep a column's [P, F] sums in shared memory: at B = 20, K10
-    takes P <= 153 and K9 P <= 221 under the 232,448-byte opt-in limit;
-    one past raises a ``ValueError`` that names it."""
-    need = cf.cf_smem_bytes(20, P, bwd)
+    """K9 keeps a column's [P, F] sums in shared memory: at B = 20 it takes
+    P <= 221 under the 232,448-byte opt-in limit, and one past raises a
+    ``ValueError`` that names it.  K10's shared memory (both instances)
+    holds a chunk's tiles only, so it takes P = 154, past its old limit of
+    153, and P = 1000."""
+    need = max(cf.cf_smem_bytes(20, P, bwd, w) for w in (False, bwd))
     assert (need <= 232_448) == ok
+    if bwd:
+        assert need == cf.cf_smem_bytes(20, 1, bwd, True)
     if ok:
         cf.check_capacity(20, P, bwd)
         return

@@ -47,12 +47,14 @@ def torch_message_args(c, device="cpu"):
     return t, refs, cw
 
 
-def cfconv_case(F=32, B=8, seed=21):
+def cfconv_case(F=32, B=8, seed=21, n=100, L=10.0):
     """Inputs of ``tests/test_schnet_columns.py::test_kernel_matches_xla_
     and_grads``: a random box, synthetic raw-phi geometry zeroed at padded
-    slots, and random filter weights; plus a cotangent g of the output."""
+    slots, and random filter weights; plus a cotangent g of the output.
+    Its box of n = 100 atoms and side L = 10 A makes one column; n = 110,
+    L = 11 a 3 x 3 grid."""
     rng = np.random.RandomState(seed)
-    R, cell = random_box(100, 10.0, seed)
+    R, cell = random_box(n, L, seed)
     lay = build_column_layout(R, 3.4, cell, np.ones(3, bool), min_grid=3)
     Ap = len(lay.order)
     geo = rng.randn(*lay.emask.shape, B + 4).astype(np.float32)
