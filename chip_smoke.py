@@ -143,7 +143,7 @@ NORM_RTOL = 1e-5
 #: the sources of the ptxas report of the build (the message, mixing and
 #: cfconv kernels) and their template kernels' parameters, per kernel name
 PTXAS_SOURCES = {
-    "colblock_message.cu": {"msg_fwd_kernel": ("kGeo", "kB4")},
+    "colblock_message.cu": {"msg_fwd_kernel": ("kIn", "kB4")},
     "colblock_message_bwd.cu": {"msg_bwd_kernel": ("kMode", "kWgrad", "kB4")},
     "painn_mixing.cu": {"mix_fwd_kernel": ("ROWS", "NW")},
     "schnet_columns.cu": {"cf_bwd_kernel": ("kWgrad",)}}
@@ -880,11 +880,11 @@ def cell_kernel_phase(calc, system, seed, dev):
              (4 * ne * 3, refs.qidx), ne * 3,
              lambda: R.new_zeros((Ap + 1, 3)).index_add_(
                  0, jpad, g3.reshape(-1, 3))),
-        case("cell_msg_fwd", "painn_fused.cu", "painn_fused.py:116",
+        case("cell_msg_fwd", "colblock_message.cu", "painn_fused.py:116",
              lambda: pf.cell_msg_fwd_kernel(*margs),
              lambda: pf.cell_msg_fwd_plain(*margs),
              (margs[:4], refs.qidx), msg_fwd),
-        case("cell_msg_bwd", "painn_fused.cu", "painn_fused.py:185",
+        case("cell_msg_bwd", "colblock_message_bwd.cu", "painn_fused.py:185",
              lambda: pf.cell_msg_bwd_kernel(*margs, g_dq, g_dmu),
              lambda: pf.cell_msg_bwd_plain(*margs, g_dq, g_dmu)[:3],
              (margs[:4], refs.qidx, g_dq, g_dmu), msg_bwd,

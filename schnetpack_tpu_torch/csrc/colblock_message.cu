@@ -7,12 +7,15 @@
 //   and :687 _msg_fm_fwd_res_preoh_kernel (they differ only in how the TPU
 //   stages tables in VMEM and builds one-hots; all compute K1's message on
 //   a precomputed geo tensor).
-// K20 msg_fwd_kernel<true, .> on edge-major geometry replaces the row-12
+// K20 msg_fwd_kernel<kGeoIn, .> on edge-major geometry replaces the row-12
 //   forward colblock_pallas.py:322 _msg_fwd_kernel (launchers :365 on one
 //   device and colblock_shard.py:269 _msg_hx_fwd_call on halo slabs): the
 //   message on xmu = [x, mu] [A'_src, 6F], rbf_aug [nx, ny, Ktot, B+1] and
 //   dir [nx, ny, Ktot, 3].
-// The backward body (K2, K7, K15, K21) is colblock_message_bwd.cu.
+// K18 msg_fwd_kernel<kCellIn, .> is K20 in the cell index mode: it replaces
+//   the 27-cell forward schnetpack_tpu/ops/painn_fused.py:116 _fwd_kernel
+//   (launcher :149 _fused_fwd_call), on the stack view of cellblock.cuh.
+// The backward body (K2, K7, K15, K21, K19) is colblock_message_bwd.cu.
 //
 // Layout (schnetpack_tpu_torch/ops/cellblock.py): atoms sorted into nx*ny
 // xy-columns of P rows; edge slot k of column (i, j) lies in bucket c9 =
@@ -23,12 +26,16 @@
 //   wrap    (0, 0): ((i+dx) mod nx, (j+dy) mod ny) of an [nx, ny] table
 //   halo_x  (1, 0): (i+dx+1, (j+dy) mod ny) of an [nx+2, ny] table
 //   halo_xy (1, 1): (i+dx+1, j+dy+1) of an [nx+2, ny+2] table
-// (the x- and xy-halo'd slabs of colblock_shard.py:111-128).  K1 recomputes
-// the per-edge geometry (rij, d, dir, cosine cutoff, Gaussian basis) from
-// the positions in f32, as the TPU kernel does; K6 reads the first B+4
-// channels [phi*fcut (B), fcut, dir (3)] of the packed geo [nx, ny, nch,
-// Ktot] that K5 (colblock_geo.cu) writes, K20 the edge-major tensors.  Both
-// read them through a GeoView.
+// (the x- and xy-halo'd slabs of colblock_shard.py:111-128).  In the cell
+// index mode (K18) the columns are the 27-cell layout's stacks, the source
+// column the wrap mode's, and the staged int of a slot is its code qidx, from
+// which CellStack::decode forms the bucket, the source row in the source
+// stack and the destination row (in place of bucket_of and dcol).  K1
+// recomputes the per-edge geometry (rij, d, dir, cosine cutoff, Gaussian
+// basis) from the positions in f32, as the TPU kernel does; K6 reads the
+// first B+4 channels [phi*fcut (B), fcut, dir (3)] of the packed geo [nx,
+// ny, nch, Ktot] that K5 (colblock_geo.cu) writes, K20 and K18 the
+// edge-major tensors.  They read them through a GeoView.
 //
 // What bounds it on the H100: per real slot the filter (B+1) x 3F FMAs
 // and the source row's x and mu (3F floats each, 3 KB a slot, ~0.6 GB
@@ -64,7 +71,11 @@ namespace {
 
 constexpr int kUF = 4;  // slots in flight per thread in the message loop
 
-template <bool kGeo, int kB4>
+// what the forward reads per slot: positions and offsets (K1), a geometry
+// view (K6, K20), or a geometry view in the cell index mode (K18)
+constexpr int kPosIn = 0, kGeoIn = 1, kCellIn = 2;
+
+template <int kIn, int kB4>
 __global__ void __maxnreg__(kMaxRegs)
     msg_fwd_kernel(const float* __restrict__ x, const float* __restrict__ mu,
                    const float* __restrict__ R, GeoView<const float> gv,
@@ -76,10 +87,11 @@ __global__ void __maxnreg__(kMaxRegs)
                    const int* __restrict__ grp, float* __restrict__ dq,
                    float* __restrict__ dmu, int nx, int ny, int P, int Ktot,
                    KOffs ko, int G, int B, int ldx, int hx, int hy,
-                   float rc) {
+                   float rc, CellStack cs) {
   // Block (col, g) owns the destination rows [r0, r1) of column col and
   // their slots dsorted[e0, e1) (grp[col][g] = (r0, e0), grp[col][g+1] =
   // (r1, e1)).  blockDim = F threads = E slots a chunk.
+  constexpr bool kGeo = kIn != kPosIn, kCell = kIn == kCellIn;
   extern __shared__ float4 smem4[];
   const int E = blockDim.x, F = E, D3 = 3 * F, B1 = B + 1;
   const int n4 = (B1 + 3) >> 2, nst = kGeo ? B1 + 3 : 3;
@@ -95,8 +107,8 @@ __global__ void __maxnreg__(kMaxRegs)
   float* s_R = st_g + 2 * nst * E;       // [10][P][3] (K1)
   int* s_src = reinterpret_cast<int*>(s_R + (kGeo ? 0 : 30 * P));  // [E]
   int* s_dst = s_src + E;                // [E] destination row
-  int* st_q = s_dst + E;                 // [2][E] staged qcol
-  int* st_d = st_q + 2 * E;              // [2][E] staged dcol
+  int* st_q = s_dst + E;                 // [2][E] staged qcol (qidx)
+  int* st_d = st_q + 2 * E;              // [2][E] staged dcol (not kCell)
   int* s_cnt = st_d + 2 * E;             // [E / 32] kept slots per warp
 
   Filter<kB4> fw;
@@ -120,7 +132,7 @@ __global__ void __maxnreg__(kMaxRegs)
   auto stage = [&](int buf, int base, int slot) {
     if (base + tid < e1) {
       cp_async4(st_q + buf * E + tid, qcol + slot);
-      cp_async4(st_d + buf * E + tid, dcol + slot);
+      if constexpr (!kCell) cp_async4(st_d + buf * E + tid, dcol + slot);
       const int k = slot - col * Ktot;
       float* sg = st_g + buf * nst * E + tid;
       if constexpr (kGeo) {
@@ -172,13 +184,18 @@ __global__ void __maxnreg__(kMaxRegs)
     float d = 1.f, rx = 0.f, ry = 0.f, rz = 0.f;
     if (tid < n) {
       const int qv = st_q[buf * E + tid];
-      dv = st_d[buf * E + tid];
-      const int c9 = bucket_of(sl_cur - col * Ktot, ko);
+      int c9, srow = qv;
+      if constexpr (kCell) {
+        cs.decode(sl_cur - col * Ktot, qv, c9, srow, dv);
+      } else {
+        dv = st_d[buf * E + tid];
+        c9 = bucket_of(sl_cur - col * Ktot, ko);
+      }
       const int c3 = c9 / 3;
       int si = ci + c3 - 1 + hx, sj = cj + c9 - 3 * c3 - 1 + hy;
       if (!hx) si += si < 0 ? nx : (si >= nx ? -nx : 0);
       if (!hy) sj += sj < 0 ? ny : (sj >= ny ? -ny : 0);
-      src = (si * (ny + 2 * hy) + sj) * P + qv;
+      src = (si * (ny + 2 * hy) + sj) * P + srow;
       if constexpr (kGeo) {
         for (int c = 0; c < B1; ++c) live |= sg[c * E] != 0.f;
       } else {
@@ -282,52 +299,58 @@ size_t fwd_smem(int F, int B, int P) {
          sizeof(int) * ((size_t)6 * F + kMaxThreads / 32);
 }
 
-template <bool kGeo, int kB4>
+template <int kIn, int kB4>
 int launch_fwd(const float* x, const float* mu, const float* R,
                GeoView<const float> gv, const float* FW, const float* coff,
                const float* cw, const int* qcol, const int* dcol,
                const int* dsorted, const int* grp, float* dq, float* dmu,
                int nx, int ny, int P, int Ktot, const int* koffs, int G,
-               int F, int B, int ldx, int hx, int hy, float rc,
+               int F, int B, int ldx, int hx, int hy, float rc, CellStack cs,
                cudaStream_t stream) {
   if (F % 32 != 0 || F > kMaxThreads) return (int)cudaErrorInvalidValue;
-  const size_t smem = fwd_smem<kGeo>(F, B, P);
+  const size_t smem = fwd_smem<kIn != kPosIn>(F, B, P);
   cudaError_t err = cudaFuncSetAttribute(
-      msg_fwd_kernel<kGeo, kB4>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      msg_fwd_kernel<kIn, kB4>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  msg_fwd_kernel<kGeo, kB4><<<dim3(nx * ny, G), F, smem, stream>>>(
+  msg_fwd_kernel<kIn, kB4><<<dim3(nx * ny, G), F, smem, stream>>>(
       x, mu, R, gv, FW, coff, cw, qcol, dcol, dsorted, grp, dq, dmu, nx, ny,
-      P, Ktot, make_koffs(koffs), G, B, ldx, hx, hy, rc);
+      P, Ktot, make_koffs(koffs), G, B, ldx, hx, hy, rc, cs);
   return (int)cudaGetLastError();
 }
 
 // the register instance where FW_aug's rows fit it, else the L1 one
-template <bool kGeo>
+template <int kIn>
 int launch_fwd_any(const float* x, const float* mu, const float* R,
                    GeoView<const float> gv, const float* FW,
                    const float* coff, const float* cw, const int* qcol,
                    const int* dcol, const int* dsorted, const int* grp,
                    float* dq, float* dmu, int nx, int ny, int P, int Ktot,
                    const int* koffs, int G, int F, int B, int ldx, int hx,
-                   int hy, float rc, cudaStream_t stream) {
-  auto* fn = B + 1 <= 4 * kRegB4 ? launch_fwd<kGeo, kRegB4>
-                                 : launch_fwd<kGeo, 0>;
+                   int hy, float rc, CellStack cs, cudaStream_t stream) {
+  auto* fn = B + 1 <= 4 * kRegB4 ? launch_fwd<kIn, kRegB4>
+                                 : launch_fwd<kIn, 0>;
   return fn(x, mu, R, gv, FW, coff, cw, qcol, dcol, dsorted, grp, dq, dmu,
-            nx, ny, P, Ktot, koffs, G, F, B, ldx, hx, hy, rc, stream);
+            nx, ny, P, Ktot, koffs, G, F, B, ldx, hx, hy, rc, cs, stream);
 }
 
-template <bool kGeo, int kB4>
+template <int kIn, int kB4>
 int fwd_blocks(int F, int B, int P) {
-  const size_t smem = fwd_smem<kGeo>(F, B, P);
+  const size_t smem = fwd_smem<kIn != kPosIn>(F, B, P);
   cudaError_t err = cudaFuncSetAttribute(
-      msg_fwd_kernel<kGeo, kB4>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      msg_fwd_kernel<kIn, kB4>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return -(int)err;
   int n = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &n, msg_fwd_kernel<kGeo, kB4>, F, smem);
+      &n, msg_fwd_kernel<kIn, kB4>, F, smem);
   return err != cudaSuccess ? -(int)err : n;
+}
+
+template <int kIn>
+int fwd_blocks_any(int F, int B, int P) {
+  return B + 1 <= 4 * kRegB4 ? fwd_blocks<kIn, kRegB4>(F, B, P)
+                             : fwd_blocks<kIn, 0>(F, B, P);
 }
 
 }  // namespace
@@ -339,10 +362,10 @@ extern "C" int spk_msg_fwd(const float* x, const float* mu, const float* R,
                            float* dmu, int nx, int ny, int P, int Ktot,
                            const int* koffs, int G, int F, int B, float rc,
                            cudaStream_t stream) {
-  return launch_fwd_any<false>(x, mu, R, GeoView<const float>{}, FW, coff,
-                               cw, qcol, dcol, dsorted, grp, dq, dmu, nx, ny,
-                               P, Ktot, koffs, G, F, B, 3 * F, 0, 0, rc,
-                               stream);
+  return launch_fwd_any<kPosIn>(x, mu, R, GeoView<const float>{}, FW, coff,
+                                cw, qcol, dcol, dsorted, grp, dq, dmu, nx, ny,
+                                P, Ktot, koffs, G, F, B, 3 * F, 0, 0, rc,
+                                CellStack{}, stream);
 }
 
 extern "C" int spk_msg_fwd_geo(const float* x, const float* mu,
@@ -352,11 +375,11 @@ extern "C" int spk_msg_fwd_geo(const float* x, const float* mu,
                                float* dmu, int nx, int ny, int P, int Ktot,
                                const int* koffs, int G, int F, int B, int nch,
                                cudaStream_t stream) {
-  return launch_fwd_any<true>(x, mu, nullptr,
-                              packed_view(geo, Ktot, B + 1, nch), FW, nullptr,
-                              nullptr, qcol, dcol, dsorted, grp, dq, dmu, nx,
-                              ny, P, Ktot, koffs, G, F, B, 3 * F, 0, 0, 0.f,
-                              stream);
+  return launch_fwd_any<kGeoIn>(x, mu, nullptr,
+                                packed_view(geo, Ktot, B + 1, nch), FW,
+                                nullptr, nullptr, qcol, dcol, dsorted, grp,
+                                dq, dmu, nx, ny, P, Ktot, koffs, G, F, B,
+                                3 * F, 0, 0, 0.f, CellStack{}, stream);
 }
 
 extern "C" int spk_msg_fwd_edge(const float* xmu, const float* rbf,
@@ -366,20 +389,35 @@ extern "C" int spk_msg_fwd_edge(const float* xmu, const float* rbf,
                                 float* dmu, int nx, int ny, int P, int Ktot,
                                 const int* koffs, int G, int F, int B, int hx,
                                 int hy, cudaStream_t stream) {
-  return launch_fwd_any<true>(xmu, xmu + 3 * F, nullptr,
-                              edge_view(rbf, dir, Ktot, B + 1), FW, nullptr,
-                              nullptr, qcol, dcol, dsorted, grp, dq, dmu, nx,
-                              ny, P, Ktot, koffs, G, F, B, 6 * F, hx, hy, 0.f,
-                              stream);
+  return launch_fwd_any<kGeoIn>(xmu, xmu + 3 * F, nullptr,
+                                edge_view(rbf, dir, Ktot, B + 1), FW, nullptr,
+                                nullptr, qcol, dcol, dsorted, grp, dq, dmu,
+                                nx, ny, P, Ktot, koffs, G, F, B, 6 * F, hx,
+                                hy, 0.f, CellStack{}, stream);
 }
 
-// blocks of the forward instance for (geo, F, B, P) resident on one SM
-// (negative: a CUDA error)
-extern "C" int spk_msg_fwd_blocks(int geo, int F, int B, int P) {
-  const bool reg = B + 1 <= 4 * kRegB4;
-  if (geo)
-    return reg ? fwd_blocks<true, kRegB4>(F, B, P)
-               : fwd_blocks<true, 0>(F, B, P);
-  return reg ? fwd_blocks<false, kRegB4>(F, B, P)
-             : fwd_blocks<false, 0>(F, B, P);
+// K18: the 27-cell layout's xmu [A', 6F], rbf [A', K, B+1], dir [A', K, 3]
+// and qidx [A', K] as nx*ny stacks of nz*C rows; dq, dmu [A', .]
+extern "C" int spk_cell_msg_fwd(const float* xmu, const float* rbf,
+                                const float* dir, const float* FW,
+                                const int* qidx, const int* dsorted,
+                                const int* grp, float* dq, float* dmu,
+                                int nx, int ny, int nz, int C, int K, int G,
+                                int F, int B, cudaStream_t stream) {
+  static const int no_koffs[10] = {};
+  const int P = nz * C, Ktot = P * K;
+  return launch_fwd_any<kCellIn>(xmu, xmu + 3 * F, nullptr,
+                                 edge_view(rbf, dir, Ktot, B + 1), FW,
+                                 nullptr, nullptr, qidx, nullptr, dsorted,
+                                 grp, dq, dmu, nx, ny, P, Ktot, no_koffs, G,
+                                 F, B, 6 * F, 0, 0, 0.f, CellStack{nz, C, K},
+                                 stream);
+}
+
+// blocks of the forward instance for (mode, F, B, P) resident on one SM
+// (mode: 0 K1, 1 K6/K20, 2 K18; negative: a CUDA error)
+extern "C" int spk_msg_fwd_blocks(int mode, int F, int B, int P) {
+  if (mode == kCellIn) return fwd_blocks_any<kCellIn>(F, B, P);
+  if (mode == kGeoIn) return fwd_blocks_any<kGeoIn>(F, B, P);
+  return fwd_blocks_any<kPosIn>(F, B, P);
 }

@@ -1,12 +1,13 @@
 // Shared pieces of the PaiNN column message kernels for Hopper (sm_90a):
-// the forward body (colblock_message.cu: K1, K6, K20) and the backward body
-// (colblock_message_bwd.cu: K2, K7, K15, K21).  Everything here has
-// internal linkage; each source includes it once.
+// the forward body (colblock_message.cu: K1, K6, K20, K18) and the backward
+// body (colblock_message_bwd.cu: K2, K7, K15, K21, K19).  Everything here
+// has internal linkage; each source includes it once.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cellblock.cuh"
 #include "cp_async.cuh"
 #include "tf32_mma.cuh"
 
@@ -22,10 +23,11 @@ constexpr int kMaxRegs = 168;
 constexpr int kRegB4 = 6;
 constexpr float kPi = 3.14159265358979323846f;
 
-// the three forms of the message backward
+// the forms of the message backward
 constexpr int kFused = 0;   // K2: geometry recomputed from R, emits dR
 constexpr int kGeoRes = 1;  // K7: geometry chain from the stored geo
 constexpr int kSrc = 2;     // K15, K21: emits the geo cotangent instead
+constexpr int kCell = 3;    // K19: kSrc in the cell index mode
 
 struct KOffs {
   int o[10];

@@ -18,12 +18,19 @@
 //   backward colblock_pallas.py:391 _msg_bwd_kernel (launchers :478 and
 //   colblock_shard.py:307 _msg_hx_bwd_call): dxmu over the whole source
 //   table, grbf, gdir and (W) gFW.
-// The forward body (K1, K6, K20) and the layout are described in
+// K19 msg_bwd_kernel<kCell, W, .> is K21 in the cell index mode: it replaces
+//   the 27-cell backward schnetpack_tpu/ops/painn_fused.py:185 _bwd_kernel
+//   (launcher :283 _fused_bwd), on the stack view of cellblock.cuh: the
+//   staged int of a slot is its code qidx, from which CellStack::decode forms
+//   the slot's source row in the block's stack and its destination row (in
+//   place of qcol and dcol).
+// The forward body (K1, K6, K20, K18) and the layout are described in
 // colblock_message.cu.
 //
 // The backward needs no source-index mode: its blocks own source columns of
 // whichever table, whose slots the wrapper sorts by their row in it
-// (``esorted``, ops/colblock.py::source_order); block (col, g) owns the
+// (``esorted``, ops/colblock.py::source_order; the stacks' rows for K19,
+// ops/cellblock_gather.py::stack_source_schedule); block (col, g) owns the
 // source rows [r0, r1) of column col and their slots esorted[e0, e1)
 // (``grp[col][g]`` = (r0, e0), ``grp[col][g+1]`` = (r1, e1), ranges of
 // about equal edge count).  It is the only writer of those rows of dx, dmu
@@ -39,7 +46,7 @@
 //   grij   = (gdir - dir (gdir . dir)) / max(d, 1e-6) + gd dir
 // A slot out of the cutoff (K2: d >= rc; K7: a basis row of zeros) adds
 // exactly 0 to dx, dmu, dR and gFW for finite inputs, so K2 and K7 skip
-// it; K15/K21 return ggeo for every real slot and skip none.
+// it; K15/K21/K19 return ggeo for every real slot and skip none.
 //
 // What bounds it on the H100: per real slot the filter (B+1) x 3F FMAs
 // twice (the recomputed filter and the basis cotangent grbf = gW FW^T) and
@@ -69,7 +76,7 @@
 //       small TF32 parts, three products), grbf split over the warps along
 //       3F and summed in a fixed order, gFW's chunk sums added to the
 //       block's f64 partial in shared memory (one writer per element);
-//   P4  the geometry chain (or K15/K21's ggeo store): a warp takes kP4
+//   P4  the geometry chain (or K15/K21/K19's ggeo store): a warp takes kP4
 //       slots, the lanes over the basis functions, their shuffle sums
 //       interleaved, then lane j finishes slot j;
 //   P5  the position cotangents of the chunk (done at the next chunk's P1),
@@ -108,8 +115,9 @@ __global__ void __maxnreg__(kMaxRegs)
                    float* __restrict__ dmu_out, float* __restrict__ gRo,
                    float* __restrict__ gRd, GeoView<float> gg,
                    double* __restrict__ gFWp, int nx, int ny, int P, int Ktot,
-                   KOffs ko, int G, int B, int ldx, float rc, int fwsm) {
-  constexpr bool kChain = kMode != kSrc;
+                   KOffs ko, int G, int B, int ldx, float rc, int fwsm,
+                   CellStack cs) {
+  constexpr bool kChain = kMode == kFused || kMode == kGeoRes;
   extern __shared__ __align__(16) double smem8[];
   constexpr int E = kE;
   const int F = blockDim.x, D3 = 3 * F, B1 = B + 1, NW = F >> 5;
@@ -139,8 +147,8 @@ __global__ void __maxnreg__(kMaxRegs)
   int* s_dst = s_src + 2 * E;           // [2][E] global destination row
   int* s_c9 = s_dst + 2 * E;            // [2][E]
   int* s_slot = s_c9 + 2 * E;           // [E]
-  int* st_q = s_slot + E;               // [2][E] staged qcol
-  int* st_d = st_q + 2 * E;             // [2][E] staged dcol
+  int* st_q = s_slot + E;               // [2][E] staged qcol (qidx)
+  int* st_d = st_q + 2 * E;             // [2][E] staged dcol (not kCell)
   int* s_dcol = st_d + 2 * E;           // [9] destination column of c9
 
   // FW_aug's rows in shared memory where they fit (fwsm), else read from
@@ -179,7 +187,8 @@ __global__ void __maxnreg__(kMaxRegs)
     if (base + st_t < e1) {
       if (st_p == 0) {
         cp_async4(st_q + buf * E + st_t, qcol + slot);
-        cp_async4(st_d + buf * E + st_t, dcol + slot);
+        if constexpr (kMode != kCell)
+          cp_async4(st_d + buf * E + st_t, dcol + slot);
       }
       const int dcolumn = slot / Ktot, k = slot - dcolumn * Ktot;
       float* sg = st_g + buf * nst * E + st_t;
@@ -279,10 +288,15 @@ __global__ void __maxnreg__(kMaxRegs)
     int qv = -1, dv = 0, c9 = 0, dcolumn = 0;
     float d = 1.f, ux = 0.f, uy = 0.f, uz = 0.f, fcut = 0.f;
     if (st_t < n) {
-      qv = st_q[buf * E + st_t];
-      dv = st_d[buf * E + st_t];
-      dcolumn = sl_cur / Ktot;
-      c9 = bucket_of(sl_cur - dcolumn * Ktot, ko);
+      if constexpr (kMode == kCell) {
+        dcolumn = sl_cur / Ktot;
+        cs.decode(sl_cur - dcolumn * Ktot, st_q[buf * E + st_t], c9, qv, dv);
+      } else {
+        qv = st_q[buf * E + st_t];
+        dv = st_d[buf * E + st_t];
+        dcolumn = sl_cur / Ktot;
+        c9 = bucket_of(sl_cur - dcolumn * Ktot, ko);
+      }
       if constexpr (kMode == kFused) {
         const float* rs = R + (own0 + qv) * 3;
         const float* rd = R + ((size_t)dcolumn * P + dv) * 3;
@@ -548,7 +562,7 @@ __global__ void __maxnreg__(kMaxRegs)
         if (t >= E || s_src[buf * E + t] < 0) continue;
         const float* part = s_part + t * NP;
         const float* rbt = reinterpret_cast<const float*>(s_rbf + t * n4);
-        if constexpr (kMode == kSrc) {
+        if constexpr (!kChain) {
           const int slot = s_slot[t], dcl = slot / Ktot, k = slot - dcl * Ktot;
           for (int b = lane; b < B1; b += 32) {
             float gbv = 0.f;
@@ -699,7 +713,8 @@ int launch_bwd(const float* x, const float* mu, const float* R,
                const float* g_dmu, float* dx, float* dmu_out, float* gRo,
                float* gRd, GeoView<float> gg, double* gFWp, int nx, int ny,
                int P, int Ktot, const int* koffs, int G, int F, int B,
-               int ldx, int n_src, float rc, cudaStream_t stream) {
+               int ldx, int n_src, float rc, CellStack cs,
+               cudaStream_t stream) {
   if (F % 32 != 0 || F > kMaxThreads) return (int)cudaErrorInvalidValue;
   const BwdShape sh = bwd_shape<kMode, kWgrad, kB4>(F, B);
   if (sh.fwsm < 0) return (int)cudaErrorInvalidValue;
@@ -710,7 +725,7 @@ int launch_bwd(const float* x, const float* mu, const float* R,
   msg_bwd_kernel<kMode, kWgrad, kB4><<<dim3(n_src, G), F, sh.smem, stream>>>(
       x, mu, R, gv, FW, coff, cw, qcol, dcol, esorted, grp, g_dq, g_dmu, dx,
       dmu_out, gRo, gRd, gg, gFWp, nx, ny, P, Ktot, make_koffs(koffs), G, B,
-      ldx, rc, sh.fwsm);
+      ldx, rc, sh.fwsm, cs);
   return (int)cudaGetLastError();
 }
 
@@ -725,7 +740,7 @@ int launch_bwd_any(const float* x, const float* mu, const float* R,
                    float* dmu_out, float* gRo, float* gRd, GeoView<float> gg,
                    double* gFWp, int nx, int ny, int P, int Ktot,
                    const int* koffs, int G, int F, int B, int ldx, int n_src,
-                   float rc, cudaStream_t stream) {
+                   float rc, CellStack cs, cudaStream_t stream) {
   const bool reg = B + 1 <= 4 * kRegB4;
   auto* fn = gFWp != nullptr
                  ? (reg ? launch_bwd<kMode, true, kRegB4>
@@ -734,7 +749,7 @@ int launch_bwd_any(const float* x, const float* mu, const float* R,
                         : launch_bwd<kMode, false, 0>);
   return fn(x, mu, R, gv, FW, coff, cw, qcol, dcol, esorted, grp, g_dq,
             g_dmu, dx, dmu_out, gRo, gRd, gg, gFWp, nx, ny, P, Ktot, koffs,
-            G, F, B, ldx, n_src, rc, stream);
+            G, F, B, ldx, n_src, rc, cs, stream);
 }
 
 template <int kMode, bool kWgrad, int kB4>
@@ -776,7 +791,7 @@ extern "C" int spk_msg_bwd(const float* x, const float* mu, const float* R,
                                 cw, qcol, dcol, esorted, grp, g_dq, g_dmu, dx,
                                 dmu_out, gRo, gRd, GeoView<float>{}, gFWp, nx,
                                 ny, P, Ktot, koffs, G, F, B, 3 * F, nx * ny,
-                                rc, stream);
+                                rc, CellStack{}, stream);
 }
 
 extern "C" int spk_msg_bwd_geores(const float* x, const float* mu,
@@ -794,7 +809,7 @@ extern "C" int spk_msg_bwd_geores(const float* x, const float* mu,
       x, mu, nullptr, packed_view(geo, Ktot, B + 1, nch), FW, nullptr, cw,
       qcol, dcol, esorted, grp, g_dq, g_dmu, dx, dmu_out, gRo, gRd,
       GeoView<float>{}, gFWp, nx, ny, P, Ktot, koffs, G, F, B, 3 * F,
-      nx * ny, rc, stream);
+      nx * ny, rc, CellStack{}, stream);
 }
 
 extern "C" int spk_msg_bwd_src(const float* x, const float* mu,
@@ -810,7 +825,7 @@ extern "C" int spk_msg_bwd_src(const float* x, const float* mu,
       x, mu, nullptr, packed_view(geo, Ktot, B + 1, nch), FW, nullptr,
       nullptr, qcol, dcol, esorted, grp, g_dq, g_dmu, dx, dmu_out, nullptr,
       nullptr, packed_view(ggeo, Ktot, B + 1, nch), gFWp, nx, ny, P, Ktot,
-      koffs, G, F, B, 3 * F, nx * ny, 0.f, stream);
+      koffs, G, F, B, 3 * F, nx * ny, 0.f, CellStack{}, stream);
 }
 
 // n_src source columns: nx*ny (wrap), (nx+2)*ny (halo_x) or
@@ -828,7 +843,28 @@ extern "C" int spk_msg_bwd_edge(const float* xmu, const float* rbf,
       xmu, xmu + 3 * F, nullptr, edge_view(rbf, dir, Ktot, B + 1), FW,
       nullptr, nullptr, qcol, dcol, esorted, grp, g_dq, g_dmu, dxmu,
       dxmu + 3 * F, nullptr, nullptr, edge_view(grbf, gdir, Ktot, B + 1),
-      gFWp, nx, ny, P, Ktot, koffs, G, F, B, 6 * F, n_src, 0.f, stream);
+      gFWp, nx, ny, P, Ktot, koffs, G, F, B, 6 * F, n_src, 0.f, CellStack{},
+      stream);
+}
+
+// K19: the 27-cell layout as nx*ny stacks of nz*C rows (K18's view);
+// dxmu [A', 6F], grbf and gdir at every real slot (the caller zero-fills)
+extern "C" int spk_cell_msg_bwd(const float* xmu, const float* rbf,
+                                const float* dir, const float* FW,
+                                const int* qidx, const int* esorted,
+                                const int* grp, const float* g_dq,
+                                const float* g_dmu, float* dxmu, float* grbf,
+                                float* gdir, double* gFWp, int nx, int ny,
+                                int nz, int C, int K, int G, int F, int B,
+                                cudaStream_t stream) {
+  static const int no_koffs[10] = {};
+  const int P = nz * C, Ktot = P * K;
+  return launch_bwd_any<kCell>(
+      xmu, xmu + 3 * F, nullptr, edge_view(rbf, dir, Ktot, B + 1), FW,
+      nullptr, nullptr, qidx, nullptr, esorted, grp, g_dq, g_dmu, dxmu,
+      dxmu + 3 * F, nullptr, nullptr, edge_view(grbf, gdir, Ktot, B + 1),
+      gFWp, nx, ny, P, Ktot, no_koffs, G, F, B, 6 * F, nx * ny, 0.f,
+      CellStack{nz, C, K}, stream);
 }
 
 // blocks of the backward instance for (mode, wgrad, F, B) resident on one
@@ -836,5 +872,6 @@ extern "C" int spk_msg_bwd_edge(const float* xmu, const float* rbf,
 extern "C" int spk_msg_bwd_blocks(int mode, int wgrad, int F, int B) {
   if (mode == kFused) return bwd_blocks_any<kFused>(wgrad, F, B);
   if (mode == kGeoRes) return bwd_blocks_any<kGeoRes>(wgrad, F, B);
-  return bwd_blocks_any<kSrc>(wgrad, F, B);
+  if (mode == kSrc) return bwd_blocks_any<kSrc>(wgrad, F, B);
+  return bwd_blocks_any<kCell>(wgrad, F, B);
 }

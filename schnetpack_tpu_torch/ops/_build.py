@@ -58,8 +58,8 @@ SIGNATURES = {
     "spk_fold_fwd": [_P] * 3 + [_I] * 5 + [_P],
     "spk_cell_gather_fwd": [_P] * 3 + [_I] * 6 + [_P],
     "spk_cell_gather_bwd": [_P] * 4 + [_I, _I, _P],
-    "spk_cell_msg_fwd": [_P] * 7 + [_I] * 7 + [_P],
-    "spk_cell_msg_bwd": [_P] * 13 + [_I] * 7 + [_P],
+    "spk_cell_msg_fwd": [_P] * 9 + [_I] * 8 + [_P],
+    "spk_cell_msg_bwd": [_P] * 13 + [_I] * 8 + [_P],
 }
 #: host queries: argument types (ints), no stream
 QUERIES = {

@@ -12,10 +12,12 @@ gathers the positions (D = 3).
 Slot (a, k) with code q = o*C + s names row s of the neighbor cell
 (x+dx, y+dy, z+dz) (periodic) of the destination's cell (x, y, z), with
 (dx, dy, dz) = ``OFFSETS[o]``.  ``CellRefs`` carries ``qidx`` and caches
-what is derived from it once per neighbor state: the decoded source rows
-and the source-sorted slot order that K17 and the message backward K19
-walk.  On CPU tensors the op runs the twins, on CUDA tensors the kernels,
-and it raises for any other device.
+what is derived from it once per neighbor state: the decoded source rows,
+the source-sorted slot order that K17 walks, and the message kernels'
+schedules on the stack view (``csrc/cellblock.cuh``: the nz cells of an
+(x, y) as one column of nz*C rows), which K18 and K19 walk.  On CPU
+tensors the op runs the twins, on CUDA tensors the kernels, and it raises
+for any other device.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from dataclasses import dataclass, field
 import torch
 
 from . import _build
+from .colblock import row_groups
 
 #: kernel launches since the last reset (painn_cell MD: K16 1, K17 1 per
 #: step)
@@ -46,6 +49,13 @@ class CellRefs:
     def n_rows(self) -> int:
         nx, ny, nz, C, _ = self.dims
         return nx * ny * nz * C
+
+    @property
+    def stack(self):
+        """The stack view (``csrc/cellblock.cuh``): nx*ny columns of
+        P' = nz*C rows and Ktot' = nz*C*K slots each."""
+        nx, ny, nz, C, K = self.dims
+        return nx * ny, nz * C, nz * C * K
 
 
 def as_refs(qidx) -> CellRefs:
@@ -89,6 +99,37 @@ def source_order(refs: CellRefs):
     rowptr = torch.cat([cnt.new_zeros(1), cnt.cumsum(0)]).to(torch.int32)
     refs.cache["src"] = (esorted, rowptr)
     return refs.cache["src"]
+
+
+def stack_destination_schedule(refs: CellRefs, G: int):
+    """K18's schedule (the column forward's, ``colblock.
+    destination_schedule``, on the stack view): every real slot in slot
+    order, which is destination order, padded slots last (``dsorted``
+    int32 [A'*K]), and each stack's rows cut into G ranges of about equal
+    slot count (``row_groups`` [nx*ny, G+1, 2]).  Made once per (refs, G)
+    on the device, without a host synchronisation."""
+    key = ("stack_dst", G)
+    if key not in refs.cache:
+        n_cols, P, _ = refs.stack
+        pad = (refs.qidx < 0).reshape(-1).to(torch.int32)
+        dsorted = torch.argsort(pad, stable=True).to(torch.int32)
+        cnt = (refs.qidx >= 0).sum(-1).reshape(n_cols, P)
+        refs.cache[key] = (dsorted, row_groups(cnt, G))
+    return refs.cache[key]
+
+
+def stack_source_schedule(refs: CellRefs, G: int):
+    """K19's schedule (the column backward's, ``colblock.source_schedule``,
+    on the stack view): ``source_order``'s slots, sorted by source row, and
+    each stack's rows cut into G ranges of about equal slot count.  Made
+    once per (refs, G) on the device."""
+    key = ("stack_src", G)
+    if key not in refs.cache:
+        n_cols, P, _ = refs.stack
+        esorted, rowptr = source_order(refs)
+        cnt = torch.diff(rowptr.long()).reshape(n_cols, P)
+        refs.cache[key] = (esorted, row_groups(cnt, G))
+    return refs.cache[key]
 
 
 def _check_refs(refs: CellRefs):

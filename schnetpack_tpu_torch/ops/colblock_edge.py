@@ -31,8 +31,8 @@ import torch
 from . import _build
 from .colblock import ColRefs, painn_message
 from .colblock_message import (
-    BWD_SRC, _bwd_schedule, _check_width, _fwd_schedule, _gfw_partials,
-    _with_gfw,
+    BWD_SRC, FWD_GEO, _bwd_schedule, _check_width, _fwd_schedule,
+    _gfw_partials, _with_gfw,
 )
 
 #: kernel launches since the last reset (painn_slab MD: 3 each per step;
@@ -60,7 +60,7 @@ def msg_fwd_edge_kernel(xmu, rbf_aug, dirs, FW_aug, refs: ColRefs):
     """K20: dq [A', F], dmu [A', 3F] summed per destination atom."""
     nx, ny, Ktot, F, B, _ = _check(xmu, rbf_aug, dirs, FW_aug, refs)
     Ap = nx * ny * refs.P
-    dsorted, dgrp, G = _fwd_schedule(refs, 1, F, B)
+    dsorted, dgrp, G = _fwd_schedule(refs, FWD_GEO, F, B)
     dq = xmu.new_empty((Ap, F))
     dmu = xmu.new_empty((Ap, 3 * F))
     hx, hy = refs.halo

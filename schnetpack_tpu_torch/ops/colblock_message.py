@@ -58,8 +58,13 @@ LAUNCHES = {"msg_fwd": 0, "msg_bwd": 0, "msg_fwd_geo": 0,
 MAX_F = 256         # one thread a feature (csrc/colblock_message.cuh)
 _MAX_GROUPS = 16    # row ranges per column
 _MAX_WGRAD_B1 = 32  # B+1 bound of the wgrad instances' f64 partials
-#: the backward kernels' forms (``kMode`` of ``msg_bwd_kernel``)
-BWD_FUSED, BWD_GEORES, BWD_SRC = 0, 1, 2
+#: what the forward kernels read (``kIn`` of ``msg_fwd_kernel``): the
+#: positions (K1), a geometry (K6, K20), a geometry in the cell index mode
+#: (K18, ``ops/painn_fused.py``)
+FWD_POS, FWD_GEO, FWD_CELL = 0, 1, 2
+#: the backward kernels' forms (``kMode`` of ``msg_bwd_kernel``; K19 is
+#: BWD_CELL)
+BWD_FUSED, BWD_GEORES, BWD_SRC, BWD_CELL = 0, 1, 2, 3
 
 
 def _shapes(x, cw, refs: ColRefs):
@@ -98,7 +103,7 @@ def msg_fwd_kernel(x, mu, R, FW_aug, coff_fm, cw, refs: ColRefs, rc: float):
     """K1: dq [A', F], dmu [A', 3F] summed per destination atom."""
     _check(x, mu, R, FW_aug, coff_fm, cw, refs)
     nx, ny, Ktot, Ap, F, B = _shapes(x, cw, refs)
-    dsorted, dgrp, G = _fwd_schedule(refs, 0, F, B)
+    dsorted, dgrp, G = _fwd_schedule(refs, FWD_POS, F, B)
     dq = x.new_empty((Ap, F))
     dmu = x.new_empty((Ap, 3 * F))
     p = _build.ptr
@@ -131,20 +136,21 @@ def _blocks_per_sm(query: str, *args) -> int:
     return n
 
 
-def _groups(refs: ColRefs, n_cols: int, query: str, *args) -> int:
-    """G for a kernel instance over ``n_cols`` columns: ``wave_groups`` of
-    its resident blocks per SM (``query`` with ``args``) times the SMs."""
-    sms = torch.cuda.get_device_properties(
-        refs.qcol.device).multi_processor_count
+def _groups(device, P: int, n_cols: int, query: str, *args) -> int:
+    """G for a kernel instance over ``n_cols`` columns of ``P`` rows on
+    ``device``: ``wave_groups`` of its resident blocks per SM (``query``
+    with ``args``) times the SMs."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
     return wave_groups(n_cols, _blocks_per_sm(query, *args) * sms,
-                       min(_MAX_GROUPS, refs.P))
+                       min(_MAX_GROUPS, P))
 
 
-def _fwd_schedule(refs: ColRefs, geo: int, F: int, B: int):
+def _fwd_schedule(refs: ColRefs, mode: int, F: int, B: int):
     """The forward kernels' (dsorted, grp, G): ``destination_schedule``
-    with G from the instance's occupancy (``geo``: K6/K20, else K1)."""
+    with G from the instance's occupancy (``mode``: FWD_POS or FWD_GEO)."""
     nx, ny, _ = refs.qcol.shape
-    G = _groups(refs, nx * ny, "spk_msg_fwd_blocks", geo, F, B, refs.P)
+    G = _groups(refs.qcol.device, refs.P, nx * ny, "spk_msg_fwd_blocks",
+                mode, F, B, refs.P)
     return (*destination_schedule(refs, G), G)
 
 
@@ -153,7 +159,8 @@ def _bwd_schedule(refs: ColRefs, n_cols: int, mode: int, wgrad: bool,
     """The backward kernels' (esorted, grp, G): ``source_schedule`` of the
     ``n_cols`` source columns, G from the occupancy of the instance
     (``mode``, ``wgrad``)."""
-    G = _groups(refs, n_cols, "spk_msg_bwd_blocks", mode, int(wgrad), F, B)
+    G = _groups(refs.qcol.device, refs.P, n_cols, "spk_msg_bwd_blocks",
+                mode, int(wgrad), F, B)
     return (*source_schedule(refs, G), G)
 
 
@@ -267,7 +274,7 @@ def msg_fwd_geo_kernel(x, mu, geo, FW_aug, refs: ColRefs):
     _check_common(x, mu, FW_aug, refs, B)
     _build.check(geo, "geo", (nx, ny, nch, Ktot))
     Ap, F = x.shape[0], x.shape[1] // 3
-    dsorted, dgrp, G = _fwd_schedule(refs, 1, F, B)
+    dsorted, dgrp, G = _fwd_schedule(refs, FWD_GEO, F, B)
     dq = x.new_empty((Ap, F))
     dmu = x.new_empty((Ap, 3 * F))
     p = _build.ptr

@@ -11,11 +11,23 @@ row j: W = rbf_aug @ FW_aug, [dqe, dmuR, dmumu] = x_j * W, and the sums
 over k of dqe and of dmuR * dir + dmumu * mu_j (``_message_xla``,
 ``painn_fused.py:63-75``).
 
-The forward is K18, the backward K19 (``csrc/painn_fused.cu``), which
-returns dxmu, grbf [A', K, B+1] and gdir [A', K, 3], and in its wgrad
-instance gFW [B+1, 3F]; the op launches that instance only when
-``FW_aug`` requires grad (MD freezes the model).  On CPU tensors the op
-runs the twins, on CUDA tensors the kernels, and it raises otherwise.
+The forward is K18, the backward K19, which returns dxmu, grbf [A', K,
+B+1] and gdir [A', K, 3], and in its wgrad instance gFW [B+1, 3F]; the
+op launches that instance only when ``FW_aug`` requires grad (MD freezes
+the model).  Both are the column message bodies of K20/K21 in their cell
+index mode (``csrc/colblock_message.cu::msg_fwd_kernel<kCellIn, .>``,
+``csrc/colblock_message_bwd.cu::msg_bwd_kernel<kCell, W, .>``): the
+layout's nx*ny stacks of nz cells are the columns (``CellRefs.stack``),
+the kernels decode each slot's code in place of the column refs, and walk
+the stack schedules cached on the refs (``cellblock_gather.
+stack_destination_schedule``, ``stack_source_schedule``), with the row
+ranges per stack sized as the column kernels' (``colblock_message.
+_groups``).  They take the column bodies' shapes: F % 32 == 0, F <= 256,
+and B+1 <= 32 in the wgrad instance, whose f64 partial [B+1, 3F] in
+shared memory also bounds B+1 by 25 at F = 256 (``colblock_message_bwd.
+cu::bwd_smem``; the size query refuses a larger one before the launch).
+On CPU tensors the op runs the twins, on CUDA tensors the kernels, and
+it raises otherwise.
 """
 from __future__ import annotations
 
@@ -26,25 +38,21 @@ import torch
 from . import _build
 from .cellblock_gather import (
     CellRefs, _check_refs, _on, as_refs, cell_gather_bwd_plain,
-    cell_gather_plain, source_order,
+    cell_gather_plain, stack_destination_schedule, stack_source_schedule,
+)
+from .colblock_message import (
+    BWD_CELL, FWD_CELL, _check_width, _gfw_partials, _groups, _with_gfw,
 )
 
 #: kernel launches since the last reset (painn_cell MD: K18 3, K19 3 per
 #: step)
 LAUNCHES = {"cell_msg_fwd": 0, "cell_msg_bwd": 0}
-_MAX_B1 = 32   # filter rows the kernels keep in registers
 
 
 def _check(xmu, rbf_aug, dir_ij, FW_aug, refs: CellRefs):
     F = xmu.shape[1] // 6
     B1 = FW_aug.shape[0]
-    if F % 32 or F > 128 or xmu.shape[1] != 6 * F:
-        raise ValueError(
-            f"the cell message kernels take F % 32 == 0 and F <= 128, got "
-            f"xmu of width {xmu.shape[1]}")
-    if B1 > _MAX_B1:
-        raise ValueError(f"the cell message kernels take B+1 <= {_MAX_B1}, "
-                         f"got {B1}")
+    _check_width(F)
     Ap, K = _check_refs(refs)
     _build.check(xmu, "xmu", (Ap, 6 * F))
     _build.check(rbf_aug, "rbf_aug", (Ap, K, B1))
@@ -54,14 +62,20 @@ def _check(xmu, rbf_aug, dir_ij, FW_aug, refs: CellRefs):
 
 
 def cell_msg_fwd_kernel(xmu, rbf_aug, dir_ij, FW_aug, qidx):
-    """K18: dq [A', F], dmu [A', 3F] summed per destination row."""
+    """K18: dq [A', F], dmu [A', 3F] summed per destination row; rows
+    without a slot (the cells' padding rows among them) are 0."""
     refs = as_refs(qidx)
     Ap, F, B = _check(xmu, rbf_aug, dir_ij, FW_aug, refs)
+    n_cols, P, _ = refs.stack
+    G = _groups(xmu.device, P, n_cols, "spk_msg_fwd_blocks", FWD_CELL, F, B,
+                P)
+    dsorted, grp = stack_destination_schedule(refs, G)
     dq = xmu.new_empty((Ap, F))
     dmu = xmu.new_empty((Ap, 3 * F))
     p = _build.ptr
     _build.launch("spk_cell_msg_fwd", p(xmu), p(rbf_aug), p(dir_ij),
-                  p(FW_aug), p(refs.qidx), p(dq), p(dmu), *refs.dims, F, B)
+                  p(FW_aug), p(refs.qidx), p(dsorted), p(grp), p(dq), p(dmu),
+                  *refs.dims, G, F, B)
     LAUNCHES["cell_msg_fwd"] += 1
     return dq, dmu
 
@@ -69,27 +83,28 @@ def cell_msg_fwd_kernel(xmu, rbf_aug, dir_ij, FW_aug, qidx):
 def cell_msg_bwd_kernel(xmu, rbf_aug, dir_ij, FW_aug, qidx, g_dq, g_dmu,
                         wgrad: bool = False):
     """K19: cotangents (dxmu, grbf, gdir) of K18's outputs for (g_dq,
-    g_dmu), and with ``wgrad`` also gFW [B+1, 3F]: the blocks' f64
-    partials summed here (deterministic) and rounded to f32."""
+    g_dmu), grbf and gdir 0 at padded slots, and with ``wgrad`` also gFW
+    [B+1, 3F]: the blocks' f64 partials summed here (deterministic) and
+    rounded to f32."""
     refs = as_refs(qidx)
     Ap, F, B = _check(xmu, rbf_aug, dir_ij, FW_aug, refs)
     _build.check(g_dq, "g_dq", (Ap, F))
     _build.check(g_dmu, "g_dmu", (Ap, 3 * F))
-    esorted, rowptr = source_order(refs)
+    n_cols, P, _ = refs.stack
+    G = _groups(xmu.device, P, n_cols, "spk_msg_bwd_blocks", BWD_CELL,
+                int(wgrad), F, B)
+    esorted, grp = stack_source_schedule(refs, G)
     dxmu = torch.empty_like(xmu)
     grbf = torch.zeros_like(rbf_aug)
     gdir = torch.zeros_like(dir_ij)
-    n_cells = Ap // refs.dims[3]
-    gFWp = (xmu.new_empty((n_cells, *FW_aug.shape), dtype=torch.float64)
-            if wgrad else None)
+    gFWp = _gfw_partials(xmu, FW_aug, n_cols * G, wgrad)
     p = _build.ptr
     _build.launch("spk_cell_msg_bwd", p(xmu), p(rbf_aug), p(dir_ij),
-                  p(FW_aug), p(refs.qidx), p(esorted), p(rowptr), p(g_dq),
+                  p(FW_aug), p(refs.qidx), p(esorted), p(grp), p(g_dq),
                   p(g_dmu), p(dxmu), p(grbf), p(gdir),
-                  gFWp.data_ptr() if wgrad else None, *refs.dims, F, B)
+                  gFWp.data_ptr() if wgrad else None, *refs.dims, G, F, B)
     LAUNCHES["cell_msg_bwd"] += 1
-    out = (dxmu, grbf, gdir)
-    return out if gFWp is None else (*out, gFWp.sum(0).to(torch.float32))
+    return _with_gfw((dxmu, grbf, gdir), gFWp)
 
 
 def cell_msg_fwd_plain(xmu, rbf_aug, dir_ij, FW_aug, qidx):

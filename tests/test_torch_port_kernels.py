@@ -727,14 +727,27 @@ def test_cell_gather_kernels_match_twin(cuda_device, D):
         "cell_gather_fwd": 1, "cell_gather_bwd": 1}
 
 
+#: the cell message cases: an aliased 2-cell grid and a 3-cell grid per
+#: axis (``cell_case`` boxes)
+CELL_GRIDS = {2: {}, 3: dict(n=200, L=13.0)}
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("seed", [0, 3])
-def test_cell_message_kernels_match_twin(cuda_device, seed):
-    """K18, K19 and K19's wgrad instance, whose gFW (an f32 sum per block
-    of the edges' terms, blocks summed in f64) is held to the twin in
-    float64; the op launches the wgrad instance when FW_aug requires
-    grad."""
-    c = cell_case(F=128, B=20, seed=seed)
+@pytest.mark.parametrize("grid", [2, 3])
+@pytest.mark.parametrize("F,B", [(64, 20), (128, 20), (256, 20), (64, 27),
+                                 (128, 27), (256, 27)])
+def test_cell_message_kernels_match_twin(cuda_device, F, B, grid):
+    """K18, K19 and K19's wgrad instance (the column bodies in the cell
+    index mode) at F = 64-256, with the filter weights in registers (B+1 =
+    21) and read through L1 (B+1 = 28), on an aliased and a 3-cell grid:
+    gFW (an f32 sum per block of the slots' terms, blocks summed in f64)
+    is held to the twin in float64, elementwise and normwise.  At F = 256 and B+1 = 28 the
+    wgrad instance's f64 partial [B+1, 3F] and its tiles exceed a block's
+    shared memory, and it refuses; the others run.  One forward and one
+    backward through the op bump only the two cell counters (the wgrad
+    instance when FW_aug requires grad)."""
+    c = cell_case(F=F, B=B, seed=F + B + grid, **CELL_GRIDS[grid])
+    assert max(c["qidx"].shape[:3]) == grid
     refs = cg.CellRefs(torch.tensor(c["qidx"], device=cuda_device))
     t = [torch.tensor(c[k], device=cuda_device)
          for k in ("xmu", "rbf", "dir", "FW")]
@@ -747,21 +760,30 @@ def test_cell_message_kernels_match_twin(cuda_device, seed):
     assert len(got) == 3
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=MSG_RTOL, atol=MSG_ATOL)
-    want64 = pf.cell_msg_bwd_plain(*[a.double() for a in t], refs,
-                                   *[a.double() for a in cots])
-    got = pf.cell_msg_bwd_kernel(*t, refs, *cots, wgrad=True)
-    assert len(got) == 4
-    for g, w in zip(got, want64):
-        torch.testing.assert_close(g, w.float(), rtol=MSG_RTOL, atol=MSG_ATOL)
-    before = dict(pf.LAUNCHES)
-    ins = [a.clone().requires_grad_(True) for a in t]
-    grads = torch.autograd.grad(pf.painn_message_cellblock(*ins, refs), ins,
-                                cots)
+    want64 = f64(pf.cell_msg_bwd_plain, *t, refs, *cots)
+    wgrad = not (F == 256 and B == 27)
+    if wgrad:
+        got = pf.cell_msg_bwd_kernel(*t, refs, *cots, wgrad=True)
+        assert len(got) == 4
+        for g, w in zip(got, want64):
+            torch.testing.assert_close(g, w, rtol=MSG_RTOL, atol=MSG_ATOL)
+        assert_normwise(got[3], want64[3], "gFW")
+    else:
+        with pytest.raises(RuntimeError, match="no block fits"):
+            pf.cell_msg_bwd_kernel(*t, refs, *cots, wgrad=True)
+    counters = (pf.LAUNCHES, msg.LAUNCHES, edge.LAUNCHES)
+    before = [dict(c) for c in counters]
+    ins = [a.clone().requires_grad_(i < 3 or wgrad) for i, a in enumerate(t)]
+    needs = [a for a in ins if a.requires_grad]
+    grads = torch.autograd.grad(pf.painn_message_cellblock(*ins, refs),
+                                needs, cots)
     for g, w in zip(grads, want64):
-        torch.testing.assert_close(g, w.float(), rtol=MSG_RTOL,
-                                   atol=MSG_ATOL)
-    assert {k: pf.LAUNCHES[k] - before[k] for k in before} == {
-        "cell_msg_fwd": 1, "cell_msg_bwd": 1}
+        torch.testing.assert_close(g, w, rtol=MSG_RTOL, atol=MSG_ATOL)
+    if wgrad:
+        assert_normwise(grads[3], want64[3], "gFW (op)")
+    moved = {k: v - b[k] for c, b in zip(counters, before)
+             for k, v in c.items() if v != b[k]}
+    assert moved == {"cell_msg_fwd": 1, "cell_msg_bwd": 1}
 
 
 @pytest.mark.gpu
