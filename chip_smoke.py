@@ -146,7 +146,8 @@ PTXAS_SOURCES = {
     "colblock_message.cu": {"msg_fwd_kernel": ("kIn", "kB4")},
     "colblock_message_bwd.cu": {"msg_bwd_kernel": ("kMode", "kWgrad", "kB4")},
     "painn_mixing.cu": {"mix_fwd_kernel": ("ROWS", "NW")},
-    "schnet_columns.cu": {"cf_bwd_kernel": ("kWgrad",)}}
+    "schnet_columns.cu": {"cf_fwd_kernel": ("F",),
+                          "cf_bwd_kernel": ("kWgrad", "F")}}
 #: the numbers of a kernel row that its sub-rows carry
 SUB_KEYS = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
             "bound_by", "tf32x3_floor_ms", "library_ms", "library_device_ms",
@@ -657,7 +658,7 @@ def kernel_phase(calc, system, seed, dev):
     rows = check_kernels(cases)
     del cases
     # K1/K2 at F = 256 on the same layout (random features and weights):
-    # sub-rows "f256" of their rows
+    # sub-rows "F256" of their rows
     F2 = 256
     x2, mu2, FW2 = rnd(Ap, 3 * F2), rnd(Ap, 3 * F2), rnd(B + 1, 3 * F2)
     c2 = (rnd(Ap, F2, scale=1.0), rnd(Ap, 3 * F2, scale=1.0))
@@ -677,7 +678,7 @@ def kernel_phase(calc, system, seed, dev):
     for c in wide:
         c["tag"] = " (F = 256)"
     for row, r2 in zip(rows, check_kernels(wide)):
-        row["f256"] = sub_row(r2)
+        row["F256"] = sub_row(r2)
     return rows
 
 
@@ -685,10 +686,15 @@ def schnet_kernel_phase(calc, system, seed, dev):
     """K5 raw, K8, K9 and K10 (and K10's wgrad instance) against their
     twins at the SchNet run's shapes, with the trained SchNet's first
     filter network; returns rows.  The filter network is B x F + F x F FMAs
-    per real edge, twice that in the backward, and the wgrad instance's
-    filter-weight cotangents another B x F + F x F.  K10 runs these
-    products in 3xTF32 on the tensor cores: its row and its wgrad sub-row
-    also carry that floor, three times their products at the TF32 peak."""
+    per edge, twice that in the backward, and the wgrad instance's
+    filter-weight cotangents another B x F + F x F.  K9 needs them only on
+    the slots inside the cutoff (``live_edges``: fcut = 0 adds exactly 0
+    to its output), K10 on every real slot (its gfcut channel).  K9 and K10
+    run these products in 3xTF32 on the tensor cores: their rows and K10's
+    wgrad sub-row also carry that floor, three times their products at the
+    TF32 peak.  K9 and K10 (both instances) again at F = 64 on the same
+    layout, with random features, filter weights and cotangent: sub-rows
+    "F64"."""
     from schnetpack_tpu_torch.ops import colblock_geo as geo_op
     from schnetpack_tpu_torch.ops import schnet_columns as cf
 
@@ -706,12 +712,36 @@ def schnet_kernel_phase(calc, system, seed, dev):
     geo = geo_op.geo_fwd_kernel(*gargs, with_d=False, raw_phi=True)
     ggeo = rnd(*geo.shape)
     i0 = rep.interactions[0]
+    assert geo.shape[2] == B + 4
+    ni = live_edges(refs, geo[:, :, B] > 0)
+    print(f"slots: {ne} real, {ni} inside the cutoff", flush=True)
+
+    def cf_cases(cargs, g_out):
+        """K9 and K10 on ``cargs`` (h, geo, W1, b1, W2, b2, refs)."""
+        Fc = cargs[0].shape[1]
+        filt, live = (2 * n * (B * Fc + Fc * Fc) for n in (ne, ni))
+        return [
+            case("cf_fwd", "schnet_columns.cu", "schnet_columns.py:79",
+                 lambda: (cf.cf_fwd_kernel(*cargs),),
+                 lambda: (cf.cf_fwd_plain(*cargs),), (cargs[:6], idx),
+                 live + ni * 6 * Fc, tc_flops=3 * live),
+            case("cf_bwd", "schnet_columns.cu", "schnet_columns.py:145",
+                 lambda: cf.cf_bwd_kernel(*cargs, g_out),
+                 lambda: cf.cf_bwd_plain(*cargs, g_out)[:2],
+                 (cargs[:6], idx, g_out), 2 * filt + ne * 12 * Fc,
+                 tc_flops=3 * 2 * filt,
+                 wgrad={"kern": lambda: cf.cf_bwd_kernel(*cargs, g_out,
+                                                         wgrad=True),
+                        "plain": lambda: cf.cf_bwd_plain(*cargs, g_out),
+                        "ref": lambda: in_f64(cf.cf_bwd_plain, *cargs,
+                                              g_out),
+                        "flops": 3 * filt + ne * 12 * Fc, "norm_from": 2,
+                        "tc_flops": 3 * 3 * filt}),
+        ]
+
     cargs = (rnd(Ap, F, scale=0.3), geo,
              i0.filter_0.weight.t().contiguous(), i0.filter_0.bias,
              i0.filter_1.weight.t().contiguous(), i0.filter_1.bias, refs)
-    g_out = rnd(Ap, F)
-    assert geo.shape[2] == B + 4
-    filt = 2 * ne * (B * F + F * F)
     cases = [
         case("geo_fwd_raw", "colblock_geo.cu", "colblock_geo.py:202",
              lambda: (geo_op.geo_fwd_kernel(*gargs, with_d=False,
@@ -723,23 +753,20 @@ def schnet_kernel_phase(calc, system, seed, dev):
              lambda: (geo_op.geo_bwd_kernel(ggeo, *gargs),),
              lambda: (geo_op.geo_bwd_plain(ggeo, *gargs),),
              (ggeo, R, coff, idx, rep.cw), 2 * ne * geo_flops(B)),
-        case("cf_fwd", "schnet_columns.cu", "schnet_columns.py:79",
-             lambda: (cf.cf_fwd_kernel(*cargs),),
-             lambda: (cf.cf_fwd_plain(*cargs),), (cargs[:6], idx),
-             filt + ne * 6 * F),
-        case("cf_bwd", "schnet_columns.cu", "schnet_columns.py:145",
-             lambda: cf.cf_bwd_kernel(*cargs, g_out),
-             lambda: cf.cf_bwd_plain(*cargs, g_out)[:2],
-             (cargs[:6], idx, g_out), 2 * filt + ne * 12 * F,
-             tc_flops=3 * 2 * filt,
-             wgrad={"kern": lambda: cf.cf_bwd_kernel(*cargs, g_out,
-                                                     wgrad=True),
-                    "plain": lambda: cf.cf_bwd_plain(*cargs, g_out),
-                    "ref": lambda: in_f64(cf.cf_bwd_plain, *cargs, g_out),
-                    "flops": 3 * filt + ne * 12 * F, "norm_from": 2,
-                    "tc_flops": 3 * 3 * filt}),
+        *cf_cases(cargs, rnd(Ap, F)),
     ]
-    return check_kernels(cases)
+    rows = check_kernels(cases)
+    del cases
+    F2 = 64
+    narrow = cf_cases((rnd(Ap, F2, scale=0.3), geo, rnd(B, F2, scale=0.3),
+                       rnd(F2, scale=0.1), rnd(F2, F2, scale=F2 ** -0.5),
+                       rnd(F2, scale=0.1), refs), rnd(Ap, F2))
+    for c in narrow:
+        c["tag"] = " (F = 64)"
+    by_name = {row["name"]: row for row in rows}
+    for r2 in check_kernels(narrow):
+        by_name[r2["name"]]["F64"] = sub_row(r2)
+    return rows
 
 
 def select_kernel_phase(calc, system, seed, dev):

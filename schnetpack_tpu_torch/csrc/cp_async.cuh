@@ -1,7 +1,7 @@
 // 4-byte asynchronous copies global -> shared (cp.async), in commit
-// groups: the message kernels (colblock_message.cuh) and the cfconv VJP
-// (schnet_columns.cu) stage a chunk's indices and channels with them
-// while the previous chunk runs.  Internal linkage; each source includes
+// groups: the message kernels (colblock_message.cuh) and the cfconv
+// kernels (schnet_columns.cu) stage a chunk's indices and channels with
+// them while the previous chunk runs.  Internal linkage; each source includes
 // it once.
 #pragma once
 

@@ -1,7 +1,7 @@
 // 3xTF32 products on Hopper's tensor cores (mma.sync m16n8k8), shared by
 // the PaiNN column message backward (colblock_message_bwd.cu: K2, K7, K15,
 // K21), the PaiNN mixing forward and backward (painn_mixing.cu: K3, K4)
-// and the SchNet cfconv VJP (schnet_columns.cu: K10).  Everything here
+// and the SchNet cfconv and its VJP (schnet_columns.cu: K9, K10).  Everything here
 // has internal linkage; each source includes it once.
 #pragma once
 

@@ -42,8 +42,8 @@ SIGNATURES = {
                    + [_F, _P],
     "spk_geo_fwd": [_P] * 6 + [_I] * 4 + [_P] + [_I] * 3 + [_F, _P],
     "spk_geo_bwd": [_P] * 8 + [_I] * 4 + [_P] + [_I, _F, _P],
-    "spk_cf_fwd": [_P] * 11 + [_I] * 4 + [_P] + [_I, _I, _P],
-    "spk_cf_bwd": [_P] * 14 + [_I] * 6 + [_P],
+    "spk_cf_fwd": [_P] * 11 + [_I] * 4 + [_P] + [_I] * 3 + [_P],
+    "spk_cf_bwd": [_P] * 14 + [_I] * 7 + [_P],
     "spk_msg_fwd_geo": [_P] * 10 + [_I] * 4 + [_P] + [_I] * 4 + [_P],
     "spk_msg_bwd_geores": [_P] * 16 + [_I] * 4 + [_P] + [_I] * 4
                           + [_F, _P],

@@ -10,13 +10,13 @@ ny, B+4, Ktot]`` (``colblock_geo.column_geometry_raw``):
 
 The forward is K9 and the backward K10 (``csrc/schnet_columns.cu``): the
 filter network runs per edge inside the kernels, and nothing of shape
-[edges, F] exists in device memory.  K9 runs one block per destination
-column; K10 runs on the message backward's source schedule
-(``colblock.source_schedule``), blocks owning source-row ranges, its
-filter products in 3xTF32 on the tensor cores.  K10 returns dh and the
-geometry cotangent (zero in the dir channels), and in its wgrad instance,
-which the op launches when W1, b1, W2 or b2 require grad, also the
-filter-weight cotangents.  On CPU tensors the op runs the twins, the
+[edges, F] exists in device memory.  Both walk row ranges of a schedule,
+K9 the destination rows of ``colblock.destination_schedule`` (K1's), K10
+the source rows of ``colblock.source_schedule`` (the message backward's),
+their filter products in 3xTF32 on the tensor cores.  K10 returns dh and
+the geometry cotangent (zero in the dir channels), and in its wgrad
+instance, which the op launches when W1, b1, W2 or b2 require grad, also
+the filter-weight cotangents.  On CPU tensors the op runs the twins, the
 gather / filter MLP / fold composition of ``_cfconv_xla``
 (``schnet_columns.py:317-331``) and its autograd VJP.
 """
@@ -26,82 +26,73 @@ import torch
 
 from . import _build
 from .activations import shifted_softplus
-from .colblock import ColRefs, column_fold, column_gather, source_schedule
+from .colblock import (
+    ColRefs, column_fold, column_gather, destination_schedule, source_schedule,
+)
 
 #: kernel launches since the last reset (SchNet MD: 3 each per step;
 #: ``cf_bwd_wgrad`` counts K10's wgrad instance)
 LAUNCHES = {"cf_fwd": 0, "cf_bwd": 0, "cf_bwd_wgrad": 0}
-#: the kernels' filter width
-N_FILTERS = 128
-#: K10's slots a chunk and row ranges a block of its plain instance
-#: (``kBwdE``, ``kBwdGroups`` of ``csrc/schnet_columns.cu``)
-BWD_SLOTS, BWD_GROUPS = 16, 3
+#: the filter widths the kernels take
+N_FILTERS = (64, 128)
+#: slots a chunk and row ranges a block of K9 and K10's plain instance
+#: (``kE``, ``kGroups`` of ``csrc/schnet_columns.cu``)
+SLOTS, GROUPS = 16, 3
+#: K9's row ranges a column, at most (``scripts/time_cfconv_kernels.py
+#: --groups fwd=G`` at the SchNet run's 100 columns on the H100, device
+#: ms: 4 ranges 0.362, 5 0.494, 6 0.474, 7 0.418, 8 0.361-0.364, 9 0.408,
+#: 10 0.407, 12 0.393, 16 0.376)
+FWD_RANGES = 8
 #: K10's row ranges a column, at most, plain and wgrad instance
-#: (``scripts/time_cfconv_kernels.py --groups`` at the SchNet run's 100
-#: columns on the H100: plain 11 ranges 0.758 ms, 16 0.727, 24 0.788, 32
-#: 0.838; wgrad, whose ranges each write an f64 partial of the weight
-#: cotangents, 5 1.44 ms, 16 1.46-1.54)
+#: (``scripts/time_cfconv_kernels.py --groups bwd=G``, ``wgrad=G`` at the
+#: SchNet run's 100 columns on the H100: plain 11 ranges 0.758 ms, 16
+#: 0.727, 24 0.788, 32 0.838; wgrad, whose ranges each write an f64
+#: partial of the weight cotangents, 5 1.44 ms, 16 1.46-1.54)
 BWD_RANGES, WGRAD_RANGES = 16, 5
 
 
-def _schedule(refs: ColRefs):
-    """K9's schedule: each column's real slots first, in slot order, and
-    their count:
-    ``order`` [nx*ny, Ktot] int32 and ``nreal`` [nx*ny] int32, computed
-    once per ``refs`` (cached on it) without a host sync."""
-    if "cf" in refs.cache:
-        return refs.cache["cf"]
-    nx, ny, Ktot = refs.qcol.shape
-    pad = (refs.qcol < 0).reshape(nx * ny, Ktot).to(torch.int32)
-    order = torch.argsort(pad, dim=1, stable=True).to(torch.int32)
-    nreal = (Ktot - pad.sum(1)).to(torch.int32)
-    refs.cache["cf"] = (order.contiguous(), nreal.contiguous())
-    return refs.cache["cf"]
-
-
 def _bp(B: int) -> int:
-    """K10's padded basis width: B + 1 (a column of ones for gb1) rounded
-    up to 8."""
+    """The padded basis width: B + 1 (a column of ones for gb1) rounded up
+    to 8."""
     return -(-(B + 1) // 8) * 8
 
 
-def cf_smem_bytes(B: int, P: int, bwd: bool, wgrad: bool = False) -> int:
-    """Dynamic shared memory of K9 (``bwd`` False) for B basis functions
-    and column capacity P, or of K10 (its wgrad instance with ``wgrad``),
-    which does not depend on P: what ``csrc/schnet_columns.cu::
-    spk_cf_smem_bytes`` gives the launch, which the card tests hold it
-    to.  K9: W2, W1 and the biases, the 64-edge chunk's tiles, four int
-    arrays and the column's [P, F] sums.  K10: W2 and the padded W1
-    [F + Bp, F + 4], and per row range that the block runs (plain:
-    ``BWD_GROUPS``, wgrad: one) two buffers of the staged chunk (phi [E,
-    MP + 4], fcut, an 8-byte and three int arrays [E]), three tiles [E, F
-    + 4] (wgrad four) and the gfcut partials [E, F / 32]; wgrad also the
-    f32 sums [F + MP, F + 8] (MP: Bp rounded up to 16)."""
-    F = N_FILTERS
-    if bwd:
-        E, bp = BWD_SLOTS, _bp(B)
-        mp = -(-bp // 16) * 16
-        group = (2 * (E * (mp + 4) + 6 * E) + (4 if wgrad else 3) * E * (F + 4)
-                 + E * (F // 32))
-        rest = group + (F + mp) * (F + 8) if wgrad else BWD_GROUPS * group
-        return 4 * ((F + bp) * (F + 4) + rest)
-    E = 64
-    ld_w, ld_t = F + 1, E + 4
-    floats = F * ld_w + B * F + 2 * F + B * ld_t + F * ld_t + P * F + E
-    return 4 * floats + 4 * 4 * E
+def cf_smem_bytes(F: int, B: int, bwd: bool, wgrad: bool = False) -> int:
+    """Dynamic shared memory of K9 (``bwd`` False) or K10 (its wgrad
+    instance with ``wgrad``) at F filters and B basis functions, which
+    does not depend on the column capacity: what ``csrc/schnet_columns.cu
+    ::spk_cf_smem_bytes`` gives the launch, which the card tests hold it
+    to.  W2 and the padded W1 [F + Bp, F + 4], and per row range that the
+    block runs (``GROUPS``; wgrad: one) two buffers of the staged chunk
+    (phi [E, MP + 4], fcut and four int arrays [E]), the tiles
+    [E, F + 4] (K9 two, K10 three, wgrad four) and K10's gfcut partials
+    [E, F / 32]; wgrad also the f32 sums [F + MP, F + 8] (MP: Bp rounded
+    up to 16)."""
+    E, bp = SLOTS, _bp(B)
+    mp = -(-bp // 16) * 16
+    tiles = 4 if wgrad else 3 if bwd else 2
+    group = (2 * (E * (mp + 4) + 5 * E) + tiles * E * (F + 4)
+             + (E * (F // 32) if bwd else 0))
+    rest = group + (F + mp) * (F + 8) if wgrad else GROUPS * group
+    return 4 * ((F + bp) * (F + 4) + rest)
 
 
-def check_capacity(B: int, P: int, bwd: bool) -> None:
-    """Raise ``ValueError`` where K9's shared memory (``cf_smem_bytes``),
-    which keeps a column's [P, F] sums, would pass the opt-in limit: at B
-    = 20, P <= 221.  K10's (both instances) does not grow with P and fits
-    at every B <= 32, so it takes every P."""
-    need = max(cf_smem_bytes(B, P, bwd, w) for w in (False, bwd))
-    if need > _build.MAX_DYN_SMEM:
-        name = "K10, the cfconv VJP," if bwd else "K9, the cfconv,"
-        raise ValueError(
-            f"{name} needs {need} bytes of shared memory a block at P={P}, "
-            f"B={B}, over the {_build.MAX_DYN_SMEM}-byte opt-in limit")
+def check_width(F: int, B: int) -> None:
+    """Raise ``ValueError`` for a shape the kernels do not take: F filters
+    outside ``N_FILTERS`` or more than 32 basis functions.  Their shared
+    memory (``cf_smem_bytes``) fits the opt-in limit at every shape they
+    take, whatever the column capacity P."""
+    if F not in N_FILTERS or B > 32:
+        raise ValueError(f"the cfconv kernels K9/K10 take F in {N_FILTERS} "
+                         f"filters and B <= 32 basis functions, got F={F}, "
+                         f"B={B}")
+
+
+def _fwd_schedule(refs: ColRefs):
+    """K9's (dsorted, grp, G): ``destination_schedule`` with ``FWD_RANGES``
+    row ranges a column, at most one a row."""
+    G = min(FWD_RANGES, refs.P)
+    return (*destination_schedule(refs, G), G)
 
 
 def _bwd_schedule(refs: ColRefs, wgrad: bool):
@@ -111,13 +102,10 @@ def _bwd_schedule(refs: ColRefs, wgrad: bool):
     return (*source_schedule(refs, G), G)
 
 
-def _check(h, geo, W1, b1, W2, b2, refs: ColRefs, bwd: bool):
+def _check(h, geo, W1, b1, W2, b2, refs: ColRefs):
     nx, ny, Ktot = refs.qcol.shape
     B, F = W1.shape
-    if F != N_FILTERS or B > 32:
-        raise ValueError(f"the cfconv kernels take F = {N_FILTERS} filters "
-                         f"and B <= 32 basis functions, got F={F}, B={B}")
-    check_capacity(B, refs.P, bwd)
+    check_width(F, B)
     _build.check(h, "h", (nx * ny * refs.P, F))
     _build.check(geo, "geo", (nx, ny, B + 4, Ktot))
     _build.check(W1, "W1", (B, F))
@@ -131,13 +119,13 @@ def _check(h, geo, W1, b1, W2, b2, refs: ColRefs, bwd: bool):
 
 def cf_fwd_kernel(h, geo, W1, b1, W2, b2, refs: ColRefs):
     """K9: the aggregated messages [A', F]."""
-    nx, ny, Ktot, B, F = _check(h, geo, W1, b1, W2, b2, refs, bwd=False)
-    order, nreal = _schedule(refs)
+    nx, ny, Ktot, B, F = _check(h, geo, W1, b1, W2, b2, refs)
+    dsorted, grp, G = _fwd_schedule(refs)
     out = torch.empty_like(h)
     p = _build.ptr
     _build.launch("spk_cf_fwd", p(h), p(geo), p(W1), p(b1), p(W2), p(b2),
-                  p(refs.qcol), p(refs.dcol), p(order), p(nreal), p(out), nx,
-                  ny, refs.P, Ktot, refs.koffs_arg, B, B + 4)
+                  p(refs.qcol), p(refs.dcol), p(dsorted), p(grp), p(out), nx,
+                  ny, refs.P, Ktot, refs.koffs_arg, G, B, F)
     LAUNCHES["cf_fwd"] += 1
     return out
 
@@ -147,23 +135,20 @@ def cf_bwd_kernel(h, geo, W1, b1, W2, b2, refs: ColRefs, g,
     """K10: (dh [A', F], ggeo [nx, ny, B+4, Ktot]) for the cotangent g of
     K9's output, each element written once by the kernel.  With ``wgrad``
     also (gW1, gb1, gW2, gb2): the blocks' f64 partials summed here and
-    rounded to f32.  The kernel reads W1 padded with zero rows to
-    ``_bp(B)`` (a small copy)."""
-    nx, ny, Ktot, B, F = _check(h, geo, W1, b1, W2, b2, refs, bwd=True)
+    rounded to f32."""
+    nx, ny, Ktot, B, F = _check(h, geo, W1, b1, W2, b2, refs)
     _build.check(g, "g", tuple(h.shape))
     esorted, grp, G = _bwd_schedule(refs, wgrad)
-    W1p = W1.new_zeros((_bp(B), F))
-    W1p[:B] = W1
     dh = torch.empty_like(h)
     ggeo = torch.empty_like(geo)
     wpart = (h.new_empty((nx * ny * G, (B + 2) * F + F * F),
                          dtype=torch.float64) if wgrad else None)
     p = _build.ptr
-    _build.launch("spk_cf_bwd", p(h), p(geo), p(W1p), p(b1), p(W2), p(b2),
+    _build.launch("spk_cf_bwd", p(h), p(geo), p(W1), p(b1), p(W2), p(b2),
                   p(refs.qcol), p(refs.dcol), p(esorted), p(grp), p(g),
                   p(dh), p(ggeo),
                   None if wpart is None else p(wpart), nx, ny, refs.P, Ktot,
-                  G, B)
+                  G, B, F)
     if not wgrad:
         LAUNCHES["cf_bwd"] += 1
         return dh, ggeo

@@ -1,18 +1,23 @@
-"""PyTorch port: K10's schedule and arithmetic on the CPU.
+"""PyTorch port: K9's and K10's schedules and arithmetic on the CPU.
 
-K10, the cfconv VJP (``csrc/schnet_columns.cu::cf_bwd_kernel``), runs on
-the message backward's source schedule (``colblock.source_schedule``):
-block (column, g) owns a range of the column's source rows and walks
-their slots in chunks of ``BWD_SLOTS``; its four filter products run in
-3xTF32 on the tensor cores, and the fold sums each source row's ghj in
-slot order.  The kernel runs only on the card; here a plain walk over
-the schedule in the kernel's order, with the products in the 3xTF32
-model of ``test_torch_port_mixing.py`` (``mm_3xtf32``: one ``mma.sync``
-step at a time, a fresh fragment per k-step), is held to the twin
-(``cf_bwd_plain``) and to the VJP of the JAX package's ``_cfconv_xla``
-on the same numpy inputs, both in float64, at the message tolerance (f32
-sums in another order), with every source row of dh and every real slot
-of ggeo written exactly once.
+K9, the cfconv (``csrc/schnet_columns.cu::cf_fwd_kernel``), runs on the
+message forward's destination schedule (``colblock.destination_schedule``):
+block (column, g) owns a range of the column's destination rows and walks
+their slots in chunks of ``SLOTS``; its two filter products run in 3xTF32
+on the tensor cores, and the fold sums each destination row's messages in
+slot order.  K10, the cfconv VJP (``cf_bwd_kernel``), runs on the
+message backward's source schedule (``colblock.source_schedule``): block
+(column, g) owns a range of the column's source rows and walks their
+slots in chunks of ``SLOTS``; its four filter products run in 3xTF32 on
+the tensor cores, and the fold sums each source row's ghj in slot
+order.  The kernels run only on the card; here plain walks over the
+schedules in the kernels' order, with the products in the 3xTF32 model
+of ``test_torch_port_mixing.py`` (``mm_3xtf32``: one ``mma.sync`` step at
+a time, a fresh fragment per k-step), are held to the twins
+(``cf_fwd_plain``, ``cf_bwd_plain``) and to the JAX package's
+``_cfconv_xla`` and its VJP on the same numpy inputs, both in float64, at
+the message tolerance (f32 sums in another order), with every output row
+and every real slot of ggeo written exactly once.
 """
 import jax
 import jax.numpy as jnp
@@ -25,7 +30,7 @@ from schnetpack_tpu.ops import colblock_geo as jgeo
 from schnetpack_tpu.ops.schnet_columns import _cfconv_xla
 from schnetpack_tpu_torch.ops import schnet_columns as cf
 from schnetpack_tpu_torch.ops.colblock import (
-    ColRefs, decode_j, source_schedule,
+    ColRefs, decode_j, destination_schedule, source_schedule,
 )
 from test_torch_port_mixing import mm_3xtf32
 from torch_port_cases import MSG_ATOL, MSG_RTOL, cfconv_case
@@ -62,7 +67,7 @@ def _refs(c):
                    ksizes)
 
 
-def _walk(c, G, E=cf.BWD_SLOTS):
+def _walk(c, G, E=cf.SLOTS):
     """K10's outputs in its order: the slots in the source order of
     ``source_schedule(refs, G)``, block by block and chunk by chunk of E;
     per slot z1 = [phi | 1] W1p (W1 padded with zero rows to Bp), pre =
@@ -223,3 +228,122 @@ def test_source_walk_matches_twin_and_jax(F, B, seed, G):
     np.testing.assert_array_equal(gg[:, :, B + 1:], 0.0)
     np.testing.assert_array_equal(
         np.moveaxis(gg, 2, 3)[(refs.qcol < 0).numpy()], 0.0)
+
+
+def _fwd_walk(c, G, E=cf.SLOTS):
+    """K9's output in its order: the slots in the destination order of
+    ``destination_schedule(refs, G)``, block by block and chunk by chunk
+    of E; per slot z1 = [phi | 1] W1p and pre = ssp(z1 + b1) W2 + b2 in
+    3xTF32, the message h_j (pre fcut), each destination row's messages
+    summed in slot order in f32.  Returns (out, how many times each row
+    was written, the runs that cross a chunk bound)."""
+    refs = _refs(c)
+    h, geo, W1, b1, W2, b2 = (torch.tensor(c[k]) for k in NAMES)
+    B, F = W1.shape
+    nx, ny, Ktot = refs.qcol.shape
+    P, nch = refs.P, B + 4
+    W1p = torch.zeros(cf._bp(B), F)
+    W1p[:B] = W1
+    dsorted, grp = destination_schedule(refs, G)
+    dcol = refs.dcol.reshape(-1).long()
+    n_real = int((refs.qcol >= 0).sum())
+    s = dsorted[:n_real].long()
+    dc, k = s // Ktot, s % Ktot
+    geo_c = geo.reshape(nx * ny, nch, Ktot)
+    phi = torch.zeros(n_real, W1p.shape[0])
+    phi[:, :B] = geo_c[dc, :B, k]
+    phi[:, B] = 1.0
+    fc = geo_c[dc, B, k]
+    h1 = cf.shifted_softplus(mm_3xtf32(phi, W1p) + b1)
+    pre = mm_3xtf32(h1, W2) + b2
+    msg = h[decode_j(refs)[0].reshape(-1)[s]] * (pre * fc[:, None])
+
+    out = torch.zeros(nx * ny * P, F)
+    n_out = torch.zeros(nx * ny * P, dtype=torch.int64)
+    crossing = 0
+    for col in range(nx * ny):
+        for gr in range(G):
+            (r0, e0), (r1, e1) = grp[col, gr:gr + 2].tolist()
+            run, nxt = -1, r0
+            acc = torch.zeros(F)
+            for base in range(e0, e1, E):
+                if base > e0 and dcol[s[base]] == dcol[s[base - 1]]:
+                    crossing += 1
+                for e in range(base, min(base + E, e1)):
+                    d = int(dcol[s[e]])
+                    assert dc[e] == col and r0 <= d < r1
+                    if d != run:
+                        if run >= 0:
+                            out[col * P + run] = acc
+                            n_out[col * P + run] += 1
+                            nxt = run + 1
+                        n_out[col * P + nxt:col * P + d] += 1
+                        nxt, run = d, d
+                        acc = torch.zeros(F)
+                    acc = acc + msg[e]
+            if run >= 0:
+                out[col * P + run] = acc
+                n_out[col * P + run] += 1
+                nxt = run + 1
+            n_out[col * P + nxt:col * P + r1] += 1
+    return out, n_out, crossing
+
+
+def _jax_fwd64(c):
+    """The JAX package's ``_cfconv_xla`` on float64 copies of the case's
+    inputs (x64 enabled for this call only), rounded to f32."""
+    P, ksizes = c["lay"].dims[2], tuple(int(k) for k in c["lay"].dims[3])
+    with jax.enable_x64(True):
+        refs = jcb.ColRefs(jnp.asarray(c["qcol"]), jnp.asarray(c["dcol"]), P,
+                           ksizes)
+        h, geo, *w = [jnp.asarray(c[k], jnp.float64) for k in NAMES]
+        out = jax.jit(lambda *a: _cfconv_xla(*a, refs))(
+            h, jgeo.split_geo(geo, refs.ksizes), *w)
+        assert out.dtype == jnp.float64
+        return np.asarray(out).astype(np.float32)
+
+
+@pytest.mark.parametrize("F,B,seed,G", [(64, 8, 21, 3), (128, 20, 3, 4)])
+def test_destination_walk_matches_twin_and_jax(F, B, seed, G):
+    """K9's walk matches the twin and the JAX ``_cfconv_xla``, both
+    evaluated in float64, on a 3 x 3 grid whose real slots hit all nine
+    buckets.  Each output row of each range is written once, rows with no
+    slot (column 0 has none, and the padding rows of every column) are 0,
+    a run crosses a chunk bound and block bounds fall inside columns."""
+    c = _case(F, B, seed)
+    refs = _refs(c)
+    got, n_out, crossing = _fwd_walk(c, G)
+    assert bool((n_out == 1).all())
+    assert crossing > 0
+    _, grp = destination_schedule(refs, G)
+    inner = grp[:, 1:-1, 0]
+    assert bool(((inner > 0) & (inner < refs.P)).any())
+    nx, ny, Ktot = refs.qcol.shape
+    real = (refs.qcol >= 0).reshape(-1)
+    c9 = sum((torch.arange(Ktot) >= o).long() for o in refs.koffs[1:9])
+    assert set(c9.expand(nx * ny, Ktot).reshape(-1)[real].tolist()) == set(
+        range(9))
+    dest = (torch.arange(nx * ny).view(nx, ny, 1) * refs.P
+            + refs.dcol.long()).reshape(-1)[real]
+    empty = torch.ones(nx * ny * refs.P, dtype=torch.bool)
+    empty[dest] = False
+    assert bool(empty[:refs.P].all()) and int(empty[refs.P:].sum()) > 0
+    np.testing.assert_array_equal(got[empty].numpy(), 0.0)
+    t = [torch.tensor(c[k]).double() for k in NAMES]
+    twin = cf.cf_fwd_plain(*t, refs).float()
+    np.testing.assert_allclose(got.numpy(), twin.numpy(), MSG_RTOL, MSG_ATOL,
+                               err_msg="out vs twin")
+    np.testing.assert_allclose(got.numpy(), _jax_fwd64(c), MSG_RTOL,
+                               MSG_ATOL, err_msg="out vs jax")
+
+
+@pytest.mark.parametrize("F,ok", [(64, True), (128, True), (96, False),
+                                  (256, False)])
+def test_cfconv_kernels_take_their_widths(F, ok):
+    """The wrappers' check (``check_width``, before any launch) takes the
+    kernels' widths F = 64 and 128 and names any other F."""
+    if ok:
+        cf.check_width(F, 20)
+        return
+    with pytest.raises(ValueError, match="K9/K10 take F in"):
+        cf.check_width(F, 20)

@@ -282,19 +282,19 @@ def test_mixing_smem_mirror_matches_the_kernel(cuda_device):
 
 @pytest.mark.gpu
 def test_cfconv_smem_mirror_matches_the_kernel(cuda_device):
-    """``cf_smem_bytes``, which names K9's column capacity past the opt-in
-    limit before the launch, equals what the launchers ask for
-    (``spk_cf_smem_bytes``: K9, K10 and K10's wgrad instance) on both
-    sides of K9's limit; K10's does not depend on P and fits the limit at
-    every B."""
-    for B in (8, 20, 32):
-        for P in (1, 100, 153, 154, 221, 222, 1000):
-            assert schnet.cf_smem_bytes(B, P, False) == _build.query(
-                "spk_cf_smem_bytes", B, P, 0), (B, P)
-            for mode, wgrad in ((1, False), (2, True)):
-                got = _build.query("spk_cf_smem_bytes", B, P, mode)
-                assert schnet.cf_smem_bytes(B, P, True, wgrad) == got
-                assert got == _build.query("spk_cf_smem_bytes", B, 1, mode)
+    """``cf_smem_bytes`` equals what the launchers ask for
+    (``spk_cf_smem_bytes``: K9, K10 and K10's wgrad instance) at both
+    widths and B = 8, 20 and 32, and fits the opt-in limit there; neither
+    takes the column capacity P, since no kernel keeps a column's rows in
+    shared memory (K9 runs at P = 222 and 1000 in
+    ``test_cfconv_kernels_name_their_capacity``)."""
+    for F in schnet.N_FILTERS:
+        for B in (8, 20, 32):
+            for mode, bwd, wgrad in ((0, False, False), (1, True, False),
+                                     (2, True, True)):
+                got = _build.query("spk_cf_smem_bytes", F, B, mode)
+                assert schnet.cf_smem_bytes(F, B, bwd, wgrad) == got, (
+                    F, B, mode)
                 assert got <= _build.MAX_DYN_SMEM
 
 
@@ -441,14 +441,15 @@ def test_raw_geometry_kernels_match_twin(cuda_device, seed):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("F", [64, 128])
 @pytest.mark.parametrize("seed", [3, 21])
-def test_cfconv_kernels_match_twin(cuda_device, seed):
-    """K9 and K10 (the kernels' width, F = 128) on synthetic raw-phi
-    geometry; K10 held to the twin in float64: its gfcut channel, a
-    128-long sum that can cancel, is within the tolerance of the float64
+def test_cfconv_kernels_match_twin(cuda_device, seed, F):
+    """K9 and K10 at the kernels' widths (``N_FILTERS``) on synthetic
+    raw-phi geometry; K10 held to the twin in float64: its gfcut channel,
+    an F-long sum that can cancel, is within the tolerance of the float64
     result where the f32 twin's own sum is not always (1.22x it on the
     CPU walk's F = 128 case, ``test_torch_port_cf_sched.py``)."""
-    c = cfconv_case(F=schnet.N_FILTERS, B=20, seed=seed)
+    c = cfconv_case(F=F, B=20, seed=seed)
     refs = ColRefs.from_layout(c["lay"], device=cuda_device)
     args = [torch.tensor(c[k], device=cuda_device)
             for k in ("h", "geo", "W1", "b1", "W2", "b2")]
@@ -492,12 +493,13 @@ def _cfconv_bwd_checks(args, refs, g):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("F", [64, 128])
 @pytest.mark.parametrize("B", [8, 20, 32])
-def test_cfconv_bwd_at_basis_widths(cuda_device, B):
+def test_cfconv_bwd_at_basis_widths(cuda_device, B, F):
     """K10 and its wgrad instance at B = 8, 20 and 32 (the padded basis
-    width Bp = 16, 24 and 40) on a 3 x 3 grid against the twin in
-    float64."""
-    c = cfconv_case(F=schnet.N_FILTERS, B=B, seed=B + 1, n=110, L=11.0)
+    width Bp = 16, 24 and 40) and at both widths on a 3 x 3 grid against
+    the twin in float64."""
+    c = cfconv_case(F=F, B=B, seed=B + 1, n=110, L=11.0)
     refs = ColRefs.from_layout(c["lay"], device=cuda_device)
     args = [torch.tensor(c[k], device=cuda_device)
             for k in ("h", "geo", "W1", "b1", "W2", "b2")]
@@ -506,12 +508,14 @@ def test_cfconv_bwd_at_basis_widths(cuda_device, B):
 
 @pytest.mark.gpu
 def test_cfconv_kernels_name_their_capacity(cuda_device):
-    """K9 at B = 20 on a column capacity P at its shared memory limit
-    (221) matches its twin, and one past it the wrapper raises a
-    ``ValueError`` that names the limit before it launches.  K10 and its
-    wgrad instance have no such limit: at P = 154 (past their old limit of
-    153) and P = 400 they match the twin in float64."""
-    c = cfconv_case(F=schnet.N_FILTERS, B=20, seed=3)
+    """No column capacity limits the cfconv kernels: K9 at B = 20 on P =
+    222 (one past its old shared memory limit of 221) and P = 1000
+    matches its twin, and K10 and its wgrad instance at P = 154 (past
+    their old limit of 153) and P = 400 match the twin in float64.  A
+    width the kernels do not take raises a ``ValueError`` that names
+    them before the launch."""
+    F = 128
+    c = cfconv_case(F=F, B=20, seed=3)
     base = ColRefs.from_layout(c["lay"], device=cuda_device)
     nx, ny = base.qcol.shape[:2]
     rng = np.random.RandomState(5)
@@ -520,21 +524,24 @@ def test_cfconv_kernels_name_their_capacity(cuda_device):
 
     def inputs(P):
         refs = dataclasses.replace(base, P=P, cache={})
-        h, g = (torch.tensor(rng.randn(nx * ny * P, schnet.N_FILTERS)
-                             .astype(np.float32), device=cuda_device)
+        h, g = (torch.tensor(rng.randn(nx * ny * P, F).astype(np.float32),
+                             device=cuda_device)
                 for _ in range(2))
         return refs, h, g
 
-    refs, h, _ = inputs(221)
-    torch.testing.assert_close(schnet.cf_fwd_kernel(h, *w, refs),
-                               schnet.cf_fwd_plain(h, *w, refs),
-                               rtol=MSG_RTOL, atol=MSG_ATOL)
-    refs, h, _ = inputs(222)
-    with pytest.raises(ValueError, match="opt-in limit"):
-        schnet.cf_fwd_kernel(h, *w, refs)
+    for P in (222, 1000):
+        refs, h, _ = inputs(P)
+        torch.testing.assert_close(schnet.cf_fwd_kernel(h, *w, refs),
+                                   schnet.cf_fwd_plain(h, *w, refs),
+                                   rtol=MSG_RTOL, atol=MSG_ATOL)
     for P in (154, 400):
         refs, h, g = inputs(P)
         _cfconv_bwd_checks([h, *w], refs, g)
+    h96, W1, W2 = (torch.zeros(shape, device=cuda_device)
+                   for shape in ((nx * ny * refs.P, 96), (20, 96), (96, 96)))
+    b = torch.zeros(96, device=cuda_device)
+    with pytest.raises(ValueError, match="K9/K10 take F in"):
+        schnet.cf_fwd_kernel(h96, w[0], W1, b, W2, b, refs)
 
 
 #: threads (slots) of a narrow K11/K13 block

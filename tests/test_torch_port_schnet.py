@@ -5,6 +5,7 @@ autograd Function), the whole SchNet against the JAX
 and the full-size fixture.  The CUDA kernels are held against their twins
 in ``test_torch_port_kernels.py``.
 """
+import dataclasses
 import os
 
 import jax
@@ -278,22 +279,28 @@ def test_schnet_reference_fixture_is_the_bench_box():
     assert int(ref["n_pairs"]) > 0
 
 
-@pytest.mark.parametrize("P,bwd,ok", [(154, True, True), (1000, True, True),
-                                      (221, False, True),
-                                      (222, False, False)])
-def test_cfconv_kernel_capacity_limit(P, bwd, ok):
-    """K9 keeps a column's [P, F] sums in shared memory: at B = 20 it takes
-    P <= 221 under the 232,448-byte opt-in limit, and one past raises a
-    ``ValueError`` that names it.  K10's shared memory (both instances)
-    holds a chunk's tiles only, so it takes P = 154, past its old limit of
-    153, and P = 1000."""
-    need = max(cf.cf_smem_bytes(20, P, bwd, w) for w in (False, bwd))
-    assert (need <= 232_448) == ok
-    if bwd:
-        assert need == cf.cf_smem_bytes(20, 1, bwd, True)
-    if ok:
-        cf.check_capacity(20, P, bwd)
-        return
-    with pytest.raises(ValueError, match="opt-in limit"):
-        cf.check_capacity(20, P, bwd)
+@pytest.mark.parametrize("P,bwd", [(154, True), (1000, True), (222, False),
+                                   (1000, False)])
+def test_cfconv_kernel_capacity_limit(P, bwd):
+    """Neither cfconv kernel keeps a column's rows in shared memory, so
+    both take any column capacity: K10 at P = 154 (past its old limit of
+    153) and P = 1000, K9 at P = 222 (past its old limit of 221 at B = 20)
+    and P = 1000.  At both widths and B = 20 their shared memory (the
+    larger of K10's two instances) is within the 232,448-byte opt-in
+    limit and the wrappers' check passes; the schedule they launch on at
+    that capacity cuts every column's P rows into ``min(RANGES, P)``
+    ranges that cover each row once and hold every real slot."""
+    for F in cf.N_FILTERS:
+        need = max(cf.cf_smem_bytes(F, 20, bwd, w) for w in (False, bwd))
+        assert need <= 232_448, (F, need)
+        cf.check_width(F, 20)
+    c = cfconv_case(F=128, B=20, seed=3)
+    refs = dataclasses.replace(ColRefs.from_layout(c["lay"]), P=P, cache={})
+    _, grp, G = (cf._bwd_schedule(refs, False) if bwd
+                 else cf._fwd_schedule(refs))
+    assert G == min(cf.BWD_RANGES if bwd else cf.FWD_RANGES, P)
+    rows, slots = grp[..., 0], grp[..., 1]
+    assert bool((rows[:, 0] == 0).all()) and bool((rows[:, -1] == P).all())
+    assert bool((rows.diff(dim=1) >= 0).all())
+    assert int(slots[-1, -1] - slots[0, 0]) == int((refs.qcol >= 0).sum())
 
