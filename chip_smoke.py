@@ -461,6 +461,16 @@ def geo_flops(B):
     return 4 * B + 30
 
 
+def geo_bwd_bytes(ggeo, coff, refs, R, cw):
+    """The inputs K8 needs: the cotangent's channels and the offsets of
+    the real slots only (its slot pass tests qcol and returns at a padded
+    slot before it reads anything else), qcol whole, dcol of the real
+    slots, the positions and the basis table."""
+    ne = real_edges(refs)
+    per_slot = ggeo.shape[2] * ggeo.element_size() + 3 * coff.element_size()
+    return (ne * (per_slot + refs.dcol.element_size()), refs.qcol, R, cw)
+
+
 def check_kernels(cases):
     """Each kernel against its twin (rtol/atol elementwise, ``exact``:
     equal), both timed per call (``cuda_ms``), the kernel and ``library``
@@ -752,7 +762,8 @@ def schnet_kernel_phase(calc, system, seed, dev):
         case("geo_bwd", "colblock_geo.cu", "colblock_geo.py:230",
              lambda: (geo_op.geo_bwd_kernel(ggeo, *gargs),),
              lambda: (geo_op.geo_bwd_plain(ggeo, *gargs),),
-             (ggeo, R, coff, idx, rep.cw), 2 * ne * geo_flops(B)),
+             geo_bwd_bytes(ggeo, coff, refs, R, rep.cw),
+             2 * ne * geo_flops(B)),
         *cf_cases(cargs, rnd(Ap, F)),
     ]
     rows = check_kernels(cases)

@@ -7,7 +7,7 @@
 //   raw-phi form [phi*emask (B), fcut, dir (3)] for SchNet, whose filter
 //   network is nonlinear in phi (schnetpack_tpu/ops/schnet_columns.py:
 //   10-12); with nch = B+5 the distance d follows (``with_d``).
-// K8 geo_bwd_kernel replaces
+// K8 geo_bwd_slot_kernel and geo_bwd_row_kernel replace
 //   schnetpack_tpu/ops/colblock_geo.py:230 _geo_bwd_kernel (launcher :273
 //   _geo_bwd_call) in its raw-phi form: the cotangent of the B+4 raw-phi
 //   channels -> the position cotangent dR.
@@ -29,39 +29,33 @@
 // with one-hot matmuls in 3 bf16 pieces for exact f32 (an MXU device);
 // here the two position rows are read by index in f32.
 //
-// K8 runs one block per column and, inside it, one thread per edge slot:
-// the thread recomputes rij, d, fcut and phi as K5 does and chains the
-// cotangent g = [gphi (B), gfc, gdir (3)] back to rij:
+// K8 is two kernels, both without atomics or shared memory, for any P.
+// (a) geo_bwd_slot_kernel runs on K5's grid, one thread per real edge
+// slot: it reads the slot's B+4 cotangent channels (coalesced along Ktot),
+// recomputes rij, d, fcut and phi as K5 does and chains the cotangent
+// g = [gphi (B), gfc, gdir (3)] back to rij:
 //   gd   = sum_b gphi_b 2 coeff_b (d - c_b) phi_b + gfc dfcut/dd
 //   grij = gdir / d - rij (gdir . rij) / d^3 + gd dir
 // (the raw-phi branch of colblock_geo.py:253-257; phi carries emask, which
-// is 1 on every slot the thread works on).  Each sum has one writer and no
-// atomics: the chunk's grij go to shared memory, then 54 threads, one per
-// (bucket, end, component), add them in slot order into per-bucket
-// accumulators [9][P][3] of the destination rows (own column) and of the
-// source rows (the bucket's source column).  The block writes the
-// destination sums, added over the buckets, to dRo [col][P][3] and the
-// source sums to the partial part[c9][source column][P][3], which has one
-// writer since the bucket shift is a bijection of the columns; the wrapper
-// adds the 9 partials (the TPU's scheme, colblock_geo.py:267-269, 302-304).
+// is 1 on every real slot), and stores grij as a float4 of a scratch
+// [nx * ny * Ktot] (padded slots are left unwritten and never read).
+// (b) geo_bwd_row_kernel: one thread per atom row r adds grij over r's
+// run of slots in the source order (``ops/colblock.py::source_order``)
+// and, apart, over its run in the destination order (``destination_order``)
+// -- each in slot order, one 16-byte load a slot -- and writes dR[r] =
+// source sum - destination sum once.  Both orders are those that K10 and
+// K9 already cached on the SchNet step's refs: the step sorts nothing more.
+// The TPU's 9 per-source-column partials (colblock_geo.py:267-269,
+// 302-304) would write and read back 9 tables more.
 
 #include <cuda_runtime.h>
 
+#include "colblock_message.cuh"   // KOffs, bucket_of, kPi
+
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kBwdThreads = 256;
-constexpr float kPi = 3.14159265358979323846f;
-
-struct KOffs {
-  int o[10];
-};
-
-__device__ __forceinline__ int bucket_of(const KOffs& ko, int k) {
-  int c9 = 0;
-  while (k >= ko.o[c9 + 1]) ++c9;
-  return c9;
-}
+constexpr int kThreads = 128;     // slots a K5 / K8 (a) block
+constexpr int kRowThreads = 64;   // rows a K8 (b) block
 
 // source column of bucket c9 of column (ci, cj)
 __device__ __forceinline__ int source_col(int ci, int cj, int c9, int nx,
@@ -83,7 +77,7 @@ geo_fwd_kernel(const float* __restrict__ R, const float* __restrict__ coff,
   const int q = qcol[e];
   float rx = 0.f, ry = 0.f, rz = 0.f, pad = 1.f;
   if (q >= 0) {
-    const int scol = source_col(ci, cj, bucket_of(ko, k), nx, ny);
+    const int scol = source_col(ci, cj, bucket_of(k, ko), nx, ny);
     const size_t src = ((size_t)scol * P + q) * 3;
     const size_t dst = ((size_t)col * P + dcol[e]) * 3;
     const float* oc = coff + (size_t)col * 3 * Ktot + k;
@@ -110,98 +104,80 @@ geo_fwd_kernel(const float* __restrict__ R, const float* __restrict__ coff,
   if (nch > B + 4) out[(size_t)(B + 4) * Ktot] = d;
 }
 
-__global__ void __launch_bounds__(kBwdThreads)
-geo_bwd_kernel(const float* __restrict__ R, const float* __restrict__ coff,
-               const float* __restrict__ cw, const int* __restrict__ qcol,
-               const int* __restrict__ dcol, const float* __restrict__ ggeo,
-               float* __restrict__ dRo, float* __restrict__ part, int nx,
-               int ny, int P, int Ktot, KOffs ko, int B, float rc) {
-  extern __shared__ float smem[];
-  constexpr int T = kBwdThreads;
-  const int col = blockIdx.x, ncol = nx * ny;
+// K8 (a): grij of slot k of column blockIdx.y, one thread a slot.
+__global__ void __launch_bounds__(kThreads)
+geo_bwd_slot_kernel(const float* __restrict__ R,
+                    const float* __restrict__ coff,
+                    const float* __restrict__ cw, const int* __restrict__ qcol,
+                    const int* __restrict__ dcol,
+                    const float* __restrict__ ggeo, float4* __restrict__ grij,
+                    int nx, int ny, int P, int Ktot, KOffs ko, int B,
+                    float rc) {
+  const int col = blockIdx.y;
+  const int k = blockIdx.x * kThreads + threadIdx.x;
+  if (k >= Ktot) return;
   const int ci = col / ny, cj = col - ci * ny;
-  const int tid = threadIdx.x;
-  const int nch = B + 4;
-  float* s_g = smem;                  // [T][3] grij of the chunk
-  float* s_src = s_g + 3 * T;         // [9][P][3] source-row sums
-  float* s_dst = s_src + 27 * P;      // [9][P][3] destination-row sums
-  int* s_q = reinterpret_cast<int*>(s_dst + 27 * P);  // [T] (-1 pad)
-  int* s_dv = s_q + T;                                // [T]
-
-  for (int t = tid; t < 54 * P; t += T) s_src[t] = 0.f;  // and s_dst
+  const size_t e = (size_t)col * Ktot + k;
+  const int q = qcol[e];
+  if (q < 0) return;
+  const float* Rs =
+      R + ((size_t)source_col(ci, cj, bucket_of(k, ko), nx, ny) * P + q) * 3;
+  const float* Rd = R + ((size_t)col * P + dcol[e]) * 3;
+  const float* oc = coff + (size_t)col * 3 * Ktot + k;
+  const float rx = Rs[0] + oc[0] - Rd[0];
+  const float ry = Rs[1] + oc[Ktot] - Rd[1];
+  const float rz = Rs[2] + oc[2 * Ktot] - Rd[2];
+  const float d = sqrtf(rx * rx + ry * ry + rz * rz);
+  const float inv = 1.f / d;
   const float pi_rc = kPi / rc;
-  const int* qc = qcol + (size_t)col * Ktot;
-  const int* dc = dcol + (size_t)col * Ktot;
-  const float* Rown = R + (size_t)col * P * 3;
+  const float dfc = d < rc ? -0.5f * pi_rc * sinf(d * pi_rc) : 0.f;
+  const float* g = ggeo + (size_t)col * (B + 4) * Ktot + k;
+  float gd = g[(size_t)B * Ktot] * dfc;
+  for (int b = 0; b < B; ++b) {
+    const float df = d - cw[2 * b];
+    const float phi = expf(cw[2 * b + 1] * df * df);
+    gd = fmaf(g[(size_t)b * Ktot], 2.f * cw[2 * b + 1] * df * phi, gd);
+  }
+  const float gx = g[(size_t)(B + 1) * Ktot];
+  const float gy = g[(size_t)(B + 2) * Ktot];
+  const float gz = g[(size_t)(B + 3) * Ktot];
+  const float gdr = (gx * rx + gy * ry + gz * rz) * inv * inv * inv;
+  const float gdi = gd * inv;
+  grij[e] = make_float4(gx * inv - rx * gdr + gdi * rx,
+                        gy * inv - ry * gdr + gdi * ry,
+                        gz * inv - rz * gdr + gdi * rz, 0.f);
+}
 
-  for (int base = 0; base < Ktot; base += T) {
-    __syncthreads();  // the previous chunk's fold is done (and the zeroing)
-    const int k = base + tid;
-    int q = -1, dv = 0;
-    if (k < Ktot) {
-      q = qc[k];
-      dv = dc[k];
-    }
-    if (q >= 0) {
-      const int c9 = bucket_of(ko, k);
-      const float* Rs =
-          R + ((size_t)source_col(ci, cj, c9, nx, ny) * P + q) * 3;
-      const float* oc = coff + (size_t)col * 3 * Ktot + k;
-      const float rx = Rs[0] + oc[0] - Rown[dv * 3 + 0];
-      const float ry = Rs[1] + oc[Ktot] - Rown[dv * 3 + 1];
-      const float rz = Rs[2] + oc[2 * Ktot] - Rown[dv * 3 + 2];
-      const float d = sqrtf(rx * rx + ry * ry + rz * rz);
-      const float inv = 1.f / d;
-      const float dfc = d < rc ? -0.5f * pi_rc * sinf(d * pi_rc) : 0.f;
-      const float* g = ggeo + (size_t)col * nch * Ktot + k;
-      float gd = g[(size_t)B * Ktot] * dfc;
-      for (int b = 0; b < B; ++b) {
-        const float df = d - cw[2 * b];
-        const float phi = expf(cw[2 * b + 1] * df * df);
-        gd = fmaf(g[(size_t)b * Ktot], 2.f * cw[2 * b + 1] * df * phi, gd);
-      }
-      const float gx = g[(size_t)(B + 1) * Ktot];
-      const float gy = g[(size_t)(B + 2) * Ktot];
-      const float gz = g[(size_t)(B + 3) * Ktot];
-      const float gdr = (gx * rx + gy * ry + gz * rz) * inv * inv * inv;
-      const float gdi = gd * inv;
-      s_g[tid * 3 + 0] = gx * inv - rx * gdr + gdi * rx;
-      s_g[tid * 3 + 1] = gy * inv - ry * gdr + gdi * ry;
-      s_g[tid * 3 + 2] = gz * inv - rz * gdr + gdi * rz;
-    }
-    s_q[tid] = q;
-    s_dv[tid] = dv;
-    __syncthreads();
-    if (tid < 54) {
-      // thread (bucket c9, end: source or destination, component c) adds
-      // the chunk's slots of its bucket in slot order
-      const int c9 = tid / 6, end = (tid % 6) / 3, c = tid % 3;
-      const int lo = max(base, ko.o[c9]);
-      const int hi = min(min(base + T, ko.o[c9 + 1]), Ktot);
-      float* acc = (end == 0 ? s_src : s_dst) + c9 * P * 3 + c;
-      for (int kk = lo; kk < hi; ++kk) {
-        const int t = kk - base;
-        const int qv = s_q[t];
-        if (qv < 0) continue;
-        const float v = s_g[t * 3 + c];
-        if (end == 0)
-          acc[qv * 3] += v;
-        else
-          acc[s_dv[t] * 3] -= v;
-      }
-    }
+// the sum of grij over the slots sorted[begin] .. sorted[end - 1]
+__device__ __forceinline__ float3 run_sum(const float4* __restrict__ grij,
+                                          const int* __restrict__ sorted,
+                                          int begin, int end) {
+  float3 s = make_float3(0.f, 0.f, 0.f);
+#pragma unroll 4
+  for (int p = begin; p < end; ++p) {
+    const float4 v = grij[sorted[p]];
+    s.x += v.x;
+    s.y += v.y;
+    s.z += v.z;
   }
-  __syncthreads();
-  for (int t = tid; t < 3 * P; t += T) {
-    float s = 0.f;
-    for (int c9 = 0; c9 < 9; ++c9) s += s_dst[c9 * 3 * P + t];
-    dRo[(size_t)col * 3 * P + t] = s;
-  }
-  for (int t = tid; t < 27 * P; t += T) {
-    const int c9 = t / (3 * P), r = t - c9 * 3 * P;
-    const int scol = source_col(ci, cj, c9, nx, ny);
-    part[((size_t)c9 * ncol + scol) * 3 * P + r] = s_src[t];
-  }
+  return s;
+}
+
+// K8 (b): dR of row r, its source run's grij less its destination run's.
+__global__ void __launch_bounds__(kRowThreads)
+geo_bwd_row_kernel(const float4* __restrict__ grij,
+                   const int* __restrict__ esorted,
+                   const int* __restrict__ rowptr,
+                   const int* __restrict__ dsorted,
+                   const int* __restrict__ rowptr_dst,
+                   float* __restrict__ dR, int A) {
+  const int r = blockIdx.x * kRowThreads + threadIdx.x;
+  if (r >= A) return;
+  const float3 src = run_sum(grij, esorted, rowptr[r], rowptr[r + 1]);
+  const float3 dst = run_sum(grij, dsorted, rowptr_dst[r], rowptr_dst[r + 1]);
+  dR[(size_t)r * 3 + 0] = src.x - dst.x;
+  dR[(size_t)r * 3 + 1] = src.y - dst.y;
+  dR[(size_t)r * 3 + 2] = src.z - dst.z;
 }
 
 }  // namespace
@@ -211,30 +187,36 @@ extern "C" int spk_geo_fwd(const float* R, const float* coff, const float* cw,
                            int nx, int ny, int P, int Ktot, const int* koffs,
                            int B, int nch, int raw, float rc,
                            cudaStream_t stream) {
-  KOffs ko;
-  for (int i = 0; i < 10; ++i) ko.o[i] = koffs[i];
   dim3 grid((Ktot + kThreads - 1) / kThreads, nx * ny);
   geo_fwd_kernel<<<grid, kThreads, 0, stream>>>(R, coff, cw, qcol, dcol, geo,
-                                                nx, ny, P, Ktot, ko, B, nch,
+                                                nx, ny, P, Ktot,
+                                                make_koffs(koffs), B, nch,
                                                 raw, rc);
   return (int)cudaGetLastError();
 }
 
+// K8: grij [nx * ny * Ktot] float4 is the caller's scratch; esorted /
+// rowptr and dsorted / rowptr_dst the source and destination runs of the
+// A = nx * ny * P rows.
 extern "C" int spk_geo_bwd(const float* R, const float* coff, const float* cw,
                            const int* qcol, const int* dcol,
-                           const float* ggeo, float* dRo, float* part, int nx,
-                           int ny, int P, int Ktot, const int* koffs, int B,
-                           float rc, cudaStream_t stream) {
-  KOffs ko;
-  for (int i = 0; i < 10; ++i) ko.o[i] = koffs[i];
-  const size_t smem =
-      (size_t)(3 * kBwdThreads + 54 * P) * sizeof(float) +
-      2 * kBwdThreads * sizeof(int);
-  cudaError_t err = cudaFuncSetAttribute(
-      geo_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  geo_bwd_kernel<<<nx * ny, kBwdThreads, smem, stream>>>(
-      R, coff, cw, qcol, dcol, ggeo, dRo, part, nx, ny, P, Ktot, ko, B, rc);
+                           const float* ggeo, float* grij,
+                           const int* esorted, const int* rowptr,
+                           const int* dsorted, const int* rowptr_dst,
+                           float* dR, int nx, int ny, int P, int Ktot,
+                           const int* koffs, int B, float rc,
+                           cudaStream_t stream) {
+  const int A = nx * ny * P;
+  if (A == 0) return 0;
+  float4* g4 = reinterpret_cast<float4*>(grij);
+  if (Ktot > 0) {
+    const dim3 grid((Ktot + kThreads - 1) / kThreads, nx * ny);
+    geo_bwd_slot_kernel<<<grid, kThreads, 0, stream>>>(
+        R, coff, cw, qcol, dcol, ggeo, g4, nx, ny, P, Ktot,
+        make_koffs(koffs), B, rc);
+  }
+  geo_bwd_row_kernel<<<(A + kRowThreads - 1) / kRowThreads, kRowThreads, 0,
+                       stream>>>(g4, esorted, rowptr, dsorted, rowptr_dst, dR,
+                                 A);
   return (int)cudaGetLastError();
 }

@@ -6,14 +6,15 @@
 //   schnetpack_tpu/ops/colblock_pallas.py:121 _gather_fwd_kernel (launchers
 //   :130 _gather_fwd_call and, on halo slabs, colblock_shard.py:131
 //   _gather_hx_call);
-// K12 gather_bwd_kernel    replaces :148 _gather_bwd_kernel (launchers :163
+// K12 row_sum_kernel replaces :148 _gather_bwd_kernel (launchers :163
 //   _gather_bwd_call, folded by :92 _fold_partials, and colblock_shard.py:154
 //   _gather_hx_bwd_call, folded by :182 _fold_partials_hx);
 // K13 select_kernel<false> (narrow rows: select_narrow_kernel<false>)
 //   replaces :211 _expand_fwd_kernel (launcher :226 _expand_call), which is
 //   also the fold's VJP;
-// K14 fold_kernel          replaces :244 _fold_fwd_kernel (launcher :259
-//   _fold_call), which is also the expand's VJP.
+// K14 row_sum_kernel replaces :244 _fold_fwd_kernel (launcher :259
+//   _fold_call), which is also the expand's VJP: K12's body on the slots
+//   sorted by destination.
 //
 // Layout as in colblock_message.cu: slot k of column (x, y) lies in bucket
 // c9 (koffs[c9] <= k < koffs[c9+1]); its source is row qcol of column
@@ -54,22 +55,17 @@
 //   them: a warp stores 32 D contiguous floats.  No shared memory, no
 //   barrier; at the bench's 300k slots 1,200 blocks of 256, about one wave
 //   at 8 blocks an SM.
-// * K12 walks the slots sorted by source atom (the device argsort of
+// * K12 and K14 are one body: a sum of each row's run of sorted slots.
+//   K12 walks the slots sorted by source row (the device argsort of
 //   ``ops/colblock.py::source_order``, cached on the refs and shared with
-//   the PaiNN message backward): each thread owns one (source row, lane),
-//   sums that row's run of slots in slot order and writes the row once.
-//   The TPU's 9 per-source-column partials would write and read back 9
-//   tables more.
-// * K14 runs one block per (destination column, tile of up to 128
-//   features, tile of destination rows) with the tile's [rows, features]
-//   sums in shared memory (64 KB at P = 128, opt-in above 48 KB).  The
-//   rows take one tile while they fit the block's 227 KB (P <= 453 at
-//   D >= 128, every layout of the bench); above that each block scans its
-//   column's slots and keeps the rows of its own tile.  Each thread owns
-//   one feature lane of a slot group and walks the group's slots in order;
-//   for a narrow D the 128 threads split the slots into groups (slot k to
-//   group k mod G), whose sums are added in group order before each output
-//   row is written once.  No atomics anywhere: every result is deterministic.
+//   the message backward), K14 those sorted by destination row
+//   (``destination_order``, the message forward's order, also cached).
+//   Each thread owns one (row, lane) (a float4 lane when D % 4 == 0 and
+//   the pointers allow it), sums that row's run in slot order in
+//   registers and writes the row once: no shared memory, no atomics, any
+//   P, a row with no slot gets 0, and padded slots (last in both orders)
+//   are never read.  The TPU's 9 per-source-column partials of K12 would
+//   write and read back 9 tables more.
 
 #include <cuda_runtime.h>
 
@@ -89,9 +85,6 @@ constexpr int kThreads = 128;
 constexpr int kSelectElems = 1024;   // vector elements per K11/K13 block
 constexpr int kNarrowThreads = 256;  // slots per narrow K11/K13 block
 constexpr int kNarrowMax = 8;        // widths below this may take it
-constexpr int kFoldLanes = 128;      // features per K14 block
-constexpr int kFoldSmemCap = 64 * 1024;  // K14 shared memory for narrow D
-constexpr int kUnroll = 32;          // K14 slots in flight per thread
 
 struct KOffs {
   int o[10];
@@ -202,17 +195,18 @@ __global__ void __launch_bounds__(kNarrowThreads)
     if (kD || d < w) o[d] = v[d];
 }
 
-// K12: thread (row, lane) sums its row's run of source-sorted slots.
+// K12 / K14: thread (row, lane) sums its row's run of sorted slots,
+// sorted[rowptr[row]] .. sorted[rowptr[row + 1] - 1], in that order.
 template <int V>
 __global__ void __launch_bounds__(kThreads)
-    gather_bwd_kernel(const float* __restrict__ g,
-                      const int* __restrict__ esorted,
-                      const int* __restrict__ rowptr, float* __restrict__ dT,
-                      int A, int D) {
+    row_sum_kernel(const float* __restrict__ g,
+                   const int* __restrict__ sorted,
+                   const int* __restrict__ rowptr, float* __restrict__ out,
+                   int A, int D) {
   using T = typename Vec<V>::T;
   const int nvec = D / V;
   const T* gv = reinterpret_cast<const T*>(g);
-  T* o = reinterpret_cast<T*>(dT);
+  T* o = reinterpret_cast<T*>(out);
   const size_t total = (size_t)A * nvec;
   for (size_t t = (size_t)blockIdx.x * blockDim.x + threadIdx.x; t < total;
        t += (size_t)gridDim.x * blockDim.x) {
@@ -220,57 +214,8 @@ __global__ void __launch_bounds__(kThreads)
     T s = Vec<V>::zero();
     const int end = rowptr[row + 1];
     for (int p = rowptr[row]; p < end; ++p)
-      Vec<V>::add(s, gv[(size_t)esorted[p] * nvec + v]);
+      Vec<V>::add(s, gv[(size_t)sorted[p] * nvec + v]);
     o[t] = s;
-  }
-}
-
-// K14: one block per (feature tile, row tile, destination column); shared
-// memory holds ``groups`` partial sums [rows][lanes] of the tile's rows
-// r0 .. r0 + rows - 1 (rows = P: one tile).
-__global__ void __launch_bounds__(kThreads)
-    fold_kernel(const float* __restrict__ ev, const int* __restrict__ dcol,
-                float* __restrict__ out, int P, int Ktot, int D, int lanes,
-                int groups, int rows) {
-  extern __shared__ float acc[];
-  const int col = blockIdx.z;
-  const int f0 = blockIdx.x * lanes;
-  const int nl = min(lanes, D - f0);
-  const int r0 = blockIdx.y * rows;
-  const int nr = min(rows, P - r0);
-  for (int i = threadIdx.x; i < groups * rows * lanes; i += blockDim.x)
-    acc[i] = 0.f;
-  __syncthreads();
-  const int lane = threadIdx.x % lanes, grp = threadIdx.x / lanes;
-  if (grp < groups && lane < nl) {
-    float* a = acc + (size_t)grp * rows * lanes + lane;
-    const int* dc = dcol + (size_t)col * Ktot;
-    const float* v = ev + (size_t)col * Ktot * D + f0 + lane;
-    int k = grp;
-    for (; k + (kUnroll - 1) * groups < Ktot; k += kUnroll * groups) {
-      int d[kUnroll];
-      float val[kUnroll];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        d[u] = dc[k + u * groups] - r0;
-        val[u] = v[(size_t)(k + u * groups) * D];
-      }
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u)   // padded (-1) and other tiles' rows
-        if ((unsigned)d[u] < (unsigned)nr) a[d[u] * lanes] += val[u];
-    }
-    for (; k < Ktot; k += groups) {
-      const int dk = dc[k] - r0;
-      if ((unsigned)dk < (unsigned)nr) a[dk * lanes] += v[(size_t)k * D];
-    }
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < nr * nl; i += blockDim.x) {
-    const int r = i / nl, l = i - (i / nl) * nl;
-    float s = 0.f;
-    for (int q = 0; q < groups; ++q)
-      s += acc[((size_t)q * rows + r) * lanes + l];
-    out[((size_t)col * P + r0 + r) * D + f0 + l] = s;
   }
 }
 
@@ -337,46 +282,19 @@ extern "C" int spk_expand_fwd(const float* table, const int* dcol, float* out,
   return launch_select<false>(table, dcol, out, *args, D, 0, 0, stream);
 }
 
-extern "C" int spk_gather_bwd(const float* g, const int* esorted,
-                              const int* rowptr, float* dT, int A, int D,
-                              cudaStream_t stream) {
-  const bool vec = D % 4 == 0 && aligned(g) && aligned(dT);
+extern "C" int spk_row_sums(const float* g, const int* sorted,
+                            const int* rowptr, float* out, int A, int D,
+                            cudaStream_t stream) {
+  const bool vec = D % 4 == 0 && aligned(g) && aligned(out);
   const size_t total = (size_t)A * (vec ? D / 4 : D);
   size_t blocks = (total + kThreads - 1) / kThreads;
   if (blocks > ((size_t)1 << 20)) blocks = (size_t)1 << 20;
   if (blocks == 0) return 0;
   if (vec)
-    gather_bwd_kernel<4><<<(unsigned)blocks, kThreads, 0, stream>>>(
-        g, esorted, rowptr, dT, A, D);
+    row_sum_kernel<4><<<(unsigned)blocks, kThreads, 0, stream>>>(
+        g, sorted, rowptr, out, A, D);
   else
-    gather_bwd_kernel<1><<<(unsigned)blocks, kThreads, 0, stream>>>(
-        g, esorted, rowptr, dT, A, D);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int spk_fold_fwd(const float* ev, const int* dcol, float* out,
-                            int nx, int ny, int P, int Ktot, int D,
-                            cudaStream_t stream) {
-  const int lanes = D < kFoldLanes ? D : kFoldLanes;
-  const size_t row_bytes = (size_t)P * lanes * sizeof(float);
-  int groups = kThreads / lanes;
-  while (groups > 1 && groups * row_bytes > (size_t)kFoldSmemCap) --groups;
-  int dev = 0, max_smem = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                         dev);
-  // destination rows per block: all P where they fit, else as many as do
-  const size_t rows_fit =
-      (size_t)max_smem / ((size_t)groups * lanes * sizeof(float));
-  if (rows_fit == 0) return (int)cudaErrorInvalidConfiguration;
-  const int rows = (size_t)P <= rows_fit ? P : (int)rows_fit;
-  if (rows == 0) return 0;
-  const size_t smem = (size_t)groups * rows * lanes * sizeof(float);
-  int err = (int)cudaFuncSetAttribute(
-      fold_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err) return err;
-  const dim3 grid((D + lanes - 1) / lanes, (P + rows - 1) / rows, nx * ny);
-  fold_kernel<<<grid, kThreads, smem, stream>>>(ev, dcol, out, P, Ktot, D,
-                                                lanes, groups, rows);
+    row_sum_kernel<1><<<(unsigned)blocks, kThreads, 0, stream>>>(
+        g, sorted, rowptr, out, A, D);
   return (int)cudaGetLastError();
 }

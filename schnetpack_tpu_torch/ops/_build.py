@@ -41,7 +41,7 @@ SIGNATURES = {
     "spk_msg_bwd": [_P] * 12 + [_P] * 5 + [_I] * 4 + [_P] + [_I] * 3
                    + [_F, _P],
     "spk_geo_fwd": [_P] * 6 + [_I] * 4 + [_P] + [_I] * 3 + [_F, _P],
-    "spk_geo_bwd": [_P] * 8 + [_I] * 4 + [_P] + [_I, _F, _P],
+    "spk_geo_bwd": [_P] * 12 + [_I] * 4 + [_P] + [_I, _F, _P],
     "spk_cf_fwd": [_P] * 11 + [_I] * 4 + [_P] + [_I] * 3 + [_P],
     "spk_cf_bwd": [_P] * 14 + [_I] * 7 + [_P],
     "spk_msg_fwd_geo": [_P] * 10 + [_I] * 4 + [_P] + [_I] * 4 + [_P],
@@ -54,8 +54,7 @@ SIGNATURES = {
     "spk_mix_bwd": [_P] * 14 + [_P] * 4 + [_I] * 3 + [_F, _I, _P],
     "spk_gather_fwd": [_P] * 4 + [_I, _P],
     "spk_expand_fwd": [_P] * 4 + [_I, _P],
-    "spk_gather_bwd": [_P] * 4 + [_I, _I, _P],
-    "spk_fold_fwd": [_P] * 3 + [_I] * 5 + [_P],
+    "spk_row_sums": [_P] * 4 + [_I, _I, _P],
     "spk_cell_gather_fwd": [_P] * 3 + [_I] * 6 + [_P],
     "spk_cell_gather_bwd": [_P] * 4 + [_I, _I, _P],
     "spk_cell_msg_fwd": [_P] * 9 + [_I] * 8 + [_P],

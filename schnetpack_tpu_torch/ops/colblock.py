@@ -161,22 +161,30 @@ def column_fold(edge_vals: torch.Tensor, refs: ColRefs) -> torch.Tensor:
     return out.index_add(0, i.reshape(-1), v)
 
 
+def sorted_runs(key: torch.Tensor, n: int):
+    """The slots sorted by ``key`` (a row in [0, n), or n for a padded
+    slot), slot order within a row, padded slots last (int32), the slots
+    per row (``cnt`` int32 [n]) and the start of each row's run
+    (``rowptr`` int32 [n + 1]), read off the sorted keys: one stable sort
+    and four small launches, on the device, without a host
+    synchronisation."""
+    keys, order = torch.sort(key, stable=True)
+    rowptr = torch.searchsorted(
+        keys, torch.arange(n + 1, device=key.device), out_int32=True)
+    return order.to(torch.int32), rowptr.diff(), rowptr
+
+
 def source_order(refs: ColRefs):
     """Every edge slot (destination column * Ktot + slot) sorted by its row
-    in the source table, padded slots last (``esorted`` int32), the slots
-    per source row (``cnt`` int64) and the start of each row's run
-    (``rowptr`` int32).  Computed once per ``refs`` (cached on it) on the
-    device, without a host synchronisation."""
-    if "src" in refs.cache:
-        return refs.cache["src"]
-    n = refs.src_rows
-    j, valid = decode_src(refs)
-    key = torch.where(valid, j, n).reshape(-1)
-    esorted = torch.argsort(key, stable=True).to(torch.int32)
-    cnt = torch.zeros(n + 1, dtype=torch.int64, device=key.device)
-    cnt = cnt.index_add_(0, key, torch.ones_like(key))[:-1]
-    rowptr = torch.cat([cnt.new_zeros(1), cnt.cumsum(0)]).to(torch.int32)
-    refs.cache["src"] = (esorted, cnt, rowptr)
+    in the source table, padded slots last (``esorted``), the slots per
+    source row (``cnt``) and the start of each row's run (``rowptr``), as
+    ``sorted_runs`` gives them.  Computed once per ``refs`` (cached on
+    it)."""
+    if "src" not in refs.cache:
+        n = refs.src_rows
+        j, valid = decode_src(refs)
+        refs.cache["src"] = sorted_runs(
+            torch.where(valid, j, n).reshape(-1), n)
     return refs.cache["src"]
 
 
@@ -218,21 +226,18 @@ def source_schedule(refs: ColRefs, G: int):
 
 def destination_order(refs: ColRefs):
     """Every real edge slot (column * Ktot + slot) sorted by (destination
-    column, destination row), slot order within a row, padded slots last
-    (``dsorted`` int32), and the slots per destination row (``cnt`` int64
-    [nx*ny*P]).  Computed once per ``refs`` (cached on it) on the device,
-    without a host synchronisation."""
-    if "dst" in refs.cache:
-        return refs.cache["dst"]
-    nx, ny, _ = refs.qcol.shape
-    n = nx * ny * refs.P
-    col = torch.arange(nx * ny, device=refs.qcol.device).view(nx, ny, 1)
-    key = torch.where(refs.qcol >= 0, col * refs.P + refs.dcol.long(),
-                      n).reshape(-1)
-    dsorted = torch.argsort(key, stable=True).to(torch.int32)
-    cnt = torch.zeros(n + 1, dtype=torch.int64, device=key.device)
-    cnt = cnt.index_add_(0, key, torch.ones_like(key))[:-1]
-    refs.cache["dst"] = (dsorted, cnt)
+    column, destination row), padded slots last (``dsorted``), the slots
+    per destination row (``cnt`` [nx*ny*P]) and the start of each row's
+    run (``rowptr``), as ``sorted_runs`` gives them: the per-row sums of
+    K14 and K8 walk row r's slots over dsorted[rowptr[r]:rowptr[r+1]].
+    Computed once per ``refs`` (cached on it)."""
+    if "dst" not in refs.cache:
+        nx, ny, _ = refs.qcol.shape
+        n = nx * ny * refs.P
+        col = torch.arange(nx * ny, device=refs.qcol.device).view(nx, ny, 1)
+        key = torch.where(refs.qcol >= 0, col * refs.P + refs.dcol.long(),
+                          n).reshape(-1)
+        refs.cache["dst"] = sorted_runs(key, n)
     return refs.cache["dst"]
 
 
@@ -243,7 +248,7 @@ def destination_schedule(refs: ColRefs, G: int):
     block each.  Made once per (``refs``, G) and cached on the refs."""
     key = ("dst", G)
     if key not in refs.cache:
-        dsorted, cnt = destination_order(refs)
+        dsorted, cnt, _ = destination_order(refs)
         nx, ny, _ = refs.qcol.shape
         refs.cache[key] = (dsorted, row_groups(cnt.view(nx * ny, refs.P), G))
     return refs.cache[key]

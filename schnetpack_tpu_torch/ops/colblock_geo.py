@@ -16,7 +16,8 @@ offsets ``ColRefs.koffs``, in two forms:
   (B), fcut, dir (3)], phi not multiplied by fcut since SchNet's filter
   network is nonlinear in it.  It is differentiable in R: its backward
   (K8) turns the geo cotangent into dR, as the JAX ``custom_vjp``
-  (``colblock_geo.py:309-334``) does.
+  (``colblock_geo.py:309-334``) does, with per-row sums on the source and
+  destination orders of the refs.
 
 Padded slots carry d = 1 and zeros elsewhere, as ``column_geometry_xla``
 produces them.  On CUDA tensors the ops launch K5 / K8
@@ -27,7 +28,9 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .colblock import ColRefs, column_geometry
+from .colblock import (
+    ColRefs, column_geometry, destination_order, source_order,
+)
 
 #: kernel launches since the last reset (PaiNN hybrid: geo_fwd once per
 #: step; SchNet: geo_fwd_raw and geo_bwd once per step)
@@ -71,21 +74,25 @@ def geo_fwd_plain(R, coff_fm, refs: ColRefs, cw, rc: float,
 
 def geo_bwd_kernel(g, R, coff_fm, refs: ColRefs, cw, rc: float):
     """K8: dR [A', 3] of the raw-phi geometry [nx, ny, B+4, Ktot] for its
-    cotangent ``g``.  Destination-side sums come per column, source-side
-    sums as 9 per-source-column partials [9, A', 3], added here."""
+    cotangent ``g``: each real slot's grij into a scratch, then per atom
+    row its source run's grij less its destination run's, on the orders
+    that K10 and K9 cached on the refs (``source_order``,
+    ``destination_order``)."""
     _check(R, coff_fm, refs, cw)
     nx, ny, Ktot = refs.qcol.shape
     B = cw.shape[0]
     _build.check(g, "g", (nx, ny, B + 4, Ktot))
-    Ap = R.shape[0]
-    dRo = R.new_empty((Ap, 3))
-    part = R.new_empty((9, Ap, 3))
+    esorted, _, rowptr = source_order(refs)
+    dsorted, _, rowptr_dst = destination_order(refs)
+    grij = R.new_empty((nx * ny * Ktot, 4))
+    dR = R.new_empty(R.shape)
     p = _build.ptr
     _build.launch("spk_geo_bwd", p(R), p(coff_fm), p(cw), p(refs.qcol),
-                  p(refs.dcol), p(g), p(dRo), p(part), nx, ny, refs.P, Ktot,
+                  p(refs.dcol), p(g), p(grij), p(esorted), p(rowptr),
+                  p(dsorted), p(rowptr_dst), p(dR), nx, ny, refs.P, Ktot,
                   refs.koffs_arg, B, float(rc))
     LAUNCHES["geo_bwd"] += 1
-    return dRo + part.sum(0)
+    return dR
 
 
 def geo_bwd_plain(g, R, coff_fm, refs: ColRefs, cw, rc: float):

@@ -17,7 +17,9 @@ slab path's halo'd tables (``_gather_hx_call``/``_gather_hx_bwd_call``,
 ``colblock_shard.py:131-199``), in the source-index mode of the refs.
 The kernels (``csrc/colblock_select.cu``) take any width D and any
 capacity P: the positions (D = 3, which K11 and K13 copy one slot a
-thread) and SO3net's flattened features (D = 9 x F).  On CPU
+thread) and SO3net's flattened features (D = 9 x F).  K12 and K14 are one
+kernel, a sum of each row's run of sorted slots, on the source order and
+on the destination order of the refs.  On CPU
 tensors the ops run the twins: the plain gather, expand and fold of
 ``ops/colblock.py`` and the gather's transpose.  On CUDA tensors they
 launch the kernels or raise.
@@ -31,7 +33,7 @@ import torch
 from . import _build
 from .colblock import (
     ColRefs, column_expand, column_fold, column_gather, decode_src,
-    source_order,
+    destination_order, source_order,
 )
 
 #: kernel launches since the last reset, in any source-index mode (SO3net
@@ -106,20 +108,22 @@ def gather_bwd_kernel(g, refs: ColRefs):
     n = refs.src_rows
     dT = g.new_empty((n, D))
     p = _build.ptr
-    _build.launch("spk_gather_bwd", p(g), p(esorted), p(rowptr), p(dT), n, D)
+    _build.launch("spk_row_sums", p(g), p(esorted), p(rowptr), p(dT), n, D)
     LAUNCHES["gather_bwd"] += 1
     return dT
 
 
 def fold_fwd_kernel(edge_vals, refs: ColRefs):
-    """K14: out [A', D] = per-destination-row sums of edge_vals."""
+    """K14: out [A', D] = per-destination-row sums of edge_vals, K12's
+    row sums on the destination order (``destination_order``)."""
     nx, ny, Ktot, Ap, _, _ = _check_refs(refs)
     D = edge_vals.shape[-1]
     _build.check(edge_vals, "edge_vals", (nx, ny, Ktot, D))
+    dsorted, _, rowptr = destination_order(refs)
     out = edge_vals.new_empty((Ap, D))
     p = _build.ptr
-    _build.launch("spk_fold_fwd", p(edge_vals), p(refs.dcol), p(out), nx, ny,
-                  refs.P, Ktot, D)
+    _build.launch("spk_row_sums", p(edge_vals), p(dsorted), p(rowptr), p(out),
+                  Ap, D)
     LAUNCHES["fold_fwd"] += 1
     return out
 

@@ -1,16 +1,13 @@
 """Time K18 and K19, the 27-cell PaiNN message and its VJP, of one source
 tree on the GPU.
 
-Builds the kernels of the tree at ``--root`` (default: this repository;
-another checkout, e.g. an archive of a parent commit, for an A/B inside one
-call) and times K18, K19 and K19's wgrad instance at the painn_cell run's
-shapes (``chip_smoke.py`` phase 3, ``cell_kernel_phase``: the 10,976-atom
-argon box in the 27-cell layout the port's neighbor list builds, F = 128,
-B = 20, the basis and directions of the box's own geometry, the trained
-PaiNN's first filter weights, random features and cotangents from
-``--seed``): CUDA events around ``--reps`` calls after a warm-up, and with
-``--device-ms`` also the device time, the kernels' durations in
-``torch.profiler``'s CUDA trace, as ``chip_smoke.py`` reads it.  ``--tol``
+Builds the kernels of the tree at ``--root`` (the options and set-up that
+the timing scripts share: ``kernel_timing.py``) and times K18, K19 and
+K19's wgrad instance at the painn_cell run's shapes (``chip_smoke.py``
+phase 3, ``cell_kernel_phase``: the 10,976-atom argon box in the 27-cell
+layout the port's neighbor list builds, F = 128, B = 20, the basis and
+directions of the box's own geometry, the trained PaiNN's first filter
+weights, random features and cotangents from ``--seed``).  ``--tol``
 prints the worst miss of the float64 twin, as a share of the tolerance, of
 K18's dq and dmu and K19's dxmu, grbf and gdir (elementwise,
 ``chip_smoke.RTOL``/``ATOL``) and of the wgrad instance's gFW (normwise,
@@ -26,61 +23,28 @@ root on a GPU:
     python3 scripts/time_cell_message_kernels.py [--root DIR] \
         [--device-ms] [--tol] [--md STEPS [--md-path full ...]]
 """
-import argparse
-import importlib.util
-import os
-import subprocess
-import sys
+from kernel_timing import md, open_tree, parser, times
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 #: the sources K18/K19 may live in, over the trees an A/B compares
-SOURCES = ("colblock_message.cu", "colblock_message_bwd.cu",
-           "painn_fused.cu")
+SOURCES = {"colblock_message.cu": None, "colblock_message_bwd.cu": None,
+           "painn_fused.cu": None}
 
 
 def main():
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--root", default=ROOT)
-    ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--device-ms", action="store_true",
-                    help="also the device time from torch.profiler")
+    ap = parser(md_help="also the painn_cell NVE run of STEPS steps")
     ap.add_argument("--tol", action="store_true",
                     help="the worst miss of the float64 twin")
-    ap.add_argument("--md", type=int, default=0, metavar="STEPS",
-                    help="also the painn_cell NVE run of STEPS steps")
     ap.add_argument("--md-path", action="append", default=[],
                     help="another MD path of chip_smoke.py to run")
     args = ap.parse_args()
-    root = os.path.abspath(args.root)
-    sys.path.insert(0, root)
-    import torch
-
-    if not torch.cuda.is_available():
-        sys.exit("time_cell_message_kernels: no CUDA device")
+    torch, smoke, smi = open_tree(args, "time_cell_message_kernels",
+                                  SOURCES)
+    root = args.root
     from schnetpack_tpu_torch import properties as P
     from schnetpack_tpu_torch.atomistic.distances import cell_refs
     from schnetpack_tpu_torch.md import load_molecules
-    from schnetpack_tpu_torch.ops import _build
     from schnetpack_tpu_torch.ops import painn_fused as pf
 
-    # this repository's readers and run set-up, whatever --root is
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
-    _build.build()
-    for src in SOURCES:
-        for inst, regs, frame, st, ld in smoke.ptxas_report(
-                _build.build_log.get(src, ""),
-                smoke.PTXAS_SOURCES.get(src, {})):
-            print(f"ptxas {src}: {inst}: {regs} registers, {frame} bytes "
-                  f"stack frame, {st} bytes spill stores, {ld} bytes spill "
-                  f"loads (tree {root})", flush=True)
-
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip()
     dev = torch.device("cuda")
     pos, cell = smoke.fcc_box(10_000)
     system = load_molecules([smoke.molecule(pos, cell)], device=dev)
@@ -108,29 +72,19 @@ def main():
             lambda: pf.cell_msg_bwd_kernel(*margs, *cots, wgrad=True),
             lambda: pf.cell_msg_bwd_plain(*margs, *cots)),
     }
-    device_ms = smoke.device_ms if args.device_ms else None
     slots = int((refs.qidx >= 0).sum())
     for name, (fn, plain) in calls.items():
         n_out = 2 if name == "cell_msg_fwd" else 3
         err = max(float((a - b).abs().max())
                   for a, b in zip(fn()[:n_out], plain()[:n_out]))
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        torch.cuda.synchronize()
-        start.record()
-        for _ in range(args.reps):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        on_dev = ("" if device_ms is None else
-                  f", device {device_ms(fn, reps=args.reps):.4f} ms")
-        print(f"{name}: {start.elapsed_time(end) / args.reps:.4f} ms per "
-              f"call{on_dev}, max |kernel - twin| {err:.3g} ({slots} real "
-              f"slots, A' = {Ap}, layout {tuple(refs.dims)}, F = {F}, tree "
-              f"{root}) on {smi}", flush=True)
+        print(f"{name}: {times(smoke, fn, args)}, max |kernel - twin| "
+              f"{err:.3g} ({slots} real slots, A' = {Ap}, layout "
+              f"{tuple(refs.dims)}, F = {F}, tree {root}) on {smi}",
+              flush=True)
     if args.tol:
         tolerance_shares(pf, smoke, margs, cots, calls, root)
     if args.md:
-        md(smoke, pos, cell, args, dev, root, smi)
+        md(smoke, ["painn_cell", *args.md_path], pos, cell, args, dev, smi)
 
 
 def tolerance_shares(pf, smoke, margs, cots, calls, root):
@@ -157,27 +111,6 @@ def tolerance_shares(pf, smoke, margs, cots, calls, root):
                 shares.append(f"{names[part][i]} {float(s):.3f}")
         print(f"tolerance share of the float64 twin, {who}: "
               f"{', '.join(shares)} (tree {root})", flush=True)
-
-
-def md(smoke, pos, cell, args, dev, root, smi):
-    """chip_smoke.py's NVE phases on the tree: their ms/step."""
-    from schnetpack_tpu_torch.ops import (
-        cellblock_gather, colblock_edge, colblock_geo, colblock_message,
-        colblock_select, painn_fused, painn_mixing, schnet_columns,
-    )
-
-    launches = tuple(m.LAUNCHES for m in (
-        colblock_message, painn_mixing, colblock_geo, schnet_columns,
-        colblock_select, cellblock_gather, painn_fused, colblock_edge))
-    for path in ["painn_cell", *args.md_path]:
-        if path == "painn_slab":
-            _, ms = smoke.slab_md_phase(pos, cell, args.md, args.seed, dev,
-                                        launches)
-        else:
-            _, ms = smoke.md_phase(path, pos, cell, args.md, args.seed, dev,
-                                   launches)
-        print(f"md {path}: {ms:.3f} ms/step over {args.md} steps (tree "
-              f"{root}) on {smi}", flush=True)
 
 
 if __name__ == "__main__":

@@ -28,6 +28,7 @@ from schnetpack_tpu_torch.ops.radial import gaussian_rbf_table
 from torch_port_cases import (
     MIX_ATOL, MIX_INPUTS, MIX_RTOL, MSG_ATOL, MSG_RTOL, cell_case,
     cfconv_case, message_case, mixing_case, slab_case, torch_message_args,
+    wide_column_case,
 )
 
 #: the source-index modes of K11, K20 and K21 (ColRefs.shard_axis)
@@ -585,9 +586,9 @@ def test_select_kernels_match_twin(cuda_device, D):
 @pytest.mark.gpu
 @pytest.mark.parametrize("P", [500, 1000])
 def test_fold_kernel_tiles_rows_past_shared_memory(cuda_device, P):
-    """K14 at a capacity whose [P, 128] column sums do not fit a block's
-    shared memory (P > 453 at D = 576): the rows split into tiles (1000:
-    two full tiles and a ragged one), held to the twin; also as the
+    """K14 at capacities whose [P, 128] column sums would not fit a
+    block's shared memory (P > 453 at D = 576), which the per-row sums on
+    the destination runs never hold, held to the twin; also as the
     expand's VJP."""
     nx, ny, Ktot, D = 2, 2, 700, 576
     rng = np.random.RandomState(P)
@@ -607,6 +608,75 @@ def test_fold_kernel_tiles_rows_past_shared_memory(cuda_device, P):
     (dT,) = torch.autograd.grad(sel.column_expand_op(table, refs), table,
                                 edges)
     torch.testing.assert_close(dT, want, rtol=MSG_RTOL, atol=MSG_ATOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("P", [1100, 1500])
+def test_geo_bwd_kernel_takes_any_capacity(cuda_device, P):
+    """K8 at capacities above 1,052, where its per-column [9][P][3] shared
+    sums asked for more than a block's 227 KB and failed at launch; the
+    per-row sums on the source and destination runs hold no per-P state.
+    Held to the twin, on a layout with empty rows and padded slots."""
+    c = wide_column_case(P, seed=P)
+    refs = ColRefs(torch.tensor(c["qcol"], device=cuda_device),
+                   torch.tensor(c["dcol"], device=cuda_device), P,
+                   c["ksizes"])
+    cw = gaussian_rbf_table(12, 3.0, device=cuda_device)
+    gargs = (torch.tensor(c["Rs"], device=cuda_device),
+             torch.tensor(c["coff_fm"], device=cuda_device), refs, cw, 3.0)
+    nx, ny, Ktot = refs.qcol.shape
+    g = torch.randn((nx, ny, 16, Ktot),
+                    generator=torch.Generator().manual_seed(P))
+    g = g.to(cuda_device)
+    torch.testing.assert_close(geo_op.geo_bwd_kernel(g, *gargs),
+                               geo_op.geo_bwd_plain(g, *gargs),
+                               rtol=MSG_RTOL, atol=MSG_ATOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [3, 9, 576])
+def test_fold_kernel_on_empty_rows(cuda_device, D):
+    """K14 at the positions' width, an odd width (the scalar path) and
+    SO3net's 9 x 64, on a layout whose column 0 has no real slot and
+    whose rows past each column's atoms have none: those rows are 0 and
+    the others match the twin."""
+    c = wide_column_case(200, seed=D, Ktot=700, n_atoms=150)
+    drop = np.zeros(c["qcol"].shape, bool)
+    drop[0, 0] = True
+    qcol = np.where(drop, -1, c["qcol"])
+    dcol = np.where(drop, -1, c["dcol"])
+    refs = ColRefs(torch.tensor(qcol, device=cuda_device),
+                   torch.tensor(dcol, device=cuda_device), 200, c["ksizes"])
+    edges = torch.randn((3, 3, 700, D),
+                        generator=torch.Generator().manual_seed(D))
+    edges = edges.to(cuda_device)
+    got = sel.fold_fwd_kernel(edges, refs)
+    torch.testing.assert_close(got, sel.fold_fwd_plain(edges, refs),
+                               rtol=MSG_RTOL, atol=MSG_ATOL)
+    rows = got.view(9, 200, D)
+    assert bool((rows[0] == 0).all()) and bool((rows[:, 150:] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", [0, 3])
+def test_fold_and_geo_bwd_kernels_are_deterministic(cuda_device, seed):
+    """K14 (at D = 3 and 576) and K8 give bitwise equal outputs on two
+    calls: each output row has one writer and a fixed order of sums."""
+    c = message_case(seed=seed)
+    t, refs, cw = torch_message_args(c, cuda_device)
+    nx, ny, Ktot = refs.qcol.shape
+    gen = torch.Generator().manual_seed(seed)
+    for D in (3, 576):
+        edges = torch.randn((nx, ny, Ktot, D), generator=gen).to(cuda_device)
+        first = sel.fold_fwd_kernel(edges, refs)
+        torch.testing.assert_close(sel.fold_fwd_kernel(edges, refs), first,
+                                   rtol=0, atol=0)
+    g = torch.randn((nx, ny, c["B"] + 4, Ktot), generator=gen)
+    g = g.to(cuda_device)
+    gargs = (t["Rs"], t["coff_fm"], refs, cw, c["cutoff"])
+    first = geo_op.geo_bwd_kernel(g, *gargs)
+    torch.testing.assert_close(geo_op.geo_bwd_kernel(g, *gargs), first,
+                               rtol=0, atol=0)
 
 
 def mode_case(grid, mode, dev, F=32, B=8, seed=0):

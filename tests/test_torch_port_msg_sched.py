@@ -45,7 +45,7 @@ def test_destination_order_sorts_the_real_slots(seed):
     come last; the counts are the slots of each destination row."""
     _, _, refs, _ = _refs(seed)
     nx, ny, Ktot = refs.qcol.shape
-    dsorted, cnt = destination_order(refs)
+    dsorted, cnt, _ = destination_order(refs)
     qcol, dcol = refs.qcol.reshape(-1), refs.dcol.reshape(-1)
     n_real = int((qcol >= 0).sum())
     head = dsorted[:n_real].long()
@@ -67,7 +67,7 @@ def test_row_groups_cover_every_row_once(G):
     on the source order alike."""
     _, _, refs, _ = _refs(1)
     nx, ny, _ = refs.qcol.shape
-    for _, cnt in (destination_order(refs), source_order(refs)[:2]):
+    for _, cnt, _ in (destination_order(refs), source_order(refs)):
         per_row = cnt.view(nx * ny, refs.P)
         grp = row_groups(per_row, G)
         assert grp.shape == (nx * ny, G + 1, 2) and grp.dtype == torch.int32

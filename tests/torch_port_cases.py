@@ -47,6 +47,30 @@ def torch_message_args(c, device="cpu"):
     return t, refs, cw
 
 
+def wide_column_case(P, seed, Ktot=1200, n_atoms=None):
+    """A synthetic 3 x 3-column layout at capacity ``P`` (K8's and K14's
+    capacity cases): random source and destination rows among each
+    column's first ``n_atoms`` (default P - 7) rows, a fifth of the slots
+    padded, bucket sizes Ktot // 9, positions in a 2 A cube and per-slot
+    offsets in [-3, 3] A, so that every real slot has d > 0 and, at a
+    3 A cutoff, some lie inside it and some beyond."""
+    rng = np.random.RandomState(seed)
+    nx = ny = 3
+    n_atoms = n_atoms or P - 7
+    qcol = rng.randint(0, n_atoms, size=(nx, ny, Ktot)).astype(np.int32)
+    dcol = rng.randint(0, n_atoms, size=(nx, ny, Ktot)).astype(np.int32)
+    pad = rng.rand(nx, ny, Ktot) < 0.2
+    qcol[pad] = dcol[pad] = -1
+    dcol[0, 0, :2] = (0, n_atoms - 1)           # the first and last rows
+    qcol[0, 0, :2] = (1, 2)
+    ksizes = (Ktot // 9,) * 8 + (Ktot - 8 * (Ktot // 9),)
+    Rs = rng.uniform(0.0, 2.0, size=(nx * ny * P, 3)).astype(np.float32)
+    coff_fm = rng.uniform(-3.0, 3.0, size=(nx, ny, 3, Ktot)).astype(
+        np.float32)
+    return dict(qcol=qcol, dcol=dcol, P=P, ksizes=ksizes, Rs=Rs,
+                coff_fm=coff_fm)
+
+
 def cfconv_case(F=32, B=8, seed=21, n=100, L=10.0):
     """Inputs of ``tests/test_schnet_columns.py::test_kernel_matches_xla_
     and_grads``: a random box, synthetic raw-phi geometry zeroed at padded
