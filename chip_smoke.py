@@ -906,12 +906,12 @@ def cell_kernel_phase(calc, system, seed, dev):
              lambda: mix.painn_mixing_bwd_plain(*xargs, g_dq, g_dmu),
              (xargs[:9], g_dq, g_dmu), 42 * F * F * Ap,
              tc_flops=3 * 42 * F * F * Ap),
-        case("cell_gather_fwd", "cellblock_gather.cu",
+        case("cell_gather_fwd", "colblock_select.cu",
              "cellblock_pallas.py:88",
              lambda: (cg.cell_gather_fwd_kernel(R, refs),),
              lambda: (cg.cell_gather_plain(R, refs),), (R, refs.qidx), 0,
              lambda: R.index_select(0, jf).mul_(jm)),
-        case("cell_gather_bwd", "cellblock_gather.cu",
+        case("cell_gather_bwd", "colblock_select.cu",
              "cellblock_pallas.py:143",
              lambda: (cg.cell_gather_bwd_kernel(g3, refs),),
              lambda: (cg.cell_gather_bwd_plain(g3, refs),),

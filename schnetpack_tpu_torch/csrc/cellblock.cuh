@@ -1,6 +1,6 @@
-// The 27-cell atom layout shared by cellblock_gather.cu (K16/K17) and the
-// message bodies' cell index mode (colblock_message.cu, K18;
-// colblock_message_bwd.cu, K19).
+// The 27-cell atom layout shared by the cell index modes of the select
+// kernels (colblock_select.cu, K16) and of the message bodies
+// (colblock_message.cu, K18; colblock_message_bwd.cu, K19).
 //
 // Atoms are sorted into nx*ny*nz cells of C rows (cell id (x*ny + y)*nz +
 // z, row cell*C + s).  Edge slot e = a*K + k belongs to destination row a;
@@ -34,16 +34,3 @@ struct CellStack {
     dst = a;
   }
 };
-
-// source row of edge slot e with code q >= 0
-__device__ __forceinline__ int cell_source_row(int e, int q, int nx, int ny,
-                                               int nz, int C, int K) {
-  const int Kt = nz * C * K, col = e / Kt;
-  int c9, src, dst;
-  CellStack{nz, C, K}.decode(e - col * Kt, q, c9, src, dst);
-  const int cx = col / ny, cy = col - cx * ny;
-  int sx = cx + c9 / 3 - 1, sy = cy + c9 % 3 - 1;
-  sx += sx < 0 ? nx : (sx >= nx ? -nx : 0);
-  sy += sy < 0 ? ny : (sy >= ny ? -ny : 0);
-  return (sx * ny + sy) * nz * C + src;
-}

@@ -55,8 +55,7 @@ SIGNATURES = {
     "spk_gather_fwd": [_P] * 4 + [_I, _P],
     "spk_expand_fwd": [_P] * 4 + [_I, _P],
     "spk_row_sums": [_P] * 4 + [_I, _I, _P],
-    "spk_cell_gather_fwd": [_P] * 3 + [_I] * 6 + [_P],
-    "spk_cell_gather_bwd": [_P] * 4 + [_I, _I, _P],
+    "spk_cell_gather_fwd": [_P] * 4 + [_I, _P],
     "spk_cell_msg_fwd": [_P] * 9 + [_I] * 8 + [_P],
     "spk_cell_msg_bwd": [_P] * 13 + [_I] * 8 + [_P],
 }

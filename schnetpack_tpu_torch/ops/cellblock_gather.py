@@ -5,28 +5,33 @@ Port of ``schnetpack_tpu.ops.cellblock.cell_gather`` and its Pallas
 kernels (``ops/cellblock_pallas.py:88`` forward, ``:143`` backward):
 ``cell_gather(table [A', D], qidx [nx, ny, nz, C, K]) -> [A', K, D]``
 picks each edge slot's source row, zeros where ``qidx`` is -1; its VJP is
-the per-source-row sum, the transpose (``cellblock.py:165-185``).  The
-kernels (``csrc/cellblock_gather.cu``) take any width D; the MD path
-gathers the positions (D = 3).
+the per-source-row sum, the transpose (``cellblock.py:165-185``).  Both
+run on the column select kernels (``csrc/colblock_select.cu``) over the
+layout's stack view (``csrc/cellblock.cuh``: the nz cells of an (x, y) as
+one column of nz*C rows): K16 is the gather in a cell index mode, which
+decodes each slot's code in the kernel, and K17 the row sums that K12
+and K14 run, on this layout's source order.  They take any width D; the
+MD path gathers the positions (D = 3).
 
 Slot (a, k) with code q = o*C + s names row s of the neighbor cell
 (x+dx, y+dy, z+dz) (periodic) of the destination's cell (x, y, z), with
 (dx, dy, dz) = ``OFFSETS[o]``.  ``CellRefs`` carries ``qidx`` and caches
 what is derived from it once per neighbor state: the decoded source rows,
-the source-sorted slot order that K17 walks, and the message kernels'
-schedules on the stack view (``csrc/cellblock.cuh``: the nz cells of an
-(x, y) as one column of nz*C rows), which K18 and K19 walk.  On CPU
-tensors the op runs the twins, on CUDA tensors the kernels, and it raises
-for any other device.
+K16's launch arguments, the source-sorted slot order that K17 walks, and
+the message kernels' schedules on the stack view, which K18 and K19
+walk.  On CPU tensors the op runs the twins, on CUDA tensors the kernels,
+and it raises for any other device.
 """
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass, field
 
 import torch
 
 from . import _build
-from .colblock import row_groups
+from .colblock import row_groups, sorted_runs
+from .colblock_select import SelectArgs
 
 #: kernel launches since the last reset (painn_cell MD: K16 1, K17 1 per
 #: step)
@@ -84,20 +89,16 @@ def decode_cell_j(refs: CellRefs):
 
 
 def source_order(refs: CellRefs):
-    """Every real edge slot a*K + k sorted by source row, padded slots
-    last (``esorted`` int32 [A'*K]), and the start of each row's run
-    (``rowptr`` int32 [A'+1]).  Computed on the device without a host
+    """Every edge slot a*K + k sorted by its source row, padded slots last
+    (``esorted`` int32 [A'*K]), the slots per source row (``cnt`` int32
+    [A']) and the start of each row's run (``rowptr`` int32 [A'+1]), as
+    ``colblock.sorted_runs`` gives them: on the device, without a host
     synchronisation, once per ``refs``."""
-    if "src" in refs.cache:
-        return refs.cache["src"]
-    n = refs.n_rows
-    j, valid = decode_cell_j(refs)
-    key = torch.where(valid, j, n).reshape(-1)
-    esorted = torch.argsort(key, stable=True).to(torch.int32)
-    cnt = torch.zeros(n + 1, dtype=torch.int64, device=key.device)
-    cnt = cnt.index_add_(0, key, torch.ones_like(key))[:-1]
-    rowptr = torch.cat([cnt.new_zeros(1), cnt.cumsum(0)]).to(torch.int32)
-    refs.cache["src"] = (esorted, rowptr)
+    if "src" not in refs.cache:
+        n = refs.n_rows
+        j, valid = decode_cell_j(refs)
+        refs.cache["src"] = sorted_runs(torch.where(valid, j, n).reshape(-1),
+                                        n)
     return refs.cache["src"]
 
 
@@ -126,15 +127,26 @@ def stack_source_schedule(refs: CellRefs, G: int):
     key = ("stack_src", G)
     if key not in refs.cache:
         n_cols, P, _ = refs.stack
-        esorted, rowptr = source_order(refs)
-        cnt = torch.diff(rowptr.long()).reshape(n_cols, P)
-        refs.cache[key] = (esorted, row_groups(cnt, G))
+        esorted, cnt, _ = source_order(refs)
+        refs.cache[key] = (esorted, row_groups(cnt.view(n_cols, P), G))
     return refs.cache[key]
 
 
 def _check_refs(refs: CellRefs):
     _build.check(refs.qidx, "qidx", refs.dims, torch.int32)
     return refs.n_rows, refs.dims[4]
+
+
+def _select_args(refs: CellRefs) -> int:
+    """Address of K16's ``SelectArgs``, made once per refs: the stack
+    view's column grid, rows and slots, and the cell index mode's nz, C
+    and K."""
+    if "select_args" not in refs.cache:
+        nx, ny, nz, C, K = refs.dims
+        _, P, Kt = refs.stack
+        refs.cache["select_args"] = SelectArgs(nx=nx, ny=ny, P=P, Ktot=Kt,
+                                               nz=nz, C=C, K=K)
+    return ctypes.addressof(refs.cache["select_args"])
 
 
 def cell_gather_fwd_kernel(table, qidx):
@@ -144,24 +156,24 @@ def cell_gather_fwd_kernel(table, qidx):
     D = table.shape[-1]
     _build.check(table, "table", (Ap, D))
     out = table.new_empty((Ap, K, D))
-    p = _build.ptr
-    _build.launch("spk_cell_gather_fwd", p(table), p(refs.qidx), p(out),
-                  *refs.dims, D)
+    _build.launch("spk_cell_gather_fwd", table.data_ptr(),
+                  refs.qidx.data_ptr(), out.data_ptr(), _select_args(refs),
+                  D)
     LAUNCHES["cell_gather_fwd"] += 1
     return out
 
 
 def cell_gather_bwd_kernel(g, qidx):
-    """K17: the gather's VJP, dT [A', D] = per-source-row sums of g."""
+    """K17: the gather's VJP, dT [A', D] = per-source-row sums of g (K12's
+    row sums on ``source_order``)."""
     refs = as_refs(qidx)
     Ap, K = _check_refs(refs)
     D = g.shape[-1]
     _build.check(g, "g", (Ap, K, D))
-    esorted, rowptr = source_order(refs)
+    esorted, _, rowptr = source_order(refs)
     dT = g.new_empty((Ap, D))
     p = _build.ptr
-    _build.launch("spk_cell_gather_bwd", p(g), p(esorted), p(rowptr), p(dT),
-                  Ap, D)
+    _build.launch("spk_row_sums", p(g), p(esorted), p(rowptr), p(dT), Ap, D)
     LAUNCHES["cell_gather_bwd"] += 1
     return dT
 

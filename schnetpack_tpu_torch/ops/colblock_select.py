@@ -17,9 +17,11 @@ slab path's halo'd tables (``_gather_hx_call``/``_gather_hx_bwd_call``,
 ``colblock_shard.py:131-199``), in the source-index mode of the refs.
 The kernels (``csrc/colblock_select.cu``) take any width D and any
 capacity P: the positions (D = 3, which K11 and K13 copy one slot a
-thread) and SO3net's flattened features (D = 9 x F).  K12 and K14 are one
-kernel, a sum of each row's run of sorted slots, on the source order and
-on the destination order of the refs.  On CPU
+thread and K12 and K14 sum ``ROW_LANES`` lanes a row) and SO3net's
+flattened features (D = 9 x F).  K12 and K14 are one kernel, a sum of
+each row's run of sorted slots, on the source order and on the
+destination order of the refs.  The 27-cell layout's gather and its VJP
+(K16/K17, ``ops/cellblock_gather.py``) run on the same kernels.  On CPU
 tensors the ops run the twins: the plain gather, expand and fold of
 ``ops/colblock.py`` and the gather's transpose.  On CUDA tensors they
 launch the kernels or raise.
@@ -40,18 +42,23 @@ from .colblock import (
 #: MD: K11 4, K12 3, K13 4, K14 4 per step; painn_slab: 1 each, K11/K12 in
 #: the halo_x mode)
 LAUNCHES = {"gather_fwd": 0, "gather_bwd": 0, "expand_fwd": 0, "fold_fwd": 0}
+#: lanes of the group that sums a row at a narrow width (D < 8, D % 4 != 0;
+#: ``kRowLanes`` of ``csrc/colblock_select.cu``)
+ROW_LANES = 4
 
 
 class SelectArgs(ctypes.Structure):
-    """K11/K13's launch arguments that the layout fixes (``SelectArgs`` in
-    ``csrc/colblock_select.cu``), made once per layout and mode and passed
-    by address: one argument where there would be seven to convert on
-    every launch."""
+    """K11/K13/K16's launch arguments that the layout fixes (``SelectArgs``
+    in ``csrc/colblock_select.cu``), made once per layout and mode and
+    passed by address: one argument where there would be seven to convert
+    on every launch.  nz, C and K are the 27-cell layout's (0 on the
+    column layout)."""
 
     _fields_ = [("nx", ctypes.c_int), ("ny", ctypes.c_int),
                 ("P", ctypes.c_int), ("Ktot", ctypes.c_int),
                 ("koffs", ctypes.c_int * 10), ("hx", ctypes.c_int),
-                ("hy", ctypes.c_int)]
+                ("hy", ctypes.c_int), ("nz", ctypes.c_int),
+                ("C", ctypes.c_int), ("K", ctypes.c_int)]
 
 
 def _check_refs(refs: ColRefs):

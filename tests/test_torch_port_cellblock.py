@@ -135,7 +135,8 @@ def test_cell_layout_pins_raise_as_in_jax():
 def test_decoded_source_rows_are_nbh_idx(box):
     """The twins decode qidx themselves: the source row of every real slot
     is the layout's nbh_idx, and the source-sorted schedule lists each
-    real slot once, grouped by that row."""
+    real slot once, grouped by that row, with its counts and row pointers
+    (int32, ``colblock.sorted_runs``)."""
     R, rc, cell, pbc = _boxes()[box]
     lay = build_cell_layout(R, rc, cell, pbc)
     refs = cg.CellRefs(torch.tensor(lay.qidx))
@@ -143,7 +144,9 @@ def test_decoded_source_rows_are_nbh_idx(box):
     np.testing.assert_array_equal(valid.numpy(), lay.nbh_mask > 0)
     np.testing.assert_array_equal(j.numpy()[lay.nbh_mask > 0],
                                   lay.nbh_idx[lay.nbh_mask > 0])
-    esorted, rowptr = cg.source_order(refs)
+    esorted, cnt, rowptr = cg.source_order(refs)
+    assert esorted.dtype == cnt.dtype == rowptr.dtype == torch.int32
+    assert torch.equal(cnt, rowptr.diff())
     n = int(valid.sum())
     assert int(rowptr[-1]) == n
     slots = esorted[:n].long()

@@ -4,7 +4,9 @@ K14, the per-destination fold (``csrc/colblock_select.cu::row_sum_kernel``,
 the body K12 runs on the source order), sums each destination row's run
 of slots in ``colblock.destination_order`` (the message forward's
 destination order, with its row pointers) in slot order: one thread a
-(row, lane), each output row written once, a row with no slot 0.  K8, the
+(row, lane), each output row written once, a row with no slot 0; at
+D = 3 a group of ``ROW_LANES`` lanes a row (``row_sum_narrow_kernel``,
+walked in ``torch_port_cases.narrow_row_sum_walk``).  K8, the
 raw-phi geometry VJP (``csrc/colblock_geo.cu``), is two passes: (a) one
 thread a real edge slot on K5's grid chains the slot's cotangent back to
 its grij; (b) one thread a row adds the grij of its run in the source
@@ -36,7 +38,7 @@ from schnetpack_tpu_torch.ops.colblock import (
 )
 from schnetpack_tpu_torch.ops.radial import gaussian_rbf_table
 from torch_port_cases import (
-    MSG_ATOL, MSG_RTOL, message_case, wide_column_case,
+    MSG_ATOL, MSG_RTOL, message_case, narrow_row_sum_walk, wide_column_case,
 )
 
 #: threads of a K12/K14 block, and the cap on its grid (``spk_row_sums``)
@@ -100,9 +102,15 @@ def _run_sums(vals, order, rowptr):
 def _row_sum_walk(vals, order, rowptr):
     """K12/K14 (``row_sum_kernel``) on edge values ``vals`` [E, D]: the
     grid-stride threads of ``spk_row_sums`` over (row, lane), each
-    writing its (row, lane) once.  Returns (out, reads per slot, writes
-    per output element)."""
+    writing its (row, lane) once; at a narrow width (D < 8, D % 4 != 0)
+    ``row_sum_narrow_kernel``'s lane groups, one lane writing each
+    element.  Returns (out, reads per slot, writes per output
+    element)."""
     A, D = len(rowptr) - 1, vals.shape[1]
+    if D % 4 != 0 and D < 8:
+        out, _, reads = narrow_row_sum_walk(vals, order, rowptr,
+                                            sel.ROW_LANES)
+        return out, reads, torch.ones((A, D), dtype=torch.int64)
     nvec = D // 4 if D % 4 == 0 else D
     total = A * nvec
     blocks = min(-(-total // ROW_THREADS), ROW_BLOCK_CAP)

@@ -20,15 +20,17 @@ from schnetpack_tpu_torch.ops import colblock_message as msg
 from schnetpack_tpu_torch.ops import painn_fused as pf
 from schnetpack_tpu_torch.ops import painn_mixing as mix
 from schnetpack_tpu_torch.ops import schnet_columns as schnet
-from schnetpack_tpu_torch.ops.colblock import ColRefs
+from schnetpack_tpu_torch.ops.colblock import (
+    ColRefs, destination_order, source_order,
+)
 from schnetpack_tpu_torch.ops.colblock_shard import (
     COLS_AXIS, COLS_AXIS_Y, _halo_table,
 )
 from schnetpack_tpu_torch.ops.radial import gaussian_rbf_table
 from torch_port_cases import (
     MIX_ATOL, MIX_INPUTS, MIX_RTOL, MSG_ATOL, MSG_RTOL, cell_case,
-    cfconv_case, message_case, mixing_case, slab_case, torch_message_args,
-    wide_column_case,
+    cfconv_case, message_case, mixing_case, narrow_row_sum_walk, slab_case,
+    torch_message_args, wide_column_case,
 )
 
 #: the source-index modes of K11, K20 and K21 (ColRefs.shard_axis)
@@ -778,23 +780,32 @@ def test_halo_gather_kernels_match_twin(cuda_device, mode, grid, D):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("D", [3, 13, 768])
-def test_cell_gather_kernels_match_twin(cuda_device, D):
-    """K16 and K17 at the positions' width, an odd width (the scalar path)
-    and PaiNN's xmu width 6 x 128, on an aliased 2-cell grid, and the op
-    pairing them."""
-    c = cell_case(seed=D % 5)
+@pytest.mark.parametrize("grid", ["aliased", "nz1"])
+@pytest.mark.parametrize("D", [3, 13, 768, 1, 2, 5])
+def test_cell_gather_kernels_match_twin(cuda_device, D, grid):
+    """K16 and K17 at the positions' width, an odd width (the scalar path),
+    PaiNN's xmu width 6 x 128 and the narrow widths 1, 2 and 5, on an
+    aliased 2-cell grid and a grid with nz = 1, and the op pairing them:
+    K16 (a copy) equals its twin bit for bit, and at the narrow widths
+    K17 (the narrow row sums) equals their walk bit for bit."""
+    c = cell_case(seed=D % 5, dims=(2, 2, 1) if grid == "nz1" else None)
     refs = cg.CellRefs(torch.tensor(c["qidx"], device=cuda_device))
+    assert (refs.dims[2] == 1) == (grid == "nz1")
     Ap, K = c["lay"].nbh_idx.shape
     g = torch.Generator().manual_seed(D)
     table = torch.randn((Ap, D), generator=g).to(cuda_device)
     edges = torch.randn((Ap, K, D), generator=g).to(cuda_device)
     torch.testing.assert_close(cg.cell_gather_fwd_kernel(table, refs),
                                cg.cell_gather_plain(table, refs),
+                               rtol=0, atol=0)
+    dT = cg.cell_gather_bwd_kernel(edges, refs)
+    torch.testing.assert_close(dT, cg.cell_gather_bwd_plain(edges, refs),
                                rtol=MSG_RTOL, atol=MSG_ATOL)
-    torch.testing.assert_close(cg.cell_gather_bwd_kernel(edges, refs),
-                               cg.cell_gather_bwd_plain(edges, refs),
-                               rtol=MSG_RTOL, atol=MSG_ATOL)
+    if D % 4 != 0 and D < 8:
+        esorted, _, rowptr = cg.source_order(refs)
+        walk = narrow_row_sum_walk(edges.view(-1, D).cpu(), esorted.cpu(),
+                                   rowptr.cpu(), sel.ROW_LANES)[0]
+        torch.testing.assert_close(dT.cpu(), walk, rtol=0, atol=0)
     before = dict(cg.LAUNCHES)
     t = table.clone().requires_grad_(True)
     (dT,) = torch.autograd.grad(cg.cell_gather(t, refs), t, edges)
@@ -802,6 +813,41 @@ def test_cell_gather_kernels_match_twin(cuda_device, D):
                                rtol=MSG_RTOL, atol=MSG_ATOL)
     assert {k: cg.LAUNCHES[k] - before[k] for k in before} == {
         "cell_gather_fwd": 1, "cell_gather_bwd": 1}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["columns", "P1100"])
+@pytest.mark.parametrize("D", [1, 2, 3, 5])
+def test_narrow_row_sums_match_twin_and_walk(cuda_device, D, case):
+    """K12 and K14 at the narrow widths (a group of ``ROW_LANES`` lanes a
+    row) on a column layout and at P = 1,100 (above the 1,052 rows that
+    K8's shared sums once capped): each within the message tolerance of
+    its twin and bit for bit equal to the walk of its lane split and
+    shuffle order on its order's runs, and equal over two calls."""
+    if case == "columns":
+        refs = ColRefs.from_layout(message_case(seed=D)["lay"],
+                                   device=cuda_device)
+    else:
+        c = wide_column_case(1100, seed=D)
+        refs = ColRefs(torch.tensor(c["qcol"], device=cuda_device),
+                       torch.tensor(c["dcol"], device=cuda_device), 1100,
+                       c["ksizes"])
+    nx, ny, Ktot = refs.qcol.shape
+    edges = torch.randn((nx, ny, Ktot, D),
+                        generator=torch.Generator().manual_seed(D))
+    edges = edges.to(cuda_device)
+    for kern, plain, order in [
+            (sel.gather_bwd_kernel, sel.gather_bwd_plain, source_order),
+            (sel.fold_fwd_kernel, sel.fold_fwd_plain, destination_order)]:
+        got = kern(edges, refs)
+        torch.testing.assert_close(got, plain(edges, refs), rtol=MSG_RTOL,
+                                   atol=MSG_ATOL)
+        sorted_slots, _, rowptr = order(refs)
+        walk = narrow_row_sum_walk(edges.view(-1, D).cpu(),
+                                   sorted_slots.cpu(), rowptr.cpu(),
+                                   sel.ROW_LANES)[0]
+        torch.testing.assert_close(got.cpu(), walk, rtol=0, atol=0)
+        torch.testing.assert_close(kern(edges, refs), got, rtol=0, atol=0)
 
 
 #: the cell message cases: an aliased 2-cell grid and a 3-cell grid per

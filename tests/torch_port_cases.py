@@ -114,15 +114,16 @@ def mixing_case(A=37, F=32, seed=0):
 MIX_INPUTS = ("q", "mu", "dq", "dmu", "kmix", "k0", "b0", "k1", "b1")
 
 
-def cell_case(F=32, B=8, seed=9, n=90, L=10.0, cutoff=3.4):
+def cell_case(F=32, B=8, seed=9, n=90, L=10.0, cutoff=3.4, dims=None):
     """The box of ``tests/test_cellblock.py::TestFusedMessage``: a random
     periodic box in the 27-cell layout (a 2-cell grid per axis at these
-    sizes: offsets alias), with features xmu [A', 6F], a basis zeroed at
-    padded slots, directions and filter weights scaled as in
-    ``message_case``, and cotangents of dq and dmu."""
+    sizes: offsets alias; ``dims`` pins another grid), with features xmu
+    [A', 6F], a basis zeroed at padded slots, directions and filter
+    weights scaled as in ``message_case``, and cotangents of dq and
+    dmu."""
     rng = np.random.RandomState(seed)
     R, cell = random_box(n, L, seed)
-    lay = build_cell_layout(R, cutoff, cell, np.ones(3, bool))
+    lay = build_cell_layout(R, cutoff, cell, np.ones(3, bool), dims=dims)
     Ap, K = lay.nbh_idx.shape
 
     def r(*s, scale=1.0):
@@ -133,6 +134,35 @@ def cell_case(F=32, B=8, seed=9, n=90, L=10.0, cutoff=3.4):
         rbf=r(Ap, K, B + 1, scale=0.3) * lay.nbh_mask[..., None],
         dir=r(Ap, K, 3),
         FW=r(B + 1, 3 * F, scale=0.3), g_dq=r(Ap, F), g_dmu=r(Ap, 3 * F))
+
+
+def narrow_row_sum_walk(vals, order, rowptr, lanes):
+    """The narrow row sums of K12, K14 and K17 (``csrc/colblock_select.cu::
+    row_sum_narrow_kernel``) on edge values ``vals`` [E, D] in their f32
+    order: lane l of a row's group of ``lanes`` adds the slots
+    order[rowptr[r] + l], order[rowptr[r] + l + lanes], ... from 0, then
+    the group adds its partials by the butterfly of ``__shfl_xor_sync``
+    (at offsets lanes / 2, ..., 1, lane l taking lane l ^ offset's).
+    Returns the sums as lane d mod ``lanes`` writes element d, the lanes'
+    final partials [A, lanes, D] and the reads per slot."""
+    A, D = len(rowptr) - 1, vals.shape[1]
+    start, end = rowptr[:-1].long(), rowptr[1:].long()
+    lane = torch.arange(lanes)
+    part = torch.zeros((A, lanes, D), dtype=vals.dtype)
+    reads = torch.zeros(vals.shape[0], dtype=torch.int64)
+    steps = -(-int((end - start).max()) // lanes) if A else 0
+    for t in range(steps):
+        pos = start[:, None] + lane + t * lanes
+        live = pos < end[:, None]
+        e = order[pos[live]].long()
+        part[live] += vals[e]
+        reads.index_add_(0, e, torch.ones_like(e))
+    off = lanes // 2
+    while off:
+        part = part + part[:, lane ^ off]
+        off //= 2
+    d = torch.arange(D)
+    return part[:, d % lanes, d], part, reads
 
 
 def slab_case(grid, F=32, B=8, seed=0):
