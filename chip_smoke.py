@@ -15,7 +15,9 @@ Phases (any failure exits non-zero before the last line is printed):
    cotangents from --seed; K6/K7 on the geo that K5 computes there, K15 on
    K5's geo without the d channel, K9/K10 on the raw-phi geo of K5's raw
    form, with the trained SchNet's first filter network; K11-K14 at the
-   positions' width D = 3 and SO3net's D = 9 x 64; K1/K2 again at F = 256
+   positions' width D = 3 and SO3net's D = 9 x 64, and at FieldSchNet's
+   D = 128 and 384 on the field_schnet run's layout (sub-rows "d128",
+   "d384"); K1/K2 again at F = 256
    on the same layout (a sub-row); K2, K7 and K15 also in
    their wgrad instances, which return the filter-weight cotangent gFW, a
    sum over all ~200k edges: those are held to the twin evaluated in
@@ -52,9 +54,11 @@ Phases (any failure exits non-zero before the last line is printed):
    argon.npz``, and PaiNN on the 27-cell atom layout (``painn_cell``) and
    on the slab path (``painn_slab``, through ``make_sharded_column_eval``
    on one card) to ``port_ref_painn_argon.npz``, printing their force rms
-   against ``full``; then the gradient of the energy with respect to every
-   parameter of PaiNN-128x3 (``fuse`` full and hybrid, and on the slab
-   path) and SchNet-128x3 on that box, with the energy output only, against
+   against ``full``, and FieldSchNet-128x5 to ``tests/data/
+   port_ref_field_schnet_argon.npz``; then the gradient of the energy with
+   respect to every parameter of PaiNN-128x3 (``fuse`` full and hybrid,
+   and on the slab path) and SchNet-128x3 on that box, with the energy
+   output only, against
    ``tests/data/port_ref_{painn,schnet}_grad_argon.npz``: per leaf
    ||g - g_jax|| <= 1e-4 ||g_jax||, a leaf under 1e-3 of the largest
    leaf's norm against 1e-7 of that norm; the launches of one evaluation
@@ -71,20 +75,23 @@ Phases (any failure exits non-zero before the last line is printed):
    bench_painn_argon.msgpack``), the trained SchNet-128x3
    (``scripts/assets/bench_schnet_argon.msgpack``), the trained
    SO3net-64x3 (lmax 2, ``scripts/assets/bench_so3net_argon.msgpack``) and
-   the trained PaiNN with the trbf fixture's trainable Gaussian basis,
+   the trained PaiNN with the trbf fixture's trainable Gaussian basis and
+   the trained FieldSchNet-128x5 (``scripts/assets/
+   bench_field_schnet_argon.msgpack``, no field),
    Maxwell-Boltzmann momenta at 30 K, the column neighbor list (5 A
    cutoff, 0.6 A skin): a warm-up, a retighten of the capacities, then
    --steps timed steps, on PaiNN's hybrid path, PaiNN's full path,
    SchNet's path, SO3net's path and PaiNN's row-9 path (``painn_trbf``),
-   and PaiNN on the 27-cell atom layout (``painn_cell``, the same cutoff
-   and skin);
+   PaiNN on the 27-cell atom layout (``painn_cell``, the same cutoff
+   and skin) and FieldSchNet's path (``field_schnet``);
    check finite positions, 0 < T < 300 K, total-energy drift <= 1e-4
    eV/atom, the launches per step of every kernel (hybrid: K5 1,
    K6/K7/K3/K4 3; full: K1/K2/K3/K4 3; SchNet: K5 raw 1, K9/K10 3, K8 1;
    SO3net: K11 4, K12 3, K13 4, K14 4; painn_trbf: K11-K14 1 each,
-   K6/K15/K3/K4 3; painn_cell: K16/K17 1, K18/K19/K3/K4 3; every other
-   kernel 0), that on the column paths every rebuild after the retighten
-   went through the device unless it overflowed, and that painn_cell, whose
+   K6/K15/K3/K4 3; painn_cell: K16/K17 1, K18/K19/K3/K4 3;
+   field_schnet: K11 16, K12 14, K13 16, K14 16; every other kernel 0),
+   that on the column paths every rebuild after the retighten went through
+   the device unless it overflowed, and that painn_cell, whose
    layout has no device rebuild, rebuilt on the host only (printing the
    count and wall time of those builds and the ms/step without them);
    then 300 NVE steps of ``painn_slab`` through the port's
@@ -122,6 +129,8 @@ ASSET = {
                            "bench_schnet_argon.msgpack"),
     "so3net": os.path.join(ROOT, "scripts", "assets",
                            "bench_so3net_argon.msgpack"),
+    "field_schnet": os.path.join(ROOT, "scripts", "assets",
+                                 "bench_field_schnet_argon.msgpack"),
 }
 #: the JAX reference of each path (``scripts/make_port_reference*.py``)
 REFERENCE = {
@@ -130,7 +139,8 @@ REFERENCE = {
                        ("schnet", "schnet"), ("so3net", "so3net"),
                        ("painn_trbf", "painn_trbf"),
                        ("painn_bessel", "painn_bessel"),
-                       ("painn_cell", "painn")]
+                       ("painn_cell", "painn"),
+                       ("field_schnet", "field_schnet")]
 }
 CUTOFF, SKIN = 5.0, 0.6          # Angstrom
 RTOL, ATOL = 1e-4, 1e-5          # kernel vs twin, elementwise
@@ -165,7 +175,12 @@ TF32_FLOP_PER_S = 495e12         # TF32 on the tensor cores, dense, same
 #: kernel launches per MD step on each path (PaiNN's two message forms,
 #: SchNet, SO3net: the positions' gather and expand, then per block the
 #: feature gather and the message fold and, by autograd, their VJPs, with
-#: no gather VJP for block 0, whose input carries no gradient)
+#: no gather VJP for block 0, whose input carries no gradient;
+#: FieldSchNet: the positions' 1 each, then 15 gathers and 15 folds at
+#: D = 128 and 384 (the initial dipole update's, 3 a block, the last
+#: block's dipole update not computed), the folds' 15 VJPs and 13 gather
+#: VJPs (none for the initial update's and block 0's SchNet gathers, which
+#: read the frozen embedding))
 PER_STEP = {
     "hybrid": {"geo_fwd": 1, "msg_fwd_geo": 3, "msg_bwd_geores": 3,
                "mix_fwd": 3, "mix_bwd": 3},
@@ -173,6 +188,8 @@ PER_STEP = {
     "schnet": {"geo_fwd_raw": 1, "cf_fwd": 3, "cf_bwd": 3, "geo_bwd": 1},
     "so3net": {"gather_fwd": 4, "gather_bwd": 3, "expand_fwd": 4,
                "fold_fwd": 4},
+    "field_schnet": {"gather_fwd": 16, "gather_bwd": 14, "expand_fwd": 16,
+                     "fold_fwd": 16},
     "painn_trbf": {"gather_fwd": 1, "gather_bwd": 1, "expand_fwd": 1,
                    "fold_fwd": 1, "msg_fwd_geo": 3, "msg_bwd_src": 3,
                    "mix_fwd": 3, "mix_bwd": 3},
@@ -208,7 +225,8 @@ SLAB_T0 = 30.0                   # K
 KB_EV = 8.617333262e-5           # eV / K
 
 #: the MD paths of phase 6
-PATHS = ("hybrid", "full", "schnet", "so3net", "painn_trbf", "painn_cell")
+PATHS = ("hybrid", "full", "schnet", "so3net", "painn_trbf", "painn_cell",
+         "field_schnet")
 
 
 def ptxas_report(log: str, params):
@@ -340,7 +358,7 @@ def molecule(R, cell):
 
 
 def model_of(path):
-    return path if path in ("schnet", "so3net") else "painn"
+    return path if path in ("schnet", "so3net", "field_schnet") else "painn"
 
 
 def potential(path="full", forces=True):
@@ -351,7 +369,8 @@ def potential(path="full", forces=True):
     on the row-9 path with ``PairwiseDistances``: with the trbf fixture's
     trainable Gaussian basis ("painn_trbf") or a Bessel basis
     ("painn_bessel"), or PaiNN-128x3 with ``PairwiseDistances`` for the
-    27-cell atom layout ("painn_cell") and the slab path ("painn_slab");
+    27-cell atom layout ("painn_cell") and the slab path ("painn_slab"),
+    or FieldSchNet-128x5 with ``PairwiseDistances`` ("field_schnet");
     without ``forces`` the energy output only (the parameter gradients'
     model)."""
     from schnetpack_tpu_torch.atomistic import (
@@ -360,11 +379,17 @@ def potential(path="full", forces=True):
     from schnetpack_tpu_torch.convert import load_jax_params, params_from_jax
     from schnetpack_tpu_torch.model import NeuralNetworkPotential
     from schnetpack_tpu_torch.nn import BesselRBF, GaussianRBF
-    from schnetpack_tpu_torch.representation import PaiNN, SchNet, SO3net
+    from schnetpack_tpu_torch.representation import (
+        FieldSchNet, PaiNN, SchNet, SO3net,
+    )
 
     inputs = []
     radial_from = None
-    if path == "so3net":
+    if path == "field_schnet":
+        rep = FieldSchNet(n_atom_basis=128, n_interactions=5, n_rbf=20,
+                          cutoff=CUTOFF)
+        inputs = [PairwiseDistances()]
+    elif path == "so3net":
         rep = SO3net(n_atom_basis=64, n_interactions=3, lmax=2, n_rbf=20,
                      cutoff=CUTOFF)
         inputs = [PairwiseDistances()]
@@ -780,18 +805,16 @@ def schnet_kernel_phase(calc, system, seed, dev):
     return rows
 
 
-def select_kernel_phase(calc, system, seed, dev):
-    """K11-K14 against their twins at the SO3net run's shapes, at the
-    positions' width (D = 3) and the convolutions' (D = 9 F), each beside
-    its library call; returns one row per kernel at D = 9 F, with the
-    D = 3 numbers under "d3".  The sums are one add per real edge and
-    feature and need only the real slots' rows of their input; the copies
-    do no arithmetic."""
+def select_kernel_phase(calc, system, seed, dev, widths, tag=""):
+    """K11-K14 against their twins at the shapes of the MD run of ``calc``,
+    at each width D of ``widths`` (D = 3: the positions, as the table), each
+    beside its library call; returns the four rows of each width.  The sums
+    are one add per real edge and feature and need only the real slots'
+    rows of their input; the copies do no arithmetic."""
     from schnetpack_tpu_torch.ops import colblock_select as sel
     from schnetpack_tpu_torch.ops.colblock import decode_i, decode_j
 
     R, _, refs = run_inputs(calc, system)
-    rep = calc.model.representation
     Ap = R.shape[0]
     ne = real_edges(refs)
     nx, ny, Ktot = refs.qcol.shape
@@ -830,17 +853,17 @@ def select_kernel_phase(calc, system, seed, dev):
                      0, ipad, flat)),
         ]
 
-    D = rep.convs[0].cg_deg.shape[0] * rep.n_atom_basis
-    wide = cases(D, torch.randn((Ap, D), generator=g).to(dev),
-                 torch.randn((nx, ny, Ktot, D), generator=g).to(dev))
-    rows = check_kernels(wide)
-    del wide
-    narrow = cases(3, R, torch.randn((nx, ny, Ktot, 3), generator=g).to(dev))
-    for c in narrow:
-        c["tag"] = " (D = 3)"
-    for row, r3 in zip(rows, check_kernels(narrow)):
-        row["d3"] = sub_row(r3)
-    return rows
+    out = []
+    for D in widths:
+        table = (R if D == 3
+                 else torch.randn((Ap, D), generator=g).to(dev))
+        width = cases(D, table,
+                      torch.randn((nx, ny, Ktot, D), generator=g).to(dev))
+        for c in width:
+            c["tag"] = f" (D = {D}{tag})"
+        out.append(check_kernels(width))
+        del width
+    return out
 
 
 def cell_kernel_phase(calc, system, seed, dev):
@@ -1466,8 +1489,17 @@ def main():
                         dev)
     rows += schnet_kernel_phase(calculator(*potential("schnet")), system,
                                 args.seed, dev)
-    rows += select_kernel_phase(calculator(*potential("so3net")), system,
-                                args.seed, dev)
+    so3 = calculator(*potential("so3net"))
+    rep = so3.model.representation
+    rows_d9f, rows_d3 = select_kernel_phase(
+        so3, system, args.seed, dev,
+        ((rep.lmax + 1) ** 2 * rep.n_atom_basis, 3))
+    rows_field = select_kernel_phase(
+        calculator(*potential("field_schnet")), system, args.seed, dev,
+        (128, 384), ", field_schnet")
+    for row, r3, r128, r384 in zip(rows_d9f, rows_d3, *rows_field):
+        row.update(d3=sub_row(r3), d128=sub_row(r128), d384=sub_row(r384))
+    rows += rows_d9f
     edge_rows, halo_modes = edge_kernel_phase(pos, cell, args.seed, dev)
     rows += edge_rows
     by_name = {row["name"]: row for row in rows}
@@ -1510,7 +1542,8 @@ def main():
           f"{ms_step['full']:.3f}, SchNet {ms_step['schnet']:.3f}, SO3net "
           f"{ms_step['so3net']:.3f}, PaiNN trbf {ms_step['painn_trbf']:.3f}, "
           f"PaiNN cell {ms_step['painn_cell']:.3f}, PaiNN slab "
-          f"{ms_step['painn_slab']:.3f} on {smi}")
+          f"{ms_step['painn_slab']:.3f}, FieldSchNet "
+          f"{ms_step['field_schnet']:.3f} on {smi}")
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

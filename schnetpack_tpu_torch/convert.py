@@ -17,21 +17,35 @@ alone.  ``params_from_jax`` maps that flax tree to a ``state_dict`` of
   radial_from=npz)`` puts them into a tree that has none: the trained
   PaiNN asset with the centers and widths of a fixture.
 
-A SchNet tree (``representation/interaction_t/filter_0``) maps to
-``NeuralNetworkPotential(SchNet, [Atomwise, Forces])``: every Dense layer
-of an interaction (``filter_0``, ``filter_1``, ``in2f``, ``f2out_0``,
-``f2out_1``) becomes the ``nn.Linear`` of the same name, transposed; the
-cfconv op transposes the filter weights back to the kernels' [in, out].
-
-An SO3net tree (``representation/so3conv_t/filternet``) maps to
-``NeuralNetworkPotential(SO3net, [Atomwise, Forces], [PairwiseDistances])``:
-``so3conv_t/filternet``, ``mix{1,2,3}_t`` (no bias) and ``gate_t/scaling``
-become ``convs.t.filternet``, ``mix{1,2,3}.t`` and ``gates.t.scaling``,
-each transposed.
+Every other module maps by name (``_tree``): a flax ``Dense`` becomes the
+``nn.Linear`` of the same name, transposed, an ``nn.Embed`` table
+``{name}.weight``, and any other array (``element_embedding``, ``k_plus``,
+a gate's ``scaling``, a basis's ``centers``) the parameter of the same
+name.  Per-block modules sit in lists (``_LISTS``): ``interaction_t`` ->
+``interactions.t``, ``mixing_t`` -> ``mixing.t``, SO3net's ``so3conv_t``
+-> ``convs.t``, ``mix{1,2,3}_t`` -> ``mix{1,2,3}.t``, ``gate_t`` ->
+``gates.t``, FieldSchNet's ``field_inter_t``, ``dipole_inter_t`` and
+``dipole_update_t`` -> ``field_inter.t``, ``dipole_inter.t``,
+``dipole_update.t``; a shared block (``interaction_shared``, ...) is
+index 0 of its list.  So a SchNet tree (``representation/interaction_t/
+filter_0``) maps to ``NeuralNetworkPotential(SchNet, [Atomwise, Forces])``
+(the cfconv op transposes the filter weights back to the kernels' [in,
+out]), an SO3net tree (``so3conv_t/filternet``, ``mix{1,2,3}_t`` without
+bias, ``gate_t/scaling``) to ``NeuralNetworkPotential(SO3net, ...)``, and a
+FieldSchNet tree (``representation/{embedding, initial_dipole_update,
+interaction_t, field_inter_t, dipole_inter_t, dipole_update_t,
+nmm_embedding}``) to ``NeuralNetworkPotential(FieldSchNet, ...)``: e.g.
+``dipole_inter_2/filter_electric_field_1`` -> ``dipole_inter.2.
+filter_electric_field_1``, ``nmm_embedding/gyromagnetic`` ->
+``nmm_embedding.gyromagnetic.weight``.  A ``NuclearEmbedding`` at
+``embedding`` and the ``charge_embedding`` / ``spin_embedding`` trees
+(``query``, ``k_plus``, ``resmlp/residual_0/dense_0``, ...) map by name
+too.
 """
 from __future__ import annotations
 
 import pickle
+import re
 from typing import Dict, Optional
 
 import numpy as np
@@ -67,72 +81,78 @@ def _linear(prefix: str, dense: dict, out: Dict[str, np.ndarray]) -> None:
         out[f"{prefix}.bias"] = dense["linear"]["bias"]
 
 
-def _schnet(rep: dict, out: Dict[str, np.ndarray]) -> None:
-    T = sum(1 for k in rep if k.startswith("interaction_"))
-    for t in range(T):
-        inter = rep[f"interaction_{t}"]
-        for name in ("filter_0", "filter_1", "in2f", "f2out_0", "f2out_1"):
-            _linear(f"representation.interactions.{t}.{name}", inter[name],
-                    out)
+#: flax names of per-block modules -> the port's module lists
+_LISTS = {"interaction": "interactions", "mixing": "mixing",
+          "so3conv": "convs", "mix1": "mix1", "mix2": "mix2", "mix3": "mix3",
+          "gate": "gates", "field_inter": "field_inter",
+          "dipole_inter": "dipole_inter", "dipole_update": "dipole_update"}
+_BLOCK = re.compile(r"^(\w+?)_(\d+|shared)$")
 
 
-def _so3net(rep: dict, out: Dict[str, np.ndarray]) -> None:
-    T = sum(1 for k in rep if k.startswith("so3conv_"))
-    pre = "representation"
-    for t in range(T):
-        _linear(f"{pre}.convs.{t}.filternet", rep[f"so3conv_{t}"]["filternet"],
-                out)
-        for m in ("mix1", "mix2", "mix3"):
-            _linear(f"{pre}.{m}.{t}", rep[f"{m}_{t}"], out)
-        _linear(f"{pre}.gates.{t}.scaling", rep[f"gate_{t}"]["scaling"], out)
+def _module_path(name: str) -> str:
+    """The port's path of a flax module directly under the representation
+    (``interaction_2`` -> ``interactions.2``, ``so3conv_shared`` ->
+    ``convs.0``)."""
+    m = _BLOCK.match(name)
+    if m is None or m.group(1) not in _LISTS:
+        return name
+    t = m.group(2)
+    return f"{_LISTS[m.group(1)]}.{0 if t == 'shared' else t}"
 
 
-def _painn(rep: dict, out: Dict[str, np.ndarray]) -> None:
+def _tree(prefix: str, node: dict, out: Dict[str, np.ndarray]) -> None:
+    """Map a flax module tree by name (see the module docstring)."""
+    if isinstance(node.get("linear"), dict) and "kernel" in node["linear"]:
+        _linear(prefix, node, out)
+        return
+    for k, v in node.items():
+        if isinstance(v, dict):
+            _tree(f"{prefix}.{k}", v, out)
+        else:
+            out[f"{prefix}.{'weight' if k == 'embedding' else k}"] = v
+
+
+def _painn_filters(rep: dict, out: Dict[str, np.ndarray]) -> None:
+    """``filter_net`` [B, T*3F] (one [B, 3F] slice with shared filters) ->
+    ``FW_aug`` [T, B+1, 3F]."""
     kern = np.asarray(rep["filter_net"]["linear"]["kernel"], np.float32)
     bias = np.asarray(rep["filter_net"]["linear"]["bias"], np.float32)
     B = kern.shape[0]
     FWm = (np.eye(B, dtype=np.float32) @ kern + bias) - bias
-    T = sum(1 for k in rep if k.startswith("interaction_"))
-    F3 = kern.shape[1] // T
+    mix = next(v for k, v in rep.items() if k.startswith("mixing_"))
+    F3 = 3 * mix["intra_0"]["linear"]["bias"].shape[0]
     out["representation.FW_aug"] = np.stack([
         np.concatenate([FWm[:, t * F3:(t + 1) * F3],
                         bias[None, t * F3:(t + 1) * F3]], axis=0)
-        for t in range(T)])
+        for t in range(kern.shape[1] // F3)])
 
-    for t in range(T):
-        inter = rep[f"interaction_{t}"]
-        _linear(f"representation.interactions.{t}.ctx_0", inter["ctx_0"], out)
-        _linear(f"representation.interactions.{t}.ctx_1", inter["ctx_1"], out)
-        mix = rep[f"mixing_{t}"]
-        pre = f"representation.mixing.{t}"
-        out[f"{pre}.kmix"] = mix["channel_mix"]["linear"]["kernel"]
-        out[f"{pre}.k0"] = mix["intra_0"]["linear"]["kernel"]
-        out[f"{pre}.b0"] = mix["intra_0"]["linear"]["bias"]
-        out[f"{pre}.k1"] = mix["intra_1"]["linear"]["kernel"]
-        out[f"{pre}.b1"] = mix["intra_1"]["linear"]["bias"]
-    for name in rep.get("radial_basis", {}):
-        out[f"representation.radial_basis.{name}"] = rep["radial_basis"][name]
+
+def _painn_mixing(prefix: str, mix: dict, out: Dict[str, np.ndarray]) -> None:
+    """``mixing_t/{channel_mix, intra_0, intra_1}`` -> kmix, k0, b0, k1,
+    b1 in the kernels' (flax's) layout."""
+    out[f"{prefix}.kmix"] = mix["channel_mix"]["linear"]["kernel"]
+    out[f"{prefix}.k0"] = mix["intra_0"]["linear"]["kernel"]
+    out[f"{prefix}.b0"] = mix["intra_0"]["linear"]["bias"]
+    out[f"{prefix}.k1"] = mix["intra_1"]["linear"]["kernel"]
+    out[f"{prefix}.b1"] = mix["intra_1"]["linear"]["bias"]
 
 
 def params_from_jax(tree: dict) -> Dict[str, torch.Tensor]:
-    """State dict of the port's PaiNN, SchNet or SO3net potential from a
-    flax param tree."""
+    """State dict of the port's PaiNN, SchNet, SO3net or FieldSchNet
+    potential from a flax param tree."""
     p = tree["params"] if "params" in tree else tree
-    rep = p["representation"]
     out: Dict[str, np.ndarray] = {}
-    out["representation.embedding.weight"] = rep["embedding"]["embedding"]
-    if "so3conv_0" in rep:
-        _so3net(rep, out)
-    elif "filter_0" in rep.get("interaction_0", {}):
-        _schnet(rep, out)
-    else:
-        _painn(rep, out)
+    for name, node in p["representation"].items():
+        pre = f"representation.{_module_path(name)}"
+        if name == "filter_net":
+            _painn_filters(p["representation"], out)
+        elif name.startswith("mixing_"):
+            _painn_mixing(pre, node, out)
+        else:
+            _tree(pre, node, out)
 
-    heads = sorted(k for k in p if k.startswith("output_modules_"))
-    for h in heads:
-        outnet = p[h]["outnet"]
-        idx = h.split("_")[-1]
-        for name in sorted(outnet):
-            _linear(f"output_modules.{idx}.outnet.{name}", outnet[name], out)
+    for name, node in p.items():
+        if name.startswith("output_modules_"):
+            _tree(f"output_modules.{name.split('_')[-1]}", node, out)
     return {k: torch.as_tensor(np.ascontiguousarray(v, np.float32))
             for k, v in out.items()}

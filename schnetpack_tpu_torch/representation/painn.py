@@ -52,7 +52,15 @@ Parameters are held the way the kernels read them: ``FW_aug`` [T, B+1, 3F]
 row, ``painn.py:403-416``) and, per mixing block, ``kmix`` [F, 2F],
 ``k0`` [2F, F], ``b0``, ``k1`` [F, 3F], ``b1`` (flax kernel layout); a
 trainable basis adds ``radial_basis.centers`` and ``radial_basis.widths``.
-Shared filters and shared interactions raise NotImplementedError.
+
+The JAX package's model options (``painn.py:394-490``) are ported:
+``shared_filters`` keeps one [B, 3F] filter network, ``FW_aug`` [1, B+1,
+3F], whose one slice every interaction's message reads (autograd sums the
+T cotangents into it); ``shared_interactions`` keeps one context MLP and
+one mixing block (flax ``interaction_shared``, ``mixing_shared``; here
+``interactions.0``, ``mixing.0``) that run n_interactions times;
+``nuclear_embedding`` and ``electronic_embeddings`` as in SchNet
+(``nn/embedding.py``).
 """
 from __future__ import annotations
 
@@ -65,6 +73,7 @@ from .. import properties
 from ..atomistic.distances import cell_refs, column_refs
 from ..nn.base import Dense
 from ..nn.cutoff import CosineCutoff
+from ..nn.embedding import add_embeddings, embed_atoms
 from ..nn.radial import GaussianRBF
 from ..ops.activations import ACTIVATIONS
 from ..ops.colblock import ColRefs
@@ -137,13 +146,12 @@ class PaiNN(nn.Module):
                  cutoff_fn: Optional[nn.Module] = None,
                  shared_interactions: bool = False,
                  shared_filters: bool = False,
+                 nuclear_embedding: bool = False,
+                 electronic_embeddings: tuple = (),
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if fuse not in ("hybrid", "full"):
             raise ValueError(f"fuse must be 'hybrid' or 'full', got {fuse!r}")
-        if shared_interactions or shared_filters:
-            raise NotImplementedError(
-                "the port's PaiNN has no shared interactions or filters")
         F = n_atom_basis
         self.radial_basis = (GaussianRBF(n_rbf, cutoff) if radial_basis is None
                              else radial_basis)
@@ -157,22 +165,23 @@ class PaiNN(nn.Module):
         self.path = fuse if fused else "column_fm"
         self.n_atom_basis = F
         self.n_rbf = rb.n_rbf
+        self.n_interactions = n_interactions
         self.cutoff = float(self.cutoff_fn.cutoff if fused else cutoff)
-        self.embedding = nn.Embedding(max_z + 1, F)
-        with torch.no_grad():
-            self.embedding.weight.normal_(0.0, F ** -0.5,
-                                          generator=generator)
-        w = _xavier((self.n_rbf, n_interactions * 3 * F), generator)
+        add_embeddings(self, F, max_z, nuclear_embedding,
+                       electronic_embeddings, generator)
+        n_filt = 1 if shared_filters else n_interactions
+        w = _xavier((self.n_rbf, n_filt * 3 * F), generator)
         self.FW_aug = nn.Parameter(torch.cat(
-            [w.reshape(self.n_rbf, n_interactions, 3 * F),
-             torch.zeros(1, n_interactions, 3 * F)], 0).transpose(0, 1)
+            [w.reshape(self.n_rbf, n_filt, 3 * F),
+             torch.zeros(1, n_filt, 3 * F)], 0).transpose(0, 1)
             .contiguous())
+        n_blocks = 1 if shared_interactions else n_interactions
         self.interactions = nn.ModuleList(
             PaiNNInteraction(F, activation, generator)
-            for _ in range(n_interactions))
+            for _ in range(n_blocks))
         self.mixing = nn.ModuleList(
             PaiNNMixing(F, activation, epsilon, generator)
-            for _ in range(n_interactions))
+            for _ in range(n_blocks))
         self.register_buffer(
             "cw", gaussian_rbf_table(rb.n_rbf, rb.cutoff, rb.start)
             if fused else None, persistent=False)
@@ -253,12 +262,13 @@ class PaiNN(nn.Module):
                 "the cell_qcol/cell_dcol/cell_coff_fm keys) and the 27-cell "
                 "layout (cell_qidx, nbh_rij) only")
         F = self.n_atom_basis
-        q = self.embedding(inputs[properties.Z])
+        q = embed_atoms(self, inputs)
         mu = q.new_zeros((q.shape[0], 3 * F))
-        for t, (inter, mix) in enumerate(zip(self.interactions,
-                                             self.mixing)):
-            dq, dmu = message(inter(q), mu, self.FW_aug[t])
-            q, mu = mix(q, mu, dq, dmu)
+        for t in range(self.n_interactions):
+            b = t % len(self.interactions)
+            dq, dmu = message(self.interactions[b](q), mu,
+                              self.FW_aug[t % len(self.FW_aug)])
+            q, mu = self.mixing[b](q, mu, dq, dmu)
         inputs[properties.scalar_representation] = q
         inputs[properties.vector_representation] = mu.reshape(-1, 3, F)
         return inputs

@@ -11,9 +11,15 @@ product -> mix2 -> parametric gate -> mix3, residual add) ->
 
 Each convolution gathers the [A', (lmax+1)^2 * F] feature table with K11
 and folds its messages with K14; autograd runs their VJPs (K12, K13).
-Only the column layout with a non-trainable Gaussian basis and the cosine
-cutoff is implemented; shared interactions, the vector representation and
-the flat and dense layouts raise NotImplementedError.
+The basis and the cosine cutoff are plain PyTorch, so any of
+``nn.radial``'s bases runs (a trainable one's centers and widths are
+parameters, ``radial_basis.{centers, widths}``).  With
+``shared_interactions`` one block (flax ``so3conv_shared``, ``mix*_
+shared``, ``gate_shared``; here index 0 of each list) runs n_interactions
+times (``so3net.py:92-97``); ``return_vector_representation`` adds the
+l = 1 channels, rolled from (y, z, x) to (x, y, z), as
+``vector_representation`` [A', 3, F] (``so3net.py:122-125``).  The flat
+and dense layouts raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -25,13 +31,13 @@ from torch import nn
 from .. import properties
 from ..atomistic.distances import column_refs
 from ..nn.base import Dense
+from ..nn.radial import GaussianRBF
 from ..nn.so3 import (
     SO3Convolution, SO3ParametricGatedNonlinearity, SO3TensorProduct,
 )
 from ..ops import so3 as so3_ops
 from ..ops.cutoff import cosine_cutoff
 from ..ops.math import safe_norm
-from ..ops.radial import gaussian_rbf_table
 
 
 class SO3net(nn.Module):
@@ -41,23 +47,24 @@ class SO3net(nn.Module):
                  lmax: int = 2, n_rbf: int = 20, cutoff: float = 5.0,
                  max_z: int = 100, return_vector_representation: bool = False,
                  shared_interactions: bool = False,
+                 radial_basis: Optional[nn.Module] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if return_vector_representation or shared_interactions:
-            raise NotImplementedError(
-                "the port's SO3net has no vector representation and no "
-                "shared interactions")
         F = n_atom_basis
         self.n_atom_basis = F
+        self.n_interactions = n_interactions
         self.lmax = lmax
-        self.n_rbf = n_rbf
+        self.return_vector_representation = return_vector_representation
         self.cutoff = float(cutoff)
+        self.radial_basis = (GaussianRBF(n_rbf, cutoff) if radial_basis is None
+                             else radial_basis)
+        self.n_rbf = self.radial_basis.n_rbf
         self.embedding = nn.Embedding(max_z + 1, F)
         with torch.no_grad():
             self.embedding.weight.normal_(0.0, F ** -0.5, generator=generator)
-        T = range(n_interactions)
+        T = range(1 if shared_interactions else n_interactions)
         self.convs = nn.ModuleList(
-            SO3Convolution(lmax, F, n_rbf, generator) for _ in T)
+            SO3Convolution(lmax, F, self.n_rbf, generator) for _ in T)
         self.mix1 = nn.ModuleList(
             Dense(F, F, bias=False, generator=generator) for _ in T)
         self.mix2 = nn.ModuleList(
@@ -67,8 +74,6 @@ class SO3net(nn.Module):
         self.gates = nn.ModuleList(
             SO3ParametricGatedNonlinearity(F, lmax, generator) for _ in T)
         self.tp = SO3TensorProduct(lmax)
-        self.register_buffer("cw", gaussian_rbf_table(n_rbf, cutoff),
-                             persistent=False)
 
     def forward(self, inputs: Dict[str, torch.Tensor]):
         if properties.col_rij not in inputs:
@@ -82,15 +87,18 @@ class SO3net(nn.Module):
         dirs = Rij / d[..., None]
         emask = (refs.qcol >= 0).to(Rij.dtype)
         fcut = cosine_cutoff(d, self.cutoff) * emask
-        radial = torch.exp(self.cw[:, 1] * (d[..., None] - self.cw[:, 0]) ** 2)
+        radial = self.radial_basis(d)
 
         x = so3_ops.scalar2rsh(self.embedding(inputs[properties.Z]),
                                self.lmax)
-        for conv, m1, m2, m3, gate in zip(self.convs, self.mix1, self.mix2,
-                                          self.mix3, self.gates):
-            dx = conv(x, radial, dirs, fcut, refs)
-            dx = m2(dx + self.tp(dx, m1(dx)))
-            x = x + m3(gate(dx))
+        for t in range(self.n_interactions):
+            b = t % len(self.convs)
+            dx = self.convs[b](x, radial, dirs, fcut, refs)
+            dx = self.mix2[b](dx + self.tp(dx, self.mix1[b](dx)))
+            x = x + self.mix3[b](self.gates[b](dx))
         inputs[properties.scalar_representation] = x[:, 0, :]
         inputs[properties.multipole_representation] = x
+        if self.return_vector_representation:
+            inputs[properties.vector_representation] = torch.roll(
+                x[:, 1:4, :], 1, dims=1)
         return inputs

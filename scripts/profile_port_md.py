@@ -3,15 +3,16 @@
 Sets up one MD run of ``chip_smoke.py`` (10,976-atom FCC argon box, the
 trained model of the path: PaiNN-128x3 with the ``full`` or ``hybrid``
 message form, SchNet-128x3, SO3net-64x3, or PaiNN-128x3 with a trainable
-Gaussian basis on the row-9 path (``painn_trbf``), or PaiNN-128x3 on the
+Gaussian basis on the row-9 path (``painn_trbf``), FieldSchNet-128x5
+(``field_schnet``), or PaiNN-128x3 on the
 27-cell atom layout (``painn_cell``); column or, for painn_cell, atom
 neighbor list with a 0.6 A skin, 30 K), warms up and retightens the
 capacities, then traces STEPS steps with ``torch.profiler`` and prints,
 per step: CUDA-event time, device-busy time (sum of kernel times), idle
-share, the host rebuilds in the window, the host's work (the main
-thread's CPU time, the aten ops it called, the kernel launches it made
-and the device ops that ran), and device time by kernel name (also at the
-head of the table it writes).  Then it times ``--plain STEPS`` more steps
+share, the host rebuilds in the window, the peak device memory, the
+host's work (the main thread's CPU time, the aten ops it called, the
+kernel launches it made and the device ops that ran), and device time by
+kernel name (also at the head of the table it writes).  Then it times ``--plain STEPS`` more steps
 without the profiler: CUDA-event time and the main thread's CPU time per
 step.  ``--root DIR`` runs the package of another tree (e.g. an archive
 of a parent commit unpacked under ``_scratch/``) with this script and
@@ -45,7 +46,8 @@ def main():
                     help="the tree whose package runs")
     ap.add_argument("--path", default="full",
                     choices=("full", "hybrid", "schnet", "so3net",
-                             "painn_trbf", "painn_cell", "painn_slab"))
+                             "painn_trbf", "painn_cell", "painn_slab",
+                             "field_schnet"))
     args = ap.parse_args()
     torch, cs, smi = open_tree(args, "profile_port_md", {})
     from schnetpack_tpu_torch.md import (
@@ -72,6 +74,7 @@ def main():
     n = args.steps
     builds0 = (calc.nbl.n_builds, calc.nbl.build_seconds)
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
@@ -85,9 +88,10 @@ def main():
     host_builds = calc.nbl.n_builds - builds0[0]
     host_s = calc.nbl.build_seconds - builds0[1]
     layout = cs.layout_str(calc.nbl.state())
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
     lines = report(prof, n, step_ms, cpu_ms, f"{layout}, host builds "
-                   f"{host_builds} ({host_s:.3f} s)", args.path, smi,
-                   args.root)
+                   f"{host_builds} ({host_s:.3f} s), peak device memory "
+                   f"{peak:.2f} GiB", args.path, smi, args.root)
     if args.plain:
         torch.cuda.synchronize()
         cpu0 = time.thread_time()

@@ -29,8 +29,8 @@ from schnetpack_tpu_torch.ops.colblock_shard import (
 from schnetpack_tpu_torch.ops.radial import gaussian_rbf_table
 from torch_port_cases import (
     MIX_ATOL, MIX_INPUTS, MIX_RTOL, MSG_ATOL, MSG_RTOL, cell_case,
-    cfconv_case, message_case, mixing_case, narrow_row_sum_walk, slab_case,
-    torch_message_args, wide_column_case,
+    cfconv_case, column_inputs, fcc_argon, message_case, mixing_case,
+    narrow_row_sum_walk, slab_case, torch_message_args, wide_column_case,
 )
 
 #: the source-index modes of K11, K20 and K21 (ColRefs.shard_axis)
@@ -583,6 +583,71 @@ def test_select_kernels_match_twin(cuda_device, D):
     out.backward(table)
     assert {k: sel.LAUNCHES[k] - before[k] for k in before} == {
         "gather_fwd": 1, "gather_bwd": 1, "expand_fwd": 2, "fold_fwd": 2}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [128, 384])
+def test_select_kernels_on_the_bench_box_at_field_schnet_widths(cuda_device,
+                                                                D):
+    """K11-K14 at FieldSchNet-128's widths (D = F and 3F) on the column
+    layout of the jittered 10,976-atom bench box: the copies bit for bit,
+    the sums within the message tolerance."""
+    R, cell = fcc_argon(14, jitter=0.1, seed=D)
+    lay, _ = column_inputs(R, cell, 5.6)
+    refs = ColRefs.from_layout(lay, device=cuda_device)
+    nx, ny, Ktot = refs.qcol.shape
+    g = torch.Generator().manual_seed(D)
+    table = torch.randn((nx * ny * refs.P, D), generator=g).to(cuda_device)
+    edges = torch.randn((nx, ny, Ktot, D), generator=g).to(cuda_device)
+    for kern, plain, arg in [
+            (sel.gather_fwd_kernel, sel.gather_fwd_plain, table),
+            (sel.expand_fwd_kernel, sel.expand_fwd_plain, table)]:
+        torch.testing.assert_close(kern(arg, refs), plain(arg, refs),
+                                   rtol=0, atol=0)
+    for kern, plain, arg in [
+            (sel.gather_bwd_kernel, sel.gather_bwd_plain, edges),
+            (sel.fold_fwd_kernel, sel.fold_fwd_plain, edges)]:
+        torch.testing.assert_close(kern(arg, refs), plain(arg, refs),
+                                   rtol=MSG_RTOL, atol=MSG_ATOL)
+
+
+@pytest.mark.gpu
+def test_field_schnet_on_the_card_matches_the_plain_route(cuda_device):
+    """FieldSchNet-128x5 (seeded weights, the zero-initialised dipole
+    filters perturbed, an electric field) on a 108-atom box: energy and
+    forces through K11-K14 on the card against the twins' route on the
+    CPU, and one force evaluation's launches (K11 16, K12 14, K13 16, K14
+    16)."""
+    from schnetpack_tpu_torch.atomistic import (
+        Atomwise, Forces, PairwiseDistances,
+    )
+    from schnetpack_tpu_torch.model import NeuralNetworkPotential
+    from schnetpack_tpu_torch.representation import FieldSchNet
+
+    gen = torch.Generator().manual_seed(0)
+    pot = NeuralNetworkPotential(
+        FieldSchNet(128, 5, 20, 5.0, generator=gen),
+        [Atomwise(n_in=128, generator=gen), Forces()],
+        input_modules=[PairwiseDistances()]).requires_grad_(False)
+    for block in pot.representation.dipole_inter:
+        block.filter_electric_field_1.weight.normal_(generator=gen)
+    R, cell = fcc_argon(3, jitter=0.3, seed=1, stretch=1.1)
+    _, inputs = column_inputs(R, cell, 5.6)
+    inputs[TP.electric_field] = torch.tensor([[0.1, -0.2, 0.3]])
+    want = pot(dict(inputs))
+    dev = {k: v.to(cuda_device) if torch.is_tensor(v) else v
+           for k, v in inputs.items()}
+    pot.to(cuda_device)
+    before = dict(sel.LAUNCHES)
+    got = pot(dev)
+    assert {k: sel.LAUNCHES[k] - before[k] for k in before} == {
+        "gather_fwd": 16, "gather_bwd": 14, "expand_fwd": 16,
+        "fold_fwd": 16}
+    torch.testing.assert_close(got[TP.energy].cpu(), want[TP.energy],
+                               rtol=1e-5, atol=0)
+    torch.testing.assert_close(got[TP.forces].cpu(), want[TP.forces],
+                               rtol=MSG_RTOL, atol=MSG_ATOL)
+    assert float(want[TP.forces].abs().max()) > 1e-3
 
 
 @pytest.mark.gpu

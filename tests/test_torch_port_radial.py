@@ -407,10 +407,14 @@ def test_painn_dispatch_and_refusals():
     _, inputs = port_inputs(R, cell, CUTOFF + 0.6)
     with pytest.raises(ValueError, match="PairwiseDistances"):
         bessel(inputs)
+    # shared filters and interactions are ported: one filter slice, one
+    # block; inputs of no ported layout still raise
+    shared = PaiNN(n_atom_basis=32, n_interactions=3, n_rbf=8,
+                   shared_filters=True, shared_interactions=True)
+    assert shared.FW_aug.shape == (1, 9, 96)
+    assert len(shared.interactions) == len(shared.mixing) == 1
     with pytest.raises(NotImplementedError):
-        PaiNN(shared_filters=True)
-    with pytest.raises(NotImplementedError):
-        PaiNN(shared_interactions=True)
+        shared({TP.R: torch.zeros(4, 3)})
 
 
 def test_painn_trbf_md_20_steps():

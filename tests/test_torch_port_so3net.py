@@ -118,7 +118,7 @@ _PORT_OPS = {"gather": sel.column_gather_op, "expand": sel.column_expand_op,
 
 
 @pytest.mark.parametrize("op", ["gather", "expand", "fold"])
-@pytest.mark.parametrize("D", [3, 36])
+@pytest.mark.parametrize("D", [3, 36, 128, 384])
 def test_select_ops_and_vjps_match_jax(op, D):
     c = message_case(seed=D)
     lay = c["lay"]
@@ -350,8 +350,12 @@ def test_so3net_md_20_steps():
 def test_so3net_refuses_other_layouts():
     with pytest.raises(NotImplementedError, match="column layout"):
         port_so3net(F=8, T=1, B=4).representation({TP.R: torch.zeros(4, 3)})
+    # shared interactions are ported (one block); the dense layout raises
+    shared = SO3net(n_atom_basis=8, n_interactions=3, n_rbf=4,
+                    shared_interactions=True)
+    assert len(shared.convs) == 1
     with pytest.raises(NotImplementedError):
-        SO3net(shared_interactions=True)
+        shared({TP.R: torch.zeros(4, 3), TP.nbh_rij: torch.zeros(4, 2, 3)})
 
 
 def test_default_device_without_cuda_raises(monkeypatch):

@@ -203,3 +203,41 @@ def grads_close(got: dict, want: dict, rtol: float):
             / max(norms[k], floor) for k in want}
     worst = max(errs, key=errs.get)
     return worst, float(errs[worst])
+
+
+def fcc_argon(n_cells: int, a: float = 5.26, jitter: float = 0.0,
+              seed: int = 0, stretch: float = 1.0):
+    """FCC argon supercell of n_cells^3 unit cells (``bench.py::fcc_box``;
+    14 cells: the 10,976-atom bench box), jittered uniformly by
+    +-``jitter`` A from a numpy seed and scaled by ``stretch``."""
+    base = np.array([[0, 0, 0], [0.5, 0.5, 0], [0.5, 0, 0.5], [0, 0.5, 0.5]])
+    grid = np.stack(np.meshgrid(*[np.arange(n_cells)] * 3, indexing="ij"),
+                    -1).reshape(-1, 1, 3)
+    R = ((base[None] + grid) * a).reshape(-1, 3)
+    R = R + np.random.RandomState(seed).uniform(-jitter, jitter, R.shape)
+    return R * stretch, np.eye(3) * a * n_cells * stretch
+
+
+def column_inputs(R, cell, build_cutoff, device="cpu"):
+    """(layout, model inputs) of one molecule on the column layout, as the
+    MD calculator hands them to the model (``test_torch_port_model.py::
+    port_inputs`` without jax)."""
+    from schnetpack_tpu_torch import properties as TP
+
+    lay = build_column_layout(R, build_cutoff, cell, np.ones(3, bool),
+                              min_grid=3)
+    Rs = (R[lay.order] * lay.slot_mask[:, None]).astype(np.float32)
+    inputs = {
+        TP.R: torch.tensor(Rs),
+        TP.Z: torch.tensor(np.where(lay.slot_mask > 0, 18, 0)),
+        TP.idx_m: torch.zeros(len(lay.order), dtype=torch.int64),
+        TP.atom_mask: torch.tensor(lay.slot_mask),
+        TP.n_atoms: torch.tensor([len(R)]),
+        TP.cell_qcol: torch.tensor(lay.qcol),
+        TP.cell_dcol: torch.tensor(lay.dcol),
+        TP.cell_coff_fm: torch.tensor(np.ascontiguousarray(
+            np.moveaxis(lay.offcol, -1, 2)).astype(np.float32)),
+    }
+    inputs = {k: v.to(device) for k, v in inputs.items()}
+    inputs[TP.cell_ksz] = tuple(lay.ksizes)
+    return lay, inputs
