@@ -102,7 +102,39 @@ Phases (any failure exits non-zero before the last line is printed):
    at each chunk's start) K11/K12 halo 1, K13/K14 1, K20/K21/K3/K4 3 and
    every other kernel 0, the chunks' ms/step (CUDA events) apart from the
    re-bin's host seconds;
-7. print the kernel table (every row and sub-row with ``ms`` and
+7. thermostatted MD of the bench box with PaiNN-128x3 (``fuse="full"``,
+   the column list rebuilt on the device, 0.5 fs, f32, Maxwell-Boltzmann
+   momenta at 30 K), 300 steps each: ``painn_nvt_langevin``
+   (``LangevinThermostat(30 K, time_constant=20 fs)``: the mean
+   temperature of the last 100 steps within 30 +- 3 K), then
+   ``painn_nvt_nhc`` (``NHCThermostat(30 K, time_constant=20 fs)``) from
+   the Langevin run's last state: the mean within 30 +- 9 K, 0 < T < 300
+   K at every step (from the cold lattice the chain's first trough falls
+   in steps 200-300), the drift of its extended energy (kinetic and
+   potential energy and the chains' ``chain_energy``, at the end of every
+   25-step chunk) <= 1e-5 eV/atom, and its mean at least 5 K closer to
+   the bath than that of 300 NVE steps from the same state (the control:
+   the Langevin run leaves the lattice's potential energy short, which
+   then drains the kinetic energy); K1-K4 3 a step (the control's too),
+   every other kernel 0;
+8. ring-polymer MD (``painn_rpmd``): the parity of the replica-blocked
+   calculator on the card (8 beads: the fixture's positions and 7 copies
+   offset by seeded +-0.02 A; each bead's forces within 1e-6 eV/Ang of a
+   one-replica ``calculate`` of that bead, bead 0 within phase 4's gates
+   of ``port_ref_painn_argon.npz``), then 8 beads of the bench box
+   started as copies with Maxwell-Boltzmann momenta per bead at 30 K,
+   ``RingPolymer(0.5 fs, 8 beads, 30 K)``: 100 NVE steps (the drift of
+   the ring-polymer energy sum_k [KE_k + V_k] + 1/2 sum_k m w_k^2
+   |q~_k|^2 in normal modes <= 1e-4 eV per atom per bead, recorded
+   every step by a device hook inside the timed window; the total
+   centroid momentum conserved within 1e-5 of sum |p_c|, f32 roundoff),
+   then 100 steps under ``PILELocalThermostat(30 K)`` (finite positions,
+   0 < centroid T < 300 K; its ms/step is the path's cost); K1-K4 24 a
+   step, every other kernel 0.  Each
+   path of 7 and 8 prints ms per step (CUDA events), atom-steps/s (RPMD:
+   atoms x beads), T or centroid T, drift, rebuilds and peak device
+   memory beside the card's name and power limit;
+9. print the kernel table (every row and sub-row with ``ms`` and
    ``device_ms``, ``library_ms`` and ``library_device_ms``) and the card
    as JSON, then the result line.
 
@@ -199,6 +231,8 @@ PER_STEP = {
     "painn_slab": {"gather_fwd": 1, "gather_bwd": 1, "expand_fwd": 1,
                    "fold_fwd": 1, "msg_fwd_edge": 3, "msg_bwd_edge": 3,
                    "mix_fwd": 3, "mix_bwd": 3},
+    # 8 beads, each bead one "full" evaluation
+    "rpmd": {"msg_fwd": 24, "msg_bwd": 24, "mix_fwd": 24, "mix_bwd": 24},
 }
 #: the energy parameter gradients of phase 4: their JAX fixture, and the
 #: launches of one evaluation (the positions carry no gradient, so no
@@ -227,6 +261,21 @@ KB_EV = 8.617333262e-5           # eV / K
 #: the MD paths of phase 6
 PATHS = ("hybrid", "full", "schnet", "so3net", "painn_trbf", "painn_cell",
          "field_schnet")
+#: the thermostatted and ring-polymer runs of phases 7 and 8: bath (K),
+#: thermostat time constant (fs), steps, the last steps averaged, and the
+#: gates on that mean temperature (K)
+T_BATH, TAU_FS = 30.0, 20.0
+NVT_STEPS, NVT_AVG = 300, 100
+NVT_TOL = {"painn_nvt_langevin": 3.0, "painn_nvt_nhc": 9.0}
+NVT_CHUNK = 25                   # NHC's extended energy at each chunk's end
+NHC_DRIFT_TOL = 1e-5             # eV per atom
+NHC_MARGIN = 5.0                 # K closer to the bath than the NVE control
+N_BEADS = 8
+RPMD_STEPS = 100                 # NVE, then as many under PILE-L
+RPMD_DRIFT_TOL = 1e-4            # eV per atom per bead
+CENTROID_P_RTOL = 1e-5           # of sum |p_c|: f32 roundoff
+BEAD_OFFSET = 0.02               # Angstrom, the parity check's beads
+BEAD_FORCE_ATOL = 1e-6           # eV/Ang, blocked vs one replica
 
 
 def ptxas_report(log: str, params):
@@ -1444,6 +1493,264 @@ def md_phase(path, pos, cell, steps, seed, dev, launches):
     return counts, ms_step
 
 
+def reset(launches):
+    for counts in launches:
+        for k in counts:
+            counts[k] = 0
+
+
+def read_counts(launches):
+    return {k: v for c in launches for k, v in c.items()}
+
+
+def timed_run(sim, steps, chunk_size=100):
+    """``sim.simulate(steps)`` between CUDA events; (ms/step, peak GiB)."""
+    torch.cuda.reset_peak_memory_stats()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    sim.simulate(steps, chunk_size=chunk_size)
+    end.record()
+    torch.cuda.synchronize()
+    return (start.elapsed_time(end) / steps,
+            torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def check_launches(name, counts, per_step, evals):
+    for k, v in counts.items():
+        want = per_step.get(k, 0) * evals
+        assert v == want, f"{name}: {k} launched {v} times, want {want}"
+
+
+def nvt_phase(name, pos, cell, seed, dev, launches, smi, start=None):
+    """PaiNN full under a thermostat (phase 7), from Maxwell-Boltzmann
+    momenta or from the system ``start``; NHC also holds its extended
+    energy and its mean temperature against an NVE run from ``start``.
+    Returns (launch counts, the final system)."""
+    from schnetpack_tpu_torch.md import (
+        MaxwellBoltzmannInit, Simulator, VelocityVerlet, load_molecules,
+    )
+    from schnetpack_tpu_torch.md.simulation_hooks import (
+        LangevinThermostat, NHCThermostat,
+    )
+
+    calc = calculator(*potential("full"))
+    nbl = calc.nbl
+    system = start
+    if system is None:
+        system = MaxwellBoltzmannInit(T_BATH).initialize_system(
+            load_molecules([molecule(pos, cell)], device=dev),
+            torch.Generator().manual_seed(seed + 1))
+    nhc = name == "painn_nvt_nhc"
+    hook = (NHCThermostat if nhc else LangevinThermostat)(
+        T_BATH, time_constant=TAU_FS)
+    ext = ExtendedEnergy(hook) if nhc else None
+    sim = Simulator(system, VelocityVerlet(0.5), calc,
+                    simulator_hooks=[hook] + ([ext] if nhc else []),
+                    seed=seed)
+    sim.simulate(0)                              # first forces, hook state
+    reset(launches)
+    builds0 = (nbl.n_builds, nbl.n_device_builds)
+    ms_step, peak = timed_run(sim, NVT_STEPS, NVT_CHUNK)
+    counts = read_counts(launches)
+    A = sim.system.total_atoms
+    T = np.concatenate([lg["temperature"][:, 0, 0] for lg in sim.logs])
+    T_mean = float(T[-NVT_AVG:].mean())
+    line = (f"md ({name}): {NVT_STEPS} steps, {A} atoms, ms/step (CUDA "
+            f"events) {ms_step:.3f}, {A / (ms_step * 1e-3):.4g} "
+            f"atom-steps/s, mean T of the last {NVT_AVG} steps {T_mean:.3f} "
+            f"K (bath {T_BATH} K; T from {T.min():.2f} to {T.max():.2f} K), "
+            f"rebuilds: {nbl.n_device_builds - builds0[1]} on the device, "
+            f"{nbl.n_builds - builds0[0]} on the host, peak device memory "
+            f"{peak:.2f} GiB")
+    assert np.isfinite(sim.system.positions.cpu().numpy()).all()
+    assert abs(T_mean - T_BATH) <= NVT_TOL[name], f"{name}: mean T {T_mean}"
+    assert 0.0 < T.min() and T.max() < 300.0, f"{name}: T {T.min()} {T.max()}"
+    check_launches(name, counts, PER_STEP["full"], NVT_STEPS)
+    if nhc:
+        H = np.asarray(ext.values) / calc.energy_conversion
+        drift = float(np.abs(H - H[0]).max()) / A
+        # the control: no thermostat, from the same state
+        ctl = Simulator(system, VelocityVerlet(0.5), calc, seed=seed)
+        ctl.simulate(0)
+        reset(launches)
+        ctl_ms, _ = timed_run(ctl, NVT_STEPS, NVT_CHUNK)
+        check_launches(f"{name} (NVE control)", read_counts(launches),
+                       PER_STEP["full"], NVT_STEPS)
+        T_nve = float(np.concatenate([lg["temperature"][:, 0, 0]
+                                      for lg in ctl.logs])[-NVT_AVG:].mean())
+        line += (f", extended-energy drift {drift:.3e} eV/atom at the "
+                 f"{NVT_CHUNK}-step chunks' ends; NVE control from the same "
+                 f"state: mean T {T_nve:.3f} K, ms/step {ctl_ms:.3f}")
+        assert drift <= NHC_DRIFT_TOL, f"NHC extended-energy drift {drift}"
+        assert (abs(T_mean - T_BATH) + NHC_MARGIN
+                <= abs(T_nve - T_BATH)), f"NHC {T_mean} K vs NVE {T_nve} K"
+    print(f"{line}; {smi}", flush=True)
+    return counts, sim.system
+
+
+class ExtendedEnergy:
+    """A host hook that records an NHC run's conserved energy, the kinetic
+    and potential energy plus the chains' share (``chain_energy``), in
+    float64 MD units, at the start and at the end of every chunk."""
+
+    def __init__(self, thermostat):
+        self.thermostat = thermostat
+        self.values = []
+
+    def _record(self, sim):
+        s = sim.system
+        state = sim.hook_states[sim.device_hooks.index(self.thermostat)]
+        self.values.append(float(
+            s.kinetic_energy.double().sum() + s.energy.double().sum()
+            + self.thermostat.chain_energy(state, s)))
+
+    def on_simulation_start(self, sim):
+        if not self.values:
+            self._record(sim)
+
+    def process_chunk(self, sim, logs, start_step):
+        self._record(sim)
+
+    def on_simulation_end(self, sim):
+        pass
+
+
+class RingEnergy:
+    """A device hook that records the ring-polymer energy sum_k [KE_k +
+    V_k] + 1/2 sum_k m w_k^2 |q~_k|^2 (float64, MD units) before the first
+    step and after every step, as device scalars."""
+
+    def __init__(self, integrator):
+        from schnetpack_tpu_torch.md.utils import normal_mode_frequencies
+
+        self.nm = integrator.transformer
+        self.w2 = normal_mode_frequencies(
+            integrator.n_beads, integrator.omega_P) ** 2
+        self.values = []
+
+    def init_state(self, system, dt):
+        return 0
+
+    def apply(self, state, system, generator, dt):
+        if state == 0 or state % 2 == 1:
+            p = system.momenta.double()
+            m = system.masses.double()[None, :, None]
+            qn = self.nm.beads2normal(system.positions.double())
+            w2 = torch.as_tensor(self.w2, device=qn.device)[:, None, None]
+            self.values.append((0.5 * p * p / m).sum()
+                               + system.energy.double().sum()
+                               + 0.5 * (m * w2 * qn * qn).sum())
+        return state + 1, system
+
+
+def blocked_parity_phase(dev):
+    """The replica-blocked calculator against one-replica evaluations, bead
+    0 against the JAX fixture (phase 8)."""
+    from schnetpack_tpu_torch.md import load_molecules
+
+    ref = np.load(REFERENCE["full"])
+    calc = calculator(*potential("full"))
+    R = ref["R"].astype(np.float64)
+    offsets = np.random.RandomState(7).uniform(
+        -BEAD_OFFSET, BEAD_OFFSET, (N_BEADS,) + R.shape)
+    offsets[0] = 0.0
+    system = load_molecules([molecule(R, ref["cell"])], n_replicas=N_BEADS,
+                            device=dev)
+    system = system.replace(positions=torch.as_tensor(
+        (R[None] + offsets) * calc.position_conversion,
+        dtype=system.positions.dtype, device=dev))
+    state = calc.init_state(system)
+    blocked = calc.calculate(system, state)
+    to_ev = 1.0 / calc.force_conversion
+    err = 0.0
+    for r in range(N_BEADS):
+        one = calc.calculate(system.replace(
+            positions=system.positions[r:r + 1],
+            forces=system.forces[r:r + 1], energy=system.energy[r:r + 1]),
+            state)
+        err = max(err, float((blocked.forces[r] - one.forces[0]).abs().max())
+                  * to_ev)
+    F0 = (blocked.forces[0] * to_ev).cpu().numpy()
+    E0 = float(blocked.energy[0, 0]) / calc.energy_conversion
+    rms = float(np.sqrt(np.mean((F0 - ref["forces"]) ** 2)))
+    dE = abs(E0 - float(ref["energy"])) / abs(float(ref["energy"]))
+    print(f"blocked calculator ({N_BEADS} beads, {layout_str(state)}): max "
+          f"|F_blocked - F_one| {err:.3e} eV/Ang; bead 0 vs the fixture: "
+          f"force rms {rms:.3e} eV/Ang, energy rel {dE:.2e}", flush=True)
+    assert err <= BEAD_FORCE_ATOL, f"blocked vs one replica {err}"
+    assert rms <= FORCE_RMS_TOL, f"bead 0 force rms {rms}"
+    assert dE <= ENERGY_RTOL, f"bead 0 energy rel err {dE}"
+
+
+def rpmd_phase(pos, cell, seed, dev, launches, smi):
+    """8-bead ring-polymer MD of the bench box (phase 8): NVE, then under
+    PILE-L; returns launch counts."""
+    from schnetpack_tpu_torch.md import (
+        MaxwellBoltzmannInit, RingPolymer, Simulator, load_molecules,
+    )
+    from schnetpack_tpu_torch.md.simulation_hooks import PILELocalThermostat
+
+    blocked_parity_phase(dev)
+    calc = calculator(*potential("full"))
+    nbl = calc.nbl
+    system = load_molecules([molecule(pos, cell)], n_replicas=N_BEADS,
+                            device=dev)
+    system = MaxwellBoltzmannInit(T_BATH).initialize_system(
+        system, torch.Generator().manual_seed(seed + 3))
+    integrator = RingPolymer(0.5, n_beads=N_BEADS, temperature=T_BATH)
+    ring = RingEnergy(integrator)
+    A = system.total_atoms
+    total = {}
+    for part in ("nve", "pile"):
+        hooks = ([ring] if part == "nve"
+                 else [PILELocalThermostat(T_BATH)])
+        sim = Simulator(system, integrator, calc, simulator_hooks=hooks,
+                        seed=seed, log_keys=("energy", "centroid_temperature"))
+        sim.simulate(0)
+        reset(launches)
+        p_c0 = sim.system.centroid_momenta[0].double().sum(0)
+        builds0 = (nbl.n_builds, nbl.n_device_builds, nbl.n_device_overflows)
+        ms_step, peak = timed_run(sim, RPMD_STEPS)
+        counts = read_counts(launches)
+        check_launches(f"painn_rpmd ({part})", counts, PER_STEP["rpmd"],
+                       RPMD_STEPS)
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        system = sim.system
+        T_c = np.concatenate([lg["centroid_temperature"][:, 0, 0]
+                              for lg in sim.logs])
+        host, device, overflows = (
+            a - b for a, b in zip((nbl.n_builds, nbl.n_device_builds,
+                                   nbl.n_device_overflows), builds0))
+        window = ", the ring-energy hook inside" if part == "nve" else ""
+        line = (f"md (painn_rpmd, {part}): {RPMD_STEPS} steps, {A} atoms x "
+                f"{N_BEADS} beads, ms/step (CUDA events{window}) "
+                f"{ms_step:.3f}, "
+                f"{A * N_BEADS / (ms_step * 1e-3):.4g} atom-steps/s, centroid "
+                f"T_end {T_c[-1]:.3f} K (from {T_c.min():.3f} to "
+                f"{T_c.max():.3f}), rebuilds: {device} on the device, {host} "
+                f"on the host, {overflows} overflows, peak device memory "
+                f"{peak:.2f} GiB")
+        assert np.isfinite(system.positions.cpu().numpy()).all()
+        assert 0.0 < T_c.min() and T_c.max() < 300.0, (
+            f"centroid T {T_c.min()} {T_c.max()}")
+        assert host == overflows, f"{host} host rebuilds, {overflows} overflows"
+        if part == "nve":
+            H = torch.stack(ring.values).cpu().numpy() / calc.energy_conversion
+            drift = float(np.abs(H - H[0]).max()) / (A * N_BEADS)
+            p_c = sim.system.centroid_momenta[0].double()
+            dp = float((p_c.sum(0) - p_c0).abs().max())
+            scale = float(p_c.abs().sum())
+            line += (f", ring-polymer energy drift {drift:.3e} eV per atom "
+                     f"per bead, centroid momentum change {dp:.3e} of sum "
+                     f"|p_c| {scale:.4g} (MD units)")
+            assert drift <= RPMD_DRIFT_TOL, f"ring-polymer drift {drift}"
+            assert dp <= CENTROID_P_RTOL * scale, f"centroid momentum {dp}"
+        print(f"{line}; {smi}", flush=True)
+    return total
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -1529,6 +1836,14 @@ def main():
     counts, ms_step["painn_slab"] = slab_md_phase(pos, cell, args.steps,
                                                   args.seed, dev, launches)
     for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+    start = None        # NHC continues from the Langevin run's last state
+    for name in NVT_TOL:
+        counts, start = nvt_phase(name, pos, cell, args.seed, dev, launches,
+                                  smi, start)
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    for k, v in rpmd_phase(pos, cell, args.seed, dev, launches, smi).items():
         total[k] = total.get(k, 0) + v
     for row in rows:
         row["launches"] = total[row["name"]]

@@ -1,16 +1,23 @@
 """MD calculator base: unit conversion (parity:
-``schnetpack_tpu/md/calculators/base.py:26-96``).
+``schnetpack_tpu/md/calculators/base.py``).
 
 The calculator converts positions from MD units into the model's units,
-runs the model, and writes forces and energy back in MD units.
+runs the model, and writes forces, energy and stress back in MD units.
+``PairwiseMDCalculator`` gives a potential the pair list of every replica,
+flattened with replica-shifted indices (``base.py:112-152``), from the
+port's host cell list (``transform/neighborlist.py``) at each call, in
+place of the JAX package's static all-pairs set masked on the device: the
+same pairs within the cutoff, in the same (i, j) order.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from ... import properties as structure
+from ...transform.neighborlist import cell_list_neighbor_list
 from ...units import _parse_unit, md_units
 from ..system import System
 
@@ -18,26 +25,96 @@ from ..system import System
 class MDCalculator:
     def __init__(self, force_key: str = structure.forces,
                  energy_unit: str = "eV", position_unit: str = "Ang",
-                 energy_key: str = structure.energy):
+                 energy_key: Optional[str] = structure.energy,
+                 stress_key: Optional[str] = None):
         md = md_units()
         self.force_key = force_key
         self.energy_key = energy_key
+        self.stress_key = stress_key
         # model unit -> MD internal unit conversions
         self.energy_conversion = _parse_unit(energy_unit) * md.energy
         self.position_conversion = _parse_unit(position_unit) * md.length
         self.force_conversion = self.energy_conversion / self.position_conversion
+        self.stress_conversion = (self.energy_conversion
+                                  / self.position_conversion ** 3)
 
     def _update_system(self, system: System,
                        outputs: Dict[str, torch.Tensor]) -> System:
         R_, A, M = system.n_replicas, system.total_atoms, system.n_molecules
         updates = {}
-        if self.force_key in outputs:
+        if self.force_key is not None and self.force_key in outputs:
             f = outputs[self.force_key].reshape(R_, A, 3) * self.force_conversion
             updates["forces"] = f * system.atom_mask[None, :, None]
-        if self.energy_key in outputs:
+        if self.energy_key is not None and self.energy_key in outputs:
             updates["energy"] = (outputs[self.energy_key].reshape(R_, M)
                                  * self.energy_conversion)
+        if self.stress_key is not None and self.stress_key in outputs:
+            updates["stress"] = (outputs[self.stress_key].reshape(R_, M, 3, 3)
+                                 * self.stress_conversion)
         return system.replace(**updates)
+
+    def init_state(self, system: System):
+        """The calculator's neighbor state; None where it keeps none."""
+        return None
+
+    def update_state(self, system: System, calc_state):
+        return calc_state
 
     def calculate(self, system: System, calc_state=None) -> System:
         raise NotImplementedError
+
+
+class PairwiseMDCalculator(MDCalculator):
+    """Base for potentials evaluated over the pairs within the cutoff."""
+
+    def __init__(self, cutoff: float, cutoff_shell: float = 0.0, **kwargs):
+        super().__init__(**kwargs)
+        # cutoff in the model's length unit
+        self.cutoff_model_units = cutoff
+        self.pair_cutoff = (cutoff + cutoff_shell) * self.position_conversion
+
+    def _get_system_molecules(self, system: System) -> Dict[str, torch.Tensor]:
+        """Replicas flattened into one batch of R * M molecules (the
+        entries of ``base.py:49-80`` that a pair potential reads),
+        positions and cells in model units."""
+        R_, A, M = system.n_replicas, system.total_atoms, system.n_molecules
+        inv = 1.0 / self.position_conversion
+        dev = system.positions.device
+        shift = torch.arange(R_, dtype=system.idx_m.dtype, device=dev) * M
+        return {
+            structure.R: (system.positions * inv).reshape(R_ * A, 3),
+            structure.idx_m: (system.idx_m.repeat(R_)
+                              + shift.repeat_interleave(A)),
+            structure.atom_mask: system.atom_mask.repeat(R_),
+            structure.cell: (system.cells * inv).reshape(R_ * M, 3, 3),
+        }
+
+    def _pair_inputs(self, system: System) -> Dict[str, torch.Tensor]:
+        """Each replica's pairs within the cutoff (a host cell list per
+        replica and molecule), flattened with replica-shifted indices;
+        offsets in model units."""
+        R_, A = system.n_replicas, system.total_atoms
+        pos = system.positions.detach().double().cpu().numpy()
+        cells = system.cells.detach().double().cpu().numpy()
+        pbc = system.pbc.cpu().numpy()
+        idx_m = system.idx_m.cpu().numpy()
+        ii, jj, off = [], [], []
+        for r in range(R_):
+            for m in range(system.n_molecules):
+                sel = np.nonzero(idx_m == m)[0]
+                periodic = bool(pbc[m].any())
+                cell = cells[r, m] if periodic else None
+                i, j, S = cell_list_neighbor_list(
+                    pos[r, sel], self.pair_cutoff, cell,
+                    pbc[m] if periodic else None)
+                ii.append(sel[i] + r * A)
+                jj.append(sel[j] + r * A)
+                off.append(S @ cell if periodic else np.zeros((len(i), 3)))
+        t = dict(device=system.positions.device)
+        return {
+            structure.idx_i: torch.as_tensor(np.concatenate(ii), **t),
+            structure.idx_j: torch.as_tensor(np.concatenate(jj), **t),
+            structure.offsets: torch.as_tensor(
+                np.concatenate(off) / self.position_conversion,
+                dtype=system.positions.dtype, **t),
+        }

@@ -19,6 +19,16 @@ differentiates with respect to positions only, and the kernels' plain
 backward instances run.  ``wgrad=True`` leaves ``requires_grad`` as it is
 (``schnetpack_calculator.py:43, 68-75``), so a parameter that requires
 grad gets its cotangent from the kernels' wgrad instances.
+
+Ring-polymer beads (``n_replicas > 1``, column layout) share one layout
+(``schnetpack_calculator.py:210-276``): each bead's positions, in
+``cell_order``, go through the model with the same tables, one bead after
+another, and its forces come back through ``cell_rank``; energy is
+written per bead.  The JAX package vmaps the model, and the Pallas
+batching rule adds the bead axis to each kernel's grid; here the kernels
+run once per bead, with one ``ColRefs`` (and its cached schedules) shared
+by all beads of a step, and each bead's autograd graph is freed before the
+next bead runs, so peak memory stays that of one replica.
 """
 from __future__ import annotations
 
@@ -27,6 +37,7 @@ from typing import Dict, Optional, Union
 import torch
 
 from ... import properties as structure
+from ...atomistic.distances import column_refs
 from ..neighborlist_md import CellBlockNeighborListMD
 from ..system import System
 from .base import MDCalculator
@@ -78,6 +89,7 @@ class SchNetPackCalculator(MDCalculator):
         return self.nbl.state() if self.nbl.maybe_rebuild(system) else calc_state
 
     def model_inputs(self, system: System, calc_state) -> Dict[str, torch.Tensor]:
+        """The model's inputs (replica 0's positions) in sorted space."""
         inv = 1.0 / self.position_conversion
         order = calc_state["cell_order"]
         M = system.n_molecules
@@ -108,9 +120,23 @@ class SchNetPackCalculator(MDCalculator):
         return inputs
 
     def calculate(self, system: System, calc_state) -> System:
-        out = self.model(self.model_inputs(system, calc_state))
-        rank = calc_state["cell_rank"]
-        outputs = {self.energy_key: out[self.energy_key].detach()}
-        if self.force_key in out:
-            outputs[self.force_key] = out[self.force_key].detach()[rank]
+        """Energy and forces of every replica, one model evaluation each
+        (see the module's docstring for beads)."""
+        base = self.model_inputs(system, calc_state)
+        if system.n_replicas > 1:
+            column_refs(base)       # one refs for every bead of the step
+        order, rank = calc_state["cell_order"], calc_state["cell_rank"]
+        inv = 1.0 / self.position_conversion
+        energy, forces = [], []
+        for r in range(system.n_replicas):
+            inputs = dict(base)
+            if r:
+                inputs[structure.R] = system.positions[r, order] * inv
+            out = self.model(inputs)
+            energy.append(out[self.energy_key].detach())
+            if self.force_key in out:
+                forces.append(out[self.force_key].detach()[rank])
+        outputs = {self.energy_key: torch.stack(energy)}
+        if forces:
+            outputs[self.force_key] = torch.stack(forces)
         return self._update_system(system, outputs)

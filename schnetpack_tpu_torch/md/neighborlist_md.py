@@ -25,6 +25,14 @@ re-binned and rebuilt on the device (``ops/colblock_rebuild.py``, as
 overflow flag, and on overflow a host build, which grows the capacities.
 Any other box rebuilds on the host.
 
+Replicas (ring-polymer beads, ``neighborlist_md.py:228-262``) share one
+column layout: the atoms are binned by their bead centroid and the edge
+set is the union over beads of each bead's cell list, de-duplicated.  The
+skin check takes the largest displacement over all beads, and the device
+rebuild bins the centroid and keeps the union of the beads' edges.  The
+column layout takes one molecule or periodic box (batched molecules are
+later work).
+
 The atom layout (``neighborlist_md.py:401-428, 466-479``) takes one
 replica of one molecule or box, with the reference's errors otherwise.
 Its grid dims, cell capacity C and slots per atom K are sticky; when the
@@ -66,6 +74,17 @@ def _depth(P_fresh: int) -> int:
     return want
 
 
+def union_edges(R_all: np.ndarray, rc: float, cell, pbc):
+    """The cell-list edges (i, j, S) of one replica, or for several the
+    union over replicas, de-duplicated and sorted by (i, j, S)."""
+    if len(R_all) == 1:
+        return cell_list_neighbor_list(R_all[0], rc, cell, pbc)
+    rows = np.unique(np.concatenate([
+        np.column_stack(cell_list_neighbor_list(R, rc, cell, pbc))
+        for R in R_all]), axis=0)
+    return rows[:, 0], rows[:, 1], rows[:, 2:5]
+
+
 class CellBlockNeighborListMD:
     def __init__(self, cutoff: float, skin: float = 0.6,
                  capacity_headroom: int = 1, layout: str = "column",
@@ -102,13 +121,14 @@ class CellBlockNeighborListMD:
             for b in ks_fresh)
 
     def _geometry(self, system: System):
-        """Host copies (R, cell, pbc, use_cell, use_pbc) of the one box."""
-        R = system.positions[0].detach().double().cpu().numpy()
+        """Host copies (bead positions [R, A, 3], their centroid, cell, pbc,
+        use_cell, use_pbc) of the one box."""
+        R_all = system.positions.detach().double().cpu().numpy()
         cell = system.cells[0, 0].detach().double().cpu().numpy()
         pbc = system.pbc[0].cpu().numpy()
         use_pbc = pbc if pbc.any() else None
         use_cell = cell if np.abs(cell).sum() > 0 else None
-        return R, cell, pbc, use_cell, use_pbc
+        return R_all, R_all.mean(axis=0), cell, pbc, use_cell, use_pbc
 
     def _sorted_state(self, lay, system: System) -> Dict[str, torch.Tensor]:
         """The sorted-space system arrays of a layout."""
@@ -136,7 +156,7 @@ class CellBlockNeighborListMD:
             raise NotImplementedError(
                 "the 27-cell layout supports a single molecule; use "
                 "layout='column' for batched molecules")
-        R, _, _, use_cell, use_pbc = self._geometry(system)
+        _, R, _, _, use_cell, use_pbc = self._geometry(system)
         rc = self.cutoff + self.skin
         try:
             lay = build_cell_layout(R, rc, use_cell, use_pbc,
@@ -177,13 +197,13 @@ class CellBlockNeighborListMD:
         self.build_seconds += time.perf_counter() - t0
 
     def _build_column(self, system: System) -> None:
-        if system.n_replicas != 1 or system.n_molecules != 1:
+        if system.n_molecules != 1:
             raise NotImplementedError(
-                "the port's column neighbor list takes one replica of one "
-                "molecule or periodic box")
-        R, cell, pbc, use_cell, use_pbc = self._geometry(system)
+                "the port's column neighbor list takes one molecule or "
+                "periodic box (of any number of replicas)")
+        R_all, R, cell, pbc, use_cell, use_pbc = self._geometry(system)
         rc = self.cutoff + self.skin
-        edges = cell_list_neighbor_list(R, rc, use_cell, use_pbc)
+        edges = union_edges(R_all, rc, use_cell, use_pbc)
 
         def layout(**kw):
             return build_column_layout(

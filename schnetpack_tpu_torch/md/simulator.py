@@ -1,16 +1,26 @@
-"""MD simulator: a Python step loop (parity of semantics with
-``schnetpack_tpu/md/simulator.py:108-142``, without hooks).
+"""MD simulator: a Python step loop with device hooks (parity of
+semantics with ``schnetpack_tpu/md/simulator.py``).
 
-Each step: half step, main step, skin check (and host neighbor-list
-rebuild when it fires), force calculation, half step.  The logged
-quantities of a chunk are stacked on the device and fetched once per
-chunk into ``self.logs``.  Capturing the step in a CUDA graph is later
-work.
+Each step: the device hooks in order (thermostats and the like), half
+step, main step, the calculator's skin check (``update_state``, which
+rebuilds the neighbor state when it fires), force calculation, half step,
+then the device hooks in reverse order (propagator symmetry).  A device
+hook has ``apply(state, system, generator, dt)``; every other hook is a
+host hook, which sees the simulator between chunks.  ``seed`` makes one
+``torch.Generator`` on the system's device, which every ``apply`` draws
+from.  The logged quantities of a chunk are stacked on the device and
+fetched once per chunk into ``self.logs``, which host hooks receive as
+numpy arrays (``process_chunk``).  ``state_dict`` and ``load_state_dict``
+(``restart_simulation``) keep the system, the hook states, the
+generator's state and the step count; a restored simulator rebuilds its
+neighbor state from the restored positions.  Capturing the step in a
+CUDA graph is later work.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
-from typing import Dict, List, Sequence
+from typing import Any, Dict, List, Sequence
 
 import numpy as np
 import torch
@@ -18,36 +28,80 @@ import torch
 from .system import System
 
 
+def _is_device_hook(hook) -> bool:
+    return callable(getattr(hook, "apply", None))
+
+
+def _to_numpy(x):
+    if torch.is_tensor(x):
+        return x.detach().cpu().numpy()
+    if isinstance(x, dict):
+        return {k: _to_numpy(v) for k, v in x.items()}
+    return x
+
+
+def _to_device(x, device):
+    if isinstance(x, np.ndarray):
+        return torch.as_tensor(x, device=device)
+    if isinstance(x, dict):
+        return {k: _to_device(v, device) for k, v in x.items()}
+    return x
+
+
 class Simulator:
     def __init__(self, system: System, integrator, calculator,
+                 simulator_hooks: Sequence = (), seed: int = 42,
                  log_keys: Sequence[str] = ("energy", "temperature"),
                  progress: bool = False):
         self.system = system
         self.integrator = integrator
         self.calculator = calculator
+        self.device_hooks = [h for h in simulator_hooks if _is_device_hook(h)]
+        self.host_hooks = [h for h in simulator_hooks
+                           if not _is_device_hook(h)]
+        self.generator = torch.Generator(
+            device=system.positions.device).manual_seed(seed)
         self.log_keys = tuple(log_keys)
         self.progress = progress
         self.n_simulated = 0
         self.calc_state = None
+        self.hook_states: List[Any] = []
+        self._ready = False
         #: one dict of stacked per-step arrays per chunk
         self.logs: List[Dict[str, np.ndarray]] = []
 
     def _ensure_state(self) -> None:
-        if self.calc_state is None:
-            self.calc_state = self.calculator.init_state(self.system)
-            self.system = self.calculator.calculate(self.system,
-                                                    self.calc_state)
+        """Neighbor state, forces and hook states of the first step."""
+        if self._ready:
+            return
+        self.calc_state = self.calculator.init_state(self.system)
+        self.system = self.calculator.calculate(self.system, self.calc_state)
+        self.hook_states = [h.init_state(self.system, self.integrator.dt)
+                            for h in self.device_hooks]
+        self._ready = True
+
+    def _hooks(self, system: System, order) -> System:
+        for i in order:
+            self.hook_states[i], system = self.device_hooks[i].apply(
+                self.hook_states[i], system, self.generator,
+                self.integrator.dt)
+        return system
 
     def step(self, system: System) -> System:
+        n_hooks = len(self.device_hooks)
+        system = self._hooks(system, range(n_hooks))
         system = self.integrator.half_step(system)
         system = self.integrator.main_step(system)
         self.calc_state = self.calculator.update_state(system, self.calc_state)
         system = self.calculator.calculate(system, self.calc_state)
-        return self.integrator.half_step(system)
+        system = self.integrator.half_step(system)
+        return self._hooks(system, range(n_hooks - 1, -1, -1))
 
     @torch.no_grad()
     def simulate(self, n_steps: int, chunk_size: int = 100) -> System:
         self._ensure_state()
+        for h in self.host_hooks:
+            h.on_simulation_start(self)
         system = self.system
         remaining = n_steps
         t0 = time.perf_counter()
@@ -58,15 +112,49 @@ class Simulator:
                 system = self.step(system)
                 for k in self.log_keys:
                     rec[k].append(getattr(system, k))
-            self.logs.append({k: torch.stack(v).cpu().numpy()
-                              for k, v in rec.items()})
+            self.system = system
+            logs = {k: torch.stack(v).cpu().numpy() for k, v in rec.items()}
+            self.logs.append(logs)
+            start = self.n_simulated
             self.n_simulated += n
             remaining -= n
+            for h in self.host_hooks:
+                h.process_chunk(self, logs, start)
             if self.progress:
-                T = float(self.logs[-1].get("temperature",
-                                            np.zeros(1))[-1].mean())
+                T = float(logs.get("temperature", np.zeros(1))[-1].mean())
                 rate = self.n_simulated / max(time.perf_counter() - t0, 1e-9)
                 print(f"step {self.n_simulated}  T={T:8.2f} K  "
                       f"{rate:8.1f} steps/s", flush=True)
-        self.system = system
+        for h in self.host_hooks:
+            h.on_simulation_end(self)
         return system
+
+    def state_dict(self) -> Dict[str, Any]:
+        """The system, hook states and generator state as numpy arrays,
+        and the step count."""
+        self._ensure_state()
+        return {
+            "system": {f.name: _to_numpy(getattr(self.system, f.name))
+                       for f in dataclasses.fields(System)},
+            "hook_states": [_to_numpy(s) for s in self.hook_states],
+            "generator": self.generator.get_state().numpy(),
+            "n_simulated": self.n_simulated,
+        }
+
+    def load_state_dict(self, d: Dict[str, Any], soft: bool = False) -> None:
+        """Restore a ``state_dict``; ``soft`` keeps this simulator's hook
+        states where it has them (the reference's soft thermostat
+        restore).  The neighbor state is derived: it is rebuilt from the
+        restored positions, as a fresh start would build it."""
+        dev = self.system.positions.device
+        self.system = System(**{k: _to_device(v, dev)
+                                for k, v in d["system"].items()})
+        if not (soft and self._ready):
+            self.hook_states = [_to_device(s, dev) for s in d["hook_states"]]
+        self.generator.set_state(torch.as_tensor(d["generator"]))
+        self.n_simulated = d.get("n_simulated", 0)
+        self.calc_state = self.calculator.init_state(self.system)
+        self._ready = True
+
+    def restart_simulation(self, d: Dict[str, Any], soft: bool = False):
+        self.load_state_dict(d, soft=soft)

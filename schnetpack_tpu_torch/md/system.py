@@ -1,8 +1,9 @@
 """MD system state (parity: ``schnetpack_tpu/md/system.py``).
 
 ``System`` holds tensors shaped like the JAX package's: positions, momenta
-and forces [R, A, 3] (R replicas), energy [R, M], cells [R, M, 3, 3], and
-the static per-atom arrays.  It is a dataclass; steps return new instances
+and forces [R, A, 3] (R replicas: ring-polymer beads or independent
+copies), energy [R, M], stress and cells [R, M, 3, 3], and the static
+per-atom arrays.  It is a dataclass; steps return new instances
 through ``replace``.  Quantities are in the MD unit frame (kJ/mol, nm,
 Dalton), as in the JAX package.
 """
@@ -25,6 +26,7 @@ class System:
     momenta: torch.Tensor         # [R, A, 3]
     forces: torch.Tensor          # [R, A, 3]
     energy: torch.Tensor          # [R, M]
+    stress: torch.Tensor          # [R, M, 3, 3]
     cells: torch.Tensor           # [R, M, 3, 3]; zero when non-periodic
     masses: torch.Tensor          # [A]
     atomic_numbers: torch.Tensor  # [A] int64
@@ -59,17 +61,66 @@ class System:
         return x[:, self.idx_m]
 
     @property
+    def velocities(self) -> torch.Tensor:
+        return self.momenta / self.masses[None, :, None]
+
+    @property
+    def kinetic_energy_tensor(self) -> torch.Tensor:
+        """[R, M, 3, 3]: 0.5 * sum p p^T / m."""
+        ppt = (self.momenta[:, :, :, None] * self.momenta[:, :, None, :]
+               / self.masses[None, :, None, None])
+        return 0.5 * self.sum_atoms(ppt)
+
+    @property
     def kinetic_energy(self) -> torch.Tensor:
         """[R, M]"""
         ke = 0.5 * (self.momenta ** 2).sum(-1) / self.masses[None, :]
         return self.sum_atoms(ke[..., None])[..., 0]
 
     @property
+    def degrees_of_freedom(self) -> torch.Tensor:
+        """[M]"""
+        return 3.0 * self.n_atoms_per_mol.to(self.positions.dtype)
+
+    @property
     def temperature(self) -> torch.Tensor:
         """[R, M] instantaneous temperature."""
-        dof = (3.0 * self.n_atoms_per_mol.to(self.positions.dtype)).clamp(
-            min=1.0)
+        dof = self.degrees_of_freedom.clamp(min=1.0)
         return 2.0 * self.kinetic_energy / (dof[None, :] * md_units().kB)
+
+    @property
+    def centroid_positions(self) -> torch.Tensor:
+        """[1, A, 3] bead average."""
+        return self.positions.mean(0, keepdim=True)
+
+    @property
+    def centroid_momenta(self) -> torch.Tensor:
+        return self.momenta.mean(0, keepdim=True)
+
+    @property
+    def centroid_kinetic_energy(self) -> torch.Tensor:
+        """[1, M]"""
+        ke = 0.5 * (self.centroid_momenta ** 2).sum(-1) / self.masses[None, :]
+        return self.sum_atoms(ke[..., None])[..., 0]
+
+    @property
+    def centroid_temperature(self) -> torch.Tensor:
+        """[1, M]"""
+        dof = self.degrees_of_freedom.clamp(min=1.0)
+        return (2.0 * self.centroid_kinetic_energy
+                / (dof[None, :] * md_units().kB))
+
+    @property
+    def volume(self) -> torch.Tensor:
+        """[R, M]"""
+        return torch.linalg.det(self.cells).abs()
+
+    @property
+    def pressure(self) -> torch.Tensor:
+        """[R, M] isotropic pressure: the stress's and the kinetic part."""
+        vol = self.volume.clamp(min=1e-12)
+        p_pot = -torch.diagonal(self.stress, dim1=-2, dim2=-1).sum(-1) / 3.0
+        return p_pot + 2.0 / 3.0 * self.kinetic_energy / vol
 
     def _mass_sum(self) -> torch.Tensor:
         m = self.masses[None, :, None].expand(self.positions.shape[:2] + (1,))
@@ -85,6 +136,21 @@ class System:
         v_com = self.sum_atoms(self.momenta) / self._mass_sum()
         p = self.momenta - self.expand_atoms(v_com) * self.masses[None, :, None]
         return self.replace(momenta=p * self.atom_mask[None, :, None])
+
+    def wrap_positions(self) -> "System":
+        """Wrap positions into their cells (periodic molecules only)."""
+        eye = torch.eye(3, dtype=self.positions.dtype,
+                        device=self.positions.device)
+        cell_atom = self.cells[:, self.idx_m]                 # [R, A, 3, 3]
+        has_cell = torch.linalg.det(cell_atom).abs() > 1e-12
+        safe = cell_atom + eye * (~has_cell)[..., None, None]
+        frac = torch.einsum("raj,rajk->rak", self.positions,
+                            torch.linalg.inv(safe))
+        pbc_atom = self.pbc[self.idx_m][None]                 # [1, A, 3]
+        frac = torch.where(pbc_atom, torch.remainder(frac, 1.0), frac)
+        wrapped = torch.einsum("rak,rakj->raj", frac, safe)
+        return self.replace(positions=torch.where(
+            has_cell[..., None], wrapped, self.positions))
 
 
 def load_molecules(molecules: Sequence[Dict[str, np.ndarray]],
@@ -123,6 +189,8 @@ def load_molecules(molecules: Sequence[Dict[str, np.ndarray]],
         momenta=zeros.clone(),
         forces=zeros.clone(),
         energy=torch.zeros((n_replicas, M), dtype=dtype, device=device),
+        stress=torch.zeros((n_replicas, M, 3, 3), dtype=dtype,
+                           device=device),
         cells=t(cells * pos_conv).expand(n_replicas, M, 3, 3).clone(),
         masses=t(ATOMIC_MASSES[Z] * mass_conv),
         atomic_numbers=t(Z, torch.int64),

@@ -17,7 +17,9 @@ without the profiler: CUDA-event time and the main thread's CPU time per
 step.  ``--root DIR`` runs the package of another tree (e.g. an archive
 of a parent commit unpacked under ``_scratch/``) with this script and
 this repository's ``chip_smoke.py``, for an A/B inside one call.
-``painn_slab`` (PaiNN-128x3 on the slab path) runs the port's
+``painn_rpmd`` runs ``chip_smoke.py``'s ring polymer: PaiNN-128x3
+(``full``) on 8 beads of the box, ``RingPolymer`` at 30 K, NVE, with a
+20-step warm-up.  ``painn_slab`` (PaiNN-128x3 on the slab path) runs the port's
 ``SpatialColumnSimulator`` instead: a 50-step warm-up chunk, then one
 traced chunk of STEPS steps, timed without its host re-bin.
 The full table goes to ``chiprun_out/profile_port_md_<path>.txt``.  Run from
@@ -47,11 +49,12 @@ def main():
     ap.add_argument("--path", default="full",
                     choices=("full", "hybrid", "schnet", "so3net",
                              "painn_trbf", "painn_cell", "painn_slab",
-                             "field_schnet"))
+                             "field_schnet", "painn_rpmd"))
     args = ap.parse_args()
     torch, cs, smi = open_tree(args, "profile_port_md", {})
     from schnetpack_tpu_torch.md import (
-        MaxwellBoltzmannInit, Simulator, VelocityVerlet, load_molecules,
+        MaxwellBoltzmannInit, RingPolymer, Simulator, VelocityVerlet,
+        load_molecules,
     )
     from torch.profiler import ProfilerActivity, profile
 
@@ -59,13 +62,17 @@ def main():
     pos, cell = cs.fcc_box(10_000)
     if args.path == "painn_slab":
         return profile_slab(cs, pos, cell, args, smi, dev)
-    pot, params = cs.potential(args.path)
+    rpmd = args.path == "painn_rpmd"
+    pot, params = cs.potential("full" if rpmd else args.path)
     calc = cs.calculator(pot, params, layout=cs.layout_of(args.path))
-    system = load_molecules([cs.molecule(pos, cell)], device=dev)
+    system = load_molecules([cs.molecule(pos, cell)],
+                            n_replicas=cs.N_BEADS if rpmd else 1, device=dev)
     system = MaxwellBoltzmannInit(30.0).initialize_system(
         system, torch.Generator().manual_seed(1))
-    sim = Simulator(system, VelocityVerlet(0.5), calc)
-    sim.simulate(100, chunk_size=100)
+    integrator = (RingPolymer(0.5, cs.N_BEADS, cs.T_BATH) if rpmd
+                  else VelocityVerlet(0.5))
+    sim = Simulator(system, integrator, calc)
+    sim.simulate(20 if rpmd else 100, chunk_size=100)
     calc.nbl.retighten(sim.system, jitter_fraction=0.05,
                        bucket_headroom=1.0 / 24.0)
     sim.calc_state = calc.nbl.state()

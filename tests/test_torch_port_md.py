@@ -124,7 +124,10 @@ def test_import_leaves_jax_out():
             "schnetpack_tpu_torch.ops.cellblock_gather, "
             "schnetpack_tpu_torch.ops.painn_fused, "
             "schnetpack_tpu_torch.representation.field_schnet, "
-            "schnetpack_tpu_torch.nn.embedding; "
+            "schnetpack_tpu_torch.nn.embedding, "
+            "schnetpack_tpu_torch.md.simulation_hooks, "
+            "schnetpack_tpu_torch.md.utils, "
+            "schnetpack_tpu_torch.md.calculators.lj; "
             "bad = [m for m in sys.modules if m == 'jax' or m == 'flax' "
             "or m.startswith(('jax.', 'flax.', 'schnetpack_tpu.')) "
             "or m == 'schnetpack_tpu']; print(bad); sys.exit(bool(bad))")
