@@ -134,7 +134,31 @@ Phases (any failure exits non-zero before the last line is printed):
    path of 7 and 8 prints ms per step (CUDA events), atom-steps/s (RPMD:
    atoms x beads), T or centroid T, drift, rebuilds and peak device
    memory beside the card's name and power limit;
-9. print the kernel table (every row and sub-row with ``ms`` and
+9. ``spkmd`` through the port's CLI (``schnetpack_tpu_torch.md.cli.main``)
+   in a temporary directory, each run's launches counted from zero:
+   ``build_calculator`` on a run directory written as the JAX training CLI
+   writes one (``PAINN_RUN_CONFIG``, a copy of the PaiNN asset) within
+   phase 4's gates of ``port_ref_painn_argon.npz``; ``spkmd_painn``, the
+   bench box from extxyz under Langevin (30 K, 20 fs, 300 steps) with the
+   trajectory file every step: 300 entries, the last frame equal to the
+   final state, the mean T of the last 100 steps within 3 K, K1-K4 3 per
+   force evaluation (one per step and the first); then its ms/step, a
+   control without the file and phase 7's ``painn_nvt_langevin`` on one
+   clock (each simulator's ``wall_seconds``), in ``SPKMD_REPEATS`` rounds
+   whose order turns every other round, with the file's writes and a
+   chunk's log copy timed; ``spkmd_ensemble``, the asset and
+   a seeded +-1% copy on the fixture's positions, 50 NVE steps: mean
+   forces within 1e-6 eV/Ang of two single calculators at the start, the
+   file's ``forces_uncertainty`` within 1e-6 of their population std at
+   the end, K1-K4 6 per evaluation; ``spkmd_water`` (gate 5: 8 SPC/Fw
+   waters, NHC 600 steps: second-half mean T in 180-420 K, no O-H over
+   1.6 A, the power spectrum's largest peak above 2,500 cm^-1 in
+   3,000-4,000; 16-bead PIMD 300 steps: bead T in 0.5-1.7 x 16 x 300 K);
+   ``spkmd_npt`` (32 LJ argon at 20 kbar, ``dynamics=npt``: NHC iso 300
+   steps, 0.5 V0 < V < 0.995 V0; aniso 200 steps, V < V0, det > 0); no
+   kernel launches in the water and NPT runs; ms/step of each beside the
+   card's name and power limit;
+10. print the kernel table (every row and sub-row with ``ms`` and
    ``device_ms``, ``library_ms`` and ``library_device_ms``) and the card
    as JSON, then the result line.
 
@@ -276,6 +300,38 @@ RPMD_DRIFT_TOL = 1e-4            # eV per atom per bead
 CENTROID_P_RTOL = 1e-5           # of sum |p_c|: f32 roundoff
 BEAD_OFFSET = 0.02               # Angstrom, the parity check's beads
 BEAD_FORCE_ATOL = 1e-6           # eV/Ang, blocked vs one replica
+#: phase 9, ``spkmd`` through the port's CLI: the trained PaiNN's run
+#: directory as the JAX training CLI writes it (``model_config.pkl``, a
+#: plain dict of the JAX package's targets, and ``best_model``), steps,
+#: the ensemble's gates, SPC/Fw water and LJ argon under NPT
+PAINN_RUN_CONFIG = {
+    "_target_": "schnetpack_tpu.model.NeuralNetworkPotential",
+    "representation": {"_target_": "schnetpack_tpu.representation.PaiNN",
+                       "n_atom_basis": 128, "n_interactions": 3,
+                       "n_rbf": 20, "cutoff": CUTOFF},
+    "input_modules": [{"_target_":
+                       "schnetpack_tpu.atomistic.PairwiseDistances"}],
+    "output_modules": [{"_target_": "schnetpack_tpu.atomistic.Atomwise",
+                        "output_key": "energy"},
+                       {"_target_": "schnetpack_tpu.atomistic.Forces"}],
+}
+SPKMD_STEPS, SPKMD_CHUNK = 300, 100
+SPKMD_REPEATS = 3                # rounds of the spkmd_painn timing A/B
+ENSEMBLE_STEPS = 50
+ENSEMBLE_SCALE = 0.01            # the second member: asset x (1 +- 1%)
+ENSEMBLE_FORCE_ATOL = 1e-6       # eV/Ang, vs single calculators
+WATER_NVT_STEPS, WATER_PIMD_STEPS, WATER_BEADS = 600, 300, 16
+WATER_T = 300.0                  # K
+WATER_NVT_T = (180.0, 420.0)     # K, the second half's mean (gate 5)
+WATER_PIMD_T = (0.5, 1.7)        # x beads x 300 K, bead-kinetic T (gate 5)
+OH_MAX = 1.6                     # Angstrom, no O-H bond broken at the end
+OH_BAND = (3000.0, 4000.0)       # cm^-1, the largest peak above 2,500
+NPT_STEPS = {"nhc_iso": 300, "nhc_aniso": 200}
+NPT_ARGS = ["barostat.target_pressure=20000.0",
+            "barostat.temperature_bath=20.0", "barostat.time_constant=20.0",
+            "barostat.time_constant_barostat=50.0",
+            "dynamics.integrator.time_step=1.0",
+            "system.initializer.temperature=20.0"]
 
 
 def ptxas_report(log: str, params):
@@ -315,6 +371,25 @@ def fcc_box(n_target: int, a: float = 5.26):
     grid = np.stack(np.meshgrid(*[np.arange(n)] * 3, indexing="ij"),
                     -1).reshape(-1, 1, 3)
     return ((base[None] + grid) * a).reshape(-1, 3), np.eye(3) * a * n
+
+
+def water_box_xyz(path, n_side=2, a=3.105):
+    """n_side^3 bent waters (O, H, H) on a cubic lattice at ~1 g/cc, written
+    as extxyz to ``path`` (``tests/test_gate5_water.py::_water_box_xyz``)."""
+    rng = np.random.RandomState(2)
+    L = n_side * a
+    lines = [str(3 * n_side ** 3),
+             f'Lattice="{L} 0 0 0 {L} 0 0 0 {L}" pbc="T T T"']
+    for i in range(n_side):
+        for j in range(n_side):
+            for k in range(n_side):
+                O = np.array([i, j, k], float) * a + a / 2 + rng.rand(3) * 0.05
+                for el, p in (("O", O), ("H", O + [0.76, 0.67, 0.0]),
+                              ("H", O + [-0.76, 0.67, 0.0])):
+                    lines.append(f"{el} {p[0]:.6f} {p[1]:.6f} {p[2]:.6f}")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return L
 
 
 def cuda_ms(fn, reps=10):
@@ -1526,7 +1601,8 @@ def nvt_phase(name, pos, cell, seed, dev, launches, smi, start=None):
     """PaiNN full under a thermostat (phase 7), from Maxwell-Boltzmann
     momenta or from the system ``start``; NHC also holds its extended
     energy and its mean temperature against an NVE run from ``start``.
-    Returns (launch counts, the final system)."""
+    Returns (launch counts, the final system, ms/step on CUDA events,
+    ms/step on the simulator's ``wall_seconds``)."""
     from schnetpack_tpu_torch.md import (
         MaxwellBoltzmannInit, Simulator, VelocityVerlet, load_molecules,
     )
@@ -1552,12 +1628,14 @@ def nvt_phase(name, pos, cell, seed, dev, launches, smi, start=None):
     reset(launches)
     builds0 = (nbl.n_builds, nbl.n_device_builds)
     ms_step, peak = timed_run(sim, NVT_STEPS, NVT_CHUNK)
+    wall_ms = 1e3 * sim.wall_seconds / NVT_STEPS
     counts = read_counts(launches)
     A = sim.system.total_atoms
     T = np.concatenate([lg["temperature"][:, 0, 0] for lg in sim.logs])
     T_mean = float(T[-NVT_AVG:].mean())
     line = (f"md ({name}): {NVT_STEPS} steps, {A} atoms, ms/step (CUDA "
-            f"events) {ms_step:.3f}, {A / (ms_step * 1e-3):.4g} "
+            f"events) {ms_step:.3f} (wall_seconds {wall_ms:.3f}), "
+            f"{A / (ms_step * 1e-3):.4g} "
             f"atom-steps/s, mean T of the last {NVT_AVG} steps {T_mean:.3f} "
             f"K (bath {T_BATH} K; T from {T.min():.2f} to {T.max():.2f} K), "
             f"rebuilds: {nbl.n_device_builds - builds0[1]} on the device, "
@@ -1586,7 +1664,7 @@ def nvt_phase(name, pos, cell, seed, dev, launches, smi, start=None):
         assert (abs(T_mean - T_BATH) + NHC_MARGIN
                 <= abs(T_nve - T_BATH)), f"NHC {T_mean} K vs NVE {T_nve} K"
     print(f"{line}; {smi}", flush=True)
-    return counts, sim.system
+    return counts, sim.system, ms_step, wall_ms
 
 
 class ExtendedEnergy:
@@ -1751,6 +1829,340 @@ def rpmd_phase(pos, cell, seed, dev, launches, smi):
     return total
 
 
+def write_run_dir(path, tree_file=None, tree=None):
+    """A run directory as the JAX training CLI writes one: the model's
+    config (``PAINN_RUN_CONFIG``, names only: nothing of JAX is imported)
+    and the parameters, a copy of ``tree_file`` or a pickle of ``tree``."""
+    import pickle
+    import shutil
+
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "model_config.pkl"), "wb") as f:
+        pickle.dump(PAINN_RUN_CONFIG, f)
+    if tree_file is not None:
+        shutil.copy(tree_file, os.path.join(path, "best_model"))
+    else:
+        with open(os.path.join(path, "best_model"), "wb") as f:
+            pickle.dump(tree, f)
+    return path
+
+
+def perturbed_tree(path, seed, scale):
+    """The parameter tree in ``path`` with every array scaled by a seeded
+    1 +- ``scale``."""
+    from schnetpack_tpu_torch.convert import load_jax_params
+
+    rng = np.random.RandomState(seed)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        node = np.asarray(node, np.float32)
+        return node * (1 + scale * rng.uniform(-1, 1, node.shape)).astype(
+            np.float32)
+    return walk(load_jax_params(path))
+
+
+def write_xyz(path, R, cell):
+    from schnetpack_tpu_torch.datasets import write_extxyz
+
+    write_extxyz(path, [{"numbers": np.full(len(R), 18), "positions": R,
+                         "cell": cell}])
+    return path
+
+
+def spkmd_run(name, argv, launches, smi):
+    """``spkmd`` (``schnetpack_tpu_torch.md.cli.main``) on ``argv``, its
+    launch counts from zero; returns (simulator, counts, the trajectory's
+    loader)."""
+    from schnetpack_tpu_torch.md import cli
+    from schnetpack_tpu_torch.md.data import HDF5Loader, open_store
+    from schnetpack_tpu_torch.md.simulation_hooks import FileLogger
+
+    reset(launches)
+    torch.cuda.reset_peak_memory_stats()
+    writes = []                 # the trajectory file's host seconds a chunk
+    process_chunk = FileLogger.process_chunk
+
+    def timed(self, *args):
+        t = time.perf_counter()
+        process_chunk(self, *args)
+        writes.append(time.perf_counter() - t)
+    FileLogger.process_chunk = timed
+    try:
+        t0 = time.perf_counter()
+        sim = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        FileLogger.process_chunk = process_chunk
+    counts = read_counts(launches)
+    files = [h.filename for h in sim.host_hooks if isinstance(h, FileLogger)]
+    data = HDF5Loader(files[0]) if files else None
+    steps = sim.n_simulated
+    kind = (f"{open_store(files[0], 'r').kind} store, {data.entries} "
+            f"entries, written in {1e3 * sum(writes) / steps:.3f} ms/step "
+            f"({1e3 * max(writes):.1f} ms for the longest chunk)"
+            if files else "no file")
+    print(f"spkmd ({name}): {steps} steps, {sim.system.total_atoms} atoms x "
+          f"{sim.system.n_replicas} replicas, ms/step "
+          f"{1e3 * sim.wall_seconds / steps:.3f} (the simulator's steps, "
+          f"logging and file included; wall of the whole CLI "
+          f"{1e3 * wall / steps:.3f}, {wall:.2f} s), trajectory: {kind}, "
+          f"peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; {smi}",
+          flush=True)
+    return sim, counts, data
+
+
+def log_copy_ms(sim, steps):
+    """Host ms of one chunk's log: ``steps`` steps of the simulator's log
+    record stacked on the device and copied to the host, as ``simulate``
+    does once a chunk."""
+    rec = sim._log_record(sim.system)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logs = {k: torch.stack([v] * steps).cpu().numpy() for k, v in rec.items()}
+    ms = 1e3 * (time.perf_counter() - t0)
+    return ms, sum(a.nbytes for a in logs.values())
+
+
+def spkmd_phase(pos, cell, seed, dev, launches, smi):
+    """Phase 9: ``spkmd`` through the port's CLI in a temporary directory:
+    PaiNN-128x3 from a run directory on the bench box under Langevin with
+    a trajectory file written every step (``spkmd_painn``), a two-member
+    ensemble (``spkmd_ensemble``), SPC/Fw water under NHC and as 16-bead
+    PIMD (``spkmd_water``), LJ argon under NPT (``spkmd_npt``); returns
+    the launch counts."""
+    import shutil
+    import tempfile
+
+    from schnetpack_tpu_torch.config.compose import Composer
+    from schnetpack_tpu_torch.md import cli, load_molecules
+    from schnetpack_tpu_torch.md.data import PowerSpectrum
+
+    tmp = tempfile.mkdtemp(prefix="spkmd_")
+    total = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    try:
+        box = write_xyz(os.path.join(tmp, "box.xyz"), pos, cell)
+        run = write_run_dir(os.path.join(tmp, "run"), ASSET["painn"])
+        common = [f"device={dev}", "calculator.neighbor_list=cellblock",
+                  f"calculator.cutoff_shell={SKIN}", f"seed={seed}"]
+
+        # build_calculator on the run directory against the fixture
+        ref = np.load(REFERENCE["full"])
+        cfg = Composer([cli._MD_CONFIG_DIR]).compose("config", [
+            f"calculator.model_dir={run}"] + common)
+        calc = cli.build_calculator(cfg["calculator"], dev)
+        system = load_molecules([molecule(ref["R"].astype(np.float64),
+                                          ref["cell"])], device=dev)
+        system = calc.calculate(system, calc.init_state(system))
+        F = (system.forces[0] / calc.force_conversion).cpu().numpy()
+        E = float(system.energy[0, 0]) / calc.energy_conversion
+        rms = float(np.sqrt(np.mean((F - ref["forces"]) ** 2)))
+        dE = abs(E - float(ref["energy"])) / abs(float(ref["energy"]))
+        print(f"spkmd: build_calculator on the run directory vs the "
+              f"fixture: force rms {rms:.3e} eV/Ang, energy rel {dE:.2e}",
+              flush=True)
+        assert rms <= FORCE_RMS_TOL, f"run directory force rms {rms}"
+        assert dE <= ENERGY_RTOL, f"run directory energy rel err {dE}"
+
+        # spkmd_painn: Langevin at 30 K, the trajectory every step
+        nvt = [f"system.molecule_file={box}", f"calculator.model_dir={run}",
+               "dynamics=nvt", "thermostat=langevin",
+               f"thermostat.temperature_bath={T_BATH}",
+               f"thermostat.time_constant={TAU_FS}",
+               f"system.initializer.temperature={T_BATH}",
+               f"dynamics.n_steps={SPKMD_STEPS}",
+               f"dynamics.chunk_size={SPKMD_CHUNK}"] + common
+        sim, counts, data = spkmd_run(
+            "spkmd_painn", nvt + ["callbacks=hdf5",
+                                  f"simulation_dir={tmp}/painn"],
+            launches, smi)
+        check_launches("spkmd_painn", counts, PER_STEP["full"],
+                       SPKMD_STEPS + 1)
+        add(counts)
+        assert data.entries == SPKMD_STEPS, data.entries
+        s = sim.system
+        for k in ("positions", "momenta"):
+            last = data.get(k, replica_idx=0)[-1]
+            want = getattr(s, k)[0].float().cpu().numpy()
+            assert np.array_equal(last, want), f"spkmd_painn: last {k}"
+        T = data.get_temperature().reshape(-1)
+        T_mean = float(T[-NVT_AVG:].mean())
+        copy_ms, copy_bytes = log_copy_ms(sim, SPKMD_CHUNK)
+        print(f"spkmd (spkmd_painn): {layout_str(sim.calc_state)}, mean T of "
+              f"the last {NVT_AVG} steps {T_mean:.3f} K (bath {T_BATH} K); a "
+              f"{SPKMD_CHUNK}-step chunk's log ({copy_bytes / 1e6:.1f} MB) "
+              f"stacked and copied to the host in {copy_ms:.2f} ms; {smi}",
+              flush=True)
+        assert abs(T_mean - T_BATH) <= NVT_TOL["painn_nvt_langevin"], (
+            f"spkmd_painn: mean T {T_mean}")
+
+        # one clock (wall_seconds) for spkmd_painn, the same run without
+        # the file and phase 7's Langevin run, interleaved
+        walls = {"spkmd_painn": [], "spkmd_painn, no file": [],
+                 "painn_nvt_langevin": []}
+        for r in range(SPKMD_REPEATS):
+            for name in list(walls)[::1 if r % 2 == 0 else -1]:
+                if name == "painn_nvt_langevin":
+                    walls[name].append(nvt_phase(
+                        name, pos, cell, seed, dev, launches, smi)[3])
+                    continue
+                cb, tag = ((["callbacks=hdf5"], "file")
+                           if name == "spkmd_painn" else
+                           (["callbacks=checkpoint",
+                             "callbacks.checkpoint=false"], "nofile"))
+                sim, counts, _ = spkmd_run(name, nvt + cb + [
+                    f"simulation_dir={tmp}/painn_{tag}_{r}"], launches, smi)
+                check_launches(name, counts, PER_STEP["full"],
+                               SPKMD_STEPS + 1)
+                add(counts)
+                walls[name].append(1e3 * sim.wall_seconds / SPKMD_STEPS)
+        mean = {k: float(np.mean(v)) for k, v in walls.items()}
+        spread = max(max(v) - min(v) for v in walls.values())
+        file_cost = mean["spkmd_painn"] - mean["spkmd_painn, no file"]
+        cli_cost = mean["spkmd_painn"] - mean["painn_nvt_langevin"]
+        print("spkmd (spkmd_painn timing, wall_seconds ms/step, "
+              f"{SPKMD_REPEATS} interleaved rounds): " + "; ".join(
+                  f"{k} " + ", ".join(f"{x:.3f}" for x in v)
+                  + f" (mean {mean[k]:.3f})" for k, v in walls.items())
+              + f"; file - no file {file_cost:+.3f}, spkmd_painn - "
+              f"painn_nvt_langevin {cli_cost:+.3f}, "
+              f"largest spread within one run kind {spread:.3f}; {smi}",
+              flush=True)
+
+        # spkmd_ensemble: the asset and a perturbed copy, NVE
+        run2 = write_run_dir(os.path.join(tmp, "run2"), tree=perturbed_tree(
+            ASSET["painn"], seed + 7, ENSEMBLE_SCALE))
+        fixture = write_xyz(os.path.join(tmp, "fixture.xyz"),
+                            ref["R"].astype(np.float64), ref["cell"])
+        ens = ["calculator=ensemble", f"calculator.model_dirs=[{run},{run2}]"]
+        cfg = Composer([cli._MD_CONFIG_DIR]).compose("config", ens + common)
+        ecalc = cli.build_calculator(cfg["calculator"], dev)
+        singles = []
+        for d in (run, run2):
+            c = cli.build_calculator(Composer([cli._MD_CONFIG_DIR]).compose(
+                "config", [f"calculator.model_dir={d}"] + common)
+                ["calculator"], dev)
+            singles.append(c)
+
+        def forces(c, system):
+            out = c.calculate(system, c.init_state(system))
+            return out, out.forces / c.force_conversion
+
+        system = load_molecules([molecule(ref["R"].astype(np.float64),
+                                          ref["cell"])], device=dev)
+        out, F_ens = forces(ecalc, system)
+        F1 = torch.stack([forces(c, system)[1] for c in singles])
+        err = float((F_ens - F1.mean(0)).abs().max())
+        spread = float(F1.std(0, correction=0).max())
+        print(f"spkmd (spkmd_ensemble): start: max |F_ens - mean of two "
+              f"single calculators| {err:.3e} eV/Ang (largest member std "
+              f"{spread:.3e})", flush=True)
+        assert err <= ENSEMBLE_FORCE_ATOL, f"ensemble mean forces {err}"
+        sim, counts, data = spkmd_run("spkmd_ensemble", ens + common + [
+            f"system.molecule_file={fixture}", "dynamics=nve",
+            f"system.initializer.temperature={T_BATH}",
+            f"dynamics.n_steps={ENSEMBLE_STEPS}",
+            f"dynamics.chunk_size={ENSEMBLE_STEPS}", "callbacks=hdf5",
+            f"simulation_dir={tmp}/ensemble"], launches, smi)
+        check_launches("spkmd_ensemble", counts,
+                       {k: 2 * v for k, v in PER_STEP["full"].items()},
+                       ENSEMBLE_STEPS + 1)
+        add(counts)
+        last = system.replace(positions=sim.system.positions.clone())
+        F1 = torch.stack([forces(c, last)[1] for c in singles])
+        std = F1.std(0, correction=0)[0].float().cpu().numpy()
+        unc = data.get("forces_uncertainty", replica_idx=0)[-1] / (
+            ecalc.force_conversion)
+        err = float(np.abs(unc - std).max())
+        print(f"spkmd (spkmd_ensemble): {data.entries} entries, last frame: "
+              f"max |forces_uncertainty - population std of the singles| "
+              f"{err:.3e} eV/Ang (largest std {std.max():.3e}); {smi}",
+              flush=True)
+        assert data.entries == ENSEMBLE_STEPS
+        assert err <= ENSEMBLE_FORCE_ATOL, f"forces_uncertainty {err}"
+
+        # spkmd_water: gate 5 through calculator=spcfw
+        water = os.path.join(tmp, "water.xyz")
+        water_box_xyz(water)
+        wargs = [f"system.molecule_file={water}", "calculator=spcfw",
+                 f"device={dev}", f"seed={seed}",
+                 f"system.initializer.temperature={WATER_T}",
+                 f"dynamics.thermostat.temperature_bath={WATER_T}",
+                 "dynamics.thermostat.time_constant=20.0"]
+        sim, counts, data = spkmd_run("spkmd_water, NVT", wargs + [
+            "dynamics=nvt", f"dynamics.n_steps={WATER_NVT_STEPS}",
+            "dynamics.integrator.time_step=0.5",
+            f"simulation_dir={tmp}/water_nvt"], launches, smi)
+        check_launches("spkmd_water", counts, {}, 1)
+        T = data.get_temperature().reshape(-1)
+        T_mean = float(T[len(T) // 2:].mean())
+        R_last = data.convert_to_atoms(-1)["_positions"]
+        oh = max(float(np.linalg.norm(R_last[3 * w + h] - R_last[3 * w]))
+                 for w in range(len(R_last) // 3) for h in (1, 2))
+        spec = PowerSpectrum(data, resolution=4096)
+        spec.compute_spectrum(0)
+        (freq, inten), = spec.get_spectrum()
+        hi = freq > 2500.0
+        peak = float(freq[hi][np.argmax(inten[hi])])
+        print(f"spkmd (spkmd_water, NVT): mean T of the second half "
+              f"{T_mean:.2f} K, largest O-H at the end {oh:.3f} A, largest "
+              f"peak above 2,500 cm^-1 at {peak:.1f} cm^-1 (bins of "
+              f"{freq[1]:.1f})", flush=True)
+        assert WATER_NVT_T[0] < T_mean < WATER_NVT_T[1], f"water T {T_mean}"
+        assert oh < OH_MAX, f"water O-H {oh}"
+        assert OH_BAND[0] <= peak <= OH_BAND[1], f"O-H stretch at {peak}"
+        sim, counts, data = spkmd_run("spkmd_water, PIMD", wargs + [
+            "dynamics=rpmd", f"dynamics.integrator.n_beads={WATER_BEADS}",
+            "dynamics.integrator.time_step=0.2",
+            f"dynamics.integrator.temperature={WATER_T}",
+            f"dynamics.n_steps={WATER_PIMD_STEPS}",
+            f"simulation_dir={tmp}/water_pimd"], launches, smi)
+        check_launches("spkmd_water (PIMD)", counts, {}, 1)
+        T = data.get_temperature().reshape(-1)
+        ratio = float(T[len(T) // 2:].mean()) / (WATER_BEADS * WATER_T)
+        print(f"spkmd (spkmd_water, PIMD): {WATER_BEADS} beads, mean "
+              f"bead-kinetic T of the second half {ratio:.3f} x "
+              f"{WATER_BEADS} x {WATER_T} K", flush=True)
+        assert WATER_PIMD_T[0] < ratio < WATER_PIMD_T[1], f"PIMD T {ratio}"
+
+        # spkmd_npt: LJ argon at 20 kbar (test_npt_gle.py's gates)
+        base = np.array([[0, 0, 0], [0.5, 0.5, 0], [0.5, 0, 0.5],
+                         [0, 0.5, 0.5]])
+        argon = write_xyz(os.path.join(tmp, "argon.xyz"), np.concatenate(
+            [(base + [i, j, k]) * 5.26 for i in range(2) for j in range(2)
+             for k in range(2)]), np.eye(3) * 10.52)
+        v0 = 10.52 ** 3
+        for baro, steps in NPT_STEPS.items():
+            sim, counts, _ = spkmd_run(f"spkmd_npt, {baro}", NPT_ARGS + [
+                f"system.molecule_file={argon}", "calculator=lj",
+                "calculator.calc_stress=true", "calculator.cutoff=5.0",
+                "dynamics=npt", f"barostat={baro}", f"device={dev}",
+                f"seed={seed}", f"dynamics.n_steps={steps}",
+                f"simulation_dir={tmp}/npt_{baro}"], launches, smi)
+            check_launches(f"spkmd_npt ({baro})", counts, {}, 1)
+            s = sim.system
+            cells = s.cells[0, 0].double().cpu() * 10.0      # nm -> A
+            v1, det = float(s.volume[0, 0]) * 1e3, float(torch.det(cells))
+            print(f"spkmd (spkmd_npt, {baro}): V/V0 {v1 / v0:.4f}, "
+                  f"det(cell) {det:.2f} A^3", flush=True)
+            assert torch.isfinite(s.positions).all()
+            assert torch.isfinite(s.cells).all()
+            assert v1 < v0 and det > 0, f"{baro}: V {v1} det {det}"
+            if baro == "nhc_iso":
+                assert 0.5 * v0 < v1 < 0.995 * v0, f"{baro}: V/V0 {v1 / v0}"
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return total
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -1839,11 +2251,14 @@ def main():
         total[k] = total.get(k, 0) + v
     start = None        # NHC continues from the Langevin run's last state
     for name in NVT_TOL:
-        counts, start = nvt_phase(name, pos, cell, args.seed, dev, launches,
-                                  smi, start)
+        counts, start, ms_step[name], _ = nvt_phase(
+            name, pos, cell, args.seed, dev, launches, smi, start)
         for k, v in counts.items():
             total[k] = total.get(k, 0) + v
     for k, v in rpmd_phase(pos, cell, args.seed, dev, launches, smi).items():
+        total[k] = total.get(k, 0) + v
+    for k, v in spkmd_phase(pos, cell, args.seed, dev, launches,
+                            smi).items():
         total[k] = total.get(k, 0) + v
     for row in rows:
         row["launches"] = total[row["name"]]

@@ -33,10 +33,20 @@ from ..ops.colblock_shard import COLS_AXIS, COLS_AXIS_Y
 
 class PairwiseDistances(nn.Module):
     """Adds ``col_rij`` [nx, ny, Ktot, 3] to column-layout inputs and
-    ``nbh_rij`` [A', K, 3] to 27-cell-layout inputs."""
+    ``nbh_rij`` [A', K, 3] to 27-cell-layout inputs.  ``columns=False``
+    skips the unsharded column layout, for a representation whose kernels
+    there take the positions (``reads_column_rij``: PaiNN's fused paths,
+    SchNet), as XLA drops the JAX model's dead ``col_rij``."""
+
+    def __init__(self, columns: bool = True):
+        super().__init__()
+        self.columns = columns
 
     def forward(self, inputs: Dict[str, torch.Tensor]):
         R = inputs[properties.R]
+        if (properties.cell_qcol in inputs and not self.columns
+                and properties.cell_shard not in inputs):
+            return inputs
         if properties.cell_qcol in inputs:
             refs = column_refs(inputs)
             if properties.cell_shard in inputs:

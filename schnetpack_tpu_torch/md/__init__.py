@@ -1,9 +1,11 @@
-from .initial_conditions import MaxwellBoltzmannInit, UniformInit
-from .integrators import RingPolymer, VelocityVerlet
+from .initial_conditions import Initializer, MaxwellBoltzmannInit, UniformInit
+from .integrators import (
+    NPTRingPolymer, NPTVelocityVerlet, RingPolymer, VelocityVerlet,
+)
 from .neighborlist_md import CellBlockNeighborListMD
 from .simulator import Simulator
 from .system import System, load_molecules
 
-__all__ = ["CellBlockNeighborListMD", "MaxwellBoltzmannInit", "RingPolymer",
-           "Simulator", "System", "UniformInit", "VelocityVerlet",
-           "load_molecules"]
+__all__ = ["CellBlockNeighborListMD", "Initializer", "MaxwellBoltzmannInit",
+           "NPTRingPolymer", "NPTVelocityVerlet", "RingPolymer", "Simulator",
+           "System", "UniformInit", "VelocityVerlet", "load_molecules"]

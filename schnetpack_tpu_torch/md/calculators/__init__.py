@@ -1,6 +1,7 @@
 from .base import MDCalculator, PairwiseMDCalculator
 from .lj import LJCalculator
-from .schnetpack_calculator import SchNetPackCalculator
+from .schnetpack_calculator import EnsembleCalculator, SchNetPackCalculator
+from .spcfw import SPCFwCalculator
 
-__all__ = ["LJCalculator", "MDCalculator", "PairwiseMDCalculator",
-           "SchNetPackCalculator"]
+__all__ = ["EnsembleCalculator", "LJCalculator", "MDCalculator",
+           "PairwiseMDCalculator", "SPCFwCalculator", "SchNetPackCalculator"]

@@ -11,7 +11,7 @@ same pairs within the cutoff, in the same (i, j) order.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -23,10 +23,14 @@ from ..system import System
 
 
 class MDCalculator:
-    def __init__(self, force_key: str = structure.forces,
+    def __init__(self, required_properties: Sequence[str] = (),
+                 force_key: str = structure.forces,
                  energy_unit: str = "eV", position_unit: str = "Ang",
                  energy_key: Optional[str] = structure.energy,
                  stress_key: Optional[str] = None):
+        # ``required_properties`` is the JAX config's key; there it only
+        # filters model outputs that never reach the system, so the port
+        # takes it and keeps nothing
         md = md_units()
         self.force_key = force_key
         self.energy_key = energy_key

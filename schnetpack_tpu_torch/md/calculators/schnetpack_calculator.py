@@ -29,10 +29,27 @@ batching rule adds the bead axis to each kernel's grid; here the kernels
 run once per bead, with one ``ColRefs`` (and its cached schedules) shared
 by all beads of a step, and each bead's autograd graph is freed before the
 next bead runs, so peak memory stays that of one replica.
+
+The constructor takes the JAX calculator's keys (``schnetpack_calculator.
+py:28-44``) and refuses at once what the port cannot run:
+``neighbor_list="all_pairs"`` or ``"dense"`` (the flat and dense layouts,
+ROADMAP Queue 1 item 5), ``precision="bf16"`` or ``"mixed"`` (the
+reduced-precision feature mode, item 8; ``None`` and ``"f32"`` run as
+f32) and a ``stress_key`` (the column and 27-cell kernels return no
+strain cotangent, item 7).  ``fixed_cell``: the neighbor list is built
+for one box, so the simulator refuses an NPT integrator with it.
+
+``EnsembleCalculator`` (``schnetpack_calculator.py:294-333``) runs one
+model per member over one set of inputs a step (one ``ColRefs`` and its
+cached schedules for every member and bead), each member's graph freed
+before the next, and writes the members' mean into the system and their
+population standard deviation (ddof 0, as ``jnp.std``) into
+``system.properties`` as ``forces_uncertainty`` and
+``energy_uncertainty``, in MD units.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Union
+from typing import Dict, Optional, Sequence, Union
 
 import torch
 
@@ -43,7 +60,39 @@ from ..system import System
 from .base import MDCalculator
 
 
+#: the port's layouts by the reference's ``neighbor_list`` names
+LAYOUTS = {None: "column", "cellblock": "column", "cellblock_atom": "atom"}
+
+
+def check_options(neighbor_list, precision, stress_key) -> None:
+    """Raise for the calculator options the port does not run."""
+    if neighbor_list in ("all_pairs", "dense"):
+        raise NotImplementedError(
+            f"neighbor_list={neighbor_list!r}: the flat and dense layouts "
+            "are not ported (ROADMAP Queue 1 item 5); use 'cellblock' (the "
+            "column layout) or 'cellblock_atom' (the 27-cell layout)")
+    if isinstance(neighbor_list, str) and neighbor_list not in LAYOUTS:
+        raise ValueError(
+            "the port's calculator takes neighbor_list='cellblock', "
+            "'cellblock_atom' or a CellBlockNeighborListMD, not "
+            f"{neighbor_list!r}")
+    if precision in ("bf16", "mixed"):
+        raise NotImplementedError(
+            f"precision={precision!r}: the reduced-precision feature mode "
+            "is not ported (ROADMAP Queue 1 item 8); use None or 'f32'")
+    if precision not in (None, "f32"):
+        raise ValueError(f"precision must be None, 'f32', 'bf16' or "
+                         f"'mixed', not {precision!r}")
+    if stress_key is not None:
+        raise NotImplementedError(
+            f"stress_key={stress_key!r}: the column and 27-cell layouts' "
+            "kernels return no strain cotangent, so the port's models have "
+            "no stress (ROADMAP Queue 1 item 7)")
+
+
 class SchNetPackCalculator(MDCalculator):
+    fixed_cell = True
+
     def __init__(
         self,
         model,                      # NeuralNetworkPotential
@@ -53,12 +102,17 @@ class SchNetPackCalculator(MDCalculator):
         energy_unit: str = "eV",
         position_unit: str = "Ang",
         energy_key: str = structure.energy,
+        stress_key: Optional[str] = None,
         cutoff_shell: float = 0.0,
+        required_properties: Sequence[str] = (),
         neighbor_list: Union[CellBlockNeighborListMD, str, None] = None,
+        precision: Optional[str] = None,
         wgrad: bool = False,
     ):
-        super().__init__(force_key=force_key, energy_unit=energy_unit,
+        super().__init__(required_properties=required_properties,
+                         force_key=force_key, energy_unit=energy_unit,
                          position_unit=position_unit, energy_key=energy_key)
+        check_options(neighbor_list, precision, stress_key)
         self.model = model
         if params is not None:
             self.model.load_state_dict(params)
@@ -66,17 +120,10 @@ class SchNetPackCalculator(MDCalculator):
             self.model.requires_grad_(False)
         self.cutoff_model_units = float(cutoff)
         if neighbor_list is None or isinstance(neighbor_list, str):
-            layouts = {None: "column", "cellblock": "column",
-                       "cellblock_atom": "atom"}
-            if neighbor_list not in layouts:
-                raise NotImplementedError(
-                    "the port's calculator takes neighbor_list='cellblock', "
-                    "'cellblock_atom' or a CellBlockNeighborListMD, not "
-                    f"{neighbor_list!r}")
             neighbor_list = CellBlockNeighborListMD(
                 cutoff * self.position_conversion,
                 skin=max(cutoff_shell, 0.3) * self.position_conversion,
-                layout=layouts[neighbor_list])
+                layout=LAYOUTS[neighbor_list])
         self.nbl = neighbor_list
 
     def init_state(self, system: System):
@@ -119,12 +166,9 @@ class SchNetPackCalculator(MDCalculator):
             })
         return inputs
 
-    def calculate(self, system: System, calc_state) -> System:
-        """Energy and forces of every replica, one model evaluation each
-        (see the module's docstring for beads)."""
-        base = self.model_inputs(system, calc_state)
-        if system.n_replicas > 1:
-            column_refs(base)       # one refs for every bead of the step
+    def _evaluate(self, model, base, system: System, calc_state):
+        """(energy [R, M], forces [R, A, 3] in the original atom order or
+        None) of ``model`` on every replica, in model units."""
         order, rank = calc_state["cell_order"], calc_state["cell_rank"]
         inv = 1.0 / self.position_conversion
         energy, forces = [], []
@@ -132,11 +176,69 @@ class SchNetPackCalculator(MDCalculator):
             inputs = dict(base)
             if r:
                 inputs[structure.R] = system.positions[r, order] * inv
-            out = self.model(inputs)
+            out = model(inputs)
             energy.append(out[self.energy_key].detach())
             if self.force_key in out:
                 forces.append(out[self.force_key].detach()[rank])
-        outputs = {self.energy_key: torch.stack(energy)}
-        if forces:
-            outputs[self.force_key] = torch.stack(forces)
+        return torch.stack(energy), torch.stack(forces) if forces else None
+
+    def shared_inputs(self, system: System, calc_state, n_evals: int):
+        """The model's inputs, with the column refs made once when more
+        than one evaluation reads them."""
+        base = self.model_inputs(system, calc_state)
+        if n_evals > 1 and structure.cell_qcol in base:
+            column_refs(base)
+        return base
+
+    def calculate(self, system: System, calc_state) -> System:
+        """Energy and forces of every replica, one model evaluation each
+        (see the module's docstring for beads)."""
+        energy, forces = self._evaluate(
+            self.model,
+            self.shared_inputs(system, calc_state, system.n_replicas),
+            system, calc_state)
+        outputs = {self.energy_key: energy}
+        if forces is not None:
+            outputs[self.force_key] = forces
         return self._update_system(system, outputs)
+
+
+class EnsembleCalculator(SchNetPackCalculator):
+    """The members' mean and population std (see the module's docstring).
+    ``models``: one loaded ``NeuralNetworkPotential`` per member (the JAX
+    package's stacked parameters exist for its vmap, which the port does
+    not run)."""
+
+    def __init__(self, models: Sequence, cutoff: float = 5.0,
+                 wgrad: bool = False, **kwargs):
+        super().__init__(models[0], None, cutoff, wgrad=wgrad, **kwargs)
+        #: the ``system.properties`` streams it writes, to log
+        self.property_keys = (f"{self.energy_key}_uncertainty",
+                              f"{self.force_key}_uncertainty")
+        self.models = list(models)
+        if not wgrad:
+            for m in self.models:
+                m.requires_grad_(False)
+
+    def init_state(self, system: System):
+        for m in self.models:
+            m.to(system.positions.device)
+        return super().init_state(system)
+
+    def calculate(self, system: System, calc_state) -> System:
+        base = self.shared_inputs(system, calc_state,
+                                  system.n_replicas * len(self.models))
+        runs = [self._evaluate(m, base, system, calc_state)
+                for m in self.models]
+        energy = torch.stack([e for e, _ in runs])        # [E, R, M]
+        outputs = {self.energy_key: energy.mean(0)}
+        unc = {f"{self.energy_key}_uncertainty":
+               energy.std(0, correction=0) * self.energy_conversion}
+        if runs[0][1] is not None:
+            forces = torch.stack([f for _, f in runs])    # [E, R, A, 3]
+            outputs[self.force_key] = forces.mean(0)
+            unc[f"{self.force_key}_uncertainty"] = (
+                forces.std(0, correction=0) * self.force_conversion)
+        system = self._update_system(system, outputs)
+        return system.replace(properties={**system.properties, **unc})
+

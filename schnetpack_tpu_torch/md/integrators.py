@@ -1,7 +1,11 @@
 """Integrators (parity: ``schnetpack_tpu/md/integrators.py``):
 ``VelocityVerlet`` and ``RingPolymer``, the exact free-ring-polymer
-propagation in normal modes.  ``dt`` is given in ``time_unit`` and stored
-in the MD unit frame."""
+propagation in normal modes, and their NPT forms ``NPTVelocityVerlet``
+and ``NPTRingPolymer`` (``integrators.py:100-130``), which delegate both
+steps to a barostat.  ``dt`` is given in ``time_unit`` and stored in the
+MD unit frame.  An NPT integrator's steps take the barostat's state as
+their second argument: the simulator passes the state it owns for the
+barostat among its hooks."""
 from __future__ import annotations
 
 from typing import Dict, Tuple
@@ -15,6 +19,9 @@ from .utils.normal_modes import NormalModeTransformer, normal_mode_frequencies
 
 
 class VelocityVerlet:
+    ring_polymer = False
+    pressure_control = False
+
     def __init__(self, time_step: float, time_unit: str = "fs"):
         self.dt = time_step * _parse_unit(time_unit) * md_units().time
 
@@ -32,6 +39,8 @@ class RingPolymer(VelocityVerlet):
     evolution of the free ring polymer, mode by mode, [p'; q'] =
     [[cos, -m w sin], [sin / (m w), cos]] [p; q], and a free particle for
     the centroid (w = 0: sin / w -> dt)."""
+
+    ring_polymer = True
 
     def __init__(self, time_step: float, n_beads: int, temperature: float,
                  time_unit: str = "fs"):
@@ -68,3 +77,37 @@ class RingPolymer(VelocityVerlet):
         return system.replace(
             momenta=nm.normal2beads(pn_new) * system.atom_mask[None, :, None],
             positions=nm.normal2beads(qn_new))
+
+
+class NPTVelocityVerlet(VelocityVerlet):
+    """Velocity Verlet whose steps are the barostat's
+    (``integrators.py:100-115``)."""
+
+    pressure_control = True
+
+    def __init__(self, time_step: float, barostat, time_unit: str = "fs"):
+        super().__init__(time_step, time_unit)
+        self.barostat = barostat
+
+    def half_step(self, system: System, barostat_state) -> System:
+        return self.barostat.propagate_half_step(barostat_state, system,
+                                                 self.dt)
+
+    def main_step(self, system: System, barostat_state) -> System:
+        return self.barostat.propagate_main_step(barostat_state, system,
+                                                 self.dt)
+
+
+class NPTRingPolymer(RingPolymer):
+    """The ring-polymer integrator whose steps are the barostat's
+    (``integrators.py:118-130``)."""
+
+    pressure_control = True
+
+    def __init__(self, time_step: float, n_beads: int, temperature: float,
+                 barostat, time_unit: str = "fs"):
+        super().__init__(time_step, n_beads, temperature, time_unit)
+        self.barostat = barostat
+
+    half_step = NPTVelocityVerlet.half_step
+    main_step = NPTVelocityVerlet.main_step

@@ -1,5 +1,8 @@
+from .barostats import (
+    BarostatHook, NHCBarostatAnisotropic, NHCBarostatIsotropic, PILEBarostat,
+)
 from .basic_hooks import DeviceHook, RemoveCOMMotion, SimulationHook, WrapPositions
-from .callback_hooks import Checkpoint
+from .callback_hooks import Checkpoint, FileLogger, TensorBoardLoggerMD
 from .thermostats import (
     BerendsenThermostat, GLEThermostat, LangevinThermostat, NHCThermostat,
     ThermostatHook,
@@ -10,8 +13,10 @@ from .thermostats_rpmd import (
 )
 
 __all__ = [
+    "BarostatHook", "NHCBarostatAnisotropic", "NHCBarostatIsotropic",
+    "PILEBarostat",
     "DeviceHook", "RemoveCOMMotion", "SimulationHook", "WrapPositions",
-    "Checkpoint",
+    "Checkpoint", "FileLogger", "TensorBoardLoggerMD",
     "BerendsenThermostat", "GLEThermostat", "LangevinThermostat",
     "NHCThermostat", "ThermostatHook",
     "NHCRingPolymerThermostat", "PIGLETThermostat", "PILEGlobalThermostat",

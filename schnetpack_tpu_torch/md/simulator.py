@@ -15,6 +15,21 @@ numpy arrays (``process_chunk``).  ``state_dict`` and ``load_state_dict``
 generator's state and the step count; a restored simulator rebuilds its
 neighbor state from the restored positions.  Capturing the step in a
 CUDA graph is later work.
+
+The default ``log_keys`` are the JAX package's eight
+(``simulator.py:48-51``), each read from ``system.properties`` first, then
+from the system's attribute or derived property; a key the system does not
+have is not logged.  Logging adds no host sync inside a chunk: each step
+appends references to its tensors.
+
+An NPT integrator (``pressure_control``) delegates its half and main
+steps to its barostat, which is also one of the device hooks: the
+simulator hands the integrator that hook's current state (the one it
+owns, so a restored state after ``load_state_dict``), where the JAX
+package passes it through the barostat's ``_live_state``
+(``barostats.py:111-112, 131-152``).  A calculator with ``fixed_cell``
+(the column and 27-cell layouts: their neighbor lists are built for one
+box) refuses an NPT integrator at construction.
 """
 from __future__ import annotations
 
@@ -48,22 +63,44 @@ def _to_device(x, device):
     return x
 
 
+LOG_KEYS = ("positions", "momenta", "forces", "energy", "cells", "stress",
+            "temperature", "kinetic_energy")
+
+
 class Simulator:
     def __init__(self, system: System, integrator, calculator,
                  simulator_hooks: Sequence = (), seed: int = 42,
-                 log_keys: Sequence[str] = ("energy", "temperature"),
+                 log_keys: Sequence[str] = LOG_KEYS,
                  progress: bool = False):
+        if (getattr(integrator, "pressure_control", False)
+                and getattr(calculator, "fixed_cell", False)):
+            raise NotImplementedError(
+                f"{type(calculator).__name__} cannot run under the NPT "
+                f"integrator {type(integrator).__name__}: its neighbor list "
+                "is built for a fixed box, and the port's column and 27-cell "
+                "models return no stress (ROADMAP Queue 1 item 7)")
         self.system = system
         self.integrator = integrator
         self.calculator = calculator
         self.device_hooks = [h for h in simulator_hooks if _is_device_hook(h)]
         self.host_hooks = [h for h in simulator_hooks
                            if not _is_device_hook(h)]
+        self._barostat = None
+        if getattr(integrator, "pressure_control", False):
+            if integrator.barostat not in self.device_hooks:
+                raise ValueError(
+                    "an NPT integrator's barostat must be among the "
+                    "simulator's hooks")
+            self._barostat = self.device_hooks.index(integrator.barostat)
         self.generator = torch.Generator(
             device=system.positions.device).manual_seed(seed)
         self.log_keys = tuple(log_keys)
         self.progress = progress
         self.n_simulated = 0
+        #: wall seconds of ``simulate``'s steps and host hooks, from a
+        #: synchronize with the device to the last chunk's hooks (each
+        #: chunk ends in its logs' copy to the host)
+        self.wall_seconds = 0.0
         self.calc_state = None
         self.hook_states: List[Any] = []
         self._ready = False
@@ -90,12 +127,24 @@ class Simulator:
     def step(self, system: System) -> System:
         n_hooks = len(self.device_hooks)
         system = self._hooks(system, range(n_hooks))
-        system = self.integrator.half_step(system)
-        system = self.integrator.main_step(system)
+        baro = (() if self._barostat is None
+                else (self.hook_states[self._barostat],))
+        system = self.integrator.half_step(system, *baro)
+        system = self.integrator.main_step(system, *baro)
         self.calc_state = self.calculator.update_state(system, self.calc_state)
         system = self.calculator.calculate(system, self.calc_state)
-        system = self.integrator.half_step(system)
+        system = self.integrator.half_step(system, *baro)
         return self._hooks(system, range(n_hooks - 1, -1, -1))
+
+    def _log_record(self, system: System) -> Dict[str, torch.Tensor]:
+        """The logged tensors of one step (``simulator.py:92-101``)."""
+        rec = {}
+        for k in self.log_keys:
+            v = (system.properties[k] if k in system.properties
+                 else getattr(system, k, None))
+            if v is not None:
+                rec[k] = v
+        return rec
 
     @torch.no_grad()
     def simulate(self, n_steps: int, chunk_size: int = 100) -> System:
@@ -104,14 +153,16 @@ class Simulator:
             h.on_simulation_start(self)
         system = self.system
         remaining = n_steps
+        if system.positions.is_cuda:
+            torch.cuda.synchronize(system.positions.device)
         t0 = time.perf_counter()
         while remaining > 0:
             n = min(chunk_size, remaining)
-            rec: Dict[str, list] = {k: [] for k in self.log_keys}
+            rec: Dict[str, list] = {}
             for _ in range(n):
                 system = self.step(system)
-                for k in self.log_keys:
-                    rec[k].append(getattr(system, k))
+                for k, v in self._log_record(system).items():
+                    rec.setdefault(k, []).append(v)
             self.system = system
             logs = {k: torch.stack(v).cpu().numpy() for k, v in rec.items()}
             self.logs.append(logs)
@@ -125,6 +176,7 @@ class Simulator:
                 rate = self.n_simulated / max(time.perf_counter() - t0, 1e-9)
                 print(f"step {self.n_simulated}  T={T:8.2f} K  "
                       f"{rate:8.1f} steps/s", flush=True)
+        self.wall_seconds += time.perf_counter() - t0
         for h in self.host_hooks:
             h.on_simulation_end(self)
         return system

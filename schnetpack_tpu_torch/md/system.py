@@ -2,8 +2,10 @@
 
 ``System`` holds tensors shaped like the JAX package's: positions, momenta
 and forces [R, A, 3] (R replicas: ring-polymer beads or independent
-copies), energy [R, M], stress and cells [R, M, 3, 3], and the static
-per-atom arrays.  It is a dataclass; steps return new instances
+copies), energy [R, M], stress and cells [R, M, 3, 3], the static
+per-atom arrays, and ``properties``: further calculator outputs by name
+(an ensemble's ``*_uncertainty`` streams), which the simulator logs
+(``system.py:52``).  It is a dataclass; steps return new instances
 through ``replace``.  Quantities are in the MD unit frame (kJ/mol, nm,
 Dalton), as in the JAX package.
 """
@@ -34,6 +36,8 @@ class System:
     atom_mask: torch.Tensor       # [A] 1/0
     pbc: torch.Tensor             # [M, 3] bool
     n_atoms_per_mol: torch.Tensor  # [M]
+    properties: Dict[str, torch.Tensor] = dataclasses.field(
+        default_factory=dict)
 
     def replace(self, **kw) -> "System":
         return dataclasses.replace(self, **kw)

@@ -163,6 +163,9 @@ class PaiNN(nn.Module):
         #: the message form: "full" or "hybrid" (fused geometry) or
         #: "column_fm" (differentiable geometry, K6/K15)
         self.path = fuse if fused else "column_fm"
+        #: whether the unsharded column path reads ``col_rij`` (the fused
+        #: paths' kernels take the positions)
+        self.reads_column_rij = not fused
         self.n_atom_basis = F
         self.n_rbf = rb.n_rbf
         self.n_interactions = n_interactions

@@ -81,6 +81,9 @@ class SchNetInteraction(nn.Module):
 class SchNet(nn.Module):
     """SchNet representation -> scalar_representation [A', F]."""
 
+    #: its geometry comes from the positions (K5), never from ``col_rij``
+    reads_column_rij = False
+
     def __init__(self, n_atom_basis: int = 128, n_interactions: int = 3,
                  n_rbf: int = 20, cutoff: float = 5.0,
                  n_filters: Optional[int] = None,

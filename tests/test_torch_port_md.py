@@ -127,7 +127,10 @@ def test_import_leaves_jax_out():
             "schnetpack_tpu_torch.nn.embedding, "
             "schnetpack_tpu_torch.md.simulation_hooks, "
             "schnetpack_tpu_torch.md.utils, "
-            "schnetpack_tpu_torch.md.calculators.lj; "
+            "schnetpack_tpu_torch.md.calculators.lj, "
+            "schnetpack_tpu_torch.md.cli, schnetpack_tpu_torch.md.data, "
+            "schnetpack_tpu_torch.config, schnetpack_tpu_torch.cli, "
+            "schnetpack_tpu_torch.datasets; "
             "bad = [m for m in sys.modules if m == 'jax' or m == 'flax' "
             "or m.startswith(('jax.', 'flax.', 'schnetpack_tpu.')) "
             "or m == 'schnetpack_tpu']; print(bad); sys.exit(bool(bad))")
