@@ -158,7 +158,31 @@ Phases (any failure exits non-zero before the last line is printed):
    steps, 0.5 V0 < V < 0.995 V0; aniso 200 steps, V < V0, det > 0); no
    kernel launches in the water and NPT runs; ms/step of each beside the
    card's name and power limit;
-10. print the kernel table (every row and sub-row with ``ms`` and
+10. the flat and dense layouts (``layout_phase``), each run's launches
+   counted from zero: the four trained models (PaiNN-128x3, SchNet-128x3,
+   SO3net-64x3, FieldSchNet-128x5) on each fixture's box on the flat
+   layout (the host cell list's pairs within the cutoff, as the fixtures
+   were made) and through the calculator on ``neighbor_list="dense"``
+   (skin 0.5 A), SchNet and SO3net also on ``cellblock_atom``, held to
+   their fixtures at phase 4's gates, with K16/K17 once each per 27-cell
+   evaluation and no kernel on the flat and dense ones; PaiNN's and
+   SchNet's parameter gradients on the flat layout against
+   ``port_ref_{painn,schnet}_grad_argon.npz`` at phase 4's rule;
+   ``painn_dense``: 300 NVE steps of the bench box on the dense list
+   (drift <= 1e-4 eV/atom, 0 < T < 300 K, the host rebuilds counted,
+   peak device memory), then 5 steps under ``torch.profiler`` (kernel
+   time, idle share, the kernels with the most device time);
+   ``painn_clusters``: 64 non-periodic 55-atom clusters (a seeded lattice
+   site of the bench box with its first four FCC shells, jittered by
+   +-0.1 A) as molecules of one system, 3,520 atoms and 190,080 ordered
+   pairs: forces at the start on ``all_pairs`` within 1e-5 eV/Ang of the
+   dense list's, 300 NVE steps on ``all_pairs`` (drift <= 1e-4 eV/atom),
+   then 4 beads under PILE-L, 100 steps on each layout, forces equal at
+   the start; ``spkmd_clusters``: ``spkmd`` on an extxyz of the clusters
+   with the calculator config as shipped (``neighbor_list: all_pairs``),
+   Langevin at 30 K, 300 steps, 300 trajectory entries; ms/step of each
+   run beside the card's name and power limit;
+11. print the kernel table (every row and sub-row with ``ms`` and
    ``device_ms``, ``library_ms`` and ``library_device_ms``) and the card
    as JSON, then the result line.
 
@@ -332,6 +356,21 @@ NPT_ARGS = ["barostat.target_pressure=20000.0",
             "barostat.time_constant_barostat=50.0",
             "dynamics.integrator.time_step=1.0",
             "system.initializer.temperature=20.0"]
+#: phase 10, the flat and dense layouts: the full-box models (their
+#: fixtures are the JAX package's flat pair list), the 27-cell layout's
+#: models and their launches per evaluation, the dense MD run, and the
+#: clusters: a site of the bench lattice with its first four FCC shells
+#: (12 + 6 + 24 + 12 atoms within 7.9 A), 64 of them as molecules of one
+#: system, jittered by the fixtures' +-0.1 A
+LAYOUT_PATHS = {"painn": "painn_cell", "schnet": "schnet",
+                "so3net": "so3net", "field_schnet": "field_schnet"}
+CELL_LAUNCHES = {"cell_gather_fwd": 1, "cell_gather_bwd": 1}
+LAYOUT_STEPS = 300
+N_CLUSTERS, CLUSTER_RADIUS, CLUSTER_JITTER = 64, 7.9, 0.1   # Angstrom
+CLUSTER_ATOMS = 55
+CLUSTER_FORCE_ATOL = 1e-5        # eV/Ang, all_pairs vs dense
+CLUSTER_BEADS, CLUSTER_RPMD_STEPS = 4, 100
+PROFILE_STEPS = 5                # painn_dense steps under torch.profiler
 
 
 def ptxas_report(log: str, params):
@@ -2163,6 +2202,366 @@ def spkmd_phase(pos, cell, seed, dev, launches, smi):
     return total
 
 
+def layout_potential(model, forces=True):
+    """The trained model ``model`` of ``LAYOUT_PATHS`` (``potential``) with
+    a ``PairwiseDistances`` input module, which the flat, dense and
+    27-cell layouts read, and its parameters."""
+    from schnetpack_tpu_torch.atomistic import PairwiseDistances
+
+    pot, params = potential(LAYOUT_PATHS[model], forces)
+    if not len(pot.input_modules):
+        pot.input_modules.append(PairwiseDistances(columns=False))
+    return pot, params
+
+
+def flat_inputs(R, cell, dev):
+    """The model inputs of the periodic box (R, cell) on the flat layout:
+    the host cell list's pairs within the cutoff, as the JAX fixtures'
+    ``NeighborListTransform`` makes them (Angstrom)."""
+    from schnetpack_tpu_torch import properties as P
+    from schnetpack_tpu_torch.transform.neighborlist import (
+        cell_list_neighbor_list,
+    )
+
+    i, j, S = cell_list_neighbor_list(R, CUTOFF, cell, np.ones(3, bool))
+    A = len(R)
+
+    def t(a, dtype=None):
+        return torch.as_tensor(a, dtype=dtype, device=dev)
+    return {P.R: t(R, torch.float32), P.Z: t(np.full(A, 18)),
+            P.idx_m: t(np.zeros(A, np.int64)),
+            P.atom_mask: t(np.ones(A), torch.float32),
+            P.n_atoms: t([A]), P.idx_i: t(i), P.idx_j: t(j),
+            P.offsets: t(S @ cell, torch.float32),
+            P.pair_mask: t(np.ones(len(i)), torch.float32)}
+
+
+def layout_force_phase(dev, launches, smi):
+    """Phase 10, forces: each model on the fixture's box on the flat layout
+    (``flat_inputs``) and through the calculator on the dense layout
+    (``neighbor_list="dense"``), and SchNet and SO3net on the 27-cell
+    layout (K16/K17 once each per evaluation), against the JAX
+    fixtures; the flat and dense evaluations launch no kernel."""
+    from schnetpack_tpu_torch import properties as P
+    from schnetpack_tpu_torch.md import load_molecules
+    from schnetpack_tpu_torch.md.calculators import SchNetPackCalculator
+
+    for model, path in LAYOUT_PATHS.items():
+        ref = np.load(REFERENCE[path])
+        R = ref["R"].astype(np.float64)
+        system = load_molecules([molecule(R, ref["cell"])], device=dev)
+        pot, params = layout_potential(model)
+        pot.load_state_dict(params)
+        pot.to(dev).requires_grad_(False)
+        inputs = flat_inputs(R, ref["cell"], dev)
+        dense = SchNetPackCalculator(pot, cutoff=CUTOFF,
+                                     neighbor_list="dense")
+        state = dense.init_state(system)
+        evals = {
+            "flat": lambda: pot(dict(inputs)),
+            "dense": lambda: pot(dense.model_inputs(system, state))}
+        layouts = [("flat", "dense")] + (
+            [("cellblock_atom",)] if model in ("schnet", "so3net") else [])
+        if model in ("schnet", "so3net"):
+            cell = calculator(pot, params, layout="atom")
+            cstate = cell.init_state(system)
+            evals["cellblock_atom"] = lambda: pot(
+                cell.model_inputs(system, cstate))
+        for names in layouts:
+            for name in names:
+                torch.cuda.reset_peak_memory_stats()
+                reset(launches)
+                out = evals[name]()
+                torch.cuda.synchronize()
+                counts = {k: v for k, v in read_counts(launches).items()
+                          if v}
+                want = CELL_LAUNCHES if name == "cellblock_atom" else {}
+                assert counts == want, (
+                    f"{model} {name}: launches {counts}, want {want}")
+                peak = torch.cuda.max_memory_allocated() / 2 ** 30
+                F = out[P.forces].float().cpu().numpy()
+                if name == "cellblock_atom":   # sorted space -> atoms
+                    F = F[cstate["cell_rank"].cpu().numpy()]
+                E = float(out[P.energy][0])
+                rms = float(np.sqrt(np.mean((F - ref["forces"]) ** 2)))
+                dE = abs(E - float(ref["energy"])) / abs(float(
+                    ref["energy"]))
+                ms = cuda_ms(evals[name], reps=3)
+                print(f"layouts ({model}, {name}): force rms err {rms:.3e} "
+                      f"eV/Ang (max {np.abs(F - ref['forces']).max():.3e}), "
+                      f"energy rel err {dE:.2e}, launches {counts}, energy "
+                      f"+ forces {ms:.3f} ms, peak device memory "
+                      f"{peak:.2f} GiB; {smi}", flush=True)
+                assert np.isfinite(F).all() and F.shape == ref[
+                    "forces"].shape
+                assert rms <= FORCE_RMS_TOL, f"{model} {name}: rms {rms}"
+                assert dE <= ENERGY_RTOL, f"{model} {name}: energy {dE}"
+        print(f"layouts ({model}): dense K = "
+              f"{state[P.nbh_idx].shape[1]}, {int(inputs[P.idx_i].shape[0])}"
+              " flat pairs", flush=True)
+        del pot, inputs, dense, state, evals
+        torch.cuda.empty_cache()
+
+
+def layout_grad_phase(dev, launches):
+    """Phase 10, the parameter gradients of PaiNN and SchNet on the flat
+    layout against ``port_ref_{painn,schnet}_grad_argon.npz`` at
+    ``grad_phase``'s rule; no kernel runs."""
+    from schnetpack_tpu_torch import properties as P
+
+    for model, path in (("painn", "full"), ("schnet", "schnet")):
+        ref = np.load(GRAD_REFERENCE[path])
+        pot, params = layout_potential(model, forces=False)
+        pot.load_state_dict(params)
+        pot.to(dev)
+        inputs = flat_inputs(ref["R"].astype(np.float64), ref["cell"], dev)
+        names, leaves = zip(*pot.named_parameters())
+        reset(launches)
+        E = pot(dict(inputs))[P.energy][0]
+        grads = torch.autograd.grad(E, leaves)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in read_counts(launches).items() if v}
+        norms = {n: float(np.linalg.norm(ref[f"grad/{n}"])) for n in names}
+        floor = GRAD_FLOOR * max(norms.values())
+        errs = {n: float(np.linalg.norm(g.double().cpu().numpy()
+                                        - ref[f"grad/{n}"]))
+                / max(norms[n], floor) for n, g in zip(names, grads)}
+        worst = max(errs, key=errs.get)
+        dE = (abs(float(E.detach()) - float(ref["energy"]))
+              / abs(float(ref["energy"])))
+        print(f"layouts (gradient, {model}, flat): {len(names)} leaves, "
+              f"worst {worst} ||dg||/||g|| {errs[worst]:.3e} (|g| "
+              f"{norms[worst]:.3e}), energy rel err {dE:.2e}, launches "
+              f"{counts}", flush=True)
+        assert not counts, f"{model} flat gradient launched {counts}"
+        assert set(f"grad/{n}" for n in names) == {
+            k for k in ref.files if k.startswith("grad/")}
+        assert all(np.isfinite(g.cpu().numpy()).all() for g in grads)
+        assert errs[worst] <= GRAD_RTOL, f"{model}: {worst} {errs[worst]}"
+        assert dE <= ENERGY_RTOL, f"{model}: energy rel err {dE}"
+
+
+def drift_per_atom(sim, calc):
+    """max |E_tot(t) - E_tot(0)| over the logged steps, eV per atom (every
+    molecule and replica summed)."""
+    E = np.concatenate([lg["energy"] + lg["kinetic_energy"]
+                        for lg in sim.logs]).sum(axis=(1, 2))
+    E = E / calc.energy_conversion
+    return float(np.abs(E - E[0]).max()) / (
+        sim.system.total_atoms * sim.system.n_replicas)
+
+
+def step_profile(sim, steps):
+    """(ms/step of wall, ms/step of kernels, the eight kernels with the
+    most device time as (name, ms/step)) of ``steps`` steps under
+    ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = torch.autograd.DeviceType.CUDA
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sim.simulate(steps, chunk_size=steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages() if e.device_type == cuda]
+    busy = sum(e.device_time_total for e in kernels) / 1e3 / steps
+    top = sorted(kernels, key=lambda e: -e.device_time_total)[:8]
+    return (1e3 * wall / steps, busy,
+            [(e.key[:70], e.device_time_total / 1e3 / steps) for e in top])
+
+
+def painn_dense_phase(seed, dev, launches, smi):
+    """Phase 10, ``painn_dense``: NVE of the bench box with PaiNN-128x3 on
+    ``neighbor_list="dense"`` (skin 0.5 A, host builds); then a short
+    profile of its steps.  Returns ms/step."""
+    from schnetpack_tpu_torch.md import (
+        MaxwellBoltzmannInit, Simulator, VelocityVerlet, load_molecules,
+    )
+    from schnetpack_tpu_torch.md.calculators import SchNetPackCalculator
+
+    pos, cell = fcc_box(10_000)
+    pot, params = layout_potential("painn")
+    calc = SchNetPackCalculator(pot, params, cutoff=CUTOFF,
+                                neighbor_list="dense")
+    system = MaxwellBoltzmannInit(T_BATH).initialize_system(
+        load_molecules([molecule(pos, cell)], device=dev),
+        torch.Generator().manual_seed(seed + 1))
+    sim = Simulator(system, VelocityVerlet(0.5), calc,
+                    log_keys=("energy", "kinetic_energy", "temperature"))
+    sim.simulate(0)
+    nbl = calc.nbl
+    builds0, build_s0 = nbl.n_builds, nbl.build_seconds
+    reset(launches)
+    ms_step, peak = timed_run(sim, LAYOUT_STEPS)
+    counts = {k: v for k, v in read_counts(launches).items() if v}
+    A = sim.system.total_atoms
+    T = float(sim.system.temperature.mean())
+    drift = drift_per_atom(sim, calc)
+    from schnetpack_tpu_torch import properties as P
+    print(f"md (painn_dense): {LAYOUT_STEPS} steps, {A} atoms, K = "
+          f"{sim.calc_state[P.nbh_idx].shape[1]}, ms/step (CUDA events) "
+          f"{ms_step:.3f}, {A / (ms_step * 1e-3):.4g} atom-steps/s, "
+          f"T_end={T:.2f} K, max |E_tot - E_tot(0)| = {drift:.3e} eV/atom, "
+          f"rebuilds: {nbl.n_builds - builds0} on the host "
+          f"({nbl.build_seconds - build_s0:.3f} s wall; the first build "
+          f"{build_s0:.3f} s), peak device memory {peak:.2f} GiB, launches "
+          f"{counts}; {smi}", flush=True)
+    assert np.isfinite(sim.system.positions.cpu().numpy()).all()
+    assert 0.0 < T < 300.0, f"painn_dense: T {T}"
+    assert drift <= DRIFT_TOL, f"painn_dense: drift {drift}"
+    assert not counts, f"painn_dense launched {counts}"
+    wall, busy, top = step_profile(sim, PROFILE_STEPS)
+    print(f"profile (painn_dense): {PROFILE_STEPS} steps under "
+          f"torch.profiler, wall {wall:.3f} ms/step, kernels {busy:.3f} "
+          f"ms/step (idle share {max(0.0, 1 - busy / wall):.3f}); most "
+          "device time: " + "; ".join(f"{k} {v:.3f}" for k, v in top)
+          + f"; {smi}", flush=True)
+    return ms_step
+
+
+def clusters(seed):
+    """``N_CLUSTERS`` argon clusters of ``CLUSTER_ATOMS`` atoms: seeded
+    sites of the bench lattice, each with the atoms within
+    ``CLUSTER_RADIUS`` (its first four FCC shells) by the minimum image,
+    jittered by +-``CLUSTER_JITTER``; non-periodic molecules."""
+    from schnetpack_tpu_torch import properties as P
+
+    pos, cell = fcc_box(10_000)
+    L = cell[0, 0]
+    rng = np.random.RandomState(seed + 11)
+    out = []
+    for c in rng.choice(len(pos), N_CLUSTERS, replace=False):
+        d = pos - pos[c]
+        d -= L * np.round(d / L)
+        near = np.linalg.norm(d, axis=1) < CLUSTER_RADIUS
+        R = pos[c] + d[near] + rng.uniform(-CLUSTER_JITTER, CLUSTER_JITTER,
+                                           (int(near.sum()), 3))
+        assert len(R) == CLUSTER_ATOMS, len(R)
+        out.append({P.Z: np.full(len(R), 18, np.int64), P.R: R})
+    return out
+
+
+def cluster_phase(seed, dev, launches, smi):
+    """Phase 10, ``painn_clusters``: the clusters with PaiNN-128x3 on the
+    all-pairs list, forces at the start against the dense layout, NVE;
+    then 4 beads under PILE-L on both layouts.  Returns ms/step by run."""
+    from schnetpack_tpu_torch import properties as P
+    from schnetpack_tpu_torch.md import (
+        MaxwellBoltzmannInit, RingPolymer, Simulator, VelocityVerlet,
+        load_molecules,
+    )
+    from schnetpack_tpu_torch.md.calculators import SchNetPackCalculator
+    from schnetpack_tpu_torch.md.simulation_hooks import PILELocalThermostat
+
+    mols = clusters(seed)
+    pot, params = layout_potential("painn")
+    calcs = {nl: SchNetPackCalculator(pot, params, cutoff=CUTOFF,
+                                      neighbor_list=nl)
+             for nl in ("all_pairs", "dense")}
+    out = {}
+    for n_rep in (1, CLUSTER_BEADS):
+        system = MaxwellBoltzmannInit(T_BATH).initialize_system(
+            load_molecules(mols, n_replicas=n_rep, device=dev),
+            torch.Generator().manual_seed(seed + 5))
+        forces = {nl: c.calculate(system, c.init_state(system)).forces
+                  / c.force_conversion for nl, c in calcs.items()}
+        err = float((forces["dense"] - forces["all_pairs"]).abs().max())
+        tag = "painn_clusters" + (f", {n_rep} beads" if n_rep > 1 else "")
+        pairs = calcs["all_pairs"]._pair_inputs(system)[P.idx_i].shape[0]
+        print(f"md ({tag}): start: max |F_dense - F_all_pairs| {err:.3e} "
+              f"eV/Ang (largest |F| "
+              f"{float(forces['all_pairs'].abs().max()):.3e}), "
+              f"{system.total_atoms} atoms x {n_rep} replicas, {pairs} "
+              "all-pairs", flush=True)
+        assert err <= CLUSTER_FORCE_ATOL, f"{tag}: dense vs all_pairs {err}"
+        for nl, calc in calcs.items():
+            if n_rep == 1 and nl == "dense":
+                continue
+            integrator = (VelocityVerlet(0.5) if n_rep == 1 else RingPolymer(
+                0.5, n_beads=n_rep, temperature=T_BATH))
+            hooks = [] if n_rep == 1 else [PILELocalThermostat(T_BATH)]
+            sim = Simulator(system, integrator, calc, simulator_hooks=hooks,
+                            seed=seed, log_keys=(
+                                "energy", "kinetic_energy",
+                                "centroid_temperature"))
+            sim.simulate(0)
+            reset(launches)
+            steps = LAYOUT_STEPS if n_rep == 1 else CLUSTER_RPMD_STEPS
+            ms_step, peak = timed_run(sim, steps)
+            counts = {k: v for k, v in read_counts(launches).items() if v}
+            T = np.concatenate([lg["centroid_temperature"][:, 0]
+                                for lg in sim.logs])
+            line = (f"md ({tag}, {nl}): {steps} steps, ms/step (CUDA "
+                    f"events) {ms_step:.3f}, "
+                    f"{system.total_atoms * n_rep / (ms_step * 1e-3):.4g} "
+                    f"atom-steps/s, mean centroid T at the end "
+                    f"{float(T[-1].mean()):.2f} K, peak device memory "
+                    f"{peak:.2f} GiB, launches {counts}")
+            assert np.isfinite(sim.system.positions.cpu().numpy()).all()
+            assert 0.0 < T.min() and T.max() < 300.0, f"{tag}: T"
+            assert not counts, f"{tag} {nl} launched {counts}"
+            if n_rep == 1:
+                drift = drift_per_atom(sim, calc)
+                line += f", max |E_tot - E_tot(0)| = {drift:.3e} eV/atom"
+                assert drift <= DRIFT_TOL, f"{tag}: drift {drift}"
+            out[f"{tag}, {nl}"] = ms_step
+            print(f"{line}; {smi}", flush=True)
+    return out
+
+
+def spkmd_cluster_phase(seed, dev, launches, smi):
+    """Phase 10, ``spkmd_clusters``: ``spkmd`` on an extxyz of the clusters
+    with the calculator config as shipped (``neighbor_list: all_pairs``):
+    Langevin at 30 K, 300 steps, the trajectory file.  Returns ms/step."""
+    import shutil
+    import tempfile
+
+    from schnetpack_tpu_torch import properties as P
+    from schnetpack_tpu_torch.datasets import write_extxyz
+
+    tmp = tempfile.mkdtemp(prefix="spkmd_clusters_")
+    try:
+        xyz = os.path.join(tmp, "clusters.xyz")
+        write_extxyz(xyz, [{"numbers": m[P.Z], "positions": m[P.R]}
+                           for m in clusters(seed)])
+        run = write_run_dir(os.path.join(tmp, "run"), ASSET["painn"])
+        sim, counts, data = spkmd_run("spkmd_clusters", [
+            f"system.molecule_file={xyz}", f"calculator.model_dir={run}",
+            "dynamics=nvt", "thermostat=langevin",
+            f"thermostat.temperature_bath={T_BATH}",
+            f"thermostat.time_constant={TAU_FS}",
+            f"system.initializer.temperature={T_BATH}",
+            f"dynamics.n_steps={LAYOUT_STEPS}",
+            f"dynamics.chunk_size={SPKMD_CHUNK}", "callbacks=hdf5",
+            f"device={dev}", f"seed={seed}",
+            f"simulation_dir={tmp}/sim"], launches, smi)
+        check_launches("spkmd_clusters", counts, {}, 1)
+        assert sim.calculator.nbl is None, "not the all-pairs list"
+        assert sim.system.n_molecules == N_CLUSTERS
+        assert data.entries == LAYOUT_STEPS, data.entries
+        assert torch.isfinite(sim.system.positions).all()
+        return 1e3 * sim.wall_seconds / LAYOUT_STEPS
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def layout_phase(seed, dev, launches, smi):
+    """Phase 10, the flat and dense layouts (see the module's
+    docstring)."""
+    t0 = time.perf_counter()
+    layout_force_phase(dev, launches, smi)
+    layout_grad_phase(dev, launches)
+    ms = {"painn_dense": painn_dense_phase(seed, dev, launches, smi)}
+    ms.update(cluster_phase(seed, dev, launches, smi))
+    ms["spkmd_clusters"] = spkmd_cluster_phase(seed, dev, launches, smi)
+    print("layouts ms/step: " + ", ".join(f"{k} {v:.3f}"
+                                          for k, v in ms.items())
+          + f"; phase 10 took {time.perf_counter() - t0:.1f} s; {smi}",
+          flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -2260,6 +2659,7 @@ def main():
     for k, v in spkmd_phase(pos, cell, args.seed, dev, launches,
                             smi).items():
         total[k] = total.get(k, 0) + v
+    layout_phase(args.seed, dev, launches, smi)
     for row in rows:
         row["launches"] = total[row["name"]]
         assert row["launches"] > 0, f"{row['name']} never ran in the MD"

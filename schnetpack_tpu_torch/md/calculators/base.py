@@ -3,11 +3,16 @@
 
 The calculator converts positions from MD units into the model's units,
 runs the model, and writes forces, energy and stress back in MD units.
-``PairwiseMDCalculator`` gives a potential the pair list of every replica,
-flattened with replica-shifted indices (``base.py:112-152``), from the
-port's host cell list (``transform/neighborlist.py``) at each call, in
-place of the JAX package's static all-pairs set masked on the device: the
-same pairs within the cutoff, in the same (i, j) order.
+``PairwiseMDCalculator`` holds an ``AllPairsNeighborListMD`` in MD units
+and gives a potential the pair list of every replica, flattened into R * A
+atoms with replica-shifted indices and the offsets in model units
+(``base.py:112-152``, ``_pair_inputs``): every ordered same-molecule pair,
+its minimum-image offset and its mask ``d < cutoff + cutoff_shell``, all
+on the device.  The analytic potentials (``LJCalculator``,
+``SPCFwCalculator``) read ``_image_pairs`` instead: the port's host cell
+list (``transform/neighborlist.py``) at each call, every periodic image
+within the cutoff, sorted by (i, j), which is the JAX package's pair set
+where the cutoff is under half the box's height.
 """
 from __future__ import annotations
 
@@ -19,6 +24,7 @@ import torch
 from ... import properties as structure
 from ...transform.neighborlist import cell_list_neighbor_list
 from ...units import _parse_unit, md_units
+from ..neighborlist_md import AllPairsNeighborListMD
 from ..system import System
 
 
@@ -69,34 +75,57 @@ class MDCalculator:
 
 
 class PairwiseMDCalculator(MDCalculator):
-    """Base for potentials evaluated over the pairs within the cutoff."""
+    """Base for potentials evaluated over on-device pair lists."""
 
     def __init__(self, cutoff: float, cutoff_shell: float = 0.0, **kwargs):
         super().__init__(**kwargs)
-        # cutoff in the model's length unit
+        # cutoff in the model's length unit; the list's in MD units
         self.cutoff_model_units = cutoff
+        self.neighbor_list = AllPairsNeighborListMD(
+            cutoff * self.position_conversion,
+            cutoff_shell * self.position_conversion)
         self.pair_cutoff = (cutoff + cutoff_shell) * self.position_conversion
 
     def _get_system_molecules(self, system: System) -> Dict[str, torch.Tensor]:
-        """Replicas flattened into one batch of R * M molecules (the
-        entries of ``base.py:49-80`` that a pair potential reads),
-        positions and cells in model units."""
+        """Replicas flattened into one batch of R * M molecules
+        (``base.py:49-80``), positions and cells in model units."""
         R_, A, M = system.n_replicas, system.total_atoms, system.n_molecules
         inv = 1.0 / self.position_conversion
         dev = system.positions.device
         shift = torch.arange(R_, dtype=system.idx_m.dtype, device=dev) * M
         return {
             structure.R: (system.positions * inv).reshape(R_ * A, 3),
+            structure.Z: system.atomic_numbers.repeat(R_),
             structure.idx_m: (system.idx_m.repeat(R_)
                               + shift.repeat_interleave(A)),
             structure.atom_mask: system.atom_mask.repeat(R_),
             structure.cell: (system.cells * inv).reshape(R_ * M, 3, 3),
+            structure.pbc: system.pbc.repeat(R_, 1),
+            structure.n_atoms: system.n_atoms_per_mol.repeat(R_),
+            structure.mol_mask: system.positions.new_ones(R_ * M),
         }
 
     def _pair_inputs(self, system: System) -> Dict[str, torch.Tensor]:
-        """Each replica's pairs within the cutoff (a host cell list per
-        replica and molecule), flattened with replica-shifted indices;
+        """Every replica's pairs, flattened with replica-shifted indices;
         offsets in model units."""
+        R_, A = system.n_replicas, system.total_atoms
+        per = self.neighbor_list.get_neighbors(
+            system.positions, system.cells, system.idx_m, system.pbc)
+        P = per[structure.idx_i].shape[0]
+        shift = (torch.arange(R_, dtype=per[structure.idx_i].dtype,
+                              device=system.positions.device) * A)[:, None]
+        return {
+            structure.idx_i: (per[structure.idx_i] + shift).reshape(R_ * P),
+            structure.idx_j: (per[structure.idx_j] + shift).reshape(R_ * P),
+            structure.offsets: per[structure.offsets].reshape(R_ * P, 3)
+            / self.position_conversion,
+            structure.pair_mask: per[structure.pair_mask].reshape(R_ * P),
+        }
+
+    def _image_pairs(self, system: System) -> Dict[str, torch.Tensor]:
+        """Each replica's pairs within the cutoff (a host cell list per
+        replica and molecule: every periodic image), flattened with
+        replica-shifted indices; offsets in model units."""
         R_, A = system.n_replicas, system.total_atoms
         pos = system.positions.detach().double().cpu().numpy()
         cells = system.cells.detach().double().cpu().numpy()

@@ -46,7 +46,7 @@ class LJCalculator(PairwiseMDCalculator):
     @torch.enable_grad()
     def calculate(self, system: System, calc_state=None) -> System:
         inputs = self._get_system_molecules(system)
-        pairs = self._pair_inputs(system)
+        pairs = self._image_pairs(system)
         n_mol = system.n_replicas * system.n_molecules
         idx_m = inputs[structure.idx_m]
         mask = inputs[structure.atom_mask]

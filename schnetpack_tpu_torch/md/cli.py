@@ -10,8 +10,8 @@ values, with ``_target_``s naming the port's classes) plus one key,
 
 Usage:
     python -m schnetpack_tpu_torch.md.cli system.molecule_file=argon.xyz \\
-        calculator.model_dir=<run dir> calculator.neighbor_list=cellblock \\
-        dynamics=nvt thermostat=langevin dynamics.n_steps=1000
+        calculator.model_dir=<run dir> dynamics=nvt thermostat=langevin \\
+        dynamics.n_steps=1000
 
 * The initial momenta draw from a ``torch.Generator`` seeded by ``seed``
   (``system.initializer=null`` keeps them zero).
@@ -26,11 +26,14 @@ Usage:
 * The simulator logs the JAX package's eight keys and, with
   ``calculator=ensemble``, the ensemble's ``energy_uncertainty`` and
   ``forces_uncertainty`` (the JAX CLI logs the eight only).
-* Refused before the first step: ``calculator.neighbor_list=all_pairs``
-  or ``dense`` (ROADMAP Queue 1 item 5), ``calculator.precision=bf16`` or
-  ``mixed`` (item 8), a ``calculator.stress_key`` (item 7), a barostat
-  with the model calculators (their neighbor lists are built for a fixed
-  box), and ``calculator=orca`` (item 4).
+* ``calculator.neighbor_list`` is the config's ``all_pairs`` (the flat
+  layout: molecules, several in one system, or periodic boxes), ``dense``,
+  ``cellblock`` (the column layout of one box or molecule, the fused
+  kernels) or ``cellblock_atom`` (the 27-cell layout).
+* Refused before the first step: ``calculator.precision=bf16`` or
+  ``mixed`` (ROADMAP Queue 1 item 8), a ``calculator.stress_key`` (item
+  7), a barostat with the model calculators (they compute no stress), and
+  ``calculator=orca`` (item 4).
 """
 from __future__ import annotations
 

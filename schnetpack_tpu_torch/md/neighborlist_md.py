@@ -1,11 +1,33 @@
-"""Blocked neighbor lists with a Verlet skin for MD.
+"""Neighbor lists with a Verlet skin for MD, and the all-pairs list.
 
-Port of ``CellBlockNeighborListMD`` (``schnetpack_tpu/md/neighborlist_md.py:
-173-667``), with its two layouts: ``layout="column"`` (the default) and
-``layout="atom"``, the 27-cell atom layout.  The state carried to the
-model lives in sorted space: ``cell_order`` (original atom per slot),
-``cell_rank`` (slot per atom), ``cell_Z``/``cell_idx_m``/``cell_atom_mask``
-(0 on empty slots) and the layout's index and offset tensors (column:
+Port of ``schnetpack_tpu/md/neighborlist_md.py``:
+
+* ``AllPairsNeighborListMD`` (``:670-730``): the static index set of all
+  ordered same-molecule pairs, made once on the host per ``idx_m`` and
+  kept on the device; every call takes the minimum-image offsets of
+  periodic molecules and the mask ``d < cutoff + cutoff_shell`` on the
+  device (the flat layout).  No rebuilds.
+* ``DenseNeighborListMD`` (``:38-170``): a dense [A, K] neighbor matrix
+  built on the host from per-molecule cell lists of ``cutoff + skin``
+  (``transform/neighborlist.py``), for ring polymers the union over beads;
+  padded slots point to atom A - 1 with mask 0 and offset 0; the reverse
+  map of ``ops/neighbor_gather.py`` rides along (``nbh_rev``).  K is the
+  largest degree times ``headroom`` plus one, rounded up to
+  ``k_multiple``, and never shrinks.  With R replicas the matrix is tiled
+  R times with replica-shifted indices into the flattened [R * A] atom
+  table.  Batched periodic boxes run here.
+* ``CellBlockNeighborListMD`` (``:173-667``), with its two layouts:
+  ``layout="column"`` (the default) and ``layout="atom"``, the 27-cell
+  atom layout, below.
+
+The skin criterion of the two skin lists (some atom moved more than
+skin/2 since the last build) is checked every MD step as one device
+scalar (``displacement2``, ``maybe_rebuild``).
+
+The cell-blocked state carried to the model lives in sorted space:
+``cell_order`` (original atom per slot), ``cell_rank`` (slot per atom),
+``cell_Z``/``cell_idx_m``/``cell_atom_mask`` (0 on empty slots) and the
+layout's index and offset tensors (column:
 ``cell_qcol``/``cell_dcol``/``cell_coff_fm``/``cell_ksz``; atom:
 ``cell_qidx``/``nbh_idx``/``nbh_mask``/``nbh_offsets`` and the
 ``CellRefs`` of ``cell_qidx``, whose cached schedules serve every step
@@ -57,6 +79,7 @@ from ..ops.cellblock import (
 )
 from ..ops.cellblock_gather import CellRefs
 from ..ops.colblock_rebuild import rebin_and_rebuild
+from ..ops.neighbor_gather import build_reverse_map
 from ..transform.neighborlist import cell_list_neighbor_list
 from .system import System
 
@@ -83,6 +106,183 @@ def union_edges(R_all: np.ndarray, rc: float, cell, pbc):
         np.column_stack(cell_list_neighbor_list(R, rc, cell, pbc))
         for R in R_all]), axis=0)
     return rows[:, 0], rows[:, 1], rows[:, 2:5]
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+class DenseNeighborListMD:
+    """Dense [A, K] neighbor matrix with a Verlet skin (see the module's
+    docstring).  ``cutoff`` and ``skin`` are in the system's length
+    unit."""
+
+    def __init__(self, cutoff: float, skin: float = 1.0, k_multiple: int = 4,
+                 headroom: float = 1.15):
+        self.cutoff = float(cutoff)
+        self.skin = float(skin)
+        self.k_multiple = k_multiple
+        self.headroom = headroom
+        self._state: Optional[Dict[str, torch.Tensor]] = None
+        self._build_positions: Optional[torch.Tensor] = None
+        #: host builds so far, and their wall time (seconds)
+        self.n_builds = 0
+        self.build_seconds = 0.0
+
+    def build(self, system: System) -> None:
+        """Host build from every molecule's cell list (union over beads)
+        (``neighborlist_md.py:61-150``), timed into ``build_seconds``."""
+        t0 = time.perf_counter()
+        R_np = system.positions.detach().double().cpu().numpy()
+        n_rep = system.n_replicas
+        cells = system.cells[0].detach().double().cpu().numpy()
+        pbc = _host(system.pbc)
+        idx_m = _host(system.idx_m)
+        A = R_np.shape[1]
+        ii_all, jj_all, off_all = [], [], []
+        for m in np.unique(idx_m):
+            sel = np.nonzero(idx_m == m)[0]
+            periodic = bool(pbc[m].any())
+            sub_cell = cells[m] if periodic else None
+            rows = np.concatenate([
+                np.column_stack(cell_list_neighbor_list(
+                    R_np[r, sel], self.cutoff + self.skin, sub_cell,
+                    pbc[m] if periodic else None)).astype(np.int64)
+                for r in range(n_rep)])
+            if n_rep > 1 and len(rows):
+                rows = np.unique(rows, axis=0)
+            i, j, S = rows[:, 0], rows[:, 1], rows[:, 2:5]
+            ii_all.append(sel[i])
+            jj_all.append(sel[j])
+            off_all.append(S.astype(np.float64) @ sub_cell if periodic
+                           else np.zeros((len(i), 3)))
+        ii = np.concatenate(ii_all)
+        jj = np.concatenate(jj_all)
+        off = np.concatenate(off_all)
+        order = np.argsort(ii, kind="stable")
+        ii, jj, off = ii[order], jj[order], off[order]
+
+        counts = np.bincount(ii, minlength=A)
+        max_count = int(counts.max(initial=1))
+        K = int(-(-int(max_count * self.headroom + 1) // self.k_multiple)
+                * self.k_multiple)
+        if self._state is not None:       # K never shrinks
+            K = max(K, self._state[structure.nbh_idx].shape[1])
+        starts = np.zeros(A + 1, np.int64)
+        np.cumsum(counts, out=starts[1:])
+        slots = np.arange(len(ii)) - starts[ii]
+        nbh = np.full((A, K), A - 1, np.int32)
+        mask = np.zeros((A, K), np.float32)
+        offs = np.zeros((A, K, 3), np.float64)
+        nbh[ii, slots] = jj
+        offs[ii, slots] = off
+        mask[ii, slots] = 1.0
+        rev = build_reverse_map(ii, jj, off, slots, A, K)
+        if n_rep > 1:
+            # one topology for every replica, its indices shifted into the
+            # calculator's flattened [n_rep * A] atom table
+            shift = np.repeat(np.arange(n_rep) * A, A)[:, None]
+            nbh = np.tile(nbh, (n_rep, 1)) + shift.astype(np.int32)
+            offs = np.tile(offs, (n_rep, 1, 1))
+            mask = np.tile(mask, (n_rep, 1))
+            rshift = np.repeat(np.arange(n_rep) * (A * K), A)[:, None]
+            rev = np.tile(rev, (n_rep, 1)) + rshift.astype(rev.dtype)
+        dev = system.positions.device
+        dtype = system.positions.dtype
+        self._state = {
+            structure.nbh_idx: torch.as_tensor(nbh, device=dev),
+            structure.nbh_offsets: torch.as_tensor(offs, dtype=dtype,
+                                                   device=dev),
+            structure.nbh_mask: torch.as_tensor(mask, dtype=dtype,
+                                                device=dev),
+            structure.nbh_rev: torch.as_tensor(rev, device=dev),
+            structure.nbh_cutoff: torch.tensor(self.cutoff + self.skin,
+                                               dtype=dtype, device=dev),
+        }
+        self._build_positions = system.positions.detach().clone()
+        self.n_builds += 1
+        self.build_seconds += time.perf_counter() - t0
+
+    def displacement2(self, system: System) -> torch.Tensor:
+        """Device scalar: max squared displacement since the last build."""
+        d = system.positions - self._build_positions
+        return (d * d).sum(-1).max()
+
+    def maybe_rebuild(self, system: System) -> bool:
+        """Skin check (one device scalar read); a host build when it
+        fires."""
+        if self._state is None or (float(self.displacement2(system))
+                                   > (self.skin / 2.0) ** 2):
+            self.build(system)
+            return True
+        return False
+
+    def state(self) -> Dict[str, torch.Tensor]:
+        return self._state
+
+
+class AllPairsNeighborListMD:
+    """Static all-pairs (same-molecule) index set, masked on the device at
+    every call (see the module's docstring).  ``cutoff`` and
+    ``cutoff_shell`` are in the system's length unit."""
+
+    def __init__(self, cutoff: float, cutoff_shell: float = 0.0):
+        self.cutoff = float(cutoff)
+        self.cutoff_shell = float(cutoff_shell)
+        self._static: Dict[tuple, tuple] = {}
+        self._last = (None, None)      # (idx_m tensor, its pairs)
+
+    def _static_pairs(self, idx_m: torch.Tensor, pbc: torch.Tensor):
+        """(idx_i, idx_j) int32 on the device, sorted by (i, j), and
+        whether any molecule is periodic; made once per ``idx_m`` (read on
+        the host only when the tensor is not the last call's)."""
+        if self._last[0] is idx_m:
+            return self._last[1]
+        idx_np = _host(idx_m)
+        key = (idx_np.tobytes(), str(idx_m.device))
+        if key not in self._static:
+            same = idx_np[:, None] == idx_np[None, :]
+            np.fill_diagonal(same, False)
+            ii, jj = np.nonzero(same)
+            order = np.lexsort((jj, ii))
+            self._static[key] = (
+                torch.as_tensor(ii[order].astype(np.int32),
+                                device=idx_m.device),
+                torch.as_tensor(jj[order].astype(np.int32),
+                                device=idx_m.device),
+                bool(_host(pbc).any()))
+        self._last = (idx_m, self._static[key])
+        return self._last[1]
+
+    def get_neighbors(self, positions: torch.Tensor, cells: torch.Tensor,
+                      idx_m: torch.Tensor, pbc: torch.Tensor
+                      ) -> Dict[str, torch.Tensor]:
+        """Pairs of every replica (positions [R, A, 3], cells [R, M, 3, 3]
+        in the system's unit): idx_i, idx_j [P], offsets [R, P, 3] and
+        pair_mask [R, P] (``neighborlist_md.py:693-730``)."""
+        idx_i, idx_j, periodic = self._static_pairs(idx_m, pbc)
+        diff = positions[:, idx_j] - positions[:, idx_i]
+        offsets = torch.zeros_like(diff)
+        if periodic:
+            pair_mol = idx_m[idx_i]
+            has_cell = torch.linalg.det(cells).abs() > 1e-12    # [R, M]
+            eye = torch.eye(3, dtype=cells.dtype, device=cells.device)
+            safe = cells + eye * (~has_cell)[..., None, None]
+            inv = torch.linalg.inv(safe)
+            frac = torch.einsum("rpj,rpjk->rpk", diff, inv[:, pair_mol])
+            wrap = pbc[pair_mol][None] & has_cell[:, pair_mol][..., None]
+            shift = torch.where(wrap, -torch.round(frac),
+                                torch.zeros_like(frac))
+            offsets = torch.einsum("rpk,rpkj->rpj", shift,
+                                   safe[:, pair_mol])
+        d = torch.linalg.vector_norm(diff + offsets, dim=-1)
+        return {
+            structure.idx_i: idx_i,
+            structure.idx_j: idx_j,
+            structure.offsets: offsets,
+            structure.pair_mask: (
+                d < self.cutoff + self.cutoff_shell).to(positions.dtype),
+        }
 
 
 class CellBlockNeighborListMD:

@@ -28,8 +28,8 @@ simulator hands the integrator that hook's current state (the one it
 owns, so a restored state after ``load_state_dict``), where the JAX
 package passes it through the barostat's ``_live_state``
 (``barostats.py:111-112, 131-152``).  A calculator with ``fixed_cell``
-(the column and 27-cell layouts: their neighbor lists are built for one
-box) refuses an NPT integrator at construction.
+(``SchNetPackCalculator``: the port's models compute no stress) refuses
+an NPT integrator at construction.
 """
 from __future__ import annotations
 
@@ -76,9 +76,8 @@ class Simulator:
                 and getattr(calculator, "fixed_cell", False)):
             raise NotImplementedError(
                 f"{type(calculator).__name__} cannot run under the NPT "
-                f"integrator {type(integrator).__name__}: its neighbor list "
-                "is built for a fixed box, and the port's column and 27-cell "
-                "models return no stress (ROADMAP Queue 1 item 7)")
+                f"integrator {type(integrator).__name__}: the port's models "
+                "compute no stress (ROADMAP Queue 1 item 7)")
         self.system = system
         self.integrator = integrator
         self.calculator = calculator

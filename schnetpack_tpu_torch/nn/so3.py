@@ -1,10 +1,13 @@
 """SO(3)-equivariant layers (port of ``schnetpack_tpu/nn/so3.py``).
 
 Feature layout ``[A, (lmax+1)^2, F]`` as in the JAX package.  The
-convolution runs on the column layout only: the gather of the source
-features and the fold of the messages go through K11/K14 (``ops/
-colblock_select.py``), and the per-edge CG algebra is plain PyTorch, as
-it is XLA in the JAX package.
+convolution takes the edges of any layout (``atomistic.distances.
+edge_layout``): on the column layout the gather of the source features
+and the fold of the messages go through K11/K14 (``ops/
+colblock_select.py``); on the dense layout they are ``x[nbh_idx]`` (or
+``neighbor_gather`` with a reverse map) and a sum over K, on the flat
+layout ``x[idx_j]`` and a segment sum (``so3.py:93-105``).  The per-edge
+CG algebra is plain PyTorch, as it is XLA in the JAX package.
 """
 from __future__ import annotations
 
@@ -13,9 +16,8 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..atomistic.distances import as_edges
 from ..ops import so3 as so3_ops
-from ..ops.colblock import ColRefs
-from ..ops.colblock_select import column_fold_op, column_gather_op
 from .base import Dense
 
 
@@ -61,9 +63,9 @@ def cg_message(ylm: torch.Tensor, Wl: torch.Tensor, xj: torch.Tensor,
 
 
 class SO3Convolution(nn.Module):
-    """Pairwise CG convolution on the column layout: msg = W_l(d) * CG(x_j,
-    Y(dir)), summed per destination atom.  Radial filters are per degree
-    l of the Ylm slot, broadcast over m."""
+    """Pairwise CG convolution: msg = W_l(d) * CG(x_j, Y(dir)), summed per
+    destination atom.  Radial filters are per degree l of the Ylm slot,
+    broadcast over m."""
 
     def __init__(self, lmax: int, n_atom_basis: int, n_radial: int,
                  generator: Optional[torch.Generator] = None):
@@ -77,18 +79,16 @@ class SO3Convolution(nn.Module):
 
     def forward(self, x: torch.Tensor, radial_ij: torch.Tensor,
                 dir_ij: torch.Tensor, cutoff_ij: torch.Tensor,
-                col_refs: ColRefs) -> torch.Tensor:
-        A, n_lm, F = x.shape
+                edges) -> torch.Tensor:
+        """x [A, n_lm, F] and the per-edge inputs [E..., .] of ``edges``
+        (an edges object of ``atomistic.distances``, or ``ColRefs``)."""
+        edges = as_edges(edges)
+        F = x.shape[-1]
         ylm = so3_ops.real_spherical_harmonics(dir_ij, self.lmax)
         Wl = self.filternet(radial_ij)
         Wl = Wl.reshape(Wl.shape[:-1] + (self.lmax + 1, F)) \
             * cutoff_ij[..., None, None]
-        nx, ny, Ktot = dir_ij.shape[:3]
-        xj = column_gather_op(x.reshape(A, n_lm * F), col_refs)
-        msg = cg_message(ylm, Wl, xj.reshape(nx, ny, Ktot, n_lm, F),
-                         self.cg_deg)
-        out = column_fold_op(msg.reshape(nx, ny, Ktot, n_lm * F), col_refs)
-        return out.reshape(A, n_lm, F)
+        return edges.fold(cg_message(ylm, Wl, edges.gather(x), self.cg_deg))
 
 
 class SO3ParametricGatedNonlinearity(nn.Module):

@@ -1,30 +1,34 @@
-"""FieldSchNet on the column-bucketed layout (the MD path).
-
-Port of ``schnetpack_tpu/representation/field_schnet.py`` on its column
-path (``field_schnet.py:179-292``): SchNet whose atoms also carry dipole
-features mu [A', 3, F] per external field.  From the per-edge
-displacements ``col_rij`` of ``atomistic.PairwiseDistances`` come the
-distance d, the Gaussian basis, the cosine cutoff times the edge mask
-(``refs.qcol >= 0``) and the pair vectors v_ij = col_rij, UNNORMALISED.
-Then:
+"""FieldSchNet on every layout (port of
+``schnetpack_tpu/representation/field_schnet.py:179-292``): SchNet whose
+atoms also carry dipole features mu [A', 3, F] per external field.  From
+the per-edge displacements of ``atomistic.PairwiseDistances`` come the
+distance d, the Gaussian basis, the cosine cutoff times the layout's mask
+and the pair vectors v_ij, UNNORMALISED.  Then:
 
 * an initial dipole update from the embeddings (``:259-262``), and the
   nuclear magnetic moments' term where the magnetic field is a field and
   the inputs hold the moments (``:264-272``);
-* n_interactions x (SchNet's generic column aggregate
-  (``SchNetInteraction.columns``) + the field interaction + the
+* n_interactions x (SchNet's generic aggregate
+  (``SchNetInteraction.aggregate``) + the field interaction + the
   dipole-dipole interaction -> dq; q += dq; the dipole update from dq)
   (``:274-289``), whose last dipole update is not computed: nothing reads
   its mu (the JAX package's jit drops it as dead code);
 * ``scalar_representation`` = q [A', F].
 
-Every gather of a per-atom table is ``column_gather_op`` (K11, VJP K12)
-and every per-atom sum ``column_fold_op`` (K14, VJP K13): at D = F (the
-SchNet aggregate's in2f(q), the dipole update's transform(q)) and
-D = 3F (the gathered mu, the folded dipole tensors), 15 gathers and 15
-folds a forward at 5 interactions.  The SchNet blocks take the generic
-aggregate, not the fused cfconv (K9/K10), as the JAX package's
-FieldSchNet does (``field_schnet.py:275-277``).
+The layout is the column layout where the inputs hold it (``col_rij``
+and the edge mask ``refs.qcol >= 0``); else the dense one (``nbh_rij``,
+``nbh_mask``) only when the flat list carries no real pairs,
+``idx_i.shape[0] <= 1`` (``field_schnet.py:228-236``); else the flat one
+(``Rij``, ``pair_mask``).  On the column layout every gather of a
+per-atom table is ``column_gather_op`` (K11, VJP K12) and every per-atom
+sum ``column_fold_op`` (K14, VJP K13): at D = F (the SchNet aggregate's
+in2f(q), the dipole update's transform(q)) and D = 3F (the gathered mu,
+the folded dipole tensors), 15 gathers and 15 folds a forward at 5
+interactions.  On the dense layout the gathers are ``x[nbh_idx]`` (the
+JAX model reads no reverse map here, ``:142-143``) and the sums run over
+K; on the flat layout ``x[idx_j]`` and segment sums (``:97, :157``).  The
+SchNet blocks take the generic aggregate, not the fused cfconv (K9/K10),
+as the JAX package's FieldSchNet does (``field_schnet.py:275-277``).
 
 Per-atom fields are the inputs' per-molecule fields taken at ``idx_m``
 clipped into range (zeros for a field the inputs lack, as in MD).  Where
@@ -34,8 +38,7 @@ moments: a tree made without them loads into ``nmm_embedding=False``.  Module
 and parameter names follow flax's, with the per-block modules in lists:
 ``interaction_t`` -> ``interactions.t``, ``field_inter_t`` ->
 ``field_inter.t``, ``dipole_inter_t`` -> ``dipole_inter.t``,
-``dipole_update_t`` -> ``dipole_update.t``.  The flat and dense layouts
-raise NotImplementedError.
+``dipole_update_t`` -> ``dipole_update.t``.
 """
 from __future__ import annotations
 
@@ -45,13 +48,11 @@ import torch
 from torch import nn
 
 from .. import properties
-from ..atomistic.distances import column_refs
+from ..atomistic.distances import as_edges, edge_layout
 from ..nn.base import Dense
 from ..nn.cutoff import CosineCutoff
 from ..nn.radial import GaussianRBF
 from ..ops.activations import shifted_softplus
-from ..ops.colblock import ColRefs
-from ..ops.colblock_select import column_fold_op, column_gather_op
 from ..ops.math import safe_norm
 from .schnet import SchNetInteraction
 
@@ -97,15 +98,13 @@ class DipoleUpdate(nn.Module):
                 n_atom_basis, n_atom_basis, bias=False, generator=generator))
 
     def forward(self, q, mu: Dict[str, torch.Tensor], v_ij, rcut_ij,
-                refs: ColRefs) -> Dict[str, torch.Tensor]:
-        A = q.shape[0]
+                edges) -> Dict[str, torch.Tensor]:
+        edges = as_edges(edges)
         out = {}
         for f in self.fields:
-            qj = column_gather_op(getattr(self, f"transform_{_tag(f)}")(q),
-                                  refs)
+            qj = edges.gather(getattr(self, f"transform_{_tag(f)}")(q))
             dmu_ij = (qj * rcut_ij[..., None])[..., None, :] * v_ij[..., None]
-            out[f] = mu[f] + column_fold_op(
-                dmu_ij.flatten(-2), refs).reshape(A, 3, -1)
+            out[f] = mu[f] + edges.fold(dmu_ij)
         return out
 
 
@@ -134,7 +133,8 @@ class DipoleInteraction(nn.Module):
                 F, F, activation=activation, generator=generator))
 
     def forward(self, mu: Dict[str, torch.Tensor], f_ij, d_ij, v_ij, rcut_ij,
-                refs: ColRefs) -> torch.Tensor:
+                edges) -> torch.Tensor:
+        edges = as_edges(edges)
         dq = 0.0
         d5 = torch.clamp(d_ij, min=1e-2) ** 5
         for f in self.fields:
@@ -142,15 +142,12 @@ class DipoleInteraction(nn.Module):
             W = getattr(self, f"filter_{t}_1")(
                 getattr(self, f"filter_{t}_0")(f_ij))
             W = W * rcut_ij[..., None]
-            A, _, F = mu[f].shape
-            mu_ij = column_gather_op(mu[f].reshape(A, 3 * F), refs).reshape(
-                *d_ij.shape, 3, F)
+            mu_ij = edges.gather(mu[f])
             proj = (v_ij[..., None] * mu_ij).sum(-2, keepdim=True)
             tensor = (mu_ij * (d_ij ** 2)[..., None, None]
                       - 3.0 * v_ij[..., None] * proj)
             tensor = tensor * W[..., None, :] / d5[..., None, None]
-            tensor_i = column_fold_op(tensor.flatten(-2), refs).reshape(
-                A, 3, F)
+            tensor_i = edges.fold(tensor)
             dq = dq + getattr(self, f"transform_{t}")(
                 (mu[f] * tensor_i).sum(1))
         return dq
@@ -174,8 +171,7 @@ class NuclearMagneticMomentEmbedding(nn.Module):
 
 
 class FieldSchNet(nn.Module):
-    """FieldSchNet representation on the column layout ->
-    scalar_representation [A', F]."""
+    """FieldSchNet representation -> scalar_representation [A', F]."""
 
     def __init__(self, n_atom_basis: int = 128, n_interactions: int = 3,
                  n_rbf: int = 20, cutoff: float = 5.0, max_z: int = 100,
@@ -213,16 +209,14 @@ class FieldSchNet(nn.Module):
             DipoleUpdate(F, self.fields, generator) for _ in T)
 
     def forward(self, inputs: Dict[str, torch.Tensor]):
-        if properties.col_rij not in inputs:
-            raise NotImplementedError(
-                "the port implements FieldSchNet on the column layout only "
-                "(run atomistic.PairwiseDistances as an input module on "
-                "inputs with the cell_qcol/cell_dcol/cell_coff_fm keys)")
-        refs = column_refs(inputs)
-        v_ij = inputs[properties.col_rij]
+        idx_i = inputs.get(properties.idx_i)
+        edges, v_ij, mask = edge_layout(
+            inputs, reverse=False,
+            dense=(properties.nbh_rij in inputs
+                   and (idx_i is None or idx_i.shape[0] <= 1)))
         d_ij = safe_norm(v_ij)
         f_ij = self.radial_basis(d_ij)
-        rcut_ij = self.cutoff_fn(d_ij) * (refs.qcol >= 0).to(d_ij.dtype)
+        rcut_ij = self.cutoff_fn(d_ij) * mask.to(d_ij.dtype)
 
         Z = inputs[properties.Z]
         q = self.embedding(Z)
@@ -235,7 +229,7 @@ class FieldSchNet(nn.Module):
                               else v.to(q.dtype)[idx_m])
         mu = {f: q.new_zeros((q.shape[0], 3, self.n_atom_basis))
               for f in self.fields}
-        mu = self.initial_dipole_update(q, mu, v_ij, rcut_ij, refs)
+        mu = self.initial_dipole_update(q, mu, v_ij, rcut_ij, edges)
         nmm = inputs.get(properties.nuclear_magnetic_moments)
         if properties.magnetic_field in self.fields and nmm is not None:
             if not hasattr(self, "nmm_embedding"):
@@ -249,11 +243,11 @@ class FieldSchNet(nn.Module):
         for t, (inter, field, dipole, update) in enumerate(zip(
                 self.interactions, self.field_inter, self.dipole_inter,
                 self.dipole_update)):
-            dq = inter.columns(q, f_ij, rcut_ij, refs)
+            dq = inter.aggregate(q, f_ij, rcut_ij, edges)
             dq = dq + field(mu, field_atoms)
-            dq = dq + dipole(mu, f_ij, d_ij, v_ij, rcut_ij, refs)
+            dq = dq + dipole(mu, f_ij, d_ij, v_ij, rcut_ij, edges)
             q = q + dq
             if t < last:    # the last block's mu feeds nothing
-                mu = update(dq, mu, v_ij, rcut_ij, refs)
+                mu = update(dq, mu, v_ij, rcut_ij, edges)
         inputs[properties.scalar_representation] = q
         return inputs

@@ -1,10 +1,26 @@
-"""PaiNN on the column-bucketed and the 27-cell layouts (the MD paths).
+"""PaiNN on every layout: the column-bucketed and 27-cell layouts (the
+MD paths, on the CUDA kernels) and the flat and dense layouts (plain
+PyTorch).
 
-Port of ``schnetpack_tpu/representation/painn.py`` on its column and cell
-paths: embedding -> n_interactions x (context MLP ctx_0/ctx_1 -> fused
-message -> fused residual + mixing) -> scalar features q [A', F] and
-vector features mu [A', 3, F].  ``mu`` stays flat [A', 3F] between
-blocks, the kernels' layout.
+Port of ``schnetpack_tpu/representation/painn.py``: embedding ->
+n_interactions x (context MLP ctx_0/ctx_1 -> message -> residual +
+mixing) -> scalar features q [A', F] and vector features mu [A', 3, F].
+On the column and cell paths ``mu`` stays flat [A', 3F] between blocks,
+the kernels' layout, and the residual add is fused into the mixing
+kernels (K3/K4).
+
+Inputs without the column or cell keys take the JAX package's flat or
+dense branch (``painn.py:375-392``), for any radial basis and cutoff:
+from the displacements of ``atomistic.PairwiseDistances`` (``nbh_rij``
+[A, K, 3] where the inputs hold it, else the flat ``Rij`` [P, 3]), the
+safe distance, the direction, the cutoff times ``nbh_mask`` or
+``pair_mask``, and the basis; each interaction's filter is (phi @ W +
+b) * fcut from the same ``FW_aug`` rows the kernels read, and its
+message gathers [x, mu] to the edges and sums them per center
+(``painn.py:118-139``: ``x[nbh_idx]``, or ``neighbor_gather`` with a
+reverse map, and a sum over K; ``x[idx_j]`` and ``segment_sum``).  The
+mixing is the generic [A, 3, F] branch (``painn.py:236-260``) on the
+parameters K3/K4 read.  These paths launch no kernel of this package.
 
 Inputs with ``cell_qidx`` (``CellBlockNeighborListMD(layout="atom")``)
 take the 27-cell path (``painn.py:375-382, 403-410, 450``) for any radial
@@ -70,7 +86,9 @@ import torch
 from torch import nn
 
 from .. import properties
-from ..atomistic.distances import cell_refs, column_refs
+from ..atomistic.distances import (
+    cell_refs, column_refs, edge_geometry, edge_layout,
+)
 from ..nn.base import Dense
 from ..nn.cutoff import CosineCutoff
 from ..nn.embedding import add_embeddings, embed_atoms
@@ -83,7 +101,6 @@ from ..ops.colblock_message import (
     painn_message_columns_fm, painn_message_columns_fm_geores,
     painn_message_columns_full_fused,
 )
-from ..ops.math import safe_norm
 from ..ops.painn_fused import painn_message_cellblock
 from ..ops.painn_mixing import painn_mixing_fused
 from ..ops.radial import gaussian_rbf_table
@@ -126,6 +143,20 @@ class PaiNNMixing(nn.Module):
         return painn_mixing_fused(q, mu, dq, dmu, self.kmix, self.k0,
                                   self.b0, self.k1, self.b1, self.epsilon,
                                   self.activation)
+
+    def plain(self, q, mu, dq, dmu):
+        """The residual add and the mixing on mu [A, 3, F] in plain
+        PyTorch (``painn.py:236-260``), on the kernels' parameters."""
+        F = q.shape[1]
+        q, mu = q + dq, mu + dmu
+        mu_V = mu @ self.kmix[:, :F]
+        mu_W = mu @ self.kmix[:, F:]
+        mu_Vn = torch.sqrt((mu_V * mu_V).sum(-2) + self.epsilon)
+        x = ACTIVATIONS[self.activation](
+            q @ self.k0[:F] + mu_Vn @ self.k0[F:] + self.b0)
+        d_q, d_mu, d_qmu = (x @ self.k1 + self.b1).split(F, dim=-1)
+        return (q + d_q + d_qmu * (mu_V * mu_W).sum(-2),
+                mu + d_mu[:, None, :] * mu_W)
 
 
 def _xavier(shape, generator: Optional[torch.Generator]) -> torch.Tensor:
@@ -200,12 +231,31 @@ class PaiNN(nn.Module):
                 f"{type(self.cutoff_fn).__name__} on this layout reads the "
                 f"per-edge displacements {key}: run "
                 "atomistic.PairwiseDistances as an input module")
-        Rij = inputs[key]
-        d = safe_norm(Rij)
-        dirs = Rij / d[..., None]
-        fcut = (self.cutoff_fn(d) * mask.to(Rij.dtype))[..., None]
-        phi = self.radial_basis(d)
+        phi, fcut, dirs = self._basis(inputs[key], mask)
+        fcut = fcut[..., None]
         return torch.cat([phi * fcut, fcut], dim=-1), dirs
+
+    def _basis(self, Rij, mask):
+        """(phi, fcut * mask, dir) of per-edge displacements."""
+        d, dirs = edge_geometry(Rij)
+        return (self.radial_basis(d),
+                self.cutoff_fn(d) * mask.to(Rij.dtype), dirs)
+
+    def _plain_message(self, inputs):
+        """The message of the flat and dense layouts (``painn.py:118-139,
+        375-392``): dq [A, F] and dmu [A, 3, F] from x [A, 3F] and mu
+        [A, 3, F]."""
+        edges, Rij, mask = edge_layout(inputs)
+        phi, fcut, dirs = self._basis(Rij, mask)
+        F = self.n_atom_basis
+
+        def message(x, mu, FW_aug):
+            W = (phi @ FW_aug[:-1] + FW_aug[-1]) * fcut[..., None]
+            dq, dmuR, dmumu = (edges.gather(x) * W).split(F, dim=-1)
+            dmu = (dmuR[..., None, :] * dirs[..., None]
+                   + dmumu[..., None, :] * edges.gather(mu))
+            return edges.fold(dq), edges.fold(dmu)
+        return message
 
     def _column_geometry(self, inputs, refs: ColRefs) -> torch.Tensor:
         """[phi*fcut, fcut, dir] [nx, ny, B+4, Ktot] from ``col_rij``, with
@@ -255,23 +305,25 @@ class PaiNN(nn.Module):
             x, mu, R, FW_aug, coff_fm, self.cw, refs, self.cutoff)
 
     def forward(self, inputs: Dict[str, torch.Tensor]):
-        if properties.cell_qcol in inputs:
-            message = self._column_message(inputs)
-        elif properties.cell_qidx in inputs:
-            message = self._cell_message(inputs)
-        else:
-            raise NotImplementedError(
-                "the port implements PaiNN on the column layout (inputs with "
-                "the cell_qcol/cell_dcol/cell_coff_fm keys) and the 27-cell "
-                "layout (cell_qidx, nbh_rij) only")
         F = self.n_atom_basis
+        blocked = (properties.cell_qcol in inputs
+                   or properties.cell_qidx in inputs)
+        if blocked:
+            message = (self._column_message(inputs)
+                       if properties.cell_qcol in inputs
+                       else self._cell_message(inputs))
+        else:
+            message = self._plain_message(inputs)
         q = embed_atoms(self, inputs)
-        mu = q.new_zeros((q.shape[0], 3 * F))
+        mu = q.new_zeros((q.shape[0], 3 * F) if blocked
+                         else (q.shape[0], 3, F))
         for t in range(self.n_interactions):
             b = t % len(self.interactions)
             dq, dmu = message(self.interactions[b](q), mu,
                               self.FW_aug[t % len(self.FW_aug)])
-            q, mu = self.mixing[b](q, mu, dq, dmu)
+            mix = self.mixing[b]
+            q, mu = (mix(q, mu, dq, dmu) if mu.ndim == 2
+                     else mix.plain(q, mu, dq, dmu))
         inputs[properties.scalar_representation] = q
         inputs[properties.vector_representation] = mu.reshape(-1, 3, F)
         return inputs

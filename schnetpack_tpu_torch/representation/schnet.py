@@ -1,6 +1,8 @@
-"""SchNet on the column-bucketed layout (the MD path).
+"""SchNet on every layout: the column-bucketed layout (the MD path, on
+the CUDA kernels), and the flat, dense and 27-cell layouts (plain
+PyTorch, the 27-cell layout's displacements from K16/K17).
 
-Port of ``schnetpack_tpu/representation/schnet.py`` on its column path
+Port of ``schnetpack_tpu/representation/schnet.py``.  On the column path
 (``schnet.py:131-216, 56-69``): embedding (a plain table or a
 ``NuclearEmbedding``, plus the electronic embeddings asked for) -> the
 raw-phi geometry, once per forward and differentiable in the positions
@@ -11,21 +13,30 @@ their geometry cotangents, and the geometry backward (K8) turns the sum
 into dR.  With ``shared_interactions`` one block (flax name
 ``interaction_shared``, here ``interactions.0``) runs n_interactions times.
 
-The basis is a ``GaussianRBF`` (any ``start``) and the cutoff the cosine
-cutoff, as the JAX column path requires.  A trainable basis
-(``schnet.py:155-168``) makes its centers and widths parameters: the
-geometry is then the plain raw-phi twin of K5 (``colblock_geo.
-geo_fwd_plain``) under autograd, as the JAX package takes
+The column path's basis is a ``GaussianRBF`` (any ``start``) with the
+cosine cutoff, as the JAX column path requires; other bases raise there.
+A trainable basis (``schnet.py:155-168``) makes its centers and widths
+parameters: the geometry is then the plain raw-phi twin of K5
+(``colblock_geo.geo_fwd_plain``) under autograd, as the JAX package takes
 ``column_geometry_xla`` there, and K10's geometry cotangent reaches the
 centers, the widths and R through it.
 
+Inputs without the column keys take the JAX package's dense or flat
+branch (``schnet.py:84-103, 125, 178-190``) for any radial basis: from
+the displacements of ``atomistic.PairwiseDistances`` (``nbh_rij`` where
+the inputs hold it, else ``Rij``), the safe distance, the basis and the
+cosine cutoff times ``nbh_mask`` or ``pair_mask``; each block's filter
+network on the basis, and the aggregate ``fold(gather(in2f(x)) * W)``
+(``SchNetInteraction.aggregate``).  On the 27-cell layout
+(``cellblock_atom``) that is the dense branch: ``nbh_rij`` comes from K16
+(its VJP K17), and ``nbh_idx``, which has no reverse map there, is a
+plain gather.
+
 The filter network's Dense layers (``filter_0`` [B -> F], ``filter_1``
 [F -> F]) are ``nn.Linear`` modules; the cfconv op takes their weights
-transposed, in flax's [in, out] layout.  ``SchNetInteraction.columns``
-is the JAX block's generic column aggregate (``schnet.py:84-92``), which
-FieldSchNet runs: the filter network in plain Dense layers on a given
-basis, then the gather (K11), the product and the fold (K14).  The flat
-and dense layouts are not ported and raise NotImplementedError.
+transposed, in flax's [in, out] layout.  ``aggregate`` on a column
+layout is the JAX block's generic column aggregate (``schnet.py:84-92``),
+which FieldSchNet runs: the gather (K11), the product and the fold (K14).
 """
 from __future__ import annotations
 
@@ -35,13 +46,14 @@ import torch
 from torch import nn
 
 from .. import properties
+from ..atomistic.distances import as_edges, edge_geometry, edge_layout
 from ..nn.base import Dense
+from ..nn.cutoff import CosineCutoff
 from ..nn.embedding import add_embeddings, embed_atoms
 from ..nn.radial import GaussianRBF
 from ..ops.activations import shifted_softplus
 from ..ops.colblock import ColRefs
 from ..ops.colblock_geo import column_geometry_raw, geo_fwd_plain
-from ..ops.colblock_select import column_fold_op, column_gather_op
 from ..ops.radial import gaussian_rbf_table
 from ..ops.schnet_columns import schnet_cfconv_columns
 
@@ -67,14 +79,15 @@ class SchNetInteraction(nn.Module):
             self.filter_1.weight.t(), self.filter_1.bias, refs)
         return self.f2out_1(self.f2out_0(agg))
 
-    def columns(self, x, f_ij, rcut_ij, refs: ColRefs):
-        """The generic column aggregate on the basis ``f_ij`` [nx, ny,
-        Ktot, B] and the cutoff ``rcut_ij`` [nx, ny, Ktot]: W = filter
-        network * rcut, then fold(gather(in2f(x)) * W) by K11 and K14."""
+    def aggregate(self, x, f_ij, rcut_ij, edges):
+        """The generic aggregate on the basis ``f_ij`` [E..., B] and the
+        cutoff ``rcut_ij`` [E...] of a layout's edges (``ColRefs``: K11
+        and K14): W = filter network * rcut, then fold(gather(in2f(x)) *
+        W)."""
+        edges = as_edges(edges)
         W = self.filter_1(shifted_softplus(self.filter_0(f_ij)))
         W = W * rcut_ij[..., None]
-        hj = column_gather_op(self.in2f(x), refs)
-        agg = column_fold_op(hj * W, refs)
+        agg = edges.fold(edges.gather(self.in2f(x)) * W)
         return self.f2out_1(self.f2out_0(agg))
 
 
@@ -96,10 +109,9 @@ class SchNet(nn.Module):
         F = n_atom_basis
         self.radial_basis = (GaussianRBF(n_rbf, cutoff) if radial_basis is None
                              else radial_basis)
-        if not isinstance(self.radial_basis, GaussianRBF):
-            raise NotImplementedError(
-                "the SchNet column path requires a GaussianRBF")
         rb = self.radial_basis
+        gauss = isinstance(rb, GaussianRBF)
+        self.cutoff_fn = CosineCutoff(cutoff)
         self.n_atom_basis = F
         self.n_rbf = rb.n_rbf
         self.n_interactions = n_interactions
@@ -110,13 +122,15 @@ class SchNet(nn.Module):
             SchNetInteraction(F, rb.n_rbf, n_filters or F, generator)
             for _ in range(1 if shared_interactions else n_interactions))
         self.register_buffer(
-            "cw", None if rb.trainable
-            else gaussian_rbf_table(rb.n_rbf, rb.cutoff, rb.start),
-            persistent=False)
+            "cw", gaussian_rbf_table(rb.n_rbf, rb.cutoff, rb.start)
+            if gauss and not rb.trainable else None, persistent=False)
 
     def _geometry(self, R, coff_fm, refs: ColRefs):
         """The raw-phi geometry [nx, ny, B+4, Ktot]: K5/K8 for a fixed
         basis, the plain twin under autograd for a trainable one."""
+        if not isinstance(self.radial_basis, GaussianRBF):
+            raise NotImplementedError(
+                "the SchNet column path requires a GaussianRBF")
         if self.cw is not None:
             return column_geometry_raw(R, coff_fm, refs, self.cw,
                                        self.cutoff)
@@ -127,9 +141,7 @@ class SchNet(nn.Module):
 
     def forward(self, inputs: Dict[str, torch.Tensor]):
         if properties.cell_qcol not in inputs:
-            raise NotImplementedError(
-                "the port implements SchNet on the column layout only "
-                "(inputs need the cell_qcol/cell_dcol/cell_coff_fm keys)")
+            return self._plain(inputs)
         R = inputs[properties.R]
         qcol = inputs[properties.cell_qcol]
         P = R.shape[0] // (qcol.shape[0] * qcol.shape[1])
@@ -139,5 +151,18 @@ class SchNet(nn.Module):
         x = embed_atoms(self, inputs)
         for t in range(self.n_interactions):
             x = x + self.interactions[t % len(self.interactions)](x, geo, refs)
+        inputs[properties.scalar_representation] = x
+        return inputs
+
+    def _plain(self, inputs: Dict[str, torch.Tensor]):
+        """The dense and flat layouts (``schnet.py:84-103, 178-190``)."""
+        edges, Rij, mask = edge_layout(inputs)
+        d, _ = edge_geometry(Rij)
+        f_ij = self.radial_basis(d)
+        rcut_ij = self.cutoff_fn(d) * mask.to(d.dtype)
+        x = embed_atoms(self, inputs)
+        for t in range(self.n_interactions):
+            block = self.interactions[t % len(self.interactions)]
+            x = x + block.aggregate(x, f_ij, rcut_ij, edges)
         inputs[properties.scalar_representation] = x
         return inputs

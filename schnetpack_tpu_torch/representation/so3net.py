@@ -1,25 +1,27 @@
-"""SO3net on the column-bucketed layout (the MD path).
+"""SO3net on every layout (port of
+``schnetpack_tpu/representation/so3net.py``): the per-edge displacements
+of ``atomistic.PairwiseDistances`` (``col_rij`` on the column layout,
+``nbh_rij`` on the dense and 27-cell layouts, else the flat ``Rij``;
+``so3net.py:46, 51-83``) -> safe distance, unit direction, radial basis
+and cosine cutoff (times the real slots, ``nbh_mask`` or ``pair_mask``)
+-> embedding -> ``scalar2rsh`` -> n_interactions x (SO3Convolution ->
+mix1 -> + tensor product -> mix2 -> parametric gate -> mix3, residual
+add) -> ``scalar_representation`` [A', F] and ``multipole_representation``
+[A', (lmax+1)^2, F].
 
-Port of ``schnetpack_tpu/representation/so3net.py`` on its column path
-(``so3net.py:51-69, 89-126``): the per-edge displacements ``col_rij`` of
-``atomistic.PairwiseDistances`` -> safe distance, unit direction, Gaussian
-radial basis and cosine cutoff (masked by the edge mask) -> embedding ->
-``scalar2rsh`` -> n_interactions x (SO3Convolution -> mix1 -> + tensor
-product -> mix2 -> parametric gate -> mix3, residual add) ->
-``scalar_representation`` [A', F] and ``multipole_representation`` [A',
-(lmax+1)^2, F].
-
-Each convolution gathers the [A', (lmax+1)^2 * F] feature table with K11
-and folds its messages with K14; autograd runs their VJPs (K12, K13).
-The basis and the cosine cutoff are plain PyTorch, so any of
+On the column layout each convolution gathers the [A', (lmax+1)^2 * F]
+feature table with K11 and folds its messages with K14; autograd runs
+their VJPs (K12, K13).  On the dense and flat layouts the gather and sum
+are plain PyTorch (``nn/so3.py``); on the 27-cell layout the displacements
+come from K16 (VJP K17) and the features take the dense layout's plain
+gather.  The basis and the cosine cutoff are plain PyTorch, so any of
 ``nn.radial``'s bases runs (a trainable one's centers and widths are
 parameters, ``radial_basis.{centers, widths}``).  With
 ``shared_interactions`` one block (flax ``so3conv_shared``, ``mix*_
 shared``, ``gate_shared``; here index 0 of each list) runs n_interactions
 times (``so3net.py:92-97``); ``return_vector_representation`` adds the
 l = 1 channels, rolled from (y, z, x) to (x, y, z), as
-``vector_representation`` [A', 3, F] (``so3net.py:122-125``).  The flat
-and dense layouts raise NotImplementedError.
+``vector_representation`` [A', 3, F] (``so3net.py:122-125``).
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ import torch
 from torch import nn
 
 from .. import properties
-from ..atomistic.distances import column_refs
+from ..atomistic.distances import edge_geometry, edge_layout
 from ..nn.base import Dense
 from ..nn.radial import GaussianRBF
 from ..nn.so3 import (
@@ -37,11 +39,10 @@ from ..nn.so3 import (
 )
 from ..ops import so3 as so3_ops
 from ..ops.cutoff import cosine_cutoff
-from ..ops.math import safe_norm
 
 
 class SO3net(nn.Module):
-    """SO3net representation on the column layout."""
+    """SO3net representation."""
 
     def __init__(self, n_atom_basis: int = 64, n_interactions: int = 3,
                  lmax: int = 2, n_rbf: int = 20, cutoff: float = 5.0,
@@ -76,24 +77,16 @@ class SO3net(nn.Module):
         self.tp = SO3TensorProduct(lmax)
 
     def forward(self, inputs: Dict[str, torch.Tensor]):
-        if properties.col_rij not in inputs:
-            raise NotImplementedError(
-                "the port implements SO3net on the column layout only "
-                "(run atomistic.PairwiseDistances as an input module on "
-                "inputs with the cell_qcol/cell_dcol/cell_coff_fm keys)")
-        refs = column_refs(inputs)
-        Rij = inputs[properties.col_rij]
-        d = safe_norm(Rij)
-        dirs = Rij / d[..., None]
-        emask = (refs.qcol >= 0).to(Rij.dtype)
-        fcut = cosine_cutoff(d, self.cutoff) * emask
+        edges, Rij, mask = edge_layout(inputs)
+        d, dirs = edge_geometry(Rij)
+        fcut = cosine_cutoff(d, self.cutoff) * mask.to(d.dtype)
         radial = self.radial_basis(d)
 
         x = so3_ops.scalar2rsh(self.embedding(inputs[properties.Z]),
                                self.lmax)
         for t in range(self.n_interactions):
             b = t % len(self.convs)
-            dx = self.convs[b](x, radial, dirs, fcut, refs)
+            dx = self.convs[b](x, radial, dirs, fcut, edges)
             dx = self.mix2[b](dx + self.tp(dx, self.mix1[b](dx)))
             x = x + self.mix3[b](self.gates[b](dx))
         inputs[properties.scalar_representation] = x[:, 0, :]

@@ -353,7 +353,7 @@ def _calculate(calc, system):
 def test_small_painn_calculators_match_on_cellblock_atom():
     """Both calculators with ``neighbor_list="cellblock_atom"`` on the
     90-atom box (an aliased 2-cell grid); then the port's forces against
-    its own column path."""
+    its own column and dense paths."""
     mol, jpot, jparams, pot, params = _small_models()
     jcalc = JCalculator(jpot, jparams, cutoff=SMALL_CUTOFF,
                         cutoff_shell=SMALL_SHELL,
@@ -375,8 +375,12 @@ def test_small_painn_calculators_match_on_cellblock_atom():
     F_col, E_col = got["cellblock"]
     np.testing.assert_allclose(E_col, E, SMALL_E_RTOL, SMALL_E_ATOL)
     np.testing.assert_allclose(F_col, F, SMALL_F_RTOL, SMALL_F_ATOL)
-    with pytest.raises(NotImplementedError, match="cellblock"):
-        SchNetPackCalculator(pot, params, neighbor_list="dense")
+    calc = SchNetPackCalculator(pot, params, cutoff=SMALL_CUTOFF,
+                                cutoff_shell=SMALL_SHELL,
+                                neighbor_list="dense")
+    F_dense, E_dense = _calculate(calc, system)
+    np.testing.assert_allclose(E_dense, E, SMALL_E_RTOL, SMALL_E_ATOL)
+    np.testing.assert_allclose(F_dense, F, SMALL_F_RTOL, SMALL_F_ATOL)
 
 
 def test_atom_layout_state_carries_one_refs_per_build():

@@ -245,17 +245,22 @@ def test_spkmd_model_dir_matches_jax(tmp_path):
 
 
 def tiny_potential():
-    from schnetpack_tpu_torch.atomistic import Atomwise, Forces
+    from schnetpack_tpu_torch.atomistic import (
+        Atomwise, Forces, PairwiseDistances,
+    )
     from schnetpack_tpu_torch.representation import PaiNN
 
     return NeuralNetworkPotential(
         PaiNN(n_atom_basis=16, n_interactions=1, n_rbf=8, cutoff=CUTOFF),
-        [Atomwise(n_in=16), Forces()])
+        [Atomwise(n_in=16), Forces()],
+        input_modules=[PairwiseDistances(columns=False)])
 
 
 @pytest.mark.parametrize("options,error,match", [
-    (dict(neighbor_list="all_pairs"), NotImplementedError, "item 5"),
-    (dict(neighbor_list="dense"), NotImplementedError, "item 5"),
+    (dict(neighbor_list="all_pairs", precision="bf16"), NotImplementedError,
+     "item 8"),
+    (dict(neighbor_list="dense", stress_key="stress"), NotImplementedError,
+     "item 7"),
     (dict(neighbor_list="cellblock", precision="bf16"), NotImplementedError,
      "item 8"),
     (dict(neighbor_list="cellblock", precision="mixed"),
@@ -273,15 +278,25 @@ def test_calculator_refuses_at_construction(options, error, match):
         SchNetPackCalculator(tiny_potential(), cutoff=CUTOFF, **options)
 
 
-@pytest.mark.parametrize("precision", [None, "f32"])
-def test_calculator_takes_the_jax_keys(precision):
+@pytest.mark.parametrize("neighbor_list,precision", [
+    ("cellblock", None), ("cellblock", "f32"), ("all_pairs", None),
+    ("dense", "f32")])
+def test_calculator_takes_the_jax_keys(neighbor_list, precision):
+    """The JAX calculator's keys build and compute, on every layout (the
+    flat and dense ones agree with the column one)."""
     calc = SchNetPackCalculator(
-        tiny_potential(), cutoff=CUTOFF, neighbor_list="cellblock",
+        tiny_potential(), cutoff=CUTOFF, neighbor_list=neighbor_list,
         precision=precision, stress_key=None,
         required_properties=["energy", "forces"])
     system = load_molecules([argon_box()], device="cpu")
     s = calc.calculate(system, calc.init_state(system))
     assert torch.isfinite(s.forces).all()
+    if neighbor_list != "cellblock":
+        col = SchNetPackCalculator(calc.model, cutoff=CUTOFF,
+                                   neighbor_list="cellblock")
+        want = col.calculate(system, col.init_state(system))
+        torch.testing.assert_close(s.forces, want.forces, rtol=1e-4,
+                                   atol=1e-4)
 
 
 def test_properties_survive_a_restart(tmp_path):

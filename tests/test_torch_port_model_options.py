@@ -2,8 +2,8 @@
 JAX package's column path: nuclear and electronic embeddings, shared
 interactions, PaiNN's shared filters (in both message forms, with the
 filter weights' gradient), trainable Gaussian bases with their centre and
-width gradients, and SO3net's vector representation; plus the layouts the
-port still refuses.
+width gradients, and SO3net's vector representation; plus the flat and
+dense inputs, which every representation runs.
 
 Inputs are made with numpy from fixed seeds and handed to both packages;
 the JAX package runs its XLA path (``IMPL="xla"``) on the CPU.  Every
@@ -38,6 +38,7 @@ from schnetpack_tpu_torch.representation import (
 )
 from test_torch_port_model import port_inputs
 from test_torch_port_so3net import _box, _jax_column_inputs
+from torch_port_cases import pair_layout_inputs
 
 CUTOFF = 5.0
 F_, T_, B_ = 16, 2, 8
@@ -253,8 +254,10 @@ def test_shared_filter_gradient_matches_jax(fuse):
 
 
 def test_options_build_and_other_layouts_raise():
-    """Every option of the JAX package's column path builds; the flat and
-    dense layouts still raise NotImplementedError."""
+    """Every option of the JAX package's column path builds; SchNet takes a
+    Bessel basis off the column layout and refuses it on the column path;
+    the flat and dense inputs of a molecule run every representation and
+    agree; inputs with no neighbor layout raise NotImplementedError."""
     for model in (SchNet, PaiNN):
         model(n_atom_basis=8, n_interactions=2, n_rbf=4,
               nuclear_embedding=True, electronic_embeddings=("charge",),
@@ -265,20 +268,23 @@ def test_options_build_and_other_layouts_raise():
     SO3net(n_atom_basis=8, n_interactions=2, n_rbf=4,
            shared_interactions=True, return_vector_representation=True,
            radial_basis=tnn.GaussianRBF(4, CUTOFF, trainable=True))
+    bessel = SchNet(n_atom_basis=8, n_interactions=1, n_rbf=4,
+                    radial_basis=tnn.BesselRBF(4, CUTOFF))
+    R, cell = _box(3, seed=1, jitter=0.3, stretch=1.1)
+    _, column = port_inputs(R, cell, CUTOFF + 0.6)
     with pytest.raises(NotImplementedError, match="GaussianRBF"):
-        SchNet(radial_basis=tnn.BesselRBF(4, CUTOFF))
+        bessel(column)
 
-    flat = {TP.R: torch.zeros(4, 3), TP.Z: torch.full((4,), 18),
-            TP.idx_i: torch.zeros(2, dtype=torch.int64),
-            TP.idx_j: torch.ones(2, dtype=torch.int64)}
-    dense = dict(flat, **{TP.nbh_rij: torch.zeros(4, 2, 3),
-                          TP.nbh_idx: torch.zeros(4, 2, dtype=torch.int64),
-                          TP.nbh_mask: torch.ones(4, 2)})
+    R = np.random.RandomState(3).rand(9, 3) * 4.0
+    layouts = pair_layout_inputs(R, CUTOFF)
     reps = [SchNet(n_atom_basis=8, n_interactions=1, n_rbf=4),
             PaiNN(n_atom_basis=8, n_interactions=1, n_rbf=4),
             SO3net(n_atom_basis=8, n_interactions=1, n_rbf=4),
-            FieldSchNet(n_atom_basis=8, n_interactions=1, n_rbf=4)]
+            FieldSchNet(n_atom_basis=8, n_interactions=1, n_rbf=4), bessel]
     for rep in reps:
-        for inputs in (flat, dense):
-            with pytest.raises(NotImplementedError, match="column"):
-                rep(dict(inputs))
+        flat, dense = (rep(PairwiseDistances()(dict(ins)))[
+            TP.scalar_representation] for ins in layouts)
+        assert torch.isfinite(flat).all()
+        torch.testing.assert_close(dense, flat, rtol=1e-5, atol=1e-6)
+        with pytest.raises(NotImplementedError, match="neighbor layout"):
+            rep({TP.R: torch.zeros(4, 3), TP.Z: torch.full((4,), 18)})

@@ -41,7 +41,7 @@ from schnetpack_tpu_torch.ops import so3
 from schnetpack_tpu_torch.ops.colblock import ColRefs, decode_j, source_order
 from schnetpack_tpu_torch.representation import SO3net
 from schnetpack_tpu_torch.units import _parse_unit, md_units
-from torch_port_cases import message_case
+from torch_port_cases import message_case, pair_layout_inputs
 from test_torch_port_model import ROOT, fcc_box, port_inputs
 
 ASSET = os.path.join(ROOT, "scripts", "assets", "bench_so3net_argon.msgpack")
@@ -350,12 +350,15 @@ def test_so3net_md_20_steps():
 def test_so3net_refuses_other_layouts():
     with pytest.raises(NotImplementedError, match="column layout"):
         port_so3net(F=8, T=1, B=4).representation({TP.R: torch.zeros(4, 3)})
-    # shared interactions are ported (one block); the dense layout raises
+    # shared interactions are ported (one block); the flat and dense
+    # layouts run and agree
     shared = SO3net(n_atom_basis=8, n_interactions=3, n_rbf=4,
                     shared_interactions=True)
     assert len(shared.convs) == 1
-    with pytest.raises(NotImplementedError):
-        shared({TP.R: torch.zeros(4, 3), TP.nbh_rij: torch.zeros(4, 2, 3)})
+    R = np.random.RandomState(4).rand(7, 3) * 3.0
+    out = [shared(PairwiseDistances()(ins))[TP.multipole_representation]
+           for ins in pair_layout_inputs(R, CUTOFF)]
+    torch.testing.assert_close(out[1], out[0], rtol=1e-5, atol=1e-6)
 
 
 def test_default_device_without_cuda_raises(monkeypatch):

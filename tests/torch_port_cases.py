@@ -241,3 +241,46 @@ def column_inputs(R, cell, build_cutoff, device="cpu"):
     inputs = {k: v.to(device) for k, v in inputs.items()}
     inputs[TP.cell_ksz] = tuple(lay.ksizes)
     return lay, inputs
+
+
+def pair_layout_inputs(R, cutoff, Z=None, n_neighbors=None):
+    """(flat inputs, dense inputs) of one molecule at positions ``R``
+    (float32, no cell): the pair list within ``cutoff`` from the port's
+    host neighbor list, and the [A, K] matrix of the same pairs (padded
+    slots point to the last atom with mask 0, as the MD neighbor list
+    pads) with its reverse map and the MD calculator's one-pair flat list
+    that carries no pair."""
+    from schnetpack_tpu_torch import properties as TP
+    from schnetpack_tpu_torch.ops.neighbor_gather import build_reverse_map
+    from schnetpack_tpu_torch.transform.neighborlist import neighbor_list
+
+    A = len(R)
+    i, j, _ = neighbor_list(R, cutoff)
+    base = {
+        TP.R: torch.tensor(R, dtype=torch.float32),
+        TP.Z: torch.tensor(np.full(A, 18) if Z is None else Z),
+        TP.idx_m: torch.zeros(A, dtype=torch.int64),
+        TP.atom_mask: torch.ones(A),
+        TP.n_atoms: torch.tensor([A]),
+    }
+    flat = dict(base, **{
+        TP.idx_i: torch.tensor(i), TP.idx_j: torch.tensor(j),
+        TP.offsets: torch.zeros(len(i), 3),
+        TP.pair_mask: torch.ones(len(i))})
+    counts = np.bincount(i, minlength=A)
+    K = n_neighbors or int(counts.max()) + 1
+    slots = np.arange(len(i)) - np.searchsorted(i, i)
+    nbh = np.full((A, K), A - 1, np.int64)
+    mask = np.zeros((A, K), np.float32)
+    nbh[i, slots] = j
+    mask[i, slots] = 1.0
+    dense = dict(base, **{
+        TP.nbh_idx: torch.tensor(nbh), TP.nbh_mask: torch.tensor(mask),
+        TP.nbh_offsets: torch.zeros(A, K, 3),
+        TP.nbh_rev: torch.tensor(build_reverse_map(
+            i, j, np.zeros((len(i), 3)), slots, A, K)),
+        TP.idx_i: torch.zeros(1, dtype=torch.int32),
+        TP.idx_j: torch.zeros(1, dtype=torch.int32),
+        TP.offsets: torch.full((1, 3), 1e3),
+        TP.pair_mask: torch.zeros(1)})
+    return flat, dense
