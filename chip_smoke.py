@@ -182,7 +182,33 @@ Phases (any failure exits non-zero before the last line is printed):
    with the calculator config as shipped (``neighbor_list: all_pairs``),
    Langevin at 30 K, 300 steps, 300 trajectory entries; ms/step of each
    run beside the card's name and power limit;
-11. print the kernel table (every row and sub-row with ``ms`` and
+11. training (``train_phase``), each part's launches counted from zero
+   (none may run: the flat and dense layouts launch no kernel, as the JAX
+   training step reaches no Pallas kernel): (a) PaiNN-128x3 with the
+   asset's weights on ``bench.py::train_bench``'s batch (100 molecules of
+   21 atoms, C9H8O4, ``RandomState(0)``; energy sum(R^2), forces -2R),
+   collated by the port on the flat and the dense layout, an energy (0.01)
+   and force (0.99) MSE loss, AdamW at lr 1e-4: the first loss within
+   1e-5 relative, the gradient of every parameter per leaf at phase 4's
+   rule and the losses before steps 2-4 within 1e-3 relative of
+   ``tests/data/port_ref_painn_train.npz`` (the JAX package's in float64,
+   written by ``scripts/make_port_reference_train.py``); (b) ms per train
+   step on both layouts (CUDA events, a warm-up, the median of 3 chunks of
+   20), the peak device memory, and 5 steps under ``torch.profiler``:
+   kernel time, launches, idle share, the kernels and the operations with
+   the most device time; (c) ``spktrain`` through ``cli.fit`` in a
+   temporary directory on a seeded synthetic aspirin trajectory of 1,000
+   frames (``write_aspirin_npz``; 900/50/50, batches of 100, 3 epochs),
+   ``experiment=md17`` (SchNet-128x3) and ``experiment=rmd17``
+   (PaiNN-128x3, on the rMD17 format of the same frames): the validation
+   loss falls from the first epoch to the last, the run directory is
+   complete, ``cli.load_model`` of it gives the trained model's energies
+   (at the best epoch's weights) within 1e-6 eV and forces within 1e-5
+   eV/A on a test batch, a rerun with one more epoch resumes from
+   ``last.ckpt``, ``spkpredict`` writes the test split's predictions;
+   then ``spkmd`` runs 100 NVE steps of one molecule from the PaiNN run
+   directory on ``all_pairs`` (finite; the drift printed);
+12. print the kernel table (every row and sub-row with ``ms`` and
    ``device_ms``, ``library_ms`` and ``library_device_ms``) and the card
    as JSON, then the result line.
 
@@ -362,6 +388,22 @@ NPT_ARGS = ["barostat.target_pressure=20000.0",
 #: clusters: a site of the bench lattice with its first four FCC shells
 #: (12 + 6 + 24 + 12 atoms within 7.9 A), 64 of them as molecules of one
 #: system, jittered by the fixtures' +-0.1 A
+#: phase 11, training
+TRAIN_REFERENCE = os.path.join(ROOT, "tests", "data",
+                               "port_ref_painn_train.npz")
+TRAIN_MOLECULES = 100            # bench.py::train_bench's batch
+TRAIN_LOSS_RTOL = 1e-5           # the first loss vs the JAX fixture
+TRAIN_STEP_LOSS_RTOL = 1e-3      # the losses before steps 2-4
+TRAIN_WARMUP, TRAIN_CHUNK, TRAIN_CHUNKS = 5, 20, 3
+TRAIN_PROFILE_STEPS = 5
+SPKTRAIN_FRAMES = 1000
+SPKTRAIN_SPLIT = (900, 50, 50)   # train, val, test frames
+SPKTRAIN_BATCH = 100
+SPKTRAIN_EPOCHS = 3
+KCAL_MOL = 0.0433641             # eV per kcal/mol
+SPKTRAIN_E_ATOL = 1e-6 / KCAL_MOL  # kcal/mol (1e-6 eV): load_model vs the
+SPKTRAIN_F_ATOL = 1e-5 / KCAL_MOL  # trained model; kcal/mol/Ang (1e-5 eV/A)
+SPKTRAIN_MD_STEPS = 100
 LAYOUT_PATHS = {"painn": "painn_cell", "schnet": "schnet",
                 "so3net": "so3net", "field_schnet": "field_schnet"}
 CELL_LAUNCHES = {"cell_gather_fwd": 1, "cell_gather_bwd": 1}
@@ -2562,6 +2604,354 @@ def layout_phase(seed, dev, launches, smi):
           flush=True)
 
 
+def train_samples():
+    """The molecules of ``bench.py::train_bench`` (``bench.py:100-112``):
+    ``TRAIN_MOLECULES`` blobs of 21 atoms (C9H8O4, positions ``randn *
+    1.5`` from ``RandomState(0)``, energy sum(R^2), forces -2R), neighbor-
+    listed at the cutoff by the port's transform."""
+    from schnetpack_tpu_torch import properties as P
+    from schnetpack_tpu_torch.transform import NeighborListTransform
+
+    rng = np.random.RandomState(0)
+    Z = np.array([6] * 9 + [1] * 8 + [8] * 4)
+    nbl = NeighborListTransform(CUTOFF)
+    out = []
+    for _ in range(TRAIN_MOLECULES):
+        R = rng.randn(len(Z), 3) * 1.5
+        out.append(nbl({P.Z: Z, P.R: R, P.cell: np.zeros((3, 3)),
+                        P.pbc: np.zeros(3, bool),
+                        P.energy: np.array([float((R ** 2).sum())]),
+                        P.forces: -2.0 * R}))
+    return out
+
+
+def train_task_and_batch(layout, dev):
+    """(task, numpy batch) of ``make_port_reference_train.py``'s step:
+    PaiNN-128x3 with the asset's weights on ``dev``, an energy (0.01) and
+    force (0.99) MSE loss, AdamW at lr 1e-4; the batch collated by the
+    port on the flat layout (``padding_for``) or the dense one (bench.py's
+    K: the largest neighbor count + 1, rounded up to 4)."""
+    from schnetpack_tpu_torch import properties as P
+    from schnetpack_tpu_torch.data import PaddingSpec, collate, padding_for
+    from schnetpack_tpu_torch.data.loader import round_up
+    from schnetpack_tpu_torch.train import AtomisticTask, ModelOutput
+
+    samples = train_samples()
+    spec = padding_for(samples)
+    if layout == "dense":
+        K = max(int(np.bincount(s[P.idx_i]).max()) for s in samples)
+        spec = PaddingSpec(spec.n_atoms, spec.n_pairs, spec.n_molecules,
+                           n_neighbors=round_up(K + 1, 4))
+    pot, params = layout_potential("painn")
+    pot.load_state_dict(params)
+    task = AtomisticTask(pot.to(dev), [
+        ModelOutput(P.energy, loss_weight=0.01),
+        ModelOutput(P.forces, loss_weight=0.99)], learning_rate=1e-4)
+    return task, collate(samples, spec)
+
+
+def train_parity_phase(dev, launches, smi):
+    """Phase 11a: the port's train step on the card against
+    ``TRAIN_REFERENCE`` on the flat and dense layouts: the first loss, the
+    gradient of every parameter (per leaf, ``grad_phase``'s rule) and the
+    losses before steps 2-4; no kernel launches."""
+    from schnetpack_tpu_torch.convert import params_to_jax
+    from schnetpack_tpu_torch.train import as_tensors
+
+    ref = np.load(TRAIN_REFERENCE)
+    for layout in ("flat", "dense"):
+        task, batch = train_task_and_batch(layout, dev)
+        batch = as_tensors(batch, dev)
+        state = task.create_state()
+        reset(launches)
+        loss, _, grads = task.gradients(state, batch)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in read_counts(launches).items() if v}
+        flat = {}
+
+        def walk(node, path):
+            for k, v in node.items():
+                if isinstance(v, dict):
+                    walk(v, f"{path}/{k}" if path else k)
+                else:
+                    flat[f"grad/{path}/{k}"] = np.asarray(v, np.float64)
+        walk(params_to_jax(task.model, grads), "")
+        assert set(flat) == {k for k in ref.files if k.startswith("grad/")}
+        norms = {k: float(np.linalg.norm(ref[k])) for k in flat}
+        floor = GRAD_FLOOR * max(norms.values())
+        errs = {k: float(np.linalg.norm(flat[k] - ref[k]))
+                / max(norms[k], floor) for k in flat}
+        worst = max(errs, key=errs.get)
+        losses = []
+        for _ in range(len(ref["loss"])):
+            state, m = task.train_step(state, batch)
+            losses.append(float(m["train_loss"][0]))
+        counts_steps = {k: v for k, v in read_counts(launches).items() if v}
+        dl = np.abs(np.asarray(losses) - ref["loss"]) / np.abs(ref["loss"])
+        print(f"train ({layout}): first loss {float(loss.detach()):.9e} (JAX "
+              f"{float(ref['loss'][0]):.9e}, rel err {dl[0]:.2e}), "
+              f"{len(flat)} gradient leaves, worst {worst} ||dg||/||g|| "
+              f"{errs[worst]:.3e}, losses before steps 2-4 rel err "
+              f"{', '.join(f'{d:.2e}' for d in dl[1:])}, launches "
+              f"{counts_steps}; {smi}", flush=True)
+        assert not counts and not counts_steps, (
+            f"train {layout} launched {counts} {counts_steps}")
+        assert np.isfinite(losses).all()
+        assert dl[0] <= TRAIN_LOSS_RTOL, f"{layout}: first loss {dl[0]}"
+        assert errs[worst] <= GRAD_RTOL, f"{layout}: {worst} {errs[worst]}"
+        assert dl[1:].max() <= TRAIN_STEP_LOSS_RTOL, f"{layout}: losses {dl}"
+        del task, batch, state, grads
+        torch.cuda.empty_cache()
+
+
+def train_time_phase(dev, smi):
+    """Phase 11b: ms per train step on the flat and dense layouts (CUDA
+    events around chunks of ``TRAIN_CHUNK`` steps after a warm-up; the
+    median chunk), the peak device memory, and ``TRAIN_PROFILE_STEPS``
+    steps under ``torch.profiler``: kernel time, idle share and the
+    operations with the most device time.  Returns ms/step by layout."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from schnetpack_tpu_torch.train import as_tensors
+
+    cuda = torch.autograd.DeviceType.CUDA
+    out = {}
+    for layout in ("flat", "dense"):
+        task, batch = train_task_and_batch(layout, dev)
+        batch = as_tensors(batch, dev)
+        state = task.create_state()
+        for _ in range(TRAIN_WARMUP):
+            state, _ = task.train_step(state, batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        chunks = []
+        for _ in range(TRAIN_CHUNKS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(TRAIN_CHUNK):
+                state, _ = task.train_step(state, batch)
+            end.record()
+            end.synchronize()
+            chunks.append(start.elapsed_time(end) / TRAIN_CHUNK)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(TRAIN_PROFILE_STEPS):
+                state, _ = task.train_step(state, batch)
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0) / TRAIN_PROFILE_STEPS
+        kernels = [e for e in prof.key_averages() if e.device_type == cuda]
+        busy = (sum(e.device_time_total for e in kernels) / 1e3
+                / TRAIN_PROFILE_STEPS)
+        n_launch = sum(e.count for e in kernels) / TRAIN_PROFILE_STEPS
+        top = sorted(kernels, key=lambda e: -e.device_time_total)[:8]
+        ops = sorted((e for e in prof.key_averages()
+                      if e.device_type != cuda and e.key.startswith("aten::")
+                      and e.device_time_total > 0),
+                     key=lambda e: -e.device_time_total)[:8]
+        ms = float(np.median(chunks))
+        out[layout] = ms
+        atoms = int(batch["_atom_mask"].sum())
+        print(f"train step ({layout}): {TRAIN_MOLECULES} molecules, {atoms} "
+              f"atoms, {int(batch['_pair_mask'].sum())} pairs; ms/step "
+              f"(CUDA events, median of {TRAIN_CHUNKS} chunks of "
+              f"{TRAIN_CHUNK}) {ms:.3f} (chunks "
+              f"{', '.join(f'{c:.3f}' for c in chunks)}), "
+              f"{TRAIN_MOLECULES / (ms * 1e-3):.4g} molecules/s, peak "
+              f"device memory {peak:.2f} GiB; {smi}", flush=True)
+        print(f"profile (train {layout}): {TRAIN_PROFILE_STEPS} steps under "
+              f"torch.profiler, wall {wall:.3f} ms/step, kernels "
+              f"{busy:.3f} ms/step in {n_launch:.0f} launches (idle share "
+              f"{max(0.0, 1 - busy / wall):.3f}); most device time: "
+              + "; ".join(f"{e.key[:60]} {e.device_time_total / 1e3 / TRAIN_PROFILE_STEPS:.3f}"
+                          for e in top)
+              + "; by operation: "
+              + "; ".join(f"{e.key} {e.device_time_total / 1e3 / TRAIN_PROFILE_STEPS:.3f}"
+                          for e in ops) + f"; {smi}", flush=True)
+        assert np.isfinite(chunks).all()
+        del task, batch, state, prof
+        torch.cuda.empty_cache()
+    return out
+
+
+def write_aspirin_npz(raw_dir, seed):
+    """A synthetic aspirin trajectory of ``SPKTRAIN_FRAMES`` frames in the
+    MD17 (sGDML: ``md17_aspirin.npz``) and the rMD17 (``rmd17_aspirin.npz``)
+    formats: C9H8O4 blobs as in ``train_samples``, each centred on its
+    centre of mass, energy sum(R^2) in kcal/mol and forces -2R."""
+    from schnetpack_tpu_torch.transform.atomistic import ATOMIC_MASSES
+
+    rng = np.random.RandomState(seed)
+    z = np.array([6] * 9 + [1] * 8 + [8] * 4)
+    m = ATOMIC_MASSES[z]
+    R = rng.randn(SPKTRAIN_FRAMES, len(z), 3) * 1.5
+    R -= (m[None, :, None] * R).sum(1, keepdims=True) / m.sum()
+    E, F = (R ** 2).sum((1, 2)), -2.0 * R
+    np.savez(os.path.join(raw_dir, "md17_aspirin.npz"), z=z, R=R, E=E, F=F)
+    np.savez(os.path.join(raw_dir, "rmd17_aspirin.npz"), nuclear_charges=z,
+             coords=R, energies=E, forces=F)
+
+
+def val_losses(run_dir):
+    """The validation loss of each epoch from the run's ``metrics.csv``."""
+    import csv
+
+    with open(os.path.join(run_dir, "metrics.csv")) as f:
+        return [float(r["val_loss"]) for r in csv.DictReader(f)
+                if r.get("val_loss") not in (None, "", "val_loss")]
+
+
+def spktrain_phase(seed, dev, launches, smi):
+    """Phase 11c: ``spktrain`` through the port's CLI at full width in a
+    temporary directory, ``experiment=md17`` (SchNet-128x3) and
+    ``experiment=rmd17`` (PaiNN-128x3; ``experiment=md17 model=painn``
+    swaps in a model config without ``Forces``), on
+    ``write_aspirin_npz``'s files; each
+    run: the validation loss falls from epoch 1 to the last, the run
+    directory is complete, a rerun with one more epoch resumes,
+    ``spkpredict`` writes predictions and ``cli.load_model`` of the run
+    directory gives the trained model's energies within
+    ``SPKTRAIN_E_ATOL``; then ``spkmd`` runs 100 NVE steps of one molecule
+    from the last run directory on ``all_pairs``."""
+    import shutil
+    import tempfile
+
+    from schnetpack_tpu_torch import cli
+    from schnetpack_tpu_torch import properties as P
+    from schnetpack_tpu_torch.datasets import write_extxyz
+    from schnetpack_tpu_torch.train import as_tensors, load_pytree
+
+    tmp = tempfile.mkdtemp(prefix="spktrain_")
+    try:
+        raw = os.path.join(tmp, "raw")
+        os.makedirs(raw)
+        write_aspirin_npz(raw, seed + 13)
+        common = [f"run.path={tmp}/runs", f"run.data_dir={tmp}/data",
+                  f"data.raw_dir={raw}",
+                  f"data.num_train={SPKTRAIN_SPLIT[0]}",
+                  f"data.num_val={SPKTRAIN_SPLIT[1]}",
+                  f"data.num_test={SPKTRAIN_SPLIT[2]}",
+                  f"data.batch_size={SPKTRAIN_BATCH}",
+                  "trainer.progress=false", f"device={dev}",
+                  f"globals.seed={seed}", "print_config=false"]
+        for name, experiment in (("schnet", "md17"), ("painn", "rmd17")):
+            argv = [f"experiment={experiment}", f"run.id={name}"] + common
+            cfg = cli.default_composer().compose("train", argv + [
+                f"trainer.max_epochs={SPKTRAIN_EPOCHS}"])
+            reset(launches)
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            metrics, task, state, dm = cli.fit(cfg)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = {k: v for k, v in read_counts(launches).items() if v}
+            run = os.path.join(tmp, "runs", name)
+            losses = val_losses(run)
+            files = ["config.yaml", "best_model", "model_config.pkl",
+                     "metrics.csv", "checkpoints/last.ckpt",
+                     "checkpoints/best.ckpt"]
+            missing = [f for f in files
+                       if not os.path.exists(os.path.join(run, f))]
+            rep = task.model.representation
+            # the trained model in memory against the run directory, at the
+            # best epoch's weights (best_model is written at the best
+            # validation loss; the last epoch's where that is the best)
+            last_is_best = min(losses) == losses[-1]
+            if not last_is_best:
+                state.load_state_dict(torch.load(os.path.join(
+                    run, "checkpoints", "best.ckpt"),
+                    weights_only=False)["state"])
+            batch = as_tensors(next(iter(dm.test_dataloader())), dev)
+            M = int(batch[P.mol_mask].sum())
+            with torch.no_grad():
+                mine = task.model(batch)
+                loaded, _ = cli.load_model(run, dev)
+                theirs = loaded(batch)
+            dE = float((mine[P.energy] - theirs[P.energy])[:M].abs().max())
+            assert {P.energy, P.forces} <= set(task.model.model_outputs)
+            dF = float((mine[P.forces] - theirs[P.forces]).abs().max())
+            print(f"spktrain ({name}, {type(rep).__name__}-"
+                  f"{rep.n_atom_basis}x{rep.n_interactions}): "
+                  f"{SPKTRAIN_EPOCHS} epochs of {len(dm.train_idx)} frames "
+                  f"in {state.step} steps, {wall:.1f} s "
+                  f"({1e3 * wall / state.step:.1f} ms/step with validation "
+                  f"and checkpoints), val loss by epoch "
+                  f"{', '.join(f'{v:.6g}' for v in losses)}, test "
+                  f"{', '.join(f'{k} {v:.6g}' for k, v in metrics.items())}"
+                  f", load_model (at the "
+                  f"{'last' if last_is_best else 'best'} epoch's weights) "
+                  f"max |dE| {dE:.3e} kcal/mol, max |dF| "
+                  f"{dF:.3e}, peak device memory "
+                  f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, "
+                  f"launches {counts}; {smi}", flush=True)
+            assert not missing, f"{name}: run directory lacks {missing}"
+            assert len(losses) == SPKTRAIN_EPOCHS and losses[-1] < losses[0], (
+                f"{name}: val losses {losses}")
+            assert all(np.isfinite(v) for v in metrics.values())
+            assert dE <= SPKTRAIN_E_ATOL and dF <= SPKTRAIN_F_ATOL, (
+                f"{name}: load_model dE {dE} dF {dF}")
+            assert not counts, f"{name}: launched {counts}"
+            del task, state, loaded, mine, theirs
+            # resume: one more epoch from checkpoints/last.ckpt
+            cfg = cli.default_composer().compose("train", argv + [
+                f"trainer.max_epochs={SPKTRAIN_EPOCHS + 1}"])
+            _, _, state, _ = cli.fit(cfg)
+            ckpt = torch.load(os.path.join(run, "checkpoints", "last.ckpt"),
+                              weights_only=False)
+            steps_per_epoch = len(dm.train_dataloader())
+            print(f"spktrain ({name}): resumed to epoch {ckpt['epoch']}, "
+                  f"step {state.step}, val losses "
+                  f"{', '.join(f'{v:.6g}' for v in val_losses(run))}",
+                  flush=True)
+            assert ckpt["epoch"] == SPKTRAIN_EPOCHS + 1
+            assert state.step == (SPKTRAIN_EPOCHS + 1) * steps_per_epoch
+            pred = cli.main(["predict", f"model_dir={run}", f"device={dev}"])
+            n_pred = len(os.listdir(pred))
+            first = load_pytree(os.path.join(pred, "batch_0.pkl"))
+            assert n_pred == -(-SPKTRAIN_SPLIT[2] // SPKTRAIN_BATCH), n_pred
+            assert np.isfinite(first[P.energy]).all()
+            assert first[P.forces].shape[1] == 3
+        # train -> MD: spkmd with the run directory
+        xyz = os.path.join(tmp, "aspirin.xyz")
+        with np.load(os.path.join(raw, "md17_aspirin.npz")) as f:
+            write_extxyz(xyz, [{"numbers": f["z"], "positions": f["R"][0]}])
+        sim, counts, _ = spkmd_run("spkmd_trained", [
+            f"system.molecule_file={xyz}", f"calculator.model_dir={run}",
+            "calculator.energy_unit=kcal/mol", "dynamics=nve",
+            "system.initializer.temperature=300",
+            f"dynamics.n_steps={SPKTRAIN_MD_STEPS}", "callbacks=hdf5",
+            f"device={dev}", f"seed={seed}",
+            f"simulation_dir={tmp}/sim"], launches, smi)
+        E = np.concatenate([lg["energy"] + lg["kinetic_energy"]
+                            for lg in sim.logs]).sum(axis=(1, 2))
+        E = E / sim.calculator.energy_conversion
+        print(f"spkmd (spkmd_trained): {SPKTRAIN_MD_STEPS} NVE steps of one "
+              f"molecule with the PaiNN run directory, max |E_tot - "
+              f"E_tot(0)| {float(np.abs(E - E[0]).max()):.3e} kcal/mol, "
+              f"launches {({k: v for k, v in counts.items() if v})}; {smi}",
+              flush=True)
+        assert sim.n_simulated == SPKTRAIN_MD_STEPS
+        assert torch.isfinite(sim.system.positions).all()
+        assert np.isfinite(E).all()
+        check_launches("spkmd_trained", counts, {}, 1)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def train_phase(seed, dev, launches, smi):
+    """Phase 11, training (see the module's docstring)."""
+    t0 = time.perf_counter()
+    train_parity_phase(dev, launches, smi)
+    ms = train_time_phase(dev, smi)
+    spktrain_phase(seed, dev, launches, smi)
+    print("train ms/step: " + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+          + f"; phase 11 took {time.perf_counter() - t0:.1f} s; {smi}",
+          flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -2660,6 +3050,7 @@ def main():
                             smi).items():
         total[k] = total.get(k, 0) + v
     layout_phase(args.seed, dev, launches, smi)
+    train_phase(args.seed, dev, launches, smi)
     for row in rows:
         row["launches"] = total[row["name"]]
         assert row["launches"] > 0, f"{row['name']} never ran in the MD"

@@ -3,7 +3,8 @@
 The JAX package ``schnetpack_tpu`` is the reference; this package mirrors
 its module paths and runs the PaiNN column-layout MD path on an NVIDIA
 Hopper GPU through hand-written CUDA kernels (``csrc/``), with plain
-PyTorch twins of every kernel for CPU tensors.  It imports neither jax nor
+PyTorch twins of every kernel for CPU tensors; the flat and dense layouts,
+and training on them, are plain PyTorch.  It imports neither jax nor
 schnetpack_tpu.
 
 Precision is f32 throughout: TF32 is switched off for matmuls and cuDNN.

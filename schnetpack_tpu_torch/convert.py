@@ -7,9 +7,11 @@ alone.  ``params_from_jax`` maps that flax tree to a ``state_dict`` of
 ``NeuralNetworkPotential(PaiNN, [Atomwise, Forces])``:
 
 * flax ``Dense`` kernels are [in, out]; ``nn.Linear.weight`` is [out, in];
-* ``filter_net`` [B, T*3F] becomes ``FW_aug`` [T, B+1, 3F], built as
-  ``painn.py:403-416`` builds it: the bias row is filter_net(0) and
-  FWm = filter_net(I) - bias;
+* ``filter_net`` [B, T*3F] becomes ``FW_aug`` [T, B+1, 3F], laid out as
+  ``painn.py:403-416`` lays it out: the kernel's B rows and then the bias
+  row (``painn.py`` computes the rows as filter_net(I) - bias, equal to
+  the kernel up to the last bit; the kernel itself keeps the map exact
+  both ways);
 * ``mixing_t/{channel_mix, intra_0, intra_1}`` map to kmix [F, 2F],
   k0 [2F, F], b0, k1 [F, 3F], b1 unchanged (the kernels' layout);
 * a trainable basis's ``radial_basis/{centers, widths}`` map to
@@ -41,6 +43,11 @@ filter_electric_field_1``, ``nmm_embedding/gyromagnetic`` ->
 ``embedding`` and the ``charge_embedding`` / ``spin_embedding`` trees
 (``query``, ``k_plus``, ``resmlp/residual_0/dense_0``, ...) map by name
 too.
+
+``params_to_jax`` is the inverse: the flax tree (``{"params": ...}``, numpy
+float32) of a port potential's parameters, or of any tensors named as its
+parameters (gradients, an EMA copy), so that a port-trained run directory
+holds the JAX package's ``best_model``.
 """
 from __future__ import annotations
 
@@ -114,17 +121,15 @@ def _tree(prefix: str, node: dict, out: Dict[str, np.ndarray]) -> None:
 
 def _painn_filters(rep: dict, out: Dict[str, np.ndarray]) -> None:
     """``filter_net`` [B, T*3F] (one [B, 3F] slice with shared filters) ->
-    ``FW_aug`` [T, B+1, 3F]."""
-    kern = np.asarray(rep["filter_net"]["linear"]["kernel"], np.float32)
+    ``FW_aug`` [T, B+1, 3F], the kernel's rows and then the bias."""
+    FWm = np.asarray(rep["filter_net"]["linear"]["kernel"], np.float32)
     bias = np.asarray(rep["filter_net"]["linear"]["bias"], np.float32)
-    B = kern.shape[0]
-    FWm = (np.eye(B, dtype=np.float32) @ kern + bias) - bias
     mix = next(v for k, v in rep.items() if k.startswith("mixing_"))
     F3 = 3 * mix["intra_0"]["linear"]["bias"].shape[0]
     out["representation.FW_aug"] = np.stack([
         np.concatenate([FWm[:, t * F3:(t + 1) * F3],
                         bias[None, t * F3:(t + 1) * F3]], axis=0)
-        for t in range(kern.shape[1] // F3)])
+        for t in range(FWm.shape[1] // F3)])
 
 
 def _painn_mixing(prefix: str, mix: dict, out: Dict[str, np.ndarray]) -> None:
@@ -154,5 +159,72 @@ def params_from_jax(tree: dict) -> Dict[str, torch.Tensor]:
     for name, node in p.items():
         if name.startswith("output_modules_"):
             _tree(f"output_modules.{name.split('_')[-1]}", node, out)
-    return {k: torch.as_tensor(np.ascontiguousarray(v, np.float32))
-            for k, v in out.items()}
+    return {k: torch.tensor(np.asarray(v, np.float32)) for k, v in out.items()}
+
+
+#: the port's module lists -> the flax names of their blocks
+_FLAX_LISTS = {v: k for k, v in _LISTS.items()}
+
+
+def _jax_path(prefix: str, shared: bool):
+    """The flax module path of a port module path (``representation.
+    interactions.2`` -> representation/interaction_2; ``output_modules.0.
+    outnet`` -> output_modules_0/outnet)."""
+    parts = prefix.split(".")
+    if parts[0] == "output_modules":
+        return [f"output_modules_{parts[1]}"] + parts[2:]
+    if (parts[0] == "representation" and len(parts) > 2
+            and parts[1] in _FLAX_LISTS and parts[2].isdigit()):
+        t = "shared" if shared else parts[2]
+        return [parts[0], f"{_FLAX_LISTS[parts[1]]}_{t}"] + parts[3:]
+    return parts
+
+
+def _put(tree: dict, path, value) -> None:
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value
+
+
+def params_to_jax(model, tensors: Optional[Dict[str, torch.Tensor]] = None
+                  ) -> dict:
+    """``{"params": tree}``, the flax tree of ``model``'s parameters (or of
+    ``tensors``, named as they are), inverting ``params_from_jax``:
+    ``nn.Linear`` weights transposed into ``linear/kernel``, embedding
+    tables to ``embedding``, PaiNN's ``FW_aug`` [T, B+1, 3F] into
+    ``filter_net`` and its mixing parameters into ``channel_mix``,
+    ``intra_0`` and ``intra_1``; a representation built with
+    ``shared_interactions`` names its blocks ``*_shared``."""
+    from torch import nn as tnn
+
+    if tensors is None:
+        tensors = dict(model.named_parameters())
+    modules = dict(model.named_modules())
+    shared = getattr(model.representation, "shared_interactions", False)
+    tree: dict = {}
+    for name, value in tensors.items():
+        v = np.ascontiguousarray(value.detach().cpu().numpy(), np.float32)
+        prefix, leaf = name.rsplit(".", 1)
+        path = _jax_path(prefix, shared)
+        mod = modules[prefix]
+        if leaf == "FW_aug":
+            B = v.shape[1] - 1
+            _put(tree, path + ["filter_net", "linear"], {
+                "kernel": np.concatenate(list(v[:, :B]), axis=1),
+                "bias": np.concatenate(list(v[:, B]), axis=0)})
+        elif leaf in ("kmix", "k0", "b0", "k1", "b1"):
+            dense, key = {"kmix": ("channel_mix", "kernel"),
+                          "k0": ("intra_0", "kernel"),
+                          "b0": ("intra_0", "bias"),
+                          "k1": ("intra_1", "kernel"),
+                          "b1": ("intra_1", "bias")}[leaf]
+            _put(tree, path + [dense, "linear", key], v)
+        elif isinstance(mod, tnn.Linear):
+            _put(tree, path + ["linear", "kernel" if leaf == "weight"
+                               else "bias"],
+                 v.T.copy() if leaf == "weight" else v)
+        elif isinstance(mod, tnn.Embedding):
+            _put(tree, path + ["embedding"], v)
+        else:
+            _put(tree, path + [leaf], v)
+    return {"params": tree}

@@ -181,6 +181,8 @@ class PaiNN(nn.Module):
                  electronic_embeddings: tuple = (),
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        #: one interaction block for all (flax ``*_shared``)
+        self.shared_interactions = shared_interactions
         if fuse not in ("hybrid", "full"):
             raise ValueError(f"fuse must be 'hybrid' or 'full', got {fuse!r}")
         F = n_atom_basis

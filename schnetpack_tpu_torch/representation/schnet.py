@@ -106,6 +106,8 @@ class SchNet(nn.Module):
                  electronic_embeddings: tuple = (),
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        #: one interaction block for all (flax ``*_shared``)
+        self.shared_interactions = shared_interactions
         F = n_atom_basis
         self.radial_basis = (GaussianRBF(n_rbf, cutoff) if radial_basis is None
                              else radial_basis)

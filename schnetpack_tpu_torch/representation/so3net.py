@@ -51,6 +51,8 @@ class SO3net(nn.Module):
                  radial_basis: Optional[nn.Module] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        #: one interaction block for all (flax ``*_shared``)
+        self.shared_interactions = shared_interactions
         F = n_atom_basis
         self.n_atom_basis = F
         self.n_interactions = n_interactions

@@ -1,6 +1,21 @@
-"""Standard atomic masses in Dalton, indexed by atomic number (the table of
-``schnetpack_tpu/transform/atomistic.py``)."""
+"""Atomistic pre- and post-processing transforms and the mass table (port
+of ``schnetpack_tpu/transform/atomistic.py``).
+
+``SubtractCenterOfMass``, ``SubtractCenterOfGeometry``, ``RemoveOffsets``
+and ``ScaleProperty`` act on one sample's numpy dict in the data
+pipeline; ``AddOffsets`` is a postprocessor over the padded batch's
+tensors.  ``ATOMIC_MASSES`` holds the standard atomic masses in Dalton,
+indexed by atomic number.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
 import numpy as np
+import torch
+
+from .. import properties
+from .base import Transform
 
 ATOMIC_MASSES = np.array([
     0.0, 1.008, 4.0026, 6.94, 9.0122, 10.81, 12.011, 14.007, 15.999, 18.998,
@@ -16,3 +31,124 @@ ATOMIC_MASSES = np.array([
     238.03, 237.0, 244.0, 243.0, 247.0, 247.0, 251.0, 252.0, 257.0, 258.0,
     259.0, 262.0,
 ])
+
+
+class SubtractCenterOfMass(Transform):
+    is_preprocessor = True
+
+    def __call__(self, inputs):
+        m = ATOMIC_MASSES[np.asarray(inputs[properties.Z])]
+        R = np.asarray(inputs[properties.R], dtype=np.float64)
+        com = (m[:, None] * R).sum(0) / m.sum()
+        inputs[properties.R] = R - com
+        return inputs
+
+
+class SubtractCenterOfGeometry(Transform):
+    is_preprocessor = True
+
+    def __call__(self, inputs):
+        R = np.asarray(inputs[properties.R], dtype=np.float64)
+        inputs[properties.R] = R - R.mean(0)
+        return inputs
+
+
+class RemoveOffsets(Transform):
+    """Subtract single-atom reference energies and/or the training set's
+    mean from a target property (``atomistic.py:56-95``)."""
+
+    is_preprocessor = True
+
+    def __init__(self, property: str, remove_mean: bool = False,
+                 remove_atomrefs: bool = False, is_extensive: bool = True,
+                 atomrefs: Optional[np.ndarray] = None,
+                 property_mean: Optional[float] = None):
+        self._property = property
+        self.remove_mean = remove_mean
+        self.remove_atomrefs = remove_atomrefs
+        self.is_extensive = is_extensive
+        self.atomrefs = (np.asarray(atomrefs, dtype=np.float64)
+                         if atomrefs is not None else None)
+        self.mean = property_mean
+
+    def datamodule(self, dm) -> None:
+        if self.remove_atomrefs and self.atomrefs is None:
+            self.atomrefs = np.asarray(
+                dm.train_dataset.atomrefs[self._property], dtype=np.float64)
+        if self.remove_mean and self.mean is None:
+            stats = dm.get_stats(self._property, self.is_extensive,
+                                 self.remove_atomrefs)
+            self.mean = float(stats[0])
+
+    def __call__(self, inputs):
+        v = np.asarray(inputs[self._property], dtype=np.float64)
+        Z = np.asarray(inputs[properties.Z])
+        if self.remove_atomrefs:
+            v = v - self.atomrefs[Z].sum()
+        if self.remove_mean:
+            v = v - self.mean * (len(Z) if self.is_extensive else 1.0)
+        inputs[self._property] = v
+        return inputs
+
+
+class AddOffsets(Transform):
+    """Inverse of ``RemoveOffsets`` as a postprocessor over the padded
+    batch's tensors (``atomistic.py:98-152``)."""
+
+    is_preprocessor = False
+    is_postprocessor = True
+
+    def __init__(self, property: str, add_mean: bool = False,
+                 add_atomrefs: bool = False, is_extensive: bool = True,
+                 atomrefs: Optional[np.ndarray] = None,
+                 property_mean: Optional[float] = None):
+        self._property = property
+        self.add_mean = add_mean
+        self.add_atomrefs = add_atomrefs
+        self.is_extensive = is_extensive
+        self.atomrefs = (np.asarray(atomrefs, dtype=np.float64)
+                         if atomrefs is not None else None)
+        self.mean = property_mean
+
+    def datamodule(self, dm) -> None:
+        if self.add_atomrefs and self.atomrefs is None:
+            self.atomrefs = np.asarray(
+                dm.train_dataset.atomrefs[self._property], dtype=np.float64)
+        if self.add_mean and self.mean is None:
+            stats = dm.get_stats(self._property, self.is_extensive,
+                                 self.add_atomrefs)
+            self.mean = float(stats[0])
+
+    def __call__(self, inputs):
+        from ..ops.scatter import segment_sum
+
+        v = inputs[self._property]
+        if self.add_atomrefs:
+            M = inputs[properties.n_atoms].shape[0]
+            refs = torch.as_tensor(self.atomrefs, dtype=v.dtype,
+                                   device=v.device)
+            e0 = (refs[inputs[properties.Z].long()]
+                  * inputs[properties.atom_mask].to(v.dtype))
+            v = v + segment_sum(e0, inputs[properties.idx_m], M)
+        if self.add_mean:
+            n = (inputs[properties.n_atoms].to(v.dtype)
+                 if self.is_extensive else 1.0)
+            v = v + self.mean * n * inputs.get(properties.mol_mask, 1.0)
+        inputs[self._property] = v
+        return inputs
+
+
+class ScaleProperty(Transform):
+    """Scale a property by a factor (``atomistic.py:155-167``)."""
+
+    is_preprocessor = True
+
+    def __init__(self, input_key: str, target_key: Optional[str] = None,
+                 scale: float = 1.0):
+        self.input_key = input_key
+        self.target_key = target_key or input_key
+        self.scale = scale
+
+    def __call__(self, inputs):
+        inputs[self.target_key] = np.asarray(inputs[self.input_key]) * self.scale
+        return inputs

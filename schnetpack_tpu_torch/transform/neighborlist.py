@@ -1,20 +1,54 @@
-"""Host neighbor lists (numpy).
+"""Host neighbor lists (numpy) and the neighbor-list transforms of the
+data pipeline (port of ``schnetpack_tpu/transform/neighborlist.py``).
 
-``neighbor_list`` is the O(N^2) brute force of
-``schnetpack_tpu/transform/neighborlist.py:39-91`` (a test oracle);
-``cell_list_neighbor_list`` is the O(N) linked-cell list that the column
-layout builder calls, vectorised over the 27 cell offsets.  Both return
-``(idx_i, idx_j, S)`` with ``Rij = R[j] + S @ cell - R[i]`` and
-``|Rij| < cutoff``, sorted by (i, j, S).
+``neighbor_list`` is the O(N^2) brute force of ``neighborlist.py:39-91``;
+``cell_list_neighbor_list`` is the O(N) linked-cell list from which
+``ops/cellblock.py`` builds the column layout, vectorised over the 27 cell
+offsets (it stands in for the JAX package's native C++ cell list).  Both return ``(idx_i, idx_j,
+S)`` with ``Rij = R[j] + S @ cell - R[i]`` and ``|Rij| < cutoff``, sorted
+by (i, j, S).
+
+The transforms add ``_idx_i``, ``_idx_j`` and Cartesian ``_offsets`` to a
+sample.  The ASE, matscipy and vesin backends use their library where it
+is importable and else fall back as the JAX package does: ASE to the brute
+force, matscipy and vesin to the cell list.
 """
 from __future__ import annotations
 
+import importlib
 import itertools
-from typing import Optional, Tuple
+import os
+import shutil
+import warnings
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
+from .. import properties
+from .base import Transform
+
 Edges = Tuple[np.ndarray, np.ndarray, np.ndarray]
+
+#: optional backends found missing: a failed import is not cached by
+#: Python, and the data pipeline asks once per molecule
+_MISSING = set()
+
+
+def _optional(module: str, name: str):
+    """``module.name``, or None where the module is not installed."""
+    if module in _MISSING:
+        return None
+    try:
+        return getattr(importlib.import_module(module), name)
+    except ImportError:
+        _MISSING.add(module)
+        return None
+
+
+#: up to this many atoms a molecule (no periodic axis) takes the brute
+#: force: one [n, n] block in place of 27 cell passes, a host cost that
+#: the data pipeline pays for every molecule of every batch (PERF.md)
+SMALL_MOLECULE = 512
 
 
 def _sorted(ii, jj, S) -> Edges:
@@ -63,7 +97,8 @@ def cell_list_neighbor_list(positions: np.ndarray, cutoff: float,
     """Linked-cell neighbor list, O(N) for a fixed density.
 
     Atoms are binned into cells no narrower than ``cutoff`` (periodic axes
-    need at least 3 of them; smaller boxes use the brute force).  For each
+    need at least 3 of them; smaller boxes, and molecules of up to
+    ``SMALL_MOLECULE`` atoms, use the brute force).  For each
     of the 27 cell offsets every atom of a cell is paired with every atom
     of the offset cell at once, on a [cells, C, C] block padded to the
     largest occupancy C.
@@ -74,6 +109,9 @@ def cell_list_neighbor_list(positions: np.ndarray, cutoff: float,
         return _empty()
     periodic = (cell is not None and pbc is not None
                 and np.asarray(pbc).any())
+    if not periodic and n <= SMALL_MOLECULE:
+        # the same pairs and arithmetic at a twentieth of the cost
+        return neighbor_list(R, cutoff)
     pbc_arr = np.asarray(pbc, bool) if periodic else np.zeros(3, bool)
     if periodic:
         basis = np.asarray(cell, np.float64)
@@ -137,3 +175,256 @@ def cell_list_neighbor_list(positions: np.ndarray, cutoff: float,
         out.append((i, j, S))
     ii, jj, S = (np.concatenate(a) for a in zip(*out))
     return _sorted(ii, jj, np.rint(S).astype(np.int64))
+
+
+class NeighborListTransform(Transform):
+    """Adds ``_idx_i``, ``_idx_j`` and Cartesian ``_offsets`` to a sample;
+    with ``long_range_cutoff`` > 0 the full list goes to the ``_lr`` keys
+    and the short one keeps the pairs within ``cutoff``
+    (``neighborlist.py:110-152``)."""
+
+    is_preprocessor = True
+
+    def __init__(self, cutoff: float, long_range_cutoff: float = -1.0,
+                 backend: str = "auto"):
+        self.cutoff = float(cutoff)
+        self.long_range_cutoff = float(long_range_cutoff)
+        self.backend = backend
+        if 0 < self.long_range_cutoff < self.cutoff:
+            raise ValueError("long_range_cutoff must be >= cutoff")
+
+    def _build(self, R, cutoff, cell, pbc) -> Edges:
+        if self.backend == "brute":
+            return neighbor_list(R, cutoff, cell, pbc)
+        return cell_list_neighbor_list(R, cutoff, cell, pbc)
+
+    def __call__(self, inputs: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        R = np.asarray(inputs[properties.R])
+        cell = inputs.get(properties.cell)
+        pbc = inputs.get(properties.pbc)
+        idx_i, idx_j, S = self._build(
+            R, max(self.cutoff, self.long_range_cutoff), cell, pbc)
+        if cell is not None and np.asarray(pbc).any():
+            offsets = S.astype(np.float64) @ np.asarray(cell, np.float64)
+        else:
+            offsets = np.zeros((len(idx_i), 3), dtype=np.float64)
+        if self.long_range_cutoff > 0:
+            short = np.linalg.norm(R[idx_j] + offsets - R[idx_i],
+                                   axis=1) < self.cutoff
+            inputs[properties.idx_i_lr] = idx_i
+            inputs[properties.idx_j_lr] = idx_j
+            inputs[properties.offsets_lr] = offsets
+            idx_i, idx_j, offsets = idx_i[short], idx_j[short], offsets[short]
+        inputs[properties.idx_i] = idx_i
+        inputs[properties.idx_j] = idx_j
+        inputs[properties.offsets] = offsets
+        return inputs
+
+
+class ASENeighborList(NeighborListTransform):
+    """``ase.neighborlist`` when ase is importable, else the brute force."""
+
+    def _build(self, R, cutoff, cell, pbc) -> Edges:
+        primitive_neighbor_list = _optional("ase.neighborlist",
+                                            "primitive_neighbor_list")
+        if primitive_neighbor_list is None:
+            return neighbor_list(R, cutoff, cell, pbc)
+        c = np.zeros((3, 3)) if cell is None else np.asarray(cell)
+        p = np.zeros(3, bool) if pbc is None else np.asarray(pbc, bool)
+        if not p.any() and np.allclose(c, 0):
+            c = np.eye(3) * (2 * cutoff + np.ptp(R, axis=0).max() + 1.0)
+        i, j, S = primitive_neighbor_list("ijS", p, c, R, cutoff,
+                                          self_interaction=False)
+        return _sorted(i, j, S)
+
+
+class MatScipyNeighborList(NeighborListTransform):
+    """matscipy when it is importable, else the cell list."""
+
+    def _build(self, R, cutoff, cell, pbc) -> Edges:
+        neighbour_list = _optional("matscipy.neighbours", "neighbour_list")
+        if neighbour_list is None:
+            return cell_list_neighbor_list(R, cutoff, cell, pbc)
+        p = np.zeros(3, bool) if pbc is None else np.asarray(pbc, bool)
+        if cell is None or not p.any():
+            c = np.diag(R.max(0) - R.min(0) + 2 * cutoff + 1.0)
+        else:
+            c = np.asarray(cell)
+        i, j, S = neighbour_list("ijS", positions=R, cutoff=cutoff, cell=c,
+                                 pbc=p)
+        return _sorted(i, j, S)
+
+
+#: the reference's device-tensor backend; here the cell list serves
+TorchNeighborList = NeighborListTransform
+
+
+class VesinNeighborList(NeighborListTransform):
+    """vesin when it is importable, else the cell list; mixed periodicity,
+    which vesin lacks, falls back to the cell list with one warning
+    (``neighborlist.py:200-243``)."""
+
+    _warned_fallback = False
+
+    def _build(self, R, cutoff, cell, pbc) -> Edges:
+        VesinNL = _optional("vesin", "NeighborList")
+        if VesinNL is None:
+            return cell_list_neighbor_list(R, cutoff, cell, pbc)
+        p = np.zeros(3, bool) if pbc is None else np.asarray(pbc, bool)
+        c = np.zeros((3, 3)) if cell is None else np.asarray(cell, float)
+        if not p.any():
+            c = np.diag(R.max(0) - R.min(0) + 2 * cutoff + 1.0)
+        elif not p.all():
+            if not VesinNeighborList._warned_fallback:
+                warnings.warn(
+                    "vesin does not support mixed periodic boundary "
+                    "conditions; falling back to the cell list for this "
+                    "structure", stacklevel=2)
+                VesinNeighborList._warned_fallback = True
+            return cell_list_neighbor_list(R, cutoff, cell, pbc)
+        i, j, S = VesinNL(cutoff=float(cutoff), full_list=True).compute(
+            points=np.ascontiguousarray(R, float),
+            box=np.ascontiguousarray(c, float), periodic=bool(p.any()),
+            quantities="ijS")
+        return _sorted(i, j, S)
+
+
+class SkinNeighborList(Transform):
+    """Verlet-skin wrapper: rebuilds only when an atom moved more than
+    skin/2 since the last build (``neighborlist.py:246-276``)."""
+
+    is_preprocessor = True
+
+    def __init__(self, base: NeighborListTransform, skin: float = 0.3):
+        self.base = base
+        self.skin = float(skin)
+        self.base.cutoff += skin
+        self._last_positions = None
+        self._cache = None
+
+    def __call__(self, inputs):
+        R = np.asarray(inputs[properties.R])
+        rebuild = (
+            self._cache is None
+            or self._last_positions.shape != R.shape
+            or np.max(np.sum((R - self._last_positions) ** 2, axis=1))
+            > (self.skin / 2.0) ** 2)
+        if rebuild:
+            out = self.base(dict(inputs))
+            self._cache = {k: out[k] for k in (
+                properties.idx_i, properties.idx_j, properties.offsets)}
+            self._last_positions = R.copy()
+        inputs.update(self._cache)
+        return inputs
+
+
+class FilterNeighbors(Transform):
+    """Keeps the pairs whose two atoms are both in ``selected_atoms``."""
+
+    is_preprocessor = True
+
+    def __init__(self, selected_atoms):
+        self.selected = np.asarray(selected_atoms)
+
+    def __call__(self, inputs):
+        keep = (np.isin(inputs[properties.idx_i], self.selected)
+                & np.isin(inputs[properties.idx_j], self.selected))
+        for k in (properties.idx_i, properties.idx_j, properties.offsets):
+            inputs[k] = inputs[k][keep]
+        return inputs
+
+
+class CollectAtomTriples(Transform):
+    """Triples (i, j, k): every unordered pair of the neighbor pairs of one
+    center, as indices into the pair list (``neighborlist.py:297-322``)."""
+
+    is_preprocessor = True
+
+    def __call__(self, inputs):
+        idx_i = np.asarray(inputs[properties.idx_i])
+        _, counts = np.unique(idx_i, return_counts=True)
+        tj, tk = [np.zeros(0, np.int64)], [np.zeros(0, np.int64)]
+        off = 0
+        for c in counts:
+            pj, pk = np.triu_indices(c, k=1)
+            tj.append(pj + off)
+            tk.append(pk + off)
+            off += c
+        pair_j, pair_k = np.concatenate(tj), np.concatenate(tk)
+        inputs[properties.idx_i_triples] = (idx_i[pair_j] if len(idx_i)
+                                            else np.zeros(0, np.int64))
+        inputs[properties.idx_j_triples] = pair_j
+        inputs[properties.idx_k_triples] = pair_k
+        return inputs
+
+
+class CountNeighbors(Transform):
+    """Adds each atom's number of neighbors (``_n_nbh``)."""
+
+    is_preprocessor = True
+
+    def __init__(self, sorted: bool = True):
+        self.sorted = sorted
+
+    def __call__(self, inputs):
+        counts = np.bincount(inputs[properties.idx_i],
+                             minlength=len(inputs[properties.Z]))
+        inputs[properties.n_nbh] = counts.astype(np.int64)
+        return inputs
+
+
+class WrapPositions(Transform):
+    """Wraps the positions into the cell along its periodic axes, a
+    fractional coordinate within ``eps`` of 1 going to 0."""
+
+    is_preprocessor = True
+
+    def __init__(self, eps: float = 1e-6):
+        self.eps = eps
+
+    def __call__(self, inputs):
+        cell = np.asarray(inputs[properties.cell], dtype=np.float64)
+        pbc = np.asarray(inputs[properties.pbc], bool)
+        R = np.asarray(inputs[properties.R], dtype=np.float64)
+        frac = R @ np.linalg.inv(cell)
+        frac[:, pbc] = frac[:, pbc] % 1.0
+        frac[:, pbc] = np.where(frac[:, pbc] >= 1.0 - self.eps, 0.0,
+                                frac[:, pbc])
+        inputs[properties.R] = frac @ cell
+        return inputs
+
+
+class CachedNeighborList(Transform):
+    """Caches each sample's neighbor list on disk, ``nbl_<idx>.npz`` under
+    ``cache_path``, written under a file lock (``neighborlist.py:
+    362-399``)."""
+
+    is_preprocessor = True
+
+    def __init__(self, cache_path: str, base: NeighborListTransform,
+                 keep_cache: bool = False):
+        self.cache_path = cache_path
+        self.base = base
+        self.keep_cache = keep_cache
+        os.makedirs(cache_path, exist_ok=True)
+
+    def __call__(self, inputs):
+        from ..utils.locking import file_lock
+
+        idx = int(np.asarray(inputs.get(properties.idx, [-1])).reshape(-1)[0])
+        cache_file = os.path.join(self.cache_path, f"nbl_{idx}.npz")
+        keys = (properties.idx_i, properties.idx_j, properties.offsets)
+        if idx >= 0 and os.path.exists(cache_file):
+            with np.load(cache_file) as f:
+                for k in keys:
+                    inputs[k] = f[k]
+            return inputs
+        inputs = self.base(inputs)
+        if idx >= 0:
+            with file_lock(cache_file + ".lock"):
+                np.savez(cache_file, **{k: inputs[k] for k in keys})
+        return inputs
+
+    def teardown(self):
+        if not self.keep_cache:
+            shutil.rmtree(self.cache_path, ignore_errors=True)
