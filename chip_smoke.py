@@ -208,7 +208,40 @@ Phases (any failure exits non-zero before the last line is printed):
    ``last.ckpt``, ``spkpredict`` writes the test split's predictions;
    then ``spkmd`` runs 100 NVE steps of one molecule from the PaiNN run
    directory on ``all_pairs`` (finite; the drift printed);
-12. print the kernel table (every row and sub-row with ``ms`` and
+12. responses (``response_phase``), each part's launches counted from
+   zero, against ``tests/data/port_ref_response.npz`` (the JAX package's,
+   ``scripts/make_port_reference_response.py``): (a) the trained
+   PaiNN-128x3 with ``Forces(calc_stress=True)`` on that file's bench box
+   (phase 4's box) on the flat layout and on the 27-cell layout (K16/K17
+   1, K18/K19 3, K3/K4 3 per evaluation): forces and energy at phase 4's
+   gates, the stress within 1e-4 of the virial's scale (the largest entry
+   of sum_i |r_i (x) F_i| / V; the stress itself is small near
+   equilibrium); ms per evaluation with and without stress; (b) PaiNN-
+   128x3 with an ``Atomwise``, ``DipoleMoment(use_vector_representation=
+   True)`` and ``Polarizability``, every parameter seeded
+   (``seeded_params``), on ``train_bench``'s batch: each output within
+   1e-4 of the largest reference entry, no launches; (c) FieldSchNet-
+   128x5 with both fields, seeded, on 100 synthetic molecules
+   (``field_molecules``) with ``Response`` of forces, dipole,
+   polarizability, partial charges and shielding (1e-4 of the largest
+   entry, no launches), then the FieldSchNet asset on the bench box's
+   column layout with forces (phase 4's gate) and the dipole dE/dF (within
+   1e-5 of sum_a |dE/dF_a|, each atom's term from the flat layout with
+   every atom a molecule; K11 16, K12 14, K13 16, K14 16); (d) ``md/vibrations.normal_modes`` of the batch's first
+   molecule under (b)'s representation: the frequencies within 1e-3 of the
+   largest |f|, the Hessian's ms; (e) ``EnergyEwald`` of rock salt (4,096
+   ions, alpha 0.2/A, k_max 13, real space within 22 A) in f32: the
+   Madelung constant within 1e-4 and the JAX float64 energy within 1e-5;
+   (f) ``spktrain experiment=qm9_dipole`` (PaiNN-128x3) on a synthetic
+   QM9 archive of 1,000 molecules and ``experiment=response``
+   (FieldSchNet-128x5) on a synthetic database of 200, 3 epochs each: the
+   validation loss falls, ``load_model`` of the run directory within 1e-5
+   of the trained model's largest entry of each output; (g) ``spkmd dynamics=npt`` with a PaiNN-128x3
+   run directory whose model has stress, ``calculator.stress_key=stress``
+   on ``all_pairs``, NHC iso, a 500-atom FCC argon box: the step-0 stress
+   equal to a one-off ``calculate``'s, 300 steps at 0 and at 2 kbar, V/V0
+   in 0.8-1.1, the 2 kbar run's volume the smaller;
+13. print the kernel table (every row and sub-row with ``ms`` and
    ``device_ms``, ``library_ms`` and ``library_device_ms``) and the card
    as JSON, then the result line.
 
@@ -404,6 +437,60 @@ KCAL_MOL = 0.0433641             # eV per kcal/mol
 SPKTRAIN_E_ATOL = 1e-6 / KCAL_MOL  # kcal/mol (1e-6 eV): load_model vs the
 SPKTRAIN_F_ATOL = 1e-5 / KCAL_MOL  # trained model; kcal/mol/Ang (1e-5 eV/A)
 SPKTRAIN_MD_STEPS = 100
+#: phase 12, responses: the JAX fixture
+#: (``scripts/make_port_reference_response.py``), the seeds of the heads'
+#: and FieldSchNet's parameters (``seeded_tree``), the gates, rock salt's
+#: Ewald sum, ``spktrain``'s synthetic sets and the NPT runs
+RESPONSE_REFERENCE = os.path.join(ROOT, "tests", "data",
+                                  "port_ref_response.npz")
+HEADS_SEED = FIELD_SEED = 23
+FIELD_RESPONSES = ("forces", "dipole_moment", "polarizability",
+                   "partial_charges", "shielding")
+#: the stress against the fixture: max |sigma - sigma_ref| over the
+#: virial's scale, the largest entry of sum_i |r_i (x) F_i| / V
+STRESS_VIRIAL_TOL = 1e-4
+#: a response on molecules: max |got - ref| over max |ref| (f32 roundoff
+#: of up to three nested derivatives on both sides)
+RESPONSE_RTOL = 1e-4
+#: the bench box's dipole: max |mu - mu_ref| over sum_a |dE/dF_a| (its
+#: terms: the f32 sum over 10,976 atoms cancels to ~1e-4 of them)
+DIPOLE_SCALE_TOL = 1e-5
+#: harmonic frequencies: max |f - f_ref| over max |f_ref| (the f32
+#: Hessians of both packages)
+FREQ_RTOL = 1e-3
+#: the 27-cell stress evaluation's launches (``PER_STEP["painn_cell"]``)
+CELL_STRESS_LAUNCHES = {"cell_gather_fwd": 1, "cell_gather_bwd": 1,
+                        "cell_msg_fwd": 3, "cell_msg_bwd": 3, "mix_fwd": 3,
+                        "mix_bwd": 3}
+NACL_CELLS, NACL_A = 8, 5.64     # 4,096 ions; Angstrom
+NACL_EWALD = dict(alpha=0.2, k_max=13)
+NACL_RC = 22.0                   # Angstrom, under half the 45.12 A box
+MADELUNG_NACL = 1.747564594633
+MADELUNG_RTOL = 1e-4
+NACL_RTOL = 1e-5                 # the f32 energy vs the JAX float64 one
+QM9_MOLECULES = 1000
+QM9_SPLIT = (900, 50, 50)
+RESPONSE_MOLECULES = 200
+RESPONSE_SPLIT = (160, 20, 20)
+RESPONSE_EPOCHS = 3
+#: load_model vs the trained model, max |d| over the output's largest
+#: entry (the f32 atomic sums' order differs from one call to the next)
+RESPONSE_LOAD_RTOL = 1e-5
+NPT_BOX = 500                    # 5^3 FCC cells, 26.3 A
+NPT_MODEL_STEPS = 300
+NPT_PRESSURES = (0.0, 2000.0)    # bar
+NPT_VOLUME = (0.8, 1.1)          # V / V0 at the end
+#: the model's 30 K crystal at the bench lattice holds ~2.6 kbar (the
+#: fixture's stress), and its volume at 0 bar lies near 1.2 V0: under
+#: ``NPT_ARGS``' 50 fs barostat (or one of 500 fs) it swings to 1.24 V0
+#: within 50 steps (the CPU, 108 atoms); at 5,000 fs it expands
+#: smoothly, to 1.07 V0 in 300 steps at 0 bar
+NPT_MODEL_ARGS = ["barostat.temperature_bath=30.0",
+                  "barostat.time_constant=100.0",
+                  "barostat.time_constant_barostat=5000.0",
+                  "dynamics.integrator.time_step=1.0",
+                  "system.initializer.temperature=30.0"]
+NPT_STRESS_RTOL = 1e-6           # step-0 stress vs a one-off calculate
 LAYOUT_PATHS = {"painn": "painn_cell", "schnet": "schnet",
                 "so3net": "so3net", "field_schnet": "field_schnet"}
 CELL_LAUNCHES = {"cell_gather_fwd": 1, "cell_gather_bwd": 1}
@@ -2604,25 +2691,124 @@ def layout_phase(seed, dev, launches, smi):
           flush=True)
 
 
-def train_samples():
+def seeded_tree(tree, seed):
+    """A flax parameter tree of ``tree``'s names and shapes with every leaf
+    drawn from ``numpy.random.RandomState(seed)``, the leaves in sorted
+    path order: a kernel [in, out] uniform in +-sqrt(6 / (in + out))
+    (flax's Xavier init), an embedding table normal / sqrt(width), any
+    other leaf (biases, gates) normal x 0.01 (at x 0.1 the biases drive a
+    full-width FieldSchNet's responses to 1e6, where f32 keeps only 1e-4
+    of them; numpy only: the JAX fixture's script and phase 12 draw the
+    same numbers)."""
+    rng = np.random.RandomState(seed)
+
+    def walk(node):
+        out = {}
+        for k in sorted(node):
+            v = node[k]
+            if isinstance(v, dict):
+                out[k] = walk(v)
+                continue
+            shape = np.shape(v)
+            if k == "kernel" and len(shape) == 2:
+                a = np.sqrt(6.0 / sum(shape))
+                x = rng.uniform(-a, a, shape)
+            elif k == "embedding":
+                x = rng.randn(*shape) / np.sqrt(shape[-1])
+            else:
+                x = 0.01 * rng.randn(*shape)
+            out[k] = x.astype(np.float32)
+        return out
+    return walk(tree)
+
+
+def seeded_params(params, seed):
+    """A potential's flax tree (the ``params`` level) with the
+    representation from ``seeded_tree(seed)`` and the output modules from
+    ``seeded_tree(seed + 1)``, so that a head's numbers do not depend on
+    the representation's or on the heads after it."""
+    heads = {k: v for k, v in params.items() if k != "representation"}
+    return dict(seeded_tree(heads, seed + 1),
+                representation=seeded_tree(params["representation"], seed))
+
+
+def nacl(n_cells, a=NACL_A):
+    """Rock salt of ``n_cells``^3 conventional cells: (R [8 n^3, 3], cubic
+    cell, charges +1 on Na and -1 on Cl)."""
+    fcc = np.array([[0, 0, 0], [0.5, 0.5, 0], [0.5, 0, 0.5], [0, 0.5, 0.5]])
+    grid = np.stack(np.meshgrid(*[np.arange(n_cells)] * 3, indexing="ij"),
+                    -1).reshape(-1, 1, 3)
+    na = ((fcc[None] + grid) * a).reshape(-1, 3)
+    R = np.concatenate([na, na + np.array([0.5 * a, 0.0, 0.0])])
+    q = np.concatenate([np.ones(len(na)), -np.ones(len(na))])
+    return R, np.eye(3) * a * n_cells, q
+
+
+def nacl_pairs(R, cell, rc, chunk=256):
+    """(idx_i, idx_j, offsets) of every ordered pair within ``rc`` under
+    the minimum image (``rc`` under half the box), in (i, j) order."""
+    inv = np.linalg.inv(cell)
+    ii, jj, oo = [], [], []
+    for lo in range(0, len(R), chunk):
+        d = R[None, :, :] - R[lo:lo + chunk, None, :]
+        off = -np.round(d @ inv) @ cell
+        r = np.linalg.norm(d + off, axis=-1)
+        i, j = np.nonzero((r < rc) & (r > 0))
+        ii.append(i + lo)
+        jj.append(j)
+        oo.append(off[i, j])
+    return (np.concatenate(ii).astype(np.int32),
+            np.concatenate(jj).astype(np.int32), np.concatenate(oo))
+
+
+def madelung(E, n_ions, a=NACL_A):
+    """Rock salt's Madelung constant from its energy: E = -(N/2) M ke /
+    r0, r0 = a / 2."""
+    from schnetpack_tpu_torch.units import ke
+
+    return -2.0 * E * (0.5 * a) / (n_ions * ke)
+
+
+def train_molecules():
     """The molecules of ``bench.py::train_bench`` (``bench.py:100-112``):
     ``TRAIN_MOLECULES`` blobs of 21 atoms (C9H8O4, positions ``randn *
-    1.5`` from ``RandomState(0)``, energy sum(R^2), forces -2R), neighbor-
-    listed at the cutoff by the port's transform."""
-    from schnetpack_tpu_torch import properties as P
-    from schnetpack_tpu_torch.transform import NeighborListTransform
-
+    1.5`` from ``RandomState(0)``, energy sum(R^2), forces -2R), as dicts
+    of numpy arrays under the batch keys (numpy only: the response
+    fixture's script builds its JAX batch from them)."""
     rng = np.random.RandomState(0)
     Z = np.array([6] * 9 + [1] * 8 + [8] * 4)
-    nbl = NeighborListTransform(CUTOFF)
     out = []
     for _ in range(TRAIN_MOLECULES):
         R = rng.randn(len(Z), 3) * 1.5
-        out.append(nbl({P.Z: Z, P.R: R, P.cell: np.zeros((3, 3)),
-                        P.pbc: np.zeros(3, bool),
-                        P.energy: np.array([float((R ** 2).sum())]),
-                        P.forces: -2.0 * R}))
+        out.append({"_atomic_numbers": Z, "_positions": R,
+                    "_cell": np.zeros((3, 3)), "_pbc": np.zeros(3, bool),
+                    "energy": np.array([float((R ** 2).sum())]),
+                    "forces": -2.0 * R})
     return out
+
+
+def field_molecules(seed=0):
+    """``TRAIN_MOLECULES`` synthetic molecules (``synthetic_molecule``:
+    5-12 atoms of H, C, N, O and F at least 1 A apart) as dicts of numpy
+    arrays: the field responses' batch.  ``train_molecules`` places atoms
+    as close as 0.04 A, where FieldSchNet's 1/d^5 dipole terms overflow
+    f32 at full width."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(TRAIN_MOLECULES):
+        Z, R, _ = synthetic_molecule(rng)
+        out.append({"_atomic_numbers": Z, "_positions": R,
+                    "_cell": np.zeros((3, 3)), "_pbc": np.zeros(3, bool)})
+    return out
+
+
+def train_samples():
+    """``train_molecules`` neighbor-listed at the cutoff by the port's
+    transform."""
+    from schnetpack_tpu_torch.transform import NeighborListTransform
+
+    nbl = NeighborListTransform(CUTOFF)
+    return [nbl(m) for m in train_molecules()]
 
 
 def train_task_and_batch(layout, dev):
@@ -2952,6 +3138,519 @@ def train_phase(seed, dev, launches, smi):
           flush=True)
 
 
+def rel_err(got, want):
+    """max |got - want| over max |want|."""
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def stress_phase(dev, launches, smi):
+    """Phase 12a: PaiNN-128x3 (the asset) with ``Forces(calc_stress=True)``
+    on the fixture's bench box, on the flat layout (``flat_inputs``) and
+    the 27-cell layout (the calculator's ``cellblock_atom`` inputs, K16-K19
+    with K3/K4), against ``RESPONSE_REFERENCE``: energy, forces and the
+    stress over the virial's scale; the 27-cell evaluation's launches;
+    ms per evaluation with and without stress on each layout."""
+    from schnetpack_tpu_torch import properties as P
+    from schnetpack_tpu_torch.atomistic import Forces, PairwiseDistances
+    from schnetpack_tpu_torch.md import load_molecules
+    from schnetpack_tpu_torch.model import NeuralNetworkPotential
+
+    ref = np.load(RESPONSE_REFERENCE)
+    R, cell = ref["box_R"].astype(np.float64), ref["box_cell"]
+    V = abs(np.linalg.det(cell))
+    virial = np.abs(R[:, :, None] * ref["box_forces"][:, None, :]).sum(0) / V
+    scale = float(virial.max())
+    system = load_molecules([molecule(R, cell)], device=dev)
+    pot, params = layout_potential("painn")
+    pot.load_state_dict(params)
+    stress_pot = NeuralNetworkPotential(
+        pot.representation, [pot.output_modules[0], Forces(calc_stress=True)],
+        input_modules=[PairwiseDistances(columns=False)])
+    pot.to(dev).requires_grad_(False)
+    stress_pot.to(dev).requires_grad_(False)
+    flat = flat_inputs(R, cell, dev)
+    flat[P.cell] = torch.as_tensor(cell[None], dtype=torch.float32,
+                                   device=dev)
+    calc = calculator(pot, params, layout="atom")
+    state = calc.init_state(system)
+    cell_in = calc.model_inputs(system, state)
+    rank = state["cell_rank"].cpu().numpy()
+    evals = {"flat": flat, "cellblock_atom": cell_in}
+    total = {}
+    for name, inputs in evals.items():
+        reset(launches)
+        out = stress_pot(dict(inputs))
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in read_counts(launches).items() if v}
+        want = CELL_STRESS_LAUNCHES if name == "cellblock_atom" else {}
+        F = out[P.forces].float().cpu().numpy()
+        if name == "cellblock_atom":
+            F = F[rank]
+        sigma = out[P.stress][0].double().cpu().numpy()
+        rms = float(np.sqrt(np.mean((F - ref["box_forces"]) ** 2)))
+        dE = abs(float(out[P.energy][0]) - float(ref["box_energy"])) / abs(
+            float(ref["box_energy"]))
+        ds = float(np.abs(sigma - ref["box_stress"]).max()) / scale
+        ms = cuda_ms(lambda: stress_pot(dict(inputs)), reps=3)
+        ms_plain = cuda_ms(lambda: pot(dict(inputs)), reps=3)
+        print(f"responses (stress, {name}): force rms err {rms:.3e} eV/Ang, "
+              f"energy rel err {dE:.2e}, stress max err {ds:.3e} of the "
+              f"virial's scale {scale:.4e} eV/A^3 (stress "
+              f"{np.array2string(sigma.diagonal(), precision=6)} eV/A^3, "
+              f"JAX {np.array2string(ref['box_stress'].diagonal(), precision=6)}"
+              f"), launches {counts}, ms per evaluation {ms:.3f} with stress, "
+              f"{ms_plain:.3f} forces only; {smi}", flush=True)
+        assert counts == want, f"stress {name}: launches {counts}, want {want}"
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        assert np.isfinite(sigma).all() and np.isfinite(F).all()
+        assert rms <= FORCE_RMS_TOL, f"stress {name}: force rms {rms}"
+        assert dE <= ENERGY_RTOL, f"stress {name}: energy {dE}"
+        assert ds <= STRESS_VIRIAL_TOL, f"stress {name}: {ds}"
+    del pot, stress_pot, calc, state, evals
+    torch.cuda.empty_cache()
+    return total
+
+
+def seeded(pot, seed):
+    """``pot`` with every parameter from ``seeded_params(seed)`` (the JAX
+    fixture's numbers, through the flax tree's names)."""
+    from schnetpack_tpu_torch.convert import params_from_jax, params_to_jax
+
+    tree = params_to_jax(pot)["params"]
+    pot.load_state_dict(params_from_jax({"params": seeded_params(tree,
+                                                                 seed)}))
+    return pot
+
+
+def heads_phase(dev, launches, smi):
+    """Phase 12b and 12d: PaiNN-128x3 with an ``Atomwise``, a
+    ``DipoleMoment(use_vector_representation=True)`` and a
+    ``Polarizability``, seeded, on ``train_bench``'s batch against the
+    fixture; then ``md/vibrations.normal_modes`` of the batch's first
+    molecule under that representation and energy head.  No launches."""
+    from schnetpack_tpu_torch import properties as P
+    from schnetpack_tpu_torch.atomistic import (
+        Atomwise, DipoleMoment, PairwiseDistances, Polarizability,
+    )
+    from schnetpack_tpu_torch.data import collate, padding_for
+    from schnetpack_tpu_torch.md.vibrations import (
+        hessian_inputs, normal_modes, with_hessian,
+    )
+    from schnetpack_tpu_torch.model import NeuralNetworkPotential
+    from schnetpack_tpu_torch.representation import PaiNN
+    from schnetpack_tpu_torch.train import as_tensors
+
+    ref = np.load(RESPONSE_REFERENCE)
+    pot = seeded(NeuralNetworkPotential(
+        PaiNN(n_atom_basis=128, n_interactions=3, n_rbf=20, cutoff=CUTOFF),
+        [Atomwise(128), DipoleMoment(128, use_vector_representation=True),
+         Polarizability(128)],
+        input_modules=[PairwiseDistances(columns=False)]), HEADS_SEED)
+    pot.to(dev).requires_grad_(False)
+    samples = train_samples()
+    batch = as_tensors(collate(samples, padding_for(samples)), dev)
+    reset(launches)
+    out = pot(batch)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in read_counts(launches).items() if v}
+    errs = {k: rel_err(out[k].cpu(), ref[f"heads_{k}"])
+            for k in (P.energy, P.dipole_moment, P.partial_charges,
+                      P.polarizability)}
+    ms = cuda_ms(lambda: pot(batch), reps=3)
+    print(f"responses (heads): {TRAIN_MOLECULES} molecules, rel err "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + f", {ms:.3f} ms per evaluation, launches {counts}; {smi}",
+          flush=True)
+    assert not counts, f"heads launched {counts}"
+    for k, v in errs.items():
+        assert v <= RESPONSE_RTOL, f"heads {k}: {v}"
+
+    energy = NeuralNetworkPotential(
+        pot.representation, [pot.output_modules[0]],
+        input_modules=[PairwiseDistances(columns=False)])
+    mol = train_molecules()[0]
+    freqs, _ = normal_modes(energy, mol)
+    hess = with_hessian(energy)
+    ins = hessian_inputs(mol, CUTOFF, dev)
+    ms_h = cuda_ms(lambda: hess(dict(ins)), reps=3)
+    df = float(np.abs(freqs - ref["freqs"]).max() / np.abs(ref["freqs"]).max())
+    print(f"responses (hessian): {len(mol['_atomic_numbers'])} atoms, "
+          f"frequencies {freqs.min():.2f} .. {freqs.max():.2f} cm^-1, max "
+          f"err {df:.2e} of the largest |f| (JAX "
+          f"{np.abs(ref['freqs']).max():.2f}), Hessian {ms_h:.3f} ms; {smi}",
+          flush=True)
+    assert np.isfinite(freqs).all() and df <= FREQ_RTOL, f"freqs {df}"
+    del pot, energy, hess, batch
+    torch.cuda.empty_cache()
+
+
+def field_phase(dev, launches, smi):
+    """Phase 12c: FieldSchNet-128x5 with both fields, seeded, on
+    ``field_molecules``'s batch (flat layout) with ``Response`` of
+    ``FIELD_RESPONSES`` against the fixture; then the FieldSchNet asset on
+    the bench box's column layout with forces and the dipole (dE/dF
+    through K11-K14's VJPs), its launches counted."""
+    from schnetpack_tpu_torch import properties as P
+    from schnetpack_tpu_torch.atomistic import (
+        Atomwise, PairwiseDistances, Response,
+    )
+    from schnetpack_tpu_torch.data import collate, padding_for
+    from schnetpack_tpu_torch.md import load_molecules
+    from schnetpack_tpu_torch.model import NeuralNetworkPotential
+    from schnetpack_tpu_torch.representation import FieldSchNet
+    from schnetpack_tpu_torch.train import as_tensors
+
+    from schnetpack_tpu_torch.transform import NeighborListTransform
+
+    ref = np.load(RESPONSE_REFERENCE)
+    props = list(FIELD_RESPONSES)
+    pot = seeded(NeuralNetworkPotential(
+        FieldSchNet(n_atom_basis=128, n_interactions=5, n_rbf=20,
+                    cutoff=CUTOFF, response_properties=props),
+        [Atomwise(128), Response(response_properties=props)],
+        input_modules=[PairwiseDistances(columns=False)]), FIELD_SEED)
+    pot.to(dev).requires_grad_(False)
+    samples = [NeighborListTransform(CUTOFF)(m) for m in field_molecules()]
+    batch = as_tensors(collate(samples, padding_for(samples)), dev)
+    reset(launches)
+    torch.cuda.reset_peak_memory_stats()
+    out = pot(batch)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in read_counts(launches).items() if v}
+    errs = {k: rel_err(out[k].cpu(), ref[f"field_{k}"])
+            for k in ["energy"] + props}
+    ms = cuda_ms(lambda: pot(batch), reps=3)
+    print(f"responses (field, molecules): rel err "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + f", {ms:.3f} ms per evaluation, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, launches "
+          f"{counts}; {smi}", flush=True)
+    assert not counts, f"field responses launched {counts}"
+    for k, v in errs.items():
+        assert v <= RESPONSE_RTOL, f"field {k}: {v}"
+    del pot, batch, out
+    torch.cuda.empty_cache()
+
+    base, params = potential("field_schnet")
+    pot = NeuralNetworkPotential(
+        base.representation,
+        [base.output_modules[0],
+         Response(response_properties=[P.forces, P.dipole_moment])],
+        input_modules=[PairwiseDistances()])
+    pot.load_state_dict(params)
+    pot.to(dev).requires_grad_(False)
+    R, cell = ref["box_R"].astype(np.float64), ref["box_cell"]
+    system = load_molecules([molecule(R, cell)], device=dev)
+    calc = calculator(base, params)
+    state = calc.init_state(system)
+    inputs = calc.model_inputs(system, state)
+    reset(launches)
+    out = pot(dict(inputs))
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in read_counts(launches).items() if v}
+    F = out[P.forces].float().cpu().numpy()[state["cell_rank"].cpu().numpy()]
+    mu = out[P.dipole_moment][0].double().cpu().numpy()
+    rms = float(np.sqrt(np.mean((F - ref["colfield_forces"]) ** 2)))
+    # the dipole is a sum over the atoms that cancels to ~1e-4 of its
+    # terms: its scale is that of the terms, each atom's own dE/dF, from
+    # the flat layout with every atom a molecule of its own
+    flat = flat_inputs(R, cell, dev)
+    A = len(R)
+    flat[P.idx_m] = torch.arange(A, device=dev)
+    flat[P.n_atoms] = torch.ones(A, dtype=torch.int64, device=dev)
+    mu_atoms = pot(flat)[P.dipole_moment].double()
+    scale = float(mu_atoms.abs().sum(0).max())
+    dmu = float(np.abs(mu - ref["colfield_dipole_moment"]).max()) / scale
+    ms = cuda_ms(lambda: pot(dict(inputs)), reps=3)
+    print(f"responses (field, column): {layout_str(state)}, dipole "
+          f"{np.array2string(mu, precision=6)} (JAX "
+          f"{np.array2string(ref['colfield_dipole_moment'], precision=6)}), "
+          f"max err {dmu:.2e} of the atoms' sum_a |dE/dF_a| {scale:.4g} "
+          f"(the flat layout's sum of them "
+          f"{np.array2string(mu_atoms.sum(0).cpu().numpy(), precision=6)}), "
+          f"force rms err {rms:.3e} eV/Ang, launches "
+          f"{counts}, {ms:.3f} ms per evaluation; {smi}", flush=True)
+    check_launches("field column dipole", counts, PER_STEP["field_schnet"], 1)
+    assert rms <= FORCE_RMS_TOL, f"field column forces {rms}"
+    assert dmu <= DIPOLE_SCALE_TOL, f"field column dipole {dmu}"
+    del pot, base, calc, state, inputs
+    torch.cuda.empty_cache()
+    return counts
+
+
+def ewald_phase(dev, smi):
+    """Phase 12e: ``EnergyEwald`` of rock salt (``NACL_CELLS``^3 cells,
+    4,096 ions, the real-space pairs within ``NACL_RC``) in f32 on the
+    card: the Madelung constant and the JAX float64 energy."""
+    from schnetpack_tpu_torch import properties as P
+    from schnetpack_tpu_torch.atomistic import EnergyEwald, PairwiseDistances
+
+    ref = np.load(RESPONSE_REFERENCE)
+    R, cell, q = nacl(NACL_CELLS)
+    i, j, off = nacl_pairs(R, cell, NACL_RC)
+
+    def t(a, dtype=torch.float32):
+        return torch.as_tensor(a, dtype=dtype, device=dev)
+    ins = PairwiseDistances()({
+        P.R: t(R), P.cell: t(cell[None]), P.idx_i: t(i, torch.int64),
+        P.idx_j: t(j, torch.int64), P.offsets: t(off),
+        P.pair_mask: t(np.ones(len(i))), P.n_atoms: t([len(R)], torch.int64),
+        P.idx_m: t(np.zeros(len(R)), torch.int64),
+        P.atom_mask: t(np.ones(len(R))), P.partial_charges: t(q)})
+    ewald = EnergyEwald(**NACL_EWALD)
+    E = float(ewald(dict(ins))["energy_ewald"][0])
+    M = madelung(E, len(R))
+    dM = abs(M / MADELUNG_NACL - 1)
+    dE = abs(E / float(ref["nacl_energy"]) - 1)
+    ms = cuda_ms(lambda: ewald(dict(ins)), reps=3)
+    print(f"responses (ewald): {len(R)} ions, {len(i)} pairs, E {E:.6f} eV "
+          f"(JAX float64 {float(ref['nacl_energy']):.6f}, rel err {dE:.2e}), "
+          f"Madelung {M:.7f} (rel err {dM:.2e}), {ms:.3f} ms; {smi}",
+          flush=True)
+    assert dM <= MADELUNG_RTOL, f"Madelung {M}"
+    assert dE <= NACL_RTOL, f"NaCl energy {dE}"
+
+
+QM9_SYMBOLS = {1: "H", 6: "C", 7: "N", 8: "O", 9: "F"}
+#: per-element energies (eV) of the synthetic response set's labels
+RESPONSE_ATOM_ENERGY = {1: -13.6, 6: -1030.0, 8: -2040.0}
+#: partial charges (e) of the synthetic sets' dipole labels by element
+SYNTHETIC_CHARGES = {1: 0.3, 6: -0.1, 7: -0.3, 8: -0.4, 9: -0.2}
+
+
+def synthetic_molecule(rng, elements=(1, 6, 7, 8, 9)):
+    """5-12 atoms placed one by one in a 4 A cube at least 1 A apart: (Z,
+    R, the dipole of ``SYNTHETIC_CHARGES`` less their mean)."""
+    n = rng.randint(5, 13)
+    R = [rng.rand(3) * 4.0]
+    while len(R) < n:
+        r = rng.rand(3) * 4.0
+        if np.linalg.norm(np.asarray(R) - r, axis=1).min() >= 1.0:
+            R.append(r)
+    R = np.asarray(R)
+    Z = rng.choice(elements, n)
+    q = np.array([SYNTHETIC_CHARGES[z] for z in Z])
+    return Z, R, ((q - q.mean())[:, None] * R).sum(0)
+
+
+def write_qm9_archive(raw_dir, n, seed):
+    """A QM9 archive (``dsgdb9nsd.xyz.tar.bz2``) of ``n`` synthetic
+    molecules in QM9's xyz flavour, the dipole label |mu| of
+    ``synthetic_molecule`` and the other 14 properties seeded."""
+    import io
+    import tarfile
+
+    rng = np.random.RandomState(seed)
+    os.makedirs(raw_dir, exist_ok=True)
+    with tarfile.open(os.path.join(raw_dir, "dsgdb9nsd.xyz.tar.bz2"),
+                      "w:bz2") as tar:
+        for k in range(1, n + 1):
+            Z, R, mu = synthetic_molecule(rng)
+            props = rng.randn(15)
+            props[3] = np.linalg.norm(mu)
+            lines = [str(len(Z)), f"gdb {k}\t"
+                     + "\t".join(f"{v:.8f}" for v in props)]
+            lines += [f"{QM9_SYMBOLS[z]}\t{r[0]:.8f}\t{r[1]:.8f}\t"
+                      f"{r[2]:.8f}\t0.0" for z, r in zip(Z, R)]
+            data = ("\n".join(lines + ["0.0", "C", "InChI=1S/x"])
+                    + "\n").encode()
+            info = tarfile.TarInfo(f"dsgdb9nsd_{k:06d}.xyz")
+            info.size = len(data)
+            tar.addfile(info, io.BytesIO(data))
+
+
+def write_response_db(path, n, seed):
+    """A database of ``n`` synthetic H/C/O molecules with the ``response``
+    experiment's labels: energy the sum of per-element energies
+    (``RESPONSE_ATOM_ENERGY``) and 0.01 sum(R^2), forces -0.02 R, the
+    dipole of ``synthetic_molecule``, polarizability (atoms) x I,
+    shielding Z x I per atom."""
+    from schnetpack_tpu_torch.data import ASEAtomsData
+
+    rng = np.random.RandomState(seed)
+    ds = ASEAtomsData.create(path, distance_unit="Ang", property_unit_dict={
+        "energy": "eV", "forces": "eV/Ang", "dipole_moment": "e*Ang",
+        "polarizability": "Ang^3", "shielding": "ppm"})
+    rows = []
+    for _ in range(n):
+        Z, R, mu = synthetic_molecule(rng, (1, 6, 8))
+        rows.append(dict(
+            numbers=Z, positions=R, energy=np.array([
+                sum(RESPONSE_ATOM_ENERGY[z] for z in Z)
+                + 0.01 * (R ** 2).sum()]),
+            forces=-0.02 * R, dipole_moment=mu[None],
+            polarizability=len(Z) * np.eye(3)[None],
+            shielding=Z[:, None, None] * np.eye(3)[None]))
+    ds.add_systems(rows)
+
+
+def spktrain_response_phase(seed, dev, launches, smi):
+    """Phase 12f: ``spktrain`` of ``experiment=qm9_dipole`` (PaiNN-128x3)
+    on a synthetic QM9 archive and ``experiment=response`` (FieldSchNet-
+    128x5: energy, forces, dipole, polarizability, shielding) on a
+    synthetic database, ``RESPONSE_EPOCHS`` epochs each: the validation
+    loss falls, and ``cli.load_model`` of the run directory gives the
+    trained model's outputs within ``RESPONSE_LOAD_RTOL``."""
+    import shutil
+    import tempfile
+
+    from schnetpack_tpu_torch import cli
+    from schnetpack_tpu_torch import properties as P
+    from schnetpack_tpu_torch.train import as_tensors
+
+    tmp = tempfile.mkdtemp(prefix="spktrain_response_")
+    try:
+        write_qm9_archive(os.path.join(tmp, "raw"), QM9_MOLECULES, seed + 17)
+        db = os.path.join(tmp, "response.db")
+        write_response_db(db, RESPONSE_MOLECULES, seed + 19)
+        common = [f"run.path={tmp}/runs", f"run.data_dir={tmp}/data",
+                  "trainer.progress=false", f"device={dev}",
+                  f"globals.seed={seed}", "print_config=false",
+                  f"trainer.max_epochs={RESPONSE_EPOCHS}"]
+        runs = {
+            "qm9_dipole": [f"data.raw_dir={tmp}/raw",
+                           f"data.num_train={QM9_SPLIT[0]}",
+                           f"data.num_val={QM9_SPLIT[1]}",
+                           f"data.num_test={QM9_SPLIT[2]}"],
+            "response": [f"data.datapath={db}",
+                         f"data.num_train={RESPONSE_SPLIT[0]}",
+                         f"data.num_val={RESPONSE_SPLIT[1]}",
+                         f"data.num_test={RESPONSE_SPLIT[2]}"]}
+        for name, extra in runs.items():
+            cfg = cli.default_composer().compose("train", [
+                f"experiment={name}", f"run.id={name}"] + common + extra)
+            reset(launches)
+            t0 = time.perf_counter()
+            metrics, task, state, dm = cli.fit(cfg)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = {k: v for k, v in read_counts(launches).items() if v}
+            run = os.path.join(tmp, "runs", name)
+            losses = val_losses(run)
+            best = torch.load(os.path.join(run, "checkpoints", "best.ckpt"),
+                              weights_only=False)
+            state.load_state_dict(best["state"])
+            batch = as_tensors(next(iter(dm.test_dataloader())), dev)
+            M = int(batch[P.mol_mask].sum())
+            mine = task.model(batch)
+            loaded, _ = cli.load_model(run, dev)
+            theirs = loaded(batch)
+            diff = 0.0      # relative: the atomics' f32 sums differ a call
+            for k in task.model.model_outputs:
+                a, b = mine[k].detach(), theirs[k].detach()
+                if a.shape[0] == batch[P.n_atoms].shape[0]:
+                    a, b = a[:M], b[:M]
+                diff = max(diff, float((a - b).abs().max() / a.abs().max()))
+            rep = task.model.representation
+            print(f"spktrain ({name}, {type(rep).__name__}-"
+                  f"{rep.n_atom_basis}x{len(rep.interactions)}): "
+                  f"{RESPONSE_EPOCHS} epochs of {len(dm.train_idx)} "
+                  f"molecules in {state.step} steps, {wall:.1f} s "
+                  f"({1e3 * wall / state.step:.1f} ms/step with validation "
+                  f"and checkpoints), val loss by epoch "
+                  f"{', '.join(f'{v:.6g}' for v in losses)}, test "
+                  f"{', '.join(f'{k} {v:.6g}' for k, v in metrics.items())}"
+                  f", load_model max |d| {diff:.3e} of the largest entry of "
+                  f"{task.model.model_outputs}, launches {counts}; {smi}",
+                  flush=True)
+            assert len(losses) == RESPONSE_EPOCHS and losses[-1] < losses[0], (
+                f"{name}: val losses {losses}")
+            assert all(np.isfinite(v) for v in metrics.values())
+            assert diff <= RESPONSE_LOAD_RTOL, f"{name}: load_model {diff}"
+            assert not counts, f"{name}: launched {counts}"
+            del task, state, dm, loaded, mine, theirs
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def npt_model_phase(seed, dev, launches, smi):
+    """Phase 12g: ``spkmd dynamics=npt`` with a PaiNN-128x3 run directory
+    whose model has ``Forces(calc_stress=True)`` (the asset's weights),
+    ``calculator.stress_key=stress`` on ``all_pairs``, NHC iso barostat
+    (``NPT_MODEL_ARGS``), on a 500-atom FCC argon box: the
+    stress at step 0 equals a one-off ``calculate``'s; from the same state,
+    ``NPT_MODEL_STEPS`` steps at each of ``NPT_PRESSURES``, finite, V/V0
+    within ``NPT_VOLUME``, and the higher pressure ends at the smaller
+    volume."""
+    import pickle
+    import shutil
+    import tempfile
+
+    from schnetpack_tpu_torch.md import cli
+
+    pos, cell = fcc_box(NPT_BOX)
+    v0 = abs(np.linalg.det(cell))
+    tmp = tempfile.mkdtemp(prefix="spkmd_npt_model_")
+    try:
+        box = write_xyz(os.path.join(tmp, "box.xyz"), pos, cell)
+        run = write_run_dir(os.path.join(tmp, "run"), ASSET["painn"])
+        cfg = dict(PAINN_RUN_CONFIG, output_modules=[
+            PAINN_RUN_CONFIG["output_modules"][0],
+            {"_target_": "schnetpack_tpu.atomistic.Forces",
+             "calc_stress": True}])
+        with open(os.path.join(run, "model_config.pkl"), "wb") as f:
+            pickle.dump(cfg, f)
+        volumes = {}
+        for pressure in NPT_PRESSURES:
+            args = NPT_MODEL_ARGS + [
+                f"barostat.target_pressure={pressure}",
+                f"system.molecule_file={box}", f"calculator.model_dir={run}",
+                "calculator.stress_key=stress",
+                "calculator.neighbor_list=all_pairs", "dynamics=npt",
+                "barostat=nhc_iso", f"device={dev}", f"seed={seed}",
+                "dynamics.n_steps=0", "callbacks.file_logger=null",
+                "callbacks.checkpoint=null",
+                f"simulation_dir={tmp}/npt_{pressure:g}"]
+            reset(launches)
+            sim = cli.main(args)
+            s0 = sim.system.stress.clone()
+            calc = sim.calculator
+            one = calc.calculate(sim.system, calc.init_state(sim.system))
+            d0 = float((s0 - one.stress).abs().max() / s0.abs().max())
+            t0 = time.perf_counter()
+            ms, _ = timed_run(sim, NPT_MODEL_STEPS, chunk_size=100)
+            wall = time.perf_counter() - t0
+            counts = {k: v for k, v in read_counts(launches).items() if v}
+            s = sim.system
+            v1 = float(s.volume[0, 0]) * 1e3          # nm^3 -> A^3
+            volumes[pressure] = v1
+            print(f"spkmd (npt_model, {pressure:g} bar): {s.total_atoms} "
+                  f"atoms, all_pairs, {NPT_MODEL_STEPS} steps, V/V0 "
+                  f"{v1 / v0:.5f}, step-0 stress vs a one-off calculate max "
+                  f"|d| {d0:.3e} of its largest, P(end) {float(s.pressure[0, 0]):.6g}, "
+                  f"{ms:.3f} ms/step ({wall:.1f} s), launches {counts}; "
+                  f"{smi}", flush=True)
+            assert d0 <= NPT_STRESS_RTOL, f"step-0 stress {d0}"
+            assert torch.isfinite(s.positions).all()
+            assert torch.isfinite(s.cells).all()
+            assert NPT_VOLUME[0] < v1 / v0 < NPT_VOLUME[1], v1 / v0
+            assert not counts, f"npt_model launched {counts}"
+        lo, hi = NPT_PRESSURES
+        assert volumes[hi] < volumes[lo], volumes
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def response_phase(seed, dev, launches, smi):
+    """Phase 12, responses (see the module's docstring); returns the
+    launch counts of its kernel paths."""
+    t0 = time.perf_counter()
+    total = {}
+    for part in (stress_phase, heads_phase, field_phase):
+        for k, v in (part(dev, launches, smi) or {}).items():
+            total[k] = total.get(k, 0) + v
+    ewald_phase(dev, smi)
+    spktrain_response_phase(seed, dev, launches, smi)
+    npt_model_phase(seed, dev, launches, smi)
+    print(f"responses: phase 12 took {time.perf_counter() - t0:.1f} s; "
+          f"{smi}", flush=True)
+    return total
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -3051,6 +3750,8 @@ def main():
         total[k] = total.get(k, 0) + v
     layout_phase(args.seed, dev, launches, smi)
     train_phase(args.seed, dev, launches, smi)
+    for k, v in response_phase(args.seed, dev, launches, smi).items():
+        total[k] = total.get(k, 0) + v
     for row in rows:
         row["launches"] = total[row["name"]]
         assert row["launches"] > 0, f"{row['name']} never ran in the MD"

@@ -29,12 +29,13 @@ port-trained run directory, as ``spkmd`` does.
 
 ``load_model`` maps each JAX target to the port's class through
 ``TARGETS``, an explicit table (an unknown target raises with its name),
-and loads the weights through ``convert.params_from_jax``.  An
-``Atomwise`` without ``n_in`` takes the representation's width, which
-flax infers.  A ``PairwiseDistances`` skips the column layout where the
-representation there reads the positions only (``reads_column_rij``), so
-a model from the JAX configs, which list it for every representation,
-launches no gather it does not need.
+and loads the weights through ``convert.params_from_jax``.  A head
+(``Atomwise``, ``DipoleMoment``, ``Polarizability``) without ``n_in``
+takes the representation's width, which flax infers.  A
+``PairwiseDistances`` skips the column layout where the representation
+there reads the positions only (``reads_column_rij``), so a model from
+the JAX configs, which list it for every representation, launches no
+gather it does not need.
 """
 from __future__ import annotations
 
@@ -47,7 +48,12 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .atomistic import Atomwise, Forces, PairwiseDistances
+from .atomistic import (
+    Aggregation, Atomwise, CoulombPotential, DampedCoulombPotential,
+    DipoleMoment, EnergyCoulomb, EnergyEwald, FilterShortRange, Forces,
+    PairwiseDistances, Polarizability, Response, StaticExternalFields,
+    Strain, ZBLRepulsionEnergy,
+)
 from .config.compose import (
     Composer, _parse_value, _set_dotted, instantiate, save_config,
 )
@@ -78,24 +84,19 @@ def _potential(ctx, representation, input_modules=(), output_modules=(),
         do_postprocessing=do_postprocessing)
 
 
-def _atomwise(ctx, n_out=1, aggregation_mode="sum",
-              per_atom_output_key=None, **kwargs):
-    if n_out != 1 or aggregation_mode != "sum" or per_atom_output_key:
-        raise NotImplementedError(
-            "load_model: the port's Atomwise sums one output per molecule "
-            f"(n_out={n_out}, aggregation_mode={aggregation_mode!r}, "
-            f"per_atom_output_key={per_atom_output_key!r})")
-    kwargs.setdefault("n_in", ctx.get("n_in"))
-    return Atomwise(**kwargs)
+def _head(cls) -> Callable:
+    """A head that takes the representation's width as ``n_in`` unless the
+    config gives one (flax infers it)."""
+    def make(ctx, **kwargs):
+        kwargs.setdefault("n_in", ctx.get("n_in"))
+        return cls(**kwargs)
+    return make
 
 
-def _forces(ctx, calc_forces=True, calc_stress=False, stress_key=None,
-            **kwargs):
-    if calc_stress:
-        raise NotImplementedError(
-            "load_model: Forces(calc_stress=True): the port's models have "
-            "no stress (ROADMAP Queue 1 item 7)")
-    return Forces(**kwargs) if calc_forces else None
+def _forces(ctx, calc_forces=True, calc_stress=False, **kwargs):
+    if not (calc_forces or calc_stress):
+        return None
+    return Forces(calc_forces=calc_forces, calc_stress=calc_stress, **kwargs)
 
 
 def _distances(ctx, **kwargs):
@@ -110,14 +111,29 @@ def _targets() -> Dict[str, Callable]:
     table = {
         "model.NeuralNetworkPotential": _potential,
         "model.base.NeuralNetworkPotential": _potential,
-        "atomistic.Atomwise": _atomwise,
-        "atomistic.atomwise.Atomwise": _atomwise,
         "atomistic.Forces": _forces,
         "atomistic.response.Forces": _forces,
         "atomistic.PairwiseDistances": _distances,
         "atomistic.distances.PairwiseDistances": _distances,
     }
+    for name, cls in [("Atomwise", Atomwise), ("DipoleMoment", DipoleMoment),
+                      ("Polarizability", Polarizability)]:
+        for path in (f"atomistic.{name}", f"atomistic.atomwise.{name}"):
+            table[path] = _head(cls)
     for name, module, cls in [
+            ("Aggregation", "atomistic.atomwise", Aggregation),
+            ("Response", "atomistic.response", Response),
+            ("StaticExternalFields", "atomistic.response",
+             StaticExternalFields),
+            ("Strain", "atomistic.response", Strain),
+            ("FilterShortRange", "atomistic.distances", FilterShortRange),
+            ("CoulombPotential", "atomistic.electrostatic", CoulombPotential),
+            ("DampedCoulombPotential", "atomistic.electrostatic",
+             DampedCoulombPotential),
+            ("EnergyCoulomb", "atomistic.electrostatic", EnergyCoulomb),
+            ("EnergyEwald", "atomistic.electrostatic", EnergyEwald),
+            ("ZBLRepulsionEnergy", "atomistic.nuclear_repulsion",
+             ZBLRepulsionEnergy),
             ("PaiNN", "representation.painn", PaiNN),
             ("SchNet", "representation.schnet", SchNet),
             ("SO3net", "representation.so3net", SO3net),

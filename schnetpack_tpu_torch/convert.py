@@ -42,7 +42,13 @@ filter_electric_field_1``, ``nmm_embedding/gyromagnetic`` ->
 ``nmm_embedding.gyromagnetic.weight``.  A ``NuclearEmbedding`` at
 ``embedding`` and the ``charge_embedding`` / ``spin_embedding`` trees
 (``query``, ``k_plus``, ``resmlp/residual_0/dense_0``, ...) map by name
-too.
+too.  The output heads map by name under ``output_modules_{i}``:
+``Atomwise``'s ``outnet``, ``DipoleMoment``'s ``charge_net``, the gated
+equivariant MLP of ``DipoleMoment(use_vector_representation=True)`` and
+``Polarizability`` at ``GatedEquivariantMLP_0/gated_{k}/{vmix1, vmix2,
+scalar_0, scalar_1}`` (``vmix`` without bias), and
+``ZBLRepulsionEnergy``'s raw ``coefficients``, ``exponents``, ``a_pow``
+and ``a_div``.
 
 ``params_to_jax`` is the inverse: the flax tree (``{"params": ...}``, numpy
 float32) of a port potential's parameters, or of any tensors named as its

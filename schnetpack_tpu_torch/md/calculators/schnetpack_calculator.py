@@ -49,9 +49,14 @@ grad gets its cotangent from the kernels' wgrad instances.
 The constructor takes the JAX calculator's keys (``schnetpack_calculator.
 py:28-44``) and refuses at once what the port cannot run:
 ``precision="bf16"`` or ``"mixed"`` (the reduced-precision feature mode,
-ROADMAP Queue 1 item 8; ``None`` and ``"f32"`` run as f32) and a
-``stress_key`` (the port's models compute no stress, item 7).
-``fixed_cell``: the simulator refuses an NPT integrator with it.
+ROADMAP Queue 1 item 8; ``None`` and ``"f32"`` run as f32).  A
+``stress_key`` writes the model's stress (a potential built with
+``Forces(calc_stress=True)``) into ``System.stress`` in MD units, so that
+a barostat reads it; the calculator then has a variable cell, which the
+simulator's NPT integrators need (``fixed_cell`` is False).  The column
+layout refuses stress (``model.base.ColumnStressError``), and the JAX
+dense and 27-cell MD lists keep the offsets of their build, so NPT runs
+on ``all_pairs``, whose offsets follow the current cell every step.
 
 ``EnsembleCalculator`` (``schnetpack_calculator.py:294-333``) runs one
 model per member over one set of inputs a step (on the column layout one
@@ -78,7 +83,7 @@ from .base import PairwiseMDCalculator
 NEIGHBOR_LISTS = ("all_pairs", "dense", "cellblock", "cellblock_atom")
 
 
-def check_options(neighbor_list, precision, stress_key) -> None:
+def check_options(neighbor_list, precision) -> None:
     """Raise for the calculator options the port does not run."""
     if isinstance(neighbor_list, str) and neighbor_list not in NEIGHBOR_LISTS:
         raise ValueError(
@@ -92,15 +97,9 @@ def check_options(neighbor_list, precision, stress_key) -> None:
     if precision not in (None, "f32"):
         raise ValueError(f"precision must be None, 'f32', 'bf16' or "
                          f"'mixed', not {precision!r}")
-    if stress_key is not None:
-        raise NotImplementedError(
-            f"stress_key={stress_key!r}: the port's models compute no "
-            "stress (ROADMAP Queue 1 item 7)")
 
 
 class SchNetPackCalculator(PairwiseMDCalculator):
-    fixed_cell = True
-
     def __init__(
         self,
         model,                      # NeuralNetworkPotential
@@ -121,8 +120,23 @@ class SchNetPackCalculator(PairwiseMDCalculator):
         super().__init__(cutoff=float(cutoff), cutoff_shell=cutoff_shell,
                          required_properties=required_properties,
                          force_key=force_key, energy_unit=energy_unit,
-                         position_unit=position_unit, energy_key=energy_key)
-        check_options(neighbor_list, precision, stress_key)
+                         position_unit=position_unit, energy_key=energy_key,
+                         stress_key=stress_key)
+        check_options(neighbor_list, precision)
+        #: without a stress the cell stays fixed: no NPT integrator
+        self.fixed_cell = stress_key is None
+        if stress_key is not None and neighbor_list == "cellblock":
+            raise ValueError(
+                f"stress_key={stress_key!r} on the column layout "
+                "(neighbor_list='cellblock'): its periodic offsets are not "
+                "strained (model.base.ColumnStressError); use all_pairs, "
+                "dense or cellblock_atom")
+        outputs = getattr(model, "model_outputs", None)
+        if stress_key is not None and outputs is not None \
+                and stress_key not in outputs:
+            raise ValueError(
+                f"stress_key={stress_key!r}: the model returns no such "
+                f"output ({outputs}); build it with Forces(calc_stress=True)")
         self.model = model
         if params is not None:
             self.model.load_state_dict(params)
@@ -168,6 +182,7 @@ class SchNetPackCalculator(PairwiseMDCalculator):
             structure.atom_mask: calc_state["cell_atom_mask"],
             structure.n_atoms: system.n_atoms_per_mol,
             structure.mol_mask: system.positions.new_ones(M),
+            structure.cell: system.cells[0] * inv,
         }
         if structure.cell_qidx in calc_state:
             inputs.update({
@@ -212,29 +227,30 @@ class SchNetPackCalculator(PairwiseMDCalculator):
         return inputs
 
     def _evaluate(self, model, base, system: System, calc_state):
-        """(energy [R, M], forces [R, A, 3] in the original atom order or
-        None) of ``model`` on every replica, in model units: one call over
-        all replicas on the flat and dense layouts, one per replica on the
-        blocked layouts."""
+        """{energy [R, M], forces [R, A, 3] in the original atom order,
+        stress [R, M, 3, 3]} (the keys the model returns) of ``model`` on
+        every replica, in model units: one call over all replicas on the
+        flat and dense layouts, one per replica on the blocked layouts."""
         R_, A, M = system.n_replicas, system.total_atoms, system.n_molecules
+        shapes = {self.energy_key: (R_, M), self.force_key: (R_, A, 3),
+                  self.stress_key: (R_, M, 3, 3)}
         if calc_state is None or "cell_order" not in calc_state:
             out = model(dict(base))
-            forces = out.get(self.force_key)
-            return (out[self.energy_key].detach().reshape(R_, M),
-                    None if forces is None
-                    else forces.detach().reshape(R_, A, 3))
+            return {k: out[k].detach().reshape(shape)
+                    for k, shape in shapes.items() if k in out}
         order, rank = calc_state["cell_order"], calc_state["cell_rank"]
         inv = 1.0 / self.position_conversion
-        energy, forces = [], []
+        runs = []
         for r in range(system.n_replicas):
             inputs = dict(base)
             if r:
                 inputs[structure.R] = system.positions[r, order] * inv
             out = model(inputs)
-            energy.append(out[self.energy_key].detach())
             if self.force_key in out:
-                forces.append(out[self.force_key].detach()[rank])
-        return torch.stack(energy), torch.stack(forces) if forces else None
+                out[self.force_key] = out[self.force_key][rank]
+            runs.append({k: out[k].detach() for k in shapes if k in out})
+        return {k: torch.stack([run[k] for run in runs])
+                for k in runs[0]}
 
     def shared_inputs(self, system: System, calc_state, n_evals: int):
         """The model's inputs, with the column refs made once when more
@@ -245,16 +261,13 @@ class SchNetPackCalculator(PairwiseMDCalculator):
         return base
 
     def calculate(self, system: System, calc_state) -> System:
-        """Energy and forces of every replica, one model evaluation each
-        (see the module's docstring for beads)."""
-        energy, forces = self._evaluate(
+        """Energy, forces and (with ``stress_key``) stress of every
+        replica, one model evaluation each (see the module's docstring for
+        beads)."""
+        return self._update_system(system, self._evaluate(
             self.model,
             self.shared_inputs(system, calc_state, system.n_replicas),
-            system, calc_state)
-        outputs = {self.energy_key: energy}
-        if forces is not None:
-            outputs[self.force_key] = forces
-        return self._update_system(system, outputs)
+            system, calc_state))
 
 
 class EnsembleCalculator(SchNetPackCalculator):
@@ -267,8 +280,9 @@ class EnsembleCalculator(SchNetPackCalculator):
                  wgrad: bool = False, **kwargs):
         super().__init__(models[0], None, cutoff, wgrad=wgrad, **kwargs)
         #: the ``system.properties`` streams it writes, to log
-        self.property_keys = (f"{self.energy_key}_uncertainty",
-                              f"{self.force_key}_uncertainty")
+        self.property_keys = tuple(
+            f"{k}_uncertainty" for k in (self.energy_key, self.force_key,
+                                         self.stress_key) if k is not None)
         self.models = list(models)
         if not wgrad:
             for m in self.models:
@@ -284,15 +298,14 @@ class EnsembleCalculator(SchNetPackCalculator):
                                   system.n_replicas * len(self.models))
         runs = [self._evaluate(m, base, system, calc_state)
                 for m in self.models]
-        energy = torch.stack([e for e, _ in runs])        # [E, R, M]
-        outputs = {self.energy_key: energy.mean(0)}
-        unc = {f"{self.energy_key}_uncertainty":
-               energy.std(0, correction=0) * self.energy_conversion}
-        if runs[0][1] is not None:
-            forces = torch.stack([f for _, f in runs])    # [E, R, A, 3]
-            outputs[self.force_key] = forces.mean(0)
-            unc[f"{self.force_key}_uncertainty"] = (
-                forces.std(0, correction=0) * self.force_conversion)
+        outputs, unc = {}, {}
+        for key, conv in ((self.energy_key, self.energy_conversion),
+                          (self.force_key, self.force_conversion),
+                          (self.stress_key, self.stress_conversion)):
+            if key is None or key not in runs[0]:
+                continue
+            members = torch.stack([run[key] for run in runs])
+            outputs[key] = members.mean(0)
+            unc[f"{key}_uncertainty"] = members.std(0, correction=0) * conv
         system = self._update_system(system, outputs)
         return system.replace(properties={**system.properties, **unc})
-

@@ -30,10 +30,13 @@ Usage:
   layout: molecules, several in one system, or periodic boxes), ``dense``,
   ``cellblock`` (the column layout of one box or molecule, the fused
   kernels) or ``cellblock_atom`` (the 27-cell layout).
+* ``dynamics=npt`` with a model calculator needs
+  ``calculator.stress_key=stress`` and a run directory whose model has
+  ``Forces(calc_stress=True)``, on ``calculator.neighbor_list=all_pairs``.
 * Refused before the first step: ``calculator.precision=bf16`` or
-  ``mixed`` (ROADMAP Queue 1 item 8), a ``calculator.stress_key`` (item
-  7), a barostat with the model calculators (they compute no stress), and
-  ``calculator=orca`` (item 4).
+  ``mixed`` (ROADMAP Queue 1 item 8), a barostat with a model calculator
+  without a stress or on a skin neighbor list, and ``calculator=orca``
+  (item 4).
 """
 from __future__ import annotations
 

@@ -28,8 +28,11 @@ simulator hands the integrator that hook's current state (the one it
 owns, so a restored state after ``load_state_dict``), where the JAX
 package passes it through the barostat's ``_live_state``
 (``barostats.py:111-112, 131-152``).  A calculator with ``fixed_cell``
-(``SchNetPackCalculator``: the port's models compute no stress) refuses
-an NPT integrator at construction.
+(a ``SchNetPackCalculator`` without a ``stress_key``) refuses an NPT
+integrator at construction, and so does one on a skin neighbor list
+(``dense``, ``cellblock``, ``cellblock_atom``): those keep the periodic
+offsets of their last build while the cell moves, where ``all_pairs``
+takes them from the current cell at every step.
 """
 from __future__ import annotations
 
@@ -72,12 +75,18 @@ class Simulator:
                  simulator_hooks: Sequence = (), seed: int = 42,
                  log_keys: Sequence[str] = LOG_KEYS,
                  progress: bool = False):
-        if (getattr(integrator, "pressure_control", False)
-                and getattr(calculator, "fixed_cell", False)):
-            raise NotImplementedError(
-                f"{type(calculator).__name__} cannot run under the NPT "
-                f"integrator {type(integrator).__name__}: the port's models "
-                "compute no stress (ROADMAP Queue 1 item 7)")
+        if getattr(integrator, "pressure_control", False):
+            name = (f"{type(calculator).__name__} cannot run under the NPT "
+                    f"integrator {type(integrator).__name__}")
+            if getattr(calculator, "fixed_cell", False):
+                raise ValueError(
+                    f"{name}: it computes no stress; give it a stress_key "
+                    "and a model with Forces(calc_stress=True)")
+            if getattr(calculator, "nbl", None) is not None:
+                raise ValueError(
+                    f"{name} on a skin neighbor list, which keeps the "
+                    "offsets of its build while the cell moves: use "
+                    "neighbor_list='all_pairs'")
         self.system = system
         self.integrator = integrator
         self.calculator = calculator

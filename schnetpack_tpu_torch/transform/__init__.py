@@ -9,6 +9,7 @@ from .atomistic import (
 )
 from .base import ComposedTransform, Transform
 from .casting import CastMap, CastTo32, CastTo64
+from .response import SplitShielding
 from .neighborlist import (
     ASENeighborList,
     CachedNeighborList,
@@ -26,7 +27,7 @@ from .neighborlist import (
 __all__ = [
     "AddOffsets", "RemoveOffsets", "ScaleProperty",
     "SubtractCenterOfGeometry", "SubtractCenterOfMass",
-    "CastMap", "CastTo32", "CastTo64",
+    "CastMap", "CastTo32", "CastTo64", "SplitShielding",
     "ComposedTransform", "Transform",
     "ASENeighborList", "CachedNeighborList", "CollectAtomTriples",
     "CountNeighbors", "FilterNeighbors", "MatScipyNeighborList",

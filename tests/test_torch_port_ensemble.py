@@ -259,16 +259,16 @@ def tiny_potential():
 @pytest.mark.parametrize("options,error,match", [
     (dict(neighbor_list="all_pairs", precision="bf16"), NotImplementedError,
      "item 8"),
-    (dict(neighbor_list="dense", stress_key="stress"), NotImplementedError,
-     "item 7"),
+    (dict(neighbor_list="dense", stress_key="stress"), ValueError,
+     "calc_stress"),
     (dict(neighbor_list="cellblock", precision="bf16"), NotImplementedError,
      "item 8"),
     (dict(neighbor_list="cellblock", precision="mixed"),
      NotImplementedError, "item 8"),
     (dict(neighbor_list="cellblock", stress_key="stress"),
-     NotImplementedError, "item 7"),
+     ValueError, "column layout"),
     (dict(neighbor_list="cellblock_atom", stress_key="stress"),
-     NotImplementedError, "item 7"),
+     ValueError, "calc_stress"),
     (dict(neighbor_list="verlet"), ValueError, "cellblock"),
     (dict(neighbor_list="cellblock", precision="f16"), ValueError,
      "precision"),
