@@ -43,6 +43,14 @@ Phases (any failure exits non-zero before the last line is printed):
    3.35 TB/s and its FP32 operations at 67 TFLOP/s (H100 SXM data sheet),
    the operations those this run's data needs (the filter and products
    of K1/K2, K6/K7, K18 and K20 only on the slots inside the cutoff);
+   K1/K2 and K6/K7 also in their instances of the reduced-precision
+   feature mode (sub-rows "mixed" and "bf16", K2/K7 also with wgrad), on
+   the same inputs with the features and cotangents in the mode's type
+   (bf16 at one piece, so the bound counts the mode's bytes), held to
+   their twins at the same pieces: per edge a rounding flip of one ulp of
+   the mode (2^-7 of the term at bf16, 2^-15 at mixed) on top of the f32
+   tolerance, S the sum of the terms' absolute values (the twin on
+   |inputs|), and K2/K7's dR within 2^-7 of max |dR| at bf16;
 4. hold the port's energy and forces on the card to the JAX references
    (force rms <= 1e-4 eV/Ang, energy within 1e-5 relative): PaiNN in both
    message forms (``fuse`` = hybrid and full) to
@@ -241,7 +249,30 @@ Phases (any failure exits non-zero before the last line is printed):
    on ``all_pairs``, NHC iso, a 500-atom FCC argon box: the step-0 stress
    equal to a one-off ``calculate``'s, 300 steps at 0 and at 2 kbar, V/V0
    in 0.8-1.1, the 2 kbar run's volume the smaller;
-13. print the kernel table (every row and sub-row with ``ms`` and
+13. the reduced-precision feature mode (``precision_phase``; the
+   calculator's ``precision``, ``ops/precision.py``), each part's launches
+   counted from zero: (a) PaiNN-128x3 in ``fuse`` full and hybrid at
+   mixed and bf16 on ``port_ref_painn_argon.npz``'s box against that JAX
+   f32 fixture: max |dF| / max |F| < 5e-3 (mixed) and < 5e-2 (bf16), the
+   JAX package's own envelope (``tests/test_colblock.py:676-677``), the
+   rms error over the force rms printed beside the JAX package's TPU
+   study (0.75 %), full against hybrid (rms) at each mode, K1/K2 (full)
+   or K5 1 and K6/K7 (hybrid) in the mode's instances, 3 each with
+   K3/K4; (b) 300 NVE steps of ``full`` at bf16 on the bench box with
+   phase 6's gates and launches, then 1,000 NVE steps each at f32 and at
+   bf16 from that run's last state, their energy drift (max and slope)
+   side by side; (c) the launches per step of every run in the mode's
+   instances, as at f32; (d) the ms/step of ``full`` and ``hybrid`` at
+   f32, mixed and bf16 (CUDA events, the median of 5 alternated chunks of
+   100 steps, peak device memory); (e) ``spkmd`` at
+   ``calculator.precision=bf16`` from a PaiNN run directory written as
+   phase 9's: ``build_calculator``'s forces on the fixture's box at (a)'s
+   gate, then one 20-step chunk each of NVE, 8-bead RPMD and the
+   two-member ensemble with their ms/step; (f) PaiNN and SchNet on the
+   27-cell layout and SO3net on the column layout refuse bf16
+   (``ReducedPrecisionPathError``) before any launch; the sub-rows'
+   launches are this phase's;
+14. print the kernel table (every row and sub-row with ``ms`` and
    ``device_ms``, ``library_ms`` and ``library_device_ms``) and the card
    as JSON, then the result line.
 
@@ -283,6 +314,33 @@ REFERENCE = {
 }
 CUTOFF, SKIN = 5.0, 0.6          # Angstrom
 RTOL, ATOL = 1e-4, 1e-5          # kernel vs twin, elementwise
+#: the reduced-precision feature mode (phases 3 and 13): a message
+#: kernel's instance against its twin at the same pieces may round an
+#: edge's term one ulp of the mode apart (2^-7 at one piece, 2^-15 at two,
+#: of that term); dR, through the geometry chain, within 2^-7 of max |dR|
+#: at one piece.  Those bounds hold an instance that leaves out its
+#: per-edge rounding as well (at most half an ulp a term), so each output's
+#: mode effect is held too: the instance's distance from the f32 instance
+#: on the same rounded inputs over its twin's from the f32 twin, in rms,
+#: within MODE_EFFECT (the same rounding of the same values: ~1; an
+#: instance that skips a rounding point: ~0 on the outputs it reaches)
+REDUCED = ("mixed", "bf16")
+MODE_EFFECT = (0.5, 2.0)
+#: the message kernels with mixed and bf16 instances (counted apart)
+MODE_KERNELS = ("msg_fwd", "msg_bwd", "msg_fwd_geo", "msg_bwd_geores")
+#: phase 13: max |dF| / max |F| against the JAX f32 fixture, the JAX
+#: package's own envelope of its modes (tests/test_colblock.py:676-677)
+PRECISION_FORCE_TOL = {"mixed": 5e-3, "bf16": 5e-2}
+#: the JAX package's TPU study of its bf16 mode: force rms error over the
+#: force rms against exact f32 (bench.py:278-282, accuracy only)
+JAX_STUDY_RMS = 0.0075
+PRECISION_NVE_STEPS = 300
+PRECISION_DRIFT_STEPS = 1000     # each of f32 and bf16 from one state
+PRECISION_ROUNDS = 5             # alternated timing chunks a path and mode
+PRECISION_CHUNK = 100
+PRECISION_SPKMD_STEPS = 20       # one chunk
+REDUCED_ULP = {2: 2.0 ** -15, 1: 2.0 ** -7}
+DR_SHARE = 2.0 ** -7
 #: the mixing's and cfconv's weight cotangents vs the f64 twin, normwise
 #: (||g - w|| <= NORM_RTOL ||w||): sums over 12,800 rows or ~200k edges of
 #: products of the kernels' f32 factors, whose rounding (~1e-6 relative
@@ -291,16 +349,19 @@ RTOL, ATOL = 1e-4, 1e-5          # kernel vs twin, elementwise
 NORM_RTOL = 1e-5
 #: the sources of the ptxas report of the build (the message, mixing and
 #: cfconv kernels) and their template kernels' parameters, per kernel name
+_MSG_FWD = {"msg_fwd_kernel": ("kIn", "kB4", "kP")}
+_MSG_BWD = {"msg_bwd_kernel": ("kMode", "kWgrad", "kB4", "kP")}
 PTXAS_SOURCES = {
-    "colblock_message.cu": {"msg_fwd_kernel": ("kIn", "kB4")},
-    "colblock_message_bwd.cu": {"msg_bwd_kernel": ("kMode", "kWgrad", "kB4")},
+    **{f"colblock_message{m}.cu": _MSG_FWD for m in ("", "_mixed", "_bf16")},
+    **{f"colblock_message_bwd{m}.cu": _MSG_BWD
+       for m in ("", "_mixed", "_bf16")},
     "painn_mixing.cu": {"mix_fwd_kernel": ("ROWS", "NW")},
     "schnet_columns.cu": {"cf_fwd_kernel": ("F",),
                           "cf_bwd_kernel": ("kWgrad", "F")}}
 #: the numbers of a kernel row that its sub-rows carry
 SUB_KEYS = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
             "bound_by", "tf32x3_floor_ms", "library_ms", "library_device_ms",
-            "wgrad")
+            "mode_effect", "wgrad")
 FORCE_RMS_TOL = 1e-4             # eV/Ang vs the JAX reference
 ENERGY_RTOL = 1e-5
 GRAD_RTOL = 1e-4                 # per leaf, ||g - g_jax|| / ||g_jax||
@@ -311,6 +372,7 @@ REBUILD_JITTER = 0.25            # Angstrom, per component
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM (NVIDIA data sheet)
 FP32_FLOP_PER_S = 67e12          # FP32 outside the tensor cores, same
 TF32_FLOP_PER_S = 495e12         # TF32 on the tensor cores, dense, same
+BF16_FLOP_PER_S = 989e12         # bf16 on the tensor cores, dense, same
 #: kernel launches per MD step on each path (PaiNN's two message forms,
 #: SchNet, SO3net: the positions' gather and expand, then per block the
 #: feature gather and the message fold and, by autograd, their VJPs, with
@@ -625,13 +687,22 @@ def in_f64(fn, *args):
     return tuple(o.float() for o in out)
 
 
-def compare(name, got, want, norm_from=None, exact=False):
+def compare(name, got, want, norm_from=None, exact=False, bound=None):
     """Max abs difference; elementwise rtol/atol (``exact``: equal), from
-    output ``norm_from`` on normwise."""
+    output ``norm_from`` on normwise; with ``bound`` (a reduced-precision
+    instance), per output an elementwise bound tensor, a float (a share of
+    the output's max |value|) or None (rtol/atol)."""
     rtol, atol = (0.0, 0.0) if exact else (RTOL, ATOL)
     err = 0.0
     for i, (g, w) in enumerate(zip(got, want)):
-        if norm_from is not None and i >= norm_from:
+        if bound is not None and bound[i] is not None:
+            lim = bound[i]
+            if isinstance(lim, float):
+                lim = lim * float(w.abs().max())
+            worst = float(((g - w).abs() / lim).max())
+            assert worst <= 1.0, (
+                f"{name}: output {i} off by {worst:.3f} of its bound")
+        elif norm_from is not None and i >= norm_from:
             d = float((g.double() - w.double()).norm())
             assert d <= NORM_RTOL * float(w.double().norm()), (
                 f"{name}: output {i} off by {d} (norm {w.norm()})")
@@ -720,7 +791,7 @@ def layout_str(state):
 
 
 def calculator(pot, params, jitter=0.25, headroom=1.0 / 12.0,
-               layout="column", wgrad=False):
+               layout="column", wgrad=False, precision=None):
     from schnetpack_tpu_torch.md import CellBlockNeighborListMD
     from schnetpack_tpu_torch.md.calculators import SchNetPackCalculator
     from schnetpack_tpu_torch.units import _parse_unit, md_units
@@ -730,7 +801,8 @@ def calculator(pot, params, jitter=0.25, headroom=1.0 / 12.0,
                                   layout=layout, jitter_fraction=jitter,
                                   bucket_headroom=headroom)
     return SchNetPackCalculator(pot, params, cutoff=CUTOFF, cutoff_shell=SKIN,
-                                neighbor_list=nbl, wgrad=wgrad)
+                                neighbor_list=nbl, wgrad=wgrad,
+                                precision=precision)
 
 
 def run_inputs(calc, system):
@@ -763,12 +835,14 @@ def nbytes(*tensors):
     return total
 
 
-def bound(n_bytes, flops):
+def bound(n_bytes, flops, bf16_flops=0):
     """(ms, "bytes" or "operations"): the least time the card could take,
-    the larger of the bytes at the HBM rate and the FP32 operations at the
-    FP32 peak."""
+    the larger of the bytes at the HBM rate and the operations: the FP32
+    ``flops`` at the FP32 peak or the ``bf16_flops`` (products with bf16
+    operands on the tensor cores) at the bf16 peak, whichever is longer
+    (the two units run side by side)."""
     t_bytes = 1e3 * n_bytes / HBM_BYTES_PER_S
-    t_ops = 1e3 * flops / FP32_FLOP_PER_S
+    t_ops = 1e3 * max(flops / FP32_FLOP_PER_S, bf16_flops / BF16_FLOP_PER_S)
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -798,26 +872,37 @@ def check_kernels(cases):
     rows = []
     for c in cases:
         name, kern, plain = c["name"], c["kern"], c["plain"]
-        got = kern()
-        err = compare(name, got, (c.get("ref") or plain)(),
-                      c.get("norm_from"), c.get("exact", False))
+        got, want = kern(), (c.get("ref") or plain)()
+        err = compare(name, got, want, c.get("norm_from"),
+                      c.get("exact", False), c.get("bound"))
+        effect = ""
+        if c.get("control"):
+            ratios = mode_effect(name + c.get("tag", ""), got, want,
+                                 c["control"])
+            effect = ", mode effect " + "/".join(
+                "-" if r is None else f"{r:.3f}" for r in ratios)
+        del want
         ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
         dev_ms = device_ms(kern)
         lib_ms = lib_dev_ms = None
         if c.get("library"):
             lib_ms = cuda_ms(c["library"])
             lib_dev_ms = device_ms(c["library"])
-        bound_ms, bound_by = bound(nbytes(c["inputs"], got), c["flops"])
+        bound_ms, bound_by = bound(nbytes(c["inputs"], got), c["flops"],
+                                   c.get("bf16_flops") or 0)
         lib = ("none" if lib_ms is None
                else f"{lib_ms:.4f} ms (device {lib_dev_ms:.4f})")
         floor = ""
         if c.get("tc_flops"):   # the kernel's own 3xTF32 work
             floor_ms = 1e3 * c["tc_flops"] / TF32_FLOP_PER_S
             floor = f", 3xTF32 floor {floor_ms:.4f} ms"
+        if c.get("bf16_flops"):   # the products with bf16 operands
+            floor += (f", its bf16 tensor-core products "
+                      f"{1e3 * c['bf16_flops'] / BF16_FLOP_PER_S:.4f} ms")
         print(f"kernel {name}{c.get('tag', '')}: max_abs_err={err:.3e} "
               f"{ms:.4f} ms (device {dev_ms:.4f}; plain twin {plain_ms:.4f} "
               f"ms, library {lib}, bound {bound_ms:.4f} ms by {bound_by}"
-              f"{floor})", flush=True)
+              f"{floor}{effect})", flush=True)
         row = {"name": name, "route": "cuda",
                "source": f"schnetpack_tpu_torch/csrc/{c['src']}",
                "replaces": f"schnetpack_tpu/ops/{c['replaces']}",
@@ -825,8 +910,10 @@ def check_kernels(cases):
                "plain_ms": plain_ms, "bound_ms": bound_ms,
                "bound_by": bound_by, "library_ms": lib_ms,
                "library_device_ms": lib_dev_ms}
-        if floor:
+        if c.get("tc_flops"):
             row["tf32x3_floor_ms"] = floor_ms
+        if effect:
+            row["mode_effect"] = ratios
         if c.get("wgrad"):   # the kernel's wgrad instance, also gFW
             (w,) = check_kernels([dict(c, **{"tc_flops": None, **c["wgrad"]},
                                        wgrad=None,
@@ -836,6 +923,31 @@ def check_kernels(cases):
     return rows
 
 
+def rms(t):
+    return float(t.double().square().mean().sqrt())
+
+
+def mode_effect(name, got, want, control):
+    """Per output, the reduced instance's mode effect over its twin's:
+    rms(instance - f32 instance) / rms(twin - f32 twin), the f32 pair
+    of ``control`` (its f32 instance, its f32 twin and the number of
+    leading outputs that a rounding of the mode reaches) on the inputs
+    rounded as the mode rounds them, held to ``MODE_EFFECT``; None for the
+    outputs the mode leaves exact (on the card the twin's sums there can
+    still differ run to run)."""
+    kern3, plain3, reached = control
+    out = []
+    for i, (g, w, g3, w3) in enumerate(zip(got, want, kern3(), plain3())):
+        if i >= reached:
+            out.append(None)
+            continue
+        r = rms(g - g3) / rms(w - w3)
+        assert MODE_EFFECT[0] <= r <= MODE_EFFECT[1], (
+            f"{name}: output {i}'s mode effect is {r:.3f} of its twin's")
+        out.append(r)
+    return out
+
+
 def sub_row(row):
     """The numbers of a row, for a sub-row of another (a wgrad instance, a
     width, a source-index mode or a layout)."""
@@ -843,17 +955,24 @@ def sub_row(row):
 
 
 def case(name, src, replaces, kern, plain, inputs, flops, library=None,
-         wgrad=None, exact=False, tc_flops=None):
+         wgrad=None, exact=False, tc_flops=None, bound=None,
+         bf16_flops=None, control=None):
     """One kernel of the table; ``wgrad`` (``kern``, ``plain``, ``flops``
     and ``ref``, what the kernel is held to, where that is not ``plain``)
     adds its wgrad instance as a sub-row; ``exact``: a copy, held to its
     twin bit for bit; ``tc_flops``: the operations of a kernel that runs
     its products as three TF32 passes on the tensor cores, whose time at
-    the TF32 peak is printed beside the FP32 bound as its floor."""
+    the TF32 peak is printed beside the FP32 bound as its floor; ``bound``:
+    ``compare``'s per-output bounds of a reduced-precision instance;
+    ``bf16_flops``: the operations, not in ``flops``, of products with
+    bf16 operands on the tensor cores (charged at the bf16 peak);
+    ``control``: a reduced instance's f32 instance and f32 twin on its
+    rounded inputs and the outputs its mode reaches (``mode_effect``)."""
     return {"name": name, "src": src, "replaces": replaces, "kern": kern,
             "plain": plain, "inputs": inputs, "flops": flops,
             "library": library, "wgrad": wgrad, "exact": exact,
-            "tc_flops": tc_flops}
+            "tc_flops": tc_flops, "bound": bound, "bf16_flops": bf16_flops,
+            "control": control}
 
 
 def real_edges(refs):
@@ -1006,7 +1125,119 @@ def kernel_phase(calc, system, seed, dev):
         c["tag"] = " (F = 256)"
     for row, r2 in zip(rows, check_kernels(wide)):
         row["F256"] = sub_row(r2)
+    del wide, x2, mu2, FW2, c2, a2
+    by_name = {row["name"]: row for row in rows}
+    for precision in REDUCED:
+        for r in reduced_kernel_rows(precision, margs, hargs, bargs, geo,
+                                     (g_dq, g_dmu), idx, msg_fwd, msg_bwd,
+                                     gfw, ne, B):
+            by_name[r.pop("name")][precision] = r
     return rows
+
+
+def reduced_bounds(pieces, S, dR_share):
+    """``compare``'s bounds of a reduced-precision instance against its
+    twin at the same pieces: per edge a rounding flip of one ulp of the
+    mode (``REDUCED_ULP``) of each term, whose sum S the twin gives on
+    |inputs|, beside the f32 tolerance; dR (``dR_share``, None for the
+    forward) as a share of max |dR| at one piece, else the f32 tolerance
+    (at two pieces no rounding reaches the geometry chain)."""
+    out = [REDUCED_ULP[pieces] * t + ATOL + RTOL * t for t in S]
+    if dR_share is not None:
+        out.insert(2, dR_share if pieces == 1 else None)
+    return out
+
+
+def reduced_kernel_rows(precision, margs, hargs, bargs, geo, cots, idx,
+                        msg_fwd, msg_bwd, gfw, ne, B):
+    """K1/K2 and K6/K7 in the instances of ``precision`` against their
+    twins at the same pieces, at phase 3's inputs (features and
+    cotangents bf16 at one piece, so the bytes are the mode's), each with
+    its mode effect against the f32 instance and twin; returns the
+    sub-rows, named by their rows.  At one piece K2/K7's P3 (grbf, and
+    with wgrad gFW: ``gfw`` operations each) runs on bf16 operands on the
+    tensor cores, so those operations are charged at the bf16 peak."""
+    from schnetpack_tpu_torch.ops import colblock_message as msg
+    from schnetpack_tpu_torch.ops.precision import PIECES, round_pieces
+
+    p = PIECES[precision]
+    x, mu, R, FW, coff, cw, refs, rc = margs
+    xp, mup, gq, gm = (msg.feat(t, p) for t in (x, mu, *cots))
+    ma = (xp, mup, R, FW, coff, cw, refs, rc)
+    ha = (xp, mup, geo, FW, refs)
+    ba = (xp, mup, geo, FW, cw, refs, rc, gq, gm)
+    # the f32 instances' and twins' inputs: rounded as the mode rounds them
+    xr, mur, gqr, gmr = (round_pieces(t, p) for t in (x, mu, *cots))
+    ma3 = (xr, mur, R, FW, coff, cw, refs, rc)
+    ha3 = (xr, mur, geo, FW, refs)
+    ba3 = (xr, mur, geo, FW, cw, refs, rc, gqr, gmr)
+    with torch.no_grad():   # S: the twins on |inputs| (all terms >= 0)
+        ab = [t.abs() for t in (x, mu, geo, FW)]
+        S_f = msg.msg_fwd_geo_plain(*ab, refs)
+        S_b = msg.msg_bwd_geores_plain(*ab, cw, refs, rc,
+                                       *(t.abs() for t in cots))
+    fwd_b = reduced_bounds(p, S_f, None)
+    bwd_b = reduced_bounds(p, S_b[:2], DR_SHARE)
+    bwd_bw = bwd_b + reduced_bounds(p, S_b[3:], None)
+    tc = gfw if p == 1 else 0   # P3's products on bf16 operands, each
+    # the outputs a rounding of the mode reaches: at two pieces the
+    # features' (dq, dmu; dx, dmu), not dR or gFW
+    reach = 2 if p == 2 else 4
+    tag = f" ({precision})"
+    cases = [
+        case("msg_fwd", "colblock_message.cu", "colblock_pallas.py:1889",
+             lambda: msg.msg_fwd_kernel(*ma, pieces=p),
+             lambda: msg.msg_fwd_plain(*margs, pieces=p),
+             (xp, mup, R, FW, coff, cw, idx), msg_fwd + ne * geo_flops(B),
+             bound=fwd_b,
+             control=(lambda: msg.msg_fwd_kernel(*ma3),
+                      lambda: msg.msg_fwd_plain(*ma3), reach)),
+        case("msg_bwd", "colblock_message_bwd.cu", "colblock_pallas.py:1239",
+             lambda: msg.msg_bwd_kernel(*ma, gq, gm, pieces=p),
+             lambda: msg.msg_bwd_plain(*margs, *cots, pieces=p)[:3],
+             (xp, mup, R, FW, coff, cw, idx, gq, gm),
+             msg_bwd - tc + 2 * ne * geo_flops(B), bound=bwd_b,
+             bf16_flops=tc,
+             control=(lambda: msg.msg_bwd_kernel(*ma3, gqr, gmr),
+                      lambda: msg.msg_bwd_plain(*ma3, gqr, gmr)[:3], reach),
+             wgrad={"kern": lambda: msg.msg_bwd_kernel(
+                        *ma, gq, gm, wgrad=True, pieces=p),
+                    "plain": lambda: msg.msg_bwd_plain(*margs, *cots,
+                                                       pieces=p),
+                    "flops": msg_bwd + 2 * ne * geo_flops(B) + gfw - 2 * tc,
+                    "bf16_flops": 2 * tc, "bound": bwd_bw,
+                    "control": (lambda: msg.msg_bwd_kernel(
+                                    *ma3, gqr, gmr, wgrad=True),
+                                lambda: msg.msg_bwd_plain(*ma3, gqr,
+                                                          gmr), reach)}),
+        case("msg_fwd_geo", "colblock_message.cu", "colblock_pallas.py:687",
+             lambda: msg.msg_fwd_geo_kernel(*ha, pieces=p),
+             lambda: msg.msg_fwd_geo_plain(*hargs, pieces=p),
+             (xp, mup, geo, FW, idx), msg_fwd, bound=fwd_b,
+             control=(lambda: msg.msg_fwd_geo_kernel(*ha3),
+                      lambda: msg.msg_fwd_geo_plain(*ha3), reach)),
+        case("msg_bwd_geores", "colblock_message_bwd.cu",
+             "colblock_pallas.py:1570",
+             lambda: msg.msg_bwd_geores_kernel(*ba, pieces=p),
+             lambda: msg.msg_bwd_geores_plain(*bargs, pieces=p)[:3],
+             (xp, mup, geo, FW, cw, idx, gq, gm),
+             msg_bwd - tc + ne * geo_flops(B), bound=bwd_b, bf16_flops=tc,
+             control=(lambda: msg.msg_bwd_geores_kernel(*ba3),
+                      lambda: msg.msg_bwd_geores_plain(*ba3)[:3], reach),
+             wgrad={"kern": lambda: msg.msg_bwd_geores_kernel(
+                        *ba, wgrad=True, pieces=p),
+                    "plain": lambda: msg.msg_bwd_geores_plain(*bargs,
+                                                              pieces=p),
+                    "flops": msg_bwd + ne * geo_flops(B) + gfw - 2 * tc,
+                    "bf16_flops": 2 * tc, "bound": bwd_bw,
+                    "control": (lambda: msg.msg_bwd_geores_kernel(
+                                    *ba3, wgrad=True),
+                                lambda: msg.msg_bwd_geores_plain(*ba3),
+                                reach)}),
+    ]
+    for c in cases:
+        c["tag"] = tag
+    return [dict(sub_row(r), name=r["name"]) for r in check_kernels(cases)]
 
 
 def schnet_kernel_phase(calc, system, seed, dev):
@@ -1661,23 +1892,31 @@ def rebuild_phase(seed, dev):
     assert rms <= REBUILD_FORCE_RMS_TOL, f"force rms {rms}"
 
 
-def md_phase(path, pos, cell, steps, seed, dev, launches):
-    """NVE run on one path of ``PATHS``; returns (launch counts,
-    ms/step).  The ms/step is the CUDA-event time of the run over the
-    steps, host rebuilds included; for painn_cell, whose rebuilds all run
-    on the host, it is also printed with their wall time subtracted."""
+def md_phase(path, pos, cell, steps, seed, dev, launches, precision=None,
+             keep=None):
+    """NVE run on one path of ``PATHS`` (PaiNN's in the feature mode
+    ``precision``, phase 13); returns (launch counts, ms/step), and puts
+    the simulator in ``keep`` where that is a dict.  The ms/step is the
+    CUDA-event time of the run over the steps, host rebuilds included; for
+    painn_cell, whose rebuilds all run on the host, it is also printed
+    with their wall time subtracted."""
     from schnetpack_tpu_torch.md import (
         MaxwellBoltzmannInit, Simulator, VelocityVerlet, load_molecules,
     )
     from schnetpack_tpu_torch.units import md_units
 
     pot, params = potential(path)
-    calc = calculator(pot, params, layout=layout_of(path))
+    calc = calculator(pot, params, layout=layout_of(path),
+                      precision=precision)
     nbl = calc.nbl
     system = load_molecules([molecule(pos, cell)], device=dev)
     system = MaxwellBoltzmannInit(30.0).initialize_system(
         system, torch.Generator().manual_seed(seed + 1))
     sim = Simulator(system, VelocityVerlet(0.5), calc)
+    if keep is not None:
+        keep["sim"] = sim
+    if precision is not None:
+        path = f"{path}, {precision}"
     sim.simulate(100, chunk_size=100)            # warm-up (equilibration)
     nbl.retighten(sim.system, jitter_fraction=0.05,
                   bucket_headroom=1.0 / 24.0)
@@ -1724,9 +1963,8 @@ def md_phase(path, pos, cell, steps, seed, dev, launches):
     assert np.isfinite(R).all(), "non-finite positions"
     assert 0.0 < T < 300.0, f"temperature {T} K"
     assert drift <= DRIFT_TOL, f"energy drift {drift} eV/atom"
-    for k, v in counts.items():
-        want = PER_STEP[path].get(k, 0) * steps
-        assert v == want, f"{path}: {k} launched {v} times, want {want}"
+    check_launches(path, counts, mode_counts(
+        PER_STEP[path.split(",")[0]], precision), steps)
     if layout_of(path) == "atom":
         assert device == 0, f"{device} device rebuilds on the atom layout"
     else:
@@ -1734,6 +1972,14 @@ def md_phase(path, pos, cell, steps, seed, dev, launches):
             f"{host} host rebuilds after the retighten, {overflows} "
             "overflows")
     return counts, ms_step
+
+
+def mode_counts(per_step, precision):
+    """``per_step`` with the message kernels' counters of the feature mode
+    ``precision`` (None, "f32", "mixed" or "bf16")."""
+    suffix = {"mixed": "_mixed", "bf16": "_bf16"}.get(precision, "")
+    return {(k + suffix if k in MODE_KERNELS else k): v
+            for k, v in per_step.items()}
 
 
 def reset(launches):
@@ -2328,6 +2574,222 @@ def spkmd_phase(pos, cell, seed, dev, launches, smi):
                 assert 0.5 * v0 < v1 < 0.995 * v0, f"{baro}: V/V0 {v1 / v0}"
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    return total
+
+
+def energy_drift(sim, calc, dt_fs=0.5):
+    """(max |E_tot(t) - E_tot(0)|, the least-squares slope of E_tot(t)
+    in eV per atom per ps) over the logged steps."""
+    E = np.concatenate([lg["energy"] + lg["kinetic_energy"]
+                        for lg in sim.logs]).sum(axis=(1, 2))
+    E = E / calc.energy_conversion / sim.system.total_atoms
+    t = np.arange(len(E)) * dt_fs * 1e-3
+    return float(np.abs(E - E[0]).max()), float(np.polyfit(t, E, 1)[0])
+
+
+def precision_forces_phase(dev, launches, smi):
+    """Phase 13 (a): PaiNN-128x3 in both message forms at each reduced
+    mode on the fixture's box against the JAX f32 fixture, its launches
+    per evaluation; returns the launch counts."""
+    from schnetpack_tpu_torch.md import load_molecules
+
+    ref = np.load(REFERENCE["full"])
+    F_ref = ref["forces"]
+    scale, rms_ref = np.abs(F_ref).max(), np.sqrt(np.mean(F_ref ** 2))
+    total, forces = {}, {}
+    for precision in REDUCED:
+        for fuse in ("full", "hybrid"):
+            calc = calculator(*potential(fuse), precision=precision)
+            system = load_molecules([molecule(ref["R"].astype(np.float64),
+                                              ref["cell"])], device=dev)
+            state = calc.init_state(system)
+            reset(launches)
+            system = calc.calculate(system, state)
+            counts = read_counts(launches)
+            check_launches(f"precision ({fuse}, {precision})", counts,
+                           mode_counts(PER_STEP[fuse], precision), 1)
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+            F = (system.forces[0] / calc.force_conversion).cpu().numpy()
+            d = F - F_ref
+            err = float(np.abs(d).max() / scale)
+            rms = float(np.sqrt(np.mean(d ** 2)) / rms_ref)
+            print(f"precision ({fuse}, {precision}): forces vs the JAX f32 "
+                  f"fixture: max |dF| / max |F| {err:.3e} (gate "
+                  f"{PRECISION_FORCE_TOL[precision]:g}), rms |dF| / rms |F| "
+                  f"{100 * rms:.4f} % (the JAX package's TPU study of its "
+                  f"bf16 mode: {100 * JAX_STUDY_RMS:.2f} %)", flush=True)
+            assert np.isfinite(F).all() and F.shape == F_ref.shape
+            assert err < PRECISION_FORCE_TOL[precision], (
+                f"{fuse} {precision}: max |dF| / max |F| {err}")
+            forces[fuse] = F
+        d = forces["full"] - forces["hybrid"]
+        print(f"precision ({precision}): full vs hybrid forces rms "
+              f"{np.sqrt(np.mean(d ** 2)):.3e}, max {np.abs(d).max():.3e} "
+              "eV/Ang", flush=True)
+    return total
+
+
+def precision_md_phase(pos, cell, seed, dev, launches, smi):
+    """Phase 13 (b)-(d): 300 NVE steps of ``full`` at bf16 (phase 6's
+    gates), then f32 and bf16 NVE from that run's last state side by side,
+    then the ms/step of ``full`` and ``hybrid`` in each mode, alternated;
+    returns the launch counts."""
+    from schnetpack_tpu_torch.md import (
+        MaxwellBoltzmannInit, Simulator, VelocityVerlet, load_molecules,
+    )
+
+    keep = {}
+    total, _ = md_phase("full", pos, cell, PRECISION_NVE_STEPS, seed, dev,
+                        launches, precision="bf16", keep=keep)
+    start = keep["sim"].system
+    line = []
+    for precision in (None, "bf16"):
+        calc = calculator(*potential("full"), precision=precision)
+        system = start.replace(positions=start.positions.clone(),
+                               momenta=start.momenta.clone())
+        sim = Simulator(system, VelocityVerlet(0.5), calc)
+        reset(launches)
+        sim.simulate(PRECISION_DRIFT_STEPS, chunk_size=100)
+        check_launches(f"precision drift ({precision})", read_counts(
+            launches), mode_counts(PER_STEP["full"], precision),
+            PRECISION_DRIFT_STEPS + 1)
+        for k, v in read_counts(launches).items():
+            total[k] = total.get(k, 0) + v
+        worst, slope = energy_drift(sim, calc)
+        assert np.isfinite(sim.system.positions.cpu().numpy()).all()
+        line.append(f"{precision or 'f32'}: max |E_tot - E_tot(0)| "
+                    f"{worst:.3e} eV/atom, slope {slope:+.3e} eV/atom/ps")
+    print(f"precision (full): {PRECISION_DRIFT_STEPS} NVE steps from one "
+          f"state, {'; '.join(line)}; {smi}", flush=True)
+
+    # ms/step per path and mode, alternated, the median over rounds
+    runs = {}
+    for fuse in ("full", "hybrid"):
+        for precision in ("f32",) + REDUCED:
+            calc = calculator(*potential(fuse), precision=precision)
+            system = load_molecules([molecule(pos, cell)], device=dev)
+            system = MaxwellBoltzmannInit(T_BATH).initialize_system(
+                system, torch.Generator().manual_seed(seed + 5))
+            sim = Simulator(system, VelocityVerlet(0.5), calc)
+            sim.simulate(20, chunk_size=20)          # warm-up
+            runs[(fuse, precision)] = (sim, [], [])
+    for r in range(PRECISION_ROUNDS):
+        for key in list(runs)[::1 if r % 2 == 0 else -1]:
+            sim, ms, peak = runs[key]
+            reset(launches)
+            m, gib = timed_run(sim, PRECISION_CHUNK)
+            counts = read_counts(launches)
+            check_launches(f"precision timing {key}", counts, mode_counts(
+                PER_STEP[key[0]], key[1]), PRECISION_CHUNK)
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+            ms.append(m)
+            peak.append(gib)
+    print(f"precision: ms/step (CUDA events, median of {PRECISION_ROUNDS} "
+          f"alternated chunks of {PRECISION_CHUNK} steps; peak device "
+          "memory): " + "; ".join(
+              f"{fuse} {precision} {float(np.median(ms)):.3f} "
+              f"({', '.join(f'{x:.3f}' for x in ms)}; {max(peak):.2f} GiB)"
+              for (fuse, precision), (_, ms, peak) in runs.items())
+          + f"; {smi}", flush=True)
+    return total
+
+
+def precision_spkmd_phase(pos, cell, seed, dev, launches, smi):
+    """Phase 13 (e): ``spkmd`` at ``calculator.precision=bf16`` from a
+    PaiNN run directory (phase 9's): its calculator's forces on the
+    fixture's box at (a)'s gate, one chunk of NVE, of 8-bead RPMD and of
+    the two-member ensemble; returns the launch counts."""
+    import shutil
+    import tempfile
+
+    from schnetpack_tpu_torch.config.compose import Composer
+    from schnetpack_tpu_torch.md import cli, load_molecules
+
+    tmp = tempfile.mkdtemp(prefix="spkmd_bf16_")
+    total = {}
+    try:
+        box = write_xyz(os.path.join(tmp, "box.xyz"), pos, cell)
+        run = write_run_dir(os.path.join(tmp, "run"), ASSET["painn"])
+        run2 = write_run_dir(os.path.join(tmp, "run2"), tree=perturbed_tree(
+            ASSET["painn"], seed + 7, ENSEMBLE_SCALE))
+        common = [f"device={dev}", "calculator.neighbor_list=cellblock",
+                  "calculator.precision=bf16",
+                  f"calculator.cutoff_shell={SKIN}", f"seed={seed}"]
+        ref = np.load(REFERENCE["full"])
+        cfg = Composer([cli._MD_CONFIG_DIR]).compose("config", [
+            f"calculator.model_dir={run}"] + common)
+        calc = cli.build_calculator(cfg["calculator"], dev)
+        assert calc.model.representation.pieces == 1
+        system = load_molecules([molecule(ref["R"].astype(np.float64),
+                                          ref["cell"])], device=dev)
+        system = calc.calculate(system, calc.init_state(system))
+        F = (system.forces[0] / calc.force_conversion).cpu().numpy()
+        err = float(np.abs(F - ref["forces"]).max()
+                    / np.abs(ref["forces"]).max())
+        print(f"precision (spkmd): build_calculator at bf16 on the run "
+              f"directory vs the JAX f32 fixture: max |dF| / max |F| "
+              f"{err:.3e}", flush=True)
+        assert err < PRECISION_FORCE_TOL["bf16"], f"spkmd bf16 forces {err}"
+        nve = [f"system.molecule_file={box}", "dynamics=nve",
+               f"system.initializer.temperature={T_BATH}",
+               f"dynamics.n_steps={PRECISION_SPKMD_STEPS}",
+               f"dynamics.chunk_size={PRECISION_SPKMD_STEPS}"] + common
+        for name, extra, per_step in (
+                ("spkmd_painn, bf16", [f"calculator.model_dir={run}"],
+                 PER_STEP["full"]),
+                ("spkmd_rpmd, bf16", [
+                    f"calculator.model_dir={run}", "dynamics=rpmd",
+                    f"dynamics.integrator.n_beads={N_BEADS}",
+                    "dynamics.integrator.time_step=0.5",
+                    f"dynamics.integrator.temperature={T_BATH}"],
+                 PER_STEP["rpmd"]),
+                ("spkmd_ensemble, bf16", [
+                    "calculator=ensemble",
+                    f"calculator.model_dirs=[{run},{run2}]"],
+                 {k: 2 * v for k, v in PER_STEP["full"].items()})):
+            sim, counts, _ = spkmd_run(name, nve + extra + [
+                f"simulation_dir={tmp}/{name.split(',')[0]}"], launches, smi)
+            check_launches(name, counts, mode_counts(per_step, "bf16"),
+                           PRECISION_SPKMD_STEPS + 1)
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+            assert np.isfinite(sim.system.positions.cpu().numpy()).all()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return total
+
+
+def precision_refusal_phase(dev, launches):
+    """Phase 13 (f): the 27-cell layout and SO3net on the column layout
+    refuse bf16 before any launch."""
+    from schnetpack_tpu_torch.ops.precision import ReducedPrecisionPathError
+
+    reset(launches)
+    for path, layout in (("painn_cell", "atom"), ("schnet", "atom"),
+                         ("so3net", "column")):
+        try:
+            calculator(*potential(path), layout=layout, precision="bf16")
+        except ReducedPrecisionPathError as e:
+            print(f"precision: {path} on the {layout} layout at bf16 "
+                  f"refused: {str(e)[:60]}...", flush=True)
+        else:
+            raise AssertionError(f"{path} ({layout}) took bf16")
+    launched = {k: v for k, v in read_counts(launches).items() if v}
+    assert not launched, f"launches before a refusal: {launched}"
+
+
+def precision_phase(pos, cell, seed, dev, launches, smi):
+    """Phase 13: the reduced-precision feature mode; returns the launch
+    counts."""
+    total = {}
+    for part in (precision_forces_phase(dev, launches, smi),
+                 precision_md_phase(pos, cell, seed, dev, launches, smi),
+                 precision_spkmd_phase(pos, cell, seed, dev, launches, smi)):
+        for k, v in part.items():
+            total[k] = total.get(k, 0) + v
+    precision_refusal_phase(dev, launches)
     return total
 
 
@@ -3752,9 +4214,19 @@ def main():
     train_phase(args.seed, dev, launches, smi)
     for k, v in response_phase(args.seed, dev, launches, smi).items():
         total[k] = total.get(k, 0) + v
+    t13 = time.perf_counter()
+    for k, v in precision_phase(pos, cell, args.seed, dev, launches,
+                                smi).items():
+        total[k] = total.get(k, 0) + v
+    print(f"precision phase: {time.perf_counter() - t13:.1f} s", flush=True)
     for row in rows:
         row["launches"] = total[row["name"]]
         assert row["launches"] > 0, f"{row['name']} never ran in the MD"
+        for precision in REDUCED:
+            if precision in row:   # a mixed or bf16 instance's sub-row
+                key = f"{row['name']}_{precision}"
+                row[precision]["launches"] = total[key]
+                assert total[key] > 0, f"{key} never ran in the MD"
         key = row["name"] + "_wgrad"
         if key in wgrad_launches:   # an instance with its own counter
             row["wgrad"]["launches"] = wgrad_launches[key]

@@ -1,18 +1,25 @@
 // PaiNN column-layout message forward for Hopper (sm_90a), f32.
 //
-// K1 msg_fwd_kernel<false, .> replaces the TPU kernel
+// K1 msg_fwd_kernel<kPosIn, ., kP> replaces the TPU kernel
 //   schnetpack_tpu/ops/colblock_pallas.py:1889 _msg_fm_fwd_fused_kernel.
-// K6 msg_fwd_kernel<true, .> replaces the three geo-tensor forwards
+// K6 msg_fwd_kernel<kGeoIn, ., kP> replaces the three geo-tensor forwards
 //   colblock_pallas.py:568 _msg_fm_fwd_kernel, :599 _msg_fm_fwd_res_kernel
 //   and :687 _msg_fm_fwd_res_preoh_kernel (they differ only in how the TPU
 //   stages tables in VMEM and builds one-hots; all compute K1's message on
 //   a precomputed geo tensor).
-// K20 msg_fwd_kernel<kGeoIn, .> on edge-major geometry replaces the row-12
+// K1 and K6 have an instance for each feature precision kP of the JAX
+//   package's PIECES (bf16_mma.cuh, ops/precision.py): 3 f32; 2 x and mu
+//   rounded to two bf16 terms as they are loaded and each edge's message
+//   rounded so before its row sum; 1 x and mu read as bf16 and each edge's
+//   message rounded to bf16 before its f32 row sum.  The filter and the
+//   geometry stay f32 in all three (the filter's bf16 products are the
+//   backward's, colblock_message_bwd.cu).
+// K20 msg_fwd_kernel<kGeoIn, ., 3> on edge-major geometry replaces the row-12
 //   forward colblock_pallas.py:322 _msg_fwd_kernel (launchers :365 on one
 //   device and colblock_shard.py:269 _msg_hx_fwd_call on halo slabs): the
 //   message on xmu = [x, mu] [A'_src, 6F], rbf_aug [nx, ny, Ktot, B+1] and
 //   dir [nx, ny, Ktot, 3].
-// K18 msg_fwd_kernel<kCellIn, .> is K20 in the cell index mode: it replaces
+// K18 msg_fwd_kernel<kCellIn, ., 3> is K20 in the cell index mode: it replaces
 //   the 27-cell forward schnetpack_tpu/ops/painn_fused.py:116 _fwd_kernel
 //   (launcher :149 _fused_fwd_call), on the stack view of cellblock.cuh.
 // The backward body (K2, K7, K15, K21, K19) is colblock_message_bwd.cu.
@@ -67,6 +74,18 @@
 
 #include "colblock_message.cuh"
 
+// the feature precision of this object's instances (see its entry points)
+#ifndef SPK_PIECES
+#define SPK_PIECES 3
+#endif
+#if SPK_PIECES == 1
+#define SPK_ENTRY(name) name##_bf16
+#elif SPK_PIECES == 2
+#define SPK_ENTRY(name) name##_mixed
+#else
+#define SPK_ENTRY(name) name
+#endif
+
 namespace {
 
 constexpr int kUF = 4;  // slots in flight per thread in the message loop
@@ -75,9 +94,10 @@ constexpr int kUF = 4;  // slots in flight per thread in the message loop
 // view (K6, K20), or a geometry view in the cell index mode (K18)
 constexpr int kPosIn = 0, kGeoIn = 1, kCellIn = 2;
 
-template <int kIn, int kB4>
+template <int kIn, int kB4, int kP>
 __global__ void __maxnreg__(kMaxRegs)
-    msg_fwd_kernel(const float* __restrict__ x, const float* __restrict__ mu,
+    msg_fwd_kernel(const FeatT<kP>* __restrict__ x,
+                   const FeatT<kP>* __restrict__ mu,
                    const float* __restrict__ R, GeoView<const float> gv,
                    const float* __restrict__ FW,
                    const float* __restrict__ coff,
@@ -247,12 +267,12 @@ __global__ void __maxnreg__(kMaxRegs)
 #pragma unroll
       for (int u = 0; u < kUF; ++u) {
         const size_t row = (size_t)s_src[min(t0 + u, nl - 1)] * ldx + tid;
-        xq[u] = x[row];
-        xr[u] = x[row + F];
-        xm[u] = x[row + 2 * F];
-        m0[u] = mu[row];
-        m1[u] = mu[row + F];
-        m2[u] = mu[row + 2 * F];
+        xq[u] = feat<kP>(x + row);
+        xr[u] = feat<kP>(x + row + F);
+        xm[u] = feat<kP>(x + row + 2 * F);
+        m0[u] = feat<kP>(mu + row);
+        m1[u] = feat<kP>(mu + row + F);
+        m2[u] = feat<kP>(mu + row + 2 * F);
       }
       float wq[kUF], wr[kUF], wm[kUF];
       int rows[kUF];
@@ -275,10 +295,17 @@ __global__ void __maxnreg__(kMaxRegs)
         }
         const float* dr = s_dir + t * 3;
         const float xrw = xr[u] * wr[u], xmw = xm[u] * wm[u];
-        aq = fmaf(xq[u], wq[u], aq);
-        a0 = fmaf(xmw, m0[u], fmaf(xrw, dr[0], a0));
-        a1 = fmaf(xmw, m1[u], fmaf(xrw, dr[1], a1));
-        a2 = fmaf(xmw, m2[u], fmaf(xrw, dr[2], a2));
+        if constexpr (kP == 3) {
+          aq = fmaf(xq[u], wq[u], aq);
+          a0 = fmaf(xmw, m0[u], fmaf(xrw, dr[0], a0));
+          a1 = fmaf(xmw, m1[u], fmaf(xrw, dr[1], a1));
+          a2 = fmaf(xmw, m2[u], fmaf(xrw, dr[2], a2));
+        } else {  // the edge's message rounded to kP terms, then summed
+          aq += pieces<kP>(xq[u] * wq[u]);
+          a0 += pieces<kP>(fmaf(xmw, m0[u], xrw * dr[0]));
+          a1 += pieces<kP>(fmaf(xmw, m1[u], xrw * dr[1]));
+          a2 += pieces<kP>(fmaf(xmw, m2[u], xrw * dr[2]));
+        }
       }
     }
     sl_cur = sl_nxt;
@@ -299,8 +326,8 @@ size_t fwd_smem(int F, int B, int P) {
          sizeof(int) * ((size_t)6 * F + kMaxThreads / 32);
 }
 
-template <int kIn, int kB4>
-int launch_fwd(const float* x, const float* mu, const float* R,
+template <int kIn, int kB4, int kP>
+int launch_fwd(const FeatT<kP>* x, const FeatT<kP>* mu, const float* R,
                GeoView<const float> gv, const float* FW, const float* coff,
                const float* cw, const int* qcol, const int* dcol,
                const int* dsorted, const int* grp, float* dq, float* dmu,
@@ -310,78 +337,96 @@ int launch_fwd(const float* x, const float* mu, const float* R,
   if (F % 32 != 0 || F > kMaxThreads) return (int)cudaErrorInvalidValue;
   const size_t smem = fwd_smem<kIn != kPosIn>(F, B, P);
   cudaError_t err = cudaFuncSetAttribute(
-      msg_fwd_kernel<kIn, kB4>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      msg_fwd_kernel<kIn, kB4, kP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  msg_fwd_kernel<kIn, kB4><<<dim3(nx * ny, G), F, smem, stream>>>(
+  msg_fwd_kernel<kIn, kB4, kP><<<dim3(nx * ny, G), F, smem, stream>>>(
       x, mu, R, gv, FW, coff, cw, qcol, dcol, dsorted, grp, dq, dmu, nx, ny,
       P, Ktot, make_koffs(koffs), G, B, ldx, hx, hy, rc, cs);
   return (int)cudaGetLastError();
 }
 
 // the register instance where FW_aug's rows fit it, else the L1 one
-template <int kIn>
-int launch_fwd_any(const float* x, const float* mu, const float* R,
+template <int kIn, int kP = 3>
+int launch_fwd_any(const FeatT<kP>* x, const FeatT<kP>* mu, const float* R,
                    GeoView<const float> gv, const float* FW,
                    const float* coff, const float* cw, const int* qcol,
                    const int* dcol, const int* dsorted, const int* grp,
                    float* dq, float* dmu, int nx, int ny, int P, int Ktot,
                    const int* koffs, int G, int F, int B, int ldx, int hx,
                    int hy, float rc, CellStack cs, cudaStream_t stream) {
-  auto* fn = B + 1 <= 4 * kRegB4 ? launch_fwd<kIn, kRegB4>
-                                 : launch_fwd<kIn, 0>;
+  auto* fn = B + 1 <= 4 * kRegB4 ? launch_fwd<kIn, kRegB4, kP>
+                                 : launch_fwd<kIn, 0, kP>;
   return fn(x, mu, R, gv, FW, coff, cw, qcol, dcol, dsorted, grp, dq, dmu,
             nx, ny, P, Ktot, koffs, G, F, B, ldx, hx, hy, rc, cs, stream);
 }
 
-template <int kIn, int kB4>
+template <int kIn, int kB4, int kP>
 int fwd_blocks(int F, int B, int P) {
   const size_t smem = fwd_smem<kIn != kPosIn>(F, B, P);
   cudaError_t err = cudaFuncSetAttribute(
-      msg_fwd_kernel<kIn, kB4>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      msg_fwd_kernel<kIn, kB4, kP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return -(int)err;
   int n = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &n, msg_fwd_kernel<kIn, kB4>, F, smem);
+      &n, msg_fwd_kernel<kIn, kB4, kP>, F, smem);
   return err != cudaSuccess ? -(int)err : n;
 }
 
-template <int kIn>
+template <int kIn, int kP = 3>
 int fwd_blocks_any(int F, int B, int P) {
-  return B + 1 <= 4 * kRegB4 ? fwd_blocks<kIn, kRegB4>(F, B, P)
-                             : fwd_blocks<kIn, 0>(F, B, P);
+  return B + 1 <= 4 * kRegB4 ? fwd_blocks<kIn, kRegB4, kP>(F, B, P)
+                             : fwd_blocks<kIn, 0, kP>(F, B, P);
 }
 
 }  // namespace
 
-extern "C" int spk_msg_fwd(const float* x, const float* mu, const float* R,
-                           const float* FW, const float* coff, const float* cw,
-                           const int* qcol, const int* dcol,
-                           const int* dsorted, const int* grp, float* dq,
-                           float* dmu, int nx, int ny, int P, int Ktot,
-                           const int* koffs, int G, int F, int B, float rc,
-                           cudaStream_t stream) {
-  return launch_fwd_any<kPosIn>(x, mu, R, GeoView<const float>{}, FW, coff,
-                                cw, qcol, dcol, dsorted, grp, dq, dmu, nx, ny,
-                                P, Ktot, koffs, G, F, B, 3 * F, 0, 0, rc,
-                                CellStack{}, stream);
+// The entry points of this object's instances: SPK_PIECES 3 (this file)
+// holds every form in f32; colblock_message_{mixed,bf16}.cu include it with
+// SPK_PIECES 2 and 1 and hold K1 and K6 only, under the names with _mixed
+// and _bf16 appended (three objects that nvcc builds in parallel).  x and
+// mu are bf16 in the bf16 object, else f32.
+extern "C" int SPK_ENTRY(spk_msg_fwd)(
+    const void* x, const void* mu, const float* R, const float* FW,
+    const float* coff, const float* cw, const int* qcol, const int* dcol,
+    const int* dsorted, const int* grp, float* dq, float* dmu, int nx, int ny,
+    int P, int Ktot, const int* koffs, int G, int F, int B, float rc,
+    cudaStream_t stream) {
+  using T = FeatT<SPK_PIECES>;
+  return launch_fwd_any<kPosIn, SPK_PIECES>(
+      static_cast<const T*>(x), static_cast<const T*>(mu), R,
+      GeoView<const float>{}, FW, coff, cw, qcol, dcol, dsorted, grp, dq, dmu,
+      nx, ny, P, Ktot, koffs, G, F, B, 3 * F, 0, 0, rc, CellStack{}, stream);
 }
 
-extern "C" int spk_msg_fwd_geo(const float* x, const float* mu,
-                               const float* geo, const float* FW,
-                               const int* qcol, const int* dcol,
-                               const int* dsorted, const int* grp, float* dq,
-                               float* dmu, int nx, int ny, int P, int Ktot,
-                               const int* koffs, int G, int F, int B, int nch,
-                               cudaStream_t stream) {
-  return launch_fwd_any<kGeoIn>(x, mu, nullptr,
-                                packed_view(geo, Ktot, B + 1, nch), FW,
-                                nullptr, nullptr, qcol, dcol, dsorted, grp,
-                                dq, dmu, nx, ny, P, Ktot, koffs, G, F, B,
-                                3 * F, 0, 0, 0.f, CellStack{}, stream);
+extern "C" int SPK_ENTRY(spk_msg_fwd_geo)(
+    const void* x, const void* mu, const float* geo, const float* FW,
+    const int* qcol, const int* dcol, const int* dsorted, const int* grp,
+    float* dq, float* dmu, int nx, int ny, int P, int Ktot, const int* koffs,
+    int G, int F, int B, int nch, cudaStream_t stream) {
+  using T = FeatT<SPK_PIECES>;
+  return launch_fwd_any<kGeoIn, SPK_PIECES>(
+      static_cast<const T*>(x), static_cast<const T*>(mu), nullptr,
+      packed_view(geo, Ktot, B + 1, nch), FW, nullptr, nullptr, qcol, dcol,
+      dsorted, grp, dq, dmu, nx, ny, P, Ktot, koffs, G, F, B, 3 * F, 0, 0,
+      0.f, CellStack{}, stream);
 }
 
+// blocks of this object's forward instance for (mode, F, B, P) resident
+// on one SM (mode: 0 K1, 1 K6/K20, 2 K18; the mixed and bf16 objects hold
+// K1 and K6 only; negative: a CUDA error)
+extern "C" int SPK_ENTRY(spk_msg_fwd_blocks)(int mode, int F, int B, int P) {
+  if (mode == kPosIn) return fwd_blocks_any<kPosIn, SPK_PIECES>(F, B, P);
+  if (mode == kGeoIn) return fwd_blocks_any<kGeoIn, SPK_PIECES>(F, B, P);
+#if SPK_PIECES == 3
+  return fwd_blocks_any<kCellIn>(F, B, P);
+#else
+  return -(int)cudaErrorInvalidValue;
+#endif
+}
+
+#if SPK_PIECES == 3
 extern "C" int spk_msg_fwd_edge(const float* xmu, const float* rbf,
                                 const float* dir, const float* FW,
                                 const int* qcol, const int* dcol,
@@ -413,11 +458,4 @@ extern "C" int spk_cell_msg_fwd(const float* xmu, const float* rbf,
                                  F, B, 6 * F, 0, 0, 0.f, CellStack{nz, C, K},
                                  stream);
 }
-
-// blocks of the forward instance for (mode, F, B, P) resident on one SM
-// (mode: 0 K1, 1 K6/K20, 2 K18; negative: a CUDA error)
-extern "C" int spk_msg_fwd_blocks(int mode, int F, int B, int P) {
-  if (mode == kCellIn) return fwd_blocks_any<kCellIn>(F, B, P);
-  if (mode == kGeoIn) return fwd_blocks_any<kGeoIn>(F, B, P);
-  return fwd_blocks_any<kPosIn>(F, B, P);
-}
+#endif

@@ -7,6 +7,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bf16_mma.cuh"
 #include "cellblock.cuh"
 #include "cp_async.cuh"
 #include "tf32_mma.cuh"

@@ -1,11 +1,21 @@
 // PaiNN column-layout message backward for Hopper (sm_90a), f32.
 //
-// K2 msg_bwd_kernel<kFused, W, .> replaces the TPU kernel
+// K2 msg_bwd_kernel<kFused, W, ., kP> replaces the TPU kernel
 //   schnetpack_tpu/ops/colblock_pallas.py:1239 _msg_fm_bwd_fused_kernel
 //   (W = kWgrad: false without, true with the filter-weight cotangent).
-// K7 msg_bwd_kernel<kGeoRes, W, .> replaces
+// K7 msg_bwd_kernel<kGeoRes, W, ., kP> replaces
 //   colblock_pallas.py:1570 _msg_fm_bwd_geores_kernel (wgrad off / on).
-// K15 msg_bwd_kernel<kSrc, W, .> replaces the two row-9 kernels
+// K2 and K7 have an instance for each feature precision kP of the JAX
+//   package's PIECES (bf16_mma.cuh, ops/precision.py): 3 f32; 2 the
+//   destination cotangents and the source row's x and mu rounded to two
+//   bf16 terms as they are loaded, and each edge's source cotangents
+//   (dx's and dmu's terms) rounded so before their row sums; 1 those read
+//   as bf16 and rounded to bf16, and P3's grbf and gFW as one bf16
+//   tensor-core product with f32 sums (mma.sync m16n8k16, its operands
+//   gW, FW_aug and rbf_aug rounded to bf16) in place of 3xTF32.  The
+//   filter itself (P2), the geometry, its chain and the position
+//   cotangents stay f32 in all three.
+// K15 msg_bwd_kernel<kSrc, W, ., 3> replaces the two row-9 kernels
 //   colblock_pallas.py:834 _msg_fm_bwd_src_kernel and :945
 //   _msg_fm_bwd_src_res_kernel (they differ only in how the TPU stages
 //   tables in VMEM): the message VJP on a geo of B+4 channels [rbf_aug,
@@ -14,11 +24,11 @@
 //   each real slot's geometry cotangent ggeo = [grbf (B+1), gdir (3)] is
 //   written at the slot's own position (one writer per slot; the wrapper
 //   zero-fills, so padded slots stay 0).
-// K21 msg_bwd_kernel<kSrc, W, .> on edge-major geometry replaces the row-12
+// K21 msg_bwd_kernel<kSrc, W, ., 3> on edge-major geometry replaces the row-12
 //   backward colblock_pallas.py:391 _msg_bwd_kernel (launchers :478 and
 //   colblock_shard.py:307 _msg_hx_bwd_call): dxmu over the whole source
 //   table, grbf, gdir and (W) gFW.
-// K19 msg_bwd_kernel<kCell, W, .> is K21 in the cell index mode: it replaces
+// K19 msg_bwd_kernel<kCell, W, ., 3> is K21 in the cell index mode: it replaces
 //   the 27-cell backward schnetpack_tpu/ops/painn_fused.py:185 _bwd_kernel
 //   (launcher :283 _fused_bwd), on the stack view of cellblock.cuh: the
 //   staged int of a slot is its code qidx, from which CellStack::decode forms
@@ -89,6 +99,18 @@
 
 #include "colblock_message.cuh"
 
+// the feature precision of this object's instances (see its entry points)
+#ifndef SPK_PIECES
+#define SPK_PIECES 3
+#endif
+#if SPK_PIECES == 1
+#define SPK_ENTRY(name) name##_bf16
+#elif SPK_PIECES == 2
+#define SPK_ENTRY(name) name##_mixed
+#else
+#define SPK_ENTRY(name) name
+#endif
+
 namespace {
 
 constexpr int kE = 16;        // slots a chunk (one m16 tile)
@@ -100,9 +122,10 @@ __host__ __device__ constexpr int staged(int B1) {  // staged floats a slot
   return kMode == kFused ? 3 : (kMode == kGeoRes ? B1 + 4 : B1 + 3);
 }
 
-template <int kMode, bool kWgrad, int kB4>
+template <int kMode, bool kWgrad, int kB4, int kP>
 __global__ void __maxnreg__(kMaxRegs)
-    msg_bwd_kernel(const float* __restrict__ x, const float* __restrict__ mu,
+    msg_bwd_kernel(const FeatT<kP>* __restrict__ x,
+                   const FeatT<kP>* __restrict__ mu,
                    const float* __restrict__ R, GeoView<const float> gv,
                    const float* __restrict__ FW,
                    const float* __restrict__ coff,
@@ -110,8 +133,8 @@ __global__ void __maxnreg__(kMaxRegs)
                    const int* __restrict__ qcol, const int* __restrict__ dcol,
                    const int* __restrict__ esorted,
                    const int* __restrict__ grp,
-                   const float* __restrict__ g_dq,
-                   const float* __restrict__ g_dmu, float* __restrict__ dx,
+                   const FeatT<kP>* __restrict__ g_dq,
+                   const FeatT<kP>* __restrict__ g_dmu, float* __restrict__ dx,
                    float* __restrict__ dmu_out, float* __restrict__ gRo,
                    float* __restrict__ gRd, GeoView<float> gg,
                    double* __restrict__ gFWp, int nx, int ny, int P, int Ktot,
@@ -374,11 +397,11 @@ __global__ void __maxnreg__(kMaxRegs)
           todo &= todo - 1;
           const int ts = tt[u] < 0 ? tt[0] : tt[u];
           const size_t dr = (size_t)s_dst[buf * E + ts];
-          gq[u] = __ldcg(g_dq + dr * F + tid);
-          const float* gm = g_dmu + dr * D3 + tid;
-          g0[u] = __ldcg(gm);
-          g1[u] = __ldcg(gm + F);
-          g2[u] = __ldcg(gm + 2 * F);
+          gq[u] = feat_cg<kP>(g_dq + dr * F + tid);
+          const FeatT<kP>* gm = g_dmu + dr * D3 + tid;
+          g0[u] = feat_cg<kP>(gm);
+          g1[u] = feat_cg<kP>(gm + F);
+          g2[u] = feat_cg<kP>(gm + 2 * F);
         }
         int rows[kUB];
 #pragma unroll
@@ -399,23 +422,32 @@ __global__ void __maxnreg__(kMaxRegs)
             run = sv;
             ax = ar = am = b0 = b1 = b2 = 0.f;
             const size_t so = (own0 + sv) * ldx + tid;
-            xq = __ldcg(x + so);
-            xr = __ldcg(x + so + F);
-            xm = __ldcg(x + so + 2 * F);
-            mu0 = __ldcg(mu + so);
-            mu1 = __ldcg(mu + so + F);
-            mu2 = __ldcg(mu + so + 2 * F);
+            xq = feat_cg<kP>(x + so);
+            xr = feat_cg<kP>(x + so + F);
+            xm = feat_cg<kP>(x + so + 2 * F);
+            mu0 = feat_cg<kP>(mu + so);
+            mu1 = feat_cg<kP>(mu + so + F);
+            mu2 = feat_cg<kP>(mu + so + 2 * F);
           }
           const float* dd = s_dir + t * 3;
           const float gp1 = g0[u] * dd[0] + g1[u] * dd[1] + g2[u] * dd[2];
           const float gp2 = g0[u] * mu0 + g1[u] * mu1 + g2[u] * mu2;
-          ax = fmaf(gq[u], wq[u], ax);
-          ar = fmaf(gp1, wr[u], ar);
-          am = fmaf(gp2, wm[u], am);
           const float xmw = xm * wm[u], xrw = xr * wr[u];
-          b0 = fmaf(g0[u], xmw, b0);
-          b1 = fmaf(g1[u], xmw, b1);
-          b2 = fmaf(g2[u], xmw, b2);
+          if constexpr (kP == 3) {
+            ax = fmaf(gq[u], wq[u], ax);
+            ar = fmaf(gp1, wr[u], ar);
+            am = fmaf(gp2, wm[u], am);
+            b0 = fmaf(g0[u], xmw, b0);
+            b1 = fmaf(g1[u], xmw, b1);
+            b2 = fmaf(g2[u], xmw, b2);
+          } else {  // the edge's source cotangents rounded, then summed
+            ax += pieces<kP>(gq[u] * wq[u]);
+            ar += pieces<kP>(gp1 * wr[u]);
+            am += pieces<kP>(gp2 * wm[u]);
+            b0 += pieces<kP>(g0[u] * xmw);
+            b1 += pieces<kP>(g1[u] * xmw);
+            b2 += pieces<kP>(g2[u] * xmw);
+          }
           float* gw = s_gw + t * LDG + tid;
           gw[0] = gq[u] * xq;
           gw[F] = gp1 * xr;
@@ -449,8 +481,43 @@ __global__ void __maxnreg__(kMaxRegs)
     // P3: grbf slices (gW [E, 3F] . FW^T [3F, LDR]): warp w takes the
     // k-steps w, w + NW, ... of 3F, the n-tiles three at a time: per tile
     // three accumulators (the big product and the two cross terms), nine
-    // independent chains
-    {
+    // independent chains; in the bf16 instance one bf16 product per
+    // k16-step and tile
+    if constexpr (kP == 1) {
+      const int ks = D3 >> 4;
+      for (int j0 = 0; j0 < nt; j0 += 3) {
+        float acc[3][4] = {};
+        for (int kk = warp; kk < ks; kk += NW) {
+          const int k16 = kk * 16;
+          const float* A = s_gw + gid * LDG + k16 + 2 * tig;
+          const uint32_t a[4] = {pack_bf16(A[0], A[1]),
+                                 pack_bf16(A[8 * LDG], A[8 * LDG + 1]),
+                                 pack_bf16(A[8], A[9]),
+                                 pack_bf16(A[8 * LDG + 8], A[8 * LDG + 9])};
+#pragma unroll
+          for (int jj = 0; jj < 3; ++jj) {
+            const int nrow = (j0 + jj) * 8 + gid;  // basis row of FW_aug
+            if (j0 + jj < nt) {
+              const bool ok = nrow < B1;
+              const float* Bp = fwp + (ok ? nrow : 0) * ldf + k16 + 2 * tig;
+              const uint32_t b[2] = {ok ? pack_bf16(Bp[0], Bp[1]) : 0u,
+                                     ok ? pack_bf16(Bp[8], Bp[9]) : 0u};
+              mma_bf16(acc[jj], a, b);
+            }
+          }
+        }
+#pragma unroll
+        for (int jj = 0; jj < 3; ++jj) {
+          if (j0 + jj < nt) {
+            float* o = s_part + (warp * E + gid) * NP + (j0 + jj) * 8 + 2 * tig;
+            o[0] = acc[jj][0];
+            o[1] = acc[jj][1];
+            o[8 * NP] = acc[jj][2];
+            o[8 * NP + 1] = acc[jj][3];
+          }
+        }
+      }
+    } else {
       const int ks = D3 >> 3;
       for (int j0 = 0; j0 < nt; j0 += 3) {
         float acc[3][3][4] = {};
@@ -492,7 +559,55 @@ __global__ void __maxnreg__(kMaxRegs)
         }
       }
     }
-    if constexpr (kWgrad) {
+    if constexpr (kWgrad && kP == 1) {
+      // the chunk's gFW = rbf_aug^T [B1, E] . gW [E, 3F] in bf16: pairs of
+      // n-tiles of 3F over the warps, both m-tiles, the chunk's 16 slots
+      // one k16-step; its f32 sums added to the block's f64 partial
+      const int mtw = (B1 + 15) >> 4, ntw = D3 >> 3;
+      const float* r0 = reinterpret_cast<const float*>(s_rbf + 2 * tig * n4);
+      const float* r1 = r0 + 4 * n4;
+      const float* r8 = r0 + 32 * n4;
+      const float* r9 = r8 + 4 * n4;
+      uint32_t a[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        const int ba = mi * 16 + gid, bz = ba + 8;
+        const bool oa = ba < LDR, oz = bz < LDR;
+        a[mi][0] = pack_bf16(oa ? r0[ba] : 0.f, oa ? r1[ba] : 0.f);
+        a[mi][1] = pack_bf16(oz ? r0[bz] : 0.f, oz ? r1[bz] : 0.f);
+        a[mi][2] = pack_bf16(oa ? r8[ba] : 0.f, oa ? r9[ba] : 0.f);
+        a[mi][3] = pack_bf16(oz ? r8[bz] : 0.f, oz ? r9[bz] : 0.f);
+      }
+      for (int j0 = 2 * warp; j0 < ntw; j0 += 2 * NW) {
+        float acc[2][2][4] = {};
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const float* Bp = s_gw + 2 * tig * LDG + (j0 + jj) * 8 + gid;
+          const uint32_t b[2] = {pack_bf16(Bp[0], Bp[LDG]),
+                                 pack_bf16(Bp[8 * LDG], Bp[9 * LDG])};
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi)
+            if (mi < mtw) mma_bf16(acc[mi][jj], a[mi], b);
+        }
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+          for (int jj = 0; jj < 2; ++jj) {
+            const int ba = mi * 16 + gid, bz = ba + 8;
+            const float* c = acc[mi][jj];
+            double* o = s_gfw + (size_t)ba * D3 + (j0 + jj) * 8 + 2 * tig;
+            if (mi < mtw && ba < B1) {
+              o[0] += (double)c[0];
+              o[1] += (double)c[1];
+            }
+            if (mi < mtw && bz < B1) {
+              o[8 * D3] += (double)c[2];
+              o[8 * D3 + 1] += (double)c[3];
+            }
+          }
+        }
+      }
+    } else if constexpr (kWgrad) {
       // the chunk's gFW = rbf_aug^T [B1, E] . gW [E, 3F]: pairs of n-tiles
       // of 3F over the warps, both m-tiles, three accumulators a tile; the
       // chunk's f32 sums added to the block's f64 partial
@@ -668,7 +783,7 @@ struct BwdShape {
 // Where FW_aug's rows go for (F, B): in shared memory unless reading them
 // through L1 fits more resident blocks on an SM; worked out once per shape
 // and instance on each device (the occupancy queries cost host time)
-template <int kMode, bool kWgrad, int kB4>
+template <int kMode, bool kWgrad, int kB4, int kP>
 BwdShape bwd_shape(int F, int B) {
   static int key[8][3];
   static BwdShape val[8];
@@ -684,11 +799,11 @@ BwdShape bwd_shape(int F, int B) {
     const size_t smem = bwd_smem<kMode, kWgrad>(F, B, fwsm);
     if (smem > (size_t)optin) continue;
     int blocks = 0;
-    if (cudaFuncSetAttribute(msg_bwd_kernel<kMode, kWgrad, kB4>,
+    if (cudaFuncSetAttribute(msg_bwd_kernel<kMode, kWgrad, kB4, kP>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem) != cudaSuccess ||
         cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &blocks, msg_bwd_kernel<kMode, kWgrad, kB4>, F, smem) !=
+            &blocks, msg_bwd_kernel<kMode, kWgrad, kB4, kP>, F, smem) !=
             cudaSuccess)
       continue;
     if (blocks > best_blocks) {
@@ -705,24 +820,25 @@ BwdShape bwd_shape(int F, int B) {
   return best;
 }
 
-template <int kMode, bool kWgrad, int kB4>
-int launch_bwd(const float* x, const float* mu, const float* R,
+template <int kMode, bool kWgrad, int kB4, int kP>
+int launch_bwd(const FeatT<kP>* x, const FeatT<kP>* mu, const float* R,
                GeoView<const float> gv, const float* FW, const float* coff,
                const float* cw, const int* qcol, const int* dcol,
-               const int* esorted, const int* grp, const float* g_dq,
-               const float* g_dmu, float* dx, float* dmu_out, float* gRo,
+               const int* esorted, const int* grp, const FeatT<kP>* g_dq,
+               const FeatT<kP>* g_dmu, float* dx, float* dmu_out, float* gRo,
                float* gRd, GeoView<float> gg, double* gFWp, int nx, int ny,
                int P, int Ktot, const int* koffs, int G, int F, int B,
                int ldx, int n_src, float rc, CellStack cs,
                cudaStream_t stream) {
   if (F % 32 != 0 || F > kMaxThreads) return (int)cudaErrorInvalidValue;
-  const BwdShape sh = bwd_shape<kMode, kWgrad, kB4>(F, B);
+  const BwdShape sh = bwd_shape<kMode, kWgrad, kB4, kP>(F, B);
   if (sh.fwsm < 0) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      msg_bwd_kernel<kMode, kWgrad, kB4>,
+      msg_bwd_kernel<kMode, kWgrad, kB4, kP>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sh.smem);
   if (err != cudaSuccess) return (int)err;
-  msg_bwd_kernel<kMode, kWgrad, kB4><<<dim3(n_src, G), F, sh.smem, stream>>>(
+  msg_bwd_kernel<kMode, kWgrad, kB4, kP>
+      <<<dim3(n_src, G), F, sh.smem, stream>>>(
       x, mu, R, gv, FW, coff, cw, qcol, dcol, esorted, grp, g_dq, g_dmu, dx,
       dmu_out, gRo, gRd, gg, gFWp, nx, ny, P, Ktot, make_koffs(koffs), G, B,
       ldx, rc, sh.fwsm, cs);
@@ -731,87 +847,107 @@ int launch_bwd(const float* x, const float* mu, const float* R,
 
 // the kWgrad instance when a gFW partial buffer is given, else the plain
 // one; the register instance where FW_aug's rows fit it, else the L1 one
-template <int kMode>
-int launch_bwd_any(const float* x, const float* mu, const float* R,
+template <int kMode, int kP = 3>
+int launch_bwd_any(const FeatT<kP>* x, const FeatT<kP>* mu, const float* R,
                    GeoView<const float> gv, const float* FW,
                    const float* coff, const float* cw, const int* qcol,
                    const int* dcol, const int* esorted, const int* grp,
-                   const float* g_dq, const float* g_dmu, float* dx,
+                   const FeatT<kP>* g_dq, const FeatT<kP>* g_dmu, float* dx,
                    float* dmu_out, float* gRo, float* gRd, GeoView<float> gg,
                    double* gFWp, int nx, int ny, int P, int Ktot,
                    const int* koffs, int G, int F, int B, int ldx, int n_src,
                    float rc, CellStack cs, cudaStream_t stream) {
   const bool reg = B + 1 <= 4 * kRegB4;
   auto* fn = gFWp != nullptr
-                 ? (reg ? launch_bwd<kMode, true, kRegB4>
-                        : launch_bwd<kMode, true, 0>)
-                 : (reg ? launch_bwd<kMode, false, kRegB4>
-                        : launch_bwd<kMode, false, 0>);
+                 ? (reg ? launch_bwd<kMode, true, kRegB4, kP>
+                        : launch_bwd<kMode, true, 0, kP>)
+                 : (reg ? launch_bwd<kMode, false, kRegB4, kP>
+                        : launch_bwd<kMode, false, 0, kP>);
   return fn(x, mu, R, gv, FW, coff, cw, qcol, dcol, esorted, grp, g_dq,
             g_dmu, dx, dmu_out, gRo, gRd, gg, gFWp, nx, ny, P, Ktot, koffs,
             G, F, B, ldx, n_src, rc, cs, stream);
 }
 
-template <int kMode, bool kWgrad, int kB4>
+template <int kMode, bool kWgrad, int kB4, int kP>
 int bwd_blocks(int F, int B) {
-  const BwdShape sh = bwd_shape<kMode, kWgrad, kB4>(F, B);
+  const BwdShape sh = bwd_shape<kMode, kWgrad, kB4, kP>(F, B);
   if (sh.fwsm < 0) return -(int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      msg_bwd_kernel<kMode, kWgrad, kB4>,
+      msg_bwd_kernel<kMode, kWgrad, kB4, kP>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sh.smem);
   if (err != cudaSuccess) return -(int)err;
   int n = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &n, msg_bwd_kernel<kMode, kWgrad, kB4>, F, sh.smem);
+      &n, msg_bwd_kernel<kMode, kWgrad, kB4, kP>, F, sh.smem);
   return err != cudaSuccess ? -(int)err : n;
 }
 
-template <int kMode>
+template <int kMode, int kP = 3>
 int bwd_blocks_any(int wgrad, int F, int B) {
   const bool reg = B + 1 <= 4 * kRegB4;
   if (wgrad)
-    return reg ? bwd_blocks<kMode, true, kRegB4>(F, B)
-               : bwd_blocks<kMode, true, 0>(F, B);
-  return reg ? bwd_blocks<kMode, false, kRegB4>(F, B)
-             : bwd_blocks<kMode, false, 0>(F, B);
+    return reg ? bwd_blocks<kMode, true, kRegB4, kP>(F, B)
+               : bwd_blocks<kMode, true, 0, kP>(F, B);
+  return reg ? bwd_blocks<kMode, false, kRegB4, kP>(F, B)
+             : bwd_blocks<kMode, false, 0, kP>(F, B);
 }
 
 }  // namespace
 
-extern "C" int spk_msg_bwd(const float* x, const float* mu, const float* R,
-                           const float* FW, const float* coff, const float* cw,
-                           const int* qcol, const int* dcol,
-                           const int* esorted, const int* grp,
-                           const float* g_dq, const float* g_dmu, float* dx,
-                           float* dmu_out, float* gRo, float* gRd,
-                           double* gFWp, int nx, int ny, int P, int Ktot,
-                           const int* koffs, int G, int F, int B, float rc,
-                           cudaStream_t stream) {
-  return launch_bwd_any<kFused>(x, mu, R, GeoView<const float>{}, FW, coff,
-                                cw, qcol, dcol, esorted, grp, g_dq, g_dmu, dx,
-                                dmu_out, gRo, gRd, GeoView<float>{}, gFWp, nx,
-                                ny, P, Ktot, koffs, G, F, B, 3 * F, nx * ny,
-                                rc, CellStack{}, stream);
+// The entry points of this object's instances: SPK_PIECES 3 (this file)
+// holds every form in f32; colblock_message_bwd_{mixed,bf16}.cu include it
+// with SPK_PIECES 2 and 1 and hold K2 and K7 only, under the names with
+// _mixed and _bf16 appended (three objects that nvcc builds in parallel).
+// x, mu and the cotangents are bf16 in the bf16 object, else f32.
+extern "C" int SPK_ENTRY(spk_msg_bwd)(
+    const void* x, const void* mu, const float* R, const float* FW,
+    const float* coff, const float* cw, const int* qcol, const int* dcol,
+    const int* esorted, const int* grp, const void* g_dq, const void* g_dmu,
+    float* dx, float* dmu_out, float* gRo, float* gRd, double* gFWp, int nx,
+    int ny, int P, int Ktot, const int* koffs, int G, int F, int B, float rc,
+    cudaStream_t stream) {
+  using T = FeatT<SPK_PIECES>;
+  return launch_bwd_any<kFused, SPK_PIECES>(
+      static_cast<const T*>(x), static_cast<const T*>(mu), R,
+      GeoView<const float>{}, FW, coff, cw, qcol, dcol, esorted, grp,
+      static_cast<const T*>(g_dq), static_cast<const T*>(g_dmu), dx, dmu_out,
+      gRo, gRd, GeoView<float>{}, gFWp, nx, ny, P, Ktot, koffs, G, F, B,
+      3 * F, nx * ny, rc, CellStack{}, stream);
 }
 
-extern "C" int spk_msg_bwd_geores(const float* x, const float* mu,
-                                  const float* geo, const float* FW,
-                                  const float* cw, const int* qcol,
-                                  const int* dcol, const int* esorted,
-                                  const int* grp, const float* g_dq,
-                                  const float* g_dmu, float* dx,
-                                  float* dmu_out, float* gRo, float* gRd,
-                                  double* gFWp, int nx, int ny, int P,
-                                  int Ktot, const int* koffs, int G, int F,
-                                  int B, int nch, float rc,
-                                  cudaStream_t stream) {
-  return launch_bwd_any<kGeoRes>(
-      x, mu, nullptr, packed_view(geo, Ktot, B + 1, nch), FW, nullptr, cw,
-      qcol, dcol, esorted, grp, g_dq, g_dmu, dx, dmu_out, gRo, gRd,
-      GeoView<float>{}, gFWp, nx, ny, P, Ktot, koffs, G, F, B, 3 * F,
-      nx * ny, rc, CellStack{}, stream);
+extern "C" int SPK_ENTRY(spk_msg_bwd_geores)(
+    const void* x, const void* mu, const float* geo, const float* FW,
+    const float* cw, const int* qcol, const int* dcol, const int* esorted,
+    const int* grp, const void* g_dq, const void* g_dmu, float* dx,
+    float* dmu_out, float* gRo, float* gRd, double* gFWp, int nx, int ny,
+    int P, int Ktot, const int* koffs, int G, int F, int B, int nch, float rc,
+    cudaStream_t stream) {
+  using T = FeatT<SPK_PIECES>;
+  return launch_bwd_any<kGeoRes, SPK_PIECES>(
+      static_cast<const T*>(x), static_cast<const T*>(mu), nullptr,
+      packed_view(geo, Ktot, B + 1, nch), FW, nullptr, cw, qcol, dcol,
+      esorted, grp, static_cast<const T*>(g_dq), static_cast<const T*>(g_dmu),
+      dx, dmu_out, gRo, gRd, GeoView<float>{}, gFWp, nx, ny, P, Ktot, koffs,
+      G, F, B, 3 * F, nx * ny, rc, CellStack{}, stream);
 }
 
+// blocks of this object's backward instance for (mode, wgrad, F, B)
+// resident on one SM (negative: a CUDA error, or it fits no block's shared
+// memory; the mixed and bf16 objects hold K2 and K7 only)
+extern "C" int SPK_ENTRY(spk_msg_bwd_blocks)(int mode, int wgrad, int F,
+                                             int B) {
+  if (mode == kFused) return bwd_blocks_any<kFused, SPK_PIECES>(wgrad, F, B);
+  if (mode == kGeoRes)
+    return bwd_blocks_any<kGeoRes, SPK_PIECES>(wgrad, F, B);
+#if SPK_PIECES == 3
+  if (mode == kSrc) return bwd_blocks_any<kSrc>(wgrad, F, B);
+  return bwd_blocks_any<kCell>(wgrad, F, B);
+#else
+  return -(int)cudaErrorInvalidValue;
+#endif
+}
+
+#if SPK_PIECES == 3
 extern "C" int spk_msg_bwd_src(const float* x, const float* mu,
                                const float* geo, const float* FW,
                                const int* qcol, const int* dcol,
@@ -866,12 +1002,4 @@ extern "C" int spk_cell_msg_bwd(const float* xmu, const float* rbf,
       gFWp, nx, ny, P, Ktot, no_koffs, G, F, B, 6 * F, nx * ny, 0.f,
       CellStack{nz, C, K}, stream);
 }
-
-// blocks of the backward instance for (mode, wgrad, F, B) resident on one
-// SM (negative: a CUDA error, or it fits no block's shared memory)
-extern "C" int spk_msg_bwd_blocks(int mode, int wgrad, int F, int B) {
-  if (mode == kFused) return bwd_blocks_any<kFused>(wgrad, F, B);
-  if (mode == kGeoRes) return bwd_blocks_any<kGeoRes>(wgrad, F, B);
-  if (mode == kSrc) return bwd_blocks_any<kSrc>(wgrad, F, B);
-  return bwd_blocks_any<kCell>(wgrad, F, B);
-}
+#endif

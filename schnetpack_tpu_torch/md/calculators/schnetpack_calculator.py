@@ -47,16 +47,28 @@ backward instances run.  ``wgrad=True`` leaves ``requires_grad`` as it is
 grad gets its cotangent from the kernels' wgrad instances.
 
 The constructor takes the JAX calculator's keys (``schnetpack_calculator.
-py:28-44``) and refuses at once what the port cannot run:
-``precision="bf16"`` or ``"mixed"`` (the reduced-precision feature mode,
-ROADMAP Queue 1 item 8; ``None`` and ``"f32"`` run as f32).  A
-``stress_key`` writes the model's stress (a potential built with
-``Forces(calc_stress=True)``) into ``System.stress`` in MD units, so that
-a barostat reads it; the calculator then has a variable cell, which the
-simulator's NPT integrators need (``fixed_cell`` is False).  The column
-layout refuses stress (``model.base.ColumnStressError``), and the JAX
-dense and 27-cell MD lists keep the offsets of their build, so NPT runs
-on ``all_pairs``, whose offsets follow the current cell every step.
+py:28-44``).  ``precision`` is the reduced-precision feature mode
+(``ops/precision.py``; ``"bf16"``, ``"mixed"``, ``"f32"`` or ``None``,
+f32).  The JAX calculator sets the process global ``PIECES`` that every
+Pallas selection reads (``:58-67``); here the model's representation
+sets its own ``pieces`` (``ops.precision.set_pieces``; every member of an
+ensemble), and only where the
+JAX mode keeps the geometry exact: PaiNN's ``full`` and ``hybrid``
+messages on ``"cellblock"``.  Where the JAX mode changes nothing the
+mode is accepted and changes nothing here either: ``all_pairs`` and
+``dense`` (no kernel) and SchNet on ``"cellblock"`` (its cfconv kernels
+read no ``PIECES``).  It raises ``ReducedPrecisionPathError`` at
+construction, before the first step, where the JAX mode rounds the
+gathered positions: ``"cellblock_atom"`` for every model, and PaiNN's
+row-9 path (another basis or cutoff), SO3net and FieldSchNet on
+``"cellblock"``.  A ``stress_key`` writes the model's stress (a potential
+built with ``Forces(calc_stress=True)``) into ``System.stress`` in MD
+units, so that a barostat reads it; the calculator then has a variable
+cell, which the simulator's NPT integrators need (``fixed_cell`` is
+False).  The column layout refuses stress
+(``model.base.ColumnStressError``), and the JAX dense and 27-cell MD
+lists keep the offsets of their build, so NPT runs on ``all_pairs``,
+whose offsets follow the current cell every step.
 
 ``EnsembleCalculator`` (``schnetpack_calculator.py:294-333``) runs one
 model per member over one set of inputs a step (on the column layout one
@@ -74,6 +86,7 @@ import torch
 
 from ... import properties as structure
 from ...atomistic.distances import column_refs
+from ...ops.precision import pieces_of, set_pieces
 from ..neighborlist_md import CellBlockNeighborListMD, DenseNeighborListMD
 from ..system import System
 from .base import PairwiseMDCalculator
@@ -90,13 +103,28 @@ def check_options(neighbor_list, precision) -> None:
             "the port's calculator takes neighbor_list='all_pairs', "
             "'dense', 'cellblock', 'cellblock_atom' or a neighbor-list "
             f"object, not {neighbor_list!r}")
-    if precision in ("bf16", "mixed"):
-        raise NotImplementedError(
-            f"precision={precision!r}: the reduced-precision feature mode "
-            "is not ported (ROADMAP Queue 1 item 8); use None or 'f32'")
-    if precision not in (None, "f32"):
-        raise ValueError(f"precision must be None, 'f32', 'bf16' or "
-                         f"'mixed', not {precision!r}")
+    pieces_of(precision)
+
+
+def layout_name(neighbor_list) -> str:
+    """The reference's name of a ``neighbor_list`` name or object."""
+    if isinstance(neighbor_list, str):
+        return neighbor_list
+    if isinstance(neighbor_list, CellBlockNeighborListMD):
+        return ("cellblock" if neighbor_list.layout_kind == "column"
+                else "cellblock_atom")
+    return "dense"
+
+
+def apply_precision(model, neighbor_list, precision) -> None:
+    """Run ``model`` in the feature mode ``precision`` on ``neighbor_list``
+    (see the module's docstring): its representation sets the mode or
+    raises ``ReducedPrecisionPathError`` (``ops.precision.set_pieces``);
+    ``None`` leaves the model as it is."""
+    if precision is not None:
+        set_pieces(getattr(model, "representation", None),
+                   pieces_of(precision),
+                   layout_name(neighbor_list))
 
 
 class SchNetPackCalculator(PairwiseMDCalculator):
@@ -137,6 +165,7 @@ class SchNetPackCalculator(PairwiseMDCalculator):
             raise ValueError(
                 f"stress_key={stress_key!r}: the model returns no such "
                 f"output ({outputs}); build it with Forces(calc_stress=True)")
+        apply_precision(model, neighbor_list, precision)
         self.model = model
         if params is not None:
             self.model.load_state_dict(params)
@@ -278,6 +307,9 @@ class EnsembleCalculator(SchNetPackCalculator):
 
     def __init__(self, models: Sequence, cutoff: float = 5.0,
                  wgrad: bool = False, **kwargs):
+        for m in models[1:]:
+            apply_precision(m, kwargs.get("neighbor_list", "all_pairs"),
+                            kwargs.get("precision"))
         super().__init__(models[0], None, cutoff, wgrad=wgrad, **kwargs)
         #: the ``system.properties`` streams it writes, to log
         self.property_keys = tuple(

@@ -33,8 +33,14 @@ Usage:
 * ``dynamics=npt`` with a model calculator needs
   ``calculator.stress_key=stress`` and a run directory whose model has
   ``Forces(calc_stress=True)``, on ``calculator.neighbor_list=all_pairs``.
-* Refused before the first step: ``calculator.precision=bf16`` or
-  ``mixed`` (ROADMAP Queue 1 item 8), a barostat with a model calculator
+* ``calculator.precision=bf16`` or ``mixed`` (the reduced-precision
+  feature mode, ``ops/precision.py``) runs PaiNN's ``full`` and ``hybrid``
+  messages on ``calculator.neighbor_list=cellblock`` in the kernels' bf16
+  or mixed instances; it changes nothing on ``all_pairs`` and ``dense``
+  and for SchNet on ``cellblock``.  It is refused before the first step
+  (``ReducedPrecisionPathError``) on ``cellblock_atom`` and for the other
+  column models, where the JAX package's mode rounds the positions.
+* Refused before the first step: a barostat with a model calculator
   without a stress or on a skin neighbor list, and ``calculator=orca``
   (item 4).
 """

@@ -59,6 +59,12 @@ SIGNATURES = {
     "spk_cell_msg_fwd": [_P] * 9 + [_I] * 8 + [_P],
     "spk_cell_msg_bwd": [_P] * 13 + [_I] * 8 + [_P],
 }
+#: the message kernels' mixed and bf16 instances (``colblock_message{,_bwd}
+#: _{mixed,bf16}.cu``): the f32 entry points' names with the mode appended
+for _mode in ("_mixed", "_bf16"):
+    for _name in ("spk_msg_fwd", "spk_msg_bwd", "spk_msg_fwd_geo",
+                  "spk_msg_bwd_geores"):
+        SIGNATURES[_name + _mode] = SIGNATURES[_name]
 #: host queries: argument types (ints), no stream
 QUERIES = {
     "spk_msg_fwd_blocks": [_I] * 4,
@@ -66,6 +72,9 @@ QUERIES = {
     "spk_mix_smem_bytes": [_I] * 2,
     "spk_cf_smem_bytes": [_I] * 3,
 }
+for _mode in ("_mixed", "_bf16"):
+    for _name in ("spk_msg_fwd_blocks", "spk_msg_bwd_blocks"):
+        QUERIES[_name + _mode] = QUERIES[_name]
 
 _LIB = None
 #: the entry points of the loaded library, argument types set

@@ -26,6 +26,7 @@ from typing import Tuple
 import torch
 
 from .cutoff import cosine_cutoff
+from .precision import filter_product, round_both
 
 
 @functools.lru_cache(maxsize=256)
@@ -278,19 +279,26 @@ def column_geometry(R: torch.Tensor, coff_fm: torch.Tensor, refs: ColRefs,
 
 
 def painn_message(x: torch.Tensor, mu: torch.Tensor, rbf_aug: torch.Tensor,
-                  dirs: torch.Tensor, FW_aug: torch.Tensor, refs: ColRefs):
+                  dirs: torch.Tensor, FW_aug: torch.Tensor, refs: ColRefs,
+                  pieces: int = 3):
     """PaiNN inter-atomic message (``_painn_message_xla``).
 
     x [A', 3F] context, mu [A', 3F] flat vector features (rows of the
     source table: halo'd for sharded ``refs``, ``_msg_hx_xla``), FW_aug
     [B+1, 3F] filter weights with the bias as last row.  Returns the
-    per-atom sums dq [A', F] and dmu [A', 3F]."""
+    per-atom sums dq [A', F] and dmu [A', 3F].
+
+    ``pieces`` < 3 rounds where the TPU kernels of the reduced-precision
+    mode split a value into bf16 terms (``ops/precision.py``): the
+    gathered sources and each edge's message, and in the backward their
+    cotangents (``colblock_pallas.py:1970-1971, 1951-1955, 1324, 1357,
+    1363``), with the filter's cotangent products in bf16 at one piece."""
     F = x.shape[1] // 3
-    xj = column_gather(x, refs)
-    muj = column_gather(mu, refs)
-    xjW = xj * (rbf_aug @ FW_aug)
+    xj = round_both(column_gather(x, refs), pieces)
+    muj = round_both(column_gather(mu, refs), pieces)
+    xjW = xj * filter_product(rbf_aug, FW_aug, pieces)
     dq, dmuR, dmumu = xjW.split(F, dim=-1)
     msg = [dq] + [dmuR * dirs[..., c:c + 1] + dmumu * muj[..., c * F:(c + 1) * F]
                   for c in range(3)]
-    folded = column_fold(torch.cat(msg, dim=-1), refs)
+    folded = column_fold(round_both(torch.cat(msg, dim=-1), pieces), refs)
     return folded[:, :F], folded[:, F:]

@@ -55,6 +55,16 @@ follow the JAX package's dispatch (``painn.py:312-318``):
   cotangent, and autograd carries it to the positions and to trainable
   basis parameters.
 
+``pieces`` is the JAX package's reduced-precision feature mode
+(``ops/precision.py``; ``PIECES``, set there by the calculator's
+``precision``) as an argument: 3 (f32, the default), 2 ("mixed") or 1
+("bf16") runs the ``full`` and ``hybrid`` messages in the kernels'
+instances of that mode (their twins on the CPU).  The flat and dense
+layouts run no kernel and ignore it, as the JAX package's do.  The
+row-9 column path, the slab path and the 27-cell path raise
+``ReducedPrecisionPathError`` at ``pieces != 3``: there the JAX mode
+rounds the gathered positions themselves.
+
 Column inputs with ``cell_shard`` (the slab path of ``parallel/columns.py``)
 take the JAX package's ``"column"`` context (``painn.py:302-311, 368-373,
 403-410, 438-448``) for any basis and cutoff: the plain per-edge geometry
@@ -103,6 +113,7 @@ from ..ops.colblock_message import (
 )
 from ..ops.painn_fused import painn_message_cellblock
 from ..ops.painn_mixing import painn_mixing_fused
+from ..ops.precision import check_pieces, refuse
 from ..ops.radial import gaussian_rbf_table
 
 
@@ -179,10 +190,14 @@ class PaiNN(nn.Module):
                  shared_filters: bool = False,
                  nuclear_embedding: bool = False,
                  electronic_embeddings: tuple = (),
+                 pieces: int = 3,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         #: one interaction block for all (flax ``*_shared``)
         self.shared_interactions = shared_interactions
+        #: the feature precision of the full and hybrid column messages
+        #: (3 f32, 2 mixed, 1 bf16; ``ops/precision.py``)
+        self.pieces = check_pieces(pieces)
         if fuse not in ("hybrid", "full"):
             raise ValueError(f"fuse must be 'hybrid' or 'full', got {fuse!r}")
         F = n_atom_basis
@@ -272,8 +287,21 @@ class PaiNN(nn.Module):
         return self._edge_geometry(inputs, properties.nbh_rij,
                                    inputs[properties.nbh_mask])
 
+    def set_pieces(self, pieces: int, layout: str):
+        """The calculator's feature mode on its blocked layout ``layout``
+        (``ops.precision.set_pieces``): the mode of the full and hybrid
+        messages on ``"cellblock"``, else ``ReducedPrecisionPathError``."""
+        if layout != "cellblock" or self.path not in ("full", "hybrid"):
+            refuse(f"PaiNN ({self.path}) on {layout!r}", pieces)
+        self.pieces = check_pieces(pieces)
+
+    def _exact_only(self, path: str):
+        """Raise on a path where the JAX mode rounds the positions."""
+        refuse(f"PaiNN on {path}", self.pieces)
+
     def _cell_message(self, inputs):
         """The message of the 27-cell path: K18/K19 on [x, mu]."""
+        self._exact_only("the 27-cell layout")
         refs = cell_refs(inputs)
         rbf_aug, dirs = self._cell_geometry(inputs)
 
@@ -288,12 +316,16 @@ class PaiNN(nn.Module):
         R = inputs[properties.R]
         refs = column_refs(inputs)
         if refs.shard_axis is not None:
+            self._exact_only("the slab path")
             rbf_aug, dirs = self._edge_geometry(
                 inputs, properties.col_rij, inputs[properties.cell_emask])
             return lambda x, mu, FW_aug: painn_message_columns(
                 torch.cat([x, mu], dim=-1), rbf_aug, dirs, FW_aug, refs)
         coff_fm = inputs[properties.cell_coff_fm]
         if self.path == "column_fm":
+            self._exact_only(
+                f"the row-9 column path ({type(self.radial_basis).__name__}"
+                f", {type(self.cutoff_fn).__name__})")
             geo = self._column_geometry(inputs, refs).contiguous()
             return lambda x, mu, FW_aug: painn_message_columns_fm(
                 x, mu, geo, FW_aug, refs)
@@ -302,9 +334,11 @@ class PaiNN(nn.Module):
                 geo = column_geometry_packed(R, coff_fm, refs, self.cw,
                                              self.cutoff, with_d=True)
             return lambda x, mu, FW_aug: painn_message_columns_fm_geores(
-                x, mu, R, geo, FW_aug, coff_fm, self.cw, refs, self.cutoff)
+                x, mu, R, geo, FW_aug, coff_fm, self.cw, refs, self.cutoff,
+                self.pieces)
         return lambda x, mu, FW_aug: painn_message_columns_full_fused(
-            x, mu, R, FW_aug, coff_fm, self.cw, refs, self.cutoff)
+            x, mu, R, FW_aug, coff_fm, self.cw, refs, self.cutoff,
+            self.pieces)
 
     def forward(self, inputs: Dict[str, torch.Tensor]):
         F = self.n_atom_basis

@@ -54,6 +54,7 @@ from ..nn.radial import GaussianRBF
 from ..ops.activations import shifted_softplus
 from ..ops.colblock import ColRefs
 from ..ops.colblock_geo import column_geometry_raw, geo_fwd_plain
+from ..ops.precision import refuse
 from ..ops.radial import gaussian_rbf_table
 from ..ops.schnet_columns import schnet_cfconv_columns
 
@@ -126,6 +127,15 @@ class SchNet(nn.Module):
         self.register_buffer(
             "cw", gaussian_rbf_table(rb.n_rbf, rb.cutoff, rb.start)
             if gauss and not rb.trainable else None, persistent=False)
+
+    def set_pieces(self, pieces: int, layout: str):
+        """The calculator's feature mode on its blocked layout ``layout``
+        (``ops.precision.set_pieces``): a no-op on ``"cellblock"`` (the JAX
+        package's cfconv kernels read no ``PIECES``),
+        ``ReducedPrecisionPathError`` on ``"cellblock_atom"``, whose
+        gather rounds the positions there."""
+        if layout == "cellblock_atom":
+            refuse(f"SchNet on {layout!r}", pieces)
 
     def _geometry(self, R, coff_fm, refs: ColRefs):
         """The raw-phi geometry [nx, ny, B+4, Ktot]: K5/K8 for a fixed

@@ -43,12 +43,15 @@ from schnetpack_tpu_torch import properties as TP
 from schnetpack_tpu_torch.cli import load_model
 from schnetpack_tpu_torch.convert import load_jax_params, params_from_jax
 from schnetpack_tpu_torch.datasets import write_extxyz
-from schnetpack_tpu_torch.md import Simulator, VelocityVerlet, load_molecules
+from schnetpack_tpu_torch.md import (
+    CellBlockNeighborListMD, Simulator, VelocityVerlet, load_molecules,
+)
 from schnetpack_tpu_torch.md import cli
 from schnetpack_tpu_torch.md.calculators import (
     EnsembleCalculator, SchNetPackCalculator,
 )
 from schnetpack_tpu_torch.md.simulator import LOG_KEYS
+from schnetpack_tpu_torch.ops.precision import ReducedPrecisionPathError
 from schnetpack_tpu_torch.model import NeuralNetworkPotential
 
 from test_torch_port_md import MOM_ATOL, MOM_RTOL, POS_ATOL
@@ -257,14 +260,15 @@ def tiny_potential():
 
 
 @pytest.mark.parametrize("options,error,match", [
-    (dict(neighbor_list="all_pairs", precision="bf16"), NotImplementedError,
-     "item 8"),
+    (dict(neighbor_list="cellblock_atom", precision="bf16"),
+     ReducedPrecisionPathError, "rounds the positions"),
     (dict(neighbor_list="dense", stress_key="stress"), ValueError,
      "calc_stress"),
-    (dict(neighbor_list="cellblock", precision="bf16"), NotImplementedError,
-     "item 8"),
-    (dict(neighbor_list="cellblock", precision="mixed"),
-     NotImplementedError, "item 8"),
+    (dict(neighbor_list="cellblock_atom", precision="mixed"),
+     ReducedPrecisionPathError, "rounds the positions"),
+    (dict(neighbor_list=CellBlockNeighborListMD(CUTOFF, layout="atom"),
+          precision="bf16"), ReducedPrecisionPathError,
+     "rounds the positions"),
     (dict(neighbor_list="cellblock", stress_key="stress"),
      ValueError, "column layout"),
     (dict(neighbor_list="cellblock_atom", stress_key="stress"),
@@ -280,7 +284,7 @@ def test_calculator_refuses_at_construction(options, error, match):
 
 @pytest.mark.parametrize("neighbor_list,precision", [
     ("cellblock", None), ("cellblock", "f32"), ("all_pairs", None),
-    ("dense", "f32")])
+    ("dense", "f32"), ("cellblock", "bf16"), ("all_pairs", "mixed")])
 def test_calculator_takes_the_jax_keys(neighbor_list, precision):
     """The JAX calculator's keys build and compute, on every layout (the
     flat and dense ones agree with the column one)."""

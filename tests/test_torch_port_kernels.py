@@ -26,6 +26,7 @@ from schnetpack_tpu_torch.ops.colblock import (
 from schnetpack_tpu_torch.ops.colblock_shard import (
     COLS_AXIS, COLS_AXIS_Y, _halo_table,
 )
+from schnetpack_tpu_torch.ops.precision import round_pieces
 from schnetpack_tpu_torch.ops.radial import gaussian_rbf_table
 from torch_port_cases import (
     MIX_ATOL, MIX_INPUTS, MIX_RTOL, MSG_ATOL, MSG_RTOL, cell_case,
@@ -382,7 +383,7 @@ def test_row9_kernel_matches_twin(cuda_device, seed):
     for g, w in zip(grads, want):
         torch.testing.assert_close(g, w, rtol=MSG_RTOL, atol=MSG_ATOL)
     assert {k: msg.LAUNCHES[k] - before[k] for k in before} == {
-        "msg_fwd": 0, "msg_bwd": 0, "msg_fwd_geo": 1, "msg_bwd_geores": 0,
+        **dict.fromkeys(msg.LAUNCHES, 0), "msg_fwd_geo": 1,
         "msg_bwd_src": 1}
 
 
@@ -419,8 +420,117 @@ def test_wgrad_instances_of_fused_backwards_match_twin(cuda_device, seed):
         torch.testing.assert_close(gFW, want[3], rtol=MSG_RTOL,
                                    atol=MSG_ATOL)
     assert {k: msg.LAUNCHES[k] - before[k] for k in before} == {
-        "msg_fwd": 1, "msg_bwd": 1, "msg_fwd_geo": 1, "msg_bwd_geores": 1,
-        "msg_bwd_src": 0}
+        **dict.fromkeys(msg.LAUNCHES, 0), "msg_fwd": 1, "msg_bwd": 1,
+        "msg_fwd_geo": 1, "msg_bwd_geores": 1}
+
+
+#: the reduced-precision instances against their twins at the same pieces:
+#: per edge a rounding flip of one ulp of the mode (2^-15 of the term at
+#: two pieces, 2^-7 at one), S the sum of the terms' absolute values (the
+#: twin on |inputs|), beside the f32 tolerance; dR at one piece within
+#: 2^-7 of max |dR| (its chain sums terms that cancel)
+REDUCED_ULP = {2: 2.0 ** -15, 1: 2.0 ** -7}
+#: those bounds hold an instance that skips its per-edge rounding as well
+#: (at most half an ulp a term), so the mode's effect is held too: the
+#: instance's rms distance from the f32 instance over its twin's from the
+#: f32 twin, both f32 on the inputs rounded as the mode rounds them, on
+#: the outputs a rounding of the mode reaches (at two pieces the features'
+#: only: dq, dmu; dx, dmu)
+MODE_EFFECT = (0.5, 2.0)
+
+
+def _rms(t):
+    return float(t.double().square().mean().sqrt())
+
+
+def _effect(got, want, got3, want3, name, pieces):
+    reached = 2 if pieces == 2 else 4
+    for i, (g, w, g3, w3) in list(enumerate(zip(got, want, got3,
+                                                 want3)))[:reached]:
+        ratio = _rms(g - g3) / _rms(w - w3)
+        assert MODE_EFFECT[0] <= ratio <= MODE_EFFECT[1], (name, i, ratio)
+
+
+def _within(got, want, S, pieces, name):
+    for i, (g, w) in enumerate(zip(got, want)):
+        if S[i] is None:
+            if pieces == 1:
+                err = float((g - w).abs().max() / w.abs().max())
+                assert err <= 2.0 ** -7, (name, i, err)
+            else:
+                torch.testing.assert_close(g, w, rtol=MSG_RTOL,
+                                           atol=MSG_ATOL)
+            continue
+        lim = (REDUCED_ULP[pieces] + MSG_RTOL) * S[i] + MSG_ATOL
+        worst = float(((g - w).abs() / lim).max())
+        assert worst <= 1.0, (name, i, worst)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pieces", [2, 1])
+@pytest.mark.parametrize("F,B", [(128, 20), (64, 27), (64, 40)])
+def test_reduced_precision_message_kernels_match_twin(cuda_device, pieces,
+                                                      F, B):
+    """K1/K2 and K6/K7 in their mixed and bf16 instances, with the filter
+    weights in registers (B = 20) and read through L1 (B = 27, 40), plain
+    and (B+1 <= 32) wgrad, against their twins at the same pieces; the
+    ops launch the mode's instances, counted under its names; each
+    instance's mode effect is its twin's."""
+    c = message_case(F=F, B=B, seed=F + B)
+    t, refs, cw = torch_message_args(c, cuda_device)
+    cw[:, 1] = gaussian_rbf_table(20, c["cutoff"], device=cuda_device)[0, 1]
+    cots = (t["g_dq"], t["g_dmu"])
+    geo = geo_op.geo_fwd_kernel(t["Rs"], t["coff_fm"], refs, cw, c["cutoff"])
+    x, mu, FW = t["x"], t["mu"], t["FW"]
+    with torch.no_grad():
+        ab = [a.abs() for a in (x, mu, geo, FW)]
+        S_f = msg.msg_fwd_geo_plain(*ab, refs)
+        S_b = msg.msg_bwd_geores_plain(*ab, cw, refs, c["cutoff"],
+                                       *(g.abs() for g in cots))
+    S_b = [S_b[0], S_b[1], None, S_b[3]]
+    xr, mur = (round_pieces(a, pieces) for a in (x, mu))
+    cots3 = [round_pieces(g, pieces) for g in cots]
+    full = (x, mu, t["Rs"], FW, t["coff_fm"], cw, refs, c["cutoff"])
+    hyb = (x, mu, geo, FW, cw, refs, c["cutoff"])
+    full3 = (xr, mur) + full[2:]
+    hyb3 = (xr, mur) + hyb[2:]
+    for kern, plain, args, args3 in [
+            (msg.msg_fwd_kernel, msg.msg_fwd_plain, full, full3),
+            (msg.msg_fwd_geo_kernel, msg.msg_fwd_geo_plain,
+             (x, mu, geo, FW, refs), (xr, mur, geo, FW, refs))]:
+        got, want = kern(*args, pieces=pieces), plain(*args, pieces=pieces)
+        _within(got, want, S_f, pieces, kern.__name__)
+        _effect(got, want, kern(*args3), plain(*args3), kern.__name__,
+                pieces)
+    for kern, plain, args, args3 in [
+            (msg.msg_bwd_kernel, msg.msg_bwd_plain, full, full3),
+            (msg.msg_bwd_geores_kernel, msg.msg_bwd_geores_plain, hyb,
+             hyb3)]:
+        want = plain(*args, *cots, pieces=pieces)
+        want3 = plain(*args3, *cots3)
+        got = kern(*args, *cots, pieces=pieces)
+        assert len(got) == 3
+        _within(got, want, S_b, pieces, kern.__name__)
+        _effect(got, want, kern(*args3, *cots3), want3, kern.__name__,
+                pieces)
+        if B + 1 <= 32:
+            got = kern(*args, *cots, wgrad=True, pieces=pieces)
+            _within(got, want, S_b, pieces, kern.__name__ + " (wgrad)")
+            _effect(got, want, kern(*args3, *cots3, wgrad=True), want3,
+                    kern.__name__ + " (wgrad)", pieces)
+    mode = {2: "_mixed", 1: "_bf16"}[pieces]
+    before = dict(msg.LAUNCHES)
+    ins = [a.clone().requires_grad_(True) for a in (x, mu, t["Rs"])]
+    for dq, dmu in [
+            msg.painn_message_columns_full_fused(
+                *ins, FW, t["coff_fm"], cw, refs, c["cutoff"], pieces),
+            msg.painn_message_columns_fm_geores(
+                *ins, geo, FW, t["coff_fm"], cw, refs, c["cutoff"], pieces)]:
+        torch.autograd.grad((dq, dmu), ins, cots)
+    assert {k: msg.LAUNCHES[k] - before[k] for k in before} == {
+        **dict.fromkeys(msg.LAUNCHES, 0), "msg_fwd" + mode: 1,
+        "msg_bwd" + mode: 1, "msg_fwd_geo" + mode: 1,
+        "msg_bwd_geores" + mode: 1}
 
 
 @pytest.mark.gpu

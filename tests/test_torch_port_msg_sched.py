@@ -7,7 +7,12 @@ source-sorted slots the same way (``colblock.row_groups``).  The kernels
 run only on the card; here the schedule itself is checked, and a plain
 walk over it in the forward kernel's summation order (written below) is
 held to the twin and to the JAX package's message on the same numpy
-inputs, at the message tolerance (f32 sums in another order).
+inputs, at the message tolerance (f32 sums in another order).  The walk
+also replays the kernels' reduced-precision instances (``ops/precision.py``)
+against the twins at the same pieces: the features as the kernels load
+them and each edge's message rounded before its row sum, in the forward
+kernel's arithmetic; and the backward's P3 product grbf = bf16(gW)
+bf16(FW)^T of the bf16 instance.
 """
 import jax
 import jax.numpy as jnp
@@ -21,8 +26,9 @@ from schnetpack_tpu.ops.radial import gaussian_rbf_params
 from schnetpack_tpu_torch.ops import colblock_message as msg
 from schnetpack_tpu_torch.ops.colblock import (
     column_gather, column_geometry, destination_order,
-    destination_schedule, row_groups, source_order,
+    destination_schedule, painn_message, row_groups, source_order,
 )
+from schnetpack_tpu_torch.ops.precision import round_pieces
 from torch_port_cases import (
     MSG_ATOL, MSG_RTOL, message_case, torch_message_args,
 )
@@ -105,15 +111,23 @@ def test_wave_groups_fill_the_last_wave(n_cols, slots, want):
     assert msg.wave_groups(n_cols, slots, 16) == want
 
 
-def _walk(c, t, refs, cw, G):
+def _rnd(a, pieces):
+    return round_pieces(torch.as_tensor(a), pieces).numpy()
+
+
+def _walk(c, t, refs, cw, G, pieces=3):
     """The forward kernel's sums, in its order: per block (column, row
     range) its slots in destination order, the slots with fcut = 0 skipped,
     each destination row's dq and dmu summed in f32 slot by slot and
-    stored once; rows without a slot stay zero."""
+    stored once; rows without a slot stay zero.  At ``pieces`` < 3 the
+    instance of that mode: x and mu as loaded (``round_pieces``), and each
+    edge's message formed as the kernel forms it (dq = x w; dmu =
+    fma(x_m w_m, mu, x_r w_r dir), the fma's one rounding from float64)
+    and rounded before its sum."""
     F = t["x"].shape[1] // 3
     rbf, dirs = column_geometry(t["Rs"], t["coff_fm"], refs, cw, c["cutoff"])
-    xj = column_gather(t["x"], refs).reshape(-1, 3 * F).numpy()
-    muj = column_gather(t["mu"], refs).reshape(-1, 3 * F).numpy()
+    xj = _rnd(column_gather(t["x"], refs).reshape(-1, 3 * F), pieces)
+    muj = _rnd(column_gather(t["mu"], refs).reshape(-1, 3 * F), pieces)
     rbf = rbf.reshape(-1, rbf.shape[-1]).numpy()
     dirs = dirs.reshape(-1, 3).numpy()
     W = rbf @ t["FW"].numpy()
@@ -131,9 +145,17 @@ def _walk(c, t, refs, cw, G):
                 if rbf[s, -1] == 0.0:   # fcut = 0: adds nothing
                     continue
                 xq, xr, xm = np.split(xj[s] * W[s], 3)
-                out[row] += np.concatenate(
-                    [xq] + [xr * dirs[s, k] + xm * muj[s, k * F:(k + 1) * F]
-                            for k in range(3)])
+                if pieces == 3:
+                    out[row] += np.concatenate(
+                        [xq] + [xr * dirs[s, k] + xm * muj[s, k * F:(k + 1)
+                                                           * F]
+                                for k in range(3)])
+                    continue
+                mu3 = muj[s].reshape(3, F).astype(np.float64)
+                edge = [xq] + [(xm.astype(np.float64) * mu3[k]
+                                + (xr * dirs[s, k])).astype(np.float32)
+                               for k in range(3)]
+                out[row] += _rnd(np.concatenate(edge), pieces)
     return out[:, :F], out[:, F:]
 
 
@@ -160,3 +182,60 @@ def test_destination_walk_matches_twin_and_jax(seed, G):
     rbf, _ = column_geometry(t["Rs"], t["coff_fm"], refs, cw, c["cutoff"])
     assert bool(((rbf[..., -1] == 0) & (refs.qcol >= 0)).any())
     assert jax.default_backend() == "cpu"
+
+
+#: a kernel instance against its twin at the same pieces: one rounding
+#: flip of the mode's ulp per edge (2^-15 of the term at two pieces, 2^-7
+#: at one), S the sum of the terms' absolute values, beside the f32 one
+REDUCED_ULP = {2: 2.0 ** -15, 1: 2.0 ** -7}
+
+
+@pytest.mark.parametrize("pieces", [2, 1])
+def test_reduced_walk_matches_twin(pieces):
+    """The forward kernel's mixed and bf16 arithmetic, replayed on its
+    schedule, against the twin at the same pieces."""
+    c, t, refs, cw = _refs(4)
+    got = _walk(c, t, refs, cw, 3, pieces)
+    twin = msg.msg_fwd_plain(t["x"], t["mu"], t["Rs"], t["FW"], t["coff_fm"],
+                             cw, refs, c["cutoff"], pieces)
+    rbf, dirs = column_geometry(t["Rs"], t["coff_fm"], refs, cw, c["cutoff"])
+    S = painn_message(t["x"].abs(), t["mu"].abs(), rbf.abs(), dirs.abs(),
+                      t["FW"].abs(), refs)
+    for g, w, s in zip(got, twin, S):
+        lim = (REDUCED_ULP[pieces] + MSG_RTOL) * s.numpy() + MSG_ATOL
+        assert (np.abs(g - w.numpy()) <= lim).all()
+    # the mode is in effect
+    assert not np.allclose(got[1], _walk(c, t, refs, cw, 3)[1], 0, 1e-7)
+
+
+def test_bf16_p3_product_matches_twin():
+    """P3 of the bf16 backward: per slot gW = [g_q x_q, (g . dir) x_r,
+    (g . mu) x_m] from the bf16 loads in f32, then grbf = sum over 3F of
+    bf16(gW) bf16(FW) with exact products and f32 sums (mma.sync
+    m16n8k16), against the twin's grbf (the VJP of its bf16 filter)."""
+    c, t, refs, cw = _refs(5)
+    F = t["x"].shape[1] // 3
+    rbf, dirs = column_geometry(t["Rs"], t["coff_fm"], refs, cw, c["cutoff"])
+    leaf = rbf.detach().requires_grad_(True)
+    (grbf,) = torch.autograd.grad(
+        painn_message(t["x"], t["mu"], leaf, dirs, t["FW"], refs, 1), leaf,
+        (t["g_dq"], t["g_dmu"]))
+    from schnetpack_tpu_torch.ops.colblock import decode_i
+    i, _ = decode_i(refs)
+    real = (refs.qcol >= 0).reshape(-1).numpy()
+    xj = _rnd(column_gather(t["x"], refs).reshape(-1, 3 * F), 1)[real]
+    muj = _rnd(column_gather(t["mu"], refs).reshape(-1, 3 * F), 1)[real]
+    g = np.concatenate([t["g_dq"], t["g_dmu"]], 1)
+    g = _rnd(g[i.reshape(-1).numpy()[real]], 1)
+    d = dirs.reshape(-1, 3).numpy()[real]
+    gm = g[:, F:].reshape(-1, 3, F)
+    gp1 = (gm * d[:, :, None]).sum(1, dtype=np.float32)
+    gp2 = (gm * muj.reshape(-1, 3, F)).sum(1, dtype=np.float32)
+    gW = np.concatenate([g[:, :F] * xj[:, :F], gp1 * xj[:, F:2 * F],
+                         gp2 * xj[:, 2 * F:]], 1)
+    FW = _rnd(t["FW"].numpy(), 1)
+    got = _rnd(gW, 1) @ FW.T
+    want = grbf.reshape(-1, grbf.shape[-1]).numpy()[real]
+    S = np.abs(gW) @ np.abs(FW).T
+    lim = (REDUCED_ULP[1] + MSG_RTOL) * S + MSG_ATOL
+    assert (np.abs(got - want) <= lim).all()
