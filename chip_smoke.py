@@ -272,7 +272,38 @@ Phases (any failure exits non-zero before the last line is printed):
    27-cell layout and SO3net on the column layout refuse bf16
    (``ReducedPrecisionPathError``) before any launch; the sub-rows'
    launches are this phase's;
-14. print the kernel table (every row and sub-row with ``ms`` and
+14. the interfaces (``interfaces_phase``), on the flat layout as in the
+   JAX package, so no kernel may launch over the phase: (a)
+   ``SpkCalculator`` with the trained PaiNN-128x3 from a run directory
+   (``write_run_dir``, ``utils.load_model``) on the card on
+   ``port_ref_painn_argon.npz``'s 10,976-atom box at phase 4's gates, a
+   repeat with the same positions evaluating nothing and moved positions
+   once, the host neighbor list's ms apart from the evaluation's; (b)
+   ``LammpsModelServer`` on the card serving the deployed artifact
+   (per-atom energies): the port's ``test_client.cpp`` built with g++ on a
+   2,048-atom FCC box jittered by a seeded +-0.1 A (energy, the per-atom
+   energies' sum and forces within 1e-5 eV/Ang rms of (a)'s calculator;
+   the per-atom energies, by the Python client, within 1e-5 eV of the
+   model's), the Python client (``ModelClient``) on the fixture's box at
+   phase 4's gates, its virial within 1e-4 of the virial's scale (the
+   largest entry of sum_i |r_i (x) F_i|) of -V x the flat ``Strain``
+   stress, a two-rank partial request within 1e-6 eV/Ang of the single
+   domain, the median round trip of 10 requests beside the in-process
+   evaluation; (c) ``deploy`` with ``export_program=True`` on the card:
+   the loaded artifact's weights, and its forces under deterministic
+   algorithms, equal the run directory's bit for bit, and the exported
+   program's forces at its two-atom example within 1e-6 of the eager
+   maximum; (d) a synthetic reference-format PaiNN-128x3 (seeded random
+   weights) imported onto the card and onto the CPU: forces on the
+   2,048-atom box within 1e-5 of the CPU's maximum; (e) ``batchwise_lbfgs``
+   of phase 10's 64 clusters: every fmax under 0.05 eV/Ang within 200
+   iterations, no energy above its start (1e-6 of it: a frozen cluster is
+   evaluated again), ms per iteration; (f) ``spkmd calculator=orca`` with
+   a stub ``orca`` (a Python LJ argon script writing ORCA's energy and
+   gradient blocks) on 8 argon atoms, 20 NVE steps: drift <= 1e-4
+   eV/atom, the last forces within 1e-6 of max |F| of -dE/dR of the
+   stub's potential at the last ``.inp``'s positions;
+15. print the kernel table (every row and sub-row with ``ms`` and
    ``device_ms``, ``library_ms`` and ``library_device_ms``) and the card
    as JSON, then the result line.
 
@@ -711,6 +742,52 @@ def compare(name, got, want, norm_from=None, exact=False, bound=None):
                                        msg=lambda m: f"{name}: {m}")
         err = max(err, float((g - w).abs().max()))
     return err
+
+#: phase 14, the interfaces (``interfaces_phase``): the C++ client's box
+#: (its edge list is a brute-force search over 27 images, so 2,048 atoms),
+#: the gates and the relaxation and ORCA runs
+IFACE_CELLS = 8                  # 8^3 FCC cells: 2,048 atoms
+IFACE_JITTER = 0.1               # Angstrom, seeded
+IFACE_RMS_TOL = 1e-5             # eV/Ang: server vs SpkCalculator
+IFACE_E_ATOM_ATOL = 1e-5         # eV: the server's per-atom energies
+PARTIAL_ATOL = 1e-6              # eV/Ang: two ranks vs one domain
+VIRIAL_SCALE_TOL = 1e-4          # of the virial's scale
+PROGRAM_SCALE_TOL = 1e-6         # of the largest |F|: exported vs eager
+IMPORT_SCALE_TOL = 1e-5          # of the largest |F|: card vs CPU import
+ROUND_TRIPS = 10                 # requests timed, the median kept
+RELAX_FMAX, RELAX_STEPS = 0.05, 200   # eV/Ang; LBFGS iterations
+RELAX_E_RTOL = 1e-6              # a frozen cluster's energy, re-evaluated
+ORCA_STEPS = 20
+ORCA_DRIFT_TOL = 1e-4            # eV per atom
+ORCA_FORCE_TOL = 1e-6            # of the largest |F|: the gradient's digits
+LJ_EPS, LJ_SIGMA = 0.0104, 3.4   # eV, Angstrom: the stub's argon
+#: the stub ``orca`` executable: LJ argon of the ``.inp``'s atoms, ORCA's
+#: energy (Hartree) and gradient (Hartree/Bohr) blocks on its output
+ORCA_STUB = '''#!{python}
+import sys
+
+EPS, SIGMA, HARTREE, BOHR = {eps!r}, {sigma!r}, {hartree!r}, {bohr!r}
+lines = open(sys.argv[1]).read().splitlines()
+start = lines.index("* xyz 0 1") + 1
+atoms = [ln.split() for ln in lines[start:lines.index("*", start)]]
+R = [[float(x) for x in a[1:4]] for a in atoms]
+E, G = 0.0, [[0.0, 0.0, 0.0] for _ in R]
+for i in range(len(R)):
+    for j in range(len(R)):
+        if i == j:
+            continue
+        d = [R[i][k] - R[j][k] for k in range(3)]
+        r2 = sum(x * x for x in d)
+        sr6 = (SIGMA * SIGMA / r2) ** 3
+        E += 2 * EPS * (sr6 * sr6 - sr6)
+        for k in range(3):
+            G[i][k] += 4 * EPS * (6 * sr6 - 12 * sr6 * sr6) / r2 * d[k]
+print("FINAL SINGLE POINT ENERGY %.12f" % (E / HARTREE))
+print("------------------\\nCARTESIAN GRADIENT\\n------------------\\n")
+for k, (a, g) in enumerate(zip(atoms, G)):
+    g = [x * BOHR / HARTREE for x in g]
+    print("%4d   %s  : %16.12f %16.12f %16.12f" % (k + 1, a[0], *g))
+'''
 
 
 def molecule(R, cell):
@@ -4113,6 +4190,514 @@ def response_phase(seed, dev, launches, smi):
     return total
 
 
+def iface_box(seed):
+    """The C++ client's box: 8^3 FCC cells jittered by a seeded
+    +-``IFACE_JITTER`` (a sample dict)."""
+    R, cell = fcc_box(4 * IFACE_CELLS ** 3)
+    rng = np.random.RandomState(seed + 14)
+    return molecule(R + rng.uniform(-IFACE_JITTER, IFACE_JITTER, R.shape),
+                    cell)
+
+
+def edge_list(atoms):
+    """(idx_i, idx_j, offsets) of a periodic box within the cutoff: the
+    host cell list, the pair style's convention."""
+    from schnetpack_tpu_torch import properties as P
+    from schnetpack_tpu_torch.transform.neighborlist import (
+        cell_list_neighbor_list,
+    )
+
+    i, j, S = cell_list_neighbor_list(atoms[P.R], CUTOFF, atoms[P.cell],
+                                      np.ones(3, bool))
+    return i, j, S @ atoms[P.cell]
+
+
+def force_rms(a, b):
+    return float(np.sqrt(np.mean((np.asarray(a, np.float64)
+                                  - np.asarray(b, np.float64)) ** 2)))
+
+
+def iface_calculator_phase(run, atoms, ref, dev, smi):
+    """Phase 14 (a): ``SpkCalculator`` with the run directory's model on
+    the card on the fixture's box: phase 4's gates, the cache, and the
+    host neighbor list's and the evaluation's ms apart.  Returns the
+    calculator and its forces."""
+    from schnetpack_tpu_torch import properties as P
+    from schnetpack_tpu_torch.interfaces import SpkCalculator
+    from schnetpack_tpu_torch.utils import load_model
+
+    model, _ = load_model(run, device=dev)
+    calc = SpkCalculator(model, cutoff=CUTOFF, device=dev)
+    res = calc.calculate(atoms)
+    F, E = res["forces"], res["energy"]
+    rms = force_rms(F, ref["forces"])
+    dE = abs(E - float(ref["energy"])) / abs(float(ref["energy"]))
+    assert calc.calculate(dict(atoms)) is res and calc.n_evaluations == 1
+    calc.calculate(dict(atoms, **{P.R: atoms[P.R] + 1e-3}))
+    assert calc.n_evaluations == 2, "moved positions: one evaluation"
+    t = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        batch = calc.converter(atoms)
+        torch.cuda.synchronize()
+        t.append(1e3 * (time.perf_counter() - t0))
+    eval_ms = cuda_ms(lambda: calc._apply(calc.model, batch), reps=3)
+    print(f"interfaces (SpkCalculator, {len(F)} atoms): force rms err "
+          f"{rms:.3e} eV/Ang vs port_ref_painn_argon.npz (max "
+          f"{np.abs(F - ref['forces']).max():.3e}), energy rel err "
+          f"{dE:.2e}; a repeat evaluated nothing, moved positions once; "
+          f"host neighbor list + collate {np.median(t):.1f} ms, evaluation "
+          f"(energy, forces, the host copy) {eval_ms:.2f} ms; {smi}",
+          flush=True)
+    assert np.isfinite(F).all() and F.shape == ref["forces"].shape
+    assert rms <= FORCE_RMS_TOL, f"SpkCalculator: force rms {rms}"
+    assert dE <= ENERGY_RTOL, f"SpkCalculator: energy {dE}"
+    return calc, F
+
+
+def test_client_binary(tmp):
+    """The port's ``test_client.cpp`` + ``spk_client.cpp`` built with
+    g++."""
+    src = os.path.join(ROOT, "schnetpack_tpu_torch", "interfaces", "lammps")
+    exe = os.path.join(tmp, "test_client")
+    subprocess.run(["g++", "-O2", "-std=c++17",
+                    os.path.join(src, "test_client.cpp"),
+                    os.path.join(src, "spk_client.cpp"), "-I", src, "-o",
+                    exe], check=True, capture_output=True, timeout=300)
+    return exe
+
+
+def cpp_client(exe, sock, atoms):
+    """(energy, the per-atom energies' sum, forces) of the C++ client's
+    request for ``atoms`` (one LAMMPS type, argon)."""
+    from schnetpack_tpu_torch import properties as P
+
+    R, cell = atoms[P.R], atoms[P.cell]
+    stdin = [f"{len(R)} 1 {CUTOFF}",
+             " ".join(f"{v:.17g}" for v in cell.ravel()), "18"]
+    stdin += [f"1 {r[0]:.17g} {r[1]:.17g} {r[2]:.17g}" for r in R]
+    proc = subprocess.run([exe, sock], input="\n".join(stdin), text=True,
+                          capture_output=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.splitlines()
+    vals = {ln.split()[0]: ln.split()[1] for ln in lines}
+    F = np.array([[float(x) for x in ln.split()[2:5]] for ln in lines
+                  if ln.startswith("force")])
+    return float(vals["energy"]), float(vals["energy_atom_sum"]), F
+
+
+def serve_in_thread(server):
+    import threading
+
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    for _ in range(600):
+        if os.path.exists(server.socket_path):
+            return thread
+        time.sleep(0.05)
+    raise RuntimeError("the model server did not start")
+
+
+def two_rank_reply(sock, atoms, ii, jj, off):
+    """Forces and virial shares of a two-rank partial request (domains
+    split at half the box in x), summed over the ranks."""
+    import threading
+
+    from schnetpack_tpu_torch import properties as P
+    from schnetpack_tpu_torch.interfaces.lammps.server import ModelClient
+
+    Z, R, cell = atoms[P.Z], atoms[P.R], atoms[P.cell]
+    owner = (R[:, 0] >= cell[0, 0] / 2).astype(int)
+    parts = {}
+
+    def rank(r):
+        local = np.nonzero(owner == r)[0]
+        mine = np.isin(ii, local)
+        client = ModelClient(sock)
+        parts[r] = (local, client.evaluate_partial(
+            r, 2, len(R), local, Z[local], R[local], cell, ii[mine],
+            jj[mine], R[jj[mine]] + off[mine]))
+        client.close()
+    threads = [threading.Thread(target=rank, args=(r,)) for r in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    assert set(parts) == {0, 1}, "a rank got no reply"
+    F = np.zeros((len(R), 3))
+    for local, (_, _, f, _) in parts.values():
+        F[local] = f
+    return (F, sum(p[1][3] for p in parts.values()),
+            sum(p[1][0] for p in parts.values()))
+
+
+def stress_model(dev):
+    """The PaiNN asset with ``Forces(calc_stress=True)`` (the flat
+    ``Strain`` stress)."""
+    import copy
+
+    from schnetpack_tpu_torch.cli import model_from_config
+    from schnetpack_tpu_torch.convert import load_jax_params
+
+    cfg = copy.deepcopy(PAINN_RUN_CONFIG)
+    cfg["output_modules"][1]["calc_stress"] = True
+    model, _ = model_from_config(cfg, load_jax_params(ASSET["painn"]), dev)
+    return model.requires_grad_(False)
+
+
+def iface_server_phase(run, tmp, big, ref, calc, seed, dev, smi):
+    """Phase 14 (b): ``LammpsModelServer`` on the card serving the deployed
+    artifact (per-atom energies): the port's C++ test client on the
+    2,048-atom box, the Python client on the fixture's box (forces, the
+    virial against -V x the flat ``Strain`` stress), a two-rank partial
+    request, and the request round trip beside the in-process
+    evaluation."""
+    from schnetpack_tpu_torch import properties as P
+    from schnetpack_tpu_torch.deploy import deploy
+    from schnetpack_tpu_torch.interfaces.lammps import LammpsModelServer
+    from schnetpack_tpu_torch.interfaces.lammps.server import ModelClient
+    from schnetpack_tpu_torch.utils import load_model
+
+    art = os.path.join(tmp, "model.spk")
+    deploy(run, art, device=dev)
+    model, _ = load_model(art, device=dev)
+    exe = test_client_binary(tmp)
+    small = iface_box(seed)
+    want = calc.calculate(small)
+    with torch.no_grad():
+        e_atom_want = model.energy_outputs(calc.converter(small))[
+            "energy_per_atom"][:len(small[P.Z])].double().cpu().numpy()
+    server = LammpsModelServer(model, cutoff=CUTOFF,
+                               socket_path=os.path.join(tmp, "s.sock"),
+                               per_atom_energy_key="energy_per_atom",
+                               device=dev)
+    sock = server.socket_path
+    thread = serve_in_thread(server)
+    try:
+        t0 = time.perf_counter()
+        E, e_sum, F = cpp_client(exe, sock, small)
+        cpp_s = time.perf_counter() - t0
+        client = ModelClient(sock)
+        ii, jj, off = edge_list(small)
+        _, e_atom, F_py, _ = client.evaluate(small[P.Z], small[P.R],
+                                             small[P.cell], ii, jj, off)
+        rms_cpp = force_rms(F, want["forces"])
+        de_atom = float(np.abs(e_atom - e_atom_want).max())
+        print(f"interfaces (server, C++ test client, {len(F)} atoms): force "
+              f"rms vs SpkCalculator {rms_cpp:.3e} eV/Ang, energy "
+              f"{E:.6f} vs {want['energy']:.6f} eV, per-atom energies' sum "
+              f"{e_sum:.6f}, per-atom energies vs the model's "
+              f"{de_atom:.2e} eV (Python client), the client's wall "
+              f"{cpp_s:.2f} s (its O(n^2 27) edge search included)",
+              flush=True)
+        assert rms_cpp <= IFACE_RMS_TOL, f"C++ client: force rms {rms_cpp}"
+        assert abs(E - want["energy"]) <= ENERGY_RTOL * abs(want["energy"])
+        assert abs(e_sum - E) <= ENERGY_RTOL * abs(E)
+        assert de_atom <= IFACE_E_ATOM_ATOL, f"per-atom energies {de_atom}"
+        assert force_rms(F_py, F) <= IFACE_RMS_TOL
+
+        Z, R, cell = big[P.Z], big[P.R], big[P.cell]
+        ii, jj, off = edge_list(big)
+        E, e_atom, F, W = client.evaluate(Z, R, cell, ii, jj, off)
+        rms = force_rms(F, ref["forces"])
+        dE = abs(E - float(ref["energy"])) / abs(float(ref["energy"]))
+        inputs = flat_inputs(R, cell, dev)
+        inputs[P.cell] = torch.as_tensor(cell[None], dtype=torch.float32,
+                                         device=dev)
+        sigma = stress_model(dev)(inputs)[P.stress][0].double().cpu().numpy()
+        W_ref = -abs(np.linalg.det(cell)) * sigma
+        scale = float(np.abs(R[:, :, None] * F[:, None, :]).sum(0).max())
+        dW = float(np.abs(W - W_ref).max()) / scale
+        F2, W2, E2 = two_rank_reply(sock, big, ii, jj, off)
+        dF2 = float(np.abs(F2 - F).max())
+        trips = []
+        for _ in range(ROUND_TRIPS):
+            t0 = time.perf_counter()
+            client.evaluate(Z, R, cell, ii, jj, off)
+            trips.append(1e3 * (time.perf_counter() - t0))
+        inproc = []
+        for _ in range(ROUND_TRIPS):
+            t0 = time.perf_counter()
+            server.evaluate(Z, R, cell, ii, jj, off)
+            inproc.append(1e3 * (time.perf_counter() - t0))
+        client.close()
+        print(f"interfaces (server, Python client, {len(R)} atoms, {len(ii)} "
+              f"edges): force rms err {rms:.3e} eV/Ang vs "
+              f"port_ref_painn_argon.npz, energy rel err {dE:.2e}; virial vs "
+              f"-V x the flat Strain stress {dW:.2e} of its scale "
+              f"{scale:.4e} eV; two ranks vs one domain: max |dF| "
+              f"{dF2:.2e} eV/Ang, energy shares {E2 - E:+.2e} eV, virial "
+              f"shares {float(np.abs(W2 - W).max()):.2e} eV; request round "
+              f"trip median {np.median(trips):.2f} ms (min {min(trips):.2f}"
+              f") over {ROUND_TRIPS}, in-process evaluate median "
+              f"{np.median(inproc):.2f} ms; {smi}", flush=True)
+        assert rms <= FORCE_RMS_TOL, f"server: force rms {rms}"
+        assert dE <= ENERGY_RTOL, f"server: energy {dE}"
+        assert dW <= VIRIAL_SCALE_TOL, f"server: virial {dW}"
+        assert dF2 <= PARTIAL_ATOL, f"two ranks: {dF2}"
+    finally:
+        ModelClient(sock).shutdown()
+        thread.join(timeout=120)
+    assert not thread.is_alive() and not os.path.exists(sock)
+    return small
+
+
+def iface_deploy_phase(run, tmp, big, dev, smi):
+    """Phase 14 (c): ``deploy`` with ``export_program=True`` on the card,
+    ``load_deployed`` onto the card: the weights and (deterministic
+    ``index_add_``) the forces equal the run directory's bit for bit; the
+    exported program's forces at the example batch against eager."""
+    import warnings
+
+    from schnetpack_tpu_torch import deploy as dep
+    from schnetpack_tpu_torch.interfaces import SpkCalculator
+    from schnetpack_tpu_torch.utils import load_model
+
+    art = os.path.join(tmp, "program.spk")
+    t0 = time.perf_counter()
+    dep.deploy(run, art, export_program=True, device=dev)
+    export_s = time.perf_counter() - t0
+    model, params, artifact = dep.load_deployed(art, device=dev)
+    run_model, run_params = load_model(run, device=dev)
+    assert params.keys() == run_params.keys()
+    for k in params:
+        assert torch.equal(params[k], run_params[k]), k
+    calcs = [SpkCalculator(m, cutoff=artifact["cutoff"], device=dev)
+             for m in (model, run_model)]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            F_dep, F_run = (c.calculate(big)["forces"] for c in calcs)
+        finally:
+            torch.use_deterministic_algorithms(False)
+    batch = dep._example_batch(artifact["cutoff"], dev)
+    E, F = dep.load_program(artifact)(batch)
+    E0, F0 = dep.energy_and_forces(model.requires_grad_(False))(batch)
+    scale = float(F0.abs().max())
+    dF = float((F - F0).abs().max())
+    print(f"interfaces (deploy): the artifact's weights equal the run "
+          f"directory's; forces bit for bit: {np.array_equal(F_dep, F_run)} "
+          f"(max |dF| {np.abs(F_dep - F_run).max():.1e}); export_program on "
+          f"the card {export_s:.1f} s, {len(artifact['torch_program'])} "
+          f"bytes; the program's forces at the example batch vs eager "
+          f"{dF:.2e} eV/Ang ({dF / scale:.2e} of max |F| {scale:.3e}); "
+          f"{smi}", flush=True)
+    assert np.array_equal(F_dep, F_run), "deployed forces differ"
+    assert scale > 0 and dF <= PROGRAM_SCALE_TOL * scale, "the program"
+    assert float((E - E0).abs().max()) <= ENERGY_RTOL * float(E0.abs().max())
+
+
+def reference_painn(path, seed, F=128, n_int=3, n_rbf=20, max_z=100):
+    """A reference-format (upstream SchNetPack) PaiNN potential with seeded
+    random weights, pickled by ``torch.save`` as ``schnetpack.*`` classes
+    (modules that exist only while saving), as the import reads it."""
+    import types
+
+    from torch import nn
+
+    names = {"NeuralNetworkPotential": "schnetpack.model",
+             "PaiNN": "schnetpack.representation"}
+    classes = {n: type(n, (nn.Module,), {"__module__": m})
+               for n, m in names.items()}
+    g = torch.Generator().manual_seed(seed)
+
+    def lin(n_out, n_in, bias=True):
+        m = nn.Module()
+        m.register_parameter("weight", nn.Parameter(torch.randn(
+            n_out, n_in, generator=g) / n_in ** 0.5))
+        if bias:
+            m.register_parameter("bias", nn.Parameter(
+                0.1 * torch.randn(n_out, generator=g)))
+        return m
+
+    def seq(*mods):
+        s = nn.Module()
+        for k, m in enumerate(mods):
+            s.add_module(str(k), m)
+        return s
+    rep = classes["PaiNN"]()
+    rep.embedding = nn.Embedding(max_z + 1, F)
+    rep.cutoff_fn = nn.Module()
+    rep.cutoff_fn.register_buffer("cutoff", torch.tensor([CUTOFF]))
+    rep.radial_basis = nn.Module()
+    rep.radial_basis.register_buffer("offsets",
+                                     torch.linspace(0, CUTOFF, n_rbf))
+    rep.filter_net = lin(n_int * 3 * F, n_rbf)
+    rep.interactions = seq(*[nn.Module() for _ in range(n_int)])
+    rep.mixing = seq(*[nn.Module() for _ in range(n_int)])
+    for t in range(n_int):
+        rep.interactions._modules[str(t)].interatomic_context_net = seq(
+            lin(F, F), lin(3 * F, F))
+        mix = rep.mixing._modules[str(t)]
+        mix.mu_channel_mix = lin(2 * F, F, bias=False)
+        mix.intraatomic_context_net = seq(lin(F, 2 * F), lin(3 * F, F))
+    root = classes["NeuralNetworkPotential"]()
+    root.representation = rep
+    head = nn.Module()
+    head.outnet = seq(lin(F // 2, F), lin(1, F // 2))
+    root.output_modules = seq(head)
+    fakes = {"schnetpack": types.ModuleType("schnetpack")}
+    for n, m in names.items():
+        fakes.setdefault(m, types.ModuleType(m))
+        setattr(fakes[m], n, classes[n])
+    saved = {k: sys.modules.pop(k) for k in list(sys.modules)
+             if k == "schnetpack" or k.startswith("schnetpack.")}
+    sys.modules.update(fakes)
+    try:
+        torch.save(root, path)
+    finally:
+        for k in fakes:
+            sys.modules.pop(k, None)
+        sys.modules.update(saved)
+    return path
+
+
+def iface_import_phase(tmp, atoms, seed, dev, smi):
+    """Phase 14 (d): a synthetic reference-format PaiNN-128x3 imported onto
+    the card and onto the CPU: forces on the 2,048-atom box."""
+    from schnetpack_tpu_torch.interfaces import SpkCalculator
+    from schnetpack_tpu_torch.interfaces.torch_import import (
+        import_torch_model,
+    )
+
+    path = reference_painn(os.path.join(tmp, "reference_painn.model"), seed)
+    t0 = time.perf_counter()
+    card, _, info = import_torch_model(path, device=dev)
+    import_s = time.perf_counter() - t0
+    host, _, _ = import_torch_model(path, device="cpu")
+    F = SpkCalculator(card, cutoff=info["cutoff"],
+                      device=dev).calculate(atoms)["forces"]
+    F_cpu = SpkCalculator(host, cutoff=info["cutoff"],
+                          device="cpu").calculate(atoms)["forces"]
+    scale = float(np.abs(F_cpu).max())
+    dF = float(np.abs(F - F_cpu).max())
+    print(f"interfaces (import): {info['representation']}-"
+          f"{info['n_atom_basis']}x{info['n_interactions']} (random "
+          f"weights) imported in {import_s:.2f} s; card vs CPU forces on "
+          f"{len(F)} atoms: max |dF| {dF:.2e} eV/Ang ({dF / scale:.2e} of "
+          f"max |F| {scale:.3e}); {smi}", flush=True)
+    assert scale > 0 and dF <= IMPORT_SCALE_TOL * scale, "import: card"
+
+
+def iface_relax_phase(run, seed, dev, smi):
+    """Phase 14 (e): ``BatchwiseCalculator`` + ``batchwise_lbfgs`` on phase
+    10's 64 clusters (jittered by +-0.1 A): every fmax under 0.05 eV/Ang
+    within 200 iterations, no energy above its start."""
+    from schnetpack_tpu_torch.interfaces import (
+        AtomsConverter, BatchwiseCalculator, batchwise_lbfgs,
+    )
+    from schnetpack_tpu_torch.utils import load_model
+
+    mols = clusters(seed)
+    model, _ = load_model(run, device=dev)
+    bc = BatchwiseCalculator(model, None,
+                             AtomsConverter(cutoff=CUTOFF, device=dev))
+    e0, f0 = bc.calculate(mols)
+    calls = [0]
+    calculate = bc.calculate
+
+    def counted(structures):
+        calls[0] += 1
+        return calculate(structures)
+    bc.calculate = counted
+    t0 = time.perf_counter()
+    _, info = batchwise_lbfgs(bc, mols, fmax=RELAX_FMAX,
+                              maxstep_total=RELAX_STEPS)
+    wall = time.perf_counter() - t0
+    rise = float(np.max((info["energies"] - e0) / np.abs(e0)))
+    print(f"interfaces (relaxation): {len(mols)} clusters of "
+          f"{CLUSTER_ATOMS} atoms, fmax {float(np.abs(np.concatenate(f0)).max()):.3f}"
+          f" -> max {float(info['fmax'].max()):.4f} eV/Ang, converged "
+          f"{int(info['converged'].sum())}/{len(mols)}, iterations max "
+          f"{int(info['iterations'].max())}, {calls[0]} evaluations, "
+          f"{1e3 * wall / calls[0]:.2f} ms per iteration; energy change "
+          f"min {float(np.min(info['energies'] - e0)):.4f} eV, largest "
+          f"rise {rise:.1e} of |E0|; {smi}", flush=True)
+    assert info["converged"].all() and (info["fmax"] < RELAX_FMAX).all()
+    assert rise <= RELAX_E_RTOL, f"an energy ended above its start: {rise}"
+
+
+def iface_orca_phase(tmp, dev, smi):
+    """Phase 14 (f): ``spkmd calculator=orca`` with a stub ``orca`` in the
+    run's directory on 8 argon atoms, 20 NVE steps: energy drift, and the
+    last step's forces against -dE/dR of the stub's potential at the last
+    ``.inp``'s positions."""
+    from schnetpack_tpu_torch import units
+    from schnetpack_tpu_torch.md import cli as md_cli
+    from schnetpack_tpu_torch.units import _parse_unit, md_units
+
+    os.makedirs(os.path.join(tmp, "bin"))
+    stub = os.path.join(tmp, "bin", "orca")
+    with open(stub, "w") as f:
+        f.write(ORCA_STUB.format(python=sys.executable, eps=LJ_EPS,
+                                 sigma=LJ_SIGMA, hartree=units.Hartree,
+                                 bohr=units.Bohr))
+    os.chmod(stub, 0o755)
+    rng = np.random.RandomState(0)
+    pos = np.array([[i, j, k] for i in range(2) for j in range(2)
+                    for k in range(2)]) * 3.9 + rng.rand(8, 3) * 0.05
+    xyz = write_xyz(os.path.join(tmp, "argon8.xyz"), pos, None)
+    work = os.path.join(tmp, "orca")
+    sim = md_cli.main([
+        f"system.molecule_file={xyz}", "calculator=orca",
+        f"calculator.orca_path={stub}", f"calculator.working_dir={work}",
+        "dynamics=nve", f"dynamics.n_steps={ORCA_STEPS}",
+        "system.initializer.temperature=50.0", f"device={dev}",
+        f"simulation_dir={os.path.join(tmp, 'orca_sim')}"])
+    e_conv = _parse_unit("eV") * md_units().energy
+    logs = {k: np.concatenate([lg[k] for lg in sim.logs])
+            for k in ("energy", "kinetic_energy")}
+    total = (logs["energy"] + logs["kinetic_energy"])[:, 0, 0] / e_conv
+    drift = float(np.abs(total - total[0]).max()) / 8
+    with open(os.path.join(work, "mol_0_0.inp")) as f:
+        R = np.array([[float(x) for x in row.split()[1:]]
+                      for row in f.read().splitlines()[2:-1]])
+    d = R[:, None] - R[None]
+    r = np.linalg.norm(d, axis=-1)
+    np.fill_diagonal(r, np.inf)
+    sr6 = (LJ_SIGMA / r) ** 6
+    want = -np.sum((4 * LJ_EPS * (6 * sr6 - 12 * sr6 ** 2) / r ** 2)[
+        ..., None] * d, axis=1)
+    to_ev_ang = e_conv / (_parse_unit("Ang") * md_units().length)
+    got = sim.system.forces[0].double().cpu().numpy() / to_ev_ang
+    dF = float(np.abs(got - want).max()) / float(np.abs(want).max())
+    print(f"interfaces (spkmd calculator=orca, stub): {ORCA_STEPS} NVE "
+          f"steps of 8 argon atoms on {sim.system.positions.device}, drift "
+          f"{drift:.2e} eV/atom, forces vs -dE/dR of the stub's LJ "
+          f"{dF:.2e} of max |F|, {1e3 * sim.wall_seconds / ORCA_STEPS:.1f} "
+          f"ms/step (a subprocess a step); {smi}", flush=True)
+    assert drift <= ORCA_DRIFT_TOL, f"orca: drift {drift}"
+    assert dF <= ORCA_FORCE_TOL, f"orca: forces {dF}"
+
+
+def interfaces_phase(seed, dev, launches, smi):
+    """Phase 14, the interfaces (see the module's docstring); no kernel
+    launches."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    reset(launches)
+    tmp = tempfile.mkdtemp(prefix="spk14_")    # short: AF_UNIX paths
+    try:
+        run = write_run_dir(os.path.join(tmp, "run"), ASSET["painn"])
+        ref = np.load(REFERENCE["full"])
+        big = molecule(ref["R"].astype(np.float64), ref["cell"])
+        calc, _ = iface_calculator_phase(run, big, ref, dev, smi)
+        small = iface_server_phase(run, tmp, big, ref, calc, seed, dev, smi)
+        iface_deploy_phase(run, tmp, big, dev, smi)
+        iface_import_phase(tmp, small, seed, dev, smi)
+        iface_relax_phase(run, seed, dev, smi)
+        iface_orca_phase(tmp, dev, smi)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    counts = {k: v for k, v in read_counts(launches).items() if v}
+    print(f"interfaces phase: {time.perf_counter() - t0:.1f} s, launches "
+          f"{counts or 'none'}; {smi}", flush=True)
+    assert not counts, f"the interfaces launched {counts}"
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -4219,6 +4804,7 @@ def main():
                                 smi).items():
         total[k] = total.get(k, 0) + v
     print(f"precision phase: {time.perf_counter() - t13:.1f} s", flush=True)
+    interfaces_phase(args.seed, dev, launches, smi)
     for row in rows:
         row["launches"] = total[row["name"]]
         assert row["launches"] > 0, f"{row['name']} never ran in the MD"

@@ -183,11 +183,20 @@ def load_model(model_dir: str, device="cuda") -> Tuple[Any, Dict]:
     loaded."""
     with open(os.path.join(model_dir, "model_config.pkl"), "rb") as f:
         model_cfg = pickle.load(f)
+    return model_from_config(model_cfg, load_jax_params(
+        os.path.join(model_dir, "best_model")), device)
+
+
+def model_from_config(model_cfg: Dict, tree: Dict,
+                      device="cuda") -> Tuple[Any, Dict]:
+    """(model, state dict) of a JAX model config and its flax parameter
+    tree (a run directory's or a deployed artifact's); the model on
+    ``device``."""
+    device = _device(device)
     model = _build(model_cfg, {})
-    params = params_from_jax(load_jax_params(
-        os.path.join(model_dir, "best_model")))
+    params = params_from_jax(tree)
     model.load_state_dict(params)
-    return model.to(_device(device)), params
+    return model.to(device), params
 
 
 def _device(device) -> torch.device:

@@ -1,7 +1,9 @@
 from .base import MDCalculator, PairwiseMDCalculator
 from .lj import LJCalculator
+from .orca import OrcaCalculator
 from .schnetpack_calculator import EnsembleCalculator, SchNetPackCalculator
 from .spcfw import SPCFwCalculator
 
 __all__ = ["EnsembleCalculator", "LJCalculator", "MDCalculator",
-           "PairwiseMDCalculator", "SPCFwCalculator", "SchNetPackCalculator"]
+           "OrcaCalculator", "PairwiseMDCalculator", "SPCFwCalculator",
+           "SchNetPackCalculator"]

@@ -40,9 +40,11 @@ Usage:
   and for SchNet on ``cellblock``.  It is refused before the first step
   (``ReducedPrecisionPathError``) on ``cellblock_atom`` and for the other
   column models, where the JAX package's mode rounds the positions.
+* ``calculator=orca`` runs the ORCA executable (``calculator.orca_path``)
+  on every molecule and replica each step, in ``calculator.working_dir``
+  (``md/calculators/orca.py``).
 * Refused before the first step: a barostat with a model calculator
-  without a stress or on a skin neighbor list, and ``calculator=orca``
-  (item 4).
+  without a stress or on a skin neighbor list.
 """
 from __future__ import annotations
 
@@ -93,10 +95,6 @@ def build_calculator(cfg: Dict, device="cuda"):
 
     cfg = dict(cfg)
     target = cfg.pop("_target_", "")
-    if target.endswith("OrcaCalculator"):
-        raise NotImplementedError(
-            "calculator=orca: the ORCA calculator is not ported yet "
-            "(ROADMAP Queue 1 item 4)")
     if target.endswith("EnsembleCalculator"):
         return EnsembleCalculator(
             [load_model(d, device)[0]

@@ -175,6 +175,17 @@ class NeuralNetworkPotential(nn.Module):
                 out = pp(out)
         return out
 
+    def energy_outputs(self, inputs: Dict[str, torch.Tensor]):
+        """The heads' outputs of ``inputs`` without the responses,
+        post-processed as ``forward`` does: the energy as a function of
+        the inputs, for a caller that takes its own derivatives (the LAMMPS
+        server's forces and virial, the exported program)."""
+        out = self._run(dict(inputs))
+        if self.do_postprocessing:
+            for pp in self.postprocessors:
+                out = pp(out)
+        return out
+
     def _run(self, inputs):
         for m in self.input_modules:
             inputs = m(inputs)

@@ -1,6 +1,7 @@
 """PyTorch port, import isolation: importing every module of
-``schnetpack_tpu_torch`` (the data pipeline, transforms, training, datasets
-and CLIs included) loads neither jax, flax, optax nor ``schnetpack_tpu``,
+``schnetpack_tpu_torch`` (the data pipeline, transforms, training, datasets,
+CLIs, interfaces, deploy and the ORCA calculator included) loads neither
+jax, flax, optax nor ``schnetpack_tpu``,
 and ``chip_smoke.py`` imports none of them."""
 import ast
 import os
@@ -26,7 +27,10 @@ def test_every_module_of_the_port_leaves_jax_out():
         "need = ['schnetpack_tpu_torch.' + m for m in ('data.loader', "
         "'data.datamodule', 'transform.casting', 'train.task', "
         "'train.loop', 'train.loggers', 'datasets.md17', 'cli', "
-        "'md.cli', 'convert')]\n"
+        "'md.cli', 'convert', 'interfaces.ase_interface', "
+        "'interfaces.batchwise', 'interfaces.lammps.server', "
+        "'interfaces.torch_import', 'deploy', 'utils.compatibility', "
+        "'md.parsers.orca_parser', 'md.calculators.orca')]\n"
         "print(len(names), bad, [n for n in need if n not in names])\n"
         "sys.exit(bool(bad) or any(n not in names for n in need))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

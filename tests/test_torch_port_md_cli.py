@@ -17,7 +17,8 @@
   (the same barostat constants; the JAX ``dynamics=npt`` builds its
   integrator before the barostat and fails);
 * ``restart=`` appends to the trajectory file, and 20 + 10 steps equal 30;
-* the options the port refuses raise before the first step.
+* the options the port refuses raise before the first step;
+* ``calculator=orca`` runs a stub ORCA executable.
 """
 import glob
 import os
@@ -272,7 +273,6 @@ def test_spkmd_restart_appends(tmp_path):
 
 
 @pytest.mark.parametrize("override,error,match", [
-    ("calculator=orca", NotImplementedError, "Queue 1 item 4"),
     ("dynamics.integrator._target_="
      "schnetpack_tpu_torch.md.NPTVelocityVerlet", ValueError,
      "needs a barostat"),
@@ -287,3 +287,26 @@ def test_spkmd_refuses_before_the_first_step(tmp_path, override, error,
     with pytest.raises(error, match=match):
         cli.main(argv)
     assert not os.path.exists(tmp_path / "sim" / "simulation.hdf5")
+
+
+def test_spkmd_runs_the_orca_calculator(tmp_path):
+    """``calculator=orca`` (refused before the ORCA calculator was ported)
+    runs the executable it is given: a stub of LJ argon
+    (``test_torch_port_orca.write_stub``)."""
+    from schnetpack_tpu_torch.md.calculators import OrcaCalculator
+    from test_torch_port_orca import write_stub
+
+    xyz = str(tmp_path / "argon.xyz")
+    argon_cluster_xyz(xyz)
+    sim = cli.main([
+        f"system.molecule_file={xyz}", "calculator=orca",
+        f"calculator.orca_path={write_stub(tmp_path)}",
+        f"calculator.working_dir={tmp_path / 'orca'}", "dynamics=nve",
+        "dynamics.n_steps=2", "device=cpu",
+        f"simulation_dir={tmp_path / 'sim'}"])
+    assert isinstance(sim.calculator, OrcaCalculator)
+    assert sim.n_simulated == 2
+    assert torch.isfinite(sim.system.forces).all()
+    assert float(sim.system.forces.abs().max()) > 0
+    got = read_h5(os.path.join(str(tmp_path / "sim"), "simulation.hdf5"))
+    assert got["molecules/positions"].shape[0] == 2
