@@ -303,7 +303,30 @@ Phases (any failure exits non-zero before the last line is printed):
    gradient blocks) on 8 argon atoms, 20 NVE steps: drift <= 1e-4
    eV/atom, the last forces within 1e-6 of max |F| of -dE/dR of the
    stub's potential at the last ``.inp``'s positions;
-15. print the kernel table (every row and sub-row with ``ms`` and
+15. the host cell list and the rest of the one-card MD engine
+   (``engine_phase``), each run's launches counted from zero: (a) the
+   native (C++, ``native/cellist.py``) and the numpy cell list of the
+   bench box at 5 + 0.6 A equal array for array, their times (median of
+   5), the column host build and ``SpkCalculator``'s host neighbor list
+   and collate, printed beside PR 25's; (b) ``painn_slab`` under Langevin
+   (``SpatialColumnSimulator(kT, gamma, seed)``; 300 steps at 0.5 fs,
+   bath 30 K, tau 20 fs, 25-step chunks): a gamma = 0 chunk equal to the
+   NVE chunk bit for bit over 50 steps (and two NVE chunks equal), the
+   card's normal draws within 1e-6 of the CPU's, the mean chunk-end
+   temperature of the last third within 3 K of the bath, 0 < T < 300 K
+   at every chunk end, NVE slab's launches per force evaluation, ms/step
+   beside the NVE chunk's and the re-bins' host seconds; (c)
+   ``make_sharded_column_md`` (20 steps) and ``make_sharded_column_rpmd``
+   (8 beads, 10 steps) on the bench box against a host-driven loop of
+   ``make_sharded_column_eval`` with the same arithmetic, within 1e-5 A,
+   K11-K14 1 and K20/K21/K3/K4 3 a bead per evaluation; (d) phase 10's 64
+   clusters on the column layout (``neighbor_list="cellblock"``, PaiNN
+   ``fuse="full"``): forces within 1e-5 eV/Ang rms and per-molecule
+   energies within 1e-5 relative of ``all_pairs``, K1-K4 3 each per
+   evaluation, 300 NVE steps (drift <= 1e-4 eV/atom, 0 < T < 300 K, the
+   host rebuilds counted, none on the device), ms/step beside 100 steps
+   on ``all_pairs``;
+16. print the kernel table (every row and sub-row with ``ms`` and
    ``device_ms``, ``library_ms`` and ``library_device_ms``) and the card
    as JSON, then the result line.
 
@@ -593,6 +616,26 @@ CLUSTER_ATOMS = 55
 CLUSTER_FORCE_ATOL = 1e-5        # eV/Ang, all_pairs vs dense
 CLUSTER_BEADS, CLUSTER_RPMD_STEPS = 4, 100
 PROFILE_STEPS = 5                # painn_dense steps under torch.profiler
+#: phase 15, the host cell list and the rest of the one-card MD engine
+#: (``engine_phase``): PR 25's host times on this card kind (NVIDIA H100
+#: 80GB HBM3, 700 W; ``chiprun_out/p25/smoke_final.txt:155, 170, 325``),
+#: printed beside this run's
+PR25_HOST = {"column host build": "0.490 s",
+             "SpkCalculator neighbor list + collate": "401.8 ms",
+             "painn_slab re-bins": "6 in 4.098 s"}
+ENGINE_REPS = 5                  # the edge lists' timings: median of
+ENGINE_CHUNK = 25                # the slab Langevin run: steps per chunk
+ENGINE_STEPS = 300               # ... and steps (phase 7's settings)
+ENGINE_BITWISE_STEPS = 50        # gamma = 0 against NVE, bit for bit
+DRAW_TOL = 1e-6                  # the card's normal draws vs the CPU's
+SHARDED_MD_STEPS = 20
+SHARDED_BEADS, SHARDED_RPMD_STEPS = 8, 10
+SHARDED_TOL = 1e-5               # Angstrom, vs a host-driven eval loop
+HBAR_EV_FS = 0.6582119569        # eV fs
+MULTIMOL_FORCE_RMS = 1e-5        # eV/Ang, column vs all_pairs
+MULTIMOL_E_RTOL = 1e-5           # per molecule
+MULTIMOL_STEPS = 300
+MULTIMOL_REF_STEPS = 100         # all_pairs steps timed beside them
 
 
 def ptxas_report(log: str, params):
@@ -1562,9 +1605,10 @@ def cell_kernel_phase(calc, system, seed, dev):
     return check_kernels(cases)
 
 
-def slab_simulator(pos, cell, dev, pot=None, params=None):
+def slab_simulator(pos, cell, dev, pot=None, params=None, **kw):
     """The port's ``SpatialColumnSimulator`` of the bench box on one card
-    (the trained PaiNN-128x3 unless ``pot`` is given)."""
+    (the trained PaiNN-128x3 unless ``pot`` is given; ``kw``: ``kT``,
+    ``gamma``, ``seed`` of the Langevin form)."""
     from schnetpack_tpu_torch.parallel import (
         SpatialColumnSimulator, make_column_mesh,
     )
@@ -1577,7 +1621,7 @@ def slab_simulator(pos, cell, dev, pot=None, params=None):
     return SpatialColumnSimulator(
         pot, params, pos, np.full(n, 18), np.full(n, ATOMIC_MASSES[18]), cell,
         make_column_mesh(1, device=dev), cutoff=CUTOFF, skin=SKIN,
-        dt=SLAB_DT)
+        dt=SLAB_DT, **kw)
 
 
 def slab_temperature(masses, p):
@@ -4698,6 +4742,313 @@ def interfaces_phase(seed, dev, launches, smi):
     assert not counts, f"the interfaces launched {counts}"
 
 
+def median_ms(fn, reps):
+    """Median wall time (ms) of ``reps`` calls of ``fn``, each ended by a
+    synchronize; and the last call's result."""
+    t = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        t.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(t)), out
+
+
+def host_list_phase(pos, cell, dev, smi):
+    """Phase 15 (a): the native and the numpy cell list on the bench box
+    (5 A + 0.6 A skin) equal array for array, their times (median of
+    ``ENGINE_REPS``), then the column host build and ``SpkCalculator``'s
+    host neighbor list and collate, beside PR 25's times."""
+    from schnetpack_tpu_torch.interfaces import SpkCalculator
+    from schnetpack_tpu_torch.md import load_molecules
+    from schnetpack_tpu_torch.transform.neighborlist import (
+        cell_list_neighbor_list, cell_list_numpy,
+    )
+
+    pbc = np.ones(3, bool)
+    rc = CUTOFF + SKIN
+    native_ms, native = median_ms(
+        lambda: cell_list_neighbor_list(pos, rc, cell, pbc), ENGINE_REPS)
+    numpy_ms, plain = median_ms(
+        lambda: cell_list_numpy(pos, rc, cell, pbc), ENGINE_REPS)
+    for a, b, k in zip(native, plain, ("idx_i", "idx_j", "S")):
+        assert a.dtype == b.dtype and np.array_equal(a, b), (
+            f"native and numpy cell lists differ in {k}")
+    calc = calculator(*potential("full"))
+    system = load_molecules([molecule(pos, cell)], device=dev)
+    calc.init_state(system)
+    build_ms, _ = median_ms(lambda: calc.nbl.build(system), 3)
+    pot, params = layout_potential("painn")
+    pot.load_state_dict(params)
+    spk = SpkCalculator(pot, cutoff=CUTOFF, device=dev)
+    convert_ms, _ = median_ms(lambda: spk.converter(molecule(pos, cell)), 3)
+    print(f"engine (host cell list, {len(pos)} atoms, {CUTOFF} + {SKIN} A): "
+          f"native and numpy edge lists equal ({len(native[0])} pairs); "
+          f"native {native_ms:.1f} ms, numpy {numpy_ms:.1f} ms (median of "
+          f"{ENGINE_REPS}); column host build {build_ms / 1e3:.3f} s "
+          f"(PR 25: {PR25_HOST['column host build']}), SpkCalculator host "
+          f"neighbor list + collate {convert_ms:.1f} ms (PR 25: "
+          f"{PR25_HOST['SpkCalculator neighbor list + collate']}); {smi}",
+          flush=True)
+
+
+def slab_langevin_phase(pos, cell, seed, dev, launches, smi):
+    """Phase 15 (b): the slab path's Langevin chunk.  A gamma = 0 chunk
+    equals the NVE chunk bit for bit; the card's noise equals the CPU's;
+    then ``ENGINE_STEPS`` Langevin steps of ``SpatialColumnSimulator``
+    (bath ``T_BATH``, gamma = 1 / ``TAU_FS``) in chunks of
+    ``ENGINE_CHUNK`` with a host re-bin before each.  Returns the launch
+    counts."""
+    from schnetpack_tpu_torch.md import prng
+    from schnetpack_tpu_torch.parallel import (
+        column_noise, make_sharded_column_chunk,
+    )
+
+    kT = KB_EV * T_BATH
+    gamma = 0.5 / SLAB_DT / TAU_FS      # 1 / tau per model time unit
+    sim = slab_simulator(pos, cell, dev, kT=kT, gamma=gamma, seed=seed)
+    slab_momenta(sim, seed)
+    lay, inputs = slab_inputs(sim, sim.R, dev)
+    m = (lay.slot_mask > 0)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=dev)
+
+    start = (t(sim.R[lay.order] * m[:, None]), t(sim.p[lay.order]
+                                                 * m[:, None]),
+             t(sim.masses[lay.order] * m))
+    key = prng.split(prng.prng_key(seed))[1]
+    nve = make_sharded_column_chunk(sim.pot, None, sim.mesh, SLAB_DT,
+                                    ENGINE_BITWISE_STEPS)
+    zero = make_sharded_column_chunk(sim.pot, None, sim.mesh, SLAB_DT,
+                                     ENGINE_BITWISE_STEPS, gamma=0.0, kT=kT)
+    R0, p0 = nve(inputs, *start)           # the first also warms up
+    zero_ms, (R1, p1) = median_ms(lambda: zero(inputs, *start, key.to(dev)),
+                                  1)
+    nve_ms, (R2, p2) = median_ms(lambda: nve(inputs, *start), 1)
+    assert torch.equal(R0, R2) and torch.equal(p0, p2), (
+        "two NVE chunks from one state differ: the force evaluation is not "
+        "deterministic")
+    assert torch.equal(R0, R1) and torch.equal(p0, p1), (
+        "the gamma = 0 Langevin chunk differs from the NVE chunk")
+    nx, ny, Pcap, _ = lay.dims
+    draws = [column_noise(key.to(d), range(4), nx * ny, Pcap).cpu()
+             for d in (dev, "cpu")]
+    draw_err = float((draws[0] - draws[1]).abs().max())
+    assert draw_err <= DRAW_TOL, f"card vs CPU draws {draw_err}"
+
+    counts, T = {}, []
+    n_chunks = ENGINE_STEPS // ENGINE_CHUNK
+    for _ in range(n_chunks):
+        reset(launches)
+        sim.simulate(ENGINE_CHUNK, chunk_size=ENGINE_CHUNK)
+        torch.cuda.synchronize()
+        for k, v in read_counts(launches).items():
+            counts[k] = counts.get(k, 0) + v
+        T.append(slab_temperature(sim.masses, sim.p))
+    T = np.asarray(T)
+    T_last = float(T[-(n_chunks // 3):].mean())
+    ms_step = sum(sim.chunk_ms) / ENGINE_STEPS
+    print(f"engine (painn_slab Langevin, {len(pos)} atoms, dims="
+          f"{lay.dims[:3]}): gamma = 0 chunk equals the NVE chunk bit for "
+          f"bit over {ENGINE_BITWISE_STEPS} steps ({zero_ms:.1f} vs "
+          f"{nve_ms:.1f} ms wall); card vs CPU draws max |d| "
+          f"{draw_err:.2e}; {ENGINE_STEPS} steps at {T_BATH} K, tau "
+          f"{TAU_FS} fs in {ENGINE_CHUNK}-step chunks: chunk-end T from "
+          f"{T.min():.2f} to {T.max():.2f} K, mean of the last third "
+          f"{T_last:.3f} K; ms/step (CUDA events, chunks only) "
+          f"{ms_step:.3f}, NVE chunk {nve_ms / ENGINE_BITWISE_STEPS:.3f} "
+          f"(wall); host re-bins {sim.rebuilds} in {sim.host_seconds:.3f} "
+          f"s wall (PR 25: {PR25_HOST['painn_slab re-bins']}); {smi}",
+          flush=True)
+    assert np.isfinite(sim.R).all(), "non-finite positions"
+    assert 0.0 < T.min() and T.max() < 300.0, f"temperatures {T}"
+    assert abs(T_last - T_BATH) <= NVT_TOL["painn_nvt_langevin"], (
+        f"Langevin slab: mean T {T_last} K")
+    check_launches("painn_slab Langevin", counts, PER_STEP["painn_slab"],
+                   n_chunks * (ENGINE_CHUNK + 1))
+    return counts
+
+
+def sharded_phase(pos, cell, seed, dev, launches, smi):
+    """Phase 15 (c): ``make_sharded_column_md`` and ``_rpmd`` on the bench
+    box against a host-driven loop of ``make_sharded_column_eval`` with
+    the same arithmetic.  Returns the launch counts."""
+    from schnetpack_tpu_torch import properties as P
+    from schnetpack_tpu_torch.parallel import (
+        make_sharded_column_eval, make_sharded_column_md,
+        make_sharded_column_rpmd,
+    )
+    from schnetpack_tpu_torch.transform.atomistic import ATOMIC_MASSES
+
+    mass, dt = float(ATOMIC_MASSES[18]), SLAB_DT
+    sim = slab_simulator(pos, cell, dev)
+    slab_momenta(sim, seed)
+    lay, inputs = slab_inputs(sim, pos, dev)
+    m = torch.as_tensor(lay.slot_mask, device=dev)[:, None]
+    R_s = torch.as_tensor(pos[lay.order], dtype=torch.float32,
+                          device=dev) * m
+    p_s = torch.as_tensor(sim.p[lay.order], dtype=torch.float32,
+                          device=dev) * m
+    evaluate = make_sharded_column_eval(sim.pot, None, inputs, sim.mesh)
+
+    def force(R):
+        return evaluate(dict(inputs, **{P.R: R}))[1].detach() * m
+
+    def verlet(R, p, total, n):
+        f = total(R)
+        for _ in range(n):
+            p1 = p + 0.5 * dt * f
+            R = R + dt * p1 / mass
+            f = total(R)
+            p = p1 + 0.5 * dt * f
+        return R, p
+
+    counts = {}
+    md = make_sharded_column_md(sim.pot, None, inputs, sim.mesh, mass=mass,
+                                dt=dt, n_steps=SHARDED_MD_STEPS)
+    reset(launches)
+    md_ms, (R1, p1) = median_ms(lambda: md(inputs, R_s, p_s), 1)
+    c = read_counts(launches)
+    check_launches("sharded md", c, PER_STEP["painn_slab"],
+                   SHARDED_MD_STEPS + 1)
+    for k, v in c.items():
+        counts[k] = counts.get(k, 0) + v
+    R2, _ = verlet(R_s, p_s, force, SHARDED_MD_STEPS)
+    md_err = float((R1 - R2).abs().max())
+
+    nb = SHARDED_BEADS
+    omega = nb * KB_EV * T_BATH / (HBAR_EV_FS / 10.180505)
+    rng = np.random.RandomState(seed + 21)
+    beads = R_s[None] + torch.as_tensor(
+        0.02 * rng.randn(nb, *R_s.shape), dtype=torch.float32,
+        device=dev) * m
+    pb = torch.as_tensor(rng.randn(nb, *R_s.shape) * np.sqrt(
+        mass * KB_EV * T_BATH), dtype=torch.float32, device=dev) * m
+    rp = make_sharded_column_rpmd(sim.pot, None, inputs, sim.mesh,
+                                  n_beads=nb, mass=mass, dt=dt,
+                                  n_steps=SHARDED_RPMD_STEPS, omega=omega)
+    reset(launches)
+    rp_ms, (Rb1, _) = median_ms(lambda: rp(inputs, beads, pb), 1)
+    c = read_counts(launches)
+    check_launches("sharded rpmd", c,
+                   {k: v * nb for k, v in PER_STEP["painn_slab"].items()},
+                   SHARDED_RPMD_STEPS + 1)
+    for k, v in c.items():
+        counts[k] = counts.get(k, 0) + v
+
+    def ring(R):
+        up, dn = torch.roll(R, -1, 0), torch.roll(R, 1, 0)
+        spring = -mass * omega * omega * (2.0 * R - up - dn) * m
+        return torch.stack([force(R[b]) for b in range(nb)]) + spring
+
+    Rb2, _ = verlet(beads, pb, ring, SHARDED_RPMD_STEPS)
+    rp_err = float((Rb1 - Rb2).abs().max())
+    moved = float((Rb1 - beads).abs().max())
+    print(f"engine (sharded md, {len(pos)} atoms, one card): "
+          f"{SHARDED_MD_STEPS} steps, max |R - R_eval_loop| {md_err:.2e} "
+          f"A, {md_ms / SHARDED_MD_STEPS:.3f} ms/step (wall); sharded rpmd "
+          f"{nb} beads, omega {omega:.4f} per 10.18 fs, "
+          f"{SHARDED_RPMD_STEPS} steps: max |R - R_eval_loop| {rp_err:.2e} "
+          f"A (beads moved up to {moved:.3f} A), {rp_ms / SHARDED_RPMD_STEPS:.3f}"
+          f" ms/step (wall); K20/K21/K3/K4 3 x beads per evaluation; {smi}",
+          flush=True)
+    assert md_err <= SHARDED_TOL, f"sharded md vs eval loop {md_err}"
+    assert rp_err <= SHARDED_TOL, f"sharded rpmd vs eval loop {rp_err}"
+    assert torch.isfinite(Rb1).all() and moved > 0.0
+    return counts
+
+
+def multimol_phase(seed, dev, launches, smi):
+    """Phase 15 (d): phase 10's 64 clusters on the column layout
+    (``neighbor_list="cellblock"``, PaiNN-128x3 ``fuse="full"``): forces
+    and per-molecule energies at the start against ``all_pairs``, K1-K4 3
+    each an evaluation, ``MULTIMOL_STEPS`` NVE steps (drift, 0 < T < 300
+    K, host rebuilds), ms/step beside ``all_pairs``.  Returns the launch
+    counts."""
+    from schnetpack_tpu_torch import properties as P
+    from schnetpack_tpu_torch.md import (
+        MaxwellBoltzmannInit, Simulator, VelocityVerlet, load_molecules,
+    )
+    from schnetpack_tpu_torch.md.calculators import SchNetPackCalculator
+
+    col = calculator(*potential("full"))
+    ref = SchNetPackCalculator(*layout_potential("painn"), cutoff=CUTOFF,
+                               neighbor_list="all_pairs")
+    system = MaxwellBoltzmannInit(T_BATH).initialize_system(
+        load_molecules(clusters(seed), device=dev),
+        torch.Generator().manual_seed(seed + 5))
+    reset(launches)
+    st = col.init_state(system)
+    out = col.calculate(system, st)
+    torch.cuda.synchronize()
+    counts = read_counts(launches)
+    check_launches("painn_clusters column", counts, PER_STEP["full"], 1)
+    want = ref.calculate(system, ref.init_state(system))
+    F = (out.forces / col.force_conversion).double()
+    F_ref = (want.forces / ref.force_conversion).double()
+    rms = float((F - F_ref).pow(2).mean().sqrt())
+    E = (out.energy / col.energy_conversion).double()
+    E_ref = (want.energy / ref.energy_conversion).double()
+    dE = float(((E - E_ref).abs() / E_ref.abs()).max())
+    nbl = col.nbl
+    nx, ny, Ktot = st[P.cell_qcol].shape
+    line = (f"engine (painn_clusters on cellblock, {system.n_molecules} "
+            f"molecules, {system.total_atoms} atoms, dims=({nx}, {ny}, "
+            f"{st['cell_order'].shape[0] // (nx * ny)}) Ktot={Ktot}): "
+            f"force rms vs all_pairs {rms:.3e} eV/Ang (largest |F| "
+            f"{float(F_ref.abs().max()):.3e}), per-molecule energy rel "
+            f"{dE:.2e}; first host build {nbl.build_seconds:.3f} s")
+    assert rms <= MULTIMOL_FORCE_RMS, f"clusters column force rms {rms}"
+    assert dE <= MULTIMOL_E_RTOL, f"clusters column energy {dE}"
+    keys = ("energy", "kinetic_energy", "temperature")
+    sim = Simulator(system, VelocityVerlet(0.5), col, seed=seed,
+                    log_keys=keys)
+    sim.simulate(0)
+    builds0, secs0 = nbl.n_builds, nbl.build_seconds
+    reset(launches)
+    ms_step, peak = timed_run(sim, MULTIMOL_STEPS)
+    c = read_counts(launches)
+    check_launches("painn_clusters column MD", c, PER_STEP["full"],
+                   MULTIMOL_STEPS)
+    for k, v in c.items():
+        counts[k] = counts.get(k, 0) + v
+    T = np.concatenate([lg["temperature"][:, 0] for lg in sim.logs])
+    drift = drift_per_atom(sim, col)
+    ref_sim = Simulator(system, VelocityVerlet(0.5), ref, seed=seed,
+                        log_keys=keys)
+    ref_sim.simulate(0)
+    ref_ms, _ = timed_run(ref_sim, MULTIMOL_REF_STEPS)
+    line += (f"; {MULTIMOL_STEPS} NVE steps: ms/step (CUDA events) "
+             f"{ms_step:.3f} (all_pairs {ref_ms:.3f}, {MULTIMOL_REF_STEPS} "
+             f"steps), drift {drift:.3e} eV/atom, T from {T.min():.2f} to "
+             f"{T.max():.2f} K, host rebuilds {nbl.n_builds - builds0} in "
+             f"{nbl.build_seconds - secs0:.3f} s, device rebuilds "
+             f"{nbl.n_device_builds}, peak device memory {peak:.2f} GiB")
+    print(f"{line}; {smi}", flush=True)
+    assert np.isfinite(sim.system.positions.cpu().numpy()).all()
+    assert 0.0 < T.min() and T.max() < 300.0, f"clusters T {T.min()} {T.max()}"
+    assert drift <= DRIFT_TOL, f"clusters column drift {drift}"
+    assert nbl.n_device_builds == 0, "batched molecules rebuilt on the device"
+    return counts
+
+
+def engine_phase(pos, cell, seed, dev, launches, smi):
+    """Phase 15 (see the module's docstring); returns the launch counts of
+    its MD runs."""
+    t0 = time.perf_counter()
+    host_list_phase(pos, cell, dev, smi)
+    total = {}
+    for part in (slab_langevin_phase, sharded_phase):
+        for k, v in part(pos, cell, seed, dev, launches, smi).items():
+            total[k] = total.get(k, 0) + v
+    for k, v in multimol_phase(seed, dev, launches, smi).items():
+        total[k] = total.get(k, 0) + v
+    print(f"engine phase: {time.perf_counter() - t0:.1f} s; {smi}",
+          flush=True)
+    return total
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -4805,6 +5156,9 @@ def main():
         total[k] = total.get(k, 0) + v
     print(f"precision phase: {time.perf_counter() - t13:.1f} s", flush=True)
     interfaces_phase(args.seed, dev, launches, smi)
+    for k, v in engine_phase(pos, cell, args.seed, dev, launches,
+                             smi).items():
+        total[k] = total.get(k, 0) + v
     for row in rows:
         row["launches"] = total[row["name"]]
         assert row["launches"] > 0, f"{row['name']} never ran in the MD"

@@ -38,7 +38,9 @@ vmaps the model, and the Pallas batching rule adds the bead axis to each
 kernel's grid; here the kernels run once per bead, with one ``ColRefs``
 (and its cached schedules) shared by all beads of a step, and each bead's
 autograd graph is freed before the next bead runs, so peak memory stays
-that of one replica.
+that of one replica.  Batched non-periodic molecules share one column
+layout too: the state's ``cell_idx_m`` gives every slot its molecule, so
+``Atomwise`` sums the energy of each molecule ([R, M] out).
 
 With the default ``wgrad=False`` the potential's parameters are frozen:
 MD differentiates with respect to positions only, and the kernels' plain

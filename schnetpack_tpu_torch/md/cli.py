@@ -80,8 +80,12 @@ def load_structures(path: str):
 
 
 def _model_dirs(value) -> List[str]:
+    """An ensemble's run directories: a list, or a string ``'[a, b]'``
+    whose entries are stripped (the JAX parse, ``md/cli.py:70``, keeps the
+    space after a comma)."""
     if isinstance(value, str):
-        return [d for d in value.strip("[]").split(",") if d]
+        return [d.strip() for d in value.strip().strip("[]").split(",")
+                if d.strip()]
     return list(value)
 
 

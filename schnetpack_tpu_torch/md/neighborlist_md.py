@@ -51,9 +51,16 @@ Replicas (ring-polymer beads, ``neighborlist_md.py:228-262``) share one
 column layout: the atoms are binned by their bead centroid and the edge
 set is the union over beads of each bead's cell list, de-duplicated.  The
 skin check takes the largest displacement over all beads, and the device
-rebuild bins the centroid and keeps the union of the beads' edges.  The
-column layout takes one molecule or periodic box (batched molecules are
-later work).
+rebuild bins the centroid and keeps the union of the beads' edges.
+
+Batched non-periodic molecules share one column layout
+(``neighborlist_md.py:260-298``): each molecule gets its own x-slab of one
+open domain, 2 (cutoff + skin) from the next, the columns are binned on
+those translated copies while the kernels read the real positions, the
+edges are the union of the molecules' own cell lists (over the beads), and
+``cell_idx_m`` carries the molecule of every slot.  Batched periodic boxes
+raise (they run on the dense list), and batched molecules rebuild on the
+host only.
 
 The atom layout (``neighborlist_md.py:401-428, 466-479``) takes one
 replica of one molecule or box, with the reference's errors otherwise.
@@ -396,14 +403,44 @@ class CellBlockNeighborListMD:
         self.n_builds += 1
         self.build_seconds += time.perf_counter() - t0
 
-    def _build_column(self, system: System) -> None:
-        if system.n_molecules != 1:
+    def _batched_molecules(self, system: System, R_all, R, rc):
+        """Binning positions and union edges of several non-periodic
+        molecules (``neighborlist_md.py:260-298``): each molecule is
+        translated into its own x-slab of one open domain, a gap of 2 rc
+        from the next, so that no stencil bucket spans two molecules; the
+        edges are each molecule's cell list, over the beads where there
+        are replicas.  The kernels read the real positions."""
+        if system.pbc.any() or bool(system.cells.abs().sum() > 0):
             raise NotImplementedError(
-                "the port's column neighbor list takes one molecule or "
-                "periodic box (of any number of replicas)")
+                "the column layout batches non-periodic molecules; "
+                "use neighbor_list='dense' for multiple periodic boxes")
+        idx_m = _host(system.idx_m)
+        beads = R_all if len(R_all) > 1 else R[None]
+        translation = np.zeros_like(R)
+        x_cursor = 0.0
+        rows = []
+        for m in range(system.n_molecules):
+            sel = np.nonzero(idx_m == m)[0]
+            if len(sel) == 0:
+                continue
+            lo = R[sel].min(axis=0)
+            hi = R[sel].max(axis=0)
+            translation[sel] = [x_cursor - lo[0], -lo[1], -lo[2]]
+            x_cursor += (hi[0] - lo[0]) + 2.0 * rc
+            i, j, S = union_edges(beads[:, sel], rc, None, None)
+            rows.append(np.column_stack([sel[i], sel[j], S]))
+        rows = np.unique(np.concatenate(rows).astype(np.int64), axis=0)
+        return R + translation, (rows[:, 0], rows[:, 1], rows[:, 2:5])
+
+    def _build_column(self, system: System) -> None:
         R_all, R, cell, pbc, use_cell, use_pbc = self._geometry(system)
         rc = self.cutoff + self.skin
-        edges = union_edges(R_all, rc, use_cell, use_pbc)
+        if system.n_molecules == 1:
+            edges = union_edges(R_all, rc, use_cell, use_pbc)
+        else:
+            R, edges = self._batched_molecules(system, R_all, R, rc)
+            use_cell = use_pbc = None
+            pbc = np.zeros(3, bool)
 
         def layout(**kw):
             return build_column_layout(
@@ -469,10 +506,10 @@ class CellBlockNeighborListMD:
         }
         self._build_positions = system.positions.detach().clone()
 
-        # on-device rebuild eligibility (``neighborlist_md.py:483-507``;
-        # one molecule is checked above)
+        # on-device rebuild eligibility (``neighborlist_md.py:483-507``):
+        # one periodic box, not batched molecules
         self._dev_rebuild = None
-        if wide and nx >= 3 and ny >= 3:
+        if wide and nx >= 3 and ny >= 3 and system.n_molecules == 1:
             self._dev_rebuild = {
                 "cell": torch.as_tensor(cell, dtype=dtype, device=dev),
                 "nx": nx, "ny": ny, "P": P, "ks": tuple(ksizes), "rc": rc,

@@ -18,11 +18,17 @@ in the matching time unit, 10.18 fs)::
     eval_fn = make_sharded_column_eval(pot, params, inputs, mesh)
     energy, forces = eval_fn(column_inputs(lay, R, Z))
 
-``SpatialColumnSimulator`` runs NVE velocity Verlet in chunks with a host
-re-bin of the atoms at every chunk boundary.  The Langevin form (``kT``,
-``gamma``) draws JAX's per-column ``fold_in`` noise streams and raises
-here (ROADMAP.md).  The entry points run on ``cuda`` unless the caller
-passes ``device="cpu"`` to ``make_column_mesh``.
+``make_sharded_column_md`` and ``make_sharded_column_rpmd`` run NVE
+velocity-Verlet chunks of one system or of a ring polymer (one slab
+evaluation a bead, the harmonic springs between beads elementwise).
+``make_sharded_column_chunk`` and ``SpatialColumnSimulator`` run NVE or,
+with ``kT`` and ``gamma``, Langevin chunks with a host re-bin of the atoms
+at every chunk boundary.  The Langevin noise is JAX's: a normal draw for
+each (chunk key, half-step, global column) from ``md/prng.py``'s
+threefry2x32, so a column's noise never depends on how the columns are
+split, and the port draws the JAX package's noise up to the ulps of
+``erfinv``.  The entry points run on ``cuda`` unless the caller passes
+``device="cpu"`` to ``make_column_mesh``.
 """
 from __future__ import annotations
 
@@ -35,6 +41,7 @@ import torch
 
 from .. import properties as P
 from ..atomistic.distances import column_refs
+from ..md import prng
 from ..ops.cellblock import CapacityError, build_column_layout
 
 _MULTI_CARD = ("the slab path runs on one card: the halo exchange between "
@@ -118,35 +125,161 @@ def make_sharded_column_eval(pot, params, inputs, mesh: ColumnMesh):
     return evaluate
 
 
-def make_sharded_column_chunk(pot, params, mesh: ColumnMesh, dt: float,
-                              n_steps: int, gamma=None, kT=None):
-    """(inputs, R, p, m) -> (R, p) after ``n_steps`` NVE velocity-Verlet
-    steps on the slab path (``columns.py:288-385``; a mass of 0, at the
-    padded slots, keeps a slot still)."""
-    if gamma is not None or kT is not None:
-        raise NotImplementedError(
-            "the Langevin chunk draws JAX's per-column fold_in noise "
-            "streams; the port runs NVE only (ROADMAP.md)")
+def _flat(R: torch.Tensor, lead: int):
+    """[lead..., nx, ny, P, 3] column-shaped positions (a 2-D mesh's
+    input) as [lead..., A', 3], and the shape to give back."""
+    if R.ndim == lead + 4:
+        return R.reshape(*R.shape[:lead], -1, 3), R.shape
+    return R, None
+
+
+def _slab_force(pot, ins):
+    """R -> the masked forces of the slab path on ``ins`` (whose column
+    refs are made once here, for every evaluation of a chunk)."""
+    ins = dict(ins)
+    column_refs(ins)
+    amask = ins[P.atom_mask][:, None]
+
+    def force(R):
+        ins[P.R] = R
+        return pot(ins)[P.forces] * amask
+
+    return force, amask
+
+
+def _verlet(force, R, p, dt: float, mass: float, n_steps: int):
+    """``n_steps`` NVE velocity-Verlet steps of one mass
+    (``columns.py:188-199``)."""
+    with torch.no_grad():
+        f = force(R)
+        for _ in range(n_steps):
+            p1 = p + 0.5 * dt * f
+            R = R + dt * p1 / mass
+            f = force(R)
+            p = p1 + 0.5 * dt * f
+    return R, p
+
+
+def make_sharded_column_md(pot, params, inputs, mesh: ColumnMesh,
+                           mass: float = 1.0, dt: float = 0.1,
+                           n_steps: int = 5):
+    """(inputs, R0, p0) -> (R_n, p_n): an NVE velocity-Verlet chunk of
+    ``n_steps`` on the slab path with one ``mass`` for every atom
+    (``columns.py:161-213``).  ``R0``/``p0`` are [A', 3] in sorted column
+    order, or [nx, ny, P, 3] (a 2-D mesh's shape), which comes back."""
     pot = _place(pot, params, mesh)
 
-    def run(ins, R, p, m):
-        ins = dict(ins)
-        column_refs(ins)  # one refs (and its cached schedules) per chunk
-        amask = ins[P.atom_mask][:, None]
+    def run(ins, R0, p0):
+        R, shape = _flat(R0, 0)
+        p, _ = _flat(p0, 0)
+        force, _ = _slab_force(pot, ins)
+        R, p = _verlet(force, R, p, dt, mass, n_steps)
+        if shape is not None:
+            R, p = R.reshape(shape), p.reshape(shape)
+        return R, p
+
+    return run
+
+
+def make_sharded_column_rpmd(pot, params, inputs, mesh: ColumnMesh,
+                             n_beads: int = 2, mass: float = 1.0,
+                             dt: float = 0.1, n_steps: int = 4,
+                             omega: float = 1.0):
+    """(inputs, R0, p0) -> (R_n, p_n): a ring-polymer velocity-Verlet
+    chunk (``columns.py:215-281``).  ``R0``/``p0`` are [n_beads, A', 3]
+    (or [n_beads, nx, ny, P, 3]); each bead's potential force is one slab
+    evaluation, and the spring force ``-m w^2 (2 R_b - R_{b-1} -
+    R_{b+1})`` couples neighbouring beads of the ring."""
+    pot = _place(pot, params, mesh)
+
+    def run(ins, R0, p0):
+        R, shape = _flat(R0, 1)
+        p, _ = _flat(p0, 1)
+        force, amask = _slab_force(pot, ins)
+
+        def spring(R_):
+            if n_beads == 1:
+                return torch.zeros_like(R_)
+            up = torch.roll(R_, -1, 0)
+            dn = torch.roll(R_, 1, 0)
+            return -mass * omega * omega * (2.0 * R_ - up - dn) * amask
+
+        def total(R_):
+            # the forces are masked already: amask is 0 or 1
+            return torch.stack([force(R_[b]) for b in range(n_beads)]) \
+                + spring(R_)
+
+        R, p = _verlet(total, R, p, dt, mass, n_steps)
+        if shape is not None:
+            R, p = R.reshape(shape), p.reshape(shape)
+        return R, p
+
+    return run
+
+
+#: int64 words a block of noise draws may hold (each of the hash's
+#: temporaries is one such tensor)
+NOISE_BLOCK = 1 << 24
+
+
+def column_noise(key: torch.Tensor, half_steps, n_cols: int, Pcap: int,
+                 col0: int = 0) -> torch.Tensor:
+    """The Langevin noise [len(half_steps), n_cols * Pcap, 3] of the chunk
+    key ``key`` for the global columns [col0, col0 + n_cols): for
+    half-step h and column c, ``normal(fold_in(fold_in(key, h), c), (Pcap,
+    3))`` (``columns.py:339-367``)."""
+    h = torch.as_tensor(half_steps, dtype=torch.int64, device=key.device)
+    cols = torch.arange(col0, col0 + n_cols, dtype=torch.int64,
+                        device=key.device)
+    keys = prng.fold_in(prng.fold_in(key, h)[:, None, :], cols[None, :])
+    return prng.normal(keys, Pcap * 3).reshape(len(h), n_cols * Pcap, 3)
+
+
+def make_sharded_column_chunk(pot, params, mesh: ColumnMesh, dt: float,
+                              n_steps: int, gamma=None, kT=None):
+    """(inputs, R, p, m, key) -> (R, p) after ``n_steps`` velocity-Verlet
+    steps on the slab path (``columns.py:288-385``; a mass of 0, at the
+    padded slots, keeps a slot still).  With ``gamma`` and ``kT`` each
+    step is wrapped in Ornstein-Uhlenbeck half-steps ``p <- c1 p + c2 sig
+    xi`` (c1 = exp(-gamma dt / 2), c2 = sqrt(1 - c1^2), sig = sqrt(m kT),
+    0 at padded slots), with xi ``column_noise`` of ``key`` (a
+    ``md/prng.py`` key) at half-steps 2 s and 2 s + 1; NVE takes no key."""
+    nvt = gamma is not None and kT is not None
+    if nvt:
+        c1 = float(np.exp(-0.5 * gamma * dt))
+        c2 = float(np.sqrt(max(0.0, 1.0 - c1 * c1)))
+    pot = _place(pot, params, mesh)
+
+    def run(ins, R, p, m, key=None):
+        force, _ = _slab_force(pot, ins)
         minv = torch.where(m > 0, 1.0 / m.clamp(min=1e-30),
                            torch.zeros_like(m))[:, None]
-
-        def force(R_):
-            ins[P.R] = R_
-            return pot(ins)[P.forces] * amask
+        if nvt:
+            if key is None:
+                raise ValueError("the Langevin chunk takes a key")
+            key = key.to(R.device)
+            nx, ny = ins[P.cell_qcol].shape[:2]
+            Pcap = R.shape[0] // (nx * ny)
+            sig = torch.sqrt(torch.clamp(m * kT, min=0.0))[:, None]
+            # the steps whose noise one block draws at once
+            block = max(1, NOISE_BLOCK // (6 * R.shape[0]))
 
         with torch.no_grad():
             f = force(R)
-            for _ in range(n_steps):
+            for step in range(n_steps):
+                if nvt:
+                    if step % block == 0:
+                        last = min(step + block, n_steps)
+                        xi = column_noise(key, range(2 * step, 2 * last),
+                                          nx * ny, Pcap)
+                    h = 2 * (step % block)
+                    p = c1 * p + c2 * sig * xi[h]
                 p1 = p + 0.5 * dt * f
                 R = R + dt * p1 * minv
                 f = force(R)
                 p = p1 + 0.5 * dt * f
+                if nvt:
+                    p = c1 * p + c2 * sig * xi[h + 1]
         return R, p
 
     return run
@@ -157,25 +290,24 @@ def _pad8(v) -> int:
 
 
 class SpatialColumnSimulator:
-    """NVE MD on the slab path with a host re-bin at every chunk boundary
-    (``columns.py:388-499``): inside a chunk the positions and momenta stay
-    on the card in sorted column order; at its end they return to the
-    host, the atoms are re-binned into columns, and the layout's
-    capacities stay sticky (pinned at the first build with headroom, reset
-    only when they no longer fit).
+    """NVE or Langevin MD on the slab path with a host re-bin at every
+    chunk boundary (``columns.py:388-499``): inside a chunk the positions
+    and momenta stay on the card in sorted column order; at its end they
+    return to the host, the atoms are re-binned into columns, and the
+    layout's capacities stay sticky (pinned at the first build with
+    headroom, reset only when they no longer fit).  With ``kT`` and
+    ``gamma`` the chunks are Langevin chunks; each takes the second half
+    of ``split(self.key)`` (the key of ``seed`` at first), as JAX's does.
 
-    Model units throughout (positions, energies, ``masses``, ``dt``).
+    Model units throughout (positions, energies, ``masses``, ``dt``,
+    ``kT``, ``gamma`` per time unit).
     ``host_seconds`` sums the wall time of the re-bins (layout and inputs),
     ``chunk_ms`` lists each chunk's CUDA-event time (on a CUDA mesh)."""
 
     def __init__(self, pot, params, R, Z, masses, cell, mesh: ColumnMesh,
                  cutoff: float, skin: float = 0.6, dims=None,
-                 dt: float = 0.5, kT=None, gamma=None,
+                 dt: float = 0.5, kT=None, gamma=None, seed: int = 0,
                  dtype=torch.float32):
-        if kT is not None or gamma is not None:
-            raise NotImplementedError(
-                "the Langevin form draws JAX's per-column fold_in noise "
-                "streams; the port runs NVE only (ROADMAP.md)")
         self.pot, self.params = pot, params
         self.R = np.asarray(R, np.float64)
         self.p = np.zeros_like(self.R)
@@ -185,6 +317,8 @@ class SpatialColumnSimulator:
         self.mesh = mesh
         self.cutoff, self.skin = float(cutoff), float(skin)
         self.dt = float(dt)
+        self.kT, self.gamma = kT, gamma
+        self.key = prng.prng_key(seed)
         self.dtype = dtype
         self.rebuilds = 0
         self.host_seconds = 0.0
@@ -225,7 +359,8 @@ class SpatialColumnSimulator:
     def _chunk_fn(self, n_steps):
         if n_steps not in self._chunks:
             self._chunks[n_steps] = make_sharded_column_chunk(
-                self.pot, self.params, self.mesh, self.dt, n_steps)
+                self.pot, self.params, self.mesh, self.dt, n_steps,
+                gamma=self.gamma, kT=self.kT)
         return self._chunks[n_steps]
 
     def simulate(self, n_steps: int, chunk_size: int = 50):
@@ -248,6 +383,8 @@ class SpatialColumnSimulator:
             p_s = t(self.p[order] * smask[:, None])
             m_s = t(self.masses[order] * smask)
             fn = self._chunk_fn(n)
+            self.key, sub = prng.split(self.key)
+            sub = sub.to(dev)
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             self.host_seconds += time.perf_counter() - t0
@@ -256,7 +393,7 @@ class SpatialColumnSimulator:
                 start, end = (torch.cuda.Event(enable_timing=True)
                               for _ in range(2))
                 start.record()
-            Rn, pn = fn(inputs, R_s, p_s, m_s)
+            Rn, pn = fn(inputs, R_s, p_s, m_s, sub)
             if timed:
                 end.record()
                 end.synchronize()

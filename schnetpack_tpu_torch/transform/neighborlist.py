@@ -3,10 +3,14 @@ data pipeline (port of ``schnetpack_tpu/transform/neighborlist.py``).
 
 ``neighbor_list`` is the O(N^2) brute force of ``neighborlist.py:39-91``;
 ``cell_list_neighbor_list`` is the O(N) linked-cell list from which
-``ops/cellblock.py`` builds the column layout, vectorised over the 27 cell
-offsets (it stands in for the JAX package's native C++ cell list).  Both return ``(idx_i, idx_j,
-S)`` with ``Rij = R[j] + S @ cell - R[i]`` and ``|Rij| < cutoff``, sorted
-by (i, j, S).
+``ops/cellblock.py`` builds the column layout: the native C++ list
+(``native/cellist.py``, as ``neighborlist.py:94-107``), with the brute
+force only for a periodic cell under 3 cutoffs high.  A failed build of
+the native list raises ``NativeBuildError``; nothing falls back silently.
+``cell_list_numpy`` is the same linked-cell list in numpy, vectorised over
+the 27 cell offsets: the plain version the tests hold the native list to.
+All return ``(idx_i, idx_j, S)`` with ``Rij = R[j] + S @ cell - R[i]`` and
+``|Rij| < cutoff``, sorted by (i, j, S).
 
 The transforms add ``_idx_i``, ``_idx_j`` and Cartesian ``_offsets`` to a
 sample.  The ASE, matscipy and vesin backends use their library where it
@@ -25,6 +29,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 
 from .. import properties
+from ..native import cellist
 from .base import Transform
 
 Edges = Tuple[np.ndarray, np.ndarray, np.ndarray]
@@ -43,12 +48,6 @@ def _optional(module: str, name: str):
     except ImportError:
         _MISSING.add(module)
         return None
-
-
-#: up to this many atoms a molecule (no periodic axis) takes the brute
-#: force: one [n, n] block in place of 27 cell passes, a host cost that
-#: the data pipeline pays for every molecule of every batch (PERF.md)
-SMALL_MOLECULE = 512
 
 
 def _sorted(ii, jj, S) -> Edges:
@@ -94,14 +93,25 @@ def neighbor_list(positions: np.ndarray, cutoff: float,
 def cell_list_neighbor_list(positions: np.ndarray, cutoff: float,
                             cell: Optional[np.ndarray] = None,
                             pbc: Optional[np.ndarray] = None) -> Edges:
-    """Linked-cell neighbor list, O(N) for a fixed density.
+    """Linked-cell neighbor list, O(N) for a fixed density: the native C++
+    list, or the brute force for a periodic cell under 3 cutoffs high
+    (``cellist.UnsupportedGeometry``)."""
+    try:
+        return cellist.neighbor_list(positions, cutoff, cell, pbc)
+    except cellist.UnsupportedGeometry:
+        return neighbor_list(positions, cutoff, cell, pbc)
+
+
+def cell_list_numpy(positions: np.ndarray, cutoff: float,
+                    cell: Optional[np.ndarray] = None,
+                    pbc: Optional[np.ndarray] = None) -> Edges:
+    """The linked-cell list in numpy (the native list's plain version).
 
     Atoms are binned into cells no narrower than ``cutoff`` (periodic axes
-    need at least 3 of them; smaller boxes, and molecules of up to
-    ``SMALL_MOLECULE`` atoms, use the brute force).  For each
-    of the 27 cell offsets every atom of a cell is paired with every atom
-    of the offset cell at once, on a [cells, C, C] block padded to the
-    largest occupancy C.
+    need at least 3 of them; smaller boxes, and mixed periodicity, use the
+    brute force).  For each of the 27 cell offsets every atom of a cell is
+    paired with every atom of the offset cell at once, on a [cells, C, C]
+    block padded to the largest occupancy C.
     """
     R = np.asarray(positions, np.float64)
     n = len(R)
@@ -109,9 +119,6 @@ def cell_list_neighbor_list(positions: np.ndarray, cutoff: float,
         return _empty()
     periodic = (cell is not None and pbc is not None
                 and np.asarray(pbc).any())
-    if not periodic and n <= SMALL_MOLECULE:
-        # the same pairs and arithmetic at a twentieth of the cost
-        return neighbor_list(R, cutoff)
     pbc_arr = np.asarray(pbc, bool) if periodic else np.zeros(3, bool)
     if periodic:
         basis = np.asarray(cell, np.float64)

@@ -8,7 +8,8 @@ The earlier code, kept here as the comparison: ``NeighborGather``'s
 backward by advanced indexing (whose own VJP, in a force loss's double
 backward, is the sort-based ``index_put_``), the optimizer as a loop over
 the leaves, and the numpy cell list for every molecule
-(``SMALL_MOLECULE = 0``).  Run from the repository root on the card:
+(``cell_list_numpy``; the tree's code takes the native list).  Run from
+the repository root on the card:
 
     python3 scripts/ab_train_step.py
 
@@ -40,7 +41,7 @@ print(f"card: {smi}", flush=True)
 dev = torch.device(os.environ.get("DEV", "cuda"))
 FRAMES = int(os.environ.get("FRAMES", "1000"))
 NEW = (ng.NeighborGather.backward, task_mod.AtomisticTask.apply_gradients,
-       nl.SMALL_MOLECULE)
+       nl.cell_list_neighbor_list)
 
 
 def old_backward(ctx, g):
@@ -81,11 +82,11 @@ def use(code):
     if code == "c1":
         ng.NeighborGather.backward = staticmethod(old_backward)
         task_mod.AtomisticTask.apply_gradients = old_apply
-        nl.SMALL_MOLECULE = 0
+        nl.cell_list_neighbor_list = nl.cell_list_numpy
     else:
         ng.NeighborGather.backward = staticmethod(NEW[0])
         task_mod.AtomisticTask.apply_gradients = NEW[1]
-        nl.SMALL_MOLECULE = NEW[2]
+        nl.cell_list_neighbor_list = NEW[2]
 
 
 def step_ms(layout):

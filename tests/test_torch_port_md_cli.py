@@ -18,7 +18,8 @@
   integrator before the barostat and fails);
 * ``restart=`` appends to the trajectory file, and 20 + 10 steps equal 30;
 * the options the port refuses raise before the first step;
-* ``calculator=orca`` runs a stub ORCA executable.
+* ``calculator=orca`` runs a stub ORCA executable;
+* an ensemble's ``model_dirs`` string is split and stripped.
 """
 import glob
 import os
@@ -310,3 +311,12 @@ def test_spkmd_runs_the_orca_calculator(tmp_path):
     assert float(sim.system.forces.abs().max()) > 0
     got = read_h5(os.path.join(str(tmp_path / "sim"), "simulation.hdf5"))
     assert got["molecules/positions"].shape[0] == 2
+
+
+@pytest.mark.parametrize("value", ["[run1,run2]", "[run1, run2]",
+                                   " [run1 ,  run2] ", ["run1", "run2"]])
+def test_ensemble_model_dirs_are_stripped(value):
+    """An ensemble's ``model_dirs`` string names the same run directories
+    with or without spaces after its commas (the JAX parse keeps them,
+    and ``load_model(' run2')`` fails)."""
+    assert cli._model_dirs(value) == ["run1", "run2"]

@@ -5,9 +5,12 @@ source-index modes against ``jax.vjp`` of ``_painn_message_xla`` and
 against ``_gather_hx_xla``, and the one-shard halo (a periodic-wrap
 concatenation whose autograd adds the halo planes' cotangents back, also
 with nx = 2, where one plane is both halos); then
-``make_sharded_column_eval`` and two NVE chunks of
-``SpatialColumnSimulator`` against the JAX package's on
-``make_column_mesh(1)``.  The CUDA kernels are held against these twins in
+``make_sharded_column_eval``, ``make_sharded_column_md`` and
+``make_sharded_column_rpmd`` (1-D and 2-D meshes), a Langevin chunk at
+kT = 0, and two NVE and two Langevin chunks of ``SpatialColumnSimulator``
+against the JAX package's on ``make_column_mesh(1)``; ``md/prng.py``'s
+keys and normal draws against ``jax.random``, and the Langevin noise's
+independence of the column split.  The CUDA kernels are held against these twins in
 ``test_torch_port_kernels.py``.
 """
 import dataclasses
@@ -30,6 +33,7 @@ from schnetpack_tpu.representation import PaiNN as JPaiNN
 from schnetpack_tpu_torch import properties as TP
 from schnetpack_tpu_torch.atomistic import Atomwise, Forces, PairwiseDistances
 from schnetpack_tpu_torch.convert import params_from_jax
+from schnetpack_tpu_torch.md import prng
 from schnetpack_tpu_torch.model import NeuralNetworkPotential
 from schnetpack_tpu_torch.ops import colblock_edge as edge
 from schnetpack_tpu_torch.ops import colblock_select as sel
@@ -37,8 +41,9 @@ from schnetpack_tpu_torch.ops.cellblock import build_column_layout
 from schnetpack_tpu_torch.ops.colblock import ColRefs
 from schnetpack_tpu_torch.ops.colblock_shard import COLS_AXIS, COLS_AXIS_Y
 from schnetpack_tpu_torch.parallel import (
-    SpatialColumnSimulator, column_inputs, make_column_mesh,
-    make_sharded_column_eval,
+    SpatialColumnSimulator, column_inputs, column_noise, make_column_mesh,
+    make_sharded_column_chunk, make_sharded_column_eval,
+    make_sharded_column_md, make_sharded_column_rpmd,
 )
 from schnetpack_tpu_torch.representation import PaiNN
 from torch_port_cases import MSG_ATOL, MSG_RTOL, slab_case
@@ -289,7 +294,193 @@ def test_spatial_simulator_two_nve_chunks_match_jax():
     np.testing.assert_allclose(sim.R, jsim.R, rtol=MD_TOL, atol=MD_TOL)
     np.testing.assert_allclose(sim.p, jsim.p, rtol=MD_TOL, atol=MD_TOL)
     assert sim.host_seconds > 0
-    with pytest.raises(NotImplementedError, match="NVE"):
-        SpatialColumnSimulator(pot, params, R, Z, masses, cell,
-                               make_column_mesh(1, device="cpu"),
-                               cutoff=cutoff, kT=0.03, gamma=0.05)
+    # the Langevin form: two chunks of JAX's noise streams
+    jsim = jcols.SpatialColumnSimulator(jpot, tree, R, Z, masses, cell, jmesh,
+                                        cutoff=cutoff, skin=0.5,
+                                        dims=(4, 4, 1), dt=0.2, kT=0.03,
+                                        gamma=0.05, seed=11)
+    jsim.p = p0.copy()
+    with jmesh:
+        jsim.simulate(10, chunk_size=5)
+    sim = SpatialColumnSimulator(pot, params, R, Z, masses, cell,
+                                 make_column_mesh(1, device="cpu"),
+                                 cutoff=cutoff, skin=0.5, dims=(4, 4, 1),
+                                 dt=0.2, kT=0.03, gamma=0.05, seed=11)
+    sim.p = p0.copy()
+    sim.simulate(10, chunk_size=5)
+    np.testing.assert_array_equal(sim.key.numpy(),
+                                  np.asarray(jsim.key, np.int64))
+    np.testing.assert_allclose(sim.R, jsim.R, rtol=MD_TOL, atol=MD_TOL)
+    np.testing.assert_allclose(sim.p, jsim.p, rtol=MD_TOL, atol=MD_TOL)
+
+
+# ------------------------------------------------------- Langevin noise
+# the normal draws: JAX's float32 erfinv against the port's, up to the
+# ulps of log1p (at most 3 ulps of a value under 5.5)
+DRAW_ATOL = 1e-6
+
+
+@pytest.mark.parametrize("seed", [0, 11, 2**31 + 5])
+def test_prng_matches_jax(seed):
+    """``prng_key``, ``split`` and ``fold_in`` equal JAX's bit for bit;
+    ``normal`` is within DRAW_ATOL, over several steps and column ids."""
+    jkey = jax.random.PRNGKey(seed)
+    key = prng.prng_key(seed)
+    np.testing.assert_array_equal(key.numpy(), np.asarray(jkey, np.int64))
+    jk, k = jax.random.split(jkey)[1], prng.split(key)[1]
+    np.testing.assert_array_equal(k.numpy(), np.asarray(jk, np.int64))
+    cols = np.array([0, 1, 5, 63, 4097])
+    for step in (0, 1, 37, 199):
+        js = jax.random.fold_in(jk, step)
+        ks = prng.fold_in(k, step)
+        np.testing.assert_array_equal(ks.numpy(), np.asarray(js, np.int64))
+        jc = jax.vmap(jax.random.fold_in, in_axes=(None, 0))(js, cols)
+        kc = prng.fold_in(ks, torch.tensor(cols))
+        np.testing.assert_array_equal(kc.numpy(), np.asarray(jc, np.int64))
+        want = jax.vmap(lambda q: jax.random.normal(q, (400, 3)))(jc)
+        got = prng.normal(kc, 1200).reshape(len(cols), 400, 3)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                                   atol=DRAW_ATOL)
+    # the tails, where torch's own erfinv is 90 ulps from JAX's
+    big = np.asarray(jax.random.normal(js, (200_000,)))
+    got = prng.normal(ks, 200_000).numpy()
+    assert np.abs(big).max() > 4.0
+    np.testing.assert_allclose(got, big, rtol=0, atol=DRAW_ATOL)
+
+
+def test_column_noise_is_independent_of_the_split():
+    """The noise of columns [0, n) is the noise of [0, k) then [k, n), bit
+    for bit, for every split point: a column's draws depend on its global
+    id only."""
+    key = prng.split(prng.prng_key(4))[1]
+    whole = column_noise(key, range(6), 12, 16)
+    for k in (1, 5, 11):
+        parts = torch.cat([column_noise(key, range(6), k, 16),
+                           column_noise(key, range(6), 12 - k, 16, col0=k)],
+                          1)
+        assert torch.equal(whole, parts), k
+    assert not torch.equal(whole[0], whole[1])
+
+
+def _chunk_case(two_d=False, seed=5):
+    cutoff, L, n = 4.0, 24.0, 300
+    rng = np.random.RandomState(seed)
+    R = rng.uniform(0, L, size=(n, 3))
+    Z = np.full(n, 18, np.int64)
+    cell = np.eye(3) * L
+    lay = build_column_layout(R, cutoff + 0.5, cell, np.ones(3, bool),
+                              dims=(4, 4, 1))
+    jpot, tree, pot, params = _models(R, Z, cell, cutoff)
+    m = lay.slot_mask > 0
+    p0 = (rng.randn(n, 3) * 0.05)[lay.order] * m[:, None]
+    mass = np.full(n, 39.9)[lay.order] * m
+    R_s = R[lay.order] * m[:, None]
+    return lay, R, Z, jpot, tree, pot, params, R_s, p0, mass
+
+
+def test_langevin_chunk_at_zero_temperature_matches_jax():
+    """A kT = 0, gamma > 0 chunk (pure friction) against the JAX
+    package's ``make_sharded_column_chunk``, and a gamma = 0 chunk equals
+    the NVE chunk bit for bit (the noise is multiplied by c2 = 0)."""
+    lay, R, Z, jpot, tree, pot, params, R_s, p0, mass = _chunk_case()
+    jmesh = jcols.make_column_mesh(1)
+    jin = jcols.column_inputs(lay, R, Z, sharded=True)
+    f32 = [jnp.asarray(a, jnp.float32) for a in (R_s, p0, mass)]
+    with jmesh:
+        jfn = jcols.make_sharded_column_chunk(jpot, tree, jin, jmesh, 0.2, 6,
+                                              gamma=0.5, kT=0.0)
+        jR, jp = jfn(jin, *f32, jax.random.PRNGKey(3))
+    mesh = make_column_mesh(1, device="cpu")
+    ins = column_inputs(lay, R, Z, device="cpu")
+    t32 = [torch.tensor(a, dtype=torch.float32) for a in (R_s, p0, mass)]
+    fn = make_sharded_column_chunk(pot, params, mesh, 0.2, 6, gamma=0.5,
+                                   kT=0.0)
+    gR, gp = fn(ins, *t32, prng.prng_key(3))
+    np.testing.assert_allclose(gR.numpy(), np.asarray(jR), MD_TOL, MD_TOL)
+    np.testing.assert_allclose(gp.numpy(), np.asarray(jp), MD_TOL, MD_TOL)
+    # friction: the kinetic energy falls below the NVE chunk's
+    nve = make_sharded_column_chunk(pot, params, mesh, 0.2, 6)
+    nR, np_ = nve(ins, *t32)
+    assert (gp ** 2).sum() < 0.8 * (np_ ** 2).sum()
+    zero = make_sharded_column_chunk(pot, params, mesh, 0.2, 6, gamma=0.0,
+                                     kT=0.03)
+    zR, zp = zero(ins, *t32, prng.prng_key(3))
+    assert torch.equal(zR, nR) and torch.equal(zp, np_)
+
+
+@pytest.mark.parametrize("two_d", [False, True])
+def test_sharded_column_md_matches_jax(two_d):
+    """``make_sharded_column_md`` (10 steps) against the JAX package's on
+    ``make_column_mesh(1)`` (1-D) or ``dims=(1, 1)`` (2-D, whose
+    [nx, ny, P, 3] positions come back in that shape)."""
+    lay, R, Z, jpot, tree, pot, params, R_s, p0, _ = _chunk_case()
+    nx, ny, P_, _ = lay.dims
+    shape = (nx, ny, P_, 3) if two_d else (-1, 3)
+    jmesh = jcols.make_column_mesh(1, dims=(1, 1) if two_d else None)
+    jin = jcols.column_inputs(lay, R, Z, sharded=True, mesh_2d=two_d)
+    with jmesh:
+        jfn = jcols.make_sharded_column_md(jpot, tree, jin, jmesh,
+                                           mass=39.9, dt=0.2, n_steps=10)
+        jR, jp = jfn(jin, *[jnp.asarray(a.reshape(shape), jnp.float32)
+                            for a in (R_s, p0)])
+    mesh = make_column_mesh(1, dims=(1, 1) if two_d else None, device="cpu")
+    ins = column_inputs(lay, R, Z, mesh_2d=two_d, device="cpu")
+    fn = make_sharded_column_md(pot, params, ins, mesh, mass=39.9, dt=0.2,
+                                n_steps=10)
+    gR, gp = fn(ins, *[torch.tensor(a.reshape(shape), dtype=torch.float32)
+                       for a in (R_s, p0)])
+    assert gR.shape == tuple(jR.shape)
+    assert np.abs(gR.numpy() - R_s.reshape(shape)).max() > 1e-3
+    np.testing.assert_allclose(gR.numpy(), np.asarray(jR), MD_TOL, MD_TOL)
+    np.testing.assert_allclose(gp.numpy(), np.asarray(jp), MD_TOL, MD_TOL)
+
+
+@pytest.mark.parametrize("two_d", [False, True])
+def test_sharded_column_rpmd_matches_jax(two_d):
+    """``make_sharded_column_rpmd`` (3 beads, 6 steps) against the JAX
+    package's on a one-device 1-D or 2-D mesh."""
+    lay, R, Z, jpot, tree, pot, params, R_s, p0, _ = _chunk_case()
+    nx, ny, P_, _ = lay.dims
+    m = (lay.slot_mask > 0)[None, :, None]
+    rng = np.random.RandomState(8)
+    beads = (R_s[None] + 0.05 * rng.randn(3, *R_s.shape)) * m
+    pb = (p0[None] + 0.02 * rng.randn(3, *p0.shape)) * m
+    shape = (3, nx, ny, P_, 3) if two_d else (3, -1, 3)
+    kw = dict(n_beads=3, mass=39.9, dt=0.2, n_steps=6, omega=0.3)
+    jmesh = jcols.make_column_mesh(1, dims=(1, 1) if two_d else None)
+    jin = jcols.column_inputs(lay, R, Z, sharded=True, mesh_2d=two_d)
+    with jmesh:
+        jfn = jcols.make_sharded_column_rpmd(jpot, tree, jin, jmesh, **kw)
+        jR, jp = jfn(jin, *[jnp.asarray(a.reshape(shape), jnp.float32)
+                            for a in (beads, pb)])
+    mesh = make_column_mesh(1, dims=(1, 1) if two_d else None, device="cpu")
+    ins = column_inputs(lay, R, Z, mesh_2d=two_d, device="cpu")
+    fn = make_sharded_column_rpmd(pot, params, ins, mesh, **kw)
+    gR, gp = fn(ins, *[torch.tensor(a.reshape(shape), dtype=torch.float32)
+                       for a in (beads, pb)])
+    assert gR.shape == tuple(jR.shape)
+    np.testing.assert_allclose(gR.numpy(), np.asarray(jR), MD_TOL, MD_TOL)
+    np.testing.assert_allclose(gp.numpy(), np.asarray(jp), MD_TOL, MD_TOL)
+
+
+def test_langevin_noise_drawn_in_blocks_is_the_same(monkeypatch):
+    """A chunk whose noise is drawn one step at a time (a small
+    ``NOISE_BLOCK``) equals the chunk that draws it all at once, bit for
+    bit."""
+    from schnetpack_tpu_torch.parallel import columns
+
+    lay, R, Z, _, _, pot, params, R_s, p0, mass = _chunk_case()
+    mesh = make_column_mesh(1, device="cpu")
+    ins = column_inputs(lay, R, Z, device="cpu")
+    t32 = [torch.tensor(a, dtype=torch.float32) for a in (R_s, p0, mass)]
+    key = prng.split(prng.prng_key(9))[1]
+
+    def run():
+        return make_sharded_column_chunk(pot, params, mesh, 0.2, 5,
+                                         gamma=0.5, kT=0.03)(ins, *t32, key)
+
+    whole = run()
+    monkeypatch.setattr(columns, "NOISE_BLOCK", 1)
+    stepwise = run()
+    assert torch.equal(whole[0], stepwise[0])
+    assert torch.equal(whole[1], stepwise[1])
