@@ -326,7 +326,24 @@ Phases (any failure exits non-zero before the last line is printed):
    evaluation, 300 NVE steps (drift <= 1e-4 eV/atom, 0 < T < 300 K, the
    host rebuilds counted, none on the device), ms/step beside 100 steps
    on ``all_pairs``;
-16. print the kernel table (every row and sub-row with ``ms`` and
+16. several ranks (``parallel_phase``): two ranks on the one card
+   through an explicit gloo group (``parallel.mesh.spawn_ranks``, the
+   workers ``parallel_rank``; the halo planes cross through the host),
+   against one rank: the trained PaiNN-128x3's slab forces on
+   ``port_ref_painn_argon.npz``'s box on x slabs (dims (2,), (5, 10)
+   columns a rank) and (x, y) blocks (dims (1, 2), (10, 5) columns a
+   rank, the y exchange across the ranks) within 1e-5 eV/Ang of one
+   rank's slab evaluation and within phase 4's gates of the fixture; a
+   50-step NVE chunk on the x slabs and a 25-step Langevin chunk at 30 K
+   on the blocks within 2e-4 A of one rank's (the noise drawn per global
+   column); each rank's launches (K11-K14 1, K20/K21/K3/K4 3 an
+   evaluation); two data-parallel PaiNN-128x3 train steps on phase 11's
+   batch and a relabelled copy, one a rank (SGD with momentum, clipped),
+   every leaf of the averaged gradient and of the parameters within 1e-5
+   of one rank on the mean of both batches' gradients (deterministic
+   algorithms on both sides); ms/step per rank and the exchange's share
+   beside one rank's;
+17. print the kernel table (every row and sub-row with ``ms`` and
    ``device_ms``, ``library_ms`` and ``library_device_ms``) and the card
    as JSON, then the result line.
 
@@ -4155,7 +4172,8 @@ def npt_model_phase(seed, dev, launches, smi):
     whose model has ``Forces(calc_stress=True)`` (the asset's weights),
     ``calculator.stress_key=stress`` on ``all_pairs``, NHC iso barostat
     (``NPT_MODEL_ARGS``), on a 500-atom FCC argon box: the
-    stress at step 0 equals a one-off ``calculate``'s; from the same state,
+    stress at step 0 equals a one-off ``calculate``'s (both under
+    deterministic algorithms); from the same state,
     ``NPT_MODEL_STEPS`` steps at each of ``NPT_PRESSURES``, finite, V/V0
     within ``NPT_VOLUME``, and the higher pressure ends at the smaller
     volume."""
@@ -4189,10 +4207,14 @@ def npt_model_phase(seed, dev, launches, smi):
                 "callbacks.checkpoint=null",
                 f"simulation_dir={tmp}/npt_{pressure:g}"]
             reset(launches)
-            sim = cli.main(args)
-            s0 = sim.system.stress.clone()
-            calc = sim.calculator
-            one = calc.calculate(sim.system, calc.init_state(sim.system))
+            # both stresses under deterministic algorithms: the card's
+            # float atomics alone moved their difference over 3e-7 - 1.03e-6
+            # from run to run
+            with deterministic():
+                sim = cli.main(args)
+                s0 = sim.system.stress.clone()
+                calc = sim.calculator
+                one = calc.calculate(sim.system, calc.init_state(sim.system))
             d0 = float((s0 - one.stress).abs().max() / s0.abs().max())
             t0 = time.perf_counter()
             ms, _ = timed_run(sim, NPT_MODEL_STEPS, chunk_size=100)
@@ -5049,6 +5071,312 @@ def engine_phase(pos, cell, seed, dev, launches, smi):
     return total
 
 
+PARALLEL_RANKS = 2
+#: phase 16's meshes: x slabs of (5, 10) columns a rank, (x, y) blocks of
+#: (10, 5), whose y exchange crosses the ranks
+PARALLEL_MESHES = {"x slabs": (2,), "xy blocks": (1, 2)}
+PARALLEL_NVE_STEPS = 50          # on the x slabs
+PARALLEL_NVT_STEPS = 25          # Langevin at T_BATH on the (x, y) blocks
+PARALLEL_FORCE_TOL = 1e-5        # eV/Ang, two ranks vs one
+PARALLEL_FIXTURE_TOL = 1e-4      # eV/Ang, largest |F - F_jax| of two ranks
+PARALLEL_MD_TOL = 2e-4           # Angstrom, two ranks vs one
+PARALLEL_LEAF_TOL = 1e-5         # per leaf, of its largest |entry|
+PARALLEL_TRAIN_STEPS = 2
+
+
+def parallel_launches():
+    """The launch counters of every kernel module, for a rank."""
+    from schnetpack_tpu_torch.ops import cellblock_gather as cg
+    from schnetpack_tpu_torch.ops import colblock_edge as edge
+    from schnetpack_tpu_torch.ops import colblock_geo as geo_op
+    from schnetpack_tpu_torch.ops import colblock_message as msg
+    from schnetpack_tpu_torch.ops import colblock_select as sel
+    from schnetpack_tpu_torch.ops import painn_fused as pf
+    from schnetpack_tpu_torch.ops import painn_mixing as mix
+    from schnetpack_tpu_torch.ops import schnet_columns as cf
+
+    return (msg.LAUNCHES, mix.LAUNCHES, geo_op.LAUNCHES, cf.LAUNCHES,
+            sel.LAUNCHES, cg.LAUNCHES, pf.LAUNCHES, edge.LAUNCHES)
+
+
+class deterministic:
+    """PyTorch's deterministic algorithms inside the block (the card's
+    float atomics, as in ``index_add_``, reorder f32 sums from run to run;
+    their deterministic forms give one rank's gradient bit for bit
+    again)."""
+
+    def __enter__(self):
+        import warnings
+
+        self._warnings = warnings.catch_warnings()
+        self._warnings.__enter__()
+        warnings.simplefilter("ignore")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+
+    def __exit__(self, *exc):
+        torch.use_deterministic_algorithms(False)
+        self._warnings.__exit__(*exc)
+
+
+def dp_task(dev):
+    """(task, two numpy batches) of phase 16's data-parallel steps: phase
+    11's PaiNN-128x3, loss and flat batch, and the batch with other labels
+    (half the energies, the forces turned round); SGD with momentum 0.9 at
+    lr 1e-4 after a clip of the gradient's norm to 1, an update linear in
+    the gradient (Adam's first steps are sign steps, which turn the ulps of
+    a near-zero gradient entry into a whole step of lr).  The batch's
+    atoms come as close as 0.04 A, so its gradient is large: the clip keeps
+    the step small."""
+    from schnetpack_tpu_torch.train import AtomisticTask
+
+    task, batch = train_task_and_batch("flat", dev)
+    other = dict(batch)
+    other["energy"] = batch["energy"] * 0.5
+    other["forces"] = batch["forces"] * -0.5
+    return AtomisticTask(task.model, task.outputs, learning_rate=1e-4,
+                         optimizer="sgd", optimizer_args={"momentum": 0.9},
+                         grad_clip=1.0), [batch, other]
+
+
+def parallel_rank(rank, pos, cell, p, seed):
+    """Phase 16 on one rank of two gloo ranks that share the card: the
+    bench box's slab forces on each of ``PARALLEL_MESHES``, an NVE chunk
+    on the x slabs and a Langevin chunk on the (x, y) blocks (timed, with
+    the exchange's wall seconds), each rank's launches, then data-parallel
+    train steps; numpy results, the slab arrays in the original atom
+    order."""
+    import torch.distributed as dist
+
+    from schnetpack_tpu_torch.md import prng
+    from schnetpack_tpu_torch.ops import _build
+    from schnetpack_tpu_torch.ops import colblock_shard as shard
+    from schnetpack_tpu_torch.parallel import (
+        DataParallelTask, column_inputs, gather_slabs, make_column_mesh,
+        make_mesh, make_sharded_column_chunk, make_sharded_column_eval,
+        slab_of,
+    )
+    from schnetpack_tpu_torch.parallel.data_parallel import mean_over_ranks
+    from schnetpack_tpu_torch.train import as_tensors
+
+    dev = torch.device("cuda")
+    _build.lib()
+    launches = parallel_launches()
+    sim = slab_simulator(pos, cell, dev)
+    lay = sim.layout()
+    m = lay.slot_mask > 0
+    out = {"backend": dist.get_backend(), "meshes": {}}
+    for name, dims in PARALLEL_MESHES.items():
+        mesh = make_column_mesh(PARALLEL_RANKS, dims if len(dims) == 2
+                                else None, device="cuda", backend="gloo")
+        ins = column_inputs(lay, pos, sim.Z, mesh=mesh)
+        r = {"device": str(mesh.device), "coords": mesh.coords,
+             "slab": mesh.slab(*lay.qcol.shape[:2])}
+        E, F = make_sharded_column_eval(sim.pot, None, ins, mesh)(ins)
+        r["E"] = E.double().cpu().numpy()
+        r["F"] = gather_slabs(lay, mesh, F.detach()).double().cpu().numpy()[
+            lay.rank]
+
+        def cut(a):
+            return slab_of(lay, mesh, torch.as_tensor(
+                a, dtype=torch.float32, device=dev))
+
+        start = (cut(pos[lay.order] * m[:, None]),
+                 cut(p[lay.order] * m[:, None]),
+                 cut(sim.masses[lay.order] * m))
+        nvt = name == "xy blocks"
+        steps = PARALLEL_NVT_STEPS if nvt else PARALLEL_NVE_STEPS
+        kw = (dict(gamma=0.5 / SLAB_DT / TAU_FS, kT=KB_EV * T_BATH) if nvt
+              else {})
+        chunk = make_sharded_column_chunk(sim.pot, None, mesh, SLAB_DT,
+                                          steps, **kw)
+        key = (prng.split(prng.prng_key(seed))[1].to(dev),) if nvt else ()
+        mesh.barrier()
+        reset(launches)
+        x0 = dict(shard.EXCHANGES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        R1, p1 = chunk(ins, *start, *key)
+        b.record()
+        torch.cuda.synchronize()
+        r["wall_ms"] = (time.perf_counter() - t0) * 1e3 / steps
+        r["ms"] = a.elapsed_time(b) / steps
+        r["exchanges"] = shard.EXCHANGES["calls"] - x0["calls"]
+        r["exchange_ms"] = (shard.EXCHANGES["seconds"] - x0["seconds"]) \
+            * 1e3 / steps
+        r["launches"] = read_counts(launches)
+        r["evaluations"] = steps + 1
+        r["R"] = gather_slabs(lay, mesh, R1).double().cpu().numpy()[lay.rank]
+        out["meshes"][name] = r
+    # data-parallel training: rank r takes batch r, one all-reduce a step
+    task, batches = dp_task(dev)
+    mesh = make_mesh(PARALLEL_RANKS, ("data",), device="cuda",
+                     backend="gloo")
+    DataParallelTask(task, mesh)       # rank 0's weights on every rank
+    state = task.create_state()
+    reduce = mean_over_ranks(mesh)
+    grads = []
+
+    def record(g, metrics):
+        g, metrics = reduce(g, metrics)
+        grads.append({k: v.double().cpu().numpy() for k, v in g.items()})
+        return g, metrics
+
+    reset(launches)
+    with deterministic():
+        for _ in range(PARALLEL_TRAIN_STEPS):
+            state, _ = task.train_step(state, as_tensors(batches[rank], dev),
+                                       reduce=record)
+    torch.cuda.synchronize()
+    out["train"] = {"grads": grads, "params": {
+        k: v.detach().double().cpu().numpy()
+        for k, v in state.params.items()},
+        "launches": sum(read_counts(launches).values())}
+    return out
+
+
+def leaf_err(got, want):
+    """The worst leaf (name, max |got - want| / max |want|)."""
+    errs = {k: float(np.abs(got[k] - want[k]).max()
+                     / max(np.abs(want[k]).max(), 1e-30)) for k in want}
+    worst = max(errs, key=errs.get)
+    return worst, errs[worst]
+
+
+def parallel_phase(pos, cell, seed, dev, launches, smi):
+    """Phase 16: two ranks on the one card through an explicit gloo group
+    (``parallel.mesh.spawn_ranks``; the workers are ``parallel_rank``)
+    against one rank: the slab forces of the bench box on x slabs (2,) and
+    (x, y) blocks (1, 2) within 1e-5 eV/Ang of one rank's slab evaluation
+    and within phase 4's gates of ``port_ref_painn_argon.npz``, at its
+    positions; a 50-step NVE chunk on the
+    x slabs and a 25-step Langevin chunk at 30 K on the blocks within 2e-4
+    A of one rank's; each rank's launches (K11-K14 1, K20/K21/K3/K4 3 an
+    evaluation); two data-parallel train steps (one batch a rank) against
+    one rank on the mean of both batches' gradients, every leaf of the
+    averaged gradient and of the parameters within 1e-5 (under PyTorch's
+    deterministic algorithms, on both sides); the ms/step and the
+    exchange's share beside one rank's."""
+    import tempfile
+
+    from schnetpack_tpu_torch.md import prng
+    from schnetpack_tpu_torch.parallel import (
+        make_sharded_column_chunk, make_sharded_column_eval, spawn_ranks,
+    )
+    from schnetpack_tpu_torch.train import as_tensors
+
+    t_phase = time.perf_counter()
+    ref = np.load(REFERENCE["full"])
+    # the bench box as the fixture holds it (jittered by 0.1 A)
+    pos, cell = ref["R"].astype(np.float64), ref["cell"].astype(np.float64)
+    sim = slab_simulator(pos, cell, dev)
+    slab_momenta(sim, seed)
+    p = sim.p.copy()
+    lay, inputs = slab_inputs(sim, pos, dev)
+    _, F = make_sharded_column_eval(sim.pot, None, inputs, sim.mesh)(inputs)
+    F_one = F.detach().double().cpu().numpy()[lay.rank]
+    m = lay.slot_mask > 0
+
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=dev)
+
+    start = (t(pos[lay.order] * m[:, None]), t(p[lay.order] * m[:, None]),
+             t(sim.masses[lay.order] * m))
+    one = {}
+    for name, nvt in (("x slabs", False), ("xy blocks", True)):
+        steps = PARALLEL_NVT_STEPS if nvt else PARALLEL_NVE_STEPS
+        kw = (dict(gamma=0.5 / SLAB_DT / TAU_FS, kT=KB_EV * T_BATH) if nvt
+              else {})
+        chunk = make_sharded_column_chunk(sim.pot, None, sim.mesh, SLAB_DT,
+                                          steps, **kw)
+        key = (prng.split(prng.prng_key(seed))[1].to(dev),) if nvt else ()
+        ms, (R1, _) = median_ms(lambda: chunk(inputs, *start, *key), 1)
+        one[name] = (ms / steps, R1.double().cpu().numpy()[lay.rank])
+    task, batches = dp_task(dev)
+    state = task.create_state()
+    batches = [as_tensors(b, dev) for b in batches]
+    ref_grads = []
+    with deterministic():
+        for _ in range(PARALLEL_TRAIN_STEPS):
+            gs = [task.gradients(state, b)[2] for b in batches]
+            g = {k: (gs[0][k] + gs[1][k]) / 2 for k in gs[0]}
+            ref_grads.append({k: v.double().cpu().numpy()
+                              for k, v in g.items()})
+            with torch.no_grad():
+                task.apply_gradients(state, g)
+    ref_params = {k: v.detach().double().cpu().numpy()
+                  for k, v in state.params.items()}
+    del sim, inputs, task, state, batches
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(parallel_rank, PARALLEL_RANKS,
+                            (pos, cell, p, seed), tmp, backend="gloo")
+        spawn_s = time.perf_counter() - t0
+    print(f"parallel (phase 16): {PARALLEL_RANKS} ranks on one card, "
+          f"backend {ranks[0]['backend']} (devices "
+          f"{[r['meshes']['x slabs']['device'] for r in ranks]}), "
+          f"{spawn_s:.1f} s with their start; {smi}", flush=True)
+    assert all(r["backend"] == "gloo" for r in ranks)
+    counts = {}
+    for name, dims in PARALLEL_MESHES.items():
+        per = [r["meshes"][name] for r in ranks]
+        F_err = max(float(np.abs(q["F"] - F_one).max()) for q in per)
+        F_fix = max(float(np.abs(q["F"] - ref["forces"]).max())
+                    for q in per)
+        F_rms = max(float(np.sqrt(np.mean((q["F"] - ref["forces"]) ** 2)))
+                    for q in per)
+        E_sum = float(per[0]["E"].sum())
+        dE = abs(E_sum - float(ref["energy"])) / abs(float(ref["energy"]))
+        R_err = max(float(np.abs(q["R"] - one[name][1]).max()) for q in per)
+        steps = per[0]["evaluations"] - 1
+        kind = ("Langevin at 30 K" if name == "xy blocks" else "NVE")
+        print(f"parallel ({name}, dims {dims}, columns a rank "
+              f"{[q['slab'] for q in per]}): forces max |F - F_one rank| "
+              f"{F_err:.3e} eV/Ang, vs F_jax rms {F_rms:.3e} (max {F_fix:.3e}), "
+              f"energy "
+              f"sum of the partials {E_sum:.6f} vs {float(ref['energy']):.6f}"
+              f" (rel {dE:.2e}); {steps}-step {kind} chunk max |R - "
+              f"R_one rank| {R_err:.3e} A; ms/step per rank (CUDA events) "
+              f"{[round(q['ms'], 3) for q in per]}, wall "
+              f"{[round(q['wall_ms'], 3) for q in per]}, exchange "
+              f"{[round(q['exchange_ms'], 3) for q in per]} ms/step "
+              f"({[round(q['exchange_ms'] / q['wall_ms'], 3) for q in per]}"
+              f" of the wall; {per[0]['exchanges']} exchanges), one rank "
+              f"{one[name][0]:.3f} ms/step; launches per rank "
+              f"{[{k: v for k, v in q['launches'].items() if v} for q in per]}"
+              f"; {smi}", flush=True)
+        assert F_err <= PARALLEL_FORCE_TOL, f"{name}: forces vs one rank"
+        assert F_rms <= FORCE_RMS_TOL, f"{name}: forces vs the JAX fixture"
+        assert F_fix <= PARALLEL_FIXTURE_TOL, f"{name}: max |F - F_jax|"
+        assert dE <= ENERGY_RTOL, f"{name}: energy vs the JAX fixture"
+        assert R_err <= PARALLEL_MD_TOL, f"{name}: chunk vs one rank"
+        for r, q in enumerate(per):
+            check_launches(f"parallel {name} rank {r}", q["launches"],
+                           PER_STEP["painn_slab"], q["evaluations"])
+            for k, v in q["launches"].items():
+                counts[k] = counts.get(k, 0) + v
+    worst = []
+    for r, q in enumerate(ranks):
+        tr = q["train"]
+        assert len(tr["grads"]) == PARALLEL_TRAIN_STEPS
+        for s, (g, w) in enumerate(zip(tr["grads"], ref_grads)):
+            worst.append((f"rank {r} step {s + 1} gradient",) + leaf_err(g, w))
+        worst.append((f"rank {r} parameters",) + leaf_err(tr["params"],
+                                                          ref_params))
+        assert tr["launches"] == 0, "the flat train step launched a kernel"
+    print(f"parallel (data-parallel PaiNN-128x3, SGD, {PARALLEL_TRAIN_STEPS}"
+          " steps, one batch a rank, vs one rank on the mean of both "
+          f"batches' gradients): worst leaves {worst}", flush=True)
+    for what, leaf, err in worst:
+        assert err <= PARALLEL_LEAF_TOL, f"{what}: {leaf} {err}"
+    print(f"parallel phase: {time.perf_counter() - t_phase:.1f} s; {smi}",
+          flush=True)
+    return counts
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -5159,6 +5487,7 @@ def main():
     for k, v in engine_phase(pos, cell, args.seed, dev, launches,
                              smi).items():
         total[k] = total.get(k, 0) + v
+    parallel_phase(pos, cell, args.seed, dev, launches, smi)
     for row in rows:
         row["launches"] = total[row["name"]]
         assert row["launches"] > 0, f"{row['name']} never ran in the MD"

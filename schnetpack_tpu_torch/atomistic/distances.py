@@ -48,7 +48,7 @@ from ..ops.colblock_select import (
 from ..ops.colblock_shard import COLS_AXIS, COLS_AXIS_Y
 from ..ops.math import safe_norm
 from ..ops.neighbor_gather import neighbor_gather
-from ..ops.scatter import segment_sum, take
+from ..ops.scatter import enter_pairs, leave_pairs, segment_sum, take
 
 
 class PairwiseDistances(nn.Module):
@@ -64,9 +64,10 @@ class PairwiseDistances(nn.Module):
 
     def forward(self, inputs: Dict[str, torch.Tensor]):
         R = inputs[properties.R]
+        Rp = enter_pairs(R, inputs.get(properties.pair_mesh))
         if properties.idx_i in inputs:
-            inputs[properties.Rij] = (take(R, inputs[properties.idx_j])
-                                      - take(R, inputs[properties.idx_i])
+            inputs[properties.Rij] = (take(Rp, inputs[properties.idx_j])
+                                      - take(Rp, inputs[properties.idx_i])
                                       + inputs[properties.offsets])
         if properties.cell_qcol in inputs:
             if self.columns or properties.cell_shard in inputs:
@@ -96,8 +97,8 @@ class PairwiseDistances(nn.Module):
                 "cell_coff_fm) or the 27-cell layout (cell_qidx)")
         if properties.idx_i_lr in inputs:
             inputs[properties.Rij_lr] = (
-                take(R, inputs[properties.idx_j_lr])
-                - take(R, inputs[properties.idx_i_lr])
+                take(Rp, inputs[properties.idx_j_lr])
+                - take(Rp, inputs[properties.idx_i_lr])
                 + inputs[properties.offsets_lr])
         return inputs
 
@@ -164,14 +165,17 @@ class FlatEdges:
     over ``idx_i`` into ``n_atoms`` rows."""
 
     def __init__(self, idx_i: torch.Tensor, idx_j: torch.Tensor,
-                 n_atoms: int):
+                 n_atoms: int, mesh=None):
         self.idx_i, self.idx_j, self.n_atoms = idx_i, idx_j, n_atoms
+        #: the mesh whose ranks split the pairs (``parallel/spatial.py``)
+        self.mesh = mesh
 
     def gather(self, x: torch.Tensor) -> torch.Tensor:
-        return take(x, self.idx_j)
+        return take(enter_pairs(x, self.mesh), self.idx_j)
 
     def fold(self, m: torch.Tensor) -> torch.Tensor:
-        return segment_sum(m, self.idx_i, self.n_atoms)
+        return leave_pairs(segment_sum(m, self.idx_i, self.n_atoms),
+                           self.mesh)
 
 
 def as_edges(layout):
@@ -219,7 +223,8 @@ def edge_layout(inputs: Dict[str, torch.Tensor], reverse: bool = True,
             "the flat pair list (or nbh_rij of a dense one): run "
             "atomistic.PairwiseDistances as an input module")
     return (FlatEdges(inputs[properties.idx_i], inputs[properties.idx_j],
-                      inputs[properties.R].shape[0]),
+                      inputs[properties.R].shape[0],
+                      inputs.get(properties.pair_mesh)),
             inputs[properties.Rij], inputs[properties.pair_mask])
 
 
@@ -235,7 +240,9 @@ def column_refs(inputs: Dict[str, torch.Tensor]) -> ColRefs:
     """The column-layout refs of a model's inputs, built once per forward
     and kept in the inputs, so that every op of the forward shares the
     index schedules cached on them.  A ``cell_shard`` marker of length 1
-    (2) makes them x-slab ((x, y)-block) refs (``painn.py:301-309``)."""
+    (2) makes them x-slab ((x, y)-block) refs (``painn.py:301-309``), whose
+    halo planes come from the ranks of ``cell_mesh`` where the inputs
+    carry one."""
     refs = inputs.get(properties.col_refs)
     if refs is None:
         qcol = inputs[properties.cell_qcol]
@@ -246,7 +253,8 @@ def column_refs(inputs: Dict[str, torch.Tensor]) -> ColRefs:
                      if inputs[properties.cell_shard].shape[0] >= 2
                      else COLS_AXIS)
         refs = ColRefs(qcol, inputs[properties.cell_dcol], P,
-                       tuple(inputs[properties.cell_ksz]), shard)
+                       tuple(inputs[properties.cell_ksz]), shard,
+                       inputs.get(properties.cell_mesh))
         inputs[properties.col_refs] = refs
     return refs
 

@@ -23,7 +23,7 @@ from torch import nn
 from .. import properties
 from ..ops.cutoff import switch_function
 from ..ops.math import safe_norm
-from ..ops.scatter import segment_sum, take
+from ..ops.scatter import pair_sum, pair_take, segment_sum, take
 from ..units import ke as KE_ASE
 
 
@@ -83,6 +83,7 @@ class EnergyCoulomb(nn.Module):
         q = inputs[self.charges_key]
         M = inputs[properties.n_atoms].shape[0]
         idx_i, idx_j, Rij, mask = _pair_list(inputs, self.use_long_range, q)
+        mesh = inputs.get(properties.pair_mesh)
         d = safe_norm(Rij)
         pot = self.potential(d)
         if self.cutoff is not None:
@@ -90,9 +91,9 @@ class EnergyCoulomb(nn.Module):
             pot = torch.where(d < self.cutoff, pot - pot_rc,
                               torch.zeros_like(pot))
         # each pair appears in both directions: the factor 1/2
-        e_pair = (0.5 * KE_ASE * self.energy_unit * take(q, idx_i)
-                  * take(q, idx_j) * pot * mask)
-        e_atom = segment_sum(e_pair, idx_i, q.shape[0])
+        e_pair = (0.5 * KE_ASE * self.energy_unit * pair_take(q, idx_i, mesh)
+                  * pair_take(q, idx_j, mesh) * pot * mask)
+        e_atom = pair_sum(e_pair, idx_i, q.shape[0], mesh)
         inputs[self.output_key] = segment_sum(e_atom, inputs[properties.idx_m],
                                               M)
         return inputs
@@ -154,9 +155,12 @@ class EnergyEwald(nn.Module):
             return segment_sum(e_atom * inputs[properties.atom_mask], idx_m,
                                M)
         idx_i, idx_j, Rij, mask = _pair_list(inputs, self.use_long_range, q)
-        e_pair = (0.5 * ke * take(q, idx_i) * take(q, idx_j)
+        mesh = inputs.get(properties.pair_mesh)
+        e_pair = (0.5 * ke * pair_take(q, idx_i, mesh)
+                  * pair_take(q, idx_j, mesh)
                   * self._screen(safe_norm(Rij)) * mask)
-        return segment_sum(segment_sum(e_pair, idx_i, q.shape[0]), idx_m, M)
+        return segment_sum(pair_sum(e_pair, idx_i, q.shape[0], mesh), idx_m,
+                           M)
 
     def forward(self, inputs: Dict[str, torch.Tensor]):
         q = inputs[self.charges_key]

@@ -15,7 +15,7 @@ from torch import nn
 from .. import properties
 from ..nn.cutoff import CosineCutoff
 from ..ops.math import safe_norm
-from ..ops.scatter import segment_sum, take
+from ..ops.scatter import pair_sum, pair_take, segment_sum
 from ..units import Bohr
 from ..units import ke as KE_ASE
 
@@ -58,6 +58,7 @@ class ZBLRepulsionEnergy(nn.Module):
         Rij = inputs[properties.Rij]
         Z = inputs[properties.Z].to(Rij.dtype)
         idx_i, idx_j = inputs[properties.idx_i], inputs[properties.idx_j]
+        mesh = inputs.get(properties.pair_mesh)
         M = inputs[properties.n_atoms].shape[0]
         coeffs = F.softplus(self.coefficients)
         coeffs = coeffs / coeffs.sum()
@@ -65,14 +66,14 @@ class ZBLRepulsionEnergy(nn.Module):
         apow = F.softplus(self.a_pow)[0]
         adiv = F.softplus(self.a_div)[0]
         d = safe_norm(Rij)
-        zi, zj = take(Z, idx_i), take(Z, idx_j)
+        zi, zj = pair_take(Z, idx_i, mesh), pair_take(Z, idx_j, mesh)
         x = d * (zi ** apow + zj ** apow) * adiv
         phi = (coeffs * torch.exp(-x[:, None] * expons)).sum(-1)
         fcut = self.cutoff_fn(d) * inputs[properties.pair_mask]
         # the factor 1/2: the pair list holds both directions
         e_pair = (0.5 * KE_ASE * self.energy_unit * zi * zj
                   / d.clamp(min=1e-10) * phi * fcut)
-        e_atom = segment_sum(e_pair, idx_i, Z.shape[0])
+        e_atom = pair_sum(e_pair, idx_i, Z.shape[0], mesh)
         inputs[self.output_key] = segment_sum(e_atom,
                                               inputs[properties.idx_m], M)
         return inputs

@@ -18,7 +18,7 @@ import torch
 from torch import nn
 
 from .. import properties
-from ..ops.scatter import take
+from ..ops.scatter import pair_take, take
 
 
 def strained(x: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
@@ -49,7 +49,9 @@ class Strain(nn.Module):
         for off_key, i_key in ((properties.offsets, properties.idx_i),
                                (properties.offsets_lr, properties.idx_i_lr)):
             if off_key in inputs:
-                eps_pair = take(eps, take(idx_m, inputs[i_key]))
+                # the pairs may be a rank's share (``parallel/spatial.py``)
+                eps_pair = pair_take(eps, take(idx_m, inputs[i_key]),
+                                     inputs.get(properties.pair_mesh))
                 inputs[off_key] = strained(inputs[off_key], eps_pair)
         if properties.nbh_offsets in inputs:
             inputs[properties.nbh_offsets] = strained(

@@ -9,8 +9,17 @@ and one more key, ``device``: ``cuda``, the default, or ``cpu``), with
 torch; builds the data module, the model, the task and the trainer; fits,
 tests and writes the run directory.  ``spkpredict`` runs a run
 directory's model over its data module's test split and writes the
-predictions.  ``trainer.devices`` > 1 raises: the port trains on one card
-(ROADMAP Queue 1 item 9).
+predictions.
+
+``trainer.devices=D`` > 1 (-1: every visible card) trains data-parallel
+on D ranks (``parallel/data_parallel.py``), NCCL on ``cuda`` (a card per
+rank; more ranks than visible cards raise ``MeshError``), gloo on
+``cpu``.  Under ``torchrun --nproc_per_node D`` each process joins the
+group from ``RANK``/``WORLD_SIZE``/``LOCAL_RANK``; otherwise ``spktrain``
+starts the D ranks itself on this host, with a file store in the run
+directory, so the JAX package's command line runs unchanged.  Only rank 0
+writes the logs, checkpoints and run directory; every rank reads a resume
+checkpoint.
 
 Usage:
     python -m schnetpack_tpu_torch.cli train experiment=md17 \
@@ -261,51 +270,102 @@ def build_task(config: Dict, model):
 
 
 def _n_devices(trainer_cfg: Dict, device: torch.device) -> int:
+    """The ranks of ``trainer.devices`` (-1: the visible cards); NCCL with
+    more ranks than visible cards raises ``MeshError``."""
+    from .parallel.mesh import rank_device
+
     n = int(trainer_cfg.get("devices", 1) or 1)
     if n == -1:
         n = torch.cuda.device_count() if device.type == "cuda" else 1
     if n > 1:
-        raise NotImplementedError(
-            f"trainer.devices={n}: the port trains on one card; data-parallel "
-            "training is ROADMAP Queue 1 item 9")
-    return n
+        rank_device(device, "nccl" if device.type == "cuda" else "gloo", n)
+    return max(n, 1)
+
+
+def _run_dir(config: Dict) -> str:
+    run = config.get("run", {})
+    return os.path.join(run.get("path", "runs"), str(run.get("id", "run")))
 
 
 def train(config: Dict) -> Dict[str, float]:
     """``spktrain``: fit, test with the final evaluation parameters, and
-    write the run directory; returns the test metrics."""
+    write the run directory; returns the test metrics.  With
+    ``trainer.devices`` > 1 outside a joined group (not under torchrun) it
+    starts the ranks and returns rank 0's metrics."""
+    import torch.distributed as dist
+
+    device = torch.device(config.get("device", "cuda"))
+    n = _n_devices(dict(config.get("trainer", {})), device)
+    if n > 1 and not dist.is_initialized() and "RANK" not in os.environ:
+        from .parallel.mesh import spawn_ranks
+
+        store = os.path.join(_run_dir(config), "ranks")
+        return spawn_ranks(_train_rank, n, (config,), store,
+                           "nccl" if device.type == "cuda" else "gloo")[0]
+    return fit(config)[0]
+
+
+def _train_rank(rank: int, config: Dict) -> Dict[str, float]:
+    """One rank of a data-parallel ``spktrain`` started by ``train``."""
     return fit(config)[0]
 
 
 def fit(config: Dict):
     """``train``'s work; returns (test metrics, task, final state, data
-    module), the trained model being ``task.model``."""
+    module), the trained model being ``task.model``.  With
+    ``trainer.devices`` > 1 it runs as one rank of the data-parallel run
+    (joining the group from torchrun's environment where it has none)."""
     from .train import ModelCheckpoint, Trainer
     from .train.loggers import build_logger
 
-    device = _device(config.get("device", "cuda"))
     trainer_cfg = dict(config.get("trainer", {}))
     trainer_cfg.pop("_target_", None)
-    _n_devices(trainer_cfg, device)
-    run = config.get("run", {})
-    run_dir = os.path.join(run.get("path", "runs"), str(run.get("id", "run")))
-    os.makedirs(run_dir, exist_ok=True)
+    requested = torch.device(config.get("device", "cuda"))
+    n = _n_devices(trainer_cfg, requested)
+    mesh = None
+    if n > 1:
+        from .parallel.mesh import init_from_env, make_mesh
+
+        backend = "nccl" if requested.type == "cuda" else "gloo"
+        init_from_env(backend)
+        mesh = make_mesh(n, ("data",), device=requested, backend=backend)
+        device = mesh.device
+    else:
+        device = _device(requested)
+    lead = mesh is None or mesh.rank == 0
+    run_dir = _run_dir(config)
     cfg_path = os.path.join(run_dir, "config.yaml")
     ckpt_dir = os.path.join(run_dir, "checkpoints")
     resume = os.path.exists(cfg_path) and os.path.exists(
         os.path.join(ckpt_dir, "last.ckpt"))
-    save_config(config, cfg_path)
+    if mesh is not None:
+        mesh.barrier()   # every rank has seen whether to resume
+    if lead:
+        os.makedirs(run_dir, exist_ok=True)
+        save_config(config, cfg_path)
 
     seed = int(config.get("globals", {}).get("seed", 42))
     _seed_everything(seed)
     dm = instantiate(config["data"])
-    dm.setup()
+    if lead:
+        dm.setup()       # builds the database and the split once
+    if mesh is not None:
+        mesh.barrier()
+        if not lead:
+            dm.setup()
     model_cfg = jax_targets(config["model"])
     model = _build(model_cfg, {}).to(device)
     for t in list(dm.train_transforms):
         if hasattr(t, "datamodule"):
             t.datamodule(dm)
     task, scheduler = build_task(config, model)
+    train_loader = dm.train_dataloader()
+    fit_task = task
+    if mesh is not None:
+        from .parallel.data_parallel import DataParallelTask, GroupedLoader
+
+        fit_task = DataParallelTask(task, mesh)
+        train_loader = GroupedLoader(train_loader, n, mesh.rank)
     state = task.create_state()
 
     cb = config.get("callbacks", {}) or {}
@@ -314,7 +374,9 @@ def fit(config: Dict):
         trainer_cfg.setdefault("early_stopping_patience",
                                cb["early_stopping"].get("patience"))
     logger_cfg = config.get("logger")
-    if isinstance(logger_cfg, dict) and logger_cfg:
+    if not lead:
+        loggers = []
+    elif isinstance(logger_cfg, dict) and logger_cfg:
         loggers = [build_logger(name, run_dir, lcfg)
                    for name, lcfg in logger_cfg.items()]
     else:
@@ -322,20 +384,25 @@ def fit(config: Dict):
                    for name in cb.get("loggers", ["csv"])]
     model_path = os.path.join(run_dir, config.get("globals", {}).get(
         "model_path", "best_model"))
+    kwargs = {k: v for k, v in trainer_cfg.items() if k in (
+        "max_epochs", "log_every_n_steps", "val_every_n_epochs",
+        "early_stopping_patience", "progress")}
+    if not lead:
+        kwargs["progress"] = False
     trainer = Trainer(
         log_dir=run_dir, scheduler=scheduler, scheduler_monitor=monitor,
         checkpoint=ModelCheckpoint(ckpt_dir, monitor=monitor,
-                                   model_path=model_path),
-        loggers=loggers,
-        **{k: v for k, v in trainer_cfg.items() if k in (
-            "max_epochs", "log_every_n_steps", "val_every_n_epochs",
-            "early_stopping_patience", "progress")})
-    state = trainer.fit(task, state, dm.train_dataloader(),
+                                   model_path=model_path, writes=lead),
+        loggers=loggers, **kwargs)
+    state = trainer.fit(fit_task, state, train_loader,
                         dm.val_dataloader(), resume=resume)
-    metrics = trainer.test(task, state, dm.test_dataloader())
-    print({k: round(v, 6) for k, v in metrics.items()})
-    with open(os.path.join(run_dir, "model_config.pkl"), "wb") as f:
-        pickle.dump(model_cfg, f)
+    metrics = trainer.test(fit_task, state, dm.test_dataloader())
+    if lead:
+        print({k: round(v, 6) for k, v in metrics.items()})
+        with open(os.path.join(run_dir, "model_config.pkl"), "wb") as f:
+            pickle.dump(model_cfg, f)
+    if mesh is not None:
+        mesh.barrier()
     return metrics, task, state, dm
 
 

@@ -39,6 +39,10 @@ _cache: Dict[str, type] = {}
 
 
 def _stub_class(attr: str):
+    if attr.startswith("__") and attr.endswith("__"):
+        # a stub module has no ``__file__`` and the like: ``inspect``
+        # walks every module in ``sys.modules`` and reads them
+        raise AttributeError(attr)
     if attr not in _cache:
         import torch.nn as nn
 

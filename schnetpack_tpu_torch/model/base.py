@@ -42,6 +42,12 @@ raises ``ColumnStressError``: the JAX ``Strain`` does not strain that
 layout's periodic offsets (``cell_coff``, ``cell_coff_fm``), so its
 column stress lacks the periodic-image term, and the port does not mirror
 that number.  The 27-cell layout strains ``nbh_offsets`` and computes it.
+On the pair-split flat layout (``parallel/spatial.py``) each rank's
+gradient of a parameter that acts on the pairs holds only its own pairs'
+share, so a call that could train (grad mode on and a parameter that
+requires grad) raises ``SecondOrderLayoutError`` there too: the
+energies, forces, stress and other responses are whole with frozen
+parameters or under ``torch.no_grad()``; training goes data-parallel.
 
 ``postprocessors`` (e.g. ``transform.AddOffsets``) run on the outputs
 unless ``do_postprocessing`` is off, per call or for the model.
@@ -63,7 +69,8 @@ from ..atomistic.response import (
 class SecondOrderLayoutError(ValueError):
     """A second derivative (a second-order response, or a loss on a
     response for training) was asked for on the column or 27-cell layout,
-    whose kernels have none."""
+    whose kernels have none; or a call that could train on the pair-split
+    flat layout (see the module's docstring)."""
 
 
 class ColumnStressError(ValueError):
@@ -141,6 +148,12 @@ class NeuralNetworkPotential(nn.Module):
             p.requires_grad for p in self.parameters())
 
     def _check_layout(self, inputs, train: bool) -> None:
+        if properties.pair_mesh in inputs and self.second_order():
+            raise SecondOrderLayoutError(
+                "parameter gradients on the pair-split flat layout: each "
+                "rank's would hold only its pairs' share; call the model "
+                "under torch.no_grad() or with frozen parameters, and train "
+                "data-parallel (parallel.DataParallelTask)")
         blocked = (properties.cell_qcol in inputs
                    or properties.cell_qidx in inputs)
         second = sorted(self.props & SECOND_ORDER)

@@ -50,6 +50,9 @@ class ColRefs:
     #: the slab path's mesh axis ("cols") or axes ("cols", "cols_y"): the
     #: sources are rows of the x- or xy-halo'd table; None: wrapped
     shard_axis: object = None
+    #: the slab path's mesh of ranks (``parallel.columns.ColumnMesh``),
+    #: whose neighbours send the halo planes; None: one rank
+    mesh: object = field(default=None, compare=False, repr=False)
     #: index tensors derived from these (e.g. the message backward's
     #: schedule), computed once per refs
     cache: dict = field(default_factory=dict, compare=False, repr=False)

@@ -10,6 +10,17 @@ On CUDA tensors ``index_add_`` runs with float atomics, so the order of a
 segment's f32 additions, and with it the last bits of the sum, can change
 from one call to the next; on the CPU it is sequential.  The flat layout
 launches no kernel of this package: these are plain PyTorch.
+
+A pair list split over a mesh of ranks (``parallel/spatial.py``) crosses
+between the replicated atom tables and the rank's share of the pairs in
+two places, each an autograd function: ``enter_pairs`` (an atom table
+taken onto the rank's pairs: identity forward, the cotangent summed over
+the ranks backward) and ``leave_pairs`` (per-atom sums of the rank's
+pairs: summed over the ranks forward, identity backward); each is the
+other's backward.  Every replicated tensor then holds its true cotangent
+on every rank.  ``pair_take`` and ``pair_sum`` are ``take`` and
+``segment_sum`` through them, for every module that reads the pair list
+itself (ZBL, Coulomb, Ewald's real-space sum, ``Strain``).
 """
 from __future__ import annotations
 
@@ -105,3 +116,56 @@ def gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     fill = torch.nan if x.is_floating_point() else 0
     ok = ok.reshape(ok.shape + (1,) * (x.ndim - 1))
     return torch.where(ok, rows, torch.full_like(rows, fill))
+
+
+class _EnterPairs(torch.autograd.Function):
+    """Identity forward; the cotangent summed over the mesh's ranks
+    (``_LeavePairs``, so that a double backward keeps the ranks' terms)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _LeavePairs.apply(g, ctx.mesh), None
+
+
+class _LeavePairs(torch.autograd.Function):
+    """The sum over the mesh's ranks forward; identity backward (through
+    ``_EnterPairs``, for a double backward)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return mesh.all_reduce(x.contiguous())
+
+    @staticmethod
+    def backward(ctx, g):
+        return _EnterPairs.apply(g, ctx.mesh), None
+
+
+def enter_pairs(x: torch.Tensor, mesh) -> torch.Tensor:
+    """An atom table (equal on every rank) as the input of the rank's
+    pairs (see the module's docstring); ``x`` where ``mesh`` is None."""
+    return x if mesh is None else _EnterPairs.apply(x, mesh)
+
+
+def leave_pairs(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Per-atom sums of the rank's pairs summed over the ranks; ``x`` where
+    ``mesh`` is None."""
+    return x if mesh is None else _LeavePairs.apply(x, mesh)
+
+
+def pair_take(x: torch.Tensor, idx: torch.Tensor, mesh) -> torch.Tensor:
+    """``take`` of an atom (or molecule) table onto the pairs, through
+    ``enter_pairs``."""
+    return take(enter_pairs(x, mesh), idx)
+
+
+def pair_sum(x: torch.Tensor, idx: torch.Tensor, num_segments: int,
+             mesh) -> torch.Tensor:
+    """``segment_sum`` of per-pair values into atoms, through
+    ``leave_pairs``."""
+    return leave_pairs(segment_sum(x, idx, num_segments), mesh)

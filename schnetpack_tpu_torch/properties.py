@@ -95,6 +95,12 @@ cell_oh: Final[str] = "_cell_oh"
 #: marker (any array): inputs are LOCAL slabs of a shard_map run over the
 #: "cols" mesh axis; column ops then halo-exchange x-boundary planes
 cell_shard: Final[str] = "_cell_shard"
+#: the slab's mesh of ranks (``parallel.columns.ColumnMesh``): the halo
+#: planes come from the neighbouring ranks (absent: one rank, the wrap)
+cell_mesh: Final[str] = "_cell_mesh"
+#: the mesh whose ranks split the flat pair list (``parallel/spatial.py``):
+#: each rank holds its share of the pairs, every atom array whole
+pair_mesh: Final[str] = "_pair_mesh"
 #: column-layout per-edge displacement vectors [nx, ny, 9, Kcol, 3]
 col_rij: Final[str] = "_col_Rij"
 #: the forward's column-layout refs (``ops.colblock.ColRefs``), built once

@@ -45,15 +45,19 @@ class ModelCheckpoint:
 
     def __init__(self, dirpath: str, monitor: str = "val_loss",
                  mode: str = "min", model_path: Optional[str] = None,
-                 save_last: bool = True):
+                 save_last: bool = True, writes: bool = True):
         self.dirpath = dirpath
         self.monitor = monitor
         self.mode = mode
         self.model_path = model_path or os.path.join(dirpath,
                                                      "best_inference_model")
         self.save_last = save_last
+        #: False on the ranks of a data-parallel run but the first: they
+        #: track the best metric and read checkpoints, and write nothing
+        self.writes = writes
         self.best: Optional[float] = None
-        os.makedirs(dirpath, exist_ok=True)
+        if writes:
+            os.makedirs(dirpath, exist_ok=True)
 
     def _is_better(self, v: float) -> bool:
         if self.best is None:
@@ -62,13 +66,14 @@ class ModelCheckpoint:
 
     def on_validation_end(self, task, state, metrics: Dict[str, float],
                           extra: Optional[Dict] = None):
-        if self.save_last:
+        if self.save_last and self.writes:
             self.save_checkpoint(task, state, "last.ckpt", extra)
         v = metrics.get(self.monitor)
         if v is not None and self._is_better(v):
             self.best = v
-            self.save_checkpoint(task, state, "best.ckpt", extra)
-            self.export(task, state)
+            if self.writes:
+                self.save_checkpoint(task, state, "best.ckpt", extra)
+                self.export(task, state)
         return self.best
 
     def export(self, task, state) -> None:

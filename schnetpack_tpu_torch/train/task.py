@@ -290,13 +290,21 @@ class AtomisticTask:
         return loss, out, {n: torch.zeros_like(state.params[n]) if g is None
                            else g for n, g in zip(names, grads)}
 
-    def train_step(self, state: TrainState, batch) -> Tuple[TrainState, Dict]:
+    def train_step(self, state: TrainState, batch,
+                   reduce: Optional[Callable] = None
+                   ) -> Tuple[TrainState, Dict]:
         """One update of the state's parameters in place on one batch; the
-        metric sums stay on the device."""
+        metric sums stay on the device.  ``reduce(grads, metrics) ->
+        (grads, metrics)`` sits between the gradient and the update, where
+        given: the data-parallel step's all-reduce
+        (``parallel/data_parallel.py``), so that one rank and many share
+        the update."""
         batch = as_tensors(batch, self.device)
         loss, out, grads = self.gradients(state, batch)
         with torch.no_grad():
             metrics = self._metrics(loss, out, batch, "train")
+            if reduce is not None:
+                grads, metrics = reduce(grads, metrics)
             self.apply_gradients(state, grads)
         return state, metrics
 

@@ -1,8 +1,8 @@
 """PyTorch port, import isolation: importing every module of
 ``schnetpack_tpu_torch`` (the data pipeline, transforms, training, datasets,
-CLIs, interfaces, deploy and the ORCA calculator included) loads neither
-jax, flax, optax nor ``schnetpack_tpu``,
-and ``chip_smoke.py`` imports none of them."""
+CLIs, interfaces, deploy, the ORCA calculator and the multi-rank modules
+included) loads neither jax, flax, optax nor ``schnetpack_tpu``, nor do
+the tests' rank workers, and ``chip_smoke.py`` imports none of them."""
 import ast
 import os
 import subprocess
@@ -30,10 +30,28 @@ def test_every_module_of_the_port_leaves_jax_out():
         "'md.cli', 'convert', 'interfaces.ase_interface', "
         "'interfaces.batchwise', 'interfaces.lammps.server', "
         "'interfaces.torch_import', 'deploy', 'utils.compatibility', "
-        "'md.parsers.orca_parser', 'md.calculators.orca')]\n"
+        "'md.parsers.orca_parser', 'md.calculators.orca', "
+        "'parallel.mesh', 'parallel.data_parallel', 'parallel.spatial', "
+        "'datasets.misc')]\n"
         "print(len(names), bad, [n for n in need if n not in names])\n"
         "sys.exit(bool(bad) or any(n not in names for n in need))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_the_rank_workers_leave_jax_out():
+    """A spawned rank imports ``tests/torch_parallel_workers.py`` by name:
+    it loads none of jax, flax, optax and ``schnetpack_tpu``."""
+    code = (
+        "import sys, torch_parallel_workers\n"
+        f"bad = [m for m in sys.modules if any(m == f or m.startswith(f + "
+        f"'.') for f in {FORBIDDEN!r})]\n"
+        "print(bad)\n"
+        "sys.exit(bool(bad))\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [ROOT, os.path.join(ROOT, "tests")]))
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
 

@@ -41,7 +41,7 @@ from schnetpack_tpu_torch.ops.cellblock import build_column_layout
 from schnetpack_tpu_torch.ops.colblock import ColRefs
 from schnetpack_tpu_torch.ops.colblock_shard import COLS_AXIS, COLS_AXIS_Y
 from schnetpack_tpu_torch.parallel import (
-    SpatialColumnSimulator, column_inputs, column_noise, make_column_mesh,
+    ColumnMesh, MeshError, SpatialColumnSimulator, column_inputs, column_noise, make_column_mesh,
     make_sharded_column_chunk, make_sharded_column_eval,
     make_sharded_column_md, make_sharded_column_rpmd,
 )
@@ -259,10 +259,26 @@ def test_sharded_column_eval_matches_jax(grid, two_d):
 
 
 def test_multi_card_mesh_raises():
-    with pytest.raises(NotImplementedError, match="item 9"):
+    """A mesh that the cards or the grid cannot hold raises ``MeshError``
+    before any rank communicates: NCCL with more ranks than visible cards,
+    several ranks without a joined group, and a column grid whose nx (ny)
+    is not a multiple of px (py)."""
+    n_cards = torch.cuda.device_count()
+    with pytest.raises(MeshError, match="visible cards"):
+        make_column_mesh(n_cards + 1, device="cuda")
+    with pytest.raises(MeshError, match="joined process group"):
         make_column_mesh(2, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        make_column_mesh(2, dims=(2, 1), device="cpu")
+    with pytest.raises(MeshError, match="hold 2 ranks"):
+        make_column_mesh(3, dims=(2, 1), device="cpu")
+    R, Z, cell = _system()
+    lay = build_column_layout(R, CUTOFF, cell, np.ones(3, bool),
+                              dims=(3, 4, 1))
+    for dims in [(2,), (1, 3)]:
+        # the mesh of rank 0 as a joined group would make it
+        mesh = ColumnMesh(None, dims, (COLS_AXIS, COLS_AXIS_Y)[:len(dims)],
+                          torch.device("cpu"))
+        with pytest.raises(MeshError, match="multiple of px and ny of py"):
+            column_inputs(lay, R, Z, mesh=mesh)
 
 
 def test_spatial_simulator_two_nve_chunks_match_jax():

@@ -25,6 +25,7 @@ so loading goes through the stub finder:
   parameters to write into: a reference-side fault, ROADMAP Queue 3).
 """
 import copy
+import inspect
 import sys
 import types
 
@@ -275,6 +276,21 @@ def test_stub_finders_in_either_order(pickles, first):
         np.testing.assert_array_equal(sd[k], jsd[k], err_msg=k)
     _same_info(info, jinfo)
     assert info["representation"] == "PaiNN" and info["n_interactions"] == 2
+
+
+def test_the_port_stubs_answer_no_dunder_attribute(pickles):
+    """The stub modules that the port's finder leaves in ``sys.modules``
+    have no ``__file__`` (a class in its place broke ``inspect.getmodule``,
+    which walks every module and which torch's own imports call)."""
+    _forget_stubs()
+    try:
+        timport.load_torch_model(pickles["PaiNN"])
+        stubs = [m for k, m in sys.modules.items()
+                 if k == "schnetpack" or k.startswith("schnetpack.")]
+        assert stubs and not any(hasattr(m, "__file__") for m in stubs)
+        assert inspect.getmodule(inspect.currentframe()) is not None
+    finally:
+        _forget_stubs()
 
 
 def test_field_schnet_with_nuclear_moments(pickles):

@@ -21,6 +21,7 @@ import torch
 
 from schnetpack_tpu.cli import load_model as jax_load_model
 from schnetpack_tpu_torch import cli
+from schnetpack_tpu_torch.parallel import MeshError
 from schnetpack_tpu_torch import properties as TP
 from schnetpack_tpu_torch.train import as_tensors
 
@@ -138,10 +139,16 @@ def test_spktrain_spkpredict_and_the_run_directory(tmp_path, dense):
 
 
 def test_spktrain_refuses_several_devices_and_a_missing_card(tmp_path):
+    """``trainer.devices`` beyond the visible cards (NCCL takes a card per
+    rank) raises ``MeshError`` before any rank starts; ``device=cuda``
+    without a card raises."""
     cfg = cli.default_composer().compose("train", _overrides(
-        tmp_path, False) + ["+trainer.devices=2"])
-    with pytest.raises(NotImplementedError, match="item 9"):
+        tmp_path, False) + [
+            f"+trainer.devices={max(2, torch.cuda.device_count() + 1)}",
+            "device=cuda"])
+    with pytest.raises(MeshError, match="visible cards"):
         cli.train(cfg)
+    assert not os.path.exists(tmp_path / "runs")
     if not torch.cuda.is_available():
         cfg = cli.default_composer().compose("train", _overrides(
             tmp_path, False) + ["device=cuda"])
