@@ -343,13 +343,30 @@ Phases (any failure exits non-zero before the last line is printed):
    of one rank on the mean of both batches' gradients (deterministic
    algorithms on both sides); ms/step per rank and the exchange's share
    beside one rank's;
-17. print the kernel table (every row and sub-row with ``ms`` and
+17. every width (``widths_phase``): (a) the general instances of the
+   message (K1/K2, K6/K7, K15 at (F, B) = (30, 50, 130, 288, 512; 20) and
+   (30; 31, 50), plain and wgrad; K1/K2 and K6/K7 mixed and bf16 at F = 30
+   and 288), mixing (K3/K4 plain and wgrad at F = 30-512 on 37 and 12,800
+   rows) and cfconv kernels (K9/K10 plain and wgrad at F = 30-512 and B =
+   20, and F = 64 and 128 at B = 50 and 300) against their twins on a
+   2,048-atom box, the backwards and gFW held to the float64 twins
+   (``held_compare``); the general instances' rows at F = 30 on the bench
+   box with F = 512 sub-rows; (b) PaiNN-30x3 (full, hybrid) and SchNet-30x3
+   on the column layout against ``port_ref_{painn,schnet}_w30_argon.npz``
+   at phase 4's gates, then 300 NVE steps each (drift <= WIDTH_DRIFT_TOL,
+   the general instances' launches a step); 20 steps each on the row-9,
+   27-cell and slab paths, of PaiNN-384x1 (K3's general instance) and in
+   the mixed and bf16 modes; one parameter gradient of PaiNN-30x3 (full,
+   slab) and SchNet-30x3 (the general wgrad instances); (c) SchNet-64x3 at
+   300 Gaussians against ``port_ref_schnet_b300_argon.npz``;
+18. print the kernel table (every row and sub-row with ``ms`` and
    ``device_ms``, ``library_ms`` and ``library_device_ms``) and the card
    as JSON, then the result line.
 
 The parameter gradients of phase 4 run before the device rebuild of phase
 5, and the launches of row 12's, the mixing's and the cfconv's wgrad
-instances in the table are those of phase 4's evaluations.
+instances in the table are those of phase 4's evaluations (phase 17's
+general wgrad instances: its gradients').
 """
 import argparse
 import json
@@ -732,19 +749,21 @@ def cuda_ms(fn, reps=10):
 TRACES = {"taken": 0, "retaken": 0}
 
 
-def device_ms(fn, reps=10, tries=5):
+def device_ms(fn, reps=10, tries=8):
     """Mean device time of ``fn``: the durations of the kernels (and
     copies) that ``reps`` back-to-back calls ran on the card, summed from
     ``torch.profiler``'s CUDA trace, over ``reps``.  A first step of
     ``reps`` calls warms the tracer up and is dropped, and the measured
     calls start a few ms into their step (the trace can miss the first
     kernels of a window); a trace in which some kernel did not run a
-    multiple of ``reps`` times lost kernels and is taken again.  The
-    step's own range on the device (``ProfilerStep``) is no kernel."""
+    multiple of ``reps`` times lost kernels and is taken again, each try
+    waiting twice as long before its calls (5 ms, then 10, ...: phase 17's
+    sweep once lost a kernel five times at 5 ms).  The step's own range
+    on the device (``ProfilerStep``) is no kernel."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     cuda = torch.autograd.DeviceType.CUDA
-    for _ in range(tries):
+    for attempt in range(tries):
         TRACES["taken"] += 1
         traced = []
         with profile(activities=[ProfilerActivity.CPU,
@@ -756,7 +775,7 @@ def device_ms(fn, reps=10, tries=5):
                          if e.device_type == cuda
                          and not e.key.startswith("ProfilerStep"))) as prof:
             for _ in range(2):
-                time.sleep(0.005)
+                time.sleep(0.005 * 2 ** attempt)
                 for _ in range(reps):
                     fn()
                 torch.cuda.synchronize()
@@ -1009,9 +1028,14 @@ def check_kernels(cases):
     rows = []
     for c in cases:
         name, kern, plain = c["name"], c["kern"], c["plain"]
-        got, want = kern(), (c.get("ref") or plain)()
-        err = compare(name, got, want, c.get("norm_from"),
-                      c.get("exact", False), c.get("bound"))
+        got = kern()
+        if c.get("ref64"):   # phase 17: the float64 twin, ``held_compare``
+            want = c["ref64"]()
+            err = held_compare(name, got, plain(), want, c.get("norm_from"))
+        else:
+            want = (c.get("ref") or plain)()
+            err = compare(name, got, want, c.get("norm_from"),
+                          c.get("exact", False), c.get("bound"))
         effect = ""
         if c.get("control"):
             ratios = mode_effect(name + c.get("tag", ""), got, want,
@@ -1867,16 +1891,18 @@ def grad_phase(dev, launches):
     return total
 
 
-def slab_md_phase(pos, cell, steps, seed, dev, launches):
+def slab_md_phase(pos, cell, steps, seed, dev, launches, model=None,
+                  per_step=None, drift_tol=DRIFT_TOL, tag=""):
     """NVE on the slab path through ``SpatialColumnSimulator``; returns
     (launch counts, ms/step).  The counts are set to 0 before each chunk
     and read after it; the total energy is evaluated at the chunk
     boundaries, outside them.  The ms/step is the chunks' CUDA-event time
-    over the steps, without the host re-bins (printed apart)."""
+    over the steps, without the host re-bins (printed apart).  ``model``,
+    ``per_step``: as ``md_phase``'s."""
     from schnetpack_tpu_torch import properties as P
     from schnetpack_tpu_torch.parallel import make_sharded_column_eval
 
-    sim = slab_simulator(pos, cell, dev)
+    sim = slab_simulator(pos, cell, dev, *(model or ()))
     slab_momenta(sim, seed)
     A = len(pos)
 
@@ -1906,7 +1932,7 @@ def slab_md_phase(pos, cell, steps, seed, dev, launches):
     T = temperature(sim.p)
     drift = float(np.abs(np.asarray(E_tot) - E_tot[0]).max()) / A
     lay = sim.layout()
-    print(f"md (painn_slab): {n_chunks * SLAB_CHUNK} steps, {A} atoms, "
+    print(f"md (painn_slab{tag}): {n_chunks * SLAB_CHUNK} steps, {A} atoms, "
           f"dims={lay.dims[:3]} Ktot={lay.qcol.shape[2]}, ms/step (CUDA "
           f"events, chunks only) {ms_step:.3f}, {A / (ms_step * 1e-3):.4g} "
           f"atom-steps/s, host re-bins {sim.rebuilds} in "
@@ -1915,10 +1941,10 @@ def slab_md_phase(pos, cell, steps, seed, dev, launches):
           flush=True)
     assert np.isfinite(sim.R).all(), "non-finite positions"
     assert 0.0 < T < 300.0, f"temperature {T} K"
-    assert drift <= DRIFT_TOL, f"energy drift {drift} eV/atom"
+    assert drift <= drift_tol, f"painn_slab{tag}: energy drift {drift}"
     evals = n_chunks * (SLAB_CHUNK + 1)
     for k, v in counts.items():
-        want = PER_STEP["painn_slab"].get(k, 0) * evals
+        want = (per_step or PER_STEP["painn_slab"]).get(k, 0) * evals
         assert v == want, f"painn_slab: {k} launched {v} times, want {want}"
     return counts, ms_step
 
@@ -2031,19 +2057,22 @@ def rebuild_phase(seed, dev):
 
 
 def md_phase(path, pos, cell, steps, seed, dev, launches, precision=None,
-             keep=None):
+             keep=None, model=None, per_step=None, drift_tol=DRIFT_TOL,
+             tag=""):
     """NVE run on one path of ``PATHS`` (PaiNN's in the feature mode
     ``precision``, phase 13); returns (launch counts, ms/step), and puts
     the simulator in ``keep`` where that is a dict.  The ms/step is the
     CUDA-event time of the run over the steps, host rebuilds included; for
     painn_cell, whose rebuilds all run on the host, it is also printed
-    with their wall time subtracted."""
+    with their wall time subtracted.  ``model`` (pot, params) replaces the
+    path's trained model, ``per_step`` its launches a step (phase 17's
+    widths)."""
     from schnetpack_tpu_torch.md import (
         MaxwellBoltzmannInit, Simulator, VelocityVerlet, load_molecules,
     )
     from schnetpack_tpu_torch.units import md_units
 
-    pot, params = potential(path)
+    pot, params = model or potential(path)
     calc = calculator(pot, params, layout=layout_of(path),
                       precision=precision)
     nbl = calc.nbl
@@ -2055,11 +2084,12 @@ def md_phase(path, pos, cell, steps, seed, dev, launches, precision=None,
         keep["sim"] = sim
     if precision is not None:
         path = f"{path}, {precision}"
+    name = path + tag
     sim.simulate(100, chunk_size=100)            # warm-up (equilibration)
     nbl.retighten(sim.system, jitter_fraction=0.05,
                   bucket_headroom=1.0 / 24.0)
     sim.calc_state = nbl.state()
-    print(f"md ({path}) after retighten: {layout_str(sim.calc_state)}",
+    print(f"md ({name}) after retighten: {layout_str(sim.calc_state)}",
           flush=True)
     builds0 = (nbl.n_builds, nbl.n_device_builds, nbl.n_device_overflows)
     build_s0 = nbl.build_seconds
@@ -2091,7 +2121,7 @@ def md_phase(path, pos, cell, steps, seed, dev, launches, precision=None,
     E_kin = 1.5 * A * md_units().kB * T_log            # MD energy units
     E_tot = (E_pot + E_kin) / calc.energy_conversion   # eV
     drift = float(np.abs(E_tot - E_tot[0]).max()) / A
-    print(f"md ({path}): {steps} steps, {A} atoms, ms/step (CUDA events) "
+    print(f"md ({name}): {steps} steps, {A} atoms, ms/step (CUDA events) "
           f"{ms_step:.3f}, wall {1e3 * wall / steps:.3f} ms/step, "
           f"{A / (ms_step * 1e-3):.4g} atom-steps/s, T_end={T:.2f} K, "
           f"max |E_tot - E_tot(0)| = {drift:.3e} eV/atom, rebuilds: "
@@ -2100,9 +2130,9 @@ def md_phase(path, pos, cell, steps, seed, dev, launches, precision=None,
           f"{ms_step - 1e3 * host_s / steps:.3f}", flush=True)
     assert np.isfinite(R).all(), "non-finite positions"
     assert 0.0 < T < 300.0, f"temperature {T} K"
-    assert drift <= DRIFT_TOL, f"energy drift {drift} eV/atom"
-    check_launches(path, counts, mode_counts(
-        PER_STEP[path.split(",")[0]], precision), steps)
+    assert drift <= drift_tol, f"{name}: energy drift {drift} eV/atom"
+    check_launches(name, counts, mode_counts(
+        per_step or PER_STEP[path.split(",")[0]], precision), steps)
     if layout_of(path) == "atom":
         assert device == 0, f"{device} device rebuilds on the atom layout"
     else:
@@ -2116,8 +2146,14 @@ def mode_counts(per_step, precision):
     """``per_step`` with the message kernels' counters of the feature mode
     ``precision`` (None, "f32", "mixed" or "bf16")."""
     suffix = {"mixed": "_mixed", "bf16": "_bf16"}.get(precision, "")
-    return {(k + suffix if k in MODE_KERNELS else k): v
-            for k, v in per_step.items()}
+
+    def name(k):
+        if k in MODE_KERNELS:
+            return k + suffix
+        if k.endswith("_gen") and k[:-4] in MODE_KERNELS:  # a general one
+            return k + suffix
+        return k
+    return {name(k): v for k, v in per_step.items()}
 
 
 def reset(launches):
@@ -5377,6 +5413,635 @@ def parallel_phase(pos, cell, seed, dev, launches, smi):
     return counts
 
 
+# --------------------------------------------------- phase 17: every width
+#: the JAX fixtures of phase 17 (``scripts/make_port_reference_widths.py``:
+#: forces, energy and the models' own seeded init parameters on the bench
+#: box): PaiNN-30x3 and SchNet-30x3 (SchNetPack 2's tutorials' width, 20
+#: Gaussians) and SchNet-64x3 with the SchNet paper's 300 Gaussians
+WIDTH_REFERENCE = {
+    name: os.path.join(ROOT, "tests", "data", f"port_ref_{name}_argon.npz")
+    for name in ("painn_w30", "schnet_w30", "schnet_b300")}
+#: (a) the sweep against the twins: the message family's (F, B), plain
+#: and wgrad; the reduced modes' F (B = 20); the mixing's F on its row
+#: counts; the cfconv's (F, B)
+WIDTH_MSG = ((30, 20), (50, 20), (130, 20), (288, 20), (512, 20), (30, 31),
+             (30, 50))
+WIDTH_REDUCED = (30, 288)
+WIDTH_MIX = (30, 50, 130, 288, 384, 512)
+WIDTH_MIX_ROWS = (37, 12_800)
+WIDTH_CF = ((30, 20), (96, 20), (192, 20), (256, 20), (512, 20), (64, 50),
+            (128, 50), (64, 300), (128, 300))
+#: the sweep's box: the bench box's layout at 2,048 atoms
+WIDTH_BOX = 2_000
+#: the widest swept F, whose general instances are timed beside F = 30
+WIDTH_WIDE = 512
+WIDTH_STEPS = 300
+#: steps of the runs that drive the other layouts' and modes' general
+#: instances on their main paths (launches only)
+WIDTH_SHORT = 20
+#: (b)'s NVE drift gate, eV/atom, set before the card ran from the CPU
+#: twins' 300 steps of the same weights, start state and step on a 2,048-
+#: atom box (PaiNN-30x3 full 1.5e-8, hybrid 3.0e-8; PERF.md, phase 17):
+#: ~30x above them and the f32 energy's noise (~1e-8 an atom)
+WIDTH_DRIFT_TOL = 1e-6
+#: the message, mixing and cfconv counters the general instances take at
+#: widths the tuned ones do not (``gen_per_step``)
+GEN_FAMILIES = ("msg_", "cell_msg_", "mix_", "cf_")
+#: the width of the short run whose PaiNN drives K3's general instance
+#: (the tuned K3 takes F <= 352), one interaction of it
+WIDTH_K3 = 384
+
+
+def width_tree(name):
+    """(flax tree, F, B) of a phase-17 fixture: its ``param.<path>``
+    arrays as the nested parameter tree."""
+    ref = np.load(WIDTH_REFERENCE[name])
+    tree = {}
+    for k in ref.files:
+        if k.startswith("param."):
+            *path, leaf = k.split(".")[1:]
+            node = tree
+            for p in path:
+                node = node.setdefault(p, {})
+            node[leaf] = np.asarray(ref[k])
+    return tree, int(ref["n_atom_basis"]), int(ref["n_rbf"])
+
+
+def width_potential(path, name="painn_w30", forces=True):
+    """The model of fixture ``name`` on an MD path and its parameters:
+    PaiNN-FxB (from "painn_w30") in the message form "full" or "hybrid",
+    on the row-9 path with its Gaussians trainable ("painn_trbf"), on the
+    27-cell layout ("painn_cell") or the slab path ("painn_slab"), or
+    SchNet-FxB ("schnet")."""
+    from schnetpack_tpu_torch.atomistic import (
+        Atomwise, Forces, PairwiseDistances,
+    )
+    from schnetpack_tpu_torch.convert import (
+        params_from_jax, with_radial_params,
+    )
+    from schnetpack_tpu_torch.model import NeuralNetworkPotential
+    from schnetpack_tpu_torch.nn import GaussianRBF
+    from schnetpack_tpu_torch.ops.radial import gaussian_rbf_params
+    from schnetpack_tpu_torch.representation import PaiNN, SchNet
+
+    tree, F, B = width_tree(name)
+    inputs = []
+    if path == "schnet":
+        rep = SchNet(n_atom_basis=F, n_interactions=3, n_rbf=B,
+                     cutoff=CUTOFF)
+    elif path == "painn_trbf":
+        rep = PaiNN(n_atom_basis=F, n_interactions=3, n_rbf=B,
+                    cutoff=CUTOFF,
+                    radial_basis=GaussianRBF(B, CUTOFF, trainable=True))
+        inputs = [PairwiseDistances()]
+        tree = with_radial_params(tree, *(np.asarray(a, np.float32) for a in
+                                          gaussian_rbf_params(B, CUTOFF)))
+    elif path in ("painn_cell", "painn_slab"):
+        rep = PaiNN(n_atom_basis=F, n_interactions=3, n_rbf=B,
+                    cutoff=CUTOFF)
+        inputs = [PairwiseDistances()]
+    else:
+        rep = PaiNN(n_atom_basis=F, n_interactions=3, n_rbf=B,
+                    cutoff=CUTOFF, fuse=path)
+    heads = [Atomwise(n_in=F)] + ([Forces()] if forces else [])
+    pot = NeuralNetworkPotential(rep, heads, input_modules=inputs)
+    return pot, params_from_jax(tree)
+
+
+def wide_potential(seed):
+    """PaiNN-WIDTH_K3 x 1 ("full", 20 Gaussians) with the port's own init
+    from ``seed`` and its parameters."""
+    from schnetpack_tpu_torch.atomistic import Atomwise, Forces
+    from schnetpack_tpu_torch.model import NeuralNetworkPotential
+    from schnetpack_tpu_torch.representation import PaiNN
+
+    torch.manual_seed(seed)
+    pot = NeuralNetworkPotential(
+        PaiNN(n_atom_basis=WIDTH_K3, n_interactions=1, n_rbf=20,
+              cutoff=CUTOFF, fuse="full"),
+        [Atomwise(n_in=WIDTH_K3), Forces()])
+    return pot, {k: v.detach().clone() for k, v in pot.state_dict().items()}
+
+
+def gen_per_step(per_step, F, B):
+    """A path's launches a step at width F and basis B: the counters of
+    the message, mixing and cfconv kernels under their general instances'
+    names where the tuned ones do not take (F, B) (K3 takes F <= 352,
+    padded; K5, K8 and the gathers any)."""
+    from schnetpack_tpu_torch.ops import colblock_message as msg
+    from schnetpack_tpu_torch.ops import painn_mixing as mix
+    from schnetpack_tpu_torch.ops import schnet_columns as cf
+
+    def tuned(k):
+        if k.startswith("mix_"):
+            return mix.tuned_width(F, bwd=k.startswith("mix_bwd"))
+        if k.startswith("cf_"):
+            return cf.tuned_width(F, B)
+        return msg.tuned_width(F, B, "wgrad" in k)
+
+    return {(msg.gen_name(k) if k.startswith(GEN_FAMILIES) and not tuned(k)
+             else k): v for k, v in per_step.items()}
+
+
+def held_compare(name, got, w32, w64, norm_from=None):
+    """Each output against the float64 twin at phase 3's tolerances, or,
+    where the f32 twin itself misses them on these inputs, within twice
+    its miss (two f32 summation orders); from output ``norm_from`` on
+    normwise; returns the max abs difference from the float64 twin."""
+    err = 0.0
+    for i, (g, a, w) in enumerate(zip(got, w32, w64)):
+        if norm_from is not None and i >= norm_from:
+            d = float((g.double() - w.double()).norm())
+            assert d <= NORM_RTOL * float(w.double().norm()), (
+                f"{name}: output {i} off by {d} (norm {w.norm()})")
+        else:
+            miss = float((g.double() - w.double()).abs().max())
+            own = float((a.double() - w.double()).abs().max())
+            if own <= ATOL:
+                torch.testing.assert_close(g, w, rtol=RTOL, atol=ATOL,
+                                           msg=lambda m: f"{name}: {m}")
+            else:
+                assert miss <= 2 * own, (
+                    f"{name}: output {i} off by {miss:.3e}, the f32 twin "
+                    f"by {own:.3e}")
+        err = max(err, float((g.double() - w.double()).abs().max()))
+    return err
+
+
+def width_sweep(seed, dev):
+    """Phase 17 (a): every general instance against its twin at the swept
+    shapes, on the column layout of the WIDTH_BOX box (random features,
+    weights and cotangents from ``seed``) and, for K3/K4, on 37 and
+    12,800 random rows; the backwards and gFW held to the float64 twins.
+    Returns the reduced instances' sub-rows by row name (under the mode at
+    F = 30, under "F288_<mode>" at 288) and the box's system."""
+    from schnetpack_tpu_torch.md import load_molecules
+    from schnetpack_tpu_torch.ops import colblock_geo as geo_op
+    from schnetpack_tpu_torch.ops import colblock_message as msg
+    from schnetpack_tpu_torch.ops import painn_mixing as mix
+    from schnetpack_tpu_torch.ops import schnet_columns as cf
+    from schnetpack_tpu_torch.ops.radial import gaussian_rbf_table
+
+    pos, cell = fcc_box(WIDTH_BOX)
+    system = load_molecules([molecule(pos, cell)], device=dev)
+    R, coff, refs = run_inputs(calculator(*width_potential("hybrid")),
+                               system)
+    Ap = R.shape[0]
+    g = torch.Generator().manual_seed(seed + 17)
+
+    def rnd(*shape, scale=0.3):
+        return (torch.randn(shape, generator=g) * scale).to(dev)
+
+    checked = 0
+    for F, B in WIDTH_MSG:
+        cw = gaussian_rbf_table(B, CUTOFF, device=dev)
+        x, mu, FW = rnd(Ap, 3 * F), rnd(Ap, 3 * F), rnd(B + 1, 3 * F)
+        cots = (rnd(Ap, F, scale=1.0), rnd(Ap, 3 * F, scale=1.0))
+        full = (x, mu, R, FW, coff, cw, refs, CUTOFF)
+        gargs = (R, coff, refs, cw, CUTOFF)
+        geo = geo_op.geo_fwd_kernel(*gargs)
+        geo4 = geo_op.geo_fwd_kernel(*gargs, with_d=False)
+        hyb = (x, mu, geo, FW, cw, refs, CUTOFF)
+        src = (x, mu, geo4, FW, refs)
+        tag = f"F={F} B={B}"
+        for kern, plain, args in [
+                (msg.msg_fwd_kernel, msg.msg_fwd_plain, full),
+                (msg.msg_fwd_geo_kernel, msg.msg_fwd_geo_plain,
+                 (x, mu, geo, FW, refs))]:
+            held_compare(f"{kern.__name__} {tag}", kern(*args), plain(*args),
+                         in_f64(plain, *args))
+            checked += 1
+        for kern, plain, args in [
+                (msg.msg_bwd_kernel, msg.msg_bwd_plain, full),
+                (msg.msg_bwd_geores_kernel, msg.msg_bwd_geores_plain, hyb),
+                (msg.msg_bwd_src_kernel, msg.msg_bwd_src_plain, src)]:
+            w32, w64 = plain(*args, *cots), in_f64(plain, *args, *cots)
+            held_compare(f"{kern.__name__} {tag}", kern(*args, *cots),
+                         w32[:3], w64[:3])
+            held_compare(f"{kern.__name__} wgrad {tag}",
+                         kern(*args, *cots, wgrad=True), w32, w64,
+                         norm_from=3)
+            checked += 2
+        del x, mu, FW, cots, geo, geo4, full, hyb, src
+    print(f"widths (a): message family at (F, B) {WIDTH_MSG}, plain and "
+          f"wgrad, on {Ap} rows: {checked} instances match", flush=True)
+    reduced = {}
+    cw = gaussian_rbf_table(20, CUTOFF, device=dev)
+    for F in WIDTH_REDUCED:
+        x, mu, FW = rnd(Ap, 3 * F), rnd(Ap, 3 * F), rnd(21, 3 * F)
+        cots = (rnd(Ap, F, scale=1.0), rnd(Ap, 3 * F, scale=1.0))
+        margs = (x, mu, R, FW, coff, cw, refs, CUTOFF)
+        geo = geo_op.geo_fwd_kernel(R, coff, refs, cw, CUTOFF)
+        ni = live_edges(refs, geo[:, :, 24] < CUTOFF)
+        ne = real_edges(refs)
+        flops = ni * (6 * F * 21 + 16 * F)
+        for precision in REDUCED:
+            for r in reduced_kernel_rows(
+                    precision, margs, (x, mu, geo, FW, refs),
+                    (x, mu, geo, FW, cw, refs, CUTOFF, *cots), geo, cots,
+                    (refs.qcol, refs.dcol), flops, 2 * flops,
+                    ni * 6 * F * 21, ne, 20):
+                key = precision if F == 30 else f"F{F}_{precision}"
+                reduced.setdefault(msg.gen_name(r.pop("name")), {})[key] = r
+    for F in WIDTH_MIX:
+        for A in WIDTH_MIX_ROWS:
+            w = 0.2 * (32.0 / F) ** 0.5
+            ins = (rnd(A, F, scale=1.0), rnd(A, 3 * F, scale=1.0),
+                   rnd(A, F, scale=0.5), rnd(A, 3 * F, scale=0.5),
+                   rnd(F, 2 * F, scale=w), rnd(2 * F, F, scale=w),
+                   rnd(F, scale=0.1), rnd(F, 3 * F, scale=w),
+                   rnd(3 * F, scale=0.1), 1e-8, "ssp")
+            cots = (rnd(A, F, scale=1.0), rnd(A, 3 * F, scale=1.0))
+            tag = f"F={F} A={A}"
+            held_compare(f"mix_fwd {tag}", mix.mix_fwd_kernel(*ins),
+                         mix.painn_mixing_plain(*ins),
+                         in_f64(mix.painn_mixing_plain, *ins))
+            w32 = mix.painn_mixing_bwd_plain(*ins, *cots, wgrad=True)
+            w64 = in_f64(lambda *a: mix.painn_mixing_bwd_plain(
+                *a, wgrad=True), *ins, *cots)
+            held_compare(f"mix_bwd {tag}", mix.mix_bwd_kernel(*ins, *cots),
+                         w32[:2], w64[:2])
+            held_compare(f"mix_bwd wgrad {tag}",
+                         mix.mix_bwd_kernel(*ins, *cots, wgrad=True), w32,
+                         w64, norm_from=2)
+    print(f"widths (a): K3/K4 (plain and wgrad) at F {WIDTH_MIX} on "
+          f"{WIDTH_MIX_ROWS} rows match", flush=True)
+    for F, B in WIDTH_CF:
+        cw = gaussian_rbf_table(B, CUTOFF, device=dev)
+        geo = geo_op.geo_fwd_kernel(R, coff, refs, cw, CUTOFF, with_d=False,
+                                    raw_phi=True)
+        w1, w2 = (6.0 / (B + F)) ** 0.5, (3.0 / F) ** 0.5
+        args = (rnd(Ap, F, scale=1.0), geo, rnd(B, F, scale=w1),
+                rnd(F, scale=0.1), rnd(F, F, scale=w2), rnd(F, scale=0.1))
+        gc = rnd(Ap, F, scale=1.0)
+        tag = f"F={F} B={B}"
+
+        def fwd(*a):
+            return (cf.cf_fwd_plain(*a),)
+
+        held_compare(f"cf_fwd {tag}", (cf.cf_fwd_kernel(*args, refs),),
+                     fwd(*args, refs), in_f64(fwd, *args, refs))
+        w32 = cf.cf_bwd_plain(*args, refs, gc)
+        w64 = in_f64(cf.cf_bwd_plain, *args, refs, gc)
+        held_compare(f"cf_bwd {tag}", cf.cf_bwd_kernel(*args, refs, gc),
+                     w32[:2], w64[:2])
+        held_compare(f"cf_bwd wgrad {tag}",
+                     cf.cf_bwd_kernel(*args, refs, gc, wgrad=True), w32,
+                     w64, norm_from=2)
+    print(f"widths (a): K9/K10 (plain and wgrad) at (F, B) {WIDTH_CF} "
+          "match", flush=True)
+    return reduced, system
+
+
+def width_layouts(system, dev):
+    """The inputs of the general instances' rows on ``system``: the column
+    layout of PaiNN-30x3 (positions, offsets, refs, the packed geometry of
+    K6/K7, K15 and K9/K10 and the edge-major one of K20/K21) and the
+    27-cell layout's refs, basis and directions (K18/K19)."""
+    from schnetpack_tpu_torch.atomistic.distances import cell_refs
+    from schnetpack_tpu_torch.ops import colblock_geo as geo_op
+    from schnetpack_tpu_torch.ops.colblock import column_geometry
+    from schnetpack_tpu_torch.ops.radial import gaussian_rbf_table
+
+    R, coff, refs = run_inputs(calculator(*width_potential("hybrid")),
+                               system)
+    cell_calc = calculator(*width_potential("painn_cell"), layout="atom")
+    inputs = cell_calc.model_inputs(system, cell_calc.init_state(system))
+    crefs = cell_refs(inputs)
+    with torch.no_grad():
+        crbf, cdir = cell_calc.model.representation._cell_geometry(
+            cell_calc.model.input_modules[0](inputs))
+    B = 20
+    cw = gaussian_rbf_table(B, CUTOFF, device=dev)
+    gargs = (R, coff, refs, cw, CUTOFF)
+    geo = geo_op.geo_fwd_kernel(*gargs)
+    with torch.no_grad():
+        erbf, edir = column_geometry(*gargs)
+    return dict(
+        R=R, coff=coff, refs=refs, cw=cw, B=B, geo=geo,
+        geo4=geo_op.geo_fwd_kernel(*gargs, with_d=False),
+        graw=geo_op.geo_fwd_kernel(*gargs, with_d=False, raw_phi=True),
+        erbf=erbf.contiguous(), edir=edir.contiguous(), crefs=crefs,
+        crbf=crbf.contiguous(), cdir=cdir.contiguous(),
+        ne=real_edges(refs), ni=live_edges(refs, geo[:, :, B + 4] < CUTOFF),
+        cne=int((crefs.qidx >= 0).sum()),
+        cni=int(((crefs.qidx.reshape(crbf.shape[:2]) >= 0)
+                 & (crbf[..., -1] != 0)).sum()))
+
+
+def width_cases(F, L, seed, dev):
+    """The general instances' ``case``s at width F on the layouts ``L``
+    (``width_layouts``), held to their float64 twins; K3's at 384 where F
+    is 30 (its general instance serves F > 352)."""
+    from schnetpack_tpu_torch.ops import colblock_edge as edge
+    from schnetpack_tpu_torch.ops import colblock_message as msg
+    from schnetpack_tpu_torch.ops import painn_fused as pf
+    from schnetpack_tpu_torch.ops import painn_mixing as mix
+    from schnetpack_tpu_torch.ops import schnet_columns as cf
+
+    R, coff, refs, cw, B = L["R"], L["coff"], L["refs"], L["cw"], L["B"]
+    geo, crefs, crbf, cdir = L["geo"], L["crefs"], L["crbf"], L["cdir"]
+    erbf, edir = L["erbf"], L["edir"]
+    ne, ni, cne, cni = L["ne"], L["ni"], L["cne"], L["cni"]
+    Ap, CAp = R.shape[0], crbf.shape[0]
+    idx = (refs.qcol, refs.dcol)
+    g = torch.Generator().manual_seed(seed + 28 + F)
+
+    def rnd(*shape, scale=0.3):
+        return (torch.randn(shape, generator=g) * scale).to(dev)
+
+    def f64(fn, *args, n=None):
+        return lambda: in_f64(fn, *args)[:n]
+
+    x, mu, FW = rnd(Ap, 3 * F), rnd(Ap, 3 * F), rnd(B + 1, 3 * F)
+    cots = (rnd(Ap, F, scale=1.0), rnd(Ap, 3 * F, scale=1.0))
+    xmu = torch.cat([x, mu], 1)
+    cx = rnd(CAp, 6 * F)
+    ccots = (rnd(CAp, F, scale=1.0), rnd(CAp, 3 * F, scale=1.0))
+    margs = (x, mu, R, FW, coff, cw, refs, CUTOFF, *cots)
+    hargs = (x, mu, geo, FW, refs)
+    bargs = (x, mu, geo, FW, cw, refs, CUTOFF, *cots)
+    sargs = (x, mu, L["geo4"], FW, refs, *cots)
+    eargs = (xmu, erbf, edir, FW, refs, *cots)
+    cargs = (cx, crbf, cdir, FW, crefs, *ccots)
+    per_edge, gfw_edge = 6 * F * (B + 1) + 16 * F, 6 * F * (B + 1)
+    fwd, gfw = ni * per_edge, ni * gfw_edge
+
+    def bwd(name, src, replaces, kern, plain, args, inputs, flops, wflops):
+        return case(name, src, replaces, lambda: kern(*args),
+                    lambda: plain(*args)[:3], inputs, flops,
+                    wgrad={"kern": lambda: kern(*args, wgrad=True),
+                           "plain": lambda: plain(*args),
+                           "ref64": f64(plain, *args), "flops": wflops,
+                           "norm_from": 3}) | {"ref64": f64(plain, *args,
+                                                            n=3)}
+
+    def fwd_case(name, src, replaces, kern, plain, args, inputs, flops):
+        return case(name, src, replaces, lambda: kern(*args),
+                    lambda: plain(*args), inputs, flops) | {
+            "ref64": f64(plain, *args)}
+
+    gsrc = "colblock_message_gen.cu"
+    out = [
+        fwd_case("msg_fwd_gen", gsrc, "colblock_pallas.py:1889",
+                 msg.msg_fwd_kernel, msg.msg_fwd_plain, margs[:8],
+                 (x, mu, R, FW, coff, cw, idx), fwd + ne * geo_flops(B)),
+        bwd("msg_bwd_gen", gsrc, "colblock_pallas.py:1239",
+            msg.msg_bwd_kernel, msg.msg_bwd_plain, margs,
+            (x, mu, R, FW, coff, cw, idx, *cots),
+            2 * fwd + 2 * ne * geo_flops(B),
+            2 * fwd + 2 * ne * geo_flops(B) + gfw),
+        fwd_case("msg_fwd_geo_gen", gsrc, "colblock_pallas.py:687",
+                 msg.msg_fwd_geo_kernel, msg.msg_fwd_geo_plain, hargs,
+                 (x, mu, geo, FW, idx), fwd),
+        bwd("msg_bwd_geores_gen", gsrc, "colblock_pallas.py:1570",
+            msg.msg_bwd_geores_kernel, msg.msg_bwd_geores_plain, bargs,
+            (x, mu, geo, FW, cw, idx, *cots), 2 * fwd + ne * geo_flops(B),
+            2 * fwd + ne * geo_flops(B) + gfw),
+        bwd("msg_bwd_src_gen", gsrc, "colblock_pallas.py:834",
+            msg.msg_bwd_src_kernel, msg.msg_bwd_src_plain, sargs,
+            (x, mu, L["geo4"], FW, idx, *cots), 2 * ne * per_edge,
+            2 * ne * per_edge + ne * gfw_edge),
+        fwd_case("msg_fwd_edge_gen", gsrc, "colblock_pallas.py:322",
+                 edge.msg_fwd_edge_kernel, edge.msg_fwd_edge_plain,
+                 eargs[:5], (xmu, erbf, edir, FW, idx), fwd),
+        bwd("msg_bwd_edge_gen", gsrc, "colblock_pallas.py:391",
+            edge.msg_bwd_edge_kernel, edge.msg_bwd_edge_plain, eargs,
+            (xmu, erbf, edir, FW, idx, *cots), 2 * ne * per_edge,
+            2 * ne * per_edge + ne * gfw_edge),
+        fwd_case("cell_msg_fwd_gen", gsrc, "painn_fused.py:116",
+                 pf.cell_msg_fwd_kernel, pf.cell_msg_fwd_plain, cargs[:5],
+                 (cx, crbf, cdir, FW, crefs.qidx), cni * per_edge),
+        bwd("cell_msg_bwd_gen", gsrc, "painn_fused.py:185",
+            pf.cell_msg_bwd_kernel, pf.cell_msg_bwd_plain, cargs,
+            (cx, crbf, cdir, FW, crefs.qidx, *ccots), 2 * cne * per_edge,
+            2 * cne * per_edge + cne * gfw_edge),
+    ]
+    FX = 384 if F == 30 else F
+    xargs = (rnd(Ap, FX, scale=1.0), rnd(Ap, 3 * FX), rnd(Ap, FX),
+             rnd(Ap, 3 * FX), rnd(FX, 2 * FX, scale=FX ** -0.5),
+             rnd(2 * FX, FX, scale=FX ** -0.5), rnd(FX, scale=0.1),
+             rnd(FX, 3 * FX, scale=FX ** -0.5), rnd(3 * FX, scale=0.1),
+             1e-8, "ssp")
+    margs4 = (rnd(Ap, F, scale=1.0), mu, cots[0] * 0.3, cots[1] * 0.3,
+              rnd(F, 2 * F, scale=F ** -0.5), rnd(2 * F, F, scale=F ** -0.5),
+              rnd(F, scale=0.1), rnd(F, 3 * F, scale=F ** -0.5),
+              rnd(3 * F, scale=0.1), 1e-8, "ssp", *cots)
+
+    def mix_w(*a):
+        return mix.painn_mixing_bwd_plain(*a, wgrad=True)
+
+    out += [
+        fwd_case("mix_fwd_gen", "painn_mixing_gen.cu", "painn_mixing.py:73",
+                 mix.mix_fwd_kernel, mix.painn_mixing_plain, xargs,
+                 xargs[:9], 22 * FX * FX * Ap),
+        case("mix_bwd_gen", "painn_mixing_gen.cu", "painn_mixing.py:83",
+             lambda: mix.mix_bwd_kernel(*margs4),
+             lambda: mix.painn_mixing_bwd_plain(*margs4),
+             (margs4[:9], *cots), 42 * F * F * Ap,
+             wgrad={"kern": lambda: mix.mix_bwd_kernel(*margs4, wgrad=True),
+                    "plain": lambda: mix_w(*margs4),
+                    "ref64": f64(mix_w, *margs4), "flops": 64 * F * F * Ap,
+                    "norm_from": 2}) | {
+            "ref64": f64(mix.painn_mixing_bwd_plain, *margs4)},
+    ]
+    cargs2 = (rnd(Ap, F, scale=1.0), L["graw"],
+              rnd(B, F, scale=(6.0 / (B + F)) ** 0.5), rnd(F, scale=0.1),
+              rnd(F, F, scale=(3.0 / F) ** 0.5), rnd(F, scale=0.1), refs,
+              rnd(Ap, F, scale=1.0))
+    mlp = B * F + F * F
+
+    def cf_fwd(*a):
+        return (cf.cf_fwd_plain(*a),)
+
+    out += [
+        case("cf_fwd_gen", "schnet_columns_gen.cu", "schnet_columns.py:79",
+             lambda: (cf.cf_fwd_kernel(*cargs2[:7]),),
+             lambda: cf_fwd(*cargs2[:7]), (cargs2[:6], idx),
+             2 * ni * mlp + 2 * ni * F) | {"ref64": f64(cf_fwd, *cargs2[:7])},
+        case("cf_bwd_gen", "schnet_columns_gen.cu", "schnet_columns.py:145",
+             lambda: cf.cf_bwd_kernel(*cargs2),
+             lambda: cf.cf_bwd_plain(*cargs2)[:2],
+             (cargs2[:6], idx, cargs2[7]), 4 * ne * mlp,
+             wgrad={"kern": lambda: cf.cf_bwd_kernel(*cargs2, wgrad=True),
+                    "plain": lambda: cf.cf_bwd_plain(*cargs2),
+                    "ref64": f64(cf.cf_bwd_plain, *cargs2),
+                    "flops": 6 * ne * mlp, "norm_from": 2}) | {
+            "ref64": f64(cf.cf_bwd_plain, *cargs2, n=2)},
+    ]
+    for c in out:
+        c["tag"] = f" (F = {FX if c['name'] == 'mix_fwd_gen' else F})"
+    return out
+
+
+def width_kernel_rows(system, sweep_layouts, seed, dev):
+    """The general instances' rows: each held to its float64 twin and
+    timed (per call, on the device, its bound) at the main path's shapes,
+    F = 30 and B = 20 on the bench box ``system`` (K3's at F = 384), with
+    a sub-row at F = WIDTH_WIDE on the sweep's box (``sweep_layouts``, a
+    fifth of the bench box's rows: its float64 twins fit the card), the
+    operations as phase 3 counts them.  K20/K21 in the wrap mode on the
+    column layout (the slab path's bodies), K18/K19 on the 27-cell
+    layout."""
+    rows = check_kernels(width_cases(30, width_layouts(system, dev), seed,
+                                     dev))
+    for row, wide in zip(rows, check_kernels(width_cases(
+            WIDTH_WIDE, sweep_layouts, seed, dev))):
+        row[f"F{WIDTH_WIDE}"] = dict(
+            sub_row(wide), box_rows=int(sweep_layouts["R"].shape[0]))
+    return rows
+
+
+def width_md_phase(pos, cell, seed, dev, launches):
+    """Phase 17 (b)-(c): PaiNN-30x3 (full and hybrid) and SchNet-30x3
+    through ``SchNetPackCalculator`` on the column layout against their
+    JAX fixtures at phase 4's gates, then WIDTH_STEPS NVE steps each with
+    the general instances' launches a step and the drift gate; SchNet-64x3
+    at 300 Gaussians against its fixture; and WIDTH_SHORT steps each of
+    PaiNN-30x3 on the row-9, 27-cell and slab paths, of PaiNN-384x1 (K3's
+    general instance) and of PaiNN-30x3 in the mixed and bf16 modes (phase
+    13's drift gate), which drive the other general instances; returns
+    the launch counts and the ms/step of the three WIDTH_STEPS runs."""
+    from schnetpack_tpu_torch.md import load_molecules
+
+    for path, name in (("full", "painn_w30"), ("hybrid", "painn_w30"),
+                       ("schnet", "schnet_w30"), ("schnet", "schnet_b300")):
+        ref = np.load(WIDTH_REFERENCE[name])
+        calc = calculator(*width_potential(path, name))
+        system = load_molecules([molecule(ref["R"].astype(np.float64),
+                                          ref["cell"])], device=dev)
+        reset(launches)
+        system = calc.calculate(system, calc.init_state(system))
+        F = (system.forces[0] / calc.force_conversion).cpu().numpy()
+        E = float(system.energy[0, 0]) / calc.energy_conversion
+        rms = float(np.sqrt(np.mean((F - ref["forces"]) ** 2)))
+        dE = abs(E - float(ref["energy"])) / abs(float(ref["energy"]))
+        moved = sorted(k for k, v in read_counts(launches).items() if v)
+        print(f"widths (b/c) reference ({name}, {path}): force rms err "
+              f"{rms:.3e} eV/Ang (max {np.abs(F - ref['forces']).max():.3e},"
+              f" |F| max {np.abs(ref['forces']).max():.3e}), energy "
+              f"{E:.6f} vs {float(ref['energy']):.6f} eV (rel {dE:.2e}); "
+              f"kernels {moved}", flush=True)
+        assert np.isfinite(F).all() and F.shape == ref["forces"].shape
+        assert rms <= FORCE_RMS_TOL, f"{name}: force rms {rms}"
+        assert dE <= ENERGY_RTOL, f"{name}: energy rel err {dE}"
+    total, ms_step = {}, {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    for path, name in (("full", "painn_w30"), ("hybrid", "painn_w30"),
+                       ("schnet", "schnet_w30")):
+        _, F, B = width_tree(name)
+        counts, ms_step[path] = md_phase(
+            path, pos, cell, WIDTH_STEPS, seed, dev, launches,
+            model=width_potential(path, name),
+            per_step=gen_per_step(PER_STEP[path], F, B),
+            drift_tol=WIDTH_DRIFT_TOL, tag=f" {name}")
+        add(counts)
+    for path in ("painn_trbf", "painn_cell"):
+        counts, _ = md_phase(
+            path, pos, cell, WIDTH_SHORT, seed, dev, launches,
+            model=width_potential(path),
+            per_step=gen_per_step(PER_STEP[path], 30, 20),
+            drift_tol=WIDTH_DRIFT_TOL, tag=" painn_w30")
+        add(counts)
+    counts, _ = slab_md_phase(
+        pos, cell, SLAB_CHUNK, seed, dev, launches,
+        model=width_potential("painn_slab"),
+        per_step=gen_per_step(PER_STEP["painn_slab"], 30, 20),
+        drift_tol=WIDTH_DRIFT_TOL, tag=" painn_w30")
+    add(counts)
+    pot, params = wide_potential(seed)   # K3's general instance
+    counts, _ = md_phase(
+        "full", pos, cell, WIDTH_SHORT, seed, dev, launches,
+        model=(pot, params),
+        per_step=gen_per_step({k: v // 3 for k, v in PER_STEP["full"].items()},
+                              WIDTH_K3, 20),
+        drift_tol=WIDTH_DRIFT_TOL, tag=f" PaiNN-{WIDTH_K3}x1")
+    add(counts)
+    for path in ("full", "hybrid"):   # the reduced modes: phase 13's gate
+        for precision in REDUCED:
+            counts, _ = md_phase(
+                path, pos, cell, WIDTH_SHORT, seed, dev, launches,
+                precision=precision, model=width_potential(path),
+                per_step=gen_per_step(PER_STEP[path], 30, 20),
+                tag=" painn_w30")
+            add(counts)
+    return total, ms_step
+
+
+def width_grad_launches(dev, launches):
+    """The general wgrad instances on their main path: one energy
+    parameter gradient of PaiNN-30x3 (full), SchNet-30x3 and PaiNN-30x3 on
+    the slab path on the WIDTH_REFERENCE box; returns the launches
+    (counts set to 0 just before each, read just after)."""
+    from schnetpack_tpu_torch import properties as P
+    from schnetpack_tpu_torch.md import load_molecules
+
+    total = {}
+    for path, name in (("full", "painn_w30"), ("schnet", "schnet_w30"),
+                       ("painn_slab", "painn_w30")):
+        ref = np.load(WIDTH_REFERENCE[name])
+        pot, params = width_potential(path, name, forces=False)
+        if path == "painn_slab":
+            sim = slab_simulator(ref["R"].astype(np.float64), ref["cell"],
+                                 dev, pot, params)
+            _, inputs = slab_inputs(sim, ref["R"], dev)
+            pot.to(dev)
+        else:
+            calc = calculator(pot, params, wgrad=True)
+            system = load_molecules([molecule(ref["R"].astype(np.float64),
+                                              ref["cell"])], device=dev)
+            inputs = calc.model_inputs(system, calc.init_state(system))
+        leaves = [p for _, p in pot.named_parameters()]
+        reset(launches)
+        E = pot(dict(inputs))[P.energy][0]
+        grads = torch.autograd.grad(E, leaves)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in read_counts(launches).items() if v}
+        print(f"widths (b) parameter gradient ({name}, {path}): launches "
+              f"{counts}", flush=True)
+        assert all(bool(torch.isfinite(t).all()) for t in grads)
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    for k in ("mix_bwd_wgrad_gen", "cf_bwd_wgrad_gen",
+              "msg_bwd_edge_wgrad_gen"):
+        assert total.get(k, 0) > 0, f"{k} never ran"
+    return total
+
+
+def widths_phase(pos, cell, seed, dev, launches, smi):
+    """Phase 17, every width on the card: (a) ``width_sweep``; the general
+    instances' rows (``width_kernel_rows``); (b)-(c) ``width_md_phase``
+    and ``width_grad_launches``.  Returns (rows, launch counts, wgrad
+    launch counts)."""
+    from schnetpack_tpu_torch.md import load_molecules
+
+    t0 = time.perf_counter()
+    reduced, sweep_system = width_sweep(seed, dev)
+    system = load_molecules([molecule(pos, cell)], device=dev)
+    rows = width_kernel_rows(system, width_layouts(sweep_system, dev), seed,
+                             dev)
+    by_name = {r["name"]: r for r in rows}
+    for name, subs in reduced.items():
+        by_name[name].update(subs)
+    for name, key in (("mix_bwd_gen", "mix_bwd_wgrad_gen"),
+                      ("cf_bwd_gen", "cf_bwd_wgrad_gen"),
+                      ("msg_bwd_edge_gen", "msg_bwd_edge_wgrad_gen")):
+        by_name[name]["wgrad"]["launch_key"] = key
+    print(f"widths: the rows took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    total, ms_step = width_md_phase(pos, cell, seed, dev, launches)
+    wgrad = width_grad_launches(dev, launches)
+    print(f"widths: md ms/step PaiNN-30x3 full {ms_step['full']:.3f}, "
+          f"hybrid {ms_step['hybrid']:.3f}, SchNet-30x3 "
+          f"{ms_step['schnet']:.3f}; phase 17 took "
+          f"{time.perf_counter() - t0:.1f} s; {smi}", flush=True)
+    return rows, total, wgrad
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -5488,6 +6153,13 @@ def main():
                              smi).items():
         total[k] = total.get(k, 0) + v
     parallel_phase(pos, cell, args.seed, dev, launches, smi)
+    width_rows, counts, width_wgrad = widths_phase(pos, cell, args.seed, dev,
+                                                   launches, smi)
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+    for k, v in width_wgrad.items():
+        wgrad_launches[k] = wgrad_launches.get(k, 0) + v
+    rows += width_rows
     for row in rows:
         row["launches"] = total[row["name"]]
         assert row["launches"] > 0, f"{row['name']} never ran in the MD"
@@ -5496,7 +6168,8 @@ def main():
                 key = f"{row['name']}_{precision}"
                 row[precision]["launches"] = total[key]
                 assert total[key] > 0, f"{key} never ran in the MD"
-        key = row["name"] + "_wgrad"
+        key = row.get("wgrad", {}).pop("launch_key",
+                                       row["name"] + "_wgrad")
         if key in wgrad_launches:   # an instance with its own counter
             row["wgrad"]["launches"] = wgrad_launches[key]
     for key in ("mix_bwd_wgrad", "cf_bwd_wgrad", "msg_bwd_edge_wgrad"):

@@ -29,21 +29,26 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .colblock import ColRefs, painn_message
+from .colblock import (
+    ColRefs, destination_schedule, painn_message, source_schedule,
+)
 from .colblock_message import (
-    BWD_SRC, FWD_GEO, _bwd_schedule, _check_width, _fwd_schedule,
-    _gfw_partials, _with_gfw,
+    BWD_SRC, FWD_GEO, _bwd_schedule, _fwd_schedule, _gfw_partials,
+    _tuned_bwd, _tuned_fwd, _with_gfw, bwd_gen, fwd_gen, gen_groups,
+    gen_tiles,
 )
 
 #: kernel launches since the last reset (painn_slab MD: 3 each per step;
-#: ``msg_bwd_edge_wgrad`` counts K21's wgrad instance)
-LAUNCHES = {"msg_fwd_edge": 0, "msg_bwd_edge": 0, "msg_bwd_edge_wgrad": 0}
+#: ``msg_bwd_edge_wgrad`` counts K21's wgrad instance, ``_gen`` the
+#: general instances of widths the tuned bodies do not take)
+LAUNCHES = {"msg_fwd_edge": 0, "msg_bwd_edge": 0, "msg_bwd_edge_wgrad": 0,
+            "msg_fwd_edge_gen": 0, "msg_bwd_edge_gen": 0,
+            "msg_bwd_edge_wgrad_gen": 0}
 
 
 def _check(xmu, rbf_aug, dirs, FW_aug, refs: ColRefs):
     nx, ny, Ktot = refs.qcol.shape
     F, B = xmu.shape[1] // 6, FW_aug.shape[0] - 1
-    _check_width(F)
     if any(k % 8 for k in refs.ksizes):
         raise ValueError(f"bucket sizes must be multiples of 8: {refs.ksizes}")
     _build.check(xmu, "xmu", (refs.src_rows, 6 * F))
@@ -60,10 +65,20 @@ def msg_fwd_edge_kernel(xmu, rbf_aug, dirs, FW_aug, refs: ColRefs):
     """K20: dq [A', F], dmu [A', 3F] summed per destination atom."""
     nx, ny, Ktot, F, B, _ = _check(xmu, rbf_aug, dirs, FW_aug, refs)
     Ap = nx * ny * refs.P
-    dsorted, dgrp, G = _fwd_schedule(refs, FWD_GEO, F, B)
     dq = xmu.new_empty((Ap, F))
     dmu = xmu.new_empty((Ap, 3 * F))
     hx, hy = refs.halo
+    if not _tuned_fwd(FWD_GEO, F, B, refs.P):
+        G = gen_groups(xmu.device, refs.P, nx * ny, False, FWD_GEO, False, F,
+                       B)
+        fwd_gen(FWD_GEO, 3, xmu, xmu[:, 3 * F:], FW_aug,
+                *destination_schedule(refs, G), G, dq, dmu,
+                (nx, ny, refs.P, Ktot), F, B, 6 * F, rbf=rbf_aug, dirs=dirs,
+                edge=1, qcol=refs.qcol, dcol=refs.dcol,
+                koffs=refs.koffs_arg, halo=(hx, hy))
+        LAUNCHES["msg_fwd_edge_gen"] += 1
+        return dq, dmu
+    dsorted, dgrp, G = _fwd_schedule(refs, FWD_GEO, F, B)
     p = _build.ptr
     _build.launch("spk_msg_fwd_edge", p(xmu), p(rbf_aug), p(dirs), p(FW_aug),
                   p(refs.qcol), p(refs.dcol), p(dsorted), p(dgrp), p(dq),
@@ -82,8 +97,22 @@ def msg_bwd_edge_kernel(xmu, rbf_aug, dirs, FW_aug, refs: ColRefs, g_dq,
     Ap = nx * ny * refs.P
     _build.check(g_dq, "g_dq", (Ap, F))
     _build.check(g_dmu, "g_dmu", (Ap, 3 * F))
-    esorted, grp, G = _bwd_schedule(refs, n_src, BWD_SRC, wgrad, F, B)
     dxmu = torch.empty_like(xmu)
+    if not _tuned_bwd(BWD_SRC, wgrad, F, B):
+        G = gen_groups(xmu.device, refs.P, n_src, True, BWD_SRC, wgrad, F, B)
+        Z = gen_tiles(F)
+        grbf = rbf_aug.new_zeros((Z, *rbf_aug.shape))
+        gdir = dirs.new_zeros((Z, *dirs.shape))
+        gFWp = _gfw_partials(xmu, FW_aug, n_src * G, wgrad)
+        bwd_gen(BWD_SRC, 3, xmu, xmu[:, 3 * F:], FW_aug,
+                *source_schedule(refs, G), G, g_dq, g_dmu, dxmu,
+                dxmu[:, 3 * F:], n_src, (nx, ny, refs.P, Ktot), F, B, 6 * F,
+                gFWp, rbf=rbf_aug, dirs=dirs, edge=1, qcol=refs.qcol,
+                dcol=refs.dcol, koffs=refs.koffs_arg, grbf=grbf, gdir=gdir)
+        LAUNCHES["msg_bwd_edge_wgrad_gen" if wgrad
+                 else "msg_bwd_edge_gen"] += 1
+        return _with_gfw((dxmu, grbf.sum(0), gdir.sum(0)), gFWp)
+    esorted, grp, G = _bwd_schedule(refs, n_src, BWD_SRC, wgrad, F, B)
     grbf = torch.zeros_like(rbf_aug)
     gdir = torch.zeros_like(dirs)
     gFWp = _gfw_partials(xmu, FW_aug, n_src * G, wgrad)

@@ -39,6 +39,14 @@ their wiring.  Every backward kernel has a ``wgrad`` instance that also
 returns the filter-weight cotangent gFW [B+1, 3F]; the ops launch it when
 ``FW_aug`` requires grad.
 
+Every kernel has a tuned instance (one thread a feature: F % 32 == 0,
+F <= 256; its wgrad instance B+1 <= 32, within the shared memory that
+the size query finds) and a general one (``csrc/colblock_message_gen.cu``)
+for every other width F >= 1 and basis B >= 1; the wrappers dispatch on
+the shape between the two (``tuned_takes``) and count the general
+instances in ``LAUNCHES`` under the tuned name with ``_gen`` appended
+(before a mode's suffix).
+
 The full and hybrid forms take ``pieces`` (``ops/precision.py``), the JAX
 package's ``PIECES`` as an argument: K1/K2 and K6/K7 have instances for
 each (3: f32, 2: mixed, 1: bf16), counted in ``LAUNCHES`` under the
@@ -49,6 +57,7 @@ The twins round at the same points (``colblock.painn_message``).
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 
@@ -63,15 +72,32 @@ from .precision import check_pieces
 
 #: the launch counters' suffix of each reduced mode
 MODE_SUFFIX = {3: "", 2: "_mixed", 1: "_bf16"}
+
+
+def gen_name(name: str) -> str:
+    """The launch counter of the general instance of the kernel counted as
+    ``name``: ``_gen`` before a mode's suffix (``msg_fwd_gen_bf16``)."""
+    for sfx in ("_mixed", "_bf16"):
+        if name.endswith(sfx):
+            return name[:-len(sfx)] + "_gen" + sfx
+    return name + "_gen"
+
+
 #: kernel launches since the last reset (the main path adds one per call)
 LAUNCHES = {"msg_fwd": 0, "msg_bwd": 0, "msg_fwd_geo": 0,
             "msg_bwd_geores": 0, "msg_bwd_src": 0,
             **{k + MODE_SUFFIX[p]: 0 for p in (2, 1)
                for k in ("msg_fwd", "msg_bwd", "msg_fwd_geo",
                          "msg_bwd_geores")}}
-MAX_F = 256         # one thread a feature (csrc/colblock_message.cuh)
+LAUNCHES.update({gen_name(k): 0 for k in list(LAUNCHES)})
+#: the widest F of the tuned bodies, one thread a feature
+#: (csrc/colblock_message.cuh); wider or F % 32 != 0 takes the general one
+TUNED_MAX_F = 256
 _MAX_GROUPS = 16    # row ranges per column
-_MAX_WGRAD_B1 = 32  # B+1 bound of the wgrad instances' f64 partials
+#: B+1 bound of the tuned wgrad instances' f64 partials in shared memory
+TUNED_WGRAD_B1 = 32
+#: features a block of the general instances, at most (``kGenTile``)
+GEN_TILE = 256
 #: what the forward kernels read (``kIn`` of ``msg_fwd_kernel``): the
 #: positions (K1), a geometry (K6, K20), a geometry in the cell index mode
 #: (K18, ``ops/painn_fused.py``)
@@ -86,10 +112,108 @@ def _shapes(x, cw, refs: ColRefs):
     return nx, ny, Ktot, nx * ny * refs.P, x.shape[1] // 3, cw.shape[0]
 
 
-def _check_width(F: int):
-    if F % 32 or F > MAX_F:
-        raise ValueError(f"the message kernels take F % 32 == 0 and "
-                         f"F <= {MAX_F}, got F={F}")
+def tuned_width(F: int, B: int, wgrad: bool = False) -> bool:
+    """Whether the tuned bodies' widths take (F, B): one thread a feature,
+    F % 32 == 0 and F <= ``TUNED_MAX_F``, and in a wgrad instance B+1 <=
+    ``TUNED_WGRAD_B1``.  Their shared memory is the size query's
+    (``tuned_takes``)."""
+    return (F % 32 == 0 and F <= TUNED_MAX_F
+            and (not wgrad or B + 1 <= TUNED_WGRAD_B1))
+
+
+@functools.lru_cache(maxsize=256)
+def _fits(query: str, *args) -> bool:
+    return _build.query(query, *args) > 0
+
+
+def tuned_takes(query: str, F: int, B: int, wgrad: bool, *args) -> bool:
+    """Whether the tuned instance of ``query`` (its resident blocks per SM,
+    with ``args``) takes (F, B): ``tuned_width`` and a block that fits the
+    shared memory of an SM; else the general instance runs."""
+    return tuned_width(F, B, wgrad) and _fits(query, *args)
+
+
+def gen_tiles(F: int) -> int:
+    """Z, the general instances' feature tiles (``gen_tiles``)."""
+    return -(-F // GEN_TILE)
+
+
+def gen_threads(F: int) -> int:
+    """NT, the threads (features) a block of the general instances: F / Z
+    rounded up to the warp (``gen_threads``)."""
+    return -(-(-(-F // gen_tiles(F))) // 32) * 32
+
+
+def gen_groups(device, P: int, n_cols: int, bwd: bool, mode: int,
+               wgrad: bool, F: int, B: int) -> int:
+    """G of a general instance: ``wave_groups`` over its n_cols * Z blocks
+    a range."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    slots = _blocks_per_sm("spk_msg_gen_blocks", int(bwd), mode, int(wgrad),
+                           F, B) * sms
+    return wave_groups(n_cols * gen_tiles(F), slots, min(_MAX_GROUPS, P))
+
+
+_NO_KOFFS = (ctypes.c_int * 10)()
+
+
+def fwd_gen(in_mode: int, pieces: int, x, mu, FW_aug, dsorted, grp, G: int,
+            dq, dmu, dims, F: int, B: int, ldx: int, R=None, coff=None,
+            cw=None, rbf=None, dirs=None, edge: int = 0, nch: int = 0,
+            qcol=None, dcol=None, koffs=None, halo=(0, 0), rc: float = 0.0,
+            cell=(0, 0, 0)):
+    """Launch the general forward (``spk_msg_fwd_gen``) of ``in_mode``
+    (FWD_POS, FWD_GEO, FWD_CELL) into dq, dmu; ``dims`` (nx, ny, P,
+    Ktot)."""
+    p = _opt_ptr
+    nx, ny, P, Ktot = dims
+    _build.launch("spk_msg_fwd_gen", in_mode, pieces, p(x), p(mu), p(R),
+                  p(rbf), p(dirs), edge, nch, p(FW_aug), p(coff), p(cw),
+                  p(qcol), p(dcol), p(dsorted), p(grp), p(dq), p(dmu), nx,
+                  ny, P, Ktot, _NO_KOFFS if koffs is None else koffs, G, F,
+                  B, ldx, *halo, float(rc), *cell)
+
+
+def bwd_gen(mode: int, pieces: int, x, mu, FW_aug, esorted, grp, G: int,
+            g_dq, g_dmu, dx, dmu, n_src: int, dims, F: int, B: int,
+            ldx: int, gFWp=None, R=None, coff=None, cw=None, rbf=None,
+            dirs=None, edge: int = 0, nch: int = 0, qcol=None, dcol=None,
+            koffs=None, rc: float = 0.0, cell=(0, 0, 0), gRo=None,
+            gRd=None, grbf=None, gdir=None):
+    """Launch the general backward (``spk_msg_bwd_gen``) of ``mode``
+    (BWD_FUSED, BWD_GEORES, BWD_SRC, BWD_CELL): dx, dmu, and gRo [Z,
+    n_src, 3, P] and gRd [Z, G, 9, nx*ny, 3, P] (K2, K7) or the geometry
+    cotangent grbf (and gdir) [Z, ...] (the others), zero-filled by the
+    caller; gFWp [n_src * G, B+1, 3F] f64 with wgrad."""
+    p = _opt_ptr
+    nx, ny, P, Ktot = dims
+    gz_r = grbf[0].numel() if grbf is not None else 0
+    gz_d = gdir[0].numel() if gdir is not None else gz_r   # packed: one
+    _build.launch("spk_msg_bwd_gen", mode, pieces, p(x), p(mu), p(R),
+                  p(rbf), p(dirs), edge, nch, p(FW_aug), p(coff), p(cw),
+                  p(qcol), p(dcol), p(esorted), p(grp), p(g_dq), p(g_dmu),
+                  p(dx), p(dmu), p(gRo), p(gRd), p(grbf), p(gdir), gz_r,
+                  gz_d, p(gFWp), n_src, nx, ny, P, Ktot,
+                  _NO_KOFFS if koffs is None else koffs, G, F, B, ldx,
+                  float(rc), *cell)
+
+
+def _opt_ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _gen_position_partials(like, refs: ColRefs, G: int, F: int):
+    """The general backward's gRo [Z, nx*ny, 3, P] and gRd [Z, G, 9, nx*ny,
+    3, P] (the kernel zeroes the slices it sums into)."""
+    nx, ny, _ = refs.qcol.shape
+    Z, n = gen_tiles(F), nx * ny
+    return (like.new_empty((Z, n, 3, refs.P)),
+            like.new_empty((Z, G, 9, n, 3, refs.P)))
+
+
+def _gen_dR(gRo, gRd, Ap: int):
+    """dR [A', 3] from the general backward's partials."""
+    return (gRo.sum(0) + gRd.sum((0, 1, 2))).transpose(1, 2).reshape(Ap, 3)
 
 
 def feat(t: torch.Tensor, pieces: int) -> torch.Tensor:
@@ -105,7 +229,6 @@ def _feat_dtype(pieces: int):
 def _check_common(x, mu, FW_aug, refs: ColRefs, B: int, pieces: int = 3):
     nx, ny, Ktot = refs.qcol.shape
     Ap, F = nx * ny * refs.P, x.shape[1] // 3
-    _check_width(F)
     if any(k % 8 for k in refs.ksizes):
         raise ValueError(f"bucket sizes must be multiples of 8: {refs.ksizes}")
     _build.check(x, "x", (Ap, 3 * F), _feat_dtype(pieces))
@@ -131,9 +254,19 @@ def msg_fwd_kernel(x, mu, R, FW_aug, coff_fm, cw, refs: ColRefs, rc: float,
     x, mu = feat(x, pieces), feat(mu, pieces)
     _check(x, mu, R, FW_aug, coff_fm, cw, refs, pieces)
     nx, ny, Ktot, Ap, F, B = _shapes(x, cw, refs)
-    dsorted, dgrp, G = _fwd_schedule(refs, FWD_POS, F, B, pieces)
     dq = R.new_empty((Ap, F))
     dmu = R.new_empty((Ap, 3 * F))
+    if not _tuned_fwd(FWD_POS, F, B, refs.P, pieces):
+        G = gen_groups(R.device, refs.P, nx * ny, False, FWD_POS, False, F,
+                       B)
+        fwd_gen(FWD_POS, pieces, x, mu, FW_aug,
+                *destination_schedule(refs, G), G, dq, dmu,
+                (nx, ny, refs.P, Ktot), F, B, 3 * F, R=R, coff=coff_fm,
+                cw=cw, qcol=refs.qcol, dcol=refs.dcol, koffs=refs.koffs_arg,
+                rc=rc)
+        LAUNCHES[gen_name("msg_fwd" + MODE_SUFFIX[pieces])] += 1
+        return dq, dmu
+    dsorted, dgrp, G = _fwd_schedule(refs, FWD_POS, F, B, pieces)
     p = _build.ptr
     _build.launch("spk_msg_fwd" + MODE_SUFFIX[pieces], p(x), p(mu), p(R),
                   p(FW_aug), p(coff_fm), p(cw), p(refs.qcol), p(refs.dcol),
@@ -173,6 +306,20 @@ def _groups(device, P: int, n_cols: int, query: str, *args) -> int:
                        min(_MAX_GROUPS, P))
 
 
+def _tuned_fwd(mode: int, F: int, B: int, P: int, pieces: int = 3) -> bool:
+    """Whether the tuned forward instance (``mode``, ``pieces``) takes (F,
+    B) at column capacity P (K1 stages the positions of P rows)."""
+    return tuned_takes("spk_msg_fwd_blocks" + MODE_SUFFIX[pieces], F, B,
+                       False, mode, F, B, P)
+
+
+def _tuned_bwd(mode: int, wgrad: bool, F: int, B: int,
+               pieces: int = 3) -> bool:
+    """Whether the tuned backward instance takes (F, B)."""
+    return tuned_takes("spk_msg_bwd_blocks" + MODE_SUFFIX[pieces], F, B,
+                       wgrad, mode, int(wgrad), F, B)
+
+
 def _fwd_schedule(refs: ColRefs, mode: int, F: int, B: int,
                   pieces: int = 3):
     """The forward kernels' (dsorted, grp, G): ``destination_schedule``
@@ -200,9 +347,6 @@ def _gfw_partials(x, FW_aug, n_blocks: int, wgrad: bool):
     (None without wgrad)."""
     if not wgrad:
         return None
-    if FW_aug.shape[0] > _MAX_WGRAD_B1:
-        raise ValueError(f"the wgrad kernels take B+1 <= {_MAX_WGRAD_B1}, "
-                         f"got {FW_aug.shape[0]}")
     return x.new_empty((n_blocks, *FW_aug.shape), dtype=torch.float64)
 
 
@@ -230,10 +374,22 @@ def msg_bwd_kernel(x, mu, R, FW_aug, coff_fm, cw, refs: ColRefs, rc: float,
     nx, ny, Ktot, Ap, F, B = _shapes(x, cw, refs)
     _build.check(g_dq, "g_dq", (Ap, F), _feat_dtype(pieces))
     _build.check(g_dmu, "g_dmu", (Ap, 3 * F), _feat_dtype(pieces))
-    esorted, grp, G = _bwd_schedule(refs, nx * ny, BWD_FUSED, wgrad, F, B,
-                                    pieces)
     dx = R.new_empty((Ap, 3 * F))
     dmu = R.new_empty((Ap, 3 * F))
+    if not _tuned_bwd(BWD_FUSED, wgrad, F, B, pieces):
+        G = gen_groups(R.device, refs.P, nx * ny, True, BWD_FUSED, wgrad, F,
+                       B)
+        gRo, gRd = _gen_position_partials(R, refs, G, F)
+        gFWp = _gfw_partials(x, FW_aug, nx * ny * G, wgrad)
+        bwd_gen(BWD_FUSED, pieces, x, mu, FW_aug, *source_schedule(refs, G),
+                G, g_dq, g_dmu, dx, dmu, nx * ny, (nx, ny, refs.P, Ktot), F,
+                B, 3 * F, gFWp, R=R, coff=coff_fm, cw=cw, qcol=refs.qcol,
+                dcol=refs.dcol, koffs=refs.koffs_arg, rc=rc, gRo=gRo,
+                gRd=gRd)
+        LAUNCHES[gen_name("msg_bwd" + MODE_SUFFIX[pieces])] += 1
+        return _with_gfw((dx, dmu, _gen_dR(gRo, gRd, Ap)), gFWp)
+    esorted, grp, G = _bwd_schedule(refs, nx * ny, BWD_FUSED, wgrad, F, B,
+                                    pieces)
     gRo = R.new_empty((nx * ny, 3, refs.P))
     gRd = R.new_empty((G, 9, nx * ny, 3, refs.P))
     gFWp = _gfw_partials(x, FW_aug, nx * ny * G, wgrad)
@@ -327,9 +483,18 @@ def msg_fwd_geo_kernel(x, mu, geo, FW_aug, refs: ColRefs, pieces: int = 3):
     _check_common(x, mu, FW_aug, refs, B, pieces)
     _build.check(geo, "geo", (nx, ny, nch, Ktot))
     Ap, F = x.shape[0], x.shape[1] // 3
-    dsorted, dgrp, G = _fwd_schedule(refs, FWD_GEO, F, B, pieces)
     dq = geo.new_empty((Ap, F))
     dmu = geo.new_empty((Ap, 3 * F))
+    if not _tuned_fwd(FWD_GEO, F, B, refs.P, pieces):
+        G = gen_groups(geo.device, refs.P, nx * ny, False, FWD_GEO, False, F,
+                       B)
+        fwd_gen(FWD_GEO, pieces, x, mu, FW_aug,
+                *destination_schedule(refs, G), G, dq, dmu,
+                (nx, ny, refs.P, Ktot), F, B, 3 * F, rbf=geo, nch=nch,
+                qcol=refs.qcol, dcol=refs.dcol, koffs=refs.koffs_arg)
+        LAUNCHES[gen_name("msg_fwd_geo" + MODE_SUFFIX[pieces])] += 1
+        return dq, dmu
+    dsorted, dgrp, G = _fwd_schedule(refs, FWD_GEO, F, B, pieces)
     p = _build.ptr
     _build.launch("spk_msg_fwd_geo" + MODE_SUFFIX[pieces], p(x), p(mu),
                   p(geo), p(FW_aug), p(refs.qcol), p(refs.dcol), p(dsorted),
@@ -355,10 +520,22 @@ def msg_bwd_geores_kernel(x, mu, geo, FW_aug, cw, refs: ColRefs, rc: float,
     Ap, F = x.shape[0], x.shape[1] // 3
     _build.check(g_dq, "g_dq", (Ap, F), _feat_dtype(pieces))
     _build.check(g_dmu, "g_dmu", (Ap, 3 * F), _feat_dtype(pieces))
-    esorted, grp, G = _bwd_schedule(refs, nx * ny, BWD_GEORES, wgrad, F, B,
-                                    pieces)
     dx = geo.new_empty((Ap, 3 * F))
     dmu = geo.new_empty((Ap, 3 * F))
+    if not _tuned_bwd(BWD_GEORES, wgrad, F, B, pieces):
+        G = gen_groups(geo.device, refs.P, nx * ny, True, BWD_GEORES, wgrad,
+                       F, B)
+        gRo, gRd = _gen_position_partials(geo, refs, G, F)
+        gFWp = _gfw_partials(x, FW_aug, nx * ny * G, wgrad)
+        bwd_gen(BWD_GEORES, pieces, x, mu, FW_aug, *source_schedule(refs, G),
+                G, g_dq, g_dmu, dx, dmu, nx * ny, (nx, ny, refs.P, Ktot), F,
+                B, 3 * F, gFWp, cw=cw, rbf=geo, nch=B + 5, qcol=refs.qcol,
+                dcol=refs.dcol, koffs=refs.koffs_arg, rc=rc, gRo=gRo,
+                gRd=gRd)
+        LAUNCHES[gen_name("msg_bwd_geores" + MODE_SUFFIX[pieces])] += 1
+        return _with_gfw((dx, dmu, _gen_dR(gRo, gRd, Ap)), gFWp)
+    esorted, grp, G = _bwd_schedule(refs, nx * ny, BWD_GEORES, wgrad, F, B,
+                                    pieces)
     gRo = geo.new_empty((nx * ny, 3, refs.P))
     gRd = geo.new_empty((G, 9, nx * ny, 3, refs.P))
     gFWp = _gfw_partials(x, FW_aug, nx * ny * G, wgrad)
@@ -485,9 +662,20 @@ def msg_bwd_src_kernel(x, mu, geo, FW_aug, refs: ColRefs, g_dq, g_dmu,
     Ap, F = x.shape[0], x.shape[1] // 3
     _build.check(g_dq, "g_dq", (Ap, F))
     _build.check(g_dmu, "g_dmu", (Ap, 3 * F))
-    esorted, grp, G = _bwd_schedule(refs, nx * ny, BWD_SRC, wgrad, F, B)
     dx = torch.empty_like(x)
     dmu = torch.empty_like(mu)
+    if not _tuned_bwd(BWD_SRC, wgrad, F, B):
+        G = gen_groups(geo.device, refs.P, nx * ny, True, BWD_SRC, wgrad, F,
+                       B)
+        ggeo = geo.new_zeros((gen_tiles(F), *geo.shape))
+        gFWp = _gfw_partials(x, FW_aug, nx * ny * G, wgrad)
+        bwd_gen(BWD_SRC, 3, x, mu, FW_aug, *source_schedule(refs, G), G,
+                g_dq, g_dmu, dx, dmu, nx * ny, (nx, ny, refs.P, Ktot), F, B,
+                3 * F, gFWp, rbf=geo, nch=B + 4, qcol=refs.qcol,
+                dcol=refs.dcol, koffs=refs.koffs_arg, grbf=ggeo)
+        LAUNCHES[gen_name("msg_bwd_src")] += 1
+        return _with_gfw((dx, dmu, ggeo.sum(0)), gFWp)
+    esorted, grp, G = _bwd_schedule(refs, nx * ny, BWD_SRC, wgrad, F, B)
     ggeo = torch.zeros_like(geo)
     gFWp = _gfw_partials(x, FW_aug, nx * ny * G, wgrad)
     p = _build.ptr

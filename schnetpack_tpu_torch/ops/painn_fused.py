@@ -22,10 +22,10 @@ the kernels decode each slot's code in place of the column refs, and walk
 the stack schedules cached on the refs (``cellblock_gather.
 stack_destination_schedule``, ``stack_source_schedule``), with the row
 ranges per stack sized as the column kernels' (``colblock_message.
-_groups``).  They take the column bodies' shapes: F % 32 == 0, F <= 256,
-and B+1 <= 32 in the wgrad instance, whose f64 partial [B+1, 3F] in
-shared memory also bounds B+1 by 25 at F = 256 (``colblock_message_bwd.
-cu::bwd_smem``; the size query refuses a larger one before the launch).
+_groups``).  The tuned bodies take F % 32 == 0, F <= 256 and, in the
+wgrad instance, B+1 <= 32 within its shared memory; every other shape
+runs the general instances (``csrc/colblock_message_gen.cu`` in the cell
+index mode, counted as ``cell_msg_fwd_gen`` and ``cell_msg_bwd_gen``).
 On CPU tensors the op runs the twins, on CUDA tensors the kernels, and
 it raises otherwise.
 """
@@ -41,18 +41,19 @@ from .cellblock_gather import (
     cell_gather_plain, stack_destination_schedule, stack_source_schedule,
 )
 from .colblock_message import (
-    BWD_CELL, FWD_CELL, _check_width, _gfw_partials, _groups, _with_gfw,
+    BWD_CELL, FWD_CELL, _gfw_partials, _groups, _tuned_bwd, _tuned_fwd,
+    _with_gfw, bwd_gen, fwd_gen, gen_groups, gen_tiles,
 )
 
 #: kernel launches since the last reset (painn_cell MD: K18 3, K19 3 per
-#: step)
-LAUNCHES = {"cell_msg_fwd": 0, "cell_msg_bwd": 0}
+#: step; ``_gen``: the general instances)
+LAUNCHES = {"cell_msg_fwd": 0, "cell_msg_bwd": 0, "cell_msg_fwd_gen": 0,
+            "cell_msg_bwd_gen": 0}
 
 
 def _check(xmu, rbf_aug, dir_ij, FW_aug, refs: CellRefs):
     F = xmu.shape[1] // 6
     B1 = FW_aug.shape[0]
-    _check_width(F)
     Ap, K = _check_refs(refs)
     _build.check(xmu, "xmu", (Ap, 6 * F))
     _build.check(rbf_aug, "rbf_aug", (Ap, K, B1))
@@ -66,12 +67,21 @@ def cell_msg_fwd_kernel(xmu, rbf_aug, dir_ij, FW_aug, qidx):
     without a slot (the cells' padding rows among them) are 0."""
     refs = as_refs(qidx)
     Ap, F, B = _check(xmu, rbf_aug, dir_ij, FW_aug, refs)
-    n_cols, P, _ = refs.stack
+    n_cols, P, Ktot = refs.stack
+    dq = xmu.new_empty((Ap, F))
+    dmu = xmu.new_empty((Ap, 3 * F))
+    if not _tuned_fwd(FWD_CELL, F, B, P):
+        nx, ny, nz, C, K = refs.dims
+        G = gen_groups(xmu.device, P, n_cols, False, FWD_CELL, False, F, B)
+        fwd_gen(FWD_CELL, 3, xmu, xmu[:, 3 * F:], FW_aug,
+                *stack_destination_schedule(refs, G), G, dq, dmu,
+                (nx, ny, P, Ktot), F, B, 6 * F, rbf=rbf_aug, dirs=dir_ij,
+                edge=1, qcol=refs.qidx, cell=(nz, C, K))
+        LAUNCHES["cell_msg_fwd_gen"] += 1
+        return dq, dmu
     G = _groups(xmu.device, P, n_cols, "spk_msg_fwd_blocks", FWD_CELL, F, B,
                 P)
     dsorted, grp = stack_destination_schedule(refs, G)
-    dq = xmu.new_empty((Ap, F))
-    dmu = xmu.new_empty((Ap, 3 * F))
     p = _build.ptr
     _build.launch("spk_cell_msg_fwd", p(xmu), p(rbf_aug), p(dir_ij),
                   p(FW_aug), p(refs.qidx), p(dsorted), p(grp), p(dq), p(dmu),
@@ -90,11 +100,25 @@ def cell_msg_bwd_kernel(xmu, rbf_aug, dir_ij, FW_aug, qidx, g_dq, g_dmu,
     Ap, F, B = _check(xmu, rbf_aug, dir_ij, FW_aug, refs)
     _build.check(g_dq, "g_dq", (Ap, F))
     _build.check(g_dmu, "g_dmu", (Ap, 3 * F))
-    n_cols, P, _ = refs.stack
+    n_cols, P, Ktot = refs.stack
+    dxmu = torch.empty_like(xmu)
+    if not _tuned_bwd(BWD_CELL, wgrad, F, B):
+        nx, ny, nz, C, K = refs.dims
+        G = gen_groups(xmu.device, P, n_cols, True, BWD_CELL, wgrad, F, B)
+        Z = gen_tiles(F)
+        grbf = rbf_aug.new_zeros((Z, *rbf_aug.shape))
+        gdir = dir_ij.new_zeros((Z, *dir_ij.shape))
+        gFWp = _gfw_partials(xmu, FW_aug, n_cols * G, wgrad)
+        bwd_gen(BWD_CELL, 3, xmu, xmu[:, 3 * F:], FW_aug,
+                *stack_source_schedule(refs, G), G, g_dq, g_dmu, dxmu,
+                dxmu[:, 3 * F:], n_cols, (nx, ny, P, Ktot), F, B, 6 * F,
+                gFWp, rbf=rbf_aug, dirs=dir_ij, edge=1, qcol=refs.qidx,
+                cell=(nz, C, K), grbf=grbf, gdir=gdir)
+        LAUNCHES["cell_msg_bwd_gen"] += 1
+        return _with_gfw((dxmu, grbf.sum(0), gdir.sum(0)), gFWp)
     G = _groups(xmu.device, P, n_cols, "spk_msg_bwd_blocks", BWD_CELL,
                 int(wgrad), F, B)
     esorted, grp = stack_source_schedule(refs, G)
-    dxmu = torch.empty_like(xmu)
     grbf = torch.zeros_like(rbf_aug)
     gdir = torch.zeros_like(dir_ij)
     gFWp = _gfw_partials(xmu, FW_aug, n_cols * G, wgrad)

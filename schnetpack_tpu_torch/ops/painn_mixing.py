@@ -6,11 +6,14 @@ residual add and the whole intra-atomic mixing block run as one kernel
 tensor cores in 3xTF32); the backward (K4, ``mix_bwd_kernel``, likewise)
 recomputes the forward and returns the input cotangents, and in its wgrad
 instance also the weight cotangents, which the op launches when a mixing
-weight requires grad (MD keeps the plain instance).  By the residual identity the cotangents of q and dq (mu and
-dmu) are equal.  Unlike the JAX wrapper there is no fallback for row
-counts without a dividing block: the kernels mask the ragged tail.  K4
-takes ``BWD_WIDTHS``, K3 any F up to its shared memory limit
-(``check_width``).
+weight requires grad (MD keeps the plain instance).  By the residual
+identity the cotangents of q and dq (mu and dmu) are equal.  Unlike the
+JAX wrapper there is no fallback for row counts without a dividing block:
+the kernels mask the ragged tail.  The tuned K3 takes F <= ``FWD_MAX_F``
+(with weights zero-padded to a multiple of 32, cached per parameter
+version), the tuned K4 ``BWD_WIDTHS``; every other width runs the general
+instances (``csrc/painn_mixing_gen.cu``, counted as ``mix_fwd_gen``,
+``mix_bwd_gen`` and ``mix_bwd_wgrad_gen``).
 
 On CUDA tensors the op launches the kernels (or raises); on CPU tensors it
 runs the plain twin (the math of ``_fwd_core``) under ordinary autograd.
@@ -24,12 +27,13 @@ from .activations import ACTIVATIONS
 
 #: kernel launches since the last reset (the main path adds one per call;
 #: ``mix_bwd_wgrad`` counts K4's wgrad instance)
-LAUNCHES = {"mix_fwd": 0, "mix_bwd": 0, "mix_bwd_wgrad": 0}
+LAUNCHES = {"mix_fwd": 0, "mix_bwd": 0, "mix_bwd_wgrad": 0,
+            "mix_fwd_gen": 0, "mix_bwd_gen": 0, "mix_bwd_wgrad_gen": 0}
 _ACT_CODE = {"ssp": 0, "silu": 1}
 #: rows per f32 partial sum of the wgrad reduction, at least
 _WGRAD_ROWS = 256
-#: the widths K4 takes: those of the column message kernels
-#: (``colblock_message.py``), so every PaiNN path's F
+#: the widths the tuned K4 takes: those of the tuned column message
+#: kernels (``colblock_message.py``)
 BWD_WIDTHS = "F % 32 == 0 and F <= 256"
 #: K3 pads F to a multiple of this (``csrc/painn_mixing.cu::kFwdPad``)
 FWD_PAD = 32
@@ -52,18 +56,41 @@ def mix_fwd_smem_bytes(F: int) -> int:
     return 4 * _FWD_ROWS * (10 * fwd_width(F) + 16)
 
 
-def check_width(F: int, bwd: bool) -> None:
-    """Raise ``ValueError`` for a width the kernel does not take: K3 up to
-    the opt-in shared memory limit (F <= ``FWD_MAX_F``), K4
-    ``BWD_WIDTHS``."""
-    if bwd and (F % 32 != 0 or F > 256):
-        raise ValueError(f"K4, the mixing backward, takes {BWD_WIDTHS}, "
-                         f"got F={F}")
-    if mix_fwd_smem_bytes(F) > _build.MAX_DYN_SMEM:
-        raise ValueError(
-            f"K3, the mixing forward, would need {mix_fwd_smem_bytes(F)} "
-            f"bytes of shared memory a block at F={F}, over the "
-            f"{_build.MAX_DYN_SMEM}-byte opt-in limit (F <= {FWD_MAX_F})")
+def tuned_width(F: int, bwd: bool) -> bool:
+    """Whether the tuned instance takes width F: K3 up to the opt-in shared
+    memory limit (F <= ``FWD_MAX_F``), K4 ``BWD_WIDTHS``; the general
+    instances take every other F."""
+    if bwd:
+        return F % 32 == 0 and F <= 256
+    return mix_fwd_smem_bytes(F) <= _build.MAX_DYN_SMEM
+
+
+def check_width(F: int) -> None:
+    """Raise ``ValueError`` for a width no instance takes: F < 1 (the
+    tuned or the general instance takes every other, ``tuned_width``)."""
+    if F < 1:
+        raise ValueError(f"the mixing kernels need F >= 1, got F={F}")
+
+
+#: K3's padded weights: (the weights, their versions, the padded copies)
+#: by the weights' ids (``padded_weights``)
+_PADDED = {}
+
+
+def padded_weights(kmix, k0, b0, k1, b1):
+    """``pad_weights`` of these weight tensors, made once per parameter
+    version (an in-place update of a weight bumps its version counter and
+    makes a new copy) and kept for the next calls; an entry holds its
+    tensors, so their ids are not reused while it lives."""
+    w = (kmix, k0, b0, k1, b1)
+    key = tuple(id(t) for t in w)
+    versions = tuple(t._version for t in w)
+    hit = _PADDED.get(key)
+    if hit is None or hit[1] != versions:
+        if len(_PADDED) >= 16:
+            _PADDED.clear()
+        hit = _PADDED[key] = (w, versions, pad_weights(*w))
+    return hit[2]
 
 
 def pad_weights(kmix, k0, b0, k1, b1):
@@ -120,11 +147,11 @@ def painn_mixing_bwd_plain(q, mu, dq, dmu, kmix, k0, b0, k1, b1, eps, act,
                                    (gq, gmu))
 
 
-def _check(q, mu, dq, dmu, kmix, k0, b0, k1, b1, act, bwd: bool):
+def _check(q, mu, dq, dmu, kmix, k0, b0, k1, b1, act):
     A, F = q.shape
     if act not in _ACT_CODE:
         raise ValueError(f"unknown activation {act!r}")
-    check_width(F, bwd)
+    check_width(F)
     for t, n, s in ((q, "q", (A, F)), (mu, "mu", (A, 3 * F)),
                     (dq, "dq", (A, F)), (dmu, "dmu", (A, 3 * F)),
                     (kmix, "kmix", (F, 2 * F)), (k0, "k0", (2 * F, F)),
@@ -138,13 +165,20 @@ def _check(q, mu, dq, dmu, kmix, k0, b0, k1, b1, act, bwd: bool):
 def mix_fwd_kernel(q, mu, dq, dmu, kmix, k0, b0, k1, b1, eps: float,
                    act: str):
     """K3: (q_out [A, F], mu_out [A, 3F])."""
-    _check(q, mu, dq, dmu, kmix, k0, b0, k1, b1, act, bwd=False)
+    _check(q, mu, dq, dmu, kmix, k0, b0, k1, b1, act)
     A, F = q.shape
-    if F % FWD_PAD:
-        kmix, k0, b0, k1, b1 = pad_weights(kmix, k0, b0, k1, b1)
     qo = torch.empty_like(q)
     muo = torch.empty_like(mu)
     p = _build.ptr
+    if not tuned_width(F, bwd=False):
+        ws = q.new_empty((A, _build.query("spk_mix_gen_ws", F, 0)))
+        _build.launch("spk_mix_fwd_gen", p(q), p(mu), p(dq), p(dmu),
+                      p(kmix), p(k0), p(b0), p(k1), p(b1), p(qo), p(muo),
+                      p(ws), A, F, float(eps), _ACT_CODE[act])
+        LAUNCHES["mix_fwd_gen"] += 1
+        return qo, muo
+    if F % FWD_PAD:
+        kmix, k0, b0, k1, b1 = padded_weights(kmix, k0, b0, k1, b1)
     _build.launch("spk_mix_fwd", p(q), p(mu), p(dq), p(dmu), p(kmix), p(k0),
                   p(b0), p(k1), p(b1), p(qo), p(muo), A, F, float(eps),
                   _ACT_CODE[act])
@@ -157,8 +191,9 @@ def mix_bwd_kernel(q, mu, dq, dmu, kmix, k0, b0, k1, b1, eps: float,
     """K4: cotangents (g_qp [A, F], g_mup [A, 3F]) of K3's inputs, and with
     ``wgrad`` also (gkmix, gk0, gb0, gk1, gb1): the f64 partials of the
     kernel's row ranges summed here and rounded to f32."""
-    _check(q, mu, dq, dmu, kmix, k0, b0, k1, b1, act, bwd=True)
+    _check(q, mu, dq, dmu, kmix, k0, b0, k1, b1, act)
     A, F = q.shape
+    gen = not tuned_width(F, bwd=True)
     _build.check(gq, "gq", (A, F))
     _build.check(gmu, "gmu", (A, 3 * F))
     # transposed weight copies give the kernel's transposed products the
@@ -176,15 +211,20 @@ def mix_bwd_kernel(q, mu, dq, dmu, kmix, k0, b0, k1, b1, eps: float,
         S = q.new_empty((A, 16 * F))
         part = q.new_empty((nsplit, 7 * F * F + 4 * F), dtype=torch.float64)
     p = _build.ptr
-    _build.launch("spk_mix_bwd", p(q), p(mu), p(dq), p(dmu), p(gq), p(gmu),
-                  p(kmix), p(k0), p(b0), p(k1), p(b1), p(kmixT), p(k0T),
-                  p(k1T), p(gqi), p(gmui), None if S is None else p(S),
-                  None if part is None else p(part), nsplit, A, F,
-                  float(eps), _ACT_CODE[act])
+    args = (p(q), p(mu), p(dq), p(dmu), p(gq), p(gmu), p(kmix), p(k0),
+            p(b0), p(k1), p(b1), p(kmixT), p(k0T), p(k1T), p(gqi), p(gmui),
+            None if S is None else p(S), None if part is None else p(part))
+    if gen:
+        ws = q.new_empty((A, _build.query("spk_mix_gen_ws", F, 1)))
+        _build.launch("spk_mix_bwd_gen", *args, p(ws), nsplit, A, F,
+                      float(eps), _ACT_CODE[act])
+    else:
+        _build.launch("spk_mix_bwd", *args, nsplit, A, F, float(eps),
+                      _ACT_CODE[act])
+    name = ("mix_bwd_wgrad" if wgrad else "mix_bwd") + ("_gen" if gen else "")
+    LAUNCHES[name] += 1
     if not wgrad:
-        LAUNCHES["mix_bwd"] += 1
         return gqi, gmui
-    LAUNCHES["mix_bwd_wgrad"] += 1
     w = part.sum(0).to(torch.float32)
     FF = F * F
     return (gqi, gmui, w[:2 * FF].view(F, 2 * F),

@@ -16,7 +16,11 @@ the source rows of ``colblock.source_schedule`` (the message backward's),
 their filter products in 3xTF32 on the tensor cores.  K10 returns dh and
 the geometry cotangent (zero in the dir channels), and in its wgrad
 instance, which the op launches when W1, b1, W2 or b2 require grad, also
-the filter-weight cotangents.  On CPU tensors the op runs the twins, the
+the filter-weight cotangents.  The tuned instances take F in
+``N_FILTERS`` and B <= 32 (``tuned_width``); every other shape runs the
+general instances (``csrc/schnet_columns_gen.cu``, counted as
+``cf_fwd_gen``, ``cf_bwd_gen`` and ``cf_bwd_wgrad_gen``) on the same
+schedules.  On CPU tensors the op runs the twins, the
 gather / filter MLP / fold composition of ``_cfconv_xla``
 (``schnet_columns.py:317-331``) and its autograd VJP.
 """
@@ -32,9 +36,16 @@ from .colblock import (
 
 #: kernel launches since the last reset (SchNet MD: 3 each per step;
 #: ``cf_bwd_wgrad`` counts K10's wgrad instance)
-LAUNCHES = {"cf_fwd": 0, "cf_bwd": 0, "cf_bwd_wgrad": 0}
-#: the filter widths the kernels take
+LAUNCHES = {"cf_fwd": 0, "cf_bwd": 0, "cf_bwd_wgrad": 0, "cf_fwd_gen": 0,
+            "cf_bwd_gen": 0, "cf_bwd_wgrad_gen": 0}
+#: the filter widths the tuned kernels take (with B <= ``TUNED_MAX_B``)
 N_FILTERS = (64, 128)
+TUNED_MAX_B = 32
+#: filters a block of the general instances, at most (``kGenTile``)
+GEN_TILE = 256
+#: bytes of f64 weight-cotangent partials the general wgrad instance may
+#: allocate before it takes fewer row ranges a column
+GEN_WPART_BYTES = 256 << 20
 #: slots a chunk and row ranges a block of K9 and K10's plain instance
 #: (``kE``, ``kGroups`` of ``csrc/schnet_columns.cu``)
 SLOTS, GROUPS = 16, 3
@@ -77,15 +88,25 @@ def cf_smem_bytes(F: int, B: int, bwd: bool, wgrad: bool = False) -> int:
     return 4 * ((F + bp) * (F + 4) + rest)
 
 
+def tuned_width(F: int, B: int) -> bool:
+    """Whether the tuned instances take (F, B): F in ``N_FILTERS`` and B <=
+    ``TUNED_MAX_B``.  Their shared memory (``cf_smem_bytes``) fits the
+    opt-in limit at every shape they take, whatever the column capacity
+    P; the general instances take every other shape."""
+    return F in N_FILTERS and B <= TUNED_MAX_B
+
+
 def check_width(F: int, B: int) -> None:
-    """Raise ``ValueError`` for a shape the kernels do not take: F filters
-    outside ``N_FILTERS`` or more than 32 basis functions.  Their shared
-    memory (``cf_smem_bytes``) fits the opt-in limit at every shape they
-    take, whatever the column capacity P."""
-    if F not in N_FILTERS or B > 32:
-        raise ValueError(f"the cfconv kernels K9/K10 take F in {N_FILTERS} "
-                         f"filters and B <= 32 basis functions, got F={F}, "
-                         f"B={B}")
+    """Raise ``ValueError`` for a shape no instance takes: F < 1 or B < 1
+    (the tuned or the general instance takes every other)."""
+    if F < 1 or B < 1:
+        raise ValueError(f"the cfconv kernels need F >= 1 and B >= 1, got "
+                         f"F={F}, B={B}")
+
+
+def gen_tiles(F: int) -> int:
+    """Z, the general instances' filter tiles (``cf_tiles``)."""
+    return -(-F // GEN_TILE)
 
 
 def _fwd_schedule(refs: ColRefs):
@@ -123,10 +144,11 @@ def cf_fwd_kernel(h, geo, W1, b1, W2, b2, refs: ColRefs):
     dsorted, grp, G = _fwd_schedule(refs)
     out = torch.empty_like(h)
     p = _build.ptr
-    _build.launch("spk_cf_fwd", p(h), p(geo), p(W1), p(b1), p(W2), p(b2),
+    name = "cf_fwd" if tuned_width(F, B) else "cf_fwd_gen"
+    _build.launch("spk_" + name, p(h), p(geo), p(W1), p(b1), p(W2), p(b2),
                   p(refs.qcol), p(refs.dcol), p(dsorted), p(grp), p(out), nx,
                   ny, refs.P, Ktot, refs.koffs_arg, G, B, F)
-    LAUNCHES["cf_fwd"] += 1
+    LAUNCHES[name] += 1
     return out
 
 
@@ -138,21 +160,36 @@ def cf_bwd_kernel(h, geo, W1, b1, W2, b2, refs: ColRefs, g,
     rounded to f32."""
     nx, ny, Ktot, B, F = _check(h, geo, W1, b1, W2, b2, refs)
     _build.check(g, "g", tuple(h.shape))
-    esorted, grp, G = _bwd_schedule(refs, wgrad)
     dh = torch.empty_like(h)
-    ggeo = torch.empty_like(geo)
-    wpart = (h.new_empty((nx * ny * G, (B + 2) * F + F * F),
-                         dtype=torch.float64) if wgrad else None)
     p = _build.ptr
-    _build.launch("spk_cf_bwd", p(h), p(geo), p(W1), p(b1), p(W2), p(b2),
+    nw = (B + 2) * F + F * F
+    if tuned_width(F, B):
+        esorted, grp, G = _bwd_schedule(refs, wgrad)
+        ggeo = torch.empty_like(geo)
+        wpart = (h.new_empty((nx * ny * G, nw), dtype=torch.float64)
+                 if wgrad else None)
+        name = "cf_bwd"
+    else:
+        Z = gen_tiles(F)
+        G = min(WGRAD_RANGES if wgrad else BWD_RANGES, refs.P)
+        if wgrad:   # fewer ranges where the partials would be large
+            G = max(1, min(G, GEN_WPART_BYTES // (8 * nw * Z * nx * ny)))
+        esorted, grp = source_schedule(refs, G)
+        ggeo = geo.new_zeros((Z, *geo.shape))
+        wpart = (h.new_zeros((nx * ny * G * Z, nw), dtype=torch.float64)
+                 if wgrad else None)
+        name = "cf_bwd_gen"
+    _build.launch("spk_" + name, p(h), p(geo), p(W1), p(b1), p(W2), p(b2),
                   p(refs.qcol), p(refs.dcol), p(esorted), p(grp), p(g),
                   p(dh), p(ggeo),
                   None if wpart is None else p(wpart), nx, ny, refs.P, Ktot,
                   G, B, F)
+    if ggeo.dim() == 5:   # the general instance's tile partials
+        ggeo = ggeo.sum(0)
     if not wgrad:
-        LAUNCHES["cf_bwd"] += 1
+        LAUNCHES[name] += 1
         return dh, ggeo
-    LAUNCHES["cf_bwd_wgrad"] += 1
+    LAUNCHES[name.replace("_bwd", "_bwd_wgrad")] += 1
     w = wpart.sum(0).to(torch.float32)
     return (dh, ggeo, w[:B * F].view(B, F), w[B * F:(B + 1) * F],
             w[(B + 1) * F:(B + 1) * F + F * F].view(F, F),

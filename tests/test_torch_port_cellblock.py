@@ -224,10 +224,14 @@ def test_cell_ops_refuse_other_devices_and_shapes():
         cg._on(xmu.to("meta"), None, None)
     with pytest.raises(ValueError, match="CUDA"):
         cg.cell_gather_fwd_kernel(xmu, refs)
-    with pytest.raises(ValueError, match="F % 32"):
-        pf.cell_msg_fwd_kernel(xmu[:, :96], torch.tensor(c["rbf"]),
+    # F = 16 (F % 32 != 0) is taken by the general instance: a CPU tensor
+    # is refused for its device, not its width
+    with pytest.raises(ValueError, match="CUDA"):
+        pf.cell_msg_fwd_kernel(xmu[:, :96].contiguous(),
+                               torch.tensor(c["rbf"]),
                                torch.tensor(c["dir"]),
-                               torch.tensor(c["FW"])[:, :48], refs)
+                               torch.tensor(c["FW"])[:, :48].contiguous(),
+                               refs)
 
 
 # ------------------------------------------------------------------- model

@@ -340,10 +340,146 @@ def test_destination_walk_matches_twin_and_jax(F, B, seed, G):
 @pytest.mark.parametrize("F,ok", [(64, True), (128, True), (96, False),
                                   (256, False)])
 def test_cfconv_kernels_take_their_widths(F, ok):
-    """The wrappers' check (``check_width``, before any launch) takes the
-    kernels' widths F = 64 and 128 and names any other F."""
-    if ok:
-        cf.check_width(F, 20)
-        return
-    with pytest.raises(ValueError, match="K9/K10 take F in"):
-        cf.check_width(F, 20)
+    """The wrappers' check (``check_width``, before any launch) takes every
+    width: the tuned instances F = 64 and 128 (``ok``), the general ones
+    any other F."""
+    cf.check_width(F, 20)
+    assert cf.tuned_width(F, 20) == ok
+
+
+# ------------------------------------------- the general instances' walks
+def _gen_tiles(F):
+    """The general instances' filter tiles [z NT, min(F, z NT + NT))."""
+    Z = cf.gen_tiles(F)
+    NT = -(-(-(-F // Z)) // 32) * 32
+    return [np.arange(z * NT, min(F, z * NT + NT)) for z in range(Z)]
+
+
+def _ssp(z):
+    """The port's shifted softplus in float64 (softplus's linear branch
+    past 20, as the twin and the kernels)."""
+    return cf.shifted_softplus(torch.from_numpy(np.asarray(z))).numpy()
+
+
+def _gen_walks(c, G, E=16):
+    """``csrc/schnet_columns_gen.cu``'s K9 and K10 (wgrad) in float64 on
+    their schedules: block (column, range, tile) walks its rows' slots in
+    chunks of E, z1 for every hidden unit of a slot, then per filter of the
+    tile pre and the open row's run sum (K9 skips fcut = 0); K10 also the
+    slot's gfcut and gz1 = (gpre W2^T) sigmoid(z1) over the tile's filters
+    (each tile a partial of ggeo, summed after) and the weight cotangents.
+    Returns (out, dh, ggeo, gW1, gb1, gW2, gb2) and the write counts of
+    out and dh."""
+    refs = _refs(c)
+    h, geo, W1, b1, W2, b2 = (np.asarray(c[k], np.float64) for k in NAMES)
+    g = np.asarray(c["g"], np.float64)
+    B, F = W1.shape
+    nx, ny, Ktot = refs.qcol.shape
+    P = refs.P
+    geo_c = geo.reshape(nx * ny, B + 4, Ktot)
+    src = decode_j(refs)[0].reshape(-1).numpy()
+    qcol = refs.qcol.reshape(-1).numpy()
+    dcol = refs.dcol.reshape(-1).numpy()
+
+    def slot(s):
+        col, k = divmod(int(s), Ktot)
+        return col, geo_c[col, :B, k], geo_c[col, B, k]
+
+    out, dh = np.zeros((nx * ny * P, F)), np.zeros((nx * ny * P, F))
+    n_out = np.zeros(out.shape, np.int64)
+    n_dh = np.zeros(dh.shape, np.int64)
+    ggeo = np.zeros_like(geo_c)
+    gW1, gb1 = np.zeros_like(W1), np.zeros_like(b1)
+    gW2, gb2 = np.zeros_like(W2), np.zeros_like(b2)
+    for fwd in (True, False):
+        sched = (destination_schedule if fwd else source_schedule)(refs, G)
+        order, grp = (a.numpy() for a in sched)
+        for col in range(nx * ny):
+            for gr in range(G):
+                (r0, e0), (r1, e1) = grp[col, gr], grp[col, gr + 1]
+                for f in _gen_tiles(F):
+                    dest, cnt = (out, n_out) if fwd else (dh, n_dh)
+                    run, nxt, acc = -1, r0, np.zeros(len(f))
+
+                    def put(r, v):
+                        dest[col * P + r, f] = v
+                        cnt[col * P + r, f] += 1
+
+                    for base in range(e0, e1, E):
+                        for s in order[base:min(base + E, e1)]:
+                            dc, phi, fc = slot(s)
+                            row = dcol[s] if fwd else qcol[s]
+                            if fwd and fc == 0.0:
+                                continue
+                            if row != run:
+                                if run >= 0:
+                                    put(run, acc)
+                                    nxt = run + 1
+                                for r in range(nxt, row):
+                                    put(r, np.zeros(len(f)))
+                                run, nxt, acc = row, row, np.zeros(len(f))
+                            z1 = phi @ W1 + b1
+                            pre = _ssp(z1) @ W2[:, f] + b2[f]
+                            if fwd:
+                                acc += h[src[s], f] * (pre * fc)
+                                continue
+                            gm = g[dc * P + dcol[s], f]
+                            acc += gm * (pre * fc)
+                            gW = gm * h[col * P + qcol[s], f]
+                            gpre = gW * fc
+                            gz1 = (W2[:, f] @ gpre) / (1.0 + np.exp(-z1))
+                            k = int(s) % Ktot
+                            ggeo[dc, :B, k] += W1 @ gz1
+                            ggeo[dc, B, k] += gW @ pre
+                            gW2[:, f] += np.outer(_ssp(z1), gpre)
+                            gb2[f] += gpre
+                            gW1 += np.outer(phi, gz1)
+                            gb1 += gz1
+                    if run >= 0:
+                        put(run, acc)
+                        nxt = run + 1
+                    for r in range(nxt, r1):
+                        put(r, np.zeros(len(f)))
+    return (out, dh, ggeo.reshape(geo.shape), gW1, gb1, gW2, gb2,
+            (n_out, n_dh))
+
+
+@pytest.mark.parametrize("F,B,G", [(30, 50, 3), (96, 300, 2), (30, 300, 2),
+                                   (96, 50, 3)])
+def test_general_walks_match_jax(F, B, G):
+    """The general K9 and K10 (wgrad) walks at F = 30 (one tile, two
+    lanes past F) and 96 and B = 50 and 300 (past the tuned B <= 32)
+    match the twins in float64 to 1e-7 (the summation orders differ, and
+    past z1 = 20 the twin's softplus is linear, slope 1 where the kernels'
+    sigmoid gives 1 - 2e-9) and the JAX package's ``_cfconv_xla`` and its VJP, evaluated
+    in float64, at the message tolerance (its shifted softplus keeps an
+    f32 rounding: 8e-6 relative); every output and dh element is written
+    exactly once."""
+    c = _case(F, B, seed=F + B)
+    *got, (n_out, n_dh) = _gen_walks(c, G)
+    assert bool((n_out == 1).all()) and bool((n_dh == 1).all())
+    P, ksizes = c["lay"].dims[2], tuple(int(k) for k in c["lay"].dims[3])
+    with jax.enable_x64(True):
+        refs = jcb.ColRefs(jnp.asarray(c["qcol"]), jnp.asarray(c["dcol"]), P,
+                           ksizes)
+        f64 = [jnp.asarray(c[k], jnp.float64) for k in NAMES + ("g",)]
+
+        def fwd(h, geo, *w):
+            return _cfconv_xla(h, jgeo.split_geo(geo, refs.ksizes), *w,
+                               refs)
+
+        want = [np.asarray(fwd(*f64[:6]))]
+        grads = jax.vjp(fwd, *f64[:6])[1](f64[6])
+        want += [np.asarray(x) for x in grads]
+    t = [torch.tensor(c[k]).double() for k in NAMES]
+    twin = [cf.cf_fwd_plain(*t, _refs(c))] + list(
+        cf.cf_bwd_plain(*t, _refs(c), torch.tensor(c["g"]).double()))
+    real = np.broadcast_to((c["qcol"] >= 0)[:, :, None, :], got[2].shape)
+    for name, a, w, j in zip(("out", "dh", "ggeo", "gW1", "gb1", "gW2",
+                              "gb2"), got, twin, want):
+        w = w.numpy()
+        if name == "ggeo":   # real slots' phi and fcut channels only
+            keep = real[:, :, :B + 1]
+            a, w, j = (x[:, :, :B + 1][keep] for x in (a, w, j))
+        np.testing.assert_allclose(a, w, 1e-7, 1e-9, err_msg=name)
+        np.testing.assert_allclose(a, j, MSG_RTOL, MSG_ATOL, err_msg=name)

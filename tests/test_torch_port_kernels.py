@@ -81,6 +81,20 @@ def test_message_kernels_match_twin(cuda_device):
         torch.testing.assert_close(got, want, rtol=MSG_RTOL, atol=MSG_ATOL)
 
 
+def held(got, want32, want64, name=""):
+    """Each output at the tolerance of the float64 twin, or, where f32
+    arithmetic itself misses it (the f32 twin's own max miss over MSG_ATOL
+    on the same data), within twice that miss: two f32 summation orders,
+    each with comparable roundoff."""
+    for i, (g, w32, w64) in enumerate(zip(got, want32, want64)):
+        miss = float((g.double() - w64.double()).abs().max())
+        own = float((w32.double() - w64.double()).abs().max())
+        if own <= MSG_ATOL:
+            torch.testing.assert_close(g, w64, rtol=MSG_RTOL, atol=MSG_ATOL)
+        else:
+            assert miss <= 2 * own, (name, i, miss, own)
+
+
 def _check_message_family(c, dev, wgrad, width_of=None):
     """K1/K2, K6/K7 and K6/K15 against their twins on ``message_case`` c;
     with ``wgrad`` also the wgrad instances of K2, K7 and K15, whose gFW
@@ -184,16 +198,63 @@ def test_message_kernels_at_b28_native_width(cuda_device):
 
 @pytest.mark.gpu
 def test_message_kernels_take_a_wide_basis(cuda_device):
-    """B = 40 (B+1 > 32: the instance that reads the filter weights
-    through L1): the forwards and the plain backwards match their twins;
-    the wgrad instances still refuse B+1 > 32."""
+    """B = 40 (B+1 > 32): the tuned forwards and plain backwards (the
+    instance that reads the filter weights through L1) and the general
+    wgrad instances (gFW in the blocks' own f64 partials in global memory)
+    match their twins."""
     c = message_case(F=64, B=40, seed=7)
-    _check_message_family(c, cuda_device, wgrad=False)
+    before = dict(msg.LAUNCHES)
+    _check_message_family(c, cuda_device, wgrad=True)
+    moved = {k for k in before if msg.LAUNCHES[k] != before[k]}
+    assert {"msg_bwd_gen", "msg_bwd_geores_gen", "msg_bwd_src_gen",
+            "msg_fwd", "msg_bwd"} <= moved
+
+
+#: phase 17 (a)'s sweep of the message family: F at B = 20, and F = 30 at
+#: B+1 = 32 and 51
+GEN_MSG_SHAPES = [(30, 20), (50, 20), (130, 20), (288, 20), (512, 20),
+                  (30, 31), (30, 50)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("F,B", GEN_MSG_SHAPES)
+def test_general_message_kernels_match_twin(cuda_device, F, B):
+    """The general instances of K1/K2, K6/K7 and K6/K15 (plain and wgrad)
+    at widths the tuned bodies do not take, against their twins in float64
+    (``held``: at F = 50 the f32 twin's own position cotangent misses the
+    float64 one by 1.5e-5, |dR| up to 27), gFW normwise; the ops count
+    them under ``_gen``."""
+    c = message_case(F=F, B=B, seed=F + B)
     t, refs, cw = torch_message_args(c, cuda_device)
-    with pytest.raises(ValueError, match="B\\+1 <= 32"):
-        msg.msg_bwd_kernel(t["x"], t["mu"], t["Rs"], t["FW"], t["coff_fm"],
-                           cw, refs, c["cutoff"], t["g_dq"], t["g_dmu"],
-                           wgrad=True)
+    cw[:, 1] = gaussian_rbf_table(20, c["cutoff"], device=cuda_device)[0, 1]
+    cots = (t["g_dq"], t["g_dmu"])
+    full = (t["x"], t["mu"], t["Rs"], t["FW"], t["coff_fm"], cw, refs,
+            c["cutoff"])
+    gargs = (t["Rs"], t["coff_fm"], refs, cw, c["cutoff"])
+    geo = geo_op.geo_fwd_kernel(*gargs)
+    geo4 = geo_op.geo_fwd_kernel(*gargs, with_d=False)
+    hyb = (t["x"], t["mu"], geo, t["FW"], cw, refs, c["cutoff"])
+    src = (t["x"], t["mu"], geo4, t["FW"], refs)
+    before = dict(msg.LAUNCHES)
+    for kern, plain, args in [
+            (msg.msg_fwd_kernel, msg.msg_fwd_plain, full),
+            (msg.msg_fwd_geo_kernel, msg.msg_fwd_geo_plain,
+             (t["x"], t["mu"], geo, t["FW"], refs))]:
+        held(kern(*args), plain(*args), f64(plain, *args), kern.__name__)
+    for kern, plain, args in [
+            (msg.msg_bwd_kernel, msg.msg_bwd_plain, full),
+            (msg.msg_bwd_geores_kernel, msg.msg_bwd_geores_plain, hyb),
+            (msg.msg_bwd_src_kernel, msg.msg_bwd_src_plain, src)]:
+        want32, want64 = plain(*args, *cots), f64(plain, *args, *cots)
+        held(kern(*args, *cots), want32, want64, kern.__name__)
+        got = kern(*args, *cots, wgrad=True)
+        assert len(got) == 4
+        held(got[:3], want32, want64, kern.__name__ + " wgrad")
+        assert_normwise(got[3], want64[3], kern.__name__ + " gFW")
+    moved = {k for k in before if msg.LAUNCHES[k] != before[k]}
+    assert all(k.endswith("_gen") for k in moved if k.startswith("msg_bwd")
+               or F % 32), moved
+    assert "msg_bwd_gen" in moved
 
 
 @pytest.mark.gpu
@@ -248,25 +309,59 @@ def test_mixing_forward_at_widths_matches_twin(cuda_device, F, A, act):
 
 @pytest.mark.gpu
 def test_mixing_kernels_name_their_widths(cuda_device):
-    """K4 raises a ``ValueError`` naming its widths for F = 48 and F =
-    288; K3 runs at F = 48 and 279, widths it pads to a multiple of 32,
-    and at F = 352, its widest under the opt-in shared memory limit, and
-    names the limit at F = 353."""
-    for F in (48, 288):
+    """K4 runs its general instance at F = 48 and 288 and its tuned one at
+    F = 32; K3 runs its tuned instance at F = 48 and 279 (weights padded
+    to a multiple of 32) and F = 352, its widest under the opt-in shared
+    memory limit, and its general instance at F = 353; each against the
+    twin in float64, counted under its own name."""
+    for F, fwd, bwd in ((32, "mix_fwd", "mix_bwd"),
+                        (48, "mix_fwd", "mix_bwd_gen"),
+                        (279, "mix_fwd", "mix_bwd_gen"),
+                        (288, "mix_fwd", "mix_bwd_gen"),
+                        (352, "mix_fwd", "mix_bwd_gen"),
+                        (353, "mix_fwd_gen", "mix_bwd_gen")):
         c = mixing_case(A=37, F=F)
         ins = [torch.tensor(c[k], device=cuda_device) for k in MIX_INPUTS]
         cots = [torch.tensor(c[k], device=cuda_device) for k in ("gq", "gmu")]
-        with pytest.raises(ValueError, match=r"F % 32 == 0 and F <= 256"):
-            mix.mix_bwd_kernel(*ins, 1e-8, "ssp", *cots)
-    for F, ok in ((48, True), (279, True), (352, True), (353, False)):
-        c = mixing_case(A=37, F=F)
-        ins = [torch.tensor(c[k], device=cuda_device) for k in MIX_INPUTS]
-        if not ok:
-            with pytest.raises(ValueError, match="opt-in limit"):
-                mix.mix_fwd_kernel(*ins, 1e-8, "ssp")
-            continue
+        before = dict(mix.LAUNCHES)
         want = f64(mix.painn_mixing_plain, *ins, 1e-8, "ssp")
         for g, w in zip(mix.mix_fwd_kernel(*ins, 1e-8, "ssp"), want):
+            torch.testing.assert_close(g, w, rtol=MIX_RTOL, atol=MIX_ATOL)
+        want = f64(mix.painn_mixing_bwd_plain, *ins, 1e-8, "ssp", *cots)
+        for g, w in zip(mix.mix_bwd_kernel(*ins, 1e-8, "ssp", *cots), want):
+            torch.testing.assert_close(g, w, rtol=MIX_RTOL, atol=MIX_ATOL)
+        assert {k for k in before if mix.LAUNCHES[k] != before[k]} == {
+            fwd, bwd}, F
+
+
+#: phase 17 (a)'s sweep of the mixing kernels
+GEN_MIX_WIDTHS = [30, 50, 130, 288, 384, 512]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("A", [37, 12800])
+@pytest.mark.parametrize("F", GEN_MIX_WIDTHS)
+def test_general_mixing_kernels_match_twin(cuda_device, F, A):
+    """K3 and K4 (plain and wgrad) at phase 17's widths, the tuned K3 with
+    its cached padded weights up to F = 352 and the general instances
+    elsewhere, against the twin in float64 (the weight cotangents
+    normwise)."""
+    c = mixing_case(A=A, F=F, seed=F + A)
+    ins = [torch.tensor(c[k], device=cuda_device) for k in MIX_INPUTS]
+    cots = [torch.tensor(c[k], device=cuda_device) for k in ("gq", "gmu")]
+    for act in ("ssp", "silu"):
+        want = f64(mix.painn_mixing_plain, *ins, 1e-8, act)
+        for g, w in zip(mix.mix_fwd_kernel(*ins, 1e-8, act), want):
+            torch.testing.assert_close(g, w, rtol=MIX_RTOL, atol=MIX_ATOL)
+        want = f64(lambda *a: mix.painn_mixing_bwd_plain(*a, wgrad=True),
+                   *ins, 1e-8, act, *cots)
+        got = mix.mix_bwd_kernel(*ins, 1e-8, act, *cots, wgrad=True)
+        for g, w in zip(got[:2], want[:2]):
+            torch.testing.assert_close(g, w, rtol=MIX_RTOL, atol=MIX_ATOL)
+        for g, w in zip(got[2:], want[2:]):
+            assert_normwise(g, w, f"mixing weights F={F}")
+        for g, w in zip(mix.mix_bwd_kernel(*ins, 1e-8, act, *cots),
+                        want[:2]):
             torch.testing.assert_close(g, w, rtol=MIX_RTOL, atol=MIX_ATOL)
 
 
@@ -333,7 +428,8 @@ def test_mixing_wgrad_instance_matches_twin(cuda_device, A, F, act):
     q = ins[0].clone().requires_grad_(True)
     torch.autograd.grad(mix.painn_mixing_fused(q, *ins[1:], 1e-8, act), q,
                         cots)
-    assert {k: mix.LAUNCHES[k] - before[k] for k in before} == {
+    assert {k: mix.LAUNCHES[k] - before[k] for k in before
+            if mix.LAUNCHES[k] != before[k]} == {
         "mix_fwd": 2, "mix_bwd": 1, "mix_bwd_wgrad": 1}
 
 
@@ -468,14 +564,16 @@ def _within(got, want, S, pieces, name):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("pieces", [2, 1])
-@pytest.mark.parametrize("F,B", [(128, 20), (64, 27), (64, 40)])
+@pytest.mark.parametrize("F,B", [(128, 20), (64, 27), (64, 40), (30, 20),
+                                 (288, 20)])
 def test_reduced_precision_message_kernels_match_twin(cuda_device, pieces,
                                                       F, B):
     """K1/K2 and K6/K7 in their mixed and bf16 instances, with the filter
     weights in registers (B = 20) and read through L1 (B = 27, 40), plain
-    and (B+1 <= 32) wgrad, against their twins at the same pieces; the
-    ops launch the mode's instances, counted under its names; each
-    instance's mode effect is its twin's."""
+    and (B+1 <= 32) wgrad, and in their general instances at F = 30 and
+    288, against their twins at the same pieces; the ops launch the mode's
+    instances, counted under its names; each instance's mode effect is its
+    twin's."""
     c = message_case(F=F, B=B, seed=F + B)
     t, refs, cw = torch_message_args(c, cuda_device)
     cw[:, 1] = gaussian_rbf_table(20, c["cutoff"], device=cuda_device)[0, 1]
@@ -527,10 +625,12 @@ def test_reduced_precision_message_kernels_match_twin(cuda_device, pieces,
             msg.painn_message_columns_fm_geores(
                 *ins, geo, FW, t["coff_fm"], cw, refs, c["cutoff"], pieces)]:
         torch.autograd.grad((dq, dmu), ins, cots)
+    name = (lambda k: k + mode) if msg.tuned_width(F, B) else (
+        lambda k: msg.gen_name(k + mode))
     assert {k: msg.LAUNCHES[k] - before[k] for k in before} == {
-        **dict.fromkeys(msg.LAUNCHES, 0), "msg_fwd" + mode: 1,
-        "msg_bwd" + mode: 1, "msg_fwd_geo" + mode: 1,
-        "msg_bwd_geores" + mode: 1}
+        **dict.fromkeys(msg.LAUNCHES, 0), name("msg_fwd"): 1,
+        name("msg_bwd"): 1, name("msg_fwd_geo"): 1,
+        name("msg_bwd_geores"): 1}
 
 
 @pytest.mark.gpu
@@ -587,8 +687,9 @@ def test_cfconv_kernels_match_twin(cuda_device, seed, F):
         schnet.schnet_cfconv_columns(*args[:2], *w, refs), w, g)
     for gk, ref in zip(grads, want[2:]):
         assert_normwise(gk, ref)
-    assert {k: schnet.LAUNCHES[k] - before[k] for k in before} == {
-        "cf_fwd": 1, "cf_bwd": 0, "cf_bwd_wgrad": 1}
+    assert {k: schnet.LAUNCHES[k] - before[k] for k in before
+            if schnet.LAUNCHES[k] != before[k]} == {
+        "cf_fwd": 1, "cf_bwd_wgrad": 1}
 
 
 def _cfconv_bwd_checks(args, refs, g):
@@ -619,14 +720,49 @@ def test_cfconv_bwd_at_basis_widths(cuda_device, B, F):
     _cfconv_bwd_checks(args, refs, torch.tensor(c["g"], device=cuda_device))
 
 
+#: phase 17 (a)'s sweep of the cfconv kernels
+GEN_CF_SHAPES = [(30, 20), (96, 20), (192, 20), (256, 20), (512, 20),
+                 (64, 50), (128, 50), (64, 300), (128, 300)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("F,B", GEN_CF_SHAPES)
+def test_general_cfconv_kernels_match_twin(cuda_device, F, B):
+    """K9 and K10 (plain and wgrad) in their general instances at phase
+    17's shapes on a 3 x 3 grid, against the twin in float64 (``held``: the
+    f32 twin's own K9 output misses it by up to 7.7e-5, |out| up to 182),
+    the weight cotangents normwise, counted as ``cf_fwd_gen``,
+    ``cf_bwd_gen`` and ``cf_bwd_wgrad_gen``."""
+    c = cfconv_case(F=F, B=B, seed=F + B, n=110, L=11.0)
+    refs = ColRefs.from_layout(c["lay"], device=cuda_device)
+    args = [torch.tensor(c[k], device=cuda_device)
+            for k in ("h", "geo", "W1", "b1", "W2", "b2")]
+    before = dict(schnet.LAUNCHES)
+    fwd = lambda *a: (schnet.cf_fwd_plain(*a),)   # noqa: E731
+    held((schnet.cf_fwd_kernel(*args, refs),), fwd(*args, refs),
+         f64(fwd, *args, refs), "K9")
+    g = torch.tensor(c["g"], device=cuda_device)
+    want32 = schnet.cf_bwd_plain(*args, refs, g)
+    want64 = f64(schnet.cf_bwd_plain, *args, refs, g)
+    held(schnet.cf_bwd_kernel(*args, refs, g), want32[:2], want64[:2], "K10")
+    got = schnet.cf_bwd_kernel(*args, refs, g, wgrad=True)
+    assert len(got) == 6
+    held(got[:2], want32[:2], want64[:2], "K10 wgrad")
+    for name, gk, w in zip(("gW1", "gb1", "gW2", "gb2"), got[2:], want64[2:]):
+        assert_normwise(gk, w, name)
+    assert {k: schnet.LAUNCHES[k] - before[k] for k in before
+            if schnet.LAUNCHES[k] != before[k]} == {
+        "cf_fwd_gen": 1, "cf_bwd_gen": 1, "cf_bwd_wgrad_gen": 1}
+
+
 @pytest.mark.gpu
 def test_cfconv_kernels_name_their_capacity(cuda_device):
     """No column capacity limits the cfconv kernels: K9 at B = 20 on P =
     222 (one past its old shared memory limit of 221) and P = 1000
     matches its twin, and K10 and its wgrad instance at P = 154 (past
     their old limit of 153) and P = 400 match the twin in float64.  A
-    width the kernels do not take raises a ``ValueError`` that names
-    them before the launch."""
+    width the tuned kernels do not take (F = 96) runs the general
+    instance: zeros in, zeros out."""
     F = 128
     c = cfconv_case(F=F, B=20, seed=3)
     base = ColRefs.from_layout(c["lay"], device=cuda_device)
@@ -653,8 +789,10 @@ def test_cfconv_kernels_name_their_capacity(cuda_device):
     h96, W1, W2 = (torch.zeros(shape, device=cuda_device)
                    for shape in ((nx * ny * refs.P, 96), (20, 96), (96, 96)))
     b = torch.zeros(96, device=cuda_device)
-    with pytest.raises(ValueError, match="K9/K10 take F in"):
-        schnet.cf_fwd_kernel(h96, w[0], W1, b, W2, b, refs)
+    before = schnet.LAUNCHES["cf_fwd_gen"]
+    out = schnet.cf_fwd_kernel(h96, w[0], W1, b, W2, b, refs)
+    assert schnet.LAUNCHES["cf_fwd_gen"] == before + 1
+    assert out.shape == h96.shape and not out.any()
 
 
 #: threads (slots) of a narrow K11/K13 block
@@ -878,13 +1016,16 @@ def mode_case(grid, mode, dev, F=32, B=8, seed=0):
     ("halo_xy", (3, 3), 64, 20), ("wrap", (2, 3), 256, 20),
     ("halo_x", (3, 3), 256, 20), ("halo_xy", (2, 2), 256, 20),
     ("halo_x", (3, 3), 128, 20), ("halo_xy", (3, 3), 64, 40),
-    ("halo_x", (3, 3), 128, 27)])
+    ("halo_x", (3, 3), 128, 27), ("wrap", (3, 3), 30, 20),
+    ("halo_x", (2, 3), 30, 20), ("halo_xy", (3, 3), 288, 20),
+    ("wrap", (2, 3), 512, 20), ("halo_x", (3, 3), 30, 50)])
 def test_edge_kernels_match_twin(cuda_device, mode, grid, F, B):
     """K20, K21 and K21's wgrad instance (gFW held to the twin in f64) in
     each source-index mode, on aliased (2) and plain grids, at F = 32 to
-    256; the op launches the wgrad instance when FW_aug requires grad.  At
-    B = 27 the filter weights are read through L1 (B+1 > 24); at B = 40
-    (B+1 > 32) the wgrad instance refuses, the others run."""
+    256 in the tuned bodies and at F = 30, 288 and 512 and B+1 > 32 in the
+    general instances; the op launches the wgrad instance when FW_aug
+    requires grad.  At B = 27 the filter weights are read through L1 (B+1
+    > 24); at B = 40 and 50 (B+1 > 32) the general wgrad instance runs."""
     refs, t = mode_case(grid, mode, cuda_device, F=F, B=B, seed=sum(grid))
     args = (t["xmu"], t["rbf"], t["dir"], t["FW"], refs)
     cots = (t["g_dq"], t["g_dmu"])
@@ -896,10 +1037,6 @@ def test_edge_kernels_match_twin(cuda_device, mode, grid, F, B):
     assert len(got) == 3
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=MSG_RTOL, atol=MSG_ATOL)
-    if B + 1 > 32:
-        with pytest.raises(ValueError, match="B\\+1 <= 32"):
-            edge.msg_bwd_edge_kernel(*args, *cots, wgrad=True)
-        return
     got = edge.msg_bwd_edge_kernel(*args, *cots, wgrad=True)
     assert len(got) == 4
     for g, w in zip(got, want):
@@ -910,8 +1047,11 @@ def test_edge_kernels_match_twin(cuda_device, mode, grid, F, B):
                                 ins, cots)
     for g, w in zip(grads, want):
         torch.testing.assert_close(g, w, rtol=MSG_RTOL, atol=MSG_ATOL)
-    assert {k: edge.LAUNCHES[k] - before[k] for k in before} == {
-        "msg_fwd_edge": 1, "msg_bwd_edge": 0, "msg_bwd_edge_wgrad": 1}
+    fwd = "msg_fwd_edge" if msg.tuned_width(F, B) else "msg_fwd_edge_gen"
+    wg = ("msg_bwd_edge_wgrad" if msg.tuned_width(F, B, True)
+          else "msg_bwd_edge_wgrad_gen")
+    assert {k: edge.LAUNCHES[k] - before[k] for k in before
+            if edge.LAUNCHES[k] != before[k]} == {fwd: 1, wg: 1}
 
 
 @pytest.mark.gpu
@@ -1033,17 +1173,19 @@ CELL_GRIDS = {2: {}, 3: dict(n=200, L=13.0)}
 @pytest.mark.gpu
 @pytest.mark.parametrize("grid", [2, 3])
 @pytest.mark.parametrize("F,B", [(64, 20), (128, 20), (256, 20), (64, 27),
-                                 (128, 27), (256, 27)])
+                                 (128, 27), (256, 27), (30, 20), (288, 20),
+                                 (30, 50)])
 def test_cell_message_kernels_match_twin(cuda_device, F, B, grid):
     """K18, K19 and K19's wgrad instance (the column bodies in the cell
     index mode) at F = 64-256, with the filter weights in registers (B+1 =
     21) and read through L1 (B+1 = 28), on an aliased and a 3-cell grid:
     gFW (an f32 sum per block of the slots' terms, blocks summed in f64)
-    is held to the twin in float64, elementwise and normwise.  At F = 256 and B+1 = 28 the
-    wgrad instance's f64 partial [B+1, 3F] and its tiles exceed a block's
-    shared memory, and it refuses; the others run.  One forward and one
-    backward through the op bump only the two cell counters (the wgrad
-    instance when FW_aug requires grad)."""
+    is held to the twin in float64, elementwise and normwise.  At F = 256
+    and B+1 = 28 the tuned wgrad instance's f64 partial [B+1, 3F] and its
+    tiles exceed a block's shared memory, and the general instance runs,
+    as at F = 30 and 288 and B+1 = 51.  One forward and one backward
+    through the op bump only the two cell counters of the instances that
+    take the shape (the wgrad instance when FW_aug requires grad)."""
     c = cell_case(F=F, B=B, seed=F + B + grid, **CELL_GRIDS[grid])
     assert max(c["qidx"].shape[:3]) == grid
     refs = cg.CellRefs(torch.tensor(c["qidx"], device=cuda_device))
@@ -1059,29 +1201,27 @@ def test_cell_message_kernels_match_twin(cuda_device, F, B, grid):
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=MSG_RTOL, atol=MSG_ATOL)
     want64 = f64(pf.cell_msg_bwd_plain, *t, refs, *cots)
-    wgrad = not (F == 256 and B == 27)
-    if wgrad:
-        got = pf.cell_msg_bwd_kernel(*t, refs, *cots, wgrad=True)
-        assert len(got) == 4
-        for g, w in zip(got, want64):
-            torch.testing.assert_close(g, w, rtol=MSG_RTOL, atol=MSG_ATOL)
-        assert_normwise(got[3], want64[3], "gFW")
-    else:
-        with pytest.raises(RuntimeError, match="no block fits"):
-            pf.cell_msg_bwd_kernel(*t, refs, *cots, wgrad=True)
+    got = pf.cell_msg_bwd_kernel(*t, refs, *cots, wgrad=True)
+    assert len(got) == 4
+    for g, w in zip(got, want64):
+        torch.testing.assert_close(g, w, rtol=MSG_RTOL, atol=MSG_ATOL)
+    assert_normwise(got[3], want64[3], "gFW")
     counters = (pf.LAUNCHES, msg.LAUNCHES, edge.LAUNCHES)
     before = [dict(c) for c in counters]
-    ins = [a.clone().requires_grad_(i < 3 or wgrad) for i, a in enumerate(t)]
-    needs = [a for a in ins if a.requires_grad]
+    ins = [a.clone().requires_grad_(True) for a in t]
     grads = torch.autograd.grad(pf.painn_message_cellblock(*ins, refs),
-                                needs, cots)
+                                ins, cots)
     for g, w in zip(grads, want64):
         torch.testing.assert_close(g, w, rtol=MSG_RTOL, atol=MSG_ATOL)
-    if wgrad:
-        assert_normwise(grads[3], want64[3], "gFW (op)")
+    assert_normwise(grads[3], want64[3], "gFW (op)")
     moved = {k: v - b[k] for c, b in zip(counters, before)
              for k, v in c.items() if v != b[k]}
-    assert moved == {"cell_msg_fwd": 1, "cell_msg_bwd": 1}
+    # the tuned wgrad instance's f64 partial [B+1, 3F] and tiles exceed a
+    # block's shared memory at F = 256, B+1 = 28: the general one runs
+    tuned = (msg.tuned_width(F, B) and not (F == 256 and B == 27))
+    fwd = "cell_msg_fwd" if msg.tuned_width(F, B) else "cell_msg_fwd_gen"
+    assert moved == {fwd: 1,
+                     "cell_msg_bwd" if tuned else "cell_msg_bwd_gen": 1}
 
 
 @pytest.mark.gpu

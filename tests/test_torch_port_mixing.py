@@ -7,7 +7,7 @@ its first mixing block, and the forward also at a width K3 pads; the
 same model with the tensor cores' accumulator carried over K and with one
 TF32 pass, which it must tell apart; the plain twin's VJP at that width;
 K3's padded weights; and the widths the mixing kernels take
-(``ops/painn_mixing.py::check_width``)."""
+(``ops/painn_mixing.py::tuned_width``)."""
 import os
 
 import jax
@@ -347,15 +347,133 @@ def test_pad_weights_pads_each_block():
     (288, True, False), (279, False, True), (352, False, True),
     (353, False, False), (48, False, True)])
 def test_mixing_kernel_widths(F, bwd, ok):
-    """K4 takes F % 32 == 0 and F <= 256; K3 any F whose 16 rows of 10 FP
-    + 16 floats (FP: F rounded up to 32) fit the opt-in shared memory
-    limit (F <= 352), and one past each raises a ``ValueError`` that names
-    the limit."""
+    """Every width is taken: the tuned K4 takes F % 32 == 0 and F <= 256,
+    the tuned K3 any F whose 16 rows of 10 FP + 16 floats (FP: F rounded
+    up to 32) fit the opt-in shared memory limit (F <= 352); one past each
+    (``ok`` False) runs the general instance, and the wrappers' check
+    raises for no width F >= 1."""
     assert mix.mix_fwd_smem_bytes(F) == 64 * (10 * (-(-F // 32) * 32) + 16)
-    if ok:
-        mix.check_width(F, bwd)
-        return
-    with pytest.raises(ValueError,
-                       match="F % 32 == 0" if bwd else "opt-in limit"):
-        mix.check_width(F, bwd)
-    assert bwd or mix.mix_fwd_smem_bytes(F) > _build.MAX_DYN_SMEM
+    assert mix.tuned_width(F, bwd) == ok
+    mix.check_width(F)
+    assert ok or bwd or mix.mix_fwd_smem_bytes(F) > _build.MAX_DYN_SMEM
+
+
+# ------------------------------------------- the general instances' walks
+#: rows a block of the general instances (``csrc/painn_mixing_gen.cu::
+#: kRows``)
+GEN_ROWS = 4
+
+
+def _gen_bwd_walk(ins, cots, act, nsplit=3):
+    """``csrc/painn_mixing_gen.cu::mix_bwd_gen_kernel`` and the weight
+    cotangents it hands to ``mix_wgrad.cuh``, in float64: blocks of
+    GEN_ROWS rows (the last one ragged) recompute the forward, chain the
+    cotangents, write each row's gq', gmu' and its 16F factors [mu' | q' |
+    Vn | h | gV | gW | gpre | gcat] to S; the reduction sums products of
+    S's columns over nsplit row ranges into [gkmix | gk0 | gb0 | gk1 |
+    gb1] by ``mix_wgrad.cuh``'s problem table.  Returns (gqi, gmui, the
+    five weight cotangents, how often each gqi and gmui row was
+    written)."""
+    q, mu, dq, dmu, kmix, k0, b0, k1, b1 = (np.asarray(a, np.float64)
+                                            for a in ins)
+    gq, gmu = (np.asarray(a, np.float64) for a in cots)
+    A, F = q.shape
+    act_f = ACTIVATIONS[act]
+
+    def act_np(x):
+        return act_f(torch.from_numpy(x)).numpy()
+
+    def dact_np(x):
+        s = 1.0 / (1.0 + np.exp(-x))
+        return s * (1.0 + x * (1.0 - s)) if act == "silu" else s
+
+    gqi, gmui = np.zeros_like(q), np.zeros_like(mu)
+    n_rows = np.zeros(A, np.int64)
+    S = np.zeros((A, 16 * F))
+    for row0 in range(0, A, GEN_ROWS):
+        rows = np.arange(row0, min(A, row0 + GEN_ROWS))
+        qp = q[rows] + dq[rows]
+        mup = (mu[rows] + dmu[rows]).reshape(-1, 3, F)
+        VW = mup @ kmix                               # [r, 3, 2F]
+        V, W = VW[..., :F], VW[..., F:]
+        Vn = np.sqrt((V ** 2).sum(1) + EPS)
+        pre = qp @ k0[:F] + Vn @ k0[F:] + b0
+        h = act_np(pre)
+        bc = h @ k1[:, F:] + b1[F:]
+        b, c = bc[:, :F], bc[:, F:]
+        g = gq[rows]
+        gm = gmu[rows].reshape(-1, 3, F)
+        vw = (V * W).sum(1)
+        gW = gm * b[:, None] + (g * c)[:, None] * V
+        gV = (g * c)[:, None] * W
+        gcat = np.concatenate([g, (gm * W).sum(1), g * vw], 1)
+        gpre = (gcat @ k1.T) * dact_np(pre)
+        back = gpre @ k0.T
+        gqi[rows] = g + back[:, :F]
+        gV = gV + (back[:, F:] / Vn)[:, None] * V
+        gmui[rows] = (gm + gV @ kmix[:, :F].T + gW @ kmix[:, F:].T).reshape(
+            -1, 3 * F)
+        n_rows[rows] += 1
+        S[rows] = np.concatenate([mup.reshape(-1, 3 * F), qp, Vn, h,
+                                  gV.reshape(-1, 3 * F),
+                                  gW.reshape(-1, 3 * F), gpre, gcat], 1)
+    FF = F * F
+    part = np.zeros((nsplit, 7 * FF + 4 * F))
+    # mix_wgrad.cuh's problems: (x_off, y_off, M, N, terms, step, out_off,
+    # out_ld, bias_off)
+    probs = [(0, 6 * F, F, F, 3, F, 0, 2 * F, -1),
+             (0, 9 * F, F, F, 3, F, F, 2 * F, -1),
+             (3 * F, 12 * F, 2 * F, F, 1, 0, 2 * FF, F, 4 * FF),
+             (5 * F, 13 * F, F, 3 * F, 1, 0, 4 * FF + F, 3 * F, 7 * FF + F)]
+    per = -(-A // nsplit)
+    for sp in range(nsplit):
+        Ss = S[sp * per:min(A, (sp + 1) * per)]
+        for xo, yo, M, N, terms, step, oo, ld, bo in probs:
+            acc = sum(Ss[:, xo + t * step:xo + t * step + M].T
+                      @ Ss[:, yo + t * step:yo + t * step + N]
+                      for t in range(terms))
+            for i in range(M):
+                part[sp, oo + i * ld:oo + i * ld + N] = acc[i]
+            if bo >= 0:
+                part[sp, bo:bo + N] = Ss[:, yo:yo + N].sum(0)
+    w = part.sum(0)
+    return (gqi, gmui, w[:2 * FF].reshape(F, 2 * F),
+            w[2 * FF:4 * FF].reshape(2 * F, F), w[4 * FF:4 * FF + F],
+            w[4 * FF + F:7 * FF + F].reshape(F, 3 * F), w[7 * FF + F:],
+            n_rows)
+
+
+@pytest.mark.parametrize("act", ["ssp", "silu"])
+@pytest.mark.parametrize("F", [30, 288])
+def test_general_backward_walk_matches_jax(F, act):
+    """The general K4 (and its wgrad reduction) at F = 30 and 288 on 37
+    rows (the last block holds one row) matches the twin in float64 to
+    1e-9 (the summation orders differ) and the JAX package's
+    ``painn_mixing_xla`` VJP, evaluated under x64 (which keeps f32
+    roundings of ~2e-7 relative), at the mixing tolerances, the weight
+    cotangents normwise within 1e-5; every row of gq' and gmu' is written
+    exactly once."""
+    c = mixing_case(A=37, F=F, seed=F)
+    ins = [c[k] for k in MIX_INPUTS]
+    cots = (c["gq"], c["gmu"])
+    *got, n_rows = _gen_bwd_walk(ins, cots, act)
+    assert bool((n_rows == 1).all())
+    t = [torch.tensor(a).double() for a in ins]
+    twin = mix.painn_mixing_bwd_plain(*t, EPS, act,
+                                      *(torch.tensor(a).double()
+                                        for a in cots), wgrad=True)
+    with jax.enable_x64(True):
+        _, vjp = jax.vjp(lambda *a: painn_mixing_xla(*a, EPS, act),
+                         *[jnp.asarray(a, jnp.float64) for a in ins])
+        want = [np.asarray(g) for g in vjp(tuple(
+            jnp.asarray(a, jnp.float64) for a in cots))]
+    # the JAX VJP's cotangents of (q, mu, dq, dmu, kmix, k0, b0, k1, b1):
+    # q's equals dq's (the residual), as the kernel's one gq'
+    want = [want[0], want[1]] + want[4:]
+    names = ("gq'", "gmu'", "gkmix", "gk0", "gb0", "gk1", "gb1")
+    for i, (name, a, w, j) in enumerate(zip(names, got, twin, want)):
+        np.testing.assert_allclose(a, w.numpy(), 1e-9, 1e-11, err_msg=name)
+        if i < 2:
+            np.testing.assert_allclose(a, j, MIX_RTOL, MIX_ATOL, err_msg=name)
+        else:   # sums over the rows: normwise, as the card's wgrad gates
+            assert np.linalg.norm(a - j) <= 1e-5 * np.linalg.norm(j), name

@@ -25,8 +25,9 @@ from schnetpack_tpu.ops import colblock_geo as jgeo
 from schnetpack_tpu.ops.radial import gaussian_rbf_params
 from schnetpack_tpu_torch.ops import colblock_message as msg
 from schnetpack_tpu_torch.ops.colblock import (
-    column_gather, column_geometry, destination_order,
+    column_gather, column_geometry, decode_i, decode_j, destination_order,
     destination_schedule, painn_message, row_groups, source_order,
+    source_schedule,
 )
 from schnetpack_tpu_torch.ops.precision import round_pieces
 from torch_port_cases import (
@@ -239,3 +240,200 @@ def test_bf16_p3_product_matches_twin():
     S = np.abs(gW) @ np.abs(FW).T
     lim = (REDUCED_ULP[1] + MSG_RTOL) * S + MSG_ATOL
     assert (np.abs(got - want) <= lim).all()
+
+
+# ------------------------------------------- the general instances' walks
+def _jax64(fn, *args):
+    """``fn`` of the JAX package on float64 copies (x64 for this call)."""
+    with jax.enable_x64(True):
+        return jax.tree.map(np.asarray, fn(*[
+            jnp.asarray(a, jnp.float64) if isinstance(a, np.ndarray) else a
+            for a in args]))
+
+
+def _gen_inputs(F, B, seed):
+    """``message_case`` at (F, B) in float64: xmu [A', 6F], the edge-major
+    geometry of the case's positions, FW_aug and the cotangents."""
+    c = message_case(F=F, B=B, seed=seed)
+    t, refs, cw = torch_message_args(c)
+    rbf, dirs = column_geometry(t["Rs"], t["coff_fm"], refs, cw, c["cutoff"])
+    d = {k: t[k].double().numpy() for k in ("x", "mu", "FW", "g_dq",
+                                              "g_dmu")}
+    return (c, refs, np.concatenate([d["x"], d["mu"]], 1),
+            rbf.double().numpy(), dirs.double().numpy(), d["FW"],
+            d["g_dq"], d["g_dmu"])
+
+
+def _tiles(F):
+    """The general instances' feature tiles: [z NT, min(F, z NT + NT))."""
+    Z, NT = msg.gen_tiles(F), msg.gen_threads(F)
+    return [np.arange(z * NT, min(F, z * NT + NT)) for z in range(Z)]
+
+
+def _gen_fwd_walk(refs, xmu, rbf, dirs, FW, G, E=32):
+    """``csrc/colblock_message_gen.cu::msg_fwd_gen_kernel`` in float64 on
+    the edge-major geometry (K20's view): block (column, range, tile)
+    walks its destination rows' slots in chunks of E, skips a slot whose
+    basis row is zero, and sums each open row's dq and dmu for the tile's
+    features, stored when the row's run ends (rows without a slot: 0).
+    Returns [A', 4F] and how often each element was written."""
+    nx, ny, Ktot = refs.qcol.shape
+    P, B1, F = refs.P, FW.shape[0], FW.shape[1] // 3
+    dsorted, grp = (a.numpy() for a in destination_schedule(refs, G))
+    src = decode_j(refs)[0].reshape(-1).numpy()
+    dcol = refs.dcol.reshape(-1).numpy()
+    rbf, dirs = rbf.reshape(-1, B1), dirs.reshape(-1, 3)
+    out = np.zeros((nx * ny * P, 4 * F))
+    n_out = np.zeros(out.shape, np.int64)
+    for col in range(nx * ny):
+        for g in range(G):
+            (r0, e0), (r1, e1) = grp[col, g], grp[col, g + 1]
+            for f in _tiles(F):
+                cols = np.concatenate([f + k * F for k in range(4)])
+                run, nxt, acc = -1, r0, np.zeros((4, len(f)))
+
+                def put(r, v):
+                    out[col * P + r, cols] = v.reshape(-1)
+                    n_out[col * P + r, cols] += 1
+
+                for base in range(e0, e1, E):
+                    for s in dsorted[base:min(base + E, e1)]:
+                        if not rbf[s].any():   # fcut = 0 adds exactly 0
+                            continue
+                        d = dcol[s]
+                        if d != run:
+                            if run >= 0:
+                                put(run, acc)
+                                nxt = run + 1
+                            for r in range(nxt, d):
+                                put(r, np.zeros((4, len(f))))
+                            run, nxt, acc = d, d, np.zeros((4, len(f)))
+                        w = rbf[s] @ FW
+                        x = xmu[src[s]]
+                        acc[0] += x[f] * w[f]
+                        for k in range(3):
+                            acc[1 + k] += (x[2 * F + f] * w[2 * F + f]
+                                           * x[3 * F + k * F + f]
+                                           + x[F + f] * w[F + f] * dirs[s, k])
+                if run >= 0:
+                    put(run, acc)
+                    nxt = run + 1
+                for r in range(nxt, r1):
+                    put(r, np.zeros((4, len(f))))
+    return out, n_out
+
+
+def _gen_bwd_walk(refs, xmu, rbf, dirs, FW, g_dq, g_dmu, G, E=16):
+    """``msg_bwd_gen_kernel`` in its geometry-cotangent form (K15/K21) and
+    its wgrad instance, in float64: block (column, range, tile) walks its
+    source rows' slots in chunks of E; per slot and feature of the tile
+    the run sums of the open source row's dx and dmu, the filter
+    cotangent gW and the dir cotangent's terms; per slot grbf = gW FW^T
+    and gdir summed over the tile's features (each tile a partial, summed
+    after), and gFW += rbf^T gW.  Returns (dxmu, grbf, gdir, gFW) and how
+    often each element of dxmu was written."""
+    nx, ny, Ktot = refs.qcol.shape
+    P, B1, F = refs.P, FW.shape[0], FW.shape[1] // 3
+    esorted, grp = (a.numpy() for a in source_schedule(refs, G))
+    qcol = refs.qcol.reshape(-1).numpy()
+    dst = (decode_i(refs)[0]).reshape(-1).numpy()
+    rbf, dirs = rbf.reshape(-1, B1), dirs.reshape(-1, 3)
+    dxmu = np.zeros_like(xmu)
+    n_out = np.zeros(dxmu.shape, np.int64)
+    grbf, gdir = np.zeros_like(rbf), np.zeros_like(dirs)
+    gFW = np.zeros_like(FW)
+    for col in range(nx * ny):
+        for g in range(G):
+            (r0, e0), (r1, e1) = grp[col, g], grp[col, g + 1]
+            for f in _tiles(F):
+                cols = np.concatenate([f + k * F for k in range(6)])
+                run, nxt, acc = -1, r0, np.zeros((6, len(f)))
+
+                def put(r, v):
+                    dxmu[col * P + r, cols] = v.reshape(-1)
+                    n_out[col * P + r, cols] += 1
+
+                for base in range(e0, e1, E):
+                    for s in esorted[base:min(base + E, e1)]:
+                        sv = qcol[s]
+                        if sv != run:
+                            if run >= 0:
+                                put(run, acc)
+                                nxt = run + 1
+                            for r in range(nxt, sv):
+                                put(r, np.zeros((6, len(f))))
+                            run, nxt, acc = sv, sv, np.zeros((6, len(f)))
+                        x = xmu[col * P + sv]
+                        xq, xr, xm = x[f], x[F + f], x[2 * F + f]
+                        m = [x[3 * F + k * F + f] for k in range(3)]
+                        w = rbf[s] @ FW
+                        wq, wr, wm = w[f], w[F + f], w[2 * F + f]
+                        gq = g_dq[dst[s], f]
+                        gm = [g_dmu[dst[s], k * F + f] for k in range(3)]
+                        gp1 = sum(gm[k] * dirs[s, k] for k in range(3))
+                        gp2 = sum(gm[k] * m[k] for k in range(3))
+                        acc[0] += gq * wq
+                        acc[1] += gp1 * wr
+                        acc[2] += gp2 * wm
+                        for k in range(3):
+                            acc[3 + k] += gm[k] * xm * wm
+                        gw = np.concatenate([gq * xq, gp1 * xr, gp2 * xm])
+                        fcols = np.concatenate([f, F + f, 2 * F + f])
+                        grbf[s] += FW[:, fcols] @ gw
+                        for k in range(3):
+                            gdir[s, k] += (gm[k] * xr * wr).sum()
+                        gFW[:, fcols] += np.outer(rbf[s], gw)
+                if run >= 0:
+                    put(run, acc)
+                    nxt = run + 1
+                for r in range(nxt, r1):
+                    put(r, np.zeros((6, len(f))))
+    shape = refs.qcol.shape
+    return (dxmu, grbf.reshape(*shape, B1), gdir.reshape(*shape, 3), gFW,
+            n_out)
+
+
+#: float64 walks against float64 JAX: only the summation orders differ
+GEN_RTOL, GEN_ATOL = 1e-10, 1e-12
+
+
+@pytest.mark.parametrize("F,B,G", [(30, 12, 3), (288, 12, 2)])
+def test_general_destination_walk_matches_jax(F, B, G):
+    """The general forward's walk at F = 30 (one tile of 32 lanes, two
+    past F) and 288 (two tiles of 160 lanes) matches the JAX package's
+    ``_painn_message_xla`` in float64; every element of dq and dmu is
+    written exactly once, rows with no slot are 0."""
+    c, refs, xmu, rbf, dirs, FW, _, _ = _gen_inputs(F, B, seed=F)
+    got, n_out = _gen_fwd_walk(refs, xmu, rbf, dirs, FW, G)
+    assert bool((n_out == 1).all())
+    jrefs = jcb.ColRefs.from_layout(c["lay"])
+    want = _jax64(lambda *a: jcb._painn_message_xla(*a, jrefs), xmu, rbf,
+                  dirs, FW)
+    np.testing.assert_allclose(got, np.concatenate(want, 1), GEN_RTOL,
+                               GEN_ATOL)
+    assert msg.gen_tiles(F) == len(_tiles(F)) and sum(map(len, _tiles(F))) == F
+
+
+@pytest.mark.parametrize("F,B,G", [(30, 12, 3), (288, 12, 2), (30, 50, 3)])
+def test_general_source_walk_matches_jax(F, B, G):
+    """The general backward's walk (its geometry-cotangent form and its
+    wgrad instance, at B+1 = 13 and 51) matches the VJP of the JAX
+    package's ``_painn_message_xla`` in float64: dxmu, grbf, gdir (the
+    tiles' partials summed) and gFW (any B+1: the blocks' own partials);
+    every element of dxmu is written exactly once."""
+    c, refs, xmu, rbf, dirs, FW, g_dq, g_dmu = _gen_inputs(F, B, seed=F + B)
+    *got, n_out = _gen_bwd_walk(refs, xmu, rbf, dirs, FW, g_dq, g_dmu, G)
+    assert bool((n_out == 1).all())
+    jrefs = jcb.ColRefs.from_layout(c["lay"])
+
+    def vjp(xmu, rbf, dirs, FW, g_dq, g_dmu):
+        _, back = jax.vjp(lambda *a: jcb._painn_message_xla(*a, jrefs), xmu,
+                          rbf, dirs, FW)
+        return back((g_dq, g_dmu))
+
+    want = _jax64(vjp, xmu, rbf, dirs, FW, g_dq, g_dmu)
+    real = (refs.qcol >= 0).numpy()
+    for name, a, w in zip(("dxmu", "grbf", "gdir", "gFW"), got, want):
+        if name in ("grbf", "gdir"):   # the kernels write real slots only
+            a, w = a[real], w[real]
+        np.testing.assert_allclose(a, w, GEN_RTOL, GEN_ATOL, err_msg=name)

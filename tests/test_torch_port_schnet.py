@@ -294,6 +294,10 @@ def test_cfconv_kernel_capacity_limit(P, bwd):
         need = max(cf.cf_smem_bytes(F, 20, bwd, w) for w in (False, bwd))
         assert need <= 232_448, (F, need)
         cf.check_width(F, 20)
+        assert cf.tuned_width(F, 20)
+    for F in (30, 96, 512):   # the general instances take every other F
+        cf.check_width(F, 20)
+        assert not cf.tuned_width(F, 20)
     c = cfconv_case(F=128, B=20, seed=3)
     refs = dataclasses.replace(ColRefs.from_layout(c["lay"]), P=P, cache={})
     _, grp, G = (cf._bwd_schedule(refs, False) if bwd
