@@ -351,9 +351,12 @@ Phases (any failure exits non-zero before the last line is printed):
    20, and F = 64 and 128 at B = 50 and 300) against their twins on a
    2,048-atom box, the backwards and gFW held to the float64 twins
    (``held_compare``); the general instances' rows at F = 30 on the bench
-   box with F = 512 sub-rows; (b) PaiNN-30x3 (full, hybrid) and SchNet-30x3
-   on the column layout against ``port_ref_{painn,schnet}_w30_argon.npz``
-   at phase 4's gates, then 300 NVE steps each (drift <= WIDTH_DRIFT_TOL,
+   box with F = 512 sub-rows and cf_bwd_gen's at (F, B) = (64, 300), the
+   redesigned backwards' device ms beside their readings before the
+   redesign, their bounds and ratios; (b) PaiNN-30x3 (full, hybrid) and
+   SchNet-30x3 on the column layout against
+   ``port_ref_{painn,schnet}_w30_argon.npz`` at phase 4's gates, then 300
+   NVE steps each (drift <= WIDTH_DRIFT_TOL,
    the general instances' launches a step); 20 steps each on the row-9,
    27-cell and slab paths, of PaiNN-384x1 (K3's general instance) and in
    the mixed and bf16 modes; one parameter gradient of PaiNN-30x3 (full,
@@ -439,13 +442,21 @@ NORM_RTOL = 1e-5
 #: cfconv kernels) and their template kernels' parameters, per kernel name
 _MSG_FWD = {"msg_fwd_kernel": ("kIn", "kB4", "kP")}
 _MSG_BWD = {"msg_bwd_kernel": ("kMode", "kWgrad", "kB4", "kP")}
+_MSG_BWD_GEN = {"msg_bwd_gen_kernel": ("kMode", "kWgrad", "kB4", "kP",
+                                      "kScr")}
 PTXAS_SOURCES = {
     **{f"colblock_message{m}.cu": _MSG_FWD for m in ("", "_mixed", "_bf16")},
     **{f"colblock_message_bwd{m}.cu": _MSG_BWD
        for m in ("", "_mixed", "_bf16")},
     "painn_mixing.cu": {"mix_fwd_kernel": ("ROWS", "NW")},
     "schnet_columns.cu": {"cf_fwd_kernel": ("F",),
-                          "cf_bwd_kernel": ("kWgrad", "F")}}
+                          "cf_bwd_kernel": ("kWgrad", "F")},
+    "colblock_message_gen.cu": {"msg_fwd_gen_kernel": ("kIn", "kP"),
+                                **_MSG_BWD_GEN},
+    **{f"colblock_message_gen_{m}.cu": _MSG_BWD_GEN
+       for m in ("mixed", "bf16")},
+    "schnet_columns_gen.cu": {"cf_bwd_gen_kernel": ("kWgrad", "kWide",
+                                                    "kScr")}}
 #: the numbers of a kernel row that its sub-rows carry
 SUB_KEYS = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
             "bound_by", "tf32x3_floor_ms", "library_ms", "library_device_ms",
@@ -745,8 +756,9 @@ def cuda_ms(fn, reps=10):
     return start.elapsed_time(end) / reps
 
 
-#: traces that ``device_ms`` took, and those it took again (lost kernels)
-TRACES = {"taken": 0, "retaken": 0}
+#: traces that ``device_ms`` took, those it took again (lost kernels) and
+#: the times it estimated the lost ones
+TRACES = {"taken": 0, "retaken": 0, "estimated": 0}
 
 
 def device_ms(fn, reps=10, tries=8):
@@ -757,8 +769,13 @@ def device_ms(fn, reps=10, tries=8):
     calls start a few ms into their step (the trace can miss the first
     kernels of a window); a trace in which some kernel did not run a
     multiple of ``reps`` times lost kernels and is taken again, each try
-    waiting twice as long before its calls (5 ms, then 10, ...: phase 17's
-    sweep once lost a kernel five times at 5 ms).  The step's own range
+    waiting twice as long before its calls and after they end (5 ms, then
+    10, ...: phase 17's sweep once lost a kernel five times at 5 ms, and
+    in a whole run two of ten calls' kernels in all eight tries when the
+    waits came before the calls only).  Where every try lost some, each
+    kernel counts its mean duration times its launches a call, its count
+    over ``reps`` rounded (a whole run's phase 17 once lost the first two
+    fills of a window in all eight tries: 18 of 20).  The step's own range
     on the device (``ProfilerStep``) is no kernel."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -779,14 +796,23 @@ def device_ms(fn, reps=10, tries=8):
                 for _ in range(reps):
                     fn()
                 torch.cuda.synchronize()
+                time.sleep(0.005 * 2 ** attempt)
                 prof.step()
         us = sum(e.device_time_total for e in traced)
         if us > 0 and all(e.count % reps == 0 for e in traced):
             return us / 1e3 / reps
         TRACES["retaken"] += 1
-    raise AssertionError(
-        f"the profiler's trace lost kernels in {tries} tries: "
-        f"{[(e.key, e.count) for e in traced]}")
+    per_call = {e.key: round(e.count / reps) for e in traced}
+    if not traced or not all(per_call.values()):
+        raise AssertionError(
+            f"the profiler's trace lost kernels in {tries} tries: "
+            f"{[(e.key, e.count) for e in traced]}")
+    TRACES["estimated"] += 1
+    print(f"device_ms: lost kernels in {tries} tries, estimated from each "
+          f"kernel's mean: {[(e.key[:60], e.count) for e in traced]}",
+          flush=True)
+    return sum(e.device_time_total / e.count * per_call[e.key]
+               for e in traced) / 1e3
 
 
 def in_f64(fn, *args):
@@ -5422,15 +5448,20 @@ WIDTH_REFERENCE = {
     name: os.path.join(ROOT, "tests", "data", f"port_ref_{name}_argon.npz")
     for name in ("painn_w30", "schnet_w30", "schnet_b300")}
 #: (a) the sweep against the twins: the message family's (F, B), plain
-#: and wgrad; the reduced modes' F (B = 20); the mixing's F on its row
-#: counts; the cfconv's (F, B)
+#: and wgrad (at (512, 300) P3's warps split the n-tiles, at (30, 1000) the
+#: basis arrays lie in global scratch); the reduced modes' F (B = 20); the
+#: mixing's F on its row counts; the cfconv's (F, B) (K10's tiles in
+#: global scratch at (1024, 20) wgrad and (64, 2000))
 WIDTH_MSG = ((30, 20), (50, 20), (130, 20), (288, 20), (512, 20), (30, 31),
-             (30, 50))
+             (30, 50), (512, 300), (30, 1000))
 WIDTH_REDUCED = (30, 288)
 WIDTH_MIX = (30, 50, 130, 288, 384, 512)
 WIDTH_MIX_ROWS = (37, 12_800)
 WIDTH_CF = ((30, 20), (96, 20), (192, 20), (256, 20), (512, 20), (64, 50),
-            (128, 50), (64, 300), (128, 300))
+            (128, 50), (64, 300), (128, 300), (1024, 20), (64, 2000))
+#: the tuned message backward's widths (B = 20) at which the general one is
+#: timed beside it on the bench box
+WIDTH_TUNED = (128, 256)
 #: the sweep's box: the bench box's layout at 2,048 atoms
 WIDTH_BOX = 2_000
 #: the widest swept F, whose general instances are timed beside F = 30
@@ -5450,6 +5481,20 @@ GEN_FAMILIES = ("msg_", "cell_msg_", "mix_", "cf_")
 #: the width of the short run whose PaiNN drives K3's general instance
 #: (the tuned K3 takes F <= 352), one interaction of it
 WIDTH_K3 = 384
+#: the SchNet paper's filters and Gaussians, a sub-row of cf_bwd_gen on the
+#: bench box
+WIDTH_PAPER = (64, 300)
+#: device ms of the redesigned general backwards before their redesign
+#: (PERF.md's kernel table, NVIDIA H100 80GB HBM3, 700 W): (plain, wgrad)
+#: at F = 30 on the bench box and at F = WIDTH_WIDE on the sweep's box
+BEFORE_REDESIGN_MS = {
+    "msg_bwd_gen": ((0.7407, 4.5285), (1.1115, 5.2274)),
+    "msg_bwd_geores_gen": ((0.8238, 4.5550), (1.2405, 5.4549)),
+    "msg_bwd_src_gen": ((1.0048, 5.8920), (1.7396, 9.6337)),
+    "msg_bwd_edge_gen": ((0.8801, 5.9060), (1.6057, 9.5903)),
+    "cell_msg_bwd_gen": ((0.8756, 5.6013), (1.5984, 9.1974)),
+    "cf_bwd_gen": ((1.2012, 56.9767), (3.0595, 149.2195)),
+}
 
 
 def width_tree(name):
@@ -5883,13 +5928,110 @@ def width_kernel_rows(system, sweep_layouts, seed, dev):
     operations as phase 3 counts them.  K20/K21 in the wrap mode on the
     column layout (the slab path's bodies), K18/K19 on the 27-cell
     layout."""
-    rows = check_kernels(width_cases(30, width_layouts(system, dev), seed,
-                                     dev))
+    bench = width_layouts(system, dev)
+    rows = check_kernels(width_cases(30, bench, seed, dev))
     for row, wide in zip(rows, check_kernels(width_cases(
             WIDTH_WIDE, sweep_layouts, seed, dev))):
         row[f"F{WIDTH_WIDE}"] = dict(
             sub_row(wide), box_rows=int(sweep_layouts["R"].shape[0]))
+    F, B = WIDTH_PAPER
+    (paper,) = check_kernels([paper_cf_case(bench, seed, dev)])
+    by_name = {r["name"]: r for r in rows}
+    by_name["cf_bwd_gen"][f"F{F}_B{B}"] = sub_row(paper)
+    for name, ((f30, wide), (wf30, wwide)) in BEFORE_REDESIGN_MS.items():
+        row = by_name[name]
+        for tag, r, before in (
+                ("F = 30", row, f30), ("F = 30 wgrad", row["wgrad"], wf30),
+                (f"F = {WIDTH_WIDE}", row[f"F{WIDTH_WIDE}"], wide),
+                (f"F = {WIDTH_WIDE} wgrad", row[f"F{WIDTH_WIDE}"]["wgrad"],
+                 wwide)):
+            print(f"redesigned {name} ({tag}): device {r['device_ms']:.4f} "
+                  f"ms (before {before:.4f}), bound {r['bound_ms']:.4f} ms, "
+                  f"{r['device_ms'] / r['bound_ms']:.1f}x", flush=True)
+    for tag, r in (("", paper), (" wgrad", paper["wgrad"])):
+        print(f"redesigned cf_bwd_gen (F = {F}, B = {B}{tag}): device "
+              f"{r['device_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms, "
+              f"{r['device_ms'] / r['bound_ms']:.1f}x", flush=True)
+    for F in WIDTH_TUNED:
+        tuned, gen = general_at_tuned_width(bench, sweep_layouts, F, seed)
+        print(f"general at a tuned width: msg_bwd (K2) F = {F}, B = 20: "
+              f"tuned {tuned:.4f} ms, general {gen:.4f} ms (device), "
+              f"{gen / tuned:.2f}x", flush=True)
     return rows
+
+
+def general_at_tuned_width(bench, small, F, seed):
+    """K2's device ms at a width F the tuned body takes (B = 20) on the
+    bench box's layout ``bench``: (tuned, general), the general instance
+    run by turning the wrapper's dispatch to it, and held to the float64
+    twin on the smaller layout ``small`` (``width_layouts``)."""
+    from schnetpack_tpu_torch.ops import colblock_message as msg
+
+    g = torch.Generator().manual_seed(seed + F)
+
+    def args(L):
+        R, dev = L["R"], L["R"].device
+        Ap = R.shape[0]
+
+        def rnd(*shape, scale=0.3):
+            return (torch.randn(shape, generator=g) * scale).to(dev)
+
+        return (rnd(Ap, 3 * F), rnd(Ap, 3 * F), R, rnd(21, 3 * F),
+                L["coff"], L["cw"], L["refs"], CUTOFF, rnd(Ap, F, scale=1.0),
+                rnd(Ap, 3 * F, scale=1.0))
+
+    big, check = args(bench), args(small)
+    assert msg.tuned_width(F, 20) and not msg.tuned_width(F + 1, 20)
+    tuned = device_ms(lambda: msg.msg_bwd_kernel(*big))
+    dispatch = msg._tuned_bwd
+    msg._tuned_bwd = lambda *a, **k: False
+    try:
+        before = msg.LAUNCHES["msg_bwd_gen"]
+        got = msg.msg_bwd_kernel(*check)
+        gen = device_ms(lambda: msg.msg_bwd_kernel(*big))
+        assert msg.LAUNCHES["msg_bwd_gen"] > before
+    finally:
+        msg._tuned_bwd = dispatch
+    held_compare(f"msg_bwd_gen at tuned F = {F}", got,
+                 msg.msg_bwd_plain(*check)[:3],
+                 in_f64(msg.msg_bwd_plain, *check)[:3])
+    return tuned, gen
+
+
+def paper_cf_case(L, seed, dev):
+    """cf_bwd_gen's ``case`` at the SchNet paper's (F, B) = WIDTH_PAPER on
+    the layout ``L`` (``width_layouts``), its raw-phi geometry at B
+    Gaussians, held to its float64 twin."""
+    from schnetpack_tpu_torch.ops import colblock_geo as geo_op
+    from schnetpack_tpu_torch.ops import schnet_columns as cf
+    from schnetpack_tpu_torch.ops.radial import gaussian_rbf_table
+
+    F, B = WIDTH_PAPER
+    R, refs = L["R"], L["refs"]
+    Ap = R.shape[0]
+    cw = gaussian_rbf_table(B, CUTOFF, device=dev)
+    graw = geo_op.geo_fwd_kernel(R, L["coff"], refs, cw, CUTOFF,
+                                 with_d=False, raw_phi=True)
+    g = torch.Generator().manual_seed(seed + 300)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g) * scale).to(dev)
+
+    args = (rnd(Ap, F), graw, rnd(B, F, scale=(6.0 / (B + F)) ** 0.5),
+            rnd(F, scale=0.1), rnd(F, F, scale=(3.0 / F) ** 0.5),
+            rnd(F, scale=0.1), refs, rnd(Ap, F))
+    mlp, ne = B * F + F * F, L["ne"]
+    return case("cf_bwd_gen", "schnet_columns_gen.cu",
+                "schnet_columns.py:145",
+                lambda: cf.cf_bwd_kernel(*args),
+                lambda: cf.cf_bwd_plain(*args)[:2],
+                (args[:6], (refs.qcol, refs.dcol), args[7]), 4 * ne * mlp,
+                wgrad={"kern": lambda: cf.cf_bwd_kernel(*args, wgrad=True),
+                       "plain": lambda: cf.cf_bwd_plain(*args),
+                       "ref64": lambda: in_f64(cf.cf_bwd_plain, *args),
+                       "flops": 6 * ne * mlp, "norm_from": 2}) | {
+        "ref64": lambda: in_f64(cf.cf_bwd_plain, *args)[:2],
+        "tag": f" (F = {F}, B = {B})"}
 
 
 def width_md_phase(pos, cell, seed, dev, launches):
@@ -6111,7 +6253,8 @@ def main():
         else:
             rows.append(row)
     print(f"profiler: {TRACES['taken']} traces, {TRACES['retaken']} taken "
-          "again (lost kernels)", flush=True)
+          f"again (lost kernels), {TRACES['estimated']} estimated",
+          flush=True)
     reference_phase(dev)
     launches = (msg.LAUNCHES, mix.LAUNCHES, geo_op.LAUNCHES, cf.LAUNCHES,
                 sel.LAUNCHES, cg.LAUNCHES, pf.LAUNCHES, edge.LAUNCHES)

@@ -12,50 +12,102 @@
 //   :687 (packed geo) and :322 _msg_fwd_kernel (edge-major, row 12);
 // K18 msg_fwd_gen_kernel<kCellIn, 3>: schnetpack_tpu/ops/painn_fused.py:116
 //   _fwd_kernel;
-// K2 msg_bwd_gen_kernel<kFused, W, kP>: colblock_pallas.py:1239;
-// K7 msg_bwd_gen_kernel<kGeoRes, W, kP>: colblock_pallas.py:1570;
-// K15/K21 msg_bwd_gen_kernel<kSrc, W, 3>: colblock_pallas.py:834, :945
-//   and :391 _msg_bwd_kernel;
+// K2 msg_bwd_gen_kernel<kFused, W, kP>: colblock_pallas.py:1239
+//   _msg_fm_bwd_fused_kernel;
+// K7 msg_bwd_gen_kernel<kGeoRes, W, kP>: colblock_pallas.py:1570
+//   _msg_fm_bwd_geores_kernel;
+// K15/K21 msg_bwd_gen_kernel<kSrc, W, 3>: colblock_pallas.py:834
+//   _msg_fm_bwd_src_kernel, :945 _msg_fm_bwd_src_res_kernel, :391
+//   _msg_bwd_kernel and schnetpack_tpu/ops/colblock_shard.py:307
+//   _msg_hx_bwd_call;
 // K19 msg_bwd_gen_kernel<kCell, W, 3>: painn_fused.py:185 _bwd_kernel.
 // The layout, the schedules, the formulas of the geometry chain and the
 // rounding points of the reduced instances are those of the tuned bodies
-// (see their headers); the arithmetic is plain f32 FMAs (f64 for gFW).
+// (see their headers).
 //
-// The design: the features are cut into Z = ceil(F / 256) tiles of NT
-// threads (NT = F / Z rounded up to the warp); block (col, g, z) walks the
-// slots of row range g of column col, as the tuned block does, for the
-// features z NT + tid < F of its tile (the lanes past F load feature F - 1
-// and store nothing).  Per chunk of E slots (E from the shared memory that
-// fits, at most 32 forward and 16 backward) the block stages the slots'
-// indices, geometry and basis rows [E][B+1] in shared memory, then each
-// thread walks the chunk in order for its feature: the filter (B+1 FMAs a
-// part), the run sums of the open output row in registers, each row
-// stored once when its run ends and rows without a slot written as zeros.
-// The backward's sums over the features of a slot (grbf = gW FW^T, the
-// direction cotangent) go through shared memory [E][3][NT] and are summed
-// per slot in feature order in f64 (as the geometry chain's sums over the
-// basis; f32 chains this long missed the float64 twin's position
-// cotangent by more than 1e-5 at F = 50 on the H100); those over the tiles are the wrapper's: each
-// z writes its own partial of the position cotangents gRo, gRd (K2, K7;
-// the geometry chain is linear in grbf and gdir) and of ggeo (K15, K21,
-// K19) where Z > 1.  The wgrad instances add each chunk's gFW sums into
-// the block's own f64 partial [B+1][3F] in global memory, each element by
-// the one thread of its feature: any B.  No atomics: every output element
-// has one writer and every sum one order.
+// Both cut the features into Z = ceil(F / 256) tiles of NT threads (NT =
+// F / Z rounded up to the warp); block (col, g, z) walks the slots of row
+// range g of column col, as the tuned block does, for the features z NT +
+// tid < F of its tile.  No atomics: every output element has one writer
+// and every sum one order, so a run repeats bit for bit.
 //
-// What bounds them on the H100: as the tuned bodies, the (B+1) x 3F
-// filter FMAs per slot (twice backward, three times with gFW) at the FP32
-// rate; these instances also re-read each slot's basis row per feature
-// from shared memory and the filter weights from L1, and recompute the
-// geometry in every feature tile.
+// The forward: per chunk of E slots (E from the shared memory that fits,
+// at most 32) the block stages the slots' indices, geometry and basis rows
+// [E][B+1], then each thread walks the chunk in order for its feature (the
+// lanes past F load feature F - 1 and store nothing): the filter (B+1
+// FMAs a part, FW_aug through L1), the run sums of the open output row in
+// registers, each row stored once when its run ends and rows without a
+// slot written as zeros.  What bounds it: the (B+1) x 3F filter FMAs a
+// slot at the FP32 rate, with the basis row re-read per feature.
+//
+// The backward runs the tuned msg_bwd_kernel's body (colblock_message_
+// bwd.cu's design; one copy for both kernels, colblock_message_bwd_body.
+// cuh) at any width: its chunks of 16 slots staged by cp.async under the
+// chunk before, P1-P5 as there.  What bounds it: per live slot the filter and
+// the basis cotangent grbf = gW FW^T, (B+1) x 3F FMAs each, and the
+// destination row's cotangents (4F floats through L2); with gFW another
+// (B+1) x 3F.  The design:
+//   * the tile's features are zero-padded to NT: the wrapper pads FW_aug
+//     to [B+1][Z][3][NT] once per parameter version (ops/colblock_message.
+//     py::gen_padded_fw), and the lanes past F load zeros and store
+//     nothing, so their filter cotangents gW are exact zeros in every
+//     product;
+//   * P3 (grbf, [16, 3NT] x [3NT, B+1]) and the wgrad instances' gFW
+//     ([B+1, 16] x [16, 3NT], any B: every m16 tile of B+1) run on the
+//     tensor cores, mma.sync in 3xTF32 (f32-accurate; bf16 at one piece);
+//     the tile's FW_aug rows lie in shared memory or are read through L1,
+//     whichever fits more blocks an SM (gb_plan); the warps split P3's
+//     k-steps of 3NT, each into its own slice of grbf, added in P4, or,
+//     where grbf has at least as many n8-tiles as the block has warps
+//     (B+1 > 8 NW - 8), its n-tiles, into one slice (bwd_slices);
+//   * the arrays that grow with B (the basis rows, grbf's slices, the
+//     staged channels; bwd_basis_floats) lie in shared memory where a block
+//     fits (B+1 up to ~700 at NT = 256, ~870 at NT = 32), else (kScr) in
+//     the block's slice of a scratch in global memory (gen_launch.cuh::
+//     in_waves), staged by loads and stores: every F >= 1 and B >= 1 runs;
+//   * gFW's chunk sums are added to the block's f64 partial in shared
+//     memory where it fits (else to the block's own slice in global
+//     memory), each element by one thread, written out once;
+//   * P2 keeps the thread's filter weights in registers where B+1 <= 24
+//     (kB4, the tuned body's register instance; at F = 30 0.318 ms against
+//     0.445 reading them for every slot) and loads the cotangent rows of 4
+//     slots together; P4 chains 4 slots a warp; P5 adds the position
+//     cotangents of equal rows in parallel, the lowest lane of each group
+//     of equal rows in slot order;
+//   * with Z > 1 each tile writes its own partial of the position
+//     cotangents gRo, gRd (K2, K7; the geometry chain is linear in grbf
+//     and gdir) and of ggeo (K15, K21, K19), summed by the wrapper.
+// At F <= 32 a block is one warp, and 12 blocks (168 registers) share an
+// SM.  Measured on the H100 (PERF.md): at F = 30 it runs as the tuned body
+// does at F = 32 (0.318 against 0.317 ms on the bench box), bound by each
+// warp's chain of dependent instructions through a chunk (P2 46%, P3 and
+// P4 21% each); 128 or 96 registers for 16 or 19 blocks an SM ran slower
+// (0.354, 0.396 ms).
 
 #include "colblock_message.cuh"
+#include "colblock_message_bwd_body.cuh"
+#include "gen_launch.cuh"
+
+// the feature precision of this object's backward instances: SPK_PIECES 3
+// (this file) holds the forward and the f32 backward of every form;
+// colblock_message_gen_{mixed,bf16}.cu include it with SPK_PIECES 2 and 1
+// and hold K2's and K7's backward under spk_msg_bwd_gen_mixed and _bf16
+// (three objects that nvcc builds in parallel)
+#ifndef SPK_PIECES
+#define SPK_PIECES 3
+#endif
+#if SPK_PIECES == 1
+#define SPK_GEN_ENTRY(name) name##_bf16
+#elif SPK_PIECES == 2
+#define SPK_GEN_ENTRY(name) name##_mixed
+#else
+#define SPK_GEN_ENTRY(name) name
+#endif
 
 namespace {
 
 constexpr int kGenTile = 256;  // features a block, at most
 constexpr int kGenFwdE = 32;   // slots a forward chunk, at most
-constexpr int kGenBwdE = 16;   // slots a backward chunk, at most
 constexpr int kPosIn = 0, kGeoIn = 1, kCellIn = 2;
 
 // the feature tiles of width F: Z tiles of NT threads
@@ -67,27 +119,22 @@ __host__ __device__ inline int gen_threads(int F) {
   return (w + 31) / 32 * 32;
 }
 
-// shared memory of a chunk of E slots, bytes
+// shared memory of a forward chunk of E slots, bytes
 inline size_t gen_fwd_smem(int E, int B) {
   return sizeof(float) * (size_t)E * (B + 1 + 4) + sizeof(int) * 3 * E;
-}
-inline size_t gen_bwd_smem(int E, int NT, int B) {
-  return sizeof(float) * (size_t)E * (2 * (B + 1) + 6 * NT + 10) +
-         sizeof(int) * 4 * E;
 }
 
 // the largest chunk (at most emax slots) whose shared memory fits the
 // device's opt-in limit; 0 when not even one slot does
 template <typename Fn>
 int gen_chunk(int emax, Fn smem) {
-  int dev = 0, optin = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  const int optin = optin_smem();
   int E = emax;
   while (E > 0 && smem(E) > (size_t)optin) --E;
   return E;
 }
 
+#if SPK_PIECES == 3
 template <int kIn, int kP>
 __global__ void __launch_bounds__(kGenTile)
     msg_fwd_gen_kernel(const FeatT<kP>* __restrict__ x,
@@ -245,21 +292,37 @@ __global__ void __launch_bounds__(kGenTile)
   }
   for (; next < r1; ++next) put(next, 0.f, 0.f, 0.f, 0.f);
 }
+#endif  // SPK_PIECES == 3
 
-// a product operand as the instance rounds it: bf16 at one piece (the
-// tuned bf16 instance's mma.sync operands), else as it is
-template <int kP>
-__device__ __forceinline__ float op(float v) {
-  if constexpr (kP == 1) return bf16r(v);
-  return v;
+// ------------------------------------------- the general message backward
+// Shared memory of a backward block of NT threads (a feature tile): the
+// f64 gFW partial [B1][3NT] (gsm, the wgrad instance), the tile's padded
+// FW_aug rows [B1][3NT+4] (fwsm), the filter cotangents [E][3NT+4], the
+// chunk's geometry, dir cotangents and grij, the int arrays, and (not
+// scr) bwd_basis_floats
+template <int kMode>
+size_t gb_smem(int NT, int B, bool fwsm, bool gsm, bool scr) {
+  const int B1 = B + 1, K3 = 3 * NT, NW = NT / 32, E = kBwdE;
+  const size_t fl = (size_t)((fwsm ? B1 : 0) + E) * (K3 + 4) + 4 * E +
+                    (size_t)E * NW * 3 + 3 * E +
+                    (scr ? 0 : bwd_basis_floats<kMode>(NT, B));
+  return (gsm ? sizeof(double) * B1 * K3 : 0) + sizeof(float) * fl +
+         sizeof(int) * (11 * (size_t)E + 9);
 }
 
-template <int kMode, bool kWgrad, int kP>
-__global__ void __launch_bounds__(kGenTile)
+// The general message backward: msg_bwd_body (colblock_message_bwd_body.
+// cuh) for feature tile z of NT threads on FWp, FW_aug padded to
+// [B1][Z][3][NT] (ops/colblock_message.py::gen_padded_fw, zero past F);
+// gFW's f64 partial in shared memory (gsm) or the block's slice of gFWp;
+// with kScr the arrays that grow with B in block (x, g, z)'s slice of scr.
+// Block (x, g, z) takes column col0 + x of the n_src (col0: the wave's
+// first).
+template <int kMode, bool kWgrad, int kB4, int kP, bool kScr>
+__global__ void __maxnreg__(kMaxRegs)
     msg_bwd_gen_kernel(const FeatT<kP>* __restrict__ x,
                        const FeatT<kP>* __restrict__ mu,
                        const float* __restrict__ R, GeoView<const float> gv,
-                       const float* __restrict__ FW,
+                       const float* __restrict__ FWp,
                        const float* __restrict__ coff,
                        const float* __restrict__ cw,
                        const int* __restrict__ qcol,
@@ -272,311 +335,16 @@ __global__ void __launch_bounds__(kGenTile)
                        float* __restrict__ gRo, float* __restrict__ gRd,
                        GeoView<float> gg, size_t gg_zr, size_t gg_zd,
                        double* __restrict__ gFWp, int nx, int ny, int P,
-                       int Ktot, KOffs ko, int G, int F, int B, int E,
-                       int ldx, float rc, CellStack cs) {
-  constexpr bool kChain = kMode == kFused || kMode == kGeoRes;
-  extern __shared__ __align__(16) float gen_smem[];
-  const int NT = blockDim.x, B1 = B + 1, D3 = 3 * F;
-  const int col = blockIdx.x, g = blockIdx.y, z = blockIdx.z;
-  const int tid = threadIdx.x, f0 = z * NT, f = f0 + tid;
-  const int nt = min(NT, F - f0);  // the tile's features
-  const bool fok = f < F;
-  const int fl = fok ? f : F - 1;
-  const int* gb = grp + ((size_t)col * (G + 1) + g) * 2;
-  const int r0 = gb[0], e0 = gb[1], r1 = gb[2], e1 = gb[3];
-
-  float* s_rbf = gen_smem;                    // [E][B1] basis rows
-  float* s_grbf = s_rbf + (size_t)E * B1;     // [E][B1] their cotangents
-  float* s_gw = s_grbf + (size_t)E * B1;      // [E][3][NT] filter cotangent
-  float* s_gp = s_gw + (size_t)E * 3 * NT;    // [E][3][NT] dir cotangent
-  float* s_dir = s_gp + (size_t)E * 3 * NT;   // [E][3]
-  float* s_gdir = s_dir + 3 * E;              // [E][3]
-  float* s_grij = s_gdir + 3 * E;             // [E][3]
-  float* s_d = s_grij + 3 * E;                // [E]
-  int* s_src = reinterpret_cast<int*>(s_d + E);  // [E] own row or -1
-  int* s_dst = s_src + E;                     // [E] global destination row
-  int* s_c9 = s_dst + E;                      // [E]
-  int* s_slot = s_c9 + E;                     // [E]
-
-  const size_t own0 = (size_t)col * P;
-  const int ncol = nx * ny;
-  // this tile's slices of the position cotangents (gRo [Z][cols][3][P],
-  // gRd [Z][G][9][nx*ny][3][P]), zeroed here: one writer per element
-  float* o_gRo = gRo + ((size_t)z * gridDim.x + col) * 3 * P;
-  float* o_gRd = gRd + ((size_t)z * G + g) * 9 * ncol * 3 * P;
-  if constexpr (kChain) {
-    const int ci = col / ny, cj = col - ci * ny;
-    for (int t = tid; t < 3 * (r1 - r0); t += NT)
-      o_gRo[t / (r1 - r0) * P + r0 + t % (r1 - r0)] = 0.f;
-    for (int t = tid; t < 27 * P; t += NT) {
-      const int c9 = t / (3 * P);
-      const int dcl = ((ci - (c9 / 3 - 1) + nx) % nx) * ny +
-                      (cj - (c9 % 3 - 1) + ny) % ny;
-      o_gRd[((size_t)c9 * ncol + dcl) * 3 * P + t % (3 * P)] = 0.f;
-    }
-  }
-  // this block's gFW partial [B1][3F]; thread f owns its three columns
-  double* pw = kWgrad ? gFWp + ((size_t)col * G + g) * B1 * D3 : nullptr;
-  if (kWgrad && fok)
-    for (int b = 0; b < B1; ++b)
-      for (int p = 0; p < 3; ++p) pw[(size_t)b * D3 + p * F + f] = 0.0;
-  float* gg_r = gg.rbf == nullptr ? nullptr : gg.rbf + z * gg_zr;
-  float* gg_d = gg.dir == nullptr ? nullptr : gg.dir + z * gg_zd;
-  const GeoView<float> gz{gg_r,     gg_d,     gg.col_r, gg.slot_r,
-                          gg.ch_r,  gg.col_d, gg.slot_d, gg.ch_d};
-
-  auto put = [&](int r, float vq, float vr, float vm, float v0, float v1,
-                 float v2) {
-    if (!fok) return;
-    const size_t ro = (own0 + r) * ldx + f;
-    dx[ro] = vq;
-    dx[ro + F] = vr;
-    dx[ro + 2 * F] = vm;
-    dmu_out[ro] = v0;
-    dmu_out[ro + F] = v1;
-    dmu_out[ro + 2 * F] = v2;
-  };
-
-  int run = -1, next = r0;  // open source row; first row not yet written
-  float ax = 0.f, ar = 0.f, am = 0.f, b0 = 0.f, b1 = 0.f, b2 = 0.f;
-  float xq = 0.f, xr = 0.f, xm = 0.f, mu0 = 0.f, mu1 = 0.f, mu2 = 0.f;
-  const float pi_rc = kPi / rc;
-  for (int base = e0; base < e1; base += E) {
-    const int n = min(E, e1 - base);
-    __syncthreads();  // the last chunk's readers are done
-    // P1: slot base + tid's rows, geometry and liveness
-    if (tid < n) {
-      const int slot = esorted[base + tid];
-      const int dcolumn = slot / Ktot, k = slot - dcolumn * Ktot;
-      int qv, dv, c9;
-      if constexpr (kMode == kCell) {
-        cs.decode(k, qcol[slot], c9, qv, dv);
-      } else {
-        qv = qcol[slot];
-        dv = dcol[slot];
-        c9 = bucket_of(k, ko);
-      }
-      bool live = true;
-      float d = 1.f, ux = 0.f, uy = 0.f, uz = 0.f;
-      if constexpr (kMode == kFused) {
-        const float* rs = R + (own0 + qv) * 3;
-        const float* rd = R + ((size_t)dcolumn * P + dv) * 3;
-        const float* oc = coff + (size_t)dcolumn * 3 * Ktot + k;
-        const float rx = rs[0] + oc[0] - rd[0];
-        const float ry = rs[1] + oc[Ktot] - rd[1];
-        const float rz = rs[2] + oc[2 * Ktot] - rd[2];
-        d = sqrtf(rx * rx + ry * ry + rz * rz);
-        live = d < rc;
-        const float inv = 1.f / d;
-        ux = rx * inv;
-        uy = ry * inv;
-        uz = rz * inv;
-      } else {
-        if constexpr (kMode == kGeoRes) {
-          live = false;
-          for (int c = 0; c < B1; ++c)
-            live |= *gv.at(dcolumn, k, c, B1) != 0.f;
-          d = *gv.at(dcolumn, k, B1 + 3, B1);
-        }
-        ux = *gv.at(dcolumn, k, B1, B1);
-        uy = *gv.at(dcolumn, k, B1 + 1, B1);
-        uz = *gv.at(dcolumn, k, B1 + 2, B1);
-      }
-      s_src[tid] = live ? qv : -1;
-      s_dst[tid] = dcolumn * P + dv;
-      s_c9[tid] = c9;
-      s_slot[tid] = slot;
-      s_d[tid] = d;
-      s_dir[3 * tid] = ux;
-      s_dir[3 * tid + 1] = uy;
-      s_dir[3 * tid + 2] = uz;
-    }
-    __syncthreads();
-    for (int i = tid; i < n * B1; i += NT) {  // the chunk's basis rows
-      const int t = i / B1, b = i - t * B1;
-      float v = 0.f;
-      if (s_src[t] >= 0) {
-        if constexpr (kMode == kFused) {
-          const float d = s_d[t], fcut = 0.5f * (cos_cut(d, rc) + 1.f);
-          if (b < B) {
-            const float df = d - __ldg(cw + 2 * b);
-            v = expf(__ldg(cw + 2 * b + 1) * df * df) * fcut;
-          } else {
-            v = fcut;
-          }
-        } else {
-          const int slot = s_slot[t], dcl = slot / Ktot;
-          v = *gv.at(dcl, slot - dcl * Ktot, b, B1);
-        }
-      }
-      s_rbf[i] = v;
-    }
-    __syncthreads();
-    // P2: feature f of the chunk's slots in order: the run sums of the open
-    // source row, the slot's filter cotangent and dir-cotangent terms
-    for (int t = 0; t < n; ++t) {
-      float* gw = s_gw + (size_t)t * 3 * NT + tid;
-      float* gp = s_gp + (size_t)t * 3 * NT + tid;
-      const int sv = s_src[t];
-      if (sv < 0) {  // a slot out of the cutoff adds exactly 0
-        gw[0] = gw[NT] = gw[2 * NT] = 0.f;
-        gp[0] = gp[NT] = gp[2 * NT] = 0.f;
-        continue;
-      }
-      const size_t dr = (size_t)s_dst[t];
-      const float gq = feat_cg<kP>(g_dq + dr * F + fl);
-      const FeatT<kP>* gm = g_dmu + dr * D3 + fl;
-      const float g0 = feat_cg<kP>(gm), g1 = feat_cg<kP>(gm + F);
-      const float g2 = feat_cg<kP>(gm + 2 * F);
-      const float* rb = s_rbf + (size_t)t * B1;
-      const float* fw = FW + fl;
-      float wq = 0.f, wr = 0.f, wm = 0.f;
-      for (int b = 0; b < B1; ++b) {
-        const float r = rb[b];
-        const float* p = fw + (size_t)b * D3;
-        wq = fmaf(r, __ldg(p), wq);
-        wr = fmaf(r, __ldg(p + F), wr);
-        wm = fmaf(r, __ldg(p + 2 * F), wm);
-      }
-      if (sv != run) {  // the run of row `run` ended
-        if (run >= 0) {
-          put(run, ax, ar, am, b0, b1, b2);
-          next = run + 1;
-        }
-        for (; next < sv; ++next) put(next, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f);
-        run = sv;
-        ax = ar = am = b0 = b1 = b2 = 0.f;
-        const size_t so = (own0 + sv) * ldx + fl;
-        xq = feat_cg<kP>(x + so);
-        xr = feat_cg<kP>(x + so + F);
-        xm = feat_cg<kP>(x + so + 2 * F);
-        mu0 = feat_cg<kP>(mu + so);
-        mu1 = feat_cg<kP>(mu + so + F);
-        mu2 = feat_cg<kP>(mu + so + 2 * F);
-      }
-      const float* dd = s_dir + 3 * t;
-      const float gp1 = g0 * dd[0] + g1 * dd[1] + g2 * dd[2];
-      const float gp2 = g0 * mu0 + g1 * mu1 + g2 * mu2;
-      const float xmw = xm * wm, xrw = xr * wr;
-      if constexpr (kP == 3) {
-        ax = fmaf(gq, wq, ax);
-        ar = fmaf(gp1, wr, ar);
-        am = fmaf(gp2, wm, am);
-        b0 = fmaf(g0, xmw, b0);
-        b1 = fmaf(g1, xmw, b1);
-        b2 = fmaf(g2, xmw, b2);
-      } else {  // the edge's source cotangents rounded, then summed
-        ax += pieces<kP>(gq * wq);
-        ar += pieces<kP>(gp1 * wr);
-        am += pieces<kP>(gp2 * wm);
-        b0 += pieces<kP>(g0 * xmw);
-        b1 += pieces<kP>(g1 * xmw);
-        b2 += pieces<kP>(g2 * xmw);
-      }
-      const float on = fok ? 1.f : 0.f;  // lanes past F add nothing
-      gw[0] = on * (gq * xq);
-      gw[NT] = on * (gp1 * xr);
-      gw[2 * NT] = on * (gp2 * xm);
-      gp[0] = on * (g0 * xrw);
-      gp[NT] = on * (g1 * xrw);
-      gp[2 * NT] = on * (g2 * xrw);
-    }
-    __syncthreads();
-    // P3: per slot grbf = gW FW^T and the dir cotangent, summed over the
-    // tile's features in order; the wgrad instances' gFW += rbf^T gW
-    for (int i = tid; i < n * B1; i += NT) {
-      const int t = i / B1, b = i - t * B1;
-      double acc = 0.0;
-      if (s_src[t] >= 0) {
-        const float* fw = FW + (size_t)b * D3 + f0;
-        for (int p = 0; p < 3; ++p) {
-          const float* a = s_gw + ((size_t)t * 3 + p) * NT;
-          for (int j = 0; j < nt; ++j)
-            acc = fma((double)op<kP>(a[j]),
-                      (double)op<kP>(__ldg(fw + p * F + j)), acc);
-        }
-      }
-      s_grbf[i] = (float)acc;
-    }
-    for (int i = tid; i < n * 3; i += NT) {
-      const float* a = s_gp + (size_t)i * NT;
-      double acc = 0.0;
-      for (int j = 0; j < nt; ++j) acc += a[j];
-      s_gdir[i] = (float)acc;
-    }
-    if (kWgrad && fok) {
-      for (int b = 0; b < B1; ++b) {
-        for (int p = 0; p < 3; ++p) {
-          float acc = 0.f;
-          for (int t = 0; t < n; ++t)
-            acc = fmaf(op<kP>(s_rbf[(size_t)t * B1 + b]),
-                       op<kP>(s_gw[((size_t)t * 3 + p) * NT + tid]), acc);
-          pw[(size_t)b * D3 + p * F + f] += (double)acc;
-        }
-      }
-    }
-    __syncthreads();
-    if constexpr (kChain) {
-      // P4: slot tid's geometry chain (the tuned bodies' formulas)
-      if (tid < n && s_src[tid] >= 0) {
-        const int t = tid;
-        const float* rbt = s_rbf + (size_t)t * B1;
-        const float* gbt = s_grbf + (size_t)t * B1;
-        const float dt = s_d[t], fct = rbt[B];
-        const float inv_fc = 1.f / fmaxf(fct, 1e-30f);
-        double sd = 0.0, sp = 0.0;
-        for (int b = 0; b < B; ++b) {
-          const float df = dt - __ldg(cw + 2 * b);
-          const float coeff = __ldg(cw + 2 * b + 1);
-          const float phi =
-              kMode == kFused ? expf(coeff * df * df) : rbt[b] * inv_fc;
-          sd = fma((double)gbt[b], (double)(2.f * coeff * df * phi), sd);
-          sp = fma((double)gbt[b], (double)phi, sp);
-        }
-        const bool in = kMode == kFused ? dt < rc : fct > 0.f;
-        const float dfcut = in ? -0.5f * pi_rc * sin_cut(dt, rc) : 0.f;
-        const float gdd = (float)(sd * fct + (sp + gbt[B]) * dfcut);
-        const float* u3 = s_dir + 3 * t;
-        const float* gd = s_gdir + 3 * t;
-        const float sdot = gd[0] * u3[0] + gd[1] * u3[1] + gd[2] * u3[2];
-        const float inv = 1.f / fmaxf(dt, 1e-6f);
-        float* gr = s_grij + 3 * t;
-        for (int c = 0; c < 3; ++c)
-          gr[c] = (gd[c] - u3[c] * sdot) * inv + gdd * u3[c];
-      }
-      __syncthreads();
-      // P5: the position cotangents, one thread in slot order
-      if (tid == 0) {
-        for (int t = 0; t < n; ++t) {
-          const int sv = s_src[t];
-          if (sv < 0) continue;
-          const float* gr = s_grij + 3 * t;
-          const int dcl = s_dst[t] / P, dv = s_dst[t] - dcl * P;
-          float* o = o_gRd + ((size_t)s_c9[t] * ncol + dcl) * 3 * P + dv;
-          for (int c = 0; c < 3; ++c) {
-            o_gRo[c * P + sv] += gr[c];
-            o[c * P] -= gr[c];
-          }
-        }
-      }
-    } else {
-      // P4: every real slot's geometry cotangent [grbf, gdir] (this tile's
-      // partial where Z > 1)
-      for (int i = tid; i < n * (B1 + 3); i += NT) {
-        const int t = i / (B1 + 3), c = i - t * (B1 + 3);
-        const int slot = s_slot[t], dcl = slot / Ktot, k = slot - dcl * Ktot;
-        *gz.at(dcl, k, c, B1) =
-            c < B1 ? s_grbf[(size_t)t * B1 + c] : s_gdir[3 * t + c - B1];
-      }
-    }
-  }
-  if (run >= 0) {  // close the last run
-    put(run, ax, ar, am, b0, b1, b2);
-    next = run + 1;
-  }
-  for (; next < r1; ++next) put(next, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f);
+                       int Ktot, KOffs ko, int G, int F, int B, int ldx,
+                       float rc, int fwsm, int gsm, CellStack cs, float* scr,
+                       int n_src, int col0) {
+  msg_bwd_body<kMode, kWgrad, kB4, kP, true, kScr>(
+      x, mu, R, gv, FWp, coff, cw, qcol, dcol, esorted, grp, g_dq, g_dmu, dx,
+      dmu_out, gRo, gRd, gg, gg_zr, gg_zd, gFWp, nx, ny, P, Ktot, ko, G, F,
+      B, ldx, rc, fwsm, gsm, cs, scr, n_src, col0);
 }
 
+#if SPK_PIECES == 3
 template <int kIn, int kP>
 int launch_fwd_gen(const void* x, const void* mu, const float* R,
                    GeoView<const float> gv, const float* FW,
@@ -589,9 +357,8 @@ int launch_fwd_gen(const void* x, const void* mu, const float* R,
   const int E = gen_chunk(kGenFwdE, [&](int e) { return gen_fwd_smem(e, B); });
   if (E == 0 || F < 1 || B < 1) return (int)cudaErrorInvalidValue;
   const size_t smem = gen_fwd_smem(E, B);
-  cudaError_t err = cudaFuncSetAttribute(
-      msg_fwd_gen_kernel<kIn, kP>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const cudaError_t err =
+      allow_smem((const void*)msg_fwd_gen_kernel<kIn, kP>);
   if (err != cudaSuccess) return (int)err;
   using T = FeatT<kP>;
   msg_fwd_gen_kernel<kIn, kP>
@@ -602,9 +369,58 @@ int launch_fwd_gen(const void* x, const void* mu, const float* R,
   return (int)cudaGetLastError();
 }
 
-template <int kMode, bool kWgrad, int kP>
+#endif  // SPK_PIECES == 3
+
+// where a backward block keeps FW_aug's rows (fwsm) and gFW's partial
+// (gsm), its shared memory and its resident blocks an SM (fwsm -1:
+// nothing fits)
+struct GbPlan {
+  int fwsm, gsm;
+  size_t smem;
+  int blocks;
+};
+
+// The placement that fits the most blocks on an SM (shared memory first
+// where equal), worked out once per (device, F, B) and instance: the
+// occupancy queries cost host time
+template <int kMode, bool kWgrad, int kB4, int kP, bool kScr>
+GbPlan gb_plan(int F, int B) {
+  static int key[16][3];
+  static GbPlan val[16];
+  static int n_keys = 0;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  for (int i = 0; i < n_keys; ++i)
+    if (key[i][0] == dev && key[i][1] == F && key[i][2] == B) return val[i];
+  const void* kern =
+      (const void*)msg_bwd_gen_kernel<kMode, kWgrad, kB4, kP, kScr>;
+  const int NT = gen_threads(F), optin = optin_smem();
+  GbPlan best{-1, 0, 0, 0};
+  if (allow_smem(kern) == cudaSuccess) {
+    for (int gsm = kWgrad ? 1 : 0; gsm >= 0; --gsm) {
+      for (int fwsm = 1; fwsm >= 0; --fwsm) {
+        const size_t smem = gb_smem<kMode>(NT, B, fwsm, gsm, kScr);
+        int blocks = 0;
+        if (smem > (size_t)optin ||
+            cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                &blocks, kern, NT, smem) != cudaSuccess)
+          continue;
+        if (blocks > best.blocks) best = {fwsm, gsm, smem, blocks};
+      }
+    }
+  }
+  if (n_keys < 16) {
+    key[n_keys][0] = dev;
+    key[n_keys][1] = F;
+    key[n_keys][2] = B;
+    val[n_keys++] = best;
+  }
+  return best;
+}
+
+template <int kMode, bool kWgrad, int kB4, int kP, bool kScr>
 int launch_bwd_gen(const void* x, const void* mu, const float* R,
-                   GeoView<const float> gv, const float* FW,
+                   GeoView<const float> gv, const float* FWp,
                    const float* coff, const float* cw, const int* qcol,
                    const int* dcol, const int* esorted, const int* grp,
                    const void* g_dq, const void* g_dmu, float* dx,
@@ -613,24 +429,38 @@ int launch_bwd_gen(const void* x, const void* mu, const float* R,
                    int nx, int ny, int P, int Ktot, const int* koffs, int G,
                    int F, int B, int ldx, float rc, CellStack cs,
                    cudaStream_t stream) {
-  const int NT = gen_threads(F);
-  const int E =
-      gen_chunk(kGenBwdE, [&](int e) { return gen_bwd_smem(e, NT, B); });
-  if (E == 0 || F < 1 || B < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = gen_bwd_smem(E, NT, B);
-  cudaError_t err = cudaFuncSetAttribute(
-      msg_bwd_gen_kernel<kMode, kWgrad, kP>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  if (F < 1 || B < 1) return (int)cudaErrorInvalidValue;
+  const GbPlan pl = gb_plan<kMode, kWgrad, kB4, kP, kScr>(F, B);
+  if (pl.fwsm < 0) return (int)cudaErrorInvalidValue;
   using T = FeatT<kP>;
-  msg_bwd_gen_kernel<kMode, kWgrad, kP>
-      <<<dim3(n_src, G, gen_tiles(F)), NT, smem, stream>>>(
-          static_cast<const T*>(x), static_cast<const T*>(mu), R, gv, FW,
-          coff, cw, qcol, dcol, esorted, grp, static_cast<const T*>(g_dq),
-          static_cast<const T*>(g_dmu), dx, dmu_out, gRo, gRd, gg, gg_zr,
-          gg_zd, gFWp, nx, ny, P, Ktot, make_koffs(koffs), G, F, B, E, ldx,
-          rc, cs);
+  const int Z = gen_tiles(F), NT = gen_threads(F);
+  auto run = [&](float* scr, int col0, int cols) {
+    msg_bwd_gen_kernel<kMode, kWgrad, kB4, kP, kScr>
+        <<<dim3(cols, G, Z), NT, pl.smem, stream>>>(
+            static_cast<const T*>(x), static_cast<const T*>(mu), R, gv, FWp,
+            coff, cw, qcol, dcol, esorted, grp, static_cast<const T*>(g_dq),
+            static_cast<const T*>(g_dmu), dx, dmu_out, gRo, gRd, gg, gg_zr,
+            gg_zd, gFWp, nx, ny, P, Ktot, make_koffs(koffs), G, F, B, ldx,
+            rc, pl.fwsm, pl.gsm, cs, scr, n_src, col0);
+  };
+  if constexpr (kScr)  // waves of columns, each column's G Z blocks a slice
+    return (int)in_waves(
+        n_src, sizeof(float) * G * Z * bwd_basis_floats<kMode>(NT, B), stream,
+        run);
+  run(nullptr, 0, n_src);
   return (int)cudaGetLastError();
+}
+
+// The instance that takes (F, B): kB4 where FW_aug's rows fit its
+// registers (B+1 <= 24); else the one that reads them for every slot, with
+// its arrays in shared memory where a block fits, else in global scratch
+enum GbPick { kPickReg, kPickSmem, kPickScr };
+
+template <int kMode, bool kWgrad, int kP>
+GbPick gb_pick(int F, int B) {
+  if (B + 1 <= 4 * kRegB4) return kPickReg;
+  return gb_plan<kMode, kWgrad, 0, kP, false>(F, B).fwsm >= 0 ? kPickSmem
+                                                               : kPickScr;
 }
 
 // the geometry views of a launch: none (K1, K2), the packed geo [nx, ny,
@@ -642,9 +472,10 @@ GeoView<T> gen_view(T* rbf, T* dir, int edge, int Ktot, int B, int nch) {
               : packed_view(rbf, Ktot, B + 1, nch);
 }
 
+// the wgrad instance or the plain one, each as gb_pick picks it
 template <int kMode, int kP>
 int bwd_gen_w(bool wgrad, const void* x, const void* mu, const float* R,
-              GeoView<const float> gv, const float* FW, const float* coff,
+              GeoView<const float> gv, const float* FWp, const float* coff,
               const float* cw, const int* qcol, const int* dcol,
               const int* esorted, const int* grp, const void* g_dq,
               const void* g_dmu, float* dx, float* dmu_out, float* gRo,
@@ -652,15 +483,42 @@ int bwd_gen_w(bool wgrad, const void* x, const void* mu, const float* R,
               double* gFWp, int n_src, int nx, int ny, int P, int Ktot,
               const int* koffs, int G, int F, int B, int ldx, float rc,
               CellStack cs, cudaStream_t stream) {
-  auto* fn = wgrad ? launch_bwd_gen<kMode, true, kP>
-                   : launch_bwd_gen<kMode, false, kP>;
-  return fn(x, mu, R, gv, FW, coff, cw, qcol, dcol, esorted, grp, g_dq,
+  const GbPick pk = wgrad ? gb_pick<kMode, true, kP>(F, B)
+                          : gb_pick<kMode, false, kP>(F, B);
+  auto* fn = launch_bwd_gen<kMode, false, 0, kP, true>;
+  if (wgrad)
+    fn = pk == kPickReg    ? launch_bwd_gen<kMode, true, kRegB4, kP, false>
+         : pk == kPickSmem ? launch_bwd_gen<kMode, true, 0, kP, false>
+                           : launch_bwd_gen<kMode, true, 0, kP, true>;
+  else if (pk != kPickScr)
+    fn = pk == kPickReg ? launch_bwd_gen<kMode, false, kRegB4, kP, false>
+                        : launch_bwd_gen<kMode, false, 0, kP, false>;
+  return fn(x, mu, R, gv, FWp, coff, cw, qcol, dcol, esorted, grp, g_dq,
             g_dmu, dx, dmu_out, gRo, gRd, gg, gg_zr, gg_zd, gFWp, n_src, nx,
             ny, P, Ktot, koffs, G, F, B, ldx, rc, cs, stream);
 }
 
+#if SPK_PIECES == 3
+template <int kMode, bool kWgrad>
+GbPlan bwd_gen_plan(int F, int B) {
+  switch (gb_pick<kMode, kWgrad, 3>(F, B)) {
+    case kPickReg: return gb_plan<kMode, kWgrad, kRegB4, 3, false>(F, B);
+    case kPickSmem: return gb_plan<kMode, kWgrad, 0, 3, false>(F, B);
+    default: return gb_plan<kMode, kWgrad, 0, 3, true>(F, B);
+  }
+}
+
+template <int kMode>
+int bwd_gen_blocks(bool wgrad, int F, int B) {
+  const GbPlan pl = wgrad ? bwd_gen_plan<kMode, true>(F, B)
+                          : bwd_gen_plan<kMode, false>(F, B);
+  return pl.fwsm < 0 ? -(int)cudaErrorInvalidValue : pl.blocks;
+}
+#endif
+
 }  // namespace
 
+#if SPK_PIECES == 3
 // The general forward: in_mode 0 K1 (positions R, offsets coff, basis cw),
 // 1 K6/K20 (rbf: the packed geo with edge 0, else the edge-major rbf and
 // dir), 2 K18 (edge-major, the cell index mode of nz cells of C rows and K
@@ -698,14 +556,19 @@ extern "C" int spk_msg_fwd_gen(int in_mode, int pieces, const void* x,
 #undef SPK_FWD_GEN
 }
 
+#endif  // SPK_PIECES == 3
+
 // The general backward: mode 0 K2, 1 K7 (the packed geo of B+5 channels),
 // 2 K15/K21 (packed with edge 0, else edge-major; ggeo in grbf (and gdir)
-// at a stride of gz_r (gz_d) floats a feature tile), 3 K19; pieces as the
-// forward's (K2 and K7).  gRo [Z][n_src][3][P] and gRd [Z][G][9][nx*ny][3]
-// [P] (K2, K7); gFWp [n_src * G][B+1][3F] f64, or null without wgrad.
-extern "C" int spk_msg_bwd_gen(
+// at a stride of gz_r (gz_d) floats a feature tile), 3 K19; this object's
+// precision (``pieces`` must name it; the mixed and bf16 objects take K2
+// and K7 only).  FWp: FW_aug padded to [B+1][Z][3][NT]
+// (gen_padded_fw); gRo [Z][n_src][3][P] and gRd [Z][G][9][nx*ny][3][P]
+// (K2, K7); gFWp [n_src * G][B+1][Z 3NT] f64 (each block fills its tile's
+// columns), or null without wgrad.
+extern "C" int SPK_GEN_ENTRY(spk_msg_bwd_gen)(
     int mode, int pieces, const void* x, const void* mu, const float* R,
-    const float* rbf, const float* dir, int edge, int nch, const float* FW,
+    const float* rbf, const float* dir, int edge, int nch, const float* FWp,
     const float* coff, const float* cw, const int* qcol, const int* dcol,
     const int* esorted, const int* grp, const void* g_dq, const void* g_dmu,
     float* dx, float* dmu_out, float* gRo, float* gRd, float* grbf,
@@ -717,50 +580,42 @@ extern "C" int spk_msg_bwd_gen(
   const CellStack cs{nz, C, K};
   const bool w = gFWp != nullptr;
 #define SPK_BWD_GEN(MODE, PC)                                                \
-  bwd_gen_w<MODE, PC>(w, x, mu, R, gv, FW, coff, cw, qcol, dcol, esorted,   \
+  bwd_gen_w<MODE, PC>(w, x, mu, R, gv, FWp, coff, cw, qcol, dcol, esorted,  \
                       grp, g_dq, g_dmu, dx, dmu_out, gRo, gRd, gg,          \
                       (size_t)gz_r, (size_t)gz_d, gFWp, n_src, nx, ny, P,   \
                       Ktot, koffs, G, F, B, ldx, rc, cs, stream)
-  if (mode == kFused) {
-    if (pieces == 1) return SPK_BWD_GEN(kFused, 1);
-    if (pieces == 2) return SPK_BWD_GEN(kFused, 2);
-    return SPK_BWD_GEN(kFused, 3);
-  }
-  if (mode == kGeoRes) {
-    if (pieces == 1) return SPK_BWD_GEN(kGeoRes, 1);
-    if (pieces == 2) return SPK_BWD_GEN(kGeoRes, 2);
-    return SPK_BWD_GEN(kGeoRes, 3);
-  }
+  if (pieces != SPK_PIECES) return (int)cudaErrorInvalidValue;
+  if (mode == kFused) return SPK_BWD_GEN(kFused, SPK_PIECES);
+  if (mode == kGeoRes) return SPK_BWD_GEN(kGeoRes, SPK_PIECES);
+#if SPK_PIECES == 3
   if (mode == kSrc) return SPK_BWD_GEN(kSrc, 3);
-  return SPK_BWD_GEN(kCell, 3);
+  if (mode == kCell) return SPK_BWD_GEN(kCell, 3);
+#endif
+  return (int)cudaErrorInvalidValue;
 #undef SPK_BWD_GEN
 }
 
+#if SPK_PIECES == 3
 // blocks of a general instance resident on one SM (bwd 0: the forward of
-// in_mode, 1: the backward of mode, wgrad) at width F and basis B
+// in_mode, 1: the f32 backward of mode, wgrad) at width F and basis B
 extern "C" int spk_msg_gen_blocks(int bwd, int mode, int wgrad, int F,
                                   int B) {
-  const int NT = gen_threads(F);
-  int n = 0;
-  cudaError_t err;
-  if (!bwd) {
-    const int E =
-        gen_chunk(kGenFwdE, [&](int e) { return gen_fwd_smem(e, B); });
-    const size_t smem = gen_fwd_smem(E, B);
-    auto* k = mode == kPosIn ? msg_fwd_gen_kernel<kPosIn, 3>
-                             : msg_fwd_gen_kernel<kGeoIn, 3>;
-    cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smem);
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, k, NT, smem);
-  } else {
-    const int E =
-        gen_chunk(kGenBwdE, [&](int e) { return gen_bwd_smem(e, NT, B); });
-    const size_t smem = gen_bwd_smem(E, NT, B);
-    auto* k = wgrad ? msg_bwd_gen_kernel<kFused, true, 3>
-                    : msg_bwd_gen_kernel<kFused, false, 3>;
-    cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smem);
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, k, NT, smem);
+  if (bwd) {
+    if (mode == kFused) return bwd_gen_blocks<kFused>(wgrad, F, B);
+    if (mode == kGeoRes) return bwd_gen_blocks<kGeoRes>(wgrad, F, B);
+    if (mode == kSrc) return bwd_gen_blocks<kSrc>(wgrad, F, B);
+    return bwd_gen_blocks<kCell>(wgrad, F, B);
   }
+  const int E =
+      gen_chunk(kGenFwdE, [&](int e) { return gen_fwd_smem(e, B); });
+  const size_t smem = gen_fwd_smem(E, B);
+  const void* k = mode == kPosIn ? (const void*)msg_fwd_gen_kernel<kPosIn, 3>
+                                 : (const void*)msg_fwd_gen_kernel<kGeoIn, 3>;
+  cudaError_t err = allow_smem(k);
+  int n = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, k,
+                                                        gen_threads(F), smem);
   return err != cudaSuccess ? -(int)err : n;
 }
+#endif  // SPK_PIECES == 3

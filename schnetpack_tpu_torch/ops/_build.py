@@ -73,7 +73,7 @@ SIGNATURES = {
 #: _{mixed,bf16}.cu``): the f32 entry points' names with the mode appended
 for _mode in ("_mixed", "_bf16"):
     for _name in ("spk_msg_fwd", "spk_msg_bwd", "spk_msg_fwd_geo",
-                  "spk_msg_bwd_geores"):
+                  "spk_msg_bwd_geores", "spk_msg_bwd_gen"):
         SIGNATURES[_name + _mode] = SIGNATURES[_name]
 #: host queries: argument types (ints), no stream
 QUERIES = {
@@ -186,6 +186,27 @@ def query(name: str, *args) -> int:
     """Call host query ``name`` (no launch, no stream) and return its int."""
     lib()
     return int(_ENTRIES[name](*args))
+
+
+#: ``cached_per_version``'s entries by (function, the tensors' ids): (the
+#: tensors, their versions, the result)
+_PER_VERSION = {}
+
+
+def cached_per_version(fn, *tensors):
+    """``fn(*tensors)`` made once per parameter version (an in-place update
+    bumps a tensor's version counter and makes a new result) and kept for
+    the next calls: the wrappers' padded copies of weights.  An entry holds
+    its tensors, so their ids are not reused while it lives; past 64
+    entries the cache starts over."""
+    key = (fn, *map(id, tensors))
+    versions = tuple(t._version for t in tensors)
+    hit = _PER_VERSION.get(key)
+    if hit is None or hit[1] != versions:
+        if len(_PER_VERSION) >= 64:
+            _PER_VERSION.clear()
+        hit = _PER_VERSION[key] = (tensors, versions, fn(*tensors))
+    return hit[2]
 
 
 def ptr(t: torch.Tensor) -> int:

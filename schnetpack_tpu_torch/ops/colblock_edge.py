@@ -35,7 +35,7 @@ from .colblock import (
 from .colblock_message import (
     BWD_SRC, FWD_GEO, _bwd_schedule, _fwd_schedule, _gfw_partials,
     _tuned_bwd, _tuned_fwd, _with_gfw, bwd_gen, fwd_gen, gen_groups,
-    gen_tiles,
+    gen_tiles, with_gen_gfw,
 )
 
 #: kernel launches since the last reset (painn_slab MD: 3 each per step;
@@ -103,15 +103,15 @@ def msg_bwd_edge_kernel(xmu, rbf_aug, dirs, FW_aug, refs: ColRefs, g_dq,
         Z = gen_tiles(F)
         grbf = rbf_aug.new_zeros((Z, *rbf_aug.shape))
         gdir = dirs.new_zeros((Z, *dirs.shape))
-        gFWp = _gfw_partials(xmu, FW_aug, n_src * G, wgrad)
-        bwd_gen(BWD_SRC, 3, xmu, xmu[:, 3 * F:], FW_aug,
-                *source_schedule(refs, G), G, g_dq, g_dmu, dxmu,
-                dxmu[:, 3 * F:], n_src, (nx, ny, refs.P, Ktot), F, B, 6 * F,
-                gFWp, rbf=rbf_aug, dirs=dirs, edge=1, qcol=refs.qcol,
-                dcol=refs.dcol, koffs=refs.koffs_arg, grbf=grbf, gdir=gdir)
+        gFW = bwd_gen(BWD_SRC, 3, xmu, xmu[:, 3 * F:], FW_aug,
+                      *source_schedule(refs, G), G, g_dq, g_dmu, dxmu,
+                      dxmu[:, 3 * F:], n_src, (nx, ny, refs.P, Ktot), F, B,
+                      6 * F, wgrad, rbf=rbf_aug, dirs=dirs, edge=1,
+                      qcol=refs.qcol, dcol=refs.dcol, koffs=refs.koffs_arg,
+                      grbf=grbf, gdir=gdir)
         LAUNCHES["msg_bwd_edge_wgrad_gen" if wgrad
                  else "msg_bwd_edge_gen"] += 1
-        return _with_gfw((dxmu, grbf.sum(0), gdir.sum(0)), gFWp)
+        return with_gen_gfw((dxmu, grbf.sum(0), gdir.sum(0)), gFW)
     esorted, grp, G = _bwd_schedule(refs, n_src, BWD_SRC, wgrad, F, B)
     grbf = torch.zeros_like(rbf_aug)
     gdir = torch.zeros_like(dirs)

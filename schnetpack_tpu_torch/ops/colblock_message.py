@@ -41,11 +41,12 @@ returns the filter-weight cotangent gFW [B+1, 3F]; the ops launch it when
 
 Every kernel has a tuned instance (one thread a feature: F % 32 == 0,
 F <= 256; its wgrad instance B+1 <= 32, within the shared memory that
-the size query finds) and a general one (``csrc/colblock_message_gen.cu``)
-for every other width F >= 1 and basis B >= 1; the wrappers dispatch on
-the shape between the two (``tuned_takes``) and count the general
-instances in ``LAUNCHES`` under the tuned name with ``_gen`` appended
-(before a mode's suffix).
+the size query finds) and a general one (``csrc/colblock_message_gen.cu``;
+the general backward reads FW_aug zero-padded to its feature tiles,
+``gen_padded_fw``) for every other width F >= 1 and basis B >= 1; the
+wrappers dispatch on the shape between the two (``tuned_takes``) and
+count the general instances in ``LAUNCHES`` under the tuned name with
+``_gen`` appended (before a mode's suffix).
 
 The full and hybrid forms take ``pieces`` (``ops/precision.py``), the JAX
 package's ``PIECES`` as an argument: K1/K2 and K6/K7 have instances for
@@ -176,26 +177,55 @@ def fwd_gen(in_mode: int, pieces: int, x, mu, FW_aug, dsorted, grp, G: int,
 
 def bwd_gen(mode: int, pieces: int, x, mu, FW_aug, esorted, grp, G: int,
             g_dq, g_dmu, dx, dmu, n_src: int, dims, F: int, B: int,
-            ldx: int, gFWp=None, R=None, coff=None, cw=None, rbf=None,
-            dirs=None, edge: int = 0, nch: int = 0, qcol=None, dcol=None,
-            koffs=None, rc: float = 0.0, cell=(0, 0, 0), gRo=None,
+            ldx: int, wgrad: bool = False, R=None, coff=None, cw=None,
+            rbf=None, dirs=None, edge: int = 0, nch: int = 0, qcol=None,
+            dcol=None, koffs=None, rc: float = 0.0, cell=(0, 0, 0), gRo=None,
             gRd=None, grbf=None, gdir=None):
-    """Launch the general backward (``spk_msg_bwd_gen``) of ``mode``
-    (BWD_FUSED, BWD_GEORES, BWD_SRC, BWD_CELL): dx, dmu, and gRo [Z,
-    n_src, 3, P] and gRd [Z, G, 9, nx*ny, 3, P] (K2, K7) or the geometry
-    cotangent grbf (and gdir) [Z, ...] (the others), zero-filled by the
-    caller; gFWp [n_src * G, B+1, 3F] f64 with wgrad."""
+    """Launch the general backward (``spk_msg_bwd_gen``, the mixed and bf16
+    instances under ``_mixed`` and ``_bf16``) of ``mode`` (BWD_FUSED,
+    BWD_GEORES, BWD_SRC, BWD_CELL) on FW_aug padded to its feature tiles
+    (``gen_padded_fw``): dx, dmu, and gRo [Z, n_src, 3, P] and gRd [Z, G,
+    9, nx*ny, 3, P] (K2, K7) or the geometry cotangent grbf (and gdir) [Z,
+    ...] (the others), zero-filled by the caller.  Returns gFW [B+1, 3F]
+    with ``wgrad`` (the blocks' f64 partials of the padded columns summed,
+    unpadded and rounded to f32), else None."""
     p = _opt_ptr
     nx, ny, P, Ktot = dims
+    Z, NT = gen_tiles(F), gen_threads(F)
+    gFWp = (x.new_empty((n_src * G, B + 1, Z * 3 * NT), dtype=torch.float64)
+            if wgrad else None)
     gz_r = grbf[0].numel() if grbf is not None else 0
     gz_d = gdir[0].numel() if gdir is not None else gz_r   # packed: one
-    _build.launch("spk_msg_bwd_gen", mode, pieces, p(x), p(mu), p(R),
-                  p(rbf), p(dirs), edge, nch, p(FW_aug), p(coff), p(cw),
-                  p(qcol), p(dcol), p(esorted), p(grp), p(g_dq), p(g_dmu),
-                  p(dx), p(dmu), p(gRo), p(gRd), p(grbf), p(gdir), gz_r,
-                  gz_d, p(gFWp), n_src, nx, ny, P, Ktot,
+    _build.launch("spk_msg_bwd_gen" + MODE_SUFFIX[pieces], mode, pieces,
+                  p(x), p(mu), p(R), p(rbf), p(dirs), edge, nch,
+                  p(gen_padded_fw(FW_aug)), p(coff), p(cw), p(qcol), p(dcol),
+                  p(esorted), p(grp), p(g_dq), p(g_dmu), p(dx), p(dmu),
+                  p(gRo), p(gRd), p(grbf), p(gdir), gz_r, gz_d, p(gFWp),
+                  n_src, nx, ny, P, Ktot,
                   _NO_KOFFS if koffs is None else koffs, G, F, B, ldx,
                   float(rc), *cell)
+    if gFWp is None:
+        return None
+    w = gFWp.sum(0).view(B + 1, Z, 3, NT).transpose(1, 2)
+    return w.reshape(B + 1, 3, Z * NT)[:, :, :F].reshape(B + 1, 3 * F).to(
+        torch.float32)
+
+
+def gen_padded_fw(FW_aug):
+    """``pad_gen_fw`` of FW_aug, made once per parameter version
+    (``_build.cached_per_version``)."""
+    return _build.cached_per_version(pad_gen_fw, FW_aug)
+
+
+def pad_gen_fw(FW_aug):
+    """FW_aug [B+1, 3F] at the general backward's feature tiles: [B+1, Z,
+    3, NT], part p's features z NT .. z NT + NT of tile z, zero past F."""
+    B1, F = FW_aug.shape[0], FW_aug.shape[1] // 3
+    Z, NT = gen_tiles(F), gen_threads(F)
+    with torch.no_grad():
+        out = FW_aug.new_zeros((B1, 3, Z * NT))
+        out[:, :, :F] = FW_aug.view(B1, 3, F)
+        return out.view(B1, 3, Z, NT).transpose(1, 2).contiguous()
 
 
 def _opt_ptr(t):
@@ -356,6 +386,11 @@ def _with_gfw(out: tuple, gFWp):
     return out if gFWp is None else (*out, gFWp.sum(0).to(torch.float32))
 
 
+def with_gen_gfw(out: tuple, gFW):
+    """``out`` and, for a wgrad launch of a general instance, its gFW."""
+    return out if gFW is None else (*out, gFW)
+
+
 def msg_bwd_kernel(x, mu, R, FW_aug, coff_fm, cw, refs: ColRefs, rc: float,
                    g_dq, g_dmu, wgrad: bool = False, pieces: int = 3):
     """K2: cotangents (dx, dmu, dR) of K1's outputs for (g_dq, g_dmu), and
@@ -380,14 +415,14 @@ def msg_bwd_kernel(x, mu, R, FW_aug, coff_fm, cw, refs: ColRefs, rc: float,
         G = gen_groups(R.device, refs.P, nx * ny, True, BWD_FUSED, wgrad, F,
                        B)
         gRo, gRd = _gen_position_partials(R, refs, G, F)
-        gFWp = _gfw_partials(x, FW_aug, nx * ny * G, wgrad)
-        bwd_gen(BWD_FUSED, pieces, x, mu, FW_aug, *source_schedule(refs, G),
-                G, g_dq, g_dmu, dx, dmu, nx * ny, (nx, ny, refs.P, Ktot), F,
-                B, 3 * F, gFWp, R=R, coff=coff_fm, cw=cw, qcol=refs.qcol,
-                dcol=refs.dcol, koffs=refs.koffs_arg, rc=rc, gRo=gRo,
-                gRd=gRd)
+        gFW = bwd_gen(BWD_FUSED, pieces, x, mu, FW_aug,
+                      *source_schedule(refs, G), G, g_dq, g_dmu, dx, dmu,
+                      nx * ny, (nx, ny, refs.P, Ktot), F, B, 3 * F, wgrad,
+                      R=R, coff=coff_fm, cw=cw, qcol=refs.qcol,
+                      dcol=refs.dcol, koffs=refs.koffs_arg, rc=rc, gRo=gRo,
+                      gRd=gRd)
         LAUNCHES[gen_name("msg_bwd" + MODE_SUFFIX[pieces])] += 1
-        return _with_gfw((dx, dmu, _gen_dR(gRo, gRd, Ap)), gFWp)
+        return with_gen_gfw((dx, dmu, _gen_dR(gRo, gRd, Ap)), gFW)
     esorted, grp, G = _bwd_schedule(refs, nx * ny, BWD_FUSED, wgrad, F, B,
                                     pieces)
     gRo = R.new_empty((nx * ny, 3, refs.P))
@@ -526,14 +561,14 @@ def msg_bwd_geores_kernel(x, mu, geo, FW_aug, cw, refs: ColRefs, rc: float,
         G = gen_groups(geo.device, refs.P, nx * ny, True, BWD_GEORES, wgrad,
                        F, B)
         gRo, gRd = _gen_position_partials(geo, refs, G, F)
-        gFWp = _gfw_partials(x, FW_aug, nx * ny * G, wgrad)
-        bwd_gen(BWD_GEORES, pieces, x, mu, FW_aug, *source_schedule(refs, G),
-                G, g_dq, g_dmu, dx, dmu, nx * ny, (nx, ny, refs.P, Ktot), F,
-                B, 3 * F, gFWp, cw=cw, rbf=geo, nch=B + 5, qcol=refs.qcol,
-                dcol=refs.dcol, koffs=refs.koffs_arg, rc=rc, gRo=gRo,
-                gRd=gRd)
+        gFW = bwd_gen(BWD_GEORES, pieces, x, mu, FW_aug,
+                      *source_schedule(refs, G), G, g_dq, g_dmu, dx, dmu,
+                      nx * ny, (nx, ny, refs.P, Ktot), F, B, 3 * F, wgrad,
+                      cw=cw, rbf=geo, nch=B + 5, qcol=refs.qcol,
+                      dcol=refs.dcol, koffs=refs.koffs_arg, rc=rc, gRo=gRo,
+                      gRd=gRd)
         LAUNCHES[gen_name("msg_bwd_geores" + MODE_SUFFIX[pieces])] += 1
-        return _with_gfw((dx, dmu, _gen_dR(gRo, gRd, Ap)), gFWp)
+        return with_gen_gfw((dx, dmu, _gen_dR(gRo, gRd, Ap)), gFW)
     esorted, grp, G = _bwd_schedule(refs, nx * ny, BWD_GEORES, wgrad, F, B,
                                     pieces)
     gRo = geo.new_empty((nx * ny, 3, refs.P))
@@ -668,13 +703,13 @@ def msg_bwd_src_kernel(x, mu, geo, FW_aug, refs: ColRefs, g_dq, g_dmu,
         G = gen_groups(geo.device, refs.P, nx * ny, True, BWD_SRC, wgrad, F,
                        B)
         ggeo = geo.new_zeros((gen_tiles(F), *geo.shape))
-        gFWp = _gfw_partials(x, FW_aug, nx * ny * G, wgrad)
-        bwd_gen(BWD_SRC, 3, x, mu, FW_aug, *source_schedule(refs, G), G,
-                g_dq, g_dmu, dx, dmu, nx * ny, (nx, ny, refs.P, Ktot), F, B,
-                3 * F, gFWp, rbf=geo, nch=B + 4, qcol=refs.qcol,
-                dcol=refs.dcol, koffs=refs.koffs_arg, grbf=ggeo)
+        gFW = bwd_gen(BWD_SRC, 3, x, mu, FW_aug, *source_schedule(refs, G),
+                      G, g_dq, g_dmu, dx, dmu, nx * ny,
+                      (nx, ny, refs.P, Ktot), F, B, 3 * F, wgrad, rbf=geo,
+                      nch=B + 4, qcol=refs.qcol, dcol=refs.dcol,
+                      koffs=refs.koffs_arg, grbf=ggeo)
         LAUNCHES[gen_name("msg_bwd_src")] += 1
-        return _with_gfw((dx, dmu, ggeo.sum(0)), gFWp)
+        return with_gen_gfw((dx, dmu, ggeo.sum(0)), gFW)
     esorted, grp, G = _bwd_schedule(refs, nx * ny, BWD_SRC, wgrad, F, B)
     ggeo = torch.zeros_like(geo)
     gFWp = _gfw_partials(x, FW_aug, nx * ny * G, wgrad)

@@ -42,7 +42,7 @@ from .cellblock_gather import (
 )
 from .colblock_message import (
     BWD_CELL, FWD_CELL, _gfw_partials, _groups, _tuned_bwd, _tuned_fwd,
-    _with_gfw, bwd_gen, fwd_gen, gen_groups, gen_tiles,
+    _with_gfw, bwd_gen, fwd_gen, gen_groups, gen_tiles, with_gen_gfw,
 )
 
 #: kernel launches since the last reset (painn_cell MD: K18 3, K19 3 per
@@ -108,14 +108,13 @@ def cell_msg_bwd_kernel(xmu, rbf_aug, dir_ij, FW_aug, qidx, g_dq, g_dmu,
         Z = gen_tiles(F)
         grbf = rbf_aug.new_zeros((Z, *rbf_aug.shape))
         gdir = dir_ij.new_zeros((Z, *dir_ij.shape))
-        gFWp = _gfw_partials(xmu, FW_aug, n_cols * G, wgrad)
-        bwd_gen(BWD_CELL, 3, xmu, xmu[:, 3 * F:], FW_aug,
-                *stack_source_schedule(refs, G), G, g_dq, g_dmu, dxmu,
-                dxmu[:, 3 * F:], n_cols, (nx, ny, P, Ktot), F, B, 6 * F,
-                gFWp, rbf=rbf_aug, dirs=dir_ij, edge=1, qcol=refs.qidx,
-                cell=(nz, C, K), grbf=grbf, gdir=gdir)
+        gFW = bwd_gen(BWD_CELL, 3, xmu, xmu[:, 3 * F:], FW_aug,
+                      *stack_source_schedule(refs, G), G, g_dq, g_dmu, dxmu,
+                      dxmu[:, 3 * F:], n_cols, (nx, ny, P, Ktot), F, B,
+                      6 * F, wgrad, rbf=rbf_aug, dirs=dir_ij, edge=1,
+                      qcol=refs.qidx, cell=(nz, C, K), grbf=grbf, gdir=gdir)
         LAUNCHES["cell_msg_bwd_gen"] += 1
-        return _with_gfw((dxmu, grbf.sum(0), gdir.sum(0)), gFWp)
+        return with_gen_gfw((dxmu, grbf.sum(0), gdir.sum(0)), gFW)
     G = _groups(xmu.device, P, n_cols, "spk_msg_bwd_blocks", BWD_CELL,
                 int(wgrad), F, B)
     esorted, grp = stack_source_schedule(refs, G)

@@ -72,25 +72,10 @@ def check_width(F: int) -> None:
         raise ValueError(f"the mixing kernels need F >= 1, got F={F}")
 
 
-#: K3's padded weights: (the weights, their versions, the padded copies)
-#: by the weights' ids (``padded_weights``)
-_PADDED = {}
-
-
 def padded_weights(kmix, k0, b0, k1, b1):
     """``pad_weights`` of these weight tensors, made once per parameter
-    version (an in-place update of a weight bumps its version counter and
-    makes a new copy) and kept for the next calls; an entry holds its
-    tensors, so their ids are not reused while it lives."""
-    w = (kmix, k0, b0, k1, b1)
-    key = tuple(id(t) for t in w)
-    versions = tuple(t._version for t in w)
-    hit = _PADDED.get(key)
-    if hit is None or hit[1] != versions:
-        if len(_PADDED) >= 16:
-            _PADDED.clear()
-        hit = _PADDED[key] = (w, versions, pad_weights(*w))
-    return hit[2]
+    version (``_build.cached_per_version``)."""
+    return _build.cached_per_version(pad_weights, kmix, k0, b0, k1, b1)
 
 
 def pad_weights(kmix, k0, b0, k1, b1):

@@ -20,7 +20,8 @@ the filter-weight cotangents.  The tuned instances take F in
 ``N_FILTERS`` and B <= 32 (``tuned_width``); every other shape runs the
 general instances (``csrc/schnet_columns_gen.cu``, counted as
 ``cf_fwd_gen``, ``cf_bwd_gen`` and ``cf_bwd_wgrad_gen``) on the same
-schedules.  On CPU tensors the op runs the twins, the
+schedules; K10's reads the filter weights zero-padded to its tensor-core
+tiles (``gen_padded_weights``).  On CPU tensors the op runs the twins, the
 gather / filter MLP / fold composition of ``_cfconv_xla``
 (``schnet_columns.py:317-331``) and its autograd VJP.
 """
@@ -41,11 +42,16 @@ LAUNCHES = {"cf_fwd": 0, "cf_bwd": 0, "cf_bwd_wgrad": 0, "cf_fwd_gen": 0,
 #: the filter widths the tuned kernels take (with B <= ``TUNED_MAX_B``)
 N_FILTERS = (64, 128)
 TUNED_MAX_B = 32
-#: filters a block of the general instances, at most (``kGenTile``)
+#: filters a block of K9's general instance, at most (``kGenTile``)
 GEN_TILE = 256
-#: bytes of f64 weight-cotangent partials the general wgrad instance may
+#: bytes of weight-cotangent partials K10's general wgrad instance may
 #: allocate before it takes fewer row ranges a column
 GEN_WPART_BYTES = 256 << 20
+#: its row ranges a column, plain and wgrad, at most (the wgrad partials
+#: may take fewer, GEN_WPART_BYTES); H100, device ms on the bench box, F =
+#: 30: G = 5 0.324, 8 0.387, 10 0.322, 16 0.296, 20 0.315, 32 0.320; wgrad
+#: 5 0.453, 16 0.422 (F = 64: 1.033, 0.834)
+GEN_RANGES = 16
 #: slots a chunk and row ranges a block of K9 and K10's plain instance
 #: (``kE``, ``kGroups`` of ``csrc/schnet_columns.cu``)
 SLOTS, GROUPS = 16, 3
@@ -98,15 +104,57 @@ def tuned_width(F: int, B: int) -> bool:
 
 def check_width(F: int, B: int) -> None:
     """Raise ``ValueError`` for a shape no instance takes: F < 1 or B < 1
-    (the tuned or the general instance takes every other)."""
+    (the tuned or the general instances take every other; K10's general
+    one keeps its tiles in global scratch where they do not fit shared
+    memory)."""
     if F < 1 or B < 1:
         raise ValueError(f"the cfconv kernels need F >= 1 and B >= 1, got "
                          f"F={F}, B={B}")
 
 
 def gen_tiles(F: int) -> int:
-    """Z, the general instances' filter tiles (``cf_tiles``)."""
+    """Z, K9's general instance's filter tiles (``cf_tiles``)."""
     return -(-F // GEN_TILE)
+
+
+def gen_width(F: int) -> int:
+    """Fp, K10's general instance's padded width: F rounded up to 32."""
+    return -(-F // 32) * 32
+
+
+def _mp(B: int) -> int:
+    """MP: the padded basis width rounded up to 16 (the rows of the
+    [gW1; gb1] sums)."""
+    return -(-_bp(B) // 16) * 16
+
+
+def gen_wpart_shape(F: int, B: int):
+    """A row range's weight-cotangent partial in K10's general wgrad
+    instance: [MP + Fp + 1, Fp + 8] f32 (gW1 | gb1 | 0 rows, gW2, gb2)."""
+    Fp = gen_width(F)
+    return _mp(B) + Fp + 1, Fp + 8
+
+
+def gen_padded_weights(W1, b1, W2, b2):
+    """``pad_gen_weights`` of these weights, made once per parameter
+    version (``_build.cached_per_version``)."""
+    return _build.cached_per_version(pad_gen_weights, W1, b1, W2, b2)
+
+
+def pad_gen_weights(W1, b1, W2, b2):
+    """The filter weights at K10's general tiles: W1 [Bp, Fp] (zero rows
+    from B: the ones column at B adds nothing, gb1 comes out of the wgrad
+    product), b1 [Fp], W2 [Fp, Fp], b2 [Fp], zero-padded."""
+    B, F = W1.shape
+    Fp, Bp = gen_width(F), _bp(B)
+    with torch.no_grad():
+        W1p = W1.new_zeros((Bp, Fp))
+        W1p[:B, :F] = W1
+        W2p = W2.new_zeros((Fp, Fp))
+        W2p[:F, :F] = W2
+        b1p, b2p = W1.new_zeros(Fp), W1.new_zeros(Fp)
+        b1p[:F], b2p[:F] = b1, b2
+    return W1p, b1p, W2p, b2p
 
 
 def _fwd_schedule(refs: ColRefs):
@@ -169,27 +217,31 @@ def cf_bwd_kernel(h, geo, W1, b1, W2, b2, refs: ColRefs, g,
         wpart = (h.new_empty((nx * ny * G, nw), dtype=torch.float64)
                  if wgrad else None)
         name = "cf_bwd"
+        weights = (W1, b1, W2, b2)
     else:
-        Z = gen_tiles(F)
-        G = min(WGRAD_RANGES if wgrad else BWD_RANGES, refs.P)
+        G = min(GEN_RANGES, refs.P)
+        rows, ld = gen_wpart_shape(F, B)
         if wgrad:   # fewer ranges where the partials would be large
-            G = max(1, min(G, GEN_WPART_BYTES // (8 * nw * Z * nx * ny)))
+            G = max(1, min(G, GEN_WPART_BYTES // (4 * rows * ld * nx * ny)))
         esorted, grp = source_schedule(refs, G)
-        ggeo = geo.new_zeros((Z, *geo.shape))
-        wpart = (h.new_zeros((nx * ny * G * Z, nw), dtype=torch.float64)
-                 if wgrad else None)
+        ggeo = torch.empty_like(geo)
+        wpart = h.new_empty((nx * ny * G, rows, ld)) if wgrad else None
+        weights = gen_padded_weights(W1, b1, W2, b2)
         name = "cf_bwd_gen"
-    _build.launch("spk_" + name, p(h), p(geo), p(W1), p(b1), p(W2), p(b2),
+    _build.launch("spk_" + name, p(h), p(geo), *map(p, weights),
                   p(refs.qcol), p(refs.dcol), p(esorted), p(grp), p(g),
                   p(dh), p(ggeo),
                   None if wpart is None else p(wpart), nx, ny, refs.P, Ktot,
                   G, B, F)
-    if ggeo.dim() == 5:   # the general instance's tile partials
-        ggeo = ggeo.sum(0)
     if not wgrad:
         LAUNCHES[name] += 1
         return dh, ggeo
     LAUNCHES[name.replace("_bwd", "_bwd_wgrad")] += 1
+    if wpart.dim() == 3:   # the general instance's padded partials
+        w = wpart.sum(0, dtype=torch.float64).to(torch.float32)
+        mp, Fp = _mp(B), gen_width(F)
+        return (dh, ggeo, w[:B, :F], w[B, :F], w[mp:mp + F, :F],
+                w[mp + Fp, :F])
     w = wpart.sum(0).to(torch.float32)
     return (dh, ggeo, w[:B * F].view(B, F), w[B * F:(B + 1) * F],
             w[(B + 1) * F:(B + 1) * F + F * F].view(F, F),

@@ -210,10 +210,11 @@ def test_message_kernels_take_a_wide_basis(cuda_device):
             "msg_fwd", "msg_bwd"} <= moved
 
 
-#: phase 17 (a)'s sweep of the message family: F at B = 20, and F = 30 at
-#: B+1 = 32 and 51
+#: phase 17 (a)'s sweep of the message family: F at B = 20, F = 30 at B+1
+#: = 32, 51 and 1001 (the basis arrays in global scratch) and F = 512 at
+#: B+1 = 301 (P3's n-tile split)
 GEN_MSG_SHAPES = [(30, 20), (50, 20), (130, 20), (288, 20), (512, 20),
-                  (30, 31), (30, 50)]
+                  (30, 31), (30, 50), (512, 300), (30, 1000)]
 
 
 @pytest.mark.gpu
@@ -720,9 +721,11 @@ def test_cfconv_bwd_at_basis_widths(cuda_device, B, F):
     _cfconv_bwd_checks(args, refs, torch.tensor(c["g"], device=cuda_device))
 
 
-#: phase 17 (a)'s sweep of the cfconv kernels
+#: phase 17 (a)'s sweep of the cfconv kernels; at (1024, 20) (wgrad) and
+#: (64, 2000) K10's general tiles lie in global scratch
 GEN_CF_SHAPES = [(30, 20), (96, 20), (192, 20), (256, 20), (512, 20),
-                 (64, 50), (128, 50), (64, 300), (128, 300)]
+                 (64, 50), (128, 50), (64, 300), (128, 300), (1024, 20),
+                 (64, 2000)]
 
 
 @pytest.mark.gpu
@@ -753,6 +756,33 @@ def test_general_cfconv_kernels_match_twin(cuda_device, F, B):
     assert {k: schnet.LAUNCHES[k] - before[k] for k in before
             if schnet.LAUNCHES[k] != before[k]} == {
         "cf_fwd_gen": 1, "cf_bwd_gen": 1, "cf_bwd_wgrad_gen": 1}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("F,B", [(30, 20), (512, 20), (1024, 20)])
+def test_general_backwards_repeat_bit_for_bit(cuda_device, F, B):
+    """The general cfconv and message backwards (plain and wgrad) give the
+    same bits on a second call: every output element has one writer and
+    every sum one order (no atomics), also where K10's wgrad tiles lie in
+    global scratch (F = 1024)."""
+    c = cfconv_case(F=F, B=B, seed=F, n=110, L=11.0)
+    refs = ColRefs.from_layout(c["lay"], device=cuda_device)
+    args = [torch.tensor(c[k], device=cuda_device)
+            for k in ("h", "geo", "W1", "b1", "W2", "b2")]
+    g = torch.tensor(c["g"], device=cuda_device)
+    for wgrad in (False, True):
+        first = schnet.cf_bwd_kernel(*args, refs, g, wgrad=wgrad)
+        for a, b in zip(first, schnet.cf_bwd_kernel(*args, refs, g,
+                                                    wgrad=wgrad)):
+            assert torch.equal(a, b)
+    m = message_case(F=F, B=B, seed=F + 1)
+    t, mrefs, cw = torch_message_args(m, cuda_device)
+    full = (t["x"], t["mu"], t["Rs"], t["FW"], t["coff_fm"], cw, mrefs,
+            m["cutoff"], t["g_dq"], t["g_dmu"])
+    for wgrad in (False, True):
+        first = msg.msg_bwd_kernel(*full, wgrad=wgrad)
+        for a, b in zip(first, msg.msg_bwd_kernel(*full, wgrad=wgrad)):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.gpu

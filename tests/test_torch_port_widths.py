@@ -37,14 +37,19 @@ from test_torch_port_schnet import (
     CUTOFF, E_RTOL, F_SCALED_ATOL, _compare_with_jax, _jax_batch,
     _jax_potential,
 )
-from torch_port_cases import MIX_INPUTS, mixing_case
+from schnetpack_tpu_torch.ops.colblock import ColRefs
+from torch_port_cases import (
+    MIX_INPUTS, cfconv_case, message_case, mixing_case, torch_message_args,
+)
 
 sys.path.insert(0, ROOT)
 import chip_smoke as cs  # noqa: E402
 
-#: the widths and bases the acceptance names, each taken by some instance
-WIDTHS = (1, 30, 50, 96, 288, 353, 512)
-BASES = (20, 31, 50, 300)
+#: the widths and bases the acceptance names, each taken by some instance,
+#: and F = 1024 and B = 2000, past what K10's general tiles and the
+#: message backward's basis arrays hold in shared memory
+WIDTHS = (1, 30, 50, 96, 288, 353, 512, 1024)
+BASES = (20, 31, 50, 300, 2000)
 
 
 @pytest.fixture(autouse=True)
@@ -209,7 +214,9 @@ def test_every_width_has_an_instance(F, B):
     """No width or basis is refused: the wrappers' checks take every F >=
     1 and B >= 1, and each kernel family names the instance that runs it
     (the tuned one where ``tuned_width`` holds, else the general one,
-    whose Z feature tiles of NT threads cover F with NT <= 256)."""
+    whose Z feature tiles of NT threads cover F with NT <= 256; the
+    general backwards keep what does not fit shared memory in global
+    scratch)."""
     mix.check_width(F)
     cf.check_width(F, B)
     assert msg.tuned_width(F, B) == (F % 32 == 0 and F <= 256)
@@ -263,3 +270,99 @@ def test_padded_weights_give_the_unpadded_outputs(F):
     again = mix.padded_weights(*weights)
     assert again is not first
     torch.testing.assert_close(again[0][:F, :F], weights[0][:, :F])
+
+
+def _pad_cols(t, blocks, F, FP):
+    """[rows, blocks F] -> [rows, blocks FP], each block zero-padded."""
+    out = t.new_zeros((t.shape[0], blocks, FP))
+    out[..., :F] = t.reshape(t.shape[0], blocks, F)
+    return out.reshape(t.shape[0], -1)
+
+
+@pytest.mark.parametrize("F,B", [(30, 20), (96, 300), (200, 50)])
+def test_cfconv_padded_weights_give_the_unpadded_backward(F, B):
+    """K10's general instance's padded weights (``pad_gen_weights``: W1 to
+    [Bp, Fp], W2 to [Fp, Fp], b1 and b2 to Fp, Fp = F rounded up to 32,
+    Bp = B + 1 rounded up to 8) on h, g and a geometry zero-padded the same
+    way give the unpadded twin's VJP, in float64: dh and the geometry
+    cotangent at the real columns and channels, the weight cotangents at
+    the real rows and columns, and zeros at every padded one (a padded
+    filter is ssp(0) = 0 against a zero row of W2, and gpre and gz1 are 0
+    there); ``gen_padded_weights`` makes them once per parameter
+    version."""
+    c = cfconv_case(F=F, B=B, seed=F + B, n=110, L=11.0)
+    refs = ColRefs.from_layout(c["lay"])
+    h, geo, W1, b1, W2, b2, g = (torch.tensor(c[k]).double() for k in (
+        "h", "geo", "W1", "b1", "W2", "b2", "g"))
+    want = cf.cf_bwd_plain(h, geo, W1, b1, W2, b2, refs, g)
+    W1p, b1p, W2p, b2p = cf.pad_gen_weights(W1, b1, W2, b2)
+    Bp, Fp = W1p.shape
+    assert Fp == cf.gen_width(F) and Fp % 32 == 0 and Bp == cf._bp(B)
+    geo_p = geo.new_zeros((*geo.shape[:2], Bp + 4, geo.shape[3]))
+    geo_p[:, :, :B] = geo[:, :, :B]
+    geo_p[:, :, Bp:] = geo[:, :, B:]
+    got = cf.cf_bwd_plain(_pad_cols(h, 1, F, Fp), geo_p, W1p, b1p, W2p, b2p,
+                          refs, _pad_cols(g, 1, F, Fp))
+    real = [(got[0][:, :F], want[0]),
+            (got[1][:, :, :B], want[1][:, :, :B]),
+            (got[1][:, :, Bp:], want[1][:, :, B:]),
+            (got[2][:B, :F], want[2]), (got[3][:F], want[3]),
+            (got[4][:F, :F], want[4]), (got[5][:F], want[5])]
+    for a, w in real:
+        np.testing.assert_allclose(a.numpy(), w.numpy(), rtol=1e-12,
+                                   atol=1e-12)
+    for pad in (got[0][:, F:], got[1][:, :, B:Bp], got[2][B:], got[2][:, F:],
+                got[3][F:], got[4][F:], got[4][:, F:], got[5][F:]):
+        np.testing.assert_allclose(pad.numpy(), 0.0, atol=1e-12)
+    weights = [a.float() for a in (W1, b1, W2, b2)]
+    first = cf.gen_padded_weights(*weights)
+    assert cf.gen_padded_weights(*weights) is first
+    with torch.no_grad():
+        weights[2].add_(1.0)             # a new parameter version
+    again = cf.gen_padded_weights(*weights)
+    assert again is not first
+    torch.testing.assert_close(again[2][:F, :F], weights[2])
+
+
+@pytest.mark.parametrize("F,B", [(30, 20), (130, 31), (288, 50)])
+def test_message_padded_weights_give_the_unpadded_backward(F, B):
+    """The general message backward's padded FW_aug (``pad_gen_fw``: [B+1,
+    Z, 3, NT], each part's features z NT .. z NT + NT of tile z, zero past
+    F; here in the twin's part-major order) on x, mu and the cotangents
+    zero-padded the same way give the unpadded twin's VJP (K2's form), in
+    float64: dx, dmu and gFW at the real features, the position cotangent,
+    and zeros at every padded feature; ``gen_padded_fw`` makes it once per
+    parameter version."""
+    c = message_case(F=F, B=B, seed=F + B)
+    t, refs, cw = torch_message_args(c)
+    x, mu, R, FW, coff, g_dq, g_dmu = (t[k].double() for k in (
+        "x", "mu", "Rs", "FW", "coff_fm", "g_dq", "g_dmu"))
+    cw = cw.double()
+    want = msg.msg_bwd_plain(x, mu, R, FW, coff, cw, refs, c["cutoff"],
+                             g_dq, g_dmu)
+    Z, NT = msg.gen_tiles(F), msg.gen_threads(F)
+    FP = Z * NT
+    FWp = msg.pad_gen_fw(FW)
+    assert FWp.shape == (B + 1, Z, 3, NT)
+    FWpm = FWp.transpose(1, 2).reshape(B + 1, 3 * FP)   # part-major
+    got = msg.msg_bwd_plain(_pad_cols(x, 3, F, FP), _pad_cols(mu, 3, F, FP),
+                            R, FWpm, coff, cw, refs, c["cutoff"],
+                            _pad_cols(g_dq, 1, F, FP),
+                            _pad_cols(g_dmu, 3, F, FP))
+
+    def real(a):
+        return a.reshape(a.shape[0], 3, FP)[..., :F].reshape(a.shape[0], -1)
+
+    for a, w in ((real(got[0]), want[0]), (real(got[1]), want[1]),
+                 (got[2], want[2]), (real(got[3]), want[3])):
+        np.testing.assert_allclose(a.numpy(), w.numpy(), rtol=1e-12,
+                                   atol=1e-12)
+    for i in (0, 1, 3):
+        pad = got[i].reshape(got[i].shape[0], 3, FP)[..., F:]
+        np.testing.assert_allclose(pad.numpy(), 0.0, atol=1e-12)
+    FW32 = FW.float()
+    first = msg.gen_padded_fw(FW32)
+    assert msg.gen_padded_fw(FW32) is first
+    with torch.no_grad():
+        FW32.add_(1.0)
+    assert msg.gen_padded_fw(FW32) is not first
