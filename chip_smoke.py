@@ -346,14 +346,15 @@ Phases (any failure exits non-zero before the last line is printed):
 17. every width (``widths_phase``): (a) the general instances of the
    message (K1/K2, K6/K7, K15 at (F, B) = (30, 50, 130, 288, 512; 20) and
    (30; 31, 50), plain and wgrad; K1/K2 and K6/K7 mixed and bf16 at F = 30
-   and 288), mixing (K3/K4 plain and wgrad at F = 30-512 on 37 and 12,800
-   rows) and cfconv kernels (K9/K10 plain and wgrad at F = 30-512 and B =
-   20, and F = 64 and 128 at B = 50 and 300) against their twins on a
-   2,048-atom box, the backwards and gFW held to the float64 twins
-   (``held_compare``); the general instances' rows at F = 30 on the bench
-   box with F = 512 sub-rows and cf_bwd_gen's at (F, B) = (64, 300), the
-   redesigned backwards' device ms beside their readings before the
-   redesign, their bounds and ratios; (b) PaiNN-30x3 (full, hybrid) and
+   and 288), mixing (K3/K4 plain and wgrad at F = 30-1024 on 37 and
+   12,800 rows) and cfconv kernels (K9/K10 plain and wgrad at F = 30-1024
+   and B = 20, and F = 64 and 128 at B = 50-2000) against their twins on a
+   2,048-atom box, at the general plans' switches, the backwards and gFW
+   held to the float64 twins (``held_compare``); the general instances'
+   rows at F = 30 on the bench box with F = 512 sub-rows and K9's and
+   K10's at (F, B) = (64, 300), the redesigned instances' device and per
+   call ms beside their readings before the redesign, their bounds, 3xTF32
+   floors and ratios; (b) PaiNN-30x3 (full, hybrid) and
    SchNet-30x3 on the column layout against
    ``port_ref_{painn,schnet}_w30_argon.npz`` at phase 4's gates, then 300
    NVE steps each (drift <= WIDTH_DRIFT_TOL,
@@ -455,8 +456,10 @@ PTXAS_SOURCES = {
                                 **_MSG_BWD_GEN},
     **{f"colblock_message_gen_{m}.cu": _MSG_BWD_GEN
        for m in ("mixed", "bf16")},
-    "schnet_columns_gen.cu": {"cf_bwd_gen_kernel": ("kWgrad", "kWide",
-                                                    "kScr")}}
+    "schnet_columns_gen.cu": {"cf_fwd_gen_kernel": ("kWide", "kScr"),
+                              "cf_bwd_gen_kernel": ("kWgrad", "kWide",
+                                                    "kScr")},
+    "painn_mixing_gen.cu": {"mix_bwd_gen_kernel": ("NT1", "NT2", "kScr")}}
 #: the numbers of a kernel row that its sub-rows carry
 SUB_KEYS = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
             "bound_by", "tf32x3_floor_ms", "library_ms", "library_device_ms",
@@ -5450,18 +5453,24 @@ WIDTH_REFERENCE = {
 #: (a) the sweep against the twins: the message family's (F, B), plain
 #: and wgrad (at (512, 300) P3's warps split the n-tiles, at (30, 1000) the
 #: basis arrays lie in global scratch); the reduced modes' F (B = 20); the
-#: mixing's F on its row counts; the cfconv's (F, B) (K10's tiles in
-#: global scratch at (1024, 20) wgrad and (64, 2000))
+#: mixing's F on its row counts (the general K4's tiles in shared memory to
+#: F = 255, in global scratch from 257); the cfconv's (F, B) (K9's weights
+#: from L2 from (193, 20), its tiles in global scratch at (64, 1750) and
+#: (64, 2000); K10's at (1024, 20) wgrad and (64, 2000))
 WIDTH_MSG = ((30, 20), (50, 20), (130, 20), (288, 20), (512, 20), (30, 31),
              (30, 50), (512, 300), (30, 1000))
 WIDTH_REDUCED = (30, 288)
-WIDTH_MIX = (30, 50, 130, 288, 384, 512)
+WIDTH_MIX = (30, 50, 130, 255, 257, 288, 384, 512, 1024)
 WIDTH_MIX_ROWS = (37, 12_800)
-WIDTH_CF = ((30, 20), (96, 20), (192, 20), (256, 20), (512, 20), (64, 50),
-            (128, 50), (64, 300), (128, 300), (1024, 20), (64, 2000))
+WIDTH_CF = ((30, 20), (96, 20), (192, 20), (193, 20), (256, 20), (512, 20),
+            (64, 50), (128, 50), (64, 300), (128, 300), (1024, 20),
+            (64, 1750), (64, 2000))
 #: the tuned message backward's widths (B = 20) at which the general one is
 #: timed beside it on the bench box
 WIDTH_TUNED = (128, 256)
+#: the widths of the tuned cfconv kernels (``schnet_columns.N_FILTERS``),
+#: at which phase 17 times the general K9 and K10 beside them
+CF_TUNED_WIDTHS = (64, 128)
 #: the sweep's box: the bench box's layout at 2,048 atoms
 WIDTH_BOX = 2_000
 #: the widest swept F, whose general instances are timed beside F = 30
@@ -5484,10 +5493,13 @@ WIDTH_K3 = 384
 #: the SchNet paper's filters and Gaussians, a sub-row of cf_bwd_gen on the
 #: bench box
 WIDTH_PAPER = (64, 300)
-#: device ms of the redesigned general backwards before their redesign
-#: (PERF.md's kernel table, NVIDIA H100 80GB HBM3, 700 W): (plain, wgrad)
-#: at F = 30 on the bench box and at F = WIDTH_WIDE on the sweep's box
+#: device ms of the redesigned general instances before their redesign
+#: (PERF.md's kernel table, NVIDIA H100 80GB HBM3, 700 W): ((plain at F =
+#: 30 on the bench box, plain at F = WIDTH_WIDE on the sweep's box),
+#: (wgrad at F = 30, wgrad at F = WIDTH_WIDE)); K9 has no wgrad instance
 BEFORE_REDESIGN_MS = {
+    "cf_fwd_gen": ((0.5442, 5.5945), (None, None)),
+    "mix_bwd_gen": ((0.3107, 12.2335), (1.0320, 13.5381)),
     "msg_bwd_gen": ((0.7407, 4.5285), (1.1115, 5.2274)),
     "msg_bwd_geores_gen": ((0.8238, 4.5550), (1.2405, 5.4549)),
     "msg_bwd_src_gen": ((1.0048, 5.8920), (1.7396, 9.6337)),
@@ -5879,11 +5891,13 @@ def width_cases(F, L, seed, dev):
     out += [
         fwd_case("mix_fwd_gen", "painn_mixing_gen.cu", "painn_mixing.py:73",
                  mix.mix_fwd_kernel, mix.painn_mixing_plain, xargs,
-                 xargs[:9], 22 * FX * FX * Ap),
+                 xargs[:9], 22 * FX * FX * Ap) | {
+            "tc_flops": 3 * 22 * FX * FX * Ap},
         case("mix_bwd_gen", "painn_mixing_gen.cu", "painn_mixing.py:83",
              lambda: mix.mix_bwd_kernel(*margs4),
              lambda: mix.painn_mixing_bwd_plain(*margs4),
              (margs4[:9], *cots), 42 * F * F * Ap,
+             tc_flops=3 * 42 * F * F * Ap,
              wgrad={"kern": lambda: mix.mix_bwd_kernel(*margs4, wgrad=True),
                     "plain": lambda: mix_w(*margs4),
                     "ref64": f64(mix_w, *margs4), "flops": 64 * F * F * Ap,
@@ -5903,11 +5917,13 @@ def width_cases(F, L, seed, dev):
         case("cf_fwd_gen", "schnet_columns_gen.cu", "schnet_columns.py:79",
              lambda: (cf.cf_fwd_kernel(*cargs2[:7]),),
              lambda: cf_fwd(*cargs2[:7]), (cargs2[:6], idx),
-             2 * ni * mlp + 2 * ni * F) | {"ref64": f64(cf_fwd, *cargs2[:7])},
+             2 * ni * mlp + 2 * ni * F, tc_flops=3 * 2 * ni * mlp) | {
+            "ref64": f64(cf_fwd, *cargs2[:7])},
         case("cf_bwd_gen", "schnet_columns_gen.cu", "schnet_columns.py:145",
              lambda: cf.cf_bwd_kernel(*cargs2),
              lambda: cf.cf_bwd_plain(*cargs2)[:2],
              (cargs2[:6], idx, cargs2[7]), 4 * ne * mlp,
+             tc_flops=3 * 4 * ne * mlp,
              wgrad={"kern": lambda: cf.cf_bwd_kernel(*cargs2, wgrad=True),
                     "plain": lambda: cf.cf_bwd_plain(*cargs2),
                     "ref64": f64(cf.cf_bwd_plain, *cargs2),
@@ -5935,28 +5951,43 @@ def width_kernel_rows(system, sweep_layouts, seed, dev):
         row[f"F{WIDTH_WIDE}"] = dict(
             sub_row(wide), box_rows=int(sweep_layouts["R"].shape[0]))
     F, B = WIDTH_PAPER
-    (paper,) = check_kernels([paper_cf_case(bench, seed, dev)])
+    paper = check_kernels(paper_cf_cases(bench, seed, dev))
     by_name = {r["name"]: r for r in rows}
-    by_name["cf_bwd_gen"][f"F{F}_B{B}"] = sub_row(paper)
+    for p in paper:
+        by_name[p["name"]][f"F{F}_B{B}"] = sub_row(p)
+
+    def redesigned(name, tag, r, before=None):
+        was = "" if before is None else f" (before {before:.4f})"
+        floor = r.get("tf32x3_floor_ms")
+        floor = "" if floor is None else f", 3xTF32 floor {floor:.4f} ms"
+        print(f"redesigned {name} ({tag}): device {r['device_ms']:.4f} ms"
+              f"{was}, per call {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} "
+              f"ms{floor}, {r['device_ms'] / r['bound_ms']:.1f}x",
+              flush=True)
+
     for name, ((f30, wide), (wf30, wwide)) in BEFORE_REDESIGN_MS.items():
         row = by_name[name]
-        for tag, r, before in (
-                ("F = 30", row, f30), ("F = 30 wgrad", row["wgrad"], wf30),
-                (f"F = {WIDTH_WIDE}", row[f"F{WIDTH_WIDE}"], wide),
-                (f"F = {WIDTH_WIDE} wgrad", row[f"F{WIDTH_WIDE}"]["wgrad"],
-                 wwide)):
-            print(f"redesigned {name} ({tag}): device {r['device_ms']:.4f} "
-                  f"ms (before {before:.4f}), bound {r['bound_ms']:.4f} ms, "
-                  f"{r['device_ms'] / r['bound_ms']:.1f}x", flush=True)
-    for tag, r in (("", paper), (" wgrad", paper["wgrad"])):
-        print(f"redesigned cf_bwd_gen (F = {F}, B = {B}{tag}): device "
-              f"{r['device_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms, "
-              f"{r['device_ms'] / r['bound_ms']:.1f}x", flush=True)
+        redesigned(name, "F = 30", row, f30)
+        redesigned(name, f"F = {WIDTH_WIDE}", row[f"F{WIDTH_WIDE}"], wide)
+        if wf30 is not None:
+            redesigned(name, "F = 30 wgrad", row["wgrad"], wf30)
+            redesigned(name, f"F = {WIDTH_WIDE} wgrad",
+                       row[f"F{WIDTH_WIDE}"]["wgrad"], wwide)
+    for p in paper:
+        redesigned(p["name"], f"F = {F}, B = {B}", p)
+        if "wgrad" in p:
+            redesigned(p["name"], f"F = {F}, B = {B} wgrad", p["wgrad"])
     for F in WIDTH_TUNED:
         tuned, gen = general_at_tuned_width(bench, sweep_layouts, F, seed)
         print(f"general at a tuned width: msg_bwd (K2) F = {F}, B = 20: "
               f"tuned {tuned:.4f} ms, general {gen:.4f} ms (device), "
               f"{gen / tuned:.2f}x", flush=True)
+    for F in CF_TUNED_WIDTHS:
+        for name, (tuned, gen) in cfconv_general_at_tuned_width(
+                bench, sweep_layouts, F, seed).items():
+            print(f"general at a tuned width: {name} F = {F}, B = 20: "
+                  f"tuned {tuned:.4f} ms, general {gen:.4f} ms (device), "
+                  f"{gen / tuned:.2f}x", flush=True)
     return rows
 
 
@@ -5998,10 +6029,60 @@ def general_at_tuned_width(bench, small, F, seed):
     return tuned, gen
 
 
-def paper_cf_case(L, seed, dev):
-    """cf_bwd_gen's ``case`` at the SchNet paper's (F, B) = WIDTH_PAPER on
-    the layout ``L`` (``width_layouts``), its raw-phi geometry at B
-    Gaussians, held to its float64 twin."""
+def cfconv_general_at_tuned_width(bench, small, F, seed):
+    """K9's and K10's device ms at a width F the tuned kernels take (B =
+    20) on the bench box's layout ``bench``: {"cf_fwd (K9)": (tuned,
+    general), "cf_bwd (K10)": ...}, the general instances run by turning
+    the wrappers' dispatch to them, and held to the float64 twins on the
+    smaller layout ``small`` (``width_layouts``).  The general K9 skips the
+    slots with fcut = 0, the tuned one computes their exact zeros."""
+    from schnetpack_tpu_torch.ops import schnet_columns as cf
+
+    g = torch.Generator().manual_seed(seed + 2 * F)
+    B = bench["B"]
+
+    def args(L):
+        dev = L["R"].device
+        Ap = L["R"].shape[0]
+
+        def rnd(*shape, scale=1.0):
+            return (torch.randn(shape, generator=g) * scale).to(dev)
+
+        return (rnd(Ap, F), L["graw"],
+                rnd(B, F, scale=(6.0 / (B + F)) ** 0.5), rnd(F, scale=0.1),
+                rnd(F, F, scale=(3.0 / F) ** 0.5), rnd(F, scale=0.1),
+                L["refs"], rnd(Ap, F))
+
+    big, check = args(bench), args(small)
+    assert cf.tuned_width(F, B)
+    # name: (kernel, plain version, counter of the general instance)
+    ops = {"cf_fwd (K9)": (lambda a: (cf.cf_fwd_kernel(*a[:7]),),
+                           lambda a: (cf.cf_fwd_plain(*a[:7]),),
+                           "cf_fwd_gen"),
+           "cf_bwd (K10)": (lambda a: cf.cf_bwd_kernel(*a),
+                            lambda a: cf.cf_bwd_plain(*a)[:2], "cf_bwd_gen")}
+    tuned = {k: device_ms(lambda: kern(big))
+             for k, (kern, _, _) in ops.items()}
+    dispatch = cf.tuned_width
+    cf.tuned_width = lambda F, B: False
+    try:
+        before = {k: cf.LAUNCHES[c] for k, (_, _, c) in ops.items()}
+        got = {k: kern(check) for k, (kern, _, _) in ops.items()}
+        gen = {k: device_ms(lambda: kern(big))
+               for k, (kern, _, _) in ops.items()}
+        assert all(cf.LAUNCHES[c] > before[k] for k, (_, _, c) in ops.items())
+    finally:
+        cf.tuned_width = dispatch
+    for k, (_, plain, c) in ops.items():
+        held_compare(f"{c} at tuned F = {F}", got[k], plain(check),
+                     in_f64(lambda *a: plain(a), *check))
+    return {k: (tuned[k], gen[k]) for k in ops}
+
+
+def paper_cf_cases(L, seed, dev):
+    """cf_fwd_gen's and cf_bwd_gen's ``case``s at the SchNet paper's (F, B)
+    = WIDTH_PAPER on the layout ``L`` (``width_layouts``), its raw-phi
+    geometry at B Gaussians, held to their float64 twins."""
     from schnetpack_tpu_torch.ops import colblock_geo as geo_op
     from schnetpack_tpu_torch.ops import schnet_columns as cf
     from schnetpack_tpu_torch.ops.radial import gaussian_rbf_table
@@ -6021,17 +6102,29 @@ def paper_cf_case(L, seed, dev):
             rnd(F, scale=0.1), rnd(F, F, scale=(3.0 / F) ** 0.5),
             rnd(F, scale=0.1), refs, rnd(Ap, F))
     mlp, ne = B * F + F * F, L["ne"]
-    return case("cf_bwd_gen", "schnet_columns_gen.cu",
-                "schnet_columns.py:145",
-                lambda: cf.cf_bwd_kernel(*args),
-                lambda: cf.cf_bwd_plain(*args)[:2],
-                (args[:6], (refs.qcol, refs.dcol), args[7]), 4 * ne * mlp,
-                wgrad={"kern": lambda: cf.cf_bwd_kernel(*args, wgrad=True),
-                       "plain": lambda: cf.cf_bwd_plain(*args),
-                       "ref64": lambda: in_f64(cf.cf_bwd_plain, *args),
-                       "flops": 6 * ne * mlp, "norm_from": 2}) | {
-        "ref64": lambda: in_f64(cf.cf_bwd_plain, *args)[:2],
-        "tag": f" (F = {F}, B = {B})"}
+    ni = live_edges(refs, graw[:, :, B] > 0)
+    idx = (refs.qcol, refs.dcol)
+
+    def fwd(*a):
+        return (cf.cf_fwd_plain(*a),)
+
+    tag = {"tag": f" (F = {F}, B = {B})"}
+    return [
+        case("cf_fwd_gen", "schnet_columns_gen.cu", "schnet_columns.py:79",
+             lambda: (cf.cf_fwd_kernel(*args[:7]),),
+             lambda: fwd(*args[:7]), (args[:6], idx),
+             2 * ni * mlp + 2 * ni * F, tc_flops=3 * 2 * ni * mlp) | {
+            "ref64": lambda: in_f64(fwd, *args[:7]), **tag},
+        case("cf_bwd_gen", "schnet_columns_gen.cu", "schnet_columns.py:145",
+             lambda: cf.cf_bwd_kernel(*args),
+             lambda: cf.cf_bwd_plain(*args)[:2],
+             (args[:6], idx, args[7]), 4 * ne * mlp,
+             tc_flops=3 * 4 * ne * mlp,
+             wgrad={"kern": lambda: cf.cf_bwd_kernel(*args, wgrad=True),
+                    "plain": lambda: cf.cf_bwd_plain(*args),
+                    "ref64": lambda: in_f64(cf.cf_bwd_plain, *args),
+                    "flops": 6 * ne * mlp, "norm_from": 2}) | {
+            "ref64": lambda: in_f64(cf.cf_bwd_plain, *args)[:2], **tag}]
 
 
 def width_md_phase(pos, cell, seed, dev, launches):

@@ -33,7 +33,10 @@
 //
 // The forward: per chunk of E slots (E from the shared memory that fits,
 // at most 32) the block stages the slots' indices, geometry and basis rows
-// [E][B+1], then each thread walks the chunk in order for its feature (the
+// [E][B+1] (where not even one slot's basis row fits shared memory, B+1
+// above ~58,000, the rows of chunks of fewer slots go to the block's
+// slice of a scratch in global memory, gen_launch.cuh::in_waves), then
+// each thread walks the chunk in order for its feature (the
 // lanes past F load feature F - 1 and store nothing): the filter (B+1
 // FMAs a part, FW_aug through L1), the run sums of the open output row in
 // registers, each row stored once when its run ends and rows without a
@@ -119,10 +122,16 @@ __host__ __device__ inline int gen_threads(int F) {
   return (w + 31) / 32 * 32;
 }
 
-// shared memory of a forward chunk of E slots, bytes
-inline size_t gen_fwd_smem(int E, int B) {
-  return sizeof(float) * (size_t)E * (B + 1 + 4) + sizeof(int) * 3 * E;
+// shared memory of a forward chunk of E slots, bytes: the basis rows
+// [E][B+1] (not where they lie in global scratch, rbf_smem false), the
+// directions, distances and three int arrays
+inline size_t gen_fwd_smem(int E, int B, bool rbf_smem = true) {
+  return sizeof(float) * (size_t)E * ((rbf_smem ? B + 1 : 0) + 4) +
+         sizeof(int) * 3 * E;
 }
+
+// the basis rows of a forward chunk in global scratch, at most (bytes)
+constexpr size_t kGenFwdScrBytes = (size_t)1 << 20;
 
 // the largest chunk (at most emax slots) whose shared memory fits the
 // device's opt-in limit; 0 when not even one slot does
@@ -149,11 +158,12 @@ __global__ void __launch_bounds__(kGenTile)
                        const int* __restrict__ grp, float* __restrict__ dq,
                        float* __restrict__ dmu, int nx, int ny, int P,
                        int Ktot, KOffs ko, int G, int F, int B, int E,
-                       int ldx, int hx, int hy, float rc, CellStack cs) {
+                       int ldx, int hx, int hy, float rc, CellStack cs,
+                       float* __restrict__ scr, int c0) {
   constexpr bool kGeo = kIn != kPosIn, kCellMode = kIn == kCellIn;
   extern __shared__ __align__(16) float gen_smem[];
   const int NT = blockDim.x, B1 = B + 1, D3 = 3 * F;
-  const int col = blockIdx.x, g = blockIdx.y, tid = threadIdx.x;
+  const int col = c0 + blockIdx.x, g = blockIdx.y, tid = threadIdx.x;
   const int f = blockIdx.z * NT + tid;
   const bool fok = f < F;
   const int fl = fok ? f : F - 1;
@@ -161,12 +171,16 @@ __global__ void __launch_bounds__(kGenTile)
   const int* gb = grp + ((size_t)col * (G + 1) + g) * 2;
   const int r0 = gb[0], e0 = gb[1], r1 = gb[2], e1 = gb[3];
 
-  float* s_rbf = gen_smem;                   // [E][B1] basis rows
-  float* s_dir = s_rbf + (size_t)E * B1;     // [E][3]
+  float* s_dir = gen_smem;                   // [E][3]
   float* s_d = s_dir + 3 * E;                // [E] distance (K1)
   int* s_src = reinterpret_cast<int*>(s_d + E);  // [E] source row or -1
   int* s_dst = s_src + E;                    // [E] destination row
   int* s_k = s_dst + E;                      // [E] slot in the column
+  // [E][B1] basis rows: in shared memory, or in the block's slice of scr
+  float* s_rbf =
+      scr ? scr + (((size_t)blockIdx.x * gridDim.y + g) * gridDim.z +
+                   blockIdx.z) * E * B1
+          : reinterpret_cast<float*>(s_k + E);
 
   const size_t row0 = (size_t)col * P;
   auto put = [&](int r, float vq, float v0, float v1, float v2) {
@@ -354,18 +368,30 @@ int launch_fwd_gen(const void* x, const void* mu, const float* R,
                    int Ktot, const int* koffs, int G, int F, int B, int ldx,
                    int hx, int hy, float rc, CellStack cs,
                    cudaStream_t stream) {
-  const int E = gen_chunk(kGenFwdE, [&](int e) { return gen_fwd_smem(e, B); });
-  if (E == 0 || F < 1 || B < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = gen_fwd_smem(E, B);
+  if (F < 1 || B < 1) return (int)cudaErrorInvalidValue;
+  int E = gen_chunk(kGenFwdE, [&](int e) { return gen_fwd_smem(e, B); });
+  const bool scr = E == 0;  // not one slot's basis row fits: global scratch
+  if (scr)
+    E = (int)std::max<size_t>(
+        1, std::min<size_t>(kGenFwdE,
+                            kGenFwdScrBytes / (sizeof(float) * (B + 1))));
+  const size_t smem = gen_fwd_smem(E, B, !scr);
   const cudaError_t err =
       allow_smem((const void*)msg_fwd_gen_kernel<kIn, kP>);
   if (err != cudaSuccess) return (int)err;
   using T = FeatT<kP>;
-  msg_fwd_gen_kernel<kIn, kP>
-      <<<dim3(n_cols, G, gen_tiles(F)), gen_threads(F), smem, stream>>>(
-          static_cast<const T*>(x), static_cast<const T*>(mu), R, gv, FW,
-          coff, cw, qcol, dcol, dsorted, grp, dq, dmu, nx, ny, P, Ktot,
-          make_koffs(koffs), G, F, B, E, ldx, hx, hy, rc, cs);
+  const int Z = gen_tiles(F);
+  auto run = [&](float* s, int c0, int cols) {
+    msg_fwd_gen_kernel<kIn, kP>
+        <<<dim3(cols, G, Z), gen_threads(F), smem, stream>>>(
+            static_cast<const T*>(x), static_cast<const T*>(mu), R, gv, FW,
+            coff, cw, qcol, dcol, dsorted, grp, dq, dmu, nx, ny, P, Ktot,
+            make_koffs(koffs), G, F, B, E, ldx, hx, hy, rc, cs, s, c0);
+  };
+  if (scr)  // waves of columns, each block's rows in its slice of scratch
+    return (int)in_waves(n_cols, sizeof(float) * G * Z * E * (B + 1),
+                         stream, run);
+  run(nullptr, 0, n_cols);
   return (int)cudaGetLastError();
 }
 

@@ -39,7 +39,8 @@
 // fragments loaded from L2 and split for one m16 tile and the A fragments
 // split again by every warp.
 //
-// K4 runs its products on the tensor cores in 3xTF32 (tf32_mma.cuh,
+// K4 (its body in painn_mixing_bwd_body.cuh, which the general instance
+// shares) runs its products on the tensor cores in 3xTF32 (tf32_mma.cuh,
 // rows_mma): a block takes 16 rows (one m16 tile) with 8 warps, whose
 // n-tiles split each product's columns; each product is a
 // [rows, K] tile in shared memory (rows padded to a stride of 4 mod 32
@@ -79,6 +80,7 @@
 #include <cuda_runtime.h>
 
 #include "mix_wgrad.cuh"
+#include "painn_mixing_bwd_body.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
@@ -98,30 +100,8 @@ static_assert(kFwdPad % (8 * kFwdNT1) == 0 &&
                   2 * kFwdPad % (8 * kFwdNT2) == 0 &&
                   3 * kFwdPad % (8 * kFwdNT3) == 0,
               "K3's pad");
-// K4: 8 warps a block on one m16 tile of rows, two blocks an SM at F = 128
-// (two tiles, 32 rows and one block an SM, took 0.61 ms against 0.40 at
-// 12,800 rows: scripts/time_mixing_kernels.py on the H100)
-constexpr int kBwdWarps = 8;
-constexpr int kBwdThreads = 32 * kBwdWarps;
-constexpr int kBwdRows = 16;
 // the opt-in dynamic shared memory limit, bytes a block (ops/_build.py)
 constexpr size_t kMaxSmem = SPK_MAX_DYN_SMEM;
-
-__device__ __forceinline__ float act_f(float x, int act) {
-  if (act == 1) return x / (1.f + expf(-x));  // silu
-  // shifted softplus: softplus(x) - ln 2
-  return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x))) - 0.69314718055994531f;
-}
-
-__device__ __forceinline__ float vnorm(float v0, float v1, float v2,
-                                       float eps) {
-  return sqrtf(v0 * v0 + v1 * v1 + v2 * v2 + eps);
-}
-
-__device__ __forceinline__ float dact_f(float x, int act) {
-  const float s = 1.f / (1.f + expf(-x));
-  return act == 1 ? s * (1.f + x * (1.f - s)) : s;
-}
 
 // K3's row tiles, 10 FP floats a row (FP: F rounded up to kFwdPad; the
 // columns past F are zeros): T0 [R][3FP] mu', T1 [R][3FP] V -> (Vn | vw |
@@ -227,13 +207,8 @@ mix_fwd_kernel(const float* __restrict__ q, const float* __restrict__ mu,
   }
 }
 
-// K4's row tiles, 13F floats a row: T0 [R][3F] mu' -> (b | c) -> gV,
-// T1 [R][3F] V, T2 [R][3F] W -> gW, T3 [R][F] q' -> g, T4 [R][F] Vn ->
-// gdmu_i, T5 [R][2F] (pre | h) -> (gpre | gdqmu_i); each row padded by 4
-__host__ __device__ inline size_t bwd_smem_bytes(int rows, int F) {
-  return sizeof(float) * (size_t)rows * (13 * F + 24);
-}
-
+// K4 at F % 32 == 0, F <= 256: the body (painn_mixing_bwd_body.cuh) on
+// the unpadded weights, its row tiles in shared memory
 __global__ void __launch_bounds__(kBwdThreads, 2)
 mix_bwd_kernel(const float* __restrict__ q, const float* __restrict__ mu,
                const float* __restrict__ dq, const float* __restrict__ dmu,
@@ -244,161 +219,17 @@ mix_bwd_kernel(const float* __restrict__ q, const float* __restrict__ mu,
                const float* __restrict__ k0T, const float* __restrict__ k1T,
                float* __restrict__ gqi, float* __restrict__ gmui,
                float* __restrict__ S, int A, int F, float eps, int act) {
-  constexpr int R = kBwdRows, RT = R / 16, NW = kBwdWarps;
   extern __shared__ float smem[];
-  const int F2 = 2 * F, D3 = 3 * F, D16 = 16 * F;
-  const size_t FF = (size_t)F * F;
-  const int L1 = F + 4, L2 = F2 + 4, L3 = D3 + 4;
-  float* T0 = smem;
-  float* T1 = T0 + R * L3;
-  float* T2 = T1 + R * L3;
-  float* T3 = T2 + R * L3;
-  float* T4 = T3 + R * L1;
-  float* T5 = T4 + R * L1;
-  const int row0 = blockIdx.x * R, tid = threadIdx.x;
-  // the wgrad instance's factor row of a block row (null past A)
-  auto srow = [&](int r) -> float* {
-    const int row = row0 + r;
-    return S != nullptr && row < A ? S + (size_t)row * D16 : nullptr;
-  };
-
-  // mu' -> T0, q' -> T3 (rows past A zero-filled)
-  for (int t = tid; t < R * D3; t += kBwdThreads) {
-    const int r = t / D3, col = t - r * D3, row = row0 + r;
-    float v = 0.f;
-    if (row < A) v = mu[(size_t)row * D3 + col] + dmu[(size_t)row * D3 + col];
-    T0[r * L3 + col] = v;
-    if (float* s = srow(r)) s[col] = v;
-  }
-  for (int t = tid; t < R * F; t += kBwdThreads) {
-    const int r = t / F, f = t - r * F, row = row0 + r;
-    float v = 0.f;
-    if (row < A) v = q[(size_t)row * F + f] + dq[(size_t)row * F + f];
-    T3[r * L1 + f] = v;
-    if (float* s = srow(r)) s[D3 + f] = v;
-  }
-  __syncthreads();
-  {  // (V_c | W_c) = mu'_c kmix, the components as three m-tiles
-    const MmaSeg seg[1] = {{T0, L3, F, kmix, F2, F}};
-    rows_mma<RT, 3, 4, NW>(seg, F2, [&](int c, int r, int n, float v) {
-      if (n < F) T1[r * L3 + c * F + n] = v;
-      else T2[r * L3 + c * F + n - F] = v;
-    });
-  }
-  __syncthreads();
-  for (int t = tid; t < R * F; t += kBwdThreads) {
-    const int r = t / F, f = t - r * F;
-    const float* V = T1 + r * L3 + f;
-    const float vn = vnorm(V[0], V[F], V[F2], eps);
-    T4[r * L1 + f] = vn;
-    if (float* s = srow(r)) s[4 * F + f] = vn;
-  }
-  __syncthreads();
-  {  // pre = q' k0[:F] + Vn k0[F:] + b0, h = act(pre)
-    const MmaSeg seg[2] = {{T3, L1, 0, k0, F, F}, {T4, L1, 0, k0 + FF, F, F}};
-    rows_mma<RT, 1, 2, NW>(seg, F, [&](int, int r, int n, float v) {
-      const float p = v + b0[n], h = act_f(p, act);
-      T5[r * L2 + n] = p;
-      T5[r * L2 + F + n] = h;
-      if (float* s = srow(r)) s[5 * F + n] = h;
-    });
-  }
-  __syncthreads();
-  {  // (b | c) = h k1[:, F:] + b1[F:] (the q update a has cotangent g)
-    const MmaSeg seg[1] = {{T5 + F, L2, 0, k1 + F, D3, F}};
-    rows_mma<RT, 1, 4, NW>(seg, F2, [&](int, int r, int n, float v) {
-      T0[r * L3 + n] = v + b1[F + n];
-    });
-  }
-  __syncthreads();
-  // the gated update's cotangents: gcat = (g, gdmu_i, g vw), gW_c =
-  // gm_c b + g c V_c over W_c, gV_c = g c W_c over (b | c)
-  for (int t = tid; t < R * F; t += kBwdThreads) {
-    const int r = t / F, f = t - r * F, row = row0 + r;
-    const bool ok = row < A;
-    float* gV = T0 + r * L3 + f;
-    const float* V = T1 + r * L3 + f;
-    float* W = T2 + r * L3 + f;
-    const float b = gV[0], c = gV[F];
-    const float g = ok ? gq[(size_t)row * F + f] : 0.f;
-    const float gvw = g * c;
-    float* s = srow(r);
-    float vw = 0.f, gdmu_i = 0.f;
-#pragma unroll
-    for (int cc = 0; cc < 3; ++cc) {
-      const float gm = ok ? gmu[(size_t)row * D3 + cc * F + f] : 0.f;
-      const float v = V[cc * F], w = W[cc * F];
-      vw = fmaf(v, w, vw);
-      gdmu_i = fmaf(gm, w, gdmu_i);
-      const float gw = gm * b + gvw * v;
-      W[cc * F] = gw;
-      gV[cc * F] = gvw * w;
-      if (s) s[9 * F + cc * F + f] = gw;
-    }
-    const float gqmu = g * vw;
-    T3[r * L1 + f] = g;
-    T4[r * L1 + f] = gdmu_i;
-    T5[r * L2 + F + f] = gqmu;
-    if (s) {
-      s[13 * F + f] = g;
-      s[14 * F + f] = gdmu_i;
-      s[15 * F + f] = gqmu;
-    }
-  }
-  __syncthreads();
-  {  // gpre = (gcat k1^T) act'(pre), over pre
-    const MmaSeg seg[3] = {{T3, L1, 0, k1T, F, F},
-                           {T4, L1, 0, k1T + FF, F, F},
-                           {T5 + F, L2, 0, k1T + 2 * FF, F, F}};
-    rows_mma<RT, 1, 2, NW>(seg, F, [&](int, int r, int n, float v) {
-      float* p = T5 + r * L2 + n;
-      const float gp = v * dact_f(*p, act);
-      *p = gp;
-      if (float* s = srow(r)) s[12 * F + n] = gp;
-    });
-  }
-  __syncthreads();
-  {  // (gq' - g | gVn) = gpre k0^T; gq' out, gV_c += gVn V_c / Vn
-    const MmaSeg seg[1] = {{T5, L2, 0, k0T, F2, F}};
-    rows_mma<RT, 1, 4, NW>(seg, F2, [&](int, int r, int n, float v) {
-      const int row = row0 + r;
-      if (n < F) {
-        if (row < A) gqi[(size_t)row * F + n] = T3[r * L1 + n] + v;
-        return;
-      }
-      const int f = n - F;
-      const float* V = T1 + r * L3 + f;
-      float* gV = T0 + r * L3 + f;
-      const float scale = v / vnorm(V[0], V[F], V[F2], eps);
-      float* s = srow(r);
-#pragma unroll
-      for (int cc = 0; cc < 3; ++cc) {
-        const float gv = gV[cc * F] + scale * V[cc * F];
-        gV[cc * F] = gv;
-        if (s) s[6 * F + cc * F + f] = gv;
-      }
-    });
-  }
-  __syncthreads();
-  {  // gmu'_c = gmu_c + gV_c Wv^T + gW_c Ww^T
-    const MmaSeg seg[2] = {{T0, L3, F, kmixT, F, F},
-                           {T2, L3, F, kmixT + FF, F, F}};
-    rows_mma<RT, 3, 2, NW>(seg, F, [&](int c, int r, int n, float v) {
-      const int row = row0 + r;
-      if (row < A) {
-        const size_t i = (size_t)row * D3 + c * F + n;
-        gmui[i] = gmu[i] + v;
-      }
-    });
-  }
+  mix_bwd_body<2, 4, false, false>(smem, blockIdx.x * kBwdRows, q, mu, dq,
+                                   dmu, gq, gmu, kmix, k0, b0, k1, b1, kmixT,
+                                   k0T, k1T, gqi, gmui, S, A, F, F, eps, act);
 }
-
 
 }  // namespace
 
 // dynamic shared memory of K3 (bwd 0) or K4 at width F, bytes a block
 extern "C" int spk_mix_smem_bytes(int F, int bwd) {
-  return (int)(bwd ? bwd_smem_bytes(kBwdRows, F)
+  return (int)(bwd ? sizeof(float) * bwd_tile_floats(F)
                    : fwd_smem_bytes(kFwdRows, F));
 }
 

@@ -2,31 +2,18 @@
 // (sm_90a), f32: every filter width F and basis size B that the tuned
 // instances (schnet_columns.cu: F = 64 or 128, B <= 32) do not take.
 // They replace the same TPU kernels:
-// K9 cf_fwd_gen_kernel: schnetpack_tpu/ops/schnet_columns.py:79
-//   _cf_fwd_kernel;
-// K10 cf_bwd_gen_kernel<W>: schnetpack_tpu/ops/schnet_columns.py:145
-//   _cf_bwd_kernel: dh and the geometry cotangent, and with W the filter
+// K9 cf_fwd_gen_kernel<kWide, kScr>: schnetpack_tpu/ops/schnet_columns.py
+//   :79 _cf_fwd_kernel;
+// K10 cf_bwd_gen_kernel<W, kWide, kScr>: schnetpack_tpu/ops/
+//   schnet_columns.py:145 _cf_bwd_kernel: dh and the geometry cotangent, and with W the filter
 //   weight cotangents gW1 [B, F], gb1, gW2 [F, F], gb2.
 // The per-slot math, the layout and the schedules are the tuned kernels'
 // (their header): z1 = phi W1 + b1, h1 = ssp(z1), pre = h1 W2 + b2, out_i
 // += h_j pre fcut; the VJP gW = g_i h_j, gfcut = sum_f gW pre, gpre = gW
 // fcut, gh1 = gpre W2^T, gz1 = gh1 sigmoid(z1), gphi = gz1 W1^T.
 //
-// K9's design: the filters are cut into Z = ceil(F / 256) tiles of NT
-// threads; block (col, g, z) walks row range g of column col (the
-// destination schedule) in chunks of E slots (E from the shared memory
-// that fits, at most 16).  Per chunk the block stages the slots' basis
-// rows and computes z1 for all F hidden units of every slot (the (slot,
-// unit) pairs over the threads, k-loops in order, f64 sums); then thread f
-// of the tile walks the chunk in order: pre_f (F FMAs), and the run sum of
-// the open output row in a register, stored once when the row's run ends
-// (rows without a slot get 0), skipping the slots with fcut = 0, which add
-// exactly 0.  What bounds it: the filter MLP, B F + F^2 FMAs a slot, here
-// with f64 sums at the FP64 rate, W1 and W2 read through L1 per (slot,
-// unit) and z1 recomputed in every filter tile.
-//
-// K10's design (the tuned cf_bwd_kernel's, at any width): what bounds it
-// is the filter MLP, B F + F^2 FMAs a slot recomputed and twice that
+// The design (the tuned kernels', at any width): what bounds them is the
+// filter MLP, B F + F^2 FMAs a slot, recomputed by K10 and twice that
 // backward, ~4 (B F + F^2) FMAs in all; the products run on the tensor
 // cores in 3xTF32 (tf32_mma.cuh's splits and mma_tf32; each k-step's three
 // products in a fresh fragment added to an f32 sum with Kahan's
@@ -40,18 +27,32 @@
 //     log's rounding) times a zero row of W2, gpre and gz1 are 0 there, so
 //     the padded terms add exact zeros.
 //   * A block runs QG row-range groups of 4 warps, each on its own named
-//     barrier (QG = 4 at Fp <= 64, 2 at 128, else 1; wgrad 1), sharing the
-//     padded weights in shared memory where they fit; else (the kWide
+//     barrier (QG = 4 at Fp <= 64, 2 at 128, else 1; K10's wgrad 1),
+//     sharing the padded weights in shared memory where they fit; else (the
+//     kWide
 //     instances) it reads them through L1 from L2 and adds the k-steps'
 //     fragments with Kahan's compensation (F = 512: K = 512).  In each
 //     product a warp takes 4, 2 or 1 n8-tiles at a time, a compile-time
 //     count that divides the product's tiles (cfg_mma): no tile is cut,
 //     and the k-loop has no branch.  A chunk is one m16 tile of 16 slots,
 //     staged by cp.async into the other of two buffers while the chunk
-//     before runs.  Per chunk:
-//     P1  z1 = [phi | 1] W1 + b1 (K = Bp: any B) -> h1 = ssp(z1) and
-//         sigmoid(z1), once a slot;
+//     before runs.  K9 walks the destination schedule (a slot's source
+//     row: qcol in the column of its bucket), first dropping each range's
+//     slots with fcut = 0 (past the cutoff, a third of the bench box's:
+//     they add exact zeros; a ballot a warp, in slot order, into the
+//     wrapper's list `kept`), K10 the source schedule.  Per chunk:
+//     P1  z1 = [phi | 1] W1 + b1 (K = Bp: any B) -> h1 = ssp(z1) (K10 also
+//         sigmoid(z1)), once a slot;
 //     P2  pre = h1 W2 + b2;
+//   K9 then folds: thread f (features f, f + 128, ...) sums h_j (pre
+//     fcut) of the chunk's slots in slot order onto the open destination
+//     row (feature f's source rows read from L2, for the thread's first
+//     feature issued before P1 so that they land under it), the open sum
+//     kept across chunks (a register, or shared memory for a thread's
+//     further features) and stored once when the row's run ends: every
+//     row of the range is written once (rows without a slot get 0), with
+//     no atomics.
+//   K10 goes on:
 //     E1  per (slot, feature) over all the group's threads (their
 //         operands, the destination rows' cotangents and the source rows,
 //         loaded eight pairs a thread at a time, the first eight under
@@ -94,143 +95,15 @@
 
 namespace {
 
-constexpr int kGenTile = 256;  // filters a block of K9, at most
-constexpr int kGenE = 16;      // slots a chunk of K9, at most
 constexpr float kLn2g = 0.69314718055994531f;
-// K10: slots a chunk (one m16 tile), warps a row-range group, groups a
-// block at most, n8-tiles a warp takes at a time in the products
+// slots a chunk (one m16 tile), warps a row-range group, groups a block at
+// most
 constexpr int kCfE = 16;
 constexpr int kCfWarps = 4;
 constexpr int kCfNTH = 32 * kCfWarps;
 constexpr int kCfMaxGroups = 4;
-constexpr int kCfE1 = 8;  // E1's (slot, feature) pairs a thread loads at once
+constexpr int kCfE1 = 8;  // K10's E1: (slot, feature) pairs a thread loads
 
-__host__ __device__ inline int cf_tiles(int F) {
-  return (F + kGenTile - 1) / kGenTile;
-}
-__host__ __device__ inline int cf_threads(int F) {
-  const int Z = cf_tiles(F), w = (F + Z - 1) / Z;
-  return (w + 31) / 32 * 32;
-}
-
-__device__ __forceinline__ float ssp_g(float z) {
-  return fmaxf(z, 0.f) + log1pf(expf(-fabsf(z))) - kLn2g;
-}
-
-inline size_t cf_fwd_gen_smem(int E, int F, int B) {
-  return sizeof(float) * (size_t)E * (B + F + 1) + sizeof(int) * 3 * E;
-}
-
-template <typename Fn>
-int cf_chunk(Fn smem) {
-  const int optin = optin_smem();
-  int E = kGenE;
-  while (E > 0 && smem(E) > (size_t)optin) --E;
-  return E;
-}
-
-// z1 = phi W1 + b1 of the chunk's n slots (phi [n][B] at s_phi) for all F
-// hidden units, into s_z [n][F]
-__device__ void cf_z1(const float* s_phi, float* s_z, const float* W1,
-                      const float* b1, int n, int F, int B) {
-  for (int i = threadIdx.x; i < n * F; i += blockDim.x) {
-    const int t = i / F, j = i - t * F;
-    const float* ph = s_phi + (size_t)t * B;
-    double acc = 0.0;
-    for (int b = 0; b < B; ++b)
-      acc = fma((double)ph[b], (double)__ldg(W1 + (size_t)b * F + j), acc);
-    s_z[i] = (float)(acc + __ldg(b1 + j));
-  }
-}
-
-__global__ void __launch_bounds__(kGenTile)
-    cf_fwd_gen_kernel(const float* __restrict__ h,
-                      const float* __restrict__ geo,
-                      const float* __restrict__ W1,
-                      const float* __restrict__ b1,
-                      const float* __restrict__ W2,
-                      const float* __restrict__ b2,
-                      const int* __restrict__ qcol,
-                      const int* __restrict__ dcol,
-                      const int* __restrict__ dsorted,
-                      const int* __restrict__ grp, float* __restrict__ out,
-                      int nx, int ny, int P, int Ktot, KOffs ko, int G,
-                      int B, int F, int E) {
-  extern __shared__ __align__(16) float cf_smem[];
-  const int NT = blockDim.x, col = blockIdx.x, g = blockIdx.y;
-  const int tid = threadIdx.x, f = blockIdx.z * NT + tid;
-  const bool fok = f < F;
-  const int fl = fok ? f : F - 1;
-  const int ci = col / ny, cj = col - ci * ny;
-  const int* gb = grp + ((size_t)col * (G + 1) + g) * 2;
-  const int r0 = gb[0], e0 = gb[1], r1 = gb[2], e1 = gb[3];
-  float* s_phi = cf_smem;                      // [E][B]
-  float* s_z = s_phi + (size_t)E * B;          // [E][F] z1 -> h1
-  float* s_fc = s_z + (size_t)E * F;           // [E] fcut
-  int* s_src = reinterpret_cast<int*>(s_fc + E);  // [E] source row or -1
-  int* s_dst = s_src + E;                      // [E] destination row
-  int* s_k = s_dst + E;                        // [E]
-  const size_t row0 = (size_t)col * P, gcol = (size_t)col * (B + 4) * Ktot;
-
-  int run = -1, next = r0;
-  float acc = 0.f;
-  auto put = [&](int r, float v) {
-    if (fok) out[(row0 + r) * F + f] = v;
-  };
-  for (int base = e0; base < e1; base += E) {
-    const int n = min(E, e1 - base);
-    __syncthreads();  // the last chunk's readers are done
-    if (tid < n) {
-      const int slot = dsorted[base + tid], k = slot - col * Ktot;
-      const int c9 = bucket_of(k, ko), c3 = c9 / 3;
-      int si = ci + c3 - 1, sj = cj + c9 - 3 * c3 - 1;
-      si += si < 0 ? nx : (si >= nx ? -nx : 0);
-      sj += sj < 0 ? ny : (sj >= ny ? -ny : 0);
-      const float fc = geo[gcol + (size_t)B * Ktot + k];
-      s_src[tid] = fc != 0.f ? (si * ny + sj) * P + qcol[slot] : -1;
-      s_dst[tid] = dcol[slot];
-      s_k[tid] = k;
-      s_fc[tid] = fc;
-    }
-    __syncthreads();
-    for (int i = tid; i < n * B; i += NT) {
-      const int t = i / B, b = i - t * B;
-      s_phi[i] = geo[gcol + (size_t)b * Ktot + s_k[t]];
-    }
-    __syncthreads();
-    cf_z1(s_phi, s_z, W1, b1, n, F, B);
-    __syncthreads();
-    for (int i = tid; i < n * F; i += NT) s_z[i] = ssp_g(s_z[i]);
-    __syncthreads();
-    for (int t = 0; t < n; ++t) {  // filter f of the chunk's slots
-      const int sv = s_src[t];
-      if (sv < 0) continue;  // fcut = 0 adds exactly 0
-      const int dt = s_dst[t];
-      if (dt != run) {
-        if (run >= 0) {
-          put(run, acc);
-          next = run + 1;
-        }
-        for (; next < dt; ++next) put(next, 0.f);
-        run = dt;
-        acc = 0.f;
-      }
-      const float* h1 = s_z + (size_t)t * F;
-      double pd = 0.0;
-      for (int j = 0; j < F; ++j)
-        pd = fma((double)h1[j], (double)__ldg(W2 + (size_t)j * F + fl), pd);
-      const float pre = (float)(pd + __ldg(b2 + fl));
-      acc = fmaf(h[(size_t)sv * F + fl], pre * s_fc[t], acc);
-    }
-  }
-  if (run >= 0) {
-    put(run, acc);
-    next = run + 1;
-  }
-  for (; next < r1; ++next) put(next, 0.f);
-}
-
-// ------------------------------------------------ K10's general instance
 // the padded widths: Fp (F to 32), Bp (B + 1 to 8), MP (Bp to 16: the
 // rows of the [gW1; gb1] sum)
 __host__ __device__ inline int cfg_fp(int F) { return (F + 31) / 32 * 32; }
@@ -253,6 +126,14 @@ __host__ __device__ inline size_t cfg_group_floats(int Fp, int B,
          (sums ? (size_t)(MP + Fp) * (Fp + 8) : 0);
 }
 
+// floats of one K9 group: two buffers of the staged chunk, the tiles h1
+// and pre [E][Fp+4], the fold's open sums [Fp], the compaction's warp
+// counts [kCfWarps]
+__host__ __device__ inline size_t cff_group_floats(int Fp, int B) {
+  return 2 * ((size_t)kCfE * (cfg_mp(B) + 4) + 5 * kCfE) +
+         2 * (size_t)kCfE * (Fp + 4) + Fp + kCfWarps;
+}
+
 // the padded weights W2 [Fp][Fp+4] and W1 [Bp][Fp+4] in shared memory
 inline size_t cfg_weight_floats(int Fp, int B) {
   return (size_t)(Fp + cfg_bp(B)) * (Fp + 4);
@@ -266,13 +147,16 @@ struct CfgPlan {
   size_t smem;
 };
 
-inline CfgPlan cfg_plan(int F, int B, bool wgrad, int optin) {
+// (K9: fwd; its groups' floats cff_group_floats)
+inline CfgPlan cfg_plan(int F, int B, bool wgrad, int optin,
+                        bool fwd = false) {
   const int Fp = cfg_fp(F);
   const int pref = wgrad ? 1 : Fp <= 64 ? 4 : Fp <= 128 ? 2 : 1;
   const size_t w = cfg_weight_floats(Fp, B);
   auto bytes = [&](int qg, int wsm, int ssm) {
-    return sizeof(float) * ((wsm ? w : 0) + (size_t)qg * cfg_group_floats(
-                                                   Fp, B, wgrad, ssm));
+    const size_t gf =
+        fwd ? cff_group_floats(Fp, B) : cfg_group_floats(Fp, B, wgrad, ssm);
+    return sizeof(float) * ((wsm ? w : 0) + (size_t)qg * gf);
   };
   // sums in shared memory first (added to every chunk), then the weights
   // (read every chunk), then fewer groups; then one group a block in
@@ -490,12 +374,12 @@ __device__ __forceinline__ void cfg_cp4(void* dst, const void* src) {
 // Stage slot s (``ok``: a real slot of the range; else zeros) at chunk
 // position tid % E of buffer b (cfg_cp4): the group's threads take
 // kCfNTH / E channels of each slot, thread tid < E also its fcut, qcol and
-// dcol (schnet_columns.cu's stage)
-template <bool kScr>
+// dcol, and ``col_of(its column, k)`` (schnet_columns.cu's stage)
+template <bool kScr, class ColOf>
 __device__ __forceinline__ void cfg_stage(const CfgChunk& c, int b, int tid,
                                           bool ok, int s, const float* geo,
                                           const int* qcol, const int* dcol,
-                                          int Ktot, int B) {
+                                          int Ktot, int B, ColOf col_of) {
   constexpr int E = kCfE, kSt = kCfNTH / kCfE;
   const int st_e = tid % E, st_p = tid / E;
   const int dc = s / Ktot, k = s - dc * Ktot;
@@ -517,9 +401,198 @@ __device__ __forceinline__ void cfg_stage(const CfgChunk& c, int b, int tid,
       c.d[i] = 0;
     }
     c.k[i] = k;
-    c.col[i] = dc;
+    c.col[i] = col_of(dc, k);
   }
   cp_async_commit();
+}
+
+// The padded weights W1p [Bp][Fp], W2p [Fp][Fp] of a launch's blocks: in
+// shared memory at row stride Fp + 4 (W2 first, then W1), loaded by the
+// whole block, or (kWide) left in global memory, read through L1
+template <bool kWide>
+__device__ __forceinline__ float* cfg_weights(float* smem, const float* W1p,
+                                              const float* W2p, int Fp,
+                                              int Bp) {
+  const int LDF = Fp + 4;
+  if constexpr (!kWide) {
+    float* W1s = smem + (size_t)Fp * LDF;
+    for (int t = threadIdx.x; t < Fp * Fp; t += blockDim.x)
+      smem[(t / Fp) * LDF + t % Fp] = __ldg(W2p + t);
+    for (int t = threadIdx.x; t < Bp * Fp; t += blockDim.x)
+      W1s[(t / Fp) * LDF + t % Fp] = __ldg(W1p + t);
+    __syncthreads();
+    return W1s + (size_t)Bp * LDF;  // the groups' floats follow
+  }
+  return smem;
+}
+
+// K9's general instance on the padded weights (kWide, kScr: K10's); block
+// b takes row ranges v0 + b QG + q of the grid's nx * ny * G (v0: the
+// wave's first; 0 without kScr), one a group of kCfNTH threads.
+template <bool kWide, bool kScr>
+__global__ void __launch_bounds__(kCfNTH * kCfMaxGroups, 1)
+    cf_fwd_gen_kernel(const float* __restrict__ h,
+                      const float* __restrict__ geo,
+                      const float* __restrict__ W1p,
+                      const float* __restrict__ b1p,
+                      const float* __restrict__ W2p,
+                      const float* __restrict__ b2p,
+                      const int* __restrict__ qcol,
+                      const int* __restrict__ dcol,
+                      const int* __restrict__ dsorted,
+                      const int* __restrict__ grp, float* __restrict__ out,
+                      int nx, int ny, int P, int Ktot, KOffs ko, int G, int B,
+                      int F, float* __restrict__ scr, int v0, int* kept) {
+  static_assert(kWide || !kScr, "scratch only with the weights in L2");
+  constexpr int E = kCfE, NW = kCfWarps, NTH = kCfNTH;
+  extern __shared__ __align__(16) float cf_smem[];
+  const int Fp = cfg_fp(F), Bp = cfg_bp(B), LDF = Fp + 4;
+  const int QG = blockDim.x / NTH;
+  float* gmem = cfg_weights<kWide>(cf_smem, W1p, W2p, Fp, Bp);
+  const float* w2 = kWide ? W2p : cf_smem;
+  const float* w1 = kWide ? W1p : cf_smem + (size_t)Fp * LDF;
+  const int ldw = kWide ? Fp : LDF;
+  // group q takes row range vb of the grid's nx * ny * G
+  const int q = threadIdx.x / NTH, tid = threadIdx.x - q * NTH;
+  const int vb = v0 + blockIdx.x * QG + q;
+  if (vb >= nx * ny * G) return;
+  const int col = vb / G, grow = vb - col * G;
+  const int ci = col / ny, cj = col - ci * ny;
+  auto sync = [&]() { cfg_sync(1 + q, NTH); };
+  const size_t gfl = cff_group_floats(Fp, B);
+  const CfgChunk ch = cfg_carve(
+      kScr ? scr + (size_t)blockIdx.x * gfl : gmem + (size_t)q * gfl, B);
+  float* H1 = reinterpret_cast<float*>(ch.col + 2 * E);  // [E][LDF] h1
+  float* PR = H1 + E * LDF;                              // [E][LDF] pre
+  float* s_racc = PR + E * LDF;  // [Fp] the fold's open sums past NTH
+
+  const int* gb = grp + ((size_t)col * (G + 1) + grow) * 2;
+  const int r0 = gb[0], e0 = gb[1], r1 = gb[2];
+  int e1 = gb[3];
+  // the range's slots with fcut != 0, in order, to kept[e0, e1) (a slot
+  // with fcut = 0 adds exactly 0): NTH slots a pass, each warp's by its
+  // ballot, the warps' counts added in order
+  int* wcnt = reinterpret_cast<int*>(s_racc + Fp);  // [NW]
+  const int lane = tid & 31, w = tid >> 5;
+  int m = 0;
+  for (int b = e0; b < e1; b += NTH) {
+    int sl = 0;
+    bool keep = false;
+    if (b + tid < e1) {
+      sl = dsorted[b + tid];
+      const int dc = sl / Ktot, k = sl - dc * Ktot;
+      keep = __ldg(geo + ((size_t)dc * (B + 4) + B) * Ktot + k) != 0.f;
+    }
+    const unsigned bal = __ballot_sync(0xffffffffu, keep);
+    if (lane == 0) wcnt[w] = __popc(bal);
+    sync();
+    int off = m;
+    for (int i = 0; i < NW; ++i) {
+      if (i < w) off += wcnt[i];
+      m += wcnt[i];
+    }
+    if (keep) kept[e0 + off + __popc(bal & ((1u << lane) - 1))] = sl;
+    sync();  // the counts read, kept written (plain loads read it back)
+  }
+  e1 = e0 + m;
+  const int* order = kept;  // the slots the range walks
+  // a slot of column col: the source column of its bucket
+  auto src_col = [&](int, int k) {
+    const int c9 = bucket_of(k, ko), c3 = c9 / 3;
+    int si = ci + c3 - 1, sj = cj + c9 - 3 * c3 - 1;
+    si += si < 0 ? nx : (si >= nx ? -nx : 0);
+    sj += sj < 0 ? ny : (sj >= ny ? -ny : 0);
+    return si * ny + sj;
+  };
+  const int st_e = tid % E;
+  auto slot_at = [&](int e) { return e < e1 ? order[e] : 0; };
+  cfg_stage<kScr>(ch, 0, tid, e0 + st_e < e1, slot_at(e0 + st_e), geo, qcol,
+                  dcol, Ktot, B, src_col);
+  int sl_nxt = slot_at(e0 + E + st_e);
+
+  // the fold: the open destination row and the first row of the range not
+  // yet written (the same in every thread); thread tid's first feature's
+  // open sum in a register, its others' in s_racc
+  float* o = out + (size_t)col * P * F;
+  int run = -1, next = r0;
+  float racc = 0.f;
+  for (int base = e0, it = 0; base < e1; base += E, ++it) {
+    const int buf = it & 1, n = min(E, e1 - base);
+    const float* fc = ch.fc + buf * E;
+    const int* cs = ch.col + buf * E;
+    const int* qs = ch.q + buf * E;
+    const int* ds = ch.d + buf * E;
+    cp_async_wait<0>();
+    sync();  // (A) this chunk staged; the last one's fold done with PR
+    if (base + E < e1) {  // the next chunk's loads run under this one
+      cfg_stage<kScr>(ch, buf ^ 1, tid, base + E + st_e < e1, sl_nxt, geo,
+                      qcol, dcol, Ktot, B, src_col);
+      sl_nxt = slot_at(base + 2 * E + st_e);
+    }
+    // feature f of the chunk's source rows, from L2
+    auto h_rows = [&](int f, float (&hv)[kCfE]) {
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        hv[e] = e < n ? __ldg(h + ((size_t)cs[e] * P + qs[e]) * F + f) : 0.f;
+    };
+    float hv[kCfE];
+    if (tid < F) h_rows(tid, hv);  // lands under P1
+    // P1: h1 = ssp(z1 + b1), by the fast intrinsics (the tuned K9's)
+    cfg_mma<NW, false, kWide>(
+        ch.phi + buf * E * ch.ldp, ch.ldp, w1, ldw, Bp, Fp,
+        [&](int r, int f, float v) {
+          const float z = v + __ldg(b1p + f);
+          H1[r * LDF + f] =
+              fmaxf(z, 0.f) + __logf(1.f + __expf(-fabsf(z))) - kLn2g;
+        });
+    sync();  // (B)
+    // P2: pre = h1 W2 + b2
+    cfg_mma<NW, false, kWide>(H1, LDF, w2, ldw, Fp, Fp,
+                              [&](int r, int f, float v) {
+                                PR[r * LDF + f] = v + __ldg(b2p + f);
+                              });
+    sync();  // (C)
+    // feature f's fold of the chunk onto the destination rows in slot
+    // order, from the open row rn (the first row not written nxr) and its
+    // sum acc; returns the sum
+    auto fold = [&](int f, const float(&hv)[kCfE], int rn, int nxr,
+                    float acc) {
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        if (e >= n) break;
+        const int d = ds[e];
+        if (d != rn) {  // the run of row rn ended
+          if (rn >= 0) {
+            o[(size_t)rn * F + f] = acc;
+            nxr = rn + 1;
+          }
+          for (; nxr < d; ++nxr) o[(size_t)nxr * F + f] = 0.f;
+          rn = d;
+          acc = 0.f;
+        }
+        acc += hv[e] * (PR[e * LDF + f] * fc[e]);
+      }
+      return acc;
+    };
+    if (tid < F) racc = fold(tid, hv, run, next, racc);
+    for (int f = tid + NTH; f < F; f += NTH) {
+      float hw[kCfE];
+      h_rows(f, hw);
+      s_racc[f] = fold(f, hw, run, next, s_racc[f]);
+    }
+    for (int e = 0; e < n; ++e) {  // every thread follows the runs
+      const int d = ds[e];
+      if (d != run) run = next = d;
+    }
+  }
+  for (int f = tid; f < F; f += NTH) {  // close the last run; then zeros
+    int r = next;
+    if (run >= 0) {
+      o[(size_t)run * F + f] = f == tid ? racc : s_racc[f];
+      r = run + 1;
+    }
+    for (; r < r1; ++r) o[(size_t)r * F + f] = 0.f;
+  }
 }
 
 // kWide: the padded weights read through L1 from L2 (they do not fit a
@@ -553,18 +626,9 @@ __global__ void __launch_bounds__(kCfNTH * kCfMaxGroups, 1)
   const int QG = blockDim.x / NTH;
   // the padded weights: in shared memory for the block's groups, or read
   // through L1 from L2 (kWide)
-  float* W2s = cf_smem;
-  float* W1s = W2s + (kWide ? 0 : (size_t)Fp * LDF);
-  float* gmem = W1s + (kWide ? 0 : (size_t)Bp * LDF);
-  if constexpr (!kWide) {
-    for (int t = threadIdx.x; t < Fp * Fp; t += blockDim.x)
-      W2s[(t / Fp) * LDF + t % Fp] = __ldg(W2p + t);
-    for (int t = threadIdx.x; t < Bp * Fp; t += blockDim.x)
-      W1s[(t / Fp) * LDF + t % Fp] = __ldg(W1p + t);
-    __syncthreads();
-  }
-  const float* w2 = kWide ? W2p : W2s;
-  const float* w1 = kWide ? W1p : W1s;
+  float* gmem = cfg_weights<kWide>(cf_smem, W1p, W2p, Fp, Bp);
+  const float* w2 = kWide ? W2p : cf_smem;
+  const float* w1 = kWide ? W1p : cf_smem + (size_t)Fp * LDF;
   const int ldw = kWide ? Fp : LDF;
   // group q takes row range vb of the grid's ncol * G
   const int q = threadIdx.x / NTH, tid = threadIdx.x - q * NTH;
@@ -597,8 +661,9 @@ __global__ void __launch_bounds__(kCfNTH * kCfMaxGroups, 1)
   const size_t row0 = (size_t)col * P;  // the column's first row of h, dh
   const int st_e = tid % E;
   auto slot_at = [&](int e) { return e < e1 ? esorted[e] : 0; };
+  auto dst_col = [](int dc, int) { return dc; };
   cfg_stage<kScr>(ch, 0, tid, e0 + st_e < e1, slot_at(e0 + st_e), geo, qcol,
-                  dcol, Ktot, B);
+                  dcol, Ktot, B, dst_col);
   int sl_nxt = slot_at(e0 + E + st_e);
 
   // the padded slots of destination column col: 0 in every channel, its
@@ -627,7 +692,7 @@ __global__ void __launch_bounds__(kCfNTH * kCfMaxGroups, 1)
     sync();  // (A) this chunk staged; the last one done with every tile
     if (base + E < e1) {  // the next chunk's loads run under this one
       cfg_stage<kScr>(ch, buf ^ 1, tid, base + E + st_e < e1, sl_nxt, geo,
-                      qcol, dcol, Ktot, B);
+                      qcol, dcol, Ktot, B, dst_col);
       sl_nxt = slot_at(base + 2 * E + st_e);
     }
     // P1: z1 -> h1 = ssp(z1) and sigmoid(z1), from one exp(-|z|) by the
@@ -752,25 +817,45 @@ __global__ void __launch_bounds__(kCfNTH * kCfMaxGroups, 1)
 
 }  // namespace
 
+// dynamic shared memory of the general K9 (mode 0), K10 (mode 1) or K10's
+// wgrad instance (mode 2) at F filters and B basis functions, bytes a
+// block: their plan's (cfg_plan), 0 where the group's tiles lie in global
+// scratch (kScr)
+extern "C" int spk_cf_gen_smem(int F, int B, int mode) {
+  return (int)cfg_plan(F, B, mode == 2, optin_smem(), mode == 0).smem;
+}
+
 // K9's general instance: dsorted and grp the destination schedule of the
-// nx * ny columns in G row ranges each
+// nx * ny columns in G row ranges each; the padded weights W1p [Bp][Fp],
+// b1p [Fp], W2p [Fp][Fp], b2p [Fp] (as K10's); out [A', F], every element
+// written once; kept (as dsorted) the ranges' slots with fcut != 0, which
+// the kernel writes and walks
 extern "C" int spk_cf_fwd_gen(const float* h, const float* geo,
-                              const float* W1, const float* b1,
-                              const float* W2, const float* b2,
+                              const float* W1p, const float* b1p,
+                              const float* W2p, const float* b2p,
                               const int* qcol, const int* dcol,
                               const int* dsorted, const int* grp, float* out,
                               int nx, int ny, int P, int Ktot,
                               const int* koffs, int G, int B, int F,
-                              cudaStream_t stream) {
-  const int E = cf_chunk([&](int e) { return cf_fwd_gen_smem(e, F, B); });
-  if (E == 0 || F < 1 || B < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = cf_fwd_gen_smem(E, F, B);
-  const cudaError_t err = allow_smem((const void*)cf_fwd_gen_kernel);
+                              int* kept, cudaStream_t stream) {
+  if (F < 1 || B < 1) return (int)cudaErrorInvalidValue;
+  const CfgPlan pl = cfg_plan(F, B, false, optin_smem(), true);
+  auto* kern = pl.scr   ? cf_fwd_gen_kernel<true, true>
+               : pl.wsm ? cf_fwd_gen_kernel<false, false>
+                        : cf_fwd_gen_kernel<true, false>;
+  const cudaError_t err = allow_smem((const void*)kern);
   if (err != cudaSuccess) return (int)err;
-  cf_fwd_gen_kernel<<<dim3(nx * ny, G, cf_tiles(F)), cf_threads(F), smem,
-                      stream>>>(h, geo, W1, b1, W2, b2, qcol, dcol, dsorted,
-                                grp, out, nx, ny, P, Ktot, make_koffs(koffs),
-                                G, B, F, E);
+  const int nv = nx * ny * G;
+  const KOffs ko = make_koffs(koffs);
+  auto run = [&](float* scr, int v0, int blocks) {
+    kern<<<blocks, kCfNTH * pl.qg, pl.smem, stream>>>(
+        h, geo, W1p, b1p, W2p, b2p, qcol, dcol, dsorted, grp, out, nx, ny, P,
+        Ktot, ko, G, B, F, scr, v0, kept);
+  };
+  if (pl.scr)
+    return (int)in_waves(
+        nv, sizeof(float) * cff_group_floats(cfg_fp(F), B), stream, run);
+  run(nullptr, 0, (nv + pl.qg - 1) / pl.qg);
   return (int)cudaGetLastError();
 }
 

@@ -59,10 +59,10 @@ SIGNATURES = {
     "spk_cell_gather_fwd": [_P] * 4 + [_I, _P],
     "spk_cell_msg_fwd": [_P] * 9 + [_I] * 8 + [_P],
     "spk_cell_msg_bwd": [_P] * 13 + [_I] * 8 + [_P],
-    "spk_cf_fwd_gen": [_P] * 11 + [_I] * 4 + [_P] + [_I] * 3 + [_P],
+    "spk_cf_fwd_gen": [_P] * 11 + [_I] * 4 + [_P] + [_I] * 3 + [_P, _P],
     "spk_cf_bwd_gen": [_P] * 14 + [_I] * 7 + [_P],
     "spk_mix_fwd_gen": [_P] * 12 + [_I, _I, _F, _I, _P],
-    "spk_mix_bwd_gen": [_P] * 19 + [_I] * 3 + [_F, _I, _P],
+    "spk_mix_bwd_gen": [_P] * 18 + [_I] * 3 + [_F, _I, _P],
     "spk_msg_fwd_gen": [_I, _I] + [_P] * 5 + [_I, _I] + [_P] * 9 + [_I] * 4
                        + [_P] + [_I] * 6 + [_F] + [_I] * 3 + [_P],
     "spk_msg_bwd_gen": [_I, _I] + [_P] * 5 + [_I, _I] + [_P] * 15
@@ -82,7 +82,8 @@ QUERIES = {
     "spk_mix_smem_bytes": [_I] * 2,
     "spk_cf_smem_bytes": [_I] * 3,
     "spk_msg_gen_blocks": [_I] * 5,
-    "spk_mix_gen_ws": [_I] * 2,
+    "spk_mix_gen_ws": [_I],
+    "spk_cf_gen_smem": [_I] * 3,
 }
 for _mode in ("_mixed", "_bf16"):
     for _name in ("spk_msg_fwd_blocks", "spk_msg_bwd_blocks"):

@@ -13,7 +13,10 @@ the kernels mask the ragged tail.  The tuned K3 takes F <= ``FWD_MAX_F``
 (with weights zero-padded to a multiple of 32, cached per parameter
 version), the tuned K4 ``BWD_WIDTHS``; every other width runs the general
 instances (``csrc/painn_mixing_gen.cu``, counted as ``mix_fwd_gen``,
-``mix_bwd_gen`` and ``mix_bwd_wgrad_gen``).
+``mix_bwd_gen`` and ``mix_bwd_wgrad_gen``), the general K4 the tuned
+body on weights zero-padded to a multiple of 32.  K4's weights and their
+transposed copies are made once per parameter version
+(``bwd_weights``).
 
 On CUDA tensors the op launches the kernels (or raises); on CPU tensors it
 runs the plain twin (the math of ``_fwd_core``) under ordinary autograd.
@@ -30,8 +33,11 @@ from .activations import ACTIVATIONS
 LAUNCHES = {"mix_fwd": 0, "mix_bwd": 0, "mix_bwd_wgrad": 0,
             "mix_fwd_gen": 0, "mix_bwd_gen": 0, "mix_bwd_wgrad_gen": 0}
 _ACT_CODE = {"ssp": 0, "silu": 1}
-#: rows per f32 partial sum of the wgrad reduction, at least
+#: rows a row range of the wgrad reduction (``csrc/mix_wgrad.cuh``), at
+#: least
 _WGRAD_ROWS = 256
+#: the reduction's output tile edge (``kWT``)
+_WGRAD_TILE = 64
 #: the widths the tuned K4 takes: those of the tuned column message
 #: kernels (``colblock_message.py``)
 BWD_WIDTHS = "F % 32 == 0 and F <= 256"
@@ -45,8 +51,22 @@ FWD_MAX_F = ((_build.MAX_DYN_SMEM // (4 * _FWD_ROWS) - 16) // 10
 
 
 def fwd_width(F: int) -> int:
-    """FP: F rounded up to ``FWD_PAD``, K3's padded width."""
+    """FP: F rounded up to ``FWD_PAD``, K3's padded width and the general
+    K4's (the tuned K4 takes F % 32 == 0, FP = F)."""
     return -(-F // FWD_PAD) * FWD_PAD
+
+
+def wgrad_splits(A: int, F: int, sms: int) -> int:
+    """Row ranges of K4's wgrad reduction at A rows and width F on a card
+    of ``sms`` multiprocessors: about two blocks an SM over the
+    reduction's 64 x 64 output tiles at F (``launch_mix_wgrad``'s problems:
+    gWv and gWw [F, F], [gk0; gb0] [2F + 1, F], [gk1; gb1] [F + 1, 3F]),
+    each range at least ``_WGRAD_ROWS`` rows."""
+    def tiles(m, n):
+        return -(-m // _WGRAD_TILE) * -(-n // _WGRAD_TILE)
+
+    t = 2 * tiles(F, F) + tiles(2 * F + 1, F) + tiles(F + 1, 3 * F)
+    return max(1, min(-(-A // _WGRAD_ROWS), -(-2 * sms // t)))
 
 
 def mix_fwd_smem_bytes(F: int) -> int:
@@ -98,6 +118,23 @@ def pad_weights(kmix, k0, b0, k1, b1):
     with torch.no_grad():
         return (rows(cols(kmix, 2), 1), rows(cols(k0, 1), 2), cols(b0, 1),
                 rows(cols(k1, 3), 1), cols(b1, 3))
+
+
+def bwd_weights(kmix, k0, b0, k1, b1):
+    """K4's weights, made once per parameter version
+    (``_build.cached_per_version``): (kmix, k0, b0, k1, b1) as they are at
+    F % 32 == 0, else zero-padded (``padded_weights``), and the transposed
+    copies (kmix^T, k0^T, k1^T) that give the kernel's transposed products
+    the B fragment loads of the others."""
+    return _build.cached_per_version(_bwd_weights, kmix, k0, b0, k1, b1)
+
+
+def _bwd_weights(kmix, k0, b0, k1, b1):
+    w = (kmix, k0, b0, k1, b1)
+    if kmix.shape[0] % FWD_PAD:
+        w = padded_weights(*w)
+    with torch.no_grad():
+        return (*w, *(t.t().contiguous() for t in (w[0], w[1], w[3])))
 
 
 def painn_mixing_plain(q, mu, dq, dmu, kmix, k0, b0, k1, b1, eps: float,
@@ -156,7 +193,7 @@ def mix_fwd_kernel(q, mu, dq, dmu, kmix, k0, b0, k1, b1, eps: float,
     muo = torch.empty_like(mu)
     p = _build.ptr
     if not tuned_width(F, bwd=False):
-        ws = q.new_empty((A, _build.query("spk_mix_gen_ws", F, 0)))
+        ws = q.new_empty((A, _build.query("spk_mix_gen_ws", F)))
         _build.launch("spk_mix_fwd_gen", p(q), p(mu), p(dq), p(dmu),
                       p(kmix), p(k0), p(b0), p(k1), p(b1), p(qo), p(muo),
                       p(ws), A, F, float(eps), _ACT_CODE[act])
@@ -181,31 +218,22 @@ def mix_bwd_kernel(q, mu, dq, dmu, kmix, k0, b0, k1, b1, eps: float,
     gen = not tuned_width(F, bwd=True)
     _build.check(gq, "gq", (A, F))
     _build.check(gmu, "gmu", (A, 3 * F))
-    # transposed weight copies give the kernel's transposed products the
-    # B fragment loads of the others (three small copies per call)
-    kmixT, k0T, k1T = (w.t().contiguous() for w in (kmix, k0, k1))
+    weights = bwd_weights(kmix, k0, b0, k1, b1)
     gqi = torch.empty_like(q)
     gmui = torch.empty_like(mu)
     S = part = None
     nsplit = 0
     if wgrad:
-        # row ranges: about two blocks per SM over the 36 output tiles of
-        # F = 128
         sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-        nsplit = max(1, min(-(-A // _WGRAD_ROWS), -(-2 * sms // 36)))
+        nsplit = wgrad_splits(A, F, sms)
         S = q.new_empty((A, 16 * F))
         part = q.new_empty((nsplit, 7 * F * F + 4 * F), dtype=torch.float64)
     p = _build.ptr
-    args = (p(q), p(mu), p(dq), p(dmu), p(gq), p(gmu), p(kmix), p(k0),
-            p(b0), p(k1), p(b1), p(kmixT), p(k0T), p(k1T), p(gqi), p(gmui),
-            None if S is None else p(S), None if part is None else p(part))
-    if gen:
-        ws = q.new_empty((A, _build.query("spk_mix_gen_ws", F, 1)))
-        _build.launch("spk_mix_bwd_gen", *args, p(ws), nsplit, A, F,
-                      float(eps), _ACT_CODE[act])
-    else:
-        _build.launch("spk_mix_bwd", *args, nsplit, A, F, float(eps),
-                      _ACT_CODE[act])
+    _build.launch("spk_mix_bwd_gen" if gen else "spk_mix_bwd", p(q), p(mu),
+                  p(dq), p(dmu), p(gq), p(gmu), *map(p, weights), p(gqi),
+                  p(gmui), None if S is None else p(S),
+                  None if part is None else p(part), nsplit, A, F,
+                  float(eps), _ACT_CODE[act])
     name = ("mix_bwd_wgrad" if wgrad else "mix_bwd") + ("_gen" if gen else "")
     LAUNCHES[name] += 1
     if not wgrad:

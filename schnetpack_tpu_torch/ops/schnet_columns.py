@@ -20,8 +20,8 @@ the filter-weight cotangents.  The tuned instances take F in
 ``N_FILTERS`` and B <= 32 (``tuned_width``); every other shape runs the
 general instances (``csrc/schnet_columns_gen.cu``, counted as
 ``cf_fwd_gen``, ``cf_bwd_gen`` and ``cf_bwd_wgrad_gen``) on the same
-schedules; K10's reads the filter weights zero-padded to its tensor-core
-tiles (``gen_padded_weights``).  On CPU tensors the op runs the twins, the
+schedules, their products likewise, on the filter weights zero-padded to
+their tensor-core tiles (``gen_padded_weights``).  On CPU tensors the op runs the twins, the
 gather / filter MLP / fold composition of ``_cfconv_xla``
 (``schnet_columns.py:317-331``) and its autograd VJP.
 """
@@ -42,8 +42,6 @@ LAUNCHES = {"cf_fwd": 0, "cf_bwd": 0, "cf_bwd_wgrad": 0, "cf_fwd_gen": 0,
 #: the filter widths the tuned kernels take (with B <= ``TUNED_MAX_B``)
 N_FILTERS = (64, 128)
 TUNED_MAX_B = 32
-#: filters a block of K9's general instance, at most (``kGenTile``)
-GEN_TILE = 256
 #: bytes of weight-cotangent partials K10's general wgrad instance may
 #: allocate before it takes fewer row ranges a column
 GEN_WPART_BYTES = 256 << 20
@@ -104,21 +102,16 @@ def tuned_width(F: int, B: int) -> bool:
 
 def check_width(F: int, B: int) -> None:
     """Raise ``ValueError`` for a shape no instance takes: F < 1 or B < 1
-    (the tuned or the general instances take every other; K10's general
-    one keeps its tiles in global scratch where they do not fit shared
+    (the tuned or the general instances take every other; the general
+    ones keep their tiles in global scratch where they do not fit shared
     memory)."""
     if F < 1 or B < 1:
         raise ValueError(f"the cfconv kernels need F >= 1 and B >= 1, got "
                          f"F={F}, B={B}")
 
 
-def gen_tiles(F: int) -> int:
-    """Z, K9's general instance's filter tiles (``cf_tiles``)."""
-    return -(-F // GEN_TILE)
-
-
 def gen_width(F: int) -> int:
-    """Fp, K10's general instance's padded width: F rounded up to 32."""
+    """Fp, the general instances' padded width: F rounded up to 32."""
     return -(-F // 32) * 32
 
 
@@ -142,9 +135,9 @@ def gen_padded_weights(W1, b1, W2, b2):
 
 
 def pad_gen_weights(W1, b1, W2, b2):
-    """The filter weights at K10's general tiles: W1 [Bp, Fp] (zero rows
-    from B: the ones column at B adds nothing, gb1 comes out of the wgrad
-    product), b1 [Fp], W2 [Fp, Fp], b2 [Fp], zero-padded."""
+    """The filter weights at the general instances' tiles: W1 [Bp, Fp]
+    (zero rows from B: the ones column at B adds nothing, gb1 comes out of
+    the wgrad product), b1 [Fp], W2 [Fp, Fp], b2 [Fp], zero-padded."""
     B, F = W1.shape
     Fp, Bp = gen_width(F), _bp(B)
     with torch.no_grad():
@@ -192,10 +185,20 @@ def cf_fwd_kernel(h, geo, W1, b1, W2, b2, refs: ColRefs):
     dsorted, grp, G = _fwd_schedule(refs)
     out = torch.empty_like(h)
     p = _build.ptr
-    name = "cf_fwd" if tuned_width(F, B) else "cf_fwd_gen"
-    _build.launch("spk_" + name, p(h), p(geo), p(W1), p(b1), p(W2), p(b2),
-                  p(refs.qcol), p(refs.dcol), p(dsorted), p(grp), p(out), nx,
-                  ny, refs.P, Ktot, refs.koffs_arg, G, B, F)
+    args = (p(refs.qcol), p(refs.dcol), p(dsorted), p(grp), p(out), nx, ny,
+            refs.P, Ktot, refs.koffs_arg, G, B, F)
+    if tuned_width(F, B):
+        name = "cf_fwd"
+        _build.launch("spk_cf_fwd", p(h), p(geo), p(W1), p(b1), p(W2), p(b2),
+                      *args)
+    else:
+        name = "cf_fwd_gen"
+        # the ranges' slots with fcut != 0, which the kernel writes and
+        # walks: the others add exact zeros
+        kept = torch.empty_like(dsorted)
+        _build.launch("spk_cf_fwd_gen", p(h), p(geo),
+                      *map(p, gen_padded_weights(W1, b1, W2, b2)), *args,
+                      p(kept))
     LAUNCHES[name] += 1
     return out
 

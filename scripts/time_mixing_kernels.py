@@ -11,11 +11,13 @@ spills of the mixing kernels where it built them, then one line per
 kernel with its largest difference from the plain twin, and the card.
 ``--tol`` adds K3's worst miss of its float64 twin as a share of the
 mixing tolerance (``tests/torch_port_cases.py``) on the card tests'
-random inputs at F = 128 and 256, both activations.  Run from the
-repository root on a GPU:
+random inputs at F = 128 and 256, both activations.  ``--width F``
+times the kernels at width F with random weights (phase 17's scales)
+instead, the general instances where the tuned ones do not take F.  Run
+from the repository root on a GPU:
 
     python3 scripts/time_mixing_kernels.py [--root DIR] [--rows 12800] \
-        [--device-ms] [--tol] [--set NAME=VALUE ...]
+        [--device-ms] [--tol] [--width F] [--set NAME=VALUE ...]
 """
 import inspect
 import os
@@ -29,9 +31,12 @@ def main():
     ap.add_argument("--rows", type=int, default=12_800)
     ap.add_argument("--tol", action="store_true",
                     help="K3's worst miss as a share of the tolerance")
+    ap.add_argument("--width", type=int, default=None, metavar="F",
+                    help="random weights at width F")
     args = ap.parse_args()
     torch, smoke, smi = open_tree(args, "time_mixing_kernels",
-                                  {"painn_mixing.cu": None},
+                                  {"painn_mixing.cu": None,
+                                   "painn_mixing_gen.cu": None},
                                   "painn_mixing.cu")
     from schnetpack_tpu_torch.convert import load_jax_params, params_from_jax
     from schnetpack_tpu_torch.ops import painn_mixing as mix
@@ -47,6 +52,12 @@ def main():
     def rnd(*shape, scale=1.0):
         return (torch.randn(shape, generator=g) * scale).to(dev)
 
+    if args.width:
+        F = args.width
+        w = [rnd(F, 2 * F, scale=F ** -0.5), rnd(2 * F, F, scale=F ** -0.5),
+             rnd(F, scale=0.1), rnd(F, 3 * F, scale=F ** -0.5),
+             rnd(3 * F, scale=0.1)]
+
     xargs = (rnd(A, F), rnd(A, 3 * F, scale=0.3), rnd(A, F, scale=0.3),
              rnd(A, 3 * F, scale=0.3), *w, 1e-8, "ssp")
     cots = (rnd(A, F), rnd(A, 3 * F))
@@ -61,8 +72,10 @@ def main():
         out = fn()
         err = ("" if name not in plain else ", max |kernel - twin| %.3g" % max(
             float((a - b).abs().max()) for a, b in zip(out, plain[name]())))
-        print(f"{name}: {times(smoke, fn, args)}{err} ({A} rows, F = {F}, "
-              f"tree {args.root}) on {smi}", flush=True)
+        gen = not mix.tuned_width(F, bwd=name.startswith("mix_bwd"))
+        print(f"{name}{' (general)' if gen else ''}: "
+              f"{times(smoke, fn, args)}{err} ({A} rows, F = {F}, tree "
+              f"{args.root}) on {smi}", flush=True)
     if args.tol:
         tolerance_shares(mix, A, dev, args.root)
 

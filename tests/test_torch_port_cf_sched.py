@@ -255,46 +255,64 @@ def test_source_walk_matches_twin_and_jax(F, B, seed, G):
         np.moveaxis(gg, 2, 3)[(refs.qcol < 0).numpy()], 0.0)
 
 
-def _fwd_walk(c, G, E=cf.SLOTS):
+def _fwd_walk(c, G, E=cf.SLOTS, gen=False, wide=False, exact=False):
     """K9's output in its order: the slots in the destination order of
     ``destination_schedule(refs, G)``, block by block and chunk by chunk
-    of E; per slot z1 = [phi | 1] W1p and pre = ssp(z1 + b1) W2 + b2 in
-    3xTF32, the message h_j (pre fcut), each destination row's messages
-    summed in slot order in f32.  Returns (out, how many times each row
-    was written, the runs that cross a chunk bound)."""
+    of E; per slot z1 = [phi | 1] W1p (W1 padded with zero rows to Bp)
+    and pre = ssp(z1 + b1) W2 + b2 in 3xTF32, the message h_j (pre fcut),
+    each destination row's messages summed in slot order in f32.  ``gen``:
+    the general instance (``cf_fwd_gen_kernel``): F zero-padded to Fp
+    (``pad_gen_weights``; h read as 0 past F), the products with Kahan-
+    compensated sums in its ``wide`` instance (kWide: the weights read
+    from L2, where they do not fit shared memory); every padded lane's
+    message an exact 0, and each range's slots with fcut = 0 (exact
+    zeros) dropped before the chunks are cut.
+    ``exact``: the same walk in float64, every product exact: the
+    schedule, padding and chunking alone.  Returns (out, how many times
+    each row was written, the runs that cross a chunk bound)."""
+    dt = torch.float64 if exact else torch.float32
     refs = _refs(c)
-    h, geo, W1, b1, W2, b2 = (torch.tensor(c[k]) for k in NAMES)
-    B, F = W1.shape
+    h, geo, W1, b1, W2, b2 = (torch.tensor(c[k]).to(dt) for k in NAMES)
+    B, F0 = W1.shape
     nx, ny, Ktot = refs.qcol.shape
     P, nch = refs.P, B + 4
-    W1p = torch.zeros(cf._bp(B), F)
-    W1p[:B] = W1
+    if gen:
+        W1p, b1, W2, b2 = cf.pad_gen_weights(W1, b1, W2, b2)
+        h = torch.nn.functional.pad(h, (0, W2.shape[0] - F0))
+    else:
+        W1p = W1.new_zeros(cf._bp(B), F0)
+        W1p[:B] = W1
+    F = W2.shape[0]
+    mm = (torch.matmul if exact else mm_3xtf32_comp if gen and wide
+          else mm_3xtf32)
     dsorted, grp = destination_schedule(refs, G)
     dcol = refs.dcol.reshape(-1).long()
     n_real = int((refs.qcol >= 0).sum())
     s = dsorted[:n_real].long()
     dc, k = s // Ktot, s % Ktot
     geo_c = geo.reshape(nx * ny, nch, Ktot)
-    phi = torch.zeros(n_real, W1p.shape[0])
+    phi = torch.zeros(n_real, W1p.shape[0], dtype=dt)
     phi[:, :B] = geo_c[dc, :B, k]
     phi[:, B] = 1.0
     fc = geo_c[dc, B, k]
-    h1 = cf.shifted_softplus(mm_3xtf32(phi, W1p) + b1)
-    pre = mm_3xtf32(h1, W2) + b2
+    h1 = cf.shifted_softplus(mm(phi, W1p) + b1)
+    pre = mm(h1, W2) + b2
     msg = h[decode_j(refs)[0].reshape(-1)[s]] * (pre * fc[:, None])
+    assert not msg[:, F0:].any()
 
-    out = torch.zeros(nx * ny * P, F)
+    out = torch.zeros(nx * ny * P, F, dtype=dt)
     n_out = torch.zeros(nx * ny * P, dtype=torch.int64)
     crossing = 0
     for col in range(nx * ny):
         for gr in range(G):
             (r0, e0), (r1, e1) = grp[col, gr:gr + 2].tolist()
+            walk = [e for e in range(e0, e1) if not gen or fc[e] != 0]
             run, nxt = -1, r0
-            acc = torch.zeros(F)
-            for base in range(e0, e1, E):
-                if base > e0 and dcol[s[base]] == dcol[s[base - 1]]:
+            acc = torch.zeros(F, dtype=dt)
+            for base in range(0, len(walk), E):
+                if base and dcol[s[walk[base]]] == dcol[s[walk[base - 1]]]:
                     crossing += 1
-                for e in range(base, min(base + E, e1)):
+                for e in walk[base:base + E]:
                     d = int(dcol[s[e]])
                     assert dc[e] == col and r0 <= d < r1
                     if d != run:
@@ -304,14 +322,14 @@ def _fwd_walk(c, G, E=cf.SLOTS):
                             nxt = run + 1
                         n_out[col * P + nxt:col * P + d] += 1
                         nxt, run = d, d
-                        acc = torch.zeros(F)
+                        acc = torch.zeros(F, dtype=dt)
                     acc = acc + msg[e]
             if run >= 0:
                 out[col * P + run] = acc
                 n_out[col * P + run] += 1
                 nxt = run + 1
             n_out[col * P + nxt:col * P + r1] += 1
-    return out, n_out, crossing
+    return out[:, :F0], n_out, crossing
 
 
 def _jax_fwd64(c):
@@ -390,104 +408,49 @@ def _held(a, w32, w64, name):
         assert miss <= 2 * own, (name, miss, own)
 
 
-def _gen_tiles(F):
-    """The general instances' filter tiles [z NT, min(F, z NT + NT))."""
-    Z = cf.gen_tiles(F)
-    NT = -(-(-(-F // Z)) // 32) * 32
-    return [np.arange(z * NT, min(F, z * NT + NT)) for z in range(Z)]
+#: the general walks' cases: (F, B, G, wide, fwd_wide), ``wide`` where
+#: K10's wgrad instance reads its weights from L2 (its plan, ``cfg_plan``:
+#: they do not fit shared memory beside the group), ``fwd_wide`` where K9
+#: does (from Fp = 224 at B = 20: F = 200, 300, 1024; Fp = 192 under the
+#: switch: F = 192); at (1024, 20) K10's wgrad group's tiles do not fit
+#: either (the kScr instance: the same arithmetic on tiles in global
+#: scratch).  The card tests hold the switches to the launchers' plans
+#: (``test_cfconv_smem_mirror_matches_the_kernel``).
+GEN_WALKS = [(30, 50, 3, False, False), (96, 300, 2, False, False),
+             (30, 300, 2, False, False), (96, 50, 3, False, False),
+             (30, 20, 3, False, False), (64, 300, 2, True, False),
+             (200, 20, 2, True, True), (300, 32, 2, True, True),
+             (1024, 20, 2, True, True), (192, 20, 2, False, False)]
 
 
-def _ssp(z):
-    """The port's shifted softplus in float64 (softplus's linear branch
-    past 20, as the twin and the kernels)."""
-    return cf.shifted_softplus(torch.from_numpy(np.asarray(z))).numpy()
-
-
-def _gen_fwd_walk(c, G, E=16):
-    """``csrc/schnet_columns_gen.cu``'s K9 in float64 on its schedule:
-    block (column, range, tile) walks its destination rows' slots in
-    chunks of E, z1 for every hidden unit of a slot, then per filter of
-    the tile pre and the open row's run sum, skipping fcut = 0.  Returns
-    the output and its write counts."""
-    refs = _refs(c)
-    h, geo, W1, b1, W2, b2 = (np.asarray(c[k], np.float64) for k in NAMES)
-    B, F = W1.shape
-    nx, ny, Ktot = refs.qcol.shape
-    P = refs.P
-    geo_c = geo.reshape(nx * ny, B + 4, Ktot)
-    src = decode_j(refs)[0].reshape(-1).numpy()
-    dcol = refs.dcol.reshape(-1).numpy()
-    out = np.zeros((nx * ny * P, F))
-    n_out = np.zeros(out.shape, np.int64)
-    order, grp = (a.numpy() for a in destination_schedule(refs, G))
-    for col in range(nx * ny):
-        for gr in range(G):
-            (r0, e0), (r1, e1) = grp[col, gr], grp[col, gr + 1]
-            for f in _gen_tiles(F):
-                run, nxt, acc = -1, r0, np.zeros(len(f))
-
-                def put(r, v):
-                    out[col * P + r, f] = v
-                    n_out[col * P + r, f] += 1
-
-                for base in range(e0, e1, E):
-                    for s in order[base:min(base + E, e1)]:
-                        dc, k = divmod(int(s), Ktot)
-                        phi, fc = geo_c[dc, :B, k], geo_c[dc, B, k]
-                        if fc == 0.0:
-                            continue
-                        row = dcol[s]
-                        if row != run:
-                            if run >= 0:
-                                put(run, acc)
-                                nxt = run + 1
-                            for r in range(nxt, row):
-                                put(r, np.zeros(len(f)))
-                            run, nxt, acc = row, row, np.zeros(len(f))
-                        pre = _ssp(phi @ W1 + b1) @ W2[:, f] + b2[f]
-                        acc += h[src[s], f] * (pre * fc)
-                if run >= 0:
-                    put(run, acc)
-                    nxt = run + 1
-                for r in range(nxt, r1):
-                    put(r, np.zeros(len(f)))
-    return out, n_out
-
-
-#: the general K10 walks' cases: (F, B, G, wide), ``wide`` where the wgrad
-#: instance reads its weights from L2 (``cfg_plan``: they do not fit
-#: shared memory beside the group), and at (1024, 20) its group's tiles do
-#: not either (the kScr instance: the same arithmetic on tiles in global
-#: scratch)
-GEN_WALKS = [(30, 50, 3, False), (96, 300, 2, False), (30, 300, 2, False),
-             (96, 50, 3, False), (30, 20, 3, False), (64, 300, 2, True),
-             (200, 20, 2, True), (300, 32, 2, True), (1024, 20, 2, True)]
-
-
-@pytest.mark.parametrize("F,B,G,wide", GEN_WALKS)
-def test_general_walks_match_jax(F, B, G, wide):
-    """The general K9 walk (float64, its filter tiles: two at F = 300,
-    four at 1024) and the general K10 walk (wgrad) at each switch of K10's
-    design: F = 30 (Fp = 32, two lanes past F, four groups a block), 64
-    and 96 (two), 200 (Fp = 224: a thread takes two features, one group a
-    block), 300 (a thread takes up to three) and 1024, B = 20, 32 (Bp =
-    40), 50 and 300 (K = Bp past the tuned B <= 32).  K9's matches
-    the twins in float64 to 1e-7 (the summation orders differ, and past z1
-    = 20 the twin's softplus is linear, slope 1 where the kernels' sigmoid
-    gives 1 - 2e-9); K10's, replayed with every product in float64 (the
-    schedule, padding and chunking alone), matches the float64 twin to
-    1e-7 likewise, and replayed in the kernel's arithmetic (its products
-    in the 3xTF32 model, compensated sums where ``wide``) it matches the
-    twin and the JAX VJP, both evaluated in float64, as the card holds the
-    kernel: dh and ggeo at the message tolerance or, where the f32 twin
-    itself misses it, within twice its miss (``_held``), the weight
-    cotangents normwise to 1e-5.  Both walks match JAX's ``_cfconv_xla``
-    and its VJP in float64 at the message tolerance (its shifted softplus
-    keeps an f32 rounding: 8e-6 relative).  Every output, dh row and real
-    slot of ggeo is written exactly once, and K10's padded slots and dir
-    channels are 0."""
+@pytest.mark.parametrize("F,B,G,wide,fwd_wide", GEN_WALKS,
+                         ids=["-".join(map(str, w[:4])) for w in GEN_WALKS])
+def test_general_walks_match_jax(F, B, G, wide, fwd_wide):
+    """The general K9 walk and the general K10 walk (wgrad) at each switch
+    of their plans (``wide``, ``fwd_wide``): F = 30 (Fp = 32, two lanes
+    past F, four groups a block), 64 and 96
+    (two), 192 and 200 (Fp = 192 and 224: K9's weights in shared memory
+    and from L2; a thread takes two features, one group a block), 300 (a
+    thread takes up to three) and 1024, B = 20, 32 (Bp = 40), 50 and 300
+    (K = Bp past the tuned B <= 32).  Replayed with every product in
+    float64 (the schedule, padding and chunking alone) both match the
+    float64 twins to 1e-7 (the summation orders differ, and past z1 = 20
+    the twin's softplus is linear, slope 1 where the kernels' sigmoid gives
+    1 - 2e-9); replayed in the kernels' arithmetic (their products in the
+    3xTF32 model, compensated sums where the weights come from L2) they
+    match the twins and the JAX package's ``_cfconv_xla`` and its VJP, both
+    evaluated in float64, as the card holds the kernels: K9's output, dh
+    and ggeo at the message tolerance or, where the f32 twin itself misses
+    it, within twice its miss (``_held``), the weight cotangents normwise
+    to 1e-5.  Both float64 walks match JAX in float64 at the message
+    tolerance (its shifted softplus keeps an f32 rounding: 8e-6
+    relative).  A third of the real slots have fcut = 0, as past the
+    cutoff.  Every output row, dh row and real slot of ggeo is written
+    exactly once, and K10's padded slots and dir channels are 0."""
     c = _case(F, B, seed=F + B)
-    out, n_out = _gen_fwd_walk(c, G)
+    c["geo"][:, :, B, ::3] = 0.0   # slots past the cutoff: fcut = 0
+    out, n_out, _ = _fwd_walk(c, G, gen=True, wide=fwd_wide)
+    out64, _, _ = _fwd_walk(c, G, gen=True, exact=True)
     *bwd, (n_dh, n_gg, _) = _walk(c, G, gen=True, wide=wide)
     *bwd64, _ = _walk(c, G, gen=True, wide=wide, exact=True)
     assert bool((n_out == 1).all()) and bool((n_dh == 1).all())
@@ -510,13 +473,16 @@ def test_general_walks_match_jax(F, B, G, wide):
     twin = [cf.cf_fwd_plain(*t, _refs(c))] + list(
         cf.cf_bwd_plain(*t, _refs(c), g64))
     t32 = [x.float() for x in t]
-    twin32 = [None] + list(cf.cf_bwd_plain(*t32, _refs(c), g64.float()))
-    got = [out] + [x.numpy() for x in bwd]
+    twin32 = [cf.cf_fwd_plain(*t32, _refs(c))] + list(
+        cf.cf_bwd_plain(*t32, _refs(c), g64.float()))
+    got = [x.numpy() for x in [out] + bwd]
     real = np.broadcast_to((c["qcol"] >= 0)[:, :, None, :], got[2].shape)
-    np.testing.assert_allclose(out, twin[0].numpy(), 1e-7, 1e-9,
-                               err_msg="out")
-    np.testing.assert_allclose(out, want[0], MSG_RTOL, MSG_ATOL,
-                               err_msg="out vs jax")
+    np.testing.assert_allclose(out64.numpy(), twin[0].numpy(), 1e-7, 1e-9,
+                               err_msg="out float64")
+    np.testing.assert_allclose(out64.numpy(), want[0], MSG_RTOL, MSG_ATOL,
+                               err_msg="out float64 vs jax")
+    for ref, tag in ((twin[0].numpy(), "twin"), (want[0], "jax")):
+        _held(got[0], twin32[0].double().numpy(), ref, f"out vs {tag}")
     np.testing.assert_array_equal(got[2][:, :, B + 1:], 0.0)
     np.testing.assert_array_equal(
         np.moveaxis(got[2], 2, 3)[(c["qcol"] < 0)], 0.0)

@@ -335,8 +335,9 @@ def test_mixing_kernels_name_their_widths(cuda_device):
             fwd, bwd}, F
 
 
-#: phase 17 (a)'s sweep of the mixing kernels
-GEN_MIX_WIDTHS = [30, 50, 130, 288, 384, 512]
+#: phase 17 (a)'s sweep of the mixing kernels, and the general K4's
+#: tiles in global scratch from F = 257 on
+GEN_MIX_WIDTHS = [30, 50, 130, 257, 288, 384, 512, 1024]
 
 
 @pytest.mark.gpu
@@ -367,17 +368,48 @@ def test_general_mixing_kernels_match_twin(cuda_device, F, A):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("F", [33, 64, 65, 255])
+def test_mixing_backward_switches_held_to_twin(cuda_device, F):
+    """K4 (plain and wgrad) on 12,800 rows at the switches of its
+    instances: the general <1, 2> at FP = 64 (F = 33) beside the tuned one
+    at F = 64, the general <2, 2> from FP = 96 (F = 65) to its widest tiles
+    in shared memory (F = 255, FP = 256, 213 KB).  Over ~2.5M outputs f32
+    arithmetic itself misses the strict elementwise tolerance here (the
+    f32 twin by up to 1.44e-5 at F = 33), so the input cotangents are
+    ``held`` to the float64 twin: at the tolerance where the f32 twin
+    meets it, else within twice its miss; the weight cotangents
+    normwise."""
+    c = mixing_case(A=12800, F=F, seed=F + 1)
+    ins = [torch.tensor(c[k], device=cuda_device) for k in MIX_INPUTS]
+    cots = [torch.tensor(c[k], device=cuda_device) for k in ("gq", "gmu")]
+    for act in ("ssp", "silu"):
+        bwd = lambda *a: mix.painn_mixing_bwd_plain(   # noqa: E731
+            *a, wgrad=True)
+        want32 = bwd(*ins, 1e-8, act, *cots)
+        want64 = f64(bwd, *ins, 1e-8, act, *cots)
+        got = mix.mix_bwd_kernel(*ins, 1e-8, act, *cots, wgrad=True)
+        held(got[:2], want32[:2], want64[:2], f"K4 wgrad F={F} {act}")
+        for g, w in zip(got[2:], want64[2:]):
+            assert_normwise(g, w, f"mixing weights F={F}")
+        held(mix.mix_bwd_kernel(*ins, 1e-8, act, *cots), want32[:2],
+             want64[:2], f"K4 F={F} {act}")
+
+
+@pytest.mark.gpu
 def test_mixing_smem_mirror_matches_the_kernel(cuda_device):
     """``mix_fwd_smem_bytes``, which names a K3 width past the opt-in
     limit before the launch, equals what the launcher asks for
     (``spk_mix_smem_bytes``) at padded and unpadded widths up to one past
-    the limit, and K4's row tiles fit the limit at every width it
-    takes."""
+    the limit; K4's row tiles at the padded width (``spk_mix_smem_bytes``
+    of FP) fit the limit at every width the tuned instance takes and the
+    general one up to FP = 256 (F = 255), and not past it (F = 257: the
+    kScr instance)."""
     for F in (32, 36, 48, 128, 256, 279, 280, 352, 353):
         assert mix.mix_fwd_smem_bytes(F) == _build.query(
             "spk_mix_smem_bytes", F, 0)
-    for F in range(32, 257, 32):
-        assert _build.query("spk_mix_smem_bytes", F, 1) <= _build.MAX_DYN_SMEM
+    for F in (*range(32, 257, 32), 30, 33, 65, 255, 257, 288, 1024):
+        got = _build.query("spk_mix_smem_bytes", mix.fwd_width(F), 1)
+        assert (got <= _build.MAX_DYN_SMEM) == (mix.fwd_width(F) <= 256), F
 
 
 @pytest.mark.gpu
@@ -387,7 +419,12 @@ def test_cfconv_smem_mirror_matches_the_kernel(cuda_device):
     widths and B = 8, 20 and 32, and fits the opt-in limit there; neither
     takes the column capacity P, since no kernel keeps a column's rows in
     shared memory (K9 runs at P = 222 and 1000 in
-    ``test_cfconv_kernels_name_their_capacity``)."""
+    ``test_cfconv_kernels_name_their_capacity``).  The general instances'
+    launchers (``spk_cf_gen_smem``: the shared memory their plan asks for,
+    0 where the tiles lie in global scratch) fit the opt-in limit at the
+    swept shapes and on both sides of their switches, and K9's takes its
+    weights into shared memory at (192, 20) and not at (193, 20), and its
+    tiles into global scratch past (1696, 20) and (64, 1700)."""
     for F in schnet.N_FILTERS:
         for B in (8, 20, 32):
             for mode, bwd, wgrad in ((0, False, False), (1, True, False),
@@ -396,14 +433,32 @@ def test_cfconv_smem_mirror_matches_the_kernel(cuda_device):
                 assert schnet.cf_smem_bytes(F, B, bwd, wgrad) == got, (
                     F, B, mode)
                 assert got <= _build.MAX_DYN_SMEM
+    def gen(F, B, mode):
+        return _build.query("spk_cf_gen_smem", F, B, mode)
+
+    for F, B in GEN_CF_SHAPES + [(1696, 20), (1697, 20), (30, 60000)]:
+        for mode in range(3):
+            assert gen(F, B, mode) <= _build.MAX_DYN_SMEM, (F, B, mode)
+    # K9's: W2 ([Fp, Fp + 4] floats) in shared memory at Fp = 192, not at
+    # Fp = 224; the group's tiles in global scratch past the switches
+    assert gen(192, 20, 0) >= 4 * 192 * 196
+    assert gen(193, 20, 0) < 4 * 224 * 228
+    for (F, B), scr in (((1696, 20), False), ((1697, 20), True),
+                        ((64, 1700), False), ((64, 1750), True)):
+        assert (gen(F, B, 0) == 0) == scr, (F, B)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("A,F,act", [(37, 32, "ssp"), (1000, 64, "silu"),
                                      (1000, 128, "silu"), (12800, 128, "ssp"),
-                                     (37, 256, "ssp"), (12800, 256, "silu")])
+                                     (37, 256, "ssp"), (12800, 256, "silu"),
+                                     (12800, 30, "ssp"), (37, 30, "silu"),
+                                     (1000, 257, "ssp"), (3168, 512, "silu"),
+                                     (1000, 1024, "ssp")])
 def test_mixing_wgrad_instance_matches_twin(cuda_device, A, F, act):
-    """K4's wgrad instance: the input cotangents equal the plain
+    """K4's wgrad instance, tuned and general (F = 30, 257, 512 and 1024:
+    row tiles in shared memory and in global scratch; the reduction's row
+    ranges for F's own output tiles): the input cotangents equal the plain
     instance's (the same kernel, held to the twin in
     ``test_mixing_kernels_match_twin``), and gkmix, gk0, gb0, gk1, gb1 (f64
     sums of f32 row ranges) are held to the twin in float64; the op
@@ -429,9 +484,11 @@ def test_mixing_wgrad_instance_matches_twin(cuda_device, A, F, act):
     q = ins[0].clone().requires_grad_(True)
     torch.autograd.grad(mix.painn_mixing_fused(q, *ins[1:], 1e-8, act), q,
                         cots)
+    fwd = "mix_fwd" if mix.tuned_width(F, bwd=False) else "mix_fwd_gen"
+    gen = "" if mix.tuned_width(F, bwd=True) else "_gen"
     assert {k: mix.LAUNCHES[k] - before[k] for k in before
             if mix.LAUNCHES[k] != before[k]} == {
-        "mix_fwd": 2, "mix_bwd": 1, "mix_bwd_wgrad": 1}
+        fwd: 2, "mix_bwd" + gen: 1, "mix_bwd_wgrad" + gen: 1}
 
 
 @pytest.mark.gpu
@@ -721,11 +778,14 @@ def test_cfconv_bwd_at_basis_widths(cuda_device, B, F):
     _cfconv_bwd_checks(args, refs, torch.tensor(c["g"], device=cuda_device))
 
 
-#: phase 17 (a)'s sweep of the cfconv kernels; at (1024, 20) (wgrad) and
-#: (64, 2000) K10's general tiles lie in global scratch
-GEN_CF_SHAPES = [(30, 20), (96, 20), (192, 20), (256, 20), (512, 20),
-                 (64, 50), (128, 50), (64, 300), (128, 300), (1024, 20),
-                 (64, 2000)]
+#: phase 17 (a)'s sweep of the cfconv kernels at the general plans'
+#: switches (``cfg_plan``): K9's weights from L2 from (193, 20) on, (192,
+#: 20) under it; its tiles in global scratch at (64, 1750) and (64,
+#: 2000), (64, 1700) under it; K10's wgrad tiles at (1024, 20) and K10's
+#: at (64, 2000)
+GEN_CF_SHAPES = [(30, 20), (96, 20), (192, 20), (193, 20), (256, 20),
+                 (512, 20), (64, 50), (128, 50), (64, 300), (128, 300),
+                 (1024, 20), (64, 1700), (64, 1750), (64, 2000)]
 
 
 @pytest.mark.gpu
@@ -759,17 +819,32 @@ def test_general_cfconv_kernels_match_twin(cuda_device, F, B):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("F,B", [(30, 20), (512, 20), (1024, 20)])
+@pytest.mark.parametrize("F,B", [(30, 20), (512, 20), (1024, 20),
+                                 (64, 2000)])
 def test_general_backwards_repeat_bit_for_bit(cuda_device, F, B):
-    """The general cfconv and message backwards (plain and wgrad) give the
-    same bits on a second call: every output element has one writer and
-    every sum one order (no atomics), also where K10's wgrad tiles lie in
-    global scratch (F = 1024)."""
+    """The general cfconv forward and backward (plain and wgrad), message
+    backward (plain and wgrad) and mixing backward (plain and wgrad) give
+    the same bits on a second call: every output element has one writer
+    and every sum one order (no atomics), also where K10's wgrad tiles
+    (F = 1024), K9's and K10's (B = 2000) and K4's (F = 512, 1024) lie in
+    global scratch."""
     c = cfconv_case(F=F, B=B, seed=F, n=110, L=11.0)
     refs = ColRefs.from_layout(c["lay"], device=cuda_device)
     args = [torch.tensor(c[k], device=cuda_device)
             for k in ("h", "geo", "W1", "b1", "W2", "b2")]
     g = torch.tensor(c["g"], device=cuda_device)
+    assert torch.equal(schnet.cf_fwd_kernel(*args, refs),
+                       schnet.cf_fwd_kernel(*args, refs))
+    x = mixing_case(A=1000, F=F, seed=F)
+    ins = [torch.tensor(x[k], device=cuda_device) for k in MIX_INPUTS]
+    cots = [torch.tensor(x[k], device=cuda_device) for k in ("gq", "gmu")]
+    for wgrad in (False, True):
+        first = mix.mix_bwd_kernel(*ins, 1e-8, "ssp", *cots, wgrad=wgrad)
+        for a, b in zip(first, mix.mix_bwd_kernel(*ins, 1e-8, "ssp", *cots,
+                                                  wgrad=wgrad)):
+            assert torch.equal(a, b)
+    if B > 300:   # the message kernels' basis past their sweep
+        return
     for wgrad in (False, True):
         first = schnet.cf_bwd_kernel(*args, refs, g, wgrad=wgrad)
         for a, b in zip(first, schnet.cf_bwd_kernel(*args, refs, g,
@@ -783,6 +858,41 @@ def test_general_backwards_repeat_bit_for_bit(cuda_device, F, B):
         first = msg.msg_bwd_kernel(*full, wgrad=wgrad)
         for a, b in zip(first, msg.msg_bwd_kernel(*full, wgrad=wgrad)):
             assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_general_forwards_take_a_basis_past_shared_memory(cuda_device):
+    """At B = 60,000 (past the ~58,000 floats of one slot's basis row that
+    a block's shared memory holds) the general message forward (K1, K6;
+    F = 30) stages its chunks' basis rows in global scratch and K9 (F = 30,
+    B + F > 58,000) runs its kScr instance; each matches its twin in
+    float64 (``held``) on a small box."""
+    F, B = 30, 60_000
+    m = message_case(F=F, B=B, seed=5)
+    t, refs, cw = torch_message_args(m, cuda_device)
+    full = (t["x"], t["mu"], t["Rs"], t["FW"], t["coff_fm"], cw, refs,
+            m["cutoff"])
+    geo = geo_op.geo_fwd_kernel(t["Rs"], t["coff_fm"], refs, cw, m["cutoff"])
+    before = dict(msg.LAUNCHES)
+    for kern, plain, args in [
+            (msg.msg_fwd_kernel, msg.msg_fwd_plain, full),
+            (msg.msg_fwd_geo_kernel, msg.msg_fwd_geo_plain,
+             (t["x"], t["mu"], geo, t["FW"], refs))]:
+        held(kern(*args), plain(*args), f64(plain, *args), kern.__name__)
+    assert {k: msg.LAUNCHES[k] - before[k] for k in before
+            if msg.LAUNCHES[k] != before[k]} == {"msg_fwd_gen": 1,
+                                                  "msg_fwd_geo_gen": 1}
+    assert _build.query("spk_cf_gen_smem", F, B, 0) == 0   # kScr
+    c = cfconv_case(F=F, B=B, seed=9, n=110, L=11.0)
+    crefs = ColRefs.from_layout(c["lay"], device=cuda_device)
+    args = [torch.tensor(c[k], device=cuda_device)
+            for k in ("h", "geo", "W1", "b1", "W2", "b2")]
+    args[2] = args[2] * B ** -0.5   # z1 of order 1
+    fwd = lambda *a: (schnet.cf_fwd_plain(*a),)   # noqa: E731
+    n = schnet.LAUNCHES["cf_fwd_gen"]
+    held((schnet.cf_fwd_kernel(*args, crefs),), fwd(*args, crefs),
+         f64(fwd, *args, crefs), "K9")
+    assert schnet.LAUNCHES["cf_fwd_gen"] == n + 1
 
 
 @pytest.mark.gpu

@@ -359,66 +359,94 @@ def test_mixing_kernel_widths(F, bwd, ok):
 
 
 # ------------------------------------------- the general instances' walks
-#: rows a block of the general instances (``csrc/painn_mixing_gen.cu::
-#: kRows``)
-GEN_ROWS = 4
+#: rows a block of K4 (``csrc/painn_mixing_bwd_body.cuh::kBwdRows``) and
+#: of a step of the wgrad reduction's f32 sums (``mix_wgrad.cuh::kWR``)
+BWD_ROWS, WGRAD_STEP = 16, 32
 
 
-def _gen_bwd_walk(ins, cots, act, nsplit=3):
+def _act_np(act):
+    return ACTIVATIONS[act]
+
+
+def _dact(act, x):
+    s = torch.sigmoid(x)
+    return s * (1.0 + x * (1.0 - s)) if act == "silu" else s
+
+
+def _gen_bwd_walk(ins, cots, act, nsplit=3, exact=False):
     """``csrc/painn_mixing_gen.cu::mix_bwd_gen_kernel`` and the weight
-    cotangents it hands to ``mix_wgrad.cuh``, in float64: blocks of
-    GEN_ROWS rows (the last one ragged) recompute the forward, chain the
-    cotangents, write each row's gq', gmu' and its 16F factors [mu' | q' |
-    Vn | h | gV | gW | gpre | gcat] to S; the reduction sums products of
-    S's columns over nsplit row ranges into [gkmix | gk0 | gb0 | gk1 |
-    gb1] by ``mix_wgrad.cuh``'s problem table.  Returns (gqi, gmui, the
-    five weight cotangents, how often each gqi and gmui row was
-    written)."""
-    q, mu, dq, dmu, kmix, k0, b0, k1, b1 = (np.asarray(a, np.float64)
+    cotangents it hands to ``mix_wgrad.cuh``: blocks of BWD_ROWS rows (the
+    last one ragged) at the padded width FP = F rounded up to 32, on the
+    rows zero-padded to it and the weights ``pad_weights`` gives, every
+    product in the 3xTF32 model with Kahan-compensated sums
+    (``mm_3xtf32_comp``, as every general instance), the elementwise
+    steps in f32; each row's gq', gmu' and 16F factors [mu' | q' | Vn | h
+    | gV | gW | gpre | gcat] (S) kept at the first F lanes, the padded
+    ones asserted zeros (but Vn's sqrt(eps)); the reduction sums products
+    of S's columns in f32 over WGRAD_STEP rows at a time and in float64
+    over nsplit row ranges into [gkmix | gk0 | gb0 | gk1 | gb1] by ``mix_wgrad.cuh``'s
+    problem table.  ``exact``: the same walk in float64, every product
+    exact.  Returns (gqi, gmui, the five weight cotangents, how often each
+    gqi and gmui row was written)."""
+    dt = torch.float64 if exact else torch.float32
+    q, mu, dq, dmu, kmix, k0, b0, k1, b1 = (torch.tensor(a).to(dt)
                                             for a in ins)
-    gq, gmu = (np.asarray(a, np.float64) for a in cots)
+    gq, gmu = (torch.tensor(a).to(dt) for a in cots)
     A, F = q.shape
-    act_f = ACTIVATIONS[act]
+    FP = mix.fwd_width(F)
+    w = mix.pad_weights(kmix, k0, b0, k1, b1) if F % 32 else (kmix, k0, b0,
+                                                               k1, b1)
+    kmixP, k0P, b0P, k1P, b1P = w
+    kmixT, k0T, k1T = (t.t().contiguous() for t in (kmixP, k0P, k1P))
+    mm = (torch.matmul if exact else mm_3xtf32_comp if FP > 256
+          else mm_3xtf32)
+    act_f = _act_np(act)
 
-    def act_np(x):
-        return act_f(torch.from_numpy(x)).numpy()
+    def pad(x, blocks):
+        return pad_blocks(x, blocks, FP) if FP != F else x
 
-    def dact_np(x):
-        s = 1.0 / (1.0 + np.exp(-x))
-        return s * (1.0 + x * (1.0 - s)) if act == "silu" else s
+    def comps(x):   # [rows, 3FP] -> the three [rows, FP]
+        return list(x.split(FP, dim=1))
 
-    gqi, gmui = np.zeros_like(q), np.zeros_like(mu)
-    n_rows = np.zeros(A, np.int64)
-    S = np.zeros((A, 16 * F))
-    for row0 in range(0, A, GEN_ROWS):
-        rows = np.arange(row0, min(A, row0 + GEN_ROWS))
-        qp = q[rows] + dq[rows]
-        mup = (mu[rows] + dmu[rows]).reshape(-1, 3, F)
-        VW = mup @ kmix                               # [r, 3, 2F]
-        V, W = VW[..., :F], VW[..., F:]
-        Vn = np.sqrt((V ** 2).sum(1) + EPS)
-        pre = qp @ k0[:F] + Vn @ k0[F:] + b0
-        h = act_np(pre)
-        bc = h @ k1[:, F:] + b1[F:]
-        b, c = bc[:, :F], bc[:, F:]
-        g = gq[rows]
-        gm = gmu[rows].reshape(-1, 3, F)
-        vw = (V * W).sum(1)
-        gW = gm * b[:, None] + (g * c)[:, None] * V
-        gV = (g * c)[:, None] * W
-        gcat = np.concatenate([g, (gm * W).sum(1), g * vw], 1)
-        gpre = (gcat @ k1.T) * dact_np(pre)
-        back = gpre @ k0.T
-        gqi[rows] = g + back[:, :F]
-        gV = gV + (back[:, F:] / Vn)[:, None] * V
-        gmui[rows] = (gm + gV @ kmix[:, :F].T + gW @ kmix[:, F:].T).reshape(
-            -1, 3 * F)
+    gqi, gmui = torch.zeros_like(q), torch.zeros_like(mu)
+    n_rows = torch.zeros(A, dtype=torch.int64)
+    S = torch.zeros(A, 16 * F, dtype=dt)
+    for row0 in range(0, A, BWD_ROWS):
+        rows = torch.arange(row0, min(A, row0 + BWD_ROWS))
+        qp = pad(q[rows] + dq[rows], 1)
+        mup = comps(pad(mu[rows] + dmu[rows], 3))
+        VW = [mm(m, kmixP) for m in mup]
+        V, W = [x[:, :FP] for x in VW], [x[:, FP:] for x in VW]
+        Vn = torch.sqrt(V[0] ** 2 + V[1] ** 2 + V[2] ** 2 + EPS)
+        pre = mm(torch.cat([qp, Vn], 1), k0P) + b0P
+        h = act_f(pre)
+        bc = mm(h, k1P[:, FP:].contiguous()) + b1P[FP:]
+        b, c = bc[:, :FP], bc[:, FP:]
+        g = pad(gq[rows], 1)
+        gm = comps(pad(gmu[rows], 3))
+        vw = V[0] * W[0] + V[1] * W[1] + V[2] * W[2]
+        gW = [gm[i] * b + (g * c) * V[i] for i in range(3)]
+        gV = [(g * c) * W[i] for i in range(3)]
+        gdmu = gm[0] * W[0] + gm[1] * W[1] + gm[2] * W[2]
+        gcat = torch.cat([g, gdmu, g * vw], 1)
+        gpre = mm(gcat, k1T) * _dact(act, pre)
+        back = mm(gpre, k0T)
+        gqp = g + back[:, :FP]
+        gV = [gV[i] + (back[:, FP:] / Vn) * V[i] for i in range(3)]
+        gmp = [gm[i] + mm(torch.cat([gV[i], gW[i]], 1), kmixT)
+               for i in range(3)]
+        lanes = [gqp, *gmp, *mup, qp, Vn, h, *gV, *gW, gpre, g, gdmu,
+                 g * vw]
+        for x in lanes:   # the padded lanes: exact zeros but Vn = sqrt(eps)
+            if x is not Vn:   # and act(0), 0 up to the log's rounding
+                tol = 1e-7 if x is h else 0.0
+                assert bool((x[:, F:].abs() <= tol).all())
+        gqi[rows] = gqp[:, :F]
+        gmui[rows] = torch.cat([x[:, :F] for x in gmp], 1)
         n_rows[rows] += 1
-        S[rows] = np.concatenate([mup.reshape(-1, 3 * F), qp, Vn, h,
-                                  gV.reshape(-1, 3 * F),
-                                  gW.reshape(-1, 3 * F), gpre, gcat], 1)
+        S[rows] = torch.cat([x[:, :F] for x in lanes[4:]], 1)
     FF = F * F
-    part = np.zeros((nsplit, 7 * FF + 4 * F))
+    part = torch.zeros(nsplit, 7 * FF + 4 * F, dtype=torch.float64)
     # mix_wgrad.cuh's problems: (x_off, y_off, M, N, terms, step, out_off,
     # out_ld, bias_off)
     probs = [(0, 6 * F, F, F, 3, F, 0, 2 * F, -1),
@@ -429,34 +457,44 @@ def _gen_bwd_walk(ins, cots, act, nsplit=3):
     for sp in range(nsplit):
         Ss = S[sp * per:min(A, (sp + 1) * per)]
         for xo, yo, M, N, terms, step, oo, ld, bo in probs:
-            acc = sum(Ss[:, xo + t * step:xo + t * step + M].T
-                      @ Ss[:, yo + t * step:yo + t * step + N]
-                      for t in range(terms))
+            acc = torch.zeros(M + 1, N, dtype=torch.float64)
+            for t in range(terms):
+                X = Ss[:, xo + t * step:xo + t * step + M]
+                X = torch.cat([X, torch.ones_like(X[:, :1])], 1)
+                Y = Ss[:, yo + t * step:yo + t * step + N]
+                for r in range(0, X.shape[0], WGRAD_STEP):
+                    acc += (X[r:r + WGRAD_STEP].t()
+                            @ Y[r:r + WGRAD_STEP]).double()
             for i in range(M):
                 part[sp, oo + i * ld:oo + i * ld + N] = acc[i]
             if bo >= 0:
-                part[sp, bo:bo + N] = Ss[:, yo:yo + N].sum(0)
-    w = part.sum(0)
-    return (gqi, gmui, w[:2 * FF].reshape(F, 2 * F),
-            w[2 * FF:4 * FF].reshape(2 * F, F), w[4 * FF:4 * FF + F],
-            w[4 * FF + F:7 * FF + F].reshape(F, 3 * F), w[7 * FF + F:],
+                part[sp, bo:bo + N] = acc[M]
+    wsum = part.sum(0)
+    return (gqi, gmui, wsum[:2 * FF].view(F, 2 * F),
+            wsum[2 * FF:4 * FF].view(2 * F, F), wsum[4 * FF:4 * FF + F],
+            wsum[4 * FF + F:7 * FF + F].view(F, 3 * F), wsum[7 * FF + F:],
             n_rows)
 
 
 @pytest.mark.parametrize("act", ["ssp", "silu"])
 @pytest.mark.parametrize("F", [30, 288])
 def test_general_backward_walk_matches_jax(F, act):
-    """The general K4 (and its wgrad reduction) at F = 30 and 288 on 37
-    rows (the last block holds one row) matches the twin in float64 to
-    1e-9 (the summation orders differ) and the JAX package's
-    ``painn_mixing_xla`` VJP, evaluated under x64 (which keeps f32
-    roundings of ~2e-7 relative), at the mixing tolerances, the weight
-    cotangents normwise within 1e-5; every row of gq' and gmu' is written
+    """The general K4 (and its wgrad reduction) at F = 30 (FP = 32, two
+    padded lanes) and 288 (FP = 288, past the shared memory's 256: the
+    kScr instance) on 37 rows (the last block ragged):
+    replayed with every product exact in float64 it matches the twin in
+    float64 to 1e-9 (the summation orders differ); replayed in the
+    kernel's arithmetic (the 3xTF32 model) it matches the twin and the JAX
+    package's ``painn_mixing_xla`` VJP, both evaluated in float64 (x64),
+    at the mixing tolerances, the weight cotangents normwise within 1e-5;
+    every padded lane is an exact zero (but Vn = sqrt(eps) and act(0),
+    within the log's rounding) and every row of gq' and gmu' is written
     exactly once."""
     c = mixing_case(A=37, F=F, seed=F)
     ins = [c[k] for k in MIX_INPUTS]
     cots = (c["gq"], c["gmu"])
     *got, n_rows = _gen_bwd_walk(ins, cots, act)
+    *got64, _ = _gen_bwd_walk(ins, cots, act, exact=True)
     assert bool((n_rows == 1).all())
     t = [torch.tensor(a).double() for a in ins]
     twin = mix.painn_mixing_bwd_plain(*t, EPS, act,
@@ -471,9 +509,82 @@ def test_general_backward_walk_matches_jax(F, act):
     # q's equals dq's (the residual), as the kernel's one gq'
     want = [want[0], want[1]] + want[4:]
     names = ("gq'", "gmu'", "gkmix", "gk0", "gb0", "gk1", "gb1")
-    for i, (name, a, w, j) in enumerate(zip(names, got, twin, want)):
-        np.testing.assert_allclose(a, w.numpy(), 1e-9, 1e-11, err_msg=name)
-        if i < 2:
-            np.testing.assert_allclose(a, j, MIX_RTOL, MIX_ATOL, err_msg=name)
-        else:   # sums over the rows: normwise, as the card's wgrad gates
-            assert np.linalg.norm(a - j) <= 1e-5 * np.linalg.norm(j), name
+    for i, (name, a, a64, w, j) in enumerate(zip(names, got, got64, twin,
+                                                 want)):
+        a, a64, w = a.double().numpy(), a64.numpy(), w.numpy()
+        np.testing.assert_allclose(a64, w, 1e-9, 1e-11, err_msg=name)
+        for ref in (w, j):
+            if i < 2:
+                np.testing.assert_allclose(a, ref, MIX_RTOL, MIX_ATOL,
+                                           err_msg=name)
+            else:   # sums over the rows: normwise, as the card's gates
+                assert (np.linalg.norm(a - ref)
+                        <= 1e-5 * np.linalg.norm(ref)), name
+
+
+@pytest.mark.parametrize("act", ["ssp", "silu"])
+def test_padded_weights_give_the_unpadded_backward(act):
+    """K4's zero-padded weights (``pad_weights``, FP = 64 at F = 50) on
+    inputs and cotangents zero-padded the same way give the unpadded
+    twin's cotangents in float64, the weight cotangents at the real rows
+    and columns of each block: on the padded lanes V = 0 and Vn =
+    sqrt(eps), whose rows of k0 are zero, act(0) meets zero rows of k1, and
+    gq' and gmu' there are exact zeros.  (The padded rows of gk0's Vn
+    block are sqrt(eps) gpre, not 0: the kernel's wgrad reduction forms
+    the cotangents at the unpadded F only.)"""
+    F = 50
+    FP = mix.fwd_width(F)
+    assert FP == 64
+    c = mixing_case(A=37, F=F, seed=7)
+    t = [torch.tensor(c[k]).double() for k in MIX_INPUTS]
+    cots = [torch.tensor(c[k]).double() for k in ("gq", "gmu")]
+    want = mix.painn_mixing_bwd_plain(*t, EPS, act, *cots, wgrad=True)
+    w = mix.pad_weights(*t[4:])
+    blocks = (1, 3, 1, 3)
+    got = mix.painn_mixing_bwd_plain(
+        *(pad_blocks(x, n, FP) for x, n in zip(t[:4], blocks)), *w, EPS, act,
+        pad_blocks(cots[0], 1, FP), pad_blocks(cots[1], 3, FP), wgrad=True)
+
+    def real(x, rb, cb):   # [rb FP, cb FP] -> the real [rb F, cb F]
+        x = x.reshape(rb, FP, cb, FP)[:, :F, :, :F]
+        return x.reshape(rb * F, cb * F), x
+
+    pairs = [(got[0][:, :F], want[0]),
+             (got[1].reshape(-1, 3, FP)[..., :F].reshape(-1, 3 * F),
+              want[1])]
+    for g, wt, rb, cb in ((got[2], want[2], 1, 2), (got[3], want[3], 2, 1),
+                          (got[5], want[5], 1, 3)):
+        pairs.append((real(g, rb, cb)[0], wt))
+    for g, wt, cb in ((got[4], want[4], 1), (got[6], want[6], 3)):
+        pairs.append((g.reshape(cb, FP)[:, :F].reshape(-1), wt))
+    assert not got[0][:, F:].any()
+    assert not got[1].reshape(-1, 3, FP)[..., F:].any()
+    for g, wt in pairs:
+        np.testing.assert_allclose(g.numpy(), wt.numpy(), rtol=1e-12,
+                                   atol=1e-12)
+
+
+def test_bwd_weights_are_made_once_per_parameter_version():
+    """``bwd_weights`` returns the same tensors (the padded weights and
+    the transposed copies, here at F = 36) until an in-place update bumps
+    a weight's version, and at F = 32 the weights themselves with their
+    transposes."""
+    c = mixing_case(F=36)
+    weights = [torch.tensor(c[k]) for k in MIX_INPUTS[4:]]
+    first = mix.bwd_weights(*weights)
+    assert len(first) == 8 and first[0].shape == (64, 128)
+    assert mix.bwd_weights(*weights) is first
+    torch.testing.assert_close(first[5], first[0].t())
+    torch.testing.assert_close(first[6], first[1].t())
+    torch.testing.assert_close(first[7], first[3].t())
+    with torch.no_grad():
+        weights[3].mul_(2.0)             # a new parameter version
+    again = mix.bwd_weights(*weights)
+    assert again is not first and mix.bwd_weights(*weights) is again
+    torch.testing.assert_close(again[3][:36, :36], weights[3][:, :36])
+    torch.testing.assert_close(again[7], again[3].t())
+    c32 = mixing_case(F=32)
+    w32 = [torch.tensor(c32[k]) for k in MIX_INPUTS[4:]]
+    got = mix.bwd_weights(*w32)
+    assert all(a is b for a, b in zip(got[:5], w32))
+    torch.testing.assert_close(got[5], w32[0].t())

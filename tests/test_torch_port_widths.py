@@ -213,10 +213,10 @@ def test_gen_per_step_names_the_general_instances():
 def test_every_width_has_an_instance(F, B):
     """No width or basis is refused: the wrappers' checks take every F >=
     1 and B >= 1, and each kernel family names the instance that runs it
-    (the tuned one where ``tuned_width`` holds, else the general one,
-    whose Z feature tiles of NT threads cover F with NT <= 256; the
-    general backwards keep what does not fit shared memory in global
-    scratch)."""
+    (the tuned one where ``tuned_width`` holds, else the general one: the
+    message instances' Z feature tiles of NT threads cover F with NT <=
+    256, the cfconv and mixing ones pad F to a multiple of 32; the general
+    instances keep what does not fit shared memory in global scratch)."""
     mix.check_width(F)
     cf.check_width(F, B)
     assert msg.tuned_width(F, B) == (F % 32 == 0 and F <= 256)
@@ -227,7 +227,9 @@ def test_every_width_has_an_instance(F, B):
     assert cf.tuned_width(F, B) == (F in (64, 128) and B <= 32)
     Z, NT = msg.gen_tiles(F), msg.gen_threads(F)
     assert NT % 32 == 0 and NT <= msg.GEN_TILE and (Z - 1) * NT < F <= Z * NT
-    assert cf.gen_tiles(F) == Z
+    Fp = cf.gen_width(F)
+    assert Fp % 32 == 0 and F <= Fp < F + 32
+    assert mix.fwd_width(F) == Fp
     if not msg.tuned_width(F, B):
         assert msg.gen_name("msg_fwd") in msg.LAUNCHES
     assert msg.gen_name("msg_bwd_geores_bf16") == "msg_bwd_geores_gen_bf16"
